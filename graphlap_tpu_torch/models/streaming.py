@@ -1,0 +1,409 @@
+"""The streaming strip_cache model: affinity strip -> coarse Sinkhorn ->
+fused strip sweeps with the inlined sketch eigensolve -> spectral filter
+(port of ``graphlap_tpu/models/streaming.py``, the slice that the config-2
+headline recipe runs).
+
+Pixels stay in NATURAL order: the (p, n_pad) strip is materialized once by
+the K1 emitter (ops/cuda_affinity) at p_pad rows with poisoned padding
+features, so its padding rows and columns are exactly zero, and every strip
+product afterwards is either a fused sweep (K2-K4, ops/cuda_strip) or a
+bf16-in / f32-out GEMM against it. Only p-sized index ops touch pixels
+(gather the sample rows, scatter the p-sized results back).
+
+Ported here: ``sinkhorn_sample_idx``, ``_strip_dot`` / ``_strip_dot_t``,
+``StreamFactor``, ``_StripCtx`` with the strip_cache + kernel branch of
+``_strip_ctx``, the strip branch of ``_coarse_sinkhorn_state``,
+``_strip_fused_ok``, ``_factor_strip_fused``, the materialized-V branch of
+``_apply_factor`` and ``filter_channel_streaming``. Every other recipe
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
+(``check_slice``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig
+from ..ops.affinity import affinity_strip, extract_features_padded
+from ..ops import cuda_affinity as k1
+from ..ops import cuda_strip as k24
+from ..ops.cuda_strip import P_QUANTUM
+from ..ops.filters import FILTER_REGISTRY
+from ..ops.linalg import trunc_inv_sqrt_vals
+from ..ops.nystrom import _LIVE_NORM2, _orthonormalize, _ridge_eps
+from ..ops.sinkhorn import _make_kaa_solve
+
+_EPS = 1e-30
+# the reference's single-chip strip bound, kept so both packages accept the
+# same configs (not re-derived for the H100's memory)
+_STRIP_BYTES_LIMIT = 8e9
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _kernels(plain: bool):
+    """(K1, K2, K3, K4) callables: the kernel wrappers, or with ``plain``
+    their PyTorch versions (the same slice on any device, with no kernel —
+    the on-card comparison of chip_smoke.py runs both)."""
+    if plain:
+        return (k1.affinity_strip_plain, k24.strip_ext2_plain,
+                k24.strip_sandwich_spost_plain, k24.strip_sandwich_plain)
+    return (k1.affinity_strip_cuda, k24.strip_ext2_cuda,
+            k24.strip_sandwich_spost_cuda, k24.strip_sandwich_cuda)
+
+
+_UNFUSED_TODO = ("strip_cache recipes outside the fused-sweep gate (the "
+                 "unfused strip sweeps) wait for ROADMAP.md Queue 1 M3")
+
+
+def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
+    """The recipe half of the fused-sweep gate: coarse Sinkhorn + one
+    polish, sketch power 0, a spectral filter."""
+    return (cfg.normalization == "sinkhorn"
+            and cfg.sinkhorn_coarse > 1 and cfg.sinkhorn_polish == 1
+            and cfg.solver == "sketch" and cfg.sketch_power == 0
+            and not cfg.operator_filter())
+
+
+def check_slice(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError, before any work, unless ``cfg`` is a
+    recipe the port runs: streaming strip_cache with the kernels, on the
+    fused-sweep recipe."""
+    todo = None
+    if not (cfg.streaming and cfg.strip_cache):
+        todo = ("non-streaming and recompute-streaming configs wait for "
+                "ROADMAP.md Queue 1 M5 (dense path) and M6 (recompute "
+                "streaming)")
+    elif cfg.operator_filter():
+        todo = ("operator filter modes (matvec/chebyshev) wait for "
+                "ROADMAP.md Queue 1 M7")
+    elif not (cfg.use_pallas and _strip_fused_recipe(cfg)):
+        todo = _UNFUSED_TODO
+    if todo:
+        raise NotImplementedError(f"graphlap_tpu_torch: {todo}")
+
+
+def sinkhorn_sample_idx(n_pad: int, k: int, w: int,
+                        mode: str = "diag") -> np.ndarray:
+    """Static column sample for the coarse Sinkhorn, one per k-slot: a
+    stride whose in-slot offset rotates by a k-coprime step per image row
+    (``mode="diag"``), or the plain ::k stride (``"stride"``). The rotation
+    removes the natural-order raster alias of a plain stride; see the
+    reference's docstring for the measurements behind it."""
+    slots = np.arange(0, n_pad, k)[: n_pad // k]
+    if mode == "stride":
+        return slots.astype(np.int32)
+    q = 7 if k % 7 else 5
+    off = (q * (slots // w)) % k
+    return (slots + off).astype(np.int32)
+
+
+class StreamFactor(NamedTuple):
+    """The streaming eigensolve's output, pre-filter."""
+
+    vals: torch.Tensor       # (m,) eigenvalues, descending
+    basis0: torch.Tensor     # (p, m) factor
+    v_a: torch.Tensor        # (p, m) A-rows of V (pre column-rescale)
+    scale: torch.Tensor      # (m,) unit-norm column rescale (0 = dead col)
+    coeffs: torch.Tensor     # (m,) scale * V^T y
+    s_a: torch.Tensor        # (p,) Sinkhorn scale at samples
+    s_b_cols: torch.Tensor   # (n_pad,) column scales (0 on A cols + padding)
+    feats_a: torch.Tensor    # (p, d)
+    feats_pad: torch.Tensor  # (n_pad, d)
+    y_pad: torch.Tensor      # (n_pad,) input pixels, zero-padded
+    v_b: torch.Tensor        # (n_pad, m) pre-rescale V
+    n: int                   # true pixel count
+    block: int               # column-block width
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for bf16 operands with an f32 result and no output rounding.
+    ``torch.matmul`` on bf16 returns bf16. On CUDA, cuBLAS writes f32
+    directly (aten::mm.dtype); the CPU has no such kernel, so there the
+    operands are upcast — products of bf16 values are exact in f32, so
+    both forms are bf16-in / f32-out."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _strip_dot(strip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """strip @ x: bf16 strips take bf16 operands with f32 accumulate and
+    output; f32 strips run full-f32 GEMMs."""
+    col = x.ndim == 1
+    x2 = x[:, None] if col else x
+    if strip.dtype == torch.bfloat16:
+        out = _mm_f32(strip, x2.to(torch.bfloat16))
+    else:
+        out = strip @ x2.to(torch.float32)
+    return out[:, 0] if col else out
+
+
+def _strip_dot_t(strip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """strip.T @ x (a transposed view: no copy)."""
+    return _strip_dot(strip.T, x)
+
+
+class _StripCtx(NamedTuple):
+    """Features, masks, the exact (p, p) block, its solve and the strip."""
+
+    n: int
+    p: int
+    n_pad: int
+    block: int
+    w: int                     # image width (the coarse sample's raster)
+    idx_a: torch.Tensor
+    feats_a: torch.Tensor
+    feats_pad: torch.Tensor
+    b_mask: torch.Tensor
+    kaa: torch.Tensor
+    kaa_solve: object
+    strip: torch.Tensor        # (p, n_pad) prefix view of strip_pad
+    strip_pad: torch.Tensor    # (p_pad, n_pad), exact-zero padding rows
+
+
+def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
+               cfg: PipelineConfig, plain: bool = False) -> _StripCtx:
+    h, w = img2d.shape
+    n = h * w
+    p = idx_a.shape[0]
+    dev = img2d.device
+    dtype = torch.bfloat16 if cfg.affinity_dtype == "bfloat16" else torch.float32
+    block = min(cfg.block_cols, n)
+    n_pad = _cdiv(n, block) * block
+    bf16_store = cfg.affinity_dtype in ("bfloat16", "bfloat16_store")
+    strip_bytes = p * n_pad * (2 if bf16_store else 4)
+    if strip_bytes > _STRIP_BYTES_LIMIT:
+        raise ValueError(
+            f"strip_cache strip would be {strip_bytes / 1e9:.1f} GB "
+            f"(p={p}, n_pad={n_pad}) — past the single-device bound")
+
+    feats_pad = extract_features_padded(img2d, cfg, n_pad)
+    feats_a = feats_pad[idx_a]                        # p-row gather only
+    d = feats_pad.shape[1]
+
+    valid = (torch.arange(n_pad, device=dev) < n).to(torch.float32)
+    a_mask = torch.zeros(n_pad, dtype=torch.float32, device=dev)
+    a_mask[idx_a] = 1.0
+    b_mask = valid * (1.0 - a_mask)                   # 1 on B columns only
+
+    kaa = affinity_strip(feats_a, feats_a, dtype)     # exact (p, p)
+    kaa_solve = _make_kaa_solve(kaa, cfg.eig_tol, cfg.solver)
+
+    store = torch.bfloat16 if bf16_store else None
+    # poison the padding feature rows: d2 >= (1e3 - |f|)^2 >> 88 there, so
+    # exp underflows to exactly 0 and the padded strip rows and columns are
+    # exact zeros. Rows and columns take opposite signs so a padding row
+    # meets a padding column at d2 = d (2e3)^2 too (the reference poisons
+    # both with +1e3 and leaves exp(0) = 1 there, where every operand of
+    # the sweeps is zero anyway).
+    feats_strip = feats_pad
+    if n_pad != n:
+        feats_strip = feats_pad.clone()
+        feats_strip[n:] = -1e3
+    p_pad = _cdiv(p, P_QUANTUM) * P_QUANTUM
+    feats_a_pois = torch.full((p_pad, d), 1e3, dtype=feats_a.dtype, device=dev)
+    feats_a_pois[:p] = feats_a
+    strip_pad = _kernels(plain)[0](feats_a_pois, feats_strip, dtype, store)
+    return _StripCtx(n=n, p=p, n_pad=n_pad, block=block, w=w,
+                     idx_a=idx_a, feats_a=feats_a, feats_pad=feats_pad,
+                     b_mask=b_mask, kaa=kaa, kaa_solve=kaa_solve,
+                     strip=strip_pad[:p], strip_pad=strip_pad)
+
+
+def _coarse_sinkhorn_state(ctx: _StripCtx, cfg: PipelineConfig):
+    """Decimated alternating Sinkhorn fixed point against every k-th strip
+    column. Returns (s_a_coarse (p,), t_r (p,), t_c (p,)): the A scales and
+    the two extension vectors the full-resolution sweeps consume."""
+    k = cfg.sinkhorn_coarse
+    if ctx.block % k != 0:
+        raise ValueError(
+            f"sinkhorn_coarse={k} must divide the active "
+            f"block width min(block_cols, N)={ctx.block}")
+    kaa, kaa_solve = ctx.kaa, ctx.kaa_solve
+    dev = ctx.b_mask.device
+    jidx = torch.as_tensor(
+        sinkhorn_sample_idx(ctx.n_pad, k, ctx.w, cfg.resolved_sinkhorn_sample()),
+        dtype=torch.int64, device=dev)
+    mask_c = ctx.b_mask[jidx]
+    ratio = torch.sum(ctx.b_mask) / torch.clamp(torch.sum(mask_c), min=1.0)
+    strip_c = ctx.strip[:, jidx]                      # (p, n_pad / k), once
+    u0 = ratio * _strip_dot(strip_c, mask_c)
+
+    def coarse_step(t):
+        y = _strip_dot_t(strip_c, t)
+        return ratio * _strip_dot(strip_c, mask_c / torch.clamp(y, min=_EPS))
+
+    r_a = c_a = torch.ones(ctx.p, dtype=torch.float32, device=dev)
+    u_r = u0
+    t_r = t_c = torch.zeros(ctx.p, dtype=torch.float32, device=dev)
+    for _ in range(cfg.sinkhorn_iters):
+        c_a = 1.0 / torch.clamp(kaa @ r_a + u_r, min=_EPS)
+        t_r = r_a + kaa_solve(u_r)
+        u_c = coarse_step(t_r)
+        r_a = 1.0 / torch.clamp(kaa @ c_a + u_c, min=_EPS)
+        t_c = c_a + kaa_solve(u_c)
+        u_r = coarse_step(t_c)
+    s_a_coarse = torch.sqrt(torch.clamp(r_a * c_a, min=0.0))
+    return s_a_coarse, t_r, t_c
+
+
+def _strip_fused_ok(ctx: _StripCtx, cfg: PipelineConfig) -> bool:
+    """Gate of the fused strip sweeps: the padded strip exists and the
+    recipe is the coarse + one-polish sketch pipeline they fuse."""
+    return ctx.strip_pad is not None and _strip_fused_recipe(cfg)
+
+
+def _solve_lt(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with L^T x = b (L lower triangular)."""
+    return torch.linalg.solve_triangular(l.T, b, upper=True)
+
+
+def _solve_l(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with L x = b (L lower triangular)."""
+    return torch.linalg.solve_triangular(l, b, upper=False)
+
+
+def sketch_omega(p: int, k: int, device) -> torch.Tensor:
+    """The sketch's (p, k) Gaussian test matrix, from a seed-0 generator on
+    ``device`` (the reference draws jax.random.normal(PRNGKey(0)), which
+    torch cannot reproduce: parity tests pass that matrix in instead)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn((p, k), generator=gen, dtype=torch.float32,
+                       device=device)
+
+
+def _factor_strip_fused(img2d: torch.Tensor, ctx: _StripCtx,
+                        cfg: PipelineConfig,
+                        omega: torch.Tensor | None = None,
+                        plain: bool = False) -> StreamFactor:
+    """Four-sweep fused strip_cache factor:
+
+        sweep 1  K2 strip_ext2:           kbt + s_pre + polish matvec
+        sweep 2  K3 strip_sandwich_spost: polish rmatvec + s_post +
+                                          sketch sandwich pass 1
+        sweep 3  K4 strip_sandwich:       sketch sandwich pass 2
+        sweep 4  colstats GEMM:           V + norms + coeffs
+
+    with the randomized sketch solve (power 0) inlined so its two M-applies
+    ride sweeps 2 and 3. ``omega``: optional (p, k) test matrix; default
+    ``sketch_omega``; ``plain`` runs the kernels' PyTorch versions."""
+    _, strip_ext2, strip_sandwich_spost, strip_sandwich = _kernels(plain)
+    idx_a, n, p, n_pad = ctx.idx_a, ctx.n, ctx.p, ctx.n_pad
+    strip_pad = ctx.strip_pad
+    p_pad = strip_pad.shape[0]
+    m = cfg.num_eigvecs
+    dev = strip_pad.device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    s_a_pre, t_r, t_c = _coarse_sinkhorn_state(ctx, cfg)
+
+    # sweep 1: extension rmatvec2 + pre-polish scales + polish matvec
+    t2 = torch.zeros((2, p_pad), **f32)
+    t2[0, :p] = t_r
+    t2[1, :p] = t_c
+    u_pad, s_pre = strip_ext2(strip_pad, t2, ctx.b_mask)
+    u = u_pad[:p]
+
+    # p-side polish update (the completion matvec's top and t)
+    top = ctx.kaa @ s_a_pre + u
+    t_vec = s_a_pre + ctx.kaa_solve(u)
+    s_a = torch.sqrt(s_a_pre / torch.clamp(top, min=_EPS))  # post-polish
+
+    # inlined randomized sketch (power 0), A scales folded into the operand
+    waa = ctx.kaa * (s_a[:, None] * s_a[None, :])
+    k = min(m + cfg.sketch_oversample, p)
+    kp = _cdiv(k, 128) * 128
+    eps = _ridge_eps(waa, cfg.eig_tol)
+    l = torch.linalg.cholesky(waa + eps * torch.eye(p, **f32))
+
+    def pad_ta(tmat):                   # (p, k) -> (p_pad, kp), A-scaled
+        out = torch.zeros((p_pad, kp), **f32)
+        out[:p, :k] = tmat * s_a[:, None]
+        return out
+
+    om = sketch_omega(p, k, dev) if omega is None else omega.to(**f32)
+    if om.shape != (p, k):
+        raise ValueError(f"omega shape {tuple(om.shape)} != {(p, k)}")
+    t1 = _solve_lt(l, om)
+    t_pad = torch.zeros(p_pad, **f32)
+    t_pad[:p] = t_vec
+    # sweep 2: polish rmatvec + post-polish scales + sandwich(t1)
+    u1, s_post = strip_sandwich_spost(strip_pad, pad_ta(t1), t_pad,
+                                      s_pre, ctx.b_mask)
+    sb1 = u1[:p, :k] * s_a[:, None]
+    y = _solve_l(l, waa @ (waa @ t1) + sb1)
+    q = _orthonormalize(y)
+    tq = _solve_lt(l, q)
+    # sweep 3: sandwich(tq) with the known post-polish scales
+    u2 = strip_sandwich(strip_pad, pad_ta(tq), s_post * s_post)
+    b = q.T @ _solve_l(l, waa @ (waa @ tq) + u2[:p, :k] * s_a[:, None])
+    b = 0.5 * (b + b.T)
+    vals, svecs = torch.linalg.eigh(b)
+    vals_m = torch.flip(vals, (0,))[:m]
+    y_m = q @ torch.flip(svecs, (1,))[:, :m]
+    basis0 = _solve_lt(l, y_m * trunc_inv_sqrt_vals(vals_m, cfg.eig_tol)[None, :])
+
+    # sweep 4: strip-backed colstats
+    s_b_cols = s_post[:n_pad]
+    y_pad = torch.zeros(n_pad, **f32)
+    y_pad[:n] = img2d.to(torch.float32).reshape(-1)
+    v_b = _strip_dot_t(ctx.strip, basis0 * s_a[:, None]) * s_b_cols[:, None]
+    norms_b = torch.sum(v_b * v_b, dim=0)
+    coeffs_b = v_b.T @ y_pad
+
+    v_a = waa @ basis0
+    dnorm = torch.sum(v_a * v_a, dim=0) + norms_b
+    live = dnorm > _LIVE_NORM2
+    scale = torch.where(live, 1.0 / torch.sqrt(torch.where(live, dnorm, 1.0)),
+                        0.0)
+    coeffs = scale * (v_a.T @ y_pad[idx_a] + coeffs_b)
+    return StreamFactor(vals=vals_m, basis0=basis0, v_a=v_a, scale=scale,
+                        coeffs=coeffs, s_a=s_a, s_b_cols=s_b_cols,
+                        feats_a=ctx.feats_a, feats_pad=ctx.feats_pad,
+                        y_pad=y_pad, v_b=v_b, n=n, block=ctx.block)
+
+
+def _factor_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
+                      cfg: PipelineConfig,
+                      omega: torch.Tensor | None = None,
+                      plain: bool = False) -> StreamFactor:
+    """Affinity -> normalization -> Nystrom eigensolve on the strip."""
+    check_slice(cfg)
+    ctx = _strip_ctx(img2d, idx_a, cfg, plain)
+    if _strip_fused_ok(ctx, cfg):
+        return _factor_strip_fused(img2d, ctx, cfg, omega, plain)
+    raise NotImplementedError(f"graphlap_tpu_torch: {_UNFUSED_TODO}")
+
+
+def _apply_factor(fac: StreamFactor, idx_a: torch.Tensor,
+                  cfg: PipelineConfig, h: int, w: int):
+    """Spectral filter through the factor's materialized V. Returns
+    (z2d, vals)."""
+    filt = FILTER_REGISTRY[cfg.filter_name]
+    fvals = filt.fn(fac.vals, cfg.filter_param)
+    g = (fvals - 1.0) if filt.affine else fvals
+    wvec = fac.scale * g * fac.coeffs                 # (m,)
+    z_full = fac.v_b @ wvec                           # one skinny GEMM
+    z_full[idx_a] = fac.v_a @ wvec                    # p scatter
+    if filt.affine:
+        z_full = z_full + fac.y_pad
+    z = z_full[:fac.n].reshape(h, w)
+    return torch.clamp(z, 0.0, 1.0), fac.vals
+
+
+def filter_channel_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
+                             cfg: PipelineConfig,
+                             omega: torch.Tensor | None = None,
+                             plain: bool = False):
+    """One grayscale channel through the strip_cache slice. Returns
+    (z2d, vals) on ``img2d``'s device. The reference's perm / inv_perm
+    parameters are never read there, so the port does not take them."""
+    h, w = img2d.shape
+    fac = _factor_streaming(img2d, idx_a, cfg, omega, plain)
+    return _apply_factor(fac, idx_a, cfg, h, w)

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use (never at import: modules of the port import on machines
+without a CUDA toolkit) into ``build/torch_kernels/`` beside the package,
+named by a hash of the sources and flags so an edited source rebuilds.
+``build/`` is git-ignored.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+# C signatures (all kernels return cudaGetLastError() as an int)
+_SIGNATURES = {
+    "glt_affinity_strip": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "glt_ext2_smem_bytes": ([_I], _Z),
+    "glt_strip_ext2": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "glt_strip_sandwich": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P], _I),
+}
+
+_LIB = None
+BUILD_SECONDS: float | None = None   # wall of the last build in this process
+PTXAS_LOG: str = ""                  # nvcc's -Xptxas -v report of that build
+
+
+def _nvcc() -> str:
+    cand = [shutil.which("nvcc"),
+            os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                         "bin", "nvcc")]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the port's CUDA kernels build on a "
+                       "machine with the CUDA toolkit (CUDA_HOME or PATH)")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def lib_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libglt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global BUILD_SECONDS, PTXAS_LOG
+    out = lib_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    PTXAS_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
+                           f"{PTXAS_LOG[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _LIB
+    if _LIB is None:
+        so = ctypes.CDLL(str(build()))
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = args
+            fn.restype = res
+        _LIB = so
+    return _LIB
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,79 @@
+"""K1 — the fused strip emitter (port of
+``graphlap_tpu/ops/pallas_affinity.py:affinity_strip_pallas``).
+
+``affinity_strip_cuda`` computes the K strip (p, N) = exp(-|f_Ai - f_j|^2)
+with the distance GEMM and the exp in one kernel
+(``csrc/affinity_strip.cu``: IEEE f32 SIMT GEMM, exp epilogue, bf16 or f32
+store), so the f32 distance matrix never reaches device memory. The GEMM
+inputs round to ``dtype`` first and the norms come from those rounded
+values, as in the Pallas body; ``store_dtype`` narrows only the stored
+strip (the bfloat16_store policy).
+
+Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
+arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
+raises. There is no fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+def _device_kind(*ts: torch.Tensor) -> str:
+    """'cpu' or 'cuda' when every tensor lies there; raises otherwise."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return "cpu"
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return "cuda"
+    raise ValueError(f"tensors on {sorted(str(t.device) for t in ts)}: the "
+                     f"kernels take all-CPU (plain version) or one CUDA device")
+
+
+def _out_dtype(store_dtype) -> torch.dtype:
+    out = torch.float32 if store_dtype is None else store_dtype
+    if out not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"store_dtype must be None, float32 or bfloat16, "
+                         f"got {store_dtype}")
+    return out
+
+
+def affinity_strip_plain(feats_a: torch.Tensor, feats_all: torch.Tensor,
+                         dtype: torch.dtype = torch.float32,
+                         store_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """PyTorch version of K1 with the kernel's rounding points."""
+    a = feats_a.to(dtype).to(torch.float32)
+    b = feats_all.to(dtype).to(torch.float32)
+    cross = a @ b.T
+    na = torch.sum(a * a, dim=1)
+    nb = torch.sum(b * b, dim=1)
+    d2 = torch.clamp(na[:, None] + nb[None, :] - 2.0 * cross, min=0.0)
+    return torch.exp(-d2).to(_out_dtype(store_dtype))
+
+
+def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
+                        dtype: torch.dtype = torch.float32,
+                        store_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K strip (p, N) = exp(-|f_Ai - f_j|^2) from (p, d) and (N, d)
+    features. CPU tensors: the plain version; CUDA tensors: the kernel."""
+    if _device_kind(feats_a, feats_all) == "cpu":
+        return affinity_strip_plain(feats_a, feats_all, dtype, store_dtype)
+    out_dtype = _out_dtype(store_dtype)
+    p, d = feats_a.shape
+    n, d2 = feats_all.shape
+    if d2 != d:
+        raise ValueError(f"feature dims differ: {d} vs {d2}")
+    a = feats_a.to(dtype).to(torch.float32).contiguous()
+    bt = feats_all.to(dtype).to(torch.float32).T.contiguous()     # (d, n)
+    out = torch.empty((p, n), dtype=out_dtype, device=feats_a.device)
+    rc = _build.lib().glt_affinity_strip(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), p, n, d,
+        int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
+    _build.check(rc, "affinity_strip")
+    affinity_strip_cuda.launches += 1
+    return out
+
+
+affinity_strip_cuda.launches = 0

@@ -1,0 +1,185 @@
+"""K2-K4 — the fused strip sweeps of the strip_cache factor (port of
+``graphlap_tpu/ops/pallas_streaming.py:898-1152``).
+
+Each wrapper consumes a materialized (P, N) strip whose padding rows and
+columns are exactly zero (the K1 emitter poisons the padding features so
+exp underflows to 0):
+
+* ``strip_ext2_cuda`` (K2, ``strip_ext2_pallas``): Sinkhorn extension +
+  polish matvec — kbt = K^T [t_r, t_c], s = bm / sqrt(max(kbt_r kbt_c,
+  eps)), u = K s.
+* ``strip_sandwich_spost_cuda`` (K3, ``strip_sandwich_spost_pallas``):
+  polish rmatvec + post-polish scales + first sketch sandwich —
+  ks = K^T t, s_post = sqrt(s_pre / max(ks, eps)) bm,
+  u = K bf16((K^T ta) s_post^2).
+* ``strip_sandwich_cuda`` (K4, ``strip_sandwich_pallas``):
+  u = K bf16((K^T ta) s2).
+
+Rounding points are the Pallas bodies': t2, t and ta round to the strip
+dtype before the products, products accumulate in f32, and the sandwich's
+ws rounds to the strip dtype before the second product. CPU tensors take
+the ``*_plain`` versions (PyTorch ops with those rounding points); CUDA
+tensors launch ``csrc/strip_sweeps.cu`` on a bf16 strip, whose row count
+must be a multiple of ``P_QUANTUM``. There is no fallback from a kernel to
+its plain version. A CUDA f32 strip raises ``NotImplementedError``: an IEEE
+f32 sweep kernel waits for ROADMAP.md Queue 2 (K2-K4, f32 strips).
+
+Strip reads a call on CUDA: K2 2, K3 2, K4 2 (the Pallas kernels read it
+once each; fusing the two phases is later work).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .cuda_affinity import _device_kind
+
+EPS = 1e-30
+P_QUANTUM = 128          # strip rows per sandwich tile (csrc P2_BM)
+KP_QUANTUM = 256         # sketch columns per sandwich tile (csrc P1_BN)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to the strip dtype, carried in f32."""
+    return x.to(dtype).to(torch.float32)
+
+
+# --- plain versions -------------------------------------------------------
+
+def strip_ext2_plain(strip, t2, b_mask):
+    kb = strip.to(torch.float32)
+    kbt = _rounded(t2, strip.dtype) @ kb                    # (2, N)
+    prod = torch.clamp(kbt[0] * kbt[1], min=EPS)
+    s = b_mask.to(torch.float32) / torch.sqrt(prod)
+    return kb @ s, s
+
+
+def _sandwich_plain(kb, ta, s2, dtype):
+    w = kb.T @ _rounded(ta, dtype)                          # (N, kp)
+    ws = _rounded(w * s2[:, None], dtype)
+    return kb @ ws
+
+
+def strip_sandwich_spost_plain(strip, ta, t, s_pre, b_mask):
+    kb = strip.to(torch.float32)
+    ks = _rounded(t, strip.dtype) @ kb
+    s_post = (torch.sqrt(s_pre.to(torch.float32) / torch.clamp(ks, min=EPS))
+              * b_mask.to(torch.float32))
+    return _sandwich_plain(kb, ta, s_post * s_post, strip.dtype), s_post
+
+
+def strip_sandwich_plain(strip, ta, s2):
+    kb = strip.to(torch.float32)
+    return _sandwich_plain(kb, ta, s2.to(torch.float32), strip.dtype)
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def _check_strip(strip: torch.Tensor, what: str) -> None:
+    if strip.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: the CUDA sweep kernels take a bf16 strip (the "
+            f"bfloat16_store main path); an IEEE f32 sweep waits for "
+            f"ROADMAP.md Queue 2 (K2-K4, f32 strips)")
+    if not strip.is_contiguous():
+        raise ValueError(f"{what}: strip must be contiguous")
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def strip_ext2_cuda(strip, t2, b_mask):
+    """((P, N) strip, (2, P), (N,)) -> (u (P,) f32, s (N,) f32)."""
+    if _device_kind(strip, t2, b_mask) == "cpu":
+        return strip_ext2_plain(strip, t2, b_mask)
+    _check_strip(strip, "strip_ext2")
+    p, n = strip.shape
+    if t2.shape != (2, p) or b_mask.shape != (n,):
+        raise ValueError(f"strip_ext2: shapes {tuple(t2.shape)}, "
+                         f"{tuple(b_mask.shape)} do not fit strip {(p, n)}")
+    lib = _build.lib()
+    smem = lib.glt_ext2_smem_bytes(p)
+    if smem > 227 * 1024:
+        raise ValueError(f"strip_ext2: P={p} needs {smem} B of shared memory")
+    blocks = min(math.ceil(n / 128), 3 * _sms(strip))
+    t2b = t2.to(torch.bfloat16).contiguous()
+    bm = _f32(b_mask)
+    s = torch.empty(n, dtype=torch.float32, device=strip.device)
+    u_part = torch.empty((blocks, p), dtype=torch.float32, device=strip.device)
+    u = torch.empty(p, dtype=torch.float32, device=strip.device)
+    rc = lib.glt_strip_ext2(strip.data_ptr(), t2b.data_ptr(), bm.data_ptr(),
+                            s.data_ptr(), u_part.data_ptr(), u.data_ptr(),
+                            p, n, blocks, _build.stream_ptr(strip))
+    _build.check(rc, "strip_ext2")
+    strip_ext2_cuda.launches += 1
+    return u, s
+
+
+def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
+    _check_strip(strip, what)
+    p, n = strip.shape
+    kp = ta.shape[1]
+    if ta.shape[0] != p:
+        raise ValueError(f"{what}: ta rows {ta.shape[0]} != strip rows {p}")
+    for name, x, size in (("t", t, p), ("s_pre", s_pre, n),
+                          ("b_mask", b_mask, n), ("s2", s2, n)):
+        if x is not None and x.shape != (size,):
+            raise ValueError(f"{what}: {name} shape {tuple(x.shape)} != "
+                             f"{(size,)}")
+    if p % P_QUANTUM:
+        raise ValueError(f"{what}: strip rows {p} must be a multiple of "
+                         f"{P_QUANTUM}")
+    kp2 = math.ceil(kp / KP_QUANTUM) * KP_QUANTUM
+    dev = strip.device
+    tab = torch.zeros((p, kp2), dtype=torch.bfloat16, device=dev)
+    tab[:, :kp] = ta.to(torch.bfloat16)
+    tiles = (p // P_QUANTUM) * (kp2 // KP_QUANTUM)
+    splits = max(1, min(math.ceil(4 * _sms(strip) / tiles),
+                        math.ceil(n / 2048)))
+    ws = torch.empty((n, kp2), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((splits, p, kp2), dtype=torch.float32, device=dev)
+    u = torch.empty((p, kp2), dtype=torch.float32, device=dev)
+    s_post = torch.empty(n, dtype=torch.float32, device=dev)
+    # K4 passes None for t, s_pre and b_mask; K3 for s2 (NULL in C)
+    tb = None if t is None else t.to(torch.bfloat16).contiguous()
+    vecs = [None if x is None else _f32(x) for x in (s_pre, b_mask, s2)]
+    ptrs = [None if x is None else x.data_ptr() for x in (tb, *vecs)]
+    rc = _build.lib().glt_strip_sandwich(
+        strip.data_ptr(), tab.data_ptr(), *ptrs, s_post.data_ptr(),
+        ws.data_ptr(), part.data_ptr(), u.data_ptr(), p, n, kp2, splits,
+        _build.stream_ptr(strip))
+    _build.check(rc, what)
+    return u[:, :kp], s_post
+
+
+def strip_sandwich_spost_cuda(strip, ta, t, s_pre, b_mask):
+    """((P, N) strip, (P, kp), (P,), (N,), (N,)) ->
+    (u (P, kp) f32, s_post (N,) f32)."""
+    if _device_kind(strip, ta, t, s_pre, b_mask) == "cpu":
+        return strip_sandwich_spost_plain(strip, ta, t, s_pre, b_mask)
+    out = _sandwich_launch(strip, ta, t, s_pre, b_mask, None,
+                           "strip_sandwich_spost")
+    strip_sandwich_spost_cuda.launches += 1
+    return out
+
+
+def strip_sandwich_cuda(strip, ta, s2):
+    """((P, N) strip, (P, kp), (N,) squared column scales) -> u (P, kp)."""
+    if _device_kind(strip, ta, s2) == "cpu":
+        return strip_sandwich_plain(strip, ta, s2)
+    u, _ = _sandwich_launch(strip, ta, None, None, None, s2, "strip_sandwich")
+    strip_sandwich_cuda.launches += 1
+    return u
+
+
+strip_ext2_cuda.launches = 0
+strip_sandwich_spost_cuda.launches = 0
+strip_sandwich_cuda.launches = 0
