@@ -1,24 +1,40 @@
-"""On-card smoke run of graphlap_tpu_torch: the config-2 strip_cache denoise
-path on one NVIDIA GPU, through its hand-written CUDA kernels.
+"""On-card smoke run of graphlap_tpu_torch: both ported paths on one NVIDIA
+GPU, through their hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
-Phases (each prints a line; any failure raises and exits non-zero before
-the last line is printed):
+Phases (each prints a line with its wall; any failure raises and exits
+non-zero before the last line is printed):
 
-1. device  — CUDA must be available; prints the card's name and power limit.
-2. build   — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a).
-3. kernels — K1-K4 at the main path's shapes (p=5243 padded to 5248 rows,
-             N=512*512, bf16 strip, sketch width 256), each against its
-             plain PyTorch version on the card, timed with CUDA events.
-4. e2e     — the bench.make_workload recipe (512x512 test image, noise
-             sigma 0.1 seed 1, CONFIG2 + strip_cache/kernels/sketch o206 p0)
-             through graphlap_tpu_torch.filter_image: one warm-up and three
-             timed runs, launch counts, peak memory, PSNR in/out; the same
-             factor through the plain versions on the card; and a 96x96
-             image on the card against the plain versions on the CPU.
-5. result  — one JSON line per kernel, then the contract line
-             {"ok": true, "device": {...}}.
+1. device   — CUDA must be available; prints the card's name and power limit.
+2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+              process a source, all started together.
+3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
+              test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
+              kernels, sketch o206 p0):
+   kernels  K1-K4 at the path's shapes (p=5243 padded to 5248 rows,
+            N=512*512, bf16 strip, sketch width 256), each against its
+            plain PyTorch version on the card, timed with CUDA events;
+   e2e      filter_image: one warm-up and three timed runs with the launch
+            counts set to 0 just before them, peak memory, PSNR in/out; the
+            same factor through the plain versions on the card; a 96x96
+            image on the card against the plain versions on the CPU.
+4. config 4 — the recompute-streaming fused-finish path (benchmarks/run.py's
+              cfg4_8mp_compliant_turbo_p1: 2048x4096 test image, sigma 0.1
+              seed 1, p=4096, m=50, bf16 tiles, coarse Sinkhorn and gram
+              1/64, one polish, LOBPCG):
+   kernels  K7-K9 at the path's 8 MP shapes on its own features and
+            layouts, scale vectors from a seeded generator, each against
+            its plain version on the card, timed with CUDA events;
+   e2e-8mp  filter_image: one warm-up and three timed runs (counts set to 0
+            just before), walls, peak memory, PSNR in/out, launches;
+   plain    the same factor through the plain versions on the card;
+   small    96x96 on the recompute recipe of tests/test_torch_recompute.py,
+            card kernels against CPU plain versions, same LOBPCG start.
+5. result   — one JSON line listing every kernel (name, route, source,
+              replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
+              bound_by, library_ms), the card line, then the contract line
+              {"ok": true, "device": {...}}.
 
 Needs one CUDA card and the CUDA toolkit; imports neither JAX nor the JAX
 package. Extra detail (nvcc's register report, all numbers) goes to
@@ -37,9 +53,14 @@ import numpy as np
 import torch
 
 H = W = 512
+H8, W8 = 2048, 4096
 RUNS = 3
-# kernel vs plain tolerances at the main-path shapes: absolute for the
-# strip (its entries lie in [0, 1]), else relative to max|plain|
+# the card's published peaks (H100 SXM data sheet, dense): the bound of a
+# kernel is the larger of its least bytes over the memory rate and its
+# operations over the peak of their type
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# kernel vs plain tolerances at the paths' shapes: absolute for bf16 tiles
+# with entries in [0, 1] (K1, K7), else relative to max|plain|
 TOL = {
     # bf16 store: the kernel's f32 FMA order moves d2 by ~1e-6, which can
     # flip a stored value by one bf16 ulp (2^-8 below 1.0)
@@ -50,25 +71,46 @@ TOL = {
     # rounding boundary (one ulp, 2^-8 relative, on a few entries)
     "strip_sandwich_spost": 2e-3,
     "strip_sandwich": 2e-3,
+    # the tensor-core f32 sum order moves the aug d2 in its last bits, so
+    # bf16(d2) can flip a tile entry by one ulp; the product with bf16(cols)
+    # rounds once more: two bf16 ulps (2^-7) absolute
+    "kb_strip": 2.0 ** -7,
+    # the same tile flips, summed over 4096 rows and 8.4M columns in
+    # another f32 order (the reference test's bf16 bar for this kernel)
+    "ext2_matvec": 2e-2,
+    # K9 rounds s_j to bf16 before the V product: where ks sums in another
+    # f32 order, bf16(s_j) can land on the other neighbour and scale a whole
+    # V row by one bf16 ulp (2^-8), and tile entries of the row flip as in
+    # K8 — two bf16 ulps (2^-7) of max |V| at 8.4M rows (the reference's
+    # 5e-3 bar holds at its 2048-column test shape); norms and coeffs are
+    # checked against their sums of term magnitudes
+    "finish_colstats": 2.0 ** -7,
 }
-NAMES = list(TOL)
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
     "strip_ext2": "graphlap_tpu/ops/pallas_streaming.py:940",
     "strip_sandwich_spost": "graphlap_tpu/ops/pallas_streaming.py:1045",
     "strip_sandwich": "graphlap_tpu/ops/pallas_streaming.py:1110",
+    "kb_strip": "graphlap_tpu/ops/pallas_streaming.py:319",
+    "ext2_matvec": "graphlap_tpu/ops/pallas_streaming.py:554",
+    "finish_colstats": "graphlap_tpu/ops/pallas_streaming.py:677",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
     "strip_ext2": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich_spost": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
+    "kb_strip": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "ext2_matvec": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "finish_colstats": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
 }
+NAMES = list(TOL)
 OUT = Path("build") / "chip_smoke"
 
 
-def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+def phase(name: str, msg: str, t0: float | None = None) -> None:
+    wall = "" if t0 is None else f" [{time.perf_counter() - t0:.1f} s]"
+    print(f"[{name}] {msg}{wall}", flush=True)
 
 
 def require(ok, msg: str) -> None:
@@ -91,16 +133,95 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def max_rel_err(got, ref) -> tuple[float, float]:
-    """(max |got - ref|, that divided by max |ref|) over paired outputs."""
-    err = scale = 0.0
-    for g, r in zip(got, ref):
+def max_rel_err(got, ref, scales=None) -> tuple[float, list]:
+    """(max |got - ref| over paired outputs, each output's max |got - ref|
+    over its scale: max |ref|, or the given scale tensor elementwise)."""
+    err, rels = 0.0, []
+    for i, (g, r) in enumerate(zip(got, ref)):
         g, r = g.float(), r.float()
         require(g.shape == r.shape, f"shape {g.shape} != {r.shape}")
         require(bool(torch.isfinite(g).all()), "non-finite kernel output")
-        err = max(err, float((g - r).abs().max()))
-        scale = max(scale, float(r.abs().max()))
-    return err, err / max(scale, 1e-30)
+        e = (g - r).abs()
+        err = max(err, float(e.max()))
+        if scales is not None and scales[i] is not None:
+            rels.append(float((e / scales[i].clamp_min(1e-30)).max()))
+        else:
+            rels.append(float(e.max()) / max(float(r.abs().max()), 1e-30))
+    return err, rels
+
+
+def colstats_scales(y):
+    """K9's error scales: max |ref| for V and s; for norms and coeffs, the
+    sums of their terms' magnitudes (sum_j V_jm^2, sum_j |y_j V_jm|), the
+    scale of an f32 sum's order error — coeffs cancel (V takes both signs),
+    so max |coeffs| would measure the cancellation, not the kernel."""
+    def scales(ref):
+        v = ref[0]
+        return (None, torch.sum(v * v, dim=0), torch.abs(y) @ torch.abs(v),
+                None)
+    return scales
+
+
+def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0):
+    """(bound_ms, bound_by): the least time for the same work on this
+    card."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(bf16_flops / PEAK_BF16, f32_flops / PEAK_F32)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def run_cases(cases: dict, rows: dict) -> None:
+    """Each kernel against its plain version, then both timed."""
+    for name, (kern, plain, args, bnd, *scale_fn) in cases.items():
+        t0 = time.perf_counter()
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        pair = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        scales = scale_fn[0](ref) if scale_fn else None
+        err, rels = max_rel_err(*pair, scales)
+        rel = max(rels)
+        if name in ("affinity_strip", "kb_strip"):
+            rel = err                                 # absolute, see TOL
+        del got, ref, scales
+        ms_k = cuda_ms(lambda: kern(*args), 5)
+        ms_p = cuda_ms(lambda: plain(*args), 2)
+        b_ms, b_by = bnd
+        phase("kernel", f"{name}: max_abs_err {err:.3e} (checked {rel:.3e}"
+              f" = max of {[f'{r:.2e}' for r in rels]}, "
+              f"tol {TOL[name]:.1e}); kernel {ms_k:.3f} ms, plain {ms_p:.3f} "
+              f"ms, bound {b_ms:.3f} ms ({b_by})", t0)
+        require(rel <= TOL[name], f"{name} disagrees with its plain version")
+        rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms_k, plain_ms=ms_p,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        torch.cuda.empty_cache()
+
+
+def drive(gt, noisy, cfg, plan, dev, counters, tag):
+    """filter_image: a warm-up, then RUNS timed calls with every count set
+    to 0 just before them. Returns (result, walls, peak bytes, launches)."""
+    gt.filter_image(noisy, cfg, plan=plan, device=dev)          # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        res = gt.filter_image(noisy, cfg, plan=plan, device=dev)
+        walls.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, c in launches.items():
+        require(c > 0, f"{name}: the {tag} path never launched its kernel")
+    return res, walls, peak, launches
+
+
+def noisy_image(gt, h, w):
+    img = gt.make_test_image(h, w)
+    noisy = np.ascontiguousarray(
+        np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0, 1), np.float32)
+    return img, noisy
 
 
 def make_workload(gt):
@@ -112,14 +233,250 @@ def make_workload(gt):
                              sinkhorn_iters=6, solver="sketch",
                              sketch_oversample=206, sketch_power=0,
                              sinkhorn_coarse=16, sinkhorn_polish=1)
-    img = gt.make_test_image(H, W)
-    noisy = np.ascontiguousarray(
-        np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0, 1), np.float32)
+    img, noisy = noisy_image(gt, H, W)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_8mp(gt, h=H8, w=W8):
+    """benchmarks/run.py's cfg4_8mp_compliant_turbo_p1 (row4 + row4p),
+    rebuilt on the port: (cfg, clean image, noisy f32 image, plan)."""
+    cfg = gt.PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
+        streaming=True, block_cols=65536, affinity_dtype="bfloat16",
+        use_pallas=True, sinkhorn_coarse=64, gram_coarse=64,
+        sinkhorn_polish=1, fused_finish=True)
+    img, noisy = noisy_image(gt, h, w)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def config2(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_strip as k24
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    strip, p = ctx.strip_pad, ctx.p
+    pp, n = strip.shape
+    d = ctx.feats_a.shape[1]
+    k = min(cfg.num_eigvecs + cfg.sketch_oversample, p)
+    kp = -(-k // 128) * 128
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)  # noqa: E731
+    feats_a = torch.full((pp, d), 1e3, device=dev)
+    feats_a[:p] = ctx.feats_a
+    t2 = torch.zeros((2, pp), device=dev)
+    t2[:, :p] = 0.5 + rand(2, p)
+    ta = torch.zeros((pp, kp), device=dev)
+    ta[:p] = rand(p, kp) - 0.5
+    t1 = torch.zeros(pp, device=dev)
+    t1[:p] = 0.5 + rand(p)
+    s_pre = (0.5 + rand(n)) * ctx.b_mask
+    s2 = (0.5 + rand(n)) * ctx.b_mask
+    e, kp2 = pp * n, 256
+    vec = 4 * n * 3 + 4 * pp * 3
+    cases = {
+        "affinity_strip": (k1.affinity_strip_cuda, k1.affinity_strip_plain,
+                           (feats_a, ctx.feats_pad, torch.float32,
+                            torch.bfloat16),
+                           bound(2 * e + 4 * d * (pp + n), 0, e * (2 * d + 5))),
+        "strip_ext2": (k24.strip_ext2_cuda, k24.strip_ext2_plain,
+                       (strip, t2, ctx.b_mask), bound(2 * e + vec, 0, 6 * e)),
+        "strip_sandwich_spost": (k24.strip_sandwich_spost_cuda,
+                                 k24.strip_sandwich_spost_plain,
+                                 (strip, ta, t1, s_pre, ctx.b_mask),
+                                 bound(2 * e + 4 * pp * kp2 * 2 + vec,
+                                       4 * e * kp2, 2 * e)),
+        "strip_sandwich": (k24.strip_sandwich_cuda, k24.strip_sandwich_plain,
+                           (strip, ta, s2),
+                           bound(2 * e + 4 * pp * kp2 * 2 + vec, 4 * e * kp2)),
+    }
+    phase("config2", f"workload and strip context at {H}x{W} (p={p}, "
+          f"p_pad={pp}, N={n})", t0)
+    run_cases(cases, rows)
+    del ctx, strip, cases
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    counters = {"affinity_strip": k1.affinity_strip_cuda,
+                "strip_ext2": k24.strip_ext2_cuda,
+                "strip_sandwich_spost": k24.strip_sandwich_spost_cuda,
+                "strip_sandwich": k24.strip_sandwich_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "config-2")
+    launches.update(counts)
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e", f"walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB; launches over {RUNS} calls "
+          f"{counts}", t0)
+    require(res.image.shape == (H, W) and np.isfinite(res.image).all(),
+            "output is not a finite (H, W) image")
+    require(psnr_out > psnr_in + 5.0, "denoise gain under 5 dB")
+
+    t0 = time.perf_counter()
+    z_plain, _ = _filter_channel(img_d, idx_d, cfg, plain=True)
+    z_plain = z_plain.cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("e2e", f"kernel vs plain path on the card: {d_db:.5f} dB, max "
+          f"|diff| {d_max:.3e} (bar 0.05 dB, 2e-2)", t0)
+    require(d_db <= 0.05 and d_max <= 2e-2, "kernel path != plain path")
+
+    t0 = time.perf_counter()
+    small = cfg.replace(block_cols=96 * 96, sinkhorn_coarse=4)
+    im_s, nz_s = noisy_image(gt, 96, 96)
+    pl_s = gt.make_plan(nz_s, small)
+    k_s = min(small.num_eigvecs + small.sketch_oversample, pl_s.p)
+    om = ms.sketch_omega(pl_s.p, k_s, "cpu")
+    idx_s = pl_s.idx_a.astype(np.int64)
+    z_cpu, _ = _filter_channel(torch.as_tensor(nz_s), torch.as_tensor(idx_s),
+                               small, om)
+    z_gpu, _ = _filter_channel(torch.as_tensor(nz_s, device=dev),
+                               torch.as_tensor(idx_s, device=dev), small,
+                               om.to(dev))
+    z_cpu, z_gpu = z_cpu.numpy(), z_gpu.cpu().numpy()
+    s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
+    s_max = float(np.abs(z_cpu - z_gpu).max())
+    phase("small", f"96x96 card kernels vs CPU plain: {s_db:.5f} dB, max "
+          f"|diff| {s_max:.3e}; PSNR {gt.psnr(im_s, nz_s):.3f} -> "
+          f"{gt.psnr(im_s, z_gpu):.3f} dB", t0)
+    require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
+            "96x96 card run != CPU plain run")
+    info["config2"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                           psnr_out=psnr_out, plain_path_db=d_db,
+                           plain_path_max=d_max, small_db=s_db,
+                           small_max=s_max)
+
+
+def config4(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+    from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_8mp(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    p, n = ctx.p, ctx.n_pad
+    pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
+    mk = ms._m_kernel(cfg.num_eigvecs)
+    jidx = torch.as_tensor(ms.gram_sample_idx(n, cfg.gram_coarse,
+                                              cfg.gram_jitter_seed),
+                           dtype=torch.int64, device=dev)
+    ft_g = ctx.f_t[:, jidx]
+    sg = ft_g.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)  # noqa: E731
+    bm = torch.zeros(nk, device=dev)
+    bm[:n] = ctx.b_mask
+    t2 = torch.zeros((2, pp), device=dev)
+    t2[:, :p] = 0.5 + rand(2, p)
+    tv = torch.zeros(pp, device=dev)
+    tv[:p] = 0.5 + rand(p)
+    gr = torch.zeros((pp, mk), device=dev)
+    gr[:p, :cfg.num_eigvecs] = (rand(p, cfg.num_eigvecs) - 0.5) * 0.02
+    y = torch.zeros(nk, device=dev)
+    y[:ctx.n] = img_d.reshape(-1)
+    na = torch.zeros(pp, device=dev)
+    na[:p] = torch.sum(ctx.feats_a * ctx.feats_a, dim=1)
+    nb = torch.zeros(nk, device=dev)
+    nb[:n] = torch.sum(ctx.feats_pad * ctx.feats_pad, dim=1)
+    s_pre = (0.5 + rand(nk)) * bm
+    fd = ctx.f_t.shape[0]
+    feat_bytes = 2 * fd * (pp + nk)
+    e7, e = pp * sg, pp * nk
+    cases = {
+        "kb_strip": (k79.kb_strip_cuda, k79.kb_strip_plain,
+                     (ctx.fa_aug, ft_g, rand(sg), True),
+                     bound(2 * fd * (pp + sg) + 4 * sg + 2 * e7,
+                           2 * e7 * fd, 3 * e7)),
+        "ext2_matvec": (k79.ext2_matvec_cuda, k79.ext2_matvec_plain,
+                        (ctx.fa_aug, ctx.f_t, t2, bm, True),
+                        bound(feat_bytes + 8 * nk + 12 * pp, 2 * e * fd,
+                              8 * e)),
+        "finish_colstats": (k79.finish_colstats_cuda,
+                            k79.finish_colstats_plain,
+                            (ctx.fa_pad, ctx.f_t, tv, s_pre, bm, gr, y, na,
+                             nb),
+                            bound(feat_bytes + 4 * nk * (5 + mk)
+                                  + 4 * pp * (mk + 2),
+                                  2 * e * (fd + mk), 8 * e),
+                            colstats_scales(y)),
+    }
+    phase("config4", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
+          f"N={n}, gram columns {sg}, V width {mk})", t0)
+    run_cases(cases, rows)
+    del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    counters = {"kb_strip": k79.kb_strip_cuda,
+                "ext2_matvec": k79.ext2_matvec_cuda,
+                "finish_colstats": k79.finish_colstats_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "8 MP")
+    launches.update(counts)
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    per_call = {k: v / RUNS for k, v in counts.items()}
+    phase("e2e-8mp", f"walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
+          f"{psnr_out - psnr_in:.3f}); launches per call {per_call}", t0)
+    require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
+            "8 MP output is not a finite (2048, 4096) image")
+    require(psnr_out > psnr_in + 1.0, "8 MP denoise gain under 1 dB")
+
+    t0 = time.perf_counter()
+    z_plain, _ = _filter_channel(img_d, idx_d, cfg, plain=True)
+    z_plain = z_plain.cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("plain", f"8 MP kernel path vs plain path on the card: {d_db:.5f} "
+          f"dB, max |diff| {d_max:.3e} (bar 0.05 dB, 2e-2)", t0)
+    require(d_db <= 0.05 and d_max <= 2e-2, "8 MP kernel path != plain path")
+    del img_d, idx_d, z_plain
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    small = gt.PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.03, num_eigvecs=16,
+        sinkhorn_iters=4, streaming=True, block_cols=2048, use_pallas=True,
+        sinkhorn_coarse=4, sinkhorn_polish=1, gram_coarse=4,
+        fused_finish=True, affinity_dtype="bfloat16")
+    im_s, nz_s = noisy_image(gt, 96, 96)
+    pl_s = gt.make_plan(nz_s, small)
+    x0 = lobpcg_x0(pl_s.p, small.num_eigvecs, "cpu")
+    idx_s = pl_s.idx_a.astype(np.int64)
+    z_cpu, _ = _filter_channel(torch.as_tensor(nz_s), torch.as_tensor(idx_s),
+                               small, x0=x0)
+    z_gpu, _ = _filter_channel(torch.as_tensor(nz_s, device=dev),
+                               torch.as_tensor(idx_s, device=dev), small,
+                               x0=x0.to(dev))
+    z_cpu, z_gpu = z_cpu.numpy(), z_gpu.cpu().numpy()
+    s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
+    s_max = float(np.abs(z_cpu - z_gpu).max())
+    phase("small", f"96x96 recompute: card kernels vs CPU plain: {s_db:.5f} "
+          f"dB, max |diff| {s_max:.3e}; PSNR {gt.psnr(im_s, nz_s):.3f} -> "
+          f"{gt.psnr(im_s, z_gpu):.3f} dB", t0)
+    require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
+            "96x96 recompute card run != CPU plain run")
+    info["config4"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                           psnr_out=psnr_out, launches_per_call=per_call,
+                           plain_path_db=d_db, plain_path_max=d_max,
+                           small_db=s_db, small_max=s_max)
 
 
 def main() -> None:
     # 1. device
+    t_all = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
                  "script runs only on a CUDA card")
@@ -129,15 +486,10 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     phase("device", f"{torch.cuda.get_device_name(0)}; torch "
-          f"{torch.__version__} cuda {torch.version.cuda}")
-    print(card, flush=True)
+          f"{torch.__version__} cuda {torch.version.cuda}; {card}")
 
     import graphlap_tpu_torch as gt
-    from graphlap_tpu_torch.models import streaming as ms
-    from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import _build
-    from graphlap_tpu_torch.ops import cuda_affinity as k1
-    from graphlap_tpu_torch.ops import cuda_strip as k24
 
     # 2. build
     t0 = time.perf_counter()
@@ -149,126 +501,26 @@ def main() -> None:
               if "spill" in ln and not ln.strip().startswith("0 bytes")]
     phase("build", f"{build_s:.1f} s; ptxas spill lines: {spills}")
 
-    # 4a. the workload (built first: phase 3 takes its shapes and strip)
-    cfg, img, noisy, plan = make_workload(gt)
-    img_d = torch.as_tensor(noisy, device=dev)
-    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
-
-    # 3. kernels at the main path's shapes, on the path's own strip
-    ctx = ms._strip_ctx(img_d, idx_d, cfg)
-    strip, p = ctx.strip_pad, ctx.p
-    pp, n = strip.shape
-    k = min(cfg.num_eigvecs + cfg.sketch_oversample, p)
-    kp = -(-k // 128) * 128
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)  # noqa: E731
-    feats_a = torch.full((pp, ctx.feats_a.shape[1]), 1e3, device=dev)
-    feats_a[:p] = ctx.feats_a
-    t2 = torch.zeros((2, pp), device=dev)
-    t2[:, :p] = 0.5 + rand(2, p)
-    ta = torch.zeros((pp, kp), device=dev)
-    ta[:p] = rand(p, kp) - 0.5
-    t1 = torch.zeros(pp, device=dev)
-    t1[:p] = 0.5 + rand(p)
-    s_pre = (0.5 + rand(n)) * ctx.b_mask
-    s2 = (0.5 + rand(n)) * ctx.b_mask
-    cases = {
-        "affinity_strip": (k1.affinity_strip_cuda, k1.affinity_strip_plain,
-                           (feats_a, ctx.feats_pad, torch.float32,
-                            torch.bfloat16)),
-        "strip_ext2": (k24.strip_ext2_cuda, k24.strip_ext2_plain,
-                       (strip, t2, ctx.b_mask)),
-        "strip_sandwich_spost": (k24.strip_sandwich_spost_cuda,
-                                 k24.strip_sandwich_spost_plain,
-                                 (strip, ta, t1, s_pre, ctx.b_mask)),
-        "strip_sandwich": (k24.strip_sandwich_cuda, k24.strip_sandwich_plain,
-                           (strip, ta, s2)),
-    }
-    rows = {}
-    for name, (kern, plain, args) in cases.items():
-        got, ref = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        pair = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-        err, rel = max_rel_err(*pair)
-        if name == "affinity_strip":
-            rel = err                                 # absolute, see TOL
-        ms_k = cuda_ms(lambda: kern(*args), 5)
-        ms_p = cuda_ms(lambda: plain(*args), 2)
-        phase("kernel", f"{name}: max_abs_err {err:.3e} (rel {rel:.3e}, tol "
-              f"{TOL[name]:.1e}); kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
-        require(rel <= TOL[name], f"{name} disagrees with its plain version")
-        rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms_k, plain_ms=ms_p)
-        del got, ref
-    del ctx, strip, cases
+    rows, launches, info = {}, {}, {}
+    config2(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
-
-    # 4b. end to end through the public entry point
-    gt.filter_image(noisy, cfg, plan=plan, device=dev)          # warm-up
-    torch.cuda.synchronize()
-    counters = (k1.affinity_strip_cuda, k24.strip_ext2_cuda,
-                k24.strip_sandwich_spost_cuda, k24.strip_sandwich_cuda)
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(RUNS):
-        t0 = time.perf_counter()
-        res = gt.filter_image(noisy, cfg, plan=plan, device=dev)
-        walls.append(time.perf_counter() - t0)
-    launches = {name: fn.launches for name, fn in zip(NAMES, counters)}
-    peak = torch.cuda.max_memory_allocated()
-    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
-    phase("e2e", f"walls {[round(w, 6) for w in walls]} s (min "
-          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
-          f"{psnr_in:.3f} -> {psnr_out:.3f} dB; launches {launches}")
-    require(res.image.shape == (H, W) and np.isfinite(res.image).all(),
-            "output is not a finite (H, W) image")
-    require(psnr_out > psnr_in + 5.0, "denoise gain under 5 dB")
-    for name, c in launches.items():
-        require(c > 0, f"{name}: the main path never launched its kernel")
-
-    # same factor, plain versions on the card
-    z_plain, _ = _filter_channel(img_d, idx_d, cfg, plain=True)
-    z_plain = z_plain.cpu().numpy()
-    d_db = abs(psnr_out - gt.psnr(img, z_plain))
-    d_max = float(np.abs(res.image - z_plain).max())
-    phase("e2e", f"kernel vs plain path on the card: {d_db:.5f} dB, max "
-          f"|diff| {d_max:.3e} (bar 0.05 dB, 2e-2)")
-    require(d_db <= 0.05 and d_max <= 2e-2, "kernel path != plain path")
-
-    # small input: kernels on the card vs plain versions on the CPU
-    small = cfg.replace(block_cols=96 * 96, sinkhorn_coarse=4)
-    im_s = gt.make_test_image(96, 96)
-    nz_s = np.clip(gt.add_gaussian_noise(im_s, 0.1, seed=1), 0,
-                   1).astype(np.float32)
-    pl_s = gt.make_plan(nz_s, small)
-    k_s = min(small.num_eigvecs + small.sketch_oversample, pl_s.p)
-    om = ms.sketch_omega(pl_s.p, k_s, "cpu")
-    z_cpu, _ = _filter_channel(torch.as_tensor(nz_s),
-                               torch.as_tensor(pl_s.idx_a.astype(np.int64)),
-                               small, om)
-    z_gpu, _ = _filter_channel(torch.as_tensor(nz_s, device=dev),
-                               torch.as_tensor(pl_s.idx_a.astype(np.int64),
-                                               device=dev), small, om.to(dev))
-    z_cpu, z_gpu = z_cpu.numpy(), z_gpu.cpu().numpy()
-    s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
-    s_max = float(np.abs(z_cpu - z_gpu).max())
-    phase("small", f"96x96 card kernels vs CPU plain: {s_db:.5f} dB, max "
-          f"|diff| {s_max:.3e}; PSNR {gt.psnr(im_s, nz_s):.3f} -> "
-          f"{gt.psnr(im_s, z_gpu):.3f} dB")
-    require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
-            "96x96 card run != CPU plain run")
+    config4(gt, dev, rows, launches, info)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],
-                    max_abs_err=rows[name]["max_abs_err"], ms=rows[name]["ms"],
-                    plain_ms=rows[name]["plain_ms"]) for name in NAMES]
+                    max_abs_err=rows[name]["max_abs_err"],
+                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
+                    bound_ms=rows[name]["bound_ms"],
+                    bound_by=rows[name]["bound_by"],
+                    library_ms=rows[name]["library_ms"]) for name in NAMES]
+    total_s = time.perf_counter() - t_all
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, kernels=kernels, rows=rows, walls_s=walls,
-        peak_bytes=peak, psnr_in=psnr_in, psnr_out=psnr_out,
-        plain_path_db=d_db, plain_path_max=d_max, small_db=s_db,
-        small_max=s_max, torch=torch.__version__), indent=1))
+        card=card, build_s=build_s, total_s=total_s, kernels=kernels,
+        rows=rows, runs_per_count=RUNS, torch=torch.__version__, **info),
+        indent=1))
+    phase("done", f"all phases passed in {total_s:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,9 +3,10 @@
 ``filter_image`` :289-321).
 
 PyTorch runs eagerly, so there is no jitted program: ``filter_image`` moves
-the image and the sample indices to ``device`` once, runs the strip_cache
-slice there and copies the filtered image back. ``filter_image_staged``,
-RGB, the dense and recompute paths and the sharded builders wait for their
+the image and the sample indices to ``device`` once, runs the streaming
+slice there (strip_cache, or recompute with the fused finish) and copies
+the filtered image back. ``filter_image_staged``, RGB, the dense path, the
+unfused streaming sweeps and the sharded builders wait for their
 ROADMAP.md items and raise ``NotImplementedError``.
 """
 
@@ -37,11 +38,12 @@ def make_plan(image: np.ndarray, cfg: PipelineConfig) -> SamplePlan:
 
 def _filter_channel(img2d: torch.Tensor, idx_a: torch.Tensor,
                     cfg: PipelineConfig, omega: torch.Tensor | None = None,
-                    plain: bool = False):
+                    plain: bool = False, x0: torch.Tensor | None = None):
     """One grayscale channel on its device. Returns (z2d, vals).
-    ``omega`` injects the sketch's test matrix (parity tests); ``plain``
-    runs the kernels' PyTorch versions (the on-card comparison)."""
-    return filter_channel_streaming(img2d, idx_a, cfg, omega, plain)
+    ``omega`` / ``x0`` inject the sketch's test matrix / LOBPCG's start
+    block (parity tests); ``plain`` runs the kernels' PyTorch versions
+    (the on-card comparison)."""
+    return filter_channel_streaming(img2d, idx_a, cfg, omega, plain, x0)
 
 
 def filter_image(image: np.ndarray, cfg: PipelineConfig,

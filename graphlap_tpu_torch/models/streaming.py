@@ -1,21 +1,31 @@
-"""The streaming strip_cache model: affinity strip -> coarse Sinkhorn ->
-fused strip sweeps with the inlined sketch eigensolve -> spectral filter
-(port of ``graphlap_tpu/models/streaming.py``, the slice that the config-2
-headline recipe runs).
+"""The streaming model (port of ``graphlap_tpu/models/streaming.py``) on
+its two kernel paths:
 
-Pixels stay in NATURAL order: the (p, n_pad) strip is materialized once by
-the K1 emitter (ops/cuda_affinity) at p_pad rows with poisoned padding
-features, so its padding rows and columns are exactly zero, and every strip
-product afterwards is either a fused sweep (K2-K4, ops/cuda_strip) or a
-bf16-in / f32-out GEMM against it. Only p-sized index ops touch pixels
-(gather the sample rows, scatter the p-sized results back).
+* strip_cache (config 2): affinity strip -> coarse Sinkhorn -> fused strip
+  sweeps with the inlined sketch eigensolve -> spectral filter. The
+  (p, n_pad) strip is materialized once by the K1 emitter (ops/cuda_affinity)
+  at p_pad rows with poisoned padding features, so its padding rows and
+  columns are exactly zero, and every strip product afterwards is either a
+  fused sweep (K2-K4, ops/cuda_strip) or a bf16-in / f32-out GEMM on it.
+* recompute streaming with the fused finish (config 4, 8 MP): no strip.
+  The coarse Sinkhorn recomputes decimated tiles (ops/streaming), sweep 1
+  is K8, the decimated gram is K7 plus one GEMM, the p x p solve is the
+  Cholesky ridge with LOBPCG, and sweep 2 (polish rmatvec + V) is K9
+  (ops/cuda_recompute), all on the reference's padded layouts
+  (ops/recompute_layout).
 
-Ported here: ``sinkhorn_sample_idx``, ``_strip_dot`` / ``_strip_dot_t``,
-``StreamFactor``, ``_StripCtx`` with the strip_cache + kernel branch of
-``_strip_ctx``, the strip branch of ``_coarse_sinkhorn_state``,
-``_strip_fused_ok``, ``_factor_strip_fused``, the materialized-V branch of
-``_apply_factor`` and ``filter_channel_streaming``. Every other recipe
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
+Pixels stay in NATURAL order; only p-sized index ops touch pixels (gather
+the sample rows, scatter the p-sized results back).
+
+Ported here: ``gram_sample_idx``, ``sinkhorn_sample_idx``, ``_strip_dot`` /
+``_strip_dot_t``, ``StreamFactor``, ``_StripCtx`` with the strip_cache +
+kernel and the recompute + kernel branches of ``_strip_ctx``, both kernel
+branches of ``_coarse_sinkhorn_state``, ``_stream_cross``, the chol/lobpcg
+branch of ``_solve_pxp``, ``_fused_finish_ok``,
+``_factor_streaming_fused``, ``_strip_fused_ok``, ``_factor_strip_fused``,
+the materialized-V branch of ``_apply_factor`` and
+``filter_channel_streaming``. Every other recipe raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it
 (``check_slice``).
 """
 
@@ -29,17 +39,31 @@ import torch
 from ..config import PipelineConfig
 from ..ops.affinity import affinity_strip, extract_features_padded
 from ..ops import cuda_affinity as k1
+from ..ops import cuda_recompute as k79
 from ..ops import cuda_strip as k24
+from ..ops import recompute_layout as rl
+from ..ops import streaming as st
 from ..ops.cuda_strip import P_QUANTUM
 from ..ops.filters import FILTER_REGISTRY
-from ..ops.linalg import trunc_inv_sqrt_vals
-from ..ops.nystrom import _LIVE_NORM2, _orthonormalize, _ridge_eps
+from ..ops.linalg import mm_f32, trunc_inv_sqrt_vals
+from ..ops.nystrom import (_LIVE_NORM2, _orthonormalize, _ridge_eps,
+                           nystrom_chol_factor)
 from ..ops.sinkhorn import _make_kaa_solve
 
 _EPS = 1e-30
 # the reference's single-chip strip bound, kept so both packages accept the
 # same configs (not re-derived for the H100's memory)
 _STRIP_BYTES_LIMIT = 8e9
+# the reference's budget for the materialized V buffer (its fused-finish
+# gate), kept for the same reason
+_V_BYTES_CAP = 6e9
+# column chunk of the recomputing loops (ops/streaming) on the card: wider
+# than the reference's block, for fewer launches; only the order of the f32
+# sums across chunks changes
+CUDA_CHUNK = 32768
+# strided gram sample below this decimation, jittered from it on (the
+# reference's measured crossover)
+GRAM_JITTER_MIN = 16
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -57,8 +81,19 @@ def _kernels(plain: bool):
             k24.strip_sandwich_spost_cuda, k24.strip_sandwich_cuda)
 
 
+def _recompute_kernels(plain: bool):
+    """(K7 gram, K8, K9) callables, kernel wrappers or plain versions."""
+    if plain:
+        return (k79.gram_plain, k79.ext2_matvec_plain,
+                k79.finish_colstats_plain)
+    return (k79.gram_cuda, k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
+
+
 _UNFUSED_TODO = ("strip_cache recipes outside the fused-sweep gate (the "
                  "unfused strip sweeps) wait for ROADMAP.md Queue 1 M3")
+_RECOMPUTE_TODO = ("recompute-streaming recipes outside the fused-finish "
+                   "gate (the unfused recompute sweeps and the XLA-scan "
+                   "operators) wait for ROADMAP.md Queue 1 M6")
 
 
 def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
@@ -72,20 +107,43 @@ def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
 
 def check_slice(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError, before any work, unless ``cfg`` is a
-    recipe the port runs: streaming strip_cache with the kernels, on the
-    fused-sweep recipe."""
+    recipe the port runs: streaming strip_cache with the kernels on the
+    fused-sweep recipe, or recompute streaming with the kernels and the
+    fused finish (a shape gate, ``_fused_finish_ok``, follows once the
+    sample size is known)."""
     todo = None
-    if not (cfg.streaming and cfg.strip_cache):
-        todo = ("non-streaming and recompute-streaming configs wait for "
-                "ROADMAP.md Queue 1 M5 (dense path) and M6 (recompute "
-                "streaming)")
+    if not cfg.streaming:
+        todo = ("non-streaming configs wait for ROADMAP.md Queue 1 M5 "
+                "(dense path)")
     elif cfg.operator_filter():
         todo = ("operator filter modes (matvec/chebyshev) wait for "
                 "ROADMAP.md Queue 1 M7")
-    elif not (cfg.use_pallas and _strip_fused_recipe(cfg)):
-        todo = _UNFUSED_TODO
+    elif cfg.strip_cache:
+        if not (cfg.use_pallas and _strip_fused_recipe(cfg)):
+            todo = _UNFUSED_TODO
+    elif not (cfg.use_pallas and cfg.fused_finish):
+        todo = _RECOMPUTE_TODO
+    elif cfg.feature_dtype == "bfloat16":
+        todo = ("bf16 feature storage on the recompute path waits for "
+                "ROADMAP.md Queue 1 M6")
+    elif cfg.solver not in ("chol", "lobpcg"):
+        todo = ("the one-shot p x p solve (psd_pinv_sqrt) waits for "
+                "ROADMAP.md Queue 1 M2")
     if todo:
         raise NotImplementedError(f"graphlap_tpu_torch: {todo}")
+
+
+def gram_sample_idx(n_pad: int, k: int, seed: int = 0) -> np.ndarray:
+    """Static column sample of the coarse gram, one per k-slot: the plain
+    stride for k < 16, else one seeded uniform column in each slot (the
+    stride aliases with the raster; see the reference's docstring for the
+    measurements). Indices may land in the zero padding, where the column
+    scales are zero too."""
+    slots = np.arange(0, n_pad, k)[: n_pad // k]
+    if k < GRAM_JITTER_MIN:
+        return slots.astype(np.int32)
+    off = np.random.default_rng(seed).integers(0, k, n_pad // k)
+    return (slots + off).astype(np.int32)
 
 
 def sinkhorn_sample_idx(n_pad: int, k: int, w: int,
@@ -121,24 +179,13 @@ class StreamFactor(NamedTuple):
     block: int               # column-block width
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for bf16 operands with an f32 result and no output rounding.
-    ``torch.matmul`` on bf16 returns bf16. On CUDA, cuBLAS writes f32
-    directly (aten::mm.dtype); the CPU has no such kernel, so there the
-    operands are upcast — products of bf16 values are exact in f32, so
-    both forms are bf16-in / f32-out."""
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.to(torch.float32) @ b.to(torch.float32)
-
-
 def _strip_dot(strip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """strip @ x: bf16 strips take bf16 operands with f32 accumulate and
     output; f32 strips run full-f32 GEMMs."""
     col = x.ndim == 1
     x2 = x[:, None] if col else x
     if strip.dtype == torch.bfloat16:
-        out = _mm_f32(strip, x2.to(torch.bfloat16))
+        out = mm_f32(strip, x2.to(torch.bfloat16))
     else:
         out = strip @ x2.to(torch.float32)
     return out[:, 0] if col else out
@@ -150,21 +197,27 @@ def _strip_dot_t(strip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class _StripCtx(NamedTuple):
-    """Features, masks, the exact (p, p) block, its solve and the strip."""
+    """Features, masks, the exact (p, p) block, its solve, and either the
+    strip (strip_cache) or the kernels' padded layouts (recompute)."""
 
     n: int
     p: int
     n_pad: int
     block: int
     w: int                     # image width (the coarse sample's raster)
+    dtype: torch.dtype         # tile dtype
     idx_a: torch.Tensor
     feats_a: torch.Tensor
     feats_pad: torch.Tensor
     b_mask: torch.Tensor
     kaa: torch.Tensor
     kaa_solve: object
-    strip: torch.Tensor        # (p, n_pad) prefix view of strip_pad
-    strip_pad: torch.Tensor    # (p_pad, n_pad), exact-zero padding rows
+    strip: torch.Tensor | None = None       # (p, n_pad) view of strip_pad
+    strip_pad: torch.Tensor | None = None   # (p_pad, n_pad), zero padding
+    fa_pad: torch.Tensor | None = None      # recompute: (p_pad, dp) plain
+    f_t: torch.Tensor | None = None         # (dp, n_pad_k), aug superset
+                                            # when fa_aug is set
+    fa_aug: torch.Tensor | None = None      # bf16: (p_pad, dp) augmented
 
 
 def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
@@ -178,7 +231,7 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
     n_pad = _cdiv(n, block) * block
     bf16_store = cfg.affinity_dtype in ("bfloat16", "bfloat16_store")
     strip_bytes = p * n_pad * (2 if bf16_store else 4)
-    if strip_bytes > _STRIP_BYTES_LIMIT:
+    if cfg.strip_cache and strip_bytes > _STRIP_BYTES_LIMIT:
         raise ValueError(
             f"strip_cache strip would be {strip_bytes / 1e9:.1f} GB "
             f"(p={p}, n_pad={n_pad}) — past the single-device bound")
@@ -194,6 +247,12 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
 
     kaa = affinity_strip(feats_a, feats_a, dtype)     # exact (p, p)
     kaa_solve = _make_kaa_solve(kaa, cfg.eig_tol, cfg.solver)
+    base = dict(n=n, p=p, n_pad=n_pad, block=block, w=w, dtype=dtype,
+                idx_a=idx_a, feats_a=feats_a, feats_pad=feats_pad,
+                b_mask=b_mask, kaa=kaa, kaa_solve=kaa_solve)
+    if not cfg.strip_cache:
+        return _StripCtx(**base, **_recompute_layouts(feats_a, feats_pad,
+                                                      n_pad, dtype))
 
     store = torch.bfloat16 if bf16_store else None
     # poison the padding feature rows: d2 >= (1e3 - |f|)^2 >> 88 there, so
@@ -210,10 +269,36 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
     feats_a_pois = torch.full((p_pad, d), 1e3, dtype=feats_a.dtype, device=dev)
     feats_a_pois[:p] = feats_a
     strip_pad = _kernels(plain)[0](feats_a_pois, feats_strip, dtype, store)
-    return _StripCtx(n=n, p=p, n_pad=n_pad, block=block, w=w,
-                     idx_a=idx_a, feats_a=feats_a, feats_pad=feats_pad,
-                     b_mask=b_mask, kaa=kaa, kaa_solve=kaa_solve,
-                     strip=strip_pad[:p], strip_pad=strip_pad)
+    return _StripCtx(**base, strip=strip_pad[:p], strip_pad=strip_pad)
+
+
+def _recompute_layouts(feats_a: torch.Tensor, feats_pad: torch.Tensor,
+                       n_pad: int, dtype: torch.dtype) -> dict:
+    """The recompute kernels' operands, padded as the reference pads them:
+    p to the 512-aligned p_tiling, n to the _tile_n quantum, features to 32
+    lanes. bf16 tiles use the augmented layout (fa_aug, and f_t the aug
+    superset the plain-class K9 reads too); f32 tiles the plain one."""
+    p, d = feats_a.shape
+    aug = dtype == torch.bfloat16
+    _, p_pad = rl.p_tiling(p)
+    tn = rl._tile_n(dtype)
+    n_pad_k = _cdiv(n_pad, tn) * tn
+    dp = rl.aug_d_pad_of(d) if aug else rl.d_pad_of(d)
+    fa_pad = torch.zeros((p_pad, dp), dtype=dtype, device=feats_a.device)
+    fa_pad[:p, :d] = feats_a.to(dtype)
+    if aug:
+        fa_aug, f_t = rl.aug_pads(feats_a, feats_pad, n_pad_k)
+    else:
+        fa_aug = None
+        f_t = torch.zeros((dp, n_pad_k), dtype=dtype, device=feats_a.device)
+        f_t[:d, :n_pad] = feats_pad.to(dtype).T
+    return dict(fa_pad=fa_pad, f_t=f_t, fa_aug=fa_aug)
+
+
+def _chunk(ctx: _StripCtx, block: int) -> int:
+    """Column chunk of the recomputing loops: the reference's block on the
+    CPU, at least CUDA_CHUNK on the card."""
+    return max(block, CUDA_CHUNK) if ctx.b_mask.is_cuda else block
 
 
 def _coarse_sinkhorn_state(ctx: _StripCtx, cfg: PipelineConfig):
@@ -232,12 +317,25 @@ def _coarse_sinkhorn_state(ctx: _StripCtx, cfg: PipelineConfig):
         dtype=torch.int64, device=dev)
     mask_c = ctx.b_mask[jidx]
     ratio = torch.sum(ctx.b_mask) / torch.clamp(torch.sum(mask_c), min=1.0)
-    strip_c = ctx.strip[:, jidx]                      # (p, n_pad / k), once
-    u0 = ratio * _strip_dot(strip_c, mask_c)
+    if ctx.strip is not None:
+        strip_c = ctx.strip[:, jidx]                  # (p, n_pad / k), once
+        u0 = ratio * _strip_dot(strip_c, mask_c)
 
-    def coarse_step(t):
-        y = _strip_dot_t(strip_c, t)
-        return ratio * _strip_dot(strip_c, mask_c / torch.clamp(y, min=_EPS))
+        def coarse_step(t):
+            y = _strip_dot_t(strip_c, t)
+            return ratio * _strip_dot(strip_c,
+                                      mask_c / torch.clamp(y, min=_EPS))
+    else:
+        # recompute: decimated tiles from the sampled columns' features
+        feats_c = ctx.feats_pad[jidx]
+        chunk = _chunk(ctx, ctx.block // k)
+        ones_p = torch.ones(ctx.p, dtype=torch.float32, device=dev)
+        u0 = ratio * st.matvec(ctx.feats_a, feats_c, mask_c, ones_p,
+                               torch.ones_like(mask_c), chunk, ctx.dtype)
+
+        def coarse_step(t):
+            return st.sinkhorn_coarse_step(ctx.feats_a, feats_c, t, mask_c,
+                                           ratio, chunk, ctx.dtype)
 
     r_a = c_a = torch.ones(ctx.p, dtype=torch.float32, device=dev)
     u_r = u0
@@ -369,16 +467,193 @@ def _factor_strip_fused(img2d: torch.Tensor, ctx: _StripCtx,
                         y_pad=y_pad, v_b=v_b, n=n, block=ctx.block)
 
 
+def _stream_cross(ctx: _StripCtx, cfg: PipelineConfig, s_a: torch.Tensor,
+                  s_b_cols: torch.Tensor,
+                  s_sampled: torch.Tensor | None = None,
+                  plain: bool = False) -> torch.Tensor:
+    """The (p, p) cross (D C D)(D C D)^T from recomputed tiles: full, or
+    the decimated-column estimate of gram_coarse with the energy ratio
+    sum c^2 / sum_S c^2 from the full (pre-polish) ``s_b_cols``.
+    ``s_sampled``: the column scales to use AT the gram-sample columns (the
+    fused finish's post-polish values there); see the reference's
+    docstring for why the ratio stays pre-polish."""
+    p, n_pad = ctx.p, ctx.n_pad
+    gram_k7 = _recompute_kernels(plain)[0]
+
+    def stream_gram(cols, blk, jidx):
+        if ctx.f_t.shape[1] == n_pad and blk % rl.EMIT_TN == 0:
+            # the K7 branch (the reference's shape gate, kept)
+            ft = ctx.f_t[:, jidx] if jidx is not None else ctx.f_t
+            aug = ctx.fa_aug is not None
+            g = gram_k7(ctx.fa_aug if aug else ctx.fa_pad, ft, cols,
+                        aug)[:p, :p]
+            return g * (s_a[:, None] * s_a[None, :])
+        fp = ctx.feats_pad[jidx] if jidx is not None else ctx.feats_pad
+        return st.gram(ctx.feats_a, fp, s_a, cols, _chunk(ctx, blk),
+                       ctx.dtype)
+
+    if cfg.gram_coarse > 1:
+        kg = cfg.gram_coarse
+        if ctx.block % kg != 0:
+            raise ValueError(
+                f"gram_coarse={kg} must divide the active block "
+                f"width min(block_cols, N)={ctx.block}")
+        jidx = torch.as_tensor(gram_sample_idx(n_pad, kg,
+                                               cfg.gram_jitter_seed),
+                               dtype=torch.int64, device=s_a.device)
+        pre_g = s_b_cols[jidx]
+        ratio_g = (torch.sum(s_b_cols * s_b_cols)
+                   / torch.clamp(torch.sum(pre_g * pre_g), min=_EPS))
+        cols_g = pre_g if s_sampled is None else s_sampled
+        return ratio_g * stream_gram(cols_g, ctx.block // kg, jidx)
+    if s_sampled is not None:
+        raise ValueError("s_sampled requires gram_coarse > 1")
+    return stream_gram(s_b_cols, ctx.block, None)
+
+
+def _solve_pxp(cfg: PipelineConfig, waa: torch.Tensor, cross: torch.Tensor,
+               x0: torch.Tensor | None = None):
+    """The p x p Nystrom factor solve -> (vals_m (m,), basis0 (p, m)).
+    ``x0``: LOBPCG's start block (default ``ops.nystrom.lobpcg_x0``)."""
+    if cfg.solver not in ("chol", "lobpcg"):
+        raise NotImplementedError(
+            "graphlap_tpu_torch: the one-shot p x p solve (psd_pinv_sqrt) "
+            "waits for ROADMAP.md Queue 1 M2")
+    method = "lobpcg" if cfg.solver == "lobpcg" else "eigh"
+    return nystrom_chol_factor(waa, cross, cfg.num_eigvecs, cfg.eig_tol,
+                               method, cfg.lobpcg_iters, x0)
+
+
+def _fused_finish_ok(ctx: _StripCtx, cfg: PipelineConfig) -> bool:
+    """Shape gate of the fused finish, with the reference's quanta: whole-p
+    tiles (p_pad <= MAX_TILE_P from the 512-aligned p_tiling), m within
+    M_PAD, and the M_PAD-wide V buffer within the reference's budget."""
+    if not (cfg.fused_finish and ctx.fa_pad is not None):
+        return False
+    if (ctx.fa_pad.shape[0] > rl.MAX_TILE_P
+            or cfg.num_eigvecs > rl.M_PAD):
+        return False
+    return (ctx.f_t.shape[1] * rl.m_pad_of(cfg.num_eigvecs) * 4
+            <= _V_BYTES_CAP)
+
+
+def _m_kernel(m: int) -> int:
+    """V width of the port's K9: m padded to 16 (the mma tile), where the
+    reference pads to its TPU lane width M_PAD = 128; zero columns stay
+    exact zeros and are sliced off either way."""
+    return _cdiv(m, 16) * 16
+
+
+def _factor_streaming_fused(img2d: torch.Tensor, ctx: _StripCtx,
+                            cfg: PipelineConfig,
+                            x0: torch.Tensor | None = None,
+                            plain: bool = False) -> StreamFactor:
+    """Two-sweep fused finish of the recompute path:
+
+        sweep 1  K8 ext2_matvec:      kbt + s_pre + polish matvec
+        (decimated rmatvec: post-polish scales at the gram columns)
+        cross    K7 + one GEMM:       the decimated gram
+        p x p    nystrom_chol_factor: ridge Cholesky + LOBPCG
+        sweep 2  K9 finish_colstats:  polish rmatvec + s_post + V, norms,
+                                      coeffs
+
+    The spectrum uses post-polish scales at just the gram-sample columns
+    (the reference's docstring records why); everything that touches pixels
+    is at post-polish scales. ``x0``: LOBPCG's start block; ``plain`` runs
+    the kernels' PyTorch versions."""
+    _, ext2_matvec, finish_colstats = _recompute_kernels(plain)
+    idx_a, n, p, n_pad = ctx.idx_a, ctx.n, ctx.p, ctx.n_pad
+    fa_pad, f_t = ctx.fa_pad, ctx.f_t
+    p_pad, n_pad_k = fa_pad.shape[0], f_t.shape[1]
+    m = cfg.num_eigvecs
+    dev = fa_pad.device
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    s_a_pre, t_r, t_c = _coarse_sinkhorn_state(ctx, cfg)
+
+    # sweep 1: b_mask is 0 on A columns and padding, so s_pre is 0 there
+    bm_k = torch.zeros(n_pad_k, **f32)
+    bm_k[:n_pad] = ctx.b_mask
+    t2 = torch.zeros((2, p_pad), **f32)
+    t2[0, :p] = t_r
+    t2[1, :p] = t_c
+    aug = ctx.fa_aug is not None
+    u_pad, s_pre_k = ext2_matvec(ctx.fa_aug if aug else fa_pad, f_t, t2,
+                                 bm_k, aug)
+    u = u_pad[:p]
+
+    # p-side polish update (the completion matvec's top and t)
+    top = ctx.kaa @ s_a_pre + u
+    t_vec = s_a_pre + ctx.kaa_solve(u)
+    s_a = torch.sqrt(s_a_pre / torch.clamp(top, min=_EPS))  # post-polish
+
+    # post-polish scales at the gram-sample columns, from a decimated
+    # rmatvec against the same t_vec sweep 2 consumes
+    s_pre = s_pre_k[:n_pad]
+    kg = cfg.gram_coarse
+    jidx = torch.as_tensor(gram_sample_idx(n_pad, kg, cfg.gram_jitter_seed),
+                           dtype=torch.int64, device=dev)
+    ks_j = st.rmatvec(ctx.feats_a, ctx.feats_pad[jidx], t_vec,
+                      torch.ones(p, **f32), torch.ones(jidx.shape[0], **f32),
+                      _chunk(ctx, ctx.block // kg), ctx.dtype)
+    s_pre_j = s_pre[jidx]
+    s_post_j = torch.where(
+        s_pre_j > 0.0, torch.sqrt(s_pre_j / torch.clamp(ks_j, min=_EPS)),
+        0.0)
+    waa = ctx.kaa * (s_a[:, None] * s_a[None, :])
+    cross = _stream_cross(ctx, cfg, s_a, s_pre, s_sampled=s_post_j,
+                          plain=plain)
+    vals_m, basis0 = _solve_pxp(cfg, waa, cross, x0)
+
+    # sweep 2: polish rmatvec + scale update + colstats + V
+    y_pad = torch.zeros(n_pad, **f32)
+    y_pad[:n] = img2d.to(torch.float32).reshape(-1)
+    y_k = torch.zeros(n_pad_k, **f32)
+    y_k[:n_pad] = y_pad
+    gr = torch.zeros((p_pad, _m_kernel(m)), **f32)
+    gr[:p, :m] = basis0 * s_a[:, None]
+    t_pad = torch.zeros(p_pad, **f32)
+    t_pad[:p] = t_vec
+    # f32 feature norms (only the cross GEMM inputs round to the tile dtype)
+    fa32 = ctx.feats_a.to(torch.float32)
+    fp32 = ctx.feats_pad.to(torch.float32)
+    na = torch.zeros(p_pad, **f32)
+    na[:p] = torch.sum(fa32 * fa32, dim=1)
+    nb = torch.zeros(n_pad_k, **f32)
+    nb[:n_pad] = torch.sum(fp32 * fp32, dim=1)
+    v, norms, coeffs_b, s_new_k = finish_colstats(
+        fa_pad, f_t, t_pad, s_pre_k, bm_k, gr, y_k, na, nb)
+    v_b = v[:n_pad, :m]
+    s_b_cols = s_new_k[:n_pad]
+
+    v_a = waa @ basis0
+    dnorm = torch.sum(v_a * v_a, dim=0) + norms[:m]
+    live = dnorm > _LIVE_NORM2
+    scale = torch.where(live, 1.0 / torch.sqrt(torch.where(live, dnorm, 1.0)),
+                        0.0)
+    coeffs = scale * (v_a.T @ y_pad[idx_a] + coeffs_b[:m])
+    return StreamFactor(vals=vals_m, basis0=basis0, v_a=v_a, scale=scale,
+                        coeffs=coeffs, s_a=s_a, s_b_cols=s_b_cols,
+                        feats_a=ctx.feats_a, feats_pad=ctx.feats_pad,
+                        y_pad=y_pad, v_b=v_b, n=n, block=ctx.block)
+
+
 def _factor_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
                       cfg: PipelineConfig,
                       omega: torch.Tensor | None = None,
-                      plain: bool = False) -> StreamFactor:
-    """Affinity -> normalization -> Nystrom eigensolve on the strip."""
+                      plain: bool = False,
+                      x0: torch.Tensor | None = None) -> StreamFactor:
+    """Affinity -> normalization -> Nystrom eigensolve. ``omega``: the
+    sketch's test matrix (strip_cache); ``x0``: LOBPCG's start block
+    (recompute)."""
     check_slice(cfg)
     ctx = _strip_ctx(img2d, idx_a, cfg, plain)
+    if _fused_finish_ok(ctx, cfg):
+        return _factor_streaming_fused(img2d, ctx, cfg, x0, plain)
     if _strip_fused_ok(ctx, cfg):
         return _factor_strip_fused(img2d, ctx, cfg, omega, plain)
-    raise NotImplementedError(f"graphlap_tpu_torch: {_UNFUSED_TODO}")
+    todo = _UNFUSED_TODO if cfg.strip_cache else _RECOMPUTE_TODO
+    raise NotImplementedError(f"graphlap_tpu_torch: {todo}")
 
 
 def _apply_factor(fac: StreamFactor, idx_a: torch.Tensor,
@@ -400,10 +675,11 @@ def _apply_factor(fac: StreamFactor, idx_a: torch.Tensor,
 def filter_channel_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
                              cfg: PipelineConfig,
                              omega: torch.Tensor | None = None,
-                             plain: bool = False):
-    """One grayscale channel through the strip_cache slice. Returns
+                             plain: bool = False,
+                             x0: torch.Tensor | None = None):
+    """One grayscale channel through either streaming slice. Returns
     (z2d, vals) on ``img2d``'s device. The reference's perm / inv_perm
     parameters are never read there, so the port does not take them."""
     h, w = img2d.shape
-    fac = _factor_streaming(img2d, idx_a, cfg, omega, plain)
+    fac = _factor_streaming(img2d, idx_a, cfg, omega, plain, x0)
     return _apply_factor(fac, idx_a, cfg, h, w)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into ONE
+Every ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` (one nvcc
+process a source, all started together) and the objects link into ONE
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use (never at import: modules of the port import on machines
 without a CUDA toolkit) into ``build/torch_kernels/`` beside the package,
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # C signatures (all kernels return cudaGetLastError() as an int)
@@ -31,6 +32,10 @@ _SIGNATURES = {
     "glt_strip_ext2": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "glt_strip_sandwich": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _P], _I),
+    "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "glt_recompute_clusters": ([_I, _I, _I], _I),
+    "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    "glt_finish_colstats": ([_P] * 13 + [_I, _I, _I, _I, _P], _I),
 }
 
 _LIB = None
@@ -67,16 +72,30 @@ def build() -> Path:
     out = lib_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}"
+            for src, proc in zip(sources(), procs)]
+    PTXAS_LOG = "\n".join(logs)
+    bad = [src.name for src, proc in zip(sources(), procs) if proc.returncode]
+    if bad:
+        raise RuntimeError(f"nvcc failed on {bad}:\n{PTXAS_LOG[-6000:]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     BUILD_SECONDS = time.perf_counter() - t0
-    PTXAS_LOG = proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                           f"{PTXAS_LOG[-4000:]}")
+        raise RuntimeError(f"nvcc link failed (rc={proc.returncode}):\n"
+                           f"{(proc.stdout + proc.stderr)[-4000:]}")
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,283 @@
+"""K7-K9 — the recompute-streaming kernels of the fused-finish path (port of
+``graphlap_tpu/ops/pallas_streaming.py``: ``kb_strip_pallas`` :319 with
+``gram_pallas`` :369 around it, ``ext2_matvec_pallas`` :554,
+``finish_colstats_pallas`` :677).
+
+Each recomputes kernel tiles from padded feature layouts
+(ops/recompute_layout: fa (p_pad, dp) rows, f_t (dp, n) transposed
+features):
+
+* ``kb_strip_cuda`` (K7): the column-scaled tile bf16(k * bf16(cols)),
+  (p_pad, S), which ``gram_cuda`` turns into the (p_pad, p_pad) gram with
+  one bf16-in / f32-out GEMM.
+* ``ext2_matvec_cuda`` (K8): kbt = k^T bf16([t_r, t_c]), s = bm /
+  sqrt(max(kbt_r kbt_c, eps)), u = K s.
+* ``finish_colstats_cuda`` (K9): ks = k^T bf16(t), s = sqrt(s_pre /
+  max(ks, eps)) bm, V = bf16(k bf16(s))^T bf16(gr), norms = sum V^2,
+  coeffs = V^T y; the tile is the plain class (f32 norms passed in, f32
+  exp, then bf16).
+
+Tile precision: with bf16 layouts and ``aug`` the tile is
+bf16(exp(-bf16(max(d2, 0)))) with d2 straight from the augmented product;
+without ``aug`` (K7/K8 plain layout) d2 = na + nb - 2 cross from the tile
+values; f32 layouts keep f32 throughout.
+
+CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
+bodies' rounding points, over column chunks so that they also run at 8 MP
+on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu``, which takes
+the bf16 layouts the main path builds: aug for K7/K8, plain for K9, 32
+feature lanes. f32 layouts and the plain-layout K7/K8 raise
+``NotImplementedError`` on CUDA (ROADMAP.md Queue 2); there is no fallback
+from a kernel to its plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cuda_affinity import _device_kind
+from .linalg import mm_f32
+from .recompute_layout import FINISH_EPS, _require_whole_p
+from .streaming import _chunks
+
+PLAIN_CHUNK = 16384       # columns a step of the plain versions
+P_QUANTUM = 256           # fa rows: 8 cluster slices, 4 warp quarters of 8
+FD = 32                   # feature depth of the kernels
+X_TN, F_TN, E_TN = 128, 64, 128   # K8, K9, K7 column tiles (csrc)
+MP_MAX = 64               # widest V a K9 launch holds in shared memory
+_F32 = torch.float32
+
+
+def _r(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype``, carried in f32."""
+    return x.to(dtype).to(_F32)
+
+
+def _tile_plain(a: torch.Tensor, bt: torch.Tensor, aug: bool) -> torch.Tensor:
+    """(p, c) kernel tile in the layout dtype from (p, dp), (dp, c)."""
+    dtype = a.dtype
+    af, bf = a.to(_F32), bt.to(_F32)
+    if aug:
+        d2 = torch.clamp(af @ bf, min=0.0)
+    else:
+        cross = af @ bf
+        na = torch.sum(af * af, dim=1)
+        nb = torch.sum(bf * bf, dim=0)
+        d2 = torch.clamp(na[:, None] + nb[None, :] - 2.0 * cross, min=0.0)
+    if dtype == torch.bfloat16:
+        return torch.exp(-_r(d2, dtype)).to(dtype)
+    return torch.exp(-d2)
+
+
+# --- plain versions -------------------------------------------------------
+
+def kb_strip_plain(fa, f_t, cols, aug: bool = False):
+    """(p_pad, dp), (dp, S), (S,) -> (p_pad, S) in fa's dtype."""
+    dtype = fa.dtype
+    out = torch.empty((fa.shape[0], f_t.shape[1]), dtype=dtype,
+                      device=fa.device)
+    for sl in _chunks(f_t.shape[1], PLAIN_CHUNK):
+        kb = _tile_plain(fa, f_t[:, sl], aug).to(_F32)
+        out[:, sl] = (kb * _r(cols[sl], dtype)[None, :]).to(dtype)
+    return out
+
+
+def ext2_matvec_plain(fa, f_t, t2, bm, aug: bool = False):
+    """-> (u (p_pad,) f32, s (n,) f32)."""
+    dtype = fa.dtype
+    t2r = _r(t2, dtype)
+    u = torch.zeros(fa.shape[0], dtype=_F32, device=fa.device)
+    s = torch.empty(f_t.shape[1], dtype=_F32, device=fa.device)
+    for sl in _chunks(f_t.shape[1], PLAIN_CHUNK):
+        kb = _tile_plain(fa, f_t[:, sl], aug).to(_F32)
+        kbt = t2r @ kb
+        s[sl] = bm[sl].to(_F32) / torch.sqrt(
+            torch.clamp(kbt[0] * kbt[1], min=FINISH_EPS))
+        u = u + kb @ s[sl]
+    return u, s
+
+
+def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb):
+    """-> (V (n, m_pad) f32, norms (m_pad,), coeffs (m_pad,), s (n,))."""
+    dtype = fa.dtype
+    n, mp = f_t.shape[1], gr.shape[1]
+    dev = fa.device
+    af = fa.to(_F32)
+    tr, grr = _r(t, dtype), _r(gr, dtype)
+    v = torch.empty((n, mp), dtype=_F32, device=dev)
+    s = torch.empty(n, dtype=_F32, device=dev)
+    norms = torch.zeros(mp, dtype=_F32, device=dev)
+    coeffs = torch.zeros(mp, dtype=_F32, device=dev)
+    for sl in _chunks(n, PLAIN_CHUNK):
+        cross = af @ f_t[:, sl].to(_F32)
+        d2 = torch.clamp(na[:, None] + nb[None, sl] - 2.0 * cross, min=0.0)
+        kb = _r(torch.exp(-d2), dtype)
+        ks = tr @ kb
+        s[sl] = torch.sqrt(s_pre[sl] / torch.clamp(ks, min=FINISH_EPS)) * bm[sl]
+        kbs = _r(kb * _r(s[sl], dtype)[None, :], dtype)
+        vb = kbs.T @ grr
+        v[sl] = vb
+        norms = norms + torch.sum(vb * vb, dim=0)
+        coeffs = coeffs + y[sl].to(_F32) @ vb
+    return v, norms, coeffs, s
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def _check_layout(fa, f_t, what: str, aug: bool | None) -> None:
+    if fa.dtype != torch.bfloat16 or f_t.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes bf16 feature layouts (the "
+            f"bfloat16 main path); f32 layouts wait for ROADMAP.md Queue 2 "
+            f"(K7-K9, f32 layouts)")
+    if aug is False:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel takes the aug layout; the plain bf16 "
+            f"layout waits for ROADMAP.md Queue 2 (K7-K9, plain layout)")
+    if fa.shape[1] != FD or f_t.shape[0] != FD:
+        raise ValueError(f"{what}: the kernel takes {FD} feature lanes, got "
+                         f"{fa.shape[1]} and {f_t.shape[0]}")
+    if not (fa.is_contiguous() and f_t.is_contiguous()):
+        raise ValueError(f"{what}: fa and f_t must be contiguous")
+    if fa.shape[0] % P_QUANTUM:
+        raise ValueError(f"{what}: fa rows {fa.shape[0]} must be a multiple "
+                         f"of {P_QUANTUM}")
+
+
+def _check_vecs(what: str, **vecs) -> None:
+    for name, (x, size) in vecs.items():
+        if tuple(x.shape) != tuple(size):
+            raise ValueError(f"{what}: {name} shape {tuple(x.shape)} != "
+                             f"{tuple(size)}")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_F32).contiguous()
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).contiguous()
+
+
+def _clusters(which: int, p: int, mp: int, tiles: int, what: str) -> int:
+    n = _build.lib().glt_recompute_clusters(which, p, mp)
+    if n <= 0:
+        _build.check(-n if n < 0 else 1, f"{what}: no cluster fits the card")
+    return min(n, tiles)
+
+
+def kb_strip_cuda(fa, f_t, cols, aug: bool = False):
+    """((p_pad, 32), (32, S), (S,)) -> (p_pad, S) bf16 column-scaled tile."""
+    if _device_kind(fa, f_t, cols) == "cpu":
+        return kb_strip_plain(fa, f_t, cols, aug)
+    _check_layout(fa, f_t, "kb_strip", aug)
+    p, s = fa.shape[0], f_t.shape[1]
+    _check_vecs("kb_strip", cols=(cols, (s,)))
+    if s % E_TN:
+        raise ValueError(f"kb_strip: width {s} must be a multiple of {E_TN}")
+    out = torch.empty((p, s), dtype=torch.bfloat16, device=fa.device)
+    cb = _bf16(cols)
+    rc = _build.lib().glt_kb_strip(fa.data_ptr(), f_t.data_ptr(),
+                                   cb.data_ptr(), out.data_ptr(), p, s,
+                                   _build.stream_ptr(fa))
+    _build.check(rc, "kb_strip")
+    kb_strip_cuda.launches += 1
+    return out
+
+
+def _gram(kb: torch.Tensor) -> torch.Tensor:
+    return mm_f32(kb, kb.T) if kb.dtype == torch.bfloat16 else kb @ kb.T
+
+
+def gram_plain(fa, f_t, cols, aug: bool = False):
+    return _gram(kb_strip_plain(fa, f_t, cols, aug))
+
+
+def gram_cuda(fa, f_t, cols, aug: bool = False):
+    """sum_j (c_j k_j)(c_j k_j)^T -> (p_pad, p_pad) f32 (``gram_pallas``):
+    K7 emits every sampled column in one launch, then one bf16-in / f32-out
+    GEMM (the reference loops superblocks of ``block`` columns; only the
+    f32 summation order differs)."""
+    return _gram(kb_strip_cuda(fa, f_t, cols, aug))
+
+
+def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False):
+    """((p_pad, 32), (32, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,))."""
+    if _device_kind(fa, f_t, t2, bm) == "cpu":
+        return ext2_matvec_plain(fa, f_t, t2, bm, aug)
+    _check_layout(fa, f_t, "ext2_matvec", aug)
+    p, n = fa.shape[0], f_t.shape[1]
+    _require_whole_p(p, "ext2_matvec")
+    _check_vecs("ext2_matvec", t2=(t2, (2, p)), bm=(bm, (n,)))
+    if n % X_TN:
+        raise ValueError(f"ext2_matvec: n {n} must be a multiple of {X_TN}")
+    dev = fa.device
+    clusters = _clusters(0, p, 0, n // X_TN, "ext2_matvec")
+    t2b, bmf = _bf16(t2), _f32(bm)
+    s = torch.empty(n, dtype=_F32, device=dev)
+    u_part = torch.empty((clusters, p), dtype=_F32, device=dev)
+    u = torch.empty(p, dtype=_F32, device=dev)
+    rc = _build.lib().glt_ext2_matvec(
+        fa.data_ptr(), f_t.data_ptr(), t2b.data_ptr(), bmf.data_ptr(),
+        s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, clusters,
+        _build.stream_ptr(fa))
+    _build.check(rc, "ext2_matvec")
+    ext2_matvec_cuda.launches += 1
+    return u, s
+
+
+def _finish_launch(fa, f_t, tb, vecs, mp, clusters):
+    p, n = fa.shape[0], f_t.shape[1]
+    dev = fa.device
+    v = torch.empty((n, mp), dtype=_F32, device=dev)
+    s = torch.empty(n, dtype=_F32, device=dev)
+    part = torch.empty((8 * clusters, 2, mp), dtype=_F32, device=dev)
+    nc = torch.empty((2, mp), dtype=_F32, device=dev)
+    rc = _build.lib().glt_finish_colstats(
+        fa.data_ptr(), f_t.data_ptr(), tb.data_ptr(),
+        *[x.data_ptr() for x in vecs], v.data_ptr(), s.data_ptr(),
+        part.data_ptr(), nc.data_ptr(), p, n, mp, clusters,
+        _build.stream_ptr(fa))
+    _build.check(rc, "finish_colstats")
+    finish_colstats_cuda.launches += 1
+    return v, nc[0], nc[1], s
+
+
+def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb):
+    """((p_pad, 32) plain, (32, n) aug superset, (p_pad,), (n,), (n,),
+    (p_pad, m_pad), (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,),
+    coeffs (m_pad,), s (n,)), all f32. A gr wider than MP_MAX runs one
+    launch per MP_MAX columns (each recomputes the tile)."""
+    if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
+        return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
+    _check_layout(fa, f_t, "finish_colstats", None)
+    p, n = fa.shape[0], f_t.shape[1]
+    mp = gr.shape[1]
+    _require_whole_p(p, "finish_colstats")
+    _check_vecs("finish_colstats", t=(t, (p,)), s_pre=(s_pre, (n,)),
+                bm=(bm, (n,)), gr=(gr, (p, mp)), y=(y, (n,)), na=(na, (p,)),
+                nb=(nb, (n,)))
+    if mp % 16 or not 16 <= mp <= 128:
+        raise ValueError(f"finish_colstats: gr width {mp} must be a multiple "
+                         f"of 16 in [16, 128]")
+    if n % F_TN:
+        raise ValueError(f"finish_colstats: n {n} must be a multiple of "
+                         f"{F_TN}")
+    tb = _bf16(t)
+    s_pre, bm, y, na, nb = (_f32(x) for x in (s_pre, bm, y, na, nb))
+    outs = []
+    for m0 in range(0, mp, MP_MAX):
+        g = _f32(gr[:, m0:m0 + MP_MAX])
+        clusters = _clusters(1, p, g.shape[1], n // F_TN, "finish_colstats")
+        outs.append(_finish_launch(fa, f_t, tb, (s_pre, bm, g, y, na, nb),
+                                   g.shape[1], clusters))
+    if len(outs) == 1:
+        return outs[0]
+    v, norms, coeffs, s = zip(*outs)
+    return (torch.cat(v, dim=1), torch.cat(norms), torch.cat(coeffs), s[0])
+
+
+kb_strip_cuda.launches = 0
+ext2_matvec_cuda.launches = 0
+finish_colstats_cuda.launches = 0

@@ -15,6 +15,17 @@ import torch
 _TINY = 1e-30
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for bf16 operands with an f32 result and no output rounding.
+    ``torch.matmul`` on bf16 returns bf16. On CUDA, cuBLAS writes f32
+    directly (aten::mm.dtype); the CPU has no such kernel, so there the
+    operands are upcast — products of bf16 values are exact in f32, so
+    both forms are bf16-in / f32-out."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
 def _eigh_sym(mat: torch.Tensor):
     return torch.linalg.eigh(0.5 * (mat + mat.T))
 

@@ -1,16 +1,20 @@
-"""Nystrom helpers of the sketch eigensolve (port of
-``graphlap_tpu/ops/nystrom.py``: ``_ridge_eps`` :116, ``_orthonormalize``
+"""Nystrom eigensolve pieces (port of ``graphlap_tpu/ops/nystrom.py``:
+``_ridge_eps`` :116, ``nystrom_chol_factor`` :120, ``_orthonormalize``
 :195, ``_LIVE_NORM2``).
 
 The strip_cache path inlines the randomized sketch solve into its fused
-strip sweeps (models/streaming._factor_strip_fused), so only these pieces
-are needed here. ``nystrom_sketch_factor``, ``nystrom_chol_factor`` and the
-one-shot solver wait for the dense-path port (ROADMAP.md Queue 1, M5).
+strip sweeps (models/streaming._factor_strip_fused); the recompute path
+solves its p x p problem with ``nystrom_chol_factor``.
+``nystrom_sketch_factor`` and the one-shot solver wait for the dense-path
+port (ROADMAP.md Queue 1, M5).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .linalg import trunc_inv_sqrt_vals
+from .lobpcg import lobpcg_standard
 
 # columns whose true squared norm falls below this are spurious (live
 # columns sit at ~1, truncation-killed at 0)
@@ -36,3 +40,49 @@ def _orthonormalize(y: torch.Tensor, rel: float = 1e-6) -> torch.Tensor:
     eye = torch.eye(k, dtype=g.dtype, device=g.device)
     r = torch.linalg.cholesky(g + 1e-7 * eye)
     return torch.linalg.solve_triangular(r, y.T, upper=False).T   # Y L^{-T}
+
+
+def lobpcg_x0(p: int, m: int, device) -> torch.Tensor:
+    """LOBPCG's (p, m) start block, from a seed-0 generator on ``device``
+    (the reference draws jax.random.normal(PRNGKey(0)), which torch cannot
+    reproduce: parity tests pass that block in instead)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn((p, m), generator=gen, dtype=torch.float32,
+                       device=device)
+
+
+def nystrom_chol_factor(waa: torch.Tensor, cross: torch.Tensor, m: int,
+                        eig_tol: float, method: str = "eigh",
+                        lobpcg_iters: int = 60,
+                        x0: torch.Tensor | None = None):
+    """(vals (m,) descending, factor X (p, m)) with V = C X, from the ridge
+    Cholesky A = W_AA + eps I = L L^T and M = L^-1 (W_AA^2 + cross) L^-T:
+    "eigh" takes the top m of a dense eigh of M; "lobpcg" runs
+    ``lobpcg_standard`` from ``x0`` (default ``lobpcg_x0``) for at most
+    ``lobpcg_iters`` iterations, and falls back to eigh where 5 m >= p
+    (LOBPCG's search-dimension bound)."""
+    p = waa.shape[0]
+    eye = torch.eye(p, dtype=waa.dtype, device=waa.device)
+    l = torch.linalg.cholesky(waa + _ridge_eps(waa, eig_tol) * eye)
+    g = waa @ waa + cross
+    t1 = torch.linalg.solve_triangular(l, g, upper=False)       # L^-1 G
+    m_mat = torch.linalg.solve_triangular(l, t1.T, upper=False)
+    m_mat = 0.5 * (m_mat + m_mat.T)
+    if method == "lobpcg" and 5 * m >= p:
+        method = "eigh"
+    if method == "lobpcg":
+        x = lobpcg_x0(p, m, waa.device) if x0 is None else x0.to(waa)
+        if x.shape != (p, m):
+            raise ValueError(f"x0 shape {tuple(x.shape)} != {(p, m)}")
+        vals_m, y_m, _ = lobpcg_standard(lambda v: m_mat @ v, x,
+                                         m=lobpcg_iters)
+        order = torch.argsort(vals_m, descending=True)
+        vals_m, y_m = vals_m[order], y_m[:, order]
+    else:
+        vals, y = torch.linalg.eigh(m_mat)
+        vals_m = torch.flip(vals, (0,))[:m]
+        y_m = torch.flip(y, (1,))[:, :m]
+    inv_sqrt = trunc_inv_sqrt_vals(vals_m, eig_tol)
+    x = torch.linalg.solve_triangular(l.T, y_m * inv_sqrt[None, :],
+                                      upper=True)
+    return vals_m, x

@@ -1,9 +1,10 @@
 """State carried from the reference into the port.
 
 The filter has no learned weights. What crosses between the packages is
-the configuration, the sample plan's indices and the sketch's random test
-matrix Omega (which torch cannot redraw from the reference's seed). Each
-arrives as plain Python or numpy and becomes the port's object here.
+the configuration, the sample plan's indices, the sketch's random test
+matrix Omega and LOBPCG's random start block X0 (torch cannot redraw
+either from the reference's seed). Each arrives as plain Python or numpy
+and becomes the port's object here.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ def idx_to_device(idx_a: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(np.asarray(idx_a, np.int64), device=device)
 
 
-def omega_to_device(omega: np.ndarray, device) -> torch.Tensor:
-    """The reference's (p, k) sketch test matrix as f32 on ``device``."""
-    return torch.tensor(np.asarray(omega, np.float32), device=device)
+def block_to_device(block: np.ndarray, device) -> torch.Tensor:
+    """A random block the reference drew, as f32 on ``device``: the (p, k)
+    sketch test matrix Omega or the (p, m) LOBPCG start block X0."""
+    return torch.tensor(np.asarray(block, np.float32), device=device)

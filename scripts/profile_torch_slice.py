@@ -1,24 +1,32 @@
-"""Where the time of graphlap_tpu_torch's config-2 slice goes, on one CUDA card.
+"""Where the time of graphlap_tpu_torch's two ported paths goes, on one CUDA
+card.
 
-    python3 scripts/profile_torch_slice.py [--out DIR]
+    python3 scripts/profile_torch_slice.py [--path config2|config4|both]
+                                           [--out DIR]
 
-Runs chip_smoke.make_workload's recipe through filter_image once to warm
-up, then:
+For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
+recipe; config 4: chip_smoke.make_workload_8mp, the 8 MP recompute-streaming
+fused-finish recipe) it runs filter_image once to warm up, then:
 
-* stage walls (host clock around work ending in torch.cuda.synchronize):
-  strip context (features, K_AA + its Cholesky, the K1 strip), the coarse
-  Sinkhorn loop, and the whole filter_image call;
+* stage walls (host clock around work ending in torch.cuda.synchronize,
+  min of 3): the strip context (features, K_AA + its Cholesky, and the K1
+  strip or the recompute layouts), the coarse Sinkhorn loop, and the whole
+  filter_image call;
 * one filter_image call under torch.profiler: device time summed by kernel
-  name, the device-busy share of the call's wall, and the full table in
-  <out>/profile_table.txt (the Chrome trace in <out>/profile_trace.json).
+  name and by group (the port's kernels, cuBLAS GEMMs, cuSOLVER and the
+  other small dense algebra, elementwise and reductions), the device-busy
+  share of the call's wall, and the full table in <out>/<path>_table.txt
+  (the Chrome trace in <out>/<path>_trace.json).
 
-Prints one JSON line with the numbers and the card's name and power limit.
+Prints one JSON line a path with the numbers and the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -28,6 +36,21 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+# device kernel name -> group, first match wins
+GROUPS = (
+    ("port kernels", r"affinity_kernel|ext2_kernel|sandwich_p[12]_kernel|"
+                     r"kb_emit_kernel|ext2_matvec_kernel|"
+                     r"finish_colstats_kernel|reduce_partials"),
+    ("cuSOLVER / small dense algebra",
+     r"syevd|syevj|jacobi|potrf|potrs|trsm|trsv|geqrf|orgqr|orgbr|ormqr|"
+     r"gesvd|gebrd|bdsqr|lansy|sytrd|stedc|steqr|larf|laswp|cusolver|"
+     r"magma|batch_"),
+    ("cuBLAS GEMM / GEMV", r"gemm|gemv|xmma|cutlass|sm90_|ampere_|dot_kernel"),
+    ("elementwise / reductions", r"elementwise|vectorized|reduce|index|"
+                                 r"scatter|gather|copy|fill|cat|where|exp|"
+                                 r"sqrt|clamp|arange|Memcpy|Memset"),
+)
 
 
 def _wall(fn, reps: int = 3) -> float:
@@ -42,24 +65,17 @@ def _wall(fn, reps: int = 3) -> float:
     return best
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="build/profile")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("profile_torch_slice: needs a CUDA card")
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
+def _group(name: str) -> str:
+    for group, pat in GROUPS:
+        if re.search(pat, name, re.IGNORECASE):
+            return group
+    return "other"
 
-    import chip_smoke
-    import graphlap_tpu_torch as gt
+
+def profile_path(tag, workload, gt, dev, out: Path) -> dict:
     from graphlap_tpu_torch.models import streaming as ms
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    dev = torch.device("cuda", 0)
-    cfg, img, noisy, plan = chip_smoke.make_workload(gt)
+    cfg, _, noisy, plan = workload(gt)
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype("int64"), device=dev)
     gt.filter_image(noisy, cfg, plan=plan, device=dev)          # warm-up
@@ -72,6 +88,7 @@ def main() -> None:
     stages["filter_image_s"] = _wall(
         lambda: gt.filter_image(noisy, cfg, plan=plan, device=dev))
     del ctx
+    torch.cuda.empty_cache()
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -84,19 +101,54 @@ def main() -> None:
     ka = prof.key_averages()
     attr = ("device_time_total" if hasattr(ka[0], "device_time_total")
             else "cuda_time_total")
-    by_kernel = sorted(((e.key, getattr(e, attr) / 1e3) for e in ka
+    by_kernel = sorted(((e.key, getattr(e, attr) / 1e3, e.count) for e in ka
                         if getattr(e, attr) > 0 and e.device_type is not None
                         and "cuda" in str(e.device_type).lower()),
                        key=lambda kv: -kv[1])
-    device_ms = sum(ms_ for _, ms_ in by_kernel)
-    (out / "profile_table.txt").write_text(
-        ka.table(sort_by=attr, row_limit=60))
-    prof.export_chrome_trace(str(out / "profile_trace.json"))
-    print(json.dumps(dict(
-        card=card, stages=stages, profiled_wall_s=wall,
-        device_kernel_ms=device_ms,
-        device_busy_share=device_ms / 1e3 / wall if wall else None,
-        top_kernels_ms=by_kernel[:15])), flush=True)
+    by_group: dict[str, float] = {}
+    for name, ms_, _ in by_kernel:
+        by_group[_group(name)] = by_group.get(_group(name), 0.0) + ms_
+    device_ms = sum(ms_ for _, ms_, _ in by_kernel)
+    host_ops = sorted(((e.key, e.cpu_time_total / 1e3, e.count) for e in ka
+                       if e.key.startswith(("aten::linalg", "aten::_linalg",
+                                            "aten::item",
+                                            "aten::_local_scalar"))),
+                      key=lambda kv: -kv[1])[:8]
+    (out / f"{tag}_table.txt").write_text(ka.table(sort_by=attr,
+                                                   row_limit=80))
+    prof.export_chrome_trace(str(out / f"{tag}_trace.json"))
+    return dict(path=tag, stages=stages, profiled_wall_s=wall,
+                device_kernel_ms=device_ms,
+                device_busy_share=device_ms / 1e3 / wall if wall else None,
+                by_group_ms=by_group, top_kernels_ms_count=by_kernel[:15],
+                host_linalg_ms_count=host_ops)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("config2", "config4", "both"),
+                    default="both")
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_slice: needs a CUDA card")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+
+    import chip_smoke
+    import graphlap_tpu_torch as gt
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    paths = {"config2": chip_smoke.make_workload,
+             "config4": chip_smoke.make_workload_8mp}
+    for tag, workload in paths.items():
+        if args.path in (tag, "both"):
+            res = profile_path(tag, workload, gt, dev, out)
+            print(json.dumps(dict(card=card, **res)), flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -84,7 +84,7 @@ def _port(noisy, cfg, plan, omega, device="cpu"):
     z, vals = _filter_channel(
         torch.tensor(noisy, device=device),
         interop.idx_to_device(plan.idx_a, device), cfg,
-        interop.omega_to_device(omega, device))
+        interop.block_to_device(omega, device))
     return z.cpu().numpy(), vals.cpu().numpy()
 
 
