@@ -1,5 +1,5 @@
-"""On-card smoke run of graphlap_tpu_torch: both ported paths on one NVIDIA
-GPU, through their hand-written CUDA kernels.
+"""On-card smoke run of graphlap_tpu_torch: every ported path on one NVIDIA
+GPU, through its hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,25 @@ non-zero before the last line is printed):
    plain    the same factor through the plain versions on the card;
    small    96x96 on the recompute recipe of tests/test_torch_recompute.py,
             card kernels against CPU plain versions, same LOBPCG start.
-5. result   — one JSON line listing every kernel (name, route, source,
+5. config 3 — the recompute matvec route, bf16 aug layout (benchmarks/run.py's
+              cfg3_1024_rgb_sharpen: 1024x1024 RGB test image, noise sigma
+              0.03 seed 3, tuned_config(CONFIG3, "fast"): per-channel
+              sharpen 0.15 by exact matvecs, p=4096, bf16 tiles, coarse
+              Sinkhorn 1/8 + one polish):
+   kernels  K5/K6 at channel 0's shapes (p_pad 4096, N 1048576), positive
+            vectors from a seeded generator, each against its plain version;
+   e2e      filter_image: warm-up and three timed runs, walls, peak memory,
+            launches per call (6 / 6), the reference's config-3 quality bars
+            (gradient-energy ratio, SSIM, PSNR);
+   plain    the same three channels through the plain versions on the card;
+   small    a 48x48x3 image, card kernels against CPU plain versions.
+6. config 4q — the 8 MP matvec denoise, f32 plain layout (benchmarks/run.py's
+              cfg4_8mp_quality_matvec: denoise_tuned(h 0.1) + "fast": identity
+              W y, f32 features and tiles, coarse Sinkhorn 1/64 + one polish):
+   kernels  K5/K6 (f32) at the 8 MP shapes against their plain versions;
+   e2e-8mp  walls, peak memory, launches per call (2 / 2), PSNR gain > 5 dB;
+   plain    the same channel through the plain versions on the card.
+7. result   — one JSON line listing every kernel (name, route, source,
               replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
               bound_by, library_ms), the card line, then the contract line
               {"ok": true, "device": {...}}.
@@ -53,6 +71,7 @@ import numpy as np
 import torch
 
 H = W = 512
+H3 = W3 = 1024
 H8, W8 = 2048, 4096
 RUNS = 3
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
@@ -85,6 +104,16 @@ TOL = {
     # 5e-3 bar holds at its 2048-column test shape); norms and coeffs are
     # checked against their sums of term magnitudes
     "finish_colstats": 2.0 ** -7,
+    # K5/K6 aug: a tile entry flips one bf16 ulp where the tensor-core d2
+    # sums in another f32 order (as K8), and the sums over 1M columns /
+    # 4096 rows run in another order; each flip moves a sum by ~2^-8 / 1e3
+    "matvec": 1e-3,
+    "rmatvec": 1e-3,
+    # K5/K6 f32: the same f32 tile values, the cross in another FMA order
+    # (d2 moves by ~1e-6 of |f|^2) and the sums of 8.4M / 4096 terms in
+    # another order (~sqrt(terms) f32 ulps)
+    "matvec_f32": 1e-4,
+    "rmatvec_f32": 1e-4,
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
@@ -94,6 +123,10 @@ REPLACES = {
     "kb_strip": "graphlap_tpu/ops/pallas_streaming.py:319",
     "ext2_matvec": "graphlap_tpu/ops/pallas_streaming.py:554",
     "finish_colstats": "graphlap_tpu/ops/pallas_streaming.py:677",
+    "matvec": "graphlap_tpu/ops/pallas_streaming.py:397",
+    "rmatvec": "graphlap_tpu/ops/pallas_streaming.py:447",
+    "matvec_f32": "graphlap_tpu/ops/pallas_streaming.py:397",
+    "rmatvec_f32": "graphlap_tpu/ops/pallas_streaming.py:447",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -103,6 +136,10 @@ SOURCE = {
     "kb_strip": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
     "ext2_matvec": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
     "finish_colstats": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "matvec": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "rmatvec": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "matvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "rmatvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
 }
 NAMES = list(TOL)
 OUT = Path("build") / "chip_smoke"
@@ -248,6 +285,64 @@ def make_workload_8mp(gt, h=H8, w=W8):
         sinkhorn_polish=1, fused_finish=True)
     img, noisy = noisy_image(gt, h, w)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_cfg3(gt):
+    """benchmarks/run.py's cfg3_1024_rgb_sharpen (row3), rebuilt on the
+    port: (cfg, clean image, noisy f32 image, plan)."""
+    img = gt.make_test_image(H3, W3, channels=3)
+    noisy = np.ascontiguousarray(
+        np.clip(gt.add_gaussian_noise(img, 0.03, seed=3), 0, 1), np.float32)
+    cfg = gt.tuned_config(gt.CONFIG3.replace(streaming=True,
+                                             block_cols=131072),
+                          H3 * W3, "fast")
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_8mp_matvec(gt):
+    """benchmarks/run.py's cfg4_8mp_quality_matvec (row4q: row4's config
+    through denoise_tuned(0.1) and tuned_config "fast"), rebuilt on the
+    port: (cfg, clean image, noisy f32 image, plan)."""
+    base = gt.PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=10, filter_name="identity",
+        streaming=True, block_cols=131072, affinity_dtype="bfloat16")
+    cfg = gt.tuned_config(gt.denoise_tuned(base, 0.1), H8 * W8, "fast")
+    img, noisy = noisy_image(gt, H8, W8)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def grad_energy(a) -> float:
+    return float((np.diff(a, axis=0) ** 2).sum()
+                 + (np.diff(a, axis=1) ** 2).sum())
+
+
+def matvec_cases(ctx, dev, names):
+    """K5/K6 at a path's shapes on its layouts, positive vectors from a
+    seeded generator (scales and pixels, as the path feeds them)."""
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+
+    aug = ctx.fa_aug is not None
+    fa = ctx.fa_aug if aug else ctx.fa_pad
+    pp, nk = fa.shape[0], ctx.f_t.shape[1]
+    fd = ctx.f_t.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    v = 0.5 + torch.rand(nk, generator=gen, device=dev)
+    t = torch.zeros(pp, device=dev)
+    t[:ctx.p] = 0.5 + torch.rand(ctx.p, generator=gen, device=dev)
+    e = pp * nk
+    item = fa.element_size()
+    feat_bytes = item * fd * (pp + nk)
+    # bf16: the d2 product on the tensor cores and 8 f32 operations an
+    # entry (as K8); f32: the IEEE-f32 cross (2 fd an entry) and the same 8
+    flops = (dict(bf16_flops=2 * e * fd, f32_flops=8 * e) if aug
+             else dict(f32_flops=e * (2 * fd + 8)))
+    b_ms = bound(feat_bytes + 4 * (nk + pp), **flops)   # f32 vector in, out
+    mv, rmv = names
+    return {mv: (k56.matvec_cuda, k56.matvec_plain, (fa, ctx.f_t, v, aug),
+                 b_ms),
+            rmv: (k56.rmatvec_cuda, k56.rmatvec_plain, (fa, ctx.f_t, t, aug),
+                  b_ms)}
 
 
 def config2(gt, dev, rows, launches, info):
@@ -474,6 +569,133 @@ def config4(gt, dev, rows, launches, info):
                            small_db=s_db, small_max=s_max)
 
 
+def config3(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.metrics import ssim
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_cfg3(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d[..., 0].contiguous(), idx_d, cfg)
+    require(ctx.fa_aug is not None, "config 3 did not reach the aug layout")
+    phase("config3", f"workload and channel-0 layouts at {H3}x{W3}x3 (p="
+          f"{ctx.p}, p_pad={ctx.fa_aug.shape[0]}, N={ctx.n_pad}, "
+          f"n_pad_k={ctx.f_t.shape[1]}; {cfg.filter_name} "
+          f"{cfg.filter_param}, {cfg.filter_mode}, sinkhorn_coarse "
+          f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
+    run_cases(matvec_cases(ctx, dev, ("matvec", "rmatvec")), rows)
+    del ctx
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    counters = {"matvec": k56.matvec_cuda, "rmatvec": k56.rmatvec_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "config-3")
+    launches.update(counts)
+    per_call = {k: v / RUNS for k, v in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    ge_in, ge_out = (grad_energy(noisy) / grad_energy(img),
+                     grad_energy(res.image) / grad_energy(img))
+    ss = ssim(img, res.image)
+    phase("e2e-cfg3", f"walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB; gradient-energy ratio "
+          f"{ge_in:.4f} -> {ge_out:.4f}; SSIM {ss:.4f}; launches per call "
+          f"{per_call}", t0)
+    require(res.image.shape == (H3, W3, 3) and np.isfinite(res.image).all(),
+            "config-3 output is not a finite (1024, 1024, 3) image")
+    require(per_call == {"matvec": 6, "rmatvec": 6},
+            "config 3 should launch K5 and K6 six times each a call")
+    require(ge_out > ge_in + 0.05, "config-3 sharpen is net-smoothing")
+    require(ss > 0.75, "config-3 SSIM under 0.75")
+    require(psnr_out > psnr_in - 3.0, "config-3 PSNR fell by over 3 dB")
+
+    t0 = time.perf_counter()
+    z_plain = np.stack([_filter_channel(img_d[..., c].contiguous(), idx_d,
+                                        cfg, plain=True)[0].cpu().numpy()
+                        for c in range(3)], axis=-1)
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("plain", f"config-3 kernel path vs plain path on the card: "
+          f"{d_db:.5f} dB, max |diff| {d_max:.3e} (bar 0.05 dB, 2e-2)", t0)
+    require(d_db <= 0.05 and d_max <= 2e-2, "config-3 kernel path != plain")
+    del img_d, idx_d, z_plain
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    small = cfg.replace(sample_rho=0.05, block_cols=1152, sinkhorn_coarse=4)
+    im_s = gt.make_test_image(48, 48, channels=3)
+    nz_s = np.clip(gt.add_gaussian_noise(im_s, 0.03, seed=3), 0,
+                   1).astype(np.float32)
+    pl_s = gt.make_plan(nz_s, small)
+    z_cpu = gt.filter_image(nz_s, small, plan=pl_s, device="cpu").image
+    z_gpu = gt.filter_image(nz_s, small, plan=pl_s, device=dev).image
+    s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
+    s_max = float(np.abs(z_cpu - z_gpu).max())
+    phase("small", f"48x48x3 sharpen: card kernels vs CPU plain: {s_db:.5f} "
+          f"dB, max |diff| {s_max:.3e}", t0)
+    require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
+            "48x48x3 card run != CPU plain run")
+    info["config3"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                           psnr_out=psnr_out, grad_ratio_in=ge_in,
+                           grad_ratio_out=ge_out, ssim=ss,
+                           launches_per_call=per_call, plain_path_db=d_db,
+                           plain_path_max=d_max, small_db=s_db,
+                           small_max=s_max)
+
+
+def config4q(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_8mp_matvec(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    require(ctx.fa_aug is None and ctx.f_t.dtype == torch.float32,
+            "the 8 MP matvec denoise did not reach the f32 layout")
+    phase("config4q", f"workload and layouts at {H8}x{W8} (p={ctx.p}, p_pad="
+          f"{ctx.fa_pad.shape[0]}, N={ctx.n_pad}, h {cfg.h}, "
+          f"{cfg.filter_name} {cfg.filter_mode}, f32 tiles, sinkhorn_coarse "
+          f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
+    run_cases(matvec_cases(ctx, dev, ("matvec_f32", "rmatvec_f32")), rows)
+    del ctx
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    counters = {"matvec_f32": k56.matvec_cuda, "rmatvec_f32": k56.rmatvec_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "8 MP matvec")
+    launches.update(counts)
+    per_call = {k: v / RUNS for k, v in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e-8mp-mv", f"walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
+          f"{psnr_out - psnr_in:.3f}); launches per call {per_call}", t0)
+    require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
+            "8 MP matvec output is not a finite (2048, 4096) image")
+    require(per_call == {"matvec_f32": 2, "rmatvec_f32": 2},
+            "the 8 MP matvec denoise should launch K5 and K6 twice a call")
+    require(psnr_out > psnr_in + 5.0, "8 MP matvec denoise gain under 5 dB")
+
+    t0 = time.perf_counter()
+    z_plain = _filter_channel(img_d, idx_d, cfg, plain=True)[0].cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("plain", f"8 MP matvec kernel path vs plain path on the card: "
+          f"{d_db:.6f} dB, max |diff| {d_max:.3e} (bar 0.02 dB, 2e-3)", t0)
+    require(d_db <= 0.02 and d_max <= 2e-3, "8 MP matvec kernel path != plain")
+    info["config4q"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                            psnr_out=psnr_out, launches_per_call=per_call,
+                            plain_path_db=d_db, plain_path_max=d_max)
+
+
 def main() -> None:
     # 1. device
     t_all = time.perf_counter()
@@ -505,6 +727,10 @@ def main() -> None:
     config2(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     config4(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config3(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config4q(gt, dev, rows, launches, info)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],

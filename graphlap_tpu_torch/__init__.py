@@ -3,7 +3,9 @@ with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of ``graphlap_tpu`` (the JAX reference, which stays in the repo
 and is what the port's tests hold it against). This package covers the
-config-2 strip_cache denoise path; ROADMAP.md lists what is still to port.
+streaming paths of config 2 (strip_cache), config 4 (recompute with the
+fused finish) and config 3 / the 8 MP matvec denoise (recompute with an
+operator filter, per-channel RGB); ROADMAP.md lists what is still to port.
 
 Precision policy: the GEMM-trick distance |a|^2 + |b|^2 - 2 a.b cancels
 catastrophically at reduced precision, so f32 GEMMs run at full f32

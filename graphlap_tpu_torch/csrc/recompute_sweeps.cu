@@ -60,16 +60,13 @@
 // its launches.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace cg = cooperative_groups;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr float EPS = 1e-30f;
 constexpr int THREADS = 256;
 constexpr int CL = 8;        // blocks a cluster (sample-row slices)
 constexpr int FD = 32;       // feature depth
@@ -79,37 +76,6 @@ constexpr int F_TN = 64;     // K9 columns a tile
 constexpr int E_TM = 128;    // K7 rows a block
 constexpr int E_TN = 128;    // K7 columns a block
 constexpr int E_LDO = E_TN + 8;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float2 unpack2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
-}
-
-__device__ __forceinline__ float rbf(float x) {  // round to bf16, as f32
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// the aug-layout tile entry: bf16(exp(-bf16(max(d2, 0))))
-__device__ __forceinline__ float kb_aug(float d2) {
-  return rbf(expf(-rbf(fmaxf(d2, 0.f))));
-}
 
 // A fragment (16 rows x 16 k) of a row-major [row][k] tile, stride LDF
 __device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int row0,
@@ -148,24 +114,6 @@ __device__ void load_cols_t(bf16* s, const bf16* __restrict__ ft, size_t ld,
     h.y = hi;
     *reinterpret_cast<__nv_bfloat162*>(s + j * LDF + 2 * kp) = h;
   }
-}
-
-// out[i] = sum_g part[g * len + i], g in order
-__global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,
-                                int groups, size_t len) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += part[(size_t)g * len + i];
-    out[i] = acc;
-  }
-}
-
-int launch_reduce(const float* part, float* out, int groups, size_t len, cudaStream_t s) {
-  size_t blocks = (len + THREADS - 1) / THREADS;
-  if (blocks > 4096) blocks = 4096;
-  reduce_partials<<<(unsigned)blocks, THREADS, 0, s>>>(part, out, groups, len);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """End-to-end entry point of the port (``graphlap_tpu/models/pipeline.py``:
-``FilterResult``, ``make_plan`` :210 and the grayscale streaming branch of
-``filter_image`` :289-321).
+``FilterResult``, ``make_plan`` :210 and the streaming branches of
+``filter_image`` :289-353, grayscale and per-channel RGB).
 
 PyTorch runs eagerly, so there is no jitted program: ``filter_image`` moves
 the image and the sample indices to ``device`` once, runs the streaming
-slice there (strip_cache, or recompute with the fused finish) and copies
-the filtered image back. ``filter_image_staged``, RGB, the dense path, the
-unfused streaming sweeps and the sharded builders wait for their
+slice there (strip_cache, recompute with the fused finish, or recompute
+with an operator filter) and copies the filtered image back. RGB in
+``rgb_mode="per_channel"`` runs the channels one after another through the
+same slice (the reference vmaps them; each channel's pipeline is
+independent). ``filter_image_staged``, ``luma_basis`` RGB, the dense path,
+the unfused spectral sweeps and the sharded builders wait for their
 ROADMAP.md items and raise ``NotImplementedError``.
 """
 
@@ -49,7 +52,7 @@ def _filter_channel(img2d: torch.Tensor, idx_a: torch.Tensor,
 def filter_image(image: np.ndarray, cfg: PipelineConfig,
                  plan: SamplePlan | None = None, mesh=None,
                  device: str | torch.device = "cuda") -> FilterResult:
-    """Filter a (H, W) float [0, 1] image on ``device``.
+    """Filter a (H, W) or (H, W, C) float [0, 1] image on ``device``.
 
     ``device`` defaults to the GPU: on a machine without CUDA the call
     raises instead of running somewhere else; pass ``device="cpu"`` for the
@@ -58,15 +61,21 @@ def filter_image(image: np.ndarray, cfg: PipelineConfig,
     if mesh is not None:
         raise NotImplementedError("graphlap_tpu_torch: sharded filtering "
                                   "waits for ROADMAP.md Queue 1 M9")
-    if image.ndim != 2:
-        raise NotImplementedError("graphlap_tpu_torch: RGB input waits for "
-                                  "ROADMAP.md Queue 1 M7")
+    if image.ndim == 3 and cfg.rgb_mode == "luma_basis":
+        raise NotImplementedError("graphlap_tpu_torch: rgb_mode='luma_basis' "
+                                  "waits for ROADMAP.md Queue 1 M7")
     check_slice(cfg)
     if plan is None:
         plan = make_plan(image, cfg)
     dev = torch.device(device)
     img = torch.as_tensor(np.asarray(image, np.float32), device=dev)
     idx_a = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
-    z, vals = _filter_channel(img, idx_a, cfg)
-    return FilterResult(image=z.cpu().numpy(), eigvals=vals.cpu().numpy(),
-                        timings={})
+    if image.ndim == 2:
+        z, vals = _filter_channel(img, idx_a, cfg)
+        return FilterResult(image=z.cpu().numpy(),
+                            eigvals=vals.cpu().numpy(), timings={})
+    outs = [_filter_channel(img[..., c].contiguous(), idx_a, cfg)
+            for c in range(image.shape[-1])]
+    return FilterResult(
+        image=torch.stack([z for z, _ in outs], dim=-1).cpu().numpy(),
+        eigvals=torch.stack([v for _, v in outs]).cpu().numpy(), timings={})

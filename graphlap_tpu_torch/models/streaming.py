@@ -1,5 +1,5 @@
 """The streaming model (port of ``graphlap_tpu/models/streaming.py``) on
-its two kernel paths:
+its three kernel paths:
 
 * strip_cache (config 2): affinity strip -> coarse Sinkhorn -> fused strip
   sweeps with the inlined sketch eigensolve -> spectral filter. The
@@ -13,6 +13,11 @@ its two kernel paths:
   Cholesky ridge with LOBPCG, and sweep 2 (polish rmatvec + V) is K9
   (ops/cuda_recompute), all on the reference's padded layouts
   (ops/recompute_layout).
+* recompute streaming with an operator filter (config 3 sharpen, the 8 MP
+  matvec denoise): coarse Sinkhorn, the full-resolution extension
+  (ops/streaming.rmatvec2), the polish, and f(W) y by repeated
+  W x = s K~(s x), each K~ application one K5 matvec and one K6 rmatvec
+  (ops/cuda_matvec) on the bf16 aug or f32 plain layout. No eigensolve.
 
 Pixels stay in NATURAL order; only p-sized index ops touch pixels (gather
 the sample rows, scatter the p-sized results back).
@@ -23,8 +28,10 @@ kernel and the recompute + kernel branches of ``_strip_ctx``, both kernel
 branches of ``_coarse_sinkhorn_state``, ``_stream_cross``, the chol/lobpcg
 branch of ``_solve_pxp``, ``_fused_finish_ok``,
 ``_factor_streaming_fused``, ``_strip_fused_ok``, ``_factor_strip_fused``,
-the materialized-V branch of ``_apply_factor`` and
-``filter_channel_streaming``. Every other recipe raises
+the materialized-V branch of ``_apply_factor``, the kernel closures
+``strip_matvec`` / ``strip_rmatvec`` / ``ktilde_apply`` of the recompute
+context, ``_normalize_streaming`` (recompute), ``_apply_matvec_streaming``
+and ``filter_channel_streaming``. Every other recipe raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it
 (``check_slice``).
 """
@@ -39,12 +46,13 @@ import torch
 from ..config import PipelineConfig
 from ..ops.affinity import affinity_strip, extract_features_padded
 from ..ops import cuda_affinity as k1
+from ..ops import cuda_matvec as k56
 from ..ops import cuda_recompute as k79
 from ..ops import cuda_strip as k24
 from ..ops import recompute_layout as rl
 from ..ops import streaming as st
 from ..ops.cuda_strip import P_QUANTUM
-from ..ops.filters import FILTER_REGISTRY
+from ..ops.filters import FILTER_REGISTRY, apply_operator_filter
 from ..ops.linalg import mm_f32, trunc_inv_sqrt_vals
 from ..ops.nystrom import (_LIVE_NORM2, _orthonormalize, _ridge_eps,
                            nystrom_chol_factor)
@@ -89,6 +97,13 @@ def _recompute_kernels(plain: bool):
     return (k79.gram_cuda, k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
 
 
+def _matvec_kernels(plain: bool):
+    """(K5 matvec, K6 rmatvec) callables, kernel wrappers or plain versions."""
+    if plain:
+        return k56.matvec_plain, k56.rmatvec_plain
+    return k56.matvec_cuda, k56.rmatvec_cuda
+
+
 _UNFUSED_TODO = ("strip_cache recipes outside the fused-sweep gate (the "
                  "unfused strip sweeps) wait for ROADMAP.md Queue 1 M3")
 _RECOMPUTE_TODO = ("recompute-streaming recipes outside the fused-finish "
@@ -108,24 +123,30 @@ def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
 def check_slice(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError, before any work, unless ``cfg`` is a
     recipe the port runs: streaming strip_cache with the kernels on the
-    fused-sweep recipe, or recompute streaming with the kernels and the
-    fused finish (a shape gate, ``_fused_finish_ok``, follows once the
-    sample size is known)."""
+    fused-sweep recipe; recompute streaming with the kernels and the fused
+    finish (a shape gate, ``_fused_finish_ok``, follows once the sample
+    size is known); or recompute streaming with the kernels and an
+    operator filter (any normalization)."""
     todo = None
     if not cfg.streaming:
         todo = ("non-streaming configs wait for ROADMAP.md Queue 1 M5 "
                 "(dense path)")
-    elif cfg.operator_filter():
-        todo = ("operator filter modes (matvec/chebyshev) wait for "
-                "ROADMAP.md Queue 1 M7")
     elif cfg.strip_cache:
-        if not (cfg.use_pallas and _strip_fused_recipe(cfg)):
+        if cfg.operator_filter():
+            todo = ("operator filter modes (matvec/chebyshev) on strip_cache "
+                    "recipes (the strip products of the unfused "
+                    "normalization) wait for ROADMAP.md Queue 1 M3 / M7")
+        elif not (cfg.use_pallas and _strip_fused_recipe(cfg)):
             todo = _UNFUSED_TODO
-    elif not (cfg.use_pallas and cfg.fused_finish):
-        todo = _RECOMPUTE_TODO
     elif cfg.feature_dtype == "bfloat16":
         todo = ("bf16 feature storage on the recompute path waits for "
                 "ROADMAP.md Queue 1 M6")
+    elif cfg.operator_filter():
+        if not cfg.use_pallas:
+            todo = ("operator filter modes through the XLA-scan matvecs "
+                    "(use_pallas=False) wait for ROADMAP.md Queue 1 M6")
+    elif not (cfg.use_pallas and cfg.fused_finish):
+        todo = _RECOMPUTE_TODO
     elif cfg.solver not in ("chol", "lobpcg"):
         todo = ("the one-shot p x p solve (psd_pinv_sqrt) waits for "
                 "ROADMAP.md Queue 1 M2")
@@ -209,9 +230,11 @@ class _StripCtx(NamedTuple):
     idx_a: torch.Tensor
     feats_a: torch.Tensor
     feats_pad: torch.Tensor
+    valid: torch.Tensor                     # (n_pad,) 1 on real pixels
     b_mask: torch.Tensor
     kaa: torch.Tensor
     kaa_solve: object
+    plain: bool                             # kernels' plain versions
     strip: torch.Tensor | None = None       # (p, n_pad) view of strip_pad
     strip_pad: torch.Tensor | None = None   # (p_pad, n_pad), zero padding
     fa_pad: torch.Tensor | None = None      # recompute: (p_pad, dp) plain
@@ -249,7 +272,8 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
     kaa_solve = _make_kaa_solve(kaa, cfg.eig_tol, cfg.solver)
     base = dict(n=n, p=p, n_pad=n_pad, block=block, w=w, dtype=dtype,
                 idx_a=idx_a, feats_a=feats_a, feats_pad=feats_pad,
-                b_mask=b_mask, kaa=kaa, kaa_solve=kaa_solve)
+                valid=valid, b_mask=b_mask, kaa=kaa, kaa_solve=kaa_solve,
+                plain=plain)
     if not cfg.strip_cache:
         return _StripCtx(**base, **_recompute_layouts(feats_a, feats_pad,
                                                       n_pad, dtype))
@@ -293,6 +317,42 @@ def _recompute_layouts(feats_a: torch.Tensor, feats_pad: torch.Tensor,
         f_t = torch.zeros((dp, n_pad_k), dtype=dtype, device=feats_a.device)
         f_t[:d, :n_pad] = feats_pad.to(dtype).T
     return dict(fa_pad=fa_pad, f_t=f_t, fa_aug=fa_aug)
+
+
+def _mv_layout(ctx: _StripCtx):
+    """(fa, aug): the sample-row layout K5/K6 take (aug for bf16 tiles)."""
+    aug = ctx.fa_aug is not None
+    return (ctx.fa_aug if aug else ctx.fa_pad), aug
+
+
+def strip_matvec(ctx: _StripCtx, v_scaled: torch.Tensor) -> torch.Tensor:
+    """K v_scaled -> (p,) through K5 on the recompute layouts, v zero-padded
+    to n_pad_k (the reference's Pallas closure)."""
+    fa, aug = _mv_layout(ctx)
+    vv = torch.zeros(ctx.f_t.shape[1], dtype=torch.float32,
+                     device=v_scaled.device)
+    vv[:ctx.n_pad] = v_scaled
+    return _matvec_kernels(ctx.plain)[0](fa, ctx.f_t, vv, aug)[:ctx.p]
+
+
+def strip_rmatvec(ctx: _StripCtx, t_scaled: torch.Tensor) -> torch.Tensor:
+    """K^T t_scaled -> (n_pad,) through K6, t zero-padded to p_pad."""
+    fa, aug = _mv_layout(ctx)
+    tt = torch.zeros(fa.shape[0], dtype=torch.float32, device=t_scaled.device)
+    tt[:ctx.p] = t_scaled
+    return _matvec_kernels(ctx.plain)[1](fa, ctx.f_t, tt, aug)[:ctx.n_pad]
+
+
+def ktilde_apply(ctx: _StripCtx, s: torch.Tensor) -> torch.Tensor:
+    """K~ s in natural order: the Nystrom completion's matvec, one K5 and
+    one K6 (the B rows from K_BA t, the A rows from the exact K_AA)."""
+    s_a = s[ctx.idx_a]                                # p gather
+    u = strip_matvec(ctx, s * ctx.b_mask)
+    top = ctx.kaa @ s_a + u
+    t = s_a + ctx.kaa_solve(u)
+    bottom = strip_rmatvec(ctx, t) * ctx.b_mask
+    bottom[ctx.idx_a] = top                           # p scatter
+    return bottom
 
 
 def _chunk(ctx: _StripCtx, block: int) -> int:
@@ -349,6 +409,45 @@ def _coarse_sinkhorn_state(ctx: _StripCtx, cfg: PipelineConfig):
         u_r = coarse_step(t_c)
     s_a_coarse = torch.sqrt(torch.clamp(r_a * c_a, min=0.0))
     return s_a_coarse, t_r, t_c
+
+
+def _normalize_streaming(ctx: _StripCtx, cfg: PipelineConfig) -> torch.Tensor:
+    """Streaming Sinkhorn / symmetric normalization on the recompute
+    context -> column scales s (n_pad,), zero on padding: coarse Sinkhorn,
+    the full-resolution extension (rmatvec2) and ``sinkhorn_polish``
+    completion passes; or full-resolution Sinkhorn; or symmetric; or
+    none."""
+    if ctx.strip is not None:
+        raise NotImplementedError(
+            "graphlap_tpu_torch: the strip_cache branch of the unfused "
+            "normalization waits for ROADMAP.md Queue 1 M3")
+    valid, b_mask = ctx.valid, ctx.b_mask
+    if cfg.normalization == "sinkhorn" and cfg.sinkhorn_coarse > 1:
+        s_a_coarse, t_r, t_c = _coarse_sinkhorn_state(ctx, cfg)
+        t2 = torch.stack([t_r, t_c], dim=1)
+        # each column sums over p only, so on the card any chunk gives the
+        # same values; CUDA_CHUNK bounds the f32 tile temps
+        chunk = CUDA_CHUNK if b_mask.is_cuda else ctx.block
+        kbt = st.rmatvec2(ctx.feats_a, ctx.feats_pad, t2, b_mask, chunk,
+                          ctx.dtype)
+        prod = torch.clamp(kbt[:, 0] * kbt[:, 1], min=_EPS)
+        s = b_mask / torch.sqrt(prod)
+        s[ctx.idx_a] = s_a_coarse
+        s = s * valid
+        for _ in range(cfg.sinkhorn_polish):
+            ks = torch.clamp(ktilde_apply(ctx, s), min=_EPS)
+            s = torch.sqrt(s / ks) * valid
+    elif cfg.normalization == "sinkhorn":
+        s = valid
+        for _ in range(cfg.sinkhorn_iters):
+            ks = torch.clamp(ktilde_apply(ctx, s), min=_EPS)
+            s = torch.sqrt(s / ks) * valid
+    elif cfg.normalization == "symmetric":
+        ks = torch.clamp(ktilde_apply(ctx, valid), min=_EPS)
+        s = torch.rsqrt(ks) * valid
+    else:
+        s = valid
+    return s
 
 
 def _strip_fused_ok(ctx: _StripCtx, cfg: PipelineConfig) -> bool:
@@ -672,14 +771,38 @@ def _apply_factor(fac: StreamFactor, idx_a: torch.Tensor,
     return torch.clamp(z, 0.0, 1.0), fac.vals
 
 
+def _apply_matvec_streaming(img2d: torch.Tensor, ctx: _StripCtx,
+                            s: torch.Tensor, cfg: PipelineConfig,
+                            h: int, w: int):
+    """f(W) y by repeated W x = s K~(s x) (the operator filter modes): no
+    gram, no eigensolve. Returns (z2d, empty eigvals)."""
+    n, n_pad = ctx.n, ctx.n_pad
+    y_pad = torch.zeros(n_pad, dtype=torch.float32, device=img2d.device)
+    y_pad[:n] = img2d.to(torch.float32).reshape(-1)
+
+    def wapply(x):
+        return s * ktilde_apply(ctx, s * x)
+
+    z_full = apply_operator_filter(wapply, y_pad, cfg.filter_name,
+                                   cfg.filter_param, cfg.filter_mode,
+                                   cfg.cheb_degree)
+    z = torch.clamp(z_full[:n].reshape(h, w), 0.0, 1.0)
+    return z, torch.zeros((0,), dtype=torch.float32, device=img2d.device)
+
+
 def filter_channel_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
                              cfg: PipelineConfig,
                              omega: torch.Tensor | None = None,
                              plain: bool = False,
                              x0: torch.Tensor | None = None):
-    """One grayscale channel through either streaming slice. Returns
+    """One grayscale channel through any of the streaming slices. Returns
     (z2d, vals) on ``img2d``'s device. The reference's perm / inv_perm
     parameters are never read there, so the port does not take them."""
     h, w = img2d.shape
+    if cfg.operator_filter():
+        check_slice(cfg)
+        ctx = _strip_ctx(img2d, idx_a, cfg, plain)
+        s = _normalize_streaming(ctx, cfg)
+        return _apply_matvec_streaming(img2d, ctx, s, cfg, h, w)
     fac = _factor_streaming(img2d, idx_a, cfg, omega, plain, x0)
     return _apply_factor(fac, idx_a, cfg, h, w)

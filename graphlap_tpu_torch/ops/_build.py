@@ -5,8 +5,9 @@ process a source, all started together) and the objects link into ONE
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use (never at import: modules of the port import on machines
 without a CUDA toolkit) into ``build/torch_kernels/`` beside the package,
-named by a hash of the sources and flags so an edited source rebuilds.
-``build/`` is git-ignored.
+named by a hash of the sources, their shared ``csrc/*.cuh`` headers and
+the flags, so an edited source or header rebuilds. ``build/`` is
+git-ignored.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ _SIGNATURES = {
     "glt_recompute_clusters": ([_I, _I, _I], _I),
     "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "glt_finish_colstats": ([_P] * 13 + [_I, _I, _I, _I, _P], _I),
+    "glt_recompute_sum": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
 }
 
 _LIB = None
@@ -60,7 +62,7 @@ def sources() -> list[Path]:
 
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libglt_kernels_{h.hexdigest()[:16]}.so"

@@ -1,0 +1,142 @@
+"""K5 / K6 — the recompute matvecs of the operator-filter route (port of
+``graphlap_tpu/ops/pallas_streaming.py``: ``matvec_pallas`` :397 with
+``_matvec_kernel`` :265, ``rmatvec_pallas`` :447 with ``_rmatvec_kernel``
+:284).
+
+Both recompute every kernel tile from the padded feature layouts
+(ops/recompute_layout: fa (p_pad, 32) rows, f_t (32, n) transposed
+features), never storing it:
+
+* ``matvec_cuda`` (K5): K v -> (p_pad,) f32. v rounds to the layout dtype
+  first (the reference's wrapper, :442), then an f32 multiply and row sum.
+* ``rmatvec_cuda`` (K6): K^T t -> (n,) f32. t rounds to the layout dtype
+  first (:490), then a dot with f32 accumulation.
+
+The tile is bf16(exp(-bf16(max(d2, 0)))) with d2 straight from the
+augmented product (bf16 aug layout), or exp(-max(na + nb - 2 cross, 0)) in
+f32 with the norms summed from the tile values (f32 plain layout); the
+plain bf16 layout has the reference's bf16 rounding of the plain d2.
+
+CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
+bodies' rounding points, over column chunks so that they also run at 8 MP
+on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
+the two layouts the presets reach: bf16 aug and f32 plain. The plain bf16
+layout (the reference's ``GLT_AUG_DISABLE`` lever) raises
+``NotImplementedError`` on CUDA; there is no fallback from a kernel to its
+plain version. Unlike K8/K9, the kernels take any p_pad on the 512 quantum:
+they hold no whole-p tile.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cuda_affinity import _device_kind
+from .cuda_recompute import PLAIN_CHUNK, _r, _tile_plain
+from .streaming import _chunks
+
+FD = 32                   # feature depth of the kernels
+P_QUANTUM = 512           # p_pad: the reference's p_tiling quantum
+N_QUANTUM = 256           # n: the f32 _tile_n (the bf16 one, 1024, is a multiple)
+STREAM_TILE = 128         # streamed entries a tile (csrc)
+FIXED_TILE = {torch.bfloat16: 256, torch.float32: 128}   # fixed entries a block
+_F32 = torch.float32
+
+
+# --- plain versions -------------------------------------------------------
+
+def matvec_plain(fa, f_t, v, aug: bool = False):
+    """((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32."""
+    vr = _r(v, fa.dtype)
+    out = torch.zeros(fa.shape[0], dtype=_F32, device=fa.device)
+    for sl in _chunks(f_t.shape[1], PLAIN_CHUNK):
+        kb = _tile_plain(fa, f_t[:, sl], aug).to(_F32)
+        out = out + torch.sum(kb * vr[None, sl], dim=1)
+    return out
+
+
+def rmatvec_plain(fa, f_t, t, aug: bool = False):
+    """((p_pad, dp), (dp, n), (p_pad,)) -> (n,) f32."""
+    tr = _r(t, fa.dtype)
+    out = torch.empty(f_t.shape[1], dtype=_F32, device=fa.device)
+    for sl in _chunks(f_t.shape[1], PLAIN_CHUNK):
+        out[sl] = tr @ _tile_plain(fa, f_t[:, sl], aug).to(_F32)
+    return out
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def _check(fa, f_t, aug: bool, what: str) -> None:
+    dtype = fa.dtype
+    if f_t.dtype != dtype or dtype not in FIXED_TILE:
+        raise ValueError(f"{what}: fa and f_t must share a bf16 or f32 dtype, "
+                         f"got {fa.dtype} and {f_t.dtype}")
+    if aug != (dtype == torch.bfloat16):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels take the bf16 aug layout and the f32 "
+            f"plain layout; the {'f32 aug' if aug else 'plain bf16'} layout "
+            f"waits for ROADMAP.md Queue 2 (K5/K6, other layouts)")
+    p, n = fa.shape[0], f_t.shape[1]
+    if fa.shape[1] != FD or f_t.shape[0] != FD:
+        raise ValueError(f"{what}: the kernels take {FD} feature lanes, got "
+                         f"{fa.shape[1]} and {f_t.shape[0]}")
+    if p % P_QUANTUM or n % N_QUANTUM:
+        raise ValueError(f"{what}: p_pad {p} must be a multiple of "
+                         f"{P_QUANTUM} and n {n} of {N_QUANTUM}")
+
+
+def _recompute_sum(fixed_t, strm_t, w):
+    """out[f] = sum_s w_s k(f, s) over k-major (32, Lf) / (32, Ls) layouts:
+    the streamed axis splits across blocks only where the fixed side alone
+    leaves the card's SMs short of four blocks each."""
+    aug = fixed_t.dtype == torch.bfloat16
+    lf, ls = fixed_t.shape[1], strm_t.shape[1]
+    dev = fixed_t.device
+    target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    fixed_blocks = lf // FIXED_TILE[fixed_t.dtype]
+    tiles = ls // STREAM_TILE
+    splits = min(tiles, -(-target // fixed_blocks))
+    splits = -(-tiles // -(-tiles // splits))     # no empty split
+    out = torch.empty(lf, dtype=_F32, device=dev)
+    part = out if splits == 1 else torch.empty((splits, lf), dtype=_F32,
+                                               device=dev)
+    rc = _build.lib().glt_recompute_sum(
+        int(aug), fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
+        part.data_ptr(), out.data_ptr(), lf, ls, splits,
+        _build.stream_ptr(fixed_t))
+    _build.check(rc, "recompute_sum")
+    return out
+
+
+def matvec_cuda(fa, f_t, v, aug: bool = False):
+    """K v: ((p_pad, 32), (32, n), (n,)) -> (p_pad,) f32 (``matvec_pallas``)."""
+    if _device_kind(fa, f_t, v) == "cpu":
+        return matvec_plain(fa, f_t, v, aug)
+    _check(fa, f_t, aug, "matvec")
+    if tuple(v.shape) != (f_t.shape[1],):
+        raise ValueError(f"matvec: v shape {tuple(v.shape)} != "
+                         f"({f_t.shape[1]},)")
+    out = _recompute_sum(fa.T.contiguous(), f_t.contiguous(),
+                         v.to(fa.dtype).contiguous())
+    matvec_cuda.launches += 1
+    return out
+
+
+def rmatvec_cuda(fa, f_t, t, aug: bool = False):
+    """K^T t: ((p_pad, 32), (32, n), (p_pad,)) -> (n,) f32
+    (``rmatvec_pallas``)."""
+    if _device_kind(fa, f_t, t) == "cpu":
+        return rmatvec_plain(fa, f_t, t, aug)
+    _check(fa, f_t, aug, "rmatvec")
+    if tuple(t.shape) != (fa.shape[0],):
+        raise ValueError(f"rmatvec: t shape {tuple(t.shape)} != "
+                         f"({fa.shape[0]},)")
+    out = _recompute_sum(f_t.contiguous(), fa.T.contiguous(),
+                         t.to(fa.dtype).contiguous())
+    rmatvec_cuda.launches += 1
+    return out
+
+
+matvec_cuda.launches = 0
+rmatvec_cuda.launches = 0

@@ -1,7 +1,8 @@
 """Host-side layout of the recompute-streaming kernels (port of the helpers
 in ``graphlap_tpu/ops/pallas_streaming.py``: ``d_pad_of`` :53, ``p_tiling``
-:77, ``_tile_n`` :92, ``aug_d_pad_of`` :191, ``aug_pads`` :210, ``m_pad_of``
-:497, ``_require_whole_p`` :514 and their constants).
+:77, ``_tile_p_of`` :88, ``_tile_n`` :92, ``_pick_tn`` :121, ``aug_d_pad_of``
+:191, ``aug_pads`` :210, ``m_pad_of`` :497, ``_require_whole_p`` :514 and
+their constants).
 
 These quanta are the reference's. The port keeps them so that both
 packages route a config down the same branch and pad its operands the same
@@ -17,6 +18,7 @@ D_PAD = 128          # widest feature pad the reference's kernels take
 MAX_TILE_P = 4096    # whole-p tile bound of the fused-finish gate
 M_PAD = 128          # the reference's eigvec-axis pad of the V buffer
 EMIT_TN = 512        # column quantum of the reference's K7 emitter
+MATVEC_TN_CAP = 4096  # widest column tile of the reference's K5/K6
 FINISH_EPS = 1e-30   # the Sinkhorn floor inside the fused kernels
 AUG_LANES = 6        # three compensated norm lanes per side
 
@@ -44,9 +46,25 @@ def p_tiling(p: int) -> tuple[int, int]:
     return tp, tp * k
 
 
+def _tile_p_of(p_pad: int) -> int:
+    """The reference's K5/K6 p tile: p_pad in equal tiles of <= MAX_TILE_P
+    (the port's K5/K6 hold no p tile; p_pad 5120 is two of them)."""
+    return p_pad // _cdiv(p_pad, MAX_TILE_P)
+
+
 def _tile_n(dtype: torch.dtype) -> int:
     """The n-axis pad quantum: n_pad_k is a multiple of it."""
     return 1024 if dtype == torch.bfloat16 else 256
+
+
+def _pick_tn(n_pad: int, dtype: torch.dtype, cap: int) -> int:
+    """The reference's column tile: the _tile_n quantum doubled while it
+    divides n_pad, up to ``cap`` (a schedule choice of its kernels; the
+    port's kernels choose their own)."""
+    t = _tile_n(dtype)
+    while t * 2 <= cap and n_pad % (t * 2) == 0:
+        t *= 2
+    return t
 
 
 def m_pad_of(m: int) -> int:

@@ -1,6 +1,6 @@
 """Blockwise streaming operators: the K strip is recomputed, never stored
 (port of ``graphlap_tpu/ops/streaming.py``: ``matvec`` :78, ``rmatvec`` :93,
-``gram`` :106, ``sinkhorn_coarse_step`` :190).
+``gram`` :106, ``sinkhorn_coarse_step`` :190, ``rmatvec2`` :216).
 
 Every product walks the columns in chunks and recomputes each (p, chunk)
 kernel tile from the features: f32 distances and exp, the tile rounded to
@@ -88,3 +88,13 @@ def sinkhorn_coarse_step(feats_a, feats_c, t, mask_c, ratio, block, dtype):
         r = mask_c[sl] / torch.clamp(y, min=_EPS)
         acc = acc + _dot(kb, r, dtype)
     return acc * ratio
+
+
+def rmatvec2(feats_a, feats_pad, t2, col_scale, block, dtype):
+    """K^T [t1 t2] -> (n_pad, 2) in one pass over shared tiles (the
+    full-resolution Sinkhorn extension needs K_BA t for two vectors). Each
+    column's output sums over p only, so the chunk width changes nothing
+    but the GEMM's blocking."""
+    out = [_dot(_kernel_blk(feats_a, feats_pad[sl], dtype).T, t2, dtype)
+           for sl in _chunks(feats_pad.shape[0], block)]
+    return torch.cat(out) * col_scale[:, None]

@@ -1,0 +1,593 @@
+"""The recompute matvec route of graphlap_tpu_torch (config 3 sharpen, the
+8 MP matvec denoise) against graphlap_tpu: the K5/K6 plain versions against
+``matvec_pallas`` / ``rmatvec_pallas`` (interpret mode on the CPU, as
+tests/test_pallas.py runs them), ``rmatvec2``, the ``ktilde_apply`` closure,
+``_normalize_streaming``'s scales, the operator filters, and the whole
+filter on gray and per-channel RGB images. On a CUDA card only (marker
+``gpu``): K5/K6 against their plain versions, and the layout guard.
+
+Tolerances, relative to the largest reference magnitude unless stated:
+* K5/K6, f32 plain layout: 1e-5 — the same f32 tile values, summed in
+  another order (tests/test_pallas.py's f32 class for these kernels).
+* K5/K6, bf16 aug layout: 1e-3 — a d2 that differs in its last f32 bits can
+  round to the other bf16 neighbour and move one tile entry by one bf16 ulp
+  (2^-8 relative); over hundreds of summed entries that is far below 1e-3,
+  which leaves room for the f32 order (tests/test_pallas.py's bf16 class is
+  1e-2).
+* rmatvec2, ktilde_apply, scales: 2e-5 (f32) and 5e-3 (bf16), the bars of
+  tests/test_torch_recompute.py's streaming operators; the scales after the
+  coarse loop, the extension and the polish: 1e-4 (f32), 2e-2 (bf16).
+* Whole filter: <= 0.05 dB and atol 2e-2 (bf16 tiles), <= 0.02 dB and atol
+  2e-3 (f32) — PERF.md section 2, the reference's fused-vs-unfused bars.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import graphlap_tpu_torch as gt
+from graphlap_tpu_torch.config import PipelineConfig
+from graphlap_tpu_torch.models import streaming as tms
+from graphlap_tpu_torch.ops import cuda_matvec as k56
+from graphlap_tpu_torch.ops import cuda_recompute as k79
+from graphlap_tpu_torch.ops import cuda_affinity as k1
+from graphlap_tpu_torch.ops import cuda_strip as k24
+from graphlap_tpu_torch.ops import filters as tfl
+from graphlap_tpu_torch.ops import recompute_layout as rl
+from graphlap_tpu_torch.ops import streaming as tst
+from graphlap_tpu_torch.utils import interop
+
+REL = {"float32": 1e-5, "bfloat16": 1e-3}
+OP_REL = {"float32": 2e-5, "bfloat16": 5e-3}
+SCALE_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+BARS = {"bfloat16": (0.05, 2e-2), "float32": (0.02, 2e-3)}
+WRAPPERS = (k56.matvec_cuda, k56.rmatvec_cuda)
+ALL_WRAPPERS = WRAPPERS + (k1.affinity_strip_cuda, k24.strip_ext2_cuda,
+                           k24.strip_sandwich_spost_cuda,
+                           k24.strip_sandwich_cuda, k79.kb_strip_cuda,
+                           k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference, imported here rather than at module level: the
+    card's machine has no JAX, so there these comparisons skip and the gpu
+    tests of this file still collect and run."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    import graphlap_tpu as gl
+    from graphlap_tpu.config import PipelineConfig as JaxConfig
+    from graphlap_tpu.models import streaming as jms
+    from graphlap_tpu.ops import filters as jfl
+    from graphlap_tpu.ops import pallas_streaming as pst
+    from graphlap_tpu.ops import streaming as jst
+    return SimpleNamespace(jax=jax, jnp=jnp, gl=gl, jms=jms, jfl=jfl, pst=pst,
+                           jst=jst, cfg=lambda c: JaxConfig(**c.to_dict()))
+
+
+def T(x, dtype=None):
+    t = torch.tensor(np.asarray(x, np.float32))
+    return t if dtype is None else t.to(dtype)
+
+
+def N(x):
+    """A jax or torch array as f32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype("float32"))
+
+
+def assert_rel(got, ref, rel):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    err = np.abs(got - ref).max()
+    assert err <= rel * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+def _counts():
+    return [w.launches for w in ALL_WRAPPERS]
+
+
+# --- K5 / K6 plain versions against the Pallas kernels -----------------------
+
+def _layouts(jx, dtype, p, n, seed=5, d=25):
+    """The reference's own pads (aug for bf16, plain for f32) and positive
+    vectors (scales and pixels, as the path feeds them)."""
+    jnp, pst = jx.jnp, jx.pst
+    rng = np.random.default_rng(seed)
+    fa = rng.normal(0, 0.3, (p, d)).astype(np.float32)
+    fp = rng.normal(0, 0.3, (n, d)).astype(np.float32)
+    _, p_pad = pst.p_tiling(p)
+    tn = pst._tile_n(jnp.dtype(dtype))
+    n_pad = -(-n // tn) * tn
+    aug = dtype == "bfloat16"
+    if aug:
+        fa_l, f_t = pst.aug_pads(jnp.asarray(fa), jnp.asarray(fp), n_pad)
+    else:
+        fa_l = jnp.zeros((p_pad, pst.d_pad_of(d)), jnp.float32).at[:p, :d].set(fa)
+        f_t = jnp.zeros((pst.d_pad_of(d), n_pad), jnp.float32).at[:d, :n].set(fp.T)
+    v = np.zeros(n_pad, np.float32)
+    v[:n] = rng.uniform(0.5, 1.5, n)
+    t = np.zeros(p_pad, np.float32)
+    t[:p] = rng.uniform(0.5, 1.5, p)
+    td = getattr(torch, dtype)
+    return SimpleNamespace(fa=fa_l, f_t=f_t, v=v, t=t, aug=aug, p=p, n=n,
+                           tfa=T(N(fa_l), td), tft=T(N(f_t), td))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("p,n", [(277, 2000), (4100, 1000)])
+def test_k5_k6_plain_match_pallas(jx, dtype, p, n):
+    """p = 4100 pads to 5120: two reference p tiles of 2560 (_tile_p_of)."""
+    jnp, pst = jx.jnp, jx.pst
+    x = _layouts(jx, dtype, p, n)
+    if p > rl.MAX_TILE_P:
+        assert rl._tile_p_of(x.fa.shape[0]) < x.fa.shape[0]
+    mv_r = pst.matvec_pallas(x.fa, x.f_t, jnp.asarray(x.v), aug=x.aug)
+    mv = k56.matvec_plain(x.tfa, x.tft, T(x.v), x.aug)
+    assert_rel(N(mv)[:p], N(mv_r)[:p], REL[dtype])
+    rmv_r = pst.rmatvec_pallas(x.fa, x.f_t, jnp.asarray(x.t), aug=x.aug)
+    rmv = k56.rmatvec_plain(x.tfa, x.tft, T(x.t), x.aug)
+    assert rmv.shape == (x.f_t.shape[1],)
+    assert_rel(N(rmv)[:n], N(rmv_r)[:n], REL[dtype])
+
+
+def test_matvec_routing_quanta_match(jx):
+    jnp, pst = jx.jnp, jx.pst
+    assert rl.MATVEC_TN_CAP == pst.MATVEC_TN_CAP
+    for p in (1, 277, 4096, 4100, 8192, 9000):
+        p_pad = rl.p_tiling(p)[1]
+        assert rl._tile_p_of(p_pad) == pst._tile_p_of(p_pad)
+    assert rl._tile_p_of(5120) == 2560
+    for n_pad in (1024, 3072, 10240, 1 << 20, 8388608, 256 * 33):
+        for dt in ("bfloat16", "float32"):
+            if n_pad % rl._tile_n(getattr(torch, dt)):
+                continue
+            for cap in (1024, rl.MATVEC_TN_CAP):
+                assert rl._pick_tn(n_pad, getattr(torch, dt), cap) == (
+                    pst._pick_tn(n_pad, jnp.dtype(dt), cap))
+
+
+def test_k5_k6_round_their_vector_to_the_layout_dtype():
+    """v (K5) and t (K6) round to bf16 before the tile products, as the
+    reference's wrappers do: a vector and its bf16 rounding give the
+    identical result."""
+    fa, f_t, _, _ = _small()
+    rng = np.random.default_rng(2)
+    v = T(rng.uniform(0.5, 1.5, f_t.shape[1]))
+    t = T(rng.uniform(0.5, 1.5, fa.shape[0]))
+    for x in (v, t):
+        assert not torch.equal(x, x.to(torch.bfloat16).float())
+    assert torch.equal(k56.matvec_plain(fa, f_t, v, True),
+                       k56.matvec_plain(fa, f_t, v.to(torch.bfloat16).float(),
+                                        True))
+    assert torch.equal(k56.rmatvec_plain(fa, f_t, t, True),
+                       k56.rmatvec_plain(fa, f_t, t.to(torch.bfloat16).float(),
+                                         True))
+
+
+# --- rmatvec2, the ktilde_apply closure, the normalization --------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmatvec2_matches(jx, dtype):
+    jnp, jst = jx.jnp, jx.jst
+    rng = np.random.default_rng(4)
+    p, n, d = 64, 1024, 25
+    fa = rng.normal(0, 0.3, (p, d)).astype(np.float32)
+    fp = rng.normal(0, 0.3, (n, d)).astype(np.float32)
+    t2 = rng.uniform(0.5, 1.5, (p, 2)).astype(np.float32)
+    cs = (rng.random(n) > 0.2).astype(np.float32)
+    ref = jst.rmatvec2(jnp.asarray(fa), jnp.asarray(fp), jnp.asarray(t2),
+                       jnp.asarray(cs), 256, jnp.dtype(dtype))
+    got = tst.rmatvec2(T(fa), T(fp), T(t2), T(cs), 256, getattr(torch, dtype))
+    assert_rel(N(got), N(ref), OP_REL[dtype])
+    # any chunk: each column sums over p only
+    wide = tst.rmatvec2(T(fa), T(fp), T(t2), T(cs), 1000, getattr(torch, dtype))
+    assert_rel(N(wide), N(got), 1e-6)
+
+
+def _cfg(**kw):
+    cfg = dict(kernel="nlm", h=0.15, sample_rho=0.03, num_eigvecs=16,
+               sinkhorn_iters=4, streaming=True, block_cols=2048,
+               use_pallas=True, sinkhorn_coarse=4, sinkhorn_polish=1,
+               filter_name="sharpen", filter_param=0.15, filter_mode="matvec",
+               affinity_dtype="bfloat16")
+    cfg.update(kw)
+    return PipelineConfig(**cfg)
+
+
+@pytest.fixture(scope="module")
+def img_noisy():
+    img = gt.make_test_image(96, 96)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0, 1)
+    return img, noisy.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def contexts(jx, img_noisy):
+    """Both packages' recompute contexts on the 96x96 image, per dtype."""
+    _, noisy = img_noisy
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        cfg = _cfg(affinity_dtype=dt)
+        plan = gt.make_plan(noisy, cfg)
+        jcfg = jx.cfg(cfg)
+        jctx = jx.jms._strip_ctx(jx.jnp.asarray(noisy),
+                                 jx.jnp.asarray(plan.idx_a), jcfg)
+        tctx = tms._strip_ctx(T(noisy), interop.idx_to_device(plan.idx_a,
+                                                              "cpu"), cfg)
+        out[dt] = (cfg, jcfg, jctx, tctx)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ktilde_apply_matches(jx, contexts, dtype):
+    cfg, _, jctx, tctx = contexts[dtype]
+    assert (tctx.fa_aug is not None) == (dtype == "bfloat16")
+    np.testing.assert_array_equal(N(tctx.valid), N(jctx.valid))
+    rng = np.random.default_rng(8)
+    s = rng.uniform(0.5, 1.5, tctx.n_pad).astype(np.float32) * N(tctx.valid)
+    ref = jctx.ktilde_apply(jx.jnp.asarray(s))
+    got = tms.ktilde_apply(tctx, T(s))
+    assert_rel(N(got), N(ref), OP_REL[dtype])
+    # the strip products alone
+    u_r = jctx.strip_matvec(jx.jnp.asarray(s) * jctx.b_mask)
+    assert_rel(N(tms.strip_matvec(tctx, T(s) * tctx.b_mask)), N(u_r),
+               OP_REL[dtype])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),                                            # coarse + extension + polish
+    dict(sinkhorn_coarse=1, sinkhorn_iters=3),         # full resolution
+    dict(normalization="symmetric"),
+    dict(normalization="none"),
+    dict(sinkhorn_polish=2),
+], ids=["coarse_polish", "full", "symmetric", "none", "polish2"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_normalize_streaming_scales_match(jx, img_noisy, contexts, dtype, kw):
+    cfg0, _, jctx, tctx = contexts[dtype]
+    cfg = cfg0.replace(**kw)
+    ref = jx.jms._normalize_streaming(jctx, jx.cfg(cfg))
+    got = tms._normalize_streaming(tctx, cfg)
+    assert got.shape == (tctx.n_pad,)
+    assert float(got[tctx.n:].abs().max()) == 0.0       # zero on padding
+    assert_rel(N(got), N(ref), SCALE_REL[dtype])
+
+
+# --- the operator filters ------------------------------------------------------
+
+def _sym_operator(n=60, seed=3):
+    """A symmetric operator with spectrum in [0, 1] (a doubly-stochastic W's
+    range) and its numpy matvec."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    lam = np.sort(rng.uniform(0.0, 1.0, n))[::-1]
+    m = (q * lam) @ q.T
+    return m, rng.normal(size=n)
+
+
+@pytest.mark.parametrize("name,param", [
+    ("identity", 1.0), ("power", 2.0), ("power", 3.0), ("sharpen", 0.15),
+    ("twicing", 2.0)])
+@pytest.mark.parametrize("mode,degree", [("matvec", 12), ("chebyshev", 12),
+                                         ("chebyshev", 0)])
+def test_operator_filter_matches(jx, name, param, mode, degree):
+    assert name in tfl.MATVEC_FILTERS
+    m, y = _sym_operator()
+    ref = jx.jfl.apply_operator_filter(lambda x: m @ x, y, name, param, mode,
+                                       degree)
+    got = tfl.apply_operator_filter(lambda x: m @ x, y, name, param, mode,
+                                    degree)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+    # on torch tensors through a torch matvec: the same up to f64 order
+    mt = torch.tensor(m)
+    got_t = tfl.apply_operator_filter(lambda x: mt @ x, torch.tensor(y),
+                                      name, param, mode, degree)
+    np.testing.assert_allclose(got_t.numpy(), ref, rtol=1e-10, atol=1e-10)
+
+
+def test_chebyshev_helpers_match(jx):
+    for name, param in (("exp_decay", 2.0), ("power", 2.5), ("sharpen", 0.3),
+                        ("twicing", 1.5)):
+        np.testing.assert_allclose(tfl.chebyshev_coeffs(name, param, 20),
+                                   jx.jfl.chebyshev_coeffs(name, param, 20),
+                                   rtol=0, atol=1e-14)
+        assert (tfl.chebyshev_auto_degree(name, param)
+                == jx.jfl.chebyshev_auto_degree(name, param))
+        assert tfl.chebyshev_tail_bound(name, param, 8) == pytest.approx(
+            jx.jfl.chebyshev_tail_bound(name, param, 8), rel=1e-12)
+    assert tfl.CHEBYSHEV_FILTERS == jx.jfl.CHEBYSHEV_FILTERS
+    assert tfl.MATVEC_FILTERS == jx.jfl.MATVEC_FILTERS
+
+
+@pytest.mark.parametrize("name,param", [("lowpass", 1.0), ("exp_decay", 1.0),
+                                        ("power", 2.5), ("twicing", 0.0)])
+def test_matvec_filter_refuses_non_polynomials(name, param):
+    with pytest.raises(ValueError, match="filter_mode='matvec'"):
+        tfl.apply_matvec_filter(lambda x: x, np.ones(3), name, param)
+    with pytest.raises(ValueError, match="lowpass"):
+        tfl.apply_chebyshev_filter(lambda x: x, np.ones(3), "lowpass", 1.0, 4)
+
+
+# --- the whole filter ------------------------------------------------------------
+
+SLICE_CASES = {
+    "gray_sharpen_bf16": dict(),
+    "gray_identity_bf16": dict(filter_name="identity", filter_param=1.0,
+                               h=0.1),
+    "gray_identity_f32": dict(filter_name="identity", filter_param=1.0,
+                              h=0.1, affinity_dtype="float32"),
+}
+
+
+@pytest.fixture(scope="module")
+def rgb_noisy():
+    img = gt.make_test_image(48, 48, channels=3)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.03, seed=3), 0, 1)
+    return img, noisy.astype(np.float32)
+
+
+def _rgb_cfg():
+    """Config 3's routed recipe (tuned_config of CONFIG3 at 1024^2) at 48^2:
+    bf16 aug tiles, coarse Sinkhorn 1/4 + one polish, sharpen 0.15, per
+    channel."""
+    full = gt.tuned_config(gt.CONFIG3.replace(streaming=True,
+                                              block_cols=131072),
+                           1024 * 1024, "fast")
+    return full.replace(sample_rho=0.05, block_cols=1152, sinkhorn_coarse=4)
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES) + ["rgb_sharpen_bf16"])
+def test_slice_matches_reference(jx, img_noisy, rgb_noisy, case):
+    if case.startswith("rgb"):
+        img, noisy = rgb_noisy
+        cfg = _rgb_cfg()
+        assert (cfg.rgb_mode, cfg.filter_mode, cfg.affinity_dtype) == (
+            "per_channel", "matvec", "bfloat16")
+    else:
+        img, noisy = img_noisy
+        cfg = _cfg(**SLICE_CASES[case])
+    plan = gt.make_plan(noisy, cfg)
+    before = _counts()
+    res = gt.filter_image(noisy, cfg, plan=plan, device="cpu")
+    assert _counts() == before                       # no launch on the CPU
+    ref = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
+    db, atol = BARS["float32" if case.endswith("f32") else "bfloat16"]
+    assert res.image.shape == ref.image.shape == noisy.shape
+    assert np.isfinite(res.image).all()
+    assert res.eigvals.shape == np.asarray(ref.eigvals).shape
+    np.testing.assert_allclose(res.image, ref.image, atol=atol)
+    d = abs(gt.psnr(img, res.image) - gt.psnr(img, ref.image))
+    assert d <= db, f"port vs reference PSNR delta {d:.5f} dB"
+
+
+def test_config3_sharpen_enhances(rgb_noisy):
+    """The reference's config-3 quality bars (tests/test_quality.py), on the
+    port at 48^2: a real detail boost, structure kept."""
+    img, noisy = rgb_noisy
+    res = gt.filter_image(noisy, _rgb_cfg(), device="cpu")
+
+    def ge(a):
+        return float((np.diff(a, axis=0) ** 2).sum()
+                     + (np.diff(a, axis=1) ** 2).sum())
+
+    assert ge(res.image) / ge(img) > ge(noisy) / ge(img) + 0.05
+    assert gt.ssim(img, res.image) > 0.75
+    assert gt.psnr(img, res.image) > gt.psnr(img, noisy) - 3.0
+
+
+def test_recipes_route_to_the_matvec_layouts():
+    """Both recipes of the slice, built as the reference's benchmarks build
+    them, reach the operator route on the layouts the kernels take."""
+    c3 = gt.tuned_config(gt.CONFIG3.replace(streaming=True, block_cols=131072),
+                         1024 * 1024, "fast")
+    base = PipelineConfig(kernel="nlm", h=0.25, sample_rho=0.01,
+                          sample_cap=4096, num_eigvecs=50, sinkhorn_iters=10,
+                          filter_name="identity", streaming=True,
+                          block_cols=131072, affinity_dtype="bfloat16")
+    c4 = gt.tuned_config(gt.denoise_tuned(base, 0.1), 2048 * 4096, "fast")
+    for cfg, dtype, k in ((c3, "bfloat16", 8), (c4, "float32", 64)):
+        assert cfg.operator_filter() and cfg.use_pallas and cfg.streaming
+        assert not (cfg.strip_cache or cfg.fused_finish)
+        assert cfg.affinity_dtype == dtype and cfg.feature_dtype == "float32"
+        assert (cfg.sinkhorn_coarse, cfg.sinkhorn_polish) == (k, 1)
+        tms.check_slice(cfg)
+    assert c3.filter_name == "sharpen" and c4.filter_name == "identity"
+
+
+# --- dispatch and guards ----------------------------------------------------------
+
+def _small(dtype=torch.bfloat16, aug=True):
+    rng = np.random.default_rng(9)
+    fa = T(rng.normal(0, 0.3, (100, 25)))
+    fp = T(rng.normal(0, 0.3, (1000, 25)))
+    if aug:
+        fa_l, f_t = rl.aug_pads(fa, fp, 1024)
+    else:
+        fa_l = torch.zeros((512, 32), dtype=dtype)
+        fa_l[:100, :25] = fa.to(dtype)
+        f_t = torch.zeros((32, 1024), dtype=dtype)
+        f_t[:25, :1000] = fp.T.to(dtype)
+    return fa_l, f_t, torch.ones(1024), torch.ones(fa_l.shape[0])
+
+
+@pytest.mark.parametrize("layout", ["aug", "f32", "plain_bf16"])
+def test_cpu_tensors_take_the_plain_versions_without_a_launch(layout):
+    """Every layout, the plain bf16 one included, runs plain on the CPU."""
+    dtype = torch.float32 if layout == "f32" else torch.bfloat16
+    aug = layout == "aug"
+    fa, f_t, v, t = _small(dtype, aug)
+    before = _counts()
+    assert torch.equal(k56.matvec_cuda(fa, f_t, v, aug),
+                       k56.matvec_plain(fa, f_t, v, aug))
+    assert torch.equal(k56.rmatvec_cuda(fa, f_t, t, aug),
+                       k56.rmatvec_plain(fa, f_t, t, aug))
+    assert _counts() == before
+
+
+def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
+    """Where the kernel cannot run, the CUDA branch raises: unsupported
+    layouts and shapes before any launch, and no path returns the plain
+    version's result for a CUDA tensor."""
+    from graphlap_tpu_torch.ops import _build
+
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k56, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    before = _counts()
+    fa, f_t, v, t = _small()
+    with pytest.raises(RuntimeError, match="unavailable"):
+        k56.matvec_cuda(fa, f_t, v, True)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        k56.rmatvec_cuda(fa, f_t, t, True)
+    fa, f_t, v, t = _small(torch.bfloat16, aug=False)
+    for fn, x in ((k56.matvec_cuda, v), (k56.rmatvec_cuda, t)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+            fn(fa, f_t, x, False)
+    fa32, ft32 = fa.float(), f_t.float()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k56.matvec_cuda(fa32, ft32, v, True)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        k56.matvec_cuda(fa32[:256], ft32, v, False)
+    with pytest.raises(ValueError, match="shape"):
+        k56.rmatvec_cuda(fa32, ft32, v, False)
+    assert _counts() == before
+
+
+def test_lib_path_follows_the_shared_header(monkeypatch, tmp_path):
+    """csrc/*.cuh is compiled into every source that includes it, so an
+    edit there names a new library (a rebuild), though only *.cu compile."""
+    from graphlap_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources()] == ["k.cu"]
+    first = _build.lib_path()
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.lib_path() != first
+
+
+def test_wrappers_refuse_devices_they_cannot_serve():
+    fa, f_t, v, t = _small()
+    meta = torch.empty(fa.shape, dtype=fa.dtype, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        k56.matvec_cuda(meta, f_t, v, True)
+    with pytest.raises(ValueError, match="device"):
+        k56.rmatvec_cuda(meta, f_t, t, True)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(strip_cache=True), "M3 / M7"),
+    (dict(use_pallas=False), "M6"),
+    (dict(feature_dtype="bfloat16"), "M6"),
+])
+def test_operator_route_outside_the_slice_raises(img_noisy, kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+        gt.filter_image(img_noisy[1], _cfg(**kw), device="cpu")
+
+
+def test_strip_cache_context_normalization_raises(img_noisy):
+    """The strip products of the unfused normalization are not ported: a
+    strip_cache context refuses rather than recomputing tiles."""
+    cfg = _cfg(strip_cache=True, affinity_dtype="bfloat16_store")
+    noisy = img_noisy[1]
+    plan = gt.make_plan(noisy, cfg)
+    ctx = tms._strip_ctx(T(noisy), interop.idx_to_device(plan.idx_a, "cpu"),
+                         cfg)
+    assert ctx.strip is not None
+    with pytest.raises(NotImplementedError, match="M3"):
+        tms._normalize_streaming(ctx, cfg)
+
+
+def test_luma_basis_rgb_raises(rgb_noisy):
+    with pytest.raises(NotImplementedError, match="M7"):
+        gt.filter_image(rgb_noisy[1], _rgb_cfg().replace(rgb_mode="luma_basis"),
+                        device="cpu")
+
+
+def test_filter_image_without_cuda_raises(rgb_noisy):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    before = _counts()
+    with pytest.raises((RuntimeError, AssertionError)):
+        gt.filter_image(rgb_noisy[1], _rgb_cfg())
+    assert _counts() == before
+
+
+# --- on the card: kernel against plain version ----------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _rel_err(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("p,n", [(277, 10240), (4100, 16384)])
+def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n):
+    """Card kernels against their plain versions on the card; p = 4100 pads
+    to 5120 (two reference p tiles)."""
+    rng = np.random.default_rng(p)
+    dev = cuda_device
+    fa = torch.tensor(rng.normal(0, 0.3, (p, 25)).astype(np.float32), device=dev)
+    fp = torch.tensor(rng.normal(0, 0.3, (n, 25)).astype(np.float32), device=dev)
+    aug = dtype == "bfloat16"
+    if aug:
+        fa_l, f_t = rl.aug_pads(fa, fp, n)
+    else:
+        _, p_pad = rl.p_tiling(p)
+        fa_l = torch.zeros((p_pad, 32), device=dev)
+        fa_l[:p, :25] = fa
+        f_t = torch.zeros((32, n), device=dev)
+        f_t[:25] = fp.T
+    v = torch.tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+    t = torch.zeros(fa_l.shape[0], device=dev)
+    t[:p] = torch.tensor(rng.uniform(0.5, 1.5, p).astype(np.float32), device=dev)
+    before = [w.launches for w in WRAPPERS]
+    mv = k56.matvec_cuda(fa_l, f_t, v, aug)
+    rmv = k56.rmatvec_cuda(fa_l, f_t, t, aug)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(WRAPPERS, before)] == [1, 1]
+    assert _rel_err(mv[:p], k56.matvec_plain(fa_l, f_t, v, aug)[:p]) <= REL[dtype]
+    assert _rel_err(rmv, k56.rmatvec_plain(fa_l, f_t, t, aug)) <= REL[dtype]
+    # deterministic: no float atomics
+    assert torch.equal(mv, k56.matvec_cuda(fa_l, f_t, v, aug))
+    assert torch.equal(rmv, k56.rmatvec_cuda(fa_l, f_t, t, aug))
+
+
+@pytest.mark.gpu
+def test_plain_bf16_layout_raises_on_cuda(cuda_device):
+    fa, f_t, v, t = (x.to(cuda_device) for x in _small(torch.bfloat16, False))
+    before = [w.launches for w in WRAPPERS]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        k56.matvec_cuda(fa, f_t, v, False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        k56.rmatvec_cuda(fa, f_t, t, False)
+    assert [w.launches for w in WRAPPERS] == before
+
+
+@pytest.mark.gpu
+def test_rgb_sharpen_on_card_matches_cpu_plain(cuda_device, rgb_noisy):
+    img, noisy = rgb_noisy
+    cfg = _rgb_cfg()
+    before = [w.launches for w in WRAPPERS]
+    z_gpu = gt.filter_image(noisy, cfg, device=cuda_device).image
+    assert [w.launches - b for w, b in zip(WRAPPERS, before)] == [6, 6]
+    z_cpu = gt.filter_image(noisy, cfg, device="cpu").image
+    np.testing.assert_allclose(z_gpu, z_cpu, atol=2e-2)
+    assert abs(gt.psnr(img, z_gpu) - gt.psnr(img, z_cpu)) <= 0.05

@@ -143,9 +143,12 @@ def test_outside_the_slice_raises(img_noisy, kw):
 
 
 def test_rgb_and_mesh_raise(img_noisy):
+    """Per-channel RGB runs (tests/test_torch_matvec.py); the luma-basis
+    mode and the mesh still raise."""
     cfg = _base()
     with pytest.raises(NotImplementedError, match="M7"):
-        gt.filter_image(np.zeros((16, 16, 3), np.float32), cfg, device="cpu")
+        gt.filter_image(np.zeros((16, 16, 3), np.float32),
+                        cfg.replace(rgb_mode="luma_basis"), device="cpu")
     with pytest.raises(NotImplementedError, match="M9"):
         gt.filter_image(img_noisy[1], cfg, mesh=object(), device="cpu")
 
