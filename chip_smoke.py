@@ -49,7 +49,21 @@ non-zero before the last line is printed):
    kernels  K5/K6 (f32) at the 8 MP shapes against their plain versions;
    e2e-8mp  walls, peak memory, launches per call (2 / 2), PSNR gain > 5 dB;
    plain    the same channel through the plain versions on the card.
-7. result   — one JSON line listing every kernel (name, route, source,
+7. config 4t — the 8 MP turbo recipe on the unfused spectral schedule
+              (benchmarks/run.py's cfg4_8mp_turbo_sc64_gc64: config 4's image
+              and sample, coarse Sinkhorn and gram 1/64, no polish, so no
+              fused finish):
+   kernels  K10 (colstats + V) at the path's 8 MP shapes against its plain
+            version;
+   e2e-8mp  filter_image: warm-up and three timed runs, walls, peak memory,
+            launches per call (K7 1, K10 1, K8/K9 0), PSNR gain > 1 dB;
+   plain    the same channel through the plain versions on the card;
+   small    96x96 on the turbo recipe's shape, card against CPU plain.
+8. staged   — filter_image_staged (the unfused schedule, a wall per stage) on
+              config 4's cfg4_8mp_compliant_turbo_p1 (K5/K6 polish, K7, K10)
+              and on config 2 (K1 once a stage), each held to filter_image
+              on the same config within the bf16 bars.
+9. result   — one JSON line listing every kernel (name, route, source,
               replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
               bound_by, library_ms), the card line, then the contract line
               {"ok": true, "device": {...}}.
@@ -114,6 +128,12 @@ TOL = {
     # another order (~sqrt(terms) f32 ulps)
     "matvec_f32": 1e-4,
     "rmatvec_f32": 1e-4,
+    # K10 rounds the same bf16(c_j) as its plain version, so only the tile
+    # entries flip (one bf16 ulp where the tensor-core cross sums in another
+    # f32 order, as K8/K9) and the sums over 4096 rows run in another order:
+    # K9's 2^-7 of max |V|, without its bf16(s_j) term; norms and coeffs
+    # against their sums of term magnitudes
+    "colstats_v": 2.0 ** -7,
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
@@ -127,6 +147,7 @@ REPLACES = {
     "rmatvec": "graphlap_tpu/ops/pallas_streaming.py:447",
     "matvec_f32": "graphlap_tpu/ops/pallas_streaming.py:397",
     "rmatvec_f32": "graphlap_tpu/ops/pallas_streaming.py:447",
+    "colstats_v": "graphlap_tpu/ops/pallas_streaming.py:817",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -140,6 +161,7 @@ SOURCE = {
     "rmatvec": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "matvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "colstats_v": "graphlap_tpu_torch/csrc/colstats_v.cu",
 }
 NAMES = list(TOL)
 OUT = Path("build") / "chip_smoke"
@@ -188,10 +210,11 @@ def max_rel_err(got, ref, scales=None) -> tuple[float, list]:
 
 
 def colstats_scales(y):
-    """K9's error scales: max |ref| for V and s; for norms and coeffs, the
-    sums of their terms' magnitudes (sum_j V_jm^2, sum_j |y_j V_jm|), the
-    scale of an f32 sum's order error — coeffs cancel (V takes both signs),
-    so max |coeffs| would measure the cancellation, not the kernel."""
+    """K9's and K10's error scales: max |ref| for V and s; for norms and
+    coeffs, the sums of their terms' magnitudes (sum_j V_jm^2,
+    sum_j |y_j V_jm|), the scale of an f32 sum's order error — coeffs
+    cancel (V takes both signs), so max |coeffs| would measure the
+    cancellation, not the kernel."""
     def scales(ref):
         v = ref[0]
         return (None, torch.sum(v * v, dim=0), torch.abs(y) @ torch.abs(v),
@@ -284,6 +307,18 @@ def make_workload_8mp(gt, h=H8, w=W8):
         use_pallas=True, sinkhorn_coarse=64, gram_coarse=64,
         sinkhorn_polish=1, fused_finish=True)
     img, noisy = noisy_image(gt, h, w)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_8mp_turbo(gt):
+    """benchmarks/run.py's cfg4_8mp_turbo_sc64_gc64 (row4 + row4x), rebuilt
+    on the port: (cfg, clean image, noisy f32 image, plan)."""
+    cfg = gt.PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
+        streaming=True, block_cols=65536, affinity_dtype="bfloat16",
+        use_pallas=True, sinkhorn_coarse=64, gram_coarse=64)
+    img, noisy = noisy_image(gt, H8, W8)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
 
@@ -696,6 +731,170 @@ def config4q(gt, dev, rows, launches, info):
                             plain_path_db=d_db, plain_path_max=d_max)
 
 
+def config4t(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+    from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_8mp_turbo(gt)
+    require(not cfg.fused_finish and cfg.sinkhorn_polish == 0,
+            "the turbo recipe should miss the fused finish")
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    p, n = ctx.p, ctx.n_pad
+    pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
+    mk = ms._m_kernel(cfg.num_eigvecs)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gr = torch.zeros((pp, mk), device=dev)
+    gr[:p, :cfg.num_eigvecs] = (torch.rand(p, cfg.num_eigvecs, generator=gen,
+                                           device=dev) - 0.5) * 0.02
+    y = torch.zeros(nk, device=dev)
+    y[:ctx.n] = img_d.reshape(-1)
+    cols = torch.zeros(nk, device=dev)
+    cols[:n] = (0.5 + torch.rand(n, generator=gen, device=dev)) * ctx.b_mask
+    na, nb = ms._sq_norms_pad(ctx)
+    fd = ctx.f_t.shape[0]
+    e = pp * nk
+    cases = {
+        "colstats_v": (k79.colstats_v_cuda, k79.colstats_v_plain,
+                       (ctx.fa_pad, ctx.f_t, gr, y, cols, na, nb),
+                       bound(2 * fd * (pp + nk) + 4 * nk * (3 + mk)
+                             + 4 * pp * (mk + 1), 2 * e * (fd + mk), 6 * e),
+                       colstats_scales(y)),
+    }
+    phase("config4t", f"turbo workload and layouts at {H8}x{W8} (p={p}, "
+          f"p_pad={pp}, N={n}, sinkhorn_coarse {cfg.sinkhorn_coarse}, "
+          f"gram_coarse {cfg.gram_coarse}, polish {cfg.sinkhorn_polish}, "
+          f"V width {mk})", t0)
+    run_cases(cases, rows)
+    del ctx, cases, gr, y, cols, na, nb
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fused = (k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
+    for fn in fused:
+        fn.launches = 0
+    counters = {"kb_strip": k79.kb_strip_cuda,
+                "colstats_v": k79.colstats_v_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "8 MP turbo")
+    launches["colstats_v"] = counts["colstats_v"]
+    per_call = {k: v / RUNS for k, v in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e-8mp-turbo", f"walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
+          f"{psnr_out - psnr_in:.3f}); launches per call {per_call}; K8/K9 "
+          f"launches {[fn.launches for fn in fused]}", t0)
+    require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
+            "8 MP turbo output is not a finite (2048, 4096) image")
+    require(per_call == {"kb_strip": 1, "colstats_v": 1}
+            and all(fn.launches == 0 for fn in fused),
+            "the turbo recipe should launch K7 and K10 once a call, K8/K9 "
+            "never")
+    require(psnr_out > psnr_in + 1.0, "8 MP turbo denoise gain under 1 dB")
+
+    t0 = time.perf_counter()
+    z_plain, _ = _filter_channel(img_d, idx_d, cfg, plain=True)
+    z_plain = z_plain.cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("plain", f"8 MP turbo kernel path vs plain path on the card: "
+          f"{d_db:.5f} dB, max |diff| {d_max:.3e} (bar 0.05 dB, 2e-2)", t0)
+    require(d_db <= 0.05 and d_max <= 2e-2, "8 MP turbo kernel path != plain")
+    del img_d, idx_d, z_plain
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    small = gt.PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.03, num_eigvecs=16,
+        sinkhorn_iters=4, streaming=True, block_cols=2048, use_pallas=True,
+        sinkhorn_coarse=4, gram_coarse=4, affinity_dtype="bfloat16")
+    im_s, nz_s = noisy_image(gt, 96, 96)
+    pl_s = gt.make_plan(nz_s, small)
+    x0 = lobpcg_x0(pl_s.p, small.num_eigvecs, "cpu")
+    idx_s = pl_s.idx_a.astype(np.int64)
+    z_cpu, _ = _filter_channel(torch.as_tensor(nz_s), torch.as_tensor(idx_s),
+                               small, x0=x0)
+    z_gpu, _ = _filter_channel(torch.as_tensor(nz_s, device=dev),
+                               torch.as_tensor(idx_s, device=dev), small,
+                               x0=x0.to(dev))
+    z_cpu, z_gpu = z_cpu.numpy(), z_gpu.cpu().numpy()
+    s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
+    s_max = float(np.abs(z_cpu - z_gpu).max())
+    phase("small", f"96x96 unfused recompute: card kernels vs CPU plain: "
+          f"{s_db:.5f} dB, max |diff| {s_max:.3e}", t0)
+    require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
+            "96x96 unfused card run != CPU plain run")
+    info["config4t"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                            psnr_out=psnr_out, launches_per_call=per_call,
+                            plain_path_db=d_db, plain_path_max=d_max,
+                            small_db=s_db, small_max=s_max)
+
+
+def staged_one(gt, tag, cfg, img, noisy, plan, dev, counters):
+    """filter_image_staged: a warm-up, then RUNS timed calls with every
+    count set to 0 just before them; held to filter_image on the same
+    config. Returns the phase's record."""
+    gt.filter_image_staged(noisy, cfg, plan=plan, device=dev)   # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stage_walls, walls = [], []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        res = gt.filter_image_staged(noisy, cfg, plan=plan, device=dev)
+        walls.append(time.perf_counter() - t0)
+        stage_walls.append(res.timings)
+    peak = torch.cuda.max_memory_allocated()
+    per_call = {k: fn.launches / RUNS for k, fn in counters.items()}
+    fused = gt.filter_image(noisy, cfg, plan=plan, device=dev).image
+    d_db = abs(gt.psnr(img, res.image) - gt.psnr(img, fused))
+    d_max = float(np.abs(res.image - fused).max())
+    eig = [t["eigensolve"] for t in stage_walls]
+    phase("staged", f"{tag}: stage walls {stage_walls}; eigensolve min "
+          f"{min(eig):.6f} s; call walls {[round(w, 6) for w in walls]} s; "
+          f"peak memory {peak / 2**30:.3f} GiB; launches per call "
+          f"{per_call}; vs filter_image {d_db:.5f} dB, max |diff| "
+          f"{d_max:.3e} (bar 0.05 dB, 2e-2)")
+    require(set(res.timings) == {"normalize", "eigensolve", "filter"},
+            f"{tag}: staged timings keys")
+    require(np.isfinite(res.image).all() and res.image.shape == noisy.shape,
+            f"{tag}: staged output is not a finite image of the input shape")
+    require(all(c > 0 for c in per_call.values()),
+            f"{tag}: the staged path never launched one of {list(counters)}")
+    require(d_db <= 0.05 and d_max <= 2e-2,
+            f"{tag}: staged image != filter_image")
+    return dict(stage_walls_s=stage_walls, walls_s=walls, peak_bytes=peak,
+                launches_per_call=per_call, vs_filter_image_db=d_db,
+                vs_filter_image_max=d_max)
+
+
+def staged(gt, dev, info):
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_8mp(gt)
+    info["staged_config4"] = staged_one(
+        gt, "config 4 (8 MP)", cfg, img, noisy, plan, dev,
+        {"matvec": k56.matvec_cuda, "rmatvec": k56.rmatvec_cuda,
+         "kb_strip": k79.kb_strip_cuda, "colstats_v": k79.colstats_v_cuda})
+    phase("staged", "config 4 done", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload(gt)
+    info["staged_config2"] = staged_one(
+        gt, "config 2 (512x512)", cfg, img, noisy, plan, dev,
+        {"affinity_strip": k1.affinity_strip_cuda})
+    phase("staged", "config 2 done", t0)
+
+
 def main() -> None:
     # 1. device
     t_all = time.perf_counter()
@@ -731,6 +930,10 @@ def main() -> None:
     config3(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     config4q(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config4t(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    staged(gt, dev, info)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],

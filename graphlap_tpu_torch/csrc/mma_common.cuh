@@ -1,7 +1,8 @@
-// Helpers shared by the recompute kernels (recompute_sweeps.cu, K7-K9, and
-// recompute_matvec.cu, K5/K6): the bf16 tensor-core instruction, bf16 packing
-// and rounding, the aug-layout tile entry, and the fixed-order reduction of
-// per-block partials. Header-only: every source that includes it gets its own
+// Helpers shared by the recompute kernels (recompute_sweeps.cu, K7-K9,
+// recompute_matvec.cu, K5/K6, and colstats_v.cu, K10): the bf16 tensor-core
+// instruction, bf16 packing and rounding, the aug-layout tile entry, cp.async
+// staging, the A fragment of a k-major feature matrix, and the fixed-order
+// reduction of per-block partials. Header-only: every source that includes it gets its own
 // copy inside an anonymous namespace (ops/_build.py hashes *.cuh with the
 // sources, so an edit here rebuilds).
 
@@ -53,6 +54,33 @@ __device__ __forceinline__ float kexp_aug(float d2) {
 
 // the aug-layout tile entry: bf16(exp(-bf16(max(d2, 0))))
 __device__ __forceinline__ float kb_aug(float d2) { return rbf(kexp_aug(d2)); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A fragment (16 fixed x 16 k) of a k-major (32, ld) bf16 matrix: A[m][k] =
+// M[k0 + k][f0 + m], read straight from device memory
+__device__ __forceinline__ void frag_a_kmajor(uint32_t a[4],
+                                              const unsigned short* __restrict__ m,
+                                              size_t ld, int f0, int k0, int g, int tq) {
+  const size_t r0 = (size_t)(k0 + 2 * tq) * ld, r8 = r0 + 8 * ld;
+  a[0] = (uint32_t)m[r0 + f0 + g] | ((uint32_t)m[r0 + ld + f0 + g] << 16);
+  a[1] = (uint32_t)m[r0 + f0 + g + 8] | ((uint32_t)m[r0 + ld + f0 + g + 8] << 16);
+  a[2] = (uint32_t)m[r8 + f0 + g] | ((uint32_t)m[r8 + ld + f0 + g] << 16);
+  a[3] = (uint32_t)m[r8 + f0 + g + 8] | ((uint32_t)m[r8 + ld + f0 + g + 8] << 16);
+}
 
 // out[i] = sum_g part[g * len + i], g in order
 __global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,

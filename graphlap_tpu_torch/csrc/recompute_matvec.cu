@@ -65,39 +65,12 @@ constexpr int A_LDS = A_ST + 8;         // padded smem row: 272 B, ldmatrix conf
 constexpr int F_T = 128;                // f32: fixed entries a block, streamed a tile
 constexpr size_t F_SMEM = sizeof(float) * ((size_t)FD * F_T * 3 + 3 * F_T);
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // four 8 x 8 bf16 matrices, transposed: lane l gives the row address of
 // matrix l / 8, row l % 8; each register gets (row 2 tq, 2 tq + 1; col g)
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-// A fragment (16 fixed x 16 k) of a k-major (32, ld) bf16 matrix: A[m][k] =
-// M[k0 + k][f0 + m]
-__device__ __forceinline__ void frag_a_kmajor(uint32_t a[4],
-                                              const unsigned short* __restrict__ m,
-                                              size_t ld, int f0, int k0, int g, int tq) {
-  const size_t r0 = (size_t)(k0 + 2 * tq) * ld, r8 = r0 + 8 * ld;
-  a[0] = (uint32_t)m[r0 + f0 + g] | ((uint32_t)m[r0 + ld + f0 + g] << 16);
-  a[1] = (uint32_t)m[r0 + f0 + g + 8] | ((uint32_t)m[r0 + ld + f0 + g + 8] << 16);
-  a[2] = (uint32_t)m[r8 + f0 + g] | ((uint32_t)m[r8 + ld + f0 + g] << 16);
-  a[3] = (uint32_t)m[r8 + f0 + g + 8] | ((uint32_t)m[r8 + ld + f0 + g + 8] << 16);
 }
 
 // columns [c0, c0 + tile) of a k-major (32, ld) matrix -> dst[k][0, tile)

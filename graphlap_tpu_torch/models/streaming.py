@@ -1,5 +1,5 @@
 """The streaming model (port of ``graphlap_tpu/models/streaming.py``) on
-its three kernel paths:
+its kernel paths:
 
 * strip_cache (config 2): affinity strip -> coarse Sinkhorn -> fused strip
   sweeps with the inlined sketch eigensolve -> spectral filter. The
@@ -18,6 +18,16 @@ its three kernel paths:
   (ops/streaming.rmatvec2), the polish, and f(W) y by repeated
   W x = s K~(s x), each K~ application one K5 matvec and one K6 rmatvec
   (ops/cuda_matvec) on the bf16 aug or f32 plain layout. No eigensolve.
+* the unfused spectral schedule (``_normalize_streaming`` +
+  ``_eigensolve_streaming``): every spectral recipe outside the two fused
+  gates (the 8 MP turbo recipe, p_pad past the whole-p tile) and every
+  ``filter_image_staged`` call. Recompute: coarse Sinkhorn, the extension
+  rmatvec2, the polish through K5/K6, the cross through K7, the p x p
+  solve, and colstats + V through K10 (ops/cuda_recompute), or without V
+  (``rmatmat_colstats``, the apply then ``rmat_apply``) past
+  ``_V_BYTES_CAP``. strip_cache: strip GEMMs for the extension, the polish
+  and the colstats, and the randomized sketch (``nystrom_sketch_factor``)
+  on the strip; K1 emits the strip.
 
 Pixels stay in NATURAL order; only p-sized index ops touch pixels (gather
 the sample rows, scatter the p-sized results back).
@@ -28,12 +38,12 @@ kernel and the recompute + kernel branches of ``_strip_ctx``, both kernel
 branches of ``_coarse_sinkhorn_state``, ``_stream_cross``, the chol/lobpcg
 branch of ``_solve_pxp``, ``_fused_finish_ok``,
 ``_factor_streaming_fused``, ``_strip_fused_ok``, ``_factor_strip_fused``,
-the materialized-V branch of ``_apply_factor``, the kernel closures
-``strip_matvec`` / ``strip_rmatvec`` / ``ktilde_apply`` of the recompute
-context, ``_normalize_streaming`` (recompute), ``_apply_matvec_streaming``
-and ``filter_channel_streaming``. Every other recipe raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it
-(``check_slice``).
+``_normalize_streaming``, ``_eigensolve_streaming``, ``_factor_streaming``,
+``_apply_factor``, the closures ``strip_matvec`` / ``strip_rmatvec`` /
+``ktilde_apply`` of both contexts, ``_apply_matvec_streaming``,
+``filter_channel_streaming`` and the ``stage_*`` functions. Every other
+recipe raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it (``check_slice``).
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ from ..ops.cuda_strip import P_QUANTUM
 from ..ops.filters import FILTER_REGISTRY, apply_operator_filter
 from ..ops.linalg import mm_f32, trunc_inv_sqrt_vals
 from ..ops.nystrom import (_LIVE_NORM2, _orthonormalize, _ridge_eps,
-                           nystrom_chol_factor)
+                           nystrom_chol_factor, nystrom_sketch_factor,
+                           sketch_omega)
 from ..ops.sinkhorn import _make_kaa_solve
 
 _EPS = 1e-30
@@ -63,7 +74,7 @@ _EPS = 1e-30
 # same configs (not re-derived for the H100's memory)
 _STRIP_BYTES_LIMIT = 8e9
 # the reference's budget for the materialized V buffer (its fused-finish
-# gate), kept for the same reason
+# gate and its unfused colstats + V), kept for the same reason
 _V_BYTES_CAP = 6e9
 # column chunk of the recomputing loops (ops/streaming) on the card: wider
 # than the reference's block, for fewer launches; only the order of the f32
@@ -90,11 +101,13 @@ def _kernels(plain: bool):
 
 
 def _recompute_kernels(plain: bool):
-    """(K7 gram, K8, K9) callables, kernel wrappers or plain versions."""
+    """(K7 gram, K8, K9, K10) callables, kernel wrappers or plain
+    versions."""
     if plain:
         return (k79.gram_plain, k79.ext2_matvec_plain,
-                k79.finish_colstats_plain)
-    return (k79.gram_cuda, k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
+                k79.finish_colstats_plain, k79.colstats_v_plain)
+    return (k79.gram_cuda, k79.ext2_matvec_cuda, k79.finish_colstats_cuda,
+            k79.colstats_v_cuda)
 
 
 def _matvec_kernels(plain: bool):
@@ -104,11 +117,8 @@ def _matvec_kernels(plain: bool):
     return k56.matvec_cuda, k56.rmatvec_cuda
 
 
-_UNFUSED_TODO = ("strip_cache recipes outside the fused-sweep gate (the "
-                 "unfused strip sweeps) wait for ROADMAP.md Queue 1 M3")
-_RECOMPUTE_TODO = ("recompute-streaming recipes outside the fused-finish "
-                   "gate (the unfused recompute sweeps and the XLA-scan "
-                   "operators) wait for ROADMAP.md Queue 1 M6")
+_ONESHOT_TODO = ("the one-shot p x p solve (psd_pinv_sqrt) waits for "
+                 "ROADMAP.md Queue 1 M2")
 
 
 def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
@@ -122,34 +132,36 @@ def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
 
 def check_slice(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError, before any work, unless ``cfg`` is a
-    recipe the port runs: streaming strip_cache with the kernels on the
-    fused-sweep recipe; recompute streaming with the kernels and the fused
-    finish (a shape gate, ``_fused_finish_ok``, follows once the sample
-    size is known); or recompute streaming with the kernels and an
-    operator filter (any normalization)."""
+    recipe the port runs: streaming with the kernels (``use_pallas``) —
+    strip_cache with a spectral filter and the sketch solver; recompute
+    with an operator filter (any normalization) or a spectral filter and
+    the chol or LOBPCG solver, fused finish or not.
+    f32 tiles run on the CPU; on the card their kernels raise (ROADMAP.md
+    Queue 2)."""
     todo = None
+    spectral = not cfg.operator_filter()
     if not cfg.streaming:
         todo = ("non-streaming configs wait for ROADMAP.md Queue 1 M5 "
                 "(dense path)")
     elif cfg.strip_cache:
-        if cfg.operator_filter():
+        if not spectral:
             todo = ("operator filter modes (matvec/chebyshev) on strip_cache "
-                    "recipes (the strip products of the unfused "
-                    "normalization) wait for ROADMAP.md Queue 1 M3 / M7")
-        elif not (cfg.use_pallas and _strip_fused_recipe(cfg)):
-            todo = _UNFUSED_TODO
+                    "recipes wait for ROADMAP.md Queue 1 M3 / M7")
+        elif not cfg.use_pallas:
+            todo = ("strip_cache without use_pallas (the XLA strip emitter) "
+                    "waits for ROADMAP.md Queue 1 M3")
+        elif cfg.solver != "sketch":
+            todo = ("strip_cache with the chol, LOBPCG or one-shot solver "
+                    "(the strip gram of the unfused eigensolve) waits for "
+                    "ROADMAP.md Queue 1 M3")
     elif cfg.feature_dtype == "bfloat16":
         todo = ("bf16 feature storage on the recompute path waits for "
                 "ROADMAP.md Queue 1 M6")
-    elif cfg.operator_filter():
-        if not cfg.use_pallas:
-            todo = ("operator filter modes through the XLA-scan matvecs "
-                    "(use_pallas=False) wait for ROADMAP.md Queue 1 M6")
-    elif not (cfg.use_pallas and cfg.fused_finish):
-        todo = _RECOMPUTE_TODO
-    elif cfg.solver not in ("chol", "lobpcg"):
-        todo = ("the one-shot p x p solve (psd_pinv_sqrt) waits for "
-                "ROADMAP.md Queue 1 M2")
+    elif not cfg.use_pallas:
+        todo = ("the XLA-scan closures of the recompute path "
+                "(use_pallas=False) wait for ROADMAP.md Queue 1 M6")
+    elif spectral and cfg.solver not in ("chol", "lobpcg"):
+        todo = _ONESHOT_TODO
     if todo:
         raise NotImplementedError(f"graphlap_tpu_torch: {todo}")
 
@@ -195,7 +207,8 @@ class StreamFactor(NamedTuple):
     feats_a: torch.Tensor    # (p, d)
     feats_pad: torch.Tensor  # (n_pad, d)
     y_pad: torch.Tensor      # (n_pad,) input pixels, zero-padded
-    v_b: torch.Tensor        # (n_pad, m) pre-rescale V
+    v_b: torch.Tensor | None  # (n_pad, m) pre-rescale V; None past
+                              # _V_BYTES_CAP (the apply then recomputes)
     n: int                   # true pixel count
     block: int               # column-block width
 
@@ -326,8 +339,11 @@ def _mv_layout(ctx: _StripCtx):
 
 
 def strip_matvec(ctx: _StripCtx, v_scaled: torch.Tensor) -> torch.Tensor:
-    """K v_scaled -> (p,) through K5 on the recompute layouts, v zero-padded
-    to n_pad_k (the reference's Pallas closure)."""
+    """K v_scaled -> (p,): a GEMM on the strip, or K5 on the recompute
+    layouts with v zero-padded to n_pad_k (the reference's Pallas
+    closure)."""
+    if ctx.strip is not None:
+        return _strip_dot(ctx.strip, v_scaled)
     fa, aug = _mv_layout(ctx)
     vv = torch.zeros(ctx.f_t.shape[1], dtype=torch.float32,
                      device=v_scaled.device)
@@ -336,7 +352,10 @@ def strip_matvec(ctx: _StripCtx, v_scaled: torch.Tensor) -> torch.Tensor:
 
 
 def strip_rmatvec(ctx: _StripCtx, t_scaled: torch.Tensor) -> torch.Tensor:
-    """K^T t_scaled -> (n_pad,) through K6, t zero-padded to p_pad."""
+    """K^T t_scaled -> (n_pad,): a GEMM on the strip, or K6 with t
+    zero-padded to p_pad."""
+    if ctx.strip is not None:
+        return _strip_dot_t(ctx.strip, t_scaled)
     fa, aug = _mv_layout(ctx)
     tt = torch.zeros(fa.shape[0], dtype=torch.float32, device=t_scaled.device)
     tt[:ctx.p] = t_scaled
@@ -344,8 +363,9 @@ def strip_rmatvec(ctx: _StripCtx, t_scaled: torch.Tensor) -> torch.Tensor:
 
 
 def ktilde_apply(ctx: _StripCtx, s: torch.Tensor) -> torch.Tensor:
-    """K~ s in natural order: the Nystrom completion's matvec, one K5 and
-    one K6 (the B rows from K_BA t, the A rows from the exact K_AA)."""
+    """K~ s in natural order: the Nystrom completion's matvec, two strip
+    GEMMs or one K5 and one K6 (the B rows from K_BA t, the A rows from
+    the exact K_AA)."""
     s_a = s[ctx.idx_a]                                # p gather
     u = strip_matvec(ctx, s * ctx.b_mask)
     top = ctx.kaa @ s_a + u
@@ -412,24 +432,23 @@ def _coarse_sinkhorn_state(ctx: _StripCtx, cfg: PipelineConfig):
 
 
 def _normalize_streaming(ctx: _StripCtx, cfg: PipelineConfig) -> torch.Tensor:
-    """Streaming Sinkhorn / symmetric normalization on the recompute
-    context -> column scales s (n_pad,), zero on padding: coarse Sinkhorn,
-    the full-resolution extension (rmatvec2) and ``sinkhorn_polish``
+    """Streaming Sinkhorn / symmetric normalization -> column scales s
+    (n_pad,), zero on padding: coarse Sinkhorn, the full-resolution
+    extension (a strip GEMM, or rmatvec2) and ``sinkhorn_polish``
     completion passes; or full-resolution Sinkhorn; or symmetric; or
     none."""
-    if ctx.strip is not None:
-        raise NotImplementedError(
-            "graphlap_tpu_torch: the strip_cache branch of the unfused "
-            "normalization waits for ROADMAP.md Queue 1 M3")
     valid, b_mask = ctx.valid, ctx.b_mask
     if cfg.normalization == "sinkhorn" and cfg.sinkhorn_coarse > 1:
         s_a_coarse, t_r, t_c = _coarse_sinkhorn_state(ctx, cfg)
         t2 = torch.stack([t_r, t_c], dim=1)
-        # each column sums over p only, so on the card any chunk gives the
-        # same values; CUDA_CHUNK bounds the f32 tile temps
-        chunk = CUDA_CHUNK if b_mask.is_cuda else ctx.block
-        kbt = st.rmatvec2(ctx.feats_a, ctx.feats_pad, t2, b_mask, chunk,
-                          ctx.dtype)
+        if ctx.strip is not None:
+            kbt = _strip_dot_t(ctx.strip, t2) * b_mask[:, None]
+        else:
+            # each column sums over p only, so on the card any chunk gives
+            # the same values; CUDA_CHUNK bounds the f32 tile temps
+            chunk = CUDA_CHUNK if b_mask.is_cuda else ctx.block
+            kbt = st.rmatvec2(ctx.feats_a, ctx.feats_pad, t2, b_mask, chunk,
+                              ctx.dtype)
         prod = torch.clamp(kbt[:, 0] * kbt[:, 1], min=_EPS)
         s = b_mask / torch.sqrt(prod)
         s[ctx.idx_a] = s_a_coarse
@@ -466,15 +485,6 @@ def _solve_l(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(l, b, upper=False)
 
 
-def sketch_omega(p: int, k: int, device) -> torch.Tensor:
-    """The sketch's (p, k) Gaussian test matrix, from a seed-0 generator on
-    ``device`` (the reference draws jax.random.normal(PRNGKey(0)), which
-    torch cannot reproduce: parity tests pass that matrix in instead)."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    return torch.randn((p, k), generator=gen, dtype=torch.float32,
-                       device=device)
-
-
 def _factor_strip_fused(img2d: torch.Tensor, ctx: _StripCtx,
                         cfg: PipelineConfig,
                         omega: torch.Tensor | None = None,
@@ -491,7 +501,7 @@ def _factor_strip_fused(img2d: torch.Tensor, ctx: _StripCtx,
     ride sweeps 2 and 3. ``omega``: optional (p, k) test matrix; default
     ``sketch_omega``; ``plain`` runs the kernels' PyTorch versions."""
     _, strip_ext2, strip_sandwich_spost, strip_sandwich = _kernels(plain)
-    idx_a, n, p, n_pad = ctx.idx_a, ctx.n, ctx.p, ctx.n_pad
+    p, n_pad = ctx.p, ctx.n_pad
     strip_pad = ctx.strip_pad
     p_pad = strip_pad.shape[0]
     m = cfg.num_eigvecs
@@ -548,22 +558,10 @@ def _factor_strip_fused(img2d: torch.Tensor, ctx: _StripCtx,
 
     # sweep 4: strip-backed colstats
     s_b_cols = s_post[:n_pad]
-    y_pad = torch.zeros(n_pad, **f32)
-    y_pad[:n] = img2d.to(torch.float32).reshape(-1)
-    v_b = _strip_dot_t(ctx.strip, basis0 * s_a[:, None]) * s_b_cols[:, None]
-    norms_b = torch.sum(v_b * v_b, dim=0)
-    coeffs_b = v_b.T @ y_pad
-
-    v_a = waa @ basis0
-    dnorm = torch.sum(v_a * v_a, dim=0) + norms_b
-    live = dnorm > _LIVE_NORM2
-    scale = torch.where(live, 1.0 / torch.sqrt(torch.where(live, dnorm, 1.0)),
-                        0.0)
-    coeffs = scale * (v_a.T @ y_pad[idx_a] + coeffs_b)
-    return StreamFactor(vals=vals_m, basis0=basis0, v_a=v_a, scale=scale,
-                        coeffs=coeffs, s_a=s_a, s_b_cols=s_b_cols,
-                        feats_a=ctx.feats_a, feats_pad=ctx.feats_pad,
-                        y_pad=y_pad, v_b=v_b, n=n, block=ctx.block)
+    y_pad = _y_pad(img2d, n_pad)
+    return _factor_out(ctx, vals_m, basis0, waa, s_a, s_b_cols, y_pad,
+                       _strip_colstats(ctx, basis0 * s_a[:, None], s_b_cols,
+                                       y_pad))
 
 
 def _stream_cross(ctx: _StripCtx, cfg: PipelineConfig, s_a: torch.Tensor,
@@ -623,6 +621,119 @@ def _solve_pxp(cfg: PipelineConfig, waa: torch.Tensor, cross: torch.Tensor,
                                method, cfg.lobpcg_iters, x0)
 
 
+def _y_pad(img2d: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """The input pixels, natural order, zero-padded to n_pad."""
+    y = torch.zeros(n_pad, dtype=torch.float32, device=img2d.device)
+    y[:img2d.numel()] = img2d.to(torch.float32).reshape(-1)
+    return y
+
+
+def _gr_pad(ctx: _StripCtx, g: torch.Tensor) -> torch.Tensor:
+    """(p, m) row-scaled factor -> the K9 / K10 operand (p_pad, m padded to
+    16), zero outside."""
+    p, m = g.shape
+    gr = torch.zeros((ctx.fa_pad.shape[0], _m_kernel(m)), dtype=torch.float32,
+                     device=g.device)
+    gr[:p, :m] = g
+    return gr
+
+
+def _sq_norms_pad(ctx: _StripCtx):
+    """(na (p_pad,), nb (n_pad_k,)): the f32 squared feature norms K9 / K10
+    take (only the cross GEMM inputs round to the tile dtype)."""
+    fa32 = ctx.feats_a.to(torch.float32)
+    fp32 = ctx.feats_pad.to(torch.float32)
+    na = torch.zeros(ctx.fa_pad.shape[0], dtype=torch.float32,
+                     device=fa32.device)
+    na[:ctx.p] = torch.sum(fa32 * fa32, dim=1)
+    nb = torch.zeros(ctx.f_t.shape[1], dtype=torch.float32, device=fa32.device)
+    nb[:ctx.n_pad] = torch.sum(fp32 * fp32, dim=1)
+    return na, nb
+
+
+def _strip_colstats(ctx: _StripCtx, gr: torch.Tensor, s_b_cols: torch.Tensor,
+                    y_pad: torch.Tensor):
+    """(norms, coeffs, V) against the strip: one thin GEMM materializes V
+    (the strip already bounds N, so the O(Nm) buffer always fits)."""
+    v_b = _strip_dot_t(ctx.strip, gr) * s_b_cols[:, None]
+    return torch.sum(v_b * v_b, dim=0), v_b.T @ y_pad, v_b
+
+
+def _recompute_colstats(ctx: _StripCtx, gr: torch.Tensor,
+                        s_b_cols: torch.Tensor, y_pad: torch.Tensor):
+    """(norms, coeffs, V) from recomputed tiles: K10 on the padded layouts
+    while V (n_pad, m) f32 stays within _V_BYTES_CAP, else one pass without
+    V (``rmatmat_colstats``; V is None and the apply recomputes)."""
+    n_pad, m = ctx.n_pad, gr.shape[1]
+    if n_pad * m * 4 > _V_BYTES_CAP:
+        norms, coeffs = st.rmatmat_colstats(
+            ctx.feats_a, ctx.feats_pad, gr, y_pad,
+            torch.ones(ctx.p, dtype=torch.float32, device=gr.device),
+            s_b_cols, _chunk(ctx, ctx.block), ctx.dtype)
+        return norms, coeffs, None
+    nk = ctx.f_t.shape[1]
+    y_k = torch.zeros(nk, dtype=torch.float32, device=gr.device)
+    y_k[:n_pad] = y_pad
+    c_k = torch.zeros_like(y_k)
+    c_k[:n_pad] = s_b_cols
+    v, norms, coeffs = _recompute_kernels(ctx.plain)[3](
+        ctx.fa_pad, ctx.f_t, _gr_pad(ctx, gr), y_k, c_k, *_sq_norms_pad(ctx))
+    return norms[:m], coeffs[:m], v[:n_pad, :m]
+
+
+def _factor_out(ctx: _StripCtx, vals_m, basis0, waa, s_a, s_b_cols, y_pad,
+                colstats) -> StreamFactor:
+    """The factor from the p x p solve and the pixel side's (norms, coeffs,
+    V): unit-norm column rescale (0 on dead columns) and the coefficients
+    scale * V^T y."""
+    norms_b, coeffs_b, v_b = colstats
+    v_a = waa @ basis0
+    dnorm = torch.sum(v_a * v_a, dim=0) + norms_b
+    live = dnorm > _LIVE_NORM2
+    scale = torch.where(live, 1.0 / torch.sqrt(torch.where(live, dnorm, 1.0)),
+                        0.0)
+    coeffs = scale * (v_a.T @ y_pad[ctx.idx_a] + coeffs_b)
+    return StreamFactor(vals=vals_m, basis0=basis0, v_a=v_a, scale=scale,
+                        coeffs=coeffs, s_a=s_a, s_b_cols=s_b_cols,
+                        feats_a=ctx.feats_a, feats_pad=ctx.feats_pad,
+                        y_pad=y_pad, v_b=v_b, n=ctx.n, block=ctx.block)
+
+
+def _eigensolve_streaming(img2d: torch.Tensor, ctx: _StripCtx,
+                          s: torch.Tensor, cfg: PipelineConfig,
+                          omega: torch.Tensor | None = None,
+                          x0: torch.Tensor | None = None) -> StreamFactor:
+    """The unfused schedule's Nystrom eigensolve from the scales ``s``:
+    strip_cache + sketch runs the randomized sketch on thin strip passes
+    (the Sinkhorn scales folded into the sandwich, never a scaled strip
+    copy; ``omega`` its test matrix); recompute runs the cross (K7) and the
+    chol / LOBPCG solve (``x0`` its start block). Then the colstats: a
+    strip GEMM, K10, or the V-free pass."""
+    s_a = s[ctx.idx_a]
+    s_b_cols = s * ctx.b_mask                         # 0 on A columns + pads
+    waa = ctx.kaa * (s_a[:, None] * s_a[None, :])
+    m = cfg.num_eigvecs
+    if cfg.solver == "sketch" and ctx.strip is not None:
+        s_b2 = s_b_cols * s_b_cols
+
+        def sandwich(t):
+            u = _strip_dot_t(ctx.strip, t * s_a[:, None]) * s_b2[:, None]
+            return _strip_dot(ctx.strip, u) * s_a[:, None]
+
+        vals_m, basis0 = nystrom_sketch_factor(
+            waa, sandwich, m, cfg.eig_tol, cfg.sketch_oversample,
+            cfg.sketch_power, omega)
+    else:
+        cross = _stream_cross(ctx, cfg, s_a, s_b_cols, plain=ctx.plain)
+        vals_m, basis0 = _solve_pxp(cfg, waa, cross, x0)
+    y_pad = _y_pad(img2d, ctx.n_pad)
+    gr = basis0 * s_a[:, None]
+    colstats = (_strip_colstats if ctx.strip is not None
+                else _recompute_colstats)(ctx, gr, s_b_cols, y_pad)
+    return _factor_out(ctx, vals_m, basis0, waa, s_a, s_b_cols, y_pad,
+                       colstats)
+
+
 def _fused_finish_ok(ctx: _StripCtx, cfg: PipelineConfig) -> bool:
     """Shape gate of the fused finish, with the reference's quanta: whole-p
     tiles (p_pad <= MAX_TILE_P from the 512-aligned p_tiling), m within
@@ -660,11 +771,10 @@ def _factor_streaming_fused(img2d: torch.Tensor, ctx: _StripCtx,
     (the reference's docstring records why); everything that touches pixels
     is at post-polish scales. ``x0``: LOBPCG's start block; ``plain`` runs
     the kernels' PyTorch versions."""
-    _, ext2_matvec, finish_colstats = _recompute_kernels(plain)
-    idx_a, n, p, n_pad = ctx.idx_a, ctx.n, ctx.p, ctx.n_pad
+    _, ext2_matvec, finish_colstats, _ = _recompute_kernels(plain)
+    p, n_pad = ctx.p, ctx.n_pad
     fa_pad, f_t = ctx.fa_pad, ctx.f_t
     p_pad, n_pad_k = fa_pad.shape[0], f_t.shape[1]
-    m = cfg.num_eigvecs
     dev = fa_pad.device
     f32 = dict(dtype=torch.float32, device=dev)
 
@@ -705,36 +815,17 @@ def _factor_streaming_fused(img2d: torch.Tensor, ctx: _StripCtx,
     vals_m, basis0 = _solve_pxp(cfg, waa, cross, x0)
 
     # sweep 2: polish rmatvec + scale update + colstats + V
-    y_pad = torch.zeros(n_pad, **f32)
-    y_pad[:n] = img2d.to(torch.float32).reshape(-1)
+    y_pad = _y_pad(img2d, n_pad)
     y_k = torch.zeros(n_pad_k, **f32)
     y_k[:n_pad] = y_pad
-    gr = torch.zeros((p_pad, _m_kernel(m)), **f32)
-    gr[:p, :m] = basis0 * s_a[:, None]
     t_pad = torch.zeros(p_pad, **f32)
     t_pad[:p] = t_vec
-    # f32 feature norms (only the cross GEMM inputs round to the tile dtype)
-    fa32 = ctx.feats_a.to(torch.float32)
-    fp32 = ctx.feats_pad.to(torch.float32)
-    na = torch.zeros(p_pad, **f32)
-    na[:p] = torch.sum(fa32 * fa32, dim=1)
-    nb = torch.zeros(n_pad_k, **f32)
-    nb[:n_pad] = torch.sum(fp32 * fp32, dim=1)
     v, norms, coeffs_b, s_new_k = finish_colstats(
-        fa_pad, f_t, t_pad, s_pre_k, bm_k, gr, y_k, na, nb)
-    v_b = v[:n_pad, :m]
-    s_b_cols = s_new_k[:n_pad]
-
-    v_a = waa @ basis0
-    dnorm = torch.sum(v_a * v_a, dim=0) + norms[:m]
-    live = dnorm > _LIVE_NORM2
-    scale = torch.where(live, 1.0 / torch.sqrt(torch.where(live, dnorm, 1.0)),
-                        0.0)
-    coeffs = scale * (v_a.T @ y_pad[idx_a] + coeffs_b[:m])
-    return StreamFactor(vals=vals_m, basis0=basis0, v_a=v_a, scale=scale,
-                        coeffs=coeffs, s_a=s_a, s_b_cols=s_b_cols,
-                        feats_a=ctx.feats_a, feats_pad=ctx.feats_pad,
-                        y_pad=y_pad, v_b=v_b, n=n, block=ctx.block)
+        fa_pad, f_t, t_pad, s_pre_k, bm_k, _gr_pad(ctx, basis0 * s_a[:, None]),
+        y_k, *_sq_norms_pad(ctx))
+    m = cfg.num_eigvecs
+    return _factor_out(ctx, vals_m, basis0, waa, s_a, s_new_k[:n_pad], y_pad,
+                       (norms[:m], coeffs_b[:m], v[:n_pad, :m]))
 
 
 def _factor_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
@@ -742,28 +833,37 @@ def _factor_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
                       omega: torch.Tensor | None = None,
                       plain: bool = False,
                       x0: torch.Tensor | None = None) -> StreamFactor:
-    """Affinity -> normalization -> Nystrom eigensolve. ``omega``: the
-    sketch's test matrix (strip_cache); ``x0``: LOBPCG's start block
-    (recompute)."""
+    """Affinity -> normalization -> Nystrom eigensolve: a fused schedule
+    where its gate admits the recipe and shapes, else the unfused one.
+    ``omega``: the sketch's test matrix (strip_cache); ``x0``: LOBPCG's
+    start block."""
     check_slice(cfg)
     ctx = _strip_ctx(img2d, idx_a, cfg, plain)
     if _fused_finish_ok(ctx, cfg):
         return _factor_streaming_fused(img2d, ctx, cfg, x0, plain)
     if _strip_fused_ok(ctx, cfg):
         return _factor_strip_fused(img2d, ctx, cfg, omega, plain)
-    todo = _UNFUSED_TODO if cfg.strip_cache else _RECOMPUTE_TODO
-    raise NotImplementedError(f"graphlap_tpu_torch: {todo}")
+    s = _normalize_streaming(ctx, cfg)
+    return _eigensolve_streaming(img2d, ctx, s, cfg, omega, x0)
 
 
 def _apply_factor(fac: StreamFactor, idx_a: torch.Tensor,
                   cfg: PipelineConfig, h: int, w: int):
-    """Spectral filter through the factor's materialized V. Returns
-    (z2d, vals)."""
+    """Spectral filter through the factor: the materialized V, or without
+    it one recomputing pass (``rmat_apply``). Returns (z2d, vals)."""
     filt = FILTER_REGISTRY[cfg.filter_name]
     fvals = filt.fn(fac.vals, cfg.filter_param)
     g = (fvals - 1.0) if filt.affine else fvals
     wvec = fac.scale * g * fac.coeffs                 # (m,)
-    z_full = fac.v_b @ wvec                           # one skinny GEMM
+    if fac.v_b is not None:
+        z_full = fac.v_b @ wvec                       # one skinny GEMM
+    else:
+        dtype = (torch.bfloat16 if cfg.affinity_dtype == "bfloat16"
+                 else torch.float32)
+        block = (max(fac.block, CUDA_CHUNK) if fac.y_pad.is_cuda
+                 else fac.block)
+        z_full = st.rmat_apply(fac.feats_a, fac.feats_pad, fac.basis0, wvec,
+                               fac.s_a, fac.s_b_cols, block, dtype)
     z_full[idx_a] = fac.v_a @ wvec                    # p scatter
     if filt.affine:
         z_full = z_full + fac.y_pad
@@ -805,4 +905,39 @@ def filter_channel_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
         s = _normalize_streaming(ctx, cfg)
         return _apply_matvec_streaming(img2d, ctx, s, cfg, h, w)
     fac = _factor_streaming(img2d, idx_a, cfg, omega, plain, x0)
+    return _apply_factor(fac, idx_a, cfg, h, w)
+
+
+# staged variants (the reference's separate jits, here plain functions): the
+# context is rebuilt per stage, as there, so the stage walls attribute the
+# work and the fused ``filter_image`` wall stays the headline
+
+def stage_scales_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
+                           cfg: PipelineConfig):
+    """Stage 1: normalization scales s (n_pad,) — the Sinkhorn wall."""
+    return _normalize_streaming(_strip_ctx(img2d, idx_a, cfg), cfg)
+
+
+def stage_matvec_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
+                           s: torch.Tensor, cfg: PipelineConfig):
+    """The operator-filter apply after the scales (no eigensolve stage in
+    that mode). Returns (z2d, empty eigvals)."""
+    h, w = img2d.shape
+    return _apply_matvec_streaming(img2d, _strip_ctx(img2d, idx_a, cfg), s,
+                                   cfg, h, w)
+
+
+def stage_factor_streaming(img2d: torch.Tensor, idx_a: torch.Tensor,
+                           s: torch.Tensor, cfg: PipelineConfig,
+                           omega: torch.Tensor | None = None,
+                           x0: torch.Tensor | None = None) -> StreamFactor:
+    """Stage 2: the Nystrom eigensolve (cross or sketch, p x p solve,
+    colstats) — the eigensolve wall."""
+    return _eigensolve_streaming(img2d, _strip_ctx(img2d, idx_a, cfg), s,
+                                 cfg, omega, x0)
+
+
+def stage_apply_streaming(fac: StreamFactor, idx_a: torch.Tensor,
+                          cfg: PipelineConfig, h: int, w: int):
+    """Stage 3: the O(N m) filter apply. Returns (z2d, vals)."""
     return _apply_factor(fac, idx_a, cfg, h, w)

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "glt_finish_colstats": ([_P] * 13 + [_I, _I, _I, _I, _P], _I),
     "glt_recompute_sum": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "glt_colstats_v_blocks": ([_I], _I),
+    "glt_colstats_v": ([_P] * 10 + [_I, _I, _I, _I, _P], _I),
 }
 
 _LIB = None

@@ -1,7 +1,7 @@
-"""K7-K9 — the recompute-streaming kernels of the fused-finish path (port of
+"""K7-K10 — the recompute-streaming kernels of the spectral paths (port of
 ``graphlap_tpu/ops/pallas_streaming.py``: ``kb_strip_pallas`` :319 with
 ``gram_pallas`` :369 around it, ``ext2_matvec_pallas`` :554,
-``finish_colstats_pallas`` :677).
+``finish_colstats_pallas`` :677, ``colstats_v_pallas`` :817).
 
 Each recomputes kernel tiles from padded feature layouts
 (ops/recompute_layout: fa (p_pad, dp) rows, f_t (dp, n) transposed
@@ -9,13 +9,16 @@ features):
 
 * ``kb_strip_cuda`` (K7): the column-scaled tile bf16(k * bf16(cols)),
   (p_pad, S), which ``gram_cuda`` turns into the (p_pad, p_pad) gram with
-  one bf16-in / f32-out GEMM.
+  one bf16-in / f32-out GEMM per superblock of ``GRAM_SUPER`` columns.
 * ``ext2_matvec_cuda`` (K8): kbt = k^T bf16([t_r, t_c]), s = bm /
   sqrt(max(kbt_r kbt_c, eps)), u = K s.
 * ``finish_colstats_cuda`` (K9): ks = k^T bf16(t), s = sqrt(s_pre /
   max(ks, eps)) bm, V = bf16(k bf16(s))^T bf16(gr), norms = sum V^2,
   coeffs = V^T y; the tile is the plain class (f32 norms passed in, f32
   exp, then bf16).
+* ``colstats_v_cuda`` (K10): K9 without ks and the scale update, for the
+  unfused eigensolve: V = bf16(k bf16(c))^T bf16(gr), norms, coeffs, with
+  the same plain-class tile (``csrc/colstats_v.cu``).
 
 Tile precision: with bf16 layouts and ``aug`` the tile is
 bf16(exp(-bf16(max(d2, 0)))) with d2 straight from the augmented product;
@@ -45,7 +48,13 @@ PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 256           # fa rows: 8 cluster slices, 4 warp quarters of 8
 FD = 32                   # feature depth of the kernels
 X_TN, F_TN, E_TN = 128, 64, 128   # K8, K9, K7 column tiles (csrc)
-MP_MAX = 64               # widest V a K9 launch holds in shared memory
+MP_MAX = 64               # widest V a K9 / K10 launch holds
+C_TN = 256                # K10 column tile (csrc)
+# K7 columns a launch: the kb buffer of one superblock is (p_pad, GRAM_SUPER)
+# bf16, 1.07 GB at p_pad 4096, so the gc64 gram at 8 MP (131072 sampled
+# columns) stays one launch and gram_coarse = 1 (8.4M columns) does not
+# need a 68.7 GB buffer
+GRAM_SUPER = 131072
 _F32 = torch.float32
 
 
@@ -98,6 +107,15 @@ def ext2_matvec_plain(fa, f_t, t2, bm, aug: bool = False):
     return u, s
 
 
+def _tile_colstats(af, ft, na, nb, dtype):
+    """The plain-class tile of K9 / K10: the cross from the layouts' values,
+    f32 norms passed in, f32 exp, then rounded to ``dtype`` (carried in
+    f32)."""
+    cross = af @ ft.to(_F32)
+    d2 = torch.clamp(na[:, None] + nb[None, :] - 2.0 * cross, min=0.0)
+    return _r(torch.exp(-d2), dtype)
+
+
 def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb):
     """-> (V (n, m_pad) f32, norms (m_pad,), coeffs (m_pad,), s (n,))."""
     dtype = fa.dtype
@@ -110,9 +128,7 @@ def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb):
     norms = torch.zeros(mp, dtype=_F32, device=dev)
     coeffs = torch.zeros(mp, dtype=_F32, device=dev)
     for sl in _chunks(n, PLAIN_CHUNK):
-        cross = af @ f_t[:, sl].to(_F32)
-        d2 = torch.clamp(na[:, None] + nb[None, sl] - 2.0 * cross, min=0.0)
-        kb = _r(torch.exp(-d2), dtype)
+        kb = _tile_colstats(af, f_t[:, sl], na, nb[sl], dtype)
         ks = tr @ kb
         s[sl] = torch.sqrt(s_pre[sl] / torch.clamp(ks, min=FINISH_EPS)) * bm[sl]
         kbs = _r(kb * _r(s[sl], dtype)[None, :], dtype)
@@ -123,6 +139,24 @@ def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb):
     return v, norms, coeffs, s
 
 
+def colstats_v_plain(fa, f_t, gr, y, cols, na, nb):
+    """-> (V (n, m_pad) f32, norms (m_pad,), coeffs (m_pad,))."""
+    dtype = fa.dtype
+    n, mp = f_t.shape[1], gr.shape[1]
+    dev = fa.device
+    af, grr = fa.to(_F32), _r(gr, dtype)
+    v = torch.empty((n, mp), dtype=_F32, device=dev)
+    norms = torch.zeros(mp, dtype=_F32, device=dev)
+    coeffs = torch.zeros(mp, dtype=_F32, device=dev)
+    for sl in _chunks(n, PLAIN_CHUNK):
+        kb = _tile_colstats(af, f_t[:, sl], na, nb[sl], dtype)
+        vb = _r(kb * _r(cols[sl], dtype)[None, :], dtype).T @ grr
+        v[sl] = vb
+        norms = norms + torch.sum(vb * vb, dim=0)
+        coeffs = coeffs + y[sl].to(_F32) @ vb
+    return v, norms, coeffs
+
+
 # --- kernel wrappers --------------------------------------------------------
 
 def _check_layout(fa, f_t, what: str, aug: bool | None) -> None:
@@ -130,7 +164,7 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> None:
         raise NotImplementedError(
             f"{what}: the CUDA kernel takes bf16 feature layouts (the "
             f"bfloat16 main path); f32 layouts wait for ROADMAP.md Queue 2 "
-            f"(K7-K9, f32 layouts)")
+            f"(K7-K10, f32 layouts)")
     if aug is False:
         raise NotImplementedError(
             f"{what}: the CUDA kernel takes the aug layout; the plain bf16 "
@@ -190,16 +224,26 @@ def _gram(kb: torch.Tensor) -> torch.Tensor:
     return mm_f32(kb, kb.T) if kb.dtype == torch.bfloat16 else kb @ kb.T
 
 
+def _gram_super(kb_strip, fa, f_t, cols, aug):
+    """sum_j (c_j k_j)(c_j k_j)^T over superblocks of GRAM_SUPER columns,
+    the f32 partial grams summed in column order (``gram_pallas`` loops
+    superblocks of ``block`` columns; only the f32 summation order
+    differs)."""
+    g = None
+    for sl in _chunks(f_t.shape[1], GRAM_SUPER):
+        part = _gram(kb_strip(fa, f_t[:, sl].contiguous(), cols[sl], aug))
+        g = part if g is None else g + part
+    return g
+
+
 def gram_plain(fa, f_t, cols, aug: bool = False):
-    return _gram(kb_strip_plain(fa, f_t, cols, aug))
+    return _gram_super(kb_strip_plain, fa, f_t, cols, aug)
 
 
 def gram_cuda(fa, f_t, cols, aug: bool = False):
-    """sum_j (c_j k_j)(c_j k_j)^T -> (p_pad, p_pad) f32 (``gram_pallas``):
-    K7 emits every sampled column in one launch, then one bf16-in / f32-out
-    GEMM (the reference loops superblocks of ``block`` columns; only the
-    f32 summation order differs)."""
-    return _gram(kb_strip_cuda(fa, f_t, cols, aug))
+    """-> (p_pad, p_pad) f32: one K7 launch and one bf16-in / f32-out GEMM
+    a superblock."""
+    return _gram_super(kb_strip_cuda, fa, f_t, cols, aug)
 
 
 def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False):
@@ -278,6 +322,59 @@ def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb):
     return (torch.cat(v, dim=1), torch.cat(norms), torch.cat(coeffs), s[0])
 
 
+def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb):
+    """((p_pad, 32) plain, (32, n) aug superset, (p_pad, m_pad) f32, (n,),
+    (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,), coeffs
+    (m_pad,)), all f32. ``cols`` must be 0 on padding columns. A gr wider
+    than MP_MAX runs one launch per MP_MAX columns (each recomputes the
+    tile)."""
+    if _device_kind(fa, f_t, gr, y, cols, na, nb) == "cpu":
+        return colstats_v_plain(fa, f_t, gr, y, cols, na, nb)
+    _check_layout(fa, f_t, "colstats_v", None)
+    p, n = fa.shape[0], f_t.shape[1]
+    mp = gr.shape[1]
+    _check_vecs("colstats_v", gr=(gr, (p, mp)), y=(y, (n,)),
+                cols=(cols, (n,)), na=(na, (p,)), nb=(nb, (n,)))
+    if mp % 16 or not 16 <= mp <= 128:
+        raise ValueError(f"colstats_v: gr width {mp} must be a multiple of "
+                         f"16 in [16, 128]")
+    if n % C_TN:
+        raise ValueError(f"colstats_v: n {n} must be a multiple of {C_TN}")
+    cb = _bf16(cols)
+    y, na, nb = (_f32(x) for x in (y, na, nb))
+    outs = [_colstats_launch(fa, f_t, _bf16(gr[:, m0:m0 + MP_MAX].T), cb, y,
+                             na, nb)
+            for m0 in range(0, mp, MP_MAX)]
+    if len(outs) == 1:
+        return outs[0]
+    v, norms, coeffs = zip(*outs)
+    return torch.cat(v, dim=1), torch.cat(norms), torch.cat(coeffs)
+
+
+def _colstats_launch(fa, f_t, grt, cb, y, na, nb):
+    w, p = grt.shape
+    n = f_t.shape[1]
+    lib = _build.lib()
+    blocks = lib.glt_colstats_v_blocks(w)
+    if blocks <= 0:
+        _build.check(-blocks if blocks < 0 else 1,
+                     "colstats_v: no block fits the card")
+    blocks = min(blocks, n // C_TN)
+    dev = fa.device
+    v = torch.empty((n, w), dtype=_F32, device=dev)
+    part = torch.empty((blocks, 2, w), dtype=_F32, device=dev)
+    nc = torch.empty((2, w), dtype=_F32, device=dev)
+    rc = lib.glt_colstats_v(fa.data_ptr(), f_t.data_ptr(), grt.data_ptr(),
+                            cb.data_ptr(), y.data_ptr(), na.data_ptr(),
+                            nb.data_ptr(), v.data_ptr(), part.data_ptr(),
+                            nc.data_ptr(), p, n, w, blocks,
+                            _build.stream_ptr(fa))
+    _build.check(rc, "colstats_v")
+    colstats_v_cuda.launches += 1
+    return v, nc[0], nc[1]
+
+
 kb_strip_cuda.launches = 0
 ext2_matvec_cuda.launches = 0
 finish_colstats_cuda.launches = 0
+colstats_v_cuda.launches = 0

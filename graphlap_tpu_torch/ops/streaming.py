@@ -1,6 +1,8 @@
 """Blockwise streaming operators: the K strip is recomputed, never stored
 (port of ``graphlap_tpu/ops/streaming.py``: ``matvec`` :78, ``rmatvec`` :93,
-``gram`` :106, ``sinkhorn_coarse_step`` :190, ``rmatvec2`` :216).
+``gram`` :106, ``rmatmat_colstats`` :121, ``rmatmat_colstats_v`` :144,
+``rmatmat`` :170, ``sinkhorn_coarse_step`` :190, ``rmatvec2`` :216,
+``rmat_apply`` :229).
 
 Every product walks the columns in chunks and recomputes each (p, chunk)
 kernel tile from the features: f32 distances and exp, the tile rounded to
@@ -75,6 +77,67 @@ def gram(feats_a, feats_pad, row_scale, col_scale, block, dtype):
         kb = _kernel_blk(feats_a, feats_pad[sl], dtype) * cs[None, sl]
         acc = acc + _dot(kb, kb.T, dtype)
     return acc * (row_scale[:, None] * row_scale[None, :])
+
+
+def _scaled_blk(feats_a, fb, cs, dtype):
+    """The column-scaled tile bf16(k * bf16(c)) (or f32) of the colstats
+    passes: ``cs`` already in the tile dtype."""
+    return _kernel_blk(feats_a, fb, dtype) * cs[None, :]
+
+
+def rmatmat_colstats(feats_a, feats_pad, g, y, row_scale, col_scale, block,
+                     dtype):
+    """One pass over V = (D_c C^T D_r) G (n_pad, m) -> (column sq-norms
+    (m,), V^T y (m,)), V never materialized."""
+    cs = col_scale.to(dtype)
+    gr = g * row_scale[:, None]
+    m = g.shape[1]
+    norms = torch.zeros(m, dtype=torch.float32, device=feats_a.device)
+    coeffs = torch.zeros_like(norms)
+    for sl in _chunks(feats_pad.shape[0], block):
+        vb = _dot(_scaled_blk(feats_a, feats_pad[sl], cs[sl], dtype).T, gr,
+                  dtype)
+        norms = norms + torch.sum(vb * vb, dim=0)
+        coeffs = coeffs + vb.T @ y[sl]
+    return norms, coeffs
+
+
+def rmatmat_colstats_v(feats_a, feats_pad, g, y, row_scale, col_scale,
+                       block, dtype):
+    """``rmatmat_colstats`` that also returns V (n_pad, m) f32: the plain
+    version, at the model level, of the colstats+V kernel (K10)."""
+    cs = col_scale.to(dtype)
+    gr = g * row_scale[:, None]
+    m = g.shape[1]
+    v = torch.empty((feats_pad.shape[0], m), dtype=torch.float32,
+                    device=feats_a.device)
+    norms = torch.zeros(m, dtype=torch.float32, device=feats_a.device)
+    coeffs = torch.zeros_like(norms)
+    for sl in _chunks(feats_pad.shape[0], block):
+        vb = _dot(_scaled_blk(feats_a, feats_pad[sl], cs[sl], dtype).T, gr,
+                  dtype)
+        v[sl] = vb
+        norms = norms + torch.sum(vb * vb, dim=0)
+        coeffs = coeffs + vb.T @ y[sl]
+    return norms, coeffs, v
+
+
+def rmatmat(feats_a, feats_pad, g, row_scale, col_scale, block, dtype):
+    """(D_c C^T D_r) G -> (n_pad, m), materialized chunk by chunk."""
+    cs = col_scale.to(dtype)
+    gr = g * row_scale[:, None]
+    return torch.cat([
+        _dot(_scaled_blk(feats_a, feats_pad[sl], cs[sl], dtype).T, gr, dtype)
+        for sl in _chunks(feats_pad.shape[0], block)])
+
+
+def rmat_apply(feats_a, feats_pad, g, w, row_scale, col_scale, block, dtype):
+    """(D_r C D_c)^T (G w) -> (n_pad,): the extension apply of the V-free
+    factor."""
+    gw = (g @ w) * row_scale
+    return torch.cat([
+        _dot(_kernel_blk(feats_a, feats_pad[sl], dtype).T, gw, dtype)
+        * col_scale[sl] for sl in _chunks(feats_pad.shape[0], block)])
 
 
 def sinkhorn_coarse_step(feats_a, feats_c, t, mask_c, ratio, block, dtype):

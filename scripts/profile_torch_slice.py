@@ -2,21 +2,24 @@
 card.
 
     python3 scripts/profile_torch_slice.py
-        [--path config2|config4|config3|config4q|both|all] [--out DIR]
+        [--path config2|config4|config3|config4q|turbo|both|all] [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
 recipe; config 4: chip_smoke.make_workload_8mp, the 8 MP recompute-streaming
 fused-finish recipe; config 3: chip_smoke.make_workload_cfg3, the 1024x1024
 RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
-8 MP f32 matvec denoise; "both" is config 2 and config 4, "all" every path)
-it runs filter_image once to warm up, then:
+8 MP f32 matvec denoise; turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
+turbo recipe on the unfused spectral schedule; "both" is config 2 and
+config 4, "all" every path) it runs filter_image once to warm up, then:
 
 * stage walls (host clock around work ending in torch.cuda.synchronize,
   min of 3), on channel 0 of an RGB image: the strip context (features,
   K_AA + its Cholesky, and the K1 strip or the recompute layouts), the
-  coarse Sinkhorn loop, for the operator-filter paths the full-resolution
-  extension (plain-torch rmatvec2) and the whole normalization (coarse
-  loop, extension and polish), and the whole filter_image call;
+  coarse Sinkhorn loop, for the paths outside the fused schedules (the
+  operator filters, turbo) the full-resolution extension (plain-torch
+  rmatvec2) and the whole normalization (coarse loop, extension and
+  polish), for turbo also the eigensolve (K7 cross, LOBPCG, K10), and the
+  whole filter_image call;
 * one filter_image call under torch.profiler: device time summed by kernel
   name and by group (the port's kernels, cuBLAS GEMMs, cuSOLVER and the
   other small dense algebra, elementwise and reductions), the device-busy
@@ -47,7 +50,7 @@ GROUPS = (
     ("port kernels", r"affinity_kernel|ext2_kernel|sandwich_p[12]_kernel|"
                      r"kb_emit_kernel|ext2_matvec_kernel|"
                      r"finish_colstats_kernel|aug_sum_kernel|f32_sum_kernel|"
-                     r"reduce_partials"),
+                     r"colstats_v_kernel|reduce_partials"),
     ("cuSOLVER / small dense algebra",
      r"syevd|syevj|jacobi|potrf|potrs|trsm|trsv|geqrf|orgqr|orgbr|ormqr|"
      r"gesvd|gebrd|bdsqr|lansy|sytrd|stedc|steqr|larf|laswp|cusolver|"
@@ -94,13 +97,18 @@ def profile_path(tag, workload, gt, dev, out: Path) -> dict:
     stages["strip_ctx_s"] = _wall(lambda: ms._strip_ctx(img_d, idx_d, cfg))
     stages["coarse_sinkhorn_s"] = _wall(
         lambda: ms._coarse_sinkhorn_state(ctx, cfg))
-    if cfg.operator_filter():
+    fused = ms._fused_finish_ok(ctx, cfg) or ms._strip_fused_ok(ctx, cfg)
+    if cfg.operator_filter() or not fused:
         t2 = torch.ones((ctx.p, 2), device=dev)
         stages["rmatvec2_s"] = _wall(lambda: st.rmatvec2(
             ctx.feats_a, ctx.feats_pad, t2, ctx.b_mask, ms.CUDA_CHUNK,
             ctx.dtype))
         stages["normalize_s"] = _wall(
             lambda: ms._normalize_streaming(ctx, cfg))
+    if not (cfg.operator_filter() or fused):
+        s = ms._normalize_streaming(ctx, cfg)
+        stages["eigensolve_s"] = _wall(
+            lambda: ms._eigensolve_streaming(img_d, ctx, s, cfg))
     stages["filter_image_s"] = _wall(
         lambda: gt.filter_image(noisy, cfg, plan=plan, device=dev))
     del ctx
@@ -143,7 +151,7 @@ def profile_path(tag, workload, gt, dev, out: Path) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("config2", "config4", "config3",
-                                       "config4q", "both", "all"),
+                                       "config4q", "turbo", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -162,7 +170,8 @@ def main() -> None:
     paths = {"config2": chip_smoke.make_workload,
              "config4": chip_smoke.make_workload_8mp,
              "config3": chip_smoke.make_workload_cfg3,
-             "config4q": chip_smoke.make_workload_8mp_matvec}
+             "config4q": chip_smoke.make_workload_8mp_matvec,
+             "turbo": chip_smoke.make_workload_8mp_turbo}
     chosen = {"both": ("config2", "config4"), "all": tuple(paths)}.get(
         args.path, (args.path,))
     for tag, workload in paths.items():

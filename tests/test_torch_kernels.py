@@ -226,6 +226,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     # the library name follows the sources
     assert _build.lib_path().name.startswith("libglt_kernels_")
     assert {p.name for p in _build.sources()} == {"affinity_strip.cu",
+                                                   "colstats_v.cu",
                                                    "recompute_matvec.cu",
                                                    "recompute_sweeps.cu",
                                                    "strip_sweeps.cu"}

@@ -47,7 +47,8 @@ WRAPPERS = (k56.matvec_cuda, k56.rmatvec_cuda)
 ALL_WRAPPERS = WRAPPERS + (k1.affinity_strip_cuda, k24.strip_ext2_cuda,
                            k24.strip_sandwich_spost_cuda,
                            k24.strip_sandwich_cuda, k79.kb_strip_cuda,
-                           k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
+                           k79.ext2_matvec_cuda, k79.finish_colstats_cuda,
+                           k79.colstats_v_cuda)
 
 
 @pytest.fixture(scope="module")
@@ -496,16 +497,27 @@ def test_operator_route_outside_the_slice_raises(img_noisy, kw, item):
 
 
 def test_strip_cache_context_normalization_raises(img_noisy):
-    """The strip products of the unfused normalization are not ported: a
-    strip_cache context refuses rather than recomputing tiles."""
+    """A strip_cache context serves the unfused normalization's products
+    from the strip (GEMMs, no recomputed tiles and no K5/K6 launch), while
+    the operator filters on strip_cache still raise before any work."""
     cfg = _cfg(strip_cache=True, affinity_dtype="bfloat16_store")
     noisy = img_noisy[1]
     plan = gt.make_plan(noisy, cfg)
     ctx = tms._strip_ctx(T(noisy), interop.idx_to_device(plan.idx_a, "cpu"),
                          cfg)
     assert ctx.strip is not None
-    with pytest.raises(NotImplementedError, match="M3"):
-        tms._normalize_streaming(ctx, cfg)
+    before = _counts()
+    s = tms._normalize_streaming(ctx, cfg)
+    assert _counts() == before
+    assert s.shape == (ctx.n_pad,) and bool(torch.isfinite(s).all())
+    assert float(s[ctx.n:].abs().max()) == 0.0 and float(s[:ctx.n].min()) > 0
+    # the polish's completion matvec is the strip's: K~ s from two GEMMs
+    ks = tms.ktilde_apply(ctx, s)
+    b = ctx.b_mask
+    t = s[ctx.idx_a] + ctx.kaa_solve(tms._strip_dot(ctx.strip, s * b))
+    torch.testing.assert_close(ks * b, tms._strip_dot_t(ctx.strip, t) * b)
+    with pytest.raises(NotImplementedError, match="M3 / M7"):
+        gt.filter_image(noisy, cfg, device="cpu")
 
 
 def test_luma_basis_rgb_raises(rgb_noisy):

@@ -129,11 +129,11 @@ def test_filter_image_without_cuda_raises(img_noisy):
 
 @pytest.mark.parametrize("kw", [
     dict(streaming=False, strip_cache=False, solver="lobpcg"),
-    dict(strip_cache=False, solver="lobpcg"),
+    dict(strip_cache=False, solver="lobpcg", feature_dtype="bfloat16"),
     dict(filter_mode="matvec"),
-    dict(sinkhorn_polish=2),
+    dict(solver="oneshot"),
     dict(use_pallas=False),
-    dict(sketch_power=1),
+    dict(strip_cache=False, solver="lobpcg", use_pallas=False),
 ])
 def test_outside_the_slice_raises(img_noisy, kw):
     _, noisy = img_noisy

@@ -471,8 +471,8 @@ def test_recompute_filter_image_without_cuda_raises(img_noisy):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fused_finish=False, gram_coarse=1), "M6"),
-    (dict(solver="chol", fused_finish=False, gram_coarse=4), "M6"),
+    (dict(use_pallas=False, fused_finish=False), "M6"),
+    (dict(use_pallas=False, fused_finish=False, solver="chol"), "M6"),
     (dict(solver="oneshot"), "M2"),
     (dict(feature_dtype="bfloat16"), "M6"),
 ])
@@ -482,18 +482,20 @@ def test_recompute_outside_the_slice_raises(img_noisy, kw, item):
 
 
 def test_past_the_fused_finish_gate_raises():
-    """p_pad > MAX_TILE_P: the reference would take its unfused sweeps."""
-    cfg = _cfg(sample_rho=1.0, sample_cap=8192, num_eigvecs=16,
-               block_cols=4096)
-    noisy = np.zeros((64, 72), np.float32)
-    plan = gt.make_plan(noisy, cfg)
+    """p_pad > MAX_TILE_P: the fused finish's gate refuses the shapes, and
+    the factor takes the unfused schedule instead, as the reference's
+    does."""
+    cfg = _cfg(sample_rho=1.0, sample_cap=8192, num_eigvecs=8,
+               block_cols=4608, sinkhorn_coarse=8, gram_coarse=8)
+    img = gt.make_test_image(64, 72)
+    plan = gt.make_plan(img, cfg)
     assert plan.p > rl.MAX_TILE_P
-    ctx = tms._strip_ctx(T(noisy), interop.idx_to_device(plan.idx_a, "cpu"),
-                         cfg)
+    idx = interop.idx_to_device(plan.idx_a, "cpu")
+    ctx = tms._strip_ctx(T(img), idx, cfg)
     assert not tms._fused_finish_ok(ctx, cfg)
-    with pytest.raises(NotImplementedError, match="M6"):
-        tms._factor_streaming(T(noisy),
-                              interop.idx_to_device(plan.idx_a, "cpu"), cfg)
+    fac = tms._factor_streaming(T(img), idx, cfg)
+    assert np.isfinite(fac.vals.numpy()).all()
+    assert np.isfinite(fac.v_b.numpy()).all() and fac.v_b.shape[1] == 8
 
 
 def _small_layouts():
@@ -577,7 +579,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     out = _build.build()
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.sources()) == 4
+    assert len(compiles) == len(_build.sources()) == 5
     assert all("sm_90a" in c for c in compiles)
     assert len(calls) == len(compiles) + 1 and "-shared" in calls[-1]
     assert out == _build.lib_path() and out.exists()
