@@ -25,7 +25,11 @@ non-zero before the last line is printed):
               1/64, one polish, LOBPCG):
    kernels  K7-K9 at the path's 8 MP shapes on its own features and
             layouts, scale vectors from a seeded generator, each against
-            its plain version on the card, timed with CUDA events;
+            its plain version on the card, timed with CUDA events (K8 and
+            K9 launched once more on the same inputs: the two runs must
+            agree bit for bit; K10 likewise in config 4t); K8's u and s
+            once more apart, with the mean, median and share below zero of
+            u's signed row errors;
    e2e-8mp  filter_image: one warm-up and three timed runs (counts set to 0
             just before), walls, peak memory, PSNR in/out, launches;
    plain    the same factor through the plain versions on the card;
@@ -92,6 +96,15 @@ RUNS = 3
 # kernel is the larger of its least bytes over the memory rate and its
 # operations over the peak of their type
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# the exp rate: one MUFU ex2 result a lane, 16 a clock an SM (Hopper's
+# special-function units), times the SMs and the card's max SM clock
+# (read from nvidia-smi in main). Where the exp's argument is an f32 value
+# (K1, K9, K10, the f32 K5/K6) the function needs one exp a tile entry,
+# entries / EXP_RATE; the aug-layout entry bf16(exp(-bf16(max(d2, 0))))
+# of K7, K8 and the bf16 K5/K6 is a function of a 16-bit value, which a
+# table gives without an exp (K8 reads one), so their bound has no exp term
+MUFU_PER_CLOCK = 16
+EXP_RATE = None
 # kernel vs plain tolerances at the paths' shapes: absolute for bf16 tiles
 # with entries in [0, 1] (K1, K7), else relative to max|plain|
 TOL = {
@@ -156,7 +169,7 @@ SOURCE = {
     "strip_sandwich": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "kb_strip": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
     "ext2_matvec": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
-    "finish_colstats": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "finish_colstats": "graphlap_tpu_torch/csrc/colstats_v.cu",
     "matvec": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "matvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
@@ -164,6 +177,9 @@ SOURCE = {
     "colstats_v": "graphlap_tpu_torch/csrc/colstats_v.cu",
 }
 NAMES = list(TOL)
+# kernels whose cross-block sums must repeat bit for bit (fixed-order
+# partials, no float atomics): checked by a second launch on the same inputs
+BIT_REPEAT = ("ext2_matvec", "finish_colstats", "colstats_v")
 OUT = Path("build") / "chip_smoke"
 
 
@@ -222,11 +238,14 @@ def colstats_scales(y):
     return scales
 
 
-def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0):
+def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
+          exps: float = 0.0):
     """(bound_ms, bound_by): the least time for the same work on this
-    card."""
+    card: bytes over the memory rate, or the operations of the busiest
+    type (bf16 tensor, f32, exp) over its rate."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(bf16_flops / PEAK_BF16, f32_flops / PEAK_F32)
+    t_ops = max(bf16_flops / PEAK_BF16, f32_flops / PEAK_F32,
+                exps / EXP_RATE)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -243,7 +262,12 @@ def run_cases(cases: dict, rows: dict) -> None:
         rel = max(rels)
         if name in ("affinity_strip", "kb_strip"):
             rel = err                                 # absolute, see TOL
-        del got, ref, scales
+        if name in BIT_REPEAT:
+            again = kern(*args)
+            require(all(torch.equal(a, b) for a, b in zip(pair[0], again)),
+                    f"{name}: two launches on the same inputs differ")
+            del again
+        del got, ref, scales, pair
         ms_k = cuda_ms(lambda: kern(*args), 5)
         ms_p = cuda_ms(lambda: plain(*args), 2)
         b_ms, b_by = bnd
@@ -369,10 +393,11 @@ def matvec_cases(ctx, dev, names):
     item = fa.element_size()
     feat_bytes = item * fd * (pp + nk)
     # bf16: the d2 product on the tensor cores and 8 f32 operations an
-    # entry (as K8); f32: the IEEE-f32 cross (2 fd an entry) and the same 8
+    # entry (as K8), no exp (a table entry); f32: the IEEE-f32 cross (2 fd
+    # an entry), the same 8 and one exp an entry
     flops = (dict(bf16_flops=2 * e * fd, f32_flops=8 * e) if aug
-             else dict(f32_flops=e * (2 * fd + 8)))
-    b_ms = bound(feat_bytes + 4 * (nk + pp), **flops)   # f32 vector in, out
+             else dict(f32_flops=e * (2 * fd + 8), exps=e))
+    b_ms = bound(feat_bytes + 4 * (nk + pp), **flops)  # f32 vector in, out
     mv, rmv = names
     return {mv: (k56.matvec_cuda, k56.matvec_plain, (fa, ctx.f_t, v, aug),
                  b_ms),
@@ -414,7 +439,8 @@ def config2(gt, dev, rows, launches, info):
         "affinity_strip": (k1.affinity_strip_cuda, k1.affinity_strip_plain,
                            (feats_a, ctx.feats_pad, torch.float32,
                             torch.bfloat16),
-                           bound(2 * e + 4 * d * (pp + n), 0, e * (2 * d + 5))),
+                           bound(2 * e + 4 * d * (pp + n), 0, e * (2 * d + 5),
+                                 e)),
         "strip_ext2": (k24.strip_ext2_cuda, k24.strip_ext2_plain,
                        (strip, t2, ctx.b_mask), bound(2 * e + vec, 0, 6 * e)),
         "strip_sandwich_spost": (k24.strip_sandwich_spost_cuda,
@@ -538,13 +564,34 @@ def config4(gt, dev, rows, launches, info):
                              nb),
                             bound(feat_bytes + 4 * nk * (5 + mk)
                                   + 4 * pp * (mk + 2),
-                                  2 * e * (fd + mk), 8 * e),
+                                  2 * e * (fd + mk), 8 * e, e),
                             colstats_scales(y)),
     }
     phase("config4", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
           f"N={n}, gram columns {sg}, V width {mk})", t0)
     run_cases(cases, rows)
-    del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm
+
+    # K8's u and s apart, u signed: tile entries that flip and another sum
+    # order scatter u both ways; an accumulation that rounds toward zero
+    # pulls every row of an all-positive u low
+    t0 = time.perf_counter()
+    (u_k, s_k), (u_p, s_p) = (f(*cases["ext2_matvec"][2]) for f in
+                              (k79.ext2_matvec_cuda, k79.ext2_matvec_plain))
+    r = ((u_k - u_p) / u_p.abs().clamp_min(1e-30))[:p]
+    u_diag = dict(u_rel=float((u_k - u_p).abs().max() / u_p.abs().max()),
+                  s_rel=float((s_k - s_p).abs().max() / s_p.abs().max()),
+                  u_row_rel_mean=float(r.mean()),
+                  u_row_rel_median=float(r.median()),
+                  u_rows_low=float((r < 0).float().mean()))
+    phase("kernel", f"ext2_matvec apart: u {u_diag['u_rel']:.3e}, s "
+          f"{u_diag['s_rel']:.3e} of max |plain|; u rows (kernel - plain) / "
+          f"plain: mean {u_diag['u_row_rel_mean']:.3e}, median "
+          f"{u_diag['u_row_rel_median']:.3e}, share below "
+          f"{u_diag['u_rows_low']:.4f}", t0)
+    require(0.05 < u_diag["u_rows_low"] < 0.95,
+            "ext2_matvec: u is biased to one side of its plain version")
+    info["ext2_matvec_apart"] = u_diag
+    del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm, u_k, s_k, u_p, s_p
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -762,7 +809,8 @@ def config4t(gt, dev, rows, launches, info):
         "colstats_v": (k79.colstats_v_cuda, k79.colstats_v_plain,
                        (ctx.fa_pad, ctx.f_t, gr, y, cols, na, nb),
                        bound(2 * fd * (pp + nk) + 4 * nk * (3 + mk)
-                             + 4 * pp * (mk + 1), 2 * e * (fd + mk), 6 * e),
+                             + 4 * pp * (mk + 1), 2 * e * (fd + mk), 6 * e,
+                             e),
                        colstats_scales(y)),
     }
     phase("config4t", f"turbo workload and layouts at {H8}x{W8} (p={p}, "
@@ -905,9 +953,18 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    global EXP_RATE
+    EXP_RATE = sms * MUFU_PER_CLOCK * clock_mhz * 1e6
     dev = torch.device("cuda", 0)
     phase("device", f"{torch.cuda.get_device_name(0)}; torch "
-          f"{torch.__version__} cuda {torch.version.cuda}; {card}")
+          f"{torch.__version__} cuda {torch.version.cuda}; {card}; "
+          f"{sms} SMs, max SM clock {clock_mhz:.0f} MHz, exp rate "
+          f"{EXP_RATE:.4e}/s")
 
     import graphlap_tpu_torch as gt
     from graphlap_tpu_torch.ops import _build
@@ -944,7 +1001,8 @@ def main() -> None:
                     library_ms=rows[name]["library_ms"]) for name in NAMES]
     total_s = time.perf_counter() - t_all
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, total_s=total_s, kernels=kernels,
+        card=card, sm_clock_max_mhz=clock_mhz, exp_rate=EXP_RATE,
+        build_s=build_s, total_s=total_s, kernels=kernels,
         rows=rows, runs_per_count=RUNS, torch=torch.__version__, **info),
         indent=1))
     phase("done", f"all phases passed in {total_s:.1f} s")

@@ -1,7 +1,8 @@
-// Helpers shared by the recompute kernels (recompute_sweeps.cu, K7-K9,
-// recompute_matvec.cu, K5/K6, and colstats_v.cu, K10): the bf16 tensor-core
-// instruction, bf16 packing and rounding, the aug-layout tile entry, cp.async
-// staging, the A fragment of a k-major feature matrix, and the fixed-order
+// Helpers shared by the recompute kernels (recompute_sweeps.cu, K7/K8,
+// recompute_matvec.cu, K5/K6, and colstats_v.cu, K9/K10): the bf16 tensor-core
+// instruction, bf16 packing and rounding, the aug-layout tile entry, ldmatrix
+// and movmatrix, cp.async staging, the A fragment of a k-major feature
+// matrix, and the fixed-order
 // reduction of per-block partials. Header-only: every source that includes it gets its own
 // copy inside an anonymous namespace (ops/_build.py hashes *.cuh with the
 // sources, so an edit here rebuilds).
@@ -57,6 +58,30 @@ __device__ __forceinline__ float kb_aug(float d2) { return rbf(kexp_aug(d2)); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices from shared memory: lane l gives the row address
+// of matrix l / 8, row l % 8; register q gets (row g; cols 2 tq, 2 tq + 1)
+// of matrix q
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the same, transposed: register q gets (rows 2 tq, 2 tq + 1; col g)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// an 8 x 8 bf16 matrix held one row pair a lane (row g, cols 2 tq, 2 tq + 1)
+// transposed in registers
+__device__ __forceinline__ uint32_t movt(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

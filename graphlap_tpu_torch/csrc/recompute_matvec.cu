@@ -65,14 +65,6 @@ constexpr int A_LDS = A_ST + 8;         // padded smem row: 272 B, ldmatrix conf
 constexpr int F_T = 128;                // f32: fixed entries a block, streamed a tile
 constexpr size_t F_SMEM = sizeof(float) * ((size_t)FD * F_T * 3 + 3 * F_T);
 
-// four 8 x 8 bf16 matrices, transposed: lane l gives the row address of
-// matrix l / 8, row l % 8; each register gets (row 2 tq, 2 tq + 1; col g)
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
 // columns [c0, c0 + tile) of a k-major (32, ld) matrix -> dst[k][0, tile)
 // (row stride lds elements), and w[c0, c0 + tile) -> wdst, by cp.async in
 // 16-byte chunks (8 bf16 or 4 f32); one commit group

@@ -1,57 +1,69 @@
-// K7-K9 — the recompute-streaming kernels of the fused-finish path: every
-// kernel tile k(p, j) = exp(-d2(f_Ap, f_j)) is recomputed from the bf16
-// features, never stored in device memory.
+// K7, K8 — the recompute-streaming kernels of the fused finish's first sweep
+// and of its Nystrom cross: every kernel tile k(p, j) = exp(-d2(f_Ap, f_j))
+// is recomputed from the bf16 features, never stored in device memory.
 //
 // Replaces graphlap_tpu/ops/pallas_streaming.py
-//   K7  kb_strip_pallas        (_kb_emit_kernel)
+//   K7  kb_strip_pallas     (_kb_emit_kernel), looped by gram_pallas
 //         out[p, j] = bf16(bf16(exp(-bf16(max(d2_aug, 0)))) * bf16(cols_j))
-//   K8  ext2_matvec_pallas     (_ext2_matvec_kernel), aug layout
+//   K8  ext2_matvec_pallas  (_ext2_matvec_kernel), aug layout
 //         kbt_j = k_j^T bf16([t_r, t_c]);  s_j = bm_j / sqrt(max(kbt_r kbt_c, 1e-30))
 //         u    += k_j s_j                          (k_j: bf16, s_j: f32)
-//   K9  finish_colstats_pallas (_finish_colstats_kernel), plain layout
-//         k_j   = bf16(exp(-max(na + nb_j - 2 cross, 0)))   (f32 exp)
-//         ks_j  = k_j^T bf16(t);  s_j = sqrt(s_pre_j / max(ks_j, 1e-30)) bm_j
-//         V_j   = bf16(k_j bf16(s_j))^T bf16(gr);  norms += V_j^2;  coeffs += y_j V_j
-// with the Pallas rounding points. d2 (aug) and cross (plain) come from
-// bf16 x bf16 tensor-core products with f32 accumulation (mma.sync
-// m16n8k16), the feature depth is 32 (d_pad_of / aug_d_pad_of of NLM d=25).
+// with the Pallas rounding points. d2 comes from the augmented bf16 x bf16
+// product with f32 accumulation (mma.sync m16n8k16); the feature depth is 32
+// (aug_d_pad_of of NLM d=25). K9 (finish_colstats) shares K10's kernel in
+// colstats_v.cu.
 //
-// What bounds them on an H100, at the 8 MP shape (p_pad 4096, N 8388608):
-// K8 and K9 each evaluate 3.4e10 tile entries, each one expf (a MUFU ex2
-// plus ~8 FP32 instructions) and ~10 more FP32 operations (bf16 rounding,
-// max, the column and row sums): ~2-4e11 FP32-pipe instructions, ~10-20 ms
-// at 132 SMs x 128 lanes x 1.98 GHz; the tensor-core work (2.2 TFLOP of d2,
-// K9's 4.4 TFLOP V product at m_pad 64) is ~2-7 ms at the bf16 peak, and
-// memory (features 0.5 GB, K9's V 2.1 GB) ~1 ms. They are bound by the
-// per-entry SIMT work. K7 emits 1.07 GB of bf16 (0.32 ms at 3.35 TB/s) for
-// 5.4e8 entries: bound by its store.
+// What bounds them on an H100. K8 at the 8 MP shape (p_pad 4096, N 8388608)
+// forms 3.4e10 tile entries. Evaluated one exp each, the MUFU ex2 rate (16 a
+// clock an SM) would give 8.2 ms at 132 SMs and 1.98 GHz; the entry needs
+// no exp (the table below), and one shared-memory load an entry (32 lanes
+// a clock an SM, without bank conflicts) gives 4.1 ms, as do 8 f32
+// operations an entry at the f32 peak; the tensor-core work (d2, kbt and u,
+// 2.2 TFLOP at K = 32 plus two K = 16 products) ~3 ms; the features 0.5 GB
+// ~0.2 ms. Measured, it runs latency-bound: the 128-register budget of 16
+// warps holds two tiles' fragments and u, and little else. K7 emits
+// 1.07 GB of bf16 (0.32 ms at 3.35 TB/s) for 5.4e8 entries: bound by its
+// store.
 //
-// Design of K8/K9. Each tile has two consumers that need the whole sample
-// column first (kbt / ks before s, s before u / V). A (4096 x tn) tile does
-// not fit one SM's 227 KB, and blocks run in no order, so the kernels run
-// in thread-block clusters of 8 (Hopper distributed shared memory):
-//   * block r of a cluster owns sample rows [r P/8, (r+1) P/8), keeps its
-//     feature rows in shared memory for the whole run, and computes its
-//     (tn x P/8) slice of each column tile ONCE: mma for d2 / cross, then the
-//     exp epilogue on the accumulator registers, the bf16 tile stored
-//     transposed ([j][p]) in shared memory;
-//   * the column sums (kbt, ks) are a second mma per block: the packed bf16
-//     tile fragments times [t_r, t_c] (K8) or t (K9) as a B operand padded
-//     with zeros (bf16 products are exact in f32, so only the f32 order
-//     differs from a SIMT sum), then summed across the cluster through
-//     distributed shared memory, every block adding the 8 partials in rank
-//     order, so all 8 get the same s;
-//   * K8's u stays in registers (one row a thread) across all tiles; K9's
-//     V partials (tn x m_pad) are summed across the cluster the same way,
-//     each block finishing tn/8 rows of V, norms and coeffs;
-//   * 16 warps a block (one block an SM: the features and the tile take
-//     most of its shared memory) to hide the exp chain's latency, and the
-//     next column tile's features load into registers while the current
-//     tile is finished;
-//   * clusters walk the column tiles in a fixed order, and every cross-
-//     cluster sum (u, norms, coeffs) goes through per-cluster partials and
-//     a fixed-order reduction kernel — no float atomics, so runs repeat
-//     bit for bit.
+// Design of K8. Each column needs kbt over the whole p before s, and s
+// before its u term, so the kernel runs in thread-block clusters of 8
+// (Hopper distributed shared memory), block r owning sample rows
+// [r P/8, (r+1) P/8) with their features in shared memory for the whole
+// run:
+//   * the entry bf16(exp(-bf16(max(d2, 0)))) depends on bf16(d2) alone, so
+//     each block first fills a 128 KB shared-memory table of all 65536 bf16
+//     patterns with the same expf; an entry is then one rounding of d2 (two
+//     at a time) and one table load, bit-identical to evaluating it;
+//   * 16 warps a block: 4 column groups of 16 columns x 4 row groups of
+//     P/32 rows of a 64-column tile. A warp computes its slice of d2 (A =
+//     the tile's f_t columns by ldmatrix.trans from a cp.async double
+//     buffer, B = fa rows by ldmatrix) and keeps the entries in registers as
+//     packed bf16 A fragments — the tile is never written to shared memory;
+//   * kbt is one more mma a 16-row block (the fragments times [t_r, t_c]
+//     as a zero-padded B operand); the four row groups' partials meet in
+//     shared memory in order, and the 8 ranks' through distributed shared
+//     memory, every rank summing them in the same fixed tree, so all 8 get
+//     the same s;
+//   * u is an mma too: the fragments, transposed in registers by movmatrix,
+//     times s split into three bf16 terms (hi + mid + lo = s to f32
+//     precision, so every product is exact in f32, as k_j * s_j is) in B
+//     columns 0-2. The mma starts each tile from zero and its result is
+//     added to the warp's u rows in registers by a rounding f32 add: the
+//     tensor core's own f32 accumulation rounds toward zero, and carried
+//     over the ~8192 tiles a cluster walks at 8 MP it put every row of the
+//     all-positive u 8e-4 low; the three terms are added once at the end;
+//   * the cluster barrier is split and overlapped: a rank arrives (release)
+//     once tile i's partial is out, and while it computes tile i + 1 it
+//     waits (acquire) halfway through and issues its loads of tile i's
+//     remote partials, which land behind the second half; then s, one block
+//     barrier, and tile i's u. Two tiles' fragments are alive, the rank
+//     partials triple-buffered, the per-warp partials and s double-buffered;
+//   * the kernel is a template on the warp's 16-row block count (P = 512 NB),
+//     so its register arrays and loops are fixed at compile time;
+//   * clusters walk the column tiles in a fixed stride order, and the
+//     cross-cluster u sum goes through per-cluster partials and a
+//     fixed-order reduction kernel — no float atomics, so runs repeat bit
+//     for bit.
 // K7 writes one (128 x 128) output tile a block: mma, the exp and scale
 // epilogue into shared memory, then 16-byte coalesced stores.
 //
@@ -68,11 +80,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CL = 8;        // blocks a cluster (sample-row slices)
 constexpr int FD = 32;       // feature depth
 constexpr int LDF = FD + 8;  // padded shared row stride of feature tiles (bf16)
-constexpr int X_TN = 128;    // K8 columns a tile
-constexpr int F_TN = 64;     // K9 columns a tile
 constexpr int E_TM = 128;    // K7 rows a block
 constexpr int E_TN = 128;    // K7 columns a block
 constexpr int E_LDO = E_TN + 8;
@@ -171,57 +180,51 @@ __global__ __launch_bounds__(THREADS) void kb_emit_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// the cluster kernels (K8, K9): 16 warps a block, and the next column
-// tile's features prefetched into registers while the current one is
-// finished
-// ---------------------------------------------------------------------------
-
-constexpr int C_THREADS = 512;
-
-// the (32, TN) f_t tile at column j0 as packed bf16 pairs (k 2kp, 2kp + 1),
-// ITEMS = 16 TN / C_THREADS a thread
-template <int TN>
-struct TilePrefetch {
-  static constexpr int ITEMS = (FD / 2) * TN / C_THREADS;
-  uint32_t v[ITEMS];
-  __device__ void load(const bf16* __restrict__ ft, size_t ld, int j0) {
-    const unsigned short* f = reinterpret_cast<const unsigned short*>(ft);
-#pragma unroll
-    for (int q = 0; q < ITEMS; ++q) {
-      const int i = threadIdx.x + q * C_THREADS, kp = i / TN, j = i % TN;
-      v[q] = (uint32_t)f[(size_t)(2 * kp) * ld + j0 + j] |
-             ((uint32_t)f[(size_t)(2 * kp + 1) * ld + j0 + j] << 16);
-    }
-  }
-  __device__ void store(bf16* s) const {     // -> s[j][k], stride LDF
-#pragma unroll
-    for (int q = 0; q < ITEMS; ++q) {
-      const int i = threadIdx.x + q * C_THREADS, kp = i / TN, j = i % TN;
-      *reinterpret_cast<uint32_t*>(s + j * LDF + 2 * kp) = v[q];
-    }
-  }
-};
-
-// rows [r0, r0 + rows) of a (*, 32) bf16 matrix -> s[row][k], stride LDF
-__device__ void load_rows_c(bf16* s, const bf16* __restrict__ m, int r0, int rows) {
-  for (int v = threadIdx.x; v < rows * 4; v += C_THREADS) {
-    const int r = v / 4, q = v % 4;
-    *reinterpret_cast<uint4*>(s + r * LDF + q * 8) =
-        *reinterpret_cast<const uint4*>(m + (size_t)(r0 + r) * FD + q * 8);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K8: extension + polish matvec (aug layout), clusters of 8
 // ---------------------------------------------------------------------------
 
-size_t ext2_smem(int P) {
-  const int rb = P / CL, ldk = rb + 8;
-  return (size_t)(rb + X_TN) * LDF * 2 + (size_t)X_TN * ldk * 2 +
-         sizeof(float) * ((size_t)rb + 4 * X_TN + 4 * X_TN + X_TN);
+constexpr int CL = 8;                    // blocks a cluster (sample-row slices)
+constexpr int X_THREADS = 512;
+constexpr int X_TN = 64;                 // columns a tile
+constexpr int X_CG = X_TN / 16;          // column groups of 16 (one warp each)
+constexpr int X_RG = X_THREADS / 32 / X_CG;  // row groups of a slice
+constexpr int X_LDT = X_TN + 8;          // ft_s row stride (bf16): conflict-free ldmatrix
+constexpr int X_LPP = X_THREADS / (2 * X_TN);  // threads a (column, r | c) pair of a tile
+static_assert(X_CG == 4 && X_RG == 4 && X_LPP * 2 == CL,
+              "the fixed-order sums below are written out for this shape");
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-__global__ __launch_bounds__(C_THREADS, 1) void ext2_matvec_kernel(
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the (32, X_TN) f_t tile at column j0 -> dst[k][j], stride X_LDT; one
+// cp.async commit group
+__device__ __forceinline__ void load_ft(bf16* dst, const bf16* __restrict__ ft, size_t ld,
+                                        int j0) {
+  const int c = threadIdx.x;
+  if (c < FD * (X_TN / 8)) {
+    const int k = c / (X_TN / 8), q = c % (X_TN / 8);
+    cp_async16(dst + k * X_LDT + q * 8, ft + (size_t)k * ld + j0 + q * 8);
+  }
+  cp_async_commit();
+}
+
+constexpr int KT_N = 65536;              // the entry table: every bf16 bit pattern of d2
+
+// shared memory of a block holding rb sample rows
+size_t ext2_smem(int P) {
+  const size_t rb = P / CL;
+  return sizeof(unsigned short) * KT_N +
+         sizeof(bf16) * (rb * LDF + 2 * FD * X_LDT + 2 * rb + 2 * 3 * X_TN) +
+         sizeof(float) * ((size_t)2 * X_RG * 2 * X_TN + 3 * 2 * X_TN + X_CG * rb);
+}
+
+template <int NB>   // 16-row blocks a warp: P = 512 NB
+__global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
     const bf16* __restrict__ fa,   // (P, 32) aug
     const bf16* __restrict__ ft,   // (32, N) aug
     const bf16* __restrict__ t2,   // (2, P), bf16-rounded
@@ -232,327 +235,222 @@ __global__ __launch_bounds__(C_THREADS, 1) void ext2_matvec_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
-  const int rb = P / CL, r0 = rank * rb, ldk = rb + 8;
+  const int rb = P / CL, r0 = rank * rb;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* fa_s = reinterpret_cast<bf16*>(smem);
-  bf16* ft_s = fa_s + rb * LDF;
-  bf16* kb_s = ft_s + X_TN * LDF;                         // [j][p]
-  bf16* t2_s = kb_s + X_TN * ldk;                         // [2][rb] bf16(t_r | t_c)
-  float* kbw_s = reinterpret_cast<float*>(t2_s) + rb;     // [2 halves][2][X_TN]
-  float* kbt_s = kbw_s + 4 * X_TN;                         // [2 bufs][2][X_TN]
-  float* s_s = kbt_s + 4 * X_TN;
+  unsigned short* kt_s = reinterpret_cast<unsigned short*>(smem);   // [KT_N] entry table
+  bf16* fa_s = reinterpret_cast<bf16*>(kt_s + KT_N);     // [rb][LDF]
+  bf16* ft_s = fa_s + rb * LDF;                          // [2][FD][X_LDT]
+  bf16* t2_s = ft_s + 2 * FD * X_LDT;                    // [2][rb] bf16(t_r | t_c)
+  bf16* s3_s = t2_s + 2 * rb;                            // [2 bufs][3][X_TN] s = hi + mid + lo
+  float* wq_s = reinterpret_cast<float*>(s3_s + 2 * 3 * X_TN);  // [2 bufs][X_RG][2][X_TN]
+  float* part_s = wq_s + 2 * X_RG * 2 * X_TN;            // [3 bufs][2][X_TN] rank partials
+  float* uw_s = part_s + 3 * 2 * X_TN;                   // [X_CG][rb]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
+  const int cgi = warp % X_CG, jb = cgi * 16;   // this warp's 16 columns of a tile
+  const int rg = warp / X_CG, rw = rg * NB * 16;  // and its first row of the slice
 
-  load_rows_c(fa_s, fa, r0, rb);
-  for (int i = tid; i < rb; i += C_THREADS) {
+  // the tile entry bf16(exp(-bf16(max(d2, 0)))) is a function of bf16(d2)
+  // alone: one table of all 65536 bit patterns (NaN patterns unused),
+  // computed with the same expf, so a lookup is bit-identical to kb_aug
+  for (int i = tid; i < KT_N; i += X_THREADS) {
+    const float d = __uint_as_float((uint32_t)i << 16);
+    kt_s[i] = (unsigned short)(__float_as_uint(d != d ? 0.f : kb_aug(d)) >> 16);
+  }
+  for (int v = tid; v < rb * (FD / 8); v += X_THREADS) {
+    const int r = v / (FD / 8), q = v % (FD / 8);
+    *reinterpret_cast<uint4*>(fa_s + r * LDF + q * 8) =
+        *reinterpret_cast<const uint4*>(fa + (size_t)(r0 + r) * FD + q * 8);
+  }
+  for (int i = tid; i < rb; i += X_THREADS) {
     t2_s[i] = t2[r0 + i];
     t2_s[rb + i] = t2[P + r0 + i];
   }
-  const bool owns = tid < rb;       // this thread's u row
-  float u = 0.f;
-  const int jb = (warp & 7) * 16;   // this warp's 16 columns of a tile
-  const int half = warp >> 3;       // and its half of the block's rows
-  const int nth = rb / 16;          // 8-row n-tiles a half
   const int ntiles = N / X_TN;
+  const int mine = (ntiles - cid + ncl - 1) / ncl;   // this cluster's tiles (>= 1)
+  auto col0 = [&](int i) { return (cid + i * ncl) * X_TN; };
+  // two entries from the packed bf16(d2) pair w, packed again
+  auto kent2 = [&](uint32_t w) -> uint32_t {
+    return (uint32_t)kt_s[w & 0xFFFFu] | ((uint32_t)kt_s[w >> 16] << 16);
+  };
 
-  TilePrefetch<X_TN> pre;
-  if (cid < ntiles) pre.load(ft, (size_t)N, cid * X_TN);
-  int it = 0;
-  for (int tile = cid; tile < ntiles; tile += ncl, ++it) {
-    const int j0 = tile * X_TN;
-    float* kbt = kbt_s + (it & 1) * 2 * X_TN;
-    __syncthreads();                       // the last tile's readers are done
-    pre.store(ft_s);
-    __syncthreads();
-    if (tile + ncl < ntiles) pre.load(ft, (size_t)N, (tile + ncl) * X_TN);
+  // the warp's slice of tile i -> packed bf16 A fragments (16 columns x
+  // 16 rows a block), and its kbt partial into wq_s; halfway runs once,
+  // halfway through the blocks
+  auto tile = [&](uint32_t (&F)[NB][4], int i, auto&& halfway) {
+    const bf16* fts = ft_s + (i & 1) * FD * X_LDT;
     uint32_t a0[4], a1[4];
-    frag_a(a0, ft_s, jb, 0, g, tq);
-    frag_a(a1, ft_s, jb, 16, g, tq);
-    // kbt on the tensor cores: the packed tile of two n-tiles (16 rows) is
-    // the A fragment of (16 columns x 16 rows) . (16 rows x [t_r, t_c, 0..])
+    const bf16* ap = fts + ((lane & 7) + 8 * (lane >> 4)) * X_LDT + jb + 8 * ((lane >> 3) & 1);
+    ldsm_x4_trans(a0, ap);
+    ldsm_x4_trans(a1, ap + 16 * X_LDT);
     float kt[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-    for (int np = half * (nth / 2); np < (half + 1) * (nth / 2); ++np) {
-      uint32_t a[4];
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int nt = 2 * np + h2;
-        uint32_t b0[2], b1[2];
-        frag_b(b0, fa_s, nt * 8, 0, g, tq);
-        frag_b(b1, fa_s, nt * 8, 16, g, tq);
+    for (int b = 0; b < NB; ++b) {
+      if (b == NB / 2) halfway();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t bq[4];
+        ldsm_x4(bq, fa_s + (rw + 16 * b + 8 * h + (lane & 7)) * LDF + 8 * (lane >> 3));
         float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816(c, a0, b0);
-        mma16816(c, a1, b1);
-        const int p = nt * 8 + 2 * tq;
-        a[2 * h2] = pack2(kb_aug(c[0]), kb_aug(c[1]));
-        a[2 * h2 + 1] = pack2(kb_aug(c[2]), kb_aug(c[3]));
-        *reinterpret_cast<uint32_t*>(kb_s + (jb + g) * ldk + p) = a[2 * h2];
-        *reinterpret_cast<uint32_t*>(kb_s + (jb + g + 8) * ldk + p) = a[2 * h2 + 1];
+        mma16816(c, a0, bq);
+        mma16816(c, a1, bq + 2);
+        F[b][2 * h] = kent2(pack2(c[0], c[1]));
+        F[b][2 * h + 1] = kent2(pack2(c[2], c[3]));
       }
-      const int p0 = np * 16 + 2 * tq;
-      uint32_t b[2];
-      b[0] = g < 2 ? ld32(t2_s + g * rb + p0) : 0u;
-      b[1] = g < 2 ? ld32(t2_s + g * rb + p0 + 8) : 0u;
-      mma16816(kt, a, b);
+      const int p0 = rw + 16 * b + 2 * tq;
+      uint32_t tb[2];
+      tb[0] = g < 2 ? ld32(t2_s + g * rb + p0) : 0u;
+      tb[1] = g < 2 ? ld32(t2_s + g * rb + p0 + 8) : 0u;
+      mma16816(kt, F[b], tb);
     }
     if (tq == 0) {   // kt: (column jb+g | jb+g+8) x (t_r | t_c)
-      float* w = kbw_s + half * 2 * X_TN;
+      float* w = wq_s + ((i & 1) * X_RG + rg) * 2 * X_TN;
       w[jb + g] = kt[0];
-      w[jb + g + 8] = kt[2];
       w[X_TN + jb + g] = kt[1];
+      w[jb + g + 8] = kt[2];
       w[X_TN + jb + g + 8] = kt[3];
     }
-    __syncthreads();
-    if (tid < 2 * X_TN) kbt[tid] = kbw_s[tid] + kbw_s[2 * X_TN + tid];  // halves in order
-    cluster.sync();                        // every block's partials are in
-    if (tid < X_TN) {
-      float kr = 0.f, kc = 0.f;
-      for (int r = 0; r < CL; ++r) {       // rank order: the same s everywhere
-        const float* rem = cluster.map_shared_rank(kbt, r);
-        kr += rem[tid];
-        kc += rem[X_TN + tid];
-      }
-      const float s = bm[j0 + tid] / sqrtf(fmaxf(kr * kc, EPS));
-      s_s[tid] = s;
-      if (rank == 0) s_out[j0 + tid] = s;
+  };
+  // the row groups' partials in order -> this rank's partial of tile i
+  auto combine = [&](int i) {
+    if (tid < 2 * X_TN) {
+      const float* w = wq_s + (i & 1) * X_RG * 2 * X_TN + tid;
+      part_s[(i % 3) * 2 * X_TN + tid] =
+          ((w[0] + w[2 * X_TN]) + w[4 * X_TN]) + w[6 * X_TN];
     }
-    __syncthreads();
-    if (owns) {
-#pragma unroll 8
-      for (int j = 0; j < X_TN; ++j)
-        u = fmaf(__bfloat162float(kb_s[j * ldk + tid]), s_s[j], u);
+  };
+  // tile i's partials of a rank pair (every thread: a column, r | c, and
+  // ranks 2 sub, 2 sub + 1), loaded after the cluster wait and used later
+  const int q = tid / X_LPP, sub = tid % X_LPP;
+  const int off = (q & 1) * X_TN + (q >> 1);
+  auto fetch = [&](int i, float& v0, float& v1) {
+    cluster_wait();                      // every rank's partial of tile i is in
+    const float* pk = part_s + (i % 3) * 2 * X_TN + off;
+    v0 = *cluster.map_shared_rank(pk, 2 * sub);
+    v1 = *cluster.map_shared_rank(pk, 2 * sub + 1);
+  };
+  // kbt over the 8 ranks in a fixed tree (the same on every rank), s, and
+  // its bf16 split into s3_s[i & 1]
+  auto scales = [&](int i, float v0, float v1, float bmv) {
+    float v = v0 + v1;
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    const float o = __shfl_xor_sync(0xffffffffu, v, X_LPP);   // the other of r | c
+    if (tid % (2 * X_LPP) == 0) {
+      const int col = q >> 1;
+      const float s = bmv / sqrtf(fmaxf(v * o, EPS));
+      if (rank == 0) s_out[col0(i) + col] = s;
+      bf16* s3 = s3_s + (i & 1) * 3 * X_TN;
+      const bf16 hi = __float2bfloat16_rn(s);
+      const float r1 = s - __bfloat162float(hi);
+      const bf16 mid = __float2bfloat16_rn(r1);
+      s3[col] = hi;
+      s3[X_TN + col] = mid;
+      s3[2 * X_TN + col] = __float2bfloat16_rn(r1 - __bfloat162float(mid));
     }
+  };
+  float U[NB][4];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) U[b][e] = 0.f;
+  // u += the fragments transposed in registers . [s_hi, s_mid, s_lo, 0..]:
+  // the tile's 16 products a row from a zero accumulator, then added to U
+  // with a rounding f32 add (the mma's own accumulation truncates, which
+  // over thousands of tiles biases an all-positive u low)
+  auto umma = [&](const uint32_t (&F)[NB][4], int i) {
+    const bf16* s3 = s3_s + (i & 1) * 3 * X_TN;
+    uint32_t sb[2];
+    sb[0] = g < 3 ? ld32(s3 + g * X_TN + jb + 2 * tq) : 0u;
+    sb[1] = g < 3 ? ld32(s3 + g * X_TN + jb + 8 + 2 * tq) : 0u;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const uint32_t at[4] = {movt(F[b][0]), movt(F[b][2]), movt(F[b][1]), movt(F[b][3])};
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma16816(c, at, sb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) U[b][e] += c[e];
+    }
+  };
+  // finish tile i (fragments Fc): its remote partials load while the warp
+  // computes the second half of tile i + 1 into Fn
+  auto step = [&](uint32_t (&Fc)[NB][4], uint32_t (&Fn)[NB][4], int i) {
+    const bool next = i + 1 < mine;
+    const float bmv = tid % (2 * X_LPP) == 0 ? bm[col0(i) + (q >> 1)] : 0.f;
+    float v0, v1;
+    if (next) {
+      if (i + 2 < mine) load_ft(ft_s + (i & 1) * FD * X_LDT, ft, (size_t)N, col0(i + 2));
+      tile(Fn, i + 1, [&] { fetch(i, v0, v1); });
+    } else {
+      fetch(i, v0, v1);
+    }
+    scales(i, v0, v1, bmv);
+    cp_async_wait_all();
+    __syncthreads();                     // wq_s, s3_s and the next f_t tile in
+    if (next) {
+      combine(i + 1);
+      cluster_arrive();                  // tile i + 1's partial is out
+    }
+    umma(Fc, i);
+  };
+
+  uint32_t F0[NB][4], F1[NB][4];
+  load_ft(ft_s, ft, (size_t)N, col0(0));
+  cp_async_wait_all();
+  __syncthreads();                       // the table, fa_s, t2_s, the first f_t tile in
+  if (mine > 1) load_ft(ft_s + FD * X_LDT, ft, (size_t)N, col0(1));
+  tile(F0, 0, [] {});
+  cp_async_wait_all();
+  __syncthreads();
+  combine(0);
+  cluster_arrive();
+  for (int i = 0; i < mine; i += 2) {
+    step(F0, F1, i);
+    if (i + 1 < mine) step(F1, F0, i + 1);
   }
-  if (owns) u_part[(size_t)cid * P + r0 + tid] = u;
-  cluster.sync();                          // no block leaves while read remotely
-}
 
-// ---------------------------------------------------------------------------
-// K9: polish rmatvec + scale update + V, norms, coeffs (plain layout)
-// ---------------------------------------------------------------------------
-
-size_t finish_smem(int P, int MP) {
-  const int rb = P / CL, ldk = rb + 8;
-  return (size_t)(rb + F_TN) * LDF * 2 + (size_t)(F_TN + MP) * ldk * 2 +
-         sizeof(bf16) * (size_t)rb +
-         sizeof(float) * ((size_t)rb + 4 * F_TN + F_TN + F_TN + (size_t)F_TN * MP);
-}
-
-__global__ __launch_bounds__(C_THREADS, 1) void finish_colstats_kernel(
-    const bf16* __restrict__ fa,     // (P, 32) plain
-    const bf16* __restrict__ ft,     // (32, N) aug superset
-    const bf16* __restrict__ t,      // (P) bf16-rounded
-    const float* __restrict__ s_pre, // (N)
-    const float* __restrict__ bm,    // (N)
-    const float* __restrict__ gr,    // (P, MP)
-    const float* __restrict__ y,     // (N)
-    const float* __restrict__ na,    // (P)
-    const float* __restrict__ nb,    // (N)
-    float* __restrict__ v_out,       // (N, MP)
-    float* __restrict__ s_out,       // (N)
-    float* __restrict__ part,        // (gridDim.x, 2, MP) norms, coeffs
-    int P, int N, int MP) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
-  const int rb = P / CL, r0 = rank * rb, ldk = rb + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* fa_s = reinterpret_cast<bf16*>(smem);
-  bf16* ft_s = fa_s + rb * LDF;
-  bf16* kb_s = ft_s + F_TN * LDF;                      // [j][p]
-  bf16* gr_s = kb_s + F_TN * ldk;                      // [m][p], bf16(gr)
-  bf16* t_s = gr_s + MP * ldk;                         // bf16(t)
-  float* na_s = reinterpret_cast<float*>(t_s + rb);
-  float* ksw_s = na_s + rb;                            // [4 quarters][F_TN]
-  float* ks_s = ksw_s + 4 * F_TN;                      // block partial ks
-  float* s_s = ks_s + F_TN;                            // bf16(s_new)
-  float* vp_s = s_s + F_TN;                            // [F_TN][MP] V partial
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;
-
-  load_rows_c(fa_s, fa, r0, rb);
-  for (int i = tid; i < rb; i += C_THREADS) {
-    t_s[i] = t[r0 + i];
-    na_s[i] = na[r0 + i];
-  }
-  for (int v = tid; v < rb * MP; v += C_THREADS) {
-    const int p = v / MP, m = v % MP;
-    gr_s[m * ldk + p] = __float2bfloat16_rn(gr[(size_t)(r0 + p) * MP + m]);
-  }
-  const int jb = (warp & 3) * 16;       // this warp's 16 columns of a tile
-  const int quarter = warp >> 2;        // and its quarter of p (or of m)
-  const int ntq = rb / 32;              // 8-row p n-tiles a quarter
-  const int ntm = MP / 8;               // 8-wide m n-tiles in all
-  const int rows_mine = F_TN / CL;      // V rows this block finishes a tile
-  const int items = rows_mine * MP;     // <= 512 (MP <= 64)
-  float nacc = 0.f, cacc = 0.f;
-  const int ntiles = N / F_TN;
-
-  TilePrefetch<F_TN> pre;
-  if (cid < ntiles) pre.load(ft, (size_t)N, cid * F_TN);
-  for (int tile = cid; tile < ntiles; tile += ncl) {
-    const int j0 = tile * F_TN;
-    __syncthreads();
-    pre.store(ft_s);
-    __syncthreads();
-    if (tile + ncl < ntiles) pre.load(ft, (size_t)N, (tile + ncl) * F_TN);
-    // cross -> k (f32 exp, bf16 tile) and the ks partial over this quarter
-    uint32_t a0[4], a1[4];
-    frag_a(a0, ft_s, jb, 0, g, tq);
-    frag_a(a1, ft_s, jb, 16, g, tq);
-    const float nb0 = nb[j0 + jb + g], nb1 = nb[j0 + jb + g + 8];
-    // ks on the tensor cores, as K8's kbt: (16 columns x 16 rows) . (16
-    // rows x [t, 0..])
-    float kt[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-    for (int np = quarter * (ntq / 2); np < (quarter + 1) * (ntq / 2); ++np) {
-      uint32_t a[4];
+  // u rows: hi + (mid + lo) (lo in the tq = 1 lane), column groups in order
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int nt = 2 * np + h2;
-        uint32_t b0[2], b1[2];
-        frag_b(b0, fa_s, nt * 8, 0, g, tq);
-        frag_b(b1, fa_s, nt * 8, 16, g, tq);
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816(c, a0, b0);
-        mma16816(c, a1, b1);
-        const int p = nt * 8 + 2 * tq;
-        const float n0 = na_s[p], n1 = na_s[p + 1];
-        a[2 * h2] = pack2(expf(-fmaxf(n0 + nb0 - 2.f * c[0], 0.f)),
-                          expf(-fmaxf(n1 + nb0 - 2.f * c[1], 0.f)));
-        a[2 * h2 + 1] = pack2(expf(-fmaxf(n0 + nb1 - 2.f * c[2], 0.f)),
-                              expf(-fmaxf(n1 + nb1 - 2.f * c[3], 0.f)));
-        *reinterpret_cast<uint32_t*>(kb_s + (jb + g) * ldk + p) = a[2 * h2];
-        *reinterpret_cast<uint32_t*>(kb_s + (jb + g + 8) * ldk + p) = a[2 * h2 + 1];
-      }
-      const int p0 = np * 16 + 2 * tq;
-      uint32_t b[2];
-      b[0] = g == 0 ? ld32(t_s + p0) : 0u;
-      b[1] = g == 0 ? ld32(t_s + p0 + 8) : 0u;
-      mma16816(kt, a, b);
+  for (int b = 0; b < NB; ++b) {
+    const float lo0 = __shfl_down_sync(0xffffffffu, U[b][0], 1);
+    const float lo8 = __shfl_down_sync(0xffffffffu, U[b][2], 1);
+    if (tq == 0) {
+      float* w = uw_s + cgi * rb + rw + 16 * b + g;
+      w[0] = U[b][0] + (U[b][1] + lo0);
+      w[8] = U[b][2] + (U[b][3] + lo8);
     }
-    if (tq == 0) {   // kt[0], kt[2]: ks of columns jb+g, jb+g+8
-      ksw_s[quarter * F_TN + jb + g] = kt[0];
-      ksw_s[quarter * F_TN + jb + g + 8] = kt[2];
-    }
-    __syncthreads();
-    if (tid < F_TN)                                   // quarters in order
-      ks_s[tid] = ((ksw_s[tid] + ksw_s[F_TN + tid]) + ksw_s[2 * F_TN + tid]) +
-                  ksw_s[3 * F_TN + tid];
-    cluster.sync();                                   // #1: ks partials in
-    if (tid < F_TN) {
-      float ks = 0.f;
-      for (int r = 0; r < CL; ++r) ks += cluster.map_shared_rank(ks_s, r)[tid];
-      const int j = j0 + tid;
-      const float s = sqrtf(s_pre[j] / fmaxf(ks, EPS)) * bm[j];
-      if (rank == 0) s_out[j] = s;
-      s_s[tid] = rbf(s);
-    }
-    __syncthreads();
-    // the tile scaled in place: kb_s[j][p] = bf16(k bf16(s_j))
-    for (int v = tid; v < F_TN * (rb / 2); v += C_THREADS) {
-      const int j = v / (rb / 2), pp = 2 * (v % (rb / 2));
-      uint32_t* w = reinterpret_cast<uint32_t*>(kb_s + j * ldk + pp);
-      const float2 x = unpack2(*w);
-      const float sj = s_s[j];
-      *w = pack2(x.x * sj, x.y * sj);
-    }
-    __syncthreads();
-    // V partial (F_TN x MP) = kb_s^T bf16(gr) over this block's rows;
-    // warp: 16 columns, m n-tiles quarter, quarter + 4
-    {
-      float acc[2][4];
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
-#pragma unroll 4
-      for (int k0 = 0; k0 < rb; k0 += 16) {
-        uint32_t a[4];
-        a[0] = ld32(kb_s + (jb + g) * ldk + k0 + 2 * tq);
-        a[1] = ld32(kb_s + (jb + g + 8) * ldk + k0 + 2 * tq);
-        a[2] = ld32(kb_s + (jb + g) * ldk + k0 + 8 + 2 * tq);
-        a[3] = ld32(kb_s + (jb + g + 8) * ldk + k0 + 8 + 2 * tq);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int nt = quarter + 4 * q;
-          if (nt < ntm) {
-            uint32_t b[2];
-            b[0] = ld32(gr_s + (nt * 8 + g) * ldk + k0 + 2 * tq);
-            b[1] = ld32(gr_s + (nt * 8 + g) * ldk + k0 + 8 + 2 * tq);
-            mma16816(acc[q], a, b);
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int nt = quarter + 4 * q;
-        if (nt < ntm) {
-          const int m = nt * 8 + 2 * tq;
-          vp_s[(jb + g) * MP + m] = acc[q][0];
-          vp_s[(jb + g) * MP + m + 1] = acc[q][1];
-          vp_s[(jb + g + 8) * MP + m] = acc[q][2];
-          vp_s[(jb + g + 8) * MP + m + 1] = acc[q][3];
-        }
-      }
-    }
-    cluster.sync();                                   // #2: V partials in
-    // this block finishes V rows [rank rows_mine, (rank + 1) rows_mine)
-    if (tid < items) {
-      const int jl = rank * rows_mine + tid / MP, m = tid % MP;
-      float val = 0.f;
-      for (int r = 0; r < CL; ++r) val += cluster.map_shared_rank(vp_s, r)[jl * MP + m];
-      const int j = j0 + jl;
-      v_out[(size_t)j * MP + m] = val;
-      nacc = fmaf(val, val, nacc);
-      cacc = fmaf(y[j], val, cacc);
-    }
-  }
-  cluster.sync();             // remote reads of vp_s are over; reuse it
-  // block partial norms / coeffs: item v holds column v % MP, summed over
-  // v / MP in order
-  if (tid < items) {
-    vp_s[tid] = nacc;
-    vp_s[items + tid] = cacc;
   }
   __syncthreads();
-  if (tid < MP) {
-    float ns = 0.f, co = 0.f;
-    for (int r = 0; r < rows_mine; ++r) {
-      ns += vp_s[r * MP + tid];
-      co += vp_s[items + r * MP + tid];
-    }
-    part[(size_t)blockIdx.x * 2 * MP + tid] = ns;
-    part[(size_t)blockIdx.x * 2 * MP + MP + tid] = co;
+  if (tid < rb)
+    u_part[(size_t)cid * P + r0 + tid] =
+        ((uw_s[tid] + uw_s[rb + tid]) + uw_s[2 * rb + tid]) + uw_s[3 * rb + tid];
+  cluster.sync();                        // no block leaves while read remotely
+}
+
+// K8's kernel for P sample rows (P = 512 NB, NB in 1..8), or null
+typedef void (*ext2_fn)(const bf16*, const bf16*, const bf16*, const float*, float*, float*,
+                        int, int);
+ext2_fn ext2_kernel(int P) {
+  switch (P / (CL * X_RG * 16)) {
+    case 1: return ext2_matvec_kernel<1>;
+    case 2: return ext2_matvec_kernel<2>;
+    case 3: return ext2_matvec_kernel<3>;
+    case 4: return ext2_matvec_kernel<4>;
+    case 5: return ext2_matvec_kernel<5>;
+    case 6: return ext2_matvec_kernel<6>;
+    case 7: return ext2_matvec_kernel<7>;
+    case 8: return ext2_matvec_kernel<8>;
+    default: return nullptr;
   }
 }
 
-template <typename K>
-int cluster_count(K kernel, size_t smem, int* out) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, 1, 1);
-  cfg.blockDim = dim3(C_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaOccupancyMaxActiveClusters(out, (void*)kernel, &cfg);
-  return static_cast<int>(e);
-}
-
+// the launch of `clusters` 8-block K8 clusters (attr: storage for the
+// cluster-dimension attribute the config points to)
 cudaLaunchConfig_t cluster_cfg(int clusters, size_t smem, cudaStream_t s,
                                cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CL * clusters, 1, 1);
-  cfg.blockDim = dim3(C_THREADS, 1, 1);
+  cfg.blockDim = dim3(X_THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -583,29 +481,37 @@ int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// how many 8-block clusters of K8 (which=0) / K9 (which=1) fit the card at
-// once; a negative value is a cudaError
-int glt_recompute_clusters(int which, int P, int MP) {
-  int n = 0, rc;
-  if (which == 0)
-    rc = cluster_count(ext2_matvec_kernel, ext2_smem(P), &n);
-  else
-    rc = cluster_count(finish_colstats_kernel, finish_smem(P, MP), &n);
-  return rc != 0 ? -rc : n;
+// how many 8-block K8 clusters for P sample rows fit the card at once; a
+// negative value is a cudaError
+int glt_ext2_clusters(int P) {
+  const ext2_fn kernel = ext2_kernel(P);
+  if (kernel == nullptr || P % (CL * X_RG * 16)) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ext2_smem(P);
+  cudaError_t e = cudaFuncSetAttribute(kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(1, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  return e != cudaSuccess ? -static_cast<int>(e) : n;
 }
 
-// K8. P % 128 == 0, N % 128 == 0; u_part holds (clusters, P) floats.
+// K8. P % 512 == 0, P <= 4096, N % 64 == 0, 1 <= clusters <= N / 64 (the
+// wrapper checks); u_part holds (clusters, P) floats.
 int glt_ext2_matvec(const void* fa, const void* ft, const void* t2, const void* bm,
                     void* s_out, void* u_part, void* u, int P, int N, int clusters,
                     void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const ext2_fn kernel = ext2_kernel(P);
+  if (kernel == nullptr || P % (CL * X_RG * 16)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ext2_smem(P);
-  cudaError_t e = cudaFuncSetAttribute(ext2_matvec_kernel,
+  cudaError_t e = cudaFuncSetAttribute(kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_cfg(clusters, smem, s, attr);
-  e = cudaLaunchKernelEx(&cfg, ext2_matvec_kernel, static_cast<const bf16*>(fa),
+  const cudaLaunchConfig_t cfg = cluster_cfg(clusters, smem, s, attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(fa),
                          static_cast<const bf16*>(ft), static_cast<const bf16*>(t2),
                          static_cast<const float*>(bm), static_cast<float*>(s_out),
                          static_cast<float*>(u_part), P, N);
@@ -614,34 +520,6 @@ int glt_ext2_matvec(const void* fa, const void* ft, const void* t2, const void* 
   if (e != cudaSuccess) return static_cast<int>(e);
   return launch_reduce(static_cast<const float*>(u_part), static_cast<float*>(u), clusters,
                        (size_t)P, s);
-}
-
-// K9. P % 128 == 0, N % 64 == 0, MP in {16, 32, 48, 64}; part holds
-// (8 clusters, 2, MP) floats, norms_coeffs (2, MP).
-int glt_finish_colstats(const void* fa, const void* ft, const void* t, const void* s_pre,
-                        const void* bm, const void* gr, const void* y, const void* na,
-                        const void* nb, void* v_out, void* s_out, void* part,
-                        void* norms_coeffs, int P, int N, int MP, int clusters,
-                        void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = finish_smem(P, MP);
-  cudaError_t e = cudaFuncSetAttribute(finish_colstats_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = cluster_cfg(clusters, smem, s, attr);
-  e = cudaLaunchKernelEx(&cfg, finish_colstats_kernel, static_cast<const bf16*>(fa),
-                         static_cast<const bf16*>(ft), static_cast<const bf16*>(t),
-                         static_cast<const float*>(s_pre), static_cast<const float*>(bm),
-                         static_cast<const float*>(gr), static_cast<const float*>(y),
-                         static_cast<const float*>(na), static_cast<const float*>(nb),
-                         static_cast<float*>(v_out), static_cast<float*>(s_out),
-                         static_cast<float*>(part), P, N, MP);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_reduce(static_cast<const float*>(part), static_cast<float*>(norms_coeffs),
-                       CL * clusters, (size_t)2 * MP, s);
 }
 
 }  // extern "C"

@@ -27,11 +27,12 @@ values; f32 layouts keep f32 throughout.
 
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
-on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu``, which takes
-the bf16 layouts the main path builds: aug for K7/K8, plain for K9, 32
-feature lanes. f32 layouts and the plain-layout K7/K8 raise
-``NotImplementedError`` on CUDA (ROADMAP.md Queue 2); there is no fallback
-from a kernel to its plain version.
+on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
+``csrc/colstats_v.cu`` (K10's V pass; K9 is a ks pass over all of p, then
+the same V pass with c = s), which take the bf16 layouts the main path
+builds: aug for K7/K8, plain for K9/K10, 32 feature lanes. f32 layouts and
+the plain-layout K7/K8 raise ``NotImplementedError`` on CUDA (ROADMAP.md
+Queue 2); there is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -45,11 +46,11 @@ from .recompute_layout import FINISH_EPS, _require_whole_p
 from .streaming import _chunks
 
 PLAIN_CHUNK = 16384       # columns a step of the plain versions
-P_QUANTUM = 256           # fa rows: 8 cluster slices, 4 warp quarters of 8
+P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
 FD = 32                   # feature depth of the kernels
-X_TN, F_TN, E_TN = 128, 64, 128   # K8, K9, K7 column tiles (csrc)
+X_TN, E_TN = 64, 128      # K8, K7 column tiles (csrc); K8 holds p_pad <= 4096
 MP_MAX = 64               # widest V a K9 / K10 launch holds
-C_TN = 256                # K10 column tile (csrc)
+C_TN = 256                # K9 / K10 column tile (csrc)
 # K7 columns a launch: the kb buffer of one superblock is (p_pad, GRAM_SUPER)
 # bf16, 1.07 GB at p_pad 4096, so the gc64 gram at 8 MP (131072 sampled
 # columns) stays one launch and gram_coarse = 1 (8.4M columns) does not
@@ -194,10 +195,12 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).contiguous()
 
 
-def _clusters(which: int, p: int, mp: int, tiles: int, what: str) -> int:
-    n = _build.lib().glt_recompute_clusters(which, p, mp)
+def _clusters(p: int, tiles: int) -> int:
+    """K8's persistent grid: as many 8-block clusters as fit the card, at
+    most one a column tile."""
+    n = _build.lib().glt_ext2_clusters(p)
     if n <= 0:
-        _build.check(-n if n < 0 else 1, f"{what}: no cluster fits the card")
+        _build.check(-n if n < 0 else 1, "ext2_matvec: no cluster fits the card")
     return min(n, tiles)
 
 
@@ -257,7 +260,7 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False):
     if n % X_TN:
         raise ValueError(f"ext2_matvec: n {n} must be a multiple of {X_TN}")
     dev = fa.device
-    clusters = _clusters(0, p, 0, n // X_TN, "ext2_matvec")
+    clusters = _clusters(p, n // X_TN)
     t2b, bmf = _bf16(t2), _f32(bm)
     s = torch.empty(n, dtype=_F32, device=dev)
     u_part = torch.empty((clusters, p), dtype=_F32, device=dev)
@@ -271,55 +274,45 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False):
     return u, s
 
 
-def _finish_launch(fa, f_t, tb, vecs, mp, clusters):
-    p, n = fa.shape[0], f_t.shape[1]
-    dev = fa.device
-    v = torch.empty((n, mp), dtype=_F32, device=dev)
-    s = torch.empty(n, dtype=_F32, device=dev)
-    part = torch.empty((8 * clusters, 2, mp), dtype=_F32, device=dev)
-    nc = torch.empty((2, mp), dtype=_F32, device=dev)
-    rc = _build.lib().glt_finish_colstats(
-        fa.data_ptr(), f_t.data_ptr(), tb.data_ptr(),
-        *[x.data_ptr() for x in vecs], v.data_ptr(), s.data_ptr(),
-        part.data_ptr(), nc.data_ptr(), p, n, mp, clusters,
-        _build.stream_ptr(fa))
-    _build.check(rc, "finish_colstats")
-    finish_colstats_cuda.launches += 1
-    return v, nc[0], nc[1], s
-
-
 def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb):
     """((p_pad, 32) plain, (32, n) aug superset, (p_pad,), (n,), (n,),
     (p_pad, m_pad), (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,),
     coeffs (m_pad,), s (n,)), all f32. A gr wider than MP_MAX runs one
-    launch per MP_MAX columns (each recomputes the tile)."""
+    launch per MP_MAX columns, each recomputing the tile: the first sweeps
+    p for ks and s, the others take bf16(s) from it, so s is computed
+    once. Any p_pad that is a multiple of P_QUANTUM: no column needs the
+    whole p in one block."""
     if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
         return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
     _check_layout(fa, f_t, "finish_colstats", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
-    _require_whole_p(p, "finish_colstats")
     _check_vecs("finish_colstats", t=(t, (p,)), s_pre=(s_pre, (n,)),
                 bm=(bm, (n,)), gr=(gr, (p, mp)), y=(y, (n,)), na=(na, (p,)),
                 nb=(nb, (n,)))
-    if mp % 16 or not 16 <= mp <= 128:
-        raise ValueError(f"finish_colstats: gr width {mp} must be a multiple "
-                         f"of 16 in [16, 128]")
-    if n % F_TN:
-        raise ValueError(f"finish_colstats: n {n} must be a multiple of "
-                         f"{F_TN}")
-    tb = _bf16(t)
-    s_pre, bm, y, na, nb = (_f32(x) for x in (s_pre, bm, y, na, nb))
-    outs = []
-    for m0 in range(0, mp, MP_MAX):
-        g = _f32(gr[:, m0:m0 + MP_MAX])
-        clusters = _clusters(1, p, g.shape[1], n // F_TN, "finish_colstats")
-        outs.append(_finish_launch(fa, f_t, tb, (s_pre, bm, g, y, na, nb),
-                                   g.shape[1], clusters))
+    _check_v_shapes("finish_colstats", mp, n)
+    y, na, nb = (_f32(x) for x in (y, na, nb))
+    finish = (_bf16(t), _f32(s_pre), _f32(bm))
+    grts = [_bf16(gr[:, m0:m0 + MP_MAX].T) for m0 in range(0, mp, MP_MAX)]
+    v, norms, coeffs, s, cb = _v_launch(fa, f_t, grts[0], y, na, nb,
+                                        finish=finish)
+    finish_colstats_cuda.launches += 1
+    outs = [(v, norms, coeffs)]
+    for grt in grts[1:]:     # s once: the other V column blocks scale by it
+        outs.append(_v_launch(fa, f_t, grt, y, na, nb, cb=cb)[:3])
+        finish_colstats_cuda.launches += 1
     if len(outs) == 1:
-        return outs[0]
-    v, norms, coeffs, s = zip(*outs)
-    return (torch.cat(v, dim=1), torch.cat(norms), torch.cat(coeffs), s[0])
+        return v, norms, coeffs, s
+    v, norms, coeffs = zip(*outs)
+    return torch.cat(v, dim=1), torch.cat(norms), torch.cat(coeffs), s
+
+
+def _check_v_shapes(what: str, mp: int, n: int) -> None:
+    if mp % 16 or not 16 <= mp <= 2 * MP_MAX:
+        raise ValueError(f"{what}: gr width {mp} must be a multiple of 16 in "
+                         f"[16, {2 * MP_MAX}]")
+    if n % C_TN:
+        raise ValueError(f"{what}: n {n} must be a multiple of {C_TN}")
 
 
 def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb):
@@ -335,43 +328,55 @@ def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb):
     mp = gr.shape[1]
     _check_vecs("colstats_v", gr=(gr, (p, mp)), y=(y, (n,)),
                 cols=(cols, (n,)), na=(na, (p,)), nb=(nb, (n,)))
-    if mp % 16 or not 16 <= mp <= 128:
-        raise ValueError(f"colstats_v: gr width {mp} must be a multiple of "
-                         f"16 in [16, 128]")
-    if n % C_TN:
-        raise ValueError(f"colstats_v: n {n} must be a multiple of {C_TN}")
+    _check_v_shapes("colstats_v", mp, n)
     cb = _bf16(cols)
     y, na, nb = (_f32(x) for x in (y, na, nb))
-    outs = [_colstats_launch(fa, f_t, _bf16(gr[:, m0:m0 + MP_MAX].T), cb, y,
-                             na, nb)
-            for m0 in range(0, mp, MP_MAX)]
+    outs = []
+    for m0 in range(0, mp, MP_MAX):
+        outs.append(_v_launch(fa, f_t, _bf16(gr[:, m0:m0 + MP_MAX].T), y, na,
+                              nb, cb=cb)[:3])
+        colstats_v_cuda.launches += 1
     if len(outs) == 1:
         return outs[0]
     v, norms, coeffs = zip(*outs)
     return torch.cat(v, dim=1), torch.cat(norms), torch.cat(coeffs)
 
 
-def _colstats_launch(fa, f_t, grt, cb, y, na, nb):
+def _v_launch(fa, f_t, grt, y, na, nb, cb=None, finish=None):
+    """One launch of the V pass (``csrc/colstats_v.cu``) for a bf16(gr)^T
+    block of at most MP_MAX rows: K10's with the column scale ``cb`` =
+    bf16(c), or K9's with ``finish`` = (bf16(t), s_pre, bm), whose ks pass
+    first sweeps p for s and bf16(s). -> (V, norms, coeffs, s, bf16(s)),
+    the last two None for K10."""
     w, p = grt.shape
     n = f_t.shape[1]
+    ks = finish is not None
+    what = "finish_colstats" if ks else "colstats_v"
     lib = _build.lib()
     blocks = lib.glt_colstats_v_blocks(w)
     if blocks <= 0:
         _build.check(-blocks if blocks < 0 else 1,
-                     "colstats_v: no block fits the card")
+                     f"{what}: no block fits the card")
     blocks = min(blocks, n // C_TN)
     dev = fa.device
     v = torch.empty((n, w), dtype=_F32, device=dev)
     part = torch.empty((blocks, 2, w), dtype=_F32, device=dev)
     nc = torch.empty((2, w), dtype=_F32, device=dev)
-    rc = lib.glt_colstats_v(fa.data_ptr(), f_t.data_ptr(), grt.data_ptr(),
-                            cb.data_ptr(), y.data_ptr(), na.data_ptr(),
-                            nb.data_ptr(), v.data_ptr(), part.data_ptr(),
-                            nc.data_ptr(), p, n, w, blocks,
-                            _build.stream_ptr(fa))
-    _build.check(rc, "colstats_v")
-    colstats_v_cuda.launches += 1
-    return v, nc[0], nc[1]
+    ptrs = [fa.data_ptr(), f_t.data_ptr(), grt.data_ptr()]
+    vecs = [y.data_ptr(), na.data_ptr(), nb.data_ptr(), v.data_ptr()]
+    tail = [part.data_ptr(), nc.data_ptr(), p, n, w, blocks,
+            _build.stream_ptr(fa)]
+    s = None
+    if ks:
+        s = torch.empty(n, dtype=_F32, device=dev)
+        cb = torch.empty(n, dtype=torch.bfloat16, device=dev)
+        rc = lib.glt_finish_colstats(*ptrs, *[x.data_ptr() for x in finish],
+                                     *vecs, s.data_ptr(), cb.data_ptr(), *tail)
+    else:
+        rc = lib.glt_colstats_v(*ptrs, cb.data_ptr(), *vecs, *tail)
+        cb = None
+    _build.check(rc, what)
+    return v, nc[0], nc[1], s, cb
 
 
 kb_strip_cuda.launches = 0

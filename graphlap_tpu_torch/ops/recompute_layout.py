@@ -73,8 +73,10 @@ def m_pad_of(m: int) -> int:
 
 
 def _require_whole_p(p_pad: int, name: str) -> None:
-    """The fused-finish kernels hold every sample row of a column tile at
-    once, so a tile's two consumers share it without recomputing it."""
+    """The reference's whole-p bound of the fused finish: its kernels, and
+    the port's K8 (its cluster holds every sample row of a column tile, so
+    the tile's two consumers share it without recomputing it), take
+    p_pad <= MAX_TILE_P."""
     if p_pad > MAX_TILE_P:
         raise ValueError(
             f"{name} needs p_pad <= {MAX_TILE_P} (whole-p tile), got "

@@ -49,8 +49,8 @@ sys.path.insert(0, str(ROOT))
 GROUPS = (
     ("port kernels", r"affinity_kernel|ext2_kernel|sandwich_p[12]_kernel|"
                      r"kb_emit_kernel|ext2_matvec_kernel|"
-                     r"finish_colstats_kernel|aug_sum_kernel|f32_sum_kernel|"
-                     r"colstats_v_kernel|reduce_partials"),
+                     r"aug_sum_kernel|f32_sum_kernel|"
+                     r"colstats_v_kernel|ks_kernel|reduce_partials"),
     ("cuSOLVER / small dense algebra",
      r"syevd|syevj|jacobi|potrf|potrs|trsm|trsv|geqrf|orgqr|orgbr|ormqr|"
      r"gesvd|gebrd|bdsqr|lansy|sytrd|stedc|steqr|larf|laswp|cusolver|"

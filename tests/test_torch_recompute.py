@@ -556,10 +556,86 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
         k79.ext2_matvec_cuda(*f32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         k79.kb_strip_cuda(x.fa_pad, x.f_t, torch.ones(1024), False)
-    with pytest.raises(ValueError, match="multiple of 256"):
+    with pytest.raises(ValueError, match="multiple of 512"):
         k79.ext2_matvec_cuda(x.fa_aug[:100], x.f_t, torch.ones((2, 100)),
                              torch.ones(1024), True)
     assert _counts() == before
+
+
+def _guard_case(which, p_pad=512, n=1024, m=16):
+    """Arguments of K8 (which 0) or K9 (which 1) at the given shapes."""
+    bf = torch.bfloat16
+    fa, f_t = torch.zeros((p_pad, 32), dtype=bf), torch.zeros((32, n), dtype=bf)
+    if which == 0:
+        return k79.ext2_matvec_cuda, (fa, f_t, torch.ones((2, p_pad)),
+                                      torch.ones(n), True)
+    return k79.finish_colstats_cuda, (fa, f_t, torch.ones(p_pad), torch.ones(n),
+                                      torch.ones(n), torch.ones((p_pad, m)),
+                                      torch.ones(n), torch.ones(p_pad),
+                                      torch.ones(n))
+
+
+@pytest.mark.parametrize("which,shape,err,match", [
+    (0, dict(p_pad=256), ValueError, "multiple of 512"),
+    (0, dict(p_pad=8192), ValueError, "whole-p"),
+    (0, dict(n=1056), ValueError, "multiple of 64"),
+    (1, dict(p_pad=256), ValueError, "multiple of 512"),
+    (1, dict(n=1088), ValueError, "multiple of 256"),
+    (1, dict(m=20), ValueError, "multiple of 16"),
+    (1, dict(m=144), ValueError, "multiple of 16"),
+    # K9 holds no whole-p tile: p_pad 8192 passes its guards and reaches the
+    # (here missing) kernel library
+    (1, dict(p_pad=8192), RuntimeError, "unavailable"),
+    (0, dict(p_pad=4096, n=64), RuntimeError, "unavailable"),
+], ids=["k8-p256", "k8-p8192", "k8-n1056", "k9-p256", "k9-n1088", "k9-m20",
+        "k9-m144", "k9-p8192", "k8-p4096"])
+def test_kernel_shape_guards_raise_before_a_launch(monkeypatch, which, shape,
+                                                   err, match):
+    """The new tiles' shape guards (K8: p_pad % 512, p_pad <= 4096, n % 64;
+    K9: p_pad % 512, n % 256, V width) raise before the library is asked
+    for anything."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k79, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    fn, args = _guard_case(which, **shape)
+    before = _counts()
+    with pytest.raises(err, match=match):
+        fn(*args)
+    assert _counts() == before
+
+
+def _c_signatures():
+    """{name: (return kind, [argument kinds])} of every ``glt_*`` entry point
+    in csrc/*.cu, each kind one of "p" (pointer), "i" (int), "z" (size_t)."""
+    import re
+    kind = lambda t: ("p" if "*" in t else "z" if "size_t" in t  # noqa: E731
+                      else "i")
+    sigs = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for ret, name, args in re.findall(
+                r'^(?:extern "C" )?(int|size_t) (glt_\w+)\(([^)]*)\)\s*\{',
+                text, re.M):
+            sigs[name] = (kind(ret), [kind(a) for a in args.split(",")])
+    return sigs
+
+
+def test_build_argtypes_match_the_c_signatures():
+    """ctypes passes every argument as _build declares it: a pointer or a
+    size_t declared as an int would be cut to 32 bits, so the declared
+    argtypes must match the C entry points one for one."""
+    import ctypes
+    kind = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_size_t: "z"}
+    sigs = _c_signatures()
+    assert set(sigs) == set(_build._SIGNATURES)
+    for name, (args, res) in _build._SIGNATURES.items():
+        assert sigs[name] == (kind[res], [kind[a] for a in args]), name
+    # the redesigned K8 / K9 entry points
+    assert sigs["glt_ext2_clusters"] == ("i", ["i"])
+    assert sigs["glt_colstats_v_blocks"] == ("i", ["i"])
+    assert "glt_recompute_clusters" not in sigs
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
@@ -660,3 +736,67 @@ def test_recompute_slice_on_card_matches_cpu_plain(img_noisy):
     z_gpu, z_cpu = z_gpu.cpu().numpy(), z_cpu.numpy()
     np.testing.assert_allclose(z_gpu, z_cpu, atol=2e-2)
     assert abs(gt.psnr(img, z_gpu) - gt.psnr(img, z_cpu)) <= 0.05
+
+
+def _fused_inputs(dev, p, n, m, seed):
+    """K8 / K9 operands at (p rows padded to p_pad, n columns, V width m)
+    from a seeded generator, as the fused finish builds them."""
+    rng = np.random.default_rng(seed)
+    tt = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    fa = tt(rng.normal(0, 0.3, (p, 25)))
+    fp = tt(rng.normal(0, 0.3, (n, 25)))
+    fa_aug, f_t = rl.aug_pads(fa, fp, n)
+    p_pad = fa_aug.shape[0]
+    fa_pad = torch.zeros_like(fa_aug)
+    fa_pad[:p, :25] = fa.to(torch.bfloat16)
+    bm = tt(rng.random(n) > 0.2)
+    t2 = torch.zeros((2, p_pad), device=dev)
+    t2[:, :p] = tt(rng.uniform(0.5, 1.5, (2, p)))
+    gr = torch.zeros((p_pad, tms._m_kernel(m)), device=dev)
+    gr[:p, :m] = tt(rng.normal(size=(p, m)))
+    na = torch.zeros(p_pad, device=dev)
+    na[:p] = torch.sum(fa * fa, dim=1)
+    k8 = (fa_aug, f_t, t2, bm, True)
+    k9 = (fa_pad, f_t, t2[0].contiguous(), bm * 0.7, bm, gr,
+          tt(rng.normal(size=n)), na, torch.sum(fp * fp, dim=1))
+    return k8, k9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n,m", [(4000, 77056, 128), (1000, 33024, 16)],
+                         ids=["p4096-m128", "p1024-m16"])
+def test_k8_k9_repeat_bit_for_bit(cuda_device, p, n, m):
+    """Two launches of the redesigned K8 and K9 agree bit for bit (no float
+    atomics; every cross-block sum in a fixed order), at p_pad 4096
+    (MAX_TILE_P) and 1024, with column-tile counts (K8: n / 64 = 1204 and
+    516, K9: n / 256 = 301 and 129) that do not divide evenly over the
+    persistent grids; m = 128 is two K9 launches, and s is computed once
+    (the second V block equals K10's with c = s, bit for bit)."""
+    k8, k9 = _fused_inputs(cuda_device, p, n, m, seed=p + n)
+    before = _counts()
+    got = [k79.ext2_matvec_cuda(*k8) for _ in range(2)]
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    ref = k79.ext2_matvec_plain(*k8)
+    assert max(map(_rel_err, got[0], ref)) <= 2e-2
+    got = [k79.finish_colstats_cuda(*k9) for _ in range(2)]
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    # the reference's 5e-3 bar, as in test_k7_k9_kernels_match_plain
+    ref = k79.finish_colstats_plain(*k9)
+    errs = [_rel_err(g, r) for g, r in zip(got[0], ref)]
+    print(f"K9 vs plain (V, norms, coeffs, s) at p {p}, n {n}, m {m}: {errs}")
+    assert max(errs) <= 5e-3
+    launches = 2 * (-(-k9[5].shape[1] // k79.MP_MAX))
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 2, launches]
+    if m > k79.MP_MAX:
+        v, norms, coeffs, s = got[0]
+        fa_pad, f_t, _, _, _, gr, y, na, nb = k9
+        head = k79.finish_colstats_cuda(*k9[:5], gr[:, :k79.MP_MAX].contiguous(),
+                                        *k9[6:])
+        assert torch.equal(head[3], s) and torch.equal(head[0], v[:, :64])
+        tail = k79.colstats_v_cuda(fa_pad, f_t, gr[:, 64:].contiguous(), y, s,
+                                   na, nb)
+        assert torch.equal(tail[0], v[:, 64:])
+        assert torch.equal(tail[1], norms[64:])
+        assert torch.equal(tail[2], coeffs[64:])
