@@ -15,6 +15,8 @@ non-zero before the last line is printed):
    kernels  K1-K4 at the path's shapes (p=5243 padded to 5248 rows,
             N=512*512, bf16 strip, sketch width 256), each against its
             plain PyTorch version on the card, timed with CUDA events;
+            K3/K4's lean (the share of u below its plain version, signed,
+            with its mean and median) is printed;
    e2e      filter_image: one warm-up and three timed runs with the launch
             counts set to 0 just before them, peak memory, PSNR in/out; the
             same factor through the plain versions on the card; a 96x96
@@ -29,7 +31,8 @@ non-zero before the last line is printed):
             K9 launched once more on the same inputs: the two runs must
             agree bit for bit; K10 likewise in config 4t); K8's u and s
             once more apart, with the mean, median and share below zero of
-            u's signed row errors;
+            u's signed row errors (required in (0.05, 0.95)); K9's V lean
+            is printed;
    e2e-8mp  filter_image: one warm-up and three timed runs (counts set to 0
             just before), walls, peak memory, PSNR in/out, launches;
    plain    the same factor through the plain versions on the card;
@@ -41,7 +44,9 @@ non-zero before the last line is printed):
               sharpen 0.15 by exact matvecs, p=4096, bf16 tiles, coarse
               Sinkhorn 1/8 + one polish):
    kernels  K5/K6 at channel 0's shapes (p_pad 4096, N 1048576), positive
-            vectors from a seeded generator, each against its plain version;
+            vectors from a seeded generator, each against its plain version,
+            and each output's lean, (kernel - plain) / plain: mean, median
+            and share below zero, required in (0.05, 0.95);
    e2e      filter_image: warm-up and three timed runs, walls, peak memory,
             launches per call (6 / 6), the reference's config-3 quality bars
             (gradient-energy ratio, SSIM, PSNR);
@@ -50,7 +55,8 @@ non-zero before the last line is printed):
 6. config 4q — the 8 MP matvec denoise, f32 plain layout (benchmarks/run.py's
               cfg4_8mp_quality_matvec: denoise_tuned(h 0.1) + "fast": identity
               W y, f32 features and tiles, coarse Sinkhorn 1/64 + one polish):
-   kernels  K5/K6 (f32) at the 8 MP shapes against their plain versions;
+   kernels  K5/K6 (f32) at the 8 MP shapes against their plain versions,
+            with their lean as in config 3 (required);
    e2e-8mp  walls, peak memory, launches per call (2 / 2), PSNR gain > 5 dB;
    plain    the same channel through the plain versions on the card.
 7. config 4t — the 8 MP turbo recipe on the unfused spectral schedule
@@ -58,7 +64,9 @@ non-zero before the last line is printed):
               and sample, coarse Sinkhorn and gram 1/64, no polish, so no
               fused finish):
    kernels  K10 (colstats + V) at the path's 8 MP shapes against its plain
-            version;
+            version, V's lean ((kernel - plain) sign(plain), required), and
+            the share of one 64-row stage's bf16 tile entries whose exp
+            (one FMUL, one MUFU ex2) differs from bf16(expf);
    e2e-8mp  filter_image: warm-up and three timed runs, walls, peak memory,
             launches per call (K7 1, K10 1, K8/K9 0), PSNR gain > 1 dB;
    plain    the same channel through the plain versions on the card;
@@ -95,7 +103,7 @@ RUNS = 3
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its least bytes over the memory rate and its
 # operations over the peak of their type
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12   # bf16 = fp16
 # the exp rate: one MUFU ex2 result a lane, 16 a clock an SM (Hopper's
 # special-function units), times the SMs and the card's max SM clock
 # (read from nvidia-smi in main). Where the exp's argument is an f32 value
@@ -242,7 +250,7 @@ def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
           exps: float = 0.0):
     """(bound_ms, bound_by): the least time for the same work on this
     card: bytes over the memory rate, or the operations of the busiest
-    type (bf16 tensor, f32, exp) over its rate."""
+    type (16-bit tensor, f32, exp) over its rate."""
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(bf16_flops / PEAK_BF16, f32_flops / PEAK_F32,
                 exps / EXP_RATE)
@@ -250,13 +258,44 @@ def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
                                        else "operations")
 
 
-def run_cases(cases: dict, rows: dict) -> None:
-    """Each kernel against its plain version, then both timed."""
+def signed_stats(got, ref, per_entry: bool) -> dict:
+    """Which side of its plain version an output leans to: r = (got - ref)
+    sign(ref) over |ref| (per_entry) or over max |ref|, on the entries where
+    ref != 0. Tile entries that flip and another sum order scatter r both
+    ways; an accumulation that rounds toward zero pulls |got| low on every
+    entry, so the share below zero nears 1."""
+    g, r = got.float().flatten(), ref.float().flatten()
+    keep = r != 0
+    g, r = g[keep], r[keep]
+    d = (g - r) * torch.sign(r)
+    d = d / (r.abs() if per_entry else r.abs().max())
+    return dict(mean=float(d.mean()), median=float(d.median()),
+                share_below=float((d < 0).float().mean()), entries=d.numel())
+
+
+def run_cases(cases: dict, rows: dict, signed: dict | None = None) -> None:
+    """Each kernel against its plain version, then both timed. ``signed``
+    names the kernels whose lean is printed: {name: (output index, entries
+    kept, per_entry, required)}; a required one fails the run unless its
+    share below lies in (0.05, 0.95)."""
     for name, (kern, plain, args, bnd, *scale_fn) in cases.items():
         t0 = time.perf_counter()
         got, ref = kern(*args), plain(*args)
         torch.cuda.synchronize()
         pair = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        if signed and name in signed:
+            idx, keep, per_entry, required = signed[name]
+            st = signed_stats(pair[0][idx][:keep], pair[1][idx][:keep],
+                              per_entry)
+            phase("signed", f"{name}: (kernel - plain) sign(plain) / "
+                  f"{'|plain|' if per_entry else 'max |plain|'} over "
+                  f"{st['entries']} outputs: mean {st['mean']:.3e}, median "
+                  f"{st['median']:.3e}, share below {st['share_below']:.4f}"
+                  f"{' (required in (0.05, 0.95))' if required else ''}")
+            rows.setdefault("signed", {})[name] = st
+            if required:
+                require(0.05 < st["share_below"] < 0.95,
+                        f"{name}: biased to one side of its plain version")
         scales = scale_fn[0](ref) if scale_fn else None
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
@@ -376,7 +415,7 @@ def grad_energy(a) -> float:
                  + (np.diff(a, axis=1) ** 2).sum())
 
 
-def matvec_cases(ctx, dev, names):
+def matvec_cases(ctx, dev, names, rows):
     """K5/K6 at a path's shapes on its layouts, positive vectors from a
     seeded generator (scales and pixels, as the path feeds them)."""
     from graphlap_tpu_torch.ops import cuda_matvec as k56
@@ -393,16 +432,54 @@ def matvec_cases(ctx, dev, names):
     item = fa.element_size()
     feat_bytes = item * fd * (pp + nk)
     # bf16: the d2 product on the tensor cores and 8 f32 operations an
-    # entry (as K8), no exp (a table entry); f32: the IEEE-f32 cross (2 fd
-    # an entry), the same 8 and one exp an entry
+    # entry (as K8), no exp (a table entry); f32: the cross at the
+    # reference's "highest" precision, three fp16 tensor-core passes of 2 fd
+    # an entry (split big + small features; as tf32 passes it would be
+    # 13.4 ms at 8 MP, as an IEEE-f32 SIMT cross 36.9 ms), the same 8 f32
+    # operations and one exp an entry, which bounds it
     flops = (dict(bf16_flops=2 * e * fd, f32_flops=8 * e) if aug
-             else dict(f32_flops=e * (2 * fd + 8), exps=e))
+             else dict(bf16_flops=3 * 2 * e * fd, f32_flops=8 * e, exps=e))
     b_ms = bound(feat_bytes + 4 * (nk + pp), **flops)  # f32 vector in, out
     mv, rmv = names
-    return {mv: (k56.matvec_cuda, k56.matvec_plain, (fa, ctx.f_t, v, aug),
-                 b_ms),
-            rmv: (k56.rmatvec_cuda, k56.rmatvec_plain, (fa, ctx.f_t, t, aug),
-                  b_ms)}
+    cases = {mv: (k56.matvec_cuda, k56.matvec_plain, (fa, ctx.f_t, v, aug),
+                  b_ms),
+             rmv: (k56.rmatvec_cuda, k56.rmatvec_plain, (fa, ctx.f_t, t, aug),
+                   b_ms)}
+    # each output's lean, on the sample rows and the image's columns
+    signed = {mv: (0, ctx.p, True, True), rmv: (0, ctx.n, True, True)}
+    return cases, rows, signed
+
+
+def colstats_v_cases(ctx, cfg, img_d, dev, rows):
+    """K10 at the turbo path's shapes on its layouts: V's eigenvector block
+    and the column scales from a seeded generator, the image as y; V's
+    lean is required."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+
+    p, n = ctx.p, ctx.n_pad
+    pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
+    mk = ms._m_kernel(cfg.num_eigvecs)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gr = torch.zeros((pp, mk), device=dev)
+    gr[:p, :cfg.num_eigvecs] = (torch.rand(p, cfg.num_eigvecs, generator=gen,
+                                           device=dev) - 0.5) * 0.02
+    y = torch.zeros(nk, device=dev)
+    y[:ctx.n] = img_d.reshape(-1)
+    cols = torch.zeros(nk, device=dev)
+    cols[:n] = (0.5 + torch.rand(n, generator=gen, device=dev)) * ctx.b_mask
+    na, nb = ms._sq_norms_pad(ctx)
+    fd = ctx.f_t.shape[0]
+    e = pp * nk
+    cases = {
+        "colstats_v": (k79.colstats_v_cuda, k79.colstats_v_plain,
+                       (ctx.fa_pad, ctx.f_t, gr, y, cols, na, nb),
+                       bound(2 * fd * (pp + nk) + 4 * nk * (3 + mk)
+                             + 4 * pp * (mk + 1), 2 * e * (fd + mk), 6 * e,
+                             e),
+                       colstats_scales(y)),
+    }
+    return cases, rows, {"colstats_v": (0, n, False, True)}
 
 
 def config2(gt, dev, rows, launches, info):
@@ -454,7 +531,9 @@ def config2(gt, dev, rows, launches, info):
     }
     phase("config2", f"workload and strip context at {H}x{W} (p={p}, "
           f"p_pad={pp}, N={n})", t0)
-    run_cases(cases, rows)
+    # the WMMA sums' lean, u = K ws on the sample rows (both signs): printed
+    run_cases(cases, rows, {"strip_sandwich_spost": (0, p, False, False),
+                            "strip_sandwich": (0, p, False, False)})
     del ctx, strip, cases
     torch.cuda.empty_cache()
 
@@ -569,7 +648,8 @@ def config4(gt, dev, rows, launches, info):
     }
     phase("config4", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
           f"N={n}, gram columns {sg}, V width {mk})", t0)
-    run_cases(cases, rows)
+    # V's lean (its pass is K10's, which requires it): printed
+    run_cases(cases, rows, {"finish_colstats": (0, n, False, False)})
 
     # K8's u and s apart, u signed: tile entries that flip and another sum
     # order scatter u both ways; an accumulation that rounds toward zero
@@ -668,7 +748,7 @@ def config3(gt, dev, rows, launches, info):
           f"n_pad_k={ctx.f_t.shape[1]}; {cfg.filter_name} "
           f"{cfg.filter_param}, {cfg.filter_mode}, sinkhorn_coarse "
           f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
-    run_cases(matvec_cases(ctx, dev, ("matvec", "rmatvec")), rows)
+    run_cases(*matvec_cases(ctx, dev, ("matvec", "rmatvec"), rows))
     del ctx
     torch.cuda.empty_cache()
 
@@ -745,7 +825,7 @@ def config4q(gt, dev, rows, launches, info):
           f"{ctx.fa_pad.shape[0]}, N={ctx.n_pad}, h {cfg.h}, "
           f"{cfg.filter_name} {cfg.filter_mode}, f32 tiles, sinkhorn_coarse "
           f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
-    run_cases(matvec_cases(ctx, dev, ("matvec_f32", "rmatvec_f32")), rows)
+    run_cases(*matvec_cases(ctx, dev, ("matvec_f32", "rmatvec_f32"), rows))
     del ctx
     torch.cuda.empty_cache()
 
@@ -794,31 +874,28 @@ def config4t(gt, dev, rows, launches, info):
     p, n = ctx.p, ctx.n_pad
     pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
     mk = ms._m_kernel(cfg.num_eigvecs)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    gr = torch.zeros((pp, mk), device=dev)
-    gr[:p, :cfg.num_eigvecs] = (torch.rand(p, cfg.num_eigvecs, generator=gen,
-                                           device=dev) - 0.5) * 0.02
-    y = torch.zeros(nk, device=dev)
-    y[:ctx.n] = img_d.reshape(-1)
-    cols = torch.zeros(nk, device=dev)
-    cols[:n] = (0.5 + torch.rand(n, generator=gen, device=dev)) * ctx.b_mask
-    na, nb = ms._sq_norms_pad(ctx)
-    fd = ctx.f_t.shape[0]
-    e = pp * nk
-    cases = {
-        "colstats_v": (k79.colstats_v_cuda, k79.colstats_v_plain,
-                       (ctx.fa_pad, ctx.f_t, gr, y, cols, na, nb),
-                       bound(2 * fd * (pp + nk) + 4 * nk * (3 + mk)
-                             + 4 * pp * (mk + 1), 2 * e * (fd + mk), 6 * e,
-                             e),
-                       colstats_scales(y)),
-    }
+    cases, rows, signed = colstats_v_cases(ctx, cfg, img_d, dev, rows)
+    na, nb = cases["colstats_v"][2][5:7]
     phase("config4t", f"turbo workload and layouts at {H8}x{W8} (p={p}, "
           f"p_pad={pp}, N={n}, sinkhorn_coarse {cfg.sinkhorn_coarse}, "
           f"gram_coarse {cfg.gram_coarse}, polish {cfg.sinkhorn_polish}, "
           f"V width {mk})", t0)
-    run_cases(cases, rows)
-    del ctx, cases, gr, y, cols, na, nb
+    run_cases(cases, rows, signed)
+
+    # the tile entry's exp (kexp: one FMUL, one MUFU ex2) against expf over
+    # one full stage of the V pass, 64 sample rows by every column, on the
+    # same d2 values: the share of bf16 entries that differ
+    t0 = time.perf_counter()
+    fa_s = ctx.fa_pad[:64].float()
+    d2 = torch.clamp(na[:64, None] + nb[None, :]
+                     - 2.0 * (fa_s @ ctx.f_t.float()), min=0.0)
+    flips = float((k79.kexp_bf16_cuda(d2)
+                   != k79.kexp_bf16_plain(d2)).float().mean())
+    phase("kernel", f"colstats_v exp: bf16(kexp) != bf16(expf) on "
+          f"{flips:.3e} of one stage's {d2.numel()} entries (64 rows x "
+          f"{nk} columns; expected below 1e-3)", t0)
+    rows["colstats_v"]["exp_flip_share"] = flips
+    del d2, fa_s, ctx, cases, na, nb
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -15,12 +15,13 @@
 // the f32 norms arrive precomputed.
 //
 // What bounds them on an H100, at the 8 MP shape (p_pad 4096, N 8388608, V
-// width 64): 3.4e10 tile entries, one expf each — one MUFU ex2 an entry at 16
-// a clock an SM is 8.2 ms at 132 SMs and 1.98 GHz, the bound — plus ~8 FP32
-// instructions of expf and ~6 more (max, two bf16 roundings, the column
-// scale, pack): ~14 ms of FP32-pipe issue; the tensor-core work (2.2 TFLOP
-// of cross, 4.4 TFLOP of V at width 64) is ~6.7 ms at the bf16 peak, and
-// memory (features 0.5 GB, V 2.1 GB) ~0.8 ms. K9's function needs each
+// width 64): 3.4e10 tile entries, one exp each — one MUFU ex2 an entry at 16
+// a clock an SM is 8.2 ms at 132 SMs and 1.98 GHz, the bound. The exp is
+// that ex2 after one FMUL (kexp: the entry is rounded to bf16, so a full
+// expf's ~8 FP32 instructions buy nothing), plus ~6 more (max, two bf16
+// roundings, the column scale, pack): ~7 ms of FP32-pipe issue; the
+// tensor-core work (2.2 TFLOP of cross, 4.4 TFLOP of V at width 64) is
+// ~6.7 ms at the bf16 peak, and memory (features 0.5 GB, V 2.1 GB) ~0.8 ms. K9's function needs each
 // entry's exp once (the Pallas kernel keeps the whole p tile resident for
 // that); K9 here computes it twice, once a pass.
 //
@@ -36,11 +37,11 @@
 //     arrive in shared memory by cp.async while the current stage runs
 //     (double buffering).
 //   * Per 16 sample rows a warp forms the cross on the tensor cores (two mma
-//     a 16 x 8 sub-tile) and runs the f32 epilogue on the accumulator
-//     registers. The accumulator layout is the A-fragment layout, so the
-//     packed bf16(k bf16(c)) tile times bf16(gr) is one more mma per 8 V
-//     columns, which keeps the warp's (32 x m) V block in registers over all
-//     of p.
+//     a 16 x 8 sub-tile) and runs the exp epilogue (kexp) on the
+//     accumulator registers. The accumulator layout is the A-fragment
+//     layout, so the packed bf16(k bf16(c)) tile times bf16(gr) is one more
+//     mma per 8 V columns, which keeps the warp's (32 x m) V block in
+//     registers over all of p.
 //   * K9's ks pass multiplies the packed bf16(k) by [bf16(t), 0, ...], one
 //     mma a 16-row step, summing its columns' ks in registers over a stage
 //     and the stages' sums over all of p (a two-level f32 sum keeps ks
@@ -95,16 +96,39 @@ struct VArgs {
   int P, N;
 };
 
+// the tile entry before its bf16 rounding, exp(-max(d2, 0)), as one FMUL by
+// -log2(e) and one MUFU ex2. The entry is bf16(exp(..)) of an f32 argument:
+// a result within a few f32 ulps of expf's rounds to the same bf16 except
+// within that distance of a bf16 rounding boundary (chip_smoke.py counts the
+// share that flips). Not the ftz form: subnormal entries survive as under expf
+__device__ __forceinline__ float kexp(float d2) {
+  float r;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(r) : "f"(fmaxf(d2, 0.f) * -1.4426950408889634f));
+  return r;
+}
+
+// out[i] = bf16(kexp(d2[i])): the tile entry alone, for checking its exp
+__global__ void kexp_kernel(const float* __restrict__ d2, bf16* __restrict__ out, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = __float2bfloat16_rn(kexp(d2[i]));
+}
+
 // the stage of sample rows [p0, p0 + TP): fa rows, na, and mp bf16 gr^T
 // rows (the V pass) or bf16(t) (K9's ks pass); one cp.async commit group
 __device__ __forceinline__ void load_stage(bf16* fa_d, bf16* gr_d, float* na_d, bf16* t_d,
                                            const VArgs& a, int mp, int p0) {
+  // the loops stay rolled: their addresses are recomputed a stage at a
+  // time, not held in registers over the pass (the V pass at width 64 has
+  // none to spare)
+#pragma unroll 1
   for (int c = threadIdx.x; c < TP * (FD / 8); c += THREADS) {
     const int r = c / (FD / 8), q = c % (FD / 8);
     cp_async16(fa_d + r * LDF + q * 8, a.fa + (size_t)(p0 + r) * FD + q * 8);
   }
   if (t_d != nullptr && (int)threadIdx.x < TP / 8)
     cp_async16(t_d + threadIdx.x * 8, a.tb + p0 + threadIdx.x * 8);
+#pragma unroll 1
   for (int c = threadIdx.x; c < mp * (TP / 8); c += THREADS) {
     const int m = c / (TP / 8), q = c % (TP / 8);
     cp_async16(gr_d + m * LDG + q * 8, a.grt + (size_t)m * a.P + p0 + q * 8);
@@ -129,7 +153,7 @@ __device__ __forceinline__ void warp_cols(uint32_t af[CT][2][4], float nbv[CT][2
 // rows [r0, r0 + 16) of the warp's tile as A fragments (16 columns x 16
 // rows) of bf16(k bf16(c)), or of k = bf16(exp(..)) unscaled (SCALED false,
 // K9's ks pass): the cross on the tensor cores (two mma a 16 x 8 sub-tile),
-// then the f32 exp epilogue on the accumulator registers, whose layout is
+// then the exp epilogue (kexp) on the accumulator registers, whose layout is
 // the A-fragment layout
 template <bool SCALED>
 __device__ __forceinline__ void tile_step(uint32_t ka[CT][4], const bf16* fs, const float* ns,
@@ -156,10 +180,10 @@ __device__ __forceinline__ void tile_step(uint32_t ka[CT][4], const bf16* fs, co
       float c[4] = {0.f, 0.f, 0.f, 0.f};
       mma16816(c, af[ct][0], bf[h][0]);
       mma16816(c, af[ct][1], bf[h][1]);
-      const float e0 = expf(-fmaxf(nav[h][0] + nbv[ct][0] - 2.f * c[0], 0.f));
-      const float e1 = expf(-fmaxf(nav[h][1] + nbv[ct][0] - 2.f * c[1], 0.f));
-      const float e2 = expf(-fmaxf(nav[h][0] + nbv[ct][1] - 2.f * c[2], 0.f));
-      const float e3 = expf(-fmaxf(nav[h][1] + nbv[ct][1] - 2.f * c[3], 0.f));
+      const float e0 = kexp(nav[h][0] + nbv[ct][0] - 2.f * c[0]);
+      const float e1 = kexp(nav[h][1] + nbv[ct][0] - 2.f * c[1]);
+      const float e2 = kexp(nav[h][0] + nbv[ct][1] - 2.f * c[2]);
+      const float e3 = kexp(nav[h][1] + nbv[ct][1] - 2.f * c[3]);
       if (SCALED) {   // k rounded to bf16 (two at a time), times bf16(c), rounded
         const float2 k01 = unpack2(pack2(e0, e1)), k23 = unpack2(pack2(e2, e3));
         ka[ct][2 * h] = pack2(k01.x * cbv[ct][0], k01.y * cbv[ct][0]);
@@ -440,6 +464,16 @@ int glt_finish_colstats(const void* fa, const void* ft, const void* grt, const v
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return launch_v(MP, blocks, s, a, norms_coeffs);
+}
+
+// out = bf16(exp(-max(d2, 0))) with K9's and K10's exp (kexp), elementwise
+// over n f32 values: a check of that exp against expf, on no path
+int glt_kexp_bf16(const void* d2, void* out, size_t n, void* stream) {
+  size_t blocks = (n + THREADS - 1) / THREADS;
+  if (blocks > 65536) blocks = 65536;
+  kexp_kernel<<<(unsigned)blocks, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(d2), static_cast<bf16*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -10,9 +10,13 @@
 //              augmented product (ops/recompute_layout.aug_pads); the vector
 //              is rounded to bf16 (by the wrapper) and every product k * bf16(x)
 //              is exact in f32, so only the f32 summation order differs;
-//   plain f32  k = exp(-max(na + nb - 2 cross, 0)) with IEEE-f32 cross and the
-//              norms summed from the same f32 tile values (no TF32: the GEMM
-//              trick cancels, which is why the reference runs "highest").
+//   plain f32  k = exp(-max(na + nb - 2 cross, 0)) with the norms summed from
+//              the same f32 feature values and the cross at the precision the
+//              reference's "highest" asks for (the GEMM trick cancels): on the
+//              TPU a multi-pass bf16 product on the matrix unit, here its card
+//              counterpart, a split-precision tensor-core product (fp16
+//              big and small parts of scaled features, small.small dropped,
+//              as "3xTF32" does).
 //
 // Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (32, L)
 // feature matrices: K5 fixes the sample rows (fa^T, which the wrapper
@@ -25,9 +29,12 @@
 // each entry's epilogue (max, bf16 round, expf, pack) ~10 FP32-pipe
 // instructions plus one MUFU ex2: ~1-1.5 ms of SIMT issue at 132 SMs — bound
 // by the per-entry SIMT work. 8 MP (f32, p_pad 4096, n 8388608): 3.4e10
-// entries, each 32 IEEE f32 FMAs of cross plus the epilogue, ~2.5 TFLOP of
-// f32 (37 ms at 67 TFLOP/s): bound by f32 FMA issue. Memory is small beside
-// either (features 64-128 B a column, read once from device memory; the fixed
+// entries; the cross is 2.2 TFLOP, three fp16 passes of it 6.7 ms at the
+// card's 989 TFLOP/s (13.4 ms as tf32 at 494.7; as an IEEE-f32 SIMT product
+// 37 ms at 67); each entry's epilogue (two adds, the scale, d2, max, expf,
+// the FMA into its sum) is ~15 FP32-pipe instructions, ~15 ms of issue, and
+// one MUFU ex2 (8.2 ms, the bound). Memory is small beside either
+// (features 64-128 B a column, read once from device memory; the fixed
 // side's tile re-reads come from L2).
 //
 // Design, aug (tensor cores): a 256-thread block owns 256 fixed entries, each
@@ -36,44 +43,69 @@
 // cp.async double buffering and feed the B fragments by ldmatrix.trans. A
 // warp's d2 is two m16n8k16 mma per 16 x 8 sub-tile, the exp epilogue runs on
 // the accumulator registers, and the packed bf16 tile (the accumulator layout
-// is the A-fragment layout) times [bf16(w), 0, ...] is one more mma that
-// keeps each fixed entry's running sum in registers.
-// Design, f32 (SIMT): a 256-thread block owns 128 fixed entries (their 32 x
-// 128 features in shared memory), streams 128-entry tiles (cp.async double
-// buffered), and each thread computes an 8 x 8 register tile of cross with
-// float4 shared loads, then the exp epilogue and its fixed entries' sums.
-// Fixed entries' sums meet across the 16 threads that share them by a shuffle
-// tree.
+// is the A-fragment layout) times [bf16(w), 0, ...] is one more mma. Each
+// tile's sums start from a zero accumulator and join the running sums by an
+// f32 add: the tensor core's f32 accumulation truncates, so a running sum
+// carried through ~2000 mma steps would lean low.
+// Design, f32 (tensor cores, split fp16): each feature vector is scaled
+// by 2^-E (exact), E the exponent of its largest entry, and each scaled
+// feature is big + small, big on the grid 2^-10 (split2: the sums of big
+// products are then exact whatever the accumulation truncates), small the
+// rest rounded to fp16; cross = 2^(Ea + Eb) (big.big + big.small +
+// small.big), the small.small term (~2^-20 of |f|^2) dropped. fp16 has
+// tf32's 11 significant bits at twice its tensor-core rate (an m16n8k16
+// fp16 mma does four times the multiply-adds of an m16n8k8 tf32 one), and
+// the scaling keeps it in range. A 128-thread block owns 128 fixed entries, each warp 32 of them as
+// big and small A fragments in registers for the whole run; 128-entry
+// streamed tiles arrive by cp.async double buffering, and the block splits
+// each once into shared memory as B fragments (16 bytes a lane). Per 16 x 8
+// sub-tile a warp runs 6 m16n8k16 mma (big.big a k16 step each from zero,
+// the corrections in a third chain), then the epilogue on the accumulator
+// registers: d2 = max((nf + ns) - 2 cross, 0), expf (IEEE class: no bf16
+// rounding here to hide a cheaper exp), an f32 FMA with w into the tile's
+// sum of each fixed entry, which joins its running sum by one f32 add a
+// tile; the quad's lanes meet by a shuffle tree at the end.
 // Both: the streamed axis splits across blocks (grid.y) only where the fixed
-// side alone does not fill the card (K5); per-split partials are then summed
-// by a fixed-order reduction kernel. No float atomics: runs repeat bit for
-// bit.
+// side alone does not fill the card (K5), as many splits as fill one wave of
+// the kernel's resident blocks (glt_recompute_slots); per-split partials are
+// then summed by a fixed-order reduction kernel. No float atomics: runs
+// repeat bit for bit.
 //
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() (or the first error).
+
+#include <cuda_fp16.h>
 
 #include "mma_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;            // aug
 constexpr int FD = 32;                  // feature depth (both layouts)
 constexpr int A_RT = 2;                 // aug: fixed 16-tiles a warp
 constexpr int A_FT = 8 * A_RT * 16;     // aug: fixed entries a block (256)
 constexpr int A_ST = 128;               // aug: streamed entries a tile
 constexpr int A_LDS = A_ST + 8;         // padded smem row: 272 B, ldmatrix conflict-free
-constexpr int F_T = 128;                // f32: fixed entries a block, streamed a tile
-constexpr size_t F_SMEM = sizeof(float) * ((size_t)FD * F_T * 3 + 3 * F_T);
+constexpr int T_THREADS = 128;          // f32: 4 warps
+constexpr int T_BLOCKS_SM = 4;          // f32: blocks an SM (registers, 52 KB smem)
+constexpr int T_RT = 2;                 // f32: fixed 16-tiles a warp
+constexpr int T_FT = 4 * T_RT * 16;     // f32: fixed entries a block (128)
+constexpr int T_ST = 128;               // f32: streamed entries a tile, one a thread
+constexpr int T_LDS = T_ST + 4;         // padded raw row: conflict-free split loads
+constexpr int T_BFRAGS = (T_ST / 8) * (FD / 16) * 32;  // 16-byte B fragments a tile
+constexpr size_t T_SMEM =
+    sizeof(float) * (4 * (size_t)T_BFRAGS + 2 * FD * T_LDS + 2 * T_ST + 3 * T_ST);
+static_assert(T_THREADS == T_ST && T_THREADS / 32 == 2 * (FD / 16), "f32 split mapping");
 
 // columns [c0, c0 + tile) of a k-major (32, ld) matrix -> dst[k][0, tile)
 // (row stride lds elements), and w[c0, c0 + tile) -> wdst, by cp.async in
 // 16-byte chunks (8 bf16 or 4 f32); one commit group
-template <typename E>
+template <int NT, typename E>
 __device__ __forceinline__ void load_tile(E* dst, int lds, E* wdst, const E* __restrict__ m,
                                           const E* __restrict__ w, size_t ld, size_t c0,
                                           int tile) {
   constexpr int V = 16 / sizeof(E);
-  for (int c = threadIdx.x; c < FD * (tile / V); c += THREADS) {
+  for (int c = threadIdx.x; c < FD * (tile / V); c += NT) {
     const int k = c / (tile / V), q = c % (tile / V);
     cp_async16(dst + k * lds + q * V, m + (size_t)k * ld + c0 + q * V);
   }
@@ -114,14 +146,23 @@ __global__ __launch_bounds__(THREADS) void aug_sum_kernel(
     for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
 
   if (t0 < t1)
-    load_tile(&s_s[0][0][0], A_LDS, w_s[0], strm_t, w, (size_t)Ls, (size_t)t0 * A_ST, A_ST);
+    load_tile<THREADS>(&s_s[0][0][0], A_LDS, w_s[0], strm_t, w, (size_t)Ls, (size_t)t0 * A_ST,
+                       A_ST);
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
     cp_async_wait_all();
     __syncthreads();                     // tile in; everyone done with buf ^ 1
     if (tile + 1 < t1)
-      load_tile(&s_s[buf ^ 1][0][0], A_LDS, w_s[buf ^ 1], strm_t, w, (size_t)Ls,
-                (size_t)(tile + 1) * A_ST, A_ST);
+      load_tile<THREADS>(&s_s[buf ^ 1][0][0], A_LDS, w_s[buf ^ 1], strm_t, w, (size_t)Ls,
+                         (size_t)(tile + 1) * A_ST, A_ST);
+    // this tile's sums start from zero and join the running sums by an f32
+    // add: the tensor core's accumulation truncates, and a running sum
+    // carried through every tile's mma would end low
+    float tacc[A_RT][4];
+#pragma unroll
+    for (int r = 0; r < A_RT; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tacc[r][e] = 0.f;
 #pragma unroll 2
     for (int c = 0; c < A_ST / 16; ++c) {
       uint32_t b0[4], b1[4];             // streamed 16c..16c+7 and 16c+8..16c+15
@@ -144,8 +185,13 @@ __global__ __launch_bounds__(THREADS) void aug_sum_kernel(
         kb[1] = pack2(kexp_aug(d0[2]), kexp_aug(d0[3]));
         kb[2] = pack2(kexp_aug(d1[0]), kexp_aug(d1[1]));
         kb[3] = pack2(kexp_aug(d1[2]), kexp_aug(d1[3]));
-        mma16816(acc[r], kb, wb);
+        mma16816(tacc[r], kb, wb);
       }
+    }
+#pragma unroll
+    for (int r = 0; r < A_RT; ++r) {   // column 0 of the B operand: elements 0 and 2
+      acc[r][0] += tacc[r][0];
+      acc[r][2] += tacc[r][2];
     }
   }
   if (tq == 0) {   // acc[r][0], acc[r][2]: fixed fw + 16r + g, + g + 8
@@ -159,109 +205,248 @@ __global__ __launch_bounds__(THREADS) void aug_sum_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// plain f32: out_part[split][f] = sum_s w_s exp(-max(nf + ns - 2 cross, 0))
+// plain f32: out_part[split][f] = sum_s w_s exp(-max(nf + ns - 2 cross, 0)),
+// the cross a split-precision (big + small, fp16) tensor-core product
 // ---------------------------------------------------------------------------
 
-__global__ __launch_bounds__(THREADS) void f32_sum_kernel(
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
+
+// the E of a feature vector whose largest |x_k| is maxabs: maxabs < 2^E,
+// clamped so that 2^E and 2^-E stay normal
+__device__ __forceinline__ int vec_exp(float maxabs) {
+  const int e = ((__float_as_int(maxabs) >> 23) & 0xff) - 126;
+  return min(max(e, -100), 100);
+}
+
+// x' = x 2^-E (|x'| < 1) of a feature vector as big + small: big = x'
+// rounded to the grid 2^-10, at most 2^10 steps, so 11 significant bits
+// and exact in fp16; small = fp16(x' - big), x' - big exact in f32. A
+// product of two bigs is then a multiple of 2^-20 of magnitude at most 1,
+// and a sum of 16 of them is exact in f32: the tensor core's accumulation,
+// which truncates, has nothing to drop there. Returns (big, small) as f32
+__device__ __forceinline__ float2 split2(float x, float sinv) {
+  const float xs = x * sinv;
+  const float b = rintf(xs * 1024.f) * (1.f / 1024.f);
+  return make_float2(b, xs - b);
+}
+
+__device__ __forceinline__ uint32_t h2(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// c += a . b: one m16n8k16 fp16 product with f32 accumulation
+__device__ __forceinline__ void mma16816h(float c[4], const uint32_t a[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
     const float* __restrict__ fixed_t,  // (32, Lf) k-major
     const float* __restrict__ strm_t,   // (32, Ls) k-major
     const float* __restrict__ w,        // (Ls)
     float* __restrict__ part,           // (splits, Lf)
     int Lf, int Ls, int tiles_per_split) {
   extern __shared__ __align__(16) float fsm[];
-  float* fx_s = fsm;                    // [32][F_T] fixed features
-  float* st_s = fx_s + FD * F_T;        // [2][32][F_T] streamed tiles
-  float* w_s = st_s + 2 * FD * F_T;     // [2][F_T]
-  float* ns_s = w_s + 2 * F_T;          // [F_T] streamed norms of the tile
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int ntiles = Ls / F_T;
+  // the tile's B fragments, split: [n8 tile][k16 step][lane] = fp16 pairs
+  // (big rows 2tq, 2tq + 1 | big rows 2tq + 8, 2tq + 9 | the same smalls),
+  // column g; a warp reads 512 contiguous bytes
+  uint4* bs = reinterpret_cast<uint4*>(fsm);
+  float* raw = fsm + 4 * T_BFRAGS;      // [2][32][T_LDS] streamed tiles as loaded
+  float* w_s = raw + 2 * FD * T_LDS;    // [2][T_ST]
+  float* ns_s = w_s + 2 * T_ST;         // [T_ST] streamed norms of the tile
+  float* sinv_s = ns_s + T_ST;          // [T_ST] their scales 2^-E
+  float* sc_s = sinv_s + T_ST;          // [T_ST] and 2^E
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ntiles = Ls / T_ST;
   const int t0 = blockIdx.y * tiles_per_split;
   const int t1 = min(ntiles, t0 + tiles_per_split);
-  const int f0 = blockIdx.x * F_T;
+  const int fw = blockIdx.x * T_FT + warp * T_RT * 16;   // this warp's fixed entries
 
-  for (int c = tid; c < FD * (F_T / 4); c += THREADS) {
-    const int k = c / (F_T / 4), q = c % (F_T / 4);
-    reinterpret_cast<float4*>(fx_s)[c] =
-        *reinterpret_cast<const float4*>(fixed_t + (size_t)k * Lf + f0 + q * 4);
-  }
-  if (t0 < t1) load_tile(st_s, F_T, w_s, strm_t, w, (size_t)Ls, (size_t)t0 * F_T, F_T);
-  __syncthreads();
-  // this thread's fixed entries: ty*4 + [0, 4) and 64 + ty*4 + [0, 4); its
-  // streamed entries of a tile: tx*4 + [0, 4) and 64 + tx*4 + [0, 4)
-  float nf[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int fi = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    float s = 0.f;
-    for (int k = 0; k < FD; ++k) s = fmaf(fx_s[k * F_T + fi], fx_s[k * F_T + fi], s);
-    nf[i] = s;
-  }
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  if (t0 < t1)
+    load_tile<T_THREADS>(raw, T_LDS, w_s, strm_t, w, (size_t)Ls, (size_t)t0 * T_ST, T_ST);
 
-  const float4* fx4 = reinterpret_cast<const float4*>(fx_s);
+  // the fixed side, once: A fragments (16 fixed x 16 k) of rows g and g + 8,
+  // k = 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of each k16 step, split on each row's
+  // scale; the rows' norms as sequential f32 sums over k, and -2 2^E
+  uint32_t ab[T_RT][FD / 16][4], as[T_RT][FD / 16][4];
+  float nf[T_RT][2], m2s[T_RT][2];
+#pragma unroll
+  for (int r = 0; r < T_RT; ++r) {
+    const float* col = fixed_t + fw + 16 * r + g;
+    float x[FD / 16][2][8];             // [k16 step][row g | g + 8][k 2tq, +1, +8, +9]
+    float m[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < FD / 16; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = ks * 16 + 2 * tq + (j & 1) + 8 * (j >> 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v = col[(size_t)k * Lf + 8 * h];
+          x[ks][h][j] = v;
+          m[h] = fmaxf(m[h], fabsf(v));
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+      const int e = vec_exp(m[h]);
+      m2s[r][h] = -2.f * pow2(e);
+      const float sinv = pow2(-e);
+#pragma unroll
+      for (int ks = 0; ks < FD / 16; ++ks) {
+        const float2 p0 = split2(x[ks][h][0], sinv), p1 = split2(x[ks][h][1], sinv);
+        const float2 p8 = split2(x[ks][h][2], sinv), p9 = split2(x[ks][h][3], sinv);
+        ab[r][ks][h] = h2(p0.x, p1.x);          // a0 / a1: k 2tq, 2tq + 1
+        as[r][ks][h] = h2(p0.y, p1.y);
+        ab[r][ks][2 + h] = h2(p8.x, p9.x);      // a2 / a3: k 2tq + 8, 2tq + 9
+        as[r][ks][2 + h] = h2(p8.y, p9.y);
+      }
+      float s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < FD; ++k) {
+        const float v = col[(size_t)k * Lf + 8 * h];
+        s = fmaf(v, v, s);
+      }
+      nf[r][h] = s;
+    }
+  }
+  float acc[T_RT][2];
+#pragma unroll
+  for (int r = 0; r < T_RT; ++r) acc[r][0] = acc[r][1] = 0.f;
+
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
     cp_async_wait_all();
-    __syncthreads();                    // tile in; everyone done with buf ^ 1 and ns_s
+    __syncthreads();                    // tile in; everyone done with bs and buf ^ 1
     if (tile + 1 < t1)
-      load_tile(st_s + (buf ^ 1) * FD * F_T, F_T, w_s + (buf ^ 1) * F_T, strm_t, w,
-                (size_t)Ls, (size_t)(tile + 1) * F_T, F_T);
-    const float* S = st_s + buf * FD * F_T;
-    if (tid < F_T) {
-      float s = 0.f;
-      for (int k = 0; k < FD; ++k) s = fmaf(S[k * F_T + tid], S[k * F_T + tid], s);
-      ns_s[tid] = s;
-    }
-    const float4* s4 = reinterpret_cast<const float4*>(S);
-    float cr[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cr[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < FD; ++k) {
-      const float4 a0 = fx4[k * (F_T / 4) + ty], a1 = fx4[k * (F_T / 4) + 16 + ty];
-      const float4 b0 = s4[k * (F_T / 4) + tx], b1 = s4[k * (F_T / 4) + 16 + tx];
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) cr[i][j] = fmaf(av[i], bv[j], cr[i][j]);
-    }
-    __syncthreads();                    // ns_s in
-    float nsv[8], wv[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int sj = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      nsv[j] = ns_s[sj];
-      wv[j] = w_s[buf * F_T + sj];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d2 = fmaxf(nf[i] + nsv[j] - 2.f * cr[i][j], 0.f);
-        acc[i] = fmaf(expf(-d2), wv[j], acc[i]);
+      load_tile<T_THREADS>(raw + (buf ^ 1) * FD * T_LDS, T_LDS, w_s + (buf ^ 1) * T_ST, strm_t,
+                           w, (size_t)Ls, (size_t)(tile + 1) * T_ST, T_ST);
+    const float* S = raw + buf * FD * T_LDS;
+    {   // each streamed column's norm (sequential over k) and scale
+      float m = 0.f, s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < FD; ++k) {
+        const float x = S[k * T_LDS + tid];
+        m = fmaxf(m, fabsf(x));
+        s = fmaf(x, x, s);
       }
+      const int e = vec_exp(m);
+      ns_s[tid] = s;
+      sinv_s[tid] = pow2(-e);
+      sc_s[tid] = pow2(e);
+    }
+    __syncthreads();                    // scales in
+    // the split B fragments: thread (warp, lane) writes k16 step warp & 1 of
+    // every other n8 tile; the padded rows make the loads conflict-free
+#pragma unroll 2
+    for (int i = 0; i < T_ST / 16; ++i) {
+      const int nt = 2 * i + (warp >> 1), ks = warp & 1;
+      const int c = nt * 8 + g, k = ks * 16 + 2 * tq;
+      const float sinv = sinv_s[c];
+      const float2 p0 = split2(S[k * T_LDS + c], sinv), p1 = split2(S[(k + 1) * T_LDS + c], sinv);
+      const float2 p8 = split2(S[(k + 8) * T_LDS + c], sinv);
+      const float2 p9 = split2(S[(k + 9) * T_LDS + c], sinv);
+      bs[(nt * (FD / 16) + ks) * 32 + lane] =
+          make_uint4(h2(p0.x, p1.x), h2(p8.x, p9.x), h2(p0.y, p1.y), h2(p8.y, p9.y));
+    }
+    __syncthreads();                    // fragments in
+    const float* wt = w_s + buf * T_ST;
+    // this tile's sums start from zero and join the running sums by one add:
+    // one f32 chain over every tile of a split (~175000 terms a lane at
+    // 8 MP) drops the tail of terms far below it, and ends low
+    float tacc[T_RT][2];
+#pragma unroll
+    for (int r = 0; r < T_RT; ++r) tacc[r][0] = tacc[r][1] = 0.f;
+#pragma unroll 1
+    for (int nt = 0; nt < T_ST / 8; ++nt) {
+      uint4 b[FD / 16];
+#pragma unroll
+      for (int ks = 0; ks < FD / 16; ++ks) b[ks] = bs[(nt * (FD / 16) + ks) * 32 + lane];
+      const float2 nsv = *reinterpret_cast<const float2*>(ns_s + nt * 8 + 2 * tq);
+      const float2 scv = *reinterpret_cast<const float2*>(sc_s + nt * 8 + 2 * tq);
+      const float2 wv = *reinterpret_cast<const float2*>(wt + nt * 8 + 2 * tq);
+#pragma unroll
+      for (int r = 0; r < T_RT; ++r) {
+        // big.big a k16 step each, from zero (exact, see split2); big.small
+        // + small.big, ~2^-10 of it, in one chain; small.small dropped
+        float h0[4] = {0.f, 0.f, 0.f, 0.f}, h1[4] = {0.f, 0.f, 0.f, 0.f};
+        float cr[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816h(h0, ab[r][0], b[0].x, b[0].y);
+        mma16816h(h1, ab[r][1], b[1].x, b[1].y);
+#pragma unroll
+        for (int ks = 0; ks < FD / 16; ++ks) {
+          mma16816h(cr, ab[r][ks], b[ks].z, b[ks].w);
+          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
+        }
+        // accumulator (fixed g | g + 8, streamed 2tq | 2tq + 1); the cross
+        // is 2^(Ea + Eb) times the scaled one, so d2 as the plain version
+        // forms it, (nf + ns) - 2 cross, rounds once
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float cross = (h0[e] + h1[e]) + cr[e];
+          const float m2 = m2s[r][e >> 1] * ((e & 1) ? scv.y : scv.x);
+          const float d2 = fmaxf(fmaf(m2, cross, nf[r][e >> 1] + ((e & 1) ? nsv.y : nsv.x)), 0.f);
+          tacc[r][e >> 1] = fmaf(expf(-d2), (e & 1) ? wv.y : wv.x, tacc[r][e >> 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < T_RT; ++r) {
+      acc[r][0] += tacc[r][0];
+      acc[r][1] += tacc[r][1];
+    }
   }
-  // the 16 threads of a half-warp share fixed entries: a fixed shuffle tree
+  // the quad's four lanes share fixed rows: a fixed shuffle tree
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int r = 0; r < T_RT; ++r)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
-  if (tx == 0) {
-    float* o = part + (size_t)blockIdx.y * Lf + f0;
+    for (int h = 0; h < 2; ++h) {
+      acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 1);
+      acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 2);
+    }
+  if (tq == 0) {
+    float* o = part + (size_t)blockIdx.y * Lf + fw;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) o[(i < 4 ? 0 : 64) + ty * 4 + (i & 3)] = acc[i];
+    for (int r = 0; r < T_RT; ++r) {
+      o[16 * r + g] = acc[r][0];
+      o[16 * r + g + 8] = acc[r][1];
+    }
   }
+}
+
+template <typename K>
+int slots_of(K kernel, int threads, size_t smem, int* out) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, smem);
+  *out = occ * sms;
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
+
+// how many blocks of the layout's kernel (aug != 0: bf16 aug, else f32) fit
+// the card at once: the wrapper splits the streamed axis to fill whole waves
+// of them; a negative value is a cudaError
+int glt_recompute_slots(int aug) {
+  int n = 0;
+  const int rc = aug ? slots_of(aug_sum_kernel, THREADS, 0, &n)
+                     : slots_of(f32_sum_kernel, T_THREADS, T_SMEM, &n);
+  return rc != 0 ? -rc : n;
+}
 
 // out[f] = sum_s w_s k(f, s) over k-major (32, Lf) fixed and (32, Ls)
 // streamed features. aug: bf16 layouts and w, Lf % 256 == 0, Ls % 128 == 0;
@@ -271,8 +456,7 @@ extern "C" {
 int glt_recompute_sum(int aug, const void* fixed_t, const void* strm_t, const void* w,
                       void* part, void* out, int Lf, int Ls, int splits, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int st = aug ? A_ST : F_T;
-  const int ntiles = Ls / st;
+  const int ntiles = Ls / (aug ? A_ST : T_ST);
   const int per = (ntiles + splits - 1) / splits;
   cudaError_t e;
   if (aug) {
@@ -282,10 +466,10 @@ int glt_recompute_sum(int aug, const void* fixed_t, const void* strm_t, const vo
         static_cast<const bf16*>(w), static_cast<float*>(part), Lf, Ls, per);
   } else {
     e = cudaFuncSetAttribute(f32_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)F_SMEM);
+                             (int)T_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid(Lf / F_T, splits);
-    f32_sum_kernel<<<grid, THREADS, F_SMEM, s>>>(
+    dim3 grid(Lf / T_FT, splits);
+    f32_sum_kernel<<<grid, T_THREADS, T_SMEM, s>>>(
         static_cast<const float*>(fixed_t), static_cast<const float*>(strm_t),
         static_cast<const float*>(w), static_cast<float*>(part), Lf, Ls, per);
   }

@@ -86,18 +86,26 @@ def _check(fa, f_t, aug: bool, what: str) -> None:
                          f"{P_QUANTUM} and n {n} of {N_QUANTUM}")
 
 
+def _splits(aug: bool, fixed_blocks: int, tiles: int) -> int:
+    """Streamed-axis splits: where the fixed side's blocks alone leave the
+    card's resident slots for the kernel (``glt_recompute_slots``, from the
+    occupancy the compiled kernel really has) short, as many splits as fit
+    those slots in one wave, none empty."""
+    slots = _build.lib().glt_recompute_slots(int(aug))
+    if slots <= 0:
+        _build.check(-slots if slots < 0 else 1, "recompute_sum: no block fits "
+                     "the card")
+    splits = max(1, min(tiles, slots // fixed_blocks))
+    return -(-tiles // -(-tiles // splits))       # no empty split
+
+
 def _recompute_sum(fixed_t, strm_t, w):
-    """out[f] = sum_s w_s k(f, s) over k-major (32, Lf) / (32, Ls) layouts:
-    the streamed axis splits across blocks only where the fixed side alone
-    leaves the card's SMs short of four blocks each."""
+    """out[f] = sum_s w_s k(f, s) over k-major (32, Lf) / (32, Ls) layouts,
+    the streamed axis split as ``_splits`` says."""
     aug = fixed_t.dtype == torch.bfloat16
     lf, ls = fixed_t.shape[1], strm_t.shape[1]
     dev = fixed_t.device
-    target = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
-    fixed_blocks = lf // FIXED_TILE[fixed_t.dtype]
-    tiles = ls // STREAM_TILE
-    splits = min(tiles, -(-target // fixed_blocks))
-    splits = -(-tiles // -(-tiles // splits))     # no empty split
+    splits = _splits(aug, lf // FIXED_TILE[fixed_t.dtype], ls // STREAM_TILE)
     out = torch.empty(lf, dtype=_F32, device=dev)
     part = out if splits == 1 else torch.empty((splits, lf), dtype=_F32,
                                                device=dev)

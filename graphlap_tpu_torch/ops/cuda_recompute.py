@@ -383,3 +383,24 @@ kb_strip_cuda.launches = 0
 ext2_matvec_cuda.launches = 0
 finish_colstats_cuda.launches = 0
 colstats_v_cuda.launches = 0
+
+
+def kexp_bf16_plain(d2):
+    """bf16(exp(-max(d2, 0))) with torch's f32 exp: the K9 / K10 tile entry
+    before its column scale, for f32 d2 of any shape."""
+    return torch.exp(-torch.clamp(d2, min=0.0)).to(torch.bfloat16)
+
+
+def kexp_bf16_cuda(d2):
+    """The same entry with the exp K9 and K10 use on the card (``kexp`` in
+    ``csrc/colstats_v.cu``: one FMUL by -log2(e), one MUFU ex2). No path
+    calls it: ``chip_smoke.py`` counts the entries whose bf16 value differs
+    from the plain version's."""
+    if _device_kind(d2) == "cpu":
+        return kexp_bf16_plain(d2)
+    d2 = _f32(d2)
+    out = torch.empty(d2.shape, dtype=torch.bfloat16, device=d2.device)
+    rc = _build.lib().glt_kexp_bf16(d2.data_ptr(), out.data_ptr(), d2.numel(),
+                                    _build.stream_ptr(d2))
+    _build.check(rc, "kexp_bf16")
+    return out

@@ -181,6 +181,18 @@ def _op_inputs(seed=4, p=64, n=1024, d=25, m=12):
             * (rng.random(n) > 0.1)).astype(np.float32))
 
 
+def test_kexp_check_is_the_plain_tile_entry_on_cpu():
+    """The exp check of K9 / K10 (chip_smoke.py counts where the card's
+    one-MUFU exp rounds to another bf16) takes the plain tile entry on CPU
+    tensors: bf16(exp(-max(d2, 0))), as the plain K10 tile rounds it."""
+    d2 = T(np.random.default_rng(4).uniform(-1.0, 90.0, (64, 300)))
+    got = k79.kexp_bf16_cuda(d2)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.float(), k79._r(torch.exp(-d2.clamp(min=0.0)),
+                                            torch.bfloat16))
+    assert torch.equal(got, k79.kexp_bf16_plain(d2))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_colstats_operators_match(jx, dtype):
     jnp, jst = jx.jnp, jx.jst
@@ -502,6 +514,13 @@ def test_k10_kernel_matches_plain(cuda_device, p, n, m):
     assert float((v - v_r).abs().max()) <= 2.0 ** -7 * float(v_r.abs().max())
     if m < gr.shape[1]:                             # pad columns exact 0
         assert float(v[:, m:].abs().max()) == 0.0
+    # V does not lean to either side of its plain version (V takes both
+    # signs, so the lean is (kernel - plain) sign(plain)): the tensor core's
+    # accumulation truncates, and V carried in it over p would shrink
+    keep = v_r != 0
+    lean = ((v - v_r) * torch.sign(v_r))[keep]
+    below = float((lean < 0).float().mean())
+    assert 0.05 < below < 0.95, below
     scale_n = torch.sum(v_r * v_r, dim=0)
     scale_c = torch.abs(y) @ torch.abs(v_r)
     for got, ref, scale in ((norms, norms_r, scale_n),
