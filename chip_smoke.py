@@ -8,15 +8,20 @@ non-zero before the last line is printed):
 
 1. device   — CUDA must be available; prints the card's name and power limit.
 2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
-              process a source, all started together.
+              process a source, all started together; the K3/K4 kernels'
+              SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma.
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
    kernels  K1-K4 at the path's shapes (p=5243 padded to 5248 rows,
             N=512*512, bf16 strip, sketch width 256), each against its
-            plain PyTorch version on the card, timed with CUDA events;
-            K3/K4's lean (the share of u below its plain version, signed,
-            with its mean and median) is printed;
+            plain PyTorch version on the card, timed with CUDA events,
+            K2-K4 beside a cuBLAS composition of the same function (their
+            library yardstick); K3/K4 launched once more on the same inputs
+            (the two runs must agree bit for bit); K3/K4's lean (the share
+            of u below the plain version's sums in f64, signed, with its
+            mean and median; the f32 plain version's own lean beside it) is
+            required in (0.25, 0.75);
    e2e      filter_image: one warm-up and three timed runs with the launch
             counts set to 0 just before them, peak memory, PSNR in/out; the
             same factor through the plain versions on the card; a 96x96
@@ -31,8 +36,8 @@ non-zero before the last line is printed):
             K9 launched once more on the same inputs: the two runs must
             agree bit for bit; K10 likewise in config 4t); K8's u and s
             once more apart, with the mean, median and share below zero of
-            u's signed row errors (required in (0.05, 0.95)); K9's V lean
-            is printed;
+            u's signed row errors (required in (0.25, 0.75)); K9's V lean
+            is required in the same band;
    e2e-8mp  filter_image: one warm-up and three timed runs (counts set to 0
             just before), walls, peak memory, PSNR in/out, launches;
    plain    the same factor through the plain versions on the card;
@@ -46,7 +51,7 @@ non-zero before the last line is printed):
    kernels  K5/K6 at channel 0's shapes (p_pad 4096, N 1048576), positive
             vectors from a seeded generator, each against its plain version,
             and each output's lean, (kernel - plain) / plain: mean, median
-            and share below zero, required in (0.05, 0.95);
+            and share below zero, required in (0.25, 0.75);
    e2e      filter_image: warm-up and three timed runs, walls, peak memory,
             launches per call (6 / 6), the reference's config-3 quality bars
             (gradient-energy ratio, SSIM, PSNR);
@@ -187,7 +192,10 @@ SOURCE = {
 NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
 # partials, no float atomics): checked by a second launch on the same inputs
-BIT_REPEAT = ("ext2_matvec", "finish_colstats", "colstats_v")
+BIT_REPEAT = ("strip_sandwich_spost", "strip_sandwich", "ext2_matvec",
+              "finish_colstats", "colstats_v")
+# the band a required signed line's share below zero must lie in
+SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
 
 
@@ -273,29 +281,47 @@ def signed_stats(got, ref, per_entry: bool) -> dict:
                 share_below=float((d < 0).float().mean()), entries=d.numel())
 
 
-def run_cases(cases: dict, rows: dict, signed: dict | None = None) -> None:
+def run_cases(cases: dict, rows: dict, signed: dict | None = None,
+              library: dict | None = None) -> None:
     """Each kernel against its plain version, then both timed. ``signed``
     names the kernels whose lean is printed: {name: (output index, entries
-    kept, per_entry, required)}; a required one fails the run unless its
-    share below lies in (0.05, 0.95)."""
+    kept, per_entry, required[, reference])}; a required one fails the run
+    unless its share below lies in SIGNED_BAND. The lean is taken against
+    the plain version, or against ``reference`` (the same arguments) where
+    given, whose own lean against the plain version is printed beside it.
+    ``library``: {name: (fn, what)}, one cuBLAS composition computing the
+    kernel's function on the same arguments, timed as its yardstick."""
     for name, (kern, plain, args, bnd, *scale_fn) in cases.items():
         t0 = time.perf_counter()
         got, ref = kern(*args), plain(*args)
         torch.cuda.synchronize()
         pair = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
         if signed and name in signed:
-            idx, keep, per_entry, required = signed[name]
-            st = signed_stats(pair[0][idx][:keep], pair[1][idx][:keep],
-                              per_entry)
-            phase("signed", f"{name}: (kernel - plain) sign(plain) / "
-                  f"{'|plain|' if per_entry else 'max |plain|'} over "
+            idx, keep, per_entry, required, *lean_ref = signed[name]
+            base, against = pair[1][idx], "plain"
+            if lean_ref:
+                r64 = lean_ref[0](*args)
+                base = (r64 if not isinstance(r64, tuple) else r64[idx])
+                against = "plain in f64"
+                st_p = signed_stats(pair[1][idx][:keep], base[:keep],
+                                    per_entry)
+                phase("signed", f"{name}: the plain version itself against "
+                      f"{against}: mean {st_p['mean']:.3e}, median "
+                      f"{st_p['median']:.3e}, share below "
+                      f"{st_p['share_below']:.4f}")
+                rows.setdefault("signed_plain", {})[name] = st_p
+                del r64
+            st = signed_stats(pair[0][idx][:keep], base[:keep], per_entry)
+            del base
+            phase("signed", f"{name}: (kernel - {against}) sign({against}) / "
+                  f"{'|ref|' if per_entry else 'max |ref|'} over "
                   f"{st['entries']} outputs: mean {st['mean']:.3e}, median "
                   f"{st['median']:.3e}, share below {st['share_below']:.4f}"
-                  f"{' (required in (0.05, 0.95))' if required else ''}")
+                  f"{f' (required in {SIGNED_BAND})' if required else ''}")
             rows.setdefault("signed", {})[name] = st
             if required:
-                require(0.05 < st["share_below"] < 0.95,
-                        f"{name}: biased to one side of its plain version")
+                require(SIGNED_BAND[0] < st["share_below"] < SIGNED_BAND[1],
+                        f"{name}: biased to one side of its {against}")
         scales = scale_fn[0](ref) if scale_fn else None
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
@@ -303,20 +329,29 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None) -> None:
             rel = err                                 # absolute, see TOL
         if name in BIT_REPEAT:
             again = kern(*args)
+            again = again if isinstance(again, tuple) else (again,)
             require(all(torch.equal(a, b) for a, b in zip(pair[0], again)),
                     f"{name}: two launches on the same inputs differ")
             del again
         del got, ref, scales, pair
         ms_k = cuda_ms(lambda: kern(*args), 5)
         ms_p = cuda_ms(lambda: plain(*args), 2)
+        ms_l, lib_what = None, None
+        if library and name in library:
+            lib_fn, lib_what = library[name]
+            ms_l = cuda_ms(lambda: lib_fn(*args), 5)
         b_ms, b_by = bnd
+        lib_txt = "" if ms_l is None else f", library {ms_l:.3f} ms"
         phase("kernel", f"{name}: max_abs_err {err:.3e} (checked {rel:.3e}"
               f" = max of {[f'{r:.2e}' for r in rels]}, "
               f"tol {TOL[name]:.1e}); kernel {ms_k:.3f} ms, plain {ms_p:.3f} "
-              f"ms, bound {b_ms:.3f} ms ({b_by})", t0)
+              f"ms{lib_txt}, bound {b_ms:.3f} ms ({b_by})", t0)
+        if lib_what:
+            phase("library", f"{name}: yardstick {lib_what}")
         require(rel <= TOL[name], f"{name} disagrees with its plain version")
         rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms_k, plain_ms=ms_p,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=ms_l,
+                          library=lib_what)
         torch.cuda.empty_cache()
 
 
@@ -482,17 +517,69 @@ def colstats_v_cases(ctx, cfg, img_d, dev, rows):
     return cases, rows, {"colstats_v": (0, n, False, True)}
 
 
-def config2(gt, dev, rows, launches, info):
-    from graphlap_tpu_torch.models import streaming as ms
-    from graphlap_tpu_torch.models.pipeline import _filter_channel
+def strip_library() -> dict:
+    """K2-K4's yardsticks: each kernel's function as a composition of
+    cuBLAS products with f32 output (torch.mm out_dtype, aten::mm.dtype) and
+    elementwise passes, timed beside the kernel; the port never calls
+    them."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def mm(a, b):
+        return torch.mm(a, b, out_dtype=f32)
+
+    def sandwich(strip, ta, s2):
+        w = mm(strip.T, ta.to(bf))
+        return mm(strip, (w * s2[:, None]).to(bf))
+
+    def spost(strip, ta, t, s_pre, bm):
+        ks = mm(t.to(bf)[None], strip)[0]
+        sp = torch.sqrt(s_pre / torch.clamp(ks, min=1e-30)) * bm
+        return sandwich(strip, ta, sp * sp), sp
+
+    def ext2(strip, t2, bm):
+        kbt = mm(t2.to(bf), strip)
+        s = bm / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+        return mm(strip, s.to(bf)[:, None])[:, 0], s
+
+    what = "a cuBLAS composition, not one call: "
+    return {
+        "strip_ext2": (ext2, what + "mm(bf16(t2), K), the scale, then "
+                       "mm(K, bf16(s)) (s rounded to bf16: cuBLAS has no "
+                       "bf16 x f32 product)"),
+        "strip_sandwich_spost": (spost, what + "mm(bf16(t), K) for ks, "
+                                 "s_post, mm(K^T, bf16(ta)), the s2 scale "
+                                 "and bf16 round, mm(K, ws)"),
+        "strip_sandwich": (sandwich, what + "mm(K^T, bf16(ta)), the s2 "
+                           "scale and bf16 round, mm(K, ws)"),
+    }
+
+
+def sandwich_f64(strip, ta, s2):
+    """K4's function with its plain version's rounding points (bf16 ta, ws
+    rounded to bf16) and its sums in f64: the reference of K3/K4's lean
+    line. The f32 sums of the plain version lean low themselves on some
+    strips (0.92 of u below this reference on a random one)."""
+    kb = strip.double()
+    w = kb.T @ ta.to(torch.bfloat16).double()
+    ws = (w * s2.double()[:, None]).to(torch.bfloat16).double()
+    return (kb @ ws).float()
+
+
+def spost_f64(strip, ta, t, s_pre, bm):
+    """K3's function as ``sandwich_f64``: (u, s_post)."""
+    ks = t.to(torch.bfloat16).double() @ strip.double()
+    sp = torch.sqrt(s_pre.double() / torch.clamp(ks, min=1e-30)) * bm.double()
+    return sandwich_f64(strip, ta, sp * sp), sp.float()
+
+
+def strip_cases(ctx, cfg, dev):
+    """K1-K4 at config 2's shapes on its strip context, operands from a
+    seeded generator: (cases, signed, library) for run_cases. K3/K4's lean
+    (u = K ws on the sample rows, both signs) is required, against
+    ``sandwich_f64`` / ``spost_f64``."""
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
-    t0 = time.perf_counter()
-    cfg, img, noisy, plan = make_workload(gt)
-    img_d = torch.as_tensor(noisy, device=dev)
-    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
-    ctx = ms._strip_ctx(img_d, idx_d, cfg)
     strip, p = ctx.strip_pad, ctx.p
     pp, n = strip.shape
     d = ctx.feats_a.shape[1]
@@ -529,12 +616,27 @@ def config2(gt, dev, rows, launches, info):
                            (strip, ta, s2),
                            bound(2 * e + 4 * pp * kp2 * 2 + vec, 4 * e * kp2)),
     }
-    phase("config2", f"workload and strip context at {H}x{W} (p={p}, "
-          f"p_pad={pp}, N={n})", t0)
-    # the WMMA sums' lean, u = K ws on the sample rows (both signs): printed
-    run_cases(cases, rows, {"strip_sandwich_spost": (0, p, False, False),
-                            "strip_sandwich": (0, p, False, False)})
-    del ctx, strip, cases
+    signed = {"strip_sandwich_spost": (0, p, False, True, spost_f64),
+              "strip_sandwich": (0, p, False, True, sandwich_f64)}
+    return cases, signed, strip_library()
+
+
+def config2(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_strip as k24
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    cases, signed, library = strip_cases(ctx, cfg, dev)
+    phase("config2", f"workload and strip context at {H}x{W} (p={ctx.p}, "
+          f"p_pad={ctx.strip_pad.shape[0]}, N={ctx.strip_pad.shape[1]})", t0)
+    run_cases(cases, rows, signed, library)
+    del ctx, cases
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -648,8 +750,8 @@ def config4(gt, dev, rows, launches, info):
     }
     phase("config4", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
           f"N={n}, gram columns {sg}, V width {mk})", t0)
-    # V's lean (its pass is K10's, which requires it): printed
-    run_cases(cases, rows, {"finish_colstats": (0, n, False, False)})
+    # V's lean (its pass is K10's): required
+    run_cases(cases, rows, {"finish_colstats": (0, n, False, True)})
 
     # K8's u and s apart, u signed: tile entries that flip and another sum
     # order scatter u both ways; an accumulation that rounds toward zero
@@ -668,7 +770,7 @@ def config4(gt, dev, rows, launches, info):
           f"plain: mean {u_diag['u_row_rel_mean']:.3e}, median "
           f"{u_diag['u_row_rel_median']:.3e}, share below "
           f"{u_diag['u_rows_low']:.4f}", t0)
-    require(0.05 < u_diag["u_rows_low"] < 0.95,
+    require(SIGNED_BAND[0] < u_diag["u_rows_low"] < SIGNED_BAND[1],
             "ext2_matvec: u is biased to one side of its plain version")
     info["ext2_matvec_apart"] = u_diag
     del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm, u_k, s_k, u_p, s_p
@@ -1020,6 +1122,21 @@ def staged(gt, dev, info):
     phase("staged", "config 2 done", t0)
 
 
+def sass_uses(build, kernel: str, opcode: str) -> dict:
+    """{function name: whether its SASS holds ``opcode``} for every function
+    of the built kernel library whose name holds ``kernel``
+    (cuobjdump -sass, beside nvcc)."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.lib_path())],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if kernel in name:
+            out[name[name.index(kernel):][:40]] = opcode in fn
+    return out
+
+
 def main() -> None:
     # 1. device
     t_all = time.perf_counter()
@@ -1055,6 +1172,11 @@ def main() -> None:
     spills = [ln.strip() for ln in _build.PTXAS_LOG.splitlines()
               if "spill" in ln and not ln.strip().startswith("0 bytes")]
     phase("build", f"{build_s:.1f} s; ptxas spill lines: {spills}")
+    hgmma = sass_uses(_build, "sandwich_kernel", "HGMMA")
+    phase("build", f"K3/K4 kernels holding HGMMA (wgmma), from cuobjdump "
+          f"-sass: {hgmma}")
+    require(hgmma and all(hgmma.values()),
+            "the K3/K4 sandwich kernels do not run on wgmma")
 
     rows, launches, info = {}, {}, {}
     config2(gt, dev, rows, launches, info)

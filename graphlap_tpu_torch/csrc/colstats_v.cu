@@ -40,8 +40,12 @@
 //     a 16 x 8 sub-tile) and runs the exp epilogue (kexp) on the
 //     accumulator registers. The accumulator layout is the A-fragment
 //     layout, so the packed bf16(k bf16(c)) tile times bf16(gr) is one more
-//     mma per 8 V columns, which keeps the warp's (32 x m) V block in
-//     registers over all of p.
+//     mma per 8 V columns. The H100's f32 tensor-core accumulation rounds
+//     toward zero, so the warp's (32 x m) V block sums in registers over
+//     spans of 4 stages (256 rows, 16 mma steps) from zero, and each span is
+//     added to the running V, held in shared memory (64 KB a block at
+//     width 64, still two blocks an SM), with an f32 add; one chain over
+//     all of p (256 steps at p 4096) left V low on ~85% of its entries.
 //   * K9's ks pass multiplies the packed bf16(k) by [bf16(t), 0, ...], one
 //     mma a 16-row step, summing its columns' ks in registers over a stage
 //     and the stages' sums over all of p (a two-level f32 sum keeps ks
@@ -195,6 +199,25 @@ __device__ __forceinline__ void tile_step(uint32_t ka[CT][4], const bf16* fs, co
     }
 }
 
+// the running V of a thread in shared memory: CT * NTM float4s, entry q of
+// thread tid at q * THREADS + tid (consecutive threads, consecutive 16 B)
+template <int NTM>
+constexpr size_t run_smem_bytes() {
+  return (size_t)CT * NTM * THREADS * 16;
+}
+
+// the V pass's spans: V_FLUSH stages (16 mma steps over 256 rows of p).
+// Spans of 8 ran 2% faster but left V below its plain version on 0.77 of
+// the entries of a small input (p 600, 100 V columns), outside the (0.25, 0.75)
+// band that the tests and chip_smoke.py require.
+constexpr int V_FLUSH = 4;
+
+// The V pass. V's sum over p runs on the tensor cores, whose f32
+// accumulation rounds toward zero: a chain of mma over all of p (256 steps
+// at p 4096) ends low on most entries. So V sums in spans of V_FLUSH stages
+// (the first mma of a span from a zero accumulator) and each span is added
+// to the running V with an f32 add. The running V lives in dynamic shared
+// memory, which keeps the pass at two blocks an SM.
 template <int NTM>   // V width / 8
 __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
   constexpr int MP = NTM * 8;
@@ -202,6 +225,7 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
   __shared__ __align__(16) bf16 gr_s[2][MP_MAX * LDG];
   __shared__ __align__(16) float na_s[2][TP];
   __shared__ float wp_s[WARPS][2][MP];          // per-warp norms, coeffs
+  extern __shared__ float4 run_s[];             // CT * NTM * THREADS: the running V
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int ntiles = a.N / TN, nst = a.P / TP;
@@ -219,13 +243,7 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
       cbv[ct][0] = __bfloat162float(a.cb[jw + 16 * ct + g]);
       cbv[ct][1] = __bfloat162float(a.cb[jw + 16 * ct + g + 8]);
     }
-    float acc[CT][NTM][4];
-#pragma unroll
-    for (int ct = 0; ct < CT; ++ct)
-#pragma unroll
-      for (int mt = 0; mt < NTM; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[ct][mt][e] = 0.f;
+    float acc[CT][NTM][4];                      // the span's sum
 
     for (int s = 0; s < nst; ++s, ++step) {
       const int buf = step & 1;
@@ -236,6 +254,15 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
       else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
         load_stage(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, 0);
       const bf16* gs = gr_s[buf];
+      const bool fresh = s % V_FLUSH == 0;       // a span starts here
+      if (fresh) {
+#pragma unroll
+        for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+          for (int mt = 0; mt < NTM; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[ct][mt][e] = 0.f;
+      }
 #pragma unroll 1
       for (int r0 = 0; r0 < TP; r0 += 16) {
         uint32_t ka[CT][4];
@@ -250,7 +277,37 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
           for (int ct = 0; ct < CT; ++ct) mma16816(acc[ct][mt], ka[ct], b);
         }
       }
+      if ((s + 1) % V_FLUSH == 0 || s + 1 == nst) {   // the span into the running V
+        const bool first = s < V_FLUSH;
+#pragma unroll
+        for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+          for (int mt = 0; mt < NTM; ++mt) {
+            float4* q = run_s + (ct * NTM + mt) * THREADS + tid;
+            float4 v = make_float4(acc[ct][mt][0], acc[ct][mt][1], acc[ct][mt][2],
+                                   acc[ct][mt][3]);
+            if (!first) {
+              const float4 o = *q;
+              v.x += o.x;
+              v.y += o.y;
+              v.z += o.z;
+              v.w += o.w;
+            }
+            *q = v;
+          }
+      }
     }
+    // the running V back into acc
+#pragma unroll
+    for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+      for (int mt = 0; mt < NTM; ++mt) {
+        const float4 v = run_s[(ct * NTM + mt) * THREADS + tid];
+        acc[ct][mt][0] = v.x;
+        acc[ct][mt][1] = v.y;
+        acc[ct][mt][2] = v.z;
+        acc[ct][mt][3] = v.w;
+      }
 
     // V out; this tile's norms and coeffs into the warp's slots
     float yv[CT][2];
@@ -366,27 +423,51 @@ __global__ __launch_bounds__(THREADS, KS_BLOCKS_SM) void ks_kernel(const VArgs a
 }
 
 template <int NTM>
+int v_kernel_setup(size_t* smem) {
+  *smem = run_smem_bytes<NTM>();
+  cudaError_t e = cudaFuncSetAttribute(colstats_v_kernel<NTM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(colstats_v_kernel<NTM>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  return static_cast<int>(e);
+}
+
+template <int NTM>
 int resident_blocks(int* out) {
   int dev = 0, sms = 0, occ = 0;
+  size_t smem = 0;
+  int rc = v_kernel_setup<NTM>(&smem);
+  if (rc != 0) return rc;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_v_kernel<NTM>, THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_v_kernel<NTM>, THREADS,
+                                                      smem);
   *out = occ * sms;
   return static_cast<int>(e);
 }
 
+template <int NTM>
+int launch_v_ntm(int blocks, cudaStream_t s, const VArgs& a) {
+  size_t smem = 0;
+  int rc = v_kernel_setup<NTM>(&smem);
+  if (rc != 0) return rc;
+  colstats_v_kernel<NTM><<<blocks, THREADS, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the V pass for width MP, then the fixed-order reduction of its partials
 int launch_v(int MP, int blocks, cudaStream_t s, const VArgs& a, void* norms_coeffs) {
+  int rc;
   switch (MP) {
-    case 16: colstats_v_kernel<2><<<blocks, THREADS, 0, s>>>(a); break;
-    case 32: colstats_v_kernel<4><<<blocks, THREADS, 0, s>>>(a); break;
-    case 48: colstats_v_kernel<6><<<blocks, THREADS, 0, s>>>(a); break;
-    case 64: colstats_v_kernel<8><<<blocks, THREADS, 0, s>>>(a); break;
+    case 16: rc = launch_v_ntm<2>(blocks, s, a); break;
+    case 32: rc = launch_v_ntm<4>(blocks, s, a); break;
+    case 48: rc = launch_v_ntm<6>(blocks, s, a); break;
+    case 64: rc = launch_v_ntm<8>(blocks, s, a); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (rc != 0) return rc;
   return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * MP, s);
 }
 

@@ -31,8 +31,7 @@ _SIGNATURES = {
     "glt_affinity_strip": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "glt_ext2_smem_bytes": ([_I], _Z),
     "glt_strip_ext2": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "glt_strip_sandwich": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P], _I),
+    "glt_strip_sandwich": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "glt_ext2_clusters": ([_I], _I),
     "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _P], _I),

@@ -25,7 +25,9 @@ its plain version. A CUDA f32 strip raises ``NotImplementedError``: an IEEE
 f32 sweep kernel waits for ROADMAP.md Queue 2 (K2-K4, f32 strips).
 
 Strip reads a call on CUDA: K2 2, K3 2, K4 2 (the Pallas kernels read it
-once each; fusing the two phases is later work).
+once each). K3/K4 are two launches of one wgmma kernel (TMA ring, a
+producer warpgroup, two consumer warpgroups): W = K^T ta with the ws epilogue,
+then U = K ws split over N into fixed-order partials (``sandwich_splits``).
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from . import _build
 from .cuda_affinity import _device_kind
 
 EPS = 1e-30
-P_QUANTUM = 128          # strip rows per sandwich tile (csrc P2_BM)
-KP_QUANTUM = 256         # sketch columns per sandwich tile (csrc P1_BN)
+P_QUANTUM = 128          # strip rows per sandwich output tile (csrc SW_BM)
+KP_QUANTUM = 256         # sketch columns per sandwich tile (csrc SW_BN)
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -123,6 +125,30 @@ def strip_ext2_cuda(strip, t2, b_mask):
     return u, s
 
 
+def sandwich_splits(p: int, n: int, kp: int, sms: int) -> int:
+    """Phase 2's split of the N columns: the count S of slices (each a
+    whole number of 64-column stages) whose (P / 128) x (kp / 256) x S
+    blocks, one an SM, fill their last wave best; ties take the fewer."""
+    tiles = (p // P_QUANTUM) * (kp // KP_QUANTUM)
+    top = min(4 * math.ceil(sms / tiles), math.ceil(n / 64))
+    best, best_eff = 1, 0.0
+    for s in range(1, max(1, top) + 1):
+        eff = tiles * s / (math.ceil(tiles * s / sms) * sms)
+        if eff > best_eff + 1e-9:
+            best, best_eff = s, eff
+    return best
+
+
+def _aligned(x: torch.Tensor) -> bool:
+    return x.data_ptr() % 16 == 0
+
+
+def _bf16_tma(x: torch.Tensor) -> torch.Tensor:
+    """x as a contiguous bf16 tensor on a 16-byte boundary (TMA's)."""
+    x = x.to(torch.bfloat16).contiguous()
+    return x if _aligned(x) else x.clone()
+
+
 def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
     _check_strip(strip, what)
     p, n = strip.shape
@@ -134,27 +160,37 @@ def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
         if x is not None and x.shape != (size,):
             raise ValueError(f"{what}: {name} shape {tuple(x.shape)} != "
                              f"{(size,)}")
-    if p % P_QUANTUM:
-        raise ValueError(f"{what}: strip rows {p} must be a multiple of "
-                         f"{P_QUANTUM}")
-    kp2 = math.ceil(kp / KP_QUANTUM) * KP_QUANTUM
+    if p % P_QUANTUM or p == 0:
+        raise ValueError(f"{what}: strip rows {p} must be a positive "
+                         f"multiple of {P_QUANTUM}")
+    if n == 0 or kp == 0:
+        raise ValueError(f"{what}: empty strip or ta ({n} columns, kp {kp})")
     dev = strip.device
-    tab = torch.zeros((p, kp2), dtype=torch.bfloat16, device=dev)
-    tab[:, :kp] = ta.to(torch.bfloat16)
-    tiles = (p // P_QUANTUM) * (kp2 // KP_QUANTUM)
-    splits = max(1, min(math.ceil(4 * _sms(strip) / tiles),
-                        math.ceil(n / 2048)))
+    # the TMA maps need rows 16 bytes apart and 16-byte aligned bases: a
+    # strip with N % 8 != 0 is copied once into zero-padded rows
+    ld = math.ceil(n / 8) * 8
+    if ld != n or not _aligned(strip):
+        padded = torch.zeros((p, ld), dtype=strip.dtype, device=dev)
+        padded[:, :n] = strip
+        strip = padded
+    kp2 = math.ceil(kp / KP_QUANTUM) * KP_QUANTUM
+    if kp2 == kp:                     # the callers' kp: no zero padding
+        tab = _bf16_tma(ta)
+    else:
+        tab = torch.zeros((p, kp2), dtype=torch.bfloat16, device=dev)
+        tab[:, :kp] = ta.to(torch.bfloat16)
+    splits = sandwich_splits(p, n, kp2, _sms(strip))
     ws = torch.empty((n, kp2), dtype=torch.bfloat16, device=dev)
     part = torch.empty((splits, p, kp2), dtype=torch.float32, device=dev)
     u = torch.empty((p, kp2), dtype=torch.float32, device=dev)
     s_post = torch.empty(n, dtype=torch.float32, device=dev)
     # K4 passes None for t, s_pre and b_mask; K3 for s2 (NULL in C)
-    tb = None if t is None else t.to(torch.bfloat16).contiguous()
+    tb = None if t is None else _bf16_tma(t)
     vecs = [None if x is None else _f32(x) for x in (s_pre, b_mask, s2)]
     ptrs = [None if x is None else x.data_ptr() for x in (tb, *vecs)]
     rc = _build.lib().glt_strip_sandwich(
         strip.data_ptr(), tab.data_ptr(), *ptrs, s_post.data_ptr(),
-        ws.data_ptr(), part.data_ptr(), u.data_ptr(), p, n, kp2, splits,
+        ws.data_ptr(), part.data_ptr(), u.data_ptr(), p, n, ld, kp2, splits,
         _build.stream_ptr(strip))
     _build.check(rc, what)
     return u[:, :kp], s_post

@@ -232,6 +232,54 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
                                                    "strip_sweeps.cu"}
 
 
+@pytest.mark.parametrize("case", [
+    "rows-not-quantum", "rows-zero", "ta-rows", "t-shape", "s2-shape",
+    "f32-strip"])
+def test_sandwich_shape_guards_raise_before_a_launch(monkeypatch, case):
+    """K3/K4's wrapper refuses what the wgmma kernel cannot take (strip rows
+    not a positive multiple of its 128-row tile, mismatched operands, an
+    f32 strip) before it asks for the kernel library."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k24, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    p = {"rows-not-quantum": 192, "rows-zero": 0}.get(case, 256)
+    x = _strip_inputs(torch.bfloat16, p=256, n=512)
+    s = T(x["strip"], torch.bfloat16)[:p]
+    ta, t, s2 = T(x["ta"])[:p], T(x["t"])[:p], T(x["s2"])
+    ta = ta[:128] if case == "ta-rows" else ta
+    t = t[:100] if case == "t-shape" else t
+    s2 = s2[:500] if case == "s2-shape" else s2
+    s = s.float() if case == "f32-strip" else s
+    err = NotImplementedError if case == "f32-strip" else ValueError
+    k3 = lambda: k24.strip_sandwich_spost_cuda(  # noqa: E731
+        s, ta, t, T(x["s_pre"]), T(x["bm"]))
+    k4 = lambda: k24.strip_sandwich_cuda(s, ta, s2)  # noqa: E731
+    calls = {"t-shape": [k3], "s2-shape": [k4]}.get(case, [k3, k4])
+    before = _counts()
+    for call in calls:
+        with pytest.raises(err):
+            call()
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("p,n,kp,sms,want", [
+    (5248, 262144, 256, 132, 16),     # the main path: 41 x 16 = 656 blocks
+    (128, 4100, 256, 132, 65),        # one tile: a slice a 64-column stage
+    (256, 4096, 512, 132, 33),        # 4 tiles: 132 blocks, one full wave
+])
+def test_sandwich_splits_fill_the_last_wave(p, n, kp, sms, want):
+    """Phase 2's split over N: whole 64-column stages a slice, and the
+    count whose one-an-SM blocks waste the least of their last wave."""
+    s = k24.sandwich_splits(p, n, kp, sms)
+    assert s == want
+    tiles = (p // k24.P_QUANTUM) * (kp // k24.KP_QUANTUM)
+    assert s <= -(-n // 64)
+    waves = -(-tiles * s // sms)
+    assert tiles * s / (waves * sms) >= 0.49
+
+
 # --- on the card: kernel against plain version ------------------------------
 
 @pytest.fixture
@@ -280,3 +328,92 @@ def test_k2_k4_kernels_match_plain(cuda_device, n):
     got = k24.strip_sandwich_cuda(s, d["ta"], d["s2"])
     ref = k24.strip_sandwich_plain(s, d["ta"], d["s2"])
     assert _rel_err(got, ref) <= REL_SANDWICH_BF16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n,kp", [
+    (128, 4100, 128),     # P at the 128-row quantum, N not a 128 multiple
+    (256, 1000, 384),     # a quantum above; kp over two 256-column tiles
+    (256, 3000, 512),     # two full sketch tiles
+    (384, 130, 256),      # N under one column tile
+])
+def test_k3_k4_tile_edges_match_plain(cuda_device, p, n, kp):
+    """The wgmma sandwich at its tiles' edges: N not a multiple of the
+    128-column output tile or of the 64-column stage (TMA reads zeros past
+    N), kp padded to and over the 256-column sketch tile, P at the 128-row
+    quantum and one quantum above."""
+    x = _strip_inputs(torch.bfloat16, p=p, n=n, kp=kp, seed=p + n)
+    d = {k: torch.tensor(v, device=cuda_device) for k, v in x.items()}
+    s = d["strip"].to(torch.bfloat16)
+    before = _counts()
+    got = k24.strip_sandwich_spost_cuda(s, d["ta"], d["t"], d["s_pre"],
+                                        d["bm"])
+    ref = k24.strip_sandwich_spost_plain(s, d["ta"], d["t"], d["s_pre"],
+                                         d["bm"])
+    assert got[0].shape == (p, kp) and got[1].shape == (n,)
+    assert _rel_err(got[1], ref[1]) <= 1e-4
+    assert _rel_err(got[0], ref[0]) <= REL_SANDWICH_BF16
+    got4 = k24.strip_sandwich_cuda(s, d["ta"], d["s2"])
+    assert _rel_err(got4, k24.strip_sandwich_plain(s, d["ta"], d["s2"])) \
+        <= REL_SANDWICH_BF16
+    after = _counts()
+    assert (after[2] - before[2], after[3] - before[3]) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_k3_k4_repeat_bit_for_bit(cuda_device):
+    """Phase 2's U sums through per-slice partials and a fixed-order
+    reduction, no float atomics: two launches agree bit for bit."""
+    x = _strip_inputs(torch.bfloat16, p=512, n=20000, kp=256, seed=5)
+    d = {k: torch.tensor(v, device=cuda_device) for k, v in x.items()}
+    s = d["strip"].to(torch.bfloat16)
+    args = (s, d["ta"], d["t"], d["s_pre"], d["bm"])
+    a, b = (k24.strip_sandwich_spost_cuda(*args) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    a, b = (k24.strip_sandwich_cuda(s, d["ta"], d["s2"]) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k3_k4_do_not_lean(cuda_device):
+    """u = K ws does not lean to either side of the plain version's sums in
+    f64 (u takes both signs, so the lean is (kernel - ref) sign(ref)): the
+    tensor core's f32 accumulation truncates, and a sum carried in it over
+    the depth would shrink. A strip from the K1 emitter on a test image's
+    patch features (p 768 samples, N 65536 pixels)."""
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(256, 256), 0.1,
+                                        seed=1), 0, 1).astype(np.float32)
+    f = taff.extract_features(torch.tensor(img, device=cuda_device),
+                              gt.CONFIG2)
+    rng = np.random.default_rng(7)
+    p = 768
+    idx = torch.tensor(rng.choice(f.shape[0], p, replace=False),
+                       device=cuda_device)
+    strip = k1.affinity_strip_cuda(f[idx], f, torch.float32, torch.bfloat16)
+    ta = torch.tensor(rng.standard_normal((p, 256)).astype(np.float32),
+                      device=cuda_device)
+    t = torch.tensor((0.5 + rng.random(p)).astype(np.float32),
+                     device=cuda_device)
+    n = strip.shape[1]
+    s_pre = torch.tensor((0.5 + rng.random(n)).astype(np.float32),
+                         device=cuda_device)
+    bm = torch.ones(n, device=cuda_device)
+    # the plain versions' rounding points, their sums in f64
+    kb = strip.double()
+    ks = t.to(torch.bfloat16).double() @ kb
+    sp2 = (torch.sqrt(s_pre.double() / ks.clamp_min(1e-30))) ** 2
+
+    def sandwich64(s2):
+        w = kb.T @ ta.to(torch.bfloat16).double()
+        return kb @ (w * s2[:, None]).to(torch.bfloat16).double()
+
+    for got, ref in (
+            (k24.strip_sandwich_spost_cuda(strip, ta, t, s_pre, bm)[0],
+             sandwich64(sp2)),
+            (k24.strip_sandwich_cuda(strip, ta, s_pre),
+             sandwich64(s_pre.double()))):
+        ref = ref.float()
+        keep = ref != 0
+        lean = ((got - ref) * torch.sign(ref))[keep]
+        below = float((lean < 0).float().mean())
+        assert 0.25 < below < 0.75, below

@@ -632,10 +632,15 @@ def test_build_argtypes_match_the_c_signatures():
     assert set(sigs) == set(_build._SIGNATURES)
     for name, (args, res) in _build._SIGNATURES.items():
         assert sigs[name] == (kind[res], [kind[a] for a in args]), name
+    # the wgmma sandwich (K3/K4): ten pointers, P, N, the strip's row
+    # stride, kp and the split count, then the stream
+    assert sigs["glt_strip_sandwich"] == ("i", ["p"] * 10 + ["i"] * 5 + ["p"])
     # the redesigned K8 / K9 entry points
     assert sigs["glt_ext2_clusters"] == ("i", ["i"])
     assert sigs["glt_colstats_v_blocks"] == ("i", ["i"])
     assert "glt_recompute_clusters" not in sigs
+    # K9/K10's V pass has one design, with no switch to another
+    assert "glt_colstats_v_design" not in sigs
 
 
 def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):

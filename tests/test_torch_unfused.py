@@ -516,11 +516,12 @@ def test_k10_kernel_matches_plain(cuda_device, p, n, m):
         assert float(v[:, m:].abs().max()) == 0.0
     # V does not lean to either side of its plain version (V takes both
     # signs, so the lean is (kernel - plain) sign(plain)): the tensor core's
-    # accumulation truncates, and V carried in it over p would shrink
+    # accumulation truncates, and V carried in it over p would shrink; V
+    # sums in spans of 256 rows, each added to the running V in f32
     keep = v_r != 0
     lean = ((v - v_r) * torch.sign(v_r))[keep]
     below = float((lean < 0).float().mean())
-    assert 0.05 < below < 0.95, below
+    assert 0.25 < below < 0.75, below
     scale_n = torch.sum(v_r * v_r, dim=0)
     scale_c = torch.abs(y) @ torch.abs(v_r)
     for got, ref, scale in ((norms, norms_r, scale_n),
