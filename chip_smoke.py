@@ -9,19 +9,21 @@ non-zero before the last line is printed):
 1. device   — CUDA must be available; prints the card's name and power limit.
 2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
               process a source, all started together; the K3/K4 kernels'
-              SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma.
+              SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma, and
+              the K1 emitter's HMMA (its cross on the tensor cores).
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
    kernels  K1-K4 at the path's shapes (p=5243 padded to 5248 rows,
             N=512*512, bf16 strip, sketch width 256), each against its
             plain PyTorch version on the card, timed with CUDA events,
-            K2-K4 beside a cuBLAS composition of the same function (their
-            library yardstick); K3/K4 launched once more on the same inputs
-            (the two runs must agree bit for bit); K3/K4's lean (the share
-            of u below the plain version's sums in f64, signed, with its
-            mean and median; the f32 plain version's own lean beside it) is
-            required in (0.25, 0.75);
+            beside a cuBLAS composition of the same function (their
+            library yardstick); K2-K4 launched once more on the same inputs
+            (the two runs must agree bit for bit); K2's lean (u on the
+            sample rows, s on the columns) and K3/K4's (u) — the share of
+            the outputs below the plain version's sums in f64, signed, with
+            its mean and median; the f32 plain version's own lean beside
+            it — are required in (0.25, 0.75);
    e2e      filter_image: one warm-up and three timed runs with the launch
             counts set to 0 just before them, peak memory, PSNR in/out; the
             same factor through the plain versions on the card; a 96x96
@@ -121,7 +123,8 @@ EXP_RATE = None
 # kernel vs plain tolerances at the paths' shapes: absolute for bf16 tiles
 # with entries in [0, 1] (K1, K7), else relative to max|plain|
 TOL = {
-    # bf16 store: the kernel's f32 FMA order moves d2 by ~1e-6, which can
+    # bf16 store: the kernel's split-fp16 cross moves d2 by a few f32 ulps
+    # of the norms (as the plain version's own f32 product does), which can
     # flip a stored value by one bf16 ulp (2^-8 below 1.0)
     "affinity_strip": 2.0 ** -8,
     # f32 sums in another order over P=5248 rows / N=262144 columns
@@ -192,7 +195,8 @@ SOURCE = {
 NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
 # partials, no float atomics): checked by a second launch on the same inputs
-BIT_REPEAT = ("strip_sandwich_spost", "strip_sandwich", "ext2_matvec",
+BIT_REPEAT = ("strip_ext2", "strip_sandwich_spost", "strip_sandwich",
+              "ext2_matvec",
               "finish_colstats", "colstats_v")
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
@@ -271,8 +275,11 @@ def signed_stats(got, ref, per_entry: bool) -> dict:
     sign(ref) over |ref| (per_entry) or over max |ref|, on the entries where
     ref != 0. Tile entries that flip and another sum order scatter r both
     ways; an accumulation that rounds toward zero pulls |got| low on every
-    entry, so the share below zero nears 1."""
-    g, r = got.float().flatten(), ref.float().flatten()
+    entry, so the share below zero nears 1. An f64 reference is compared in
+    f64: rounded to f32 it would tie many f32 outputs exactly, and a tie
+    counts as not below."""
+    dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    g, r = got.to(dt).flatten(), ref.to(dt).flatten()
     keep = r != 0
     g, r = g[keep], r[keep]
     d = (g - r) * torch.sign(r)
@@ -281,11 +288,18 @@ def signed_stats(got, ref, per_entry: bool) -> dict:
                 share_below=float((d < 0).float().mean()), entries=d.numel())
 
 
+def lean_specs(spec) -> list:
+    """A kernel's signed lines: one (output index, entries kept, per_entry,
+    required[, reference]) tuple, or a list of them."""
+    return spec if isinstance(spec, list) else [spec]
+
+
 def run_cases(cases: dict, rows: dict, signed: dict | None = None,
               library: dict | None = None) -> None:
     """Each kernel against its plain version, then both timed. ``signed``
     names the kernels whose lean is printed: {name: (output index, entries
-    kept, per_entry, required[, reference])}; a required one fails the run
+    kept, per_entry, required[, reference]), or a list of them, one a signed
+    output (output i > 0 printed as name[i])}; a required one fails the run
     unless its share below lies in SIGNED_BAND. The lean is taken against
     the plain version, or against ``reference`` (the same arguments) where
     given, whose own lean against the plain version is printed beside it.
@@ -296,8 +310,9 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
         got, ref = kern(*args), plain(*args)
         torch.cuda.synchronize()
         pair = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-        if signed and name in signed:
-            idx, keep, per_entry, required, *lean_ref = signed[name]
+        for idx, keep, per_entry, required, *lean_ref in lean_specs(
+                (signed or {}).get(name, [])):
+            label = name if idx == 0 else f"{name}[{idx}]"
             base, against = pair[1][idx], "plain"
             if lean_ref:
                 r64 = lean_ref[0](*args)
@@ -305,23 +320,23 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
                 against = "plain in f64"
                 st_p = signed_stats(pair[1][idx][:keep], base[:keep],
                                     per_entry)
-                phase("signed", f"{name}: the plain version itself against "
+                phase("signed", f"{label}: the plain version itself against "
                       f"{against}: mean {st_p['mean']:.3e}, median "
                       f"{st_p['median']:.3e}, share below "
                       f"{st_p['share_below']:.4f}")
-                rows.setdefault("signed_plain", {})[name] = st_p
+                rows.setdefault("signed_plain", {})[label] = st_p
                 del r64
             st = signed_stats(pair[0][idx][:keep], base[:keep], per_entry)
             del base
-            phase("signed", f"{name}: (kernel - {against}) sign({against}) / "
+            phase("signed", f"{label}: (kernel - {against}) sign({against}) / "
                   f"{'|ref|' if per_entry else 'max |ref|'} over "
                   f"{st['entries']} outputs: mean {st['mean']:.3e}, median "
                   f"{st['median']:.3e}, share below {st['share_below']:.4f}"
                   f"{f' (required in {SIGNED_BAND})' if required else ''}")
-            rows.setdefault("signed", {})[name] = st
+            rows.setdefault("signed", {})[label] = st
             if required:
                 require(SIGNED_BAND[0] < st["share_below"] < SIGNED_BAND[1],
-                        f"{name}: biased to one side of its {against}")
+                        f"{label}: biased to one side of its {against}")
         scales = scale_fn[0](ref) if scale_fn else None
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
@@ -518,11 +533,19 @@ def colstats_v_cases(ctx, cfg, img_d, dev, rows):
 
 
 def strip_library() -> dict:
-    """K2-K4's yardsticks: each kernel's function as a composition of
+    """K1-K4's yardsticks: each kernel's function as a composition of
     cuBLAS products with f32 output (torch.mm out_dtype, aten::mm.dtype) and
     elementwise passes, timed beside the kernel; the port never calls
     them."""
     bf, f32 = torch.bfloat16, torch.float32
+
+    def affinity(a, b, dtype, store):
+        # the f32 product at "highest" (the port pins TF32 off), then the
+        # norms, the clamp, the exp and the store's cast
+        a, b = a.to(dtype).to(f32), b.to(dtype).to(f32)
+        d2 = ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+              - 2.0 * torch.mm(a, b.T))
+        return torch.exp(-d2.clamp_(min=0.0)).to(store)
 
     def mm(a, b):
         return torch.mm(a, b, out_dtype=f32)
@@ -543,6 +566,9 @@ def strip_library() -> dict:
 
     what = "a cuBLAS composition, not one call: "
     return {
+        "affinity_strip": (affinity, what + "torch.mm(a, b^T) in f32 at "
+                           "\"highest\" (no TF32), the norms, the clamp, exp "
+                           "and the bf16 cast"),
         "strip_ext2": (ext2, what + "mm(bf16(t2), K), the scale, then "
                        "mm(K, bf16(s)) (s rounded to bf16: cuBLAS has no "
                        "bf16 x f32 product)"),
@@ -552,6 +578,17 @@ def strip_library() -> dict:
         "strip_sandwich": (sandwich, what + "mm(K^T, bf16(ta)), the s2 "
                            "scale and bf16 round, mm(K, ws)"),
     }
+
+
+def ext2_f64(strip, t2, bm):
+    """K2's function with its plain version's rounding points (bf16 t2) and
+    its sums in f64, kept in f64: the reference of K2's lean lines, (u, s).
+    K2's s is one f32 division of f32 sums, so it often equals the f64 s
+    rounded to f32; the tie would count as not below."""
+    kb = strip.double()
+    kbt = t2.to(torch.bfloat16).double() @ kb
+    s = bm.double() / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+    return kb @ s, s
 
 
 def sandwich_f64(strip, ta, s2):
@@ -574,9 +611,10 @@ def spost_f64(strip, ta, t, s_pre, bm):
 
 def strip_cases(ctx, cfg, dev):
     """K1-K4 at config 2's shapes on its strip context, operands from a
-    seeded generator: (cases, signed, library) for run_cases. K3/K4's lean
-    (u = K ws on the sample rows, both signs) is required, against
-    ``sandwich_f64`` / ``spost_f64``."""
+    seeded generator: (cases, signed, library) for run_cases. K2's lean (u
+    on the sample rows, s on the columns) and K3/K4's (u = K ws on the
+    sample rows, both signs) are required, against ``ext2_f64``,
+    ``spost_f64`` / ``sandwich_f64``."""
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
@@ -603,8 +641,13 @@ def strip_cases(ctx, cfg, dev):
         "affinity_strip": (k1.affinity_strip_cuda, k1.affinity_strip_plain,
                            (feats_a, ctx.feats_pad, torch.float32,
                             torch.bfloat16),
-                           bound(2 * e + 4 * d * (pp + n), 0, e * (2 * d + 5),
-                                 e)),
+                           # the cross at the reference's "highest"
+                           # precision counted as the f32 K5/K6 count the
+                           # same cross (matvec_cases): three fp16 tensor
+                           # passes over the 32 padded lanes, ~8 f32
+                           # operations and one exp an entry
+                           bound(2 * e + 4 * d * (pp + n), 3 * 2 * e * 32,
+                                 8 * e, e)),
         "strip_ext2": (k24.strip_ext2_cuda, k24.strip_ext2_plain,
                        (strip, t2, ctx.b_mask), bound(2 * e + vec, 0, 6 * e)),
         "strip_sandwich_spost": (k24.strip_sandwich_spost_cuda,
@@ -616,7 +659,9 @@ def strip_cases(ctx, cfg, dev):
                            (strip, ta, s2),
                            bound(2 * e + 4 * pp * kp2 * 2 + vec, 4 * e * kp2)),
     }
-    signed = {"strip_sandwich_spost": (0, p, False, True, spost_f64),
+    signed = {"strip_ext2": [(0, p, False, True, ext2_f64),
+                             (1, n, True, True, ext2_f64)],
+              "strip_sandwich_spost": (0, p, False, True, spost_f64),
               "strip_sandwich": (0, p, False, True, sandwich_f64)}
     return cases, signed, strip_library()
 
@@ -1177,6 +1222,11 @@ def main() -> None:
           f"-sass: {hgmma}")
     require(hgmma and all(hgmma.values()),
             "the K3/K4 sandwich kernels do not run on wgmma")
+    hmma = sass_uses(_build, "affinity_kernel", "HMMA")
+    phase("build", f"K1 emitter kernels holding HMMA (its split-fp16 cross "
+          f"on the tensor cores), from cuobjdump -sass: {hmma}")
+    require(hmma and all(hmma.values()),
+            "the K1 emitter does not run its cross on the tensor cores")
 
     rows, launches, info = {}, {}, {}
     config2(gt, dev, rows, launches, info)

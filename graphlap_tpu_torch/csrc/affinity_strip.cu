@@ -2,149 +2,305 @@
 //
 // Replaces graphlap_tpu/ops/pallas_affinity.py:affinity_strip_pallas
 // (_affinity_kernel): the (p_pad, n_pad) kernel strip of the strip_cache
-// path, written once, GEMM and exp fused so no f32 distance temp reaches
-// device memory.
+// path, written once, the cross and the exp fused so no f32 distance temp
+// reaches device memory.
 //
-// What bounds it on an H100: at the slice's main-path shape (p_pad 5248,
-// n 262144, d 25 padded to 32) it writes 2.75 GB of bf16 (0.8 ms at
-// 3.35 TB/s) and does 88 GFLOP of IEEE f32 FMA (1.3 ms at the 67 TFLOP/s
-// SIMT f32 peak). The GEMM must stay IEEE f32 — the GEMM-trick cancellation
-// is why the reference pins "highest" — so tensor cores (TF32 at best) are
-// out, and the kernel is bound by f32 FMA throughput, then by the store.
+// What bounds it on an H100: at the main path's shape (p_pad 5248, n 262144,
+// d 25 padded to 32) it writes 2.75 GB of bf16, 0.82 ms at 3.35 TB/s, the
+// bound. The cross must keep the precision the reference pins with
+// "highest" (the GEMM trick cancels); as an IEEE-f32 SIMT product it would
+// be 88 GFLOP, 1.3 ms at the 67 TFLOP/s f32 peak, so the cross runs on the
+// tensor cores as the f32 K5/K6 run it (recompute_matvec.cu): each feature
+// vector scaled by 2^-E, each scaled feature split into big + small fp16
+// (split2, mma_common.cuh), cross = 2^(Ea + Eb) (big.big + big.small +
+// small.big), small.small (~2^-20 of |f|^2) dropped; three fp16 passes are
+// 0.27 ms at 989 TFLOP/s. The bf16 entry's exp is one FMUL and one MUFU ex2
+// (kexp), 1.4e9 of them 0.33 ms; the f32 store keeps IEEE expf.
 //
-// Design: a 128 x 128 output tile per 256-thread block, each thread an
-// 8 x 8 register tile; the (128 x 32) A slice and (32 x 128) B^T slice sit
-// in shared memory. The norms are recomputed from the same f32 tile values
-// (as the Pallas body does), and each thread stores 8 adjacent outputs as
-// one 16-byte vector so a row of 16 threads writes 256 contiguous bytes.
-// Ragged edges are masked in the loads and stores.
+// Design: a prep kernel splits the sample rows once into m16n8k16 A
+// fragments (big and small fp16 per lane, per 16-row tile and k16 step),
+// their norms and -2 2^Ea, 17 KB a 128-row block. The emitter's 256-thread
+// blocks are persistent (two an SM) and walk a contiguous range of
+// 128 x 128 output units, the 41 row blocks of one pixel tile after
+// another. A warp holds 32 pixels as split B fragments in registers
+// (reloaded when the pixel tile changes) and runs 4 of the unit's 8 row
+// tiles against them: per 16 x 8 sub-tile 6 mma (big.big a k16 step from
+// zero, the corrections in a third chain), then the epilogue on the
+// accumulator registers, which hold adjacent pixels of a row, so two bf16
+// entries pack into one word. The unit's A block arrives by a bulk copy
+// into one of two buffers while the previous unit runs. The finished tile
+// is staged in shared memory in the 128-byte-swizzled layout of a TMA box
+// (the 8 rows a warp writes at once land in 8 distinct 16-byte chunks: no
+// bank conflicts) and written by TMA store from one of two staging
+// buffers, so the next unit's mma runs while it drains; rows and pixels
+// past the strip's edge are clipped by the store.
+//
+// At config 2's shapes it runs at 1.22 ms, 1.47x its bound (128 registers,
+// two blocks an SM). No one limit holds it there: measured beside it on an
+// H100 80GB HBM3 (700 W) by scripts/strip_designs.py, leaving out the
+// store takes it to 1.16 ms, the exp to 1.11, the mma to 1.09 (timing
+// only), so the tensor, FP32 and MUFU pipes and the store each hold part
+// of it. The exp as ex2.approx.ftz (subnormal entries flushed, unlike the
+// plain version's expf) 1.13-1.15 ms; the row-tile loop unrolled by 2,
+// 1.24-1.25 ms; the corrections in two mma chains, 1.27-1.28 ms. The PR 1
+// design (an IEEE-f32 SIMT product, 8 x 8 outputs a thread, direct 16-byte
+// stores) took 4.17 ms.
 //
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int TM = 8;
-constexpr int TN = 8;
-constexpr int THREADS = 256;
+constexpr int A1_THREADS = 256;   // 8 warps: 4 pixel groups x 2 row halves
+constexpr int A1_TM = 128;        // sample rows a unit (8 m16 tiles)
+constexpr int A1_TN = 128;        // pixels a unit (4 warps x 32)
+constexpr int A1_FD = 32;         // feature depth: 2 k16 steps
+constexpr int A1_KS = A1_FD / 16;
+// one 128-row block of split A: [m16 tile][k16 step][big | small][lane] x 16
+// bytes, then the rows' norms and their -2 2^Ea
+constexpr int A1_FRAG_BYTES = (A1_TM / 16) * A1_KS * 2 * 32 * 16;
+constexpr int A1_ABLK = A1_FRAG_BYTES + 2 * A1_TM * 4;
+constexpr int A1_BOX = 16384;     // one staged TMA box: 128 rows x 128 bytes
 
 template <bool BF16_OUT>
-__global__ __launch_bounds__(THREADS) void affinity_kernel(
-    const float* __restrict__ a,    // (p, dp) row-major
-    const float* __restrict__ bt,   // (dp, n) row-major
-    void* __restrict__ out,         // (p, n) bf16 or f32
-    int p, int n, int dp) {
-  __shared__ float As[BK][BM + 4];  // As[k][m]
-  __shared__ float Bs[BK][BN];      // Bs[k][c]
-  __shared__ float na_s[BM];
-  __shared__ float nb_s[BN];
+constexpr size_t a1_smem() {
+  // alignment slack, two staged units, two A blocks, their barriers
+  return 1024 + 2 * (size_t)A1_TM * A1_TN * (BF16_OUT ? 2 : 4) + 2 * (size_t)A1_ABLK + 16;
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
+// the split A blocks of rows [0, p_pad): thread r splits row r
+__global__ void affinity_split_kernel(const float* __restrict__ a, unsigned char* __restrict__ out,
+                                      int p, int d, int p_pad) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= p_pad) return;
+  float x[A1_FD];
+  float m = 0.f, nrm = 0.f;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float norm_part = 0.f;  // tid < 128: |a_row|^2, else |b_col|^2
-
-  for (int k0 = 0; k0 < dp; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      const int m = idx / BK, k = idx % BK;
-      const int r = row0 + m, kk = k0 + k;
-      As[k][m] = (r < p && kk < dp) ? a[(size_t)r * dp + kk] : 0.f;
-    }
-    for (int idx = tid; idx < BN * BK; idx += THREADS) {
-      const int k = idx / BN, c = idx % BN;
-      const int col = col0 + c, kk = k0 + k;
-      Bs[k][c] = (col < n && kk < dp) ? bt[(size_t)kk * n + col] : 0.f;
-    }
-    __syncthreads();
-    if (tid < BM) {
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) norm_part = fmaf(As[k][tid], As[k][tid], norm_part);
-    } else {
-      const int c = tid - BM;
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) norm_part = fmaf(Bs[k][c], Bs[k][c], norm_part);
-    }
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int k = 0; k < A1_FD; ++k) {
+    x[k] = (r < p && k < d) ? a[(size_t)r * d + k] : 0.f;
+    m = fmaxf(m, fabsf(x[k]));
+    nrm = fmaf(x[k], x[k], nrm);
   }
-  if (tid < BM) na_s[tid] = norm_part; else nb_s[tid - BM] = norm_part;
+  const int e = vec_exp(m);
+  const float sinv = pow2(-e);
+  unsigned char* blk = out + (size_t)(r / A1_TM) * A1_ABLK;
+  const int rr = r % A1_TM, mt = rr / 16, g = rr % 8, hi = (rr % 16) / 8;
+#pragma unroll
+  for (int k = 0; k < A1_FD; ++k) {
+    // A fragment register (row g | g + 8) x (k 2tq, 2tq + 1 | 2tq + 8, 2tq + 9)
+    const int ks = k / 16, kk = k % 16, tq = (kk % 8) / 2;
+    const int reg = hi + 2 * (kk / 8);
+    const float2 bs = split2(x[k], sinv);
+    const size_t off = (size_t)((mt * A1_KS + ks) * 2) * 512 + (g * 4 + tq) * 16 + reg * 4 +
+                       (kk % 2) * 2;
+    *reinterpret_cast<__half*>(blk + off) = __float2half_rn(bs.x);
+    *reinterpret_cast<__half*>(blk + off + 512) = __float2half_rn(bs.y);
+  }
+  float* tail = reinterpret_cast<float*>(blk + A1_FRAG_BYTES);
+  tail[rr] = nrm;
+  tail[A1_TM + rr] = -2.f * pow2(e);
+}
+
+template <bool BF16_OUT>
+__global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
+    const __grid_constant__ CUtensorMap out_map,
+    const unsigned char* __restrict__ asplit,   // split A blocks (affinity_split_kernel)
+    const float* __restrict__ b,                // (n, d) pixel features
+    int n, int d, int nrb) {
+  constexpr int STAGE = A1_TM * A1_TN * (BF16_OUT ? 2 : 4);
+  extern __shared__ unsigned char a1_raw[];
+  unsigned char* smem = a1_raw + ((1024 - (smem_u32(a1_raw) & 1023)) & 1023);
+  unsigned char* abuf = smem + 2 * STAGE;
+  const uint32_t bar0 = smem_u32(abuf + 2 * A1_ABLK);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3, wp = warp & 3, wr = warp >> 2;
+  const long long units = (long long)nrb * ((n + A1_TN - 1) / A1_TN);
+  const int t0 = (int)(blockIdx.x * units / gridDim.x);
+  const int t1 = (int)((blockIdx.x + 1) * units / gridDim.x);
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = t0; t < min(t0 + 2, t1); ++t) {
+      const uint32_t bar = bar0 + 8 * (t - t0);
+      mbar_expect_tx(bar, A1_ABLK);
+      bulk_copy(smem_u32(abuf + (t - t0) * A1_ABLK), asplit + (size_t)(t % nrb) * A1_ABLK,
+                A1_ABLK, bar);
+    }
+  }
   __syncthreads();
 
-  const bool vec = BF16_OUT ? (n % 8 == 0) : (n % 4 == 0);
+  // this warp's 32 pixels as split B fragments ([n8 tile][k16 step][b0 | b1],
+  // big and small) and, for the accumulator's pixels 2tq, 2tq + 1 of each n8
+  // tile, their norms and 2^Eb
+  uint32_t bb[4][A1_KS][2], bsm[4][A1_KS][2];
+  float nb[4][2], sc[4][2];
+  int ct_held = -1;
+
+  for (int t = t0, q = 0; t < t1; ++t, ++q) {
+    const int ct = t / nrb, rb = t % nrb;
+    if (ct != ct_held) {
+      ct_held = ct;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= p) continue;
-    const float na = na_s[ty * TM + i];
-    float v[TN];
+      for (int nt = 0; nt < 4; ++nt) {
+        const int j = ct * A1_TN + 32 * wp + 8 * nt + g;   // this lane's B column
+        const float* fj = b + (size_t)min(j, n - 1) * d;
+        auto feat = [&](int k) { return (j < n && k < d) ? fj[k] : 0.f; };
+        float m = 0.f, nrm = 0.f;
+        for (int k = 0; k < d; ++k) {
+          const float x = fj[k] * (j < n);
+          m = fmaxf(m, fabsf(x));
+          nrm = fmaf(x, x, nrm);
+        }
+        const int e = vec_exp(m);
+        const float sinv = pow2(-e), scale = pow2(e);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float d2 = fmaxf(na + nb_s[tx * TN + j] - 2.f * acc[i][j], 0.f);
-      v[j] = expf(-d2);
-    }
-    const int c0 = col0 + tx * TN;
-    const size_t base = (size_t)r * n + c0;
-    if (BF16_OUT) {
-      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(out);
-      if (vec && c0 + TN <= n) {
-        __nv_bfloat162 h[4];
+        for (int ks = 0; ks < A1_KS; ++ks) {
+          const int k = 16 * ks + 2 * tq;
+          const float2 p0 = split2(feat(k), sinv), p1 = split2(feat(k + 1), sinv);
+          const float2 p8 = split2(feat(k + 8), sinv), p9 = split2(feat(k + 9), sinv);
+          bb[nt][ks][0] = h2(p0.x, p1.x);
+          bb[nt][ks][1] = h2(p8.x, p9.x);
+          bsm[nt][ks][0] = h2(p0.y, p1.y);
+          bsm[nt][ks][1] = h2(p8.y, p9.y);
+        }
 #pragma unroll
-        for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
-        *reinterpret_cast<uint4*>(o + base) = *reinterpret_cast<uint4*>(h);
-      } else {
-        for (int j = 0; j < TN; ++j)
-          if (c0 + j < n) o[base + j] = __float2bfloat16_rn(v[j]);
+        for (int c = 0; c < 2; ++c) {   // pixel 2tq + c is held by lanes (2tq + c) * 4 + ..
+          nb[nt][c] = __shfl_sync(0xffffffffu, nrm, (2 * tq + c) * 4);
+          sc[nt][c] = __shfl_sync(0xffffffffu, scale, (2 * tq + c) * 4);
+        }
       }
-    } else {
-      float* o = reinterpret_cast<float*>(out);
-      if (vec && c0 + TN <= n) {
-        *reinterpret_cast<float4*>(o + base) = make_float4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<float4*>(o + base + 4) = make_float4(v[4], v[5], v[6], v[7]);
-      } else {
-        for (int j = 0; j < TN; ++j)
-          if (c0 + j < n) o[base + j] = v[j];
+    }
+    const unsigned char* A = abuf + (q & 1) * A1_ABLK;
+    const float* na_s = reinterpret_cast<const float*>(A + A1_FRAG_BYTES);
+    const float* m2_s = na_s + A1_TM;
+    unsigned char* stage = smem + (q & 1) * STAGE;
+    if (tid == 0) bulk_wait_read<1>();   // the store of unit q - 2 has left this stage
+    mbar_wait(bar0 + 8 * (q & 1), (q >> 1) & 1);
+    __syncthreads();
+
+#pragma unroll 1
+    for (int ml = 0; ml < 4; ++ml) {
+      const int mt = wr * 4 + ml;
+      uint32_t ab[A1_KS][4], as[A1_KS][4];
+#pragma unroll
+      for (int ks = 0; ks < A1_KS; ++ks) {
+        const uint4 vb =
+            *reinterpret_cast<const uint4*>(A + ((mt * A1_KS + ks) * 2) * 512 + lane * 16);
+        const uint4 vs =
+            *reinterpret_cast<const uint4*>(A + ((mt * A1_KS + ks) * 2 + 1) * 512 + lane * 16);
+        ab[ks][0] = vb.x, ab[ks][1] = vb.y, ab[ks][2] = vb.z, ab[ks][3] = vb.w;
+        as[ks][0] = vs.x, as[ks][1] = vs.y, as[ks][2] = vs.z, as[ks][3] = vs.w;
+      }
+      const int r0 = mt * 16 + g;   // rows r0, r0 + 8 of the unit; r0 & 7 == g
+      const float na[2] = {na_s[r0], na_s[r0 + 8]}, m2a[2] = {m2_s[r0], m2_s[r0 + 8]};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float h0[4] = {0.f, 0.f, 0.f, 0.f}, h1[4] = {0.f, 0.f, 0.f, 0.f};
+        float cr[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816h(h0, ab[0], bb[nt][0][0], bb[nt][0][1]);
+        mma16816h(h1, ab[1], bb[nt][1][0], bb[nt][1][1]);
+#pragma unroll
+        for (int ks = 0; ks < A1_KS; ++ks) {
+          mma16816h(cr, ab[ks], bsm[nt][ks][0], bsm[nt][ks][1]);
+          mma16816h(cr, as[ks], bb[nt][ks][0], bb[nt][ks][1]);
+        }
+        // accumulator (row g | g + 8, pixel 2tq | 2tq + 1): d2 as the plain
+        // version forms it, (na + nb) - 2 cross, rounded once
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float cross = (h0[e] + h1[e]) + cr[e];
+          const float d2 = fmaf(m2a[e >> 1] * sc[nt][e & 1], cross, na[e >> 1] + nb[nt][e & 1]);
+          v[e] = BF16_OUT ? kexp(d2) : expf(-fmaxf(d2, 0.f));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (BF16_OUT) {   // box wp / 2, 16-byte chunk (wp % 2) * 4 + nt of the row
+            const int chunk = (wp & 1) * 4 + nt;
+            *reinterpret_cast<uint32_t*>(stage + (wp >> 1) * A1_BOX + r * 128 +
+                                         ((chunk ^ g) << 4) + tq * 4) =
+                pack2(v[2 * h], v[2 * h + 1]);
+          } else {          // box wp, chunk 2 nt + tq / 2
+            const int chunk = 2 * nt + (tq >> 1);
+            *reinterpret_cast<float2*>(stage + wp * A1_BOX + r * 128 + ((chunk ^ g) << 4) +
+                                       (tq & 1) * 8) = make_float2(v[2 * h], v[2 * h + 1]);
+          }
+        }
+      }
+    }
+    fence_async_smem();
+    __syncthreads();   // the unit is staged; its A block is free
+    if (tid == 0) {
+      constexpr int BOXES = BF16_OUT ? 2 : 4, BOX_COLS = A1_TN / BOXES;
+#pragma unroll
+      for (int bx = 0; bx < BOXES; ++bx)
+        tma_store(&out_map, smem_u32(stage + bx * A1_BOX), ct * A1_TN + bx * BOX_COLS, rb * A1_TM);
+      bulk_commit();
+      if (t + 2 < t1) {
+        const uint32_t bar = bar0 + 8 * (q & 1);
+        mbar_expect_tx(bar, A1_ABLK);
+        bulk_copy(smem_u32(abuf + (q & 1) * A1_ABLK), asplit + (size_t)((t + 2) % nrb) * A1_ABLK,
+                  A1_ABLK, bar);
       }
     }
   }
+  if (tid == 0) bulk_wait_all();
+}
+
+template <bool BF16_OUT>
+int launch_affinity(const CUtensorMap& map, const unsigned char* asplit, const float* b, int n,
+                    int d, int nrb, cudaStream_t s) {
+  constexpr size_t smem = a1_smem<BF16_OUT>();
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaFuncSetAttribute(affinity_kernel<BF16_OUT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, affinity_kernel<BF16_OUT>,
+                                                      A1_THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long units = (long long)nrb * ((n + A1_TN - 1) / A1_TN);
+  const int grid = (int)((long long)occ * sms < units ? (long long)occ * sms : units);
+  affinity_kernel<BF16_OUT><<<grid, A1_THREADS, smem, s>>>(map, asplit, b, n, d, nrb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int glt_affinity_strip(const void* a, const void* bt, void* out,
-                                  int p, int n, int dp, int out_bf16,
-                                  void* stream) {
-  dim3 grid((n + BN - 1) / BN, (p + BM - 1) / BM);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    affinity_kernel<true><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(bt), out, p, n, dp);
-  else
-    affinity_kernel<false><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(bt), out, p, n, dp);
-  return static_cast<int>(cudaGetLastError());
+extern "C" {
+
+// bytes of the split-A scratch for p sample rows
+size_t glt_affinity_scratch_bytes(int p) {
+  return (size_t)((p + A1_TM - 1) / A1_TM) * A1_ABLK;
 }
+
+// K1. a (p, d) and b (n, d) row-major f32 features, d <= 32; out (p, ld)
+// bf16 (out_bf16) or f32 with ld >= n, rows 16 bytes apart in multiples and
+// a 16-byte aligned base; scratch holds glt_affinity_scratch_bytes(p) bytes,
+// 16-byte aligned (the wrapper checks).
+int glt_affinity_strip(const void* a, const void* b, void* scratch, void* out, int p, int n,
+                       int d, int ld, int out_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (p < 1 || n < 1 || d < 1 || d > A1_FD || ld < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nrb = (p + A1_TM - 1) / A1_TM;
+  CUtensorMap map;
+  if (!tile_map(&map, out, !out_bf16, n, p, ld, out_bf16 ? 64 : 32, A1_TM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned char* asplit = static_cast<unsigned char*>(scratch);
+  affinity_split_kernel<<<(nrb * A1_TM + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(a), asplit, p, d, nrb * A1_TM);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return out_bf16 ? launch_affinity<true>(map, asplit, static_cast<const float*>(b), n, d, nrb, s)
+                  : launch_affinity<false>(map, asplit, static_cast<const float*>(b), n, d, nrb,
+                                           s);
+}
+
+}  // extern "C"

@@ -100,17 +100,6 @@ struct VArgs {
   int P, N;
 };
 
-// the tile entry before its bf16 rounding, exp(-max(d2, 0)), as one FMUL by
-// -log2(e) and one MUFU ex2. The entry is bf16(exp(..)) of an f32 argument:
-// a result within a few f32 ulps of expf's rounds to the same bf16 except
-// within that distance of a bf16 rounding boundary (chip_smoke.py counts the
-// share that flips). Not the ftz form: subnormal entries survive as under expf
-__device__ __forceinline__ float kexp(float d2) {
-  float r;
-  asm("ex2.approx.f32 %0, %1;\n" : "=f"(r) : "f"(fmaxf(d2, 0.f) * -1.4426950408889634f));
-  return r;
-}
-
 // out[i] = bf16(kexp(d2[i])): the tile entry alone, for checking its exp
 __global__ void kexp_kernel(const float* __restrict__ d2, bf16* __restrict__ out, size_t n) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;

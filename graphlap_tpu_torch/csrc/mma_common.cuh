@@ -1,15 +1,19 @@
-// Helpers shared by the recompute kernels (recompute_sweeps.cu, K7/K8,
-// recompute_matvec.cu, K5/K6, and colstats_v.cu, K9/K10): the bf16 tensor-core
-// instruction, bf16 packing and rounding, the aug-layout tile entry, ldmatrix
-// and movmatrix, cp.async staging, the A fragment of a k-major feature
-// matrix, and the fixed-order
-// reduction of per-block partials. Header-only: every source that includes it gets its own
-// copy inside an anonymous namespace (ops/_build.py hashes *.cuh with the
-// sources, so an edit here rebuilds).
+// Helpers shared by the port's kernels (affinity_strip.cu, K1;
+// strip_sweeps.cu, K2-K4; recompute_sweeps.cu, K7/K8; recompute_matvec.cu,
+// K5/K6; colstats_v.cu, K9/K10): the bf16 and fp16 tensor-core instructions,
+// bf16 packing and rounding, the aug-layout tile entry and the bf16 entry's
+// fast exp, the split-fp16 cross of f32 features, ldmatrix and movmatrix,
+// cp.async staging, the A fragment of a k-major feature matrix, mbarriers,
+// TMA and bulk copies with their tensor maps, the cluster launch, and the
+// fixed-order reduction of per-block partials. Header-only: every source that
+// includes it gets its own copy inside an anonymous namespace (ops/_build.py
+// hashes *.cuh with the sources, so an edit here rebuilds).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +59,55 @@ __device__ __forceinline__ float kexp_aug(float d2) {
 
 // the aug-layout tile entry: bf16(exp(-bf16(max(d2, 0))))
 __device__ __forceinline__ float kb_aug(float d2) { return rbf(kexp_aug(d2)); }
+
+// the bf16 entry before its rounding, exp(-max(d2, 0)) of an f32 d2, as one
+// FMUL by -log2(e) and one MUFU ex2 (K1, K9, K10). The entry is
+// bf16(exp(..)): a result within a few f32 ulps of expf's rounds to the same
+// bf16 except within that distance of a bf16 rounding boundary (chip_smoke.py
+// counts the share that flips). Not the ftz form: subnormal entries survive
+// as under expf
+__device__ __forceinline__ float kexp(float d2) {
+  float r;
+  asm("ex2.approx.f32 %0, %1;\n" : "=f"(r) : "f"(fmaxf(d2, 0.f) * -1.4426950408889634f));
+  return r;
+}
+
+// --- the split-fp16 cross of f32 features (K1, the f32 K5/K6) --------------
+
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
+
+// the E of a feature vector whose largest |x_k| is maxabs: maxabs < 2^E,
+// clamped so that 2^E and 2^-E stay normal
+__device__ __forceinline__ int vec_exp(float maxabs) {
+  const int e = ((__float_as_int(maxabs) >> 23) & 0xff) - 126;
+  return min(max(e, -100), 100);
+}
+
+// x' = x 2^-E (|x'| < 1) of a feature vector as big + small: big = x'
+// rounded to the grid 2^-10, at most 2^10 steps, so 11 significant bits
+// and exact in fp16; small = fp16(x' - big), x' - big exact in f32. A
+// product of two bigs is then a multiple of 2^-20 of magnitude at most 1,
+// and a sum of 16 of them is exact in f32: the tensor core's accumulation,
+// which truncates, has nothing to drop there. Returns (big, small) as f32
+__device__ __forceinline__ float2 split2(float x, float sinv) {
+  const float xs = x * sinv;
+  const float b = rintf(xs * 1024.f) * (1.f / 1024.f);
+  return make_float2(b, xs - b);
+}
+
+__device__ __forceinline__ uint32_t h2(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// c += a . b: one m16n8k16 fp16 product with f32 accumulation
+__device__ __forceinline__ void mma16816h(float c[4], const uint32_t a[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -105,6 +158,151 @@ __device__ __forceinline__ void frag_a_kmajor(uint32_t a[4],
   a[1] = (uint32_t)m[r0 + f0 + g + 8] | ((uint32_t)m[r0 + ld + f0 + g + 8] << 16);
   a[2] = (uint32_t)m[r8 + f0 + g] | ((uint32_t)m[r8 + ld + f0 + g] << 16);
   a[3] = (uint32_t)m[r8 + f0 + g + 8] | ((uint32_t)m[r8 + ld + f0 + g + 8] << 16);
+}
+
+// --- mbarriers, TMA and bulk copies (K1-K4) ---------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a box at element coordinates (c0 inner, c1 outer) of a 2-D tensor map
+// into shared memory, completing on the barrier
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// a box of shared memory out to (c0 inner, c1 outer) of a 2-D tensor map;
+// the parts past the tensor's edge are not written. Joins the thread's open
+// bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of the thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until every bulk group of the thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// shared-memory writes of this thread made visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16) into shared memory
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (outer, inner) matrix of bf16 (f32 = false) or f32 elements,
+// rows ld elements apart, in (box_inner x box_outer) boxes with the 128-byte
+// swizzle (box_inner * element size == 128); box entries past the edge read
+// as zero and are not written
+bool tile_map(CUtensorMap* m, const void* base, bool f32, int inner, int outer, int ld,
+              int box_inner, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer}, unit[2] = {1, 1};
+  return fn(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- thread-block clusters (K2, K8) -------------------------------------------
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the launch of `clusters` clusters of `cl` blocks (attr: storage for the
+// cluster-dimension attribute the config points to)
+cudaLaunchConfig_t cluster_cfg(int cl, int clusters, int threads, size_t smem, cudaStream_t s,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl * clusters, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // out[i] = sum_g part[g * len + i], g in order

@@ -74,8 +74,6 @@
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() (or the first error).
 
-#include <cuda_fp16.h>
-
 #include "mma_common.cuh"
 
 namespace {
@@ -208,41 +206,6 @@ __global__ __launch_bounds__(THREADS) void aug_sum_kernel(
 // plain f32: out_part[split][f] = sum_s w_s exp(-max(nf + ns - 2 cross, 0)),
 // the cross a split-precision (big + small, fp16) tensor-core product
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
-
-// the E of a feature vector whose largest |x_k| is maxabs: maxabs < 2^E,
-// clamped so that 2^E and 2^-E stay normal
-__device__ __forceinline__ int vec_exp(float maxabs) {
-  const int e = ((__float_as_int(maxabs) >> 23) & 0xff) - 126;
-  return min(max(e, -100), 100);
-}
-
-// x' = x 2^-E (|x'| < 1) of a feature vector as big + small: big = x'
-// rounded to the grid 2^-10, at most 2^10 steps, so 11 significant bits
-// and exact in fp16; small = fp16(x' - big), x' - big exact in f32. A
-// product of two bigs is then a multiple of 2^-20 of magnitude at most 1,
-// and a sum of 16 of them is exact in f32: the tensor core's accumulation,
-// which truncates, has nothing to drop there. Returns (big, small) as f32
-__device__ __forceinline__ float2 split2(float x, float sinv) {
-  const float xs = x * sinv;
-  const float b = rintf(xs * 1024.f) * (1.f / 1024.f);
-  return make_float2(b, xs - b);
-}
-
-__device__ __forceinline__ uint32_t h2(float lo, float hi) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// c += a . b: one m16n8k16 fp16 product with f32 accumulation
-__device__ __forceinline__ void mma16816h(float c[4], const uint32_t a[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
     const float* __restrict__ fixed_t,  // (32, Lf) k-major

@@ -193,14 +193,6 @@ constexpr int X_LPP = X_THREADS / (2 * X_TN);  // threads a (column, r | c) pair
 static_assert(X_CG == 4 && X_RG == 4 && X_LPP * 2 == CL,
               "the fixed-order sums below are written out for this shape");
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // the (32, X_TN) f_t tile at column j0 -> dst[k][j], stride X_LDT; one
 // cp.async commit group
 __device__ __forceinline__ void load_ft(bf16* dst, const bf16* __restrict__ ft, size_t ld,
@@ -444,24 +436,6 @@ ext2_fn ext2_kernel(int P) {
   }
 }
 
-// the launch of `clusters` 8-block K8 clusters (attr: storage for the
-// cluster-dimension attribute the config points to)
-cudaLaunchConfig_t cluster_cfg(int clusters, size_t smem, cudaStream_t s,
-                               cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL * clusters, 1, 1);
-  cfg.blockDim = dim3(X_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 }  // namespace
 
 extern "C" {
@@ -491,7 +465,7 @@ int glt_ext2_clusters(int P) {
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(1, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_cfg(CL, 1, X_THREADS, smem, nullptr, attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
   return e != cudaSuccess ? -static_cast<int>(e) : n;
@@ -510,7 +484,7 @@ int glt_ext2_matvec(const void* fa, const void* ft, const void* t2, const void* 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(clusters, smem, s, attr);
+  const cudaLaunchConfig_t cfg = cluster_cfg(CL, clusters, X_THREADS, smem, s, attr);
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(fa),
                          static_cast<const bf16*>(ft), static_cast<const bf16*>(t2),
                          static_cast<const float*>(bm), static_cast<float*>(s_out),

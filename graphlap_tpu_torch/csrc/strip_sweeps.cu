@@ -15,18 +15,35 @@
 //
 // What bounds them on an H100: the strip is 2.75 GB at the main-path shape
 // (P 5248, N 262144), 0.82 ms a read at 3.35 TB/s. K2 does 3 flops a
-// strip element, so it is a pure stream. K3/K4 do two (P x N) x (N x 256)
-// products, 0.70 TFLOP each: 1.42 ms of bf16 tensor-core work at the
+// strip element, so it is a pure stream: one read is its bound, and its
+// kbt (all of P) must be known before any of its u terms. K3/K4 do two
+// (P x N) x (N x 256) products, 0.70 TFLOP each: 1.42 ms of bf16 tensor-core work at the
 // 989 TFLOP/s dense peak, the bound; a strip read per product is 256
 // flops a byte, just under the card's ~295, so each product is close to
 // balanced between the tensor cores and memory.
 //
 // Design.
-//   * K2 gives each block a fixed set of 128-column tiles. For each tile it
-//     sweeps the rows once for kbt (column sums, warps over rows, lanes over
-//     columns), forms s, then sweeps again for the row sums K s into a
-//     P-float accumulator in shared memory. The second sweep re-reads the
-//     tile (from L2 or device memory): 2 strip reads.
+//   * K2 reads the strip once. A cluster of 8 blocks (16 past P = 6400)
+//     shares a 64-column slab: each block stages its P / 8 rows of the slab
+//     (128-byte rows, 128-byte swizzle) by one 3-D TMA box into a ring of
+//     2-4 slabs, sums kbt over its rows, pushes its 2 x 64 partials into
+//     every block of the cluster (st.async, completing on the receiver's
+//     mbarrier), adds the cluster's partials in rank order (every block
+//     forms the same s), then forms its rows' u terms from the same staged
+//     rows. Per-cluster u partials meet in the fixed-order reduction. At
+//     config 2's shapes it runs at 0.94 ms, 1.14x its bound (ext2_kernel,
+//     512 threads, 80 registers). Measured beside it on an H100 80GB HBM3
+//     (700 W) by scripts/strip_designs.py: the partials exchanged through a
+//     cluster barrier and DSMEM reads instead of pushed, 1.18 ms; the rows
+//     staged in 8-row TMA boxes, 1.34-1.37 ms; 256 threads a block, 0.95
+//     ms; the three together (this kernel's first design) 1.62 ms; no
+//     sweeps at all (loads and exchange alone, timing only) 1.04 ms;
+//     clusters of 16 at P = 5248 (7 fit the card, 112 SMs) 1.45-1.47 ms;
+//     one slab in flight 1.28 ms. At P = 8192 (clusters of 16, 3 slabs in
+//     flight) 1.67 ms against its 1.28 ms bound; 8-block clusters with one
+//     slab in flight there 1.75 ms. The PR 1 design (each block sweeping
+//     its 128-column tiles twice, the second read from device memory) took
+//     3.90 ms.
 //   * K3/K4 run as two launches of one warp-specialized wgmma kernel
 //     (sandwich_kernel): phase 1 W = K^T ta (output rows = strip columns,
 //     depth = P) with the epilogue ws = bf16(W s2), K3's ks = K^T t beside
@@ -57,138 +74,284 @@
 //     each tile once: W needs all of P before its s2 scale and bf16 round,
 //     and U all of N, so one read would need a cross-block exchange of W
 //     partials before the rounding or a grid barrier per L2-sized band.
-//   * Every cross-block sum (K2's u, phase 2's U) goes through per-block
-//     partials and a reduction pass that adds them in a fixed order — no
-//     float atomics, so a run is bit-for-bit repeatable.
+//   * Every cross-block sum (K2's kbt and u, phase 2's U) meets in a fixed
+//     order (K2's kbt in rank order, the per-block or per-cluster partials
+//     in a reduction pass) — no float atomics, so a run is bit-for-bit
+//     repeatable.
 //
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() after its launches (or the
 // first error).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
 
-typedef __nv_bfloat16 bf16;
+#include "mma_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr float EPS = 1e-30f;
-constexpr int THREADS = 256;   // K2's block
-
 // ---------------------------------------------------------------------------
-// K2: strip_ext2
+// K2: strip_ext2, one strip read in clusters
 // ---------------------------------------------------------------------------
 
-constexpr int E_TN = 128;        // columns a tile (4 per lane)
-constexpr int E_WARPS = THREADS / 32;
+constexpr int X2_THREADS = 512;
+constexpr int X2_WARPS = X2_THREADS / 32;
+constexpr int X2_W = 64;                  // columns a slab: one 128-byte row segment
+constexpr int X2_RSTEP = X2_THREADS / 8;  // rows a pass: 8 lanes a row, 16 B (8 columns) each
+constexpr int X2_MAXR = 16;               // rows a thread: a block holds at most 1024 rows
+constexpr int X2_SMEM_CAP = 232448;       // a block's shared memory on an H100
 
-__device__ __forceinline__ void load4(const bf16* __restrict__ strip, size_t row_off,
-                                      int c, int n, bool vec, float v[4]) {
-  if (vec && c + 4 <= n) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(strip + row_off + c);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 lo = __bfloat1622float2(h[0]);
-    const float2 hi = __bfloat1622float2(h[1]);
-    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-  } else {
+// shared bytes of a block of a `cl`-block cluster with `rows` rows and
+// `stages` slabs in flight: 1024 B of alignment slack, the slabs, tr and tc
+// of its rows, the warps' kbt partials, the block's partial, the partials
+// received from the cluster (two slabs), s, a barrier a stage and two for
+// the received partials
+size_t x2_smem(int rows, int stages, int cl) {
+  return 1024 + (size_t)stages * rows * 128 +
+         sizeof(float) * (2 * (size_t)rows + X2_WARPS * 2 * X2_W + 2 * X2_W +
+                          2 * (size_t)cl * 2 * X2_W + X2_W) +
+         8 * ((size_t)stages + 2);
+}
+
+struct X2Args {
+  const bf16* t2;   // (2, P) bf16(t_r), bf16(t_c)
+  const float* bm;  // (N)
+  float* s_out;     // (N)
+  float* u_part;    // (clusters, P)
+  int P, N, rows, stages;
+};
+
+// the 8 bf16 of a 16-byte chunk as f32
+__device__ __forceinline__ void unpack8(const uint4 v, float x[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      v[q] = (c + q < n) ? __bfloat162float(strip[row_off + c + q]) : 0.f;
+  for (int q = 0; q < 4; ++q) {
+    x[2 * q] = __uint_as_float(w[q] << 16);
+    x[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
   }
 }
 
-__global__ __launch_bounds__(THREADS) void ext2_kernel(
-    const bf16* __restrict__ strip,  // (P, N)
-    const bf16* __restrict__ t2,     // (2, P)
-    const float* __restrict__ bm,    // (N)
-    float* __restrict__ s_out,       // (N)
-    float* __restrict__ u_part,      // (gridDim.x, P)
-    int P, int N) {
-  extern __shared__ __align__(16) float esm[];
-  float* u_s = esm;                 // P
-  float* tr_s = u_s + P;            // P
-  float* tc_s = tr_s + P;           // P
-  float* red = tc_s + P;            // E_WARPS * 2 * E_TN
-  float* s_s = red + E_WARPS * 2 * E_TN;  // E_TN
+// slab q of cluster cid of ncl: the clusters walk the slabs in turn, so at
+// any time they read neighbouring column ranges of the same rows
+__device__ __forceinline__ int x2_slab(int cid, int ncl, int q) { return cid + q * ncl; }
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int i = tid; i < P; i += THREADS) {
-    u_s[i] = 0.f;
-    tr_s[i] = __bfloat162float(t2[i]);
-    tc_s[i] = __bfloat162float(t2[P + i]);
+// the block's rows of a slab, one TMA box (columns x 8 rows x rows / 8
+// groups of a 3-D view of the strip), into a ring stage
+__device__ __forceinline__ void x2_load(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                        uint32_t bytes, int col0, int row0) {
+  mbar_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(row0 / 8), "r"(bar)
+      : "memory");
+}
+
+// the shared::cluster address of `addr` in the block of rank `rank`
+__device__ __forceinline__ uint32_t x2_mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another block's shared memory, completing on its barrier
+__device__ __forceinline__ void x2_send(uint32_t raddr, float4 v, uint32_t rbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(raddr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rbar)
+      : "memory");
+}
+
+// wait for a phase of a barrier that other blocks of the cluster complete
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// A cluster of C blocks walks 64-column slabs (cluster c: slabs c, c +
+// clusters, ...); block `rank` owns the strip rows [rank R, rank R + R). Its
+// slab rows arrive by one TMA box (128-byte swizzle: the 16-byte chunk ch
+// of row r lies at ch ^ (r & 7)) into a ring of `stages` slabs. Thread
+// (warp, lane) reads chunk lane & 7 of rows warp * 4 + lane / 8 + 64 i, in
+// both sweeps. Sweep 1 sums kbt of the chunk's 8 columns over those rows;
+// the partials meet in a fixed tree (the 4 row lanes of a warp, the warps in
+// order), and each block pushes its partial into every block of the cluster
+// (st.async, completing on the receiver's barrier), where the C partials
+// are added in rank order: every block forms the same s, and no cluster
+// barrier is waited on. Sweep 2 adds each row's 8-column part of K s, from
+// zero a slab, to the row's running u in a register; the 8 chunk lanes meet
+// at the end.
+__global__ __launch_bounds__(X2_THREADS, 1) void ext2_kernel(
+    const __grid_constant__ CUtensorMap map, const X2Args a) {
+  extern __shared__ unsigned char x2_raw[];
+  unsigned char* smem = x2_raw + ((1024 - (smem_u32(x2_raw) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const int R = a.rows, S = a.stages, row0 = rank * R;
+  const uint32_t slab_bytes = (uint32_t)R * 128;
+  float* tr_s = reinterpret_cast<float*>(smem + (size_t)S * slab_bytes);
+  float* tc_s = tr_s + R;
+  float* red = tc_s + R;                        // [warp][r | c][64]
+  float* part = red + X2_WARPS * 2 * X2_W;      // [r | c][64]: this block's kbt partial
+  float* recv = part + 2 * X2_W;                // [slab & 1][rank][r | c][64]
+  float* s_s = recv + 2 * C * 2 * X2_W;         // [64]
+  const uint32_t ring = smem_u32(smem), bar0 = smem_u32(s_s + X2_W);
+  const uint32_t rbar0 = bar0 + 8 * S;          // the received partials' barriers
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ch = lane & 7;                      // this thread's chunk of a row
+  const int rfirst = warp * 4 + lane / 8;       // its rows: rfirst + X2_RSTEP i
+  for (int i = tid; i < R; i += X2_THREADS) {
+    tr_s[i] = __bfloat162float(a.t2[row0 + i]);
+    tc_s[i] = __bfloat162float(a.t2[a.P + row0 + i]);
   }
-  __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < S + 2; ++st) mbar_init(bar0 + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();   // every block's barriers are set before any partial is pushed
 
-  const bool vec = (N % 4 == 0);
-  const int ntiles = (N + E_TN - 1) / E_TN;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int c = tile * E_TN + lane * 4;
-    // sweep 1: kbt for this tile's columns
-    float ar[4] = {0.f, 0.f, 0.f, 0.f}, ac[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int i = warp; i < P; i += E_WARPS) {
-      float v[4];
-      load4(strip, (size_t)i * N, c, N, vec, v);
-      const float tr = tr_s[i], tc = tc_s[i];
+  const int nslabs = (a.N + X2_W - 1) / X2_W;
+  const int mine = (nslabs - cid + ncl - 1) / ncl;   // the same in every rank
+  if (tid == 0)
+    for (int q = 0; q < min(S, mine); ++q)
+      x2_load(&map, ring + q * slab_bytes, bar0 + 8 * q, slab_bytes, x2_slab(cid, ncl, q) * X2_W,
+              row0);
+
+  float u[X2_MAXR];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        ar[q] = fmaf(v[q], tr, ar[q]);
-        ac[q] = fmaf(v[q], tc, ac[q]);
+  for (int i = 0; i < X2_MAXR; ++i) u[i] = 0.f;
+
+  for (int q = 0; q < mine; ++q) {
+    const int st = q % S, j0 = x2_slab(cid, ncl, q) * X2_W;
+    const uint32_t rbar = rbar0 + 8 * (q & 1);
+    float* rq = recv + (q & 1) * C * 2 * X2_W;
+    // arm this slab's receive barrier (its previous phase, slab q - 2, is
+    // done); partials that land first take the count below zero meanwhile
+    if (tid == 0) mbar_expect_tx(rbar, (uint32_t)(C * 2 * X2_W * 4));
+    // the slab's b_mask, loaded now so its latency is not on the path to s
+    const float bmv = (tid < X2_W && j0 + tid < a.N) ? a.bm[j0 + tid] : 0.f;
+    mbar_wait(bar0 + 8 * st, (q / S) & 1);
+    const unsigned char* slab = smem + (size_t)st * slab_bytes;
+    // sweep 1: kbt of the chunk's columns over this thread's rows (a row
+    // group of a warp is all in or all out of range: R % 8 == 0)
+    float kr[8], kc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) kr[e] = kc[e] = 0.f;
+#pragma unroll 4
+    for (int r = rfirst; r < R; r += X2_RSTEP) {
+      float x[8];
+      unpack8(*reinterpret_cast<const uint4*>(slab + r * 128 + ((ch ^ (r & 7)) << 4)), x);
+      const float tr = tr_s[r], tc = tc_s[r];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kr[e] = fmaf(x[e], tr, kr[e]);
+        kc[e] = fmaf(x[e], tc, kc[e]);
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      red[(warp * 2 + 0) * E_TN + lane * 4 + q] = ar[q];
-      red[(warp * 2 + 1) * E_TN + lane * 4 + q] = ac[q];
+    for (int e = 0; e < 8; ++e) {
+#pragma unroll
+      for (int off = 8; off < 32; off <<= 1) {
+        kr[e] += __shfl_xor_sync(0xffffffffu, kr[e], off);
+        kc[e] += __shfl_xor_sync(0xffffffffu, kc[e], off);
+      }
+    }
+    if (lane < 8) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        red[(warp * 2 + 0) * X2_W + ch * 8 + e] = kr[e];
+        red[(warp * 2 + 1) * X2_W + ch * 8 + e] = kc[e];
+      }
     }
     __syncthreads();
-    if (tid < E_TN) {
-      float kr = 0.f, kc = 0.f;
-      for (int w = 0; w < E_WARPS; ++w) {   // fixed order
-        kr += red[(w * 2 + 0) * E_TN + tid];
-        kc += red[(w * 2 + 1) * E_TN + tid];
+    if (tid < 2 * X2_W) {
+      float acc = 0.f;
+      for (int w = 0; w < X2_WARPS; ++w) acc += red[w * 2 * X2_W + tid];   // warp order
+      part[tid] = acc;
+    }
+    __syncthreads();
+    // push the partial into slot `rank` of every block's receive buffer. A
+    // block writes slab q + 2's slot after it has every partial of slab
+    // q + 1, which the receiver sent after it read slab q's slot
+    if (tid < C * 32) {
+      const int dst = tid / 32, f4 = tid % 32;
+      x2_send(x2_mapa(smem_u32(rq + rank * 2 * X2_W + 4 * f4), dst),
+              reinterpret_cast<const float4*>(part)[f4], x2_mapa(rbar, dst));
+    }
+    if (tid < X2_W) {
+      mbar_wait_cluster(rbar, (q >> 1) & 1);
+      float kbr = 0.f, kbc = 0.f;
+      for (int rk = 0; rk < C; ++rk) {   // rank order: every block forms the same s
+        kbr += rq[rk * 2 * X2_W + tid];
+        kbc += rq[rk * 2 * X2_W + X2_W + tid];
       }
-      const int col = tile * E_TN + tid;
+      const int col = j0 + tid;
       float s = 0.f;
-      if (col < N) {
-        s = bm[col] / sqrtf(fmaxf(kr * kc, EPS));
-        s_out[col] = s;
+      if (col < a.N) {
+        s = bmv / sqrtf(fmaxf(kbr * kbc, EPS));
+        if (rank == 0) a.s_out[col] = s;
       }
       s_s[tid] = s;
     }
     __syncthreads();
-    // sweep 2: u += K_tile s_tile
-    float sv[4];
+    // sweep 2: each row's 8-column part of K s, from zero, into its u
+    float sv[8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) sv[q] = s_s[lane * 4 + q];
-#pragma unroll 4
-    for (int i = warp; i < P; i += E_WARPS) {
-      float v[4];
-      load4(strip, (size_t)i * N, c, N, vec, v);
-      float acc = v[0] * sv[0];
-      acc = fmaf(v[1], sv[1], acc);
-      acc = fmaf(v[2], sv[2], acc);
-      acc = fmaf(v[3], sv[3], acc);
+    for (int e = 0; e < 8; ++e) sv[e] = s_s[ch * 8 + e];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) u_s[i] += acc;   // row i belongs to one warp
+    for (int i = 0; i < X2_MAXR; ++i) {
+      const int r = rfirst + X2_RSTEP * i;
+      if (r >= R) break;
+      float x[8];
+      unpack8(*reinterpret_cast<const uint4*>(slab + r * 128 + ((ch ^ (r & 7)) << 4)), x);
+      float t = x[0] * sv[0];
+#pragma unroll
+      for (int e = 1; e < 8; ++e) t = fmaf(x[e], sv[e], t);
+      u[i] += t;
     }
-    __syncthreads();
+    __syncthreads();   // stage st, part and s_s are free
+    if (tid == 0 && q + S < mine)
+      x2_load(&map, ring + st * slab_bytes, bar0 + 8 * st, slab_bytes,
+              x2_slab(cid, ncl, q + S) * X2_W, row0);
   }
-  for (int i = tid; i < P; i += THREADS) u_part[(size_t)blockIdx.x * P + i] = u_s[i];
+  // each row's 8 chunk lanes in a fixed tree, then the cluster's u partial
+#pragma unroll
+  for (int i = 0; i < X2_MAXR; ++i) {
+    const int r = rfirst + X2_RSTEP * i;
+    if (r >= R) break;                 // warp-uniform: R % 8 == 0
+    float v = u[i];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (ch == 0) a.u_part[(size_t)cid * a.P + row0 + r] = v;
+  }
+  cluster.sync();   // no block leaves while partials are pushed to it
 }
 
-// out[i] = sum_g part[g * len + i], g in order
-__global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,
-                                int groups, size_t len) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int g = 0; g < groups; ++g) acc += part[(size_t)g * len + i];
-    out[i] = acc;
-  }
+// the strip as a 3-D view (N columns, 8 rows, P / 8 row groups; rows ld
+// elements apart) read in (64, 8, rows / 8) boxes with the 128-byte swizzle:
+// one box is a block's rows of a slab, row-major
+bool x2_map(CUtensorMap* m, const void* base, int N, int P, int ld, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, 8, (cuuint64_t)P / 8};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * 8};
+  const cuuint32_t box[3] = {X2_W, 8, (cuuint32_t)rows / 8}, unit[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------------------
@@ -222,59 +385,6 @@ struct SwArgs {
   float* part;         // (splits, P, kp) out     phase 2
   int P, N, kp, chunk;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// a (64 x 64) bf16 box at element coordinates (c0 inner, c1 outer) of a 2-D
-// tensor map into shared memory, completing on the barrier
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                        uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a multiple of 16) into shared memory
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // shared-memory matrix descriptor, 128-byte swizzle: the operand starts at
 // `addr` (its 1024-byte swizzle atoms aligned); lbo and sbo in bytes
@@ -377,7 +487,7 @@ __global__ __launch_bounds__(SW_THREADS, 1) void sandwich_kernel(
       *reinterpret_cast<uint4*>(smem + st * SW_STAGE_BYTES + SW_A_BYTES + SW_B_BYTES + 128 +
                                 16 * q) = make_uint4(0, 0, 0, 0);
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // seen by wgmma
+    fence_async_smem();   // seen by wgmma
   }
   if (tid == 0) {
     for (int s = 0; s < SW_STAGES; ++s) {
@@ -521,45 +631,13 @@ __global__ __launch_bounds__(SW_THREADS, 1) void sandwich_kernel(
   }
 }
 
-int launch_reduce(const float* part, float* out, int groups, size_t len, cudaStream_t s) {
-  const int threads = 256;
-  size_t blocks = (len + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  reduce_partials<<<(unsigned)blocks, threads, 0, s>>>(part, out, groups, len);
-  return 0;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major (outer, inner) bf16 matrix, rows ld apart, read in 64 x 64 boxes with the
-// 128-byte swizzle; out-of-range box entries read as zero
-bool bf16_map(CUtensorMap* m, const void* base, int inner, int outer, int ld) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// K2's kernel for a cluster of `cl` blocks and `smem` bytes a block
+cudaError_t x2_prepare(int cl, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(ext2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess && cl > 8)
+    e = cudaFuncSetAttribute(ext2_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
 }
 
 template <int PHASE, bool SPOST>
@@ -576,25 +654,51 @@ int launch_sandwich(dim3 grid, const CUtensorMap& am, const CUtensorMap& bmap, c
 
 extern "C" {
 
-size_t glt_ext2_smem_bytes(int P) {
-  return sizeof(float) * (3 * (size_t)P + E_WARPS * 2 * E_TN + E_TN);
+// K2's shared bytes a block of a `cl`-block cluster with `rows` rows and
+// `stages` slabs in flight (ops/cuda_strip.ext2_plan mirrors it)
+size_t glt_ext2_smem_bytes(int rows, int stages, int cl) { return x2_smem(rows, stages, cl); }
+
+// how many K2 clusters of `cl` blocks, `rows` rows and `stages` slabs a
+// block fit the card at once; a negative value is a cudaError
+int glt_ext2_strip_clusters(int cl, int rows, int stages) {
+  const size_t smem = x2_smem(rows, stages, cl);
+  cudaError_t e = x2_prepare(cl, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(cl, 1, X2_THREADS, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (void*)ext2_kernel, &cfg);
+  return e != cudaSuccess ? -static_cast<int>(e) : n;
 }
 
-// K2. u_part holds (blocks, P) floats.
+// K2 on the plan of ops/cuda_strip.ext2_plan: clusters of cl (8 or 16)
+// blocks of P / cl rows (a multiple of 8, at most 1024), `stages` slabs in
+// flight within 227 KB of shared memory; strip rows ld >= N apart, ld % 8 ==
+// 0, a 16-byte aligned base; 1 <= clusters <= ceil(N / 64). u_part holds
+// (clusters, P) floats, summed into u in cluster order.
 int glt_strip_ext2(const void* strip, const void* t2, const void* bm, void* s_out,
-                   void* u_part, void* u, int P, int N, int blocks, void* stream) {
+                   void* u_part, void* u, int P, int N, int ld, int cl, int stages,
+                   int clusters, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = glt_ext2_smem_bytes(P);
-  cudaFuncSetAttribute(ext2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  ext2_kernel<<<blocks, THREADS, smem, s>>>(
-      static_cast<const bf16*>(strip), static_cast<const bf16*>(t2),
-      static_cast<const float*>(bm), static_cast<float*>(s_out),
-      static_cast<float*>(u_part), P, N);
-  cudaError_t e = cudaGetLastError();
+  const int rows = (cl == 8 || cl == 16) ? P / cl : 0;
+  const size_t smem = x2_smem(rows, stages, cl);
+  CUtensorMap map;
+  if (rows == 0 || rows * cl != P || rows % 8 || rows > X2_RSTEP * X2_MAXR || stages < 1 ||
+      smem > X2_SMEM_CAP || clusters < 1 || clusters > (N + X2_W - 1) / X2_W ||
+      !x2_map(&map, strip, N, P, ld, rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = x2_prepare(cl, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  launch_reduce(static_cast<const float*>(u_part), static_cast<float*>(u), blocks,
-                (size_t)P, s);
-  return static_cast<int>(cudaGetLastError());
+  const X2Args a = {static_cast<const bf16*>(t2), static_cast<const float*>(bm),
+                    static_cast<float*>(s_out), static_cast<float*>(u_part), P, N, rows, stages};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(cl, clusters, X2_THREADS, smem, s, attr);
+  e = cudaLaunchKernelEx(&cfg, ext2_kernel, map, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_reduce(static_cast<const float*>(u_part), static_cast<float*>(u), clusters,
+                       (size_t)P, s);
 }
 
 // K3 (t != null: s_post from s_pre, bm) or K4 (t == null: s2 given).
@@ -608,8 +712,9 @@ int glt_strip_sandwich(const void* strip, const void* ta, const void* t,
                        int P, int N, int ld, int kp, int splits, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   CUtensorMap strip_map, ta_map, ws_map;
-  if (!bf16_map(&strip_map, strip, N, P, ld) || !bf16_map(&ta_map, ta, kp, P, kp) ||
-      !bf16_map(&ws_map, ws, kp, N, kp))
+  if (!tile_map(&strip_map, strip, false, N, P, ld, 64, 64) ||
+      !tile_map(&ta_map, ta, false, kp, P, kp, 64, 64) ||
+      !tile_map(&ws_map, ws, false, kp, N, kp, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   SwArgs a = {};
   a.t = static_cast<const bf16*>(t);

@@ -28,9 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # C signatures (all kernels return cudaGetLastError() as an int)
 _SIGNATURES = {
-    "glt_affinity_strip": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "glt_ext2_smem_bytes": ([_I], _Z),
-    "glt_strip_ext2": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "glt_affinity_scratch_bytes": ([_I], _Z),
+    "glt_affinity_strip": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "glt_ext2_smem_bytes": ([_I, _I, _I], _Z),
+    "glt_ext2_strip_clusters": ([_I, _I, _I], _I),
+    "glt_strip_ext2": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "glt_strip_sandwich": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "glt_ext2_clusters": ([_I], _I),

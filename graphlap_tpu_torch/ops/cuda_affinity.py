@@ -2,12 +2,15 @@
 ``graphlap_tpu/ops/pallas_affinity.py:affinity_strip_pallas``).
 
 ``affinity_strip_cuda`` computes the K strip (p, N) = exp(-|f_Ai - f_j|^2)
-with the distance GEMM and the exp in one kernel
-(``csrc/affinity_strip.cu``: IEEE f32 SIMT GEMM, exp epilogue, bf16 or f32
-store), so the f32 distance matrix never reaches device memory. The GEMM
-inputs round to ``dtype`` first and the norms come from those rounded
+with the distance cross and the exp in one kernel, so the f32 distance
+matrix never reaches device memory (``csrc/affinity_strip.cu``: the cross
+at the reference's "highest" precision as a split-fp16 tensor-core product,
+as the f32 K5/K6 form it; the bf16 entry's exp one MUFU ex2, the f32 one
+IEEE expf; each 128 x 128 tile staged in shared memory and written by TMA).
+The inputs round to ``dtype`` first and the norms come from those rounded
 values, as in the Pallas body; ``store_dtype`` narrows only the stored
-strip (the bfloat16_store policy).
+strip (the bfloat16_store policy). The kernel takes up to ``MAX_FEATURES``
+feature lanes (NLM patches up to 5 x 5 with two coordinates).
 
 Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
 arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
@@ -19,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+MAX_FEATURES = 32        # feature lanes of the kernel's cross (csrc A1_FD)
 
 
 def _device_kind(*ts: torch.Tensor) -> str:
@@ -65,13 +70,26 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
     n, d2 = feats_all.shape
     if d2 != d:
         raise ValueError(f"feature dims differ: {d} vs {d2}")
+    if not 0 < d <= MAX_FEATURES or p == 0 or n == 0:
+        raise ValueError(f"affinity_strip: the kernel takes 1..{MAX_FEATURES} "
+                         f"feature lanes and non-empty operands, got ({p}, "
+                         f"{d}) x ({n}, {d2})")
     a = feats_a.to(dtype).to(torch.float32).contiguous()
-    bt = feats_all.to(dtype).to(torch.float32).T.contiguous()     # (d, n)
-    out = torch.empty((p, n), dtype=out_dtype, device=feats_a.device)
-    rc = _build.lib().glt_affinity_strip(
-        a.data_ptr(), bt.data_ptr(), out.data_ptr(), p, n, d,
-        int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
+    b = feats_all.to(dtype).to(torch.float32).contiguous()
+    lib = _build.lib()
+    # the TMA store needs rows 16 bytes apart: a ragged N is written into
+    # padded rows and copied out once
+    per = 16 // out_dtype.itemsize
+    ld = -(-n // per) * per
+    out = torch.empty((p, ld), dtype=out_dtype, device=feats_a.device)
+    scratch = torch.empty(lib.glt_affinity_scratch_bytes(p), dtype=torch.uint8,
+                          device=feats_a.device)
+    rc = lib.glt_affinity_strip(
+        a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(), p, n,
+        d, ld, int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
     _build.check(rc, "affinity_strip")
+    if ld != n:
+        out = out[:, :n].contiguous()
     affinity_strip_cuda.launches += 1
     return out
 

@@ -24,15 +24,20 @@ must be a multiple of ``P_QUANTUM``. There is no fallback from a kernel to
 its plain version. A CUDA f32 strip raises ``NotImplementedError``: an IEEE
 f32 sweep kernel waits for ROADMAP.md Queue 2 (K2-K4, f32 strips).
 
-Strip reads a call on CUDA: K2 2, K3 2, K4 2 (the Pallas kernels read it
-once each). K3/K4 are two launches of one wgmma kernel (TMA ring, a
-producer warpgroup, two consumer warpgroups): W = K^T ta with the ws epilogue,
-then U = K ws split over N into fixed-order partials (``sandwich_splits``).
+Strip reads a call on CUDA: K2 1, K3 2, K4 2 (the Pallas kernels read it
+once each). K2 runs in thread-block clusters that share 64-column slabs
+(``ext2_plan``): each block holds its slice of the slab's rows in shared
+memory, the blocks push their column-sum partials into each other's shared
+memory, and the row sums K s are formed from the same staged rows. K3/K4
+are two launches of one wgmma kernel (TMA ring, a producer warpgroup, two
+consumer warpgroups): W = K^T ta with the ws epilogue, then U = K ws split
+over N into fixed-order partials (``sandwich_splits``).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -42,6 +47,9 @@ from .cuda_affinity import _device_kind
 EPS = 1e-30
 P_QUANTUM = 128          # strip rows per sandwich output tile (csrc SW_BM)
 KP_QUANTUM = 256         # sketch columns per sandwich tile (csrc SW_BN)
+EXT2_SLAB = 64           # K2's columns a slab: 128-byte rows (csrc X2_W)
+EXT2_MAX_P = 8192        # the largest P the path gives (config sample_cap)
+SMEM_CAP = 232448        # an H100 block's shared memory (227 KB)
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -98,6 +106,62 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
+@dataclass(frozen=True)
+class Ext2Plan:
+    """K2's launch plan for P strip rows: clusters of ``cluster`` blocks,
+    each block ``rows`` = P / cluster of the rows, ``stages`` 64-column slabs
+    of them in flight, ``smem`` shared bytes a block."""
+    cluster: int
+    rows: int
+    stages: int
+    smem: int
+
+
+def ext2_smem(rows: int, stages: int, cluster: int) -> int:
+    """csrc ``x2_smem``: alignment slack, the slabs, tr and tc of the rows,
+    16 warps' kbt partials, the block's partial, the partials received from
+    the cluster (two slabs), s, and the barriers (one a stage, two for the
+    received partials)."""
+    return (1024 + stages * rows * 2 * EXT2_SLAB
+            + 4 * (2 * rows + 16 * 2 * EXT2_SLAB + 2 * EXT2_SLAB
+                   + 2 * cluster * 2 * EXT2_SLAB + EXT2_SLAB)
+            + 8 * (stages + 2))
+
+
+def ext2_plan(p: int) -> Ext2Plan:
+    """The plan csrc ``glt_strip_ext2`` takes for P rows (a positive multiple
+    of 128 up to 8192): clusters of 8 (portable) with the most slabs in
+    flight (up to 4) that fit, at least 2 so the next slab loads while one
+    is summed; past that (P > 6400) clusters of 16. Raises for a P outside
+    that range."""
+    if p <= 0 or p % P_QUANTUM or p > EXT2_MAX_P:
+        raise ValueError(f"strip_ext2: strip rows {p} must be a positive "
+                         f"multiple of {P_QUANTUM} up to {EXT2_MAX_P}")
+    for cluster in (8, 16):
+        rows = p // cluster
+        for stages in (4, 3, 2):
+            smem = ext2_smem(rows, stages, cluster)
+            if smem <= SMEM_CAP:
+                return Ext2Plan(cluster, rows, stages, smem)
+    raise ValueError(f"strip_ext2: no plan fits P={p}")
+
+
+def _aligned(x: torch.Tensor) -> bool:
+    return x.data_ptr() % 16 == 0
+
+
+def _tma_strip(strip: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(strip, ld): TMA reads rows 16 bytes apart from a 16-byte aligned
+    base, so a strip with N % 8 != 0 is copied once into zero-padded rows."""
+    p, n = strip.shape
+    ld = math.ceil(n / 8) * 8
+    if ld != n or not _aligned(strip):
+        padded = torch.zeros((p, ld), dtype=strip.dtype, device=strip.device)
+        padded[:, :n] = strip
+        strip = padded
+    return strip, ld
+
+
 def strip_ext2_cuda(strip, t2, b_mask):
     """((P, N) strip, (2, P), (N,)) -> (u (P,) f32, s (N,) f32)."""
     if _device_kind(strip, t2, b_mask) == "cpu":
@@ -107,19 +171,28 @@ def strip_ext2_cuda(strip, t2, b_mask):
     if t2.shape != (2, p) or b_mask.shape != (n,):
         raise ValueError(f"strip_ext2: shapes {tuple(t2.shape)}, "
                          f"{tuple(b_mask.shape)} do not fit strip {(p, n)}")
+    if n == 0:
+        raise ValueError("strip_ext2: empty strip")
+    plan = ext2_plan(p)
     lib = _build.lib()
-    smem = lib.glt_ext2_smem_bytes(p)
-    if smem > 227 * 1024:
-        raise ValueError(f"strip_ext2: P={p} needs {smem} B of shared memory")
-    blocks = min(math.ceil(n / 128), 3 * _sms(strip))
+    clusters = lib.glt_ext2_strip_clusters(plan.cluster, plan.rows,
+                                           plan.stages)
+    _build.check(-min(clusters, 0), "strip_ext2 (cluster occupancy)")
+    if clusters == 0:
+        raise RuntimeError(f"strip_ext2: no cluster of {plan.cluster} blocks "
+                           f"with {plan.smem} B each fits the card")
+    clusters = min(clusters, math.ceil(n / EXT2_SLAB))
+    strip, ld = _tma_strip(strip)
     t2b = t2.to(torch.bfloat16).contiguous()
     bm = _f32(b_mask)
     s = torch.empty(n, dtype=torch.float32, device=strip.device)
-    u_part = torch.empty((blocks, p), dtype=torch.float32, device=strip.device)
+    u_part = torch.empty((clusters, p), dtype=torch.float32,
+                         device=strip.device)
     u = torch.empty(p, dtype=torch.float32, device=strip.device)
     rc = lib.glt_strip_ext2(strip.data_ptr(), t2b.data_ptr(), bm.data_ptr(),
                             s.data_ptr(), u_part.data_ptr(), u.data_ptr(),
-                            p, n, blocks, _build.stream_ptr(strip))
+                            p, n, ld, plan.cluster, plan.stages, clusters,
+                            _build.stream_ptr(strip))
     _build.check(rc, "strip_ext2")
     strip_ext2_cuda.launches += 1
     return u, s
@@ -137,10 +210,6 @@ def sandwich_splits(p: int, n: int, kp: int, sms: int) -> int:
         if eff > best_eff + 1e-9:
             best, best_eff = s, eff
     return best
-
-
-def _aligned(x: torch.Tensor) -> bool:
-    return x.data_ptr() % 16 == 0
 
 
 def _bf16_tma(x: torch.Tensor) -> torch.Tensor:
@@ -166,13 +235,7 @@ def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
     if n == 0 or kp == 0:
         raise ValueError(f"{what}: empty strip or ta ({n} columns, kp {kp})")
     dev = strip.device
-    # the TMA maps need rows 16 bytes apart and 16-byte aligned bases: a
-    # strip with N % 8 != 0 is copied once into zero-padded rows
-    ld = math.ceil(n / 8) * 8
-    if ld != n or not _aligned(strip):
-        padded = torch.zeros((p, ld), dtype=strip.dtype, device=dev)
-        padded[:, :n] = strip
-        strip = padded
+    strip, ld = _tma_strip(strip)
     kp2 = math.ceil(kp / KP_QUANTUM) * KP_QUANTUM
     if kp2 == kp:                     # the callers' kp: no zero padding
         tab = _bf16_tma(ta)

@@ -68,8 +68,9 @@ def main() -> None:
         else:
             cases, _, signed = cs.colstats_v_cases(ctx, cfg, img_d, dev,
                                                    rows)
-        cs.run_cases(cases, rows, {k: (*v[:3], False, *v[4:])
-                                   for k, v in signed.items()})
+        cs.run_cases(cases, rows, {k: [(*v[:3], False, *v[4:])
+                                       for v in cs.lean_specs(spec)]
+                                   for k, spec in signed.items()})
         del ctx, cases
         torch.cuda.empty_cache()
     print(json.dumps(dict(repo=str(repo), signed=rows["signed"],

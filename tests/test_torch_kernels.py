@@ -280,6 +280,132 @@ def test_sandwich_splits_fill_the_last_wave(p, n, kp, sms, want):
     assert tiles * s / (waves * sms) >= 0.49
 
 
+def _split_fp16(x):
+    """The kernel's split of f32 feature rows (csrc split2): each row scaled
+    by 2^-E (its largest |x| < 2^E), big on the grid 2^-10 (exact in fp16),
+    small = fp16(rest); both zero-padded to the kernel's 32 lanes."""
+    m = x.abs().amax(1)
+    e = torch.where(m > 0, torch.frexp(m).exponent,
+                    torch.full_like(m, -100, dtype=torch.int32))
+    e = e.clamp(-100, 100)
+    xs = x * torch.exp2(-e.float())[:, None]
+    big = torch.round(xs * 1024) / 1024              # rintf: half to even
+    small = (xs - big).half().float()
+    lanes = (0, 32 - x.shape[1])
+    return (torch.nn.functional.pad(big, lanes),
+            torch.nn.functional.pad(small, lanes), e)
+
+
+def _split_cross_d2(a, b):
+    """K1's d2 emulated in torch: big.big a k16 step each (sums of 16
+    products on the 2^-20 grid, exact in f32), big.small + small.big in f32,
+    small.small dropped, scaled back by 2^(Ea + Eb); d2 = (na + nb) - 2 cross
+    rounded once (the kernel's FMA). Returns (d2, 2^(Ea + Eb))."""
+    ab, as_, ea = _split_fp16(a)
+    bb, bs, eb = _split_fp16(b)
+    cross = ((ab[:, :16] @ bb[:, :16].T + ab[:, 16:] @ bb[:, 16:].T)
+             + (ab @ bs.T + as_ @ bb.T))
+    scale = torch.exp2((ea[:, None] + eb[None, :]).double())
+    nn = (torch.sum(a * a, 1)[:, None] + torch.sum(b * b, 1)[None, :])
+    d2 = (nn.double() - 2.0 * scale * cross.double()).float()
+    return d2.clamp(min=0.0), scale
+
+
+def test_k1_split_fp16_cross_holds_the_f32_cross():
+    """The kernel's cross, emulated, on the 96x96 config-2 features with the
+    strip path's poison rows (+1e3) and columns (-1e3), against the plain
+    version's f32 cross. Bound: the dropped small.small terms (32 x 2^-22 of
+    2^(Ea + Eb)), the fp16 rounding of the smalls (2 x 32 x 2^-22) and the
+    f32 rounding of the plain cross (32 x 2^-24), doubled in d2, are under
+    2^-14 2^(Ea + Eb); d2's own rounding adds an f32 ulp of na + nb."""
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(96, 96), 0.1,
+                                        seed=1), 0, 1).astype(np.float32)
+    f = taff.extract_features_padded(T(img), gt.CONFIG2, 96 * 96 + 64)
+    f[96 * 96:] = -1e3                                  # padding columns
+    rng = np.random.default_rng(0)
+    p = 184
+    idx = torch.tensor(rng.choice(96 * 96, p, replace=False))
+    a = torch.cat([f[idx], torch.full((256 - p, f.shape[1]), 1e3)])
+    d2, scale = _split_cross_d2(a, f)
+    nn = (torch.sum(a * a, 1)[:, None] + torch.sum(f * f, 1)[None, :])
+    d2_plain = torch.clamp(nn - 2.0 * (a @ f.T), min=0.0)
+    real = (slice(0, p), slice(0, 96 * 96))
+    bar = 2.0 ** -14 * scale + 2.0 ** -22 * nn.double()
+    assert bool(((d2 - d2_plain).abs().double() <= bar)[real].all())
+    # the stored bf16 strip within one ulp of the plain version's
+    strip = torch.exp(-d2).to(torch.bfloat16)
+    plain = k1.affinity_strip_plain(a, f, torch.float32, torch.bfloat16)
+    assert float((strip.float() - plain.float()).abs().max()) <= BF16_ULP
+    # poison rows and columns: exactly zero
+    assert bool((strip[p:] == 0).all())
+    assert bool((strip[:, 96 * 96:] == 0).all())
+
+
+@pytest.mark.parametrize("p,cluster,stages", [
+    (128, 8, 4),          # the smallest strip: 16 rows a block
+    (1024, 8, 4),
+    (4096, 8, 3),
+    (5248, 8, 2),         # the main path: 656 rows a block
+    (6400, 8, 2),         # the largest P two 64-column slabs of 8 blocks fit
+    (6528, 16, 3),        # past it, clusters of 16
+    (8192, 16, 3),        # the sample cap
+])
+def test_k2_plan_picks_the_cluster_and_stages(p, cluster, stages):
+    """K2's launch plan (csrc glt_strip_ext2 refuses any other): portable
+    8-block clusters with the most 64-column slabs in flight (up to 4, at
+    least 2) within 227 KB, else clusters of 16."""
+    plan = k24.ext2_plan(p)
+    assert (plan.cluster, plan.stages) == (cluster, stages)
+    assert plan.rows == p // cluster
+    assert plan.smem == k24.ext2_smem(plan.rows, plan.stages, plan.cluster)
+
+
+def test_k2_plan_serves_every_p_of_the_path():
+    """Every P the path gives (multiples of 128 up to the 8192 sample cap):
+    the blocks of a cluster cover P, a block's rows are whole 8-row TMA
+    boxes and at most 1024 (32 a thread of its 256), at least two slabs in
+    flight, within the 227 KB a block can have."""
+    for p in range(128, k24.EXT2_MAX_P + 1, k24.P_QUANTUM):
+        plan = k24.ext2_plan(p)
+        assert plan.cluster in (8, 16)
+        assert plan.rows * plan.cluster == p
+        assert plan.rows % 8 == 0 and plan.rows <= 1024
+        assert 2 <= plan.stages <= 4
+        assert plan.smem <= k24.SMEM_CAP
+        # the slab ring is the bulk of it: 128 bytes a row a stage
+        assert plan.smem >= plan.stages * plan.rows * 2 * k24.EXT2_SLAB
+
+
+@pytest.mark.parametrize("p", [64, 192, 8320])
+def test_k2_raises_before_a_launch_for_p_outside_the_plan(monkeypatch, p):
+    """A P that is not a multiple of 128 or is past the sample cap has no
+    plan: the CUDA branch raises before it asks for the kernel library."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k24, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    s = torch.zeros((p, 256), dtype=torch.bfloat16)
+    before = _counts()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        k24.strip_ext2_cuda(s, torch.ones((2, p)), torch.ones(256))
+    assert _counts() == before
+
+
+def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
+    """The emitter's cross takes at most 32 feature lanes (a 5 x 5 patch
+    and two coordinates); a 7 x 7 patch raises before any launch."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k1, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    before = _counts()
+    with pytest.raises(ValueError, match="feature lanes"):
+        k1.affinity_strip_cuda(torch.zeros((8, 49)), torch.zeros((16, 49)))
+    assert _counts() == before
+
+
 # --- on the card: kernel against plain version ------------------------------
 
 @pytest.fixture
@@ -417,3 +543,92 @@ def test_k3_k4_do_not_lean(cuda_device):
         lean = ((got - ref) * torch.sign(ref))[keep]
         below = float((lean < 0).float().mean())
         assert 0.25 < below < 0.75, below
+
+
+def _device_strip(p, n, dev, seed):
+    """_strip_inputs' strip, t2 and b_mask made on the card (a P = 8192
+    strip is too large to draw with numpy in a test)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    strip = torch.rand((p, n), generator=gen, device=dev) ** 4
+    strip[p - 16:] = 0.0
+    strip[:, n - 40:] = 0.0
+    bm = (torch.rand(n, generator=gen, device=dev) > 0.05).float()
+    bm[n - 40:] = 0.0
+    t2 = 0.5 + torch.rand((2, p), generator=gen, device=dev)
+    return strip.to(torch.bfloat16), t2, bm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n", [
+    (8192, 65536),        # the sample cap: clusters of 16, 512 rows a block
+    (8192, 65540),        # ... with a ragged N (a last, partial slab)
+    (128, 4100),          # 16 rows a block, a ragged N
+])
+def test_k2_kernel_matches_plain_across_its_plans(cuda_device, p, n):
+    strip, t2, bm = _device_strip(p, n, cuda_device, seed=p + n)
+    before = k24.strip_ext2_cuda.launches
+    got = k24.strip_ext2_cuda(strip, t2, bm)
+    assert k24.strip_ext2_cuda.launches == before + 1
+    ref = k24.strip_ext2_plain(strip, t2, bm)
+    assert got[0].shape == (p,) and got[1].shape == (n,)
+    assert max(map(_rel_err, got, ref)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_k2_repeats_bit_for_bit(cuda_device):
+    """kbt meets in a fixed tree (rank order through distributed shared
+    memory) and u through per-cluster partials summed in a fixed order: two
+    launches agree bit for bit."""
+    strip, t2, bm = _device_strip(5248, 20000, cuda_device, seed=9)
+    a, b = (k24.strip_ext2_cuda(strip, t2, bm) for _ in range(2))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_k2_plan_mirrors_the_library(cuda_device):
+    """ext2_plan's shared bytes are the library's for every P of the path."""
+    lib = _build.lib()
+    for p in range(128, k24.EXT2_MAX_P + 1, k24.P_QUANTUM):
+        plan = k24.ext2_plan(p)
+        assert lib.glt_ext2_smem_bytes(plan.rows, plan.stages,
+                                       plan.cluster) == plan.smem
+
+
+def _config2_features(dev, p=300, seed=4):
+    """Config-2 patch features (raw / (h 5), h = 0.15) of a noisy 96x96 test
+    image: p sample rows and every pixel."""
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(96, 96), 0.1,
+                                        seed=1), 0, 1).astype(np.float32)
+    f = taff.extract_features(torch.tensor(img, device=dev), gt.CONFIG2)
+    rng = np.random.default_rng(seed)
+    idx = torch.tensor(rng.choice(f.shape[0], p, replace=False), device=dev)
+    return f[idx].contiguous(), f
+
+
+@pytest.mark.gpu
+def test_k1_poison_rows_and_columns_store_exact_zeros(cuda_device):
+    """The strip path's padding features (+1e3 rows, -1e3 columns) give
+    exactly zero entries in both stores: the 2^-E scaling keeps them in
+    fp16 range and d2 ~ 1e7 underflows the exp."""
+    fa, f = _config2_features(cuda_device)
+    d = f.shape[1]
+    fa = torch.cat([fa, torch.full((84, d), 1e3, device=cuda_device)])
+    fall = torch.cat([f, torch.full((120, d), -1e3, device=cuda_device)])
+    for store in (torch.bfloat16, None):
+        out = k1.affinity_strip_cuda(fa, fall, torch.float32, store)
+        assert bool((out[300:] == 0).all())
+        assert bool((out[:, -120:] == 0).all())
+        assert bool((out[:300, :-120] > 0).any())
+
+
+@pytest.mark.gpu
+def test_k1_f32_store_at_config2_feature_scale(cuda_device):
+    """The f32 store (IEEE expf) on config 2's features, whose entries reach
+    1 on near-identical patches, within the f32 bar of the rand test; the
+    bf16 store within one ulp."""
+    fa, f = _config2_features(cuda_device)
+    for store, bar in ((None, 5e-5), (torch.bfloat16, BF16_ULP)):
+        got = k1.affinity_strip_cuda(fa, f, torch.float32, store)
+        ref = k1.affinity_strip_plain(fa, f, torch.float32, store)
+        assert got.dtype == ref.dtype
+        assert float((got.float() - ref.float()).abs().max()) <= bar
