@@ -10,7 +10,8 @@ non-zero before the last line is printed):
 2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
               process a source, all started together; the K3/K4 kernels'
               SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma, and
-              the K1 emitter's HMMA (its cross on the tensor cores).
+              the K1 emitter's and the aug K5/K6 kernel's HMMA (their
+              products on the tensor cores).
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
@@ -50,10 +51,17 @@ non-zero before the last line is printed):
               0.03 seed 3, tuned_config(CONFIG3, "fast"): per-channel
               sharpen 0.15 by exact matvecs, p=4096, bf16 tiles, coarse
               Sinkhorn 1/8 + one polish):
+   table    the aug entry at every one of the 65536 bf16(d2) patterns,
+            evaluated (kb_aug) and through the K5/K6 kernel's table lookup,
+            on the card: no pattern may differ; the live range read off the
+            evaluated entries and the patterns where K10's exp (one FMUL, one
+            MUFU ex2) would differ are printed beside;
    kernels  K5/K6 at channel 0's shapes (p_pad 4096, N 1048576), positive
-            vectors from a seeded generator, each against its plain version,
-            and each output's lean, (kernel - plain) / plain: mean, median
-            and share below zero, required in (0.25, 0.75);
+            vectors from a seeded generator, each against its plain version
+            (launched once more on the same inputs: the two runs must agree
+            bit for bit, as for the f32 K5/K6 of config 4q), and each
+            output's lean, (kernel - plain) / plain: mean, median and share
+            below zero, required in (0.25, 0.75);
    e2e      filter_image: warm-up and three timed runs, walls, peak memory,
             launches per call (6 / 6), the reference's config-3 quality bars
             (gradient-energy ratio, SSIM, PSNR);
@@ -196,7 +204,7 @@ NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
 # partials, no float atomics): checked by a second launch on the same inputs
 BIT_REPEAT = ("strip_ext2", "strip_sandwich_spost", "strip_sandwich",
-              "ext2_matvec",
+              "ext2_matvec", "matvec", "rmatvec", "matvec_f32", "rmatvec_f32",
               "finish_colstats", "colstats_v")
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
@@ -878,6 +886,41 @@ def config4(gt, dev, rows, launches, info):
                            small_db=s_db, small_max=s_max)
 
 
+def entry_table(dev, info) -> None:
+    """The aug K5/K6 kernel's tile entry against its evaluation at every one
+    of the 65536 bf16(d2) patterns, on the card: route 1 (the kernel's table
+    lookup) must equal route 0 (kb_aug, the expf the plain route's entry
+    matches) everywhere. Printed beside: the live range read off route 0
+    (the patterns whose entry is neither 1.0 nor 0: the clamp a table of
+    the live patterns only would need), and the patterns where K10's exp
+    (kexp: one FMUL, one MUFU ex2) differs from route 0, which it could
+    replace the table only at 0."""
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+
+    t0 = time.perf_counter()
+    ref, got = (k56.aug_entries(route, dev) for route in (0, 1))
+    d2 = (torch.arange(65536, dtype=torch.int32, device=dev) << 16).view(
+        torch.float32)
+    kx = (k79.kexp_bf16_cuda(d2).view(torch.int16).to(torch.int32) & 0xFFFF)
+    pos = ref[:0x7F81]                    # +0 .. +inf
+    one, zero = 0x3F80, 0
+    lo = int((pos != one).nonzero()[0]) - 1
+    hi = int((pos != zero).nonzero()[-1]) + 1
+    bad = int((got != ref).sum())
+    bad_neg = int((ref[0x8000:] != one).sum())
+    kexp_bad = int((kx != ref).sum())
+    phase("table", f"aug entry at 65536 bf16(d2) patterns: table lookup != "
+          f"kb_aug on {bad} (required 0); live range off the card's kb_aug "
+          f"{lo:#06x} .. {hi:#06x} (1.0 at and below, 0 at and above); "
+          f"negative patterns not 1.0: {bad_neg}; kexp (FMUL + MUFU ex2) != "
+          f"kb_aug on {kexp_bad}", t0)
+    require(bad == 0, "the aug entry table differs from kb_aug")
+    info["aug_entry_table"] = dict(mismatches=bad, live_lo=lo, live_hi=hi,
+                                   negative_not_one=bad_neg,
+                                   kexp_mismatches=kexp_bad)
+
+
 def config3(gt, dev, rows, launches, info):
     from graphlap_tpu_torch.metrics import ssim
     from graphlap_tpu_torch.models import streaming as ms
@@ -895,6 +938,7 @@ def config3(gt, dev, rows, launches, info):
           f"n_pad_k={ctx.f_t.shape[1]}; {cfg.filter_name} "
           f"{cfg.filter_param}, {cfg.filter_mode}, sinkhorn_coarse "
           f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
+    entry_table(dev, info)
     run_cases(*matvec_cases(ctx, dev, ("matvec", "rmatvec"), rows))
     del ctx
     torch.cuda.empty_cache()
@@ -1227,6 +1271,12 @@ def main() -> None:
           f"on the tensor cores), from cuobjdump -sass: {hmma}")
     require(hmma and all(hmma.values()),
             "the K1 emitter does not run its cross on the tensor cores")
+    hmma = sass_uses(_build, "aug_sum_kernel", "HMMA")
+    phase("build", f"aug K5/K6 kernel holding HMMA (d2 and the w product on "
+          f"the tensor cores), from cuobjdump -sass: {hmma}")
+    require(hmma and all(hmma.values()),
+            "the aug K5/K6 kernel does not run its products on the tensor "
+            "cores")
 
     rows, launches, info = {}, {}, {}
     config2(gt, dev, rows, launches, info)

@@ -25,11 +25,13 @@
 // one kernel per layout serves both.
 //
 // What bounds them on an H100. Config 3 (aug, p_pad 4096, n 1048576): 4.3e9
-// tile entries a launch; d2 is 0.28 TFLOP bf16 (0.28 ms at 989 TFLOP/s) and
-// each entry's epilogue (max, bf16 round, expf, pack) ~10 FP32-pipe
-// instructions plus one MUFU ex2: ~1-1.5 ms of SIMT issue at 132 SMs — bound
-// by the per-entry SIMT work. 8 MP (f32, p_pad 4096, n 8388608): 3.4e10
-// entries; the cross is 2.2 TFLOP, three fp16 passes of it 6.7 ms at the
+// tile entries a launch; d2 is 0.28 TFLOP bf16 (0.28 ms at 989 TFLOP/s). The
+// entry bf16(exp(-bf16(max(d2, 0)))) is a function of the 16-bit bf16(d2)
+// alone, so it needs no exp: one conflict-free shared-memory load an entry
+// (32 lanes a clock an SM) or 8 f32 operations an entry give 0.51 ms at 132
+// SMs, the bound. An IEEE expf an entry (the first port) cost ~10 FP32-pipe
+// instructions and one MUFU: 3.1 ms a launch (NVIDIA H100 80GB HBM3,
+// 700.00 W). 8 MP (f32, p_pad 4096, n 8388608): 3.4e10 entries; the cross is 2.2 TFLOP, three fp16 passes of it 6.7 ms at the
 // card's 989 TFLOP/s (13.4 ms as tf32 at 494.7; as an IEEE-f32 SIMT product
 // 37 ms at 67); each entry's epilogue (two adds, the scale, d2, max, expf,
 // the FMA into its sum) is ~15 FP32-pipe instructions, ~15 ms of issue, and
@@ -37,16 +39,28 @@
 // (features 64-128 B a column, read once from device memory; the fixed
 // side's tile re-reads come from L2).
 //
-// Design, aug (tensor cores): a 256-thread block owns 256 fixed entries, each
-// warp 32 of them as bf16 A fragments held in registers for the whole run;
-// 128-entry tiles of the streamed side arrive through shared memory with
-// cp.async double buffering and feed the B fragments by ldmatrix.trans. A
-// warp's d2 is two m16n8k16 mma per 16 x 8 sub-tile, the exp epilogue runs on
-// the accumulator registers, and the packed bf16 tile (the accumulator layout
-// is the A-fragment layout) times [bf16(w), 0, ...] is one more mma. Each
-// tile's sums start from a zero accumulator and join the running sums by an
-// f32 add: the tensor core's f32 accumulation truncates, so a running sum
-// carried through ~2000 mma steps would lean low.
+// Design, aug (tensor cores, an entry table): persistent blocks, one an SM,
+// walk work items (a 1024-entry slice of the fixed side by a split of the
+// streamed side). Each block first builds the entry table, 128 KB, one
+// 2-byte entry for each bf16(d2) pattern, with the same kb_aug the plain
+// route evaluates, so a lookup is bit-identical to it: an entry is
+// bf16(max(d2, 0)) (a pair at a time) and one 2-byte shared load. The loads fall on
+// random banks; copies of the 1979 live patterns (16 or 32 a bank, fewer
+// wavefronts) need a clamp and more address arithmetic, and measured
+// slower. A producer warp keeps a ring of 256-entry streamed tiles (32 rows
+// and w, bulk copies completing on mbarriers) in flight; 16 consumer warps
+// each hold 64 fixed entries as bf16 A fragments in registers for the item
+// and release a stage by an mbarrier arrive, so no block barrier stalls
+// them. A warp's d2 is two m16n8k16 mma per 16 x 8 sub-tile, the entries
+// replace the accumulator in place (the accumulator layout is the
+// A-fragment layout), and the packed bf16 tile times [bf16(w), 0, ...] is
+// one more mma. Each 128-entry span's sums start from a zero accumulator
+// and join the running sums by an f32 add: the tensor core's f32
+// accumulation truncates, so a running sum carried through ~2000 mma steps
+// would lean low. Measured (scripts/matvec_designs.py, PERF.md): the entry
+// path (rounding, address, two loads, the pack) holds it; a wgmma design
+// (three warpgroups, d2 from a TMA ring) ran slower, its entry path alone
+// as long.
 // Design, f32 (tensor cores, split fp16): each feature vector is scaled
 // by 2^-E (exact), E the exponent of its largest entry, and each scaled
 // feature is big + small, big on the grid 2^-10 (split2: the sums of big
@@ -65,11 +79,11 @@
 // rounding here to hide a cheaper exp), an f32 FMA with w into the tile's
 // sum of each fixed entry, which joins its running sum by one f32 add a
 // tile; the quad's lanes meet by a shuffle tree at the end.
-// Both: the streamed axis splits across blocks (grid.y) only where the fixed
-// side alone does not fill the card (K5), as many splits as fill one wave of
-// the kernel's resident blocks (glt_recompute_slots); per-split partials are
-// then summed by a fixed-order reduction kernel. No float atomics: runs
-// repeat bit for bit.
+// Both: the streamed axis splits (the f32 kernel's grid.y, the aug kernel's
+// work items) only where the fixed side alone does not fill the card (K5),
+// as many splits as fill one wave of the kernel's resident blocks
+// (glt_recompute_slots); per-split partials are then summed by a
+// fixed-order reduction kernel. No float atomics: runs repeat bit for bit.
 //
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() (or the first error).
@@ -78,12 +92,23 @@
 
 namespace {
 
-constexpr int THREADS = 256;            // aug
 constexpr int FD = 32;                  // feature depth (both layouts)
-constexpr int A_RT = 2;                 // aug: fixed 16-tiles a warp
-constexpr int A_FT = 8 * A_RT * 16;     // aug: fixed entries a block (256)
-constexpr int A_ST = 128;               // aug: streamed entries a tile
-constexpr int A_LDS = A_ST + 8;         // padded smem row: 272 B, ldmatrix conflict-free
+constexpr int A_WARPS = 16;             // aug: consumer warps a block
+constexpr int A_THREADS = 32 * (A_WARPS + 1);   // aug: + one producer warp
+constexpr int A_RT = 4;                 // aug: fixed 16-tiles a warp
+constexpr int A_FT = A_WARPS * A_RT * 16;       // aug: fixed entries a work item (1024)
+constexpr int A_ST = 256;               // aug: streamed entries a ring stage
+constexpr int A_LDS = A_ST + 8;         // padded stage row: 528 B, ldmatrix conflict-free
+constexpr int A_STAGES = 4;             // aug: ring depth
+constexpr int A_SPAN = 128;             // aug: streamed entries a tile sum runs from zero
+constexpr int A_STAGE_BYTES = 2 * (FD * A_LDS + A_ST);  // 32 feature rows and w
+// the entry table: the bf16 entry of every one of the 65536 bf16(d2)
+// patterns (chip_smoke.py checks each against kb_aug on the card)
+constexpr size_t TAB_BYTES = 65536 * 2;
+// the table, the ring, 2 barriers a stage
+constexpr size_t A_SMEM = TAB_BYTES + (size_t)A_STAGES * A_STAGE_BYTES + 16 * A_STAGES;
+static_assert(A_STAGE_BYTES % 16 == 0, "alignment");
+static_assert(A_ST % A_SPAN == 0 && A_SPAN % 16 == 0, "aug spans");
 constexpr int T_THREADS = 128;          // f32: 4 warps
 constexpr int T_BLOCKS_SM = 4;          // f32: blocks an SM (registers, 52 KB smem)
 constexpr int T_RT = 2;                 // f32: fixed 16-tiles a warp
@@ -115,90 +140,189 @@ __device__ __forceinline__ void load_tile(E* dst, int lds, E* wdst, const E* __r
 // aug bf16: out_part[split][f] = sum_s bf16(w_s) k_aug(f, s) over the split
 // ---------------------------------------------------------------------------
 
-__global__ __launch_bounds__(THREADS) void aug_sum_kernel(
+// the bf16 bits of the aug entry kb_aug at bf16(d2) pattern x
+__device__ __forceinline__ uint32_t entry_bits(uint32_t x) {
+  return __float_as_uint(kb_aug(__uint_as_float(x << 16))) >> 16;
+}
+
+// the entry table, from kb_aug: one 2-byte entry a pattern
+__device__ void build_table(unsigned char* tab, int tid, int nthreads) {
+  for (int x = tid; x < 65536; x += nthreads)
+    reinterpret_cast<unsigned short*>(tab)[x] = (unsigned short)entry_bits(x);
+}
+
+// the table's shared address, taken after the table is built: the loads
+// that add to it cannot move above that barrier
+__device__ __forceinline__ uint32_t table_base(const unsigned char* tab) {
+  uint32_t a = smem_u32(tab);
+  asm volatile("" : "+r"(a)::"memory");
+  return a;
+}
+
+__device__ __forceinline__ uint32_t lds16(uint32_t a) {
+  uint32_t v;
+  asm("ld.shared.u16 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+
+// two aug entries, packed bf16 (lo in the low half), from two f32 d2: the
+// pair rounded to bf16 with negatives to +0 (the entry of a negative
+// pattern is 1.0, as +0's), then two 2-byte table loads at the patterns
+// (tl: table_base); the low pattern's sign bit is then clear, so the high
+// one's byte offset is w >> 15. Lanes load where their patterns fall: a
+// load takes as many shared-memory wavefronts as its busiest bank (copies
+// of the live patterns a bank, or a clamp, cost more than they save:
+// PERF.md)
+__device__ __forceinline__ uint32_t entry2(float lo, float hi, uint32_t tl) {
+  uint32_t w;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(w) : "f"(hi), "f"(lo));
+  return lds16(tl + 2u * (w & 0xFFFFu)) | (lds16(tl + (w >> 15)) << 16);
+}
+
+__global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
     const bf16* __restrict__ fixed_t,   // (32, Lf) k-major aug
     const bf16* __restrict__ strm_t,    // (32, Ls) k-major aug
     const bf16* __restrict__ w,         // (Ls) bf16-rounded
     float* __restrict__ part,           // (splits, Lf)
-    int Lf, int Ls, int tiles_per_split) {
-  __shared__ __align__(16) bf16 s_s[2][FD][A_LDS];
-  __shared__ __align__(16) bf16 w_s[2][A_ST];
+    int Lf, int Ls, int splits, int tiles_per_split) {
+  extern __shared__ __align__(16) unsigned char a_smem[];
+  unsigned char* tab = a_smem;
+  unsigned char* ring = a_smem + TAB_BYTES;
+  const uint32_t full0 = smem_u32(ring + A_STAGES * A_STAGE_BYTES), empty0 = full0 + 8 * A_STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;
+  const int items = (Lf + A_FT - 1) / A_FT * splits;
   const int ntiles = Ls / A_ST;
-  const int t0 = blockIdx.y * tiles_per_split;
-  const int t1 = min(ntiles, t0 + tiles_per_split);
-  const int fw = blockIdx.x * A_FT + warp * A_RT * 16;   // this warp's fixed entries
 
-  uint32_t a[A_RT][2][4];
-  const unsigned short* fx = reinterpret_cast<const unsigned short*>(fixed_t);
-#pragma unroll
-  for (int r = 0; r < A_RT; ++r) {
-    frag_a_kmajor(a[r][0], fx, (size_t)Lf, fw + 16 * r, 0, g, tq);
-    frag_a_kmajor(a[r][1], fx, (size_t)Lf, fw + 16 * r, 16, g, tq);
+  build_table(tab, tid, A_THREADS);
+  if (tid == 0) {
+    for (int s = 0; s < A_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, A_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[A_RT][4];
-#pragma unroll
-  for (int r = 0; r < A_RT; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+  __syncthreads();
 
-  if (t0 < t1)
-    load_tile<THREADS>(&s_s[0][0][0], A_LDS, w_s[0], strm_t, w, (size_t)Ls, (size_t)t0 * A_ST,
-                       A_ST);
-  for (int tile = t0; tile < t1; ++tile) {
-    const int buf = (tile - t0) & 1;
-    cp_async_wait_all();
-    __syncthreads();                     // tile in; everyone done with buf ^ 1
-    if (tile + 1 < t1)
-      load_tile<THREADS>(&s_s[buf ^ 1][0][0], A_LDS, w_s[buf ^ 1], strm_t, w, (size_t)Ls,
-                         (size_t)(tile + 1) * A_ST, A_ST);
-    // this tile's sums start from zero and join the running sums by an f32
-    // add: the tensor core's accumulation truncates, and a running sum
-    // carried through every tile's mma would end low
-    float tacc[A_RT][4];
-#pragma unroll
-    for (int r = 0; r < A_RT; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tacc[r][e] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < A_ST / 16; ++c) {
-      uint32_t b0[4], b1[4];             // streamed 16c..16c+7 and 16c+8..16c+15
-      ldsm_x4_trans(b0, &s_s[buf][lane][c * 16]);
-      ldsm_x4_trans(b1, &s_s[buf][lane][c * 16 + 8]);
-      uint32_t wb[2];
-      wb[0] = g == 0 ? ld32(&w_s[buf][c * 16 + 2 * tq]) : 0u;
-      wb[1] = g == 0 ? ld32(&w_s[buf][c * 16 + 8 + 2 * tq]) : 0u;
-#pragma unroll
-      for (int r = 0; r < A_RT; ++r) {
-        float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816(d0, a[r][0], b0);
-        mma16816(d0, a[r][1], b0 + 2);
-        mma16816(d1, a[r][0], b1);
-        mma16816(d1, a[r][1], b1 + 2);
-        // the accumulator layout is the A-fragment layout: fixed g | g + 8
-        // by streamed 2tq.. | 8 + 2tq..
-        uint32_t kb[4];
-        kb[0] = pack2(kexp_aug(d0[0]), kexp_aug(d0[1]));
-        kb[1] = pack2(kexp_aug(d0[2]), kexp_aug(d0[3]));
-        kb[2] = pack2(kexp_aug(d1[0]), kexp_aug(d1[1]));
-        kb[3] = pack2(kexp_aug(d1[2]), kexp_aug(d1[3]));
-        mma16816(tacc[r], kb, wb);
+  if (warp == A_WARPS) {
+    // producer: one lane keeps the ring full, item after item
+    if (lane == 0) {
+      uint32_t k = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int t0 = (it % splits) * tiles_per_split;
+        const int t1 = min(ntiles, t0 + tiles_per_split);
+        for (int t = t0; t < t1; ++t, ++k) {
+          const uint32_t st = k % A_STAGES;
+          mbar_wait(empty0 + 8 * st, ((k / A_STAGES) & 1) ^ 1);
+          const uint32_t full = full0 + 8 * st, dst = smem_u32(ring + st * A_STAGE_BYTES);
+          const size_t c0 = (size_t)t * A_ST;
+          mbar_expect_tx(full, A_STAGE_BYTES - 2 * FD * (A_LDS - A_ST));
+          for (int kk = 0; kk < FD; ++kk)
+            bulk_copy(dst + 2 * kk * A_LDS, strm_t + (size_t)kk * Ls + c0, 2 * A_ST, full);
+          bulk_copy(dst + 2 * FD * A_LDS, w + c0, 2 * A_ST, full);
+        }
       }
     }
+    return;
+  }
+
+  // consumers: warp owns fixed entries fw .. fw + 63 of each item
+  const int g = lane >> 2, tq = lane & 3;
+  const uint32_t tl = table_base(tab);
+  const unsigned short* fx = reinterpret_cast<const unsigned short*>(fixed_t);
+  uint32_t k = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int split = it % splits;
+    const int t0 = split * tiles_per_split, t1 = min(ntiles, t0 + tiles_per_split);
+    const int fw = (it / splits) * A_FT + warp * A_RT * 16;
+    const bool live = fw < Lf;          // Lf % 256 == 0: a last item may be part full
+    uint32_t a[A_RT][2][4];
+    if (live) {
 #pragma unroll
-    for (int r = 0; r < A_RT; ++r) {   // column 0 of the B operand: elements 0 and 2
-      acc[r][0] += tacc[r][0];
-      acc[r][2] += tacc[r][2];
+      for (int r = 0; r < A_RT; ++r) {
+        frag_a_kmajor(a[r][0], fx, (size_t)Lf, fw + 16 * r, 0, g, tq);
+        frag_a_kmajor(a[r][1], fx, (size_t)Lf, fw + 16 * r, 16, g, tq);
+      }
+    }
+    float acc[A_RT][2];
+#pragma unroll
+    for (int r = 0; r < A_RT; ++r) acc[r][0] = acc[r][1] = 0.f;
+
+    for (int t = t0; t < t1; ++t, ++k) {
+      const uint32_t st = k % A_STAGES;
+      mbar_wait(full0 + 8 * st, (k / A_STAGES) & 1);
+      if (live) {
+        const bf16* S = reinterpret_cast<const bf16*>(ring + st * A_STAGE_BYTES);
+        const bf16* ws = S + FD * A_LDS;
+#pragma unroll 1
+        for (int sp = 0; sp < A_ST; sp += A_SPAN) {
+          // this span's sums start from zero and join the running sums by
+          // an f32 add: the tensor core's accumulation truncates, and a
+          // running sum carried through every span's mma would end low
+          float tacc[A_RT][4];
+#pragma unroll
+          for (int r = 0; r < A_RT; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tacc[r][e] = 0.f;
+#pragma unroll 2
+          for (int c = sp; c < sp + A_SPAN; c += 16) {
+            uint32_t b0[4], b1[4];       // streamed c..c+7 and c+8..c+15
+            ldsm_x4_trans(b0, S + lane * A_LDS + c);
+            ldsm_x4_trans(b1, S + lane * A_LDS + c + 8);
+            uint32_t wb[2];
+            wb[0] = g == 0 ? ld32(ws + c + 2 * tq) : 0u;
+            wb[1] = g == 0 ? ld32(ws + c + 8 + 2 * tq) : 0u;
+#pragma unroll
+            for (int r = 0; r < A_RT; ++r) {
+              float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+              mma16816(d0, a[r][0], b0);
+              mma16816(d0, a[r][1], b0 + 2);
+              mma16816(d1, a[r][0], b1);
+              mma16816(d1, a[r][1], b1 + 2);
+              // the accumulator layout is the A-fragment layout: fixed g |
+              // g + 8 by streamed 2tq.. | 8 + 2tq..
+              uint32_t kb[4];
+              kb[0] = entry2(d0[0], d0[1], tl);
+              kb[1] = entry2(d0[2], d0[3], tl);
+              kb[2] = entry2(d1[0], d1[1], tl);
+              kb[3] = entry2(d1[2], d1[3], tl);
+              mma16816(tacc[r], kb, wb);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < A_RT; ++r) {   // column 0 of the B operand: elements 0 and 2
+            acc[r][0] += tacc[r][0];
+            acc[r][1] += tacc[r][2];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+    if (live && tq == 0) {   // acc[r][0], acc[r][1]: fixed fw + 16r + g, + g + 8
+      float* o = part + (size_t)split * Lf + fw;
+#pragma unroll
+      for (int r = 0; r < A_RT; ++r) {
+        o[16 * r + g] = acc[r][0];
+        o[16 * r + g + 8] = acc[r][1];
+      }
     }
   }
-  if (tq == 0) {   // acc[r][0], acc[r][2]: fixed fw + 16r + g, + g + 8
-    float* o = part + (size_t)blockIdx.y * Lf + fw;
-#pragma unroll
-    for (int r = 0; r < A_RT; ++r) {
-      o[16 * r + g] = acc[r][0];
-      o[16 * r + g + 8] = acc[r][2];
-    }
+}
+
+// every bf16 pattern x (as d2) -> the aug entry's bf16 bits, by route 0
+// (kb_aug evaluated) or route 1 (aug_sum_kernel's table lookup)
+__global__ __launch_bounds__(1024) void aug_entries_kernel(unsigned short* out, int route) {
+  extern __shared__ __align__(16) unsigned char e_smem[];
+  build_table(e_smem, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const uint32_t tl = table_base(e_smem);
+  for (uint32_t i = threadIdx.x; i < 32768; i += blockDim.x) {
+    const uint32_t x = 2 * i;
+    const uint32_t r = route == 0 ? entry_bits(x) | (entry_bits(x + 1) << 16)
+                                  : entry2(__uint_as_float(x << 16),
+                                           __uint_as_float((x + 1) << 16), tl);
+    out[x] = (unsigned short)(r & 0xFFFF);
+    out[x + 1] = (unsigned short)(r >> 16);
   }
 }
 
@@ -403,30 +527,36 @@ extern "C" {
 
 // how many blocks of the layout's kernel (aug != 0: bf16 aug, else f32) fit
 // the card at once: the wrapper splits the streamed axis to fill whole waves
-// of them; a negative value is a cudaError
+// of them (and launches at most that many persistent aug blocks); a negative
+// value is a cudaError
 int glt_recompute_slots(int aug) {
   int n = 0;
-  const int rc = aug ? slots_of(aug_sum_kernel, THREADS, 0, &n)
+  const int rc = aug ? slots_of(aug_sum_kernel, A_THREADS, A_SMEM, &n)
                      : slots_of(f32_sum_kernel, T_THREADS, T_SMEM, &n);
   return rc != 0 ? -rc : n;
 }
 
 // out[f] = sum_s w_s k(f, s) over k-major (32, Lf) fixed and (32, Ls)
-// streamed features. aug: bf16 layouts and w, Lf % 256 == 0, Ls % 128 == 0;
-// else f32 layouts and w, Lf % 128 == 0, Ls % 128 == 0 (the wrapper checks).
-// splits > 1: part holds (splits, Lf) floats and a fixed-order reduction
-// writes out; splits == 1: the kernel writes part, which may be out.
+// streamed features. aug: bf16 layouts and w, Lf % 256 == 0, Ls % 128 ==
+// 0, `blocks` persistent blocks over (Lf / 256) x splits work items;
+// else f32 layouts and w, Lf % 128 == 0, Ls % 128 == 0, a grid of (Lf /
+// 128, splits) (`blocks` unused); the wrapper checks the shapes. splits >
+// 1: part holds (splits, Lf) floats and a fixed-order reduction writes out;
+// splits == 1: the kernel writes part, which may be out.
 int glt_recompute_sum(int aug, const void* fixed_t, const void* strm_t, const void* w,
-                      void* part, void* out, int Lf, int Ls, int splits, void* stream) {
+                      void* part, void* out, int Lf, int Ls, int splits, int blocks,
+                      void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int ntiles = Ls / (aug ? A_ST : T_ST);
   const int per = (ntiles + splits - 1) / splits;
   cudaError_t e;
   if (aug) {
-    dim3 grid(Lf / A_FT, splits);
-    aug_sum_kernel<<<grid, THREADS, 0, s>>>(
+    e = cudaFuncSetAttribute(aug_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)A_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    aug_sum_kernel<<<blocks, A_THREADS, A_SMEM, s>>>(
         static_cast<const bf16*>(fixed_t), static_cast<const bf16*>(strm_t),
-        static_cast<const bf16*>(w), static_cast<float*>(part), Lf, Ls, per);
+        static_cast<const bf16*>(w), static_cast<float*>(part), Lf, Ls, splits, per);
   } else {
     e = cudaFuncSetAttribute(f32_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)T_SMEM);
@@ -440,6 +570,19 @@ int glt_recompute_sum(int aug, const void* fixed_t, const void* strm_t, const vo
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   return launch_reduce(static_cast<const float*>(part), static_cast<float*>(out), splits,
                        (size_t)Lf, s);
+}
+
+// out[x] = the aug entry's bf16 bits at bf16(d2) pattern x, every x of
+// 65536: route 0 kb_aug evaluated, route 1 the aug kernel's table lookup (a
+// check on no path: chip_smoke.py requires them equal)
+int glt_aug_entries(void* out, int route, void* stream) {
+  const size_t smem = TAB_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(aug_entries_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  aug_entries_kernel<<<1, 1024, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned short*>(out), route);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

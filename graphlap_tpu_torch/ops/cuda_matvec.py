@@ -23,8 +23,12 @@ on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
 the two layouts the presets reach: bf16 aug and f32 plain. The plain bf16
 layout (the reference's ``GLT_AUG_DISABLE`` lever) raises
 ``NotImplementedError`` on CUDA; there is no fallback from a kernel to its
-plain version. Unlike K8/K9, the kernels take any p_pad on the 512 quantum:
-they hold no whole-p tile.
+plain version. Unlike K8/K9, the kernels take any p_pad on the 512 quantum
+and any n on the 256 one: they hold no whole-p tile. The aug kernel runs
+persistent blocks over work items (1024 fixed entries by a split of the
+streamed axis, ``_plan``) and reads its tile entries from a table of every
+bf16(d2) pattern, built on the card with the same entry function
+(``aug_entries`` checks every pattern).
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ from .streaming import _chunks
 FD = 32                   # feature depth of the kernels
 P_QUANTUM = 512           # p_pad: the reference's p_tiling quantum
 N_QUANTUM = 256           # n: the f32 _tile_n (the bf16 one, 1024, is a multiple)
-STREAM_TILE = 128         # streamed entries a tile (csrc)
-FIXED_TILE = {torch.bfloat16: 256, torch.float32: 128}   # fixed entries a block
+# streamed entries a tile, fixed entries a block (f32) or work item (aug)
+STREAM_TILE = {torch.bfloat16: 256, torch.float32: 128}
+FIXED_TILE = {torch.bfloat16: 1024, torch.float32: 128}
 _F32 = torch.float32
 
 
@@ -99,19 +104,33 @@ def _splits(aug: bool, fixed_blocks: int, tiles: int) -> int:
     return -(-tiles // -(-tiles // splits))       # no empty split
 
 
+def _plan(aug: bool, lf: int, ls: int) -> tuple[int, int]:
+    """(splits, blocks) of a launch over k-major (32, lf) fixed and (32, ls)
+    streamed layouts: the streamed axis split as ``_splits`` says; the aug
+    kernel's persistent blocks, at most one a resident slot and one a work
+    item (ceil(lf / 1024) fixed slices by the splits); the f32 kernel's grid
+    is its own (blocks 0, unused)."""
+    dtype = torch.bfloat16 if aug else _F32
+    fixed = -(-lf // FIXED_TILE[dtype])
+    splits = _splits(aug, fixed, ls // STREAM_TILE[dtype])
+    if not aug:
+        return splits, 0
+    return splits, min(fixed * splits, _build.lib().glt_recompute_slots(1))
+
+
 def _recompute_sum(fixed_t, strm_t, w):
     """out[f] = sum_s w_s k(f, s) over k-major (32, Lf) / (32, Ls) layouts,
-    the streamed axis split as ``_splits`` says."""
+    launched as ``_plan`` says."""
     aug = fixed_t.dtype == torch.bfloat16
     lf, ls = fixed_t.shape[1], strm_t.shape[1]
     dev = fixed_t.device
-    splits = _splits(aug, lf // FIXED_TILE[fixed_t.dtype], ls // STREAM_TILE)
+    splits, blocks = _plan(aug, lf, ls)
     out = torch.empty(lf, dtype=_F32, device=dev)
     part = out if splits == 1 else torch.empty((splits, lf), dtype=_F32,
                                                device=dev)
     rc = _build.lib().glt_recompute_sum(
         int(aug), fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
-        part.data_ptr(), out.data_ptr(), lf, ls, splits,
+        part.data_ptr(), out.data_ptr(), lf, ls, splits, blocks,
         _build.stream_ptr(fixed_t))
     _build.check(rc, "recompute_sum")
     return out
@@ -148,3 +167,16 @@ def rmatvec_cuda(fa, f_t, t, aug: bool = False):
 
 matvec_cuda.launches = 0
 rmatvec_cuda.launches = 0
+
+
+def aug_entries(route: int, device) -> torch.Tensor:
+    """The aug tile entry's bf16 bits at every one of the 65536 bf16(d2)
+    patterns, (65536,) int32, on the card: route 0 evaluates the entry
+    (``kb_aug``, as the plain route does), route 1 takes the aug kernel's
+    table lookup. No path calls it: ``chip_smoke.py`` requires the two
+    equal."""
+    out = torch.empty(65536, dtype=torch.int16, device=device)
+    _build.check(_build.lib().glt_aug_entries(out.data_ptr(), int(route),
+                                              _build.stream_ptr(out)),
+                 "aug_entries")
+    return out.to(torch.int32) & 0xFFFF

@@ -3,8 +3,12 @@
 ``matvec_pallas`` / ``rmatvec_pallas`` (interpret mode on the CPU, as
 tests/test_pallas.py runs them), ``rmatvec2``, the ``ktilde_apply`` closure,
 ``_normalize_streaming``'s scales, the operator filters, and the whole
-filter on gray and per-channel RGB images. On a CUDA card only (marker
-``gpu``): K5/K6 against their plain versions, and the layout guard.
+filter on gray and per-channel RGB images; the aug kernel's entry table
+(bf16(d2) clamped to its live patterns, then looked up), emulated, against
+the plain tile bit for bit and against the Pallas kernels, and its launch
+plan. On a CUDA card only (marker ``gpu``): K5/K6 against their plain
+versions, two launches on the same inputs bit for bit, and the layout
+guard.
 
 Tolerances, relative to the largest reference magnitude unless stated:
 * K5/K6, f32 plain layout: 1e-5 — the same f32 tile values, summed in
@@ -236,6 +240,131 @@ def test_matvec_routing_quanta_match(jx):
             for cap in (1024, rl.MATVEC_TN_CAP):
                 assert rl._pick_tn(n_pad, getattr(torch, dt), cap) == (
                     pst._pick_tn(n_pad, jnp.dtype(dt), cap))
+
+
+# --- the aug kernel's entry table, emulated ------------------------------------
+
+_BF = torch.bfloat16
+
+
+def _entry_plain(d2):
+    """The plain route's aug entry of f32 d2 (``_tile_plain``'s epilogue):
+    bf16(exp(-bf16(max(d2, 0))))."""
+    return torch.exp(-k79._r(torch.clamp(d2, min=0.0), _BF)).to(_BF)
+
+
+def _patterns(x):
+    """bf16 bit patterns (int32, 0..65535) as the f32 values they hold."""
+    return (x.to(torch.int32) << 16).view(torch.float32)
+
+
+# the live bf16(d2) patterns: at or below LIVE_LO (and every negative one) the
+# entry is 1.0, at or above LIVE_HI 0 (chip_smoke.py reads the same edges off
+# the card's kb_aug; scripts/matvec_designs.py's clamped tables rely on them)
+LIVE_LO, LIVE_HI = 0x3B00, 0x42BA
+
+
+def _table():
+    """The kernel's table, built by the plain entry function: the entry's
+    bf16 bits at every one of the 65536 bf16(d2) patterns."""
+    x = torch.arange(65536, dtype=torch.int32)
+    return _entry_plain(_patterns(x)).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def _lookup(d2):
+    """The aug kernel's entry route, emulated: bf16(max(d2, 0))'s bits (the
+    kernel rounds with relu) index the table -> bf16 entries."""
+    bits = torch.clamp(d2, min=0.0).to(_BF).view(torch.int16).to(torch.int32) & 0xFFFF
+    return _table()[bits].to(torch.int16).view(_BF)
+
+
+def _tile_lookup(a, bt, aug):
+    """``_tile_plain`` of the aug layout with the entry from the table."""
+    assert aug and a.dtype == _BF
+    return _lookup(a.float() @ bt.float())
+
+
+@pytest.mark.parametrize("p,n", [(277, 2000), (4100, 1000)])
+def test_aug_entry_lookup_matches_tile_plain_bit_for_bit(jx, p, n):
+    """On the reference's own aug_pads layouts, the table route gives the
+    plain tile's every entry bit for bit (d2 both times the same f32
+    product, so only the entry route differs)."""
+    x = _layouts(jx, "bfloat16", p, n)
+    got = _tile_lookup(x.tfa, x.tft, True)
+    ref = k79._tile_plain(x.tfa, x.tft, True)
+    assert got.dtype == ref.dtype == _BF
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.parametrize("p,n", [(277, 2000), (4100, 1000)])
+def test_aug_entry_lookup_through_k5_k6_matches_pallas(jx, monkeypatch, p, n):
+    """K5/K6's plain versions with their tile entries from the table hold
+    the reference's matvec_pallas / rmatvec_pallas (interpret mode) to the
+    aug bar, REL["bfloat16"]."""
+    jnp, pst = jx.jnp, jx.pst
+    x = _layouts(jx, "bfloat16", p, n)
+    monkeypatch.setattr(k56, "_tile_plain", _tile_lookup)
+    mv = k56.matvec_plain(x.tfa, x.tft, T(x.v), True)
+    rmv = k56.rmatvec_plain(x.tfa, x.tft, T(x.t), True)
+    mv_r = pst.matvec_pallas(x.fa, x.f_t, jnp.asarray(x.v), aug=True)
+    rmv_r = pst.rmatvec_pallas(x.fa, x.f_t, jnp.asarray(x.t), aug=True)
+    assert_rel(N(mv)[:p], N(mv_r)[:p], REL["bfloat16"])
+    assert_rel(N(rmv)[:n], N(rmv_r)[:n], REL["bfloat16"])
+
+
+def test_aug_entry_table_edges():
+    """Every pattern at or below LIVE_LO (as a non-negative value) has entry
+    1.0, every one at or above LIVE_HI (through +inf) 0, every negative one
+    (sign bit set, -0 included) 1.0; inside, the entry is neither. So a
+    table of the live patterns only, with bf16(d2) clamped as signed 16-bit
+    values to [LIVE_LO, LIVE_HI], gives the plain entry at every non-NaN
+    pattern of the 65536, as the full table does."""
+    x = torch.arange(65536, dtype=torch.int32)
+    e = _table()
+    one, lo, hi, inf = 0x3F80, LIVE_LO, LIVE_HI, 0x7F80
+    assert bool((e[:lo + 1] == one).all())
+    assert bool((e[hi:inf + 1] == 0).all())
+    assert bool((e[0x8000:0xFF81] == one).all())
+    live = e[lo + 1:hi]
+    assert bool(((live != one) & (live != 0)).all())
+    signed = torch.where(x >= 0x8000, x - 0x10000, x)
+    clamped = e[torch.clamp(signed, lo, hi)]
+    keep = ~torch.isnan(_patterns(x))
+    assert torch.equal(clamped[keep], e[keep])
+    d2 = _patterns(x)[keep]
+    got = _lookup(d2).view(torch.int16).to(torch.int32) & 0xFFFF
+    assert torch.equal(got, e[keep])
+
+
+def _plan_lib(monkeypatch, slots):
+    from graphlap_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(
+        glt_recompute_slots=lambda aug: slots[aug]))
+
+
+def test_aug_launch_plan_serves_every_wrapper_shape(monkeypatch):
+    """The aug kernel's plan takes every shape the wrappers pass (p_pad on
+    512, n on 256; K5 fixes p_pad and streams n, K6 the reverse): whole
+    256-entry streamed stages, no empty split, ceil(lf / 1024) fixed slices
+    (a last one part full: lf is a multiple of 256, a warp's 64 rows all in
+    or all out), and at most one persistent block a resident slot and a
+    work item. Config 3: K5 4 slices by 33 splits on all 132 blocks; K6
+    1024 slices, unsplit, on all 132."""
+    _plan_lib(monkeypatch, {1: 132, 0: 528})
+    bf = torch.bfloat16
+    for pp in (512, 1024, 4096, 5120, 8192):
+        for n in (256, 768, 1024, 2560, 1 << 20, 8388608):
+            for lf, ls in ((pp, n), (n, pp)):
+                assert ls % k56.STREAM_TILE[bf] == 0 and lf % 256 == 0
+                tiles = ls // k56.STREAM_TILE[bf]
+                fixed = -(-lf // k56.FIXED_TILE[bf])
+                splits, blocks = k56._plan(True, lf, ls)
+                per = -(-tiles // splits)
+                assert 1 <= splits <= tiles and per * (splits - 1) < tiles
+                assert 1 <= blocks <= min(132, fixed * splits)
+    assert k56._plan(True, 4096, 1 << 20) == (33, 132)
+    assert k56._plan(True, 1 << 20, 4096) == (1, 132)
+    assert k56._plan(False, 4096, 8388608)[0] == 16      # f32: 528 // 32
 
 
 def test_k5_k6_round_their_vector_to_the_layout_dtype():
@@ -543,6 +672,8 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
         k56.matvec_cuda(fa32, ft32, v, True)
     with pytest.raises(ValueError, match="multiple of 512"):
         k56.matvec_cuda(fa32[:256], ft32, v, False)
+    with pytest.raises(ValueError, match="n 896 of 256"):
+        k56.matvec_cuda(fa, f_t[:, :896], v[:896], True)
     with pytest.raises(ValueError, match="shape"):
         k56.rmatvec_cuda(fa32, ft32, v, False)
     assert _counts() == before
@@ -674,6 +805,35 @@ def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n):
     # deterministic: no float atomics
     assert torch.equal(mv, k56.matvec_cuda(fa_l, f_t, v, aug))
     assert torch.equal(rmv, k56.rmatvec_cuda(fa_l, f_t, t, aug))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k5_k6_repeat_bit_for_bit(cuda_device, dtype):
+    """Two launches of each wrapper on the same inputs agree bit for bit at
+    a shape whose streamed axis splits (K5: 8 fixed slices of 4096 samples,
+    262144 columns) and whose fixed side needs many items (K6): the
+    per-split partials go through the fixed-order reduction, no float
+    atomics."""
+    rng = np.random.default_rng(11)
+    dev = cuda_device
+    p, n = 4096, 262144
+    fa = torch.tensor(rng.normal(0, 0.3, (p, 25)).astype(np.float32), device=dev)
+    fp = torch.tensor(rng.normal(0, 0.3, (n, 25)).astype(np.float32), device=dev)
+    aug = dtype == "bfloat16"
+    if aug:
+        fa_l, f_t = rl.aug_pads(fa, fp, n)
+    else:
+        fa_l = torch.zeros((p, 32), device=dev)
+        fa_l[:, :25] = fa
+        f_t = torch.zeros((32, n), device=dev)
+        f_t[:25] = fp.T
+    v = torch.tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
+    t = torch.tensor(rng.uniform(0.5, 1.5, p).astype(np.float32), device=dev)
+    for fn, x in ((k56.matvec_cuda, v), (k56.rmatvec_cuda, t)):
+        first = fn(fa_l, f_t, x, aug)
+        assert bool(torch.isfinite(first).all())
+        assert torch.equal(first, fn(fa_l, f_t, x, aug))
 
 
 @pytest.mark.gpu
