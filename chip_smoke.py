@@ -10,8 +10,8 @@ non-zero before the last line is printed):
 2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
               process a source, all started together; the K3/K4 kernels'
               SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma, and
-              the K1 emitter's and the aug K5/K6 kernel's HMMA (their
-              products on the tensor cores).
+              the K1 and K7 emitters' and the aug K5/K6 kernel's HMMA
+              (their products on the tensor cores).
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
@@ -35,9 +35,11 @@ non-zero before the last line is printed):
               1/64, one polish, LOBPCG):
    kernels  K7-K9 at the path's 8 MP shapes on its own features and
             layouts, scale vectors from a seeded generator, each against
-            its plain version on the card, timed with CUDA events (K8 and
-            K9 launched once more on the same inputs: the two runs must
-            agree bit for bit; K10 likewise in config 4t); K8's u and s
+            its plain version on the card, timed with CUDA events (K7, K8
+            and K9 launched once more on the same inputs: the two runs must
+            agree bit for bit; K10 likewise in config 4t); K7 beside a
+            cuBLAS composition of its function (library_ms) and the gram
+            GEMM that follows it on the path; K8's u and s
             once more apart, with the mean, median and share below zero of
             u's signed row errors (required in (0.25, 0.75)); K9's V lean
             is required in the same band;
@@ -52,8 +54,9 @@ non-zero before the last line is printed):
               sharpen 0.15 by exact matvecs, p=4096, bf16 tiles, coarse
               Sinkhorn 1/8 + one polish):
    table    the aug entry at every one of the 65536 bf16(d2) patterns,
-            evaluated (kb_aug) and through the K5/K6 kernel's table lookup,
-            on the card: no pattern may differ; the live range read off the
+            evaluated (kb_aug), through the K5/K6 kernel's table lookup and
+            through K7's entry (kexp on bf16(d2)), on the card: no pattern
+            may differ; the live range read off the
             evaluated entries and the patterns where K10's exp (one FMUL, one
             MUFU ex2) would differ are printed beside;
    kernels  K5/K6 at channel 0's shapes (p_pad 4096, N 1048576), positive
@@ -204,8 +207,8 @@ NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
 # partials, no float atomics): checked by a second launch on the same inputs
 BIT_REPEAT = ("strip_ext2", "strip_sandwich_spost", "strip_sandwich",
-              "ext2_matvec", "matvec", "rmatvec", "matvec_f32", "rmatvec_f32",
-              "finish_colstats", "colstats_v")
+              "kb_strip", "ext2_matvec", "matvec", "rmatvec", "matvec_f32",
+              "rmatvec_f32", "finish_colstats", "colstats_v")
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
@@ -588,6 +591,18 @@ def strip_library() -> dict:
     }
 
 
+def kb_library(fa, f_t, cols, aug):
+    """K7's yardstick: its function as one bf16-in / f32-out cuBLAS product
+    (torch.mm out_dtype) and elementwise passes with the kernel's rounding
+    points: bf16(max(d2, 0)), the exp, the entry's bf16 rounding, the scale
+    by bf16(cols), the bf16 cast. Timed beside the kernel; the port never
+    calls it."""
+    bf, f32 = torch.bfloat16, torch.float32
+    d2 = torch.mm(fa, f_t, out_dtype=f32).clamp_(min=0.0)
+    kb = torch.exp(-d2.to(bf).to(f32)).to(bf).to(f32)
+    return (kb * cols.to(bf).to(f32)[None, :]).to(bf)
+
+
 def ext2_f64(strip, t2, bm):
     """K2's function with its plain version's rounding points (bf16 t2) and
     its sums in f64, kept in f64: the reference of K2's lean lines, (u, s).
@@ -804,7 +819,24 @@ def config4(gt, dev, rows, launches, info):
     phase("config4", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
           f"N={n}, gram columns {sg}, V width {mk})", t0)
     # V's lean (its pass is K10's): required
-    run_cases(cases, rows, {"finish_colstats": (0, n, False, True)})
+    run_cases(cases, rows, {"finish_colstats": (0, n, False, True)},
+              {"kb_strip": (kb_library, "a cuBLAS composition, not one call: "
+                            "torch.mm(fa_aug, f_t) bf16 in, f32 out, then "
+                            "bf16(max(d2, 0)), exp, the bf16 entry, the scale "
+                            "by bf16(cols), the bf16 cast")})
+
+    # the rest of the K7 cross: the bf16-in / f32-out gram GEMM that follows
+    # the emitter (cuda_recompute._gram) on its output
+    t0 = time.perf_counter()
+    kb = k79.kb_strip_cuda(*cases["kb_strip"][2])
+    ms_gram = cuda_ms(lambda: k79._gram(kb), 5)
+    ms_k7 = rows["kb_strip"]["ms"]
+    del kb
+    phase("kernel", f"kb_strip cross: emitter {ms_k7:.3f} ms + gram GEMM "
+          f"{ms_gram:.3f} ms ((p_pad, {sg}) x ({sg}, p_pad), bf16 in, f32 "
+          f"out); the emitter is {ms_k7 / (ms_k7 + ms_gram):.3f} of the "
+          f"cross", t0)
+    rows["kb_strip"]["gram_gemm_ms"] = ms_gram
 
     # K8's u and s apart, u signed: tile entries that flip and another sum
     # order scatter u both ways; an accumulation that rounds toward zero
@@ -887,10 +919,11 @@ def config4(gt, dev, rows, launches, info):
 
 
 def entry_table(dev, info) -> None:
-    """The aug K5/K6 kernel's tile entry against its evaluation at every one
-    of the 65536 bf16(d2) patterns, on the card: route 1 (the kernel's table
-    lookup) must equal route 0 (kb_aug, the expf the plain route's entry
-    matches) everywhere. Printed beside: the live range read off route 0
+    """The aug K5/K6 kernel's tile entry and K7's against their evaluation
+    at every one of the 65536 bf16(d2) patterns, on the card: route 1 (the
+    K5/K6 kernel's table lookup) and K7's kb_pair (kexp on bf16(d2)) must
+    equal route 0 (kb_aug, the expf the plain route's entry matches)
+    everywhere. Printed beside: the live range read off route 0
     (the patterns whose entry is neither 1.0 nor 0: the clamp a table of
     the live patterns only would need), and the patterns where K10's exp
     (kexp: one FMUL, one MUFU ex2) differs from route 0, which it could
@@ -910,15 +943,19 @@ def entry_table(dev, info) -> None:
     bad = int((got != ref).sum())
     bad_neg = int((ref[0x8000:] != one).sum())
     kexp_bad = int((kx != ref).sum())
+    k7_bad = int((k79.kb_entries(dev) != ref).sum())
     phase("table", f"aug entry at 65536 bf16(d2) patterns: table lookup != "
           f"kb_aug on {bad} (required 0); live range off the card's kb_aug "
           f"{lo:#06x} .. {hi:#06x} (1.0 at and below, 0 at and above); "
           f"negative patterns not 1.0: {bad_neg}; kexp (FMUL + MUFU ex2) != "
-          f"kb_aug on {kexp_bad}", t0)
+          f"kb_aug on {kexp_bad}; K7's entry (kb_pair) != kb_aug on {k7_bad} "
+          f"(required 0)", t0)
     require(bad == 0, "the aug entry table differs from kb_aug")
+    require(k7_bad == 0, "K7's tile entry differs from kb_aug")
     info["aug_entry_table"] = dict(mismatches=bad, live_lo=lo, live_hi=hi,
                                    negative_not_one=bad_neg,
-                                   kexp_mismatches=kexp_bad)
+                                   kexp_mismatches=kexp_bad,
+                                   kb_strip_mismatches=k7_bad)
 
 
 def config3(gt, dev, rows, launches, info):
@@ -1271,6 +1308,11 @@ def main() -> None:
           f"on the tensor cores), from cuobjdump -sass: {hmma}")
     require(hmma and all(hmma.values()),
             "the K1 emitter does not run its cross on the tensor cores")
+    hmma = sass_uses(_build, "kb_emit_kernel", "HMMA")
+    phase("build", f"K7 emitter holding HMMA (d2 on the tensor cores), from "
+          f"cuobjdump -sass: {hmma}")
+    require(hmma and all(hmma.values()),
+            "the K7 emitter does not run d2 on the tensor cores")
     hmma = sass_uses(_build, "aug_sum_kernel", "HMMA")
     phase("build", f"aug K5/K6 kernel holding HMMA (d2 and the w product on "
           f"the tensor cores), from cuobjdump -sass: {hmma}")

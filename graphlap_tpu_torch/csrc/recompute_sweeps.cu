@@ -21,9 +21,9 @@
 // operations an entry at the f32 peak; the tensor-core work (d2, kbt and u,
 // 2.2 TFLOP at K = 32 plus two K = 16 products) ~3 ms; the features 0.5 GB
 // ~0.2 ms. Measured, it runs latency-bound: the 128-register budget of 16
-// warps holds two tiles' fragments and u, and little else. K7 emits
-// 1.07 GB of bf16 (0.32 ms at 3.35 TB/s) for 5.4e8 entries: bound by its
-// store.
+// warps holds two tiles' fragments and u, and little else. K7 at the 8 MP
+// gram shape (p_pad 4096, 131072 columns) emits 1.07 GB of bf16 (0.32 ms
+// at 3.35 TB/s) for 5.4e8 entries: bound by its store.
 //
 // Design of K8. Each column needs kbt over the whole p before s, and s
 // before its u term, so the kernel runs in thread-block clusters of 8
@@ -64,8 +64,40 @@
 //     cross-cluster u sum goes through per-cluster partials and a
 //     fixed-order reduction kernel — no float atomics, so runs repeat bit
 //     for bit.
-// K7 writes one (128 x 128) output tile a block: mma, the exp and scale
-// epilogue into shared memory, then 16-byte coalesced stores.
+//
+// Design of K7, persistent (as K1 in affinity_strip.cu). The first port
+// ran one block a 128 x 128 tile (32768 short-lived blocks, each staging
+// its sample rows and f_t columns again with 2-byte loads), an IEEE expf a
+// tile entry, and the store after the math, overlapped only by other
+// blocks. Now:
+//   * 256-thread blocks, two an SM (the occupancy API sizes the grid), walk
+//     64 x 256 output units (512 contiguous bytes a row) dealt round-robin:
+//     unit q of block b is b + q G, so the G blocks store neighbouring
+//     column tiles of one row slice at a time; a warp holds its 32 sample
+//     rows x 32 aug lanes as A fragments in registers, reloaded when its
+//     next unit lies in another row slice;
+//   * a unit's (32, 256) f_t tile arrives by four TMA boxes (128-byte
+//     swizzle) into a 2-stage ring, issued a unit ahead; the warp's 64
+//     columns come as B fragments by ldmatrix.trans (conflict-free);
+//   * d2 is two m16n8k16 bf16 mma a 16 x 8 sub-tile; the entry is kexp on
+//     bf16(d2) (one FMUL, one MUFU ex2: 16 a clock an SM, 5.4e8 entries
+//     ~0.13 ms at config 4, under the store), equal to kb_aug at every one
+//     of the 65536 bf16(d2) patterns (chip_smoke.py checks it through
+//     glt_kb_entries), then the one bf16 rounding of entry x bf16(col);
+//   * the packed words go into the 128-byte-swizzled layout of the TMA
+//     boxes (no bank conflicts) in one of two staging buffers; thread 0
+//     drains the unit by four TMA stores, tagged L2 evict-first, while the
+//     block computes the next unit, so the store overlaps the math of the
+//     same block.
+// Measured at the 8 MP gram shape on an H100 80GB HBM3 (700 W) by
+// scripts/kb_designs.py, which rebuilds each variant named here: the store
+// holds it. The stores alone (no product, no entry) take about as long as
+// the kernel, the math alone (no store) ~0.35 ms, torch's fill_ of the
+// same bytes 0.33 ms. Without the evict-first policy, as 128 x 128 units,
+// or in contiguous ranges a block it runs slower; an IEEE expf entry, the
+// 65536-pattern table (one block an SM), one block an SM, rows padded off
+// a power of two, st.global stores from the staging and a warp-specialized
+// kernel (a producer warp, six staging buffers) were each no faster.
 //
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() (or the first error) after
@@ -79,104 +111,187 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int FD = 32;       // feature depth
-constexpr int LDF = FD + 8;  // padded shared row stride of feature tiles (bf16)
-constexpr int E_TM = 128;    // K7 rows a block
-constexpr int E_TN = 128;    // K7 columns a block
-constexpr int E_LDO = E_TN + 8;
-
-// A fragment (16 rows x 16 k) of a row-major [row][k] tile, stride LDF
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int row0,
-                                       int k0, int g, int tq) {
-  a[0] = ld32(s + (row0 + g) * LDF + k0 + 2 * tq);
-  a[1] = ld32(s + (row0 + g + 8) * LDF + k0 + 2 * tq);
-  a[2] = ld32(s + (row0 + g) * LDF + k0 + 8 + 2 * tq);
-  a[3] = ld32(s + (row0 + g + 8) * LDF + k0 + 8 + 2 * tq);
-}
-
-// B fragment (16 k x 8 n) where B[k][n] = s[n][k] (row-major [n][k], LDF)
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* s, int n0,
-                                       int k0, int g, int tq) {
-  b[0] = ld32(s + (n0 + g) * LDF + k0 + 2 * tq);
-  b[1] = ld32(s + (n0 + g) * LDF + k0 + 8 + 2 * tq);
-}
-
-// rows [r0, r0 + rows) of a (*, 32) bf16 matrix -> s[row][k], stride LDF
-__device__ void load_rows(bf16* s, const bf16* __restrict__ m, int r0, int rows) {
-  for (int v = threadIdx.x; v < rows * 4; v += THREADS) {
-    const int r = v / 4, q = v % 4;
-    *reinterpret_cast<uint4*>(s + r * LDF + q * 8) =
-        *reinterpret_cast<const uint4*>(m + (size_t)(r0 + r) * FD + q * 8);
-  }
-}
-
-// columns [j0, j0 + cols) of the (32, ld) bf16 f_t -> s[j][k], stride LDF
-__device__ void load_cols_t(bf16* s, const bf16* __restrict__ ft, size_t ld,
-                            int j0, int cols) {
-  for (int v = threadIdx.x; v < (FD / 2) * cols; v += THREADS) {
-    const int kp = v / cols, j = v % cols;
-    const bf16 lo = ft[(size_t)(2 * kp) * ld + j0 + j];
-    const bf16 hi = ft[(size_t)(2 * kp + 1) * ld + j0 + j];
-    __nv_bfloat162 h;
-    h.x = lo;
-    h.y = hi;
-    *reinterpret_cast<__nv_bfloat162*>(s + j * LDF + 2 * kp) = h;
-  }
-}
+constexpr int LDF = FD + 8;  // padded shared row stride of K8's sample rows (bf16)
 
 // ---------------------------------------------------------------------------
-// K7: the column-scaled tile emitter (aug layout)
+// K7: the column-scaled tile emitter (aug layout), persistent blocks
 // ---------------------------------------------------------------------------
 
-constexpr size_t E_SMEM = (size_t)(E_TM + E_TN) * LDF * 2 + (size_t)E_TM * E_LDO * 2 +
-                          (size_t)E_TN * 4;
+constexpr int E_THREADS = 256;  // 8 warps: 4 column groups x 2 row halves of a unit
+constexpr int E_TM = 64;        // rows a unit
+constexpr int E_TN = 256;       // columns a unit: 512 contiguous bytes a row
+constexpr int E_WM = E_TM / 2, E_WN = E_TN / 4;   // rows, columns a warp
+constexpr int E_MT = E_WM / 16, E_NT = E_WN / 8;  // its m16 and n8 tiles
+constexpr int E_STAGES = 2;     // f_t ring (3 stages would not let two blocks fit an SM)
+constexpr int E_BOX = 64;       // columns a TMA box (128 bytes of bf16)
+constexpr int E_BOXES = E_TN / E_BOX;          // TMA boxes a unit, f_t and output
+constexpr int E_FT_BYTES = FD * E_TN * 2;      // a unit's f_t tile: boxes of 32 k rows
+constexpr int E_OUT_BYTES = E_TM * E_TN * 2;   // a unit's output: boxes of E_TM rows
+static_assert(E_WM % 16 == 0 && E_WN % 16 == 0 && E_TN % E_BOX == 0, "K7 unit shape");
+// alignment slack, two staging buffers, the ring, its barriers
+constexpr size_t E_SMEM = 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES * E_FT_BYTES +
+                          8 * E_STAGES;
 
-__global__ __launch_bounds__(THREADS) void kb_emit_kernel(
-    const bf16* __restrict__ fa,    // (P, 32) aug
-    const bf16* __restrict__ ft,    // (32, S) aug
-    const bf16* __restrict__ cols,  // (S)
-    bf16* __restrict__ out,         // (P, S)
-    int S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* fa_s = reinterpret_cast<bf16*>(smem);
-  bf16* ft_s = fa_s + E_TM * LDF;
-  bf16* o_s = ft_s + E_TN * LDF;
-  float* c_s = reinterpret_cast<float*>(o_s + E_TM * E_LDO);
+// the aug entries of two d2, bf16(exp(-bf16(max(d2, 0)))) packed (lo in the
+// low half): d2 rounded to bf16 (cvt.rn.bf16x2), then kexp's one FMUL and
+// one MUFU ex2 on each, rounded again. Equal to kb_aug at every one of the
+// 65536 bf16(d2) patterns (glt_kb_entries evaluates this function there;
+// chip_smoke.py requires it); kexp's fmaxf maps the negative and NaN
+// patterns to the entry 1.0, as kb_aug's does
+__device__ __forceinline__ uint32_t kb_pair(float lo, float hi) {
+  const uint32_t w = pack2(lo, hi);
+  return pack2(kexp(__uint_as_float(w << 16)), kexp(__uint_as_float(w & 0xFFFF0000u)));
+}
+
+// an L2 policy that evicts first what it tags: the emitted tile streams
+// through L2 once (1.07 GB at 8 MP, 21 times L2), so its lines should not
+// push out the f_t tiles and sample rows every block reads again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+// tma_store (mma_common.cuh) with an L2 cache policy
+__device__ __forceinline__ void tma_store_hint(const CUtensorMap* map, uint32_t src, int c0,
+                                               int c1, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint [%0, {%1, %2}], [%3], "
+      "%4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src), "l"(pol)
+      : "memory");
+}
+
+// bf16(entry * col) of a packed entry pair and two f32 columns (exact bf16
+// values): the product is exact in f32, so this is the one rounding
+__device__ __forceinline__ uint32_t scale_pair(uint32_t e, float c0, float c1) {
+  return pack2(__uint_as_float(e << 16) * c0, __uint_as_float(e & 0xFFFF0000u) * c1);
+}
+
+__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(
+    const __grid_constant__ CUtensorMap ft_map,   // (32, S) aug f_t, 64 x 32 boxes
+    const __grid_constant__ CUtensorMap out_map,  // (P, S) out, 64 x E_TM boxes
+    const bf16* __restrict__ fa,                  // (P, 32) aug
+    const bf16* __restrict__ cols,                // (S)
+    int nrb, int nct, int S) {
+  extern __shared__ unsigned char e_raw[];
+  unsigned char* smem = e_raw + ((1024 - (smem_u32(e_raw) & 1023)) & 1023);
+  unsigned char* ring = smem + 2 * E_OUT_BYTES;
+  const uint32_t bar0 = smem_u32(ring + E_STAGES * E_FT_BYTES);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const int j0 = blockIdx.x * E_TN, p0 = blockIdx.y * E_TM;
-
-  load_rows(fa_s, fa, p0, E_TM);
-  load_cols_t(ft_s, ft, (size_t)S, j0, E_TN);
-  if (tid < E_TN) c_s[tid] = __bfloat162float(cols[j0 + tid]);
-  __syncthreads();
-
-  const int pb = warp * 16;
-  uint32_t a0[4], a1[4];
-  frag_a(a0, fa_s, pb, 0, g, tq);
-  frag_a(a1, fa_s, pb, 16, g, tq);
-#pragma unroll 4
-  for (int nt = 0; nt < E_TN / 8; ++nt) {
-    uint32_t b0[2], b1[2];
-    frag_b(b0, ft_s, nt * 8, 0, g, tq);
-    frag_b(b1, ft_s, nt * 8, 16, g, tq);
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma16816(c, a0, b0);
-    mma16816(c, a1, b1);
-    const int j = nt * 8 + 2 * tq;
-    const float s0 = c_s[j], s1 = c_s[j + 1];
-    *reinterpret_cast<uint32_t*>(o_s + (pb + g) * E_LDO + j) =
-        pack2(kb_aug(c[0]) * s0, kb_aug(c[1]) * s1);
-    *reinterpret_cast<uint32_t*>(o_s + (pb + g + 8) * E_LDO + j) =
-        pack2(kb_aug(c[2]) * s0, kb_aug(c[3]) * s1);
+  const int wc = warp & 3, wr = warp >> 2;   // columns E_WN wc.., rows E_WM wr..
+  const int box = wc * E_WN / E_BOX;          // its TMA box and first 16-byte chunk there
+  const int chunk0 = wc * E_WN % E_BOX / 8;
+  // the block's units, dealt round-robin over the row-major unit order:
+  // unit q of block b is b + q G, so the G blocks store neighbouring column
+  // tiles of one row slice at a time
+  const long long units = (long long)nrb * nct;
+  const int n = (int)((units - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  auto unit = [&](int q) { return (int)blockIdx.x + q * (int)gridDim.x; };
+  // the f_t tile of unit t into ring stage st
+  auto load = [&](int t, int st) {
+    const uint32_t bar = bar0 + 8 * st, dst = smem_u32(ring + st * E_FT_BYTES);
+    mbar_expect_tx(bar, E_FT_BYTES);
+    for (int bx = 0; bx < E_BOXES; ++bx)
+      tma_box(dst + bx * (E_FT_BYTES / E_BOXES), &ft_map, (t % nct) * E_TN + bx * E_BOX, 0, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < E_STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q < min(E_STAGES, n); ++q) load(unit(q), q);
   }
   __syncthreads();
-  for (int v = tid; v < E_TM * (E_TN / 8); v += THREADS) {
-    const int r = v / (E_TN / 8), q = v % (E_TN / 8);
-    *reinterpret_cast<uint4*>(out + (size_t)(p0 + r) * S + j0 + q * 8) =
-        *reinterpret_cast<const uint4*>(o_s + r * E_LDO + q * 8);
+
+  uint32_t A[E_MT][2][4];   // the warp's sample rows: [m16 tile][k16 step] fragments
+  int rb_held = -1;
+  for (int q = 0; q < n; ++q) {
+    const int t = unit(q), rb = t / nct, ct = t % nct, st = q % E_STAGES;
+    if (rb != rb_held) {   // a new row slice: its A fragments from device memory
+      rb_held = rb;
+#pragma unroll
+      for (int mt = 0; mt < E_MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const bf16* p = fa + (size_t)(rb * E_TM + wr * E_WM + mt * 16 + g) * FD + 16 * ks + 2 * tq;
+          A[mt][ks][0] = ld32(p);
+          A[mt][ks][1] = ld32(p + 8 * FD);
+          A[mt][ks][2] = ld32(p + 8);
+          A[mt][ks][3] = ld32(p + 8 * FD + 8);
+        }
+    }
+    // this lane's columns 2 tq, 2 tq + 1 of each n8 tile, as f32
+    float cs[E_NT][2];
+#pragma unroll
+    for (int nt = 0; nt < E_NT; ++nt) {
+      const int j = ct * E_TN + E_WN * wc + 8 * nt + 2 * tq;   // past S: stored nowhere
+      const float2 c = j < S ? unpack2(ld32(cols + j)) : make_float2(0.f, 0.f);
+      cs[nt][0] = c.x;
+      cs[nt][1] = c.y;
+    }
+    unsigned char* stage = smem + (q & 1) * E_OUT_BYTES;
+    if (tid == 0) bulk_wait_read<1>();   // the store of unit q - 2 has left this buffer
+    mbar_wait(bar0 + 8 * st, (q / E_STAGES) & 1);
+    __syncthreads();
+
+    // B fragments of the warp's 32 columns ([n8 tile][k16 step]) by
+    // ldmatrix.trans from the swizzled boxes: matrix l / 8 of a load is
+    // (k rows 16 ks + 8 (l / 8 % 2) .., chunk chunk0 + 2 np + l / 16)
+    uint32_t B[E_NT][2][2];
+    const unsigned char* fb = ring + st * E_FT_BYTES + box * (E_FT_BYTES / E_BOXES);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int np = 0; np < E_NT / 2; ++np) {
+        const int k = 16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1);
+        const int ch = chunk0 + 2 * np + (lane >> 4);
+        uint32_t r[4];
+        ldsm_x4_trans(r, reinterpret_cast<const bf16*>(fb + k * 128 + ((ch ^ (k & 7)) << 4)));
+        B[2 * np][ks][0] = r[0];
+        B[2 * np][ks][1] = r[1];
+        B[2 * np + 1][ks][0] = r[2];
+        B[2 * np + 1][ks][1] = r[3];
+      }
+#pragma unroll
+    for (int mt = 0; mt < E_MT; ++mt) {
+      const int r0 = wr * E_WM + mt * 16 + g;   // rows r0, r0 + 8; r0 & 7 == g
+#pragma unroll
+      for (int nt = 0; nt < E_NT; ++nt) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816(c, A[mt][0], B[nt][0]);
+        mma16816(c, A[mt][1], B[nt][1]);
+        // staged in the TMA box's 128-byte-swizzled layout: the 8 rows a
+        // warp writes at once land in 8 distinct 16-byte chunks
+        unsigned char* o = stage + (box + (chunk0 + nt) / 8) * (E_OUT_BYTES / E_BOXES) +
+                           ((((chunk0 + nt) % 8) ^ g) << 4) + tq * 4;
+        *reinterpret_cast<uint32_t*>(o + r0 * 128) =
+            scale_pair(kb_pair(c[0], c[1]), cs[nt][0], cs[nt][1]);
+        *reinterpret_cast<uint32_t*>(o + (r0 + 8) * 128) =
+            scale_pair(kb_pair(c[2], c[3]), cs[nt][0], cs[nt][1]);
+      }
+    }
+    fence_async_smem();
+    __syncthreads();   // the unit is staged; its ring stage is free
+    if (tid == 0) {
+      const uint64_t pol = l2_evict_first();
+      for (int bx = 0; bx < E_BOXES; ++bx)
+        tma_store_hint(&out_map, smem_u32(stage + bx * (E_OUT_BYTES / E_BOXES)),
+                       ct * E_TN + bx * E_BOX, rb * E_TM, pol);
+      bulk_commit();
+      if (q + E_STAGES < n) load(unit(q + E_STAGES), st);
+    }
   }
+  if (tid == 0) bulk_wait_all();
+}
+
+// every bf16 pattern x (as d2) -> K7's entry bits, kb_pair's route: two
+// patterns a thread, 256 x 128 threads
+__global__ void kb_entries_kernel(unsigned short* out) {
+  const uint32_t x = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
+  const uint32_t r = kb_pair(__uint_as_float(x << 16), __uint_as_float((x + 1) << 16));
+  out[x] = (unsigned short)(r & 0xFFFF);
+  out[x + 1] = (unsigned short)(r >> 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -440,18 +555,40 @@ ext2_fn ext2_kernel(int P) {
 
 extern "C" {
 
-// K7. P % 128 == 0, S % 128 == 0 (the wrapper checks).
+// K7. P % 128 == 0, S % 128 == 0, fa, ft, cols and out 16-byte aligned
+// (the wrapper checks). Persistent blocks, as many as fit the card at once
+// (the occupancy API), at most one an E_TM x E_TN unit.
 int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (P < E_TM || S < 128 || P % E_TM || S % 128) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ft_map, out_map;
+  if (!tile_map(&ft_map, ft, false, S, FD, S, E_BOX, FD) ||
+      !tile_map(&out_map, out, false, S, P, S, E_BOX, E_TM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaFuncSetAttribute(kb_emit_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)E_SMEM);
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)E_SMEM);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kb_emit_kernel, E_THREADS, E_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(S / E_TN, P / E_TM);
-  kb_emit_kernel<<<grid, THREADS, E_SMEM, s>>>(
-      static_cast<const bf16*>(fa), static_cast<const bf16*>(ft),
-      static_cast<const bf16*>(cols), static_cast<bf16*>(out), S);
+  if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // a last column tile past S reads zero f_t columns and its store is clipped
+  const int nrb = P / E_TM, nct = (S + E_TN - 1) / E_TN;
+  const long long units = (long long)nrb * nct;
+  const int grid = (int)((long long)occ * sms < units ? (long long)occ * sms : units);
+  kb_emit_kernel<<<grid, E_THREADS, E_SMEM, s>>>(ft_map, out_map, static_cast<const bf16*>(fa),
+                                                 static_cast<const bf16*>(cols), nrb, nct, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's entry (kb_pair) at every one of the 65536 bf16(d2) patterns: out
+// holds 65536 bf16 bit patterns (chip_smoke.py compares them with kb_aug's)
+int glt_kb_entries(void* out, void* stream) {
+  kb_entries_kernel<<<256, 128, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned short*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "glt_strip_ext2": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "glt_strip_sandwich": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "glt_kb_entries": ([_P, _P], _I),
     "glt_ext2_clusters": ([_I], _I),
     "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "glt_finish_colstats": ([_P] * 14 + [_I, _I, _I, _I, _P], _I),

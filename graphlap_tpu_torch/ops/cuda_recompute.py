@@ -48,7 +48,8 @@ from .streaming import _chunks
 PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
 FD = 32                   # feature depth of the kernels
-X_TN, E_TN = 64, 128      # K8, K7 column tiles (csrc); K8 holds p_pad <= 4096
+X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
+E_TN = 128                # K7 width quantum (its 256-column units clip the last)
 MP_MAX = 64               # widest V a K9 / K10 launch holds
 C_TN = 256                # K9 / K10 column tile (csrc)
 # K7 columns a launch: the kb buffer of one superblock is (p_pad, GRAM_SUPER)
@@ -211,16 +212,33 @@ def kb_strip_cuda(fa, f_t, cols, aug: bool = False):
     _check_layout(fa, f_t, "kb_strip", aug)
     p, s = fa.shape[0], f_t.shape[1]
     _check_vecs("kb_strip", cols=(cols, (s,)))
-    if s % E_TN:
-        raise ValueError(f"kb_strip: width {s} must be a multiple of {E_TN}")
+    if p == 0 or s == 0 or s % E_TN:
+        raise ValueError(f"kb_strip: takes a non-empty fa and a width that is "
+                         f"a multiple of {E_TN}, got ({p}, {s})")
     out = torch.empty((p, s), dtype=torch.bfloat16, device=fa.device)
-    cb = _bf16(cols)
+    # the f_t tiles arrive and the output leaves by TMA, which takes
+    # 16-byte aligned bases: a view that starts elsewhere is copied
+    fa, f_t, cb = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (fa, f_t, _bf16(cols)))
     rc = _build.lib().glt_kb_strip(fa.data_ptr(), f_t.data_ptr(),
                                    cb.data_ptr(), out.data_ptr(), p, s,
                                    _build.stream_ptr(fa))
     _build.check(rc, "kb_strip")
     kb_strip_cuda.launches += 1
     return out
+
+
+def kb_entries(device) -> torch.Tensor:
+    """K7's tile entry (``kb_pair`` in ``csrc/recompute_sweeps.cu``: kexp's
+    one FMUL and one MUFU ex2 on bf16(d2)) at every one of the 65536
+    bf16(d2) patterns, as bf16 bits, (65536,) int32, on the card. No path
+    calls it: ``chip_smoke.py`` requires it equal to the evaluated entry
+    (``cuda_matvec.aug_entries`` route 0, ``kb_aug``) at every pattern."""
+    out = torch.empty(65536, dtype=torch.int16, device=device)
+    _build.check(_build.lib().glt_kb_entries(out.data_ptr(),
+                                             _build.stream_ptr(out)),
+                 "kb_entries")
+    return out.to(torch.int32) & 0xFFFF
 
 
 def _gram(kb: torch.Tensor) -> torch.Tensor:

@@ -635,6 +635,9 @@ def test_build_argtypes_match_the_c_signatures():
     # the wgmma sandwich (K3/K4): ten pointers, P, N, the strip's row
     # stride, kp and the split count, then the stream
     assert sigs["glt_strip_sandwich"] == ("i", ["p"] * 10 + ["i"] * 5 + ["p"])
+    # K7: the persistent emitter keeps its signature; its entry's check
+    assert sigs["glt_kb_strip"] == ("i", ["p"] * 4 + ["i", "i", "p"])
+    assert sigs["glt_kb_entries"] == ("i", ["p", "p"])
     # the redesigned K8 / K9 entry points
     assert sigs["glt_ext2_clusters"] == ("i", ["i"])
     assert sigs["glt_colstats_v_blocks"] == ("i", ["i"])
@@ -805,3 +808,116 @@ def test_k8_k9_repeat_bit_for_bit(cuda_device, p, n, m):
         assert torch.equal(tail[0], v[:, 64:])
         assert torch.equal(tail[1], norms[64:])
         assert torch.equal(tail[2], coeffs[64:])
+
+
+# --- K7, the persistent gram emitter ----------------------------------------
+
+def _k7_case(dev, p, s, seed, cols_hi=1.5):
+    """K7 operands: p sample rows padded to p_pad, s columns, features at
+    the scale of the existing K7 tests, cols in [0, cols_hi)."""
+    rng = np.random.default_rng(seed)
+    tt = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    fa_aug, f_t = rl.aug_pads(tt(rng.normal(0, 0.3, (p, 25))),
+                              tt(rng.normal(0, 0.3, (s, 25))), s)
+    return fa_aug, f_t, tt(rng.uniform(0, cols_hi, s)), True
+
+
+@pytest.mark.parametrize("p,s,err,match", [
+    (512, 1000, ValueError, "multiple of 128"),
+    (512, 0, ValueError, "multiple of 128"),
+    (0, 1024, ValueError, "non-empty"),
+    (256, 1024, ValueError, "multiple of 512"),
+    (512, 1024, NotImplementedError, "ROADMAP"),
+    (512, 1024, ValueError, "feature lanes"),
+    (512, 1024, ValueError, "shape"),
+    # K7 holds no whole-p tile: p_pad 8192 and an uneven column count pass
+    # its guards and reach the (here missing) kernel library
+    (8192, 128 * 133, RuntimeError, "unavailable"),
+], ids=["s1000", "s0", "p0", "p256", "f32", "lanes25", "cols", "p8192"])
+def test_k7_raises_before_a_launch(monkeypatch, p, s, err, match):
+    """K7's wrapper takes p_pad on the 512 quantum, any positive multiple of
+    128 columns, 32 bf16 aug lanes and one bf16-roundable column scale each
+    column; anything else raises before the library is asked for anything."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k79, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    bf = torch.bfloat16
+    dtype, lanes, ncols = bf, 32, s
+    if match == "ROADMAP":
+        dtype = torch.float32
+    elif match == "feature lanes":
+        lanes = 25
+    elif match == "shape":
+        ncols = s + 1
+    fa = torch.zeros((p, lanes), dtype=dtype)
+    f_t = torch.zeros((lanes, s), dtype=dtype)
+    before = _counts()
+    with pytest.raises(err, match=match):
+        k79.kb_strip_cuda(fa, f_t, torch.ones(ncols), True)
+    assert _counts() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,s", [(500, 128 * 133), (8000, 128 * 133),
+                                 (1000, 128), (4000, 131072)],
+                         ids=["p512-s17024", "p8192-s17024", "p1024-s128",
+                              "p4096-s131072"])
+def test_k7_kernel_matches_plain_across_its_shapes(cuda_device, p, s):
+    """The persistent K7 against its plain version where the 128 x 128
+    units do not divide evenly over the resident blocks (p_pad 512 and 8192
+    by 133 column tiles), where there are fewer units than blocks (8 units)
+    and at config 4's gram shape (p_pad 4096, 131072 columns), under the
+    existing K7 bar (two bf16 ulps at cols below 1.5, as
+    test_k7_k9_kernels_match_plain); a second launch on the same inputs is
+    the same bit for bit."""
+    args = _k7_case(cuda_device, p, s, seed=p + s)
+    before = _counts()
+    got = k79.kb_strip_cuda(*args)
+    again = k79.kb_strip_cuda(*args)
+    assert [a - b for a, b in zip(_counts(), before)] == [2, 0, 0]
+    assert got.shape == (args[0].shape[0], s) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    ref = k79.kb_strip_plain(*args)
+    assert float((got.float() - ref.float()).abs().max()) <= 1.5 * 2.0 ** -7
+
+
+@pytest.mark.gpu
+def test_k7_at_config4_feature_scale(cuda_device):
+    """K7 on the features and gram columns config 4's recipe builds (h 0.25,
+    NLM 5x5, sample cap 4096, gram 1/64), here on a 512 x 512 frame: p_pad
+    3072, 4096 gram columns, every entry pattern the path produces."""
+    cfg = PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
+        streaming=True, block_cols=65536, affinity_dtype="bfloat16",
+        use_pallas=True, sinkhorn_coarse=64, gram_coarse=64,
+        sinkhorn_polish=1, fused_finish=True)
+    img = gt.make_test_image(512, 512)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0,
+                    1).astype(np.float32)
+    plan = gt.make_plan(noisy, cfg)
+    ctx = tms._strip_ctx(T(noisy).cuda(),
+                         interop.idx_to_device(plan.idx_a, "cuda"), cfg)
+    jidx = torch.as_tensor(tms.gram_sample_idx(ctx.n_pad, cfg.gram_coarse,
+                                               cfg.gram_jitter_seed),
+                           dtype=torch.int64, device=cuda_device)
+    f_t = ctx.f_t[:, jidx].contiguous()
+    cols = torch.rand(f_t.shape[1], device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(1))
+    got = k79.kb_strip_cuda(ctx.fa_aug, f_t, cols, True)
+    ref = k79.kb_strip_plain(ctx.fa_aug, f_t, cols, True)
+    assert got.shape == (ctx.fa_aug.shape[0], f_t.shape[1])
+    # chip_smoke.py's kb_strip bar (cols below 1)
+    assert float((got.float() - ref.float()).abs().max()) <= 2.0 ** -7
+
+
+@pytest.mark.gpu
+def test_k7_entry_equals_kb_aug_at_every_pattern(cuda_device):
+    """K7's entry (kexp on bf16(d2)) equals the evaluated aug entry
+    (kb_aug, route 0 of the K5/K6 entry check) at all 65536 bf16(d2)
+    patterns, NaN and negative ones included."""
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+    ref = k56.aug_entries(0, cuda_device)
+    assert int((k79.kb_entries(cuda_device) != ref).sum()) == 0
