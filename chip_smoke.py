@@ -93,7 +93,26 @@ non-zero before the last line is printed):
               config 4's cfg4_8mp_compliant_turbo_p1 (K5/K6 polish, K7, K10)
               and on config 2 (K1 once a stage), each held to filter_image
               on the same config within the bf16 bars.
-9. result   — one JSON line listing every kernel (name, route, source,
+9. dense    — the dense (non-streaming) path on bench.py's f32 twin of the
+              headline, CONFIG2.replace(use_pallas=True) at 512x512 (noise
+              sigma 0.1 seed 1; p=5243, the (p, N-p) K_AB strip stored f32,
+              20 full-resolution Sinkhorn iterations, LOBPCG, m=50):
+   kernels  K1 at the dense shape (K_AB: 5243 x 256901 in permuted [A; B]
+            order, ragged, so the kernel writes padded rows and returns the
+            view): the f32 store against its plain version (5e-5), timed
+            beside its cuBLAS composition, two launches bit for bit; the
+            bf16 store the same way, within one bf16 ulp;
+   e2e      filter_image: warm-up and three timed runs (counts set to 0 just
+            before), walls, peak memory, PSNR in/out (gain > 5 dB), one K1
+            launch a call, the kernel path against the plain path (0.02 dB,
+            2e-3); the same at affinity_dtype="bfloat16_store" (0.05 dB,
+            2e-2);
+   staged   filter_image_staged on the f32 twin: four stage walls
+            (affinity, normalize, eigensolve, filter), held to filter_image
+            within 2e-3;
+   small    config 1 at 128x128 and config 2 dense at 96x96, card against
+            the plain versions on the CPU (0.02 dB, 2e-3).
+10. result  — one JSON line listing every kernel (name, route, source,
               replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
               bound_by, library_ms), the card line, then the contract line
               {"ok": true, "device": {...}}.
@@ -138,6 +157,9 @@ TOL = {
     # of the norms (as the plain version's own f32 product does), which can
     # flip a stored value by one bf16 ulp (2^-8 below 1.0)
     "affinity_strip": 2.0 ** -8,
+    # f32 store (the dense path's K_AB): the same d2 movement through an
+    # IEEE expf, absolute (entries in [0, 1]); the bar of the f32 K1 tests
+    "affinity_strip_f32": 5e-5,
     # f32 sums in another order over P=5248 rows / N=262144 columns
     "strip_ext2": 1e-4,
     # as K2, plus ws re-rounded to bf16 where the f32 sums straddle a
@@ -177,6 +199,7 @@ TOL = {
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
+    "affinity_strip_f32": "graphlap_tpu/ops/pallas_affinity.py:76",
     "strip_ext2": "graphlap_tpu/ops/pallas_streaming.py:940",
     "strip_sandwich_spost": "graphlap_tpu/ops/pallas_streaming.py:1045",
     "strip_sandwich": "graphlap_tpu/ops/pallas_streaming.py:1110",
@@ -191,6 +214,7 @@ REPLACES = {
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "affinity_strip_f32": "graphlap_tpu_torch/csrc/affinity_strip.cu",
     "strip_ext2": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich_spost": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
@@ -206,9 +230,10 @@ SOURCE = {
 NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
 # partials, no float atomics): checked by a second launch on the same inputs
-BIT_REPEAT = ("strip_ext2", "strip_sandwich_spost", "strip_sandwich",
-              "kb_strip", "ext2_matvec", "matvec", "rmatvec", "matvec_f32",
-              "rmatvec_f32", "finish_colstats", "colstats_v")
+BIT_REPEAT = ("affinity_strip_f32", "strip_ext2", "strip_sandwich_spost",
+              "strip_sandwich", "kb_strip", "ext2_matvec", "matvec",
+              "rmatvec", "matvec_f32", "rmatvec_f32", "finish_colstats",
+              "colstats_v")
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
@@ -351,7 +376,7 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
         scales = scale_fn[0](ref) if scale_fn else None
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
-        if name in ("affinity_strip", "kb_strip"):
+        if name in ("affinity_strip", "affinity_strip_f32", "kb_strip"):
             rel = err                                 # absolute, see TOL
         if name in BIT_REPEAT:
             again = kern(*args)
@@ -556,7 +581,7 @@ def strip_library() -> dict:
         a, b = a.to(dtype).to(f32), b.to(dtype).to(f32)
         d2 = ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
               - 2.0 * torch.mm(a, b.T))
-        return torch.exp(-d2.clamp_(min=0.0)).to(store)
+        return torch.exp(-d2.clamp_(min=0.0)).to(store or f32)
 
     def mm(a, b):
         return torch.mm(a, b, out_dtype=f32)
@@ -580,6 +605,9 @@ def strip_library() -> dict:
         "affinity_strip": (affinity, what + "torch.mm(a, b^T) in f32 at "
                            "\"highest\" (no TF32), the norms, the clamp, exp "
                            "and the bf16 cast"),
+        "affinity_strip_f32": (affinity, what + "torch.mm(a, b^T) in f32 at "
+                               "\"highest\" (no TF32), the norms, the "
+                               "clamp and exp"),
         "strip_ext2": (ext2, what + "mm(bf16(t2), K), the scale, then "
                        "mm(K, bf16(s)) (s rounded to bf16: cuBLAS has no "
                        "bf16 x f32 product)"),
@@ -1188,10 +1216,12 @@ def config4t(gt, dev, rows, launches, info):
                             small_db=s_db, small_max=s_max)
 
 
-def staged_one(gt, tag, cfg, img, noisy, plan, dev, counters):
+def staged_one(gt, tag, cfg, img, noisy, plan, dev, counters,
+               keys=("normalize", "eigensolve", "filter"), bars=(0.05, 2e-2)):
     """filter_image_staged: a warm-up, then RUNS timed calls with every
-    count set to 0 just before them; held to filter_image on the same
-    config. Returns the phase's record."""
+    count set to 0 just before them; its timing keys must be ``keys``, and
+    it is held to filter_image on the same config within ``bars`` (dB, max
+    |diff|). Returns the phase's record."""
     gt.filter_image_staged(noisy, cfg, plan=plan, device=dev)   # warm-up
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -1213,14 +1243,13 @@ def staged_one(gt, tag, cfg, img, noisy, plan, dev, counters):
           f"{min(eig):.6f} s; call walls {[round(w, 6) for w in walls]} s; "
           f"peak memory {peak / 2**30:.3f} GiB; launches per call "
           f"{per_call}; vs filter_image {d_db:.5f} dB, max |diff| "
-          f"{d_max:.3e} (bar 0.05 dB, 2e-2)")
-    require(set(res.timings) == {"normalize", "eigensolve", "filter"},
-            f"{tag}: staged timings keys")
+          f"{d_max:.3e} (bar {bars[0]} dB, {bars[1]:.0e})")
+    require(set(res.timings) == set(keys), f"{tag}: staged timings keys")
     require(np.isfinite(res.image).all() and res.image.shape == noisy.shape,
             f"{tag}: staged output is not a finite image of the input shape")
     require(all(c > 0 for c in per_call.values()),
             f"{tag}: the staged path never launched one of {list(counters)}")
-    require(d_db <= 0.05 and d_max <= 2e-2,
+    require(d_db <= bars[0] and d_max <= bars[1],
             f"{tag}: staged image != filter_image")
     return dict(stage_walls_s=stage_walls, walls_s=walls, peak_bytes=peak,
                 launches_per_call=per_call, vs_filter_image_db=d_db,
@@ -1246,6 +1275,145 @@ def staged(gt, dev, info):
         gt, "config 2 (512x512)", cfg, img, noisy, plan, dev,
         {"affinity_strip": k1.affinity_strip_cuda})
     phase("staged", "config 2 done", t0)
+
+
+def make_workload_dense(gt, cfg=None, size=H):
+    """bench.py's f32 twin of the headline (``CONFIG2.replace(use_pallas=
+    True)``, bench.py:279) on bench.make_workload's image: (cfg, clean
+    image, noisy f32 image, plan)."""
+    cfg = gt.CONFIG2.replace(use_pallas=True) if cfg is None else cfg
+    img, noisy = noisy_image(gt, size, size)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def k1_dense_cases(cfg, noisy, plan, dev):
+    """K1 as the dense path calls it on the f32 twin: config 2's features in
+    permuted [A; B] order, K_AA's rows against K_AB's N - p columns."""
+    from graphlap_tpu_torch.ops import affinity as taff
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+
+    perm = torch.as_tensor(plan.perm.astype(np.int64), device=dev)
+    fp = taff.extract_features(torch.as_tensor(noisy, device=dev), cfg)[perm]
+    fa, fb = fp[:plan.p].contiguous(), fp[plan.p:].contiguous()
+    p, n, d = fa.shape[0], fb.shape[0], fa.shape[1]
+    e = p * n
+    # the bytes: the f32 store plus the features read once; the operations:
+    # the "highest" cross as three fp16 tensor passes over the 32 padded
+    # lanes, ~8 f32 operations and one exp an entry (as K1's config-2 row)
+    return {"affinity_strip_f32": (
+        k1.affinity_strip_cuda, k1.affinity_strip_plain,
+        (fa, fb, torch.float32, None),
+        bound(4 * e + 4 * d * (p + n), 3 * 2 * e * 32, 8 * e, e))}
+
+
+def dense_pair(gt, tag, cfg, img, noisy, plan, dev, counters, bars):
+    """The dense path at full size: ``drive`` (one K1 launch a call), the
+    denoise gain, and the kernel path against the plain path on the card
+    within ``bars``. Returns the phase's record."""
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+
+    t0 = time.perf_counter()
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters, tag)
+    per_call = {k: c / RUNS for k, c in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e-dense", f"{tag}: walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB; launches per call "
+          f"{per_call}", t0)
+    require(res.image.shape == noisy.shape and np.isfinite(res.image).all(),
+            f"{tag}: output is not a finite image of the input shape")
+    require(psnr_out > psnr_in + 5.0, f"{tag}: denoise gain under 5 dB")
+    require(all(c == 1 for c in per_call.values()),
+            f"{tag}: not one K1 launch a call")
+
+    def to(a):
+        return torch.as_tensor(a.astype(np.int64), device=dev)
+
+    t0 = time.perf_counter()
+    z_plain, _ = _filter_channel(torch.as_tensor(noisy, device=dev),
+                                 to(plan.idx_a), cfg, plain=True,
+                                 perm=to(plan.perm),
+                                 inv_perm=to(plan.inv_perm))
+    z_plain = z_plain.cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("e2e-dense", f"{tag}: kernel vs plain path on the card: {d_db:.5f} "
+          f"dB, max |diff| {d_max:.3e} (bar {bars[0]} dB, {bars[1]:.0e})", t0)
+    require(d_db <= bars[0] and d_max <= bars[1],
+            f"{tag}: kernel path != plain path")
+    return dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                psnr_out=psnr_out, launches_per_call=per_call,
+                plain_path_db=d_db, plain_path_max=d_max)
+
+
+def dense(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+
+    f32_bars, bf16_bars = (0.02, 2e-3), (0.05, 2e-2)
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_dense(gt)
+    cases = k1_dense_cases(cfg, noisy, plan, dev)
+    fa, fb = cases["affinity_strip_f32"][2][:2]
+    phase("dense", f"f32 twin at {H}x{W}: p={plan.p}, K_AB {fa.shape[0]} x "
+          f"{fb.shape[0]} (N - p % 4 = {fb.shape[0] % 4}, % 8 = "
+          f"{fb.shape[0] % 8}: padded rows, a view)", t0)
+    run_cases(cases, rows, library=strip_library())
+
+    t0 = time.perf_counter()
+    got = k1.affinity_strip_cuda(fa, fb, torch.float32, torch.bfloat16)
+    again = k1.affinity_strip_cuda(fa, fb, torch.float32, torch.bfloat16)
+    ref = k1.affinity_strip_plain(fa, fb, torch.float32, torch.bfloat16)
+    err = float((got.float() - ref.float()).abs().max())
+    same = bool(torch.equal(got, again))
+    view = not got.is_contiguous()
+    del got, again, ref, cases
+    torch.cuda.empty_cache()
+    ms_b = cuda_ms(lambda: k1.affinity_strip_cuda(fa, fb, torch.float32,
+                                                  torch.bfloat16), 5)
+    phase("kernel", f"affinity_strip bf16 store at the dense shape: "
+          f"max_abs_err {err:.3e} (tol {TOL['affinity_strip']:.1e}), two launches bit for "
+          f"bit: {same}, padded-row view: {view}; kernel {ms_b:.3f} ms", t0)
+    require(err <= TOL["affinity_strip"] and same,
+            "affinity_strip bf16 store at the dense shape")
+    rows["affinity_strip_bf16_dense"] = dict(max_abs_err=err, ms=ms_b,
+                                             bit_repeat=same, view=view)
+    del fa, fb
+    torch.cuda.empty_cache()
+
+    counter = {"affinity_strip_f32": k1.affinity_strip_cuda}
+    info["dense_f32"] = dense_pair(gt, "dense f32 twin", cfg, img, noisy, plan,
+                                   dev, counter, f32_bars)
+    launches["affinity_strip_f32"] = round(
+        info["dense_f32"]["launches_per_call"]["affinity_strip_f32"] * RUNS)
+    torch.cuda.empty_cache()
+    cfg_b = cfg.replace(affinity_dtype="bfloat16_store")
+    info["dense_bf16_store"] = dense_pair(
+        gt, "dense bfloat16_store", cfg_b, img, noisy, plan, dev,
+        {"affinity_strip": k1.affinity_strip_cuda}, bf16_bars)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    info["staged_dense"] = staged_one(
+        gt, "dense f32 twin", cfg, img, noisy, plan, dev, counter,
+        keys=("affinity", "normalize", "eigensolve", "filter"),
+        bars=f32_bars)
+    phase("staged", "dense f32 twin done", t0)
+    torch.cuda.empty_cache()
+
+    for tag, size, small in (("config 1", 128, gt.CONFIG1),
+                             ("config 2 dense", 96, cfg)):
+        t0 = time.perf_counter()
+        _, im_s, nz_s, pl_s = make_workload_dense(gt, small, size)
+        card = gt.filter_image(nz_s, small, plan=pl_s, device=dev).image
+        cpu = gt.filter_image(nz_s, small, plan=pl_s, device="cpu").image
+        s_db = abs(gt.psnr(im_s, card) - gt.psnr(im_s, cpu))
+        s_max = float(np.abs(card - cpu).max())
+        phase("small", f"{tag} at {size}x{size}: card vs CPU plain: "
+              f"{s_db:.5f} dB, max |diff| {s_max:.3e}; PSNR "
+              f"{gt.psnr(im_s, nz_s):.3f} -> {gt.psnr(im_s, card):.3f} dB", t0)
+        require(np.isfinite(card).all() and s_db <= f32_bars[0]
+                and s_max <= f32_bars[1], f"{tag}: card run != CPU plain run")
+        info[f"small_{tag.replace(' ', '_')}"] = dict(db=s_db, max=s_max)
 
 
 def sass_uses(build, kernel: str, opcode: str) -> dict:
@@ -1332,6 +1500,8 @@ def main() -> None:
     config4t(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     staged(gt, dev, info)
+    torch.cuda.empty_cache()
+    dense(gt, dev, rows, launches, info)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -42,8 +42,9 @@ branch of ``_solve_pxp``, ``_fused_finish_ok``,
 ``_apply_factor``, the closures ``strip_matvec`` / ``strip_rmatvec`` /
 ``ktilde_apply`` of both contexts, ``_apply_matvec_streaming``,
 ``filter_channel_streaming`` and the ``stage_*`` functions. Every other
-recipe raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it (``check_slice``).
+streaming recipe raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it (``check_slice``); non-streaming configs take the dense path
+(models/pipeline).
 """
 
 from __future__ import annotations
@@ -117,8 +118,8 @@ def _matvec_kernels(plain: bool):
     return k56.matvec_cuda, k56.rmatvec_cuda
 
 
-_ONESHOT_TODO = ("the one-shot p x p solve (psd_pinv_sqrt) waits for "
-                 "ROADMAP.md Queue 1 M2")
+_ONESHOT_TODO = ("the one-shot p x p solve on the streaming paths waits "
+                 "for ROADMAP.md Queue 1 M2")
 
 
 def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
@@ -132,7 +133,8 @@ def _strip_fused_recipe(cfg: PipelineConfig) -> bool:
 
 def check_slice(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError, before any work, unless ``cfg`` is a
-    recipe the port runs: streaming with the kernels (``use_pallas``) —
+    recipe the port runs: any non-streaming config (the dense path,
+    models/pipeline); streaming with the kernels (``use_pallas``) —
     strip_cache with a spectral filter and the sketch solver; recompute
     with an operator filter (any normalization) or a spectral filter and
     the chol or LOBPCG solver, fused finish or not.
@@ -141,9 +143,8 @@ def check_slice(cfg: PipelineConfig) -> None:
     todo = None
     spectral = not cfg.operator_filter()
     if not cfg.streaming:
-        todo = ("non-streaming configs wait for ROADMAP.md Queue 1 M5 "
-                "(dense path)")
-    elif cfg.strip_cache:
+        return
+    if cfg.strip_cache:
         if not spectral:
             todo = ("operator filter modes (matvec/chebyshev) on strip_cache "
                     "recipes wait for ROADMAP.md Queue 1 M3 / M7")
@@ -305,7 +306,10 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
     p_pad = _cdiv(p, P_QUANTUM) * P_QUANTUM
     feats_a_pois = torch.full((p_pad, d), 1e3, dtype=feats_a.dtype, device=dev)
     feats_a_pois[:p] = feats_a
-    strip_pad = _kernels(plain)[0](feats_a_pois, feats_strip, dtype, store)
+    # K1 returns a view over padded rows where n_pad is ragged; the sweeps
+    # take a contiguous strip
+    strip_pad = _kernels(plain)[0](feats_a_pois, feats_strip, dtype,
+                                   store).contiguous()
     return _StripCtx(**base, strip=strip_pad[:p], strip_pad=strip_pad)
 
 
@@ -613,9 +617,7 @@ def _solve_pxp(cfg: PipelineConfig, waa: torch.Tensor, cross: torch.Tensor,
     """The p x p Nystrom factor solve -> (vals_m (m,), basis0 (p, m)).
     ``x0``: LOBPCG's start block (default ``ops.nystrom.lobpcg_x0``)."""
     if cfg.solver not in ("chol", "lobpcg"):
-        raise NotImplementedError(
-            "graphlap_tpu_torch: the one-shot p x p solve (psd_pinv_sqrt) "
-            "waits for ROADMAP.md Queue 1 M2")
+        raise NotImplementedError(f"graphlap_tpu_torch: {_ONESHOT_TODO}")
     method = "lobpcg" if cfg.solver == "lobpcg" else "eigh"
     return nystrom_chol_factor(waa, cross, cfg.num_eigvecs, cfg.eig_tol,
                                method, cfg.lobpcg_iters, x0)

@@ -1,5 +1,5 @@
-"""Pixel-affinity construction: features and the K strip (port of
-``graphlap_tpu/ops/affinity.py``).
+"""Pixel-affinity construction: features, the K strip and the dense path's
+blocks (port of ``graphlap_tpu/ops/affinity.py``; ``affinity_blocks`` :196).
 
 The image is unfolded once into an (N, d) feature tensor with the bandwidth
 folded in (feats = raw / h), so every kernel evaluation is the GEMM trick
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import PipelineConfig
+from . import cuda_affinity as k1
 
 
 def feature_dim(cfg: PipelineConfig) -> int:
@@ -109,3 +110,30 @@ def affinity_strip(feats_a: torch.Tensor, feats_all: torch.Tensor,
     d2 = torch.clamp(na[:, None] + nb[None, :] - 2.0 * cross, min=0.0)
     out = torch.exp(-d2)
     return out if store_dtype is None else out.to(store_dtype)
+
+
+def affinity_blocks(img: torch.Tensor, idx_a: torch.Tensor,
+                    perm: torch.Tensor, cfg: PipelineConfig, h=None,
+                    plain: bool = False):
+    """The dense path's (K_AA (p, p), K_AB (p, N-p)) for one channel, in
+    permuted [A; B] order (``perm`` int64 on ``img``'s device).
+
+    K_AA is always the f32-stored ``affinity_strip`` (it feeds the p x p
+    solves); K_AB comes from K1 (``affinity_strip_cuda``, or with ``plain``
+    its PyTorch version) with ``use_pallas``, else from ``affinity_strip``.
+    The GEMM inputs round to bf16 under ``affinity_dtype="bfloat16"``, and
+    only the K_AB store narrows under ``"bfloat16_store"``. On the card K1
+    may return a view over padded rows (a ragged N - p)."""
+    feats_perm = extract_features(img, cfg, h=h)[perm]
+    p = idx_a.shape[0]
+    feats_a = feats_perm[:p]
+    dtype = _tile_dtype(cfg.affinity_dtype)
+    store = (torch.bfloat16 if cfg.affinity_dtype == "bfloat16_store"
+             else None)
+    kaa = affinity_strip(feats_a, feats_a, dtype)
+    if cfg.use_pallas:
+        emit = k1.affinity_strip_plain if plain else k1.affinity_strip_cuda
+        kab = emit(feats_a, feats_perm[p:], dtype, store)
+    else:
+        kab = affinity_strip(feats_a, feats_perm[p:], dtype, store)
+    return kaa, kab

@@ -24,6 +24,11 @@ import torch
 from . import _build
 
 MAX_FEATURES = 32        # feature lanes of the kernel's cross (csrc A1_FD)
+# row pitch of the kernel's output where N is ragged
+ROW_BYTES = 256
+# column chunk of the plain version: its f64 exp of a whole dense-path
+# strip (5243 x 256901) would hold some 38 GB of transients
+PLAIN_CHUNK = 65536
 
 
 def _device_kind(*ts: torch.Tensor) -> str:
@@ -48,27 +53,34 @@ def _out_dtype(store_dtype) -> torch.dtype:
 def affinity_strip_plain(feats_a: torch.Tensor, feats_all: torch.Tensor,
                          dtype: torch.dtype = torch.float32,
                          store_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """PyTorch version of K1 with the kernel's rounding points. The f32
-    entry is exp(-d2) rounded once to f32, the exp taken in f64: on the
-    CPU the first f32 ``torch.exp`` of a process put a span of some 3600
-    entries up to 7.3e-5 off in about 2% of processes (the next call on
-    the same input was right to 3e-8), while an f64 exp is right far below
-    an f32 ulp."""
+    """PyTorch version of K1 with the kernel's rounding points, in column
+    chunks of ``PLAIN_CHUNK`` (each entry is computed alone, so the chunks
+    change no value). The f32 entry is exp(-d2) rounded once to f32, the
+    exp taken in f64: on the CPU the first f32 ``torch.exp`` of a process
+    put a span of some 3600 entries up to 7.3e-5 off in about 2% of
+    processes (the next call on the same input was right to 3e-8), while
+    an f64 exp is right far below an f32 ulp."""
     a = feats_a.to(dtype).to(torch.float32)
     b = feats_all.to(dtype).to(torch.float32)
-    cross = a @ b.T
     na = torch.sum(a * a, dim=1)
     nb = torch.sum(b * b, dim=1)
-    d2 = torch.clamp(na[:, None] + nb[None, :] - 2.0 * cross, min=0.0)
-    e = torch.exp(-d2.to(torch.float64)).to(torch.float32)
-    return e.to(_out_dtype(store_dtype))
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=_out_dtype(store_dtype),
+                      device=a.device)
+    for j in range(0, b.shape[0], PLAIN_CHUNK):
+        sl = slice(j, j + PLAIN_CHUNK)
+        d2 = torch.clamp(na[:, None] + nb[None, sl] - 2.0 * (a @ b[sl].T),
+                         min=0.0)
+        out[:, sl] = torch.exp(-d2.to(torch.float64)).to(torch.float32)
+    return out
 
 
 def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
                         dtype: torch.dtype = torch.float32,
                         store_dtype: torch.dtype | None = None) -> torch.Tensor:
     """K strip (p, N) = exp(-|f_Ai - f_j|^2) from (p, d) and (N, d)
-    features. CPU tensors: the plain version; CUDA tensors: the kernel."""
+    features. CPU tensors: the plain version; CUDA tensors: the kernel,
+    whose result is a view with its row stride padded to ``ROW_BYTES``
+    where a row of N entries is not a multiple of it."""
     if _device_kind(feats_a, feats_all) == "cpu":
         return affinity_strip_plain(feats_a, feats_all, dtype, store_dtype)
     out_dtype = _out_dtype(store_dtype)
@@ -83,9 +95,14 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
     a = feats_a.to(dtype).to(torch.float32).contiguous()
     b = feats_all.to(dtype).to(torch.float32).contiguous()
     lib = _build.lib()
-    # the TMA store needs rows 16 bytes apart: a ragged N is written into
-    # padded rows and copied out once
-    per = 16 // out_dtype.itemsize
+    # the TMA store needs rows 16 bytes apart, and stores fast only to rows
+    # aligned to whole 128-byte lines (on an H100 at 5243 x 256901, rows
+    # 16 bytes apart took 2.8 ms a bf16 store, rows 256 bytes apart 1.16):
+    # a ragged N is written into rows padded to ROW_BYTES and returned as
+    # the (p, n) view over them (torch's products take the row stride as
+    # their leading dimension; a copy out would cost a second strip and its
+    # round trip)
+    per = ROW_BYTES // out_dtype.itemsize
     ld = -(-n // per) * per
     out = torch.empty((p, ld), dtype=out_dtype, device=feats_a.device)
     scratch = torch.empty(lib.glt_affinity_scratch_bytes(p), dtype=torch.uint8,
@@ -94,10 +111,8 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
         a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(), p, n,
         d, ld, int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
     _build.check(rc, "affinity_strip")
-    if ld != n:
-        out = out[:, :n].contiguous()
     affinity_strip_cuda.launches += 1
-    return out
+    return out[:, :n] if ld != n else out
 
 
 affinity_strip_cuda.launches = 0

@@ -2,7 +2,8 @@
 
 Pure functions on the eigenvalue vector, registered by name. Each works on
 torch tensors and numpy arrays alike. Projection filters (``affine=False``)
-give z = V f(L) V^T y; affine filters give z = y + V (f(L) - 1) V^T y.
+give z = V f(L) V^T y; affine filters give z = y + V (f(L) - 1) V^T y
+(``apply_spectral_filter`` :257).
 
 The eigensolve-free operator modes apply f(W) y through repeated
 applications of ``wapply`` (x -> W x): exactly for polynomial filters
@@ -188,3 +189,15 @@ def apply_operator_filter(wapply, y, name: str, param: float, mode: str,
     if mode == "chebyshev":
         return apply_chebyshev_filter(wapply, y, name, param, degree)
     return apply_matvec_filter(wapply, y, name, param)
+
+
+def apply_spectral_filter(y_perm: torch.Tensor, vals: torch.Tensor,
+                          vecs: torch.Tensor, name: str,
+                          param: float) -> torch.Tensor:
+    """z_perm = filter(y_perm) in the eigenbasis, O(N m)."""
+    filt = FILTER_REGISTRY[name]
+    fvals = filt.fn(vals, param)
+    coeffs = vecs.T @ y_perm                     # (m,)
+    if filt.affine:
+        return y_perm + vecs @ ((fvals - 1.0) * coeffs)
+    return vecs @ (fvals * coeffs)

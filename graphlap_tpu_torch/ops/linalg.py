@@ -1,5 +1,5 @@
 """Small dense-linalg helpers at p x p scale (port of
-``graphlap_tpu/ops/linalg.py``).
+``graphlap_tpu/ops/linalg.py``), and the strip products of the dense path.
 
 Soft spectral truncation at a relative cutoff (a linear ramp over
 [tol, 2 tol] * lambda_max): a hard step lets near-degenerate eigenvalue
@@ -13,6 +13,11 @@ from __future__ import annotations
 import torch
 
 _TINY = 1e-30
+
+
+# column chunk of the promoting strip products: one chunk's f32 copy of a
+# p = 5243-row bf16 strip is 344 MB
+PROMOTE_CHUNK = 16384
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -57,3 +62,36 @@ def psd_pinv(mat: torch.Tensor, rel_tol: float) -> torch.Tensor:
     """Truncated pseudo-inverse of a symmetric PSD matrix."""
     vals, vecs = _eigh_sym(mat)
     return (vecs * trunc_inv_vals(vals, rel_tol)[None, :]) @ vecs.T
+
+
+def psd_pinv_sqrt(mat: torch.Tensor, rel_tol: float) -> torch.Tensor:
+    """Truncated pseudo inverse square root M^{-1/2}."""
+    vals, vecs = _eigh_sym(mat)
+    return (vecs * trunc_inv_sqrt_vals(vals, rel_tol)[None, :]) @ vecs.T
+
+
+def strip_mm(strip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """strip @ x as jnp writes it for an f32 ``x``: a bf16 strip is promoted
+    to f32 inside the product and x stays unrounded f32. torch has no
+    bf16 x f32 product and ``strip.float()`` would copy the whole strip, so
+    a bf16 strip is upcast one column chunk at a time, each chunk's f32
+    product added in f32. f32 strips take one full-f32 product."""
+    x = x.to(torch.float32)
+    if strip.dtype != torch.bfloat16:
+        return strip @ x
+    out = None
+    for j in range(0, strip.shape[1], PROMOTE_CHUNK):
+        part = strip[:, j:j + PROMOTE_CHUNK].to(torch.float32) @ x[
+            j:j + PROMOTE_CHUNK]
+        out = part if out is None else out + part
+    return out
+
+
+def strip_t_mm(strip: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """strip.T @ x with the promotion of ``strip_mm``: each column chunk of
+    a bf16 strip gives its own rows of the result."""
+    x = x.to(torch.float32)
+    if strip.dtype != torch.bfloat16:
+        return strip.T @ x
+    return torch.cat([strip[:, j:j + PROMOTE_CHUNK].to(torch.float32).T @ x
+                      for j in range(0, strip.shape[1], PROMOTE_CHUNK)])

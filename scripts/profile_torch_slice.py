@@ -2,15 +2,18 @@
 card.
 
     python3 scripts/profile_torch_slice.py
-        [--path config2|config4|config3|config4q|turbo|both|all] [--out DIR]
+        [--path config2|config4|config3|config4q|turbo|dense|both|all]
+        [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
 recipe; config 4: chip_smoke.make_workload_8mp, the 8 MP recompute-streaming
 fused-finish recipe; config 3: chip_smoke.make_workload_cfg3, the 1024x1024
 RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
 8 MP f32 matvec denoise; turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
-turbo recipe on the unfused spectral schedule; "both" is config 2 and
-config 4, "all" every path) it runs filter_image once to warm up, then:
+turbo recipe on the unfused spectral schedule; dense:
+chip_smoke.make_workload_dense, bench.py's f32 twin of config 2 on the dense
+path; "both" is config 2 and config 4, "all" every path) it runs
+filter_image once to warm up, then:
 
 * stage walls (host clock around work ending in torch.cuda.synchronize,
   min of 3), on channel 0 of an RGB image: the strip context (features,
@@ -19,7 +22,9 @@ config 4, "all" every path) it runs filter_image once to warm up, then:
   operator filters, turbo) the full-resolution extension (plain-torch
   rmatvec2) and the whole normalization (coarse loop, extension and
   polish), for turbo also the eigensolve (K7 cross, LOBPCG, K10), and the
-  whole filter_image call;
+  whole filter_image call; on the dense path the four stages of
+  filter_image_staged (affinity, normalize, eigensolve, filter) and, inside
+  the eigensolve, the f32 cross GEMM W_AB W_AB^T alone;
 * one filter_image call under torch.profiler: device time summed by kernel
   name and by group (the port's kernels, cuBLAS GEMMs, cuSOLVER and the
   other small dense algebra, elementwise and reductions), the device-busy
@@ -82,6 +87,33 @@ def _group(name: str) -> str:
     return "other"
 
 
+def dense_stages(gt, cfg, noisy, plan, dev) -> dict:
+    """The dense path's stage walls (min of 3 filter_image_staged calls a
+    stage) and the f32 cross GEMM alone on the path's scaled strip."""
+    from graphlap_tpu_torch.models import pipeline as mp
+    from graphlap_tpu_torch.ops.affinity import affinity_blocks
+    from graphlap_tpu_torch.ops.nystrom import _cross_gemm
+    from graphlap_tpu_torch.ops.sinkhorn import normalize_blocks
+
+    runs = [gt.filter_image_staged(noisy, cfg, plan=plan, device=dev).timings
+            for _ in range(3)]
+    stages = {f"{k}_s": min(r[k] for r in runs) for k in runs[0]}
+    idx_a, perm, _ = mp._plan_to(plan, cfg, dev)
+    kaa, kab = affinity_blocks(torch.as_tensor(noisy, device=dev), idx_a,
+                               perm, cfg)
+    _, wab, _, _ = normalize_blocks(kaa, kab, cfg.normalization,
+                                    cfg.sinkhorn_iters, cfg.eig_tol,
+                                    cfg.solver, cfg.sinkhorn_coarse,
+                                    cfg.sinkhorn_polish)
+    del kab
+    gdt = (torch.bfloat16 if cfg.gram_gemm_dtype() == "bfloat16"
+           else torch.float32)
+    stages["cross_gemm_s"] = _wall(lambda: _cross_gemm(wab, gdt))
+    stages["filter_image_s"] = _wall(
+        lambda: gt.filter_image(noisy, cfg, plan=plan, device=dev))
+    return stages
+
+
 def profile_path(tag, workload, gt, dev, out: Path) -> dict:
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import streaming as st
@@ -92,6 +124,9 @@ def profile_path(tag, workload, gt, dev, out: Path) -> dict:
         img_d = img_d[..., 0].contiguous()
     idx_d = torch.as_tensor(plan.idx_a.astype("int64"), device=dev)
     gt.filter_image(noisy, cfg, plan=plan, device=dev)          # warm-up
+    if not cfg.streaming:
+        return dict(path=tag, stages=dense_stages(gt, cfg, noisy, plan, dev),
+                    **device_profile(tag, gt, cfg, noisy, plan, dev, out))
 
     stages = {}
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
@@ -114,7 +149,13 @@ def profile_path(tag, workload, gt, dev, out: Path) -> dict:
         lambda: gt.filter_image(noisy, cfg, plan=plan, device=dev))
     del ctx
     torch.cuda.empty_cache()
+    return dict(path=tag, stages=stages,
+                **device_profile(tag, gt, cfg, noisy, plan, dev, out))
 
+
+def device_profile(tag, gt, cfg, noisy, plan, dev, out: Path) -> dict:
+    """One filter_image call under torch.profiler: device time by kernel
+    and group, the busy share, host linalg ops; table and trace to out."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -142,7 +183,7 @@ def profile_path(tag, workload, gt, dev, out: Path) -> dict:
     (out / f"{tag}_table.txt").write_text(ka.table(sort_by=attr,
                                                    row_limit=80))
     prof.export_chrome_trace(str(out / f"{tag}_trace.json"))
-    return dict(path=tag, stages=stages, profiled_wall_s=wall,
+    return dict(profiled_wall_s=wall,
                 device_kernel_ms=device_ms,
                 device_busy_share=device_ms / 1e3 / wall if wall else None,
                 by_group_ms=by_group, top_kernels_ms_count=by_kernel[:15],
@@ -152,7 +193,8 @@ def profile_path(tag, workload, gt, dev, out: Path) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("config2", "config4", "config3",
-                                       "config4q", "turbo", "both", "all"),
+                                       "config4q", "turbo", "dense", "both",
+                                       "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -172,7 +214,8 @@ def main() -> None:
              "config4": chip_smoke.make_workload_8mp,
              "config3": chip_smoke.make_workload_cfg3,
              "config4q": chip_smoke.make_workload_8mp_matvec,
-             "turbo": chip_smoke.make_workload_8mp_turbo}
+             "turbo": chip_smoke.make_workload_8mp_turbo,
+             "dense": chip_smoke.make_workload_dense}
     chosen = {"both": ("config2", "config4"), "all": tuple(paths)}.get(
         args.path, (args.path,))
     for tag, workload in paths.items():

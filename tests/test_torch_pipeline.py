@@ -128,7 +128,7 @@ def test_filter_image_without_cuda_raises(img_noisy):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(streaming=False, strip_cache=False, solver="lobpcg"),
+    dict(solver="lobpcg"),
     dict(strip_cache=False, solver="lobpcg", feature_dtype="bfloat16"),
     dict(filter_mode="matvec"),
     dict(solver="oneshot"),

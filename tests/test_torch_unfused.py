@@ -394,9 +394,11 @@ def test_filter_image_staged_entry(img_noisy):
     assert res.image.shape == noisy.shape and res.image.dtype == np.float32
     assert res.eigvals.shape == (cfg.num_eigvecs,)
     assert gt.psnr(img, res.image) > gt.psnr(img, noisy) + 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 M5"):
-        gt.filter_image_staged(noisy, cfg.replace(streaming=False),
-                               device="cpu")
+    dense = gt.filter_image_staged(noisy, cfg.replace(streaming=False),
+                                   device="cpu")
+    assert set(dense.timings) == {"affinity"} | STAGES
+    assert dense.image.shape == noisy.shape
+    assert gt.psnr(img, dense.image) > gt.psnr(img, noisy) + 0.5
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 M7"):
         gt.filter_image_staged(np.zeros((16, 16, 3), np.float32),
                                cfg.replace(rgb_mode="luma_basis"),
