@@ -112,7 +112,33 @@ non-zero before the last line is printed):
             within 2e-3;
    small    config 1 at 128x128 and config 2 dense at 96x96, card against
             the plain versions on the CPU (0.02 dB, 2e-3).
-10. result  — one JSON line listing every kernel (name, route, source,
+10. bilateral — the 8 MP bilateral denoise (tuned_config(CONFIG1.replace(
+              streaming=True, sample_cap=4096), 2048*4096, "fast"): gaussian
+              + (row, col) / 8, f32 features and tiles, coarse Sinkhorn and
+              gram 1/64, one polish, fused finish, LOBPCG) on config 4's
+              image:
+   kernels  K7-K10 f32 and the coordinate K5/K6 at the path's 8 MP shapes
+            on its own layouts, each against its plain version (K7's
+            entries to a gross 0.25, K9/K10's sums to 2e-4, K8's and
+            K5/K6's to gross 1e-2 / 0.1: their norms round apart), timed,
+            K7 beside
+            its cuBLAS composition and the f32 gram GEMM after it, two
+            launches bit for bit, the leans of K8's u and s, K9's and K10's
+            V and K5/K6's outputs (ties left out) required in (0.25, 0.75);
+   slab     each f32 kernel's tile (and K1's and K6's coordinate cross)
+            against f64 on slabs of the path's features, the kernel's max
+            and p99 |dK| at most 1.5x the plain f32 version's; the split
+            cross printed beside; K8's u and s and K5/K6's outputs against
+            their f64 sums under the same rule;
+   e2e      filter_image: warm-up and three timed runs, walls, peak memory,
+            K8, K7, K9 once a call and K10 never, PSNR (printed: the
+            recipe's spectrum degenerates in the reference too), the
+            kernel path against the plain path (0.02 dB, 2e-3);
+   staged   filter_image_staged: stage walls, K5/K6 (coordinate cross), K7
+            and K10 once a call;
+   small    the recipe written out at 96x96, fused finish on and off, card
+            kernels against CPU plain versions (0.02 dB, 2e-3).
+11. result  — one JSON line listing every kernel (name, route, source,
               replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
               bound_by, library_ms), the card line, then the contract line
               {"ok": true, "device": {...}}.
@@ -196,6 +222,28 @@ TOL = {
     # K9's 2^-7 of max |V|, without its bf16(s_j) term; norms and coeffs
     # against their sums of term magnitudes
     "colstats_v": 2.0 ** -7,
+    # f32 layouts on the bilateral recipe's coordinate features (|f|^2 up to
+    # ~3.3e5 at 8 MP): two correct f32 evaluations of na + nb - 2 cross in
+    # another order differ by the f32 cancellation error itself, up to ~0.07
+    # in an entry (a numpy emulation against f64), times cols <= 1.5 on both:
+    # 0.25 absolute on K7's entries is only a gross-error bar; the bar of
+    # the tile is the f64 slab (within 1.5x the plain version's error)
+    "kb_strip_f32": 0.25,
+    # K9 / K10 take the f32 norms passed in, as their plain versions do, so
+    # only the cross's f32 order differs: the sums to 2e-4 of max |plain|
+    # (norms and coeffs to their term magnitudes)
+    "finish_colstats_f32": 2e-4,
+    "colstats_v_f32": 2e-4,
+    # K8 and the coordinate K5/K6 form their norms as FMA chains, the plain
+    # versions as sums of rounded squares: at |f|^2 ~ 3.3e5 one f32 ulp of
+    # a norm is 0.03 in d2, which moves every entry of its row (column) by
+    # 3% together. Against the plain version these bars catch only gross
+    # errors (u sums thousands of live entries, 1e-2; K6's outputs a few
+    # sample rows, 0.1); the bar of the sums is their f64 evaluation, within
+    # 1.5x the plain version's error (sums_f64_check)
+    "ext2_matvec_f32": 1e-2,
+    "matvec_coord": 0.1,
+    "rmatvec_coord": 0.1,
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
@@ -211,6 +259,12 @@ REPLACES = {
     "matvec_f32": "graphlap_tpu/ops/pallas_streaming.py:397",
     "rmatvec_f32": "graphlap_tpu/ops/pallas_streaming.py:447",
     "colstats_v": "graphlap_tpu/ops/pallas_streaming.py:817",
+    "kb_strip_f32": "graphlap_tpu/ops/pallas_streaming.py:319",
+    "ext2_matvec_f32": "graphlap_tpu/ops/pallas_streaming.py:554",
+    "finish_colstats_f32": "graphlap_tpu/ops/pallas_streaming.py:677",
+    "colstats_v_f32": "graphlap_tpu/ops/pallas_streaming.py:817",
+    "matvec_coord": "graphlap_tpu/ops/pallas_streaming.py:397",
+    "rmatvec_coord": "graphlap_tpu/ops/pallas_streaming.py:447",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -226,6 +280,12 @@ SOURCE = {
     "matvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "colstats_v": "graphlap_tpu_torch/csrc/colstats_v.cu",
+    "kb_strip_f32": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "ext2_matvec_f32": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "finish_colstats_f32": "graphlap_tpu_torch/csrc/colstats_v.cu",
+    "colstats_v_f32": "graphlap_tpu_torch/csrc/colstats_v.cu",
+    "matvec_coord": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "rmatvec_coord": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
 }
 NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
@@ -233,7 +293,13 @@ NAMES = list(TOL)
 BIT_REPEAT = ("affinity_strip_f32", "strip_ext2", "strip_sandwich_spost",
               "strip_sandwich", "kb_strip", "ext2_matvec", "matvec",
               "rmatvec", "matvec_f32", "rmatvec_f32", "finish_colstats",
-              "colstats_v")
+              "colstats_v", "kb_strip_f32", "ext2_matvec_f32",
+              "finish_colstats_f32", "colstats_v_f32", "matvec_coord",
+              "rmatvec_coord")
+# the f32 kernels on coordinate features, whose sums often tie their plain
+# version's bit for bit: their leans leave the ties out (signed_stats)
+UNTIED = ("ext2_matvec_f32", "finish_colstats_f32", "colstats_v_f32",
+          "matvec_coord", "rmatvec_coord")
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
@@ -306,22 +372,30 @@ def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0,
                                        else "operations")
 
 
-def signed_stats(got, ref, per_entry: bool) -> dict:
+def signed_stats(got, ref, per_entry: bool, ties: bool = True) -> dict:
     """Which side of its plain version an output leans to: r = (got - ref)
     sign(ref) over |ref| (per_entry) or over max |ref|, on the entries where
     ref != 0. Tile entries that flip and another sum order scatter r both
     ways; an accumulation that rounds toward zero pulls |got| low on every
     entry, so the share below zero nears 1. An f64 reference is compared in
     f64: rounded to f32 it would tie many f32 outputs exactly, and a tie
-    counts as not below."""
+    counts as not below. With ``ties`` False the tied entries are left out
+    of the share (and their share is reported): the f32 kernels' sums of
+    a few live terms equal the plain version's on most entries, which say
+    nothing of a lean."""
     dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
     g, r = got.to(dt).flatten(), ref.to(dt).flatten()
     keep = r != 0
     g, r = g[keep], r[keep]
     d = (g - r) * torch.sign(r)
     d = d / (r.abs() if per_entry else r.abs().max())
-    return dict(mean=float(d.mean()), median=float(d.median()),
-                share_below=float((d < 0).float().mean()), entries=d.numel())
+    out = dict(mean=float(d.mean()), median=float(d.median()),
+               entries=d.numel())
+    if not ties:
+        out["tied"] = float((d == 0).float().mean())
+        d = d[d != 0]
+    out["share_below"] = float((d < 0).float().mean())
+    return out
 
 
 def lean_specs(spec) -> list:
@@ -362,12 +436,16 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
                       f"{st_p['share_below']:.4f}")
                 rows.setdefault("signed_plain", {})[label] = st_p
                 del r64
-            st = signed_stats(pair[0][idx][:keep], base[:keep], per_entry)
+            st = signed_stats(pair[0][idx][:keep], base[:keep], per_entry,
+                              ties=name not in UNTIED)
             del base
+            tied = (f" (ties left out: {st['tied']:.4f} of them)"
+                    if "tied" in st else "")
             phase("signed", f"{label}: (kernel - {against}) sign({against}) / "
                   f"{'|ref|' if per_entry else 'max |ref|'} over "
                   f"{st['entries']} outputs: mean {st['mean']:.3e}, median "
                   f"{st['median']:.3e}, share below {st['share_below']:.4f}"
+                  f"{tied}"
                   f"{f' (required in {SIGNED_BAND})' if required else ''}")
             rows.setdefault("signed", {})[label] = st
             if required:
@@ -376,7 +454,8 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
         scales = scale_fn[0](ref) if scale_fn else None
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
-        if name in ("affinity_strip", "affinity_strip_f32", "kb_strip"):
+        if name in ("affinity_strip", "affinity_strip_f32", "kb_strip",
+                    "kb_strip_f32"):
             rel = err                                 # absolute, see TOL
         if name in BIT_REPEAT:
             again = kern(*args)
@@ -1416,6 +1495,442 @@ def dense(gt, dev, rows, launches, info):
         info[f"small_{tag.replace(' ', '_')}"] = dict(db=s_db, max=s_max)
 
 
+def make_workload_bilateral(gt, h=H8, w=W8):
+    """The bilateral 8 MP denoise: tuned_config(CONFIG1.replace(streaming=
+    True, sample_cap=4096), 2048*4096, "fast") (f32 tiles, the route
+    tests/test_presets.py pins for spatial_h > 0) on config 4's image:
+    (cfg, clean image, noisy f32 image, plan)."""
+    img, noisy = noisy_image(gt, h, w)
+    cfg = gt.tuned_config(gt.CONFIG1.replace(streaming=True, sample_cap=4096),
+                          h * w, "fast")
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def kb_f32_library(fa, f_t, cols, aug, live):
+    """K7 f32's yardstick: torch.mm(fa, f_t) in f32 at "highest" (no TF32),
+    the norms, the clamp, exp and the column scale. Timed beside the
+    kernel; the port never calls it."""
+    d2 = ((fa * fa).sum(1)[:, None] + (f_t * f_t).sum(0)[None, :]
+          - 2.0 * torch.mm(fa, f_t)).clamp_(min=0.0)
+    return torch.exp_(d2.neg_()).mul_(cols[None, :])
+
+
+def f64_tile(fa, f_t, rows, cols=None, chunk=1 << 20):
+    """The f32-class tile at sample rows ``rows`` x columns ``cols`` (all by
+    default) of the padded layouts, evaluated in f64 from the same f32
+    features: (R, C) f64."""
+    a = fa[rows].double()
+    b = f_t if cols is None else f_t[:, cols]
+    na = (a * a).sum(1)
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float64,
+                      device=fa.device)
+    for j in range(0, b.shape[1], chunk):
+        bb = b[:, j:j + chunk].double()
+        d2 = na[:, None] + (bb * bb).sum(0)[None, :] - 2.0 * (a @ bb)
+        out[:, j:j + chunk] = torch.exp(-d2.clamp_(min=0.0))
+    return out
+
+
+def slab_check(label, kern, plain, ref64, required=True):
+    """A tile slab against its f64 evaluation over the live entries (f64 K >
+    1e-6): the kernel's max and p99 |dK| at most 1.5x the plain f32
+    version's (two correct f32 evaluations differ by the cancellation
+    error itself, so the f64 value is the yardstick). Returns the record."""
+    live = ref64 > 1e-6
+
+    def stats(x):
+        d = (x.double() - ref64)[live].abs()
+        sub = d[::max(1, d.numel() >> 22)]       # torch.quantile's bound
+        return float(d.max()), float(torch.quantile(sub, 0.99))
+    k, pl = stats(kern), stats(plain)
+    phase("slab", f"{label}: |K - f64| over {int(live.sum())} live entries of "
+          f"a {tuple(ref64.shape)} slab: kernel max {k[0]:.3e}, p99 "
+          f"{k[1]:.3e}; plain f32 max {pl[0]:.3e}, p99 {pl[1]:.3e}"
+          f"{' (kernel required <= 1.5x plain)' if required else ''}")
+    if required:
+        require(k[0] <= 1.5 * pl[0] and k[1] <= 1.5 * pl[1],
+                f"{label}: the tile against f64 is past 1.5x its plain "
+                f"version's error")
+    return dict(kernel_max=k[0], kernel_p99=k[1], plain_max=pl[0],
+                plain_p99=pl[1], live=int(live.sum()))
+
+
+def f64_sums(fa, f_t, what, *vecs, chunk=16384):
+    """K5 (``what`` "matvec", vecs (v,)), K6 ("rmatvec", (t,)) or K8
+    ("ext2", (t2, bm)) with the tile and every sum in f64, from the same f32
+    features, over column chunks: the output, or (u, s) for K8."""
+    a = fa.double()
+    na = (a * a).sum(1)
+    n = f_t.shape[1]
+    f64 = dict(dtype=torch.float64, device=fa.device)
+    out = torch.zeros(fa.shape[0] if what != "rmatvec" else n, **f64)
+    s = torch.empty(n, **f64) if what == "ext2" else None
+    for j in range(0, n, chunk):
+        sl = slice(j, j + chunk)
+        b = f_t[:, sl].double()
+        k = torch.exp(-(na[:, None] + (b * b).sum(0)[None]
+                        - 2.0 * (a @ b)).clamp_(min=0.0))
+        if what == "matvec":
+            out += k @ vecs[0][sl].double()
+        elif what == "rmatvec":
+            out[sl] = vecs[0].double() @ k
+        else:
+            kbt = vecs[0].double() @ k
+            s[sl] = vecs[1][sl].double() / torch.sqrt(
+                torch.clamp(kbt[0] * kbt[1], min=1e-30))
+            out += k @ s[sl]
+    return out if s is None else (out, s)
+
+
+def sums_f64_check(label, got, plain, ref64):
+    """A kernel's sums against their f64 evaluation: its max and p99
+    relative error (over the entries where the f64 value is not 0) at most
+    1.5x the plain f32 version's. Returns the record."""
+    keep = ref64 != 0
+
+    def stats(x):
+        d = ((x.double() - ref64).abs() / ref64.abs())[keep]
+        return float(d.max()), float(torch.quantile(
+            d[::max(1, d.numel() >> 22)], 0.99))
+    k, pl = stats(got), stats(plain)
+    phase("sums", f"{label}: relative error against f64 over {int(keep.sum())}"
+          f" outputs: kernel max {k[0]:.3e}, p99 {k[1]:.3e}; plain f32 max "
+          f"{pl[0]:.3e}, p99 {pl[1]:.3e} (kernel required <= 1.5x plain)")
+    require(k[0] <= 1.5 * pl[0] + 1e-7 and k[1] <= 1.5 * pl[1] + 1e-7,
+            f"{label}: the sums against f64 are past 1.5x their plain "
+            f"version's error")
+    return dict(kernel_max=k[0], kernel_p99=k[1], plain_max=pl[0],
+                plain_p99=pl[1])
+
+
+def bilateral_sums(cases, p, n, info):
+    """K8's u and s and the coordinate K5/K6's outputs at the path's shapes
+    (the run_cases inputs) against their f64 evaluation."""
+    out = {}
+    fa, f_t, t2, bm = cases["ext2_matvec_f32"][2][:4]
+    u64, s64 = f64_sums(fa, f_t, "ext2", t2, bm)
+    (u, s), (u_p, s_p) = (f(*cases["ext2_matvec_f32"][2]) for f in
+                          cases["ext2_matvec_f32"][:2])
+    out["ext2_matvec_f32_u"] = sums_f64_check("ext2_matvec_f32 u", u[:p],
+                                              u_p[:p], u64[:p])
+    out["ext2_matvec_f32_s"] = sums_f64_check("ext2_matvec_f32 s", s[:n],
+                                              s_p[:n], s64[:n])
+    del u64, s64, u, s, u_p, s_p
+    for name, keep in (("matvec_coord", p), ("rmatvec_coord", n)):
+        kern, plain, args = cases[name][:3]
+        ref = f64_sums(args[0], args[1], name.split("_")[0], args[2])
+        out[name] = sums_f64_check(name, kern(*args)[:keep],
+                                   plain(*args)[:keep], ref[:keep])
+    info["bilateral_sums"] = out
+
+
+def bilateral_slabs(ctx, ft_g, dev, info):
+    """Each f32 kernel's tile and the coordinate K1 / K5/K6 cross against
+    f64 on slabs of the path's own features: K7 emits its tile (cols = 1);
+    K10 with a one-hot gr and c = 1 writes V_jm = k(row_m, j), a sum of one
+    term; K9 the same scaled by its s; K8 with one-hot t2 rows gives s_j =
+    1 / sqrt(k_qj^2), so k = 1 / s; K6 with a one-hot t gives k(q, j); K1
+    on 64 sample rows by 2^20 pixels (its split-fp16 cross printed
+    beside)."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+
+    fa, f_t, live, p = ctx.fa_pad, ctx.f_t, ctx.live, ctx.p
+    pp, nk, n = fa.shape[0], f_t.shape[1], ctx.n
+    rows = torch.linspace(0, p - 1, 64, device=dev).long()
+    out = {}
+    # K7: rows x every gram column
+    one = torch.ones(ft_g.shape[1], device=dev)
+    ref = f64_tile(fa, ft_g, rows)
+    out["kb_strip_f32"] = slab_check(
+        "kb_strip_f32", k79.kb_strip_cuda(fa, ft_g, one, False, live)[rows],
+        k79.kb_strip_plain(fa, ft_g, one, False)[rows], ref)
+    # K10 and K9: V = the tile's rows (K9: times s), every column
+    valid = torch.zeros(nk, device=dev)
+    valid[:n] = 1.0
+    gr = torch.zeros((pp, 64), device=dev)
+    gr[rows, torch.arange(64, device=dev)] = 1.0
+    na, nb = ms._sq_norms_pad(ctx)
+    ref = f64_tile(fa, f_t, rows, torch.arange(n, device=dev))
+    args = (fa, f_t, gr, valid, valid, na, nb)
+    out["colstats_v_f32"] = slab_check(
+        "colstats_v_f32", k79.colstats_v_cuda(*args, live=live)[0][:n].T,
+        k79.colstats_v_plain(*args)[0][:n].T, ref)
+    # the one-hot checks take the last sample row: the grid's far corner,
+    # where the coordinates (and the cancellation) are largest
+    q = rows[-1]
+    t = torch.zeros(pp, device=dev)
+    t[q] = 1.0
+    args = (fa, f_t, t, valid, valid, gr, valid, na, nb)
+    kv, ks = k79.finish_colstats_cuda(*args, live=live)[0::3]
+    pv, ps = k79.finish_colstats_plain(*args)[0::3]
+    out["finish_colstats_f32"] = slab_check(
+        "finish_colstats_f32 (V / s)", (kv[:n] / ks[:n, None]).T,
+        (pv[:n] / ps[:n, None]).T, ref)
+    del kv, pv
+    # K9's ks pass on row q: s = sqrt(1 / k), so k = 1 / s^2
+    out["finish_colstats_f32_ks"] = slab_check(
+        "finish_colstats_f32 (ks: 1 / s^2)", (1.0 / ks[:n] ** 2)[None],
+        (1.0 / ps[:n] ** 2)[None], ref[-1:])
+    # K8: t_r = t_c = e_q, so kbt_r = kbt_c = k(q, j) and s = 1 / k
+    t2 = torch.zeros((2, pp), device=dev)
+    t2[:, q] = 1.0
+    ks8 = k79.ext2_matvec_cuda(fa, f_t, t2, valid, False, live)[1][:n]
+    ps8 = k79.ext2_matvec_plain(fa, f_t, t2, valid, False)[1][:n]
+    out["ext2_matvec_f32"] = slab_check(
+        "ext2_matvec_f32 (1 / s)", (1.0 / ks8)[None], (1.0 / ps8)[None],
+        ref[-1:])
+    # K6 with the coordinate cross (and the split one beside): k(q, j)
+    got = k56.rmatvec_cuda(fa, f_t, t, False, live, True)[:n][None]
+    pl = k56.rmatvec_plain(fa, f_t, t, False)[:n][None]
+    out["rmatvec_coord"] = slab_check("rmatvec_coord", got, pl, ref[-1:])
+    split = k56.rmatvec_cuda(fa, f_t, t, False, live, False)[:n][None]
+    out["rmatvec_split"] = slab_check(
+        "rmatvec with the split-fp16 cross (not on this path; the fault "
+        "the coordinate cross repairs)", split, pl, ref[-1:], required=False)
+    del ref, got, pl, split
+    torch.cuda.empty_cache()
+    # K1 on the path's features: 64 sample rows by 2^20 pixels, f32 store
+    fa3 = ctx.feats_a[rows.clamp(max=p - 1)].contiguous()
+    fb3 = ctx.feats_pad[:1 << 20].contiguous()
+    a64, b64 = fa3.double(), fb3.double()
+    ref = torch.exp(-((a64 * a64).sum(1)[:, None] + (b64 * b64).sum(1)[None]
+                      - 2.0 * a64 @ b64.T).clamp_(min=0.0))
+    pl = k1.affinity_strip_plain(fa3, fb3)
+    out["affinity_coord"] = slab_check(
+        "affinity_strip, coordinate cross",
+        k1.affinity_strip_cuda(fa3, fb3, coords=True), pl, ref)
+    out["affinity_split"] = slab_check(
+        "affinity_strip, split-fp16 cross (not on this path)",
+        k1.affinity_strip_cuda(fa3, fb3), pl, ref, required=False)
+    del ref, pl, a64, b64
+    torch.cuda.empty_cache()
+    # K1's two crosses timed on 512 sample rows by 2^20 pixels (f32 store:
+    # 2.15 GB, 0.64 ms at 3.35 TB/s); no path of this script runs K1 on
+    # coordinates (the dense bilateral twin would)
+    fa5 = ctx.feats_a[torch.linspace(0, p - 1, 512, device=dev).long()]
+    fa5 = fa5.contiguous()
+    t_k1 = {name: cuda_ms(lambda c=c: k1.affinity_strip_cuda(fa5, fb3,
+                                                             coords=c), 5)
+            for name, c in (("coord", True), ("split", False))}
+    b_k1 = bound(4 * 512 * fb3.shape[0], 0, 2 * 4 * 512 * fb3.shape[0],
+                 512 * fb3.shape[0])
+    phase("kernel", f"affinity_strip on coordinates (512 x {fb3.shape[0]}, "
+          f"f32 store): coordinate cross {t_k1['coord']:.3f} ms, split-fp16 "
+          f"cross {t_k1['split']:.3f} ms, bound {b_k1[0]:.3f} ms ({b_k1[1]})")
+    out["affinity_coord_ms"] = dict(t_k1, bound_ms=b_k1[0])
+    info["bilateral_slabs"] = out
+
+
+def bilateral(gt, dev, rows, launches, info):
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+    from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_bilateral(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    require(ctx.fa_aug is None and ctx.f_t.dtype == torch.float32
+            and ctx.coords and ctx.live == 4,
+            "the bilateral recipe did not reach the f32 coordinate layout")
+    p, n, live = ctx.p, ctx.n_pad, ctx.live
+    pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
+    mk = ms._m_kernel(cfg.num_eigvecs)
+    jidx = torch.as_tensor(ms.gram_sample_idx(n, cfg.gram_coarse,
+                                              cfg.gram_jitter_seed),
+                           dtype=torch.int64, device=dev)
+    ft_g = ctx.f_t[:, jidx].contiguous()
+    sg = ft_g.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev)  # noqa: E731
+    bm = torch.zeros(nk, device=dev)
+    bm[:n] = ctx.b_mask
+    t2 = torch.zeros((2, pp), device=dev)
+    t2[:, :p] = 0.5 + rand(2, p)
+    tv = torch.zeros(pp, device=dev)
+    tv[:p] = 0.5 + rand(p)
+    gr = torch.zeros((pp, mk), device=dev)
+    gr[:p, :cfg.num_eigvecs] = (rand(p, cfg.num_eigvecs) - 0.5) * 0.02
+    y = torch.zeros(nk, device=dev)
+    y[:ctx.n] = img_d.reshape(-1)
+    cols = torch.zeros(nk, device=dev)
+    cols[:n] = (0.5 + rand(n)) * ctx.b_mask
+    na, nb = ms._sq_norms_pad(ctx)
+    s_pre = (0.5 + rand(nk)) * bm
+    v = 0.5 + rand(nk)
+    fa, f_t = ctx.fa_pad, ctx.f_t
+    e7, e = pp * sg, pp * nk
+    feat = 4 * live * (pp + nk)           # the live lanes, read once
+    # bounds: bytes read and written once; f32 operations (an FMA is 2) of
+    # the live-lane cross (2 live an entry) and the consumer's FMAs; one exp
+    # an entry
+    cases = {
+        "kb_strip_f32": (k79.kb_strip_cuda, k79.kb_strip_plain,
+                         (fa, ft_g, 0.5 + rand(sg), False, live),
+                         bound(4 * live * (pp + sg) + 4 * sg + 4 * e7,
+                               0, 2 * live * e7 + 2 * e7, e7)),
+        "ext2_matvec_f32": (k79.ext2_matvec_cuda, k79.ext2_matvec_plain,
+                            (fa, f_t, t2, bm, False, live),
+                            bound(feat + 8 * nk + 12 * pp, 0,
+                                  (2 * live + 6) * e, e)),
+        "finish_colstats_f32": (
+            lambda *a: k79.finish_colstats_cuda(*a, live=live),
+            k79.finish_colstats_plain, (fa, f_t, tv, s_pre, bm, gr, y, na, nb),
+            bound(feat + 4 * nk * (5 + mk) + 4 * pp * (mk + 2), 0,
+                  (2 * mk + 2 * live + 2) * e, e),
+            colstats_scales(y)),
+        "colstats_v_f32": (
+            lambda *a: k79.colstats_v_cuda(*a, live=live),
+            k79.colstats_v_plain, (fa, f_t, gr, y, cols, na, nb),
+            bound(feat + 4 * nk * (4 + mk) + 4 * pp * (mk + 1), 0,
+                  (2 * mk + 2 * live) * e, e),
+            colstats_scales(y)),
+        "matvec_coord": (k56.matvec_cuda, k56.matvec_plain,
+                         (fa, f_t, v, False, live, True),
+                         bound(feat + 4 * (nk + pp), 0, (2 * live + 2) * e,
+                               e)),
+        "rmatvec_coord": (k56.rmatvec_cuda, k56.rmatvec_plain,
+                          (fa, f_t, tv, False, live, True),
+                          bound(feat + 4 * (nk + pp), 0, (2 * live + 2) * e,
+                                e)),
+    }
+    phase("bilateral", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
+          f"N={n}, live lanes {live} of {f_t.shape[0]}, gram columns {sg}, V "
+          f"width {mk}; sinkhorn_coarse {cfg.sinkhorn_coarse}, gram_coarse "
+          f"{cfg.gram_coarse}, polish {cfg.sinkhorn_polish}, fused_finish "
+          f"{cfg.fused_finish}, {cfg.solver})", t0)
+    # the leans: K8's u (rows) and s, K9's and K10's V, K5/K6's outputs
+    signed = {"ext2_matvec_f32": [(0, p, True, True), (1, n, True, True)],
+              "finish_colstats_f32": (0, n, False, True),
+              "colstats_v_f32": (0, n, False, True),
+              "matvec_coord": (0, p, True, True),
+              "rmatvec_coord": (0, ctx.n, True, True)}
+    run_cases(cases, rows, signed,
+              {"kb_strip_f32": (kb_f32_library, "a cuBLAS composition, not "
+                                "one call: torch.mm(fa, f_t) in f32 at "
+                                "\"highest\" (no TF32), the norms, the "
+                                "clamp, exp and the column scale")})
+    # the rest of the f32 K7 cross: the f32 gram GEMM after the emitter
+    t0 = time.perf_counter()
+    kb = k79.kb_strip_cuda(*cases["kb_strip_f32"][2])
+    ms_gram = cuda_ms(lambda: k79._gram(kb), 3)
+    ms_k7 = rows["kb_strip_f32"]["ms"]
+    del kb
+    phase("kernel", f"kb_strip_f32 cross: emitter {ms_k7:.3f} ms + f32 gram "
+          f"GEMM {ms_gram:.3f} ms ((p_pad, {sg}) x ({sg}, p_pad) at "
+          f"\"highest\", {2 * pp * pp * sg / ms_gram / 1e9:.2f} TFLOP/s)", t0)
+    rows["kb_strip_f32"]["gram_gemm_ms"] = ms_gram
+    t0 = time.perf_counter()
+    bilateral_sums(cases, p, n, info)
+    bilateral_slabs(ctx, ft_g, dev, info)
+    phase("slab", "done", t0)
+    del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm, cols, v, fa, f_t
+    torch.cuda.empty_cache()
+
+    # filter_image: the fused finish, K8, K7, K9 once a call, K10 never
+    t0 = time.perf_counter()
+    k79.colstats_v_cuda.launches = 0
+    counters = {"kb_strip_f32": k79.kb_strip_cuda,
+                "ext2_matvec_f32": k79.ext2_matvec_cuda,
+                "finish_colstats_f32": k79.finish_colstats_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "bilateral 8 MP")
+    launches.update(counts)
+    per_call = {k: c / RUNS for k, c in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e-bilateral", f"walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
+          f"{psnr_out - psnr_in:.3f}); launches per call {per_call}; K10 "
+          f"launches {k79.colstats_v_cuda.launches}", t0)
+    require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
+            "bilateral output is not a finite (2048, 4096) image")
+    require(all(c == 1 for c in per_call.values())
+            and k79.colstats_v_cuda.launches == 0,
+            "the bilateral fused finish should launch K8, K7 and K9 once a "
+            "call and K10 never")
+    # the recipe's quality is the reference's: at these decimations (coarse
+    # Sinkhorn and gram 1/64, p = 4096) its spectrum degenerates in
+    # graphlap_tpu too (the same recipe at 256x512 on the CPU: PSNR 20.22 ->
+    # 5.25 dB, eigenvalues ~3e30; PERF.md section 6), so the phase
+    # prints the PSNR and holds the kernels to their plain path, the 8 MP
+    # slabs and the 96x96 runs, not to a denoise gain
+    phase("e2e-bilateral", f"denoise gain {psnr_out - psnr_in:.3f} dB (not "
+          f"required: the recipe's spectrum degenerates in the reference "
+          f"too); top eigenvalues {np.asarray(res.eigvals)[:3].tolist()}")
+
+    t0 = time.perf_counter()
+    z_plain = _filter_channel(img_d, idx_d, cfg, plain=True)[0].cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    phase("plain", f"bilateral 8 MP kernel path vs plain path on the card: "
+          f"{d_db:.6f} dB, max |diff| {d_max:.3e} (bar 0.02 dB, 2e-3)", t0)
+    require(d_db <= 0.02 and d_max <= 2e-3, "bilateral kernel path != plain")
+    del img_d, idx_d, z_plain
+    torch.cuda.empty_cache()
+
+    # filter_image_staged: the unfused schedule (polish K5 + K6 with the
+    # coordinate cross, K7, LOBPCG, K10), held to filter_image within the
+    # fused-vs-unfused bars of config 4's staged run (another schedule of
+    # the estimator: post-polish scales at the gram columns)
+    t0 = time.perf_counter()
+    st_counters = {"matvec_coord": k56.matvec_cuda,
+                   "rmatvec_coord": k56.rmatvec_cuda,
+                   "kb_strip_f32": k79.kb_strip_cuda,
+                   "colstats_v_f32": k79.colstats_v_cuda}
+    rec = staged_one(gt, "bilateral (8 MP)", cfg, img, noisy, plan, dev,
+                     st_counters)
+    pc = rec["launches_per_call"]
+    require(pc["kb_strip_f32"] == 1 and pc["colstats_v_f32"] == 1,
+            "the staged bilateral schedule should launch K7 and K10 once a "
+            "call")
+    for name in ("matvec_coord", "rmatvec_coord", "colstats_v_f32"):
+        launches[name] = round(pc[name] * RUNS)
+    info["staged_bilateral"] = rec
+    phase("staged", "bilateral done", t0)
+    torch.cuda.empty_cache()
+
+    # 96x96: the recipe written out (fused finish on and off), card kernels
+    # against the plain versions on the CPU, the same LOBPCG start
+    t0 = time.perf_counter()
+    im_s, nz_s = noisy_image(gt, 96, 96)
+    small = {}
+    for fused in (True, False):
+        cfg_s = gt.PipelineConfig(
+            kernel="gaussian", h=0.2, spatial_h=8.0, sample_rho=0.05,
+            num_eigvecs=50, sinkhorn_iters=6, streaming=True, block_cols=2048,
+            use_pallas=True, affinity_dtype="float32", sinkhorn_coarse=4,
+            sinkhorn_polish=1, gram_coarse=4, solver="lobpcg",
+            fused_finish=fused)
+        pl_s = gt.make_plan(nz_s, cfg_s)
+        x0 = lobpcg_x0(pl_s.p, cfg_s.num_eigvecs, "cpu")
+        idx_s = pl_s.idx_a.astype(np.int64)
+        z_cpu = _filter_channel(torch.as_tensor(nz_s), torch.as_tensor(idx_s),
+                                cfg_s, x0=x0)[0].numpy()
+        z_gpu = _filter_channel(torch.as_tensor(nz_s, device=dev),
+                                torch.as_tensor(idx_s, device=dev), cfg_s,
+                                x0=x0.to(dev))[0].cpu().numpy()
+        s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
+        s_max = float(np.abs(z_cpu - z_gpu).max())
+        phase("small", f"96x96 bilateral (fused_finish {fused}): card kernels "
+              f"vs CPU plain: {s_db:.6f} dB, max |diff| {s_max:.3e} (bar "
+              f"0.02 dB, 2e-3)")
+        require(np.isfinite(z_gpu).all() and s_db <= 0.02 and s_max <= 2e-3,
+                "96x96 bilateral card run != CPU plain run")
+        small[f"fused_{fused}"] = dict(db=s_db, max=s_max)
+    phase("small", "done", t0)
+    info["bilateral"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                             psnr_out=psnr_out, launches_per_call=per_call,
+                             plain_path_db=d_db, plain_path_max=d_max,
+                             small=small)
+
+
 def sass_uses(build, kernel: str, opcode: str) -> dict:
     """{function name: whether its SASS holds ``opcode``} for every function
     of the built kernel library whose name holds ``kernel``
@@ -1502,6 +2017,8 @@ def main() -> None:
     staged(gt, dev, info)
     torch.cuda.empty_cache()
     dense(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    bilateral(gt, dev, rows, launches, info)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],

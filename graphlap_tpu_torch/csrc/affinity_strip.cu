@@ -15,7 +15,9 @@
 // (split2, mma_common.cuh), cross = 2^(Ea + Eb) (big.big + big.small +
 // small.big), small.small (~2^-20 of |f|^2) dropped; three fp16 passes are
 // 0.27 ms at 989 TFLOP/s. The bf16 entry's exp is one FMUL and one MUFU ex2
-// (kexp), 1.4e9 of them 0.33 ms; the f32 store keeps IEEE expf.
+// (kexp), 1.4e9 of them 0.33 ms; the f32 store keeps IEEE expf. Features
+// that carry coordinates take an IEEE f32 cross instead (affinity_coord_
+// kernel, at the end of the file).
 //
 // Design: a prep kernel splits the sample rows once into m16n8k16 A
 // fragments (big and small fp16 per lane, per 16-row tile and k16 step),
@@ -271,6 +273,104 @@ int launch_affinity(const CUtensorMap& map, const unsigned char* asplit, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// coordinate features: the IEEE f32 cross
+// ---------------------------------------------------------------------------
+//
+// Features that carry (row, col) / spatial_h reach |f|^2 ~ 3e5 at 2048 x
+// 4096, where the split-fp16 cross's small part (an fp16 rounding, about
+// 2^-22 of |a||b|) loses about four times the IEEE f32 product's error.
+// For those the strip takes the reference's f32 class (kf32,
+// mma_common.cuh): the cross an f32 FFMA chain over the d live lanes. A
+// 256-thread block owns a 32 x 256 unit: its rows and pixels in shared
+// memory (lanes d..d4 zero), each thread 8 rows by 4 adjacent pixels, so a
+// warp writes 512 (f32) or 256 (bf16) contiguous bytes a row by direct
+// vector stores, streamed (evict-first). The bf16 entry keeps kexp, as the
+// split kernel's bf16 store does. A __global__ of its own name: the HMMA
+// check of chip_smoke.py reads the split kernel's.
+constexpr int C1_THREADS = 256;
+constexpr int C1_TM = 32, C1_TN = 256;
+constexpr int C1_LDA = A1_FD + 4;      // a_s row stride (floats)
+constexpr int C1_LDB = C1_TN + 4;      // b_s row stride: lane-major pixels
+
+template <bool BF16_OUT>
+__global__ __launch_bounds__(C1_THREADS) void affinity_coord_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, void* __restrict__ out, int p,
+    int n, int d, int ld) {
+  __shared__ __align__(16) float a_s[C1_TM * C1_LDA];
+  __shared__ __align__(16) float b_s[A1_FD * C1_LDB];
+  __shared__ float na_s[C1_TM], nb_s[C1_TN];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = blockIdx.y * C1_TM, c0 = blockIdx.x * C1_TN;
+  const int d4 = (d + 3) & ~3;
+  for (int i = tid; i < C1_TM * d4; i += C1_THREADS) {
+    const int r = i / d4, k = i % d4;
+    a_s[r * C1_LDA + k] = (r0 + r < p && k < d) ? a[(size_t)(r0 + r) * d + k] : 0.f;
+  }
+  {   // pixel tid of the unit, its lanes and its norm (lane order, as K1's split)
+    const int j = c0 + tid;
+    float nrm = 0.f;
+    for (int k = 0; k < d4; ++k) {
+      const float x = (j < n && k < d) ? b[(size_t)j * d + k] : 0.f;
+      b_s[k * C1_LDB + tid] = x;
+      nrm = fmaf(x, x, nrm);
+    }
+    nb_s[tid] = nrm;
+  }
+  __syncthreads();
+  if (tid < C1_TM) {
+    float nrm = 0.f;
+    for (int k = 0; k < d4; ++k) nrm = fmaf(a_s[tid * C1_LDA + k], a_s[tid * C1_LDA + k], nrm);
+    na_s[tid] = nrm;
+  }
+  __syncthreads();
+  const int rw = (warp >> 1) * 8, jl = (warp & 1) * 128 + 4 * lane;   // 8 rows, 4 pixels
+  if (c0 + jl >= ld) return;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int k = 0; k < d4; k += 4) {
+    float4 bq[4];   // lanes k..k+3 of the 4 pixels
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bq[q] = *reinterpret_cast<const float4*>(b_s + (k + q) * C1_LDB + jl);
+    const float4 b0 = make_float4(bq[0].x, bq[1].x, bq[2].x, bq[3].x);
+    const float4 b1 = make_float4(bq[0].y, bq[1].y, bq[2].y, bq[3].y);
+    const float4 b2 = make_float4(bq[0].z, bq[1].z, bq[2].z, bq[3].z);
+    const float4 b3 = make_float4(bq[0].w, bq[1].w, bq[2].w, bq[3].w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a_s + (rw + i) * C1_LDA + k);
+      acc[i][0] = dot4(av, b0, acc[i][0]);
+      acc[i][1] = dot4(av, b1, acc[i][1]);
+      acc[i][2] = dot4(av, b2, acc[i][2]);
+      acc[i][3] = dot4(av, b3, acc[i][3]);
+    }
+  }
+  const float4 nb = *reinterpret_cast<const float4*>(nb_s + jl);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + rw + i;
+    if (r >= p) break;
+    const float na = na_s[rw + i];
+    float v[4];
+    const float nbv[4] = {nb.x, nb.y, nb.z, nb.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float d2 = d2f32(na + nbv[c], acc[i][c]);
+      v[c] = BF16_OUT ? kexp(d2) : expf(-d2);
+    }
+    const size_t o = (size_t)r * ld + c0 + jl;
+    if (BF16_OUT)
+      __stcs(reinterpret_cast<uint2*>(static_cast<bf16*>(out) + o),
+             make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3])));
+    else
+      __stcs(reinterpret_cast<float4*>(static_cast<float*>(out) + o),
+             make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -301,6 +401,24 @@ int glt_affinity_strip(const void* a, const void* b, void* scratch, void* out, i
   return out_bf16 ? launch_affinity<true>(map, asplit, static_cast<const float*>(b), n, d, nrb, s)
                   : launch_affinity<false>(map, asplit, static_cast<const float*>(b), n, d, nrb,
                                            s);
+}
+
+// K1 on coordinate features (the IEEE f32 cross). As glt_affinity_strip
+// without the scratch; ld a multiple of 4 (the wrapper pads rows to 256
+// bytes), so the last vector of a row stays inside it.
+int glt_affinity_coord(const void* a, const void* b, void* out, int p, int n, int d, int ld,
+                       int out_bf16, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (p < 1 || n < 1 || d < 1 || d > A1_FD || ld < n || ld % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + C1_TN - 1) / C1_TN, (p + C1_TM - 1) / C1_TM);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  if (out_bf16)
+    affinity_coord_kernel<true><<<grid, C1_THREADS, 0, s>>>(af, bf, out, p, n, d, ld);
+  else
+    affinity_coord_kernel<false><<<grid, C1_THREADS, 0, s>>>(af, bf, out, p, n, d, ld);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -12,7 +12,9 @@
 // with the Pallas rounding points. cross comes from bf16 x bf16 tensor-core
 // products with f32 accumulation (mma.sync m16n8k16) of the plain fa (zero
 // lanes beyond d) against the aug-superset f_t, the feature depth is 32, and
-// the f32 norms arrive precomputed.
+// the f32 norms arrive precomputed. The f32 layouts (the bilateral recipes)
+// take kernels of their own at the end of the file (colstats_f32_kernel,
+// ks_f32_kernel): every value f32, V in f32 FFMA.
 //
 // What bounds them on an H100, at the 8 MP shape (p_pad 4096, N 8388608, V
 // width 64): 3.4e10 tile entries, one exp each — one MUFU ex2 an entry at 16
@@ -460,9 +462,372 @@ int launch_v(int MP, int blocks, cudaStream_t s, const VArgs& a, void* norms_coe
   return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * MP, s);
 }
 
+// ---------------------------------------------------------------------------
+// f32 layouts: the reference's "highest" class
+// ---------------------------------------------------------------------------
+//
+// K10: V_j = (c_j k_j)^T gr, norms, coeffs; K9: ks_j = k_j^T t, s_j =
+// sqrt(s_pre_j / max(ks_j, 1e-30)) bm_j, then K10's pass with c = s. The
+// entry is the f32 class (kf32: an f32 FFMA cross over the live lanes, the
+// f32 norms passed in, expf), every product f32 and rounded to nearest, no
+// bf16 rounding point. What bounds them at 8 MP (p_pad 4096, N 8388608, V
+// width 64): V is 4.4e12 flop a launch, 65.7 ms of FFMA at the 67 TFLOP/s
+// f32 peak, against the exps' 8.2 ms. V runs as f32 FFMA: on the tensor
+// cores (split tf32, three passes, 26.7 ms at 494.7 TFLOP/s) the mma's
+// accumulation truncates the products it aligns below its largest, and V
+// leaned low on 0.89 of its entries whatever the span; split fp16 (13.3
+// ms) flushed the tiny entries that a huge Sinkhorn scale c_j weighs
+// (PERF.md section 6). Design of the V pass, an SGEMM on entries staged in
+// shared memory:
+//   * a 256-thread block owns a tile of 256 pixel columns and walks p in
+//     stages of VB_TP rows (fa rows, na, gr rows by cp.async double
+//     buffering);
+//   * a stage first forms its entries, a thread a column (the cross from
+//     the column's lanes in registers against the row's, broadcast from
+//     shared memory), VB_TP independent chains a thread, into shared
+//     memory as e_s[row][column] = k c_j;
+//   * then V += e_s^T gr: a thread owns 4 columns x 16 V entries (64
+//     accumulators); a row is one 16-byte load of its 4 entries, four of
+//     its 16 gr values (conflict-free or broadcast) and 64 FFMA: 47% of
+//     the f32 peak at 8 MP. The first design, a thread a column with its
+//     entry formed in the FFMA loop, ran at 37% (16 loads a 64 FFMA, or 8
+//     with two columns a thread, the same);
+//   * V sums over spans of VB_SPAN stages (256 rows) from zero, each added
+//     to the running V in shared memory with one f32 add;
+//   * the V width is 64 a launch (the wrapper pads gr with zero columns);
+//     the live lanes are 4, or 32 for wider features (the pad lanes are
+//     zero, so the extra lanes add exact zeros);
+//   * V is written once; norms and coeffs go through a shuffle tree, the
+//     warps' slots, per-block partials and the fixed-order reduction; K9's
+//     ks pass (a column a thread) sums a stage from zero, then adds it to
+//     the column's total. Blocks are persistent and walk the column tiles
+//     in a fixed stride order: runs repeat bit for bit.
+constexpr int VF_THREADS = 256;           // ks pass: one column a thread
+constexpr int VF_MP = 64;                 // V width a launch
+constexpr int VF_TP = 32;                 // ks pass: sample rows a stage
+constexpr int VF_LDA = FD + 4;            // fa_s row stride (floats)
+constexpr int VB_TN = 256;                // V pass: columns a block tile
+constexpr int VB_TP = 16;                 // V pass: sample rows a stage
+constexpr int VB_SPAN = 16;               // V pass: stages a span (256 rows)
+constexpr int VB_LDE = VB_TN + 4;         // e_s row stride (floats)
+constexpr int VB_CT = 4, VB_MT = 16;      // a thread's columns, V entries
+constexpr size_t VF_RUN_BYTES = (size_t)VF_MP * VF_THREADS * 4;   // the running V
+
+struct VF32Args {
+  const float* fa;     // (P, 32)
+  const float* ft;     // (32, N)
+  const float* gr;     // (P, 64) row-major
+  const float* c;      // (N) column scale (K10), or K9's s
+  const float* t;      // (P)                                  K9
+  const float* s_pre;  // (N)                                  K9
+  const float* bm;     // (N)                                  K9
+  const float* y;      // (N)
+  const float* na;     // (P)
+  const float* nb;     // (N)
+  float* v_out;        // (N, 64)
+  float* s_out;        // (N)                                  K9
+  float* part;         // (gridDim.x, 2, 64) norms, coeffs
+  int P, N;
+};
+
+// the stage of rows [p0, p0 + TPR): fa rows (LV lanes), na, and gr rows
+// (the V pass) or t (the ks pass); one cp.async commit group
+template <int LV, int TPR>
+__device__ __forceinline__ void load_stage_f32(float* fa_d, float* na_d, float* x_d,
+                                               const VF32Args& a, bool v, int p0) {
+#pragma unroll 1
+  for (int c = threadIdx.x; c < TPR * (LV / 4); c += VF_THREADS) {
+    const int r = c / (LV / 4), q = c % (LV / 4);
+    cp_async16(fa_d + r * VF_LDA + 4 * q, a.fa + (size_t)(p0 + r) * FD + 4 * q);
+  }
+  if (threadIdx.x < TPR / 4) cp_async16(na_d + 4 * threadIdx.x, a.na + p0 + 4 * threadIdx.x);
+  if (v) {
+#pragma unroll 1
+    for (int c = threadIdx.x; c < TPR * (VF_MP / 4); c += VF_THREADS)
+      cp_async16(x_d + 4 * c, a.gr + (size_t)p0 * VF_MP + 4 * c);
+  } else if (threadIdx.x < TPR / 4) {
+    cp_async16(x_d + 4 * threadIdx.x, a.t + p0 + 4 * threadIdx.x);
+  }
+  cp_async_commit();
+}
+
+// the thread's column j: its LV lanes
+template <int LV>
+__device__ __forceinline__ void col_lanes(float (&b)[LV], const VF32Args& a, int j) {
+#pragma unroll
+  for (int k = 0; k < LV; ++k) b[k] = a.ft[(size_t)k * a.N + j];
+}
+
+// the entry of stage row r for the thread's column
+template <int LV>
+__device__ __forceinline__ float entry_f32(const float* fa_s, const float* na_s, int r,
+                                           const float (&b)[LV], float nbv) {
+  float cr = 0.f;
+#pragma unroll
+  for (int k = 0; k < LV; k += 4)
+    cr = dot4(*reinterpret_cast<const float4*>(fa_s + r * VF_LDA + k),
+              make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]), cr);
+  return kf32(na_s[r] + nbv, cr);
+}
+
+template <int LV>
+__global__ __launch_bounds__(VF_THREADS, LV == 4 ? 2 : 1) void colstats_f32_kernel(
+    const VF32Args a) {
+  __shared__ __align__(16) float fa_s[2][VB_TP * VF_LDA];
+  __shared__ __align__(16) float gr_s[2][VB_TP * VF_MP];
+  __shared__ __align__(16) float na_s[2][VB_TP];
+  __shared__ __align__(16) float e_s[VB_TP * VB_LDE];   // the stage's entries k c_j
+  __shared__ float wp_s[VF_THREADS / 32][2][VF_MP];     // per-warp norms, coeffs
+  extern __shared__ float vrun_s[];                     // [VB_CT * VB_MT][VF_THREADS] running V
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the GEMM's owner: columns 4 cg .. 4 cg + 3 and V entries 16 q + 4 mg
+  // + i (q, i < 4), so a warp's four m groups read 64 contiguous bytes of
+  // a gr row at once
+  const int cg = warp * 8 + (lane >> 2), mg = lane & 3;
+  const int ntiles = a.N / VB_TN, nst = a.P / VB_TP;
+
+  for (int i = tid; i < (VF_THREADS / 32) * 2 * VF_MP; i += VF_THREADS)
+    (&wp_s[0][0][0])[i] = 0.f;
+  if ((int)blockIdx.x < ntiles)
+    load_stage_f32<LV, VB_TP>(fa_s[0], na_s[0], gr_s[0], a, true, 0);
+  int step = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int j = tile * VB_TN + tid;   // the column whose entries this thread forms
+    float b[LV];
+    col_lanes<LV>(b, a, j);
+    const float nbv = a.nb[j], cv = a.c[j];
+    float acc[VB_CT][VB_MT];
+    for (int s = 0; s < nst; ++s, ++step) {
+      const int buf = step & 1;
+      cp_async_wait_all();
+      __syncthreads();                 // stage in; everyone done with buf ^ 1 and e_s
+      if (s + 1 < nst)
+        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true,
+                                  (s + 1) * VB_TP);
+      else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
+        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true, 0);
+#pragma unroll
+      for (int r = 0; r < VB_TP; ++r)
+        e_s[r * VB_LDE + tid] = entry_f32<LV>(fa_s[buf], na_s[buf], r, b, nbv) * cv;
+      __syncthreads();                 // the stage's entries in
+      if (s % VB_SPAN == 0) {
+#pragma unroll
+        for (int c = 0; c < VB_CT; ++c)
+#pragma unroll
+          for (int m = 0; m < VB_MT; ++m) acc[c][m] = 0.f;
+      }
+#pragma unroll 4
+      for (int r = 0; r < VB_TP; ++r) {
+        const float4 ev = *reinterpret_cast<const float4*>(e_s + r * VB_LDE + 4 * cg);
+        const float e[VB_CT] = {ev.x, ev.y, ev.z, ev.w};
+        const float4* g = reinterpret_cast<const float4*>(gr_s[buf] + r * VF_MP + 4 * mg);
+#pragma unroll
+        for (int q = 0; q < VB_MT / 4; ++q) {
+          const float4 gv = g[4 * q];
+#pragma unroll
+          for (int c = 0; c < VB_CT; ++c) {
+            acc[c][4 * q] = fmaf(e[c], gv.x, acc[c][4 * q]);
+            acc[c][4 * q + 1] = fmaf(e[c], gv.y, acc[c][4 * q + 1]);
+            acc[c][4 * q + 2] = fmaf(e[c], gv.z, acc[c][4 * q + 2]);
+            acc[c][4 * q + 3] = fmaf(e[c], gv.w, acc[c][4 * q + 3]);
+          }
+        }
+      }
+      if ((s + 1) % VB_SPAN == 0 || s + 1 == nst) {   // the span into the running V
+        const bool first = s < VB_SPAN;
+#pragma unroll
+        for (int c = 0; c < VB_CT; ++c)
+#pragma unroll
+          for (int m = 0; m < VB_MT; ++m) {
+            float* q = vrun_s + (c * VB_MT + m) * VF_THREADS + tid;
+            *q = first ? acc[c][m] : *q + acc[c][m];
+          }
+      }
+    }
+    // V out; this tile's norms and coeffs into the warp's slots
+    float yv[VB_CT];
+#pragma unroll
+    for (int c = 0; c < VB_CT; ++c) {
+      const int jc = tile * VB_TN + 4 * cg + c;
+      yv[c] = a.y[jc];
+#pragma unroll
+      for (int m = 0; m < VB_MT; ++m) acc[c][m] = vrun_s[(c * VB_MT + m) * VF_THREADS + tid];
+      float4* vo = reinterpret_cast<float4*>(a.v_out + (size_t)jc * VF_MP + 4 * mg);
+#pragma unroll
+      for (int q = 0; q < VB_MT / 4; ++q)
+        vo[4 * q] = make_float4(acc[c][4 * q], acc[c][4 * q + 1], acc[c][4 * q + 2],
+                                acc[c][4 * q + 3]);
+    }
+#pragma unroll
+    for (int m = 0; m < VB_MT; ++m) {
+      float nn = 0.f, cc = 0.f;
+#pragma unroll
+      for (int c = 0; c < VB_CT; ++c) {
+        nn = fmaf(acc[c][m], acc[c][m], nn);
+        cc = fmaf(yv[c], acc[c][m], cc);
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {   // over the warp's 8 column groups
+        nn += __shfl_xor_sync(0xffffffffu, nn, off);
+        cc += __shfl_xor_sync(0xffffffffu, cc, off);
+      }
+      if (lane < 4) {   // V entry 16 (m / 4) + 4 mg + m % 4
+        wp_s[warp][0][16 * (m / 4) + 4 * mg + m % 4] += nn;
+        wp_s[warp][1][16 * (m / 4) + 4 * mg + m % 4] += cc;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * VF_MP) {              // warps in order
+    float s = 0.f;
+    for (int w = 0; w < VF_THREADS / 32; ++w) s += wp_s[w][tid / VF_MP][tid % VF_MP];
+    a.part[(size_t)blockIdx.x * 2 * VF_MP + tid] = s;
+  }
+}
+
+// K9's ks pass, f32: ks_j = k_j^T t over all of p (a stage's sum from zero,
+// then added to the total), then s_j
+template <int LV>
+__global__ __launch_bounds__(VF_THREADS, 3) void ks_f32_kernel(const VF32Args a) {
+  __shared__ __align__(16) float fa_s[2][VF_TP * VF_LDA];
+  __shared__ __align__(16) float t_s[2][VF_TP];
+  __shared__ __align__(16) float na_s[2][VF_TP];
+  const int tid = threadIdx.x;
+  const int ntiles = a.N / VF_THREADS, nst = a.P / VF_TP;
+
+  if ((int)blockIdx.x < ntiles) load_stage_f32<LV, VF_TP>(fa_s[0], na_s[0], t_s[0], a, false, 0);
+  int step = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int j = tile * VF_THREADS + tid;
+    float b[LV];
+    col_lanes<LV>(b, a, j);
+    const float nbv = a.nb[j];
+    float ks = 0.f;
+    for (int s = 0; s < nst; ++s, ++step) {
+      const int buf = step & 1;
+      cp_async_wait_all();
+      __syncthreads();
+      if (s + 1 < nst)
+        load_stage_f32<LV, VF_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], t_s[buf ^ 1], a, false,
+                                  (s + 1) * VF_TP);
+      else if (tile + (int)gridDim.x < ntiles)
+        load_stage_f32<LV, VF_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], t_s[buf ^ 1], a, false, 0);
+      float kst = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < VF_TP; ++r)
+        kst = fmaf(t_s[buf][r], entry_f32<LV>(fa_s[buf], na_s[buf], r, b, nbv), kst);
+      ks += kst;
+    }
+    a.s_out[j] = sqrtf(a.s_pre[j] / fmaxf(ks, EPS)) * a.bm[j];
+  }
+}
+
+template <int LV>
+int v_f32_setup(int* blocks_out) {
+  cudaError_t e = cudaFuncSetAttribute(colstats_f32_kernel<LV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)VF_RUN_BYTES);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(colstats_f32_kernel<LV>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess || blocks_out == nullptr) return static_cast<int>(e);
+  int dev = 0, sms = 0, occ = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_f32_kernel<LV>, VF_THREADS,
+                                                      VF_RUN_BYTES);
+  *blocks_out = occ * sms;
+  return static_cast<int>(e);
+}
+
+// the f32 V pass (K10, or K9's second pass), then the fixed-order reduction
+template <int LV>
+int launch_v_f32(int blocks, cudaStream_t s, const VF32Args& a, void* norms_coeffs) {
+  int rc = v_f32_setup<LV>(nullptr);
+  if (rc != 0) return rc;
+  colstats_f32_kernel<LV><<<blocks, VF_THREADS, VF_RUN_BYTES, s>>>(a);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * VF_MP, s);
+}
+
+template <int LV>
+int launch_ks_f32(cudaStream_t s, const VF32Args& a) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ks_f32_kernel<LV>, VF_THREADS, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = a.N / VF_THREADS;
+  ks_f32_kernel<LV><<<occ * sms < tiles ? occ * sms : tiles, VF_THREADS, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+VF32Args vf32_args(const void* fa, const void* ft, const void* gr, const void* y, const void* na,
+                   const void* nb, void* v_out, void* part, int P, int N) {
+  VF32Args a = {};
+  a.fa = static_cast<const float*>(fa);
+  a.ft = static_cast<const float*>(ft);
+  a.gr = static_cast<const float*>(gr);
+  a.y = static_cast<const float*>(y);
+  a.na = static_cast<const float*>(na);
+  a.nb = static_cast<const float*>(nb);
+  a.v_out = static_cast<float*>(v_out);
+  a.part = static_cast<float*>(part);
+  a.P = P;
+  a.N = N;
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
+
+// how many f32 V-pass blocks (lv = 4 or 32 live lanes) fit the card at
+// once; a negative value is a cudaError, 0 an unsupported lv
+int glt_colstats_f32_blocks(int lv) {
+  int n = 0;
+  const int rc = lv == 4 ? v_f32_setup<4>(&n) : lv == 32 ? v_f32_setup<32>(&n) : -1;
+  return rc < 0 ? 0 : rc != 0 ? -rc : n;
+}
+
+// K10, f32 layouts. P % 32 == 0, N % 256 == 0, gr (P, 64) row-major f32, lv
+// 4 or 32, 16-byte aligned operands (the wrapper checks); part holds
+// (blocks, 2, 64) floats, norms_coeffs (2, 64).
+int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const void* c,
+                       const void* y, const void* na, const void* nb, void* v_out, void* part,
+                       void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (P % VF_TP || N % VB_TN || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
+  a.c = static_cast<const float*>(c);
+  return lv == 4    ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
+         : lv == 32 ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
+                    : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K9, f32 layouts: the ks pass (s into s_out), then K10's V pass with c = s.
+// Shapes as glt_colstats_v_f32; t (P), s_pre and bm (N) f32.
+int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, const void* t,
+                            const void* s_pre, const void* bm, const void* y, const void* na,
+                            const void* nb, void* v_out, void* s_out, void* part,
+                            void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (P % VF_TP || N % VB_TN || blocks < 1 || (lv != 4 && lv != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
+  a.t = static_cast<const float*>(t);
+  a.s_pre = static_cast<const float*>(s_pre);
+  a.bm = static_cast<const float*>(bm);
+  a.s_out = static_cast<float*>(s_out);
+  a.c = static_cast<const float*>(s_out);
+  const int rc = lv == 4 ? launch_ks_f32<4>(s, a) : launch_ks_f32<32>(s, a);
+  if (rc != 0) return rc;
+  return lv == 4 ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
+                 : launch_v_f32<32>(blocks, s, a, norms_coeffs);
+}
 
 // how many V-pass blocks for width MP fit the card at once (the persistent
 // grid of K10 and of K9's V pass); a negative value is a cudaError, 0 an

@@ -2,7 +2,8 @@
 // strip_sweeps.cu, K2-K4; recompute_sweeps.cu, K7/K8; recompute_matvec.cu,
 // K5/K6; colstats_v.cu, K9/K10): the bf16 and fp16 tensor-core instructions,
 // bf16 packing and rounding, the aug-layout tile entry and the bf16 entry's
-// fast exp, the split-fp16 cross of f32 features, ldmatrix and movmatrix,
+// fast exp, the IEEE f32 tile entry, the split-fp16 cross of f32 features,
+// ldmatrix and movmatrix,
 // cp.async staging, the A fragment of a k-major feature matrix, mbarriers,
 // TMA and bulk copies with their tensor maps, the cluster launch, and the
 // fixed-order reduction of per-block partials. Header-only: every source that
@@ -71,6 +72,31 @@ __device__ __forceinline__ float kexp(float d2) {
   asm("ex2.approx.f32 %0, %1;\n" : "=f"(r) : "f"(fmaxf(d2, 0.f) * -1.4426950408889634f));
   return r;
 }
+
+// --- the IEEE f32 cross (K7-K10 f32; K1 and the f32 K5/K6 on coordinates) ----
+//
+// The f32 tile entry of the reference's _kb_tile f32 class:
+// exp(-max((na + nb) - 2 cross, 0)) with f32 norms, the cross an f32 FFMA
+// chain over the live lanes in lane order (the zero pad lanes add exact
+// zeros, so a chain over lanes rounded up to 4 is the same value), and
+// expf. Unlike the split-fp16 cross it keeps the IEEE product's error on
+// features of any norm: coordinates / spatial_h reach |f|^2 ~ 3e5 at
+// 2048 x 4096, where the split's fp16 small part loses about four times as
+// much as the f32 product.
+
+// c + a . b over four lanes, in lane order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+// d2 = max((na + nb) - 2 cross, 0): 2 cross is exact, so the FMA rounds as
+// the plain version's subtraction does
+__device__ __forceinline__ float d2f32(float nab, float cross) {
+  return fmaxf(fmaf(-2.f, cross, nab), 0.f);
+}
+
+// the f32 entry exp(-d2)
+__device__ __forceinline__ float kf32(float nab, float cross) { return expf(-d2f32(nab, cross)); }
 
 // --- the split-fp16 cross of f32 features (K1, the f32 K5/K6) --------------
 

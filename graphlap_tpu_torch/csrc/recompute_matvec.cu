@@ -16,7 +16,10 @@
 //              TPU a multi-pass bf16 product on the matrix unit, here its card
 //              counterpart, a split-precision tensor-core product (fp16
 //              big and small parts of scaled features, small.small dropped,
-//              as "3xTF32" does).
+//              as "3xTF32" does); on features that carry coordinates, an
+//              IEEE f32 FFMA cross over the live lanes (coord_sum_kernel,
+//              below), whose error the split's fp16 small part would
+//              quadruple at their norms.
 //
 // Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (32, L)
 // feature matrices: K5 fixes the sample rows (fa^T, which the wrapper
@@ -508,6 +511,90 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// plain f32 on coordinate features: the IEEE f32 cross
+// ---------------------------------------------------------------------------
+//
+// Features that carry (row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP,
+// where the split cross's fp16 small part loses about four times the IEEE
+// f32 product's error; for those the sum takes the reference's f32 class
+// (kf32, mma_common.cuh): the cross an f32 FFMA chain over the live lanes
+// (LV: 4, or 32 for wider features; the layouts' pad lanes are zero, so
+// the extra lanes add exact zeros). A 128-thread block owns 256 fixed
+// entries, two a thread with their lanes in registers; 128-entry streamed
+// tiles arrive in shared memory (entry-major, so every lane reads the same
+// entry: broadcast float4 loads) with their norms, and each tile's sums
+// start from zero and join the running sums by one f32 add, as in
+// f32_sum_kernel. A __global__ of its own name, beside the tensor-core
+// kernels that chip_smoke.py's HMMA check reads.
+constexpr int C_THREADS = 128;
+constexpr int C_FT = 2 * C_THREADS;     // fixed entries a block
+constexpr int C_ST = 128;               // streamed entries a tile
+
+template <int LV>
+__global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
+    const float* __restrict__ fixed_t,  // (32, Lf) k-major
+    const float* __restrict__ strm_t,   // (32, Ls) k-major
+    const float* __restrict__ w,        // (Ls)
+    float* __restrict__ part,           // (splits, Lf)
+    int Lf, int Ls, int tiles_per_split) {
+  __shared__ __align__(16) float st_s[C_ST * LV];   // [entry][lane]
+  __shared__ float ns_s[C_ST], w_s[C_ST];
+  const int tid = threadIdx.x;
+  const int ntiles = Ls / C_ST;
+  const int t0 = blockIdx.y * tiles_per_split;
+  const int t1 = min(ntiles, t0 + tiles_per_split);
+  const int f0 = blockIdx.x * C_FT + tid;   // fixed entries f0, f0 + C_THREADS
+
+  float fx[2][LV], nf[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < LV; ++k) {
+      fx[h][k] = fixed_t[(size_t)k * Lf + f0 + h * C_THREADS];
+      s = fmaf(fx[h][k], fx[h][k], s);
+    }
+    nf[h] = s;
+  }
+  float acc[2] = {0.f, 0.f};
+  for (int tile = t0; tile < t1; ++tile) {
+    const size_t c = (size_t)tile * C_ST + tid;
+    float x[LV], s = 0.f;
+#pragma unroll
+    for (int k = 0; k < LV; ++k) {
+      x[k] = strm_t[(size_t)k * Ls + c];
+      s = fmaf(x[k], x[k], s);
+    }
+    const float wv = w[c];
+    __syncthreads();                    // everyone done with the last tile
+#pragma unroll
+    for (int k = 0; k < LV; ++k) st_s[tid * LV + k] = x[k];
+    ns_s[tid] = s;
+    w_s[tid] = wv;
+    __syncthreads();                    // this tile in
+    float tacc[2] = {0.f, 0.f};
+#pragma unroll 2
+    for (int e = 0; e < C_ST; ++e) {
+      float cr[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < LV; k += 4) {
+        const float4 b = *reinterpret_cast<const float4*>(st_s + e * LV + k);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          cr[h] = dot4(make_float4(fx[h][k], fx[h][k + 1], fx[h][k + 2], fx[h][k + 3]), b, cr[h]);
+      }
+      const float nsv = ns_s[e], wv2 = w_s[e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) tacc[h] = fmaf(kf32(nf[h] + nsv, cr[h]), wv2, tacc[h]);
+    }
+    acc[0] += tacc[0];
+    acc[1] += tacc[1];
+  }
+  part[(size_t)blockIdx.y * Lf + f0] = acc[0];
+  part[(size_t)blockIdx.y * Lf + f0 + C_THREADS] = acc[1];
+}
+
 template <typename K>
 int slots_of(K kernel, int threads, size_t smem, int* out) {
   int dev = 0, sms = 0, occ = 0;
@@ -570,6 +657,41 @@ int glt_recompute_sum(int aug, const void* fixed_t, const void* strm_t, const vo
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   return launch_reduce(static_cast<const float*>(part), static_cast<float*>(out), splits,
                        (size_t)Lf, s);
+}
+
+// how many blocks of the coordinate kernel (lv = 4 or 32 live lanes) fit
+// the card at once (the wrapper's splits, as glt_recompute_slots); a
+// negative value is a cudaError, 0 an unsupported lv
+int glt_coord_slots(int lv) {
+  int n = 0;
+  const int rc = lv == 4    ? slots_of(coord_sum_kernel<4>, C_THREADS, 0, &n)
+                 : lv == 32 ? slots_of(coord_sum_kernel<32>, C_THREADS, 0, &n)
+                            : -1;
+  return rc < 0 ? 0 : rc != 0 ? -rc : n;
+}
+
+// out[f] = sum_s w_s k(f, s) on coordinate features (the IEEE f32 cross)
+// over k-major (32, Lf) fixed and (32, Ls) streamed f32 layouts, the first
+// lv lanes read (4 or 32; the others zero): Lf % 256 == 0, Ls % 128 == 0, a
+// grid of (Lf / 256, splits); part and out as glt_recompute_sum's.
+int glt_coord_sum(const void* fixed_t, const void* strm_t, const void* w, void* part, void* out,
+                  int Lf, int Ls, int splits, int lv, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (Lf % C_FT || Ls % C_ST || splits < 1 || (lv != 4 && lv != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ntiles = Ls / C_ST, per = (ntiles + splits - 1) / splits;
+  const dim3 grid(Lf / C_FT, splits);
+  const float* fx = static_cast<const float*>(fixed_t);
+  const float* st = static_cast<const float*>(strm_t);
+  const float* wv = static_cast<const float*>(w);
+  float* pp = static_cast<float*>(part);
+  if (lv == 4)
+    coord_sum_kernel<4><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
+  else
+    coord_sum_kernel<32><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  return launch_reduce(pp, static_cast<float*>(out), splits, (size_t)Lf, s);
 }
 
 // out[x] = the aug entry's bf16 bits at bf16(d2) pattern x, every x of

@@ -11,7 +11,10 @@
 // with the Pallas rounding points. d2 comes from the augmented bf16 x bf16
 // product with f32 accumulation (mma.sync m16n8k16); the feature depth is 32
 // (aug_d_pad_of of NLM d=25). K9 (finish_colstats) shares K10's kernel in
-// colstats_v.cu.
+// colstats_v.cu. The f32 layouts (the bilateral recipes, spatial_h > 0)
+// take kernels of their own, kb_f32_kernel and ext2_f32_kernel below: the
+// reference's f32 _kb_tile class, an IEEE f32 FFMA cross over the live
+// lanes, f32 norms and expf, no bf16 rounding point.
 //
 // What bounds them on an H100. K8 at the 8 MP shape (p_pad 4096, N 8388608)
 // forms 3.4e10 tile entries. Evaluated one exp each, the MUFU ex2 rate (16 a
@@ -534,6 +537,312 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   cluster.sync();                        // no block leaves while read remotely
 }
 
+// ---------------------------------------------------------------------------
+// K7, f32 layout: the column-scaled f32 tile
+// ---------------------------------------------------------------------------
+//
+// out[p, j] = exp(-max((na_p + nb_j) - 2 cross, 0)) * cols_j in f32, the
+// reference's f32 class (kf32): the cross an f32 FFMA chain over the live
+// lanes, the norms f32 FFMA chains over the same lanes, no bf16 rounding
+// point. At the 8 MP gram shape (p_pad 4096, 131072 columns) it stores 2.15
+// GB of f32 (0.64 ms at 3.35 TB/s) for 5.4e8 entries (their exps 0.13 ms):
+// bound by the store. A 256-thread block owns a 32 x 256 unit, its rows
+// and f_t columns in shared memory; a thread computes 8 rows by 4 adjacent
+// columns and writes each row's four as one streamed (evict-first) 16-byte
+// store, so a warp writes 512 contiguous bytes a row.
+constexpr int EF_THREADS = 256;
+constexpr int EF_TM = 32, EF_TN = 256;
+constexpr int EF_LDA = FD + 4;      // fa_s row stride (floats)
+constexpr int EF_LDB = EF_TN + 4;   // ft_s row stride (floats)
+
+__global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
+    const float* __restrict__ fa,    // (P, 32)
+    const float* __restrict__ ft,    // (32, S)
+    const float* __restrict__ cols,  // (S)
+    float* __restrict__ out,         // (P, S)
+    int S, int live) {
+  __shared__ __align__(16) float fa_s[EF_TM * EF_LDA];
+  __shared__ __align__(16) float ft_s[FD * EF_LDB];
+  __shared__ __align__(16) float na_s[EF_TM], nb_s[EF_TN];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = blockIdx.y * EF_TM, c0 = blockIdx.x * EF_TN;
+  const int wcols = min(EF_TN, S - c0);   // S % 128 == 0: 128 or 256
+  const int l4 = live / 4;
+  for (int i = tid; i < EF_TM * l4; i += EF_THREADS) {
+    const int r = i / l4, q = i % l4;
+    *reinterpret_cast<float4*>(fa_s + r * EF_LDA + 4 * q) =
+        *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * FD + 4 * q);
+  }
+  for (int i = tid; i < live * (wcols / 4); i += EF_THREADS) {
+    const int k = i / (wcols / 4), q = i % (wcols / 4);
+    *reinterpret_cast<float4*>(ft_s + k * EF_LDB + 4 * q) =
+        *reinterpret_cast<const float4*>(ft + (size_t)k * S + c0 + 4 * q);
+  }
+  __syncthreads();
+  if (tid < wcols) {
+    float s = 0.f;
+    for (int k = 0; k < live; ++k) s = fmaf(ft_s[k * EF_LDB + tid], ft_s[k * EF_LDB + tid], s);
+    nb_s[tid] = s;
+  }
+  if (tid < EF_TM) {
+    float s = 0.f;
+    for (int k = 0; k < live; ++k) s = fmaf(fa_s[tid * EF_LDA + k], fa_s[tid * EF_LDA + k], s);
+    na_s[tid] = s;
+  }
+  __syncthreads();
+  const int rw = (warp >> 1) * 8, jl = (warp & 1) * 128 + 4 * lane;   // 8 rows, 4 columns
+  if (jl >= wcols) return;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int k = 0; k < live; k += 4) {
+    float4 bq[4];   // lanes k..k+3 of the 4 columns
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bq[q] = *reinterpret_cast<const float4*>(ft_s + (k + q) * EF_LDB + jl);
+    const float4 b0 = make_float4(bq[0].x, bq[1].x, bq[2].x, bq[3].x);
+    const float4 b1 = make_float4(bq[0].y, bq[1].y, bq[2].y, bq[3].y);
+    const float4 b2 = make_float4(bq[0].z, bq[1].z, bq[2].z, bq[3].z);
+    const float4 b3 = make_float4(bq[0].w, bq[1].w, bq[2].w, bq[3].w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(fa_s + (rw + i) * EF_LDA + k);
+      acc[i][0] = dot4(av, b0, acc[i][0]);
+      acc[i][1] = dot4(av, b1, acc[i][1]);
+      acc[i][2] = dot4(av, b2, acc[i][2]);
+      acc[i][3] = dot4(av, b3, acc[i][3]);
+    }
+  }
+  const float4 nb = *reinterpret_cast<const float4*>(nb_s + jl);
+  const float4 cs = *reinterpret_cast<const float4*>(cols + c0 + jl);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float na = na_s[rw + i];
+    __stcs(reinterpret_cast<float4*>(out + (size_t)(r0 + rw + i) * S + c0 + jl),
+           make_float4(kf32(na + nb.x, acc[i][0]) * cs.x, kf32(na + nb.y, acc[i][1]) * cs.y,
+                       kf32(na + nb.z, acc[i][2]) * cs.z, kf32(na + nb.w, acc[i][3]) * cs.w));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8, f32 layout: clusters of 8, the tile in registers
+// ---------------------------------------------------------------------------
+//
+// kbt_j = k_j^T [t_r, t_c], s_j = bm_j / sqrt(max(kbt_r kbt_c, 1e-30)), u +=
+// k_j s_j with the f32 entry (kf32) and f32 FMAs throughout, the
+// reference's "highest" class. At 8 MP (p_pad 4096, N 8388608) it forms
+// 3.4e10 entries, one exp each: 8.2 ms of MUFU ex2 at 132 SMs, the bound;
+// the live-lane cross (4 lanes) ~4 ms of FFMA. As the bf16 kernel, a column
+// needs kbt over the whole p before its s and s before its u term, so a
+// cluster of 8 blocks shares each 32-column tile, rank r owning sample rows
+// [r P/8, (r+1) P/8) in shared memory; the tile never leaves registers:
+//   * 256 threads a block, each P/512 rows (rg + 64 i) by 8 columns (a lane
+//     is 8 row groups x 4 column groups), so a thread holds P/64 entries;
+//     the tile's f_t columns arrive by cp.async double buffering;
+//   * kbt: each thread's row sums, a shuffle tree over the warp's row
+//     groups, the 8 warps in order in shared memory, then the 8 ranks'
+//     partials in rank order through distributed shared memory after one
+//     cluster barrier a tile (partials double-buffered), so every rank
+//     computes the same s;
+//   * u: a tile's row sums from zero (8 columns a thread, then a shuffle
+//     over the 4 column groups), added to a span's sum from zero, which
+//     joins the running u by one f32 add every XF_SPAN tiles: no f32 chain
+//     runs over more than a few hundred terms;
+//   * clusters walk the tiles in a fixed stride order and the cross-cluster
+//     u goes through per-cluster partials and the fixed-order reduction:
+//     runs repeat bit for bit.
+constexpr int XF_THREADS = 256;
+constexpr int XF_TN = 32;         // columns a tile
+constexpr int XF_LDA = FD + 4;    // fa_s row stride (floats)
+constexpr int XF_SPAN = 64;       // tiles a span of u
+
+size_t ext2_f32_smem(int P) {
+  return sizeof(float) * ((size_t)(P / CL) * XF_LDA + 2 * FD * XF_TN + 8 * 2 * XF_TN +
+                          2 * 2 * XF_TN + XF_TN);
+}
+
+template <int NR>   // rows a thread: P = 512 NR
+__global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
+    const float* __restrict__ fa,   // (P, 32)
+    const float* __restrict__ ft,   // (32, N)
+    const float* __restrict__ t2,   // (2, P)
+    const float* __restrict__ bm,   // (N)
+    float* __restrict__ s_out,      // (N)
+    float* __restrict__ u_part,     // (clusters, P)
+    int P, int N, int live) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
+  const int rb = P / CL, r0 = rank * rb;   // rb == 64 NR
+  extern __shared__ __align__(16) float xf_smem[];
+  float* fa_s = xf_smem;                     // [rb][XF_LDA]
+  float* ft_s = fa_s + rb * XF_LDA;          // [2][FD][XF_TN]
+  float* wq_s = ft_s + 2 * FD * XF_TN;       // [8 warps][2][XF_TN]
+  float* part_s = wq_s + 8 * 2 * XF_TN;      // [2][2][XF_TN] this rank's kbt partials
+  float* s_s = part_s + 2 * 2 * XF_TN;       // [XF_TN]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp * 8 + (lane >> 2), cgi = lane & 3;   // row group, column group
+  const int l4 = live / 4;
+  const int ntiles = N / XF_TN;
+  const int mine = (ntiles - cid + ncl - 1) / ncl;   // >= 1: clusters <= tiles
+  auto col0 = [&](int i) { return (cid + i * ncl) * XF_TN; };
+  auto load_ft = [&](int i, int buf) {
+    for (int c = tid; c < live * (XF_TN / 4); c += XF_THREADS) {
+      const int k = c / (XF_TN / 4), q = c % (XF_TN / 4);
+      cp_async16(ft_s + (buf * FD + k) * XF_TN + 4 * q, ft + (size_t)k * N + col0(i) + 4 * q);
+    }
+    cp_async_commit();
+  };
+
+  for (int c = tid; c < rb * l4; c += XF_THREADS) {
+    const int r = c / l4, q = c % l4;
+    cp_async16(fa_s + r * XF_LDA + 4 * q, fa + (size_t)(r0 + r) * FD + 4 * q);
+  }
+  load_ft(0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  float na[NR], tr[NR], tc[NR], U[NR], span[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int r = rg + 64 * i;
+    float s = 0.f;
+    for (int k = 0; k < live; ++k) s = fmaf(fa_s[r * XF_LDA + k], fa_s[r * XF_LDA + k], s);
+    na[i] = s;
+    tr[i] = t2[r0 + r];
+    tc[i] = t2[P + r0 + r];
+    U[i] = span[i] = 0.f;
+  }
+
+  for (int i = 0; i < mine; ++i) {
+    const int buf = i & 1;
+    if (i > 0) {
+      cp_async_wait_all();
+      __syncthreads();     // tile i in; everyone done with tile i - 1's s_s and wq_s
+    }
+    if (i + 1 < mine) load_ft(i + 1, buf ^ 1);
+    const float* fb = ft_s + buf * FD * XF_TN + cgi * 8;
+    float nb[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) nb[c] = 0.f;
+    float e[NR][8];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) e[r][c] = 0.f;
+    for (int k = 0; k < live; k += 4) {
+      float bq[4][8];   // lanes k..k+3 of the thread's 8 columns
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 lo = *reinterpret_cast<const float4*>(fb + (k + q) * XF_TN);
+        const float4 hi = *reinterpret_cast<const float4*>(fb + (k + q) * XF_TN + 4);
+        bq[q][0] = lo.x, bq[q][1] = lo.y, bq[q][2] = lo.z, bq[q][3] = lo.w;
+        bq[q][4] = hi.x, bq[q][5] = hi.y, bq[q][6] = hi.z, bq[q][7] = hi.w;
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 b = make_float4(bq[0][c], bq[1][c], bq[2][c], bq[3][c]);
+        nb[c] = dot4(b, b, nb[c]);
+      }
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float4 av = *reinterpret_cast<const float4*>(fa_s + (rg + 64 * r) * XF_LDA + k);
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          e[r][c] = dot4(av, make_float4(bq[0][c], bq[1][c], bq[2][c], bq[3][c]), e[r][c]);
+      }
+    }
+    // the entries, and this thread's kbt partials of its 8 columns
+    float pr[8], pc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) pr[c] = pc[c] = 0.f;
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        e[r][c] = kf32(na[r] + nb[c], e[r][c]);
+        pr[c] = fmaf(tr[r], e[r][c], pr[c]);
+        pc[c] = fmaf(tc[r], e[r][c], pc[c]);
+      }
+#pragma unroll
+    for (int c = 0; c < 8; ++c)   // over the warp's 8 row groups: a fixed tree
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        pr[c] += __shfl_xor_sync(0xffffffffu, pr[c], off);
+        pc[c] += __shfl_xor_sync(0xffffffffu, pc[c], off);
+      }
+    if (lane < 4) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        wq_s[(warp * 2) * XF_TN + cgi * 8 + c] = pr[c];
+        wq_s[(warp * 2 + 1) * XF_TN + cgi * 8 + c] = pc[c];
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * XF_TN) {   // the warps in order
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v += wq_s[w * 2 * XF_TN + tid];
+      part_s[buf * 2 * XF_TN + tid] = v;
+    }
+    cluster.sync();          // every rank's partials of tile i are in
+    if (tid < XF_TN) {       // the ranks in order, the same on every rank
+      float kr = 0.f, kc = 0.f;
+      float* pk = part_s + buf * 2 * XF_TN + tid;
+#pragma unroll
+      for (int q = 0; q < CL; ++q) {
+        kr += *cluster.map_shared_rank(pk, q);
+        kc += *cluster.map_shared_rank(pk + XF_TN, q);
+      }
+      const int j = col0(i) + tid;
+      const float s = bm[j] / sqrtf(fmaxf(kr * kc, EPS));
+      s_s[tid] = s;
+      if (rank == 0) s_out[j] = s;
+    }
+    __syncthreads();         // s_s in
+    float sv[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) sv[c] = s_s[cgi * 8 + c];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      float tu = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) tu = fmaf(e[r][c], sv[c], tu);
+      tu += __shfl_xor_sync(0xffffffffu, tu, 1);   // the 4 column groups
+      tu += __shfl_xor_sync(0xffffffffu, tu, 2);
+      span[r] += tu;
+    }
+    if ((i + 1) % XF_SPAN == 0 || i + 1 == mine) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        U[r] += span[r];
+        span[r] = 0.f;
+      }
+    }
+  }
+  if (cgi == 0) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) u_part[(size_t)cid * P + r0 + rg + 64 * r] = U[r];
+  }
+  cluster.sync();            // no block leaves while read remotely
+}
+
+typedef void (*ext2_f32_fn)(const float*, const float*, const float*, const float*, float*,
+                            float*, int, int, int);
+ext2_f32_fn ext2_f32_kernel_for(int P) {
+  switch (P / (CL * 64)) {
+    case 1: return ext2_f32_kernel<1>;
+    case 2: return ext2_f32_kernel<2>;
+    case 3: return ext2_f32_kernel<3>;
+    case 4: return ext2_f32_kernel<4>;
+    case 5: return ext2_f32_kernel<5>;
+    case 6: return ext2_f32_kernel<6>;
+    case 7: return ext2_f32_kernel<7>;
+    case 8: return ext2_f32_kernel<8>;
+    default: return nullptr;
+  }
+}
+
 // K8's kernel for P sample rows (P = 512 NB, NB in 1..8), or null
 typedef void (*ext2_fn)(const bf16*, const bf16*, const bf16*, const float*, float*, float*,
                         int, int);
@@ -582,6 +891,63 @@ int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, in
   kb_emit_kernel<<<grid, E_THREADS, E_SMEM, s>>>(ft_map, out_map, static_cast<const bf16*>(fa),
                                                  static_cast<const bf16*>(cols), nrb, nct, S);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K7, f32 layout. P % 32 == 0, S % 128 == 0, live % 4 == 0 in [4, 32], fa,
+// ft, cols and out 16-byte aligned (the wrapper checks); a grid of 32 x 256
+// units.
+int glt_kb_strip_f32(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
+                     int live, void* stream) {
+  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 || live < 4 || live > FD || live % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((S + EF_TN - 1) / EF_TN, P / EF_TM);
+  kb_f32_kernel<<<grid, EF_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(fa), static_cast<const float*>(ft),
+      static_cast<const float*>(cols), static_cast<float*>(out), S, live);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// how many 8-block f32 K8 clusters for P sample rows fit the card at once;
+// a negative value is a cudaError
+int glt_ext2_f32_clusters(int P) {
+  const ext2_f32_fn kernel = ext2_f32_kernel_for(P);
+  if (kernel == nullptr || P % (CL * 64)) return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ext2_f32_smem(P);
+  cudaError_t e = cudaFuncSetAttribute(kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(CL, 1, XF_THREADS, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  return e != cudaSuccess ? -static_cast<int>(e) : n;
+}
+
+// K8, f32 layout. P % 512 == 0, P <= 4096, N % 64 == 0, live % 4 == 0 in
+// [4, 32], 1 <= clusters <= N / 32 (the wrapper checks); u_part holds
+// (clusters, P) floats.
+int glt_ext2_matvec_f32(const void* fa, const void* ft, const void* t2, const void* bm,
+                        void* s_out, void* u_part, void* u, int P, int N, int clusters, int live,
+                        void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const ext2_f32_fn kernel = ext2_f32_kernel_for(P);
+  if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > FD || live % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ext2_f32_smem(P);
+  cudaError_t e = cudaFuncSetAttribute(kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(CL, clusters, XF_THREADS, smem, s, attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(fa),
+                         static_cast<const float*>(ft), static_cast<const float*>(t2),
+                         static_cast<const float*>(bm), static_cast<float*>(s_out),
+                         static_cast<float*>(u_part), P, N, live);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_reduce(static_cast<const float*>(u_part), static_cast<float*>(u), clusters,
+                       (size_t)P, s);
 }
 
 // K7's entry (kb_pair) at every one of the 65536 bf16(d2) patterns: out

@@ -137,9 +137,8 @@ def check_slice(cfg: PipelineConfig) -> None:
     models/pipeline); streaming with the kernels (``use_pallas``) —
     strip_cache with a spectral filter and the sketch solver; recompute
     with an operator filter (any normalization) or a spectral filter and
-    the chol or LOBPCG solver, fused finish or not.
-    f32 tiles run on the CPU; on the card their kernels raise (ROADMAP.md
-    Queue 2)."""
+    the chol or LOBPCG solver, fused finish or not, with bf16 aug or f32
+    tiles."""
     todo = None
     spectral = not cfg.operator_filter()
     if not cfg.streaming:
@@ -255,6 +254,8 @@ class _StripCtx(NamedTuple):
     f_t: torch.Tensor | None = None         # (dp, n_pad_k), aug superset
                                             # when fa_aug is set
     fa_aug: torch.Tensor | None = None      # bf16: (p_pad, dp) augmented
+    live: int = 32                          # feature lanes d, rounded up to 4
+    coords: bool = False                    # the features carry (row, col)
 
 
 def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
@@ -287,7 +288,8 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
     base = dict(n=n, p=p, n_pad=n_pad, block=block, w=w, dtype=dtype,
                 idx_a=idx_a, feats_a=feats_a, feats_pad=feats_pad,
                 valid=valid, b_mask=b_mask, kaa=kaa, kaa_solve=kaa_solve,
-                plain=plain)
+                plain=plain, live=_cdiv(d, 4) * 4,
+                coords=cfg.spatial_h > 0.0)
     if not cfg.strip_cache:
         return _StripCtx(**base, **_recompute_layouts(feats_a, feats_pad,
                                                       n_pad, dtype))
@@ -308,8 +310,8 @@ def _strip_ctx(img2d: torch.Tensor, idx_a: torch.Tensor,
     feats_a_pois[:p] = feats_a
     # K1 returns a view over padded rows where n_pad is ragged; the sweeps
     # take a contiguous strip
-    strip_pad = _kernels(plain)[0](feats_a_pois, feats_strip, dtype,
-                                   store).contiguous()
+    strip_pad = _kernels(plain)[0](feats_a_pois, feats_strip, dtype, store,
+                                   coords=cfg.spatial_h > 0.0).contiguous()
     return _StripCtx(**base, strip=strip_pad[:p], strip_pad=strip_pad)
 
 
@@ -352,7 +354,8 @@ def strip_matvec(ctx: _StripCtx, v_scaled: torch.Tensor) -> torch.Tensor:
     vv = torch.zeros(ctx.f_t.shape[1], dtype=torch.float32,
                      device=v_scaled.device)
     vv[:ctx.n_pad] = v_scaled
-    return _matvec_kernels(ctx.plain)[0](fa, ctx.f_t, vv, aug)[:ctx.p]
+    return _matvec_kernels(ctx.plain)[0](fa, ctx.f_t, vv, aug, ctx.live,
+                                         ctx.coords)[:ctx.p]
 
 
 def strip_rmatvec(ctx: _StripCtx, t_scaled: torch.Tensor) -> torch.Tensor:
@@ -363,7 +366,8 @@ def strip_rmatvec(ctx: _StripCtx, t_scaled: torch.Tensor) -> torch.Tensor:
     fa, aug = _mv_layout(ctx)
     tt = torch.zeros(fa.shape[0], dtype=torch.float32, device=t_scaled.device)
     tt[:ctx.p] = t_scaled
-    return _matvec_kernels(ctx.plain)[1](fa, ctx.f_t, tt, aug)[:ctx.n_pad]
+    return _matvec_kernels(ctx.plain)[1](fa, ctx.f_t, tt, aug, ctx.live,
+                                         ctx.coords)[:ctx.n_pad]
 
 
 def ktilde_apply(ctx: _StripCtx, s: torch.Tensor) -> torch.Tensor:
@@ -586,8 +590,8 @@ def _stream_cross(ctx: _StripCtx, cfg: PipelineConfig, s_a: torch.Tensor,
             # the K7 branch (the reference's shape gate, kept)
             ft = ctx.f_t[:, jidx] if jidx is not None else ctx.f_t
             aug = ctx.fa_aug is not None
-            g = gram_k7(ctx.fa_aug if aug else ctx.fa_pad, ft, cols,
-                        aug)[:p, :p]
+            g = gram_k7(ctx.fa_aug if aug else ctx.fa_pad, ft, cols, aug,
+                        ctx.live)[:p, :p]
             return g * (s_a[:, None] * s_a[None, :])
         fp = ctx.feats_pad[jidx] if jidx is not None else ctx.feats_pad
         return st.gram(ctx.feats_a, fp, s_a, cols, _chunk(ctx, blk),
@@ -679,7 +683,8 @@ def _recompute_colstats(ctx: _StripCtx, gr: torch.Tensor,
     c_k = torch.zeros_like(y_k)
     c_k[:n_pad] = s_b_cols
     v, norms, coeffs = _recompute_kernels(ctx.plain)[3](
-        ctx.fa_pad, ctx.f_t, _gr_pad(ctx, gr), y_k, c_k, *_sq_norms_pad(ctx))
+        ctx.fa_pad, ctx.f_t, _gr_pad(ctx, gr), y_k, c_k, *_sq_norms_pad(ctx),
+        live=ctx.live)
     return norms[:m], coeffs[:m], v[:n_pad, :m]
 
 
@@ -790,7 +795,7 @@ def _factor_streaming_fused(img2d: torch.Tensor, ctx: _StripCtx,
     t2[1, :p] = t_c
     aug = ctx.fa_aug is not None
     u_pad, s_pre_k = ext2_matvec(ctx.fa_aug if aug else fa_pad, f_t, t2,
-                                 bm_k, aug)
+                                 bm_k, aug, ctx.live)
     u = u_pad[:p]
 
     # p-side polish update (the completion matvec's top and t)
@@ -824,7 +829,7 @@ def _factor_streaming_fused(img2d: torch.Tensor, ctx: _StripCtx,
     t_pad[:p] = t_vec
     v, norms, coeffs_b, s_new_k = finish_colstats(
         fa_pad, f_t, t_pad, s_pre_k, bm_k, _gr_pad(ctx, basis0 * s_a[:, None]),
-        y_k, *_sq_norms_pad(ctx))
+        y_k, *_sq_norms_pad(ctx), live=ctx.live)
     m = cfg.num_eigvecs
     return _factor_out(ctx, vals_m, basis0, waa, s_a, s_new_k[:n_pad], y_pad,
                        (norms[:m], coeffs_b[:m], v[:n_pad, :m]))

@@ -45,6 +45,16 @@ _SIGNATURES = {
     "glt_colstats_v_blocks": ([_I], _I),
     "glt_colstats_v": ([_P] * 10 + [_I, _I, _I, _I, _P], _I),
     "glt_kexp_bf16": ([_P, _P, _Z, _P], _I),
+    # the IEEE f32 cross: K1 and K5/K6 on coordinates, K7-K10 f32 layouts
+    "glt_affinity_coord": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    "glt_coord_slots": ([_I], _I),
+    "glt_coord_sum": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "glt_kb_strip_f32": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "glt_ext2_f32_clusters": ([_I], _I),
+    "glt_ext2_matvec_f32": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "glt_colstats_f32_blocks": ([_I], _I),
+    "glt_colstats_v_f32": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    "glt_finish_colstats_f32": ([_P] * 13 + [_I] * 4 + [_P], _I),
 }
 
 _LIB = None
@@ -93,9 +103,11 @@ def build() -> Path:
     logs = [f"== {src.name}\n{proc.communicate()[0]}"
             for src, proc in zip(sources(), procs)]
     PTXAS_LOG = "\n".join(logs)
-    bad = [src.name for src, proc in zip(sources(), procs) if proc.returncode]
+    bad = [(src.name, log) for src, proc, log in zip(sources(), procs, logs)
+           if proc.returncode]
     if bad:
-        raise RuntimeError(f"nvcc failed on {bad}:\n{PTXAS_LOG[-6000:]}")
+        raise RuntimeError(f"nvcc failed on {[b[0] for b in bad]}:\n"
+                           + "\n".join(log[-6000:] for _, log in bad))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)

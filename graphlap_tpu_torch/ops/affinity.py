@@ -123,7 +123,8 @@ def affinity_blocks(img: torch.Tensor, idx_a: torch.Tensor,
     its PyTorch version) with ``use_pallas``, else from ``affinity_strip``.
     The GEMM inputs round to bf16 under ``affinity_dtype="bfloat16"``, and
     only the K_AB store narrows under ``"bfloat16_store"``. On the card K1
-    may return a view over padded rows (a ragged N - p)."""
+    may return a view over padded rows (a ragged N - p), and on features
+    with coordinates (``spatial_h > 0``) takes its IEEE f32 cross."""
     feats_perm = extract_features(img, cfg, h=h)[perm]
     p = idx_a.shape[0]
     feats_a = feats_perm[:p]
@@ -133,7 +134,8 @@ def affinity_blocks(img: torch.Tensor, idx_a: torch.Tensor,
     kaa = affinity_strip(feats_a, feats_a, dtype)
     if cfg.use_pallas:
         emit = k1.affinity_strip_plain if plain else k1.affinity_strip_cuda
-        kab = emit(feats_a, feats_perm[p:], dtype, store)
+        kab = emit(feats_a, feats_perm[p:], dtype, store,
+                   coords=cfg.spatial_h > 0.0)
     else:
         kab = affinity_strip(feats_a, feats_perm[p:], dtype, store)
     return kaa, kab

@@ -10,7 +10,11 @@ IEEE expf; each 128 x 128 tile staged in shared memory and written by TMA).
 The inputs round to ``dtype`` first and the norms come from those rounded
 values, as in the Pallas body; ``store_dtype`` narrows only the stored
 strip (the bfloat16_store policy). The kernel takes up to ``MAX_FEATURES``
-feature lanes (NLM patches up to 5 x 5 with two coordinates).
+feature lanes (NLM patches up to 5 x 5 with two coordinates). Features
+that carry coordinates (``coords``: the config's ``spatial_h > 0``) take
+the kernel's IEEE f32 cross instead (an FFMA chain over the live lanes):
+(row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16
+small part loses about four times the f32 product's error.
 
 Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
 arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
@@ -52,14 +56,17 @@ def _out_dtype(store_dtype) -> torch.dtype:
 
 def affinity_strip_plain(feats_a: torch.Tensor, feats_all: torch.Tensor,
                          dtype: torch.dtype = torch.float32,
-                         store_dtype: torch.dtype | None = None) -> torch.Tensor:
+                         store_dtype: torch.dtype | None = None,
+                         coords: bool = False) -> torch.Tensor:
     """PyTorch version of K1 with the kernel's rounding points, in column
     chunks of ``PLAIN_CHUNK`` (each entry is computed alone, so the chunks
     change no value). The f32 entry is exp(-d2) rounded once to f32, the
     exp taken in f64: on the CPU the first f32 ``torch.exp`` of a process
     put a span of some 3600 entries up to 7.3e-5 off in about 2% of
     processes (the next call on the same input was right to 3e-8), while
-    an f64 exp is right far below an f32 ulp."""
+    an f64 exp is right far below an f32 ulp. ``coords`` (the kernel's
+    cross on coordinate features) changes no step here: the f32 product is
+    the reference's."""
     a = feats_a.to(dtype).to(torch.float32)
     b = feats_all.to(dtype).to(torch.float32)
     na = torch.sum(a * a, dim=1)
@@ -76,13 +83,16 @@ def affinity_strip_plain(feats_a: torch.Tensor, feats_all: torch.Tensor,
 
 def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
                         dtype: torch.dtype = torch.float32,
-                        store_dtype: torch.dtype | None = None) -> torch.Tensor:
+                        store_dtype: torch.dtype | None = None,
+                        coords: bool = False) -> torch.Tensor:
     """K strip (p, N) = exp(-|f_Ai - f_j|^2) from (p, d) and (N, d)
-    features. CPU tensors: the plain version; CUDA tensors: the kernel,
-    whose result is a view with its row stride padded to ``ROW_BYTES``
-    where a row of N entries is not a multiple of it."""
+    features. CPU tensors: the plain version; CUDA tensors: the kernel (its
+    IEEE f32 cross where ``coords``), whose result is a view with its row
+    stride padded to ``ROW_BYTES`` where a row of N entries is not a
+    multiple of it."""
     if _device_kind(feats_a, feats_all) == "cpu":
-        return affinity_strip_plain(feats_a, feats_all, dtype, store_dtype)
+        return affinity_strip_plain(feats_a, feats_all, dtype, store_dtype,
+                                    coords)
     out_dtype = _out_dtype(store_dtype)
     p, d = feats_a.shape
     n, d2 = feats_all.shape
@@ -105,11 +115,17 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
     per = ROW_BYTES // out_dtype.itemsize
     ld = -(-n // per) * per
     out = torch.empty((p, ld), dtype=out_dtype, device=feats_a.device)
-    scratch = torch.empty(lib.glt_affinity_scratch_bytes(p), dtype=torch.uint8,
-                          device=feats_a.device)
-    rc = lib.glt_affinity_strip(
-        a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(), p, n,
-        d, ld, int(out_dtype == torch.bfloat16), _build.stream_ptr(a))
+    bf16_out = int(out_dtype == torch.bfloat16)
+    if coords:
+        rc = lib.glt_affinity_coord(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    p, n, d, ld, bf16_out,
+                                    _build.stream_ptr(a))
+    else:
+        scratch = torch.empty(lib.glt_affinity_scratch_bytes(p),
+                              dtype=torch.uint8, device=feats_a.device)
+        rc = lib.glt_affinity_strip(
+            a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(), p,
+            n, d, ld, bf16_out, _build.stream_ptr(a))
     _build.check(rc, "affinity_strip")
     affinity_strip_cuda.launches += 1
     return out[:, :n] if ld != n else out

@@ -15,7 +15,13 @@ features), never storing it:
 The tile is bf16(exp(-bf16(max(d2, 0)))) with d2 straight from the
 augmented product (bf16 aug layout), or exp(-max(na + nb - 2 cross, 0)) in
 f32 with the norms summed from the tile values (f32 plain layout); the
-plain bf16 layout has the reference's bf16 rounding of the plain d2.
+plain bf16 layout has the reference's bf16 rounding of the plain d2. On
+the f32 layout the kernel forms the "highest" cross as a split-fp16
+tensor-core product, or, for features that carry coordinates
+(``coords``: the config's ``spatial_h > 0``), as an IEEE f32 FFMA chain
+over the ``live`` lanes (``coord_sum_kernel``): (row, col) / spatial_h
+reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16 small part loses about
+four times the f32 product's error.
 
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
@@ -37,7 +43,7 @@ import torch
 
 from . import _build
 from .cuda_affinity import _device_kind
-from .cuda_recompute import PLAIN_CHUNK, _r, _tile_plain
+from .cuda_recompute import PLAIN_CHUNK, _r, _tile_plain, coord_lanes
 from .streaming import _chunks
 
 FD = 32                   # feature depth of the kernels
@@ -46,13 +52,15 @@ N_QUANTUM = 256           # n: the f32 _tile_n (the bf16 one, 1024, is a multipl
 # streamed entries a tile, fixed entries a block (f32) or work item (aug)
 STREAM_TILE = {torch.bfloat16: 256, torch.float32: 128}
 FIXED_TILE = {torch.bfloat16: 1024, torch.float32: 128}
+COORD_FIXED = 256         # fixed entries a block of the coordinate kernel
 _F32 = torch.float32
 
 
 # --- plain versions -------------------------------------------------------
 
-def matvec_plain(fa, f_t, v, aug: bool = False):
-    """((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32."""
+def matvec_plain(fa, f_t, v, aug: bool = False, live=None, coords=False):
+    """((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32. ``live`` and
+    ``coords`` choose the kernel's cross and change no step here."""
     vr = _r(v, fa.dtype)
     out = torch.zeros(fa.shape[0], dtype=_F32, device=fa.device)
     for sl in _chunks(f_t.shape[1], PLAIN_CHUNK):
@@ -61,7 +69,7 @@ def matvec_plain(fa, f_t, v, aug: bool = False):
     return out
 
 
-def rmatvec_plain(fa, f_t, t, aug: bool = False):
+def rmatvec_plain(fa, f_t, t, aug: bool = False, live=None, coords=False):
     """((p_pad, dp), (dp, n), (p_pad,)) -> (n,) f32."""
     tr = _r(t, fa.dtype)
     out = torch.empty(f_t.shape[1], dtype=_F32, device=fa.device)
@@ -118,26 +126,54 @@ def _plan(aug: bool, lf: int, ls: int) -> tuple[int, int]:
     return splits, min(fixed * splits, _build.lib().glt_recompute_slots(1))
 
 
-def _recompute_sum(fixed_t, strm_t, w):
+def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
     """out[f] = sum_s w_s k(f, s) over k-major (32, Lf) / (32, Ls) layouts,
-    launched as ``_plan`` says."""
+    launched as ``_plan`` says; ``coord_lv``: the coordinate kernel on f32
+    layouts, reading that many lanes."""
     aug = fixed_t.dtype == torch.bfloat16
     lf, ls = fixed_t.shape[1], strm_t.shape[1]
     dev = fixed_t.device
-    splits, blocks = _plan(aug, lf, ls)
+    lib = _build.lib()
+    if coord_lv is None:
+        splits, blocks = _plan(aug, lf, ls)
+    else:
+        if lf % COORD_FIXED:
+            raise ValueError(f"recompute_sum: the coordinate kernel takes "
+                             f"{COORD_FIXED}-entry fixed tiles, got {lf}")
+        slots = lib.glt_coord_slots(coord_lv)
+        if slots <= 0:
+            _build.check(-slots if slots < 0 else 1, "coord_sum: no block "
+                         "fits the card")
+        tiles = ls // STREAM_TILE[_F32]
+        splits = max(1, min(tiles, slots // (lf // COORD_FIXED)))
+        splits = -(-tiles // -(-tiles // splits))   # no empty split
     out = torch.empty(lf, dtype=_F32, device=dev)
     part = out if splits == 1 else torch.empty((splits, lf), dtype=_F32,
                                                device=dev)
-    rc = _build.lib().glt_recompute_sum(
-        int(aug), fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
-        part.data_ptr(), out.data_ptr(), lf, ls, splits, blocks,
-        _build.stream_ptr(fixed_t))
+    if coord_lv is None:
+        rc = lib.glt_recompute_sum(
+            int(aug), fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
+            part.data_ptr(), out.data_ptr(), lf, ls, splits, blocks,
+            _build.stream_ptr(fixed_t))
+    else:
+        rc = lib.glt_coord_sum(
+            fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
+            part.data_ptr(), out.data_ptr(), lf, ls, splits, coord_lv,
+            _build.stream_ptr(fixed_t))
     _build.check(rc, "recompute_sum")
     return out
 
 
-def matvec_cuda(fa, f_t, v, aug: bool = False):
-    """K v: ((p_pad, 32), (32, n), (n,)) -> (p_pad,) f32 (``matvec_pallas``)."""
+def _coord_lv(fa, coords, live):
+    """The coordinate kernel's lanes where the f32 layout carries
+    coordinates, else None (the layout's own kernel)."""
+    return coord_lanes(live) if coords and fa.dtype == _F32 else None
+
+
+def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):
+    """K v: ((p_pad, 32), (32, n), (n,)) -> (p_pad,) f32 (``matvec_pallas``).
+    ``coords``: the f32 layout's features carry coordinates, ``live`` of
+    their lanes are nonzero (None: all 32)."""
     if _device_kind(fa, f_t, v) == "cpu":
         return matvec_plain(fa, f_t, v, aug)
     _check(fa, f_t, aug, "matvec")
@@ -145,14 +181,15 @@ def matvec_cuda(fa, f_t, v, aug: bool = False):
         raise ValueError(f"matvec: v shape {tuple(v.shape)} != "
                          f"({f_t.shape[1]},)")
     out = _recompute_sum(fa.T.contiguous(), f_t.contiguous(),
-                         v.to(fa.dtype).contiguous())
+                         v.to(fa.dtype).contiguous(),
+                         _coord_lv(fa, coords, live))
     matvec_cuda.launches += 1
     return out
 
 
-def rmatvec_cuda(fa, f_t, t, aug: bool = False):
+def rmatvec_cuda(fa, f_t, t, aug: bool = False, live=None, coords=False):
     """K^T t: ((p_pad, 32), (32, n), (p_pad,)) -> (n,) f32
-    (``rmatvec_pallas``)."""
+    (``rmatvec_pallas``); ``live`` and ``coords`` as ``matvec_cuda``."""
     if _device_kind(fa, f_t, t) == "cpu":
         return rmatvec_plain(fa, f_t, t, aug)
     _check(fa, f_t, aug, "rmatvec")
@@ -160,7 +197,8 @@ def rmatvec_cuda(fa, f_t, t, aug: bool = False):
         raise ValueError(f"rmatvec: t shape {tuple(t.shape)} != "
                          f"({fa.shape[0]},)")
     out = _recompute_sum(f_t.contiguous(), fa.T.contiguous(),
-                         t.to(fa.dtype).contiguous())
+                         t.to(fa.dtype).contiguous(),
+                         _coord_lv(fa, coords, live))
     rmatvec_cuda.launches += 1
     return out
 

@@ -23,16 +23,21 @@ features):
 Tile precision: with bf16 layouts and ``aug`` the tile is
 bf16(exp(-bf16(max(d2, 0)))) with d2 straight from the augmented product;
 without ``aug`` (K7/K8 plain layout) d2 = na + nb - 2 cross from the tile
-values; f32 layouts keep f32 throughout.
+values; f32 layouts keep f32 throughout (the reference's "highest" class:
+no bf16 rounding point, f32 products).
 
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
 ``csrc/colstats_v.cu`` (K10's V pass; K9 is a ks pass over all of p, then
-the same V pass with c = s), which take the bf16 layouts the main path
-builds: aug for K7/K8, plain for K9/K10, 32 feature lanes. f32 layouts and
-the plain-layout K7/K8 raise ``NotImplementedError`` on CUDA (ROADMAP.md
-Queue 2); there is no fallback from a kernel to its plain version.
+the same V pass with c = s) on the two layouts the presets build, with 32
+feature lanes: bf16 (aug for K7/K8, plain for K9/K10), and f32 plain (the
+bilateral recipes, ``spatial_h > 0``), whose kernels form each entry with
+an IEEE f32 FFMA cross over the ``live`` lanes (the caller's feature width
+rounded up to 4; None reads all 32) and expf. The plain-bf16 K7/K8 layout
+and an f32 aug layout (no preset builds either) raise
+``NotImplementedError`` on CUDA; there is no fallback from a kernel to its
+plain version.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
 FD = 32                   # feature depth of the kernels
 X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
+XF_TN = 32                # the f32 K8's column tile (csrc)
 E_TN = 128                # K7 width quantum (its 256-column units clip the last)
 MP_MAX = 64               # widest V a K9 / K10 launch holds
 C_TN = 256                # K9 / K10 column tile (csrc)
@@ -83,8 +89,9 @@ def _tile_plain(a: torch.Tensor, bt: torch.Tensor, aug: bool) -> torch.Tensor:
 
 # --- plain versions -------------------------------------------------------
 
-def kb_strip_plain(fa, f_t, cols, aug: bool = False):
-    """(p_pad, dp), (dp, S), (S,) -> (p_pad, S) in fa's dtype."""
+def kb_strip_plain(fa, f_t, cols, aug: bool = False, live=None):
+    """(p_pad, dp), (dp, S), (S,) -> (p_pad, S) in fa's dtype. ``live``
+    (the kernel's lane count) changes no step here."""
     dtype = fa.dtype
     out = torch.empty((fa.shape[0], f_t.shape[1]), dtype=dtype,
                       device=fa.device)
@@ -94,7 +101,7 @@ def kb_strip_plain(fa, f_t, cols, aug: bool = False):
     return out
 
 
-def ext2_matvec_plain(fa, f_t, t2, bm, aug: bool = False):
+def ext2_matvec_plain(fa, f_t, t2, bm, aug: bool = False, live=None):
     """-> (u (p_pad,) f32, s (n,) f32)."""
     dtype = fa.dtype
     t2r = _r(t2, dtype)
@@ -118,7 +125,7 @@ def _tile_colstats(af, ft, na, nb, dtype):
     return _r(torch.exp(-d2), dtype)
 
 
-def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb):
+def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
     """-> (V (n, m_pad) f32, norms (m_pad,), coeffs (m_pad,), s (n,))."""
     dtype = fa.dtype
     n, mp = f_t.shape[1], gr.shape[1]
@@ -141,7 +148,7 @@ def finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb):
     return v, norms, coeffs, s
 
 
-def colstats_v_plain(fa, f_t, gr, y, cols, na, nb):
+def colstats_v_plain(fa, f_t, gr, y, cols, na, nb, live=None):
     """-> (V (n, m_pad) f32, norms (m_pad,), coeffs (m_pad,))."""
     dtype = fa.dtype
     n, mp = f_t.shape[1], gr.shape[1]
@@ -161,16 +168,20 @@ def colstats_v_plain(fa, f_t, gr, y, cols, na, nb):
 
 # --- kernel wrappers --------------------------------------------------------
 
-def _check_layout(fa, f_t, what: str, aug: bool | None) -> None:
-    if fa.dtype != torch.bfloat16 or f_t.dtype != torch.bfloat16:
+def _check_layout(fa, f_t, what: str, aug: bool | None) -> bool:
+    """Raise unless the kernels take the layout; True for the f32 one."""
+    if fa.dtype != f_t.dtype or fa.dtype not in (torch.bfloat16, _F32):
+        raise ValueError(f"{what}: fa and f_t must share a bf16 or f32 dtype, "
+                         f"got {fa.dtype} and {f_t.dtype}")
+    f32 = fa.dtype == _F32
+    if f32 and aug:
         raise NotImplementedError(
-            f"{what}: the CUDA kernel takes bf16 feature layouts (the "
-            f"bfloat16 main path); f32 layouts wait for ROADMAP.md Queue 2 "
-            f"(K7-K10, f32 layouts)")
-    if aug is False:
+            f"{what}: no preset builds an f32 aug layout, and no ROADMAP.md "
+            f"queue ports it; the f32 kernels take the plain layout")
+    if not f32 and aug is False:
         raise NotImplementedError(
-            f"{what}: the CUDA kernel takes the aug layout; the plain bf16 "
-            f"layout waits for ROADMAP.md Queue 2 (K7-K9, plain layout)")
+            f"{what}: the CUDA kernel takes the bf16 aug layout; no preset "
+            f"builds the plain bf16 one, and no ROADMAP.md queue ports it")
     if fa.shape[1] != FD or f_t.shape[0] != FD:
         raise ValueError(f"{what}: the kernel takes {FD} feature lanes, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
@@ -179,6 +190,29 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> None:
     if fa.shape[0] % P_QUANTUM:
         raise ValueError(f"{what}: fa rows {fa.shape[0]} must be a multiple "
                          f"of {P_QUANTUM}")
+    return f32
+
+
+def _lanes(live) -> int:
+    """The f32 kernels' lanes: ``live`` rounded up to 4 (None: all FD)."""
+    if live is None:
+        return FD
+    if not 0 < live <= FD:
+        raise ValueError(f"live lanes {live} not in [1, {FD}]")
+    return -(-live // 4) * 4
+
+
+def coord_lanes(live) -> int:
+    """The lanes the K9 / K10 f32 kernels and the coordinate K5/K6 read for
+    ``live`` feature lanes: 4, or all 32 (the layouts' pad lanes are zero,
+    so the extra lanes add exact zeros)."""
+    return 4 if live is not None and live <= 4 else FD
+
+
+def _aligned(*ts):
+    """The tensors with 16-byte aligned bases (TMA, cp.async and the
+    vector loads take no other): a view that starts elsewhere is copied."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
 
 
 def _check_vecs(what: str, **vecs) -> None:
@@ -205,24 +239,30 @@ def _clusters(p: int, tiles: int) -> int:
     return min(n, tiles)
 
 
-def kb_strip_cuda(fa, f_t, cols, aug: bool = False):
-    """((p_pad, 32), (32, S), (S,)) -> (p_pad, S) bf16 column-scaled tile."""
+def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
+    """((p_pad, 32), (32, S), (S,)) -> (p_pad, S) column-scaled tile, bf16
+    (aug layout) or f32 (f32 layout, ``live`` lanes read)."""
     if _device_kind(fa, f_t, cols) == "cpu":
         return kb_strip_plain(fa, f_t, cols, aug)
-    _check_layout(fa, f_t, "kb_strip", aug)
+    f32 = _check_layout(fa, f_t, "kb_strip", aug)
     p, s = fa.shape[0], f_t.shape[1]
     _check_vecs("kb_strip", cols=(cols, (s,)))
     if p == 0 or s == 0 or s % E_TN:
         raise ValueError(f"kb_strip: takes a non-empty fa and a width that is "
                          f"a multiple of {E_TN}, got ({p}, {s})")
-    out = torch.empty((p, s), dtype=torch.bfloat16, device=fa.device)
-    # the f_t tiles arrive and the output leaves by TMA, which takes
-    # 16-byte aligned bases: a view that starts elsewhere is copied
-    fa, f_t, cb = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (fa, f_t, _bf16(cols)))
-    rc = _build.lib().glt_kb_strip(fa.data_ptr(), f_t.data_ptr(),
-                                   cb.data_ptr(), out.data_ptr(), p, s,
-                                   _build.stream_ptr(fa))
+    out = torch.empty((p, s), dtype=fa.dtype, device=fa.device)
+    # the f_t tiles arrive and the output leaves by TMA or vector loads,
+    # which take 16-byte aligned bases
+    lanes = _lanes(live) if f32 else None
+    fa, f_t, cb = _aligned(fa, f_t, _f32(cols) if f32 else _bf16(cols))
+    lib = _build.lib()
+    if f32:
+        rc = lib.glt_kb_strip_f32(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
+                                  out.data_ptr(), p, s, lanes,
+                                  _build.stream_ptr(fa))
+    else:
+        rc = lib.glt_kb_strip(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
+                              out.data_ptr(), p, s, _build.stream_ptr(fa))
     _build.check(rc, "kb_strip")
     kb_strip_cuda.launches += 1
     return out
@@ -245,38 +285,42 @@ def _gram(kb: torch.Tensor) -> torch.Tensor:
     return mm_f32(kb, kb.T) if kb.dtype == torch.bfloat16 else kb @ kb.T
 
 
-def _gram_super(kb_strip, fa, f_t, cols, aug):
+def _gram_super(kb_strip, fa, f_t, cols, aug, live):
     """sum_j (c_j k_j)(c_j k_j)^T over superblocks of GRAM_SUPER columns,
     the f32 partial grams summed in column order (``gram_pallas`` loops
     superblocks of ``block`` columns; only the f32 summation order
     differs)."""
     g = None
     for sl in _chunks(f_t.shape[1], GRAM_SUPER):
-        part = _gram(kb_strip(fa, f_t[:, sl].contiguous(), cols[sl], aug))
+        part = _gram(kb_strip(fa, f_t[:, sl].contiguous(), cols[sl], aug,
+                              live))
         g = part if g is None else g + part
     return g
 
 
-def gram_plain(fa, f_t, cols, aug: bool = False):
-    return _gram_super(kb_strip_plain, fa, f_t, cols, aug)
+def gram_plain(fa, f_t, cols, aug: bool = False, live=None):
+    return _gram_super(kb_strip_plain, fa, f_t, cols, aug, live)
 
 
-def gram_cuda(fa, f_t, cols, aug: bool = False):
-    """-> (p_pad, p_pad) f32: one K7 launch and one bf16-in / f32-out GEMM
-    a superblock."""
-    return _gram_super(kb_strip_cuda, fa, f_t, cols, aug)
+def gram_cuda(fa, f_t, cols, aug: bool = False, live=None):
+    """-> (p_pad, p_pad) f32: one K7 launch and one GEMM a superblock
+    (bf16 in and f32 out, or f32 at full precision on the f32 layout)."""
+    return _gram_super(kb_strip_cuda, fa, f_t, cols, aug, live)
 
 
-def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False):
-    """((p_pad, 32), (32, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,))."""
+def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
+    """((p_pad, 32), (32, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,)); on
+    the f32 layout ``live`` lanes are read."""
     if _device_kind(fa, f_t, t2, bm) == "cpu":
         return ext2_matvec_plain(fa, f_t, t2, bm, aug)
-    _check_layout(fa, f_t, "ext2_matvec", aug)
+    f32 = _check_layout(fa, f_t, "ext2_matvec", aug)
     p, n = fa.shape[0], f_t.shape[1]
     _require_whole_p(p, "ext2_matvec")
     _check_vecs("ext2_matvec", t2=(t2, (2, p)), bm=(bm, (n,)))
     if n % X_TN:
         raise ValueError(f"ext2_matvec: n {n} must be a multiple of {X_TN}")
+    if f32:
+        return _ext2_matvec_f32(fa, f_t, t2, bm, _lanes(live))
     dev = fa.device
     clusters = _clusters(p, n // X_TN)
     t2b, bmf = _bf16(t2), _f32(bm)
@@ -292,17 +336,42 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False):
     return u, s
 
 
-def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb):
+def _ext2_matvec_f32(fa, f_t, t2, bm, live):
+    """K8 on the f32 layout: clusters of 8 over 32-column tiles."""
+    p, n = fa.shape[0], f_t.shape[1]
+    dev = fa.device
+    lib = _build.lib()
+    clusters = lib.glt_ext2_f32_clusters(p)
+    if clusters <= 0:
+        _build.check(-clusters if clusters < 0 else 1,
+                     "ext2_matvec: no cluster fits the card")
+    clusters = min(clusters, n // XF_TN)
+    fa, f_t, t2f, bmf = _aligned(fa.contiguous(), f_t.contiguous(),
+                                 _f32(t2), _f32(bm))
+    s = torch.empty(n, dtype=_F32, device=dev)
+    u_part = torch.empty((clusters, p), dtype=_F32, device=dev)
+    u = torch.empty(p, dtype=_F32, device=dev)
+    rc = lib.glt_ext2_matvec_f32(
+        fa.data_ptr(), f_t.data_ptr(), t2f.data_ptr(), bmf.data_ptr(),
+        s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, clusters, live,
+        _build.stream_ptr(fa))
+    _build.check(rc, "ext2_matvec")
+    ext2_matvec_cuda.launches += 1
+    return u, s
+
+
+def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
     """((p_pad, 32) plain, (32, n) aug superset, (p_pad,), (n,), (n,),
     (p_pad, m_pad), (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,),
     coeffs (m_pad,), s (n,)), all f32. A gr wider than MP_MAX runs one
     launch per MP_MAX columns, each recomputing the tile: the first sweeps
     p for ks and s, the others take bf16(s) from it, so s is computed
     once. Any p_pad that is a multiple of P_QUANTUM: no column needs the
-    whole p in one block."""
+    whole p in one block. On the f32 layout (f32 fa and f_t, ``live``
+    lanes read) every operand stays f32."""
     if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
         return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
-    _check_layout(fa, f_t, "finish_colstats", None)
+    f32 = _check_layout(fa, f_t, "finish_colstats", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     _check_vecs("finish_colstats", t=(t, (p,)), s_pre=(s_pre, (n,)),
@@ -310,6 +379,9 @@ def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb):
                 nb=(nb, (n,)))
     _check_v_shapes("finish_colstats", mp, n)
     y, na, nb = (_f32(x) for x in (y, na, nb))
+    if f32:
+        return _colstats_f32(fa, f_t, gr, y, na, nb, _lanes(live),
+                             finish=(_f32(t), _f32(s_pre), _f32(bm)))
     finish = (_bf16(t), _f32(s_pre), _f32(bm))
     grts = [_bf16(gr[:, m0:m0 + MP_MAX].T) for m0 in range(0, mp, MP_MAX)]
     v, norms, coeffs, s, cb = _v_launch(fa, f_t, grts[0], y, na, nb,
@@ -333,22 +405,26 @@ def _check_v_shapes(what: str, mp: int, n: int) -> None:
         raise ValueError(f"{what}: n {n} must be a multiple of {C_TN}")
 
 
-def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb):
+def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb, live=None):
     """((p_pad, 32) plain, (32, n) aug superset, (p_pad, m_pad) f32, (n,),
     (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,), coeffs
     (m_pad,)), all f32. ``cols`` must be 0 on padding columns. A gr wider
     than MP_MAX runs one launch per MP_MAX columns (each recomputes the
-    tile)."""
+    tile). On the f32 layout every operand stays f32 (``live`` lanes
+    read)."""
     if _device_kind(fa, f_t, gr, y, cols, na, nb) == "cpu":
         return colstats_v_plain(fa, f_t, gr, y, cols, na, nb)
-    _check_layout(fa, f_t, "colstats_v", None)
+    f32 = _check_layout(fa, f_t, "colstats_v", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     _check_vecs("colstats_v", gr=(gr, (p, mp)), y=(y, (n,)),
                 cols=(cols, (n,)), na=(na, (p,)), nb=(nb, (n,)))
     _check_v_shapes("colstats_v", mp, n)
-    cb = _bf16(cols)
     y, na, nb = (_f32(x) for x in (y, na, nb))
+    if f32:
+        return _colstats_f32(fa, f_t, gr, y, na, nb, _lanes(live),
+                             cols=_f32(cols))[:3]
+    cb = _bf16(cols)
     outs = []
     for m0 in range(0, mp, MP_MAX):
         outs.append(_v_launch(fa, f_t, _bf16(gr[:, m0:m0 + MP_MAX].T), y, na,
@@ -395,6 +471,59 @@ def _v_launch(fa, f_t, grt, y, na, nb, cb=None, finish=None):
         cb = None
     _build.check(rc, what)
     return v, nc[0], nc[1], s, cb
+
+
+def _colstats_f32(fa, f_t, gr, y, na, nb, live, cols=None, finish=None):
+    """K10 (column scale ``cols``) or K9 (``finish`` = (t, s_pre, bm)) on the
+    f32 layout: one launch per MP_MAX columns of gr, each padded with zero
+    columns to MP_MAX (the f32 V pass is that wide); K9's first launch
+    computes s, the others are K10's pass with c = s. -> (V, norms,
+    coeffs, s), s None for K10."""
+    p, n = fa.shape[0], f_t.shape[1]
+    mp = gr.shape[1]
+    dev = fa.device
+    lib = _build.lib()
+    lv = coord_lanes(live)
+    blocks = lib.glt_colstats_f32_blocks(lv)
+    if blocks <= 0:
+        _build.check(-blocks if blocks < 0 else 1,
+                     "colstats_v: no block fits the card")
+    blocks = min(blocks, n // C_TN)
+    fa, f_t = _aligned(fa.contiguous(), f_t.contiguous())
+    part = torch.empty((blocks, 2, MP_MAX), dtype=_F32, device=dev)
+    s = None
+    outs = []
+    for m0 in range(0, mp, MP_MAX):
+        w = min(MP_MAX, mp - m0)
+        g = torch.zeros((p, MP_MAX), dtype=_F32, device=dev)
+        g[:, :w] = gr[:, m0:m0 + w]
+        v = torch.empty((n, MP_MAX), dtype=_F32, device=dev)
+        nc = torch.empty((2, MP_MAX), dtype=_F32, device=dev)
+        head = (fa.data_ptr(), f_t.data_ptr(), g.data_ptr())
+        vecs = (y.data_ptr(), na.data_ptr(), nb.data_ptr(), v.data_ptr())
+        tail = (part.data_ptr(), nc.data_ptr(), p, n, lv, blocks,
+                _build.stream_ptr(fa))
+        if finish is not None and s is None:
+            s = torch.empty(n, dtype=_F32, device=dev)
+            rc = lib.glt_finish_colstats_f32(
+                *head, *(x.data_ptr() for x in finish), *vecs, s.data_ptr(),
+                *tail)
+            counter, what = finish_colstats_cuda, "finish_colstats"
+        else:
+            c = cols if s is None else s
+            rc = lib.glt_colstats_v_f32(*head, c.data_ptr(), *vecs, *tail)
+            counter = (colstats_v_cuda if finish is None
+                       else finish_colstats_cuda)
+            what = "colstats_v" if finish is None else "finish_colstats"
+        _build.check(rc, what)
+        counter.launches += 1
+        outs.append((v[:, :w], nc[0, :w], nc[1, :w]))
+    if len(outs) == 1:
+        v, norms, coeffs = outs[0]
+    else:
+        v, norms, coeffs = (torch.cat(x, dim=x[0].dim() - 1)
+                            for x in zip(*outs))
+    return v.contiguous(), norms.contiguous(), coeffs.contiguous(), s
 
 
 kb_strip_cuda.launches = 0

@@ -2,7 +2,7 @@
 card.
 
     python3 scripts/profile_torch_slice.py
-        [--path config2|config4|config3|config4q|turbo|dense|both|all]
+        [--path config2|config4|config3|config4q|turbo|dense|bilateral|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
@@ -12,7 +12,9 @@ RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
 8 MP f32 matvec denoise; turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
 turbo recipe on the unfused spectral schedule; dense:
 chip_smoke.make_workload_dense, bench.py's f32 twin of config 2 on the dense
-path; "both" is config 2 and config 4, "all" every path) it runs
+path; bilateral: chip_smoke.make_workload_bilateral, the 8 MP bilateral
+denoise on f32 tiles (fused finish: the f32 K8, K7 and K9); "both" is
+config 2 and config 4, "all" every path) it runs
 filter_image once to warm up, then:
 
 * stage walls (host clock around work ending in torch.cuda.synchronize,
@@ -56,7 +58,9 @@ GROUPS = (
                      r"sandwich_kernel|"
                      r"kb_emit_kernel|ext2_matvec_kernel|"
                      r"aug_sum_kernel|f32_sum_kernel|"
-                     r"colstats_v_kernel|ks_kernel|reduce_partials"),
+                     r"colstats_v_kernel|ks_kernel|reduce_partials|"
+                     r"affinity_coord_kernel|coord_sum_kernel|kb_f32_kernel|"
+                     r"ext2_f32_kernel|colstats_f32_kernel|ks_f32_kernel"),
     ("cuSOLVER / small dense algebra",
      r"syevd|syevj|jacobi|potrf|potrs|trsm|trsv|geqrf|orgqr|orgbr|ormqr|"
      r"gesvd|gebrd|bdsqr|lansy|sytrd|stedc|steqr|larf|laswp|cusolver|"
@@ -193,8 +197,8 @@ def device_profile(tag, gt, cfg, noisy, plan, dev, out: Path) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("config2", "config4", "config3",
-                                       "config4q", "turbo", "dense", "both",
-                                       "all"),
+                                       "config4q", "turbo", "dense",
+                                       "bilateral", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -215,7 +219,8 @@ def main() -> None:
              "config3": chip_smoke.make_workload_cfg3,
              "config4q": chip_smoke.make_workload_8mp_matvec,
              "turbo": chip_smoke.make_workload_8mp_turbo,
-             "dense": chip_smoke.make_workload_dense}
+             "dense": chip_smoke.make_workload_dense,
+             "bilateral": chip_smoke.make_workload_bilateral}
     chosen = {"both": ("config2", "config4"), "all": tuple(paths)}.get(
         args.path, (args.path,))
     for tag, workload in paths.items():

@@ -1,0 +1,610 @@
+"""The bilateral 8 MP denoise of graphlap_tpu_torch against graphlap_tpu:
+``tuned_config(CONFIG1.replace(streaming=True, sample_cap=4096), 2048*4096,
+"fast")`` — a gaussian kernel with a spatial term (features y/h, row/8,
+col/8: three live lanes of a 32-lane f32 layout), f32 tiles, coarse
+Sinkhorn and gram, one polish, LOBPCG, the fused finish — at 96x96 with the
+same recipe written out (the preset turns the decimations off at that
+size), through ``filter_image`` (fused finish: K8, K7, K9) and through the
+unfused schedule and ``filter_image_staged`` (the polish's f32 K5/K6 with
+the coordinate cross, K7, K10), with the reference's LOBPCG start block
+injected; the f32 K7-K10 plain versions on coordinate-scale features
+against the Pallas kernels (interpret mode on the CPU, as
+tests/test_pallas.py runs them); the context's live lanes and coordinate
+flag and the wrappers' routing of them. On a CUDA card only (marker
+``gpu``): each f32 kernel against its plain version and an f64 evaluation,
+K1 and the f32 K5/K6 on coordinates against f64, and the 96x96 slice on
+the card against the plain versions on the CPU.
+
+Tolerances:
+* Whole slice: <= 0.02 dB and atol 2e-3, the f32 bars (PERF.md section 2;
+  tests/test_streaming.py:258).
+* f32 tiles on coordinate-scale features (|f|^2 up to ~1.2e4 here): two
+  correct f32 evaluations of na + nb - 2 cross in another order differ by
+  a few ulps of |f|^2, and |dK/dd2| = K <= 1, so tile entries are held to
+  F32_TILE = 16 ulps of max |f|^2 (times the largest column scale), and
+  the sums to that bar relative to the sum of their terms' magnitudes.
+* On the card, against an f64 evaluation of the same tile: the kernel's
+  max and p99 |dK| at most 1.5x the plain f32 version's (the f32
+  cancellation error itself is the scale; a kernel-vs-plain bar on tile
+  entries would measure two roundings of it).
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import graphlap_tpu_torch as gt
+from graphlap_tpu_torch.config import PipelineConfig
+from graphlap_tpu_torch.models import streaming as tms
+from graphlap_tpu_torch.models.pipeline import (_filter_channel,
+                                                _filter_streaming_staged)
+from graphlap_tpu_torch.ops import _build
+from graphlap_tpu_torch.ops import cuda_affinity as k1
+from graphlap_tpu_torch.ops import cuda_matvec as k56
+from graphlap_tpu_torch.ops import cuda_recompute as k79
+from graphlap_tpu_torch.ops import recompute_layout as rl
+from graphlap_tpu_torch.utils import interop
+
+BARS = (0.02, 2e-3)
+EPS32 = 2.0 ** -23
+MP8 = 2048 * 4096
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference, imported here rather than at module level: the
+    card's machine has no JAX, so there these comparisons skip and the gpu
+    tests of this file still collect and run."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    import graphlap_tpu as gl
+    from graphlap_tpu.config import PipelineConfig as JaxConfig
+    from graphlap_tpu.ops import pallas_streaming as pst
+    return SimpleNamespace(jax=jax, jnp=jnp, gl=gl, pst=pst,
+                           cfg=lambda c: JaxConfig(**c.to_dict()))
+
+
+def T(x):
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def N(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype("float32"))
+
+
+def _cfg(**kw):
+    """The bilateral 8 MP recipe at 96x96: CONFIG1's kernel and bandwidths,
+    f32 tiles, coarse Sinkhorn and gram 1/4, one polish, LOBPCG, m = 50."""
+    cfg = dict(kernel="gaussian", h=0.2, spatial_h=8.0, sample_rho=0.05,
+               num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
+               streaming=True, block_cols=2048, use_pallas=True,
+               affinity_dtype="float32", sinkhorn_coarse=4,
+               sinkhorn_polish=1, gram_coarse=4, solver="lobpcg",
+               fused_finish=True)
+    cfg.update(kw)
+    return PipelineConfig(**cfg)
+
+
+@pytest.fixture(scope="module")
+def img_noisy():
+    img = gt.make_test_image(96, 96)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0, 1)
+    return img, noisy.astype(np.float32)
+
+
+def _x0(jx, p, m):
+    return np.asarray(jx.jax.random.normal(jx.jax.random.PRNGKey(0), (p, m),
+                                           jx.jnp.float32))
+
+
+def assert_bars(img, got, ref):
+    db, atol = BARS
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=atol)
+    d = abs(gt.psnr(img, got) - gt.psnr(img, ref))
+    assert d <= db, f"port vs reference PSNR delta {d:.4f} dB"
+
+
+# --- the recipe ----------------------------------------------------------------
+
+def test_preset_resolves_the_bilateral_recipe():
+    """tuned_config sends the bilateral streaming config to f32 tiles at 8
+    MP with the decimations, the polish and the fused finish this slice
+    ports (tests/test_presets.py pins the f32 route in the reference)."""
+    cfg = gt.tuned_config(gt.CONFIG1.replace(streaming=True,
+                                             sample_cap=4096), MP8, "fast")
+    assert (cfg.kernel, cfg.spatial_h) == ("gaussian", 8.0)
+    assert cfg.affinity_dtype == cfg.feature_dtype == "float32"
+    assert cfg.use_pallas and cfg.fused_finish and cfg.solver == "lobpcg"
+    assert (cfg.sinkhorn_coarse, cfg.sinkhorn_iters, cfg.sinkhorn_polish,
+            cfg.gram_coarse) == (64, 6, 1, 64)
+    assert (cfg.num_eigvecs, cfg.filter_name) == (50, "identity")
+    tms.check_slice(cfg)
+
+
+def test_context_records_live_lanes_and_coordinates(img_noisy):
+    _, noisy = img_noisy
+    cfg = _cfg()
+    plan = gt.make_plan(noisy, cfg)
+    ctx = tms._strip_ctx(T(noisy), interop.idx_to_device(plan.idx_a, "cpu"),
+                         cfg)
+    assert (ctx.live, ctx.coords) == (4, True)
+    assert ctx.fa_aug is None and ctx.f_t.dtype == torch.float32
+    assert tuple(ctx.f_t.shape) == (32, ctx.n_pad)
+    assert float(ctx.f_t[3:].abs().max()) == 0.0      # the pad lanes
+    assert tms._fused_finish_ok(ctx, cfg)
+    nlm = tms._strip_ctx(T(noisy), interop.idx_to_device(plan.idx_a, "cpu"),
+                         cfg.replace(kernel="nlm", spatial_h=0.0, h=0.25))
+    assert (nlm.live, nlm.coords) == (28, False)
+
+
+@pytest.fixture(scope="module")
+def reference(jx, img_noisy):
+    """graphlap_tpu's fused and staged runs of the recipe, and its LOBPCG
+    start block."""
+    _, noisy = img_noisy
+    cfg = _cfg()
+    plan = gt.make_plan(noisy, cfg)
+    fused = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
+    unfused_cfg = cfg.replace(fused_finish=False)
+    unfused = jx.gl.filter_image(noisy, jx.cfg(unfused_cfg), plan=plan)
+    staged = jx.gl.filter_image_staged(noisy, jx.cfg(unfused_cfg), plan=plan)
+    return SimpleNamespace(cfg=cfg, plan=plan, fused=fused, unfused=unfused,
+                           staged=staged,
+                           x0=T(_x0(jx, plan.p, cfg.num_eigvecs)))
+
+
+def _spy(monkeypatch, module, names):
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        real = getattr(module, name)
+
+        def spy(*a, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_fused_recipe_matches_reference(img_noisy, reference, monkeypatch):
+    """filter_image's schedule: K8, K7 + the f32 gram GEMM, LOBPCG, K9."""
+    img, noisy = img_noisy
+    r = reference
+    calls = _spy(monkeypatch, k79, ("ext2_matvec_plain", "kb_strip_plain",
+                                    "finish_colstats_plain",
+                                    "colstats_v_plain"))
+    z, vals = _filter_channel(T(noisy), interop.idx_to_device(r.plan.idx_a,
+                                                              "cpu"),
+                              r.cfg, x0=r.x0)
+    assert calls == {"ext2_matvec_plain": 1, "kb_strip_plain": 1,
+                     "finish_colstats_plain": 1, "colstats_v_plain": 0}
+    assert_bars(img, z.numpy(), r.fused.image)
+    np.testing.assert_allclose(vals[0].numpy(), r.fused.eigvals[0], rtol=1e-2)
+
+
+@pytest.mark.parametrize("route", ["unfused", "staged"])
+def test_unfused_recipe_matches_reference(img_noisy, reference, monkeypatch,
+                                          route):
+    """The unfused schedule (filter_image with fused_finish off, and
+    filter_image_staged): the coarse loop, rmatvec2, the polish through
+    K5 + K6 with the coordinate flag, K7, LOBPCG, K10."""
+    img, noisy = img_noisy
+    r = reference
+    cfg = r.cfg.replace(fused_finish=False)
+    mv = _spy(monkeypatch, k56, ("matvec_plain", "rmatvec_plain"))
+    calls = _spy(monkeypatch, k79, ("kb_strip_plain", "colstats_v_plain",
+                                    "ext2_matvec_plain"))
+    seen = []
+    real = tms.ktilde_apply
+    monkeypatch.setattr(tms, "ktilde_apply",
+                        lambda ctx, s: seen.append((ctx.live, ctx.coords))
+                        or real(ctx, s))
+    if route == "staged":
+        res = _filter_streaming_staged(noisy, cfg, r.plan, "cpu", x0=r.x0)
+        got, ref = res.image, r.staged.image
+        assert set(res.timings) == {"normalize", "eigensolve", "filter"}
+    else:
+        z, _ = _filter_channel(T(noisy), interop.idx_to_device(r.plan.idx_a,
+                                                               "cpu"),
+                               cfg, x0=r.x0)
+        got, ref = z.numpy(), r.unfused.image
+    assert mv == {"matvec_plain": 1, "rmatvec_plain": 1}
+    assert calls == {"kb_strip_plain": 1, "colstats_v_plain": 1,
+                     "ext2_matvec_plain": 0}
+    assert seen == [(4, True)]
+    assert_bars(img, got, ref)
+
+
+# --- the f32 K7-K10 plain versions on coordinate-scale features --------------
+
+def _coord_inputs(jx, seed=7, p=300, n=1024, m=50):
+    """Features as the bilateral recipe builds them, (y/h, row/8, col/8),
+    on coordinates in [448, 512): |f|^2 up to ~1.2e4, neighbours within 64
+    px so most tile entries are live; the reference's f32 plain layout."""
+    jnp, pst = jx.jnp, jx.pst
+    rng = np.random.default_rng(seed)
+
+    def feats(k):
+        rc = rng.uniform(448, 512, (k, 2)) / 8.0
+        return np.concatenate([rng.uniform(0, 5, (k, 1)), rc],
+                              axis=1).astype(np.float32)
+    fa, fp = feats(p), feats(n)
+    _, p_pad = pst.p_tiling(p)
+    fa_pad = jnp.zeros((p_pad, 32), jnp.float32).at[:p, :3].set(fa)
+    f_t = jnp.zeros((32, n), jnp.float32).at[:3, :].set(fp.T)
+    bm = (rng.random(n) > 0.2).astype(np.float32)
+    t2 = np.zeros((2, p_pad), np.float32)
+    t2[:, :p] = rng.uniform(0.5, 1.5, (2, p))
+    t = np.zeros(p_pad, np.float32)
+    t[:p] = rng.uniform(0.5, 1.5, p)
+    na = np.zeros(p_pad, np.float32)
+    na[:p] = np.sum(fa * fa, axis=1)
+    nb = np.sum(fp * fp, axis=1).astype(np.float32)
+    gr = np.zeros((p_pad, 128), np.float32)    # K10's Pallas block: M_PAD
+    gr[:p, :m] = rng.normal(0, 0.05, (p, m))
+    tol = 16 * EPS32 * float(max(na.max(), nb.max()))
+    return SimpleNamespace(
+        fa_pad=fa_pad, f_t=f_t, bm=bm, t2=t2, t=t, na=na, nb=nb, gr=gr,
+        s_pre=(rng.uniform(0.5, 1.5, n) * bm).astype(np.float32),
+        y=rng.uniform(0, 1, n).astype(np.float32),
+        cols=rng.uniform(0.5, 1.5, n).astype(np.float32), p=p, tol=tol)
+
+
+def _sum_bar(got, ref, terms, tol):
+    """|got - ref| <= tol * (the sum of the terms' magnitudes), per entry."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    assert (err <= tol * np.asarray(terms, np.float64) + 1e-30).all(), (
+        float((err / (np.asarray(terms) + 1e-30)).max()), tol)
+
+
+def test_k7_f32_plain_matches_pallas_on_coordinates(jx):
+    x = _coord_inputs(jx)
+    ref = N(jx.pst.kb_strip_pallas(x.fa_pad, x.f_t[:, :512],
+                                   jx.jnp.asarray(x.cols[:512])))
+    got = k79.kb_strip_plain(T(N(x.fa_pad)), T(N(x.f_t[:, :512])),
+                             T(x.cols[:512]), False, 4)
+    assert got.dtype == torch.float32
+    assert np.abs(ref[:x.p]).max() > 0.5          # live entries
+    np.testing.assert_allclose(N(got), ref, rtol=0, atol=1.5 * x.tol)
+    g_ref = N(jx.pst.gram_pallas(x.fa_pad, x.f_t[:, :512],
+                                 jx.jnp.asarray(x.cols[:512]), 512))
+    g = k79.gram_plain(T(N(x.fa_pad)), T(N(x.f_t[:, :512])), T(x.cols[:512]),
+                       False, 4)
+    kb = np.abs(ref).astype(np.float64)
+    _sum_bar(N(g), g_ref, 2 * kb @ kb.T, x.tol)
+
+
+def test_k8_f32_plain_matches_pallas_on_coordinates(jx):
+    jnp = jx.jnp
+    x = _coord_inputs(jx)
+    u_r, s_r = jx.pst.ext2_matvec_pallas(x.fa_pad, x.f_t, jnp.asarray(x.t2),
+                                         jnp.asarray(x.bm))
+    u, s = k79.ext2_matvec_plain(T(N(x.fa_pad)), T(N(x.f_t)), T(x.t2),
+                                 T(x.bm), False, 4)
+    # s = bm / sqrt(kbt_r kbt_c): each kbt sum moves by at most tol of its
+    # terms' magnitudes (all positive), so s by at most ~tol relative
+    np.testing.assert_allclose(N(s), N(s_r), rtol=4 * x.tol, atol=0)
+    kb = N(k79.kb_strip_plain(T(N(x.fa_pad)), T(N(x.f_t)),
+                              torch.ones(x.bm.shape[0]), False))
+    _sum_bar(N(u), N(u_r), 3 * np.abs(kb) @ np.abs(N(s_r)), 4 * x.tol)
+    assert (N(s)[x.bm == 0] == 0).all()
+
+
+def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx):
+    jnp = jx.jnp
+    x = _coord_inputs(jx)
+    args_r = (x.fa_pad, x.f_t)
+    gr64 = x.gr[:, :64]
+    ref9 = jx.pst.finish_colstats_pallas(
+        *args_r, jnp.asarray(x.t), jnp.asarray(x.s_pre), jnp.asarray(x.bm),
+        jnp.asarray(gr64), jnp.asarray(x.y), jnp.asarray(x.na),
+        jnp.asarray(x.nb))
+    got9 = k79.finish_colstats_plain(
+        T(N(x.fa_pad)), T(N(x.f_t)), T(x.t), T(x.s_pre), T(x.bm), T(gr64),
+        T(x.y), T(x.na), T(x.nb), 4)
+    ref10 = jx.pst.colstats_v_pallas(
+        *args_r, jnp.asarray(x.gr), jnp.asarray(x.y), jnp.asarray(x.cols),
+        jnp.asarray(x.na), jnp.asarray(x.nb))
+    got10 = k79.colstats_v_plain(
+        T(N(x.fa_pad)), T(N(x.f_t)), T(x.gr), T(x.y), T(x.cols), T(x.na),
+        T(x.nb), 4)
+    kb = np.abs(N(k79.kb_strip_plain(T(N(x.fa_pad)), T(N(x.f_t)),
+                                     torch.ones(x.bm.shape[0]), False)))
+    for got, ref, c, g in ((got9, ref9, N(ref9[3]), gr64),
+                           (got10, ref10, x.cols, x.gr)):
+        # V_j = sum_p c_j k_pj gr_p: each entry within tol of its terms
+        terms = (np.abs(c)[:, None] * kb.T) @ np.abs(g)
+        _sum_bar(N(got[0]), N(ref[0]), 3 * terms, 4 * x.tol)
+        v = np.abs(N(ref[0])).astype(np.float64)
+        _sum_bar(N(got[1]), N(ref[1]), 2 * (v * (v + terms)).sum(0) + 1e-12,
+                 4 * x.tol)
+        _sum_bar(N(got[2]), N(ref[2]), np.abs(x.y) @ (v + terms) + 1e-12,
+                 4 * x.tol)
+        assert float(np.abs(N(got[0])[:, 50:]).max()) == 0.0
+    np.testing.assert_allclose(N(got9[3]), N(ref9[3]), rtol=4 * x.tol, atol=0)
+
+
+# --- dispatch --------------------------------------------------------------------
+
+def _f32_layouts(p=300, n=1024):
+    rng = np.random.default_rng(3)
+    fa = torch.zeros((512, 32))
+    fa[:p, :3] = T(rng.uniform(0, 60, (p, 3)))
+    f_t = torch.zeros((32, n))
+    f_t[:3] = T(rng.uniform(0, 60, (3, n)))
+    return fa, f_t
+
+
+def test_f32_cuda_layouts_reach_the_library(monkeypatch):
+    """On CUDA tensors the f32 layouts go to the kernel library (here
+    missing, so its RuntimeError), never to the plain versions; K5/K6 take
+    the coordinate kernel only where asked."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    for mod in (k79, k56, k1):
+        monkeypatch.setattr(mod, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    fa, f_t = _f32_layouts()
+    n = f_t.shape[1]
+    one = lambda k: torch.ones(k)  # noqa: E731
+    cases = [
+        (k79.kb_strip_cuda, (fa, f_t, one(n), False, 4)),
+        (k79.ext2_matvec_cuda, (fa, f_t, torch.ones((2, 512)), one(n), False,
+                                4)),
+        (k79.finish_colstats_cuda, (fa, f_t, one(512), one(n), one(n),
+                                    torch.ones((512, 64)), one(n), one(512),
+                                    one(n), 4)),
+        (k79.colstats_v_cuda, (fa, f_t, torch.ones((512, 64)), one(n), one(n),
+                               one(512), one(n), 4)),
+        (k56.matvec_cuda, (fa, f_t, one(n), False, 4, True)),
+        (k56.rmatvec_cuda, (fa, f_t, one(512), False, 4, True)),
+        (k1.affinity_strip_cuda, (fa[:300, :3], f_t[:3].T.contiguous(),
+                                  torch.float32, None, True)),
+    ]
+    before = [fn.launches for fn, _ in cases]
+    for fn, args in cases:
+        with pytest.raises(RuntimeError, match="unavailable"):
+            fn(*args)
+    assert [fn.launches for fn, _ in cases] == before
+    with pytest.raises(ValueError, match="live lanes"):
+        k79.kb_strip_cuda(fa, f_t, one(n), False, 40)
+
+
+def test_lane_counts():
+    assert [k79._lanes(x) for x in (None, 1, 3, 4, 5, 27, 32)] == [
+        32, 4, 4, 4, 8, 28, 32]
+    assert [k79.coord_lanes(x) for x in (None, 3, 4, 5, 28)] == [
+        32, 4, 4, 32, 32]
+
+
+# --- on the card ---------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _card_layouts(dev, p, n, h_img, w_img, seed=1):
+    """The bilateral recipe's f32 layouts for p sample pixels and n pixels
+    of an h_img x w_img image (y/0.2, row/8, col/8), as the context builds
+    them, on the card."""
+    rng = np.random.default_rng(seed)
+
+    def feats(k):
+        r = rng.integers(0, h_img, k)
+        c = rng.integers(0, w_img, k)
+        return np.stack([rng.uniform(0, 5, k), r / 8.0, c / 8.0],
+                        axis=1).astype(np.float32)
+    fa3 = feats(p)
+    # columns: neighbours of the sample rows (within 32 px), so tiles live
+    base = fa3[rng.integers(0, p, n)]
+    fp3 = base + np.stack([rng.uniform(-1, 1, n) * 0.5,
+                           rng.integers(-32, 33, n) / 8.0,
+                           rng.integers(-32, 33, n) / 8.0],
+                          axis=1).astype(np.float32)
+    p_pad = rl.p_tiling(p)[1]
+    fa = torch.zeros((p_pad, 32), device=dev)
+    fa[:p, :3] = torch.tensor(fa3, device=dev)
+    f_t = torch.zeros((32, n), device=dev)
+    f_t[:3] = torch.tensor(fp3.T.copy(), device=dev)
+    return fa, f_t
+
+
+def _f64_tile(fa, f_t, rows, cols):
+    a, b = fa[rows].double(), f_t[:, cols].double()
+    d2 = (a * a).sum(1)[:, None] + (b * b).sum(0)[None, :] - 2.0 * a @ b
+    return torch.exp(-torch.clamp(d2, min=0.0))
+
+
+def _err_stats(got, ref64):
+    """(max, p99) of |got - ref64|; the p99 over an even subsample of at
+    most 2^22 entries (torch.quantile's input bound)."""
+    d = (got.double() - ref64).abs().flatten()
+    sub = d[::max(1, d.numel() >> 22)]
+    return float(d.max()), float(torch.quantile(sub, 0.99))
+
+
+def _rel_stats(got, ref64):
+    """(max, p99) of |got - ref64| / |ref64| over the entries ref64 != 0."""
+    keep = ref64 != 0
+    d = ((got.double() - ref64).abs() / ref64.abs())[keep]
+    return float(d.max()), float(torch.quantile(d[::max(1, d.numel() >> 22)],
+                                                0.99))
+
+
+def _share_below(got, ref):
+    """The lean of got against ref: the share of (got - ref) sign(ref) below
+    zero among the entries where they differ (equal sums of the same few
+    terms say nothing of a lean)."""
+    d = ((got - ref) * torch.sign(ref))[(ref != 0) & (got != ref)]
+    return float((d < 0).float().mean())
+
+
+def _ext2_f64(fa, f_t, t2, bm, chunk=8192):
+    """K8's function with the tile and the sums in f64, from the same f32
+    features: (u, s)."""
+    a = fa.double()
+    na = (a * a).sum(1)
+    u = torch.zeros(fa.shape[0], dtype=torch.float64, device=fa.device)
+    s = torch.empty(f_t.shape[1], dtype=torch.float64, device=fa.device)
+    for j in range(0, f_t.shape[1], chunk):
+        b = f_t[:, j:j + chunk].double()
+        k = torch.exp(-torch.clamp(na[:, None] + (b * b).sum(0)[None]
+                                   - 2.0 * a @ b, min=0.0))
+        kbt = t2.double() @ k
+        s[j:j + chunk] = bm[j:j + chunk].double() / torch.sqrt(
+            torch.clamp(kbt[0] * kbt[1], min=1e-30))
+        u += k @ s[j:j + chunk]
+    return u, s
+
+
+def _within_plain(k, pl):
+    """The kernel's max and p99 |dK| against f64 at most 1.5x the plain
+    f32 version's."""
+    assert k[0] <= 1.5 * pl[0] + 1e-12 and k[1] <= 1.5 * pl[1] + 1e-12, (
+        k, pl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n,img", [(1000, 33024, (512, 512)),
+                                     (4000, 65536, (2048, 4096))])
+def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
+    """K7-K10 f32 at splitting shapes (p_pad 1024 or 4096, column tiles that
+    do not divide among the clusters or blocks): K9's and K10's sums against
+    the plain version to 2e-4 relative (the norms are passed in, so only the
+    cross's order differs), K7's tile and K8's u and s against f64 under the
+    1.5x rule, two launches bit for bit, and the leans of u, s and V in
+    (0.25, 0.75)."""
+    dev = cuda_device
+    fa, f_t = _card_layouts(dev, p, n, *img)
+    p_pad = fa.shape[0]
+    rng = np.random.default_rng(p)
+    r = lambda *s: torch.tensor(rng.uniform(0.5, 1.5, s).astype(  # noqa: E731
+        np.float32), device=dev)
+    cols = r(n)
+    # K7 on the first 16384 columns
+    s7 = 16384
+    args = (fa, f_t[:, :s7].contiguous(), cols[:s7], False, 4)
+    kb = k79.kb_strip_cuda(*args)
+    assert torch.equal(kb, k79.kb_strip_cuda(*args))
+    kb_p = k79.kb_strip_plain(*args)
+    rows = torch.arange(0, p, 3, device=dev)
+    cc = torch.arange(0, s7, 5, device=dev)
+    t64 = _f64_tile(fa, f_t, rows, cc) * cols[cc].double()
+    _within_plain(_err_stats(kb[rows][:, cc], t64),
+                  _err_stats(kb_p[rows][:, cc], t64))
+    del kb, kb_p, t64
+    # K8
+    bm = torch.ones(n, device=dev)
+    bm[::7] = 0.0
+    t2 = torch.zeros((2, p_pad), device=dev)
+    t2[:, :p] = r(2, p)
+    args = (fa, f_t, t2, bm, False, 4)
+    u, s = k79.ext2_matvec_cuda(*args)
+    u2, s2 = k79.ext2_matvec_cuda(*args)
+    assert torch.equal(u, u2) and torch.equal(s, s2)
+    u_p, s_p = k79.ext2_matvec_plain(*args)
+    u64, s64 = _ext2_f64(fa, f_t, t2, bm)
+    for got, ref, r64, keep in ((u, u_p, u64, p), (s, s_p, s64, n)):
+        # K8's norms are FMA chains, the plain version's sums of rounded
+        # squares: one ulp of |f|^2 moves a whole row's entries together,
+        # so the sums are held to f64 (the 1.5x rule) and to the plain
+        # version only for gross errors
+        assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+        _within_plain(_rel_stats(got[:keep], r64[:keep]),
+                      _rel_stats(ref[:keep], r64[:keep]))
+        assert 0.25 < _share_below(got[:keep], ref[:keep]) < 0.75
+    # K9 and K10
+    gr = torch.zeros((p_pad, 64), device=dev)
+    gr[:p, :50] = torch.tensor(rng.normal(0, 0.02, (p, 50)).astype(
+        np.float32), device=dev)
+    y = r(n)
+    na = torch.sum(fa * fa, dim=1)
+    nb = torch.sum(f_t * f_t, dim=0)
+    tv = torch.zeros(p_pad, device=dev)
+    tv[:p] = r(p)
+    a9 = (fa, f_t, tv, r(n) * bm, bm, gr, y, na, nb)
+    a10 = (fa, f_t, gr, y, cols, na, nb)
+    for fn, pl, a in ((k79.finish_colstats_cuda, k79.finish_colstats_plain,
+                       a9), (k79.colstats_v_cuda, k79.colstats_v_plain, a10)):
+        got = fn(*a, live=4)
+        again = fn(*a, live=4)
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
+        ref = pl(*a)
+        v, v_r = got[0], ref[0]
+        assert float((v - v_r).abs().max()) <= 2e-4 * float(v_r.abs().max())
+        assert float(v[:, 50:].abs().max()) == 0.0
+        assert 0.25 < _share_below(v, v_r) < 0.75
+        scale_n = torch.sum(v_r * v_r, dim=0)[:50]
+        scale_c = (torch.abs(y) @ torch.abs(v_r))[:50]
+        for g_, r_, sc in ((got[1][:50], ref[1][:50], scale_n),
+                           (got[2][:50], ref[2][:50], scale_c)):
+            assert float(((g_ - r_).abs() / sc).max()) <= 2e-4
+        if len(got) == 4:
+            assert float((got[3] - ref[3]).abs().max()) <= 2e-4 * float(
+                ref[3].abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("img", [(512, 512), (2048, 4096)])
+def test_coordinate_cross_against_f64(cuda_device, img):
+    """K1 (both stores) and the f32 K5/K6 on coordinate features: the tile
+    against f64, the kernel's max and p99 |dK| at most 1.5x the plain f32
+    version's. The split-fp16 cross (the NLM route) is printed beside."""
+    dev = cuda_device
+    fa, f_t = _card_layouts(dev, 512, 1 << 18, *img)
+    a3, b3 = fa[:512, :3].contiguous(), f_t[:3].T.contiguous()
+    t64 = _f64_tile(fa, f_t, torch.arange(512, device=dev),
+                    torch.arange(f_t.shape[1], device=dev))
+    plain = _err_stats(k1.affinity_strip_plain(a3, b3), t64)
+    coord = _err_stats(k1.affinity_strip_cuda(a3, b3, coords=True), t64)
+    split = _err_stats(k1.affinity_strip_cuda(a3, b3), t64)
+    print(f"K1 f32 store vs f64 (max, p99): plain {plain}, coordinate "
+          f"cross {coord}, split cross {split}")
+    _within_plain(coord, plain)
+    bf = k1.affinity_strip_cuda(a3, b3, torch.float32, torch.bfloat16,
+                                coords=True)
+    assert float((bf.double() - t64).abs().max()) <= plain[0] + 2.0 ** -8
+    # K5/K6: the tile enters only through the sums; hold each output against
+    # its f64 evaluation, the kernel's error at most 1.5x the plain f32's
+    v = torch.rand(f_t.shape[1], device=dev) + 0.5
+    t = torch.zeros(fa.shape[0], device=dev)
+    t[:512] = torch.rand(512, device=dev) + 0.5
+    for fn, pl, x, ref in (
+            (k56.matvec_cuda, k56.matvec_plain, v, t64 @ v.double()),
+            (k56.rmatvec_cuda, k56.rmatvec_plain, t,
+             t[:512].double() @ t64)):
+        keep = ref.shape[0]
+        e_k = (fn(fa, f_t, x, False, 4, True)[:keep].double()
+               - ref).abs() / ref.abs()
+        e_p = (pl(fa, f_t, x, False)[:keep].double() - ref).abs() / ref.abs()
+        e_s = (fn(fa, f_t, x, False)[:keep].double() - ref).abs() / ref.abs()
+        print(f"{fn.__name__} relative error vs f64 (max): plain "
+              f"{float(e_p.max()):.3e}, coordinate {float(e_k.max()):.3e}, "
+              f"split {float(e_s.max()):.3e}")
+        assert float(e_k.max()) <= 1.5 * float(e_p.max()) + 1e-7
+
+
+@pytest.mark.gpu
+def test_bilateral_slice_on_card_matches_cpu_plain(cuda_device, img_noisy):
+    img, noisy = img_noisy
+    for fused in (True, False):
+        cfg = _cfg(fused_finish=fused)
+        plan = gt.make_plan(noisy, cfg)
+        x0 = torch.randn(plan.p, cfg.num_eigvecs,
+                         generator=torch.Generator().manual_seed(0))
+        z_gpu, _ = _filter_channel(T(noisy).cuda(),
+                                   interop.idx_to_device(plan.idx_a, "cuda"),
+                                   cfg, x0=x0.cuda())
+        z_cpu, _ = _filter_channel(T(noisy), interop.idx_to_device(
+            plan.idx_a, "cpu"), cfg, x0=x0)
+        assert_bars(img, z_gpu.cpu().numpy(), z_cpu.numpy())

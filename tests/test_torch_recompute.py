@@ -550,12 +550,22 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
         with pytest.raises(RuntimeError, match="unavailable"):
             fn(*args)
     assert _counts() == before
-    # layouts the kernels do not take raise, never run plain
+    # f32 plain layouts go to the kernel library (here missing), never run
+    # plain
     f32 = [a.float() if isinstance(a, torch.Tensor) else a for a in x.k8]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    f32[0], f32[-1] = x.fa_pad.float(), False
+    with pytest.raises(RuntimeError, match="unavailable"):
         k79.ext2_matvec_cuda(*f32)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        k79.kb_strip_cuda(f32[0], f32[1], torch.ones(1024), False)
+    # layouts the kernels do not take raise, never run plain: the plain
+    # bf16 K7/K8 layout and an f32 aug one
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         k79.kb_strip_cuda(x.fa_pad, x.f_t, torch.ones(1024), False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k79.ext2_matvec_cuda(x.fa_pad, *x.k8[1:4], False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k79.ext2_matvec_cuda(x.fa_aug.float(), *f32[1:4], True)
     with pytest.raises(ValueError, match="multiple of 512"):
         k79.ext2_matvec_cuda(x.fa_aug[:100], x.f_t, torch.ones((2, 100)),
                              torch.ones(1024), True)

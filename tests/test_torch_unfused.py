@@ -462,8 +462,9 @@ def test_k10_cuda_branch_raises_instead_of_falling_back(monkeypatch):
     before = k79.colstats_v_cuda.launches
     with pytest.raises(RuntimeError, match="unavailable"):
         k79.colstats_v_cuda(*args)
+    # the f32 layout goes to its kernel in the library too, never runs plain
     f32 = [args[0].float(), args[1].float()] + args[2:]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+    with pytest.raises(RuntimeError, match="unavailable"):
         k79.colstats_v_cuda(*f32)
     with pytest.raises(ValueError, match="multiple of 16"):
         k79.colstats_v_cuda(*args[:2], args[2][:, :10], *args[3:])
