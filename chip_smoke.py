@@ -27,8 +27,34 @@ non-zero before the last line is printed):
             it — are required in (0.25, 0.75);
    e2e      filter_image: one warm-up and three timed runs with the launch
             counts set to 0 just before them, peak memory, PSNR in/out; the
-            same factor through the plain versions on the card; a 96x96
+            same factor through the plain versions on the card (image and
+            eigenvalues within 0.05 dB, 2e-2); a 96x96
             image on the card against the plain versions on the CPU.
+3b. config 2 f32 — the same recipe with its f32 strip kept (affinity_dtype
+              "float32": tuned_config(CONFIG2, 512*512, "fast",
+              keep={"affinity_dtype"})):
+   kernels  K1's f32 store and the f32 K2-K4 at the path's shapes on its
+            own features and strip (5248 x 262144, 5.5 GB), as config 2's:
+            against their plain versions, timed beside f32 cuBLAS
+            compositions, launched twice bit for bit, K2-K4's leans against
+            their sums in f64 required; K1's row is kept in the phase's
+            record (its kernels-line row is the dense phase's);
+   e2e      filter_image: K1 (f32 store), K2, K3, K4 once a call, gain
+            > 5 dB, kernel vs plain path on the image and the eigenvalues
+            (0.02 dB, 2e-3); staged on the same recipe held to filter_image
+            (0.02 dB, 2e-3); 96x96 card vs CPU plain (0.02 dB, 2e-3).
+3c. config 1 fast — tuned_config(CONFIG1, 512*512, "fast"): strip_cache on
+              gaussian + (row, col) / 8 features, bf16 store:
+   kernels  K1's coordinate cross and the bf16 K2-K4 at the path's shapes
+            (2688 x 262144) on its own features and strip, as config 2's
+            (against plain, timed beside their compositions, K2-K4 twice bit
+            for bit and their leans required); K2-K4's rows are kept in the
+            phase's record (their kernels-line rows are config 2's);
+   e2e      filter_image: K1 (coordinate cross), K2, K3, K4 once a call,
+            kernel vs plain path on the image and the eigenvalues (0.05 dB,
+            2e-2), PSNR printed (the recipe degenerates in the reference
+            too: no gain required); 96x96 card vs CPU plain (0.05 dB,
+            2e-2).
 4. config 4 — the recompute-streaming fused-finish path (benchmarks/run.py's
               cfg4_8mp_compliant_turbo_p1: 2048x4096 test image, sigma 0.1
               seed 1, p=4096, m=50, bf16 tiles, coarse Sinkhorn and gram
@@ -244,6 +270,18 @@ TOL = {
     "ext2_matvec_f32": 1e-2,
     "matvec_coord": 0.1,
     "rmatvec_coord": 0.1,
+    # K2-K4 on config 2's f32 strip (the "highest" class): the same f32
+    # operands, sums over P=5248 rows / N=262144 columns in another order,
+    # and no rounding point that could flip (ws stays f32)
+    "strip_ext2_f32": 1e-4,
+    "strip_sandwich_spost_f32": 1e-4,
+    "strip_sandwich_f32": 1e-4,
+    # K1's IEEE f32 cross on config 1's coordinate features, bf16 store:
+    # the kernel's FFMA chain and the plain f32 product round d2 apart by
+    # the cancellation error of |f|^2 up to ~1.6e4 at 512^2 (an f32 ulp
+    # there is 2e-3), which moves an entry by up to ~2^-8 of itself before
+    # the store rounds it: two bf16 ulps (2^-7) absolute
+    "affinity_strip_coord": 2.0 ** -7,
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
@@ -265,6 +303,10 @@ REPLACES = {
     "colstats_v_f32": "graphlap_tpu/ops/pallas_streaming.py:817",
     "matvec_coord": "graphlap_tpu/ops/pallas_streaming.py:397",
     "rmatvec_coord": "graphlap_tpu/ops/pallas_streaming.py:447",
+    "strip_ext2_f32": "graphlap_tpu/ops/pallas_streaming.py:940",
+    "strip_sandwich_spost_f32": "graphlap_tpu/ops/pallas_streaming.py:1045",
+    "strip_sandwich_f32": "graphlap_tpu/ops/pallas_streaming.py:1110",
+    "affinity_strip_coord": "graphlap_tpu/ops/pallas_affinity.py:76",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -286,6 +328,10 @@ SOURCE = {
     "colstats_v_f32": "graphlap_tpu_torch/csrc/colstats_v.cu",
     "matvec_coord": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_coord": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "strip_ext2_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
+    "strip_sandwich_spost_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
+    "strip_sandwich_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
+    "affinity_strip_coord": "graphlap_tpu_torch/csrc/affinity_strip.cu",
 }
 NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
@@ -295,7 +341,8 @@ BIT_REPEAT = ("affinity_strip_f32", "strip_ext2", "strip_sandwich_spost",
               "rmatvec", "matvec_f32", "rmatvec_f32", "finish_colstats",
               "colstats_v", "kb_strip_f32", "ext2_matvec_f32",
               "finish_colstats_f32", "colstats_v_f32", "matvec_coord",
-              "rmatvec_coord")
+              "rmatvec_coord", "strip_ext2_f32", "strip_sandwich_spost_f32",
+              "strip_sandwich_f32")
 # the f32 kernels on coordinate features, whose sums often tie their plain
 # version's bit for bit: their leans leave the ties out (signed_stats)
 UNTIED = ("ext2_matvec_f32", "finish_colstats_f32", "colstats_v_f32",
@@ -455,7 +502,7 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
         if name in ("affinity_strip", "affinity_strip_f32", "kb_strip",
-                    "kb_strip_f32"):
+                    "kb_strip_f32", "affinity_strip_coord"):
             rel = err                                 # absolute, see TOL
         if name in BIT_REPEAT:
             again = kern(*args)
@@ -521,6 +568,29 @@ def make_workload(gt):
                              sinkhorn_iters=6, solver="sketch",
                              sketch_oversample=206, sketch_power=0,
                              sinkhorn_coarse=16, sinkhorn_polish=1)
+    img, noisy = noisy_image(gt, H, W)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_f32(gt):
+    """Config 2 with its f32 strip kept: bench.make_workload's recipe with
+    affinity_dtype="float32", which is tuned_config(CONFIG2, 512*512,
+    "fast", keep={"affinity_dtype"}) (checked): (cfg, clean image, noisy
+    f32 image, plan)."""
+    cfg = make_workload(gt)[0].replace(affinity_dtype="float32")
+    require(cfg == gt.tuned_config(gt.CONFIG2, H * W, "fast",
+                                   keep={"affinity_dtype"}),
+            "the f32 recipe is not config 2's fast preset with its f32 kept")
+    img, noisy = noisy_image(gt, H, W)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_config1_fast(gt):
+    """Config 1's own fast preset at 512x512, tuned_config(CONFIG1, 512*512,
+    "fast"): strip_cache, bf16 store, gaussian + (row, col) / 8 features
+    (K1's coordinate cross), coarse Sinkhorn 1/16 + one polish, sketch:
+    (cfg, clean image, noisy f32 image, plan)."""
+    cfg = gt.tuned_config(gt.CONFIG1, H * W, "fast")
     img, noisy = noisy_image(gt, H, W)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
@@ -647,14 +717,23 @@ def colstats_v_cases(ctx, cfg, img_d, dev, rows):
     return cases, rows, {"colstats_v": (0, n, False, True)}
 
 
-def strip_library() -> dict:
-    """K1-K4's yardsticks: each kernel's function as a composition of
-    cuBLAS products with f32 output (torch.mm out_dtype, aten::mm.dtype) and
-    elementwise passes, timed beside the kernel; the port never calls
+def strip_library(dtype=torch.bfloat16) -> dict:
+    """K1-K4's yardsticks on a strip of ``dtype``: each kernel's function as
+    a composition of cuBLAS products with f32 output and elementwise
+    passes, timed beside the kernel; the port never calls them. On a bf16
+    strip the products take bf16 operands (torch.mm out_dtype,
+    aten::mm.dtype), so t2, t, ta, s and ws are rounded to bf16 first; on
+    an f32 strip they are f32 products at "highest" (the port pins TF32
+    off) with no rounding point, named ``*_f32`` as strip_cases names
     them."""
     bf, f32 = torch.bfloat16, torch.float32
+    sfx = "_f32" if dtype == f32 else ""
 
-    def affinity(a, b, dtype, store):
+    def r(x):
+        """An operand as the strip's type: bf16-rounded on a bf16 strip."""
+        return f"bf16({x})" if dtype == bf else x
+
+    def affinity(a, b, dtype, store, coords=False):
         # the f32 product at "highest" (the port pins TF32 off), then the
         # norms, the clamp, the exp and the store's cast
         a, b = a.to(dtype).to(f32), b.to(dtype).to(f32)
@@ -663,38 +742,42 @@ def strip_library() -> dict:
         return torch.exp(-d2.clamp_(min=0.0)).to(store or f32)
 
     def mm(a, b):
-        return torch.mm(a, b, out_dtype=f32)
+        return (torch.mm(a, b) if a.dtype == f32
+                else torch.mm(a, b, out_dtype=f32))
 
     def sandwich(strip, ta, s2):
-        w = mm(strip.T, ta.to(bf))
-        return mm(strip, (w * s2[:, None]).to(bf))
+        w = mm(strip.T, ta.to(strip.dtype))
+        return mm(strip, (w * s2[:, None]).to(strip.dtype))
 
     def spost(strip, ta, t, s_pre, bm):
-        ks = mm(t.to(bf)[None], strip)[0]
+        ks = mm(t.to(strip.dtype)[None], strip)[0]
         sp = torch.sqrt(s_pre / torch.clamp(ks, min=1e-30)) * bm
         return sandwich(strip, ta, sp * sp), sp
 
     def ext2(strip, t2, bm):
-        kbt = mm(t2.to(bf), strip)
+        kbt = mm(t2.to(strip.dtype), strip)
         s = bm / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
-        return mm(strip, s.to(bf)[:, None])[:, 0], s
+        return mm(strip, s.to(strip.dtype)[:, None])[:, 0], s
 
     what = "a cuBLAS composition, not one call: "
+    cross = what + "torch.mm(a, b^T) in f32 at \"highest\" (no TF32), the norms, "
+    sweeps = (what + ("the products on bf16 operands with f32 output: "
+                      if dtype == bf else "f32 products at \"highest\": "))
     return {
-        "affinity_strip": (affinity, what + "torch.mm(a, b^T) in f32 at "
-                           "\"highest\" (no TF32), the norms, the clamp, exp "
-                           "and the bf16 cast"),
-        "affinity_strip_f32": (affinity, what + "torch.mm(a, b^T) in f32 at "
-                               "\"highest\" (no TF32), the norms, the "
-                               "clamp and exp"),
-        "strip_ext2": (ext2, what + "mm(bf16(t2), K), the scale, then "
-                       "mm(K, bf16(s)) (s rounded to bf16: cuBLAS has no "
-                       "bf16 x f32 product)"),
-        "strip_sandwich_spost": (spost, what + "mm(bf16(t), K) for ks, "
-                                 "s_post, mm(K^T, bf16(ta)), the s2 scale "
-                                 "and bf16 round, mm(K, ws)"),
-        "strip_sandwich": (sandwich, what + "mm(K^T, bf16(ta)), the s2 "
-                           "scale and bf16 round, mm(K, ws)"),
+        "affinity_strip": (affinity, cross + "the clamp, exp and the bf16 "
+                           "cast"),
+        "affinity_strip_f32": (affinity, cross + "the clamp and exp"),
+        "affinity_strip_coord": (affinity, cross + "the clamp, exp and the "
+                                 "bf16 cast"),
+        "strip_ext2" + sfx: (ext2, sweeps + f"mm({r('t2')}, K), the scale, "
+                             f"then mm(K, {r('s')})" + (
+                                 " (cuBLAS has no bf16 x f32 product)"
+                                 if dtype == bf else "")),
+        "strip_sandwich_spost" + sfx: (spost, sweeps + f"mm({r('t')}, K) for "
+                                       f"ks, s_post, mm(K^T, {r('ta')}), the "
+                                       f"s2 scale, mm(K, {r('ws')})"),
+        "strip_sandwich" + sfx: (sandwich, sweeps + f"mm(K^T, {r('ta')}), the "
+                                 f"s2 scale, mm(K, {r('ws')})"),
     }
 
 
@@ -710,46 +793,64 @@ def kb_library(fa, f_t, cols, aug):
     return (kb * cols.to(bf).to(f32)[None, :]).to(bf)
 
 
+def _as_strip(x, strip):
+    """x in f64 with its plain version's rounding point: rounded to bf16
+    before the product on a bf16 strip, as given on an f32 one (the
+    "highest" class)."""
+    return (x.to(strip.dtype) if strip.dtype == torch.bfloat16 else x).double()
+
+
 def ext2_f64(strip, t2, bm):
-    """K2's function with its plain version's rounding points (bf16 t2) and
-    its sums in f64, kept in f64: the reference of K2's lean lines, (u, s).
-    K2's s is one f32 division of f32 sums, so it often equals the f64 s
-    rounded to f32; the tie would count as not below."""
+    """K2's function with its plain version's rounding points (bf16 t2 on a
+    bf16 strip) and its sums in f64, kept in f64: the reference of K2's lean
+    lines, (u, s). K2's s is one f32 division of f32 sums, so it often
+    equals the f64 s rounded to f32; the tie would count as not below."""
     kb = strip.double()
-    kbt = t2.to(torch.bfloat16).double() @ kb
+    kbt = _as_strip(t2, strip) @ kb
     s = bm.double() / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
     return kb @ s, s
 
 
 def sandwich_f64(strip, ta, s2):
-    """K4's function with its plain version's rounding points (bf16 ta, ws
-    rounded to bf16) and its sums in f64: the reference of K3/K4's lean
-    line. The f32 sums of the plain version lean low themselves on some
-    strips (0.92 of u below this reference on a random one)."""
+    """K4's function with its plain version's rounding points (on a bf16
+    strip: bf16 ta, ws rounded to bf16; on an f32 strip none) and its sums
+    in f64: the reference of K3/K4's lean line. The f32 sums of the plain
+    version lean low themselves on some strips (0.92 of u below this
+    reference on a random one). Rounded to f32 on a bf16 strip; kept in
+    f64 on an f32 one, whose kernel sums tie the f32 rounding of this
+    reference on many entries, and a tie counts as not below."""
     kb = strip.double()
-    w = kb.T @ ta.to(torch.bfloat16).double()
-    ws = (w * s2.double()[:, None]).to(torch.bfloat16).double()
-    return (kb @ ws).float()
+    ws = (kb.T @ _as_strip(ta, strip)) * s2.double()[:, None]
+    if strip.dtype == torch.bfloat16:
+        return (kb @ ws.to(torch.bfloat16).double()).float()
+    return kb @ ws
 
 
 def spost_f64(strip, ta, t, s_pre, bm):
     """K3's function as ``sandwich_f64``: (u, s_post)."""
-    ks = t.to(torch.bfloat16).double() @ strip.double()
+    ks = _as_strip(t, strip) @ strip.double()
     sp = torch.sqrt(s_pre.double() / torch.clamp(ks, min=1e-30)) * bm.double()
     return sandwich_f64(strip, ta, sp * sp), sp.float()
 
 
 def strip_cases(ctx, cfg, dev):
-    """K1-K4 at config 2's shapes on its strip context, operands from a
-    seeded generator: (cases, signed, library) for run_cases. K2's lean (u
-    on the sample rows, s on the columns) and K3/K4's (u = K ws on the
-    sample rows, both signs) are required, against ``ext2_f64``,
-    ``spost_f64`` / ``sandwich_f64``."""
+    """K1-K4 at a strip_cache path's shapes on its strip context, operands
+    from a seeded generator: (cases, signed, library) for run_cases. K1 in
+    the path's layout on its feature rows, the padding rows poisoned as
+    ``_strip_ctx`` poisons them: ``affinity_strip`` (the bf16 store),
+    ``affinity_strip_f32`` (the f32 store) or ``affinity_strip_coord`` (the
+    IEEE f32 cross on coordinate features, the bf16 store). K2's lean (u on
+    the sample rows, s on the columns) and K3/K4's (u = K ws on the sample
+    rows, both signs) are required, against ``ext2_f64``, ``spost_f64`` /
+    ``sandwich_f64``. On an f32 strip K2-K4 are named ``*_f32`` and their
+    sandwich products counted as f32 FFMA; each beside ``strip_library``'s
+    composition for the strip's dtype."""
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
     strip, p = ctx.strip_pad, ctx.p
     pp, n = strip.shape
+    f32 = strip.dtype == torch.float32
     d = ctx.feats_a.shape[1]
     k = min(cfg.num_eigvecs + cfg.sketch_oversample, p)
     kp = -(-k // 128) * 128
@@ -765,40 +866,54 @@ def strip_cases(ctx, cfg, dev):
     t1[:p] = 0.5 + rand(p)
     s_pre = (0.5 + rand(n)) * ctx.b_mask
     s2 = (0.5 + rand(n)) * ctx.b_mask
-    e, kp2 = pp * n, 256
+    e, kp2, item = pp * n, 256, strip.element_size()
     vec = 4 * n * 3 + 4 * pp * 3
-    cases = {
-        "affinity_strip": (k1.affinity_strip_cuda, k1.affinity_strip_plain,
-                           (feats_a, ctx.feats_pad, torch.float32,
-                            torch.bfloat16),
-                           # the cross at the reference's "highest"
-                           # precision counted as the f32 K5/K6 count the
-                           # same cross (matvec_cases): three fp16 tensor
-                           # passes over the 32 padded lanes, ~8 f32
-                           # operations and one exp an entry
-                           bound(2 * e + 4 * d * (pp + n), 3 * 2 * e * 32,
-                                 8 * e, e)),
-        "strip_ext2": (k24.strip_ext2_cuda, k24.strip_ext2_plain,
-                       (strip, t2, ctx.b_mask), bound(2 * e + vec, 0, 6 * e)),
-        "strip_sandwich_spost": (k24.strip_sandwich_spost_cuda,
-                                 k24.strip_sandwich_spost_plain,
-                                 (strip, ta, t1, s_pre, ctx.b_mask),
-                                 bound(2 * e + 4 * pp * kp2 * 2 + vec,
-                                       4 * e * kp2, 2 * e)),
-        "strip_sandwich": (k24.strip_sandwich_cuda, k24.strip_sandwich_plain,
-                           (strip, ta, s2),
-                           bound(2 * e + 4 * pp * kp2 * 2 + vec, 4 * e * kp2)),
-    }
-    signed = {"strip_ext2": [(0, p, False, True, ext2_f64),
-                             (1, n, True, True, ext2_f64)],
-              "strip_sandwich_spost": (0, p, False, True, spost_f64),
-              "strip_sandwich": (0, p, False, True, sandwich_f64)}
-    return cases, signed, strip_library()
+    sfx = "_f32" if f32 else ""
+
+    def products(beside=0.0):
+        """The sandwich's two (P x N) x (N x kp) products: bf16 on the
+        tensor cores, or f32 FFMA; ``beside``: f32 work next to them."""
+        return (dict(f32_flops=4 * e * kp2 + beside) if f32 else
+                dict(bf16_flops=4 * e * kp2, f32_flops=beside))
+
+    # K1's bound: the store's bytes and the features read once; the
+    # operations: one exp an entry and the cross, at the reference's
+    # "highest" precision as three fp16 tensor passes over the 32 padded
+    # lanes and ~8 f32 operations an entry (as the f32 K5/K6 count it,
+    # matvec_cases), or on coordinate features the IEEE f32 FFMA chain over
+    # the live lanes
+    k1_bytes = item * e + 4 * d * (pp + n)
+    k1_name = ("affinity_strip_coord" if ctx.coords else
+               "affinity_strip_f32" if f32 else "affinity_strip")
+    k1_bound = (bound(k1_bytes, 0, 2 * ctx.live * e, e) if ctx.coords else
+                bound(k1_bytes, 3 * 2 * e * 32, 8 * e, e))
+    cases = {k1_name: (k1.affinity_strip_cuda, k1.affinity_strip_plain,
+                       (feats_a, ctx.feats_pad, ctx.dtype,
+                        None if f32 else torch.bfloat16, ctx.coords),
+                       k1_bound)}
+    cases.update({
+        "strip_ext2" + sfx: (k24.strip_ext2_cuda, k24.strip_ext2_plain,
+                             (strip, t2, ctx.b_mask),
+                             bound(item * e + vec, 0, 6 * e)),
+        "strip_sandwich_spost" + sfx: (k24.strip_sandwich_spost_cuda,
+                                       k24.strip_sandwich_spost_plain,
+                                       (strip, ta, t1, s_pre, ctx.b_mask),
+                                       bound(item * e + 4 * pp * kp2 * 2
+                                             + vec, **products(2 * e))),
+        "strip_sandwich" + sfx: (k24.strip_sandwich_cuda,
+                                 k24.strip_sandwich_plain, (strip, ta, s2),
+                                 bound(item * e + 4 * pp * kp2 * 2 + vec,
+                                       **products())),
+    })
+    signed = {"strip_ext2" + sfx: [(0, p, False, True, ext2_f64),
+                                   (1, n, True, True, ext2_f64)],
+              "strip_sandwich_spost" + sfx: (0, p, False, True, spost_f64),
+              "strip_sandwich" + sfx: (0, p, False, True, sandwich_f64)}
+    return cases, signed, strip_library(strip.dtype)
 
 
 def config2(gt, dev, rows, launches, info):
     from graphlap_tpu_torch.models import streaming as ms
-    from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
@@ -814,31 +929,25 @@ def config2(gt, dev, rows, launches, info):
     del ctx, cases
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
     counters = {"affinity_strip": k1.affinity_strip_cuda,
                 "strip_ext2": k24.strip_ext2_cuda,
                 "strip_sandwich_spost": k24.strip_sandwich_spost_cuda,
                 "strip_sandwich": k24.strip_sandwich_cuda}
-    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
-                                     "config-2")
-    launches.update(counts)
-    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
-    phase("e2e", f"walls {[round(w, 6) for w in walls]} s (min "
-          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
-          f"{psnr_in:.3f} -> {psnr_out:.3f} dB; launches over {RUNS} calls "
-          f"{counts}", t0)
-    require(res.image.shape == (H, W) and np.isfinite(res.image).all(),
-            "output is not a finite (H, W) image")
-    require(psnr_out > psnr_in + 5.0, "denoise gain under 5 dB")
+    _, rec = strip_path(gt, "config 2", cfg, img, noisy, plan, dev, counters,
+                        (0.05, 2e-2))
+    require(rec["psnr_out"] > rec["psnr_in"] + 5.0, "denoise gain under 5 dB")
+    launches.update({k: round(c * RUNS)
+                     for k, c in rec["launches_per_call"].items()})
+    rec.update(small_strip(gt, cfg, dev, (0.05, 2e-2), "config 2"))
+    info["config2"] = rec
 
-    t0 = time.perf_counter()
-    z_plain, _ = _filter_channel(img_d, idx_d, cfg, plain=True)
-    z_plain = z_plain.cpu().numpy()
-    d_db = abs(psnr_out - gt.psnr(img, z_plain))
-    d_max = float(np.abs(res.image - z_plain).max())
-    phase("e2e", f"kernel vs plain path on the card: {d_db:.5f} dB, max "
-          f"|diff| {d_max:.3e} (bar 0.05 dB, 2e-2)", t0)
-    require(d_db <= 0.05 and d_max <= 2e-2, "kernel path != plain path")
+
+def small_strip(gt, cfg, dev, bars, tag):
+    """The strip_cache recipe at 96x96 (block_cols and the coarse factor
+    cut to fit): the card's kernels against the plain versions on the CPU,
+    the same sketch matrix, within ``bars`` (dB, max |diff|)."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
 
     t0 = time.perf_counter()
     small = cfg.replace(block_cols=96 * 96, sinkhorn_coarse=4)
@@ -855,15 +964,162 @@ def config2(gt, dev, rows, launches, info):
     z_cpu, z_gpu = z_cpu.numpy(), z_gpu.cpu().numpy()
     s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
     s_max = float(np.abs(z_cpu - z_gpu).max())
-    phase("small", f"96x96 card kernels vs CPU plain: {s_db:.5f} dB, max "
-          f"|diff| {s_max:.3e}; PSNR {gt.psnr(im_s, nz_s):.3f} -> "
-          f"{gt.psnr(im_s, z_gpu):.3f} dB", t0)
-    require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
-            "96x96 card run != CPU plain run")
-    info["config2"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
-                           psnr_out=psnr_out, plain_path_db=d_db,
-                           plain_path_max=d_max, small_db=s_db,
-                           small_max=s_max)
+    phase("small", f"{tag} at 96x96: card kernels vs CPU plain: {s_db:.5f} "
+          f"dB, max |diff| {s_max:.3e} (bar {bars[0]} dB, {bars[1]:.0e}); "
+          f"PSNR {gt.psnr(im_s, nz_s):.3f} -> {gt.psnr(im_s, z_gpu):.3f} dB",
+          t0)
+    require(np.isfinite(z_gpu).all() and s_db <= bars[0]
+            and s_max <= bars[1], f"{tag}: 96x96 card run != CPU plain run")
+    return dict(small_db=s_db, small_max=s_max)
+
+
+def strip_path(gt, tag, cfg, img, noisy, plan, dev, counters, bars):
+    """A strip_cache recipe at full size: ``drive`` with each kernel of
+    ``counters`` launched once a call, and the kernel path against the plain
+    path on the card within ``bars``. Returns (result, the phase's
+    record)."""
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+
+    t0 = time.perf_counter()
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters, tag)
+    per_call = {k: c / RUNS for k, c in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e", f"{tag}: walls {[round(w, 6) for w in walls]} s (min "
+          f"{min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
+          f"{psnr_out - psnr_in:.3f}); launches per call {per_call}", t0)
+    require(res.image.shape == noisy.shape and np.isfinite(res.image).all(),
+            f"{tag}: output is not a finite image of the input shape")
+    require(all(c == 1 for c in per_call.values()),
+            f"{tag}: not one launch a call of each of {list(counters)}")
+    t0 = time.perf_counter()
+    z_plain, vals_plain = _filter_channel(
+        torch.as_tensor(noisy, device=dev),
+        torch.as_tensor(plan.idx_a.astype(np.int64), device=dev), cfg,
+        plain=True)
+    z_plain, vals_plain = z_plain.cpu().numpy(), vals_plain.cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    # the filter's eigenvalues too: they hold the two paths together where
+    # the image is clipped flat (a recipe whose output degenerates)
+    require(res.eigvals.shape == vals_plain.shape
+            and np.isfinite(res.eigvals).all(), f"{tag}: eigenvalues")
+    d_eig = float(np.abs(res.eigvals - vals_plain).max())
+    phase("e2e", f"{tag}: kernel vs plain path on the card: {d_db:.5f} dB, "
+          f"max |diff| {d_max:.3e}, eigenvalues max |diff| {d_eig:.3e} (bar "
+          f"{bars[0]} dB, {bars[1]:.0e}); top eigenvalues "
+          f"{np.sort(res.eigvals)[::-1][:3].tolist()}", t0)
+    require(d_db <= bars[0] and d_max <= bars[1] and d_eig <= bars[1],
+            f"{tag}: kernel path != plain path")
+    return res, dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                     psnr_out=psnr_out, launches_per_call=per_call,
+                     plain_path_db=d_db, plain_path_max=d_max,
+                     plain_path_eig_max=d_eig)
+
+
+def config2_f32(gt, dev, rows, launches, info):
+    """Config 2 with its f32 strip (make_workload_f32): K1's f32 store, the
+    f32 K2-K4."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_strip as k24
+
+    f32_bars = (0.02, 2e-3)
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_f32(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    require(ctx.strip_pad.dtype == torch.float32,
+            "config 2 f32 did not keep an f32 strip")
+    cases, signed, library = strip_cases(ctx, cfg, dev)
+    phase("config2-f32", f"workload and f32 strip at {H}x{W} (p={ctx.p}, "
+          f"p_pad={ctx.strip_pad.shape[0]}, N={ctx.strip_pad.shape[1]}, "
+          f"{ctx.strip_pad.numel() * 4 / 1e9:.3f} GB)", t0)
+    # K1's f32 store at this strip's shape, with its poisoned rows: its
+    # kernels-line row is the dense phase's (K_AB), so this one is kept in
+    # the phase's record
+    k1_case = {"affinity_strip_f32": cases.pop("affinity_strip_f32")}
+    run_cases(cases, rows, signed, library)
+    at_path = {}
+    run_cases(k1_case, at_path, library=library)
+    del ctx, cases, k1_case
+    torch.cuda.empty_cache()
+
+    counters = {"affinity_strip_f32": k1.affinity_strip_cuda,
+                "strip_ext2_f32": k24.strip_ext2_cuda,
+                "strip_sandwich_spost_f32": k24.strip_sandwich_spost_cuda,
+                "strip_sandwich_f32": k24.strip_sandwich_cuda}
+    res, rec = strip_path(gt, "config 2 f32", cfg, img, noisy, plan, dev,
+                          counters, f32_bars)
+    require(rec["psnr_out"] > rec["psnr_in"] + 5.0,
+            "config 2 f32: denoise gain under 5 dB")
+    for name in ("strip_ext2_f32", "strip_sandwich_spost_f32",
+                 "strip_sandwich_f32"):
+        launches[name] = round(rec["launches_per_call"][name] * RUNS)
+    del res
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["staged"] = staged_one(
+        gt, "config 2 f32", cfg, img, noisy, plan, dev,
+        {"affinity_strip_f32": k1.affinity_strip_cuda}, bars=f32_bars)
+    phase("staged", "config 2 f32 done", t0)
+    torch.cuda.empty_cache()
+    rec.update(small_strip(gt, cfg, dev, f32_bars, "config 2 f32"))
+    rec["k1_at_path"] = at_path["affinity_strip_f32"]
+    info["config2_f32"] = rec
+
+
+def config1_fast(gt, dev, rows, launches, info):
+    """Config 1's fast preset (make_workload_config1_fast): K1's coordinate
+    cross with the bf16 store on the strip_cache strip, then the bf16
+    K2-K4. The recipe does not denoise, in the reference either (ROADMAP
+    Queue 3, known defects): the PSNR is printed, no gain required; the
+    kernel path is held to the plain path on the image and the filter's
+    eigenvalues, and at 96x96 to the CPU."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_strip as k24
+
+    bf16_bars = (0.05, 2e-2)
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_config1_fast(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    require(ctx.coords and ctx.strip_pad.dtype == torch.bfloat16,
+            "config 1 fast did not reach the coordinate cross, bf16 store")
+    pp, n = ctx.strip_pad.shape
+    phase("config1-fast", f"workload and strip at {H}x{W} (p={ctx.p}, "
+          f"p_pad={pp}, N={n}, {ctx.feats_a.shape[1]} feature lanes, "
+          f"{ctx.live} live)", t0)
+    cases, signed, library = strip_cases(ctx, cfg, dev)
+    # K1's coordinate cross has its kernels-line row here; the bf16 K2-K4
+    # at this strip's shape (another ext2 plan: 336 rows a block) are held
+    # to the same checks as config 2's, their rows kept in the phase's
+    # record
+    k1_case = {"affinity_strip_coord": cases.pop("affinity_strip_coord")}
+    run_cases(k1_case, rows, library=library)
+    at_path = {}
+    run_cases(cases, at_path, signed, library)
+    del ctx, cases, k1_case
+    torch.cuda.empty_cache()
+
+    counters = {"affinity_strip_coord": k1.affinity_strip_cuda,
+                "strip_ext2": k24.strip_ext2_cuda,
+                "strip_sandwich_spost": k24.strip_sandwich_spost_cuda,
+                "strip_sandwich": k24.strip_sandwich_cuda}
+    _, rec = strip_path(gt, "config 1 fast", cfg, img, noisy, plan, dev,
+                        counters, bf16_bars)
+    gain = rec["psnr_out"] - rec["psnr_in"]
+    phase("e2e", f"config 1 fast: denoise gain {gain:.3f} dB (not required: "
+          f"the recipe degenerates in the reference too)")
+    launches["affinity_strip_coord"] = round(
+        rec["launches_per_call"]["affinity_strip_coord"] * RUNS)
+    torch.cuda.empty_cache()
+    rec.update(small_strip(gt, cfg, dev, bf16_bars, "config 1 fast"))
+    rec["k2_k4_at_path"] = at_path
+    info["config1_fast"] = rec
 
 
 def config4(gt, dev, rows, launches, info):
@@ -2005,6 +2261,10 @@ def main() -> None:
 
     rows, launches, info = {}, {}, {}
     config2(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config2_f32(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config1_fast(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     config4(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
-// K2-K4 — the fused strip sweeps of the strip_cache factor, on a bf16
-// (P, N) strip whose padding rows and columns are exactly zero.
+// K2-K4 — the fused strip sweeps of the strip_cache factor, on a bf16 or
+// an f32 (P, N) strip whose padding rows and columns are exactly zero.
 //
 // Replaces graphlap_tpu/ops/pallas_streaming.py
 //   K2  strip_ext2_pallas            (_strip_ext2_kernel)
@@ -10,8 +10,10 @@
 //         u   += K_j bf16((K_j^T ta) * s_post_j^2)
 //   K4  strip_sandwich_pallas        (_strip_sandwich_kernel)
 //         u   += K_j bf16((K_j^T ta) * s2_j)
-// with the Pallas rounding points: t2, t and ta arrive as bf16, the
-// products accumulate in f32, ws rounds to bf16 before the second product.
+// with the Pallas rounding points (_strip_prec): on a bf16 strip t2, t and
+// ta arrive as bf16, the products accumulate in f32, ws rounds to bf16
+// before the second product; on an f32 strip ("highest") every operand and
+// ws stay f32 and every product is IEEE f32 (no TF32).
 //
 // What bounds them on an H100: the strip is 2.75 GB at the main-path shape
 // (P 5248, N 262144), 0.82 ms a read at 3.35 TB/s. K2 does 3 flops a
@@ -79,6 +81,31 @@
 //     in a reduction pass) — no float atomics, so a run is bit-for-bit
 //     repeatable.
 //
+// On an f32 strip (5.50 GB at config 2's shapes, 1.64 ms a read):
+//   * K2 is the same kernel (ext2_kernel<float>): 32 f32 columns fill the
+//     128-byte swizzled slab row that 64 bf16 fill, so the plans, the TMA
+//     boxes and the exchange carry over (two 84 KB slabs in flight at P
+//     5248). A strip read is twice the slabs, so each row's u sums spans of
+//     X2_USPAN_F32 slabs from zero before its running sum: a running f32
+//     sum of positive terms drops the tails of those far below it and
+//     leans low. 2.21 ms at config 2's shapes (bound 1.64) on an H100 80GB
+//     HBM3 (700 W), 0.95 ms for the bf16 strip from the same template.
+//   * K3/K4 are bound by operations: 4 P N kp = 1.41e12 f32 flop a launch,
+//     21.0 ms at the 67 TFLOP/s FFMA peak against 3.3 ms for the two strip
+//     reads. No TF32 ("highest"), and no split tensor-core product: the
+//     mma's truncating accumulation leaned a split-tf32 V (K9/K10 f32). So
+//     sandwich_f32_kernel is an FFMA tile, two launches as the bf16 pair:
+//     a 256-thread block owns 128 x 128 outputs (8 x 8 a thread), 16-deep
+//     stages arrive by cp.async (zeros past N) in two buffers, two blocks
+//     an SM. Phase 1 reads the strip as stored (K^T is m-major: two 16-byte
+//     A loads a depth), phase 2 k-major rows (8-byte loads of two depths);
+//     K3's ks sums beside phase 1 on the same staged tile. Every output sums
+//     spans of 256 depths from zero, each added to its running sum in
+//     shared memory with one f32 add, so no chain is longer than 256 terms
+//     (phase 2 runs ~16384 deep a slice). 35.8 / 35.3 ms (phase 1 ~16.5,
+//     phase 2 ~19.0) at config 2's shapes on the same card, against 29.5 /
+//     27.7 ms for cuBLAS's f32 products of the same function.
+//
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() after its launches (or the
 // first error).
@@ -97,39 +124,56 @@ namespace {
 
 constexpr int X2_THREADS = 512;
 constexpr int X2_WARPS = X2_THREADS / 32;
-constexpr int X2_W = 64;                  // columns a slab: one 128-byte row segment
-constexpr int X2_RSTEP = X2_THREADS / 8;  // rows a pass: 8 lanes a row, 16 B (8 columns) each
+constexpr int X2_ROW = 128;               // bytes of a slab row: one 128-byte swizzle row
+constexpr int X2_RSTEP = X2_THREADS / 8;  // rows a pass: 8 lanes a row, 16 B each
 constexpr int X2_MAXR = 16;               // rows a thread: a block holds at most 1024 rows
 constexpr int X2_SMEM_CAP = 232448;       // a block's shared memory on an H100
+constexpr int X2_USPAN_F32 = 16;          // f32 strip: slabs a span of u's sum
 
-// shared bytes of a block of a `cl`-block cluster with `rows` rows and
-// `stages` slabs in flight: 1024 B of alignment slack, the slabs, tr and tc
-// of its rows, the warps' kbt partials, the block's partial, the partials
-// received from the cluster (two slabs), s, a barrier a stage and two for
-// the received partials
-size_t x2_smem(int rows, int stages, int cl) {
-  return 1024 + (size_t)stages * rows * 128 +
-         sizeof(float) * (2 * (size_t)rows + X2_WARPS * 2 * X2_W + 2 * X2_W +
-                          2 * (size_t)cl * 2 * X2_W + X2_W) +
+// columns a slab: 64 bf16 or 32 f32
+template <typename T>
+__host__ __device__ constexpr int x2_w() {
+  return X2_ROW / (int)sizeof(T);
+}
+
+// shared bytes of a block of a `cl`-block cluster with `rows` rows,
+// `stages` slabs of `w` columns in flight: 1024 B of alignment slack, the
+// slabs, tr and tc of its rows, the warps' kbt partials, the block's
+// partial, the partials received from the cluster (two slabs), s, a barrier
+// a stage and two for the received partials
+size_t x2_smem(int rows, int stages, int cl, int w) {
+  return 1024 + (size_t)stages * rows * X2_ROW +
+         sizeof(float) * (2 * (size_t)rows + X2_WARPS * 2 * w + 2 * w + 2 * (size_t)cl * 2 * w + w) +
          8 * ((size_t)stages + 2);
 }
 
+template <typename T>
 struct X2Args {
-  const bf16* t2;   // (2, P) bf16(t_r), bf16(t_c)
+  const T* t2;      // (2, P) t_r, t_c in the strip's type (bf16-rounded or f32)
   const float* bm;  // (N)
   float* s_out;     // (N)
   float* u_part;    // (clusters, P)
   int P, N, rows, stages;
 };
 
-// the 8 bf16 of a 16-byte chunk as f32
-__device__ __forceinline__ void unpack8(const uint4 v, float x[8]) {
+__device__ __forceinline__ float f32_of(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float f32_of(float x) { return x; }
+
+// the elements of a 16-byte chunk of the strip as f32: 8 bf16 or 4 f32
+__device__ __forceinline__ void unpack_chunk(const uint4 v, float (&x)[8]) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     x[2 * q] = __uint_as_float(w[q] << 16);
     x[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
   }
+}
+
+__device__ __forceinline__ void unpack_chunk(const uint4 v, float (&x)[4]) {
+  x[0] = __uint_as_float(v.x);
+  x[1] = __uint_as_float(v.y);
+  x[2] = __uint_as_float(v.z);
+  x[3] = __uint_as_float(v.w);
 }
 
 // slab q of cluster cid of ncl: the clusters walk the slabs in turn, so at
@@ -179,43 +223,49 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
       : "memory");
 }
 
-// A cluster of C blocks walks 64-column slabs (cluster c: slabs c, c +
-// clusters, ...); block `rank` owns the strip rows [rank R, rank R + R). Its
-// slab rows arrive by one TMA box (128-byte swizzle: the 16-byte chunk ch
-// of row r lies at ch ^ (r & 7)) into a ring of `stages` slabs. Thread
-// (warp, lane) reads chunk lane & 7 of rows warp * 4 + lane / 8 + 64 i, in
-// both sweeps. Sweep 1 sums kbt of the chunk's 8 columns over those rows;
-// the partials meet in a fixed tree (the 4 row lanes of a warp, the warps in
-// order), and each block pushes its partial into every block of the cluster
-// (st.async, completing on the receiver's barrier), where the C partials
-// are added in rank order: every block forms the same s, and no cluster
-// barrier is waited on. Sweep 2 adds each row's 8-column part of K s, from
-// zero a slab, to the row's running u in a register; the 8 chunk lanes meet
-// at the end.
+// A cluster of C blocks walks slabs of W columns, 128 bytes a row (W = 64
+// on a bf16 strip, 32 on an f32 one; cluster c: slabs c, c + clusters,
+// ...); block `rank` owns the strip rows [rank R, rank R + R). Its slab rows
+// arrive by one TMA box (128-byte swizzle: the 16-byte chunk ch of row r
+// lies at ch ^ (r & 7)) into a ring of `stages` slabs. Thread (warp, lane)
+// reads chunk lane & 7 (E = 16 / sizeof(T) columns) of rows warp * 4 +
+// lane / 8 + 64 i, in both sweeps. Sweep 1 sums kbt of the chunk's E
+// columns over those rows; the partials meet in a fixed tree (the 4 row
+// lanes of a warp, the warps in order), and each block pushes its partial
+// into every block of the cluster (st.async, completing on the receiver's
+// barrier), where the C partials are added in rank order: every block forms
+// the same s, and no cluster barrier is waited on. Sweep 2 adds each row's
+// E-column part of K s, from zero a slab, to the row's running u in a
+// register (on an f32 strip, whose read is twice the slabs, through a span
+// of X2_USPAN_F32 slabs summed from zero first); the 8 chunk lanes meet at
+// the end.
+template <typename T>
 __global__ __launch_bounds__(X2_THREADS, 1) void ext2_kernel(
-    const __grid_constant__ CUtensorMap map, const X2Args a) {
+    const __grid_constant__ CUtensorMap map, const X2Args<T> a) {
+  constexpr int W = x2_w<T>(), E = 16 / (int)sizeof(T);
+  constexpr int USPAN = sizeof(T) == 4 ? X2_USPAN_F32 : 1;
   extern __shared__ unsigned char x2_raw[];
   unsigned char* smem = x2_raw + ((1024 - (smem_u32(x2_raw) & 1023)) & 1023);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int cid = blockIdx.x / C, ncl = gridDim.x / C;
   const int R = a.rows, S = a.stages, row0 = rank * R;
-  const uint32_t slab_bytes = (uint32_t)R * 128;
+  const uint32_t slab_bytes = (uint32_t)R * X2_ROW;
   float* tr_s = reinterpret_cast<float*>(smem + (size_t)S * slab_bytes);
   float* tc_s = tr_s + R;
-  float* red = tc_s + R;                        // [warp][r | c][64]
-  float* part = red + X2_WARPS * 2 * X2_W;      // [r | c][64]: this block's kbt partial
-  float* recv = part + 2 * X2_W;                // [slab & 1][rank][r | c][64]
-  float* s_s = recv + 2 * C * 2 * X2_W;         // [64]
-  const uint32_t ring = smem_u32(smem), bar0 = smem_u32(s_s + X2_W);
+  float* red = tc_s + R;                        // [warp][r | c][W]
+  float* part = red + X2_WARPS * 2 * W;         // [r | c][W]: this block's kbt partial
+  float* recv = part + 2 * W;                   // [slab & 1][rank][r | c][W]
+  float* s_s = recv + 2 * C * 2 * W;            // [W]
+  const uint32_t ring = smem_u32(smem), bar0 = smem_u32(s_s + W);
   const uint32_t rbar0 = bar0 + 8 * S;          // the received partials' barriers
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ch = lane & 7;                      // this thread's chunk of a row
   const int rfirst = warp * 4 + lane / 8;       // its rows: rfirst + X2_RSTEP i
   for (int i = tid; i < R; i += X2_THREADS) {
-    tr_s[i] = __bfloat162float(a.t2[row0 + i]);
-    tc_s[i] = __bfloat162float(a.t2[a.P + row0 + i]);
+    tr_s[i] = f32_of(a.t2[row0 + i]);
+    tc_s[i] = f32_of(a.t2[a.P + row0 + i]);
   }
   if (tid == 0) {
     for (int st = 0; st < S + 2; ++st) mbar_init(bar0 + 8 * st, 1);
@@ -223,46 +273,46 @@ __global__ __launch_bounds__(X2_THREADS, 1) void ext2_kernel(
   }
   cluster.sync();   // every block's barriers are set before any partial is pushed
 
-  const int nslabs = (a.N + X2_W - 1) / X2_W;
+  const int nslabs = (a.N + W - 1) / W;
   const int mine = (nslabs - cid + ncl - 1) / ncl;   // the same in every rank
   if (tid == 0)
     for (int q = 0; q < min(S, mine); ++q)
-      x2_load(&map, ring + q * slab_bytes, bar0 + 8 * q, slab_bytes, x2_slab(cid, ncl, q) * X2_W,
+      x2_load(&map, ring + q * slab_bytes, bar0 + 8 * q, slab_bytes, x2_slab(cid, ncl, q) * W,
               row0);
 
-  float u[X2_MAXR];
+  float u[X2_MAXR], us[X2_MAXR];
 #pragma unroll
-  for (int i = 0; i < X2_MAXR; ++i) u[i] = 0.f;
+  for (int i = 0; i < X2_MAXR; ++i) u[i] = us[i] = 0.f;
 
   for (int q = 0; q < mine; ++q) {
-    const int st = q % S, j0 = x2_slab(cid, ncl, q) * X2_W;
+    const int st = q % S, j0 = x2_slab(cid, ncl, q) * W;
     const uint32_t rbar = rbar0 + 8 * (q & 1);
-    float* rq = recv + (q & 1) * C * 2 * X2_W;
+    float* rq = recv + (q & 1) * C * 2 * W;
     // arm this slab's receive barrier (its previous phase, slab q - 2, is
     // done); partials that land first take the count below zero meanwhile
-    if (tid == 0) mbar_expect_tx(rbar, (uint32_t)(C * 2 * X2_W * 4));
+    if (tid == 0) mbar_expect_tx(rbar, (uint32_t)(C * 2 * W * 4));
     // the slab's b_mask, loaded now so its latency is not on the path to s
-    const float bmv = (tid < X2_W && j0 + tid < a.N) ? a.bm[j0 + tid] : 0.f;
+    const float bmv = (tid < W && j0 + tid < a.N) ? a.bm[j0 + tid] : 0.f;
     mbar_wait(bar0 + 8 * st, (q / S) & 1);
     const unsigned char* slab = smem + (size_t)st * slab_bytes;
     // sweep 1: kbt of the chunk's columns over this thread's rows (a row
     // group of a warp is all in or all out of range: R % 8 == 0)
-    float kr[8], kc[8];
+    float kr[E], kc[E];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) kr[e] = kc[e] = 0.f;
+    for (int e = 0; e < E; ++e) kr[e] = kc[e] = 0.f;
 #pragma unroll 4
     for (int r = rfirst; r < R; r += X2_RSTEP) {
-      float x[8];
-      unpack8(*reinterpret_cast<const uint4*>(slab + r * 128 + ((ch ^ (r & 7)) << 4)), x);
+      float x[E];
+      unpack_chunk(*reinterpret_cast<const uint4*>(slab + r * X2_ROW + ((ch ^ (r & 7)) << 4)), x);
       const float tr = tr_s[r], tc = tc_s[r];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < E; ++e) {
         kr[e] = fmaf(x[e], tr, kr[e]);
         kc[e] = fmaf(x[e], tc, kc[e]);
       }
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < E; ++e) {
 #pragma unroll
       for (int off = 8; off < 32; off <<= 1) {
         kr[e] += __shfl_xor_sync(0xffffffffu, kr[e], off);
@@ -271,32 +321,33 @@ __global__ __launch_bounds__(X2_THREADS, 1) void ext2_kernel(
     }
     if (lane < 8) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        red[(warp * 2 + 0) * X2_W + ch * 8 + e] = kr[e];
-        red[(warp * 2 + 1) * X2_W + ch * 8 + e] = kc[e];
+      for (int e = 0; e < E; ++e) {
+        red[(warp * 2 + 0) * W + ch * E + e] = kr[e];
+        red[(warp * 2 + 1) * W + ch * E + e] = kc[e];
       }
     }
     __syncthreads();
-    if (tid < 2 * X2_W) {
+    if (tid < 2 * W) {
       float acc = 0.f;
-      for (int w = 0; w < X2_WARPS; ++w) acc += red[w * 2 * X2_W + tid];   // warp order
+      for (int w = 0; w < X2_WARPS; ++w) acc += red[w * 2 * W + tid];   // warp order
       part[tid] = acc;
     }
     __syncthreads();
-    // push the partial into slot `rank` of every block's receive buffer. A
-    // block writes slab q + 2's slot after it has every partial of slab
-    // q + 1, which the receiver sent after it read slab q's slot
-    if (tid < C * 32) {
-      const int dst = tid / 32, f4 = tid % 32;
-      x2_send(x2_mapa(smem_u32(rq + rank * 2 * X2_W + 4 * f4), dst),
+    // push the partial (W / 2 float4) into slot `rank` of every block's
+    // receive buffer. A block writes slab q + 2's slot after it has every
+    // partial of slab q + 1, which the receiver sent after it read slab q's
+    // slot
+    if (tid < C * (W / 2)) {
+      const int dst = tid / (W / 2), f4 = tid % (W / 2);
+      x2_send(x2_mapa(smem_u32(rq + rank * 2 * W + 4 * f4), dst),
               reinterpret_cast<const float4*>(part)[f4], x2_mapa(rbar, dst));
     }
-    if (tid < X2_W) {
+    if (tid < W) {
       mbar_wait_cluster(rbar, (q >> 1) & 1);
       float kbr = 0.f, kbc = 0.f;
       for (int rk = 0; rk < C; ++rk) {   // rank order: every block forms the same s
-        kbr += rq[rk * 2 * X2_W + tid];
-        kbc += rq[rk * 2 * X2_W + X2_W + tid];
+        kbr += rq[rk * 2 * W + tid];
+        kbc += rq[rk * 2 * W + W + tid];
       }
       const int col = j0 + tid;
       float s = 0.f;
@@ -307,25 +358,35 @@ __global__ __launch_bounds__(X2_THREADS, 1) void ext2_kernel(
       s_s[tid] = s;
     }
     __syncthreads();
-    // sweep 2: each row's 8-column part of K s, from zero, into its u
-    float sv[8];
+    // sweep 2: each row's E-column part of K s, from zero, into its u
+    float sv[E];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) sv[e] = s_s[ch * 8 + e];
+    for (int e = 0; e < E; ++e) sv[e] = s_s[ch * E + e];
 #pragma unroll
     for (int i = 0; i < X2_MAXR; ++i) {
       const int r = rfirst + X2_RSTEP * i;
       if (r >= R) break;
-      float x[8];
-      unpack8(*reinterpret_cast<const uint4*>(slab + r * 128 + ((ch ^ (r & 7)) << 4)), x);
+      float x[E];
+      unpack_chunk(*reinterpret_cast<const uint4*>(slab + r * X2_ROW + ((ch ^ (r & 7)) << 4)), x);
       float t = x[0] * sv[0];
 #pragma unroll
-      for (int e = 1; e < 8; ++e) t = fmaf(x[e], sv[e], t);
-      u[i] += t;
+      for (int e = 1; e < E; ++e) t = fmaf(x[e], sv[e], t);
+      if (USPAN == 1)
+        u[i] += t;
+      else
+        us[i] += t;
+    }
+    if (USPAN > 1 && ((q + 1) % USPAN == 0 || q + 1 == mine)) {
+#pragma unroll
+      for (int i = 0; i < X2_MAXR; ++i) {
+        u[i] += us[i];
+        us[i] = 0.f;
+      }
     }
     __syncthreads();   // stage st, part and s_s are free
     if (tid == 0 && q + S < mine)
       x2_load(&map, ring + st * slab_bytes, bar0 + 8 * st, slab_bytes,
-              x2_slab(cid, ncl, q + S) * X2_W, row0);
+              x2_slab(cid, ncl, q + S) * W, row0);
   }
   // each row's 8 chunk lanes in a fixed tree, then the cluster's u partial
 #pragma unroll
@@ -341,17 +402,19 @@ __global__ __launch_bounds__(X2_THREADS, 1) void ext2_kernel(
 }
 
 // the strip as a 3-D view (N columns, 8 rows, P / 8 row groups; rows ld
-// elements apart) read in (64, 8, rows / 8) boxes with the 128-byte swizzle:
+// elements apart) read in (W, 8, rows / 8) boxes with the 128-byte swizzle:
 // one box is a block's rows of a slab, row-major
+template <typename T>
 bool x2_map(CUtensorMap* m, const void* base, int N, int P, int ld, int rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)N, 8, (cuuint64_t)P / 8};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)ld * 2 * 8};
-  const cuuint32_t box[3] = {X2_W, 8, (cuuint32_t)rows / 8}, unit[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(T), (cuuint64_t)ld * sizeof(T) * 8};
+  const cuuint32_t box[3] = {(cuuint32_t)x2_w<T>(), 8, (cuuint32_t)rows / 8}, unit[3] = {1, 1, 1};
+  return fn(m, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---------------------------------------------------------------------------
@@ -631,13 +694,274 @@ __global__ __launch_bounds__(SW_THREADS, 1) void sandwich_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3/K4 on an f32 strip: the sandwich as an f32 FFMA tile
+// ---------------------------------------------------------------------------
+
+constexpr int SF_THREADS = 256;
+constexpr int SF_BM = 128;                    // output rows a block
+constexpr int SF_BN = 128;                    // sketch columns a block
+constexpr int SF_BK = 16;                     // depth a stage
+constexpr int SF_SPAN = 16;                   // stages a span: 256 deep, summed from zero
+constexpr int SF_LDK = SF_BK + 4;             // phase 2's A rows, k-major (floats)
+constexpr int SF_A = SF_BM * SF_LDK;          // >= SF_BK * SF_BM, phase 1's m-major A
+constexpr int SF_B = SF_BK * SF_BN;
+constexpr int SF_STAGE = SF_A + SF_B + SF_BK; // + K3's t of the stage
+// two stages, the running sums (64 a thread), the s2 of the tile's rows
+constexpr size_t SF_SMEM = sizeof(float) * (2 * (size_t)SF_STAGE + 64 * SF_THREADS + SF_BM);
+
+struct SfArgs {
+  const float* strip;  // (P, ld)
+  const float* ta;     // (P, kp)                 phase 1
+  const float* t;      // (P)                     phase 1, K3
+  const float* s_pre;  // (N)                     phase 1, K3
+  const float* bm;     // (N)                     phase 1, K3
+  const float* s2_in;  // (N)                     phase 1, K4
+  float* s_post;       // (N) out                 phase 1, K3
+  float* ws;           // (N, kp) out / in        phase 1 / phase 2
+  float* part;         // (splits, P, kp) out     phase 2
+  int P, N, ld, kp, chunk;
+};
+
+// 16 bytes into shared memory, or 16 zero bytes where `valid` is false
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+// the stage of depth [kd, kd + 16) into `st`: A (phase 1 m-major
+// [k][m] from strip rows kd + k; phase 2 k-major [m][k] from strip columns
+// kd + k), B [k][n] (ta or ws rows kd + k), K3's t; zeros past N and past
+// the slice's end k_end (a multiple of 16, or N). One commit group
+template <int PHASE, bool SPOST>
+__device__ __forceinline__ void sf_load(float* st, const SfArgs& a, int m0, int n0, int kd,
+                                        int k_end) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = tid + h * SF_THREADS;   // 512 chunks of 16 B each
+    if (PHASE == 1) {
+      const int k = c >> 5, col = m0 + 4 * (c & 31);
+      const bool v = col < a.N;
+      cp_async16z(st + k * SF_BM + 4 * (c & 31),
+                  v ? a.strip + (size_t)(kd + k) * a.ld + col : a.strip, v);
+    } else {
+      const int r = c >> 2, col = kd + 4 * (c & 3);
+      const bool v = col < k_end;
+      cp_async16z(st + r * SF_LDK + 4 * (c & 3),
+                  v ? a.strip + (size_t)(m0 + r) * a.ld + col : a.strip, v);
+    }
+    const int k = c >> 5;
+    const bool v = kd + k < k_end;
+    const float* b = PHASE == 1 ? a.ta : a.ws;
+    cp_async16z(st + SF_A + k * SF_BN + 4 * (c & 31),
+                v ? b + (size_t)(kd + k) * a.kp + n0 + 4 * (c & 31) : b, v);
+  }
+  if (SPOST && tid < SF_BK / 4) cp_async16z(st + SF_A + SF_B + 4 * tid, a.t + kd + 4 * tid, true);
+  cp_async_commit();
+}
+
+// acc[i][j] += av[i] b[j]: the thread's 8 rows by its 8 columns
+__device__ __forceinline__ void sf_fma(float (&acc)[8][8], const float (&av)[8], float4 b0,
+                                       float4 b1) {
+  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
+}
+
+// PHASE 1: W = K^T ta over all of P for output rows = strip columns [m0,
+//          m0 + 128), sketch columns [n0, n0 + 128); epilogue ws = W s2 in
+//          f32 (K3: s2 = s_post^2, s_post from ks = K^T t summed beside).
+// PHASE 2: part[z] = K ws for output rows = strip rows [m0, m0 + 128) over
+//          the strip columns of slice z.
+// Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4 ty + {0..3}, 64 + 4 ty
+// + {0..3} and columns 4 tx + {0..3}, 64 + 4 tx + {0..3}: a B row is two
+// 16-byte loads (a warp reads 256 contiguous bytes), A two (phase 1, two
+// addresses a warp) or, k-major, one 8-byte load a row for two depths.
+// Each output sums a span of 256 depths from zero in registers, then adds
+// it to its running sum in shared memory with one f32 add.
+template <int PHASE, bool SPOST>
+__global__ __launch_bounds__(SF_THREADS, 2) void sandwich_f32_kernel(const SfArgs a) {
+  extern __shared__ __align__(16) float sf_smem[];
+  float* run_s = sf_smem + 2 * SF_STAGE;     // [64][SF_THREADS]
+  float* s2_s = run_s + 64 * SF_THREADS;     // [SF_BM]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n0 = blockIdx.x * SF_BN, m0 = blockIdx.y * SF_BM;
+  const int k_beg = PHASE == 1 ? 0 : blockIdx.z * a.chunk;
+  const int k_end = PHASE == 1 ? a.P : min(a.N, k_beg + a.chunk);
+  const int nst = k_end > k_beg ? (k_end - k_beg + SF_BK - 1) / SF_BK : 0;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float ks_acc = 0.f, ks_run = 0.f;   // K3: ks of strip column m0 + tid (tid < 128)
+  if (nst > 0) sf_load<PHASE, SPOST>(sf_smem, a, m0, n0, k_beg, k_end);
+  for (int s = 0; s < nst; ++s) {
+    const float* as = sf_smem + (s & 1) * SF_STAGE;
+    const float* bs = as + SF_A;
+    cp_async_wait_all();
+    __syncthreads();   // stage s in; every thread is done with stage s - 1's buffer
+    if (s + 1 < nst)
+      sf_load<PHASE, SPOST>(sf_smem + ((s + 1) & 1) * SF_STAGE, a, m0, n0,
+                            k_beg + (s + 1) * SF_BK, k_end);
+    if (s % SF_SPAN == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      ks_acc = 0.f;
+    }
+    if (PHASE == 1) {
+#pragma unroll
+      for (int k = 0; k < SF_BK; ++k) {
+        const float4 a0 = *reinterpret_cast<const float4*>(as + k * SF_BM + 4 * ty);
+        const float4 a1 = *reinterpret_cast<const float4*>(as + k * SF_BM + 64 + 4 * ty);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        sf_fma(acc, av, *reinterpret_cast<const float4*>(bs + k * SF_BN + 4 * tx),
+               *reinterpret_cast<const float4*>(bs + k * SF_BN + 64 + 4 * tx));
+      }
+      if (SPOST && tid < SF_BM) {
+        const float* ts = bs + SF_B;
+#pragma unroll
+        for (int k = 0; k < SF_BK; ++k) ks_acc = fmaf(ts[k], as[k * SF_BM + tid], ks_acc);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < SF_BK; k += 2) {
+        float2 ar[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          ar[i] = *reinterpret_cast<const float2*>(as + ((i & 4) * 16 + 4 * ty + (i & 3)) * SF_LDK + k);
+        const float av0[8] = {ar[0].x, ar[1].x, ar[2].x, ar[3].x,
+                              ar[4].x, ar[5].x, ar[6].x, ar[7].x};
+        sf_fma(acc, av0, *reinterpret_cast<const float4*>(bs + k * SF_BN + 4 * tx),
+               *reinterpret_cast<const float4*>(bs + k * SF_BN + 64 + 4 * tx));
+        const float av1[8] = {ar[0].y, ar[1].y, ar[2].y, ar[3].y,
+                              ar[4].y, ar[5].y, ar[6].y, ar[7].y};
+        sf_fma(acc, av1, *reinterpret_cast<const float4*>(bs + (k + 1) * SF_BN + 4 * tx),
+               *reinterpret_cast<const float4*>(bs + (k + 1) * SF_BN + 64 + 4 * tx));
+      }
+    }
+    if ((s + 1) % SF_SPAN == 0 || s + 1 == nst) {   // the span into the running sums
+      const bool first = s < SF_SPAN, last = s + 1 == nst;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float* q = run_s + (i * 8 + j) * SF_THREADS + tid;
+          const float v = first ? acc[i][j] : *q + acc[i][j];
+          if (last)
+            acc[i][j] = v;
+          else
+            *q = v;
+        }
+      ks_run = first ? ks_acc : ks_run + ks_acc;
+    }
+  }
+
+  if (PHASE == 1) {
+    // the column scales of this tile, then ws = W s2
+    if (tid < SF_BM) {
+      const int j = m0 + tid;
+      float s2 = 0.f;
+      if (j < a.N) {
+        if (SPOST) {
+          const float sp = sqrtf(a.s_pre[j] / fmaxf(ks_run, EPS)) * a.bm[j];
+          if (blockIdx.x == 0) a.s_post[j] = sp;
+          s2 = sp * sp;
+        } else {
+          s2 = a.s2_in[j];
+        }
+      }
+      s2_s[tid] = s2;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = (i & 4) * 16 + 4 * ty + (i & 3), j = m0 + r;
+      if (j >= a.N) continue;
+      const float s2 = s2_s[r];
+      float4* o = reinterpret_cast<float4*>(a.ws + (size_t)j * a.kp + n0 + 4 * tx);
+      o[0] = make_float4(acc[i][0] * s2, acc[i][1] * s2, acc[i][2] * s2, acc[i][3] * s2);
+      o[16] = make_float4(acc[i][4] * s2, acc[i][5] * s2, acc[i][6] * s2, acc[i][7] * s2);
+    }
+  } else {
+    float* out = a.part + (size_t)blockIdx.z * a.P * a.kp;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = m0 + (i & 4) * 16 + 4 * ty + (i & 3);
+      float4* o = reinterpret_cast<float4*>(out + (size_t)r * a.kp + n0 + 4 * tx);
+      o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      o[16] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+}
+
+template <int PHASE, bool SPOST>
+int launch_sandwich_f32(dim3 grid, const SfArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(sandwich_f32_kernel<PHASE, SPOST>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SF_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sandwich_f32_kernel<PHASE, SPOST><<<grid, SF_THREADS, SF_SMEM, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K2's kernel for a cluster of `cl` blocks and `smem` bytes a block
+template <typename T>
 cudaError_t x2_prepare(int cl, size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(ext2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(ext2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e == cudaSuccess && cl > 8)
-    e = cudaFuncSetAttribute(ext2_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(ext2_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
+}
+
+// how many K2 clusters of `cl` blocks, `rows` rows and `stages` slabs a
+// block fit the card at once; a negative value is a cudaError
+template <typename T>
+int x2_clusters(int cl, int rows, int stages) {
+  const size_t smem = x2_smem(rows, stages, cl, x2_w<T>());
+  cudaError_t e = x2_prepare<T>(cl, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(cl, 1, X2_THREADS, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (void*)ext2_kernel<T>, &cfg);
+  return e != cudaSuccess ? -static_cast<int>(e) : n;
+}
+
+// K2 on the plan of ops/cuda_strip.ext2_plan: clusters of cl (8 or 16)
+// blocks of P / cl rows (a multiple of 8, at most 1024), `stages` slabs in
+// flight within 227 KB of shared memory; strip rows ld >= N apart, 16 bytes
+// a multiple, a 16-byte aligned base; 1 <= clusters <= ceil(N / W). u_part
+// holds (clusters, P) floats, summed into u in cluster order.
+template <typename T>
+int x2_launch(const void* strip, const void* t2, const void* bm, void* s_out, void* u_part,
+              void* u, int P, int N, int ld, int cl, int stages, int clusters, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int rows = (cl == 8 || cl == 16) ? P / cl : 0;
+  const size_t smem = x2_smem(rows, stages, cl, x2_w<T>());
+  CUtensorMap map;
+  if (rows == 0 || rows * cl != P || rows % 8 || rows > X2_RSTEP * X2_MAXR || stages < 1 ||
+      smem > X2_SMEM_CAP || clusters < 1 || clusters > (N + x2_w<T>() - 1) / x2_w<T>() ||
+      !x2_map<T>(&map, strip, N, P, ld, rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = x2_prepare<T>(cl, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const X2Args<T> a = {static_cast<const T*>(t2), static_cast<const float*>(bm),
+                       static_cast<float*>(s_out), static_cast<float*>(u_part), P, N, rows, stages};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_cfg(cl, clusters, X2_THREADS, smem, s, attr);
+  e = cudaLaunchKernelEx(&cfg, ext2_kernel<T>, map, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_reduce(static_cast<const float*>(u_part), static_cast<float*>(u), clusters,
+                       (size_t)P, s);
 }
 
 template <int PHASE, bool SPOST>
@@ -655,50 +979,35 @@ int launch_sandwich(dim3 grid, const CUtensorMap& am, const CUtensorMap& bmap, c
 extern "C" {
 
 // K2's shared bytes a block of a `cl`-block cluster with `rows` rows and
-// `stages` slabs in flight (ops/cuda_strip.ext2_plan mirrors it)
-size_t glt_ext2_smem_bytes(int rows, int stages, int cl) { return x2_smem(rows, stages, cl); }
-
-// how many K2 clusters of `cl` blocks, `rows` rows and `stages` slabs a
-// block fit the card at once; a negative value is a cudaError
-int glt_ext2_strip_clusters(int cl, int rows, int stages) {
-  const size_t smem = x2_smem(rows, stages, cl);
-  cudaError_t e = x2_prepare(cl, smem);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(cl, 1, X2_THREADS, smem, nullptr, attr);
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, (void*)ext2_kernel, &cfg);
-  return e != cudaSuccess ? -static_cast<int>(e) : n;
+// `stages` slabs in flight, bf16 and f32 strips (ops/cuda_strip.ext2_plan
+// mirrors them)
+size_t glt_ext2_smem_bytes(int rows, int stages, int cl) {
+  return x2_smem(rows, stages, cl, x2_w<bf16>());
+}
+size_t glt_strip_ext2_f32_smem_bytes(int rows, int stages, int cl) {
+  return x2_smem(rows, stages, cl, x2_w<float>());
 }
 
-// K2 on the plan of ops/cuda_strip.ext2_plan: clusters of cl (8 or 16)
-// blocks of P / cl rows (a multiple of 8, at most 1024), `stages` slabs in
-// flight within 227 KB of shared memory; strip rows ld >= N apart, ld % 8 ==
-// 0, a 16-byte aligned base; 1 <= clusters <= ceil(N / 64). u_part holds
-// (clusters, P) floats, summed into u in cluster order.
+// how many K2 clusters fit the card at once (see x2_clusters)
+int glt_ext2_strip_clusters(int cl, int rows, int stages) {
+  return x2_clusters<bf16>(cl, rows, stages);
+}
+int glt_strip_ext2_f32_clusters(int cl, int rows, int stages) {
+  return x2_clusters<float>(cl, rows, stages);
+}
+
+// K2 on a bf16 strip (t2 bf16, ld % 8 == 0, 64-column slabs) and on an f32
+// strip (t2 f32, ld % 4 == 0, 32-column slabs); see x2_launch
 int glt_strip_ext2(const void* strip, const void* t2, const void* bm, void* s_out,
                    void* u_part, void* u, int P, int N, int ld, int cl, int stages,
                    int clusters, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int rows = (cl == 8 || cl == 16) ? P / cl : 0;
-  const size_t smem = x2_smem(rows, stages, cl);
-  CUtensorMap map;
-  if (rows == 0 || rows * cl != P || rows % 8 || rows > X2_RSTEP * X2_MAXR || stages < 1 ||
-      smem > X2_SMEM_CAP || clusters < 1 || clusters > (N + X2_W - 1) / X2_W ||
-      !x2_map(&map, strip, N, P, ld, rows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = x2_prepare(cl, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const X2Args a = {static_cast<const bf16*>(t2), static_cast<const float*>(bm),
-                    static_cast<float*>(s_out), static_cast<float*>(u_part), P, N, rows, stages};
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(cl, clusters, X2_THREADS, smem, s, attr);
-  e = cudaLaunchKernelEx(&cfg, ext2_kernel, map, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_reduce(static_cast<const float*>(u_part), static_cast<float*>(u), clusters,
-                       (size_t)P, s);
+  return x2_launch<bf16>(strip, t2, bm, s_out, u_part, u, P, N, ld, cl, stages, clusters, stream);
+}
+int glt_strip_ext2_f32(const void* strip, const void* t2, const void* bm, void* s_out,
+                       void* u_part, void* u, int P, int N, int ld, int cl, int stages,
+                       int clusters, void* stream) {
+  return x2_launch<float>(strip, t2, bm, s_out, u_part, u, P, N, ld, cl, stages, clusters,
+                          stream);
 }
 
 // K3 (t != null: s_post from s_pre, bm) or K4 (t == null: s2 given).
@@ -739,6 +1048,48 @@ int glt_strip_sandwich(const void* strip, const void* ta, const void* t,
   launch_reduce(static_cast<const float*>(part), static_cast<float*>(u), splits,
                 (size_t)P * kp, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3 / K4 on an f32 strip (t != null: K3), every operand f32: P % 128 ==
+// 0, strip rows ld >= N apart with ld % 4 == 0, kp % 128 == 0, 16-byte
+// aligned strip, ta, t and ws; ta (P, kp), ws (N, kp), part (splits, P,
+// kp), u (P, kp). Phase 2's slices are `splits` column ranges of
+// ceil(N / splits) rounded up to 16.
+int glt_strip_sandwich_f32(const void* strip, const void* ta, const void* t,
+                           const void* s_pre, const void* bm, const void* s2,
+                           void* s_post, void* ws, void* part, void* u,
+                           int P, int N, int ld, int kp, int splits, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(strip) | reinterpret_cast<uintptr_t>(ta) |
+                          reinterpret_cast<uintptr_t>(t) | reinterpret_cast<uintptr_t>(ws);
+  if (P <= 0 || P % SF_BM || N <= 0 || ld < N || ld % 4 || kp <= 0 || kp % SF_BN ||
+      splits < 1 || splits > 65535 || (N + SF_BM - 1) / SF_BM > 65535 || align % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SfArgs a = {};
+  a.strip = static_cast<const float*>(strip);
+  a.ta = static_cast<const float*>(ta);
+  a.t = static_cast<const float*>(t);
+  a.s_pre = static_cast<const float*>(s_pre);
+  a.bm = static_cast<const float*>(bm);
+  a.s2_in = static_cast<const float*>(s2);
+  a.s_post = static_cast<float*>(s_post);
+  a.ws = static_cast<float*>(ws);
+  a.part = static_cast<float*>(part);
+  a.P = P;
+  a.N = N;
+  a.ld = ld;
+  a.kp = kp;
+  const int chunk = (N + splits - 1) / splits;
+  a.chunk = (chunk + SF_BK - 1) / SF_BK * SF_BK;
+
+  const dim3 g1(kp / SF_BN, (N + SF_BM - 1) / SF_BM);
+  int rc = t != nullptr ? launch_sandwich_f32<1, true>(g1, a, s)
+                        : launch_sandwich_f32<1, false>(g1, a, s);
+  if (rc != 0) return rc;
+  rc = launch_sandwich_f32<2, false>(dim3(kp / SF_BN, P / SF_BM, splits), a, s);
+  if (rc != 0) return rc;
+  return launch_reduce(static_cast<const float*>(part), static_cast<float*>(u), splits,
+                       (size_t)P * kp, s);
 }
 
 }  // extern "C"

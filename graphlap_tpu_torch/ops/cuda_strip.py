@@ -11,27 +11,31 @@ exp underflows to 0):
 * ``strip_sandwich_spost_cuda`` (K3, ``strip_sandwich_spost_pallas``):
   polish rmatvec + post-polish scales + first sketch sandwich —
   ks = K^T t, s_post = sqrt(s_pre / max(ks, eps)) bm,
-  u = K bf16((K^T ta) s_post^2).
+  u = K r((K^T ta) s_post^2).
 * ``strip_sandwich_cuda`` (K4, ``strip_sandwich_pallas``):
-  u = K bf16((K^T ta) s2).
+  u = K r((K^T ta) s2).
 
-Rounding points are the Pallas bodies': t2, t and ta round to the strip
-dtype before the products, products accumulate in f32, and the sandwich's
-ws rounds to the strip dtype before the second product. CPU tensors take
+Rounding points are the Pallas bodies' (``_strip_prec``): t2, t and ta
+round to the strip dtype before the products, products accumulate in f32,
+and the sandwich's ws rounds to the strip dtype (r above) before the second
+product. A bf16 strip (bfloat16_store) takes bf16 operands; an f32 strip
+(affinity_dtype float32) is the reference's "highest" class: every operand
+and ws stay f32 and every product is IEEE f32 (no TF32). CPU tensors take
 the ``*_plain`` versions (PyTorch ops with those rounding points); CUDA
-tensors launch ``csrc/strip_sweeps.cu`` on a bf16 strip, whose row count
-must be a multiple of ``P_QUANTUM``. There is no fallback from a kernel to
-its plain version. A CUDA f32 strip raises ``NotImplementedError``: an IEEE
-f32 sweep kernel waits for ROADMAP.md Queue 2 (K2-K4, f32 strips).
+tensors launch ``csrc/strip_sweeps.cu`` on a bf16 or an f32 strip, whose
+row count must be a multiple of ``P_QUANTUM``; any other strip dtype
+raises. There is no fallback from a kernel to its plain version.
 
 Strip reads a call on CUDA: K2 1, K3 2, K4 2 (the Pallas kernels read it
-once each). K2 runs in thread-block clusters that share 64-column slabs
-(``ext2_plan``): each block holds its slice of the slab's rows in shared
-memory, the blocks push their column-sum partials into each other's shared
-memory, and the row sums K s are formed from the same staged rows. K3/K4
-are two launches of one wgmma kernel (TMA ring, a producer warpgroup, two
-consumer warpgroups): W = K^T ta with the ws epilogue, then U = K ws split
-over N into fixed-order partials (``sandwich_splits``).
+once each). K2 runs in thread-block clusters that share slabs of 128-byte
+rows (64 bf16 or 32 f32 columns, ``ext2_plan``): each block holds its slice
+of the slab's rows in shared memory, the blocks push their column-sum
+partials into each other's shared memory, and the row sums K s are formed
+from the same staged rows. K3/K4 are two launches of one kernel a strip
+dtype (bf16: a wgmma kernel with a TMA ring, a producer warpgroup and two
+consumer warpgroups; f32: an FFMA tile, 128 x 128 outputs a block, spans
+of 256 depths summed from zero): W = K^T ta with the ws epilogue, then U =
+K ws split over N into fixed-order partials (``sandwich_splits``).
 """
 
 from __future__ import annotations
@@ -45,11 +49,15 @@ from . import _build
 from .cuda_affinity import _device_kind
 
 EPS = 1e-30
-P_QUANTUM = 128          # strip rows per sandwich output tile (csrc SW_BM)
-KP_QUANTUM = 256         # sketch columns per sandwich tile (csrc SW_BN)
-EXT2_SLAB = 64           # K2's columns a slab: 128-byte rows (csrc X2_W)
+P_QUANTUM = 128          # strip rows per sandwich tile (csrc SW_BM, SF_BM)
+KP_QUANTUM = 256         # sketch columns per bf16 sandwich tile (csrc SW_BN)
+KP_QUANTUM_F32 = 128     # sketch columns per f32 sandwich tile (csrc SF_BN)
+F32_BLOCKS_PER_SM = 2    # f32 sandwich blocks an SM (csrc __launch_bounds__)
+EXT2_ROW = 128           # bytes of a K2 slab row (csrc X2_ROW)
+EXT2_SLAB = 64           # K2's columns a bf16 slab (32 on an f32 strip)
 EXT2_MAX_P = 8192        # the largest P the path gives (config sample_cap)
 SMEM_CAP = 232448        # an H100 block's shared memory (227 KB)
+STRIP_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -89,11 +97,9 @@ def strip_sandwich_plain(strip, ta, s2):
 # --- kernel wrappers --------------------------------------------------------
 
 def _check_strip(strip: torch.Tensor, what: str) -> None:
-    if strip.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{what}: the CUDA sweep kernels take a bf16 strip (the "
-            f"bfloat16_store main path); an IEEE f32 sweep waits for "
-            f"ROADMAP.md Queue 2 (K2-K4, f32 strips)")
+    if strip.dtype not in STRIP_DTYPES:
+        raise ValueError(f"{what}: the CUDA sweep kernels take a bf16 strip "
+                         f"(bfloat16_store) or an f32 one, not {strip.dtype}")
     if not strip.is_contiguous():
         raise ValueError(f"{what}: strip must be contiguous")
 
@@ -117,30 +123,33 @@ class Ext2Plan:
     smem: int
 
 
-def ext2_smem(rows: int, stages: int, cluster: int) -> int:
-    """csrc ``x2_smem``: alignment slack, the slabs, tr and tc of the rows,
-    16 warps' kbt partials, the block's partial, the partials received from
-    the cluster (two slabs), s, and the barriers (one a stage, two for the
-    received partials)."""
-    return (1024 + stages * rows * 2 * EXT2_SLAB
-            + 4 * (2 * rows + 16 * 2 * EXT2_SLAB + 2 * EXT2_SLAB
-                   + 2 * cluster * 2 * EXT2_SLAB + EXT2_SLAB)
+def ext2_smem(rows: int, stages: int, cluster: int,
+              width: int = EXT2_SLAB) -> int:
+    """csrc ``x2_smem``: alignment slack, the slabs (128 bytes a row),
+    tr and tc of the rows, 16 warps' kbt partials, the block's partial, the
+    partials received from the cluster (two slabs), s, and the barriers (one
+    a stage, two for the received partials); ``width`` columns a slab."""
+    return (1024 + stages * rows * EXT2_ROW
+            + 4 * (2 * rows + 16 * 2 * width + 2 * width
+                   + 2 * cluster * 2 * width + width)
             + 8 * (stages + 2))
 
 
-def ext2_plan(p: int) -> Ext2Plan:
-    """The plan csrc ``glt_strip_ext2`` takes for P rows (a positive multiple
-    of 128 up to 8192): clusters of 8 (portable) with the most slabs in
-    flight (up to 4) that fit, at least 2 so the next slab loads while one
-    is summed; past that (P > 6400) clusters of 16. Raises for a P outside
-    that range."""
+def ext2_plan(p: int, itemsize: int = 2) -> Ext2Plan:
+    """The plan csrc ``glt_strip_ext2`` (bf16, ``itemsize`` 2) or
+    ``glt_strip_ext2_f32`` (4) takes for P rows (a positive multiple of 128
+    up to 8192): clusters of 8 (portable) with the most slabs in flight (up
+    to 4) that fit, at least 2 so the next slab loads while one is summed;
+    past that (bf16 P > 6400, f32 P > 6656) clusters of 16. Raises for a P
+    outside that range."""
     if p <= 0 or p % P_QUANTUM or p > EXT2_MAX_P:
         raise ValueError(f"strip_ext2: strip rows {p} must be a positive "
                          f"multiple of {P_QUANTUM} up to {EXT2_MAX_P}")
+    width = EXT2_ROW // itemsize
     for cluster in (8, 16):
         rows = p // cluster
         for stages in (4, 3, 2):
-            smem = ext2_smem(rows, stages, cluster)
+            smem = ext2_smem(rows, stages, cluster, width)
             if smem <= SMEM_CAP:
                 return Ext2Plan(cluster, rows, stages, smem)
     raise ValueError(f"strip_ext2: no plan fits P={p}")
@@ -151,10 +160,12 @@ def _aligned(x: torch.Tensor) -> bool:
 
 
 def _tma_strip(strip: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(strip, ld): TMA reads rows 16 bytes apart from a 16-byte aligned
-    base, so a strip with N % 8 != 0 is copied once into zero-padded rows."""
+    """(strip, ld): the kernels read rows a multiple of 16 bytes apart from
+    a 16-byte aligned base, so a strip whose rows are not (N % 8 != 0 in
+    bf16, N % 4 != 0 in f32) is copied once into zero-padded rows."""
     p, n = strip.shape
-    ld = math.ceil(n / 8) * 8
+    per = 16 // strip.element_size()
+    ld = math.ceil(n / per) * per
     if ld != n or not _aligned(strip):
         padded = torch.zeros((p, ld), dtype=strip.dtype, device=strip.device)
         padded[:, :n] = strip
@@ -173,48 +184,59 @@ def strip_ext2_cuda(strip, t2, b_mask):
                          f"{tuple(b_mask.shape)} do not fit strip {(p, n)}")
     if n == 0:
         raise ValueError("strip_ext2: empty strip")
-    plan = ext2_plan(p)
+    f32 = strip.dtype == torch.float32
+    plan = ext2_plan(p, strip.element_size())
     lib = _build.lib()
-    clusters = lib.glt_ext2_strip_clusters(plan.cluster, plan.rows,
-                                           plan.stages)
+    occupancy, launch = ((lib.glt_strip_ext2_f32_clusters,
+                          lib.glt_strip_ext2_f32) if f32 else
+                         (lib.glt_ext2_strip_clusters, lib.glt_strip_ext2))
+    clusters = occupancy(plan.cluster, plan.rows, plan.stages)
     _build.check(-min(clusters, 0), "strip_ext2 (cluster occupancy)")
     if clusters == 0:
         raise RuntimeError(f"strip_ext2: no cluster of {plan.cluster} blocks "
                            f"with {plan.smem} B each fits the card")
-    clusters = min(clusters, math.ceil(n / EXT2_SLAB))
+    clusters = min(clusters,
+                   math.ceil(n / (EXT2_ROW // strip.element_size())))
     strip, ld = _tma_strip(strip)
-    t2b = t2.to(torch.bfloat16).contiguous()
+    t2k = t2.to(strip.dtype).contiguous()      # bf16 strip: t2 rounded
     bm = _f32(b_mask)
     s = torch.empty(n, dtype=torch.float32, device=strip.device)
     u_part = torch.empty((clusters, p), dtype=torch.float32,
                          device=strip.device)
     u = torch.empty(p, dtype=torch.float32, device=strip.device)
-    rc = lib.glt_strip_ext2(strip.data_ptr(), t2b.data_ptr(), bm.data_ptr(),
-                            s.data_ptr(), u_part.data_ptr(), u.data_ptr(),
-                            p, n, ld, plan.cluster, plan.stages, clusters,
-                            _build.stream_ptr(strip))
+    rc = launch(strip.data_ptr(), t2k.data_ptr(), bm.data_ptr(),
+                s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, ld,
+                plan.cluster, plan.stages, clusters,
+                _build.stream_ptr(strip))
     _build.check(rc, "strip_ext2")
     strip_ext2_cuda.launches += 1
     return u, s
 
 
-def sandwich_splits(p: int, n: int, kp: int, sms: int) -> int:
+def sandwich_splits(p: int, n: int, kp: int, sms: int,
+                    tile_n: int = KP_QUANTUM, per_sm: int = 1,
+                    depth: int = 64) -> int:
     """Phase 2's split of the N columns: the count S of slices (each a
-    whole number of 64-column stages) whose (P / 128) x (kp / 256) x S
-    blocks, one an SM, fill their last wave best; ties take the fewer."""
-    tiles = (p // P_QUANTUM) * (kp // KP_QUANTUM)
-    top = min(4 * math.ceil(sms / tiles), math.ceil(n / 64))
+    whole number of ``depth``-column stages) whose (P / 128) x (kp /
+    ``tile_n``) x S blocks, ``per_sm`` an SM, fill their last wave best;
+    ties take the fewer. The defaults are the bf16 kernel's (one 128 x 256
+    tile an SM, 64-deep stages); the f32 kernel runs two 128 x 128 tiles an
+    SM in 16-deep stages."""
+    tiles = (p // P_QUANTUM) * (kp // tile_n)
+    slots = sms * per_sm
+    top = min(4 * math.ceil(slots / tiles), math.ceil(n / depth))
     best, best_eff = 1, 0.0
     for s in range(1, max(1, top) + 1):
-        eff = tiles * s / (math.ceil(tiles * s / sms) * sms)
+        eff = tiles * s / (math.ceil(tiles * s / slots) * slots)
         if eff > best_eff + 1e-9:
             best, best_eff = s, eff
     return best
 
 
-def _bf16_tma(x: torch.Tensor) -> torch.Tensor:
-    """x as a contiguous bf16 tensor on a 16-byte boundary (TMA's)."""
-    x = x.to(torch.bfloat16).contiguous()
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x as a contiguous ``dtype`` tensor on a 16-byte boundary (TMA's and
+    cp.async's)."""
+    x = x.to(dtype).contiguous()
     return x if _aligned(x) else x.clone()
 
 
@@ -234,27 +256,32 @@ def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
                          f"multiple of {P_QUANTUM}")
     if n == 0 or kp == 0:
         raise ValueError(f"{what}: empty strip or ta ({n} columns, kp {kp})")
-    dev = strip.device
+    dev, dt = strip.device, strip.dtype
+    f32 = dt == torch.float32
     strip, ld = _tma_strip(strip)
-    kp2 = math.ceil(kp / KP_QUANTUM) * KP_QUANTUM
+    quantum = KP_QUANTUM_F32 if f32 else KP_QUANTUM
+    kp2 = math.ceil(kp / quantum) * quantum
     if kp2 == kp:                     # the callers' kp: no zero padding
-        tab = _bf16_tma(ta)
+        tab = _operand(ta, dt)
     else:
-        tab = torch.zeros((p, kp2), dtype=torch.bfloat16, device=dev)
-        tab[:, :kp] = ta.to(torch.bfloat16)
-    splits = sandwich_splits(p, n, kp2, _sms(strip))
-    ws = torch.empty((n, kp2), dtype=torch.bfloat16, device=dev)
+        tab = torch.zeros((p, kp2), dtype=dt, device=dev)
+        tab[:, :kp] = ta.to(dt)
+    splits = (sandwich_splits(p, n, kp2, _sms(strip), KP_QUANTUM_F32,
+                              F32_BLOCKS_PER_SM, 16) if f32 else
+              sandwich_splits(p, n, kp2, _sms(strip)))
+    ws = torch.empty((n, kp2), dtype=dt, device=dev)
     part = torch.empty((splits, p, kp2), dtype=torch.float32, device=dev)
     u = torch.empty((p, kp2), dtype=torch.float32, device=dev)
     s_post = torch.empty(n, dtype=torch.float32, device=dev)
     # K4 passes None for t, s_pre and b_mask; K3 for s2 (NULL in C)
-    tb = None if t is None else _bf16_tma(t)
+    tb = None if t is None else _operand(t, dt)
     vecs = [None if x is None else _f32(x) for x in (s_pre, b_mask, s2)]
     ptrs = [None if x is None else x.data_ptr() for x in (tb, *vecs)]
-    rc = _build.lib().glt_strip_sandwich(
-        strip.data_ptr(), tab.data_ptr(), *ptrs, s_post.data_ptr(),
-        ws.data_ptr(), part.data_ptr(), u.data_ptr(), p, n, ld, kp2, splits,
-        _build.stream_ptr(strip))
+    lib = _build.lib()
+    launch = lib.glt_strip_sandwich_f32 if f32 else lib.glt_strip_sandwich
+    rc = launch(strip.data_ptr(), tab.data_ptr(), *ptrs, s_post.data_ptr(),
+                ws.data_ptr(), part.data_ptr(), u.data_ptr(), p, n, ld, kp2,
+                splits, _build.stream_ptr(strip))
     _build.check(rc, what)
     return u[:, :kp], s_post
 

@@ -2,12 +2,15 @@
 card.
 
     python3 scripts/profile_torch_slice.py
-        [--path config2|config4|config3|config4q|turbo|dense|bilateral|both|all]
+        [--path config2|config2f32|config4|config3|config4q|turbo|dense|
+                bilateral|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
-recipe; config 4: chip_smoke.make_workload_8mp, the 8 MP recompute-streaming
-fused-finish recipe; config 3: chip_smoke.make_workload_cfg3, the 1024x1024
+recipe; config 2 f32: chip_smoke.make_workload_f32, the same recipe with
+its f32 strip kept (K1's f32 store, the f32 K2-K4); config 4:
+chip_smoke.make_workload_8mp, the 8 MP recompute-streaming fused-finish
+recipe; config 3: chip_smoke.make_workload_cfg3, the 1024x1024
 RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
 8 MP f32 matvec denoise; turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
 turbo recipe on the unfused spectral schedule; dense:
@@ -55,7 +58,7 @@ sys.path.insert(0, str(ROOT))
 # device kernel name -> group, first match wins
 GROUPS = (
     ("port kernels", r"affinity_kernel|affinity_split_kernel|ext2_kernel|"
-                     r"sandwich_kernel|"
+                     r"sandwich_kernel|sandwich_f32_kernel|"
                      r"kb_emit_kernel|ext2_matvec_kernel|"
                      r"aug_sum_kernel|f32_sum_kernel|"
                      r"colstats_v_kernel|ks_kernel|reduce_partials|"
@@ -196,9 +199,9 @@ def device_profile(tag, gt, cfg, noisy, plan, dev, out: Path) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("config2", "config4", "config3",
-                                       "config4q", "turbo", "dense",
-                                       "bilateral", "both", "all"),
+    ap.add_argument("--path", choices=("config2", "config2f32", "config4",
+                                       "config3", "config4q", "turbo",
+                                       "dense", "bilateral", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -215,6 +218,7 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     paths = {"config2": chip_smoke.make_workload,
+             "config2f32": chip_smoke.make_workload_f32,
              "config4": chip_smoke.make_workload_8mp,
              "config3": chip_smoke.make_workload_cfg3,
              "config4q": chip_smoke.make_workload_8mp_matvec,

@@ -42,24 +42,24 @@ CSRC = ROOT / "graphlap_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "strip_designs"
 
 _SW2_FROM = ("      const int r = rfirst + X2_RSTEP * i;\n"
-             "      if (r >= R) break;\n      float x[8];")
+             "      if (r >= R) break;\n      float x[E];")
 K2_BARRIER = [
     ("      part[tid] = acc;\n",
-     "      part[tid] = acc;\n      rq[rank * 2 * X2_W + tid] = acc;\n"),
-    ("    if (tid == 0) mbar_expect_tx(rbar, (uint32_t)(C * 2 * X2_W * 4));\n",
+     "      part[tid] = acc;\n      rq[rank * 2 * W + tid] = acc;\n"),
+    ("    if (tid == 0) mbar_expect_tx(rbar, (uint32_t)(C * 2 * W * 4));\n",
      ""),
-    ("""    if (tid < C * 32) {
-      const int dst = tid / 32, f4 = tid % 32;
-      x2_send(x2_mapa(smem_u32(rq + rank * 2 * X2_W + 4 * f4), dst),
+    ("""    if (tid < C * (W / 2)) {
+      const int dst = tid / (W / 2), f4 = tid % (W / 2);
+      x2_send(x2_mapa(smem_u32(rq + rank * 2 * W + 4 * f4), dst),
               reinterpret_cast<const float4*>(part)[f4], x2_mapa(rbar, dst));
     }
 """, "    cluster.sync();\n"),
     ("      mbar_wait_cluster(rbar, (q >> 1) & 1);\n", ""),
-    ("""        kbr += rq[rk * 2 * X2_W + tid];
-        kbc += rq[rk * 2 * X2_W + X2_W + tid];""",
-     """        const float* px = cluster.map_shared_rank(rq + rk * 2 * X2_W, rk);
+    ("""        kbr += rq[rk * 2 * W + tid];
+        kbc += rq[rk * 2 * W + W + tid];""",
+     """        const float* px = cluster.map_shared_rank(rq + rk * 2 * W, rk);
         kbr += px[tid];
-        kbc += px[X2_W + tid];"""),
+        kbc += px[W + tid];"""),
 ]
 _LOAD_END = """      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(row0 / 8), "r"(bar)
       : "memory");"""
@@ -72,8 +72,8 @@ K2_BOXES8 = [
         "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(row0 / 8 + (int)g),
         "r"(bar)
         : "memory");"""),
-    ("const cuuint32_t box[3] = {X2_W, 8, (cuuint32_t)rows / 8}",
-     "const cuuint32_t box[3] = {X2_W, 8, 1}"),
+    ("const cuuint32_t box[3] = {(cuuint32_t)x2_w<T>(), 8, (cuuint32_t)rows / 8}",
+     "const cuuint32_t box[3] = {(cuuint32_t)x2_w<T>(), 8, 1}"),
 ]
 K2_THREADS256 = [
     ("constexpr int X2_THREADS = 512;", "constexpr int X2_THREADS = 256;"),

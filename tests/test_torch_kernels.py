@@ -10,8 +10,11 @@ Tolerances, relative to the largest reference magnitude:
 * sandwich outputs (K3/K4) on a bf16 strip: 2e-3 — ws is re-rounded to
   bf16 inside the sweep, so a sum that lands on the other side of a
   rounding boundary moves one ws entry by 2^-8 relative.
+* the kernels on an f32 strip (card only): 1e-4 — f32 sums of up to 65536
+  terms in another order, with no rounding point to flip.
 """
 
+import itertools
 from types import SimpleNamespace
 
 import numpy as np
@@ -210,9 +213,18 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
         with pytest.raises(RuntimeError, match="unavailable"):
             call()
     assert _counts() == before
-    # an f32 strip has no CUDA sweep kernel yet: it raises, never runs plain
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k24.strip_ext2_cuda(s.float(), T(x["t2"]), T(x["bm"]))
+    # an f32 strip reaches its own kernels in the library, never the plain
+    # version; a strip of any other dtype raises before the library
+    f = s.float()
+    for call in (lambda: k24.strip_ext2_cuda(f, T(x["t2"]), T(x["bm"])),
+                 lambda: k24.strip_sandwich_spost_cuda(
+                     f, T(x["ta"]), T(x["t"]), T(x["s_pre"]), T(x["bm"])),
+                 lambda: k24.strip_sandwich_cuda(f, T(x["ta"]), T(x["s2"]))):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            call()
+    with pytest.raises(ValueError, match="bf16 strip"):
+        k24.strip_ext2_cuda(s.half(), T(x["t2"]), T(x["bm"]))
+    assert _counts() == before
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -234,16 +246,18 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("case", [
     "rows-not-quantum", "rows-zero", "ta-rows", "t-shape", "s2-shape",
-    "f32-strip"])
+    "f32-strip", "f16-strip"])
 def test_sandwich_shape_guards_raise_before_a_launch(monkeypatch, case):
     """K3/K4's wrapper refuses what the wgmma kernel cannot take (strip rows
-    not a positive multiple of its 128-row tile, mismatched operands, an
-    f32 strip) before it asks for the kernel library."""
+    not a positive multiple of its 128-row tile, mismatched operands, a
+    strip neither bf16 nor f32) before it asks for the kernel library; an
+    f32 strip passes the guards to its own kernel, so it asks."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
     monkeypatch.setattr(k24, "_device_kind", lambda *ts: "cuda")
     monkeypatch.setattr(_build, "lib", no_lib)
+    monkeypatch.setattr(k24, "_sms", lambda t: 132)
     p = {"rows-not-quantum": 192, "rows-zero": 0}.get(case, 256)
     x = _strip_inputs(torch.bfloat16, p=256, n=512)
     s = T(x["strip"], torch.bfloat16)[:p]
@@ -251,8 +265,8 @@ def test_sandwich_shape_guards_raise_before_a_launch(monkeypatch, case):
     ta = ta[:128] if case == "ta-rows" else ta
     t = t[:100] if case == "t-shape" else t
     s2 = s2[:500] if case == "s2-shape" else s2
-    s = s.float() if case == "f32-strip" else s
-    err = NotImplementedError if case == "f32-strip" else ValueError
+    s = {"f32-strip": s.float(), "f16-strip": s.half()}.get(case, s)
+    err = RuntimeError if case == "f32-strip" else ValueError
     k3 = lambda: k24.strip_sandwich_spost_cuda(  # noqa: E731
         s, ta, t, T(x["s_pre"]), T(x["bm"]))
     k4 = lambda: k24.strip_sandwich_cuda(s, ta, s2)  # noqa: E731
@@ -264,20 +278,123 @@ def test_sandwich_shape_guards_raise_before_a_launch(monkeypatch, case):
     assert _counts() == before
 
 
-@pytest.mark.parametrize("p,n,kp,sms,want", [
-    (5248, 262144, 256, 132, 16),     # the main path: 41 x 16 = 656 blocks
-    (128, 4100, 256, 132, 65),        # one tile: a slice a 64-column stage
-    (256, 4096, 512, 132, 33),        # 4 tiles: 132 blocks, one full wave
-])
-def test_sandwich_splits_fill_the_last_wave(p, n, kp, sms, want):
-    """Phase 2's split over N: whole 64-column stages a slice, and the
-    count whose one-an-SM blocks waste the least of their last wave."""
-    s = k24.sandwich_splits(p, n, kp, sms)
+# the sandwich's tile plan by strip dtype: (sketch columns a tile, blocks an
+# SM, columns a stage): one 128 x 256 wgmma tile an SM in 64-column stages
+# on a bf16 strip, two 128 x 128 FFMA tiles an SM in 16-column ones on f32
+SANDWICH_PLAN = {"bf16": (k24.KP_QUANTUM, 1, 64),
+                 "f32": (k24.KP_QUANTUM_F32, k24.F32_BLOCKS_PER_SM, 16)}
+
+
+def _by_dtype(cases):
+    """pytest params over (strip dtype name, *case): the bf16 cases keep
+    their bare ids, the f32 ones are marked f32."""
+    return [pytest.param(dt, *c, id=("f32-" if dt == "f32" else "")
+                         + "-".join(map(str, c))) for dt, *c in cases]
+
+
+@pytest.mark.parametrize("dtype,p,n,kp,sms,want", _by_dtype([
+    ("bf16", 5248, 262144, 256, 132, 16),   # the main path: 41 x 16 blocks
+    ("bf16", 128, 4100, 256, 132, 65),      # one tile: a slice a stage
+    ("bf16", 256, 4096, 512, 132, 33),      # 4 tiles: one full wave of 132
+    ("f32", 5248, 262144, 256, 132, 16),    # 82 tiles x 16 = 1312
+    ("f32", 128, 4100, 256, 132, 132),      # two tiles: a slot a block
+    ("f32", 256, 4096, 512, 132, 33),       # 8 x 33: one full wave of 264
+]))
+def test_sandwich_splits_fill_the_last_wave(dtype, p, n, kp, sms, want):
+    """Phase 2's split over N: whole stages a slice, and the count whose
+    blocks (one an SM on a bf16 strip, two on an f32 one) waste the least
+    of their last wave."""
+    tile_n, per_sm, depth = SANDWICH_PLAN[dtype]
+    s = k24.sandwich_splits(p, n, kp, sms, tile_n, per_sm, depth)
     assert s == want
-    tiles = (p // k24.P_QUANTUM) * (kp // k24.KP_QUANTUM)
-    assert s <= -(-n // 64)
-    waves = -(-tiles * s // sms)
-    assert tiles * s / (waves * sms) >= 0.49
+    tiles = (p // k24.P_QUANTUM) * (kp // tile_n)
+    assert s <= -(-n // depth)
+    slots = sms * per_sm
+    waves = -(-tiles * s // slots)
+    assert tiles * s / (waves * slots) >= 0.49
+
+
+class _FakeLib:
+    """A kernel library that records the entry points called and their
+    arguments, and fails every launch with cudaError 1."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 16 if name.endswith("clusters") else 1
+        return entry
+
+
+@pytest.mark.parametrize("case", [
+    "k2-rows-not-quantum", "k2-p-past-cap", "k2-t2-shape",
+    "k3-rows-not-quantum", "k3-ta-rows", "k3-kp-zero",
+    "k4-rows-not-quantum", "k4-s2-shape"])
+def test_f32_sweeps_raise_before_a_launch_outside_their_plans(monkeypatch,
+                                                              case):
+    """The f32 K2-K4 refuse a strip outside their plans (rows not a
+    multiple of 128, P past the 8192 cap, mismatched operands, no sketch
+    columns) before they ask for the kernel library."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(k24, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", no_lib)
+    p = {"rows-not-quantum": 192, "p-past-cap": 8320}.get(
+        case.split("-", 1)[1], 256)
+    n = 256
+    s = torch.zeros((p, n))
+    ta = torch.zeros((128 if case == "k3-ta-rows" else p,
+                      0 if case == "k3-kp-zero" else 200))
+    t2 = torch.ones((2, 100 if case == "k2-t2-shape" else p))
+    t, vec = torch.ones(p), torch.ones(n)
+    s2 = vec[:200] if case == "k4-s2-shape" else vec
+    call = {"k2": lambda: k24.strip_ext2_cuda(s, t2, vec),
+            "k3": lambda: k24.strip_sandwich_spost_cuda(s, ta, t, vec, vec),
+            "k4": lambda: k24.strip_sandwich_cuda(s, ta, s2)}[case[:2]]
+    before = _counts()
+    with pytest.raises(ValueError):
+        call()
+    assert _counts() == before
+
+
+def test_f32_strip_reaches_its_kernels_with_their_plans(monkeypatch):
+    """On the CUDA branch an f32 strip launches the f32 entry points (never
+    the bf16 ones, never the plain versions): K2 with its f32 plan (clusters
+    of 8, two 32-column slabs in flight at P 5248) and t2 unrounded; K3/K4
+    with kp zero-padded to the f32 tile's 128 columns and the f32 split. A
+    failed launch raises and counts nothing."""
+    lib = _FakeLib()
+    monkeypatch.setattr(k24, "_device_kind", lambda *ts: "cuda")
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(k24, "_sms", lambda t: 132)
+    before = _counts()
+    p, n = 5248, 262
+    s = torch.zeros((p, n))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        k24.strip_ext2_cuda(s, torch.full((2, p), 1.0 + 2.0 ** -20),
+                            torch.ones(n))
+    (occ, occ_args), (launch, args) = lib.calls
+    assert occ == "glt_strip_ext2_f32_clusters" and occ_args == (8, 656, 2)
+    assert launch == "glt_strip_ext2_f32"
+    assert args[6:12] == (p, n, 264, 8, 2, 9)   # ld 264; ceil(262 / 32)
+    for kp, kp2 in ((200, 256), (384, 384)):
+        lib.calls.clear()
+        ta = torch.zeros((p, kp))
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            k24.strip_sandwich_spost_cuda(s, ta, torch.ones(p),
+                                          torch.ones(n), torch.ones(n))
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            k24.strip_sandwich_cuda(s, ta, torch.ones(n))
+        assert [c[0] for c in lib.calls] == ["glt_strip_sandwich_f32"] * 2
+        for _, args in lib.calls:
+            splits = k24.sandwich_splits(p, n, kp2, 132, 128, 2, 16)
+            assert args[10:15] == (p, n, 264, kp2, splits)
+    assert lib.calls[1][1][2] is None            # K4 passes no t
+    assert _counts() == before
 
 
 def _split_fp16(x):
@@ -341,39 +458,50 @@ def test_k1_split_fp16_cross_holds_the_f32_cross():
     assert bool((strip[:, 96 * 96:] == 0).all())
 
 
-@pytest.mark.parametrize("p,cluster,stages", [
-    (128, 8, 4),          # the smallest strip: 16 rows a block
-    (1024, 8, 4),
-    (4096, 8, 3),
-    (5248, 8, 2),         # the main path: 656 rows a block
-    (6400, 8, 2),         # the largest P two 64-column slabs of 8 blocks fit
-    (6528, 16, 3),        # past it, clusters of 16
-    (8192, 16, 3),        # the sample cap
-])
-def test_k2_plan_picks_the_cluster_and_stages(p, cluster, stages):
-    """K2's launch plan (csrc glt_strip_ext2 refuses any other): portable
-    8-block clusters with the most 64-column slabs in flight (up to 4, at
-    least 2) within 227 KB, else clusters of 16."""
-    plan = k24.ext2_plan(p)
+@pytest.mark.parametrize("dtype,p,cluster,stages", _by_dtype([
+    ("bf16", 128, 8, 4),      # the smallest strip: 16 rows a block
+    ("bf16", 1024, 8, 4),
+    ("bf16", 4096, 8, 3),
+    ("bf16", 5248, 8, 2),     # the main path: 656 rows a block
+    ("bf16", 6400, 8, 2),     # the largest P two 64-column slabs of 8 fit
+    ("bf16", 6528, 16, 3),    # past it, clusters of 16
+    ("bf16", 8192, 16, 3),    # the sample cap
+    ("f32", 128, 8, 4),
+    ("f32", 3456, 8, 3),
+    ("f32", 5248, 8, 2),      # config 2 f32: two 84 KB slabs
+    ("f32", 6528, 8, 2),      # past bf16's 6400: the f32 partials are smaller
+    ("f32", 6784, 16, 3),     # past 6656, clusters of 16
+    ("f32", 8192, 16, 3),
+]))
+def test_k2_plan_picks_the_cluster_and_stages(dtype, p, cluster, stages):
+    """K2's launch plan (csrc glt_strip_ext2 / glt_strip_ext2_f32 refuse
+    any other): portable 8-block clusters with the most slabs in flight (up
+    to 4, at least 2) within 227 KB, else clusters of 16. A slab row is 128
+    bytes on both strips: 64 bf16 columns or 32 f32 ones."""
+    itemsize = {"bf16": 2, "f32": 4}[dtype]
+    plan = k24.ext2_plan(p, itemsize)
     assert (plan.cluster, plan.stages) == (cluster, stages)
     assert plan.rows == p // cluster
-    assert plan.smem == k24.ext2_smem(plan.rows, plan.stages, plan.cluster)
+    assert plan.smem == k24.ext2_smem(plan.rows, plan.stages, plan.cluster,
+                                      k24.EXT2_ROW // itemsize)
 
 
 def test_k2_plan_serves_every_p_of_the_path():
     """Every P the path gives (multiples of 128 up to the 8192 sample cap):
     the blocks of a cluster cover P, a block's rows are whole 8-row TMA
     boxes and at most 1024 (32 a thread of its 256), at least two slabs in
-    flight, within the 227 KB a block can have."""
-    for p in range(128, k24.EXT2_MAX_P + 1, k24.P_QUANTUM):
-        plan = k24.ext2_plan(p)
+    flight, within the 227 KB a block can have; on a bf16 strip and an
+    f32 one."""
+    for itemsize, p in itertools.product(
+            (2, 4), range(128, k24.EXT2_MAX_P + 1, k24.P_QUANTUM)):
+        plan = k24.ext2_plan(p, itemsize)
         assert plan.cluster in (8, 16)
         assert plan.rows * plan.cluster == p
         assert plan.rows % 8 == 0 and plan.rows <= 1024
         assert 2 <= plan.stages <= 4
         assert plan.smem <= k24.SMEM_CAP
         # the slab ring is the bulk of it: 128 bytes a row a stage
-        assert plan.smem >= plan.stages * plan.rows * 2 * k24.EXT2_SLAB
+        assert plan.smem >= plan.stages * plan.rows * k24.EXT2_ROW
 
 
 @pytest.mark.parametrize("p", [64, 192, 8320])
@@ -487,12 +615,13 @@ def test_k3_k4_tile_edges_match_plain(cuda_device, p, n, kp):
 
 
 @pytest.mark.gpu
-def test_k3_k4_repeat_bit_for_bit(cuda_device):
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_k3_k4_repeat_bit_for_bit(cuda_device, dtype):
     """Phase 2's U sums through per-slice partials and a fixed-order
     reduction, no float atomics: two launches agree bit for bit."""
-    x = _strip_inputs(torch.bfloat16, p=512, n=20000, kp=256, seed=5)
+    x = _strip_inputs(STRIP_DTYPES[dtype], p=512, n=20000, kp=256, seed=5)
     d = {k: torch.tensor(v, device=cuda_device) for k, v in x.items()}
-    s = d["strip"].to(torch.bfloat16)
+    s = d["strip"].to(STRIP_DTYPES[dtype])
     args = (s, d["ta"], d["t"], d["s_pre"], d["bm"])
     a, b = (k24.strip_sandwich_spost_cuda(*args) for _ in range(2))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -545,7 +674,7 @@ def test_k3_k4_do_not_lean(cuda_device):
         assert 0.25 < below < 0.75, below
 
 
-def _device_strip(p, n, dev, seed):
+def _device_strip(p, n, dev, seed, dtype=torch.bfloat16):
     """_strip_inputs' strip, t2 and b_mask made on the card (a P = 8192
     strip is too large to draw with numpy in a test)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -555,17 +684,24 @@ def _device_strip(p, n, dev, seed):
     bm = (torch.rand(n, generator=gen, device=dev) > 0.05).float()
     bm[n - 40:] = 0.0
     t2 = 0.5 + torch.rand((2, p), generator=gen, device=dev)
-    return strip.to(torch.bfloat16), t2, bm
+    return strip.to(dtype), t2, bm
+
+
+STRIP_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p,n", [
-    (8192, 65536),        # the sample cap: clusters of 16, 512 rows a block
-    (8192, 65540),        # ... with a ragged N (a last, partial slab)
-    (128, 4100),          # 16 rows a block, a ragged N
-])
-def test_k2_kernel_matches_plain_across_its_plans(cuda_device, p, n):
-    strip, t2, bm = _device_strip(p, n, cuda_device, seed=p + n)
+@pytest.mark.parametrize("dtype,p,n", _by_dtype([
+    ("bf16", 8192, 65536),    # the sample cap: clusters of 16, 512 rows a block
+    ("bf16", 8192, 65540),    # ... with a ragged N (a last, partial slab)
+    ("bf16", 128, 4100),      # 16 rows a block, a ragged N
+    ("f32", 8192, 65540),     # the sample cap: clusters of 16, a ragged N
+    ("f32", 6528, 4100),      # clusters of 8 with two slabs, past bf16's 6400
+    ("f32", 128, 4100),
+]))
+def test_k2_kernel_matches_plain_across_its_plans(cuda_device, dtype, p, n):
+    strip, t2, bm = _device_strip(p, n, cuda_device, p + n,
+                                  STRIP_DTYPES[dtype])
     before = k24.strip_ext2_cuda.launches
     got = k24.strip_ext2_cuda(strip, t2, bm)
     assert k24.strip_ext2_cuda.launches == before + 1
@@ -575,23 +711,111 @@ def test_k2_kernel_matches_plain_across_its_plans(cuda_device, p, n):
 
 
 @pytest.mark.gpu
-def test_k2_repeats_bit_for_bit(cuda_device):
+@pytest.mark.parametrize("dtype", list(STRIP_DTYPES))
+def test_k2_repeats_bit_for_bit(cuda_device, dtype):
     """kbt meets in a fixed tree (rank order through distributed shared
     memory) and u through per-cluster partials summed in a fixed order: two
     launches agree bit for bit."""
-    strip, t2, bm = _device_strip(5248, 20000, cuda_device, seed=9)
+    strip, t2, bm = _device_strip(5248, 20000, cuda_device, 9,
+                                  STRIP_DTYPES[dtype])
     a, b = (k24.strip_ext2_cuda(strip, t2, bm) for _ in range(2))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.gpu
-def test_k2_plan_mirrors_the_library(cuda_device):
+@pytest.mark.parametrize("dtype", list(STRIP_DTYPES))
+def test_k2_plan_mirrors_the_library(cuda_device, dtype):
     """ext2_plan's shared bytes are the library's for every P of the path."""
     lib = _build.lib()
+    smem = {"bf16": lib.glt_ext2_smem_bytes,
+            "f32": lib.glt_strip_ext2_f32_smem_bytes}[dtype]
     for p in range(128, k24.EXT2_MAX_P + 1, k24.P_QUANTUM):
-        plan = k24.ext2_plan(p)
-        assert lib.glt_ext2_smem_bytes(plan.rows, plan.stages,
-                                       plan.cluster) == plan.smem
+        plan = k24.ext2_plan(p, STRIP_DTYPES[dtype].itemsize)
+        assert smem(plan.rows, plan.stages, plan.cluster) == plan.smem
+
+
+# the f32 sweeps: f32 sums in another order (no rounding point to flip)
+REL_F32_SWEEP = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,n,kp", [
+    (256, 4096, 200),     # kp zero-padded to the 128-column f32 tile
+    (128, 4100, 128),     # N not a multiple of the tiles or the slabs
+    (128, 4102, 128),     # N % 4 != 0: the strip copied to rows of 4104
+    (384, 130, 384),      # N under one output tile; three sketch tiles
+    (256, 3000, 512),
+])
+def test_f32_sweeps_match_plain(cuda_device, p, n, kp):
+    """K2-K4 on an f32 strip against their plain versions, at the tiles'
+    and slabs' edges."""
+    x = _strip_inputs(torch.float32, p=p, n=n, kp=kp, seed=p + n)
+    d = {k: torch.tensor(v, device=cuda_device) for k, v in x.items()}
+    s = d["strip"]
+    before = _counts()
+    got = k24.strip_ext2_cuda(s, d["t2"], d["bm"])
+    ref = k24.strip_ext2_plain(s, d["t2"], d["bm"])
+    assert got[0].shape == (p,) and got[1].shape == (n,)
+    assert max(map(_rel_err, got, ref)) <= REL_F32_SWEEP
+    got = k24.strip_sandwich_spost_cuda(s, d["ta"], d["t"], d["s_pre"],
+                                        d["bm"])
+    ref = k24.strip_sandwich_spost_plain(s, d["ta"], d["t"], d["s_pre"],
+                                         d["bm"])
+    assert got[0].shape == (p, kp) and got[1].shape == (n,)
+    assert max(map(_rel_err, got, ref)) <= REL_F32_SWEEP
+    got = k24.strip_sandwich_cuda(s, d["ta"], d["s2"])
+    ref = k24.strip_sandwich_plain(s, d["ta"], d["s2"])
+    assert _rel_err(got, ref) <= REL_F32_SWEEP
+    after = _counts()
+    assert [a - b for a, b in zip(after[1:], before[1:])] == [1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_f32_sweeps_do_not_lean(cuda_device):
+    """On an f32 strip from the K1 emitter (a 256x256 test image's patch
+    features, p 768, N 65536), K2's u and s and K3/K4's u lean to neither
+    side of the same sums in f64: the share of (kernel - f64) sign(f64)
+    below zero lies in (0.25, 0.75). K2's u sums positive terms, where a
+    running f32 sum too long for its terms drops their tails and leans
+    low."""
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(256, 256), 0.1,
+                                        seed=1), 0, 1).astype(np.float32)
+    f = taff.extract_features(torch.tensor(img, device=cuda_device),
+                              gt.CONFIG2)
+    rng = np.random.default_rng(7)
+    p = 768
+    idx = torch.tensor(rng.choice(f.shape[0], p, replace=False),
+                       device=cuda_device)
+    strip = k1.affinity_strip_cuda(f[idx], f, torch.float32).contiguous()
+    n = strip.shape[1]
+
+    def vec(size, lo=0.5):
+        return torch.tensor((lo + rng.random(size)).astype(np.float32),
+                            device=cuda_device)
+
+    ta = torch.tensor(rng.standard_normal((p, 256)).astype(np.float32),
+                      device=cuda_device)
+    t2, t, s_pre, bm = vec((2, p)), vec(p), vec(n), torch.ones(
+        n, device=cuda_device)
+    kb = strip.double()
+    kbt = t2.double() @ kb
+    s64 = bm.double() / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+    sp2 = s_pre.double() / torch.clamp(t.double() @ kb, min=1e-30)
+
+    def sandwich64(s2):
+        return kb @ ((kb.T @ ta.double()) * s2[:, None])
+
+    u, s = k24.strip_ext2_cuda(strip, t2, bm)
+    pairs = [(u, kb @ s64), (s, s64),
+             (k24.strip_sandwich_spost_cuda(strip, ta, t, s_pre, bm)[0],
+              sandwich64(sp2)),
+             (k24.strip_sandwich_cuda(strip, ta, s_pre),
+              sandwich64(s_pre.double()))]
+    for got, ref in pairs:
+        keep = ref != 0
+        lean = ((got.double() - ref) * torch.sign(ref))[keep]
+        below = float((lean < 0).double().mean())
+        assert 0.25 < below < 0.75, below
 
 
 def _config2_features(dev, p=300, seed=4):

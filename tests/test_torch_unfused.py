@@ -364,17 +364,20 @@ def test_v_free_branch_matches_v_branch(img_noisy, monkeypatch):
 
 # --- filter_image_staged -----------------------------------------------------
 
-@pytest.mark.parametrize("route", ["recompute", "strip_cache"])
+@pytest.mark.parametrize("route", ["recompute", "strip_cache",
+                                   "strip_cache_f32"])
 def test_staged_matches_reference(jx, img_noisy, route):
     """The staged schedule (unfused, even for a fused-finish recipe) on a
-    recompute config and on config 2's strip_cache recipe."""
+    recompute config and on config 2's strip_cache recipe, with its
+    bfloat16_store strip or its f32 one (the f32 bars)."""
     img, noisy = img_noisy
     if route == "recompute":
         cfg = _cfg(sinkhorn_polish=1, fused_finish=True)
         plan = gt.make_plan(noisy, cfg)
         hooks = dict(x0=T(_x0(jx, plan.p, cfg.num_eigvecs)))
     else:
-        cfg = _cfg2()
+        cfg = (_cfg2(affinity_dtype="float32") if route == "strip_cache_f32"
+               else _cfg2())
         plan = gt.make_plan(noisy, cfg)
         k = min(cfg.num_eigvecs + cfg.sketch_oversample, plan.p)
         hooks = dict(omega=T(_x0(jx, plan.p, k)))
@@ -382,7 +385,8 @@ def test_staged_matches_reference(jx, img_noisy, route):
     res = _filter_streaming_staged(noisy, cfg, plan, "cpu", **hooks)
     assert set(res.timings) == set(ref.timings) == STAGES
     assert all(v >= 0.0 for v in res.timings.values())
-    assert_bars(img, res.image, ref.image, BARS["bfloat16"])
+    assert_bars(img, res.image, ref.image,
+                BARS["float32" if route == "strip_cache_f32" else "bfloat16"])
     np.testing.assert_allclose(res.eigvals[0], ref.eigvals[0], rtol=1e-2)
 
 
