@@ -55,6 +55,19 @@ non-zero before the last line is printed):
             2e-2), PSNR printed (the recipe degenerates in the reference
             too: no gain required); 96x96 card vs CPU plain (0.05 dB,
             2e-2).
+3d. config 2 at 7x7 — make_workload_p7: config 2's recipe with an NLM 7x7
+              patch (the CLI's -patch 7), 49 feature lanes:
+   kernels  K1's 64-lane instantiation, bf16 and f32 stores, on the path's
+            own features into its strip's shape (5248 x 262144, poisoned
+            pad rows), against their plain versions, timed beside their
+            cuBLAS composition, launched twice bit for bit (K2-K4 take the
+            strip as at 5x5: no feature axis);
+   e2e      filter_image: K1 (64 lanes), K2, K3, K4 once a call, gain > 5
+            dB, kernel vs plain path on the image and the eigenvalues
+            (0.05 dB, 2e-2); 96x96 card vs CPU plain; then the recipe with
+            its f32 strip kept (make_workload_f32 at 7x7, the f32 store's
+            path): K1 f32 (64 lanes) and the f32 K2-K4 once a call, gain >
+            5 dB, 0.02 dB / 2e-3 from its plain path.
 4. config 4 — the recompute-streaming fused-finish path (benchmarks/run.py's
               cfg4_8mp_compliant_turbo_p1: 2048x4096 test image, sigma 0.1
               seed 1, p=4096, m=50, bf16 tiles, coarse Sinkhorn and gram
@@ -74,6 +87,15 @@ non-zero before the last line is printed):
    plain    the same factor through the plain versions on the card;
    small    96x96 on the recompute recipe of tests/test_torch_recompute.py,
             card kernels against CPU plain versions, same LOBPCG start.
+4b. config 4 at 7x7 — make_workload_8mp_p7: the same recipe with an NLM 7x7
+              patch, bf16 aug tiles of 55 lanes padded to 64: phase 4 on the
+              64-lane K7, K8 and K9 (rows *_d64: against plain, timed,
+              twice bit for bit, K8's u and K9's V leans required, K7, K8,
+              K9 once a call, gain > 1 dB, 0.05 dB / 2e-2 from the plain
+              path, 96x96 vs the CPU); then phase 7 (the turbo recipe) at
+              7x7, K10's path: the 64-lane K10 against plain, its V lean
+              required, K7 and K10 once a call, gain > 1 dB, plain path,
+              96x96.
 5. config 3 — the recompute matvec route, bf16 aug layout (benchmarks/run.py's
               cfg3_1024_rgb_sharpen: 1024x1024 RGB test image, noise sigma
               0.03 seed 3, tuned_config(CONFIG3, "fast"): per-channel
@@ -164,9 +186,10 @@ non-zero before the last line is printed):
             and K10 once a call;
    small    the recipe written out at 96x96, fused finish on and off, card
             kernels against CPU plain versions (0.02 dB, 2e-3).
-11. result  — one JSON line listing every kernel (name, route, source,
-              replaces, launches, max_abs_err, ms, plain_ms, bound_ms,
-              bound_by, library_ms), the card line, then the contract line
+11. result  — one JSON line listing every kernel and layout (29 rows:
+              name, route, source, replaces, launches, max_abs_err, ms,
+              plain_ms, bound_ms, bound_by, library_ms) after the line with
+              the run's total seconds, the card line, then the contract line
               {"ok": true, "device": {...}}.
 
 Needs one CUDA card and the CUDA toolkit; imports neither JAX nor the JAX
@@ -177,6 +200,7 @@ build/chip_smoke/chip_smoke.json and build/chip_smoke/ptxas.txt.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -282,6 +306,18 @@ TOL = {
     # there is 2e-3), which moves an entry by up to ~2^-8 of itself before
     # the store rounds it: two bf16 ulps (2^-7) absolute
     "affinity_strip_coord": 2.0 ** -7,
+    # the 64-lane instantiations (an NLM 7 x 7 patch, 49 lanes) on config 2
+    # and config 4 at 7 x 7: the split cross over 64 lanes stays under
+    # 2^-13 of 2^(Ea + Eb) (tests/test_torch_kernels.py, re-derived from
+    # the lane count), a few f32 ulps of the norms in d2 as at 32 lanes, so
+    # K1 keeps its bars; K7-K10 round at the same points as at 32 lanes
+    # with a d2 chain twice as long, so they keep theirs
+    "affinity_strip_d64": 2.0 ** -8,
+    "affinity_strip_f32_d64": 5e-5,
+    "kb_strip_d64": 2.0 ** -7,
+    "ext2_matvec_d64": 2e-2,
+    "finish_colstats_d64": 2.0 ** -7,
+    "colstats_v_d64": 2.0 ** -7,
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
@@ -307,6 +343,12 @@ REPLACES = {
     "strip_sandwich_spost_f32": "graphlap_tpu/ops/pallas_streaming.py:1045",
     "strip_sandwich_f32": "graphlap_tpu/ops/pallas_streaming.py:1110",
     "affinity_strip_coord": "graphlap_tpu/ops/pallas_affinity.py:76",
+    "affinity_strip_d64": "graphlap_tpu/ops/pallas_affinity.py:76",
+    "affinity_strip_f32_d64": "graphlap_tpu/ops/pallas_affinity.py:76",
+    "kb_strip_d64": "graphlap_tpu/ops/pallas_streaming.py:319",
+    "ext2_matvec_d64": "graphlap_tpu/ops/pallas_streaming.py:554",
+    "finish_colstats_d64": "graphlap_tpu/ops/pallas_streaming.py:677",
+    "colstats_v_d64": "graphlap_tpu/ops/pallas_streaming.py:817",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -332,6 +374,12 @@ SOURCE = {
     "strip_sandwich_spost_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "affinity_strip_coord": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "affinity_strip_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "affinity_strip_f32_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "kb_strip_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "ext2_matvec_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "finish_colstats_d64": "graphlap_tpu_torch/csrc/colstats_v.cu",
+    "colstats_v_d64": "graphlap_tpu_torch/csrc/colstats_v.cu",
 }
 NAMES = list(TOL)
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
@@ -342,7 +390,13 @@ BIT_REPEAT = ("affinity_strip_f32", "strip_ext2", "strip_sandwich_spost",
               "colstats_v", "kb_strip_f32", "ext2_matvec_f32",
               "finish_colstats_f32", "colstats_v_f32", "matvec_coord",
               "rmatvec_coord", "strip_ext2_f32", "strip_sandwich_spost_f32",
-              "strip_sandwich_f32")
+              "strip_sandwich_f32", "affinity_strip_d64",
+              "affinity_strip_f32_d64", "kb_strip_d64", "ext2_matvec_d64",
+              "finish_colstats_d64", "colstats_v_d64")
+# kernels whose entries lie in [0, 1] (K1, K7): checked absolute, see TOL
+ABSOLUTE = ("affinity_strip", "affinity_strip_f32", "kb_strip",
+            "kb_strip_f32", "affinity_strip_coord", "affinity_strip_d64",
+            "affinity_strip_f32_d64", "kb_strip_d64")
 # the f32 kernels on coordinate features, whose sums often tie their plain
 # version's bit for bit: their leans leave the ties out (signed_stats)
 UNTIED = ("ext2_matvec_f32", "finish_colstats_f32", "colstats_v_f32",
@@ -501,8 +555,7 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
         scales = scale_fn[0](ref) if scale_fn else None
         err, rels = max_rel_err(*pair, scales)
         rel = max(rels)
-        if name in ("affinity_strip", "affinity_strip_f32", "kb_strip",
-                    "kb_strip_f32", "affinity_strip_coord"):
+        if name in ABSOLUTE:
             rel = err                                 # absolute, see TOL
         if name in BIT_REPEAT:
             again = kern(*args)
@@ -559,27 +612,35 @@ def noisy_image(gt, h, w):
     return img, noisy
 
 
-def make_workload(gt):
-    """bench.make_workload's recipe, rebuilt on the port: (cfg, clean image,
-    noisy f32 image, plan)."""
+def make_workload(gt, patch=5):
+    """bench.make_workload's recipe, rebuilt on the port, with an NLM
+    ``patch`` x ``patch`` patch (config 2's 5): (cfg, clean image, noisy f32
+    image, plan)."""
     cfg = gt.CONFIG2.replace(streaming=True, strip_cache=True,
                              block_cols=H * W, use_pallas=True,
                              affinity_dtype="bfloat16_store",
                              sinkhorn_iters=6, solver="sketch",
                              sketch_oversample=206, sketch_power=0,
-                             sinkhorn_coarse=16, sinkhorn_polish=1)
+                             sinkhorn_coarse=16, sinkhorn_polish=1,
+                             patch_size=patch)
     img, noisy = noisy_image(gt, H, W)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
 
-def make_workload_f32(gt):
+def make_workload_p7(gt):
+    """Config 2 at 7 x 7: bench.make_workload's recipe with patch_size=7
+    (the CLI's -patch 7): 49 feature lanes, K1's 64-lane split cross."""
+    return make_workload(gt, patch=7)
+
+
+def make_workload_f32(gt, patch=5):
     """Config 2 with its f32 strip kept: bench.make_workload's recipe with
     affinity_dtype="float32", which is tuned_config(CONFIG2, 512*512,
-    "fast", keep={"affinity_dtype"}) (checked): (cfg, clean image, noisy
-    f32 image, plan)."""
-    cfg = make_workload(gt)[0].replace(affinity_dtype="float32")
-    require(cfg == gt.tuned_config(gt.CONFIG2, H * W, "fast",
-                                   keep={"affinity_dtype"}),
+    "fast", keep={"affinity_dtype"}) (checked), at an NLM ``patch``:
+    (cfg, clean image, noisy f32 image, plan)."""
+    cfg = make_workload(gt, patch)[0].replace(affinity_dtype="float32")
+    require(cfg == gt.tuned_config(gt.CONFIG2.replace(patch_size=patch),
+                                   H * W, "fast", keep={"affinity_dtype"}),
             "the f32 recipe is not config 2's fast preset with its f32 kept")
     img, noisy = noisy_image(gt, H, W)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
@@ -595,27 +656,36 @@ def make_workload_config1_fast(gt):
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
 
-def make_workload_8mp(gt, h=H8, w=W8):
+def make_workload_8mp(gt, h=H8, w=W8, patch=5):
     """benchmarks/run.py's cfg4_8mp_compliant_turbo_p1 (row4 + row4p),
-    rebuilt on the port: (cfg, clean image, noisy f32 image, plan)."""
+    rebuilt on the port, with an NLM ``patch`` x ``patch`` patch: (cfg,
+    clean image, noisy f32 image, plan)."""
     cfg = gt.PipelineConfig(
         kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
         num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
         streaming=True, block_cols=65536, affinity_dtype="bfloat16",
         use_pallas=True, sinkhorn_coarse=64, gram_coarse=64,
-        sinkhorn_polish=1, fused_finish=True)
+        sinkhorn_polish=1, fused_finish=True, patch_size=patch)
     img, noisy = noisy_image(gt, h, w)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
 
-def make_workload_8mp_turbo(gt):
+def make_workload_8mp_p7(gt):
+    """Config 4 at 7 x 7: cfg4_8mp_compliant_turbo_p1 with patch_size=7,
+    the 64-lane layouts (bf16 aug tiles of 55 lanes padded to 64)."""
+    return make_workload_8mp(gt, patch=7)
+
+
+def make_workload_8mp_turbo(gt, patch=5):
     """benchmarks/run.py's cfg4_8mp_turbo_sc64_gc64 (row4 + row4x), rebuilt
-    on the port: (cfg, clean image, noisy f32 image, plan)."""
+    on the port, with an NLM ``patch``: (cfg, clean image, noisy f32 image,
+    plan)."""
     cfg = gt.PipelineConfig(
         kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
         num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
         streaming=True, block_cols=65536, affinity_dtype="bfloat16",
-        use_pallas=True, sinkhorn_coarse=64, gram_coarse=64)
+        use_pallas=True, sinkhorn_coarse=64, gram_coarse=64,
+        patch_size=patch)
     img, noisy = noisy_image(gt, H8, W8)
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
@@ -685,10 +755,10 @@ def matvec_cases(ctx, dev, names, rows):
     return cases, rows, signed
 
 
-def colstats_v_cases(ctx, cfg, img_d, dev, rows):
-    """K10 at the turbo path's shapes on its layouts: V's eigenvector block
-    and the column scales from a seeded generator, the image as y; V's
-    lean is required."""
+def colstats_v_cases(ctx, cfg, img_d, dev, rows, name="colstats_v"):
+    """K10 (``name``) at the turbo path's shapes on its layouts: V's
+    eigenvector block and the column scales from a seeded generator, the
+    image as y; V's lean is required."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import cuda_recompute as k79
 
@@ -707,14 +777,14 @@ def colstats_v_cases(ctx, cfg, img_d, dev, rows):
     fd = ctx.f_t.shape[0]
     e = pp * nk
     cases = {
-        "colstats_v": (k79.colstats_v_cuda, k79.colstats_v_plain,
+        name: (k79.colstats_v_cuda, k79.colstats_v_plain,
                        (ctx.fa_pad, ctx.f_t, gr, y, cols, na, nb),
                        bound(2 * fd * (pp + nk) + 4 * nk * (3 + mk)
                              + 4 * pp * (mk + 1), 2 * e * (fd + mk), 6 * e,
                              e),
                        colstats_scales(y)),
     }
-    return cases, rows, {"colstats_v": (0, n, False, True)}
+    return cases, rows, {name: (0, n, False, True)}
 
 
 def strip_library(dtype=torch.bfloat16) -> dict:
@@ -769,6 +839,9 @@ def strip_library(dtype=torch.bfloat16) -> dict:
         "affinity_strip_f32": (affinity, cross + "the clamp and exp"),
         "affinity_strip_coord": (affinity, cross + "the clamp, exp and the "
                                  "bf16 cast"),
+        "affinity_strip_d64": (affinity, cross + "the clamp, exp and the bf16 "
+                               "cast"),
+        "affinity_strip_f32_d64": (affinity, cross + "the clamp and exp"),
         "strip_ext2" + sfx: (ext2, sweeps + f"mm({r('t2')}, K), the scale, "
                              f"then mm(K, {r('s')})" + (
                                  " (cuBLAS has no bf16 x f32 product)"
@@ -845,19 +918,15 @@ def strip_cases(ctx, cfg, dev):
     ``sandwich_f64``. On an f32 strip K2-K4 are named ``*_f32`` and their
     sandwich products counted as f32 FFMA; each beside ``strip_library``'s
     composition for the strip's dtype."""
-    from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
     strip, p = ctx.strip_pad, ctx.p
     pp, n = strip.shape
     f32 = strip.dtype == torch.float32
-    d = ctx.feats_a.shape[1]
     k = min(cfg.num_eigvecs + cfg.sketch_oversample, p)
     kp = -(-k // 128) * 128
     gen = torch.Generator(device=dev).manual_seed(1)
     rand = lambda *s: torch.rand(*s, generator=gen, device=dev)  # noqa: E731
-    feats_a = torch.full((pp, d), 1e3, device=dev)
-    feats_a[:p] = ctx.feats_a
     t2 = torch.zeros((2, pp), device=dev)
     t2[:, :p] = 0.5 + rand(2, p)
     ta = torch.zeros((pp, kp), device=dev)
@@ -876,21 +945,7 @@ def strip_cases(ctx, cfg, dev):
         return (dict(f32_flops=4 * e * kp2 + beside) if f32 else
                 dict(bf16_flops=4 * e * kp2, f32_flops=beside))
 
-    # K1's bound: the store's bytes and the features read once; the
-    # operations: one exp an entry and the cross, at the reference's
-    # "highest" precision as three fp16 tensor passes over the 32 padded
-    # lanes and ~8 f32 operations an entry (as the f32 K5/K6 count it,
-    # matvec_cases), or on coordinate features the IEEE f32 FFMA chain over
-    # the live lanes
-    k1_bytes = item * e + 4 * d * (pp + n)
-    k1_name = ("affinity_strip_coord" if ctx.coords else
-               "affinity_strip_f32" if f32 else "affinity_strip")
-    k1_bound = (bound(k1_bytes, 0, 2 * ctx.live * e, e) if ctx.coords else
-                bound(k1_bytes, 3 * 2 * e * 32, 8 * e, e))
-    cases = {k1_name: (k1.affinity_strip_cuda, k1.affinity_strip_plain,
-                       (feats_a, ctx.feats_pad, ctx.dtype,
-                        None if f32 else torch.bfloat16, ctx.coords),
-                       k1_bound)}
+    cases = dict([k1_case(ctx, f32, dev)])
     cases.update({
         "strip_ext2" + sfx: (k24.strip_ext2_cuda, k24.strip_ext2_plain,
                              (strip, t2, ctx.b_mask),
@@ -910,6 +965,37 @@ def strip_cases(ctx, cfg, dev):
               "strip_sandwich_spost" + sfx: (0, p, False, True, spost_f64),
               "strip_sandwich" + sfx: (0, p, False, True, sandwich_f64)}
     return cases, signed, strip_library(strip.dtype)
+
+
+def k1_case(ctx, f32, dev):
+    """(name, case) of K1 on a strip_cache path's feature rows, the padding
+    rows poisoned as ``_strip_ctx`` poisons them, into the strip's shape:
+    ``affinity_strip`` (the bf16 store), ``affinity_strip_f32`` (``f32``:
+    the f32 store) or ``affinity_strip_coord`` (the IEEE f32 cross on
+    coordinate features, the bf16 store), with ``_d64`` past 32 feature
+    lanes (the 64-lane instantiation). Its bound: the store's bytes and the
+    features read once; the operations: one exp an entry and the cross, at
+    the reference's "highest" precision as three fp16 tensor passes over
+    the kernel's 32 or 64 padded lanes and ~8 f32 operations an entry (as
+    the f32 K5/K6 count it, matvec_cases), or on coordinate features the
+    IEEE f32 FFMA chain over the live lanes."""
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+
+    pp, n = ctx.strip_pad.shape
+    p, d = ctx.feats_a.shape
+    feats_a = torch.full((pp, d), 1e3, device=dev)
+    feats_a[:p] = ctx.feats_a
+    e, item = pp * n, 4 if f32 else 2
+    k1_bytes = item * e + 4 * d * (pp + n)
+    lanes = 32 if d <= 32 else 64
+    name = ("affinity_strip_coord" if ctx.coords else
+            "affinity_strip_f32" if f32 else "affinity_strip")
+    name += "_d64" if lanes == 64 else ""
+    k1_bound = (bound(k1_bytes, 0, 2 * ctx.live * e, e) if ctx.coords else
+                bound(k1_bytes, 3 * 2 * e * lanes, 8 * e, e))
+    return name, (k1.affinity_strip_cuda, k1.affinity_strip_plain,
+                  (feats_a, ctx.feats_pad, ctx.dtype,
+                   None if f32 else torch.bfloat16, ctx.coords), k1_bound)
 
 
 def config2(gt, dev, rows, launches, info):
@@ -940,6 +1026,59 @@ def config2(gt, dev, rows, launches, info):
                      for k, c in rec["launches_per_call"].items()})
     rec.update(small_strip(gt, cfg, dev, (0.05, 2e-2), "config 2"))
     info["config2"] = rec
+
+
+def config2_p7(gt, dev, rows, launches, info):
+    """Config 2 at 7 x 7 (make_workload_p7): K1's 64-lane split cross, both
+    stores, on the path's own 49-lane features into its strip's shape (K2-K4
+    take the strip as at 5 x 5: no feature axis); the path end to end with
+    its bf16 strip, and with its f32 strip kept (make_workload_f32 at 7 x
+    7, the f32 store's path)."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+    from graphlap_tpu_torch.ops import cuda_strip as k24
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_p7(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    pp, n = ctx.strip_pad.shape
+    require(ctx.feats_a.shape[1] == 49 and ctx.strip_pad.dtype
+            == torch.bfloat16, "config 2 at 7x7 did not reach 49 lanes and "
+            "the bf16 store")
+    phase("config2-p7", f"workload and strip at {H}x{W} (p={ctx.p}, p_pad="
+          f"{pp}, N={n}, {ctx.feats_a.shape[1]} feature lanes)", t0)
+    cases = dict(k1_case(ctx, f32, dev) for f32 in (False, True))
+    run_cases(cases, rows, library=strip_library())
+    del ctx, cases
+    torch.cuda.empty_cache()
+
+    stages = {"strip_ext2": k24.strip_ext2_cuda,
+              "strip_sandwich_spost": k24.strip_sandwich_spost_cuda,
+              "strip_sandwich": k24.strip_sandwich_cuda}
+    _, rec = strip_path(gt, "config 2 at 7x7", cfg, img, noisy, plan, dev,
+                        {"affinity_strip_d64": k1.affinity_strip_cuda,
+                         **stages}, (0.05, 2e-2))
+    require(rec["psnr_out"] > rec["psnr_in"] + 5.0,
+            "config 2 at 7x7: denoise gain under 5 dB")
+    launches["affinity_strip_d64"] = round(
+        rec["launches_per_call"]["affinity_strip_d64"] * RUNS)
+    torch.cuda.empty_cache()
+    rec.update(small_strip(gt, cfg, dev, (0.05, 2e-2), "config 2 at 7x7"))
+
+    # the f32 store's path: config 2's f32 strip kept, at 7 x 7
+    cfg, img, noisy, plan = make_workload_f32(gt, patch=7)
+    _, rec_f32 = strip_path(
+        gt, "config 2 f32 at 7x7", cfg, img, noisy, plan, dev,
+        {"affinity_strip_f32_d64": k1.affinity_strip_cuda,
+         **{k + "_f32": fn for k, fn in stages.items()}}, (0.02, 2e-3))
+    require(rec_f32["psnr_out"] > rec_f32["psnr_in"] + 5.0,
+            "config 2 f32 at 7x7: denoise gain under 5 dB")
+    launches["affinity_strip_f32_d64"] = round(
+        rec_f32["launches_per_call"]["affinity_strip_f32_d64"] * RUNS)
+    rec["f32_strip"] = rec_f32
+    info["config2_p7"] = rec
 
 
 def small_strip(gt, cfg, dev, bars, tag):
@@ -1122,14 +1261,19 @@ def config1_fast(gt, dev, rows, launches, info):
     info["config1_fast"] = rec
 
 
-def config4(gt, dev, rows, launches, info):
+def config4(gt, dev, rows, launches, info, patch=5):
+    """Config 4's fused finish at 8 MP (make_workload_8mp) with an NLM
+    ``patch`` x ``patch`` patch: K7-K9 at the path's shapes, the path end
+    to end, and the recipe at 96x96 against the CPU. At 7 x 7 (64-lane
+    layouts) the kernels' rows are named ``*_d64``."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_recompute as k79
     from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
 
     t0 = time.perf_counter()
-    cfg, img, noisy, plan = make_workload_8mp(gt)
+    sfx = "_d64" if patch == 7 else ""
+    cfg, img, noisy, plan = make_workload_8mp(gt, patch=patch)
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
@@ -1162,15 +1306,15 @@ def config4(gt, dev, rows, launches, info):
     feat_bytes = 2 * fd * (pp + nk)
     e7, e = pp * sg, pp * nk
     cases = {
-        "kb_strip": (k79.kb_strip_cuda, k79.kb_strip_plain,
+        "kb_strip" + sfx: (k79.kb_strip_cuda, k79.kb_strip_plain,
                      (ctx.fa_aug, ft_g, rand(sg), True),
                      bound(2 * fd * (pp + sg) + 4 * sg + 2 * e7,
                            2 * e7 * fd, 3 * e7)),
-        "ext2_matvec": (k79.ext2_matvec_cuda, k79.ext2_matvec_plain,
+        "ext2_matvec" + sfx: (k79.ext2_matvec_cuda, k79.ext2_matvec_plain,
                         (ctx.fa_aug, ctx.f_t, t2, bm, True),
                         bound(feat_bytes + 8 * nk + 12 * pp, 2 * e * fd,
                               8 * e)),
-        "finish_colstats": (k79.finish_colstats_cuda,
+        "finish_colstats" + sfx: (k79.finish_colstats_cuda,
                             k79.finish_colstats_plain,
                             (ctx.fa_pad, ctx.f_t, tv, s_pre, bm, gr, y, na,
                              nb),
@@ -1179,11 +1323,12 @@ def config4(gt, dev, rows, launches, info):
                                   2 * e * (fd + mk), 8 * e, e),
                             colstats_scales(y)),
     }
-    phase("config4", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
-          f"N={n}, gram columns {sg}, V width {mk})", t0)
+    phase("config4", f"workload and layouts at {H8}x{W8} (patch {patch}, "
+          f"p={p}, p_pad={pp}, N={n}, {fd} feature lanes, gram columns "
+          f"{sg}, V width {mk})", t0)
     # V's lean (its pass is K10's): required
-    run_cases(cases, rows, {"finish_colstats": (0, n, False, True)},
-              {"kb_strip": (kb_library, "a cuBLAS composition, not one call: "
+    run_cases(cases, rows, {"finish_colstats" + sfx: (0, n, False, True)},
+              {"kb_strip" + sfx: (kb_library, "a cuBLAS composition, not one call: "
                             "torch.mm(fa_aug, f_t) bf16 in, f32 out, then "
                             "bf16(max(d2, 0)), exp, the bf16 entry, the scale "
                             "by bf16(cols), the bf16 cast")})
@@ -1191,21 +1336,21 @@ def config4(gt, dev, rows, launches, info):
     # the rest of the K7 cross: the bf16-in / f32-out gram GEMM that follows
     # the emitter (cuda_recompute._gram) on its output
     t0 = time.perf_counter()
-    kb = k79.kb_strip_cuda(*cases["kb_strip"][2])
+    kb = k79.kb_strip_cuda(*cases["kb_strip" + sfx][2])
     ms_gram = cuda_ms(lambda: k79._gram(kb), 5)
-    ms_k7 = rows["kb_strip"]["ms"]
+    ms_k7 = rows["kb_strip" + sfx]["ms"]
     del kb
     phase("kernel", f"kb_strip cross: emitter {ms_k7:.3f} ms + gram GEMM "
           f"{ms_gram:.3f} ms ((p_pad, {sg}) x ({sg}, p_pad), bf16 in, f32 "
           f"out); the emitter is {ms_k7 / (ms_k7 + ms_gram):.3f} of the "
           f"cross", t0)
-    rows["kb_strip"]["gram_gemm_ms"] = ms_gram
+    rows["kb_strip" + sfx]["gram_gemm_ms"] = ms_gram
 
     # K8's u and s apart, u signed: tile entries that flip and another sum
     # order scatter u both ways; an accumulation that rounds toward zero
     # pulls every row of an all-positive u low
     t0 = time.perf_counter()
-    (u_k, s_k), (u_p, s_p) = (f(*cases["ext2_matvec"][2]) for f in
+    (u_k, s_k), (u_p, s_p) = (f(*cases["ext2_matvec" + sfx][2]) for f in
                               (k79.ext2_matvec_cuda, k79.ext2_matvec_plain))
     r = ((u_k - u_p) / u_p.abs().clamp_min(1e-30))[:p]
     u_diag = dict(u_rel=float((u_k - u_p).abs().max() / u_p.abs().max()),
@@ -1220,16 +1365,16 @@ def config4(gt, dev, rows, launches, info):
           f"{u_diag['u_rows_low']:.4f}", t0)
     require(SIGNED_BAND[0] < u_diag["u_rows_low"] < SIGNED_BAND[1],
             "ext2_matvec: u is biased to one side of its plain version")
-    info["ext2_matvec_apart"] = u_diag
+    info["ext2_matvec_apart" + sfx] = u_diag
     del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm, u_k, s_k, u_p, s_p
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    counters = {"kb_strip": k79.kb_strip_cuda,
-                "ext2_matvec": k79.ext2_matvec_cuda,
-                "finish_colstats": k79.finish_colstats_cuda}
+    counters = {"kb_strip" + sfx: k79.kb_strip_cuda,
+                "ext2_matvec" + sfx: k79.ext2_matvec_cuda,
+                "finish_colstats" + sfx: k79.finish_colstats_cuda}
     res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
-                                     "8 MP")
+                                     f"8 MP, patch {patch}")
     launches.update(counts)
     psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
     per_call = {k: v / RUNS for k, v in counts.items()}
@@ -1257,7 +1402,7 @@ def config4(gt, dev, rows, launches, info):
         kernel="nlm", h=0.25, sample_rho=0.03, num_eigvecs=16,
         sinkhorn_iters=4, streaming=True, block_cols=2048, use_pallas=True,
         sinkhorn_coarse=4, sinkhorn_polish=1, gram_coarse=4,
-        fused_finish=True, affinity_dtype="bfloat16")
+        fused_finish=True, affinity_dtype="bfloat16", patch_size=patch)
     im_s, nz_s = noisy_image(gt, 96, 96)
     pl_s = gt.make_plan(nz_s, small)
     x0 = lobpcg_x0(pl_s.p, small.num_eigvecs, "cpu")
@@ -1275,7 +1420,7 @@ def config4(gt, dev, rows, launches, info):
           f"{gt.psnr(im_s, z_gpu):.3f} dB", t0)
     require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
             "96x96 recompute card run != CPU plain run")
-    info["config4"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+    info["config4" + sfx] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
                            psnr_out=psnr_out, launches_per_call=per_call,
                            plain_path_db=d_db, plain_path_max=d_max,
                            small_db=s_db, small_max=s_max)
@@ -1449,14 +1594,19 @@ def config4q(gt, dev, rows, launches, info):
                             plain_path_db=d_db, plain_path_max=d_max)
 
 
-def config4t(gt, dev, rows, launches, info):
+def config4t(gt, dev, rows, launches, info, patch=5):
+    """The 8 MP turbo recipe (make_workload_8mp_turbo) with an NLM ``patch``
+    x ``patch`` patch: K10 at the path's shapes, the path end to end, and
+    the recipe at 96x96 against the CPU. At 7 x 7 (64-lane layouts) the
+    rows are named ``*_d64``: there the turbo recipe is K10's path."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_recompute as k79
     from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
 
     t0 = time.perf_counter()
-    cfg, img, noisy, plan = make_workload_8mp_turbo(gt)
+    sfx = "_d64" if patch == 7 else ""
+    cfg, img, noisy, plan = make_workload_8mp_turbo(gt, patch)
     require(not cfg.fused_finish and cfg.sinkhorn_polish == 0,
             "the turbo recipe should miss the fused finish")
     img_d = torch.as_tensor(noisy, device=dev)
@@ -1465,9 +1615,11 @@ def config4t(gt, dev, rows, launches, info):
     p, n = ctx.p, ctx.n_pad
     pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
     mk = ms._m_kernel(cfg.num_eigvecs)
-    cases, rows, signed = colstats_v_cases(ctx, cfg, img_d, dev, rows)
-    na, nb = cases["colstats_v"][2][5:7]
-    phase("config4t", f"turbo workload and layouts at {H8}x{W8} (p={p}, "
+    cases, rows, signed = colstats_v_cases(ctx, cfg, img_d, dev, rows,
+                                           "colstats_v" + sfx)
+    na, nb = cases["colstats_v" + sfx][2][5:7]
+    phase("config4t", f"turbo workload and layouts at {H8}x{W8} (patch "
+          f"{patch}, {ctx.f_t.shape[0]} feature lanes, p={p}, "
           f"p_pad={pp}, N={n}, sinkhorn_coarse {cfg.sinkhorn_coarse}, "
           f"gram_coarse {cfg.gram_coarse}, polish {cfg.sinkhorn_polish}, "
           f"V width {mk})", t0)
@@ -1485,7 +1637,7 @@ def config4t(gt, dev, rows, launches, info):
     phase("kernel", f"colstats_v exp: bf16(kexp) != bf16(expf) on "
           f"{flips:.3e} of one stage's {d2.numel()} entries (64 rows x "
           f"{nk} columns; expected below 1e-3)", t0)
-    rows["colstats_v"]["exp_flip_share"] = flips
+    rows["colstats_v" + sfx]["exp_flip_share"] = flips
     del d2, fa_s, ctx, cases, na, nb
     torch.cuda.empty_cache()
 
@@ -1493,11 +1645,11 @@ def config4t(gt, dev, rows, launches, info):
     fused = (k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
     for fn in fused:
         fn.launches = 0
-    counters = {"kb_strip": k79.kb_strip_cuda,
-                "colstats_v": k79.colstats_v_cuda}
+    counters = {"kb_strip" + sfx: k79.kb_strip_cuda,
+                "colstats_v" + sfx: k79.colstats_v_cuda}
     res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
-                                     "8 MP turbo")
-    launches["colstats_v"] = counts["colstats_v"]
+                                     f"8 MP turbo, patch {patch}")
+    launches["colstats_v" + sfx] = counts["colstats_v" + sfx]
     per_call = {k: v / RUNS for k, v in counts.items()}
     psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
     phase("e2e-8mp-turbo", f"walls {[round(w, 6) for w in walls]} s (min "
@@ -1507,7 +1659,7 @@ def config4t(gt, dev, rows, launches, info):
           f"launches {[fn.launches for fn in fused]}", t0)
     require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
             "8 MP turbo output is not a finite (2048, 4096) image")
-    require(per_call == {"kb_strip": 1, "colstats_v": 1}
+    require(per_call == {"kb_strip" + sfx: 1, "colstats_v" + sfx: 1}
             and all(fn.launches == 0 for fn in fused),
             "the turbo recipe should launch K7 and K10 once a call, K8/K9 "
             "never")
@@ -1528,7 +1680,8 @@ def config4t(gt, dev, rows, launches, info):
     small = gt.PipelineConfig(
         kernel="nlm", h=0.25, sample_rho=0.03, num_eigvecs=16,
         sinkhorn_iters=4, streaming=True, block_cols=2048, use_pallas=True,
-        sinkhorn_coarse=4, gram_coarse=4, affinity_dtype="bfloat16")
+        sinkhorn_coarse=4, gram_coarse=4, affinity_dtype="bfloat16",
+        patch_size=patch)
     im_s, nz_s = noisy_image(gt, 96, 96)
     pl_s = gt.make_plan(nz_s, small)
     x0 = lobpcg_x0(pl_s.p, small.num_eigvecs, "cpu")
@@ -1545,7 +1698,7 @@ def config4t(gt, dev, rows, launches, info):
           f"{s_db:.5f} dB, max |diff| {s_max:.3e}", t0)
     require(np.isfinite(z_gpu).all() and s_db <= 0.05 and s_max <= 2e-2,
             "96x96 unfused card run != CPU plain run")
-    info["config4t"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+    info["config4t" + sfx] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
                             psnr_out=psnr_out, launches_per_call=per_call,
                             plain_path_db=d_db, plain_path_max=d_max,
                             small_db=s_db, small_max=s_max)
@@ -2187,6 +2340,21 @@ def bilateral(gt, dev, rows, launches, info):
                              small=small)
 
 
+def spill_lines(log: str) -> list:
+    """nvcc's -Xptxas -v report: "kernel: spill line" for every kernel that
+    spills, the kernel named by the part of its mangled name after the
+    anonymous namespace (its name and template arguments)."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+)", name)
+            name = (m.group(1) if m else name)[:48]
+        elif "spill" in ln and not ln.strip().startswith("0 bytes"):
+            out.append(f"{name}: {ln.strip()}")
+    return out
+
+
 def sass_uses(build, kernel: str, opcode: str) -> dict:
     """{function name: whether its SASS holds ``opcode``} for every function
     of the built kernel library whose name holds ``kernel``
@@ -2234,9 +2402,8 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "ptxas.txt").write_text(_build.PTXAS_LOG)
-    spills = [ln.strip() for ln in _build.PTXAS_LOG.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")]
-    phase("build", f"{build_s:.1f} s; ptxas spill lines: {spills}")
+    phase("build", f"{build_s:.1f} s; ptxas spill lines: "
+          f"{spill_lines(_build.PTXAS_LOG)}")
     hgmma = sass_uses(_build, "sandwich_kernel", "HGMMA")
     phase("build", f"K3/K4 kernels holding HGMMA (wgmma), from cuobjdump "
           f"-sass: {hgmma}")
@@ -2266,7 +2433,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     config1_fast(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
+    config2_p7(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
     config4(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config4(gt, dev, rows, launches, info, patch=7)
+    torch.cuda.empty_cache()
+    config4t(gt, dev, rows, launches, info, patch=7)
     torch.cuda.empty_cache()
     config3(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()

@@ -6,29 +6,32 @@
 // reaches device memory.
 //
 // What bounds it on an H100: at the main path's shape (p_pad 5248, n 262144,
-// d 25 padded to 32) it writes 2.75 GB of bf16, 0.82 ms at 3.35 TB/s, the
-// bound. The cross must keep the precision the reference pins with
-// "highest" (the GEMM trick cancels); as an IEEE-f32 SIMT product it would
-// be 88 GFLOP, 1.3 ms at the 67 TFLOP/s f32 peak, so the cross runs on the
-// tensor cores as the f32 K5/K6 run it (recompute_matvec.cu): each feature
-// vector scaled by 2^-E, each scaled feature split into big + small fp16
-// (split2, mma_common.cuh), cross = 2^(Ea + Eb) (big.big + big.small +
-// small.big), small.small (~2^-20 of |f|^2) dropped; three fp16 passes are
-// 0.27 ms at 989 TFLOP/s. The bf16 entry's exp is one FMUL and one MUFU ex2
+// d 25 padded to 32, or d 49 of a 7 x 7 patch padded to 64) it writes 2.75
+// GB of bf16, 0.82 ms at 3.35 TB/s, the bound. The cross must keep the
+// precision the reference pins with "highest" (the GEMM trick cancels); as
+// an IEEE-f32 SIMT product it would be 88 GFLOP, 1.3 ms at the 67 TFLOP/s
+// f32 peak, so the cross runs on the tensor cores as the f32 K5/K6 run it
+// (recompute_matvec.cu): each feature vector scaled by 2^-E, each scaled
+// feature split into big + small fp16 (split2, mma_common.cuh), cross =
+// 2^(Ea + Eb) (big.big + big.small + small.big), small.small (~2^-20 of
+// |f|^2) dropped; three fp16 passes are 0.27 ms at 989 TFLOP/s (0.53 ms
+// over 64 lanes). The bf16 entry's exp is one FMUL and one MUFU ex2
 // (kexp), 1.4e9 of them 0.33 ms; the f32 store keeps IEEE expf. Features
 // that carry coordinates take an IEEE f32 cross instead (affinity_coord_
 // kernel, at the end of the file).
 //
 // Design: a prep kernel splits the sample rows once into m16n8k16 A
 // fragments (big and small fp16 per lane, per 16-row tile and k16 step),
-// their norms and -2 2^Ea, 17 KB a 128-row block. The emitter's 256-thread
-// blocks are persistent (two an SM) and walk a contiguous range of
+// their norms and -2 2^Ea, 17 KB a 128-row block (33 KB at 64 lanes). The
+// emitter's 256-thread blocks are persistent (two an SM at 32 lanes, one
+// at 64: there a warp's split B fragments alone take 64 registers and the
+// two A buffers 66 KB) and walk a contiguous range of
 // 128 x 128 output units, the 41 row blocks of one pixel tile after
 // another. A warp holds 32 pixels as split B fragments in registers
 // (reloaded when the pixel tile changes) and runs 4 of the unit's 8 row
-// tiles against them: per 16 x 8 sub-tile 6 mma (big.big a k16 step from
-// zero, the corrections in a third chain), then the epilogue on the
-// accumulator registers, which hold adjacent pixels of a row, so two bf16
+// tiles against them: per 16 x 8 sub-tile 6 mma (12 at 64 lanes; big.big
+// a k16 step from zero, the corrections in a third chain), then the
+// epilogue on the accumulator registers, which hold adjacent pixels of a row, so two bf16
 // entries pack into one word. The unit's A block arrives by a bulk copy
 // into one of two buffers while the previous unit runs. The finished tile
 // is staged in shared memory in the 128-byte-swizzled layout of a TMA box
@@ -57,64 +60,71 @@ namespace {
 constexpr int A1_THREADS = 256;   // 8 warps: 4 pixel groups x 2 row halves
 constexpr int A1_TM = 128;        // sample rows a unit (8 m16 tiles)
 constexpr int A1_TN = 128;        // pixels a unit (4 warps x 32)
-constexpr int A1_FD = 32;         // feature depth: 2 k16 steps
-constexpr int A1_KS = A1_FD / 16;
-// one 128-row block of split A: [m16 tile][k16 step][big | small][lane] x 16
-// bytes, then the rows' norms and their -2 2^Ea
-constexpr int A1_FRAG_BYTES = (A1_TM / 16) * A1_KS * 2 * 32 * 16;
-constexpr int A1_ABLK = A1_FRAG_BYTES + 2 * A1_TM * 4;
+// The feature depth FD is a template parameter of the split and the
+// emitter: 32 (2 k16 steps: NLM 5 x 5, d 25) or 64 (4 k16 steps: NLM 7 x 7,
+// d 49). At 64 the split A block is 33 KB and a warp's split B fragments
+// 64 registers, so the emitter runs one block an SM (two at 32).
+// one 128-row block of split A: its fragments ([m16 tile][k16 step][big |
+// small][lane] x 16 bytes), then the rows' norms and their -2 2^Ea
+template <int FD>
+constexpr int A1_FRAG_BYTES = (A1_TM / 16) * (FD / 16) * 2 * 32 * 16;
+template <int FD>
+constexpr int A1_ABLK = A1_FRAG_BYTES<FD> + 2 * A1_TM * 4;
 constexpr int A1_BOX = 16384;     // one staged TMA box: 128 rows x 128 bytes
 
-template <bool BF16_OUT>
+template <int FD, bool BF16_OUT>
 constexpr size_t a1_smem() {
   // alignment slack, two staged units, two A blocks, their barriers
-  return 1024 + 2 * (size_t)A1_TM * A1_TN * (BF16_OUT ? 2 : 4) + 2 * (size_t)A1_ABLK + 16;
+  return 1024 + 2 * (size_t)A1_TM * A1_TN * (BF16_OUT ? 2 : 4) + 2 * (size_t)A1_ABLK<FD> + 16;
 }
 
 // the split A blocks of rows [0, p_pad): thread r splits row r
+template <int FD>
 __global__ void affinity_split_kernel(const float* __restrict__ a, unsigned char* __restrict__ out,
                                       int p, int d, int p_pad) {
+  constexpr int KS = FD / 16;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= p_pad) return;
-  float x[A1_FD];
+  float x[FD];
   float m = 0.f, nrm = 0.f;
 #pragma unroll
-  for (int k = 0; k < A1_FD; ++k) {
+  for (int k = 0; k < FD; ++k) {
     x[k] = (r < p && k < d) ? a[(size_t)r * d + k] : 0.f;
     m = fmaxf(m, fabsf(x[k]));
     nrm = fmaf(x[k], x[k], nrm);
   }
   const int e = vec_exp(m);
   const float sinv = pow2(-e);
-  unsigned char* blk = out + (size_t)(r / A1_TM) * A1_ABLK;
+  unsigned char* blk = out + (size_t)(r / A1_TM) * A1_ABLK<FD>;
   const int rr = r % A1_TM, mt = rr / 16, g = rr % 8, hi = (rr % 16) / 8;
 #pragma unroll
-  for (int k = 0; k < A1_FD; ++k) {
+  for (int k = 0; k < FD; ++k) {
     // A fragment register (row g | g + 8) x (k 2tq, 2tq + 1 | 2tq + 8, 2tq + 9)
     const int ks = k / 16, kk = k % 16, tq = (kk % 8) / 2;
     const int reg = hi + 2 * (kk / 8);
     const float2 bs = split2(x[k], sinv);
-    const size_t off = (size_t)((mt * A1_KS + ks) * 2) * 512 + (g * 4 + tq) * 16 + reg * 4 +
+    const size_t off = (size_t)((mt * KS + ks) * 2) * 512 + (g * 4 + tq) * 16 + reg * 4 +
                        (kk % 2) * 2;
     *reinterpret_cast<__half*>(blk + off) = __float2half_rn(bs.x);
     *reinterpret_cast<__half*>(blk + off + 512) = __float2half_rn(bs.y);
   }
-  float* tail = reinterpret_cast<float*>(blk + A1_FRAG_BYTES);
+  float* tail = reinterpret_cast<float*>(blk + A1_FRAG_BYTES<FD>);
   tail[rr] = nrm;
   tail[A1_TM + rr] = -2.f * pow2(e);
 }
 
-template <bool BF16_OUT>
-__global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
+template <int FD, bool BF16_OUT>
+__global__ __launch_bounds__(A1_THREADS, FD == 32 ? 2 : 1) void affinity_kernel(
     const __grid_constant__ CUtensorMap out_map,
     const unsigned char* __restrict__ asplit,   // split A blocks (affinity_split_kernel)
     const float* __restrict__ b,                // (n, d) pixel features
     int n, int d, int nrb) {
+  constexpr int KS = FD / 16, ABLK = A1_ABLK<FD>, FRAG = A1_FRAG_BYTES<FD>;
   constexpr int STAGE = A1_TM * A1_TN * (BF16_OUT ? 2 : 4);
   extern __shared__ unsigned char a1_raw[];
   unsigned char* smem = a1_raw + ((1024 - (smem_u32(a1_raw) & 1023)) & 1023);
   unsigned char* abuf = smem + 2 * STAGE;
-  const uint32_t bar0 = smem_u32(abuf + 2 * A1_ABLK);
+  const uint32_t bar0 = smem_u32(abuf + 2 * ABLK);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3, wp = warp & 3, wr = warp >> 2;
@@ -128,9 +138,9 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int t = t0; t < min(t0 + 2, t1); ++t) {
       const uint32_t bar = bar0 + 8 * (t - t0);
-      mbar_expect_tx(bar, A1_ABLK);
-      bulk_copy(smem_u32(abuf + (t - t0) * A1_ABLK), asplit + (size_t)(t % nrb) * A1_ABLK,
-                A1_ABLK, bar);
+      mbar_expect_tx(bar, ABLK);
+      bulk_copy(smem_u32(abuf + (t - t0) * ABLK), asplit + (size_t)(t % nrb) * ABLK,
+                ABLK, bar);
     }
   }
   __syncthreads();
@@ -138,7 +148,7 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
   // this warp's 32 pixels as split B fragments ([n8 tile][k16 step][b0 | b1],
   // big and small) and, for the accumulator's pixels 2tq, 2tq + 1 of each n8
   // tile, their norms and 2^Eb
-  uint32_t bb[4][A1_KS][2], bsm[4][A1_KS][2];
+  uint32_t bb[4][KS][2], bsm[4][KS][2];
   float nb[4][2], sc[4][2];
   int ct_held = -1;
 
@@ -160,7 +170,7 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
         const int e = vec_exp(m);
         const float sinv = pow2(-e), scale = pow2(e);
 #pragma unroll
-        for (int ks = 0; ks < A1_KS; ++ks) {
+        for (int ks = 0; ks < KS; ++ks) {
           const int k = 16 * ks + 2 * tq;
           const float2 p0 = split2(feat(k), sinv), p1 = split2(feat(k + 1), sinv);
           const float2 p8 = split2(feat(k + 8), sinv), p9 = split2(feat(k + 9), sinv);
@@ -176,8 +186,8 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
         }
       }
     }
-    const unsigned char* A = abuf + (q & 1) * A1_ABLK;
-    const float* na_s = reinterpret_cast<const float*>(A + A1_FRAG_BYTES);
+    const unsigned char* A = abuf + (q & 1) * ABLK;
+    const float* na_s = reinterpret_cast<const float*>(A + FRAG);
     const float* m2_s = na_s + A1_TM;
     unsigned char* stage = smem + (q & 1) * STAGE;
     if (tid == 0) bulk_wait_read<1>();   // the store of unit q - 2 has left this stage
@@ -187,13 +197,13 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
 #pragma unroll 1
     for (int ml = 0; ml < 4; ++ml) {
       const int mt = wr * 4 + ml;
-      uint32_t ab[A1_KS][4], as[A1_KS][4];
+      uint32_t ab[KS][4], as[KS][4];
 #pragma unroll
-      for (int ks = 0; ks < A1_KS; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         const uint4 vb =
-            *reinterpret_cast<const uint4*>(A + ((mt * A1_KS + ks) * 2) * 512 + lane * 16);
+            *reinterpret_cast<const uint4*>(A + ((mt * KS + ks) * 2) * 512 + lane * 16);
         const uint4 vs =
-            *reinterpret_cast<const uint4*>(A + ((mt * A1_KS + ks) * 2 + 1) * 512 + lane * 16);
+            *reinterpret_cast<const uint4*>(A + ((mt * KS + ks) * 2 + 1) * 512 + lane * 16);
         ab[ks][0] = vb.x, ab[ks][1] = vb.y, ab[ks][2] = vb.z, ab[ks][3] = vb.w;
         as[ks][0] = vs.x, as[ks][1] = vs.y, as[ks][2] = vs.z, as[ks][3] = vs.w;
       }
@@ -201,12 +211,17 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
       const float na[2] = {na_s[r0], na_s[r0 + 8]}, m2a[2] = {m2_s[r0], m2_s[r0 + 8]};
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
-        float h0[4] = {0.f, 0.f, 0.f, 0.f}, h1[4] = {0.f, 0.f, 0.f, 0.f};
-        float cr[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816h(h0, ab[0], bb[nt][0][0], bb[nt][0][1]);
-        mma16816h(h1, ab[1], bb[nt][1][0], bb[nt][1][1]);
+        // big.big a k16 step from zero (16 products on the 2^-20 grid:
+        // exact in f32), the corrections in a third chain
+        float h[KS][4], cr[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int ks = 0; ks < A1_KS; ++ks) {
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) h[ks][e] = 0.f;
+          mma16816h(h[ks], ab[ks], bb[nt][ks][0], bb[nt][ks][1]);
+        }
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
           mma16816h(cr, ab[ks], bsm[nt][ks][0], bsm[nt][ks][1]);
           mma16816h(cr, as[ks], bb[nt][ks][0], bb[nt][ks][1]);
         }
@@ -215,7 +230,9 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
         float v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float cross = (h0[e] + h1[e]) + cr[e];
+          float big = h[0][e] + h[1][e];   // the k16 steps in pairs, the pairs in order
+          if constexpr (KS == 4) big += h[2][e] + h[3][e];
+          const float cross = big + cr[e];
           const float d2 = fmaf(m2a[e >> 1] * sc[nt][e & 1], cross, na[e >> 1] + nb[nt][e & 1]);
           v[e] = BF16_OUT ? kexp(d2) : expf(-fmaxf(d2, 0.f));
         }
@@ -245,32 +262,46 @@ __global__ __launch_bounds__(A1_THREADS, 2) void affinity_kernel(
       bulk_commit();
       if (t + 2 < t1) {
         const uint32_t bar = bar0 + 8 * (q & 1);
-        mbar_expect_tx(bar, A1_ABLK);
-        bulk_copy(smem_u32(abuf + (q & 1) * A1_ABLK), asplit + (size_t)((t + 2) % nrb) * A1_ABLK,
-                  A1_ABLK, bar);
+        mbar_expect_tx(bar, ABLK);
+        bulk_copy(smem_u32(abuf + (q & 1) * ABLK), asplit + (size_t)((t + 2) % nrb) * ABLK,
+                  ABLK, bar);
       }
     }
   }
   if (tid == 0) bulk_wait_all();
 }
 
-template <bool BF16_OUT>
+template <int FD, bool BF16_OUT>
 int launch_affinity(const CUtensorMap& map, const unsigned char* asplit, const float* b, int n,
                     int d, int nrb, cudaStream_t s) {
-  constexpr size_t smem = a1_smem<BF16_OUT>();
+  constexpr size_t smem = a1_smem<FD, BF16_OUT>();
   int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaFuncSetAttribute(affinity_kernel<BF16_OUT>,
+  cudaError_t e = cudaFuncSetAttribute(affinity_kernel<FD, BF16_OUT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, affinity_kernel<BF16_OUT>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, affinity_kernel<FD, BF16_OUT>,
                                                       A1_THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long units = (long long)nrb * ((n + A1_TN - 1) / A1_TN);
   const int grid = (int)((long long)occ * sms < units ? (long long)occ * sms : units);
-  affinity_kernel<BF16_OUT><<<grid, A1_THREADS, smem, s>>>(map, asplit, b, n, d, nrb);
+  affinity_kernel<FD, BF16_OUT><<<grid, A1_THREADS, smem, s>>>(map, asplit, b, n, d, nrb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the split, then the emitter, at feature depth FD
+template <int FD>
+int launch_split_affinity(const float* a, const float* b, unsigned char* asplit,
+                          const CUtensorMap& map, int p, int n, int d, int out_bf16,
+                          cudaStream_t s) {
+  const int nrb = (p + A1_TM - 1) / A1_TM;
+  affinity_split_kernel<FD><<<(nrb * A1_TM + 127) / 128, 128, 0, s>>>(a, asplit, p, d,
+                                                                       nrb * A1_TM);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return out_bf16 ? launch_affinity<FD, true>(map, asplit, b, n, d, nrb, s)
+                  : launch_affinity<FD, false>(map, asplit, b, n, d, nrb, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -290,7 +321,8 @@ int launch_affinity(const CUtensorMap& map, const unsigned char* asplit, const f
 // check of chip_smoke.py reads the split kernel's.
 constexpr int C1_THREADS = 256;
 constexpr int C1_TM = 32, C1_TN = 256;
-constexpr int C1_LDA = A1_FD + 4;      // a_s row stride (floats)
+constexpr int C1_FD = 32;              // feature lanes (a 5 x 5 patch and two coordinates)
+constexpr int C1_LDA = C1_FD + 4;      // a_s row stride (floats)
 constexpr int C1_LDB = C1_TN + 4;      // b_s row stride: lane-major pixels
 
 template <bool BF16_OUT>
@@ -298,7 +330,7 @@ __global__ __launch_bounds__(C1_THREADS) void affinity_coord_kernel(
     const float* __restrict__ a, const float* __restrict__ b, void* __restrict__ out, int p,
     int n, int d, int ld) {
   __shared__ __align__(16) float a_s[C1_TM * C1_LDA];
-  __shared__ __align__(16) float b_s[A1_FD * C1_LDB];
+  __shared__ __align__(16) float b_s[C1_FD * C1_LDB];
   __shared__ float na_s[C1_TM], nb_s[C1_TN];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.y * C1_TM, c0 = blockIdx.x * C1_TN;
@@ -375,32 +407,29 @@ __global__ __launch_bounds__(C1_THREADS) void affinity_coord_kernel(
 
 extern "C" {
 
-// bytes of the split-A scratch for p sample rows
-size_t glt_affinity_scratch_bytes(int p) {
-  return (size_t)((p + A1_TM - 1) / A1_TM) * A1_ABLK;
+// bytes of the split-A scratch for p sample rows of d feature lanes
+size_t glt_affinity_scratch_bytes(int p, int d) {
+  return (size_t)((p + A1_TM - 1) / A1_TM) * (d <= 32 ? A1_ABLK<32> : A1_ABLK<64>);
 }
 
-// K1. a (p, d) and b (n, d) row-major f32 features, d <= 32; out (p, ld)
+// K1. a (p, d) and b (n, d) row-major f32 features, d <= 64 (the 32-lane
+// kernel up to 32, the 64-lane one past it); out (p, ld)
 // bf16 (out_bf16) or f32 with ld >= n, rows 16 bytes apart in multiples and
 // a 16-byte aligned base; scratch holds glt_affinity_scratch_bytes(p) bytes,
 // 16-byte aligned (the wrapper checks).
 int glt_affinity_strip(const void* a, const void* b, void* scratch, void* out, int p, int n,
                        int d, int ld, int out_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (p < 1 || n < 1 || d < 1 || d > A1_FD || ld < n)
+  if (p < 1 || n < 1 || d < 1 || d > 64 || ld < n)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nrb = (p + A1_TM - 1) / A1_TM;
   CUtensorMap map;
   if (!tile_map(&map, out, !out_bf16, n, p, ld, out_bf16 ? 64 : 32, A1_TM))
     return static_cast<int>(cudaErrorInvalidValue);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
   unsigned char* asplit = static_cast<unsigned char*>(scratch);
-  affinity_split_kernel<<<(nrb * A1_TM + 127) / 128, 128, 0, s>>>(
-      static_cast<const float*>(a), asplit, p, d, nrb * A1_TM);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return out_bf16 ? launch_affinity<true>(map, asplit, static_cast<const float*>(b), n, d, nrb, s)
-                  : launch_affinity<false>(map, asplit, static_cast<const float*>(b), n, d, nrb,
-                                           s);
+  return d <= 32 ? launch_split_affinity<32>(af, bf, asplit, map, p, n, d, out_bf16, s)
+                 : launch_split_affinity<64>(af, bf, asplit, map, p, n, d, out_bf16, s);
 }
 
 // K1 on coordinate features (the IEEE f32 cross). As glt_affinity_strip
@@ -409,7 +438,7 @@ int glt_affinity_strip(const void* a, const void* b, void* scratch, void* out, i
 int glt_affinity_coord(const void* a, const void* b, void* out, int p, int n, int d, int ld,
                        int out_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (p < 1 || n < 1 || d < 1 || d > A1_FD || ld < n || ld % 4)
+  if (p < 1 || n < 1 || d < 1 || d > C1_FD || ld < n || ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + C1_TN - 1) / C1_TN, (p + C1_TM - 1) / C1_TM);
   const float* af = static_cast<const float*>(a);

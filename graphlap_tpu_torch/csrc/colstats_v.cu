@@ -73,8 +73,11 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int FD = 32;              // feature depth
-constexpr int LDF = FD + 8;         // fa_s row stride (bf16): conflict-free B fragments
+// The bf16 kernels take the feature depth FD as a template parameter: 32
+// (NLM 5 x 5, d 25) or 64 (NLM 7 x 7, d 49). The f32 layouts take 32 lanes.
+constexpr int FD_F32 = 32;
+template <int FD>
+constexpr int LDF_OF = FD + 8;      // fa_s row stride (bf16): conflict-free B fragments
 constexpr int CT = 2;               // 16-column tiles a warp
 constexpr int TN = WARPS * CT * 16; // columns a block tile (256)
 constexpr int TP = 64;              // sample rows a stage
@@ -85,8 +88,8 @@ constexpr int KS_BLOCKS_SM = 3;     // ks-pass blocks an SM: it holds no V accum
 // a launch's operands; K10 reads cb, K9's ks pass tb, s_pre, bm and writes
 // s_out and cb
 struct VArgs {
-  const bf16* fa;     // (P, 32) plain
-  const bf16* ft;     // (32, N) aug superset
+  const bf16* fa;     // (P, FD) plain
+  const bf16* ft;     // (FD, N) aug superset
   const bf16* grt;    // (MP, P) bf16(gr)^T
   const bf16* cb;     // (N) bf16(c)
   const bf16* tb;     // (P) bf16(t)                          K9
@@ -111,6 +114,7 @@ __global__ void kexp_kernel(const float* __restrict__ d2, bf16* __restrict__ out
 
 // the stage of sample rows [p0, p0 + TP): fa rows, na, and mp bf16 gr^T
 // rows (the V pass) or bf16(t) (K9's ks pass); one cp.async commit group
+template <int FD>
 __device__ __forceinline__ void load_stage(bf16* fa_d, bf16* gr_d, float* na_d, bf16* t_d,
                                            const VArgs& a, int mp, int p0) {
   // the loops stay rolled: their addresses are recomputed a stage at a
@@ -119,7 +123,7 @@ __device__ __forceinline__ void load_stage(bf16* fa_d, bf16* gr_d, float* na_d, 
 #pragma unroll 1
   for (int c = threadIdx.x; c < TP * (FD / 8); c += THREADS) {
     const int r = c / (FD / 8), q = c % (FD / 8);
-    cp_async16(fa_d + r * LDF + q * 8, a.fa + (size_t)(p0 + r) * FD + q * 8);
+    cp_async16(fa_d + r * LDF_OF<FD> + q * 8, a.fa + (size_t)(p0 + r) * FD + q * 8);
   }
   if (t_d != nullptr && (int)threadIdx.x < TP / 8)
     cp_async16(t_d + threadIdx.x * 8, a.tb + p0 + threadIdx.x * 8);
@@ -132,14 +136,17 @@ __device__ __forceinline__ void load_stage(bf16* fa_d, bf16* gr_d, float* na_d, 
   cp_async_commit();
 }
 
-// the warp's two 16-column A fragments of f_t (columns jw..jw+31) and nb
-__device__ __forceinline__ void warp_cols(uint32_t af[CT][2][4], float nbv[CT][2],
+// the warp's two 16-column A fragments of f_t (columns jw..jw+31), a k16
+// step each FD / 16, and nb
+template <int FD>
+__device__ __forceinline__ void warp_cols(uint32_t af[CT][FD / 16][4], float nbv[CT][2],
                                           const VArgs& a, int jw, int g, int tq) {
   const unsigned short* fu = reinterpret_cast<const unsigned short*>(a.ft);
 #pragma unroll
   for (int ct = 0; ct < CT; ++ct) {
-    frag_a_kmajor(af[ct][0], fu, (size_t)a.N, jw + 16 * ct, 0, g, tq);
-    frag_a_kmajor(af[ct][1], fu, (size_t)a.N, jw + 16 * ct, 16, g, tq);
+#pragma unroll
+    for (int ks = 0; ks < FD / 16; ++ks)
+      frag_a_kmajor(af[ct][ks], fu, (size_t)a.N, jw + 16 * ct, 16 * ks, g, tq);
     nbv[ct][0] = a.nb[jw + 16 * ct + g];
     nbv[ct][1] = a.nb[jw + 16 * ct + g + 8];
   }
@@ -147,21 +154,22 @@ __device__ __forceinline__ void warp_cols(uint32_t af[CT][2][4], float nbv[CT][2
 
 // rows [r0, r0 + 16) of the warp's tile as A fragments (16 columns x 16
 // rows) of bf16(k bf16(c)), or of k = bf16(exp(..)) unscaled (SCALED false,
-// K9's ks pass): the cross on the tensor cores (two mma a 16 x 8 sub-tile),
-// then the exp epilogue (kexp) on the accumulator registers, whose layout is
-// the A-fragment layout
-template <bool SCALED>
+// K9's ks pass): the cross on the tensor cores (FD / 16 mma a 16 x 8
+// sub-tile, one chain from zero), then the exp epilogue (kexp) on the
+// accumulator registers, whose layout is the A-fragment layout
+template <int FD, bool SCALED>
 __device__ __forceinline__ void tile_step(uint32_t ka[CT][4], const bf16* fs, const float* ns,
-                                          int r0, const uint32_t af[CT][2][4],
+                                          int r0, const uint32_t af[CT][FD / 16][4],
                                           const float nbv[CT][2], const float cbv[CT][2],
                                           int g, int tq) {
-  uint32_t bf[2][2][2];          // [8-row n-tile][k half]
+  constexpr int KS = FD / 16, LDF = LDF_OF<FD>;
+  uint32_t bf[2][KS][2];         // [8-row n-tile][k16 step]
   float nav[2][2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
 #pragma unroll
-    for (int kh = 0; kh < 2; ++kh) {
+    for (int kh = 0; kh < KS; ++kh) {
       bf[h][kh][0] = ld32(fs + (r + g) * LDF + 16 * kh + 2 * tq);
       bf[h][kh][1] = ld32(fs + (r + g) * LDF + 16 * kh + 8 + 2 * tq);
     }
@@ -173,8 +181,8 @@ __device__ __forceinline__ void tile_step(uint32_t ka[CT][4], const bf16* fs, co
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16816(c, af[ct][0], bf[h][0]);
-      mma16816(c, af[ct][1], bf[h][1]);
+#pragma unroll
+      for (int kh = 0; kh < KS; ++kh) mma16816(c, af[ct][kh], bf[h][kh]);
       const float e0 = kexp(nav[h][0] + nbv[ct][0] - 2.f * c[0]);
       const float e1 = kexp(nav[h][1] + nbv[ct][0] - 2.f * c[1]);
       const float e2 = kexp(nav[h][0] + nbv[ct][1] - 2.f * c[2]);
@@ -208,11 +216,13 @@ constexpr int V_FLUSH = 4;
 // at p 4096) ends low on most entries. So V sums in spans of V_FLUSH stages
 // (the first mma of a span from a zero accumulator) and each span is added
 // to the running V with an f32 add. The running V lives in dynamic shared
-// memory, which keeps the pass at two blocks an SM.
-template <int NTM>   // V width / 8
-__global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
+// memory, which keeps the pass at two blocks an SM at 32 lanes. At 64 the
+// f_t fragments take 32 registers a thread, not 16, beside V's 64: the
+// pass runs one block an SM with the registers of two.
+template <int NTM, int FD>   // V width / 8, feature depth
+__global__ __launch_bounds__(THREADS, FD == 32 ? 2 : 1) void colstats_v_kernel(const VArgs a) {
   constexpr int MP = NTM * 8;
-  __shared__ __align__(16) bf16 fa_s[2][TP * LDF];
+  __shared__ __align__(16) bf16 fa_s[2][TP * LDF_OF<FD>];
   __shared__ __align__(16) bf16 gr_s[2][MP_MAX * LDG];
   __shared__ __align__(16) float na_s[2][TP];
   __shared__ float wp_s[WARPS][2][MP];          // per-warp norms, coeffs
@@ -222,13 +232,13 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
   const int ntiles = a.N / TN, nst = a.P / TP;
 
   for (int i = tid; i < WARPS * 2 * MP; i += THREADS) (&wp_s[0][0][0])[i] = 0.f;
-  if ((int)blockIdx.x < ntiles) load_stage(fa_s[0], gr_s[0], na_s[0], nullptr, a, MP, 0);
+  if ((int)blockIdx.x < ntiles) load_stage<FD>(fa_s[0], gr_s[0], na_s[0], nullptr, a, MP, 0);
   int step = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int jw = tile * TN + warp * CT * 16;   // this warp's first column
-    uint32_t af[CT][2][4];
+    uint32_t af[CT][FD / 16][4];
     float nbv[CT][2], cbv[CT][2];
-    warp_cols(af, nbv, a, jw, g, tq);
+    warp_cols<FD>(af, nbv, a, jw, g, tq);
 #pragma unroll
     for (int ct = 0; ct < CT; ++ct) {
       cbv[ct][0] = __bfloat162float(a.cb[jw + 16 * ct + g]);
@@ -241,9 +251,9 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
       cp_async_wait_all();
       __syncthreads();                 // stage in; everyone done with buf ^ 1
       if (s + 1 < nst)
-        load_stage(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, (s + 1) * TP);
+        load_stage<FD>(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, (s + 1) * TP);
       else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
-        load_stage(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, 0);
+        load_stage<FD>(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, 0);
       const bf16* gs = gr_s[buf];
       const bool fresh = s % V_FLUSH == 0;       // a span starts here
       if (fresh) {
@@ -257,7 +267,7 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
 #pragma unroll 1
       for (int r0 = 0; r0 < TP; r0 += 16) {
         uint32_t ka[CT][4];
-        tile_step<true>(ka, fa_s[buf], na_s[buf], r0, af, nbv, cbv, g, tq);
+        tile_step<FD, true>(ka, fa_s[buf], na_s[buf], r0, af, nbv, cbv, g, tq);
         // V += tile^T bf16(gr): one mma per 8 V columns and column tile
 #pragma unroll
         for (int mt = 0; mt < NTM; ++mt) {
@@ -348,22 +358,24 @@ __global__ __launch_bounds__(THREADS, 2) void colstats_v_kernel(const VArgs a) {
 
 // K9's ks pass: the same tile (c = 1) times [bf16(t), 0, ...], one mma a
 // 16-row step, summed in registers over all of p; then s and bf16(s) for
-// the warp's columns
-__global__ __launch_bounds__(THREADS, KS_BLOCKS_SM) void ks_kernel(const VArgs a) {
-  __shared__ __align__(16) bf16 fa_s[2][TP * LDF];
+// the warp's columns. At 64 lanes, two blocks an SM (its f_t fragments
+// double)
+template <int FD>
+__global__ __launch_bounds__(THREADS, FD == 32 ? KS_BLOCKS_SM : 2) void ks_kernel(const VArgs a) {
+  __shared__ __align__(16) bf16 fa_s[2][TP * LDF_OF<FD>];
   __shared__ __align__(16) bf16 t_s[2][TP];
   __shared__ __align__(16) float na_s[2][TP];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int ntiles = a.N / TN, nst = a.P / TP;
 
-  if ((int)blockIdx.x < ntiles) load_stage(fa_s[0], nullptr, na_s[0], t_s[0], a, 0, 0);
+  if ((int)blockIdx.x < ntiles) load_stage<FD>(fa_s[0], nullptr, na_s[0], t_s[0], a, 0, 0);
   int step = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int jw = tile * TN + warp * CT * 16;
-    uint32_t af[CT][2][4];
+    uint32_t af[CT][FD / 16][4];
     float nbv[CT][2];
-    warp_cols(af, nbv, a, jw, g, tq);
+    warp_cols<FD>(af, nbv, a, jw, g, tq);
     float kt[CT][4];
 #pragma unroll
     for (int ct = 0; ct < CT; ++ct)
@@ -374,9 +386,9 @@ __global__ __launch_bounds__(THREADS, KS_BLOCKS_SM) void ks_kernel(const VArgs a
       cp_async_wait_all();
       __syncthreads();
       if (s + 1 < nst)
-        load_stage(fa_s[buf ^ 1], nullptr, na_s[buf ^ 1], t_s[buf ^ 1], a, 0, (s + 1) * TP);
+        load_stage<FD>(fa_s[buf ^ 1], nullptr, na_s[buf ^ 1], t_s[buf ^ 1], a, 0, (s + 1) * TP);
       else if (tile + (int)gridDim.x < ntiles)
-        load_stage(fa_s[buf ^ 1], nullptr, na_s[buf ^ 1], t_s[buf ^ 1], a, 0, 0);
+        load_stage<FD>(fa_s[buf ^ 1], nullptr, na_s[buf ^ 1], t_s[buf ^ 1], a, 0, 0);
       const bf16* ts = t_s[buf];
       float kst[CT][4];              // this stage's ks, then added to the total
 #pragma unroll
@@ -386,7 +398,7 @@ __global__ __launch_bounds__(THREADS, KS_BLOCKS_SM) void ks_kernel(const VArgs a
 #pragma unroll 2             // two 16-row steps in flight
       for (int r0 = 0; r0 < TP; r0 += 16) {
         uint32_t ka[CT][4];
-        tile_step<false>(ka, fa_s[buf], na_s[buf], r0, af, nbv, nbv, g, tq);  // no scale
+        tile_step<FD, false>(ka, fa_s[buf], na_s[buf], r0, af, nbv, nbv, g, tq);  // no scale
         uint32_t b[2];
         b[0] = g == 0 ? ld32(ts + r0 + 2 * tq) : 0u;
         b[1] = g == 0 ? ld32(ts + r0 + 8 + 2 * tq) : 0u;
@@ -413,53 +425,88 @@ __global__ __launch_bounds__(THREADS, KS_BLOCKS_SM) void ks_kernel(const VArgs a
   }
 }
 
-template <int NTM>
+template <int NTM, int FD>
 int v_kernel_setup(size_t* smem) {
   *smem = run_smem_bytes<NTM>();
-  cudaError_t e = cudaFuncSetAttribute(colstats_v_kernel<NTM>,
+  cudaError_t e = cudaFuncSetAttribute(colstats_v_kernel<NTM, FD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(colstats_v_kernel<NTM>,
+    e = cudaFuncSetAttribute(colstats_v_kernel<NTM, FD>,
                              cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   return static_cast<int>(e);
 }
 
-template <int NTM>
+template <int NTM, int FD>
 int resident_blocks(int* out) {
   int dev = 0, sms = 0, occ = 0;
   size_t smem = 0;
-  int rc = v_kernel_setup<NTM>(&smem);
+  int rc = v_kernel_setup<NTM, FD>(&smem);
   if (rc != 0) return rc;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_v_kernel<NTM>, THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_v_kernel<NTM, FD>, THREADS,
                                                       smem);
   *out = occ * sms;
   return static_cast<int>(e);
 }
 
-template <int NTM>
+template <int NTM, int FD>
 int launch_v_ntm(int blocks, cudaStream_t s, const VArgs& a) {
   size_t smem = 0;
-  int rc = v_kernel_setup<NTM>(&smem);
+  int rc = v_kernel_setup<NTM, FD>(&smem);
   if (rc != 0) return rc;
-  colstats_v_kernel<NTM><<<blocks, THREADS, smem, s>>>(a);
+  colstats_v_kernel<NTM, FD><<<blocks, THREADS, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the V pass for width MP, then the fixed-order reduction of its partials
-int launch_v(int MP, int blocks, cudaStream_t s, const VArgs& a, void* norms_coeffs) {
-  int rc;
+// the V pass for width MP at feature depth FD
+template <int FD>
+int launch_v_fd(int MP, int blocks, cudaStream_t s, const VArgs& a) {
   switch (MP) {
-    case 16: rc = launch_v_ntm<2>(blocks, s, a); break;
-    case 32: rc = launch_v_ntm<4>(blocks, s, a); break;
-    case 48: rc = launch_v_ntm<6>(blocks, s, a); break;
-    case 64: rc = launch_v_ntm<8>(blocks, s, a); break;
+    case 16: return launch_v_ntm<2, FD>(blocks, s, a);
+    case 32: return launch_v_ntm<4, FD>(blocks, s, a);
+    case 48: return launch_v_ntm<6, FD>(blocks, s, a);
+    case 64: return launch_v_ntm<8, FD>(blocks, s, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the V pass for width MP and fd lanes, then the fixed-order reduction of
+// its partials
+int launch_v(int MP, int fd, int blocks, cudaStream_t s, const VArgs& a, void* norms_coeffs) {
+  const int rc = fd == 32   ? launch_v_fd<32>(MP, blocks, s, a)
+                 : fd == 64 ? launch_v_fd<64>(MP, blocks, s, a)
+                            : static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * MP, s);
+}
+
+// blocks a V pass for width MP of fd lanes keeps resident on the card
+template <int FD>
+int resident_blocks_fd(int MP, int* n) {
+  switch (MP) {
+    case 16: return resident_blocks<2, FD>(n);
+    case 32: return resident_blocks<4, FD>(n);
+    case 48: return resident_blocks<6, FD>(n);
+    case 64: return resident_blocks<8, FD>(n);
+    default: *n = 0; return 0;
+  }
+}
+
+// K9's ks pass at feature depth FD, as many blocks as fit the card (at most
+// one a column tile)
+template <int FD>
+int launch_ks(cudaStream_t s, const VArgs& a) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ks_kernel<FD>, THREADS, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int ks_blocks = occ * sms < a.N / TN ? occ * sms : a.N / TN;
+  ks_kernel<FD><<<ks_blocks, THREADS, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -505,7 +552,7 @@ int launch_v(int MP, int blocks, cudaStream_t s, const VArgs& a, void* norms_coe
 constexpr int VF_THREADS = 256;           // ks pass: one column a thread
 constexpr int VF_MP = 64;                 // V width a launch
 constexpr int VF_TP = 32;                 // ks pass: sample rows a stage
-constexpr int VF_LDA = FD + 4;            // fa_s row stride (floats)
+constexpr int VF_LDA = FD_F32 + 4;            // fa_s row stride (floats)
 constexpr int VB_TN = 256;                // V pass: columns a block tile
 constexpr int VB_TP = 16;                 // V pass: sample rows a stage
 constexpr int VB_SPAN = 16;               // V pass: stages a span (256 rows)
@@ -538,7 +585,7 @@ __device__ __forceinline__ void load_stage_f32(float* fa_d, float* na_d, float* 
 #pragma unroll 1
   for (int c = threadIdx.x; c < TPR * (LV / 4); c += VF_THREADS) {
     const int r = c / (LV / 4), q = c % (LV / 4);
-    cp_async16(fa_d + r * VF_LDA + 4 * q, a.fa + (size_t)(p0 + r) * FD + 4 * q);
+    cp_async16(fa_d + r * VF_LDA + 4 * q, a.fa + (size_t)(p0 + r) * FD_F32 + 4 * q);
   }
   if (threadIdx.x < TPR / 4) cp_async16(na_d + 4 * threadIdx.x, a.na + p0 + 4 * threadIdx.x);
   if (v) {
@@ -829,26 +876,23 @@ int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, cons
                  : launch_v_f32<32>(blocks, s, a, norms_coeffs);
 }
 
-// how many V-pass blocks for width MP fit the card at once (the persistent
-// grid of K10 and of K9's V pass); a negative value is a cudaError, 0 an
-// unsupported MP
-int glt_colstats_v_blocks(int MP) {
-  int n = 0, rc;
-  switch (MP) {
-    case 16: rc = resident_blocks<2>(&n); break;
-    case 32: rc = resident_blocks<4>(&n); break;
-    case 48: rc = resident_blocks<6>(&n); break;
-    case 64: rc = resident_blocks<8>(&n); break;
-    default: return 0;
-  }
+// how many V-pass blocks for width MP and fd lanes fit the card at once
+// (the persistent grid of K10 and of K9's V pass); a negative value is a
+// cudaError, 0 an unsupported MP or fd
+int glt_colstats_v_blocks(int MP, int fd) {
+  int n = 0;
+  const int rc = fd == 32 ? resident_blocks_fd<32>(MP, &n)
+                 : fd == 64 ? resident_blocks_fd<64>(MP, &n)
+                            : 0;
   return rc != 0 ? -rc : n;
 }
 
-// K10. P % 64 == 0, N % 256 == 0, MP in {16, 32, 48, 64} (the wrapper
-// checks); part holds (blocks, 2, MP) floats, norms_coeffs (2, MP).
+// K10. P % 64 == 0, N % 256 == 0, MP in {16, 32, 48, 64}, fd 32 or 64 (the
+// wrapper checks); part holds (blocks, 2, MP) floats, norms_coeffs (2, MP).
 int glt_colstats_v(const void* fa, const void* ft, const void* grt, const void* cb,
                    const void* y, const void* na, const void* nb, void* v_out, void* part,
-                   void* norms_coeffs, int P, int N, int MP, int blocks, void* stream) {
+                   void* norms_coeffs, int P, int N, int MP, int fd, int blocks,
+                   void* stream) {
   VArgs a = {};
   a.fa = static_cast<const bf16*>(fa);
   a.ft = static_cast<const bf16*>(ft);
@@ -861,7 +905,7 @@ int glt_colstats_v(const void* fa, const void* ft, const void* grt, const void* 
   a.part = static_cast<float*>(part);
   a.P = P;
   a.N = N;
-  return launch_v(MP, blocks, reinterpret_cast<cudaStream_t>(stream), a, norms_coeffs);
+  return launch_v(MP, fd, blocks, reinterpret_cast<cudaStream_t>(stream), a, norms_coeffs);
 }
 
 // K9: the ks pass (s and bf16(s) into s_out, cb_out), then K10's V pass with
@@ -869,8 +913,10 @@ int glt_colstats_v(const void* fa, const void* ft, const void* grt, const void* 
 int glt_finish_colstats(const void* fa, const void* ft, const void* grt, const void* tb,
                         const void* s_pre, const void* bm, const void* y, const void* na,
                         const void* nb, void* v_out, void* s_out, void* cb_out, void* part,
-                        void* norms_coeffs, int P, int N, int MP, int blocks, void* stream) {
+                        void* norms_coeffs, int P, int N, int MP, int fd, int blocks,
+                        void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (fd != 32 && fd != 64) return static_cast<int>(cudaErrorInvalidValue);
   VArgs a = {};
   a.fa = static_cast<const bf16*>(fa);
   a.ft = static_cast<const bf16*>(ft);
@@ -888,17 +934,9 @@ int glt_finish_colstats(const void* fa, const void* ft, const void* grt, const v
   a.part = static_cast<float*>(part);
   a.P = P;
   a.N = N;
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ks_kernel, THREADS, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int ks_blocks = occ * sms < N / TN ? occ * sms : N / TN;
-  ks_kernel<<<ks_blocks, THREADS, 0, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_v(MP, blocks, s, a, norms_coeffs);
+  const int rc = fd == 32 ? launch_ks<32>(s, a) : launch_ks<64>(s, a);
+  if (rc != 0) return rc;
+  return launch_v(MP, fd, blocks, s, a, norms_coeffs);
 }
 
 // out = bf16(exp(-max(d2, 0))) with K9's and K10's exp (kexp), elementwise

@@ -10,7 +10,8 @@
 //         u    += k_j s_j                          (k_j: bf16, s_j: f32)
 // with the Pallas rounding points. d2 comes from the augmented bf16 x bf16
 // product with f32 accumulation (mma.sync m16n8k16); the feature depth is 32
-// (aug_d_pad_of of NLM d=25). K9 (finish_colstats) shares K10's kernel in
+// (aug_d_pad_of of NLM d=25) or 64 (of NLM d=49, a 7 x 7 patch), a template
+// parameter of each kernel. K9 (finish_colstats) shares K10's kernel in
 // colstats_v.cu. The f32 layouts (the bilateral recipes, spatial_h > 0)
 // take kernels of their own, kb_f32_kernel and ext2_f32_kernel below: the
 // reference's f32 _kb_tile class, an IEEE f32 FFMA cross over the live
@@ -24,7 +25,10 @@
 // operations an entry at the f32 peak; the tensor-core work (d2, kbt and u,
 // 2.2 TFLOP at K = 32 plus two K = 16 products) ~3 ms; the features 0.5 GB
 // ~0.2 ms. Measured, it runs latency-bound: the 128-register budget of 16
-// warps holds two tiles' fragments and u, and little else. K7 at the 8 MP
+// warps holds two tiles' fragments and u, and little else. At 64 lanes the
+// d2 product doubles (4.4 TFLOP, 4.45 ms at the bf16 peak, the bound), the
+// sample rows take 72 KB of shared memory, and the f_t fragments of lanes
+// 32-63 are read again from shared memory for each 16-row block. K7 at the 8 MP
 // gram shape (p_pad 4096, 131072 columns) emits 1.07 GB of bf16 (0.32 ms
 // at 3.35 TB/s) for 5.4e8 entries: bound by its store.
 //
@@ -73,16 +77,18 @@
 // its sample rows and f_t columns again with 2-byte loads), an IEEE expf a
 // tile entry, and the store after the math, overlapped only by other
 // blocks. Now:
-//   * 256-thread blocks, two an SM (the occupancy API sizes the grid), walk
+//   * 256-thread blocks, two an SM at 32 lanes and one at 64 (its f_t ring
+//     and B fragments double; the occupancy API sizes the grid), walk
 //     64 x 256 output units (512 contiguous bytes a row) dealt round-robin:
 //     unit q of block b is b + q G, so the G blocks store neighbouring
 //     column tiles of one row slice at a time; a warp holds its 32 sample
-//     rows x 32 aug lanes as A fragments in registers, reloaded when its
+//     rows x FD aug lanes as A fragments in registers, reloaded when its
 //     next unit lies in another row slice;
-//   * a unit's (32, 256) f_t tile arrives by four TMA boxes (128-byte
+//   * a unit's (FD, 256) f_t tile arrives by four TMA boxes (128-byte
 //     swizzle) into a 2-stage ring, issued a unit ahead; the warp's 64
 //     columns come as B fragments by ldmatrix.trans (conflict-free);
-//   * d2 is two m16n8k16 bf16 mma a 16 x 8 sub-tile; the entry is kexp on
+//   * d2 is two (four at 64 lanes) m16n8k16 bf16 mma a 16 x 8 sub-tile, one
+//     chain from zero; the entry is kexp on
 //     bf16(d2) (one FMUL, one MUFU ex2: 16 a clock an SM, 5.4e8 entries
 //     ~0.13 ms at config 4, under the store), equal to kb_aug at every one
 //     of the 65536 bf16(d2) patterns (chip_smoke.py checks it through
@@ -114,8 +120,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int FD = 32;       // feature depth
-constexpr int LDF = FD + 8;  // padded shared row stride of K8's sample rows (bf16)
+// The bf16 aug kernels (K7, K8) take the feature depth FD as a template
+// parameter: 32 (aug_d_pad_of of NLM d 25) or 64 (of NLM d 49, a 7 x 7
+// patch). The f32 layouts take 32 lanes.
+constexpr int FD_F32 = 32;
 
 // ---------------------------------------------------------------------------
 // K7: the column-scaled tile emitter (aug layout), persistent blocks
@@ -129,12 +137,17 @@ constexpr int E_MT = E_WM / 16, E_NT = E_WN / 8;  // its m16 and n8 tiles
 constexpr int E_STAGES = 2;     // f_t ring (3 stages would not let two blocks fit an SM)
 constexpr int E_BOX = 64;       // columns a TMA box (128 bytes of bf16)
 constexpr int E_BOXES = E_TN / E_BOX;          // TMA boxes a unit, f_t and output
-constexpr int E_FT_BYTES = FD * E_TN * 2;      // a unit's f_t tile: boxes of 32 k rows
 constexpr int E_OUT_BYTES = E_TM * E_TN * 2;   // a unit's output: boxes of E_TM rows
 static_assert(E_WM % 16 == 0 && E_WN % 16 == 0 && E_TN % E_BOX == 0, "K7 unit shape");
-// alignment slack, two staging buffers, the ring, its barriers
-constexpr size_t E_SMEM = 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES * E_FT_BYTES +
-                          8 * E_STAGES;
+// a unit's f_t tile: boxes of FD k rows (16 KB at 32 lanes, 32 KB at 64)
+template <int FD>
+constexpr int E_FT_BYTES_OF = FD * E_TN * 2;
+// alignment slack, two staging buffers, the ring, its barriers: 97 KB at
+// 32 lanes (two blocks an SM), 129 KB at 64 (one)
+template <int FD>
+constexpr size_t e_smem() {
+  return 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES * E_FT_BYTES_OF<FD> + 8 * E_STAGES;
+}
 
 // the aug entries of two d2, bf16(exp(-bf16(max(d2, 0)))) packed (lo in the
 // low half): d2 rounded to bf16 (cvt.rn.bf16x2), then kexp's one FMUL and
@@ -172,12 +185,14 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t e, float c0, float c1) {
   return pack2(__uint_as_float(e << 16) * c0, __uint_as_float(e & 0xFFFF0000u) * c1);
 }
 
-__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(
-    const __grid_constant__ CUtensorMap ft_map,   // (32, S) aug f_t, 64 x 32 boxes
+template <int FD>
+__global__ __launch_bounds__(E_THREADS, FD == 32 ? 2 : 1) void kb_emit_kernel(
+    const __grid_constant__ CUtensorMap ft_map,   // (FD, S) aug f_t, 64 x FD boxes
     const __grid_constant__ CUtensorMap out_map,  // (P, S) out, 64 x E_TM boxes
-    const bf16* __restrict__ fa,                  // (P, 32) aug
+    const bf16* __restrict__ fa,                  // (P, FD) aug
     const bf16* __restrict__ cols,                // (S)
     int nrb, int nct, int S) {
+  constexpr int KS = FD / 16, E_FT_BYTES = E_FT_BYTES_OF<FD>;
   extern __shared__ unsigned char e_raw[];
   unsigned char* smem = e_raw + ((1024 - (smem_u32(e_raw) & 1023)) & 1023);
   unsigned char* ring = smem + 2 * E_OUT_BYTES;
@@ -207,7 +222,7 @@ __global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(
   }
   __syncthreads();
 
-  uint32_t A[E_MT][2][4];   // the warp's sample rows: [m16 tile][k16 step] fragments
+  uint32_t A[E_MT][KS][4];   // the warp's sample rows: [m16 tile][k16 step] fragments
   int rb_held = -1;
   for (int q = 0; q < n; ++q) {
     const int t = unit(q), rb = t / nct, ct = t % nct, st = q % E_STAGES;
@@ -216,7 +231,7 @@ __global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(
 #pragma unroll
       for (int mt = 0; mt < E_MT; ++mt)
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+        for (int ks = 0; ks < KS; ++ks) {
           const bf16* p = fa + (size_t)(rb * E_TM + wr * E_WM + mt * 16 + g) * FD + 16 * ks + 2 * tq;
           A[mt][ks][0] = ld32(p);
           A[mt][ks][1] = ld32(p + 8 * FD);
@@ -241,10 +256,10 @@ __global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(
     // B fragments of the warp's 32 columns ([n8 tile][k16 step]) by
     // ldmatrix.trans from the swizzled boxes: matrix l / 8 of a load is
     // (k rows 16 ks + 8 (l / 8 % 2) .., chunk chunk0 + 2 np + l / 16)
-    uint32_t B[E_NT][2][2];
+    uint32_t B[E_NT][KS][2];
     const unsigned char* fb = ring + st * E_FT_BYTES + box * (E_FT_BYTES / E_BOXES);
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
       for (int np = 0; np < E_NT / 2; ++np) {
         const int k = 16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1);
@@ -261,9 +276,9 @@ __global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(
       const int r0 = wr * E_WM + mt * 16 + g;   // rows r0, r0 + 8; r0 & 7 == g
 #pragma unroll
       for (int nt = 0; nt < E_NT; ++nt) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816(c, A[mt][0], B[nt][0]);
-        mma16816(c, A[mt][1], B[nt][1]);
+        float c[4] = {0.f, 0.f, 0.f, 0.f};   // d2: one chain over the k16 steps
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) mma16816(c, A[mt][ks], B[nt][ks]);
         // staged in the TMA box's 128-byte-swizzled layout: the 8 rows a
         // warp writes at once land in 8 distinct 16-byte chunks
         unsigned char* o = stage + (box + (chunk0 + nt) / 8) * (E_OUT_BYTES / E_BOXES) +
@@ -311,10 +326,12 @@ constexpr int X_LPP = X_THREADS / (2 * X_TN);  // threads a (column, r | c) pair
 static_assert(X_CG == 4 && X_RG == 4 && X_LPP * 2 == CL,
               "the fixed-order sums below are written out for this shape");
 
-// the (32, X_TN) f_t tile at column j0 -> dst[k][j], stride X_LDT; one
+// the (FD, X_TN) f_t tile at column j0 -> dst[k][j], stride X_LDT; one
 // cp.async commit group
+template <int FD>
 __device__ __forceinline__ void load_ft(bf16* dst, const bf16* __restrict__ ft, size_t ld,
                                         int j0) {
+  static_assert(FD * (X_TN / 8) <= X_THREADS, "one 16-byte copy a thread");
   const int c = threadIdx.x;
   if (c < FD * (X_TN / 8)) {
     const int k = c / (X_TN / 8), q = c % (X_TN / 8);
@@ -325,18 +342,27 @@ __device__ __forceinline__ void load_ft(bf16* dst, const bf16* __restrict__ ft, 
 
 constexpr int KT_N = 65536;              // the entry table: every bf16 bit pattern of d2
 
-// shared memory of a block holding rb sample rows
+// K8's shared row stride of the sample rows (bf16): conflict-free ldmatrix
+template <int FD>
+constexpr int X_LDF = FD + 8;
+
+// shared memory of a block holding rb = P / 8 sample rows: the table, the
+// rows, two f_t tiles (the u rows' column-group sums reuse them once the
+// walk is done), t2, s, the partials. At P 4096 and 64 lanes 231680 bytes,
+// inside the 232448 a block may take; with the u sums apart it would be
+// 239872
+template <int FD>
 size_t ext2_smem(int P) {
   const size_t rb = P / CL;
   return sizeof(unsigned short) * KT_N +
-         sizeof(bf16) * (rb * LDF + 2 * FD * X_LDT + 2 * rb + 2 * 3 * X_TN) +
-         sizeof(float) * ((size_t)2 * X_RG * 2 * X_TN + 3 * 2 * X_TN + X_CG * rb);
+         sizeof(bf16) * (rb * X_LDF<FD> + 2 * FD * X_LDT + 2 * rb + 2 * 3 * X_TN) +
+         sizeof(float) * ((size_t)2 * X_RG * 2 * X_TN + 3 * 2 * X_TN);
 }
 
-template <int NB>   // 16-row blocks a warp: P = 512 NB
+template <int NB, int FD>   // 16-row blocks a warp (P = 512 NB), feature depth
 __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
-    const bf16* __restrict__ fa,   // (P, 32) aug
-    const bf16* __restrict__ ft,   // (32, N) aug
+    const bf16* __restrict__ fa,   // (P, FD) aug
+    const bf16* __restrict__ ft,   // (FD, N) aug
     const bf16* __restrict__ t2,   // (2, P), bf16-rounded
     const float* __restrict__ bm,  // (N)
     float* __restrict__ s_out,     // (N)
@@ -348,13 +374,16 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   const int rb = P / CL, r0 = rank * rb;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned short* kt_s = reinterpret_cast<unsigned short*>(smem);   // [KT_N] entry table
+  constexpr int LDF = X_LDF<FD>;
+  static_assert(2 * FD * X_LDT * sizeof(bf16) >= X_CG * 512 * sizeof(float),
+                "the u sums of P = 4096 fit the f_t tiles");
   bf16* fa_s = reinterpret_cast<bf16*>(kt_s + KT_N);     // [rb][LDF]
   bf16* ft_s = fa_s + rb * LDF;                          // [2][FD][X_LDT]
   bf16* t2_s = ft_s + 2 * FD * X_LDT;                    // [2][rb] bf16(t_r | t_c)
   bf16* s3_s = t2_s + 2 * rb;                            // [2 bufs][3][X_TN] s = hi + mid + lo
   float* wq_s = reinterpret_cast<float*>(s3_s + 2 * 3 * X_TN);  // [2 bufs][X_RG][2][X_TN]
   float* part_s = wq_s + 2 * X_RG * 2 * X_TN;            // [3 bufs][2][X_TN] rank partials
-  float* uw_s = part_s + 3 * 2 * X_TN;                   // [X_CG][rb]
+  float* uw_s = reinterpret_cast<float*>(ft_s);          // [X_CG][rb], after the walk
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int cgi = warp % X_CG, jb = cgi * 16;   // this warp's 16 columns of a tile
@@ -387,6 +416,10 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   // the warp's slice of tile i -> packed bf16 A fragments (16 columns x
   // 16 rows a block), and its kbt partial into wq_s; halfway runs once,
   // halfway through the blocks
+  // The f_t fragments of lanes 0-31 stay in registers over the walk; at 64
+  // lanes those of lanes 32-63 are read again from shared memory for each
+  // 16-row block (the registers hold two tiles' fragments and u, little
+  // else). d2 is one mma chain over the k16 steps from zero.
   auto tile = [&](uint32_t (&F)[NB][4], int i, auto&& halfway) {
     const bf16* fts = ft_s + (i & 1) * FD * X_LDT;
     uint32_t a0[4], a1[4];
@@ -397,13 +430,24 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b == NB / 2) halfway();
+      [[maybe_unused]] uint32_t a2[4], a3[4];   // lanes 32-63 (FD 64)
+      if constexpr (FD == 64) {
+        ldsm_x4_trans(a2, ap + 32 * X_LDT);
+        ldsm_x4_trans(a3, ap + 48 * X_LDT);
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        const bf16* bp = fa_s + (rw + 16 * b + 8 * h + (lane & 7)) * LDF + 8 * (lane >> 3);
         uint32_t bq[4];
-        ldsm_x4(bq, fa_s + (rw + 16 * b + 8 * h + (lane & 7)) * LDF + 8 * (lane >> 3));
+        ldsm_x4(bq, bp);
         float c[4] = {0.f, 0.f, 0.f, 0.f};
         mma16816(c, a0, bq);
         mma16816(c, a1, bq + 2);
+        if constexpr (FD == 64) {
+          ldsm_x4(bq, bp + 32);
+          mma16816(c, a2, bq);
+          mma16816(c, a3, bq + 2);
+        }
         F[b][2 * h] = kent2(pack2(c[0], c[1]));
         F[b][2 * h + 1] = kent2(pack2(c[2], c[3]));
       }
@@ -489,7 +533,7 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
     const float bmv = tid % (2 * X_LPP) == 0 ? bm[col0(i) + (q >> 1)] : 0.f;
     float v0, v1;
     if (next) {
-      if (i + 2 < mine) load_ft(ft_s + (i & 1) * FD * X_LDT, ft, (size_t)N, col0(i + 2));
+      if (i + 2 < mine) load_ft<FD>(ft_s + (i & 1) * FD * X_LDT, ft, (size_t)N, col0(i + 2));
       tile(Fn, i + 1, [&] { fetch(i, v0, v1); });
     } else {
       fetch(i, v0, v1);
@@ -505,10 +549,10 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   };
 
   uint32_t F0[NB][4], F1[NB][4];
-  load_ft(ft_s, ft, (size_t)N, col0(0));
+  load_ft<FD>(ft_s, ft, (size_t)N, col0(0));
   cp_async_wait_all();
   __syncthreads();                       // the table, fa_s, t2_s, the first f_t tile in
-  if (mine > 1) load_ft(ft_s + FD * X_LDT, ft, (size_t)N, col0(1));
+  if (mine > 1) load_ft<FD>(ft_s + FD * X_LDT, ft, (size_t)N, col0(1));
   tile(F0, 0, [] {});
   cp_async_wait_all();
   __syncthreads();
@@ -552,7 +596,7 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
 // store, so a warp writes 512 contiguous bytes a row.
 constexpr int EF_THREADS = 256;
 constexpr int EF_TM = 32, EF_TN = 256;
-constexpr int EF_LDA = FD + 4;      // fa_s row stride (floats)
+constexpr int EF_LDA = FD_F32 + 4;      // fa_s row stride (floats)
 constexpr int EF_LDB = EF_TN + 4;   // ft_s row stride (floats)
 
 __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
@@ -562,7 +606,7 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
     float* __restrict__ out,         // (P, S)
     int S, int live) {
   __shared__ __align__(16) float fa_s[EF_TM * EF_LDA];
-  __shared__ __align__(16) float ft_s[FD * EF_LDB];
+  __shared__ __align__(16) float ft_s[FD_F32 * EF_LDB];
   __shared__ __align__(16) float na_s[EF_TM], nb_s[EF_TN];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.y * EF_TM, c0 = blockIdx.x * EF_TN;
@@ -571,7 +615,7 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
   for (int i = tid; i < EF_TM * l4; i += EF_THREADS) {
     const int r = i / l4, q = i % l4;
     *reinterpret_cast<float4*>(fa_s + r * EF_LDA + 4 * q) =
-        *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * FD + 4 * q);
+        *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * FD_F32 + 4 * q);
   }
   for (int i = tid; i < live * (wcols / 4); i += EF_THREADS) {
     const int k = i / (wcols / 4), q = i % (wcols / 4);
@@ -654,11 +698,11 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
 //     runs repeat bit for bit.
 constexpr int XF_THREADS = 256;
 constexpr int XF_TN = 32;         // columns a tile
-constexpr int XF_LDA = FD + 4;    // fa_s row stride (floats)
+constexpr int XF_LDA = FD_F32 + 4;    // fa_s row stride (floats)
 constexpr int XF_SPAN = 64;       // tiles a span of u
 
 size_t ext2_f32_smem(int P) {
-  return sizeof(float) * ((size_t)(P / CL) * XF_LDA + 2 * FD * XF_TN + 8 * 2 * XF_TN +
+  return sizeof(float) * ((size_t)(P / CL) * XF_LDA + 2 * FD_F32 * XF_TN + 8 * 2 * XF_TN +
                           2 * 2 * XF_TN + XF_TN);
 }
 
@@ -677,8 +721,8 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
   const int rb = P / CL, r0 = rank * rb;   // rb == 64 NR
   extern __shared__ __align__(16) float xf_smem[];
   float* fa_s = xf_smem;                     // [rb][XF_LDA]
-  float* ft_s = fa_s + rb * XF_LDA;          // [2][FD][XF_TN]
-  float* wq_s = ft_s + 2 * FD * XF_TN;       // [8 warps][2][XF_TN]
+  float* ft_s = fa_s + rb * XF_LDA;          // [2][FD_F32][XF_TN]
+  float* wq_s = ft_s + 2 * FD_F32 * XF_TN;       // [8 warps][2][XF_TN]
   float* part_s = wq_s + 8 * 2 * XF_TN;      // [2][2][XF_TN] this rank's kbt partials
   float* s_s = part_s + 2 * 2 * XF_TN;       // [XF_TN]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -690,14 +734,14 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
   auto load_ft = [&](int i, int buf) {
     for (int c = tid; c < live * (XF_TN / 4); c += XF_THREADS) {
       const int k = c / (XF_TN / 4), q = c % (XF_TN / 4);
-      cp_async16(ft_s + (buf * FD + k) * XF_TN + 4 * q, ft + (size_t)k * N + col0(i) + 4 * q);
+      cp_async16(ft_s + (buf * FD_F32 + k) * XF_TN + 4 * q, ft + (size_t)k * N + col0(i) + 4 * q);
     }
     cp_async_commit();
   };
 
   for (int c = tid; c < rb * l4; c += XF_THREADS) {
     const int r = c / l4, q = c % l4;
-    cp_async16(fa_s + r * XF_LDA + 4 * q, fa + (size_t)(r0 + r) * FD + 4 * q);
+    cp_async16(fa_s + r * XF_LDA + 4 * q, fa + (size_t)(r0 + r) * FD_F32 + 4 * q);
   }
   load_ft(0, 0);
   cp_async_wait_all();
@@ -721,7 +765,7 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
       __syncthreads();     // tile i in; everyone done with tile i - 1's s_s and wq_s
     }
     if (i + 1 < mine) load_ft(i + 1, buf ^ 1);
-    const float* fb = ft_s + buf * FD * XF_TN + cgi * 8;
+    const float* fb = ft_s + buf * FD_F32 * XF_TN + cgi * 8;
     float nb[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) nb[c] = 0.f;
@@ -843,54 +887,72 @@ ext2_f32_fn ext2_f32_kernel_for(int P) {
   }
 }
 
-// K8's kernel for P sample rows (P = 512 NB, NB in 1..8), or null
+// K8's kernel for P sample rows (P = 512 NB, NB in 1..8) of FD lanes, or null
 typedef void (*ext2_fn)(const bf16*, const bf16*, const bf16*, const float*, float*, float*,
                         int, int);
-ext2_fn ext2_kernel(int P) {
+template <int FD>
+ext2_fn ext2_kernel_fd(int P) {
   switch (P / (CL * X_RG * 16)) {
-    case 1: return ext2_matvec_kernel<1>;
-    case 2: return ext2_matvec_kernel<2>;
-    case 3: return ext2_matvec_kernel<3>;
-    case 4: return ext2_matvec_kernel<4>;
-    case 5: return ext2_matvec_kernel<5>;
-    case 6: return ext2_matvec_kernel<6>;
-    case 7: return ext2_matvec_kernel<7>;
-    case 8: return ext2_matvec_kernel<8>;
+    case 1: return ext2_matvec_kernel<1, FD>;
+    case 2: return ext2_matvec_kernel<2, FD>;
+    case 3: return ext2_matvec_kernel<3, FD>;
+    case 4: return ext2_matvec_kernel<4, FD>;
+    case 5: return ext2_matvec_kernel<5, FD>;
+    case 6: return ext2_matvec_kernel<6, FD>;
+    case 7: return ext2_matvec_kernel<7, FD>;
+    case 8: return ext2_matvec_kernel<8, FD>;
     default: return nullptr;
   }
 }
+ext2_fn ext2_kernel(int P, int fd) {
+  return fd == 32 ? ext2_kernel_fd<32>(P) : fd == 64 ? ext2_kernel_fd<64>(P) : nullptr;
+}
+size_t ext2_smem(int P, int fd) {
+  return fd == 32 ? ext2_smem<32>(P) : ext2_smem<64>(P);
+}
 
-}  // namespace
-
-extern "C" {
-
-// K7. P % 128 == 0, S % 128 == 0, fa, ft, cols and out 16-byte aligned
-// (the wrapper checks). Persistent blocks, as many as fit the card at once
-// (the occupancy API), at most one an E_TM x E_TN unit.
-int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
-                 void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (P < E_TM || S < 128 || P % E_TM || S % 128) return static_cast<int>(cudaErrorInvalidValue);
+// K7's launch at feature depth FD
+template <int FD>
+int launch_kb_strip(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
+                    cudaStream_t s) {
+  constexpr size_t smem = e_smem<FD>();
   CUtensorMap ft_map, out_map;
   if (!tile_map(&ft_map, ft, false, S, FD, S, E_BOX, FD) ||
       !tile_map(&out_map, out, false, S, P, S, E_BOX, E_TM))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaFuncSetAttribute(kb_emit_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)E_SMEM);
+  cudaError_t e = cudaFuncSetAttribute(kb_emit_kernel<FD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kb_emit_kernel, E_THREADS, E_SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kb_emit_kernel<FD>, E_THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // a last column tile past S reads zero f_t columns and its store is clipped
   const int nrb = P / E_TM, nct = (S + E_TN - 1) / E_TN;
   const long long units = (long long)nrb * nct;
   const int grid = (int)((long long)occ * sms < units ? (long long)occ * sms : units);
-  kb_emit_kernel<<<grid, E_THREADS, E_SMEM, s>>>(ft_map, out_map, static_cast<const bf16*>(fa),
-                                                 static_cast<const bf16*>(cols), nrb, nct, S);
+  kb_emit_kernel<FD><<<grid, E_THREADS, smem, s>>>(ft_map, out_map, static_cast<const bf16*>(fa),
+                                                   static_cast<const bf16*>(cols), nrb, nct, S);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// K7. P % 128 == 0, S % 128 == 0, fd 32 or 64 aug lanes, fa, ft, cols
+// and out 16-byte aligned (the wrapper checks). Persistent blocks, as many
+// as fit the card at once (the occupancy API), at most one an E_TM x E_TN
+// unit.
+int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
+                 int fd, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (P < E_TM || S < 128 || P % E_TM || S % 128 || (fd != 32 && fd != 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fd == 32 ? launch_kb_strip<32>(fa, ft, cols, out, P, S, s)
+                  : launch_kb_strip<64>(fa, ft, cols, out, P, S, s);
 }
 
 // K7, f32 layout. P % 32 == 0, S % 128 == 0, live % 4 == 0 in [4, 32], fa,
@@ -898,7 +960,7 @@ int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, in
 // units.
 int glt_kb_strip_f32(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
                      int live, void* stream) {
-  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 || live < 4 || live > FD || live % 4)
+  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 || live < 4 || live > FD_F32 || live % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + EF_TN - 1) / EF_TN, P / EF_TM);
   kb_f32_kernel<<<grid, EF_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
@@ -931,7 +993,7 @@ int glt_ext2_matvec_f32(const void* fa, const void* ft, const void* t2, const vo
                         void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const ext2_f32_fn kernel = ext2_f32_kernel_for(P);
-  if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > FD || live % 4)
+  if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > FD_F32 || live % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ext2_f32_smem(P);
   cudaError_t e = cudaFuncSetAttribute(kernel,
@@ -958,12 +1020,12 @@ int glt_kb_entries(void* out, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// how many 8-block K8 clusters for P sample rows fit the card at once; a
-// negative value is a cudaError
-int glt_ext2_clusters(int P) {
-  const ext2_fn kernel = ext2_kernel(P);
+// how many 8-block K8 clusters for P sample rows of fd lanes fit the card
+// at once; a negative value is a cudaError
+int glt_ext2_clusters(int P, int fd) {
+  const ext2_fn kernel = ext2_kernel(P, fd);
   if (kernel == nullptr || P % (CL * X_RG * 16)) return -static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ext2_smem(P);
+  const size_t smem = ext2_smem(P, fd);
   cudaError_t e = cudaFuncSetAttribute(kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
@@ -974,15 +1036,16 @@ int glt_ext2_clusters(int P) {
   return e != cudaSuccess ? -static_cast<int>(e) : n;
 }
 
-// K8. P % 512 == 0, P <= 4096, N % 64 == 0, 1 <= clusters <= N / 64 (the
-// wrapper checks); u_part holds (clusters, P) floats.
+// K8. P % 512 == 0, P <= 4096, N % 64 == 0, 1 <= clusters <= N / 64, fd
+// 32 or 64 aug lanes (the wrapper checks); u_part holds (clusters, P)
+// floats.
 int glt_ext2_matvec(const void* fa, const void* ft, const void* t2, const void* bm,
-                    void* s_out, void* u_part, void* u, int P, int N, int clusters,
+                    void* s_out, void* u_part, void* u, int P, int N, int clusters, int fd,
                     void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const ext2_fn kernel = ext2_kernel(P);
+  const ext2_fn kernel = ext2_kernel(P, fd);
   if (kernel == nullptr || P % (CL * X_RG * 16)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ext2_smem(P);
+  const size_t smem = ext2_smem(P, fd);
   cudaError_t e = cudaFuncSetAttribute(kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # C signatures (all kernels return cudaGetLastError() as an int)
 _SIGNATURES = {
-    "glt_affinity_scratch_bytes": ([_I], _Z),
+    "glt_affinity_scratch_bytes": ([_I, _I], _Z),
     "glt_affinity_strip": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "glt_ext2_smem_bytes": ([_I, _I, _I], _Z),
     "glt_ext2_strip_clusters": ([_I, _I, _I], _I),
@@ -39,16 +39,16 @@ _SIGNATURES = {
     "glt_strip_ext2_f32_clusters": ([_I, _I, _I], _I),
     "glt_strip_ext2_f32": ([_P] * 6 + [_I] * 6 + [_P], _I),
     "glt_strip_sandwich_f32": ([_P] * 10 + [_I] * 5 + [_P], _I),
-    "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "glt_kb_entries": ([_P, _P], _I),
-    "glt_ext2_clusters": ([_I], _I),
-    "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _P], _I),
-    "glt_finish_colstats": ([_P] * 14 + [_I, _I, _I, _I, _P], _I),
+    "glt_ext2_clusters": ([_I, _I], _I),
+    "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
+    "glt_finish_colstats": ([_P] * 14 + [_I] * 5 + [_P], _I),
     "glt_recompute_slots": ([_I], _I),
     "glt_recompute_sum": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "glt_aug_entries": ([_P, _I, _P], _I),
-    "glt_colstats_v_blocks": ([_I], _I),
-    "glt_colstats_v": ([_P] * 10 + [_I, _I, _I, _I, _P], _I),
+    "glt_colstats_v_blocks": ([_I, _I], _I),
+    "glt_colstats_v": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "glt_kexp_bf16": ([_P, _P, _Z, _P], _I),
     # the IEEE f32 cross: K1 and K5/K6 on coordinates, K7-K10 f32 layouts
     "glt_affinity_coord": ([_P] * 3 + [_I] * 5 + [_P], _I),

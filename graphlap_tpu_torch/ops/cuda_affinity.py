@@ -9,12 +9,15 @@ as the f32 K5/K6 form it; the bf16 entry's exp one MUFU ex2, the f32 one
 IEEE expf; each 128 x 128 tile staged in shared memory and written by TMA).
 The inputs round to ``dtype`` first and the norms come from those rounded
 values, as in the Pallas body; ``store_dtype`` narrows only the stored
-strip (the bfloat16_store policy). The kernel takes up to ``MAX_FEATURES``
-feature lanes (NLM patches up to 5 x 5 with two coordinates). Features
+strip (the bfloat16_store policy). The split cross takes up to
+``MAX_FEATURES`` feature lanes, in two instantiations of the kernel: 32
+lanes (NLM patches up to 5 x 5) and 64 (a 7 x 7 patch, 49 lanes). Features
 that carry coordinates (``coords``: the config's ``spatial_h > 0``) take
-the kernel's IEEE f32 cross instead (an FFMA chain over the live lanes):
-(row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16
-small part loses about four times the f32 product's error.
+the kernel's IEEE f32 cross instead (an FFMA chain over the live lanes),
+up to ``COORD_FEATURES`` lanes: (row, col) / spatial_h reach |f|^2 ~ 3e5
+at 8 MP, where the split's fp16 small part loses about four times the f32
+product's error. Wider layouts (d_pad 96 and 128, and the coordinate cross
+past 32 lanes) raise ``NotImplementedError`` naming ROADMAP.md Queue 2b.
 
 Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
 arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
@@ -27,7 +30,9 @@ import torch
 
 from . import _build
 
-MAX_FEATURES = 32        # feature lanes of the kernel's cross (csrc A1_FD)
+MAX_FEATURES = 64        # feature lanes of the split cross (csrc FD 32 or 64)
+COORD_FEATURES = 32      # feature lanes of the coordinate cross (csrc C1_FD)
+D_PAD = 128              # the reference's widest feature layout
 # row pitch of the kernel's output where N is ragged
 ROW_BYTES = 256
 # column chunk of the plain version: its f64 exp of a whole dense-path
@@ -98,10 +103,16 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
     n, d2 = feats_all.shape
     if d2 != d:
         raise ValueError(f"feature dims differ: {d} vs {d2}")
-    if not 0 < d <= MAX_FEATURES or p == 0 or n == 0:
-        raise ValueError(f"affinity_strip: the kernel takes 1..{MAX_FEATURES} "
+    if not 0 < d <= D_PAD or p == 0 or n == 0:
+        raise ValueError(f"affinity_strip: the kernel takes 1..{D_PAD} "
                          f"feature lanes and non-empty operands, got ({p}, "
                          f"{d}) x ({n}, {d2})")
+    cross, lanes = (("coordinate", COORD_FEATURES) if coords
+                    else ("split", MAX_FEATURES))
+    if d > lanes:
+        raise NotImplementedError(
+            f"affinity_strip: {d} feature lanes: the CUDA kernel's {cross} "
+            f"cross takes up to {lanes} (ROADMAP.md Queue 2b)")
     a = feats_a.to(dtype).to(torch.float32).contiguous()
     b = feats_all.to(dtype).to(torch.float32).contiguous()
     lib = _build.lib()
@@ -121,7 +132,7 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
                                     p, n, d, ld, bf16_out,
                                     _build.stream_ptr(a))
     else:
-        scratch = torch.empty(lib.glt_affinity_scratch_bytes(p),
+        scratch = torch.empty(lib.glt_affinity_scratch_bytes(p, d),
                               dtype=torch.uint8, device=feats_a.device)
         rc = lib.glt_affinity_strip(
             a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(), p,

@@ -26,9 +26,11 @@ four times the f32 product's error.
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
-the two layouts the presets reach: bf16 aug and f32 plain. The plain bf16
-layout (the reference's ``GLT_AUG_DISABLE`` lever) raises
-``NotImplementedError`` on CUDA; there is no fallback from a kernel to its
+the two layouts the presets reach: bf16 aug and f32 plain, at 32 feature
+lanes. Wider layouts (a 7 x 7 patch's 64 lanes and past) raise
+``NotImplementedError`` naming ROADMAP.md Queue 2b, and the plain bf16
+layout (the reference's ``GLT_AUG_DISABLE`` lever) raises it too; there is
+no fallback from a kernel to its
 plain version. Unlike K8/K9, the kernels take any p_pad on the 512 quantum
 and any n on the 256 one: they hold no whole-p tile. The aug kernel runs
 persistent blocks over work items (1024 fixed entries by a split of the
@@ -91,7 +93,12 @@ def _check(fa, f_t, aug: bool, what: str) -> None:
             f"plain layout; the {'f32 aug' if aug else 'plain bf16'} layout "
             f"waits for ROADMAP.md Queue 2 (K5/K6, other layouts)")
     p, n = fa.shape[0], f_t.shape[1]
-    if fa.shape[1] != FD or f_t.shape[0] != FD:
+    fd = fa.shape[1]
+    if f_t.shape[0] == fd and fd % 32 == 0 and FD < fd <= 128:
+        raise NotImplementedError(
+            f"{what}: {fd} feature lanes: the CUDA kernels take {FD} "
+            f"(ROADMAP.md Queue 2b)")
+    if fd != FD or f_t.shape[0] != FD:
         raise ValueError(f"{what}: the kernels take {FD} feature lanes, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
     if p % P_QUANTUM or n % N_QUANTUM:

@@ -30,14 +30,16 @@ CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
 ``csrc/colstats_v.cu`` (K10's V pass; K9 is a ks pass over all of p, then
-the same V pass with c = s) on the two layouts the presets build, with 32
-feature lanes: bf16 (aug for K7/K8, plain for K9/K10), and f32 plain (the
-bilateral recipes, ``spatial_h > 0``), whose kernels form each entry with
-an IEEE f32 FFMA cross over the ``live`` lanes (the caller's feature width
-rounded up to 4; None reads all 32) and expf. The plain-bf16 K7/K8 layout
-and an f32 aug layout (no preset builds either) raise
-``NotImplementedError`` on CUDA; there is no fallback from a kernel to its
-plain version.
+the same V pass with c = s) on the two layouts the presets build: bf16
+(aug for K7/K8, plain for K9/K10) with 32 or 64 feature lanes (NLM 5 x 5 or
+7 x 7: each kernel is a template on its depth), and f32 plain (the
+bilateral recipes, ``spatial_h > 0``) with 32 lanes, whose kernels form
+each entry with an IEEE f32 FFMA cross over the ``live`` lanes (the
+caller's feature width rounded up to 4; None reads all 32) and expf. The
+layouts not ported (bf16 at 96 or 128 lanes, f32 past 32) raise
+``NotImplementedError`` naming ROADMAP.md Queue 2b; so do the plain-bf16
+K7/K8 layout and an f32 aug layout (no preset builds either). There is no
+fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ from .streaming import _chunks
 
 PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
-FD = 32                   # feature depth of the kernels
+FDS = (32, 64)            # feature depths of the bf16 kernels (csrc template FD)
+FD_F32 = 32               # feature depth of the f32 kernels
+D_PAD = 128               # the reference's widest feature layout
 X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
 XF_TN = 32                # the f32 K8's column tile (csrc)
 E_TN = 128                # K7 width quantum (its 256-column units clip the last)
@@ -168,8 +172,9 @@ def colstats_v_plain(fa, f_t, gr, y, cols, na, nb, live=None):
 
 # --- kernel wrappers --------------------------------------------------------
 
-def _check_layout(fa, f_t, what: str, aug: bool | None) -> bool:
-    """Raise unless the kernels take the layout; True for the f32 one."""
+def _check_layout(fa, f_t, what: str, aug: bool | None) -> tuple[bool, int]:
+    """Raise unless the kernels take the layout; (True for the f32 one,
+    its feature depth)."""
     if fa.dtype != f_t.dtype or fa.dtype not in (torch.bfloat16, _F32):
         raise ValueError(f"{what}: fa and f_t must share a bf16 or f32 dtype, "
                          f"got {fa.dtype} and {f_t.dtype}")
@@ -182,23 +187,32 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> bool:
         raise NotImplementedError(
             f"{what}: the CUDA kernel takes the bf16 aug layout; no preset "
             f"builds the plain bf16 one, and no ROADMAP.md queue ports it")
-    if fa.shape[1] != FD or f_t.shape[0] != FD:
-        raise ValueError(f"{what}: the kernel takes {FD} feature lanes, got "
+    fd = fa.shape[1]
+    if f_t.shape[0] != fd or fd % 32 or not 0 < fd <= D_PAD:
+        raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
+                         f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
+    ported = (FD_F32,) if f32 else FDS
+    if fd not in ported:
+        raise NotImplementedError(
+            f"{what}: {fd} feature lanes: the CUDA kernels of the "
+            f"{'f32' if f32 else 'bf16'} layout take {ported} "
+            f"(ROADMAP.md Queue 2b)")
     if not (fa.is_contiguous() and f_t.is_contiguous()):
         raise ValueError(f"{what}: fa and f_t must be contiguous")
     if fa.shape[0] % P_QUANTUM:
         raise ValueError(f"{what}: fa rows {fa.shape[0]} must be a multiple "
                          f"of {P_QUANTUM}")
-    return f32
+    return f32, fd
 
 
 def _lanes(live) -> int:
-    """The f32 kernels' lanes: ``live`` rounded up to 4 (None: all FD)."""
+    """The f32 kernels' lanes: ``live`` rounded up to 4 (None: all
+    FD_F32)."""
     if live is None:
-        return FD
-    if not 0 < live <= FD:
-        raise ValueError(f"live lanes {live} not in [1, {FD}]")
+        return FD_F32
+    if not 0 < live <= FD_F32:
+        raise ValueError(f"live lanes {live} not in [1, {FD_F32}]")
     return -(-live // 4) * 4
 
 
@@ -206,7 +220,7 @@ def coord_lanes(live) -> int:
     """The lanes the K9 / K10 f32 kernels and the coordinate K5/K6 read for
     ``live`` feature lanes: 4, or all 32 (the layouts' pad lanes are zero,
     so the extra lanes add exact zeros)."""
-    return 4 if live is not None and live <= 4 else FD
+    return 4 if live is not None and live <= 4 else FD_F32
 
 
 def _aligned(*ts):
@@ -230,21 +244,22 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).contiguous()
 
 
-def _clusters(p: int, tiles: int) -> int:
+def _clusters(p: int, fd: int, tiles: int) -> int:
     """K8's persistent grid: as many 8-block clusters as fit the card, at
     most one a column tile."""
-    n = _build.lib().glt_ext2_clusters(p)
+    n = _build.lib().glt_ext2_clusters(p, fd)
     if n <= 0:
         _build.check(-n if n < 0 else 1, "ext2_matvec: no cluster fits the card")
     return min(n, tiles)
 
 
 def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
-    """((p_pad, 32), (32, S), (S,)) -> (p_pad, S) column-scaled tile, bf16
-    (aug layout) or f32 (f32 layout, ``live`` lanes read)."""
+    """((p_pad, fd), (fd, S), (S,)) -> (p_pad, S) column-scaled tile, bf16
+    (aug layout, fd 32 or 64) or f32 (f32 layout, fd 32, ``live`` lanes
+    read)."""
     if _device_kind(fa, f_t, cols) == "cpu":
         return kb_strip_plain(fa, f_t, cols, aug)
-    f32 = _check_layout(fa, f_t, "kb_strip", aug)
+    f32, fd = _check_layout(fa, f_t, "kb_strip", aug)
     p, s = fa.shape[0], f_t.shape[1]
     _check_vecs("kb_strip", cols=(cols, (s,)))
     if p == 0 or s == 0 or s % E_TN:
@@ -262,7 +277,7 @@ def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
                                   _build.stream_ptr(fa))
     else:
         rc = lib.glt_kb_strip(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
-                              out.data_ptr(), p, s, _build.stream_ptr(fa))
+                              out.data_ptr(), p, s, fd, _build.stream_ptr(fa))
     _build.check(rc, "kb_strip")
     kb_strip_cuda.launches += 1
     return out
@@ -309,11 +324,12 @@ def gram_cuda(fa, f_t, cols, aug: bool = False, live=None):
 
 
 def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
-    """((p_pad, 32), (32, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,)); on
-    the f32 layout ``live`` lanes are read."""
+    """((p_pad, fd), (fd, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,)); fd
+    32 or 64 on the bf16 aug layout, 32 on the f32 one (``live`` lanes
+    read)."""
     if _device_kind(fa, f_t, t2, bm) == "cpu":
         return ext2_matvec_plain(fa, f_t, t2, bm, aug)
-    f32 = _check_layout(fa, f_t, "ext2_matvec", aug)
+    f32, fd = _check_layout(fa, f_t, "ext2_matvec", aug)
     p, n = fa.shape[0], f_t.shape[1]
     _require_whole_p(p, "ext2_matvec")
     _check_vecs("ext2_matvec", t2=(t2, (2, p)), bm=(bm, (n,)))
@@ -322,14 +338,14 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
     if f32:
         return _ext2_matvec_f32(fa, f_t, t2, bm, _lanes(live))
     dev = fa.device
-    clusters = _clusters(p, n // X_TN)
+    clusters = _clusters(p, fd, n // X_TN)
     t2b, bmf = _bf16(t2), _f32(bm)
     s = torch.empty(n, dtype=_F32, device=dev)
     u_part = torch.empty((clusters, p), dtype=_F32, device=dev)
     u = torch.empty(p, dtype=_F32, device=dev)
     rc = _build.lib().glt_ext2_matvec(
         fa.data_ptr(), f_t.data_ptr(), t2b.data_ptr(), bmf.data_ptr(),
-        s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, clusters,
+        s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, clusters, fd,
         _build.stream_ptr(fa))
     _build.check(rc, "ext2_matvec")
     ext2_matvec_cuda.launches += 1
@@ -361,17 +377,18 @@ def _ext2_matvec_f32(fa, f_t, t2, bm, live):
 
 
 def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
-    """((p_pad, 32) plain, (32, n) aug superset, (p_pad,), (n,), (n,),
+    """((p_pad, fd) plain, (fd, n) aug superset, (p_pad,), (n,), (n,),
     (p_pad, m_pad), (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,),
     coeffs (m_pad,), s (n,)), all f32. A gr wider than MP_MAX runs one
     launch per MP_MAX columns, each recomputing the tile: the first sweeps
     p for ks and s, the others take bf16(s) from it, so s is computed
     once. Any p_pad that is a multiple of P_QUANTUM: no column needs the
-    whole p in one block. On the f32 layout (f32 fa and f_t, ``live``
-    lanes read) every operand stays f32."""
+    whole p in one block. fd is 32 or 64 on the bf16 layout; on the f32
+    layout (f32 fa and f_t, fd 32, ``live`` lanes read) every operand stays
+    f32."""
     if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
         return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
-    f32 = _check_layout(fa, f_t, "finish_colstats", None)
+    f32, _ = _check_layout(fa, f_t, "finish_colstats", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     _check_vecs("finish_colstats", t=(t, (p,)), s_pre=(s_pre, (n,)),
@@ -406,15 +423,15 @@ def _check_v_shapes(what: str, mp: int, n: int) -> None:
 
 
 def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb, live=None):
-    """((p_pad, 32) plain, (32, n) aug superset, (p_pad, m_pad) f32, (n,),
+    """((p_pad, fd) plain, (fd, n) aug superset, (p_pad, m_pad) f32, (n,),
     (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,), coeffs
     (m_pad,)), all f32. ``cols`` must be 0 on padding columns. A gr wider
     than MP_MAX runs one launch per MP_MAX columns (each recomputes the
-    tile). On the f32 layout every operand stays f32 (``live`` lanes
-    read)."""
+    tile). fd is 32 or 64 on the bf16 layout; on the f32 layout (fd 32)
+    every operand stays f32 (``live`` lanes read)."""
     if _device_kind(fa, f_t, gr, y, cols, na, nb) == "cpu":
         return colstats_v_plain(fa, f_t, gr, y, cols, na, nb)
-    f32 = _check_layout(fa, f_t, "colstats_v", None)
+    f32, _ = _check_layout(fa, f_t, "colstats_v", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     _check_vecs("colstats_v", gr=(gr, (p, mp)), y=(y, (n,)),
@@ -443,11 +460,11 @@ def _v_launch(fa, f_t, grt, y, na, nb, cb=None, finish=None):
     first sweeps p for s and bf16(s). -> (V, norms, coeffs, s, bf16(s)),
     the last two None for K10."""
     w, p = grt.shape
-    n = f_t.shape[1]
+    fd, n = f_t.shape
     ks = finish is not None
     what = "finish_colstats" if ks else "colstats_v"
     lib = _build.lib()
-    blocks = lib.glt_colstats_v_blocks(w)
+    blocks = lib.glt_colstats_v_blocks(w, fd)
     if blocks <= 0:
         _build.check(-blocks if blocks < 0 else 1,
                      f"{what}: no block fits the card")
@@ -458,7 +475,7 @@ def _v_launch(fa, f_t, grt, y, na, nb, cb=None, finish=None):
     nc = torch.empty((2, w), dtype=_F32, device=dev)
     ptrs = [fa.data_ptr(), f_t.data_ptr(), grt.data_ptr()]
     vecs = [y.data_ptr(), na.data_ptr(), nb.data_ptr(), v.data_ptr()]
-    tail = [part.data_ptr(), nc.data_ptr(), p, n, w, blocks,
+    tail = [part.data_ptr(), nc.data_ptr(), p, n, w, fd, blocks,
             _build.stream_ptr(fa)]
     s = None
     if ks:

@@ -52,7 +52,7 @@ def main() -> None:
     p, d = fa.shape
     n = fb.shape[0]
     lib = _build.lib()
-    scratch = torch.empty(lib.glt_affinity_scratch_bytes(p),
+    scratch = torch.empty(lib.glt_affinity_scratch_bytes(p, d),
                           dtype=torch.uint8, device=dev)
     times = {}
     for rnd in range(args.rounds):

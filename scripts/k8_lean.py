@@ -1,0 +1,82 @@
+"""The lean of K8's outputs (csrc/recompute_sweeps.cu ext2_matvec_kernel) on
+synthetic features, at 32 and 64 feature lanes, on one CUDA card.
+
+    python3 scripts/k8_lean.py
+
+For normal(0, 0.3) features of 25 and 49 lanes (the 32- and 64-lane
+kernels) at p_pad 1024 and 4096 against 33024 and 77056 columns, it runs
+K8 and its plain version on the same aug layouts and prints, as the share
+of outputs below their reference (ties left out, chip_smoke.signed_stats'
+sense): the kernel's u against the plain u; the kernel's s against the
+plain s; the kernel's u against the f64 sum of the same bf16 tile entries
+times the kernel's own s (the lean of u's accumulation alone); the plain
+u against the f64 sum with the plain s. Prints the card line and one JSON
+line a case.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+CASES = [(25, 1000, 33024), (25, 4000, 77056), (25, 1000, 77056),
+         (49, 1000, 33024), (49, 4000, 77056), (49, 1000, 77056)]
+CHUNK = 16384
+
+
+def share_below(got, ref):
+    """(share of got below ref, sign(ref)-signed, ties left out; entries)."""
+    d = (got.double() - ref.double()) * torch.sign(ref.double())
+    d = d[d != 0]
+    return float((d < 0).double().mean()), d.numel()
+
+
+def u_f64(k79, fa, f_t, s):
+    """sum_j k_j s_j in f64 over the plain version's bf16 tile entries."""
+    u = torch.zeros(fa.shape[0], dtype=torch.float64, device=fa.device)
+    for j in range(0, f_t.shape[1], CHUNK):
+        kb = k79._tile_plain(fa, f_t[:, j:j + CHUNK], True)
+        u += kb.double() @ s[j:j + CHUNK].double()
+    return u
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("k8_lean: needs a CUDA card")
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+    from graphlap_tpu_torch.ops import recompute_layout as rl
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    for d, p, n in CASES:
+        rng = np.random.default_rng(p + n)
+        tt = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+        fa_aug, f_t = rl.aug_pads(tt(rng.normal(0, 0.3, (p, d))),
+                                  tt(rng.normal(0, 0.3, (n, d))), n)
+        bm = tt(rng.random(n) > 0.2)
+        t2 = torch.zeros((2, fa_aug.shape[0]), device=dev)
+        t2[:, :p] = tt(rng.uniform(0.5, 1.5, (2, p)))
+        u, s = k79.ext2_matvec_cuda(fa_aug, f_t, t2, bm, True)
+        u_p, s_p = k79.ext2_matvec_plain(fa_aug, f_t, t2, bm, True)
+        print(json.dumps(dict(
+            lanes=f_t.shape[0], features=d, p_pad=fa_aug.shape[0], n=n,
+            u_vs_plain=share_below(u[:p], u_p[:p]),
+            s_vs_plain=share_below(s, s_p),
+            u_vs_f64_own_s=share_below(u[:p], u_f64(k79, fa_aug, f_t, s)[:p]),
+            plain_u_vs_f64=share_below(u_p[:p],
+                                       u_f64(k79, fa_aug, f_t, s_p)[:p]))),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -82,6 +82,15 @@ SRC = "recompute_sweeps.cu"
 _PAIR = """  const uint32_t w = pack2(lo, hi);
   return pack2(kexp(__uint_as_float(w << 16)), kexp(__uint_as_float(w & 0xFFFF0000u)));"""
 _TAB = 131072   # bytes: one bf16 entry for each of the 65536 patterns
+# the shipped shared-memory size of a K7 block (at FD lanes); the variants
+# measure the 32-lane kernel at config 4's 8 MP gram shape
+_E_SMEM = """template <int FD>
+constexpr size_t e_smem() {
+  return 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES * E_FT_BYTES_OF<FD> + 8 * E_STAGES;
+}
+"""
+_KERNEL = ("template <int FD>\n"
+           "__global__ __launch_bounds__(E_THREADS, FD == 32 ? 2 : 1) void kb_emit_kernel(")
 TABLE = [
     ("__device__ __forceinline__ uint32_t kb_pair(float lo, float hi) {\n" + _PAIR,
      "__device__ __forceinline__ uint32_t kb_pair(float lo, float hi) {\n"
@@ -99,13 +108,9 @@ TABLE = [
      "    }\n"
      "  }\n"
      "  if (tid == 0) {\n    for (int s = 0; s < E_STAGES; ++s) mbar_init("),
-    ("                          8 * E_STAGES;\n",
-     f"                          8 * E_STAGES;\nconstexpr size_t E_SMEM_RUN = E_SMEM + {_TAB};\n"),
-    ("(int)E_SMEM);\n  if (e == cudaSuccess) e = cudaGetDevice(&dev);",
-     "(int)E_SMEM_RUN);\n  if (e == cudaSuccess) e = cudaGetDevice(&dev);"),
-    ("kb_emit_kernel, E_THREADS, E_SMEM);", "kb_emit_kernel, E_THREADS, E_SMEM_RUN);"),
-    ("kb_emit_kernel<<<grid, E_THREADS, E_SMEM, s>>>",
-     "kb_emit_kernel<<<grid, E_THREADS, E_SMEM_RUN, s>>>"),
+    (_E_SMEM, _E_SMEM + "constexpr size_t E_SMEM = e_smem<32>();   // the 32-lane kernel's\n"),
+    ("  constexpr size_t smem = e_smem<FD>();",
+     f"  constexpr size_t smem = e_smem<FD>() + {_TAB};"),
 ]
 EXPF = [(_PAIR, "  return pack2(kb_aug(lo), kb_aug(hi));")]
 HMUL2 = [("  return pack2(__uint_as_float(e << 16) * c0, __uint_as_float(e & 0xFFFF0000u) * c1);",
@@ -114,7 +119,8 @@ HMUL2 = [("  return pack2(__uint_as_float(e << 16) * c0, __uint_as_float(e & 0xF
           "                                  *reinterpret_cast<const __nv_bfloat162*>(&c));\n"
           "  return *reinterpret_cast<const uint32_t*>(&r);")]
 NO_ENTRY = [(_PAIR, "  return pack2(fmaxf(lo, 0.f), fmaxf(hi, 0.f));")]
-ONE_BLOCK = [("constexpr size_t E_SMEM = 1024 +", "constexpr size_t E_SMEM = 65536 + 1024 +")]
+ONE_BLOCK = [("  return 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES",
+              "  return 65536 + 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES")]
 # each block on a contiguous range of the unit order, staying on one row
 # slice (its A fragments) for most of its run
 RANGES = [("  const int n = (int)((units - blockIdx.x + gridDim.x - 1) / gridDim.x);\n"
@@ -133,7 +139,8 @@ NO_STORE = [
      "        (void)bx, (void)pol;\n"),
 ]
 STORE_ONLY = [
-    ("        mma16816(c, A[mt][0], B[nt][0]);\n        mma16816(c, A[mt][1], B[nt][1]);\n", ""),
+    ("#pragma unroll\n        for (int ks = 0; ks < KS; ++ks) mma16816(c, A[mt][ks], B[nt][ks]);\n",
+     ""),
     ("            scale_pair(kb_pair(c[0], c[1]), cs[nt][0], cs[nt][1]);",
      "            pack2(cs[nt][0], cs[nt][1]);"),
     ("            scale_pair(kb_pair(c[2], c[3]), cs[nt][0], cs[nt][1]);",
@@ -161,16 +168,13 @@ STG = [
     ("static_cast<const bf16*>(cols), nrb, nct, S);",
      "static_cast<const bf16*>(cols), nrb, nct, S,\n"
      "                                                 static_cast<bf16*>(out));"),
-    ("__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(",
-     "#define STG(p, w) (*reinterpret_cast<uint4*>(p) = (w))\n"
-     "__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel("),
+    (_KERNEL, "#define STG(p, w) (*reinterpret_cast<uint4*>(p) = (w))\n" + _KERNEL),
 ]
 # the same with the streaming (evict-first) store st.global.cs
 STG_CS = STG[:-1] + [
-    ("__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(",
+    (_KERNEL,
      "#define STG(p, w) asm volatile(\"st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\" :: \"l\"(p), "
-     "\"r\"((w).x), \"r\"((w).y), \"r\"((w).z), \"r\"((w).w) : \"memory\")\n"
-     "__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel("),
+     "\"r\"((w).x), \"r\"((w).y), \"r\"((w).z), \"r\"((w).w) : \"memory\")\n" + _KERNEL),
 ]
 
 # the output's rows 64 columns longer than S (not a power of two of bytes
@@ -193,10 +197,9 @@ BULK_ROWS = [
     ("static_cast<const bf16*>(cols), nrb, nct, S);",
      "static_cast<const bf16*>(cols), nrb, nct, S,\n"
      "                                                 static_cast<bf16*>(out));"),
-    ("constexpr size_t E_SMEM = 1024 + 2 * (size_t)E_OUT_BYTES",
-     "constexpr int E_PITCH = E_TN * 2 + 16;\n"
+    (_E_SMEM, "constexpr int E_PITCH = E_TN * 2 + 16;\n"
      "constexpr int E_STG_BYTES = E_TM * E_PITCH;\n"
-     "constexpr size_t E_SMEM = 1024 + 2 * (size_t)E_STG_BYTES"),
+     + _E_SMEM.replace("2 * (size_t)E_OUT_BYTES", "2 * (size_t)E_STG_BYTES")),
     ("  unsigned char* ring = smem + 2 * E_OUT_BYTES;", "  unsigned char* ring = smem + 2 * E_STG_BYTES;"),
     ("    unsigned char* stage = smem + (q & 1) * E_OUT_BYTES;",
      "    unsigned char* stage = smem + (q & 1) * E_STG_BYTES;"),
@@ -245,15 +248,23 @@ constexpr int E_TN = 128;       // columns a unit
 constexpr int E_STAGES = 3;     // f_t ring
 constexpr int E_BUFS = 6;       // staging buffers: up to E_BUFS - 1 stores in flight
 constexpr int E_BOX = 64;       // columns a TMA box (128 bytes of bf16)
-constexpr int E_FT_BYTES = FD * E_TN * 2;      // a unit's f_t tile: 2 boxes of 32 k rows
+constexpr int E_FT_BYTES = 32 * E_TN * 2;      // a unit's f_t tile: 2 boxes of 32 k rows
 constexpr int E_OUT_BYTES = E_TM * E_TN * 2;   // a unit's output: 2 boxes of 128 rows
 // alignment slack, the staging buffers, the ring, its full barriers and
 // the staging buffers' staged and freed barriers
 constexpr size_t E_SMEM = 1024 + (size_t)E_BUFS * E_OUT_BYTES +
                           (size_t)E_STAGES * E_FT_BYTES + 8 * (E_STAGES + 2 * E_BUFS);
+// the shipped launcher's names for them (this design is 32 lanes deep)
+template <int FD>
+constexpr int E_FT_BYTES_OF = E_FT_BYTES;
+template <int FD>
+constexpr size_t e_smem() {
+  return E_SMEM;
+}
 
 """
-_WS_KERNEL = r"""__global__ __launch_bounds__(E_THREADS, 1) void kb_emit_kernel(
+_WS_KERNEL = r"""template <int FD>
+__global__ __launch_bounds__(E_THREADS, 1) void kb_emit_kernel(
     const __grid_constant__ CUtensorMap ft_map,   // (32, S) aug f_t, 64 x 32 boxes
     const __grid_constant__ CUtensorMap out_map,  // (P, S) out, 64 x 128 boxes
     const bf16* __restrict__ fa,                  // (P, 32) aug
@@ -386,8 +397,7 @@ _WS_KERNEL = r"""__global__ __launch_bounds__(E_THREADS, 1) void kb_emit_kernel(
 PRODUCER_WARP = [
     (("// ---------------------------------------------------------------------------\n// K7: the column-scaled",
       "// the aug entries of two d2,"), _WS_CONSTS),
-    (("__global__ __launch_bounds__(E_THREADS, 2) void kb_emit_kernel(",
-      "// every bf16 pattern x (as d2) -> K7's entry bits"), _WS_KERNEL),
+    ((_KERNEL, "// every bf16 pattern x (as d2) -> K7's entry bits"), _WS_KERNEL),
 ]
 
 # name -> (edits of recompute_sweeps.cu, design, timing only); an edit is
@@ -548,7 +558,8 @@ def main() -> None:
                     o = torch.empty((p, s + pad[0]), dtype=torch.bfloat16, device=dev)
                     _build.check(lib.glt_kb_strip(fa.data_ptr(), f_t.data_ptr(),
                                                   cols.data_ptr(), o.data_ptr(), p, s,
-                                                  _build.stream_ptr(fa)), name)
+                                                  f_t.shape[0], _build.stream_ptr(fa)),
+                                 name)
                     return o[:, :s]
 
                 row = rows.setdefault(name, dict(

@@ -2,15 +2,18 @@
 card.
 
     python3 scripts/profile_torch_slice.py
-        [--path config2|config2f32|config4|config3|config4q|turbo|dense|
-                bilateral|both|all]
+        [--path config2|config2f32|config2p7|config4|config4p7|config3|
+                config4q|turbo|dense|bilateral|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
 recipe; config 2 f32: chip_smoke.make_workload_f32, the same recipe with
-its f32 strip kept (K1's f32 store, the f32 K2-K4); config 4:
-chip_smoke.make_workload_8mp, the 8 MP recompute-streaming fused-finish
-recipe; config 3: chip_smoke.make_workload_cfg3, the 1024x1024
+its f32 strip kept (K1's f32 store, the f32 K2-K4); config 2 p7:
+chip_smoke.make_workload_p7, config 2 with an NLM 7x7 patch (K1's 64-lane
+cross); config 4: chip_smoke.make_workload_8mp, the 8 MP
+recompute-streaming fused-finish recipe; config 4 p7:
+chip_smoke.make_workload_8mp_p7, the same at 7x7 (the 64-lane K7-K9);
+config 3: chip_smoke.make_workload_cfg3, the 1024x1024
 RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
 8 MP f32 matvec denoise; turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
 turbo recipe on the unfused spectral schedule; dense:
@@ -199,9 +202,10 @@ def device_profile(tag, gt, cfg, noisy, plan, dev, out: Path) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("config2", "config2f32", "config4",
-                                       "config3", "config4q", "turbo",
-                                       "dense", "bilateral", "both", "all"),
+    ap.add_argument("--path", choices=("config2", "config2f32", "config2p7",
+                                       "config4", "config4p7", "config3",
+                                       "config4q", "turbo", "dense",
+                                       "bilateral", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -219,7 +223,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     paths = {"config2": chip_smoke.make_workload,
              "config2f32": chip_smoke.make_workload_f32,
+             "config2p7": chip_smoke.make_workload_p7,
              "config4": chip_smoke.make_workload_8mp,
+             "config4p7": chip_smoke.make_workload_8mp_p7,
              "config3": chip_smoke.make_workload_cfg3,
              "config4q": chip_smoke.make_workload_8mp_matvec,
              "turbo": chip_smoke.make_workload_8mp_turbo,

@@ -85,21 +85,19 @@ K2_NOSWEEPS = [
      "for (int r = R; r < R; r += X2_RSTEP) {"),
 ]
 K1_NOMMA = [
-    ("""        mma16816h(h0, ab[0], bb[nt][0][0], bb[nt][0][1]);
-        mma16816h(h1, ab[1], bb[nt][1][0], bb[nt][1][1]);""",
-     """        h0[0] = __uint_as_float(ab[0][0] ^ bb[nt][0][0]);
-        h1[1] = __uint_as_float(ab[1][1] ^ bb[nt][1][1]);"""),
+    ("""          mma16816h(h[ks], ab[ks], bb[nt][ks][0], bb[nt][ks][1]);""",
+     """          h[ks][ks & 3] = __uint_as_float(ab[ks][ks & 3] ^ bb[nt][ks][ks & 1]);"""),
     ("""          mma16816h(cr, ab[ks], bsm[nt][ks][0], bsm[nt][ks][1]);
           mma16816h(cr, as[ks], bb[nt][ks][0], bb[nt][ks][1]);""",
      """          cr[ks] += __uint_as_float(as[ks][2] ^ bsm[nt][ks][1]);"""),
 ]
 K1_TWOCHAINS = [
-    ("        float cr[4] = {0.f, 0.f, 0.f, 0.f};",
-     "        float cr[4] = {0.f, 0.f, 0.f, 0.f}, cq[4] = {0.f, 0.f, 0.f, 0.f};"),
+    ("        float h[KS][4], cr[4] = {0.f, 0.f, 0.f, 0.f};",
+     "        float h[KS][4], cr[4] = {0.f, 0.f, 0.f, 0.f}, cq[4] = {0.f, 0.f, 0.f, 0.f};"),
     ("          mma16816h(cr, as[ks], bb[nt][ks][0], bb[nt][ks][1]);",
      "          mma16816h(cq, as[ks], bb[nt][ks][0], bb[nt][ks][1]);"),
-    ("          const float cross = (h0[e] + h1[e]) + cr[e];",
-     "          const float cross = (h0[e] + h1[e]) + (cr[e] + cq[e]);"),
+    ("          const float cross = big + cr[e];",
+     "          const float cross = big + (cr[e] + cq[e]);"),
 ]
 _STORE = ("        tma_store(&out_map, smem_u32(stage + bx * A1_BOX), "
           "ct * A1_TN + bx * BOX_COLS, rb * A1_TM);")

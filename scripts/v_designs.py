@@ -120,7 +120,7 @@ def main() -> None:
                     repeats=all(torch.equal(a, b) for a, b in zip(got, again)),
                     **cs.signed_stats(got[0][:n], ref, False))
                 rows.setdefault(str(span), dict(
-                    design=what, blocks=lib.glt_colstats_v_blocks(mk),
+                    design=what, blocks=lib.glt_colstats_v_blocks(mk, 32),
                     runs={}))["runs"][f"{name} seed {seed}"] = row
                 print(f"span {span} ({what}) {name} seed {seed}: {row}",
                       flush=True)

@@ -397,10 +397,15 @@ def test_f32_strip_reaches_its_kernels_with_their_plans(monkeypatch):
     assert _counts() == before
 
 
+def _k1_lanes(d):
+    """The lanes of the K1 instantiation that takes d features: 32 or 64."""
+    return 32 if d <= 32 else 64
+
+
 def _split_fp16(x):
     """The kernel's split of f32 feature rows (csrc split2): each row scaled
     by 2^-E (its largest |x| < 2^E), big on the grid 2^-10 (exact in fp16),
-    small = fp16(rest); both zero-padded to the kernel's 32 lanes."""
+    small = fp16(rest); both zero-padded to the kernel's 32 or 64 lanes."""
     m = x.abs().amax(1)
     e = torch.where(m > 0, torch.frexp(m).exponent,
                     torch.full_like(m, -100, dtype=torch.int32))
@@ -408,46 +413,65 @@ def _split_fp16(x):
     xs = x * torch.exp2(-e.float())[:, None]
     big = torch.round(xs * 1024) / 1024              # rintf: half to even
     small = (xs - big).half().float()
-    lanes = (0, 32 - x.shape[1])
+    lanes = (0, _k1_lanes(x.shape[1]) - x.shape[1])
     return (torch.nn.functional.pad(big, lanes),
             torch.nn.functional.pad(small, lanes), e)
 
 
 def _split_cross_d2(a, b):
     """K1's d2 emulated in torch: big.big a k16 step each (sums of 16
-    products on the 2^-20 grid, exact in f32), big.small + small.big in f32,
+    products on the 2^-20 grid, exact in f32), added in pairs and the pairs
+    in order as the kernel adds them, big.small + small.big in f32,
     small.small dropped, scaled back by 2^(Ea + Eb); d2 = (na + nb) - 2 cross
     rounded once (the kernel's FMA). Returns (d2, 2^(Ea + Eb))."""
     ab, as_, ea = _split_fp16(a)
     bb, bs, eb = _split_fp16(b)
-    cross = ((ab[:, :16] @ bb[:, :16].T + ab[:, 16:] @ bb[:, 16:].T)
-             + (ab @ bs.T + as_ @ bb.T))
+    step = [ab[:, k:k + 16] @ bb[:, k:k + 16].T
+            for k in range(0, ab.shape[1], 16)]
+    big = step[0] + step[1]
+    if len(step) == 4:
+        big = big + (step[2] + step[3])
+    cross = big + (ab @ bs.T + as_ @ bb.T)
     scale = torch.exp2((ea[:, None] + eb[None, :]).double())
     nn = (torch.sum(a * a, 1)[:, None] + torch.sum(b * b, 1)[None, :])
     d2 = (nn.double() - 2.0 * scale * cross.double()).float()
     return d2.clamp(min=0.0), scale
 
 
-def test_k1_split_fp16_cross_holds_the_f32_cross():
-    """The kernel's cross, emulated, on the 96x96 config-2 features with the
-    strip path's poison rows (+1e3) and columns (-1e3), against the plain
-    version's f32 cross. Bound: the dropped small.small terms (32 x 2^-22 of
-    2^(Ea + Eb)), the fp16 rounding of the smalls (2 x 32 x 2^-22) and the
-    f32 rounding of the plain cross (32 x 2^-24), doubled in d2, are under
-    2^-14 2^(Ea + Eb); d2's own rounding adds an f32 ulp of na + nb."""
-    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(96, 96), 0.1,
+@pytest.mark.parametrize("patch,h,w,cols", [
+    (5, 96, 96, None),          # config 2's 25 lanes: the 32-lane kernel
+    (7, 96, 96, None),          # a 7 x 7 patch, 49 lanes: the 64-lane one
+    (7, 512, 1024, 16384),      # 7 x 7 at config 4's scale (h 0.25)
+], ids=["5x5-96", "7x7-96", "7x7-512x1024"])
+def test_k1_split_fp16_cross_holds_the_f32_cross(patch, h, w, cols):
+    """The kernel's cross, emulated, on NLM features (config 2's at 96x96;
+    config 4's at 512 x 1024, a seeded sample of ``cols`` pixel columns)
+    with the strip path's poison rows (+1e3) and columns (-1e3), against
+    the plain version's f32 cross. Bound, over the kernel's L lanes (32, or
+    64 past 32 features): the dropped small.small terms (L x 2^-22 of
+    2^(Ea + Eb)), the fp16 rounding of the smalls (2 x L x 2^-22) and the
+    f32 rounding of the plain cross (L x 2^-24), 3.25 L 2^-22 in all,
+    doubled in d2, are under L 2^-19 2^(Ea + Eb) (2^-14 at 32 lanes, 2^-13
+    at 64); d2's own rounding adds an f32 ulp of na + nb."""
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(h, w), 0.1,
                                         seed=1), 0, 1).astype(np.float32)
-    f = taff.extract_features_padded(T(img), gt.CONFIG2, 96 * 96 + 64)
-    f[96 * 96:] = -1e3                                  # padding columns
+    cfg = (gt.CONFIG2 if w == 96 else
+           gt.PipelineConfig(kernel="nlm", h=0.25)).replace(patch_size=patch)
     rng = np.random.default_rng(0)
+    f = taff.extract_features(T(img), cfg)
+    if cols is not None:
+        f = f[torch.tensor(rng.choice(h * w, cols, replace=False))]
+    n = f.shape[0]
+    f = torch.cat([f, torch.full((64, f.shape[1]), -1e3)])  # padding columns
     p = 184
-    idx = torch.tensor(rng.choice(96 * 96, p, replace=False))
+    idx = torch.tensor(rng.choice(n, p, replace=False))
     a = torch.cat([f[idx], torch.full((256 - p, f.shape[1]), 1e3)])
     d2, scale = _split_cross_d2(a, f)
     nn = (torch.sum(a * a, 1)[:, None] + torch.sum(f * f, 1)[None, :])
     d2_plain = torch.clamp(nn - 2.0 * (a @ f.T), min=0.0)
-    real = (slice(0, p), slice(0, 96 * 96))
-    bar = 2.0 ** -14 * scale + 2.0 ** -22 * nn.double()
+    real = (slice(0, p), slice(0, n))
+    lanes = _k1_lanes(f.shape[1])
+    bar = lanes * 2.0 ** -19 * scale + 2.0 ** -22 * nn.double()
     assert bool(((d2 - d2_plain).abs().double() <= bar)[real].all())
     # the stored bf16 strip within one ulp of the plain version's
     strip = torch.exp(-d2).to(torch.bfloat16)
@@ -455,7 +479,7 @@ def test_k1_split_fp16_cross_holds_the_f32_cross():
     assert float((strip.float() - plain.float()).abs().max()) <= BF16_ULP
     # poison rows and columns: exactly zero
     assert bool((strip[p:] == 0).all())
-    assert bool((strip[:, 96 * 96:] == 0).all())
+    assert bool((strip[:, n:] == 0).all())
 
 
 @pytest.mark.parametrize("dtype,p,cluster,stages", _by_dtype([
@@ -521,16 +545,26 @@ def test_k2_raises_before_a_launch_for_p_outside_the_plan(monkeypatch, p):
 
 
 def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
-    """The emitter's cross takes at most 32 feature lanes (a 5 x 5 patch
-    and two coordinates); a 7 x 7 patch raises before any launch."""
+    """The emitter's split cross takes at most 64 feature lanes (a 7 x 7
+    patch, 49 lanes, reaches the kernel library) and its coordinate cross
+    32 (a 5 x 5 patch and two coordinates); the reference's wider layouts,
+    up to 128 lanes, raise NotImplementedError naming ROADMAP Queue 2b and
+    anything past them ValueError, each before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
     monkeypatch.setattr(k1, "_device_kind", lambda *ts: "cuda")
     monkeypatch.setattr(_build, "lib", no_lib)
     before = _counts()
-    with pytest.raises(ValueError, match="feature lanes"):
+    with pytest.raises(RuntimeError, match="unavailable"):
         k1.affinity_strip_cuda(torch.zeros((8, 49)), torch.zeros((16, 49)))
+    with pytest.raises(NotImplementedError, match="Queue 2b"):
+        k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)))
+    with pytest.raises(NotImplementedError, match="Queue 2b"):
+        k1.affinity_strip_cuda(torch.zeros((8, 33)), torch.zeros((16, 33)),
+                               coords=True)
+    with pytest.raises(ValueError, match="feature lanes"):
+        k1.affinity_strip_cuda(torch.zeros((8, 129)), torch.zeros((16, 129)))
     assert _counts() == before
 
 

@@ -645,12 +645,14 @@ def test_build_argtypes_match_the_c_signatures():
     # the wgmma sandwich (K3/K4): ten pointers, P, N, the strip's row
     # stride, kp and the split count, then the stream
     assert sigs["glt_strip_sandwich"] == ("i", ["p"] * 10 + ["i"] * 5 + ["p"])
-    # K7: the persistent emitter keeps its signature; its entry's check
-    assert sigs["glt_kb_strip"] == ("i", ["p"] * 4 + ["i", "i", "p"])
+    # K7: the persistent emitter, P, S and its feature depth (32 or 64);
+    # its entry's check
+    assert sigs["glt_kb_strip"] == ("i", ["p"] * 4 + ["i", "i", "i", "p"])
     assert sigs["glt_kb_entries"] == ("i", ["p", "p"])
-    # the redesigned K8 / K9 entry points
-    assert sigs["glt_ext2_clusters"] == ("i", ["i"])
-    assert sigs["glt_colstats_v_blocks"] == ("i", ["i"])
+    # the redesigned K8 / K9 entry points, each told the feature depth
+    assert sigs["glt_ext2_clusters"] == ("i", ["i", "i"])
+    assert sigs["glt_colstats_v_blocks"] == ("i", ["i", "i"])
+    assert sigs["glt_affinity_scratch_bytes"] == ("z", ["i", "i"])
     assert "glt_recompute_clusters" not in sigs
     # K9/K10's V pass has one design, with no switch to another
     assert "glt_colstats_v_design" not in sigs
