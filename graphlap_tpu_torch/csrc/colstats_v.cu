@@ -49,10 +49,10 @@
 //     width 64, still two blocks an SM), with an f32 add; one chain over
 //     all of p (256 steps at p 4096) left V low on ~85% of its entries.
 //   * K9's ks pass multiplies the packed bf16(k) by [bf16(t), 0, ...], one
-//     mma a 16-row step, summing its columns' ks in registers over a stage
-//     and the stages' sums over all of p (a two-level f32 sum keeps ks
-//     close to the plain version's, so fewer bf16(s) land on the other
-//     neighbour), then writes s and bf16(s). A column's ks never leaves its warp, so no
+//     mma a 16-row step from a zero accumulator, summing its columns' ks in
+//     registers over a stage by f32 adds and the stages' sums over all of p
+//     (a two-level f32 sum keeps ks close to the plain version's, so fewer
+//     bf16(s) land on the other neighbour), then writes s and bf16(s). A column's ks never leaves its warp, so no
 //     cluster and no cross-block exchange exist: the Pallas kernel's whole-p
 //     residency becomes a second exp of each entry. Holding no V, the pass
 //     runs three blocks an SM with two 16-row steps in flight.
@@ -359,7 +359,16 @@ __global__ __launch_bounds__(THREADS, FD == 32 ? 2 : 1) void colstats_v_kernel(c
 // K9's ks pass: the same tile (c = 1) times [bf16(t), 0, ...], one mma a
 // 16-row step, summed in registers over all of p; then s and bf16(s) for
 // the warp's columns. At 64 lanes, two blocks an SM (its f_t fragments
-// double)
+// double). Each 16-row step's ks starts from a zero accumulator and joins
+// the stage's sum by an f32 add, and each stage's sum the column's: with a
+// stage's ks one truncating mma chain, s lay above its plain version on
+// 0.60 of the columns where they differ (0.52 now; scripts/finish_repairs.py,
+// PERF.md). The cross stays one chain: in spans too it moved that share by
+// under 0.01 and cost 4-5% more (NVIDIA H100 80GB HBM3, 700 W). Where an
+// f32 s lies on a bf16 rounding boundary,
+// bf16(s) lands on either neighbour whatever the sum order, and scales its
+// whole V row by one bf16 ulp: that, not a lean, sets V's error against
+// the plain version
 template <int FD>
 __global__ __launch_bounds__(THREADS, FD == 32 ? KS_BLOCKS_SM : 2) void ks_kernel(const VArgs a) {
   __shared__ __align__(16) bf16 fa_s[2][TP * LDF_OF<FD>];
@@ -403,7 +412,12 @@ __global__ __launch_bounds__(THREADS, FD == 32 ? KS_BLOCKS_SM : 2) void ks_kerne
         b[0] = g == 0 ? ld32(ts + r0 + 2 * tq) : 0u;
         b[1] = g == 0 ? ld32(ts + r0 + 8 + 2 * tq) : 0u;
 #pragma unroll
-        for (int ct = 0; ct < CT; ++ct) mma16816(kst[ct], ka[ct], b);
+        for (int ct = 0; ct < CT; ++ct) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma16816(c, ka[ct], b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kst[ct][e] += c[e];
+        }
       }
 #pragma unroll
       for (int ct = 0; ct < CT; ++ct)

@@ -21,8 +21,9 @@
 //              below), whose error the split's fp16 small part would
 //              quadruple at their norms.
 //
-// Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (32, L)
-// feature matrices: K5 fixes the sample rows (fa^T, which the wrapper
+// Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (FD, L)
+// feature matrices, FD 32 or 64 lanes (an NLM 5 x 5 or 7 x 7 patch; the
+// coordinate kernel takes 32): K5 fixes the sample rows (fa^T, which the wrapper
 // transposes) and streams the pixel columns (f_t) against w = v; K6 fixes the
 // columns and streams the rows against w = t. d2 is symmetric in the roles, so
 // one kernel per layout serves both.
@@ -40,7 +41,10 @@
 // the FMA into its sum) is ~15 FP32-pipe instructions, ~15 ms of issue, and
 // one MUFU ex2 (8.2 ms, the bound). Memory is small beside either
 // (features 64-128 B a column, read once from device memory; the fixed
-// side's tile re-reads come from L2).
+// side's tile re-reads come from L2). At 64 lanes the d2 product doubles:
+// aug 0.56 TFLOP at config 3 (0.56 ms, now the bound beside 0.51 of
+// table loads), f32 three fp16 passes of 4.4 TFLOP at 8 MP (13.4 ms, the
+// bound beside the exps' 8.2).
 //
 // Design, aug (tensor cores, an entry table): persistent blocks, one an SM,
 // walk work items (a 1024-entry slice of the fixed side by a split of the
@@ -54,7 +58,12 @@
 // and w, bulk copies completing on mbarriers) in flight; 16 consumer warps
 // each hold 64 fixed entries as bf16 A fragments in registers for the item
 // and release a stage by an mbarrier arrive, so no block barrier stalls
-// them. A warp's d2 is two m16n8k16 mma per 16 x 8 sub-tile, the entries
+// them. At 64 lanes a warp holds 32 fixed entries (16 A-fragment registers
+// a 16-row tile, so 64 entries would take 64 registers of the 120 a
+// thread of 544 may have), a work item 512, and the ring 2 stages of 256
+// (34 KB each beside the 128 KB table; 4 of 128 fit too, and ran no
+// faster: scripts/matvec_designs.py --patch 7). A warp's d2 is FD / 16
+// m16n8k16 mma per 16 x 8 sub-tile (one chain from zero), the entries
 // replace the accumulator in place (the accumulator layout is the
 // A-fragment layout), and the packed bf16 tile times [bf16(w), 0, ...] is
 // one more mma. Each 128-entry span's sums start from a zero accumulator
@@ -76,12 +85,21 @@
 // big and small A fragments in registers for the whole run; 128-entry
 // streamed tiles arrive by cp.async double buffering, and the block splits
 // each once into shared memory as B fragments (16 bytes a lane). Per 16 x 8
-// sub-tile a warp runs 6 m16n8k16 mma (big.big a k16 step each from zero,
-// the corrections in a third chain), then the epilogue on the accumulator
+// sub-tile a warp runs 3 FD / 16 m16n8k16 mma (big.big a k16 step each
+// from zero, added in pairs in f32, the corrections in one more chain),
+// then the epilogue on the accumulator
 // registers: d2 = max((nf + ns) - 2 cross, 0), expf (IEEE class: no bf16
 // rounding here to hide a cheaper exp), an f32 FMA with w into the tile's
 // sum of each fixed entry, which joins its running sum by one f32 add a
-// tile; the quad's lanes meet by a shuffle tree at the end.
+// tile; the quad's lanes meet by a shuffle tree at the end. At 64 lanes
+// the block keeps 128 threads, one streamed column a thread for the norms
+// and scales, and each warp splits 16 (n8 tile, k16 step) fragments of a
+// tile in place of 8: 256 threads would halve the fixed entries a warp
+// holds or leave half the threads idle in the norms, for a split that is
+// a small part of a tile's work (16 fragment stores a warp against its
+// 384 mma, 12 a 16 x 8 sub-tile). Its shared memory (101 KB: the
+// split fragments and two raw stages double) and the fragments' 64
+// registers allow two blocks an SM, not four.
 // Both: the streamed axis splits (the f32 kernel's grid.y, the aug kernel's
 // work items) only where the fixed side alone does not fill the card (K5),
 // as many splits as fill one wave of the kernel's resident blocks
@@ -95,38 +113,66 @@
 
 namespace {
 
-constexpr int FD = 32;                  // feature depth (both layouts)
+// Both layouts' kernels take the feature depth FD as a template parameter:
+// 32 (NLM 5 x 5: the aug layout of d 25, the plain of d 25) or 64 (NLM 7 x
+// 7: the aug layout's 55 lanes, the plain layout's 49). At 32 they run the
+// same chains in the same order as before the 64-lane instantiations.
 constexpr int A_WARPS = 16;             // aug: consumer warps a block
 constexpr int A_THREADS = 32 * (A_WARPS + 1);   // aug: + one producer warp
-constexpr int A_RT = 4;                 // aug: fixed 16-tiles a warp
-constexpr int A_FT = A_WARPS * A_RT * 16;       // aug: fixed entries a work item (1024)
-constexpr int A_ST = 256;               // aug: streamed entries a ring stage
-constexpr int A_LDS = A_ST + 8;         // padded stage row: 528 B, ldmatrix conflict-free
-constexpr int A_STAGES = 4;             // aug: ring depth
+// aug: fixed 16-tiles a warp. At 64 lanes a warp's fixed A fragments are 16
+// registers a 16-tile, and 4 tiles (64 registers) beside the streamed B
+// fragments, the span sums and the entry path pass the 120 registers a
+// thread of 544 threads on one SM: 2 tiles, 512 fixed entries a work item
+template <int FD>
+constexpr int A_RT_OF = FD == 32 ? 4 : 2;
+template <int FD>
+constexpr int A_FT_OF = A_WARPS * A_RT_OF<FD> * 16;   // fixed entries a work item (1024 | 512)
+template <int FD>
+constexpr int A_ST_OF = 256;            // aug: streamed entries a ring stage
+template <int FD>
+constexpr int A_STAGES_OF = FD == 32 ? 4 : 2;   // aug: ring depth
 constexpr int A_SPAN = 128;             // aug: streamed entries a tile sum runs from zero
-constexpr int A_STAGE_BYTES = 2 * (FD * A_LDS + A_ST);  // 32 feature rows and w
+template <int FD>
+constexpr int A_LDS_OF = A_ST_OF<FD> + 8;   // padded stage row (528 B at 256): ldmatrix conflict-free
+template <int FD>
+constexpr int A_STAGE_BYTES_OF = 2 * (FD * A_LDS_OF<FD> + A_ST_OF<FD>);  // FD feature rows and w
 // the entry table: the bf16 entry of every one of the 65536 bf16(d2)
 // patterns (chip_smoke.py checks each against kb_aug on the card)
 constexpr size_t TAB_BYTES = 65536 * 2;
-// the table, the ring, 2 barriers a stage
-constexpr size_t A_SMEM = TAB_BYTES + (size_t)A_STAGES * A_STAGE_BYTES + 16 * A_STAGES;
-static_assert(A_STAGE_BYTES % 16 == 0, "alignment");
-static_assert(A_ST % A_SPAN == 0 && A_SPAN % 16 == 0, "aug spans");
+// the table, the ring, 2 barriers a stage. At 64 lanes a 256-entry stage
+// is 34,304 bytes: 4 stages (268,352 in all) or 3 (233,984) pass the
+// 232,448 a block may take; 2 take 199,712, as 4 stages of 128 entries
+// (201,792) would
+template <int FD>
+constexpr size_t A_SMEM_OF =
+    TAB_BYTES + (size_t)A_STAGES_OF<FD> * A_STAGE_BYTES_OF<FD> + 16 * A_STAGES_OF<FD>;
+static_assert(A_SMEM_OF<32> == 200768 && A_SMEM_OF<64> == 199712, "aug ring sizes");
+static_assert(A_SMEM_OF<64> <= 232448, "the 64-lane aug block fits an SM");
+static_assert(A_STAGE_BYTES_OF<32> % 16 == 0 && A_STAGE_BYTES_OF<64> % 16 == 0, "alignment");
+static_assert(A_ST_OF<32> % A_SPAN == 0 && A_ST_OF<64> % A_SPAN == 0 && A_SPAN % 16 == 0,
+              "aug spans");
 constexpr int T_THREADS = 128;          // f32: 4 warps
-constexpr int T_BLOCKS_SM = 4;          // f32: blocks an SM (registers, 52 KB smem)
+// f32: blocks an SM (registers; shared memory, 52 KB at 32 lanes, 101 KB
+// at 64)
+template <int FD>
+constexpr int T_BLOCKS_SM_OF = FD == 32 ? 4 : 2;
 constexpr int T_RT = 2;                 // f32: fixed 16-tiles a warp
 constexpr int T_FT = 4 * T_RT * 16;     // f32: fixed entries a block (128)
 constexpr int T_ST = 128;               // f32: streamed entries a tile, one a thread
 constexpr int T_LDS = T_ST + 4;         // padded raw row: conflict-free split loads
-constexpr int T_BFRAGS = (T_ST / 8) * (FD / 16) * 32;  // 16-byte B fragments a tile
-constexpr size_t T_SMEM =
-    sizeof(float) * (4 * (size_t)T_BFRAGS + 2 * FD * T_LDS + 2 * T_ST + 3 * T_ST);
-static_assert(T_THREADS == T_ST && T_THREADS / 32 == 2 * (FD / 16), "f32 split mapping");
+template <int FD>
+constexpr int T_BFRAGS_OF = (T_ST / 8) * (FD / 16) * 32;  // 16-byte B fragments a tile
+template <int FD>
+constexpr size_t T_SMEM_OF =
+    sizeof(float) * (4 * (size_t)T_BFRAGS_OF<FD> + 2 * FD * T_LDS + 2 * T_ST + 3 * T_ST);
+static_assert(T_SMEM_OF<32> == 52736 && T_SMEM_OF<64> == 102912, "f32 shared memory");
+static_assert(2 * (T_SMEM_OF<64> + 1024) <= 233472, "two 64-lane f32 blocks an SM");
+static_assert(T_THREADS == T_ST, "f32: one streamed column a thread");
 
-// columns [c0, c0 + tile) of a k-major (32, ld) matrix -> dst[k][0, tile)
+// columns [c0, c0 + tile) of a k-major (FD, ld) matrix -> dst[k][0, tile)
 // (row stride lds elements), and w[c0, c0 + tile) -> wdst, by cp.async in
 // 16-byte chunks (8 bf16 or 4 f32); one commit group
-template <int NT, typename E>
+template <int FD, int NT, typename E>
 __device__ __forceinline__ void load_tile(E* dst, int lds, E* wdst, const E* __restrict__ m,
                                           const E* __restrict__ w, size_t ld, size_t c0,
                                           int tile) {
@@ -182,23 +228,26 @@ __device__ __forceinline__ uint32_t entry2(float lo, float hi, uint32_t tl) {
   return lds16(tl + 2u * (w & 0xFFFFu)) | (lds16(tl + (w >> 15)) << 16);
 }
 
+template <int FD>
 __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
-    const bf16* __restrict__ fixed_t,   // (32, Lf) k-major aug
-    const bf16* __restrict__ strm_t,    // (32, Ls) k-major aug
+    const bf16* __restrict__ fixed_t,   // (FD, Lf) k-major aug
+    const bf16* __restrict__ strm_t,    // (FD, Ls) k-major aug
     const bf16* __restrict__ w,         // (Ls) bf16-rounded
     float* __restrict__ part,           // (splits, Lf)
     int Lf, int Ls, int splits, int tiles_per_split) {
+  constexpr int RT = A_RT_OF<FD>, FT = A_FT_OF<FD>, ST = A_ST_OF<FD>, STAGES = A_STAGES_OF<FD>;
+  constexpr int LDS = A_LDS_OF<FD>, STAGE_BYTES = A_STAGE_BYTES_OF<FD>, KS = FD / 16;
   extern __shared__ __align__(16) unsigned char a_smem[];
   unsigned char* tab = a_smem;
   unsigned char* ring = a_smem + TAB_BYTES;
-  const uint32_t full0 = smem_u32(ring + A_STAGES * A_STAGE_BYTES), empty0 = full0 + 8 * A_STAGES;
+  const uint32_t full0 = smem_u32(ring + STAGES * STAGE_BYTES), empty0 = full0 + 8 * STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int items = (Lf + A_FT - 1) / A_FT * splits;
-  const int ntiles = Ls / A_ST;
+  const int items = (Lf + FT - 1) / FT * splits;
+  const int ntiles = Ls / ST;
 
   build_table(tab, tid, A_THREADS);
   if (tid == 0) {
-    for (int s = 0; s < A_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, A_WARPS);
     }
@@ -214,21 +263,21 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
         const int t0 = (it % splits) * tiles_per_split;
         const int t1 = min(ntiles, t0 + tiles_per_split);
         for (int t = t0; t < t1; ++t, ++k) {
-          const uint32_t st = k % A_STAGES;
-          mbar_wait(empty0 + 8 * st, ((k / A_STAGES) & 1) ^ 1);
-          const uint32_t full = full0 + 8 * st, dst = smem_u32(ring + st * A_STAGE_BYTES);
-          const size_t c0 = (size_t)t * A_ST;
-          mbar_expect_tx(full, A_STAGE_BYTES - 2 * FD * (A_LDS - A_ST));
+          const uint32_t st = k % STAGES;
+          mbar_wait(empty0 + 8 * st, ((k / STAGES) & 1) ^ 1);
+          const uint32_t full = full0 + 8 * st, dst = smem_u32(ring + st * STAGE_BYTES);
+          const size_t c0 = (size_t)t * ST;
+          mbar_expect_tx(full, STAGE_BYTES - 2 * FD * (LDS - ST));
           for (int kk = 0; kk < FD; ++kk)
-            bulk_copy(dst + 2 * kk * A_LDS, strm_t + (size_t)kk * Ls + c0, 2 * A_ST, full);
-          bulk_copy(dst + 2 * FD * A_LDS, w + c0, 2 * A_ST, full);
+            bulk_copy(dst + 2 * kk * LDS, strm_t + (size_t)kk * Ls + c0, 2 * ST, full);
+          bulk_copy(dst + 2 * FD * LDS, w + c0, 2 * ST, full);
         }
       }
     }
     return;
   }
 
-  // consumers: warp owns fixed entries fw .. fw + 63 of each item
+  // consumers: warp owns fixed entries fw .. fw + 16 RT - 1 of each item
   const int g = lane >> 2, tq = lane & 3;
   const uint32_t tl = table_base(tab);
   const unsigned short* fx = reinterpret_cast<const unsigned short*>(fixed_t);
@@ -236,51 +285,58 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int split = it % splits;
     const int t0 = split * tiles_per_split, t1 = min(ntiles, t0 + tiles_per_split);
-    const int fw = (it / splits) * A_FT + warp * A_RT * 16;
+    const int fw = (it / splits) * FT + warp * RT * 16;
     const bool live = fw < Lf;          // Lf % 256 == 0: a last item may be part full
-    uint32_t a[A_RT][2][4];
+    uint32_t a[RT][KS][4];
     if (live) {
 #pragma unroll
-      for (int r = 0; r < A_RT; ++r) {
-        frag_a_kmajor(a[r][0], fx, (size_t)Lf, fw + 16 * r, 0, g, tq);
-        frag_a_kmajor(a[r][1], fx, (size_t)Lf, fw + 16 * r, 16, g, tq);
-      }
-    }
-    float acc[A_RT][2];
+      for (int r = 0; r < RT; ++r)
 #pragma unroll
-    for (int r = 0; r < A_RT; ++r) acc[r][0] = acc[r][1] = 0.f;
+        for (int ks = 0; ks < KS; ++ks)
+          frag_a_kmajor(a[r][ks], fx, (size_t)Lf, fw + 16 * r, 16 * ks, g, tq);
+    }
+    float acc[RT][2];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r][0] = acc[r][1] = 0.f;
 
     for (int t = t0; t < t1; ++t, ++k) {
-      const uint32_t st = k % A_STAGES;
-      mbar_wait(full0 + 8 * st, (k / A_STAGES) & 1);
+      const uint32_t st = k % STAGES;
+      mbar_wait(full0 + 8 * st, (k / STAGES) & 1);
       if (live) {
-        const bf16* S = reinterpret_cast<const bf16*>(ring + st * A_STAGE_BYTES);
-        const bf16* ws = S + FD * A_LDS;
+        const bf16* S = reinterpret_cast<const bf16*>(ring + st * STAGE_BYTES);
+        const bf16* ws = S + FD * LDS;
 #pragma unroll 1
-        for (int sp = 0; sp < A_ST; sp += A_SPAN) {
+        for (int sp = 0; sp < ST; sp += A_SPAN) {
           // this span's sums start from zero and join the running sums by
           // an f32 add: the tensor core's accumulation truncates, and a
           // running sum carried through every span's mma would end low
-          float tacc[A_RT][4];
+          float tacc[RT][4];
 #pragma unroll
-          for (int r = 0; r < A_RT; ++r)
+          for (int r = 0; r < RT; ++r)
 #pragma unroll
             for (int e = 0; e < 4; ++e) tacc[r][e] = 0.f;
 #pragma unroll 2
           for (int c = sp; c < sp + A_SPAN; c += 16) {
-            uint32_t b0[4], b1[4];       // streamed c..c+7 and c+8..c+15
-            ldsm_x4_trans(b0, S + lane * A_LDS + c);
-            ldsm_x4_trans(b1, S + lane * A_LDS + c + 8);
+            // streamed c..c+7 (b0) and c+8..c+15 (b1), feature rows 32 q ..
+            // 32 q + 31 a load (q < FD / 32)
+            uint32_t b0[FD / 32][4], b1[FD / 32][4];
+#pragma unroll
+            for (int q = 0; q < FD / 32; ++q) {
+              ldsm_x4_trans(b0[q], S + (32 * q + lane) * LDS + c);
+              ldsm_x4_trans(b1[q], S + (32 * q + lane) * LDS + c + 8);
+            }
             uint32_t wb[2];
             wb[0] = g == 0 ? ld32(ws + c + 2 * tq) : 0u;
             wb[1] = g == 0 ? ld32(ws + c + 8 + 2 * tq) : 0u;
 #pragma unroll
-            for (int r = 0; r < A_RT; ++r) {
+            for (int r = 0; r < RT; ++r) {
+              // d2: one chain over the k16 steps from zero
               float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
-              mma16816(d0, a[r][0], b0);
-              mma16816(d0, a[r][1], b0 + 2);
-              mma16816(d1, a[r][0], b1);
-              mma16816(d1, a[r][1], b1 + 2);
+#pragma unroll
+              for (int ks = 0; ks < KS; ++ks) {
+                mma16816(d0, a[r][ks], b0[ks / 2] + 2 * (ks % 2));
+                mma16816(d1, a[r][ks], b1[ks / 2] + 2 * (ks % 2));
+              }
               // the accumulator layout is the A-fragment layout: fixed g |
               // g + 8 by streamed 2tq.. | 8 + 2tq..
               uint32_t kb[4];
@@ -292,7 +348,7 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
             }
           }
 #pragma unroll
-          for (int r = 0; r < A_RT; ++r) {   // column 0 of the B operand: elements 0 and 2
+          for (int r = 0; r < RT; ++r) {   // column 0 of the B operand: elements 0 and 2
             acc[r][0] += tacc[r][0];
             acc[r][1] += tacc[r][2];
           }
@@ -304,7 +360,7 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
     if (live && tq == 0) {   // acc[r][0], acc[r][1]: fixed fw + 16r + g, + g + 8
       float* o = part + (size_t)split * Lf + fw;
 #pragma unroll
-      for (int r = 0; r < A_RT; ++r) {
+      for (int r = 0; r < RT; ++r) {
         o[16 * r + g] = acc[r][0];
         o[16 * r + g + 8] = acc[r][1];
       }
@@ -334,18 +390,20 @@ __global__ __launch_bounds__(1024) void aug_entries_kernel(unsigned short* out, 
 // the cross a split-precision (big + small, fp16) tensor-core product
 // ---------------------------------------------------------------------------
 
-__global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
-    const float* __restrict__ fixed_t,  // (32, Lf) k-major
-    const float* __restrict__ strm_t,   // (32, Ls) k-major
+template <int FD>
+__global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
+    const float* __restrict__ fixed_t,  // (FD, Lf) k-major
+    const float* __restrict__ strm_t,   // (FD, Ls) k-major
     const float* __restrict__ w,        // (Ls)
     float* __restrict__ part,           // (splits, Lf)
     int Lf, int Ls, int tiles_per_split) {
+  constexpr int KS = FD / 16, T_BFRAGS = T_BFRAGS_OF<FD>;
   extern __shared__ __align__(16) float fsm[];
   // the tile's B fragments, split: [n8 tile][k16 step][lane] = fp16 pairs
   // (big rows 2tq, 2tq + 1 | big rows 2tq + 8, 2tq + 9 | the same smalls),
   // column g; a warp reads 512 contiguous bytes
   uint4* bs = reinterpret_cast<uint4*>(fsm);
-  float* raw = fsm + 4 * T_BFRAGS;      // [2][32][T_LDS] streamed tiles as loaded
+  float* raw = fsm + 4 * T_BFRAGS;      // [2][FD][T_LDS] streamed tiles as loaded
   float* w_s = raw + 2 * FD * T_LDS;    // [2][T_ST]
   float* ns_s = w_s + 2 * T_ST;         // [T_ST] streamed norms of the tile
   float* sinv_s = ns_s + T_ST;          // [T_ST] their scales 2^-E
@@ -358,20 +416,20 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
   const int fw = blockIdx.x * T_FT + warp * T_RT * 16;   // this warp's fixed entries
 
   if (t0 < t1)
-    load_tile<T_THREADS>(raw, T_LDS, w_s, strm_t, w, (size_t)Ls, (size_t)t0 * T_ST, T_ST);
+    load_tile<FD, T_THREADS>(raw, T_LDS, w_s, strm_t, w, (size_t)Ls, (size_t)t0 * T_ST, T_ST);
 
   // the fixed side, once: A fragments (16 fixed x 16 k) of rows g and g + 8,
   // k = 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of each k16 step, split on each row's
   // scale; the rows' norms as sequential f32 sums over k, and -2 2^E
-  uint32_t ab[T_RT][FD / 16][4], as[T_RT][FD / 16][4];
+  uint32_t ab[T_RT][KS][4], as[T_RT][KS][4];
   float nf[T_RT][2], m2s[T_RT][2];
 #pragma unroll
   for (int r = 0; r < T_RT; ++r) {
     const float* col = fixed_t + fw + 16 * r + g;
-    float x[FD / 16][2][8];             // [k16 step][row g | g + 8][k 2tq, +1, +8, +9]
+    float x[KS][2][4];                  // [k16 step][row g | g + 8][k 2tq, +1, +8, +9]
     float m[2] = {0.f, 0.f};
 #pragma unroll
-    for (int ks = 0; ks < FD / 16; ++ks)
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k = ks * 16 + 2 * tq + (j & 1) + 8 * (j >> 1);
@@ -390,7 +448,7 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
       m2s[r][h] = -2.f * pow2(e);
       const float sinv = pow2(-e);
 #pragma unroll
-      for (int ks = 0; ks < FD / 16; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         const float2 p0 = split2(x[ks][h][0], sinv), p1 = split2(x[ks][h][1], sinv);
         const float2 p8 = split2(x[ks][h][2], sinv), p9 = split2(x[ks][h][3], sinv);
         ab[r][ks][h] = h2(p0.x, p1.x);          // a0 / a1: k 2tq, 2tq + 1
@@ -416,7 +474,7 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
     cp_async_wait_all();
     __syncthreads();                    // tile in; everyone done with bs and buf ^ 1
     if (tile + 1 < t1)
-      load_tile<T_THREADS>(raw + (buf ^ 1) * FD * T_LDS, T_LDS, w_s + (buf ^ 1) * T_ST, strm_t,
+      load_tile<FD, T_THREADS>(raw + (buf ^ 1) * FD * T_LDS, T_LDS, w_s + (buf ^ 1) * T_ST, strm_t,
                            w, (size_t)Ls, (size_t)(tile + 1) * T_ST, T_ST);
     const float* S = raw + buf * FD * T_LDS;
     {   // each streamed column's norm (sequential over k) and scale
@@ -433,17 +491,19 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
       sc_s[tid] = pow2(e);
     }
     __syncthreads();                    // scales in
-    // the split B fragments: thread (warp, lane) writes k16 step warp & 1 of
-    // every other n8 tile; the padded rows make the loads conflict-free
+    // the split B fragments: warp w writes the (n8 tile, k16 step) pairs q
+    // = w, w + 4, ... (n8 tile q / KS, step q % KS): at 32 lanes step w & 1
+    // of every other n8 tile, at 64 step w of every n8 tile; the padded rows
+    // make the loads conflict-free
 #pragma unroll 2
-    for (int i = 0; i < T_ST / 16; ++i) {
-      const int nt = 2 * i + (warp >> 1), ks = warp & 1;
+    for (int q = warp; q < (T_ST / 8) * KS; q += T_THREADS / 32) {
+      const int nt = q / KS, ks = q % KS;
       const int c = nt * 8 + g, k = ks * 16 + 2 * tq;
       const float sinv = sinv_s[c];
       const float2 p0 = split2(S[k * T_LDS + c], sinv), p1 = split2(S[(k + 1) * T_LDS + c], sinv);
       const float2 p8 = split2(S[(k + 8) * T_LDS + c], sinv);
       const float2 p9 = split2(S[(k + 9) * T_LDS + c], sinv);
-      bs[(nt * (FD / 16) + ks) * 32 + lane] =
+      bs[(nt * KS + ks) * 32 + lane] =
           make_uint4(h2(p0.x, p1.x), h2(p8.x, p9.x), h2(p0.y, p1.y), h2(p8.y, p9.y));
     }
     __syncthreads();                    // fragments in
@@ -456,9 +516,9 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
     for (int r = 0; r < T_RT; ++r) tacc[r][0] = tacc[r][1] = 0.f;
 #pragma unroll 1
     for (int nt = 0; nt < T_ST / 8; ++nt) {
-      uint4 b[FD / 16];
+      uint4 b[KS];
 #pragma unroll
-      for (int ks = 0; ks < FD / 16; ++ks) b[ks] = bs[(nt * (FD / 16) + ks) * 32 + lane];
+      for (int ks = 0; ks < KS; ++ks) b[ks] = bs[(nt * KS + ks) * 32 + lane];
       const float2 nsv = *reinterpret_cast<const float2*>(ns_s + nt * 8 + 2 * tq);
       const float2 scv = *reinterpret_cast<const float2*>(sc_s + nt * 8 + 2 * tq);
       const float2 wv = *reinterpret_cast<const float2*>(wt + nt * 8 + 2 * tq);
@@ -466,21 +526,28 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM) void f32_sum_kernel(
       for (int r = 0; r < T_RT; ++r) {
         // big.big a k16 step each, from zero (exact, see split2); big.small
         // + small.big, ~2^-10 of it, in one chain; small.small dropped
-        float h0[4] = {0.f, 0.f, 0.f, 0.f}, h1[4] = {0.f, 0.f, 0.f, 0.f};
+        float hb[KS][4];
         float cr[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816h(h0, ab[r][0], b[0].x, b[0].y);
-        mma16816h(h1, ab[r][1], b[1].x, b[1].y);
 #pragma unroll
-        for (int ks = 0; ks < FD / 16; ++ks) {
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hb[ks][e] = 0.f;
+          mma16816h(hb[ks], ab[r][ks], b[ks].x, b[ks].y);
+        }
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
           mma16816h(cr, ab[r][ks], b[ks].z, b[ks].w);
           mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
         }
         // accumulator (fixed g | g + 8, streamed 2tq | 2tq + 1); the cross
         // is 2^(Ea + Eb) times the scaled one, so d2 as the plain version
-        // forms it, (nf + ns) - 2 cross, rounds once
+        // forms it, (nf + ns) - 2 cross, rounds once. The big.big steps
+        // join pairwise: (h0 + h1) at 32 lanes, (h0 + h1) + (h2 + h3) at 64
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float cross = (h0[e] + h1[e]) + cr[e];
+          float big = hb[0][e] + hb[1][e];
+          if constexpr (KS == 4) big += hb[2][e] + hb[3][e];
+          const float cross = big + cr[e];
           const float m2 = m2s[r][e >> 1] * ((e & 1) ? scv.y : scv.x);
           const float d2 = fmaxf(fmaf(m2, cross, nf[r][e >> 1] + ((e & 1) ? nsv.y : nsv.x)), 0.f);
           tacc[r][e >> 1] = fmaf(expf(-d2), (e & 1) ? wv.y : wv.x, tacc[r][e >> 1]);
@@ -608,53 +675,74 @@ int slots_of(K kernel, int threads, size_t smem, int* out) {
   return static_cast<int>(e);
 }
 
+// the layout's kernel at feature depth FD: its slots on the card, and one
+// launch (the wrapper checks the shapes)
+template <int FD>
+int recompute_slots(int aug, int* n) {
+  return aug ? slots_of(aug_sum_kernel<FD>, A_THREADS, A_SMEM_OF<FD>, n)
+             : slots_of(f32_sum_kernel<FD>, T_THREADS, T_SMEM_OF<FD>, n);
+}
+
+template <int FD>
+int recompute_launch(int aug, const void* fixed_t, const void* strm_t, const void* w, void* part,
+                     int Lf, int Ls, int splits, int blocks, cudaStream_t s) {
+  const int ntiles = Ls / (aug ? A_ST_OF<FD> : T_ST);
+  const int per = (ntiles + splits - 1) / splits;
+  cudaError_t e;
+  if (aug) {
+    e = cudaFuncSetAttribute(aug_sum_kernel<FD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)A_SMEM_OF<FD>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    aug_sum_kernel<FD><<<blocks, A_THREADS, A_SMEM_OF<FD>, s>>>(
+        static_cast<const bf16*>(fixed_t), static_cast<const bf16*>(strm_t),
+        static_cast<const bf16*>(w), static_cast<float*>(part), Lf, Ls, splits, per);
+  } else {
+    e = cudaFuncSetAttribute(f32_sum_kernel<FD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)T_SMEM_OF<FD>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 grid(Lf / T_FT, splits);
+    f32_sum_kernel<FD><<<grid, T_THREADS, T_SMEM_OF<FD>, s>>>(
+        static_cast<const float*>(fixed_t), static_cast<const float*>(strm_t),
+        static_cast<const float*>(w), static_cast<float*>(part), Lf, Ls, per);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// how many blocks of the layout's kernel (aug != 0: bf16 aug, else f32) fit
-// the card at once: the wrapper splits the streamed axis to fill whole waves
-// of them (and launches at most that many persistent aug blocks); a negative
-// value is a cudaError
-int glt_recompute_slots(int aug) {
+// how many blocks of the layout's kernel (aug != 0: bf16 aug, else f32) at
+// fd feature lanes (32 or 64) fit the card at once: the wrapper splits the
+// streamed axis to fill whole waves of them (and launches at most that many
+// persistent aug blocks); a negative value is a cudaError, 0 an unsupported
+// fd
+int glt_recompute_slots(int aug, int fd) {
   int n = 0;
-  const int rc = aug ? slots_of(aug_sum_kernel, A_THREADS, A_SMEM, &n)
-                     : slots_of(f32_sum_kernel, T_THREADS, T_SMEM, &n);
-  return rc != 0 ? -rc : n;
+  const int rc = fd == 32   ? recompute_slots<32>(aug, &n)
+                 : fd == 64 ? recompute_slots<64>(aug, &n)
+                            : -1;
+  return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
-// out[f] = sum_s w_s k(f, s) over k-major (32, Lf) fixed and (32, Ls)
-// streamed features. aug: bf16 layouts and w, Lf % 256 == 0, Ls % 128 ==
-// 0, `blocks` persistent blocks over (Lf / 256) x splits work items;
-// else f32 layouts and w, Lf % 128 == 0, Ls % 128 == 0, a grid of (Lf /
-// 128, splits) (`blocks` unused); the wrapper checks the shapes. splits >
-// 1: part holds (splits, Lf) floats and a fixed-order reduction writes out;
-// splits == 1: the kernel writes part, which may be out.
-int glt_recompute_sum(int aug, const void* fixed_t, const void* strm_t, const void* w,
+// out[f] = sum_s w_s k(f, s) over k-major (fd, Lf) fixed and (fd, Ls)
+// streamed features, fd 32 or 64. aug: bf16 layouts and w, Lf % 256 == 0,
+// Ls % 256 == 0, `blocks` persistent blocks over ceil(Lf / (1024 at 32
+// lanes, 512 at 64)) x splits work items; else f32 layouts and w, Lf % 128
+// == 0, Ls % 128 == 0, a grid of (Lf / 128, splits) (`blocks` unused); the
+// wrapper checks the shapes. splits > 1: part holds (splits, Lf) floats and
+// a fixed-order reduction writes out; splits == 1: the kernel writes part,
+// which may be out.
+int glt_recompute_sum(int aug, int fd, const void* fixed_t, const void* strm_t, const void* w,
                       void* part, void* out, int Lf, int Ls, int splits, int blocks,
                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int ntiles = Ls / (aug ? A_ST : T_ST);
-  const int per = (ntiles + splits - 1) / splits;
-  cudaError_t e;
-  if (aug) {
-    e = cudaFuncSetAttribute(aug_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)A_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    aug_sum_kernel<<<blocks, A_THREADS, A_SMEM, s>>>(
-        static_cast<const bf16*>(fixed_t), static_cast<const bf16*>(strm_t),
-        static_cast<const bf16*>(w), static_cast<float*>(part), Lf, Ls, splits, per);
-  } else {
-    e = cudaFuncSetAttribute(f32_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)T_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid(Lf / T_FT, splits);
-    f32_sum_kernel<<<grid, T_THREADS, T_SMEM, s>>>(
-        static_cast<const float*>(fixed_t), static_cast<const float*>(strm_t),
-        static_cast<const float*>(w), static_cast<float*>(part), Lf, Ls, per);
-  }
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  if (splits < 1 || (fd != 32 && fd != 64)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = fd == 32 ? recompute_launch<32>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits,
+                                                 blocks, s)
+                          : recompute_launch<64>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits,
+                                                 blocks, s);
+  if (rc != 0 || splits == 1) return rc;
   return launch_reduce(static_cast<const float*>(part), static_cast<float*>(out), splits,
                        (size_t)Lf, s);
 }

@@ -47,7 +47,9 @@
 //     buffer, B = fa rows by ldmatrix) and keeps the entries in registers as
 //     packed bf16 A fragments — the tile is never written to shared memory;
 //   * kbt is one more mma a 16-row block (the fragments times [t_r, t_c]
-//     as a zero-padded B operand); the four row groups' partials meet in
+//     as a zero-padded B operand), each from a zero accumulator and added
+//     to the warp's tile partial by an f32 add (one mma chain over the NB
+//     blocks truncated, and s leaned high); the four row groups' partials meet in
 //     shared memory in order, and the 8 ranks' through distributed shared
 //     memory, every rank summing them in the same fixed tree, so all 8 get
 //     the same s;
@@ -426,7 +428,6 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
     const bf16* ap = fts + ((lane & 7) + 8 * (lane >> 4)) * X_LDT + jb + 8 * ((lane >> 3) & 1);
     ldsm_x4_trans(a0, ap);
     ldsm_x4_trans(a1, ap + 16 * X_LDT);
-    float kt[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       if (b == NB / 2) halfway();
@@ -451,11 +452,22 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
         F[b][2 * h] = kent2(pack2(c[0], c[1]));
         F[b][2 * h + 1] = kent2(pack2(c[2], c[3]));
       }
+    }
+    // kbt: each block's from a zero accumulator, added to the tile's
+    // partial in f32 (carried through the NB blocks' mma, the truncating
+    // accumulation put s above its plain version on ~97% of the columns);
+    // after the d2 loop, whose fragments and accumulators are dead by then
+    float kt[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
       const int p0 = rw + 16 * b + 2 * tq;
       uint32_t tb[2];
       tb[0] = g < 2 ? ld32(t2_s + g * rb + p0) : 0u;
       tb[1] = g < 2 ? ld32(t2_s + g * rb + p0 + 8) : 0u;
-      mma16816(kt, F[b], tb);
+      float kb[4] = {0.f, 0.f, 0.f, 0.f};
+      mma16816(kb, F[b], tb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kt[e] += kb[e];
     }
     if (tq == 0) {   // kt: (column jb+g | jb+g+8) x (t_r | t_c)
       float* w = wq_s + ((i & 1) * X_RG + rg) * 2 * X_TN;

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "glt_ext2_clusters": ([_I, _I], _I),
     "glt_ext2_matvec": ([_P] * 7 + [_I, _I, _I, _I, _P], _I),
     "glt_finish_colstats": ([_P] * 14 + [_I] * 5 + [_P], _I),
-    "glt_recompute_slots": ([_I], _I),
-    "glt_recompute_sum": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "glt_recompute_slots": ([_I, _I], _I),
+    "glt_recompute_sum": ([_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "glt_aug_entries": ([_P, _I, _P], _I),
     "glt_colstats_v_blocks": ([_I, _I], _I),
     "glt_colstats_v": ([_P] * 10 + [_I] * 5 + [_P], _I),

@@ -4,8 +4,8 @@
 :284).
 
 Both recompute every kernel tile from the padded feature layouts
-(ops/recompute_layout: fa (p_pad, 32) rows, f_t (32, n) transposed
-features), never storing it:
+(ops/recompute_layout: fa (p_pad, dp) rows, f_t (dp, n) transposed
+features, dp 32 or 64 lanes), never storing it:
 
 * ``matvec_cuda`` (K5): K v -> (p_pad,) f32. v rounds to the layout dtype
   first (the reference's wrapper, :442), then an f32 multiply and row sum.
@@ -26,17 +26,20 @@ four times the f32 product's error.
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
-the two layouts the presets reach: bf16 aug and f32 plain, at 32 feature
-lanes. Wider layouts (a 7 x 7 patch's 64 lanes and past) raise
-``NotImplementedError`` naming ROADMAP.md Queue 2b, and the plain bf16
-layout (the reference's ``GLT_AUG_DISABLE`` lever) raises it too; there is
-no fallback from a kernel to its
-plain version. Unlike K8/K9, the kernels take any p_pad on the 512 quantum
-and any n on the 256 one: they hold no whole-p tile. The aug kernel runs
-persistent blocks over work items (1024 fixed entries by a split of the
-streamed axis, ``_plan``) and reads its tile entries from a table of every
-bf16(d2) pattern, built on the card with the same entry function
-(``aug_entries`` checks every pattern).
+the two layouts the presets reach: bf16 aug and f32 plain, at 32 or 64
+feature lanes (an NLM 5 x 5 or 7 x 7 patch: each kernel is a template on
+its depth); the coordinate kernel takes 32. Wider layouts (patches 9 and
+11: 96 and 128 lanes) and coordinates past 32 lanes raise
+``NotImplementedError`` naming ROADMAP.md Queue 2b. The plain bf16 layout
+(the reference's ``GLT_AUG_DISABLE`` lever) and an f32 aug layout raise it
+too: no preset builds them, and no ROADMAP.md queue ports them. There is
+no fallback from a kernel to its plain version. Unlike K8/K9, the kernels
+take any p_pad on the 512 quantum and any n on the 256 one: they hold no
+whole-p tile. The aug kernel runs persistent blocks over work items (1024
+fixed entries at 32 lanes, 512 at 64, by a split of the streamed axis,
+``_plan``) and reads its tile entries from a table of every bf16(d2)
+pattern, built on the card with the same entry function (``aug_entries``
+checks every pattern).
 """
 
 from __future__ import annotations
@@ -48,12 +51,18 @@ from .cuda_affinity import _device_kind
 from .cuda_recompute import PLAIN_CHUNK, _r, _tile_plain, coord_lanes
 from .streaming import _chunks
 
-FD = 32                   # feature depth of the kernels
 P_QUANTUM = 512           # p_pad: the reference's p_tiling quantum
 N_QUANTUM = 256           # n: the f32 _tile_n (the bf16 one, 1024, is a multiple)
-# streamed entries a tile, fixed entries a block (f32) or work item (aug)
-STREAM_TILE = {torch.bfloat16: 256, torch.float32: 128}
-FIXED_TILE = {torch.bfloat16: 1024, torch.float32: 128}
+# by (layout dtype, feature depth): streamed entries a tile, fixed entries a
+# block (f32) or work item (aug); the keys are the kernels' instantiations
+# (csrc template FD)
+STREAM_TILE = {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 256,
+               (torch.float32, 32): 128, (torch.float32, 64): 128}
+FIXED_TILE = {(torch.bfloat16, 32): 1024, (torch.bfloat16, 64): 512,
+              (torch.float32, 32): 128, (torch.float32, 64): 128}
+FDS = (32, 64)            # feature depths of both layouts' kernels
+D_PAD = 128               # the reference's widest feature layout
+COORD_FD = 32             # feature depth of the coordinate kernel
 COORD_FIXED = 256         # fixed entries a block of the coordinate kernel
 _F32 = torch.float32
 
@@ -82,67 +91,79 @@ def rmatvec_plain(fa, f_t, t, aug: bool = False, live=None, coords=False):
 
 # --- kernel wrappers --------------------------------------------------------
 
-def _check(fa, f_t, aug: bool, what: str) -> None:
+def _check(fa, f_t, aug: bool, what: str, coords: bool = False) -> None:
+    """Raise unless a kernel takes the layout."""
     dtype = fa.dtype
-    if f_t.dtype != dtype or dtype not in FIXED_TILE:
+    if f_t.dtype != dtype or dtype not in (torch.bfloat16, _F32):
         raise ValueError(f"{what}: fa and f_t must share a bf16 or f32 dtype, "
                          f"got {fa.dtype} and {f_t.dtype}")
     if aug != (dtype == torch.bfloat16):
         raise NotImplementedError(
             f"{what}: the CUDA kernels take the bf16 aug layout and the f32 "
-            f"plain layout; the {'f32 aug' if aug else 'plain bf16'} layout "
-            f"waits for ROADMAP.md Queue 2 (K5/K6, other layouts)")
+            f"plain layout; no preset builds the "
+            f"{'f32 aug' if aug else 'plain bf16'} layout, and no ROADMAP.md "
+            f"queue ports it")
     p, n = fa.shape[0], f_t.shape[1]
     fd = fa.shape[1]
-    if f_t.shape[0] == fd and fd % 32 == 0 and FD < fd <= 128:
-        raise NotImplementedError(
-            f"{what}: {fd} feature lanes: the CUDA kernels take {FD} "
-            f"(ROADMAP.md Queue 2b)")
-    if fd != FD or f_t.shape[0] != FD:
-        raise ValueError(f"{what}: the kernels take {FD} feature lanes, got "
+    if f_t.shape[0] != fd or fd % 32 or not 0 < fd <= D_PAD:
+        raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
+                         f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
+    coord = coords and not aug
+    ported = (COORD_FD,) if coord else FDS
+    if fd not in ported:
+        kind = "coordinate" if coord else "bf16 aug" if aug else "f32"
+        raise NotImplementedError(
+            f"{what}: {fd} feature lanes: the CUDA kernels of the {kind} "
+            f"layout take {ported} (ROADMAP.md Queue 2b)")
     if p % P_QUANTUM or n % N_QUANTUM:
         raise ValueError(f"{what}: p_pad {p} must be a multiple of "
                          f"{P_QUANTUM} and n {n} of {N_QUANTUM}")
 
 
-def _splits(aug: bool, fixed_blocks: int, tiles: int) -> int:
-    """Streamed-axis splits: where the fixed side's blocks alone leave the
-    card's resident slots for the kernel (``glt_recompute_slots``, from the
-    occupancy the compiled kernel really has) short, as many splits as fit
-    those slots in one wave, none empty."""
-    slots = _build.lib().glt_recompute_slots(int(aug))
+def _slots(aug: bool, fd: int) -> int:
+    """Blocks of the layout's kernel at depth ``fd`` resident on the card at
+    once (``glt_recompute_slots``, from the occupancy the compiled kernel
+    really has)."""
+    slots = _build.lib().glt_recompute_slots(int(aug), fd)
     if slots <= 0:
         _build.check(-slots if slots < 0 else 1, "recompute_sum: no block fits "
                      "the card")
-    splits = max(1, min(tiles, slots // fixed_blocks))
+    return slots
+
+
+def _splits(aug: bool, fixed_blocks: int, tiles: int, fd: int) -> int:
+    """Streamed-axis splits: where the fixed side's blocks alone leave the
+    card's resident slots for the kernel (``_slots``) short, as many splits
+    as fit those slots in one wave, none empty."""
+    splits = max(1, min(tiles, _slots(aug, fd) // fixed_blocks))
     return -(-tiles // -(-tiles // splits))       # no empty split
 
 
-def _plan(aug: bool, lf: int, ls: int) -> tuple[int, int]:
-    """(splits, blocks) of a launch over k-major (32, lf) fixed and (32, ls)
+def _plan(aug: bool, lf: int, ls: int, fd: int) -> tuple[int, int]:
+    """(splits, blocks) of a launch over k-major (fd, lf) fixed and (fd, ls)
     streamed layouts: the streamed axis split as ``_splits`` says; the aug
     kernel's persistent blocks, at most one a resident slot and one a work
-    item (ceil(lf / 1024) fixed slices by the splits); the f32 kernel's grid
-    is its own (blocks 0, unused)."""
-    dtype = torch.bfloat16 if aug else _F32
-    fixed = -(-lf // FIXED_TILE[dtype])
-    splits = _splits(aug, fixed, ls // STREAM_TILE[dtype])
+    item (ceil(lf / FIXED_TILE) fixed slices by the splits); the f32
+    kernel's grid is its own (blocks 0, unused)."""
+    key = (torch.bfloat16 if aug else _F32, fd)
+    fixed = -(-lf // FIXED_TILE[key])
+    splits = _splits(aug, fixed, ls // STREAM_TILE[key], fd)
     if not aug:
         return splits, 0
-    return splits, min(fixed * splits, _build.lib().glt_recompute_slots(1))
+    return splits, min(fixed * splits, _slots(True, fd))
 
 
 def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
-    """out[f] = sum_s w_s k(f, s) over k-major (32, Lf) / (32, Ls) layouts,
+    """out[f] = sum_s w_s k(f, s) over k-major (fd, Lf) / (fd, Ls) layouts,
     launched as ``_plan`` says; ``coord_lv``: the coordinate kernel on f32
     layouts, reading that many lanes."""
     aug = fixed_t.dtype == torch.bfloat16
-    lf, ls = fixed_t.shape[1], strm_t.shape[1]
+    fd, lf, ls = fixed_t.shape[0], fixed_t.shape[1], strm_t.shape[1]
     dev = fixed_t.device
     lib = _build.lib()
     if coord_lv is None:
-        splits, blocks = _plan(aug, lf, ls)
+        splits, blocks = _plan(aug, lf, ls, fd)
     else:
         if lf % COORD_FIXED:
             raise ValueError(f"recompute_sum: the coordinate kernel takes "
@@ -151,7 +172,7 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
         if slots <= 0:
             _build.check(-slots if slots < 0 else 1, "coord_sum: no block "
                          "fits the card")
-        tiles = ls // STREAM_TILE[_F32]
+        tiles = ls // STREAM_TILE[(_F32, COORD_FD)]
         splits = max(1, min(tiles, slots // (lf // COORD_FIXED)))
         splits = -(-tiles // -(-tiles // splits))   # no empty split
     out = torch.empty(lf, dtype=_F32, device=dev)
@@ -159,7 +180,7 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
                                                device=dev)
     if coord_lv is None:
         rc = lib.glt_recompute_sum(
-            int(aug), fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
+            int(aug), fd, fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
             part.data_ptr(), out.data_ptr(), lf, ls, splits, blocks,
             _build.stream_ptr(fixed_t))
     else:
@@ -178,12 +199,13 @@ def _coord_lv(fa, coords, live):
 
 
 def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):
-    """K v: ((p_pad, 32), (32, n), (n,)) -> (p_pad,) f32 (``matvec_pallas``).
-    ``coords``: the f32 layout's features carry coordinates, ``live`` of
-    their lanes are nonzero (None: all 32)."""
+    """K v: ((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32
+    (``matvec_pallas``), dp 32 or 64. ``coords``: the f32 layout's features
+    carry coordinates (32 lanes), ``live`` of their lanes are nonzero
+    (None: all 32)."""
     if _device_kind(fa, f_t, v) == "cpu":
         return matvec_plain(fa, f_t, v, aug)
-    _check(fa, f_t, aug, "matvec")
+    _check(fa, f_t, aug, "matvec", coords)
     if tuple(v.shape) != (f_t.shape[1],):
         raise ValueError(f"matvec: v shape {tuple(v.shape)} != "
                          f"({f_t.shape[1]},)")
@@ -195,11 +217,11 @@ def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):
 
 
 def rmatvec_cuda(fa, f_t, t, aug: bool = False, live=None, coords=False):
-    """K^T t: ((p_pad, 32), (32, n), (p_pad,)) -> (n,) f32
+    """K^T t: ((p_pad, dp), (dp, n), (p_pad,)) -> (n,) f32
     (``rmatvec_pallas``); ``live`` and ``coords`` as ``matvec_cuda``."""
     if _device_kind(fa, f_t, t) == "cpu":
         return rmatvec_plain(fa, f_t, t, aug)
-    _check(fa, f_t, aug, "rmatvec")
+    _check(fa, f_t, aug, "rmatvec", coords)
     if tuple(t.shape) != (fa.shape[0],):
         raise ValueError(f"rmatvec: t shape {tuple(t.shape)} != "
                          f"({fa.shape[0]},)")

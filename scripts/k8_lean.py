@@ -10,12 +10,16 @@ of outputs below their reference (ties left out, chip_smoke.signed_stats'
 sense): the kernel's u against the plain u; the kernel's s against the
 plain s; the kernel's u against the f64 sum of the same bf16 tile entries
 times the kernel's own s (the lean of u's accumulation alone); the plain
-u against the f64 sum with the plain s. Prints the card line and one JSON
-line a case.
+u against the f64 sum with the plain s; the kernel's s and the plain s
+against the f64 evaluation of s on the same bf16 tile entries
+(chip_smoke.ext2_recompute_f64: bf16 t2, kbt and s in f64), the reference
+chip_smoke.py holds K8's s to. Prints the card line and one JSON line a
+case.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -53,6 +57,11 @@ def main() -> None:
     from graphlap_tpu_torch.ops import cuda_recompute as k79
     from graphlap_tpu_torch.ops import recompute_layout as rl
 
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_checks", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -68,13 +77,15 @@ def main() -> None:
         t2[:, :p] = tt(rng.uniform(0.5, 1.5, (2, p)))
         u, s = k79.ext2_matvec_cuda(fa_aug, f_t, t2, bm, True)
         u_p, s_p = k79.ext2_matvec_plain(fa_aug, f_t, t2, bm, True)
+        s64 = cs.ext2_recompute_f64(fa_aug, f_t, t2, bm, True)[1]
         print(json.dumps(dict(
             lanes=f_t.shape[0], features=d, p_pad=fa_aug.shape[0], n=n,
             u_vs_plain=share_below(u[:p], u_p[:p]),
             s_vs_plain=share_below(s, s_p),
             u_vs_f64_own_s=share_below(u[:p], u_f64(k79, fa_aug, f_t, s)[:p]),
             plain_u_vs_f64=share_below(u_p[:p],
-                                       u_f64(k79, fa_aug, f_t, s_p)[:p]))),
+                                       u_f64(k79, fa_aug, f_t, s_p)[:p]),
+            s_vs_f64=share_below(s, s64), plain_s_vs_f64=share_below(s_p, s64))),
               flush=True)
 
 

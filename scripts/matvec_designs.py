@@ -15,7 +15,10 @@ launch plan drive it (a variant with its own work-item and stage sizes sets
 them in the wrapper's plan while it runs). A variant applies where each of
 its edits matches the checkout's source exactly once; the others are listed
 as not applying: the first port's kernel (PR 3 to PR 8, an IEEE expf an
-entry) and the table kernel have different variants. Variants:
+entry) and the table kernel have different variants, and ``no loads``,
+``16x2``, ``12x1`` and ``2 stages`` edit the table kernel as it was before
+its template on the feature depth (run them with ``--repo`` on such a
+checkout). Variants:
 
 * every checkout: ``shipped``, ``no w`` (timing only: the w product
   dropped, the entries folded by XOR);
@@ -45,7 +48,9 @@ entry) and the table kernel have different variants. Variants:
 Shapes: config 3's channel 0 (chip_smoke.make_workload_cfg3: p_pad 4096, N
 1048576) and config 4 at 8 MP (chip_smoke.make_workload_8mp: N 8388608, the
 staged schedule's polish), the vectors as chip_smoke.matvec_cases makes
-them. Times are CUDA-event means (chip_smoke.cuda_ms); each variant runs
+them; with ``--patch 7`` both at an NLM 7 x 7 patch, the 64-lane kernel
+(variant ``d64 4x128``: 4 ring stages of 128 streamed entries, in place of
+the shipped 2 of 256). Times are CUDA-event means (chip_smoke.cuda_ms); each variant runs
 --reps times in turn (default 2). The error is the largest |kernel - plain|
 over max |plain| at config 3 (meaningless for the timing-only variants).
 --dry writes the variant sources here and checks the edits without a card.
@@ -286,6 +291,16 @@ TAB_UNROLL1 = [(_UNROLL, _UNROLL.replace("unroll 2", "unroll 1"))]
 TAB_UNROLL4 = [(_UNROLL, _UNROLL.replace("unroll 2", "unroll 4"))]
 TAB_STAGES2 = [("constexpr int A_STAGES = 4;             // aug: ring depth",
                 "constexpr int A_STAGES = 2;             // aug: ring depth")]
+
+# --- the kernel templated on its feature depth ---------------------------------
+# at 64 lanes, 4 stages of 128 streamed entries in place of 2 of 256: the
+# other fit of the ring beside the table
+D64_STAGES4 = [
+    ("constexpr int A_ST_OF = 256;            // aug: streamed entries a ring stage",
+     "constexpr int A_ST_OF = FD == 32 ? 256 : 128;"),
+    ("constexpr int A_STAGES_OF = FD == 32 ? 4 : 2;   // aug: ring depth",
+     "constexpr int A_STAGES_OF = 4;"),
+    ("A_SMEM_OF<64> == 199712", "A_SMEM_OF<64> == 201792")]
 
 # --- the wgmma design (dropped) ----------------------------------------------
 # three consumer warpgroups (160 registers each after setmaxnreg), one m64
@@ -539,7 +554,7 @@ WGMMA_NOD2 = WGMMA + [
     ("        wgmma_commit();\n        // the w product's B fragments",
      "        wgmma_commit();\n        }\n        // the w product's B fragments"),
 ]
-_WG_TILES = (192, 128)
+_WG_TILES = {32: (192, 128)}
 
 # name -> (edits of recompute_matvec.cu, design, timing only[, (fixed,
 # streamed) entries of the variant's work item and stage, which the
@@ -557,9 +572,11 @@ VARIANTS = {
     "32 copies": (TAB_COPIES32, "32 copies of the live patterns, clamped", False),
     "1 copy": (TAB_COPY1, "one copy of the live patterns, clamped", False),
     "kexp": (TAB_KEXP, "the entry by one FMUL and one MUFU ex2 (K10's exp)", True),
-    "16x2": (TAB_16X2, "16 consumer warps of 32 rows", False, (512, 256)),
-    "12x1": (TAB_12X1, "12 consumer warps of 16 rows", False, (192, 256)),
+    "16x2": (TAB_16X2, "16 consumer warps of 32 rows", False, {32: (512, 256)}),
+    "12x1": (TAB_12X1, "12 consumer warps of 16 rows", False, {32: (192, 256)}),
     "2 stages": (TAB_STAGES2, "a 2-stage ring", False),
+    "d64 4x128": (D64_STAGES4, "at 64 lanes a 4-stage ring of 128-entry stages", False,
+                  {64: (512, 128)}),
     "unpacked": (TAB_UNPACKED, "entries unpacked, two w-product mma a block", False),
     "signed": (TAB_SIGNED, "the pair rounded without relu, the high address masked", False),
     "unroll 1": (TAB_UNROLL1, "the 16-entry column loop not unrolled", False),
@@ -636,6 +653,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", default="")
     ap.add_argument("--dry", action="store_true")
+    ap.add_argument("--patch", type=int, default=5, choices=(5, 7),
+                    help="the NLM patch of the shapes: 7 times the 64-lane kernel")
     args = ap.parse_args()
     repo = Path(args.repo).resolve()
     out = ROOT / "build" / "matvec_designs" / (repo.name or "repo")
@@ -668,7 +687,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     shapes = {}
     for tag, make in (("cfg3", cs.make_workload_cfg3), ("8mp", cs.make_workload_8mp)):
-        cfg, _, noisy, plan = make(gt)
+        cfg, _, noisy, plan = make(gt, patch=args.patch)
         img = torch.as_tensor(noisy, device=dev)
         if img.ndim == 3:
             img = img[..., 0].contiguous()
@@ -698,10 +717,13 @@ def main() -> None:
             for name, (lib, log) in built.items():
                 _build._LIB = lib
                 k56.FIXED_TILE, k56.STREAM_TILE = saved[1:]
-                if len(VARIANTS[name]) > 3:     # only the table kernel's variants
-                    fixed, streamed = VARIANTS[name][3]
-                    k56.FIXED_TILE = {**saved[1], torch.bfloat16: fixed}
-                    k56.STREAM_TILE = {**saved[2], torch.bfloat16: streamed}
+                for fd, (fixed, streamed) in (VARIANTS[name][3] if len(VARIANTS[name]) > 3
+                                               else {}).items():
+                    # keyed by (dtype, depth), or by dtype before the 64-lane kernels
+                    key = ((torch.bfloat16, fd) if (torch.bfloat16, fd) in saved[1]
+                           else torch.bfloat16)
+                    k56.FIXED_TILE = {**k56.FIXED_TILE, key: fixed}
+                    k56.STREAM_TILE = {**k56.STREAM_TILE, key: streamed}
                 row = rows.setdefault(name, dict(
                     design=VARIANTS[name][1], applies=True,
                     timing_only=VARIANTS[name][2], ms={}, ptxas=[

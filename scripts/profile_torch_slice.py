@@ -3,7 +3,8 @@ card.
 
     python3 scripts/profile_torch_slice.py
         [--path config2|config2f32|config2p7|config4|config4p7|config3|
-                config4q|turbo|dense|bilateral|both|all]
+                config3p7|config4q|config4qp7|turbo|dense|bilateral|both|
+                all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
@@ -15,7 +16,8 @@ recompute-streaming fused-finish recipe; config 4 p7:
 chip_smoke.make_workload_8mp_p7, the same at 7x7 (the 64-lane K7-K9);
 config 3: chip_smoke.make_workload_cfg3, the 1024x1024
 RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
-8 MP f32 matvec denoise; turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
+8 MP f32 matvec denoise; config 3 p7 and config 4q p7: the two at 7x7
+(the 64-lane aug and f32 K5/K6); turbo: chip_smoke.make_workload_8mp_turbo, the 8 MP
 turbo recipe on the unfused spectral schedule; dense:
 chip_smoke.make_workload_dense, bench.py's f32 twin of config 2 on the dense
 path; bilateral: chip_smoke.make_workload_bilateral, the 8 MP bilateral
@@ -204,7 +206,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("config2", "config2f32", "config2p7",
                                        "config4", "config4p7", "config3",
-                                       "config4q", "turbo", "dense",
+                                       "config3p7", "config4q", "config4qp7",
+                                       "turbo", "dense",
                                        "bilateral", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
@@ -227,7 +230,9 @@ def main() -> None:
              "config4": chip_smoke.make_workload_8mp,
              "config4p7": chip_smoke.make_workload_8mp_p7,
              "config3": chip_smoke.make_workload_cfg3,
+             "config3p7": lambda g: chip_smoke.make_workload_cfg3(g, 7),
              "config4q": chip_smoke.make_workload_8mp_matvec,
+             "config4qp7": lambda g: chip_smoke.make_workload_8mp_matvec(g, 7),
              "turbo": chip_smoke.make_workload_8mp_turbo,
              "dense": chip_smoke.make_workload_dense,
              "bilateral": chip_smoke.make_workload_bilateral}

@@ -8,11 +8,15 @@ filter on gray and per-channel RGB images; the aug kernel's entry table
 the plain tile bit for bit and against the Pallas kernels, and its launch
 plan. On a CUDA card only (marker ``gpu``): K5/K6 against their plain
 versions, two launches on the same inputs bit for bit, and the layout
-guard.
+guard. Each at an NLM 5 x 5 patch's feature width (25, the 32-lane
+kernels) and a 7 x 7 one's (49, the 64-lane kernels).
 
 Tolerances, relative to the largest reference magnitude unless stated:
 * K5/K6, f32 plain layout: 1e-5 — the same f32 tile values, summed in
-  another order (tests/test_pallas.py's f32 class for these kernels).
+  another order (tests/test_pallas.py's f32 class for these kernels); the
+  f32 kernel's split-fp16 cross against the f32 cross within L 2^-19 of
+  2^(Ea + Eb) over its L lanes (32 or 64), plus an f32 ulp of the norms
+  (tests/test_torch_kernels.py's bar for K1, whose cross is the same).
 * K5/K6, bf16 aug layout: 1e-3 — a d2 that differs in its last f32 bits can
   round to the other bf16 neighbour and move one tile entry by one bf16 ulp
   (2^-8 relative); over hundreds of summed entries that is far below 1e-3,
@@ -125,11 +129,16 @@ def _layouts(jx, dtype, p, n, seed=5, d=25):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("p,n", [(277, 2000), (4100, 1000)])
-def test_k5_k6_plain_match_pallas(jx, dtype, p, n):
-    """p = 4100 pads to 5120: two reference p tiles of 2560 (_tile_p_of)."""
+@pytest.mark.parametrize("p,n,d", [(277, 2000, 25), (4100, 1000, 25),
+                                   (277, 2000, 49), (4100, 1000, 49)],
+                         ids=["277-2000", "4100-1000", "277-2000-7x7",
+                              "4100-1000-7x7"])
+def test_k5_k6_plain_match_pallas(jx, dtype, p, n, d):
+    """p = 4100 pads to 5120: two reference p tiles of 2560 (_tile_p_of).
+    d 49 (a 7 x 7 patch): 64 lanes, the aug layout's 55 padded to 64."""
     jnp, pst = jx.jnp, jx.pst
-    x = _layouts(jx, dtype, p, n)
+    x = _layouts(jx, dtype, p, n, d=d)
+    assert x.tfa.shape[1] == (64 if d == 49 else 32)
     if p > rl.MAX_TILE_P:
         assert rl._tile_p_of(x.fa.shape[0]) < x.fa.shape[0]
     mv_r = pst.matvec_pallas(x.fa, x.f_t, jnp.asarray(x.v), aug=x.aug)
@@ -142,7 +151,7 @@ def test_k5_k6_plain_match_pallas(jx, dtype, p, n):
 
 
 def _split2(x):
-    """(L, 32) f32 feature vectors -> (scale 2^E, big, small) as the f32
+    """(M, L) f32 feature vectors -> (scale 2^E, big, small) as the f32
     kernel splits them (csrc/recompute_matvec.cu split2): x' = x 2^-E, E
     the exponent of the vector's largest |x_k| (< 2^E); big = x' on the grid
     2^-10; small = fp16(x' - big)."""
@@ -156,20 +165,25 @@ def _split2(x):
 
 
 def _tc_cross(a, b):
-    """The f32 kernel's cross of feature rows a (P, 32) and b (C, 32) at its
-    rounding points: each k16 step's big.big sum exact (asserted), the two
-    and big.small + small.big added in f32, small.small dropped, then
-    scaled back by 2^(Ea + Eb)."""
+    """The f32 kernel's cross of feature rows a (P, L) and b (C, L), L 32 or
+    64 lanes, at its rounding points: each k16 step's big.big sum exact
+    (asserted), the steps added in f32 in pairs, (h0 + h1) + (h2 + h3) at 64
+    lanes, then big.small + small.big (f32) added, small.small dropped,
+    then scaled back by 2^(Ea + Eb)."""
     (sa, ab, as_), (sb, bb, bs) = _split2(a), _split2(b)
-    f64 = np.float64
-    halves = [ab[:, h].astype(f64) @ bb[:, h].astype(f64).T
-              for h in (slice(0, 16), slice(16, 32))]
-    for hh in halves:                  # a sum of 16 big products is exact
-        assert np.array_equal(hh.astype(np.float32).astype(f64), hh)
+    f64, f32 = np.float64, np.float32
+    steps = [ab[:, k:k + 16].astype(f64) @ bb[:, k:k + 16].astype(f64).T
+             for k in range(0, a.shape[1], 16)]
+    for hh in steps:                   # a sum of 16 big products is exact
+        assert np.array_equal(hh.astype(f32).astype(f64), hh)
+    steps = [hh.astype(f32) for hh in steps]
+    big = steps[0] + steps[1]
+    if len(steps) == 4:
+        big = big + (steps[2] + steps[3])
     corr = (ab.astype(f64) @ bs.astype(f64).T
-            + as_.astype(f64) @ bb.astype(f64).T).astype(np.float32)
-    cross = halves[0].astype(np.float32) + halves[1].astype(np.float32) + corr
-    return (cross * (sa * sb.T)).astype(np.float32)     # exact: powers of 2
+            + as_.astype(f64) @ bb.astype(f64).T).astype(f32)
+    cross = big + corr
+    return (cross * (sa * sb.T)).astype(f32)     # exact: powers of 2
 
 
 def _tc_tile(a, b):
@@ -188,14 +202,17 @@ def _tc_tile(a, b):
     return np.exp(-d2).astype(np.float32)
 
 
-@pytest.mark.parametrize("p,n", [(277, 2000), (4100, 1000)])
-def test_k5_k6_split_fp16_scheme_matches_pallas(jx, p, n):
+@pytest.mark.parametrize("p,n,d", [(277, 2000, 25), (4100, 1000, 25),
+                                   (277, 2000, 49), (4100, 1000, 49)],
+                         ids=["277-2000", "4100-1000", "277-2000-7x7",
+                              "4100-1000-7x7"])
+def test_k5_k6_split_fp16_scheme_matches_pallas(jx, p, n, d):
     """The f32 kernel's split fp16 cross, emulated in numpy at its rounding
     points, holds the reference's f32 matvec_pallas / rmatvec_pallas
     (interpret mode) to REL["float32"]: the split scheme is inside the bar
-    before any card runs it."""
+    before any card runs it, over 32 lanes and over 64."""
     jnp, pst = jx.jnp, jx.pst
-    x = _layouts(jx, "float32", p, n)
+    x = _layouts(jx, "float32", p, n, d=d)
     tile = _tc_tile(N(x.fa), N(x.f_t).T)
     mv = tile @ x.v.astype(np.float32)
     rmv = x.t.astype(np.float32) @ tile
@@ -203,6 +220,43 @@ def test_k5_k6_split_fp16_scheme_matches_pallas(jx, p, n):
     rmv_r = pst.rmatvec_pallas(x.fa, x.f_t, jnp.asarray(x.t), aug=False)
     assert_rel(mv[:p], N(mv_r)[:p], REL["float32"])
     assert_rel(rmv[:n], N(rmv_r)[:n], REL["float32"])
+
+
+@pytest.mark.parametrize("patch,h,w,kernel_h", [
+    (5, 96, 96, 0.1),           # the 8 MP matvec denoise's h: 32 lanes
+    (7, 96, 96, 0.1),           # at 7 x 7: 49 lanes, the 64-lane kernel
+    (7, 256, 512, 0.1),         # 7 x 7 on a larger frame
+], ids=["5x5-96", "7x7-96", "7x7-256x512"])
+def test_k5_k6_split_fp16_cross_holds_the_f32_cross(patch, h, w, kernel_h):
+    """The f32 kernel's cross, emulated (``_tc_cross``), on NLM features of
+    the 8 MP matvec denoise's recipe (h 0.1) against the f32 cross, in d2.
+    The bound, re-derived from the lane count L (32, or 64 past 32
+    features) as K1's (tests/test_torch_kernels.py: its cross is the same
+    split): the dropped small.small terms (L 2^-22 of 2^(Ea + Eb)), the
+    fp16 rounding of the smalls (2 L 2^-22) and the f32 rounding of the
+    plain cross (L 2^-24), 3.25 L 2^-22 in all, doubled in d2, are under L
+    2^-19 2^(Ea + Eb) (2^-14 at 32 lanes, 2^-13 at 64); d2's own rounding
+    adds an f32 ulp of na + nb."""
+    from graphlap_tpu_torch.ops import affinity as taff
+
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(h, w), 0.1,
+                                        seed=1), 0, 1).astype(np.float32)
+    cfg = PipelineConfig(kernel="nlm", h=kernel_h, patch_size=patch)
+    f = taff.extract_features(T(img), cfg).numpy()
+    lanes = rl.d_pad_of(f.shape[1])
+    assert lanes == (64 if patch == 7 else 32)
+    rng = np.random.default_rng(0)
+    f = np.pad(f, ((0, 0), (0, lanes - f.shape[1])))
+    a = f[rng.choice(f.shape[0], 200, replace=False)]
+    b = f[rng.choice(f.shape[0], min(f.shape[0], 8192), replace=False)]
+    sa, sb = _split2(a)[0], _split2(b)[0]
+    f64 = np.float64
+    nn = ((a.astype(f64) ** 2).sum(1)[:, None]
+          + (b.astype(f64) ** 2).sum(1)[None, :])
+    d2 = nn - 2.0 * _tc_cross(a, b).astype(f64)
+    d2_plain = nn - 2.0 * (a @ b.T).astype(np.float32).astype(f64)
+    bar = lanes * 2.0 ** -19 * (sa * sb.T) + 2.0 ** -22 * nn
+    assert bool((np.abs(d2 - d2_plain) <= bar).all())
 
 
 def test_streamed_axis_splits_fill_one_wave(monkeypatch):
@@ -215,15 +269,15 @@ def test_streamed_axis_splits_fill_one_wave(monkeypatch):
 
     slots = {0: 396, 1: 264}
     monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(
-        glt_recompute_slots=lambda aug: slots[aug]))
-    assert k56._splits(False, 32, 65536) == 12
-    assert k56._splits(False, 65536, 32) == 1
-    assert k56._splits(True, 16, 8192) == 16
-    assert k56._splits(False, 66, 10) == 5            # 6 asked, 2 tiles each
-    assert k56._splits(False, 1, 3) == 3
+        glt_recompute_slots=lambda aug, fd: slots[aug]))
+    assert k56._splits(False, 32, 65536, 32) == 12
+    assert k56._splits(False, 65536, 32, 32) == 1
+    assert k56._splits(True, 16, 8192, 32) == 16
+    assert k56._splits(False, 66, 10, 32) == 5        # 6 asked, 2 tiles each
+    assert k56._splits(False, 1, 3, 32) == 3
     slots[0] = -2
     with pytest.raises(RuntimeError, match="cudaError 2"):
-        k56._splits(False, 32, 65536)
+        k56._splits(False, 32, 65536, 32)
 
 
 def test_matvec_routing_quanta_match(jx):
@@ -296,13 +350,17 @@ def test_aug_entry_lookup_matches_tile_plain_bit_for_bit(jx, p, n):
     assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
 
 
-@pytest.mark.parametrize("p,n", [(277, 2000), (4100, 1000)])
-def test_aug_entry_lookup_through_k5_k6_matches_pallas(jx, monkeypatch, p, n):
+@pytest.mark.parametrize("p,n,d", [(277, 2000, 25), (4100, 1000, 25),
+                                   (277, 2000, 49), (4100, 1000, 49)],
+                         ids=["277-2000", "4100-1000", "277-2000-7x7",
+                              "4100-1000-7x7"])
+def test_aug_entry_lookup_through_k5_k6_matches_pallas(jx, monkeypatch, p, n,
+                                                       d):
     """K5/K6's plain versions with their tile entries from the table hold
     the reference's matvec_pallas / rmatvec_pallas (interpret mode) to the
-    aug bar, REL["bfloat16"]."""
+    aug bar, REL["bfloat16"], at 32 lanes and at 64 (d 49: 55 aug lanes)."""
     jnp, pst = jx.jnp, jx.pst
-    x = _layouts(jx, "bfloat16", p, n)
+    x = _layouts(jx, "bfloat16", p, n, d=d)
     monkeypatch.setattr(k56, "_tile_plain", _tile_lookup)
     mv = k56.matvec_plain(x.tfa, x.tft, T(x.v), True)
     rmv = k56.rmatvec_plain(x.tfa, x.tft, T(x.t), True)
@@ -337,34 +395,42 @@ def test_aug_entry_table_edges():
 
 
 def _plan_lib(monkeypatch, slots):
+    """The kernel library's slots query, stubbed: {(aug, fd): slots}."""
     from graphlap_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(
-        glt_recompute_slots=lambda aug: slots[aug]))
+        glt_recompute_slots=lambda aug, fd: slots[aug, fd]))
 
 
 def test_aug_launch_plan_serves_every_wrapper_shape(monkeypatch):
     """The aug kernel's plan takes every shape the wrappers pass (p_pad on
-    512, n on 256; K5 fixes p_pad and streams n, K6 the reverse): whole
-    256-entry streamed stages, no empty split, ceil(lf / 1024) fixed slices
-    (a last one part full: lf is a multiple of 256, a warp's 64 rows all in
-    or all out), and at most one persistent block a resident slot and a
+    512, n on 256; K5 fixes p_pad and streams n, K6 the reverse), at 32
+    lanes and at 64: whole 256-entry streamed stages, no empty split,
+    ceil(lf / 1024) fixed slices at 32 lanes and ceil(lf / 512) at 64 (a
+    last one part full: lf is a multiple of 256, a warp's 64 or 32 rows all
+    in or all out), and at most one persistent block a resident slot and a
     work item. Config 3: K5 4 slices by 33 splits on all 132 blocks; K6
-    1024 slices, unsplit, on all 132."""
-    _plan_lib(monkeypatch, {1: 132, 0: 528})
+    1024 slices, unsplit, on all 132; at 7 x 7 K5 8 slices by 16 splits."""
+    _plan_lib(monkeypatch, {(1, 32): 132, (0, 32): 528, (1, 64): 132,
+                            (0, 64): 264})
     bf = torch.bfloat16
-    for pp in (512, 1024, 4096, 5120, 8192):
-        for n in (256, 768, 1024, 2560, 1 << 20, 8388608):
-            for lf, ls in ((pp, n), (n, pp)):
-                assert ls % k56.STREAM_TILE[bf] == 0 and lf % 256 == 0
-                tiles = ls // k56.STREAM_TILE[bf]
-                fixed = -(-lf // k56.FIXED_TILE[bf])
-                splits, blocks = k56._plan(True, lf, ls)
-                per = -(-tiles // splits)
-                assert 1 <= splits <= tiles and per * (splits - 1) < tiles
-                assert 1 <= blocks <= min(132, fixed * splits)
-    assert k56._plan(True, 4096, 1 << 20) == (33, 132)
-    assert k56._plan(True, 1 << 20, 4096) == (1, 132)
-    assert k56._plan(False, 4096, 8388608)[0] == 16      # f32: 528 // 32
+    for fd in (32, 64):
+        key = (bf, fd)
+        assert k56.FIXED_TILE[key] == (1024 if fd == 32 else 512)
+        for pp in (512, 1024, 4096, 5120, 8192):
+            for n in (256, 768, 1024, 2560, 1 << 20, 8388608):
+                for lf, ls in ((pp, n), (n, pp)):
+                    assert ls % k56.STREAM_TILE[key] == 0 and lf % 256 == 0
+                    tiles = ls // k56.STREAM_TILE[key]
+                    fixed = -(-lf // k56.FIXED_TILE[key])
+                    splits, blocks = k56._plan(True, lf, ls, fd)
+                    per = -(-tiles // splits)
+                    assert 1 <= splits <= tiles and per * (splits - 1) < tiles
+                    assert 1 <= blocks <= min(132, fixed * splits)
+    assert k56._plan(True, 4096, 1 << 20, 32) == (33, 132)
+    assert k56._plan(True, 1 << 20, 4096, 32) == (1, 132)
+    assert k56._plan(True, 4096, 1 << 20, 64) == (16, 128)
+    assert k56._plan(False, 4096, 8388608, 32)[0] == 16  # f32: 528 // 32
+    assert k56._plan(False, 4096, 8388608, 64)[0] == 8   # 264 // 32
 
 
 def test_k5_k6_round_their_vector_to_the_layout_dtype():
@@ -536,6 +602,12 @@ SLICE_CASES = {
                                h=0.1),
     "gray_identity_f32": dict(filter_name="identity", filter_param=1.0,
                               h=0.1, affinity_dtype="float32"),
+    # the recipes at an NLM 7 x 7 patch: the aug layout's 55 lanes and the
+    # f32 layout's 49, each padded to 64
+    "gray_sharpen_bf16_p7": dict(patch_size=7),
+    "gray_identity_f32_p7": dict(filter_name="identity", filter_param=1.0,
+                                 h=0.1, affinity_dtype="float32",
+                                 patch_size=7),
 }
 
 
@@ -571,7 +643,7 @@ def test_slice_matches_reference(jx, img_noisy, rgb_noisy, case):
     res = gt.filter_image(noisy, cfg, plan=plan, device="cpu")
     assert _counts() == before                       # no launch on the CPU
     ref = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
-    db, atol = BARS["float32" if case.endswith("f32") else "bfloat16"]
+    db, atol = BARS["float32" if "_f32" in case else "bfloat16"]
     assert res.image.shape == ref.image.shape == noisy.shape
     assert np.isfinite(res.image).all()
     assert res.eigvals.shape == np.asarray(ref.eigvals).shape
@@ -665,7 +737,8 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
         k56.rmatvec_cuda(fa, f_t, t, True)
     fa, f_t, v, t = _small(torch.bfloat16, aug=False)
     for fn, x in ((k56.matvec_cuda, v), (k56.rmatvec_cuda, t)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        with pytest.raises(NotImplementedError,
+                           match="no ROADMAP.md queue ports it"):
             fn(fa, f_t, x, False)
     fa32, ft32 = fa.float(), f_t.float()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -676,6 +749,31 @@ def test_cuda_branch_raises_instead_of_falling_back(monkeypatch):
         k56.matvec_cuda(fa, f_t[:, :896], v[:896], True)
     with pytest.raises(ValueError, match="shape"):
         k56.rmatvec_cuda(fa32, ft32, v, False)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("layout", ["plain_bf16", "f32_aug"])
+def test_unported_layouts_say_no_queue_ports_them(monkeypatch, layout):
+    """The plain bf16 layout (only GLT_AUG_DISABLE reaches it) and an f32
+    aug layout (no preset builds one) raise NotImplementedError saying that
+    no ROADMAP.md queue ports them, as K7-K10's guard says
+    (ops/cuda_recompute._check_layout), before any launch."""
+    monkeypatch.setattr(k56, "_device_kind", lambda *ts: "cuda")
+    fa, f_t, v, t = _small(torch.bfloat16, aug=False)
+    aug = layout == "f32_aug"
+    if aug:
+        fa, f_t = fa.float(), f_t.float()
+    name = "f32 aug" if aug else "plain bf16"
+    before = _counts()
+    for fn, x, what in ((k56.matvec_cuda, v, "matvec"),
+                        (k56.rmatvec_cuda, t, "rmatvec")):
+        with pytest.raises(NotImplementedError) as err:
+            fn(fa, f_t, x, aug)
+        msg = str(err.value)
+        assert msg.startswith(f"{what}: ")
+        assert f"no preset builds the {name} layout" in msg
+        assert msg.endswith("and no ROADMAP.md queue ports it")
+        assert "Queue 2" not in msg
     assert _counts() == before
 
 
@@ -764,25 +862,38 @@ def _rel_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("p,n", [(277, 10240), (4100, 16384)])
-def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n):
-    """Card kernels against their plain versions on the card; p = 4100 pads
-    to 5120 (two reference p tiles)."""
-    rng = np.random.default_rng(p)
-    dev = cuda_device
-    fa = torch.tensor(rng.normal(0, 0.3, (p, 25)).astype(np.float32), device=dev)
-    fp = torch.tensor(rng.normal(0, 0.3, (n, 25)).astype(np.float32), device=dev)
-    aug = dtype == "bfloat16"
+def _card_layouts(dev, p, n, d, aug, seed):
+    """Layouts on the card for normal(0, 0.3) features of d lanes: the aug
+    pads, or the plain f32 layout of d_pad_of(d) lanes."""
+    rng = np.random.default_rng(seed)
+    fa = torch.tensor(rng.normal(0, 0.3, (p, d)).astype(np.float32), device=dev)
+    fp = torch.tensor(rng.normal(0, 0.3, (n, d)).astype(np.float32), device=dev)
     if aug:
         fa_l, f_t = rl.aug_pads(fa, fp, n)
     else:
         _, p_pad = rl.p_tiling(p)
-        fa_l = torch.zeros((p_pad, 32), device=dev)
-        fa_l[:p, :25] = fa
-        f_t = torch.zeros((32, n), device=dev)
-        f_t[:25] = fp.T
+        dp = rl.d_pad_of(d)
+        fa_l = torch.zeros((p_pad, dp), device=dev)
+        fa_l[:p, :d] = fa
+        f_t = torch.zeros((dp, n), device=dev)
+        f_t[:d] = fp.T
+    assert fa_l.shape[1] == f_t.shape[0] == (64 if d == 49 else 32)
+    return fa_l, f_t, rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("p,n,d", [(277, 10240, 25), (4100, 16384, 25),
+                                   (277, 10240, 49), (4100, 16384, 49)],
+                         ids=["277-10240", "4100-16384", "277-10240-7x7",
+                              "4100-16384-7x7"])
+def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n, d):
+    """Card kernels against their plain versions on the card, at 32 lanes
+    and at 64 (d 49: a 7 x 7 patch); p = 4100 pads to 5120 (two reference p
+    tiles)."""
+    dev = cuda_device
+    aug = dtype == "bfloat16"
+    fa_l, f_t, rng = _card_layouts(dev, p, n, d, aug, seed=p)
     v = torch.tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
     t = torch.zeros(fa_l.shape[0], device=dev)
     t[:p] = torch.tensor(rng.uniform(0.5, 1.5, p).astype(np.float32), device=dev)
@@ -808,26 +919,20 @@ def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_k5_k6_repeat_bit_for_bit(cuda_device, dtype):
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 25), ("float32", 25),
+                                     ("bfloat16", 49), ("float32", 49)],
+                         ids=["bfloat16", "float32", "bfloat16-7x7",
+                              "float32-7x7"])
+def test_k5_k6_repeat_bit_for_bit(cuda_device, dtype, d):
     """Two launches of each wrapper on the same inputs agree bit for bit at
     a shape whose streamed axis splits (K5: 8 fixed slices of 4096 samples,
     262144 columns) and whose fixed side needs many items (K6): the
     per-split partials go through the fixed-order reduction, no float
-    atomics."""
-    rng = np.random.default_rng(11)
+    atomics; at 32 lanes and at 64."""
     dev = cuda_device
     p, n = 4096, 262144
-    fa = torch.tensor(rng.normal(0, 0.3, (p, 25)).astype(np.float32), device=dev)
-    fp = torch.tensor(rng.normal(0, 0.3, (n, 25)).astype(np.float32), device=dev)
     aug = dtype == "bfloat16"
-    if aug:
-        fa_l, f_t = rl.aug_pads(fa, fp, n)
-    else:
-        fa_l = torch.zeros((p, 32), device=dev)
-        fa_l[:, :25] = fa
-        f_t = torch.zeros((32, n), device=dev)
-        f_t[:25] = fp.T
+    fa_l, f_t, rng = _card_layouts(dev, p, n, d, aug, seed=11)
     v = torch.tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=dev)
     t = torch.tensor(rng.uniform(0.5, 1.5, p).astype(np.float32), device=dev)
     for fn, x in ((k56.matvec_cuda, v), (k56.rmatvec_cuda, t)):
@@ -840,9 +945,9 @@ def test_k5_k6_repeat_bit_for_bit(cuda_device, dtype):
 def test_plain_bf16_layout_raises_on_cuda(cuda_device):
     fa, f_t, v, t = (x.to(cuda_device) for x in _small(torch.bfloat16, False))
     before = [w.launches for w in WRAPPERS]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+    with pytest.raises(NotImplementedError, match="no ROADMAP.md queue"):
         k56.matvec_cuda(fa, f_t, v, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+    with pytest.raises(NotImplementedError, match="no ROADMAP.md queue"):
         k56.rmatvec_cuda(fa, f_t, t, False)
     assert [w.launches for w in WRAPPERS] == before
 

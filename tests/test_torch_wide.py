@@ -305,6 +305,44 @@ def test_config4_slice_at_7x7_matches_reference(jx, img_noisy):
     _assert_slice(img, z.numpy(), vals.numpy(), ref)
 
 
+def test_config4_staged_at_7x7_matches_reference(jx):
+    """The staged (unfused) schedule of config 4's 8 MP recipe at 7 x 7,
+    on a 256 x 512 frame: the polish through the 64-lane aug K5/K6, the
+    cross through K7, LOBPCG, colstats through K10, the reference's LOBPCG
+    start block injected, against graphlap_tpu.filter_image_staged (the
+    bf16 slice bars). At 7 x 7 the unfused schedule parts from the fused
+    one in the reference as in the port (both gaps printed, ~0.27 dB here,
+    ~0.01 at 5 x 5), so chip_smoke.py holds the staged run on the card to
+    its own plain path, not to filter_image."""
+    from graphlap_tpu_torch.models.pipeline import _filter_streaming_staged
+
+    img = gt.make_test_image(256, 512)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0,
+                    1).astype(np.float32)
+    cfg = PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=6, filter_name="identity",
+        streaming=True, block_cols=65536, affinity_dtype="bfloat16",
+        use_pallas=True, sinkhorn_coarse=64, gram_coarse=64,
+        sinkhorn_polish=1, fused_finish=True, patch_size=PATCH)
+    plan = gt.make_plan(noisy, cfg)
+    x0 = np.asarray(jx.jax.random.normal(
+        jx.jax.random.PRNGKey(0), (plan.p, cfg.num_eigvecs), jx.jnp.float32))
+    ref = jx.gl.filter_image_staged(noisy, jx.cfg(cfg), plan=plan)
+    res = _filter_streaming_staged(noisy, cfg, plan, "cpu",
+                                   x0=interop.block_to_device(x0, "cpu"))
+    _assert_slice(img, res.image, res.eigvals, ref)
+    fused = _filter_channel(torch.tensor(noisy),
+                            interop.idx_to_device(plan.idx_a, "cpu"), cfg,
+                            x0=interop.block_to_device(x0, "cpu"))[0].numpy()
+    ref_fused = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan).image
+    gaps = [abs(gt.psnr(img, a) - gt.psnr(img, b))
+            for a, b in ((res.image, fused), (ref.image, ref_fused))]
+    print(f"config 4 at 7x7, 256x512: staged vs fused {gaps[0]:.4f} dB in "
+          f"the port, {gaps[1]:.4f} dB in the reference")
+    assert abs(gaps[0] - gaps[1]) <= SLICE_BARS[0]
+
+
 # --- the wrappers' widths ------------------------------------------------------
 
 WRAPPERS = (k1.affinity_strip_cuda, k79.kb_strip_cuda, k79.ext2_matvec_cuda,
@@ -357,16 +395,39 @@ def test_k7_k10_take_64_lanes_and_raise_past_them(monkeypatch, which):
 
 
 def test_k5_k6_raise_at_64_lanes(monkeypatch):
-    """K5/K6 keep 32 feature lanes on the card: the 64-lane aug layout of a
-    7 x 7 patch raises NotImplementedError naming ROADMAP Queue 2b before
-    any launch."""
+    """Past 64 lanes only: on a CUDA tensor K5/K6 take the 64-lane layouts
+    of a 7 x 7 patch (the aug layout's 55 lanes, the f32 one's 49, each
+    padded to 64), which reach the kernel library (here missing); 96 and
+    128 lanes (patches 9 and 11), and the coordinate kernel's f32 layout
+    past 32 lanes, raise NotImplementedError naming ROADMAP Queue 2b; none
+    launches."""
+    def no_lib():
+        raise RuntimeError("kernel library unavailable")
+
     monkeypatch.setattr(k56, "_device_kind", lambda *ts: "cuda")
-    fa, f_t = rl.aug_pads(torch.zeros((100, D)), torch.zeros((1000, D)), 1024)
+    monkeypatch.setattr(_build, "lib", no_lib)
     before = [w.launches for w in WRAPPERS]
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        k56.matvec_cuda(fa, f_t, torch.ones(1024), True)
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        k56.rmatvec_cuda(fa, f_t, torch.ones(512), True)
+    for aug, dtype in ((True, torch.bfloat16), (False, torch.float32)):
+        if aug:
+            fa, f_t = rl.aug_pads(torch.zeros((100, D)),
+                                  torch.zeros((1000, D)), 1024)
+        else:
+            fa, f_t = torch.zeros((512, 64)), torch.zeros((64, 1024))
+        assert fa.shape[1] == f_t.shape[0] == 64 and fa.dtype == dtype
+        with pytest.raises(RuntimeError, match="unavailable"):
+            k56.matvec_cuda(fa, f_t, torch.ones(1024), aug)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            k56.rmatvec_cuda(fa, f_t, torch.ones(512), aug)
+        for lanes in (96, 128):
+            wide = torch.zeros((512, lanes), dtype=dtype)
+            wide_t = torch.zeros((lanes, 1024), dtype=dtype)
+            with pytest.raises(NotImplementedError, match="Queue 2b"):
+                k56.matvec_cuda(wide, wide_t, torch.ones(1024), aug)
+            with pytest.raises(NotImplementedError, match="Queue 2b"):
+                k56.rmatvec_cuda(wide, wide_t, torch.ones(512), aug)
+    with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
+        k56.matvec_cuda(fa, f_t, torch.ones(1024), False, live=51,
+                        coords=True)
     assert [w.launches for w in WRAPPERS] == before
 
 
@@ -459,8 +520,8 @@ def test_k8_at_64_lanes_matches_plain(cuda_device, p, n):
     limit) and 1024, column tiles that do not divide evenly over the
     clusters. u's sum does not lean to one side of the f64 sum of the same
     bf16 tile entries times the kernel's own s (against the plain version
-    u would carry the plain s's differences too: K8's s leans, ROADMAP
-    Queue 3)."""
+    u carries the differences of the plain s too; s's own lean is held by
+    test_k8_s_does_not_lean)."""
     x = _wide_case(cuda_device, p, n, 16, seed=p + n)
     args = (x.fa_aug, x.f_t, x.t2, x.bm, True)
     before = k79.ext2_matvec_cuda.launches
@@ -496,3 +557,66 @@ def test_k9_k10_at_64_lanes_match_plain(cuda_device, p, n, m):
     keep = v_r != 0
     below = float((((v - v_r) * torch.sign(v_r))[keep] < 0).float().mean())
     assert 0.25 < below < 0.75, below
+
+
+def _k8_synthetic(dev, d, p, n):
+    """scripts/k8_lean.py's synthetic case: normal(0, 0.3) features of d
+    lanes on the aug layouts, the fused finish's t2 and bm."""
+    rng = np.random.default_rng(p + n)
+    tt = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    fa_aug, f_t = rl.aug_pads(tt(rng.normal(0, 0.3, (p, d))),
+                              tt(rng.normal(0, 0.3, (n, d))), n)
+    bm = tt(rng.random(n) > 0.2)
+    t2 = torch.zeros((2, fa_aug.shape[0]), device=dev)
+    t2[:, :p] = tt(rng.uniform(0.5, 1.5, (2, p)))
+    return fa_aug, f_t, t2, bm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p,n", [(25, 4000, 77056), (49, 4000, 77056),
+                                   (49, 1000, 33024)],
+                         ids=["32-p4096", "64-p4096", "64-p1024"])
+def test_k8_s_does_not_lean(cuda_device, d, p, n):
+    """K8's s against the f64 evaluation of its function on the same bf16
+    tile entries (bf16 t2, kbt and s in f64), on scripts/k8_lean.py's
+    synthetic features at 32 and 64 lanes: the share of columns below lies
+    in (0.25, 0.75), ties left out. One truncating mma chain over a warp's
+    16-row blocks put it above on ~97% of the columns at p_pad 4096."""
+    fa_aug, f_t, t2, bm = _k8_synthetic(cuda_device, d, p, n)
+    _, s = k79.ext2_matvec_cuda(fa_aug, f_t, t2, bm, True)
+    t2r = t2.to(torch.bfloat16).double()
+    kbt = torch.zeros((2, n), dtype=torch.float64, device=cuda_device)
+    for j in range(0, n, 16384):
+        kb = k79._tile_plain(fa_aug, f_t[:, j:j + 16384], True).double()
+        kbt[:, j:j + 16384] = t2r @ kb
+    s64 = bm.double() / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+    d_s = (s.double() - s64)[bm > 0]
+    d_s = d_s[d_s != 0]
+    below = float((d_s < 0).double().mean())
+    assert 0.25 < below < 0.75, below
+
+
+@pytest.mark.gpu
+def test_k9_v_parts_at_64_lanes(cuda_device):
+    """K9 at 64 lanes, its V error in two parts: the ks pass's s against
+    the plain s (where bf16(s) lands on the other neighbour it scales a
+    whole V row by one bf16 ulp), and the V pass against the plain V formed
+    from the kernel's own s. Both printed; V within 2^-7 of max |V| (the
+    bar of chip_smoke.py's K9 rows), the V pass alone within 5e-3."""
+    x = _wide_case(cuda_device, 4000, 65536, 50, seed=4050)
+    args = (x.fa_pad, x.f_t, x.t2[0].contiguous(), x.bm * 0.7, x.bm, x.gr,
+            x.y, x.na, x.nb)
+    v, _, _, s = k79.finish_colstats_cuda(*args)
+    v_p, _, _, s_p = k79.finish_colstats_plain(*args)
+    v_s = k79.colstats_v_plain(x.fa_pad, x.f_t, x.gr, x.y, s, x.na, x.nb)[0]
+    vmax = float(v_p.abs().max())
+    s_rel = _rel_err(s, s_p)
+    flips = float((s.to(torch.bfloat16) != s_p.to(torch.bfloat16))
+                  .float().mean())
+    v_pass = float((v - v_s).abs().max()) / vmax
+    v_rel = float((v - v_p).abs().max()) / vmax
+    print(f"K9 at 64 lanes: s {s_rel:.3e} of max |s|, bf16(s) flips on "
+          f"{flips:.3e} of the columns; V {v_rel:.3e} of max |V|, the V pass "
+          f"on its own s {v_pass:.3e}")
+    assert v_pass <= 5e-3
+    assert v_rel <= 2.0 ** -7
