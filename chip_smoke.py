@@ -133,7 +133,8 @@ non-zero before the last line is printed):
               cfg4_8mp_quality_matvec: denoise_tuned(h 0.1) + "fast": identity
               W y, f32 features and tiles, coarse Sinkhorn 1/64 + one polish):
    kernels  K5/K6 (f32) at the 8 MP shapes against their plain versions,
-            with their lean as in config 3 (required);
+            with their lean as in config 3 and against their f64 sums
+            (both required);
    e2e-8mp  walls, peak memory, launches per call (2 / 2), PSNR gain > 5 dB;
    plain    the same channel through the plain versions on the card
             (0.02 dB, 2e-3);
@@ -207,7 +208,27 @@ non-zero before the last line is printed):
             and K10 once a call;
    small    the recipe written out at 96x96, fused finish on and off, card
             kernels against CPU plain versions (0.02 dB, 2e-3).
-11. result  — one JSON line listing every kernel and layout (33 rows:
+10b. config 2 bilateral at 7x7 — recipe A, make_workload_cfg2_bilateral:
+              tuned_config(CONFIG2.replace(patch_size=7, spatial_h=8.0),
+              512*512, "fast"), an NLM 7x7 patch and (row, col) / 8, 51
+              lanes, 52 live of 64; as phase 3c: K1's 64-lane coordinate
+              cross (affinity_strip_coord_d64) on the path's features into
+              its strip (against plain, timed beside its composition, twice
+              bit for bit), the bf16 K2-K4 on its strip kept in the
+              record, filter_image (K1, K2, K3, K4 once a call), the plain
+              path and the eigenvalues (0.05 dB, 2e-2), PSNR printed (the
+              recipe loses PSNR in the reference too), 96x96 vs the CPU.
+10c. bilateral NLM 8 MP — recipe B, make_workload_8mp_nlm_bilateral:
+              phase 10 with an NLM 7x7 patch (h 0.15, 52 live lanes of 64,
+              rows *_d64), and first its kernel rows alone at NLM 5x5 (28
+              live lanes of 32, the kernels' LV = 32 instantiations: the
+              same checks, kept in the phase's record).
+10d. bilateral NLM 8 MP matvec — recipe C, make_workload_8mp_nlm_bilateral_
+              matvec (denoise_tuned(0.1)): the coordinate K5/K6 at 64 lanes
+              twice a call through filter_image, PSNR printed (the recipe
+              degenerates in the reference too), the plain path (0.02 dB,
+              2e-3), 96x96 vs the CPU.
+11. result  — one JSON line listing every kernel and layout (40 rows:
               name, route, source, replaces, launches, max_abs_err, ms,
               plain_ms, bound_ms, bound_by, library_ms) after the line with
               the run's total seconds, the card line, then the contract line
@@ -349,6 +370,35 @@ TOL = {
     "rmatvec_d64": 1e-3,
     "matvec_f32_d64": 1e-4,
     "rmatvec_f32_d64": 1e-4,
+    # the f32 K7-K10, the coordinate K5/K6 and K1's coordinate cross at 64
+    # lanes (an NLM 7 x 7 patch and the coordinates, 52 live; recipes A-C):
+    # the same rounding points as at 4 and 28 live lanes, the cross a longer
+    # FFMA chain over the same |f|^2 (the coordinates' ~3.3e5 at 8 MP,
+    # ~1.6e4 at 512^2; the patch lanes P / (h 7) add under 50), so they
+    # keep those rows' bars; their bar against the f64 slabs and sums is
+    # again 1.5x the plain version's error
+    "kb_strip_f32_d64": 0.25,
+    "finish_colstats_f32_d64": 2e-4,
+    "colstats_v_f32_d64": 2e-4,
+    "matvec_coord_d64": 0.1,
+    "rmatvec_coord_d64": 0.1,
+    "affinity_strip_coord_d64": 2.0 ** -7,
+    # K8 f32 on the NLM bilateral recipe: its s_j = bm_j / sqrt(kbt_r
+    # kbt_c), and one column's norm rounded apart moves all its entries by
+    # e^(d2 error) together (0.03 a norm ulp at |f|^2 ~ 3.3e5), so s_j by
+    # the same factor: several % of s_j, where max |s| sits on the columns
+    # farthest from the samples (NLM 5 x 5 measured 2.1e-2 of max |s|). As
+    # K5/K6's 0.1, a gross bar; its sums' bar is their f64 evaluation
+    "ext2_matvec_f32_d64": 0.1,
+    # the same kernels at 28 live lanes (NLM 5 x 5 and the coordinates: the
+    # LV = 32 instantiations, recipe B's twin) keep the 64-lane rows' bars;
+    # rows kept in the phase's record, not in the kernels line
+    "kb_strip_f32_l28": 0.25,
+    "ext2_matvec_f32_l28": 0.1,
+    "finish_colstats_f32_l28": 2e-4,
+    "colstats_v_f32_l28": 2e-4,
+    "matvec_coord_l28": 0.1,
+    "rmatvec_coord_l28": 0.1,
 }
 REPLACES = {
     "affinity_strip": "graphlap_tpu/ops/pallas_affinity.py:76",
@@ -384,6 +434,13 @@ REPLACES = {
     "rmatvec_d64": "graphlap_tpu/ops/pallas_streaming.py:447",
     "matvec_f32_d64": "graphlap_tpu/ops/pallas_streaming.py:397",
     "rmatvec_f32_d64": "graphlap_tpu/ops/pallas_streaming.py:447",
+    "kb_strip_f32_d64": "graphlap_tpu/ops/pallas_streaming.py:319",
+    "ext2_matvec_f32_d64": "graphlap_tpu/ops/pallas_streaming.py:554",
+    "finish_colstats_f32_d64": "graphlap_tpu/ops/pallas_streaming.py:677",
+    "colstats_v_f32_d64": "graphlap_tpu/ops/pallas_streaming.py:817",
+    "matvec_coord_d64": "graphlap_tpu/ops/pallas_streaming.py:397",
+    "rmatvec_coord_d64": "graphlap_tpu/ops/pallas_streaming.py:447",
+    "affinity_strip_coord_d64": "graphlap_tpu/ops/pallas_affinity.py:76",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -419,8 +476,15 @@ SOURCE = {
     "rmatvec_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "matvec_f32_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_f32_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "kb_strip_f32_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "ext2_matvec_f32_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "finish_colstats_f32_d64": "graphlap_tpu_torch/csrc/colstats_v.cu",
+    "colstats_v_f32_d64": "graphlap_tpu_torch/csrc/colstats_v.cu",
+    "matvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "rmatvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
+    "affinity_strip_coord_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
 }
-NAMES = list(TOL)
+NAMES = [n for n in TOL if not n.endswith("_l28")]   # rows of the kernels line
 # kernels whose cross-block sums must repeat bit for bit (fixed-order
 # partials, no float atomics): checked by a second launch on the same inputs
 BIT_REPEAT = ("affinity_strip_f32", "strip_ext2", "strip_sandwich_spost",
@@ -432,15 +496,26 @@ BIT_REPEAT = ("affinity_strip_f32", "strip_ext2", "strip_sandwich_spost",
               "strip_sandwich_f32", "affinity_strip_d64",
               "affinity_strip_f32_d64", "kb_strip_d64", "ext2_matvec_d64",
               "finish_colstats_d64", "colstats_v_d64", "matvec_d64",
-              "rmatvec_d64", "matvec_f32_d64", "rmatvec_f32_d64")
+              "rmatvec_d64", "matvec_f32_d64", "rmatvec_f32_d64",
+              "kb_strip_f32_d64", "ext2_matvec_f32_d64",
+              "finish_colstats_f32_d64", "colstats_v_f32_d64",
+              "matvec_coord_d64", "rmatvec_coord_d64",
+              "affinity_strip_coord_d64", "kb_strip_f32_l28",
+              "ext2_matvec_f32_l28", "finish_colstats_f32_l28",
+              "colstats_v_f32_l28", "matvec_coord_l28", "rmatvec_coord_l28")
 # kernels whose entries lie in [0, 1] (K1, K7): checked absolute, see TOL
 ABSOLUTE = ("affinity_strip", "affinity_strip_f32", "kb_strip",
             "kb_strip_f32", "affinity_strip_coord", "affinity_strip_d64",
-            "affinity_strip_f32_d64", "kb_strip_d64")
+            "affinity_strip_f32_d64", "kb_strip_d64", "kb_strip_f32_d64",
+            "affinity_strip_coord_d64", "kb_strip_f32_l28")
 # the f32 kernels on coordinate features, whose sums often tie their plain
 # version's bit for bit: their leans leave the ties out (signed_stats)
 UNTIED = ("ext2_matvec_f32", "finish_colstats_f32", "colstats_v_f32",
-          "matvec_coord", "rmatvec_coord")
+          "matvec_coord", "rmatvec_coord", "ext2_matvec_f32_d64",
+          "finish_colstats_f32_d64", "colstats_v_f32_d64", "matvec_coord_d64",
+          "rmatvec_coord_d64", "ext2_matvec_f32_l28",
+          "finish_colstats_f32_l28", "colstats_v_f32_l28", "matvec_coord_l28",
+          "rmatvec_coord_l28")
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
@@ -687,6 +762,20 @@ def make_workload_f32(gt, patch=5):
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
 
+def make_workload_cfg2_bilateral(gt, patch=7):
+    """Recipe A, config 2 with an NLM ``patch`` x ``patch`` patch and a
+    spatial term at 512x512: tuned_config(CONFIG2.replace(patch_size=patch,
+    spatial_h=8.0), 512*512, "fast"): strip_cache, bf16 store (K1's
+    coordinate cross, 52 live lanes of 64 at 7 x 7), coarse Sinkhorn 1/16
+    + one polish, sketch: (cfg, clean image, noisy f32 image, plan)."""
+    cfg = gt.tuned_config(gt.CONFIG2.replace(patch_size=patch, spatial_h=8.0),
+                          H * W, "fast")
+    require(cfg.strip_cache and cfg.affinity_dtype == "bfloat16_store",
+            "recipe A did not resolve to strip_cache with the bf16 store")
+    img, noisy = noisy_image(gt, H, W)
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
 def make_workload_config1_fast(gt):
     """Config 1's own fast preset at 512x512, tuned_config(CONFIG1, 512*512,
     "fast"): strip_cache, bf16 store, gaussian + (row, col) / 8 features
@@ -797,15 +886,16 @@ def matvec_cases(ctx, dev, names, rows):
              rmv: (k56.rmatvec_cuda, k56.rmatvec_plain, (fa, ctx.f_t, t, aug),
                    b_ms)}
     # each output's lean, on the sample rows and the image's columns; the
-    # f32 layout's also against its sums in f64 (printed, not required: the
-    # split cross drops its small.small term, and the plain f32 sums have
-    # their own order)
+    # f32 layout's also against its sums in f64, required too since K5's
+    # tile sums join its running sums by a compensated add (a plain add
+    # dropped the tiles far from a row's live entries, and 0.63 / 0.73 of
+    # its rows lay below f64 at 32 / 64 lanes)
     signed = {mv: (0, ctx.p, True, True), rmv: (0, ctx.n, True, True)}
     if not aug:
         signed = {
-            mv: [signed[mv], (0, ctx.p, True, False,
+            mv: [signed[mv], (0, ctx.p, True, True,
                               lambda a, b, x, _: f64_sums(a, b, "matvec", x))],
-            rmv: [signed[rmv], (0, ctx.n, True, False,
+            rmv: [signed[rmv], (0, ctx.n, True, True,
                                 lambda a, b, x, _: f64_sums(a, b, "rmatvec",
                                                             x))]}
     return cases, rows, signed
@@ -955,6 +1045,8 @@ def strip_library(dtype=torch.bfloat16) -> dict:
         "affinity_strip_f32": (affinity, cross + "the clamp and exp"),
         "affinity_strip_coord": (affinity, cross + "the clamp, exp and the "
                                  "bf16 cast"),
+        "affinity_strip_coord_d64": (affinity, cross + "the clamp, exp and "
+                                     "the bf16 cast"),
         "affinity_strip_d64": (affinity, cross + "the clamp, exp and the bf16 "
                                "cast"),
         "affinity_strip_f32_d64": (affinity, cross + "the clamp and exp"),
@@ -1325,27 +1417,37 @@ def config2_f32(gt, dev, rows, launches, info):
     info["config2_f32"] = rec
 
 
-def config1_fast(gt, dev, rows, launches, info):
-    """Config 1's fast preset (make_workload_config1_fast): K1's coordinate
-    cross with the bf16 store on the strip_cache strip, then the bf16
-    K2-K4. The recipe does not denoise, in the reference either (ROADMAP
-    Queue 3, known defects): the PSNR is printed, no gain required; the
-    kernel path is held to the plain path on the image and the filter's
-    eigenvalues, and at 96x96 to the CPU."""
+def config1_fast(gt, dev, rows, launches, info, patch=None):
+    """Config 1's fast preset (make_workload_config1_fast), or with
+    ``patch`` 7 recipe A, config 2 with an NLM 7 x 7 patch and a spatial
+    term (make_workload_cfg2_bilateral: 52 live lanes of 64, K1's row named
+    ``affinity_strip_coord_d64``): K1's coordinate cross with the bf16
+    store on the strip_cache strip, then the bf16 K2-K4. Neither recipe
+    denoises in the reference (ROADMAP Queue 3, known defects; recipe A at
+    256^2, scripts/reference_quality.py): the PSNR is printed, no gain
+    required; the kernel path is held to the plain path on the image and
+    the filter's eigenvalues, and at 96x96 to the CPU."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
     bf16_bars = (0.05, 2e-2)
+    tag = "config 1 fast" if patch is None else "config 2 bilateral at 7x7"
+    k1_name = ("affinity_strip_coord" if patch is None
+               else "affinity_strip_coord_d64")
     t0 = time.perf_counter()
-    cfg, img, noisy, plan = make_workload_config1_fast(gt)
+    cfg, img, noisy, plan = (make_workload_config1_fast(gt) if patch is None
+                             else make_workload_cfg2_bilateral(gt, patch))
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
     require(ctx.coords and ctx.strip_pad.dtype == torch.bfloat16,
-            "config 1 fast did not reach the coordinate cross, bf16 store")
+            f"{tag} did not reach the coordinate cross, bf16 store")
+    require(patch is None or (ctx.live == 52 and ctx.feats_a.shape[1] == 51),
+            f"{tag} did not reach 52 live lanes (K1's 64-lane cross)")
     pp, n = ctx.strip_pad.shape
-    phase("config1-fast", f"workload and strip at {H}x{W} (p={ctx.p}, "
+    phase("config1-fast" if patch is None else "config2-bilateral-p7",
+          f"workload and strip at {H}x{W} (p={ctx.p}, "
           f"p_pad={pp}, N={n}, {ctx.feats_a.shape[1]} feature lanes, "
           f"{ctx.live} live)", t0)
     cases, signed, library = strip_cases(ctx, cfg, dev)
@@ -1353,28 +1455,27 @@ def config1_fast(gt, dev, rows, launches, info):
     # at this strip's shape (another ext2 plan: 336 rows a block) are held
     # to the same checks as config 2's, their rows kept in the phase's
     # record
-    k1_case = {"affinity_strip_coord": cases.pop("affinity_strip_coord")}
+    k1_case = {k1_name: cases.pop(k1_name)}
     run_cases(k1_case, rows, library=library)
     at_path = {}
     run_cases(cases, at_path, signed, library)
-    del ctx, cases, k1_case
+    del ctx, cases, k1_case, img_d, idx_d
     torch.cuda.empty_cache()
 
-    counters = {"affinity_strip_coord": k1.affinity_strip_cuda,
+    counters = {k1_name: k1.affinity_strip_cuda,
                 "strip_ext2": k24.strip_ext2_cuda,
                 "strip_sandwich_spost": k24.strip_sandwich_spost_cuda,
                 "strip_sandwich": k24.strip_sandwich_cuda}
-    _, rec = strip_path(gt, "config 1 fast", cfg, img, noisy, plan, dev,
+    _, rec = strip_path(gt, tag, cfg, img, noisy, plan, dev,
                         counters, bf16_bars)
     gain = rec["psnr_out"] - rec["psnr_in"]
-    phase("e2e", f"config 1 fast: denoise gain {gain:.3f} dB (not required: "
+    phase("e2e", f"{tag}: denoise gain {gain:.3f} dB (not required: "
           f"the recipe degenerates in the reference too)")
-    launches["affinity_strip_coord"] = round(
-        rec["launches_per_call"]["affinity_strip_coord"] * RUNS)
+    launches[k1_name] = round(rec["launches_per_call"][k1_name] * RUNS)
     torch.cuda.empty_cache()
-    rec.update(small_strip(gt, cfg, dev, bf16_bars, "config 1 fast"))
+    rec.update(small_strip(gt, cfg, dev, bf16_bars, tag))
     rec["k2_k4_at_path"] = at_path
-    info["config1_fast"] = rec
+    info["config1_fast" if patch is None else "config2_bilateral_p7"] = rec
 
 
 def fused_inputs(cfg, plan, img_d, dev):
@@ -2147,6 +2248,35 @@ def make_workload_bilateral(gt, h=H8, w=W8):
     return cfg, img, noisy, gt.make_plan(noisy, cfg)
 
 
+def make_workload_8mp_nlm_bilateral(gt, patch=7):
+    """Recipe B, the 8 MP spectral bilateral denoise with an NLM ``patch``
+    x ``patch`` patch (the CLI's -kernel nlm -patch 7 -spatial_h 8):
+    tuned_config(CONFIG2.replace(streaming=True, sample_cap=4096,
+    patch_size=patch, spatial_h=8.0), 2048*4096, "fast"): f32 tiles, h
+    0.15, coarse Sinkhorn and gram 1/64, one polish, the fused finish,
+    LOBPCG; 52 live lanes of 64 at 7 x 7, 28 of 32 at 5 x 5: (cfg, clean
+    image, noisy f32 image, plan)."""
+    img, noisy = noisy_image(gt, H8, W8)
+    cfg = gt.tuned_config(gt.CONFIG2.replace(
+        streaming=True, sample_cap=4096, patch_size=patch, spatial_h=8.0),
+        H8 * W8, "fast")
+    require(cfg.affinity_dtype == "float32" and cfg.fused_finish,
+            "recipe B did not resolve to f32 tiles and the fused finish")
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
+def make_workload_8mp_nlm_bilateral_matvec(gt, patch=7):
+    """Recipe C: recipe B's base through denoise_tuned(0.1) and
+    tuned_config "fast": the 8 MP matvec denoise with an NLM ``patch`` x
+    ``patch`` patch and a spatial term, f32 tiles, h 0.1: (cfg, clean
+    image, noisy f32 image, plan)."""
+    img, noisy = noisy_image(gt, H8, W8)
+    base = gt.CONFIG2.replace(streaming=True, sample_cap=4096,
+                              patch_size=patch, spatial_h=8.0)
+    cfg = gt.tuned_config(gt.denoise_tuned(base, 0.1), H8 * W8, "fast")
+    return cfg, img, noisy, gt.make_plan(noisy, cfg)
+
+
 def kb_f32_library(fa, f_t, cols, aug, live):
     """K7 f32's yardstick: torch.mm(fa, f_t) in f32 at "highest" (no TF32),
     the norms, the clamp, exp and the column scale. Timed beside the
@@ -2244,35 +2374,34 @@ def sums_f64_check(label, got, plain, ref64):
                 plain_p99=pl[1])
 
 
-def bilateral_sums(cases, p, n, info):
+def bilateral_sums(cases, p, n, sfx=""):
     """K8's u and s and the coordinate K5/K6's outputs at the path's shapes
-    (the run_cases inputs) against their f64 evaluation."""
+    (the run_cases inputs, names ending in ``sfx``) against their f64
+    evaluation. Returns the record."""
     out = {}
-    fa, f_t, t2, bm = cases["ext2_matvec_f32"][2][:4]
+    k8 = "ext2_matvec_f32" + sfx
+    fa, f_t, t2, bm = cases[k8][2][:4]
     u64, s64 = f64_sums(fa, f_t, "ext2", t2, bm)
-    (u, s), (u_p, s_p) = (f(*cases["ext2_matvec_f32"][2]) for f in
-                          cases["ext2_matvec_f32"][:2])
-    out["ext2_matvec_f32_u"] = sums_f64_check("ext2_matvec_f32 u", u[:p],
-                                              u_p[:p], u64[:p])
-    out["ext2_matvec_f32_s"] = sums_f64_check("ext2_matvec_f32 s", s[:n],
-                                              s_p[:n], s64[:n])
+    (u, s), (u_p, s_p) = (f(*cases[k8][2]) for f in cases[k8][:2])
+    out[k8 + "_u"] = sums_f64_check(k8 + " u", u[:p], u_p[:p], u64[:p])
+    out[k8 + "_s"] = sums_f64_check(k8 + " s", s[:n], s_p[:n], s64[:n])
     del u64, s64, u, s, u_p, s_p
-    for name, keep in (("matvec_coord", p), ("rmatvec_coord", n)):
+    for name, keep in (("matvec_coord" + sfx, p), ("rmatvec_coord" + sfx, n)):
         kern, plain, args = cases[name][:3]
         ref = f64_sums(args[0], args[1], name.split("_")[0], args[2])
         out[name] = sums_f64_check(name, kern(*args)[:keep],
                                    plain(*args)[:keep], ref[:keep])
-    info["bilateral_sums"] = out
+    return out
 
 
-def bilateral_slabs(ctx, ft_g, dev, info):
+def bilateral_slabs(ctx, ft_g, dev):
     """Each f32 kernel's tile and the coordinate K1 / K5/K6 cross against
     f64 on slabs of the path's own features: K7 emits its tile (cols = 1);
     K10 with a one-hot gr and c = 1 writes V_jm = k(row_m, j), a sum of one
     term; K9 the same scaled by its s; K8 with one-hot t2 rows gives s_j =
     1 / sqrt(k_qj^2), so k = 1 / s; K6 with a one-hot t gives k(q, j); K1
     on 64 sample rows by 2^20 pixels (its split-fp16 cross printed
-    beside)."""
+    beside). Returns the record."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_matvec as k56
@@ -2356,30 +2485,37 @@ def bilateral_slabs(ctx, ft_g, dev, info):
     t_k1 = {name: cuda_ms(lambda c=c: k1.affinity_strip_cuda(fa5, fb3,
                                                              coords=c), 5)
             for name, c in (("coord", True), ("split", False))}
-    b_k1 = bound(4 * 512 * fb3.shape[0], 0, 2 * 4 * 512 * fb3.shape[0],
+    b_k1 = bound(4 * 512 * fb3.shape[0], 0, 2 * live * 512 * fb3.shape[0],
                  512 * fb3.shape[0])
     phase("kernel", f"affinity_strip on coordinates (512 x {fb3.shape[0]}, "
           f"f32 store): coordinate cross {t_k1['coord']:.3f} ms, split-fp16 "
           f"cross {t_k1['split']:.3f} ms, bound {b_k1[0]:.3f} ms ({b_k1[1]})")
     out["affinity_coord_ms"] = dict(t_k1, bound_ms=b_k1[0])
-    info["bilateral_slabs"] = out
+    return out
 
 
-def bilateral(gt, dev, rows, launches, info):
+def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
+    """The f32 K7-K10 and the coordinate K5/K6 at a bilateral streaming
+    recipe's 8 MP shapes on its own layouts (``live_req`` live lanes; the
+    rows named with ``sfx``, "_d64" on a 64-lane layout): against their
+    plain versions with their leans required, twice bit for bit, timed; K7
+    beside its cuBLAS composition and the f32 gram GEMM after it; K8's
+    and K5/K6's sums against f64, and every tile and K1's coordinate cross
+    on slabs against f64 (each within 1.5x the plain version's error).
+    Returns the record of the sums and slabs."""
     from graphlap_tpu_torch.models import streaming as ms
-    from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_matvec as k56
     from graphlap_tpu_torch.ops import cuda_recompute as k79
-    from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
 
     t0 = time.perf_counter()
-    cfg, img, noisy, plan = make_workload_bilateral(gt)
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
     require(ctx.fa_aug is None and ctx.f_t.dtype == torch.float32
-            and ctx.coords and ctx.live == 4,
-            "the bilateral recipe did not reach the f32 coordinate layout")
+            and ctx.coords and ctx.live == live_req
+            and ctx.f_t.shape[0] == (32 if live_req <= 32 else 64),
+            f"{tag} did not reach the f32 coordinate layout of {live_req} "
+            f"live lanes")
     p, n, live = ctx.p, ctx.n_pad, ctx.live
     pp, nk = ctx.fa_pad.shape[0], ctx.f_t.shape[1]
     mk = ms._m_kernel(cfg.num_eigvecs)
@@ -2412,76 +2548,119 @@ def bilateral(gt, dev, rows, launches, info):
     # the live-lane cross (2 live an entry) and the consumer's FMAs; one exp
     # an entry
     cases = {
-        "kb_strip_f32": (k79.kb_strip_cuda, k79.kb_strip_plain,
-                         (fa, ft_g, 0.5 + rand(sg), False, live),
-                         bound(4 * live * (pp + sg) + 4 * sg + 4 * e7,
-                               0, 2 * live * e7 + 2 * e7, e7)),
-        "ext2_matvec_f32": (k79.ext2_matvec_cuda, k79.ext2_matvec_plain,
-                            (fa, f_t, t2, bm, False, live),
-                            bound(feat + 8 * nk + 12 * pp, 0,
-                                  (2 * live + 6) * e, e)),
-        "finish_colstats_f32": (
+        "kb_strip_f32" + sfx: (k79.kb_strip_cuda, k79.kb_strip_plain,
+                               (fa, ft_g, 0.5 + rand(sg), False, live),
+                               bound(4 * live * (pp + sg) + 4 * sg + 4 * e7,
+                                     0, 2 * live * e7 + 2 * e7, e7)),
+        "ext2_matvec_f32" + sfx: (k79.ext2_matvec_cuda, k79.ext2_matvec_plain,
+                                  (fa, f_t, t2, bm, False, live),
+                                  bound(feat + 8 * nk + 12 * pp, 0,
+                                        (2 * live + 6) * e, e)),
+        "finish_colstats_f32" + sfx: (
             lambda *a: k79.finish_colstats_cuda(*a, live=live),
             k79.finish_colstats_plain, (fa, f_t, tv, s_pre, bm, gr, y, na, nb),
             bound(feat + 4 * nk * (5 + mk) + 4 * pp * (mk + 2), 0,
                   (2 * mk + 2 * live + 2) * e, e),
             colstats_scales(y)),
-        "colstats_v_f32": (
+        "colstats_v_f32" + sfx: (
             lambda *a: k79.colstats_v_cuda(*a, live=live),
             k79.colstats_v_plain, (fa, f_t, gr, y, cols, na, nb),
             bound(feat + 4 * nk * (4 + mk) + 4 * pp * (mk + 1), 0,
                   (2 * mk + 2 * live) * e, e),
             colstats_scales(y)),
-        "matvec_coord": (k56.matvec_cuda, k56.matvec_plain,
-                         (fa, f_t, v, False, live, True),
-                         bound(feat + 4 * (nk + pp), 0, (2 * live + 2) * e,
-                               e)),
-        "rmatvec_coord": (k56.rmatvec_cuda, k56.rmatvec_plain,
-                          (fa, f_t, tv, False, live, True),
-                          bound(feat + 4 * (nk + pp), 0, (2 * live + 2) * e,
-                                e)),
+        "matvec_coord" + sfx: (k56.matvec_cuda, k56.matvec_plain,
+                               (fa, f_t, v, False, live, True),
+                               bound(feat + 4 * (nk + pp), 0,
+                                     (2 * live + 2) * e, e)),
+        "rmatvec_coord" + sfx: (k56.rmatvec_cuda, k56.rmatvec_plain,
+                                (fa, f_t, tv, False, live, True),
+                                bound(feat + 4 * (nk + pp), 0,
+                                      (2 * live + 2) * e, e)),
     }
-    phase("bilateral", f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
+    phase(tag, f"workload and layouts at {H8}x{W8} (p={p}, p_pad={pp}, "
           f"N={n}, live lanes {live} of {f_t.shape[0]}, gram columns {sg}, V "
           f"width {mk}; sinkhorn_coarse {cfg.sinkhorn_coarse}, gram_coarse "
           f"{cfg.gram_coarse}, polish {cfg.sinkhorn_polish}, fused_finish "
           f"{cfg.fused_finish}, {cfg.solver})", t0)
     # the leans: K8's u (rows) and s, K9's and K10's V, K5/K6's outputs
-    signed = {"ext2_matvec_f32": [(0, p, True, True), (1, n, True, True)],
-              "finish_colstats_f32": (0, n, False, True),
-              "colstats_v_f32": (0, n, False, True),
-              "matvec_coord": (0, p, True, True),
-              "rmatvec_coord": (0, ctx.n, True, True)}
+    signed = {"ext2_matvec_f32" + sfx: [(0, p, True, True),
+                                        (1, n, True, True)],
+              "finish_colstats_f32" + sfx: (0, n, False, True),
+              "colstats_v_f32" + sfx: (0, n, False, True),
+              "matvec_coord" + sfx: (0, p, True, True),
+              "rmatvec_coord" + sfx: (0, ctx.n, True, True)}
+    k7 = "kb_strip_f32" + sfx
     run_cases(cases, rows, signed,
-              {"kb_strip_f32": (kb_f32_library, "a cuBLAS composition, not "
-                                "one call: torch.mm(fa, f_t) in f32 at "
-                                "\"highest\" (no TF32), the norms, the "
-                                "clamp, exp and the column scale")})
+              {k7: (kb_f32_library, "a cuBLAS composition, not one call: "
+                    "torch.mm(fa, f_t) in f32 at \"highest\" (no TF32), the "
+                    "norms, the clamp, exp and the column scale")})
     # the rest of the f32 K7 cross: the f32 gram GEMM after the emitter
     t0 = time.perf_counter()
-    kb = k79.kb_strip_cuda(*cases["kb_strip_f32"][2])
+    kb = k79.kb_strip_cuda(*cases[k7][2])
     ms_gram = cuda_ms(lambda: k79._gram(kb), 3)
-    ms_k7 = rows["kb_strip_f32"]["ms"]
+    ms_k7 = rows[k7]["ms"]
     del kb
-    phase("kernel", f"kb_strip_f32 cross: emitter {ms_k7:.3f} ms + f32 gram "
+    phase("kernel", f"{k7} cross: emitter {ms_k7:.3f} ms + f32 gram "
           f"GEMM {ms_gram:.3f} ms ((p_pad, {sg}) x ({sg}, p_pad) at "
           f"\"highest\", {2 * pp * pp * sg / ms_gram / 1e9:.2f} TFLOP/s)", t0)
-    rows["kb_strip_f32"]["gram_gemm_ms"] = ms_gram
+    rows[k7]["gram_gemm_ms"] = ms_gram
     t0 = time.perf_counter()
-    bilateral_sums(cases, p, n, info)
-    bilateral_slabs(ctx, ft_g, dev, info)
+    phase("slab", f"{tag}: sums and slabs against f64 ({live} live lanes)")
+    rec = dict(sums=bilateral_sums(cases, p, n, sfx),
+               slabs=bilateral_slabs(ctx, ft_g, dev))
     phase("slab", "done", t0)
     del ctx, cases, ft_g, t2, tv, gr, y, na, nb, s_pre, bm, cols, v, fa, f_t
+    del img_d, idx_d
     torch.cuda.empty_cache()
+    return rec
+
+
+def bilateral(gt, dev, rows, launches, info, patch=None):
+    """The bilateral 8 MP denoise (make_workload_bilateral, gaussian, 4
+    live lanes), or with ``patch`` 7 its NLM 7 x 7 twin
+    (make_workload_8mp_nlm_bilateral: 52 live lanes of 64, rows named
+    ``*_d64``, and the 28-lane rows of the 5 x 5 twin kept in the phase's
+    record): the f32 K7-K10 and the coordinate K5/K6 (bilateral_rows), the
+    fused finish and the staged schedule end to end, and the recipe at
+    96x96 against the CPU."""
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+    from graphlap_tpu_torch.ops import cuda_recompute as k79
+    from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
+
+    sfx = "" if patch is None else "_d64"
+    key = "bilateral" if patch is None else "bilateral_nlm_8mp"
+    tag = "bilateral" if patch is None else "bilateral-nlm-8mp"
+    if patch is None:
+        cfg, img, noisy, plan = make_workload_bilateral(gt)
+        rec = bilateral_rows(gt, dev, rows, cfg, noisy, plan, 4, tag)
+        info["bilateral_sums"], info["bilateral_slabs"] = (rec["sums"],
+                                                           rec["slabs"])
+    else:
+        # the 28-lane rows (NLM 5 x 5 and the coordinates: the kernels' LV
+        # = 32 instantiations), each checked as the 64-lane rows are; no
+        # frame at 5 x 5
+        at28 = {}
+        w5 = make_workload_8mp_nlm_bilateral(gt, patch=5)
+        rec28 = bilateral_rows(gt, dev, at28, w5[0], w5[2], w5[3], 28,
+                               f"{tag} at 5x5", "_l28")
+        del w5
+        torch.cuda.empty_cache()
+        cfg, img, noisy, plan = make_workload_8mp_nlm_bilateral(gt, patch)
+        rec = bilateral_rows(gt, dev, rows, cfg, noisy, plan, 52, tag, sfx)
+        info[key + "_kernels"] = dict(rows_28=at28, f64_28=rec28,
+                                      f64_52=rec)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
 
     # filter_image: the fused finish, K8, K7, K9 once a call, K10 never
     t0 = time.perf_counter()
     k79.colstats_v_cuda.launches = 0
-    counters = {"kb_strip_f32": k79.kb_strip_cuda,
-                "ext2_matvec_f32": k79.ext2_matvec_cuda,
-                "finish_colstats_f32": k79.finish_colstats_cuda}
+    counters = {"kb_strip_f32" + sfx: k79.kb_strip_cuda,
+                "ext2_matvec_f32" + sfx: k79.ext2_matvec_cuda,
+                "finish_colstats_f32" + sfx: k79.finish_colstats_cuda}
     res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
-                                     "bilateral 8 MP")
+                                     f"{tag} 8 MP")
     launches.update(counts)
     per_call = {k: c / RUNS for k, c in counts.items()}
     psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
@@ -2497,22 +2676,26 @@ def bilateral(gt, dev, rows, launches, info):
             "the bilateral fused finish should launch K8, K7 and K9 once a "
             "call and K10 never")
     # the recipe's quality is the reference's: at these decimations (coarse
-    # Sinkhorn and gram 1/64, p = 4096) its spectrum degenerates in
-    # graphlap_tpu too (the same recipe at 256x512 on the CPU: PSNR 20.22 ->
-    # 5.25 dB, eigenvalues ~3e30; PERF.md section 6), so the phase
+    # Sinkhorn and gram 1/64, p = 4096) its output degenerates in
+    # graphlap_tpu too (the gaussian recipe at 256x512 on the CPU: PSNR
+    # 20.22 -> 5.25 dB, eigenvalues ~3e30; the NLM 7 x 7 one 20.22 -> 6.54
+    # dB, scripts/reference_quality.py; ROADMAP.md Queue 3), so the phase
     # prints the PSNR and holds the kernels to their plain path, the 8 MP
     # slabs and the 96x96 runs, not to a denoise gain
-    phase("e2e-bilateral", f"denoise gain {psnr_out - psnr_in:.3f} dB (not "
-          f"required: the recipe's spectrum degenerates in the reference "
-          f"too); top eigenvalues {np.asarray(res.eigvals)[:3].tolist()}")
+    phase("e2e-bilateral", f"{tag}: denoise gain {psnr_out - psnr_in:.3f} "
+          f"dB (not required: the recipe degenerates in the reference too); "
+          f"top eigenvalues {np.asarray(res.eigvals)[:3].tolist()}")
 
     t0 = time.perf_counter()
     z_plain = _filter_channel(img_d, idx_d, cfg, plain=True)[0].cpu().numpy()
     d_db = abs(psnr_out - gt.psnr(img, z_plain))
     d_max = float(np.abs(res.image - z_plain).max())
-    phase("plain", f"bilateral 8 MP kernel path vs plain path on the card: "
-          f"{d_db:.6f} dB, max |diff| {d_max:.3e} (bar 0.02 dB, 2e-3)", t0)
-    require(d_db <= 0.02 and d_max <= 2e-3, "bilateral kernel path != plain")
+    b_db, b_max, floor = plain_bars(gt, cfg, img, img_d, idx_d, z_plain, tag,
+                                    patch is not None)
+    phase("plain", f"{tag} 8 MP kernel path vs plain path on the card: "
+          f"{d_db:.6f} dB, max |diff| {d_max:.3e} (bar {b_db:.4f} dB, "
+          f"{b_max:.3e})", t0)
+    require(d_db <= b_db and d_max <= b_max, f"{tag} kernel path != plain")
     del img_d, idx_d, z_plain
     torch.cuda.empty_cache()
 
@@ -2521,20 +2704,19 @@ def bilateral(gt, dev, rows, launches, info):
     # fused-vs-unfused bars of config 4's staged run (another schedule of
     # the estimator: post-polish scales at the gram columns)
     t0 = time.perf_counter()
-    st_counters = {"matvec_coord": k56.matvec_cuda,
-                   "rmatvec_coord": k56.rmatvec_cuda,
-                   "kb_strip_f32": k79.kb_strip_cuda,
-                   "colstats_v_f32": k79.colstats_v_cuda}
-    rec = staged_one(gt, "bilateral (8 MP)", cfg, img, noisy, plan, dev,
+    st_counters = {"matvec_coord" + sfx: k56.matvec_cuda,
+                   "rmatvec_coord" + sfx: k56.rmatvec_cuda,
+                   "kb_strip_f32" + sfx: k79.kb_strip_cuda,
+                   "colstats_v_f32" + sfx: k79.colstats_v_cuda}
+    rec = staged_one(gt, f"{tag} (8 MP)", cfg, img, noisy, plan, dev,
                      st_counters)
     pc = rec["launches_per_call"]
-    require(pc["kb_strip_f32"] == 1 and pc["colstats_v_f32"] == 1,
-            "the staged bilateral schedule should launch K7 and K10 once a "
-            "call")
+    require(pc["kb_strip_f32" + sfx] == 1 and pc["colstats_v_f32" + sfx] == 1,
+            f"the staged {tag} schedule should launch K7 and K10 once a call")
     for name in ("matvec_coord", "rmatvec_coord", "colstats_v_f32"):
-        launches[name] = round(pc[name] * RUNS)
-    info["staged_bilateral"] = rec
-    phase("staged", "bilateral done", t0)
+        launches[name + sfx] = round(pc[name + sfx] * RUNS)
+    info["staged_" + key] = rec
+    phase("staged", f"{tag} done", t0)
     torch.cuda.empty_cache()
 
     # 96x96: the recipe written out (fused finish on and off), card kernels
@@ -2542,9 +2724,11 @@ def bilateral(gt, dev, rows, launches, info):
     t0 = time.perf_counter()
     im_s, nz_s = noisy_image(gt, 96, 96)
     small = {}
+    kern = (dict(kernel="gaussian", h=0.2) if patch is None else
+            dict(kernel="nlm", h=cfg.h, patch_size=patch))
     for fused in (True, False):
         cfg_s = gt.PipelineConfig(
-            kernel="gaussian", h=0.2, spatial_h=8.0, sample_rho=0.05,
+            **kern, spatial_h=8.0, sample_rho=0.05,
             num_eigvecs=50, sinkhorn_iters=6, streaming=True, block_cols=2048,
             use_pallas=True, affinity_dtype="float32", sinkhorn_coarse=4,
             sinkhorn_polish=1, gram_coarse=4, solver="lobpcg",
@@ -2559,17 +2743,133 @@ def bilateral(gt, dev, rows, launches, info):
                                 x0=x0.to(dev))[0].cpu().numpy()
         s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
         s_max = float(np.abs(z_cpu - z_gpu).max())
-        phase("small", f"96x96 bilateral (fused_finish {fused}): card kernels "
+        phase("small", f"96x96 {tag} (fused_finish {fused}): card kernels "
               f"vs CPU plain: {s_db:.6f} dB, max |diff| {s_max:.3e} (bar "
               f"0.02 dB, 2e-3)")
         require(np.isfinite(z_gpu).all() and s_db <= 0.02 and s_max <= 2e-3,
                 "96x96 bilateral card run != CPU plain run")
         small[f"fused_{fused}"] = dict(db=s_db, max=s_max)
     phase("small", "done", t0)
-    info["bilateral"] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
-                             psnr_out=psnr_out, launches_per_call=per_call,
-                             plain_path_db=d_db, plain_path_max=d_max,
-                             small=small)
+    info[key] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                     psnr_out=psnr_out, launches_per_call=per_call,
+                     plain_path_db=d_db, plain_path_max=d_max,
+                     plain_floor=floor, small=small)
+
+
+def f32_floor(gt, cfg, img, img_d, idx_d, z_plain, tag):
+    """The plain path's own f32 floor on a coordinate recipe: the same plain
+    path on the card with the feature lanes in reverse order (the same
+    function; every norm and cross sums in another order) against the
+    plain path. On NLM features with (row, col) / 8 at 8 MP (|f|^2 ~
+    3.3e5, an f32 ulp 0.03 in d2) two correct f32 evaluations of a tile
+    entry differ by a few %, and a sparse recipe's output pixel, a weighted
+    mean of a few samples, by as much as their spread times that. Returns
+    (dB, max |diff|)."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+
+    t0 = time.perf_counter()
+    real = ms.extract_features_padded
+    ms.extract_features_padded = (
+        lambda *a, **k: real(*a, **k).flip(1).contiguous())
+    try:
+        z_rev = _filter_channel(img_d, idx_d, cfg,
+                                plain=True)[0].cpu().numpy()
+    finally:
+        ms.extract_features_padded = real
+    f_db = abs(gt.psnr(img, z_rev) - gt.psnr(img, z_plain))
+    f_max = float(np.abs(z_rev - z_plain).max())
+    phase("plain", f"{tag}: the plain path against itself with the feature "
+          f"lanes reversed: {f_db:.6f} dB, max |diff| {f_max:.3e} (the f32 "
+          f"floor)", t0)
+    return f_db, f_max
+
+
+def plain_bars(gt, cfg, img, img_d, idx_d, z_plain, tag, floor):
+    """The kernel path's bars against the plain path: 0.02 dB and 2e-3,
+    or with ``floor`` 1.5x the plain path's own f32 floor (f32_floor) where
+    that is larger (the rule of the f64 slabs, 1.5x the plain version's
+    error). Returns (dB bar, max bar, the floor or None)."""
+    if not floor:
+        return 0.02, 2e-3, None
+    f = f32_floor(gt, cfg, img, img_d, idx_d, z_plain, tag)
+    return max(0.02, 1.5 * f[0]), max(2e-3, 1.5 * f[1]), f
+
+
+def bilateral_nlm_mv(gt, dev, rows, launches, info):
+    """Recipe C (make_workload_8mp_nlm_bilateral_matvec): the 8 MP matvec
+    denoise with an NLM 7 x 7 patch and a spatial term, f32 tiles, 52 live
+    lanes of 64: the coordinate K5/K6 twice a call through filter_image
+    (their rows are bilateral-nlm-8mp's), the kernel path against the plain
+    path on the card, the quality rule (the reference degenerates too:
+    ROADMAP.md Queue 3), and the recipe at 96x96 against the CPU."""
+    from graphlap_tpu_torch.models import streaming as ms
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
+
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_8mp_nlm_bilateral_matvec(gt)
+    img_d = torch.as_tensor(noisy, device=dev)
+    idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
+    ctx = ms._strip_ctx(img_d, idx_d, cfg)
+    require(ctx.fa_aug is None and ctx.coords and ctx.live == 52
+            and ctx.f_t.shape[0] == 64 and cfg.filter_mode == "matvec",
+            "recipe C did not reach the 64-lane f32 coordinate layout")
+    phase("bilateral-nlm-8mp-mv", f"workload and layouts at {H8}x{W8} (p="
+          f"{ctx.p}, {ctx.live} live lanes of {ctx.f_t.shape[0]}, h {cfg.h}, "
+          f"{cfg.filter_name} {cfg.filter_mode}, sinkhorn_coarse "
+          f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
+    del ctx
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    names = ("matvec_coord_d64", "rmatvec_coord_d64")
+    counters = {names[0]: k56.matvec_cuda, names[1]: k56.rmatvec_cuda}
+    res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
+                                     "bilateral-nlm-8mp-mv")
+    launches.update(counts)
+    per_call = {k: v / RUNS for k, v in counts.items()}
+    psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
+    phase("e2e-8mp-mv", f"recipe C: walls {[round(w, 6) for w in walls]} s "
+          f"(min {min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
+          f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
+          f"{psnr_out - psnr_in:.3f}, not required: the recipe degenerates "
+          f"in the reference too); launches per call {per_call}", t0)
+    require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
+            "recipe C output is not a finite (2048, 4096) image")
+    require(per_call == {names[0]: 2, names[1]: 2},
+            "recipe C should launch K5 and K6 twice a call")
+
+    t0 = time.perf_counter()
+    z_plain = _filter_channel(img_d, idx_d, cfg, plain=True)[0].cpu().numpy()
+    d_db = abs(psnr_out - gt.psnr(img, z_plain))
+    d_max = float(np.abs(res.image - z_plain).max())
+    b_db, b_max, floor = plain_bars(gt, cfg, img, img_d, idx_d, z_plain,
+                                    "recipe C", True)
+    phase("plain", f"recipe C kernel path vs plain path on the card: "
+          f"{d_db:.6f} dB, max |diff| {d_max:.3e} (bar {b_db:.4f} dB, "
+          f"{b_max:.3e})", t0)
+    require(d_db <= b_db and d_max <= b_max, "recipe C kernel path != plain")
+    del img_d, idx_d, z_plain
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    small = cfg.replace(sample_rho=0.05, block_cols=2048, sinkhorn_coarse=4,
+                        gram_coarse=4)
+    im_s, nz_s = noisy_image(gt, 96, 96)
+    pl_s = gt.make_plan(nz_s, small)
+    z_cpu = gt.filter_image(nz_s, small, plan=pl_s, device="cpu").image
+    z_gpu = gt.filter_image(nz_s, small, plan=pl_s, device=dev).image
+    s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
+    s_max = float(np.abs(z_cpu - z_gpu).max())
+    phase("small", f"96x96 recipe C: card kernels vs CPU plain: {s_db:.6f} "
+          f"dB, max |diff| {s_max:.3e} (bar 0.02 dB, 2e-3)", t0)
+    require(np.isfinite(z_gpu).all() and s_db <= 0.02 and s_max <= 2e-3,
+            "96x96 recipe C card run != CPU plain run")
+    info["bilateral_nlm_8mp_mv"] = dict(
+        walls_s=walls, peak_bytes=peak, psnr_in=psnr_in, psnr_out=psnr_out,
+        launches_per_call=per_call, plain_path_db=d_db, plain_path_max=d_max,
+        plain_floor=floor, small_db=s_db, small_max=s_max)
 
 
 def spill_lines(log: str) -> list:
@@ -2696,6 +2996,12 @@ def main() -> None:
     dense(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     bilateral(gt, dev, rows, launches, info)
+    torch.cuda.empty_cache()
+    config1_fast(gt, dev, rows, launches, info, patch=7)
+    torch.cuda.empty_cache()
+    bilateral(gt, dev, rows, launches, info, patch=7)
+    torch.cuda.empty_cache()
+    bilateral_nlm_mv(gt, dev, rows, launches, info)
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],

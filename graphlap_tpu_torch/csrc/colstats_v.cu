@@ -74,8 +74,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 // The bf16 kernels take the feature depth FD as a template parameter: 32
-// (NLM 5 x 5, d 25) or 64 (NLM 7 x 7, d 49). The f32 layouts take 32 lanes.
-constexpr int FD_F32 = 32;
+// (NLM 5 x 5, d 25) or 64 (NLM 7 x 7, d 49). So do the f32 kernels, through
+// their live-lane count LV (below).
 template <int FD>
 constexpr int LDF_OF = FD + 8;      // fa_s row stride (bf16): conflict-free B fragments
 constexpr int CT = 2;               // 16-column tiles a warp
@@ -556,8 +556,16 @@ int launch_ks(cudaStream_t s, const VArgs& a) {
 //   * V sums over spans of VB_SPAN stages (256 rows) from zero, each added
 //     to the running V in shared memory with one f32 add;
 //   * the V width is 64 a launch (the wrapper pads gr with zero columns);
-//     the live lanes are 4, or 32 for wider features (the pad lanes are
-//     zero, so the extra lanes add exact zeros);
+//     the live lanes LV are 4, or the layout's depth for wider features:
+//     32 (a 5 x 5 patch and the coordinates) or 64 (a 7 x 7 patch and the
+//     coordinates, 52 live); the pad lanes are zero, so the extra lanes add
+//     exact zeros. The layout's depth is 32 for LV 4 and 32, 64 for LV 64
+//     (FD_OF). A column's LV lanes stay in registers (float b[LV]): at 64
+//     they sit beside the V pass's 64 accumulators under its 255-register
+//     cap, and the ks pass, ~80 registers at 32 lanes and three blocks an
+//     SM, takes two blocks an SM at 64 (128 registers a thread), so
+//     neither spills (-Xptxas -v); an f_t tile in shared memory would read
+//     the lanes again for each of a stage's rows;
 //   * V is written once; norms and coeffs go through a shuffle tree, the
 //     warps' slots, per-block partials and the fixed-order reduction; K9's
 //     ks pass (a column a thread) sums a stage from zero, then adds it to
@@ -566,7 +574,10 @@ int launch_ks(cudaStream_t s, const VArgs& a) {
 constexpr int VF_THREADS = 256;           // ks pass: one column a thread
 constexpr int VF_MP = 64;                 // V width a launch
 constexpr int VF_TP = 32;                 // ks pass: sample rows a stage
-constexpr int VF_LDA = FD_F32 + 4;            // fa_s row stride (floats)
+template <int LV>
+constexpr int FD_OF = LV <= 32 ? 32 : 64;    // the layout's depth for LV live lanes
+template <int LV>
+constexpr int VF_LDA_OF = FD_OF<LV> + 4;     // fa_s row stride (floats)
 constexpr int VB_TN = 256;                // V pass: columns a block tile
 constexpr int VB_TP = 16;                 // V pass: sample rows a stage
 constexpr int VB_SPAN = 16;               // V pass: stages a span (256 rows)
@@ -575,8 +586,8 @@ constexpr int VB_CT = 4, VB_MT = 16;      // a thread's columns, V entries
 constexpr size_t VF_RUN_BYTES = (size_t)VF_MP * VF_THREADS * 4;   // the running V
 
 struct VF32Args {
-  const float* fa;     // (P, 32)
-  const float* ft;     // (32, N)
+  const float* fa;     // (P, FD) FD 32 or 64
+  const float* ft;     // (FD, N)
   const float* gr;     // (P, 64) row-major
   const float* c;      // (N) column scale (K10), or K9's s
   const float* t;      // (P)                                  K9
@@ -599,7 +610,7 @@ __device__ __forceinline__ void load_stage_f32(float* fa_d, float* na_d, float* 
 #pragma unroll 1
   for (int c = threadIdx.x; c < TPR * (LV / 4); c += VF_THREADS) {
     const int r = c / (LV / 4), q = c % (LV / 4);
-    cp_async16(fa_d + r * VF_LDA + 4 * q, a.fa + (size_t)(p0 + r) * FD_F32 + 4 * q);
+    cp_async16(fa_d + r * VF_LDA_OF<LV> + 4 * q, a.fa + (size_t)(p0 + r) * FD_OF<LV> + 4 * q);
   }
   if (threadIdx.x < TPR / 4) cp_async16(na_d + 4 * threadIdx.x, a.na + p0 + 4 * threadIdx.x);
   if (v) {
@@ -626,7 +637,7 @@ __device__ __forceinline__ float entry_f32(const float* fa_s, const float* na_s,
   float cr = 0.f;
 #pragma unroll
   for (int k = 0; k < LV; k += 4)
-    cr = dot4(*reinterpret_cast<const float4*>(fa_s + r * VF_LDA + k),
+    cr = dot4(*reinterpret_cast<const float4*>(fa_s + r * VF_LDA_OF<LV> + k),
               make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]), cr);
   return kf32(na_s[r] + nbv, cr);
 }
@@ -634,7 +645,7 @@ __device__ __forceinline__ float entry_f32(const float* fa_s, const float* na_s,
 template <int LV>
 __global__ __launch_bounds__(VF_THREADS, LV == 4 ? 2 : 1) void colstats_f32_kernel(
     const VF32Args a) {
-  __shared__ __align__(16) float fa_s[2][VB_TP * VF_LDA];
+  __shared__ __align__(16) float fa_s[2][VB_TP * VF_LDA_OF<LV>];
   __shared__ __align__(16) float gr_s[2][VB_TP * VF_MP];
   __shared__ __align__(16) float na_s[2][VB_TP];
   __shared__ __align__(16) float e_s[VB_TP * VB_LDE];   // the stage's entries k c_j
@@ -749,8 +760,8 @@ __global__ __launch_bounds__(VF_THREADS, LV == 4 ? 2 : 1) void colstats_f32_kern
 // K9's ks pass, f32: ks_j = k_j^T t over all of p (a stage's sum from zero,
 // then added to the total), then s_j
 template <int LV>
-__global__ __launch_bounds__(VF_THREADS, 3) void ks_f32_kernel(const VF32Args a) {
-  __shared__ __align__(16) float fa_s[2][VF_TP * VF_LDA];
+__global__ __launch_bounds__(VF_THREADS, LV == 64 ? 2 : 3) void ks_f32_kernel(const VF32Args a) {
+  __shared__ __align__(16) float fa_s[2][VF_TP * VF_LDA_OF<LV>];
   __shared__ __align__(16) float t_s[2][VF_TP];
   __shared__ __align__(16) float na_s[2][VF_TP];
   const int tid = threadIdx.x;
@@ -846,17 +857,21 @@ VF32Args vf32_args(const void* fa, const void* ft, const void* gr, const void* y
 
 extern "C" {
 
-// how many f32 V-pass blocks (lv = 4 or 32 live lanes) fit the card at
+// how many f32 V-pass blocks (lv = 4, 32 or 64 live lanes) fit the card at
 // once; a negative value is a cudaError, 0 an unsupported lv
 int glt_colstats_f32_blocks(int lv) {
   int n = 0;
-  const int rc = lv == 4 ? v_f32_setup<4>(&n) : lv == 32 ? v_f32_setup<32>(&n) : -1;
+  const int rc = lv == 4    ? v_f32_setup<4>(&n)
+                 : lv == 32 ? v_f32_setup<32>(&n)
+                 : lv == 64 ? v_f32_setup<64>(&n)
+                            : -1;
   return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
 // K10, f32 layouts. P % 32 == 0, N % 256 == 0, gr (P, 64) row-major f32, lv
-// 4 or 32, 16-byte aligned operands (the wrapper checks); part holds
-// (blocks, 2, 64) floats, norms_coeffs (2, 64).
+// 4 or 32 (a 32-lane layout) or 64 (a 64-lane one), 16-byte aligned
+// operands (the wrapper checks); part holds (blocks, 2, 64) floats,
+// norms_coeffs (2, 64).
 int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const void* c,
                        const void* y, const void* na, const void* nb, void* v_out, void* part,
                        void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
@@ -866,6 +881,7 @@ int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const voi
   a.c = static_cast<const float*>(c);
   return lv == 4    ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
          : lv == 32 ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
+         : lv == 64 ? launch_v_f32<64>(blocks, s, a, norms_coeffs)
                     : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -876,7 +892,7 @@ int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, cons
                             const void* nb, void* v_out, void* s_out, void* part,
                             void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (P % VF_TP || N % VB_TN || blocks < 1 || (lv != 4 && lv != 32))
+  if (P % VF_TP || N % VB_TN || blocks < 1 || (lv != 4 && lv != 32 && lv != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
   a.t = static_cast<const float*>(t);
@@ -884,10 +900,13 @@ int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, cons
   a.bm = static_cast<const float*>(bm);
   a.s_out = static_cast<float*>(s_out);
   a.c = static_cast<const float*>(s_out);
-  const int rc = lv == 4 ? launch_ks_f32<4>(s, a) : launch_ks_f32<32>(s, a);
+  const int rc = lv == 4    ? launch_ks_f32<4>(s, a)
+                 : lv == 32 ? launch_ks_f32<32>(s, a)
+                            : launch_ks_f32<64>(s, a);
   if (rc != 0) return rc;
-  return lv == 4 ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
-                 : launch_v_f32<32>(blocks, s, a, norms_coeffs);
+  return lv == 4    ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
+         : lv == 32 ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
+                    : launch_v_f32<64>(blocks, s, a, norms_coeffs);
 }
 
 // how many V-pass blocks for width MP and fd lanes fit the card at once

@@ -90,8 +90,15 @@
 // then the epilogue on the accumulator
 // registers: d2 = max((nf + ns) - 2 cross, 0), expf (IEEE class: no bf16
 // rounding here to hide a cheaper exp), an f32 FMA with w into the tile's
-// sum of each fixed entry, which joins its running sum by one f32 add a
-// tile; the quad's lanes meet by a shuffle tree at the end. At 64 lanes
+// sum of each fixed entry, which joins its running sum by one
+// compensated f32 add a tile (the bits each add drops are carried into the
+// next: K5's rows run 8192 tiles a split at 8 MP, and on NLM features the
+// tiles far from a row's few live entries sum to less than half an ulp of
+// the running sum, so a plain add dropped them, every one the same way:
+// 0.63 (32 lanes) and 0.73 (64) of K5's rows lay below their f64 sums, and
+// as many with each row's own sample pixel zeroed out of v, while K6's
+// columns, 32 tiles long, did not lean; scripts/f32_matvec_designs.py);
+// the quad's lanes meet by a shuffle tree at the end. At 64 lanes
 // the block keeps 128 threads, one streamed column a thread for the norms
 // and scales, and each warp splits 16 (n8 tile, k16 step) fragments of a
 // tile in place of 8: 256 threads would halve the fixed entries a warp
@@ -465,9 +472,9 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
       nf[r][h] = s;
     }
   }
-  float acc[T_RT][2];
+  float acc[T_RT][2], cmp[T_RT][2];   // the running sums, their dropped bits
 #pragma unroll
-  for (int r = 0; r < T_RT; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < T_RT; ++r) acc[r][0] = acc[r][1] = cmp[r][0] = cmp[r][1] = 0.f;
 
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
@@ -508,9 +515,10 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
     }
     __syncthreads();                    // fragments in
     const float* wt = w_s + buf * T_ST;
-    // this tile's sums start from zero and join the running sums by one add:
-    // one f32 chain over every tile of a split (~175000 terms a lane at
-    // 8 MP) drops the tail of terms far below it, and ends low
+    // this tile's sums start from zero and join the running sums by one
+    // compensated add: one f32 chain over every tile of a split (~175000
+    // terms a lane at 8 MP) drops the tail of terms far below it, and ends
+    // low, and so did a plain add of each tile's sum
     float tacc[T_RT][2];
 #pragma unroll
     for (int r = 0; r < T_RT; ++r) tacc[r][0] = tacc[r][1] = 0.f;
@@ -555,16 +563,21 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
       }
     }
 #pragma unroll
-    for (int r = 0; r < T_RT; ++r) {
-      acc[r][0] += tacc[r][0];
-      acc[r][1] += tacc[r][1];
-    }
+    for (int r = 0; r < T_RT; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // compensated (Kahan) add
+        const float y = tacc[r][h] - cmp[r][h];
+        const float s = acc[r][h] + y;
+        cmp[r][h] = (s - acc[r][h]) - y;
+        acc[r][h] = s;
+      }
   }
   // the quad's four lanes share fixed rows: a fixed shuffle tree
 #pragma unroll
   for (int r = 0; r < T_RT; ++r)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      acc[r][h] -= cmp[r][h];
       acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 1);
       acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 2);
     }
@@ -586,22 +599,29 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
 // where the split cross's fp16 small part loses about four times the IEEE
 // f32 product's error; for those the sum takes the reference's f32 class
 // (kf32, mma_common.cuh): the cross an f32 FFMA chain over the live lanes
-// (LV: 4, or 32 for wider features; the layouts' pad lanes are zero, so
-// the extra lanes add exact zeros). A 128-thread block owns 256 fixed
-// entries, two a thread with their lanes in registers; 128-entry streamed
-// tiles arrive in shared memory (entry-major, so every lane reads the same
-// entry: broadcast float4 loads) with their norms, and each tile's sums
-// start from zero and join the running sums by one f32 add, as in
-// f32_sum_kernel. A __global__ of its own name, beside the tensor-core
-// kernels that chip_smoke.py's HMMA check reads.
+// (LV: 4, or the layout's depth for wider features, 32 or 64; the
+// layouts' pad lanes are zero, so the extra lanes add exact zeros). A
+// 128-thread block owns 256 fixed entries, two a thread with their lanes
+// in registers; 128-entry streamed tiles arrive in shared memory
+// (entry-major, so every lane reads the same entry: broadcast float4
+// loads) with their norms, and each tile's sums start from zero and join
+// the running sums by one f32 add, as in f32_sum_kernel. A norm is the
+// same sequential FMA chain over the lanes as the cross, so a pixel's d2
+// with itself is exactly 0. At 64 lanes (a 7 x 7 patch and the
+// coordinates, 52 live) the fixed entries' lanes take 128 registers, so a
+// streamed column's lanes go to shared memory one by one after the
+// barrier (no staging registers; four lanes a 16-byte store), in the same
+// FMA order: at 8 MP its cross is 2 LV flop an entry, 4.4e12 flop, 65.6 ms
+// at the f32 peak, the bound. A __global__ of its own name, beside the
+// tensor-core kernels that chip_smoke.py's HMMA check reads.
 constexpr int C_THREADS = 128;
 constexpr int C_FT = 2 * C_THREADS;     // fixed entries a block
 constexpr int C_ST = 128;               // streamed entries a tile
 
 template <int LV>
 __global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
-    const float* __restrict__ fixed_t,  // (32, Lf) k-major
-    const float* __restrict__ strm_t,   // (32, Ls) k-major
+    const float* __restrict__ fixed_t,  // (FD, Lf) k-major, FD 32 (LV 4, 32) or 64
+    const float* __restrict__ strm_t,   // (FD, Ls) k-major
     const float* __restrict__ w,        // (Ls)
     float* __restrict__ part,           // (splits, Lf)
     int Lf, int Ls, int tiles_per_split) {
@@ -627,16 +647,31 @@ __global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
   float acc[2] = {0.f, 0.f};
   for (int tile = t0; tile < t1; ++tile) {
     const size_t c = (size_t)tile * C_ST + tid;
-    float x[LV], s = 0.f;
-#pragma unroll
-    for (int k = 0; k < LV; ++k) {
-      x[k] = strm_t[(size_t)k * Ls + c];
-      s = fmaf(x[k], x[k], s);
-    }
+    float s = 0.f;
     const float wv = w[c];
-    __syncthreads();                    // everyone done with the last tile
+    if constexpr (LV <= 32) {
+      float x[LV];
 #pragma unroll
-    for (int k = 0; k < LV; ++k) st_s[tid * LV + k] = x[k];
+      for (int k = 0; k < LV; ++k) {
+        x[k] = strm_t[(size_t)k * Ls + c];
+        s = fmaf(x[k], x[k], s);
+      }
+      __syncthreads();                  // everyone done with the last tile
+#pragma unroll
+      for (int k = 0; k < LV; ++k) st_s[tid * LV + k] = x[k];
+    } else {
+      __syncthreads();                  // everyone done with the last tile
+#pragma unroll 4
+      for (int k = 0; k < LV; k += 4) {
+        float4 q;
+        q.x = strm_t[(size_t)k * Ls + c];
+        q.y = strm_t[(size_t)(k + 1) * Ls + c];
+        q.z = strm_t[(size_t)(k + 2) * Ls + c];
+        q.w = strm_t[(size_t)(k + 3) * Ls + c];
+        s = fmaf(q.w, q.w, fmaf(q.z, q.z, fmaf(q.y, q.y, fmaf(q.x, q.x, s))));
+        *reinterpret_cast<float4*>(st_s + tid * LV + k) = q;
+      }
+    }
     ns_s[tid] = s;
     w_s[tid] = wv;
     __syncthreads();                    // this tile in
@@ -747,25 +782,27 @@ int glt_recompute_sum(int aug, int fd, const void* fixed_t, const void* strm_t, 
                        (size_t)Lf, s);
 }
 
-// how many blocks of the coordinate kernel (lv = 4 or 32 live lanes) fit
-// the card at once (the wrapper's splits, as glt_recompute_slots); a
+// how many blocks of the coordinate kernel (lv = 4, 32 or 64 live lanes)
+// fit the card at once (the wrapper's splits, as glt_recompute_slots); a
 // negative value is a cudaError, 0 an unsupported lv
 int glt_coord_slots(int lv) {
   int n = 0;
   const int rc = lv == 4    ? slots_of(coord_sum_kernel<4>, C_THREADS, 0, &n)
                  : lv == 32 ? slots_of(coord_sum_kernel<32>, C_THREADS, 0, &n)
+                 : lv == 64 ? slots_of(coord_sum_kernel<64>, C_THREADS, 0, &n)
                             : -1;
   return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
 // out[f] = sum_s w_s k(f, s) on coordinate features (the IEEE f32 cross)
 // over k-major (32, Lf) fixed and (32, Ls) streamed f32 layouts, the first
-// lv lanes read (4 or 32; the others zero): Lf % 256 == 0, Ls % 128 == 0, a
-// grid of (Lf / 256, splits); part and out as glt_recompute_sum's.
+// lv lanes read (4 or 32; the others zero), or (64, Lf) and (64, Ls) ones
+// with lv 64: Lf % 256 == 0, Ls % 128 == 0, a grid of (Lf / 256, splits);
+// part and out as glt_recompute_sum's.
 int glt_coord_sum(const void* fixed_t, const void* strm_t, const void* w, void* part, void* out,
                   int Lf, int Ls, int splits, int lv, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (Lf % C_FT || Ls % C_ST || splits < 1 || (lv != 4 && lv != 32))
+  if (Lf % C_FT || Ls % C_ST || splits < 1 || (lv != 4 && lv != 32 && lv != 64))
     return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = Ls / C_ST, per = (ntiles + splits - 1) / splits;
   const dim3 grid(Lf / C_FT, splits);
@@ -775,8 +812,10 @@ int glt_coord_sum(const void* fixed_t, const void* strm_t, const void* w, void* 
   float* pp = static_cast<float*>(part);
   if (lv == 4)
     coord_sum_kernel<4><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
-  else
+  else if (lv == 32)
     coord_sum_kernel<32><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
+  else
+    coord_sum_kernel<64><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   return launch_reduce(pp, static_cast<float*>(out), splits, (size_t)Lf, s);

@@ -124,8 +124,10 @@ namespace {
 
 // The bf16 aug kernels (K7, K8) take the feature depth FD as a template
 // parameter: 32 (aug_d_pad_of of NLM d 25) or 64 (of NLM d 49, a 7 x 7
-// patch). The f32 layouts take 32 lanes.
-constexpr int FD_F32 = 32;
+// patch). So do the f32 kernels (K7 f32, K8 f32): 32 (a 5 x 5 patch and
+// the coordinates, or gaussian + coordinates) or 64 (a 7 x 7 patch and the
+// coordinates, 52 live lanes); their arithmetic runs over the live lanes,
+// so a 32-lane layout takes the same chains in either instantiation.
 
 // ---------------------------------------------------------------------------
 // K7: the column-scaled tile emitter (aug layout), persistent blocks
@@ -602,23 +604,36 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
 // lanes, the norms f32 FFMA chains over the same lanes, no bf16 rounding
 // point. At the 8 MP gram shape (p_pad 4096, 131072 columns) it stores 2.15
 // GB of f32 (0.64 ms at 3.35 TB/s) for 5.4e8 entries (their exps 0.13 ms):
-// bound by the store. A 256-thread block owns a 32 x 256 unit, its rows
-// and f_t columns in shared memory; a thread computes 8 rows by 4 adjacent
-// columns and writes each row's four as one streamed (evict-first) 16-byte
-// store, so a warp writes 512 contiguous bytes a row.
+// bound by the store; at 52 live lanes the cross, 2 live flop an entry,
+// is 5.6e10 flop (0.84 ms at the 67 TFLOP/s f32 peak), the bound. A
+// 256-thread block owns a 32 x 256 unit, its rows and f_t columns in
+// shared memory; a thread computes 8 rows by 4 adjacent columns and writes
+// each row's four as one streamed (evict-first) 16-byte store, so a warp
+// writes 512 contiguous bytes a row. The kernel is a template on the
+// layout's depth FD (32 or 64): at 64 the f_t columns take 66.5 KB, past
+// the 48 KB of static shared memory, so both depths keep their rows and
+// columns in dynamic shared memory (kb_f32_smem).
 constexpr int EF_THREADS = 256;
 constexpr int EF_TM = 32, EF_TN = 256;
-constexpr int EF_LDA = FD_F32 + 4;      // fa_s row stride (floats)
+template <int FD>
+constexpr int EF_LDA_OF = FD + 4;   // fa_s row stride (floats)
 constexpr int EF_LDB = EF_TN + 4;   // ft_s row stride (floats)
+template <int FD>
+constexpr size_t kb_f32_smem() {
+  return sizeof(float) * ((size_t)EF_TM * EF_LDA_OF<FD> + (size_t)FD * EF_LDB);
+}
 
+template <int FD>
 __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
-    const float* __restrict__ fa,    // (P, 32)
-    const float* __restrict__ ft,    // (32, S)
+    const float* __restrict__ fa,    // (P, FD)
+    const float* __restrict__ ft,    // (FD, S)
     const float* __restrict__ cols,  // (S)
     float* __restrict__ out,         // (P, S)
     int S, int live) {
-  __shared__ __align__(16) float fa_s[EF_TM * EF_LDA];
-  __shared__ __align__(16) float ft_s[FD_F32 * EF_LDB];
+  constexpr int EF_LDA = EF_LDA_OF<FD>;
+  extern __shared__ __align__(16) float ef_smem[];
+  float* fa_s = ef_smem;                      // [EF_TM][EF_LDA]
+  float* ft_s = ef_smem + EF_TM * EF_LDA;     // [FD][EF_LDB]
   __shared__ __align__(16) float na_s[EF_TM], nb_s[EF_TN];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.y * EF_TM, c0 = blockIdx.x * EF_TN;
@@ -627,7 +642,7 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
   for (int i = tid; i < EF_TM * l4; i += EF_THREADS) {
     const int r = i / l4, q = i % l4;
     *reinterpret_cast<float4*>(fa_s + r * EF_LDA + 4 * q) =
-        *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * FD_F32 + 4 * q);
+        *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * FD + 4 * q);
   }
   for (int i = tid; i < live * (wcols / 4); i += EF_THREADS) {
     const int k = i / (wcols / 4), q = i % (wcols / 4);
@@ -689,7 +704,12 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
 // k_j s_j with the f32 entry (kf32) and f32 FMAs throughout, the
 // reference's "highest" class. At 8 MP (p_pad 4096, N 8388608) it forms
 // 3.4e10 entries, one exp each: 8.2 ms of MUFU ex2 at 132 SMs, the bound;
-// the live-lane cross (4 lanes) ~4 ms of FFMA. As the bf16 kernel, a column
+// the live-lane cross (4 lanes) ~4 ms of FFMA; at 52 live lanes (a 7 x 7
+// patch and the coordinates) the cross and the six FMAs of kbt and u, 110
+// flop an entry, take 56 ms at the f32 peak, the bound. The kernel is a
+// template on the layout's depth FD (32 or 64: the sample rows' stride in
+// shared memory, 158 KB of it at p_pad 4096 and 64 lanes, still one block
+// an SM); its loops run over the live lanes. As the bf16 kernel, a column
 // needs kbt over the whole p before its s and s before its u term, so a
 // cluster of 8 blocks shares each 32-column tile, rank r owning sample rows
 // [r P/8, (r+1) P/8) in shared memory; the tile never leaves registers:
@@ -710,18 +730,19 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
 //     runs repeat bit for bit.
 constexpr int XF_THREADS = 256;
 constexpr int XF_TN = 32;         // columns a tile
-constexpr int XF_LDA = FD_F32 + 4;    // fa_s row stride (floats)
+template <int FD>
+constexpr int XF_LDA_OF = FD + 4;   // fa_s row stride (floats)
 constexpr int XF_SPAN = 64;       // tiles a span of u
 
-size_t ext2_f32_smem(int P) {
-  return sizeof(float) * ((size_t)(P / CL) * XF_LDA + 2 * FD_F32 * XF_TN + 8 * 2 * XF_TN +
+size_t ext2_f32_smem(int P, int fd) {
+  return sizeof(float) * ((size_t)(P / CL) * (fd + 4) + 2 * (size_t)fd * XF_TN + 8 * 2 * XF_TN +
                           2 * 2 * XF_TN + XF_TN);
 }
 
-template <int NR>   // rows a thread: P = 512 NR
+template <int NR, int FD>   // rows a thread: P = 512 NR; the layout's depth
 __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
-    const float* __restrict__ fa,   // (P, 32)
-    const float* __restrict__ ft,   // (32, N)
+    const float* __restrict__ fa,   // (P, FD)
+    const float* __restrict__ ft,   // (FD, N)
     const float* __restrict__ t2,   // (2, P)
     const float* __restrict__ bm,   // (N)
     float* __restrict__ s_out,      // (N)
@@ -731,10 +752,11 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
   const int rank = (int)cluster.block_rank();
   const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
   const int rb = P / CL, r0 = rank * rb;   // rb == 64 NR
+  constexpr int XF_LDA = XF_LDA_OF<FD>;
   extern __shared__ __align__(16) float xf_smem[];
   float* fa_s = xf_smem;                     // [rb][XF_LDA]
-  float* ft_s = fa_s + rb * XF_LDA;          // [2][FD_F32][XF_TN]
-  float* wq_s = ft_s + 2 * FD_F32 * XF_TN;       // [8 warps][2][XF_TN]
+  float* ft_s = fa_s + rb * XF_LDA;          // [2][FD][XF_TN]
+  float* wq_s = ft_s + 2 * FD * XF_TN;       // [8 warps][2][XF_TN]
   float* part_s = wq_s + 8 * 2 * XF_TN;      // [2][2][XF_TN] this rank's kbt partials
   float* s_s = part_s + 2 * 2 * XF_TN;       // [XF_TN]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -746,14 +768,14 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
   auto load_ft = [&](int i, int buf) {
     for (int c = tid; c < live * (XF_TN / 4); c += XF_THREADS) {
       const int k = c / (XF_TN / 4), q = c % (XF_TN / 4);
-      cp_async16(ft_s + (buf * FD_F32 + k) * XF_TN + 4 * q, ft + (size_t)k * N + col0(i) + 4 * q);
+      cp_async16(ft_s + (buf * FD + k) * XF_TN + 4 * q, ft + (size_t)k * N + col0(i) + 4 * q);
     }
     cp_async_commit();
   };
 
   for (int c = tid; c < rb * l4; c += XF_THREADS) {
     const int r = c / l4, q = c % l4;
-    cp_async16(fa_s + r * XF_LDA + 4 * q, fa + (size_t)(r0 + r) * FD_F32 + 4 * q);
+    cp_async16(fa_s + r * XF_LDA + 4 * q, fa + (size_t)(r0 + r) * FD + 4 * q);
   }
   load_ft(0, 0);
   cp_async_wait_all();
@@ -777,7 +799,7 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
       __syncthreads();     // tile i in; everyone done with tile i - 1's s_s and wq_s
     }
     if (i + 1 < mine) load_ft(i + 1, buf ^ 1);
-    const float* fb = ft_s + buf * FD_F32 * XF_TN + cgi * 8;
+    const float* fb = ft_s + buf * FD * XF_TN + cgi * 8;
     float nb[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) nb[c] = 0.f;
@@ -885,18 +907,36 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
 
 typedef void (*ext2_f32_fn)(const float*, const float*, const float*, const float*, float*,
                             float*, int, int, int);
-ext2_f32_fn ext2_f32_kernel_for(int P) {
+template <int FD>
+ext2_f32_fn ext2_f32_kernel_fd(int P) {
   switch (P / (CL * 64)) {
-    case 1: return ext2_f32_kernel<1>;
-    case 2: return ext2_f32_kernel<2>;
-    case 3: return ext2_f32_kernel<3>;
-    case 4: return ext2_f32_kernel<4>;
-    case 5: return ext2_f32_kernel<5>;
-    case 6: return ext2_f32_kernel<6>;
-    case 7: return ext2_f32_kernel<7>;
-    case 8: return ext2_f32_kernel<8>;
+    case 1: return ext2_f32_kernel<1, FD>;
+    case 2: return ext2_f32_kernel<2, FD>;
+    case 3: return ext2_f32_kernel<3, FD>;
+    case 4: return ext2_f32_kernel<4, FD>;
+    case 5: return ext2_f32_kernel<5, FD>;
+    case 6: return ext2_f32_kernel<6, FD>;
+    case 7: return ext2_f32_kernel<7, FD>;
+    case 8: return ext2_f32_kernel<8, FD>;
     default: return nullptr;
   }
+}
+// K8 f32's kernel for P sample rows of an fd-lane layout (32 or 64), or null
+ext2_f32_fn ext2_f32_kernel_for(int P, int fd) {
+  return fd == 32 ? ext2_f32_kernel_fd<32>(P) : fd == 64 ? ext2_f32_kernel_fd<64>(P) : nullptr;
+}
+
+// K7 f32's launch at depth FD: a grid of 32 x 256 units
+template <int FD>
+int launch_kb_f32(const float* fa, const float* ft, const float* cols, float* out, int P, int S,
+                  int live, cudaStream_t s) {
+  constexpr size_t smem = kb_f32_smem<FD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      kb_f32_kernel<FD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((S + EF_TN - 1) / EF_TN, P / EF_TM);
+  kb_f32_kernel<FD><<<grid, EF_THREADS, smem, s>>>(fa, ft, cols, out, S, live);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K8's kernel for P sample rows (P = 512 NB, NB in 1..8) of FD lanes, or null
@@ -967,26 +1007,29 @@ int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, in
                   : launch_kb_strip<64>(fa, ft, cols, out, P, S, s);
 }
 
-// K7, f32 layout. P % 32 == 0, S % 128 == 0, live % 4 == 0 in [4, 32], fa,
-// ft, cols and out 16-byte aligned (the wrapper checks); a grid of 32 x 256
-// units.
+// K7, f32 layout of fd lanes (32 or 64). P % 32 == 0, S % 128 == 0, live
+// % 4 == 0 in [4, fd], fa, ft, cols and out 16-byte aligned (the wrapper
+// checks); a grid of 32 x 256 units.
 int glt_kb_strip_f32(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
-                     int live, void* stream) {
-  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 || live < 4 || live > FD_F32 || live % 4)
+                     int live, int fd, void* stream) {
+  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 || (fd != 32 && fd != 64) || live < 4 ||
+      live > fd || live % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((S + EF_TN - 1) / EF_TN, P / EF_TM);
-  kb_f32_kernel<<<grid, EF_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fa), static_cast<const float*>(ft),
-      static_cast<const float*>(cols), static_cast<float*>(out), S, live);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(fa);
+  const float* b = static_cast<const float*>(ft);
+  const float* c = static_cast<const float*>(cols);
+  float* o = static_cast<float*>(out);
+  return fd == 32 ? launch_kb_f32<32>(a, b, c, o, P, S, live, s)
+                  : launch_kb_f32<64>(a, b, c, o, P, S, live, s);
 }
 
-// how many 8-block f32 K8 clusters for P sample rows fit the card at once;
-// a negative value is a cudaError
-int glt_ext2_f32_clusters(int P) {
-  const ext2_f32_fn kernel = ext2_f32_kernel_for(P);
+// how many 8-block f32 K8 clusters for P sample rows of fd lanes (32 or
+// 64) fit the card at once; a negative value is a cudaError
+int glt_ext2_f32_clusters(int P, int fd) {
+  const ext2_f32_fn kernel = ext2_f32_kernel_for(P, fd);
   if (kernel == nullptr || P % (CL * 64)) return -static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ext2_f32_smem(P);
+  const size_t smem = ext2_f32_smem(P, fd);
   cudaError_t e = cudaFuncSetAttribute(kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
@@ -997,17 +1040,17 @@ int glt_ext2_f32_clusters(int P) {
   return e != cudaSuccess ? -static_cast<int>(e) : n;
 }
 
-// K8, f32 layout. P % 512 == 0, P <= 4096, N % 64 == 0, live % 4 == 0 in
-// [4, 32], 1 <= clusters <= N / 32 (the wrapper checks); u_part holds
-// (clusters, P) floats.
+// K8, f32 layout of fd lanes (32 or 64). P % 512 == 0, P <= 4096, N % 64
+// == 0, live % 4 == 0 in [4, fd], 1 <= clusters <= N / 32 (the wrapper
+// checks); u_part holds (clusters, P) floats.
 int glt_ext2_matvec_f32(const void* fa, const void* ft, const void* t2, const void* bm,
                         void* s_out, void* u_part, void* u, int P, int N, int clusters, int live,
-                        void* stream) {
+                        int fd, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const ext2_f32_fn kernel = ext2_f32_kernel_for(P);
-  if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > FD_F32 || live % 4)
+  const ext2_f32_fn kernel = ext2_f32_kernel_for(P, fd);
+  if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > fd || live % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ext2_f32_smem(P);
+  const size_t smem = ext2_f32_smem(P, fd);
   cudaError_t e = cudaFuncSetAttribute(kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);

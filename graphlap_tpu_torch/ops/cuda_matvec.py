@@ -28,8 +28,8 @@ bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
 the two layouts the presets reach: bf16 aug and f32 plain, at 32 or 64
 feature lanes (an NLM 5 x 5 or 7 x 7 patch: each kernel is a template on
-its depth); the coordinate kernel takes 32. Wider layouts (patches 9 and
-11: 96 and 128 lanes) and coordinates past 32 lanes raise
+its depth), the coordinate kernel too (its live lanes 4, 32 or 64). Wider
+layouts (patches 9 and 11: 96 and 128 lanes) raise
 ``NotImplementedError`` naming ROADMAP.md Queue 2b. The plain bf16 layout
 (the reference's ``GLT_AUG_DISABLE`` lever) and an f32 aug layout raise it
 too: no preset builds them, and no ROADMAP.md queue ports them. There is
@@ -62,7 +62,6 @@ FIXED_TILE = {(torch.bfloat16, 32): 1024, (torch.bfloat16, 64): 512,
               (torch.float32, 32): 128, (torch.float32, 64): 128}
 FDS = (32, 64)            # feature depths of both layouts' kernels
 D_PAD = 128               # the reference's widest feature layout
-COORD_FD = 32             # feature depth of the coordinate kernel
 COORD_FIXED = 256         # fixed entries a block of the coordinate kernel
 _F32 = torch.float32
 
@@ -109,13 +108,12 @@ def _check(fa, f_t, aug: bool, what: str, coords: bool = False) -> None:
         raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
                          f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
-    coord = coords and not aug
-    ported = (COORD_FD,) if coord else FDS
-    if fd not in ported:
-        kind = "coordinate" if coord else "bf16 aug" if aug else "f32"
+    if fd not in FDS:
+        kind = ("coordinate" if coords and not aug else "bf16 aug" if aug
+                else "f32")
         raise NotImplementedError(
             f"{what}: {fd} feature lanes: the CUDA kernels of the {kind} "
-            f"layout take {ported} (ROADMAP.md Queue 2b)")
+            f"layout take {FDS} (ROADMAP.md Queue 2b)")
     if p % P_QUANTUM or n % N_QUANTUM:
         raise ValueError(f"{what}: p_pad {p} must be a multiple of "
                          f"{P_QUANTUM} and n {n} of {N_QUANTUM}")
@@ -172,7 +170,7 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
         if slots <= 0:
             _build.check(-slots if slots < 0 else 1, "coord_sum: no block "
                          "fits the card")
-        tiles = ls // STREAM_TILE[(_F32, COORD_FD)]
+        tiles = ls // STREAM_TILE[(_F32, fd)]
         splits = max(1, min(tiles, slots // (lf // COORD_FIXED)))
         splits = -(-tiles // -(-tiles // splits))   # no empty split
     out = torch.empty(lf, dtype=_F32, device=dev)
@@ -195,14 +193,16 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
 def _coord_lv(fa, coords, live):
     """The coordinate kernel's lanes where the f32 layout carries
     coordinates, else None (the layout's own kernel)."""
-    return coord_lanes(live) if coords and fa.dtype == _F32 else None
+    if not (coords and fa.dtype == _F32):
+        return None
+    return coord_lanes(live, fa.shape[1])
 
 
 def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):
     """K v: ((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32
     (``matvec_pallas``), dp 32 or 64. ``coords``: the f32 layout's features
-    carry coordinates (32 lanes), ``live`` of their lanes are nonzero
-    (None: all 32)."""
+    carry coordinates, ``live`` of their dp lanes are nonzero (None: all
+    dp)."""
     if _device_kind(fa, f_t, v) == "cpu":
         return matvec_plain(fa, f_t, v, aug)
     _check(fa, f_t, aug, "matvec", coords)

@@ -33,11 +33,12 @@ on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
 the same V pass with c = s) on the two layouts the presets build: bf16
 (aug for K7/K8, plain for K9/K10) with 32 or 64 feature lanes (NLM 5 x 5 or
 7 x 7: each kernel is a template on its depth), and f32 plain (the
-bilateral recipes, ``spatial_h > 0``) with 32 lanes, whose kernels form
-each entry with an IEEE f32 FFMA cross over the ``live`` lanes (the
-caller's feature width rounded up to 4; None reads all 32) and expf. The
-layouts not ported (bf16 at 96 or 128 lanes, f32 past 32) raise
-``NotImplementedError`` naming ROADMAP.md Queue 2b; so do the plain-bf16
+bilateral recipes, ``spatial_h > 0``) with 32 or 64 lanes (gaussian or an
+NLM 5 x 5 patch with the coordinates, or an NLM 7 x 7 patch with them: 52
+live lanes), whose kernels form each entry with an IEEE f32 FFMA cross
+over the ``live`` lanes (the caller's feature width rounded up to 4; None
+reads all of them) and expf. The layouts not ported (96 or 128 lanes)
+raise ``NotImplementedError`` naming ROADMAP.md Queue 2b; so do the plain-bf16
 K7/K8 layout and an f32 aug layout (no preset builds either). There is no
 fallback from a kernel to its plain version.
 """
@@ -54,8 +55,7 @@ from .streaming import _chunks
 
 PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
-FDS = (32, 64)            # feature depths of the bf16 kernels (csrc template FD)
-FD_F32 = 32               # feature depth of the f32 kernels
+FDS = (32, 64)            # feature depths of the kernels (csrc FD, LV)
 D_PAD = 128               # the reference's widest feature layout
 X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
 XF_TN = 32                # the f32 K8's column tile (csrc)
@@ -192,11 +192,10 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> tuple[bool, int]:
         raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
                          f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
-    ported = (FD_F32,) if f32 else FDS
-    if fd not in ported:
+    if fd not in FDS:
         raise NotImplementedError(
             f"{what}: {fd} feature lanes: the CUDA kernels of the "
-            f"{'f32' if f32 else 'bf16'} layout take {ported} "
+            f"{'f32' if f32 else 'bf16'} layout take {FDS} "
             f"(ROADMAP.md Queue 2b)")
     if not (fa.is_contiguous() and f_t.is_contiguous()):
         raise ValueError(f"{what}: fa and f_t must be contiguous")
@@ -206,21 +205,21 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> tuple[bool, int]:
     return f32, fd
 
 
-def _lanes(live) -> int:
-    """The f32 kernels' lanes: ``live`` rounded up to 4 (None: all
-    FD_F32)."""
+def _lanes(live, fd: int) -> int:
+    """The f32 kernels' lanes on an ``fd``-lane layout: ``live`` rounded up
+    to 4 (None: all fd)."""
     if live is None:
-        return FD_F32
-    if not 0 < live <= FD_F32:
-        raise ValueError(f"live lanes {live} not in [1, {FD_F32}]")
+        return fd
+    if not 0 < live <= fd:
+        raise ValueError(f"live lanes {live} not in [1, {fd}]")
     return -(-live // 4) * 4
 
 
-def coord_lanes(live) -> int:
+def coord_lanes(live, fd: int) -> int:
     """The lanes the K9 / K10 f32 kernels and the coordinate K5/K6 read for
-    ``live`` feature lanes: 4, or all 32 (the layouts' pad lanes are zero,
-    so the extra lanes add exact zeros)."""
-    return 4 if live is not None and live <= 4 else FD_F32
+    ``live`` feature lanes of an ``fd``-lane layout: 4, or all fd (the
+    layouts' pad lanes are zero, so the extra lanes add exact zeros)."""
+    return 4 if _lanes(live, fd) <= 4 else fd
 
 
 def _aligned(*ts):
@@ -255,8 +254,7 @@ def _clusters(p: int, fd: int, tiles: int) -> int:
 
 def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
     """((p_pad, fd), (fd, S), (S,)) -> (p_pad, S) column-scaled tile, bf16
-    (aug layout, fd 32 or 64) or f32 (f32 layout, fd 32, ``live`` lanes
-    read)."""
+    (aug layout) or f32 (f32 layout, ``live`` lanes read), fd 32 or 64."""
     if _device_kind(fa, f_t, cols) == "cpu":
         return kb_strip_plain(fa, f_t, cols, aug)
     f32, fd = _check_layout(fa, f_t, "kb_strip", aug)
@@ -268,12 +266,12 @@ def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
     out = torch.empty((p, s), dtype=fa.dtype, device=fa.device)
     # the f_t tiles arrive and the output leaves by TMA or vector loads,
     # which take 16-byte aligned bases
-    lanes = _lanes(live) if f32 else None
+    lanes = _lanes(live, fd) if f32 else None
     fa, f_t, cb = _aligned(fa, f_t, _f32(cols) if f32 else _bf16(cols))
     lib = _build.lib()
     if f32:
         rc = lib.glt_kb_strip_f32(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
-                                  out.data_ptr(), p, s, lanes,
+                                  out.data_ptr(), p, s, lanes, fd,
                                   _build.stream_ptr(fa))
     else:
         rc = lib.glt_kb_strip(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
@@ -325,7 +323,7 @@ def gram_cuda(fa, f_t, cols, aug: bool = False, live=None):
 
 def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
     """((p_pad, fd), (fd, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,)); fd
-    32 or 64 on the bf16 aug layout, 32 on the f32 one (``live`` lanes
+    32 or 64 on the bf16 aug layout and on the f32 one (``live`` lanes
     read)."""
     if _device_kind(fa, f_t, t2, bm) == "cpu":
         return ext2_matvec_plain(fa, f_t, t2, bm, aug)
@@ -336,7 +334,7 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
     if n % X_TN:
         raise ValueError(f"ext2_matvec: n {n} must be a multiple of {X_TN}")
     if f32:
-        return _ext2_matvec_f32(fa, f_t, t2, bm, _lanes(live))
+        return _ext2_matvec_f32(fa, f_t, t2, bm, _lanes(live, fd))
     dev = fa.device
     clusters = _clusters(p, fd, n // X_TN)
     t2b, bmf = _bf16(t2), _f32(bm)
@@ -354,10 +352,10 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
 
 def _ext2_matvec_f32(fa, f_t, t2, bm, live):
     """K8 on the f32 layout: clusters of 8 over 32-column tiles."""
-    p, n = fa.shape[0], f_t.shape[1]
+    (p, fd), n = fa.shape, f_t.shape[1]
     dev = fa.device
     lib = _build.lib()
-    clusters = lib.glt_ext2_f32_clusters(p)
+    clusters = lib.glt_ext2_f32_clusters(p, fd)
     if clusters <= 0:
         _build.check(-clusters if clusters < 0 else 1,
                      "ext2_matvec: no cluster fits the card")
@@ -370,7 +368,7 @@ def _ext2_matvec_f32(fa, f_t, t2, bm, live):
     rc = lib.glt_ext2_matvec_f32(
         fa.data_ptr(), f_t.data_ptr(), t2f.data_ptr(), bmf.data_ptr(),
         s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, clusters, live,
-        _build.stream_ptr(fa))
+        fd, _build.stream_ptr(fa))
     _build.check(rc, "ext2_matvec")
     ext2_matvec_cuda.launches += 1
     return u, s
@@ -383,12 +381,11 @@ def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
     launch per MP_MAX columns, each recomputing the tile: the first sweeps
     p for ks and s, the others take bf16(s) from it, so s is computed
     once. Any p_pad that is a multiple of P_QUANTUM: no column needs the
-    whole p in one block. fd is 32 or 64 on the bf16 layout; on the f32
-    layout (f32 fa and f_t, fd 32, ``live`` lanes read) every operand stays
-    f32."""
+    whole p in one block. fd is 32 or 64; on the f32 layout (f32 fa and
+    f_t, ``live`` lanes read) every operand stays f32."""
     if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
         return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
-    f32, _ = _check_layout(fa, f_t, "finish_colstats", None)
+    f32, fd = _check_layout(fa, f_t, "finish_colstats", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     _check_vecs("finish_colstats", t=(t, (p,)), s_pre=(s_pre, (n,)),
@@ -397,7 +394,7 @@ def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
     _check_v_shapes("finish_colstats", mp, n)
     y, na, nb = (_f32(x) for x in (y, na, nb))
     if f32:
-        return _colstats_f32(fa, f_t, gr, y, na, nb, _lanes(live),
+        return _colstats_f32(fa, f_t, gr, y, na, nb, coord_lanes(live, fd),
                              finish=(_f32(t), _f32(s_pre), _f32(bm)))
     finish = (_bf16(t), _f32(s_pre), _f32(bm))
     grts = [_bf16(gr[:, m0:m0 + MP_MAX].T) for m0 in range(0, mp, MP_MAX)]
@@ -427,11 +424,11 @@ def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb, live=None):
     (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,), coeffs
     (m_pad,)), all f32. ``cols`` must be 0 on padding columns. A gr wider
     than MP_MAX runs one launch per MP_MAX columns (each recomputes the
-    tile). fd is 32 or 64 on the bf16 layout; on the f32 layout (fd 32)
-    every operand stays f32 (``live`` lanes read)."""
+    tile). fd is 32 or 64; on the f32 layout every operand stays f32
+    (``live`` lanes read)."""
     if _device_kind(fa, f_t, gr, y, cols, na, nb) == "cpu":
         return colstats_v_plain(fa, f_t, gr, y, cols, na, nb)
-    f32, _ = _check_layout(fa, f_t, "colstats_v", None)
+    f32, fd = _check_layout(fa, f_t, "colstats_v", None)
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     _check_vecs("colstats_v", gr=(gr, (p, mp)), y=(y, (n,)),
@@ -439,7 +436,7 @@ def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb, live=None):
     _check_v_shapes("colstats_v", mp, n)
     y, na, nb = (_f32(x) for x in (y, na, nb))
     if f32:
-        return _colstats_f32(fa, f_t, gr, y, na, nb, _lanes(live),
+        return _colstats_f32(fa, f_t, gr, y, na, nb, coord_lanes(live, fd),
                              cols=_f32(cols))[:3]
     cb = _bf16(cols)
     outs = []
@@ -490,17 +487,16 @@ def _v_launch(fa, f_t, grt, y, na, nb, cb=None, finish=None):
     return v, nc[0], nc[1], s, cb
 
 
-def _colstats_f32(fa, f_t, gr, y, na, nb, live, cols=None, finish=None):
+def _colstats_f32(fa, f_t, gr, y, na, nb, lv, cols=None, finish=None):
     """K10 (column scale ``cols``) or K9 (``finish`` = (t, s_pre, bm)) on the
-    f32 layout: one launch per MP_MAX columns of gr, each padded with zero
-    columns to MP_MAX (the f32 V pass is that wide); K9's first launch
-    computes s, the others are K10's pass with c = s. -> (V, norms,
-    coeffs, s), s None for K10."""
+    f32 layout, reading ``lv`` lanes (``coord_lanes``): one launch per
+    MP_MAX columns of gr, each padded with zero columns to MP_MAX (the f32
+    V pass is that wide); K9's first launch computes s, the others are
+    K10's pass with c = s. -> (V, norms, coeffs, s), s None for K10."""
     p, n = fa.shape[0], f_t.shape[1]
     mp = gr.shape[1]
     dev = fa.device
     lib = _build.lib()
-    lv = coord_lanes(live)
     blocks = lib.glt_colstats_f32_blocks(lv)
     if blocks <= 0:
         _build.check(-blocks if blocks < 0 else 1,

@@ -1,27 +1,38 @@
 """The f32 K5/K6 (csrc/recompute_matvec.cu f32_sum_kernel, the split-fp16
-cross) as shipped and with the small.small product of the split kept, at
-the 8 MP matvec denoise's shapes with NLM 5 x 5 and 7 x 7 patches (32 and
-64 feature lanes), on one CUDA card.
+cross) as shipped and in earlier designs, at the 8 MP matvec denoise's
+shapes with NLM 5 x 5 and 7 x 7 patches (32 and 64 feature lanes), on one
+CUDA card, with a probe of the entry of a pixel with itself.
 
     python3 scripts/f32_matvec_designs.py [--reps N] [--out FILE] [--dry]
 
-The shipped cross is big.big + big.small + small.big of features split
-into fp16 big and small parts (each vector scaled by 2^-E); it drops
-small.small, about 2^-22 of 2^(Ea + Eb) a lane. On a sample's own column
-(a pixel against itself) that term is a sum of squares, never negative, so
-the kernel's d2 there is above zero and the entry below one: a lean low in
-K5's rows, which hold those columns, and not in K6's. The variant ``small
-small`` adds the term back (one more mma a k16 step into the corrections'
-chain). Each variant is a copy of recompute_matvec.cu with its text edited,
-built alone under build/f32_matvec_designs/<variant>/ (finish_repairs.py's
-build_all: one nvcc a variant, all at once), in front of the package's
-library while it runs. For each variant, patch and turn (--reps, default 2,
-variants in turn): K5's and K6's times (CUDA events, chip_smoke.cuda_ms)
-and, on the first turn, their largest error over max |plain| and their
-leans (chip_smoke.signed_stats) against the plain version and against the
-f64 sums (chip_smoke.f64_sums), on the vectors chip_smoke.matvec_cases
-makes. --dry writes the variant sources and checks the edits without a
-card. Prints the card line and one JSON line; --out writes the JSON.
+The shipped kernel adds each tile's sums into its running sums by a
+compensated (Kahan) add. The variants:
+
+* ``plain add`` — the design before it: a plain f32 add a tile;
+* ``plain add, small small`` — that design with the split cross's
+  small.small product kept (one more mma a k16 step);
+* ``small small`` — the shipped sums with small.small kept.
+
+K5 fixes the sample rows and streams every pixel, so each row holds its
+own sample pixel's column, whose entry is the largest of the row (d2 =
+0, k = 1), where max(d2, 0) would turn any error of d2 one way; and each
+row runs 8192 tiles a split, most of them far from the row's few live
+entries. The probes tell the two apart: K5 with v = 1 on the sample
+pixels' own columns and 0 elsewhere (each row's sum is then its own
+entry plus its entries at the other samples' columns), against the plain
+version and the f64 sums; and K5's leans with v zeroed on those columns.
+Each variant is a copy of recompute_matvec.cu with its text edited,
+built alone under build/f32_matvec_designs/<variant>/
+(finish_repairs.py's build_all: one nvcc a variant, all at once), in
+front of the package's library while it runs. For each variant, patch
+and turn (--reps, default 2, variants in turn): K5's and K6's times
+(CUDA events, chip_smoke.cuda_ms) and, on the first turn, their largest
+error over max |plain|, their leans (chip_smoke.signed_stats) against
+the plain version and against the f64 sums (chip_smoke.f64_sums), their
+and the plain version's max and p99 relative error against those sums,
+on the vectors chip_smoke.matvec_cases makes, and the two probes. --dry
+writes the variant sources and checks the edits without a card. Prints
+the card line and one JSON line; --out writes the JSON.
 """
 
 from __future__ import annotations
@@ -38,13 +49,26 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "graphlap_tpu_torch" / "csrc"
-_CORR = """          mma16816h(cr, ab[r][ks], b[ks].z, b[ks].w);
-          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);"""
+_KAHAN = ("""      for (int h = 0; h < 2; ++h) {   // compensated (Kahan) add
+        const float y = tacc[r][h] - cmp[r][h];
+        const float s = acc[r][h] + y;
+        cmp[r][h] = (s - acc[r][h]) - y;
+        acc[r][h] = s;
+      }""", """      for (int h = 0; h < 2; ++h) acc[r][h] += tacc[r][h];""")
+_FOLD = ("""      acc[r][h] -= cmp[r][h];
+""", "")
+_SS = ("""          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
+""", """          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
+          mma16816h(cr, as[r][ks], b[ks].z, b[ks].w);
+""")
 # {variant: ([(old, new)], what)}
 VARIANTS = {
-    "shipped": ([], "as shipped"),
-    "small small": ([(_CORR, _CORR + "\n          mma16816h(cr, as[r][ks], b[ks].z, b[ks].w);")],
-                    "the small.small product kept in the corrections' chain"),
+    "shipped": ([], "as shipped: each tile's sums join the running sums by a "
+                    "compensated add"),
+    "plain add": ([_KAHAN, _FOLD], "the design before: a plain f32 add a tile"),
+    "plain add, small small": ([_KAHAN, _FOLD, _SS],
+                               "a plain add a tile, small.small kept in the cross"),
+    "small small": ([_SS], "the shipped sums, small.small kept in the cross"),
 }
 
 
@@ -53,6 +77,36 @@ def _load(name: str, path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def probe_stats(got, ref, r64) -> dict:
+    """A probe's K5 rows: the kernel's and the plain version's relative
+    error against the f64 sums (mean, and its share below), and the
+    kernel's share below the plain version."""
+    def rel(x):
+        return (x.double() - r64) / r64.abs()
+    k, p = rel(got), rel(ref)
+    return dict(kernel_mean=float(k.mean()), kernel_below_f64=float((k < 0).double().mean()),
+                kernel_max=float(k.abs().max()), plain_mean=float(p.mean()),
+                plain_below_f64=float((p < 0).double().mean()), plain_max=float(p.abs().max()),
+                kernel_below_plain=float((got < ref).double().mean()),
+                kernel_vs_plain=cs_signed(got, ref), kernel_vs_f64=cs_signed(got, r64),
+                plain_vs_f64=cs_signed(ref, r64))
+
+
+def rel_stats(got, r64) -> list:
+    """[max, p99] of |got - r64| / |r64| over the outputs (chip_smoke's
+    sums_f64_check measure)."""
+    d = ((got.double() - r64).abs() / r64.abs())[r64 != 0]
+    return [float(d.max()), float(torch.quantile(d[::max(1, d.numel() >> 22)], 0.99))]
+
+
+def cs_signed(got, ref) -> float:
+    """chip_smoke.signed_stats' share below (per entry)."""
+    return _CS.signed_stats(got, ref, True)["share_below"]
+
+
+_CS = None
 
 
 def variant_sources(out: Path) -> dict:
@@ -88,13 +142,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("f32_matvec_designs: no CUDA card")
     sys.path.insert(0, str(ROOT))
-    cs = _load("chip_smoke_checks", ROOT / "chip_smoke.py")
+    global _CS
+    cs = _CS = _load("chip_smoke_checks", ROOT / "chip_smoke.py")
     cs.EXP_RATE = float("inf")   # chip_smoke.bound's exp rate: bounds unused here
     fr = _load("finish_repairs", ROOT / "scripts" / "finish_repairs.py")
 
     import graphlap_tpu_torch as gt
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import _build
+    from graphlap_tpu_torch.ops import cuda_matvec as k56
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -116,6 +172,17 @@ def main() -> None:
                 what = "matvec" if name == "matvec" else "rmatvec"
                 refs[name] = (plain(*a)[:keep[name]],
                               cs.f64_sums(a[0], a[1], what, a[2])[:keep[name]])
+            # the probes' vectors: 1 on the sample pixels' own columns; the
+            # path's v zeroed there
+            fa, f_t, v = cases["matvec"][2][:3]
+            v_self = torch.zeros_like(v)
+            v_self[ctx.idx_a] = 1.0
+            v_zero = v.clone()
+            v_zero[ctx.idx_a] = 0.0
+            probes = {}
+            for pname, pv in (("self", v_self), ("zeroed", v_zero)):
+                probes[pname] = (pv, k56.matvec_plain(fa, f_t, pv, False)[:ctx.p],
+                                 cs.f64_sums(fa, f_t, "matvec", pv)[:ctx.p])
             for rep in range(args.reps):
                 for vname, lib in libs.items():
                     _build._LIB = lib
@@ -130,9 +197,14 @@ def main() -> None:
                                 err=float((got - ref).abs().max() / ref.abs().max()),
                                 vs_plain=cs.signed_stats(got, ref, True)["share_below"],
                                 vs_f64=cs.signed_stats(got, r64, True)["share_below"],
-                                plain_vs_f64=cs.signed_stats(ref, r64, True)["share_below"])
+                                plain_vs_f64=cs.signed_stats(ref, r64, True)["share_below"],
+                                f64_rel=rel_stats(got, r64), plain_f64_rel=rel_stats(ref, r64))
+                    if rep == 0:
+                        for pname, (pv, ref, r64) in probes.items():
+                            got = k56.matvec_cuda(fa, f_t, pv, False)[:ctx.p]
+                            row[f"matvec {pname}"] = probe_stats(got, ref, r64)
                     print(f"{vname}, patch {patch}: {row}", flush=True)
-            del ctx, cases, refs
+            del ctx, cases, refs, probes, v_self, v_zero
             torch.cuda.empty_cache()
     finally:
         _build._LIB = saved

@@ -13,8 +13,12 @@ times the kernel's own s (the lean of u's accumulation alone); the plain
 u against the f64 sum with the plain s; the kernel's s and the plain s
 against the f64 evaluation of s on the same bf16 tile entries
 (chip_smoke.ext2_recompute_f64: bf16 t2, kbt and s in f64), the reference
-chip_smoke.py holds K8's s to. Prints the card line and one JSON line a
-case.
+chip_smoke.py holds K8's s to. Each case runs twice: with sample rows
+drawn apart from the columns (no row meets its own features), and with the
+sample rows equal to the first p columns, so that every row holds its own
+column, whose entry is the largest of the row (d2 = 0 in f64, k = 1): the
+probe of K5 f32's low lean (scripts/f32_matvec_designs.py), where those
+entries lean one way. Prints the card line and one JSON line a case.
 """
 
 from __future__ import annotations
@@ -67,11 +71,13 @@ def main() -> None:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
-    for d, p, n in CASES:
+    for (d, p, n), own in ((c, own) for c in CASES for own in (False, True)):
         rng = np.random.default_rng(p + n)
         tt = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
-        fa_aug, f_t = rl.aug_pads(tt(rng.normal(0, 0.3, (p, d))),
-                                  tt(rng.normal(0, 0.3, (n, d))), n)
+        fa_raw, fb_raw = rng.normal(0, 0.3, (p, d)), rng.normal(0, 0.3, (n, d))
+        if own:
+            fa_raw = fb_raw[:p]
+        fa_aug, f_t = rl.aug_pads(tt(fa_raw), tt(fb_raw), n)
         bm = tt(rng.random(n) > 0.2)
         t2 = torch.zeros((2, fa_aug.shape[0]), device=dev)
         t2[:, :p] = tt(rng.uniform(0.5, 1.5, (2, p)))
@@ -80,6 +86,7 @@ def main() -> None:
         s64 = cs.ext2_recompute_f64(fa_aug, f_t, t2, bm, True)[1]
         print(json.dumps(dict(
             lanes=f_t.shape[0], features=d, p_pad=fa_aug.shape[0], n=n,
+            rows_are_columns=own,
             u_vs_plain=share_below(u[:p], u_p[:p]),
             s_vs_plain=share_below(s, s_p),
             u_vs_f64_own_s=share_below(u[:p], u_f64(k79, fa_aug, f_t, s)[:p]),

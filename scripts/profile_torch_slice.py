@@ -3,8 +3,8 @@ card.
 
     python3 scripts/profile_torch_slice.py
         [--path config2|config2f32|config2p7|config4|config4p7|config3|
-                config3p7|config4q|config4qp7|turbo|dense|bilateral|both|
-                all]
+                config3p7|config4q|config4qp7|turbo|dense|bilateral|
+                bilateralA|bilateralB|bilateralC|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
@@ -21,7 +21,12 @@ RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
 turbo recipe on the unfused spectral schedule; dense:
 chip_smoke.make_workload_dense, bench.py's f32 twin of config 2 on the dense
 path; bilateral: chip_smoke.make_workload_bilateral, the 8 MP bilateral
-denoise on f32 tiles (fused finish: the f32 K8, K7 and K9); "both" is
+denoise on f32 tiles (fused finish: the f32 K8, K7 and K9); bilateralA,
+bilateralB, bilateralC: the NLM 7x7 recipes with a spatial term
+(chip_smoke.make_workload_cfg2_bilateral: config 2's strip_cache, K1's
+64-lane coordinate cross; make_workload_8mp_nlm_bilateral: the 8 MP fused
+finish, the 64-lane f32 K8, K7, K9; make_workload_8mp_nlm_bilateral_matvec:
+the 8 MP matvec denoise, the 64-lane coordinate K5/K6); "both" is
 config 2 and config 4, "all" every path) it runs
 filter_image once to warm up, then:
 
@@ -207,8 +212,9 @@ def main() -> None:
     ap.add_argument("--path", choices=("config2", "config2f32", "config2p7",
                                        "config4", "config4p7", "config3",
                                        "config3p7", "config4q", "config4qp7",
-                                       "turbo", "dense",
-                                       "bilateral", "both", "all"),
+                                       "turbo", "dense", "bilateral",
+                                       "bilateralA", "bilateralB",
+                                       "bilateralC", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -235,7 +241,10 @@ def main() -> None:
              "config4qp7": lambda g: chip_smoke.make_workload_8mp_matvec(g, 7),
              "turbo": chip_smoke.make_workload_8mp_turbo,
              "dense": chip_smoke.make_workload_dense,
-             "bilateral": chip_smoke.make_workload_bilateral}
+             "bilateral": chip_smoke.make_workload_bilateral,
+             "bilateralA": chip_smoke.make_workload_cfg2_bilateral,
+             "bilateralB": chip_smoke.make_workload_8mp_nlm_bilateral,
+             "bilateralC": chip_smoke.make_workload_8mp_nlm_bilateral_matvec}
     chosen = {"both": ("config2", "config4"), "all": tuple(paths)}.get(
         args.path, (args.path,))
     for tag, workload in paths.items():

@@ -144,19 +144,35 @@ def test_context_records_live_lanes_and_coordinates(img_noisy):
     assert (nlm.live, nlm.coords) == (28, False)
 
 
-@pytest.fixture(scope="module")
-def reference(jx, img_noisy):
-    """graphlap_tpu's fused and staged runs of the recipe, and its LOBPCG
+# the recipes at 96x96, written out as the presets resolve them at 8 MP
+# (the decimations cut to fit): the gaussian bilateral recipe; recipe B, an
+# NLM 7 x 7 patch with the spatial term (h 0.15, 52 live lanes of 64,
+# chip_smoke.make_workload_8mp_nlm_bilateral); recipe C, its matvec twin
+# (denoise_tuned(0.1): h 0.1, the operator filter by K5/K6)
+RECIPES = {
+    "gaussian": dict(),
+    "nlm7": dict(kernel="nlm", h=0.15, patch_size=7),
+    "nlm7_matvec": dict(kernel="nlm", h=0.1, patch_size=7,
+                        filter_mode="matvec", fused_finish=False),
+}
+# (live lanes, the matvec filter's K5/K6 calls a run) of each recipe
+RECIPE_LANES = {"gaussian": 4, "nlm7": 52, "nlm7_matvec": 52}
+
+
+@pytest.fixture(scope="module", params=list(RECIPES))
+def reference(jx, img_noisy, request):
+    """graphlap_tpu's fused and staged runs of a recipe, and its LOBPCG
     start block."""
     _, noisy = img_noisy
-    cfg = _cfg()
+    cfg = _cfg(**RECIPES[request.param])
     plan = gt.make_plan(noisy, cfg)
     fused = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
     unfused_cfg = cfg.replace(fused_finish=False)
     unfused = jx.gl.filter_image(noisy, jx.cfg(unfused_cfg), plan=plan)
     staged = jx.gl.filter_image_staged(noisy, jx.cfg(unfused_cfg), plan=plan)
-    return SimpleNamespace(cfg=cfg, plan=plan, fused=fused, unfused=unfused,
-                           staged=staged,
+    return SimpleNamespace(name=request.param, cfg=cfg, plan=plan,
+                           fused=fused, unfused=unfused, staged=staged,
+                           live=RECIPE_LANES[request.param],
                            x0=T(_x0(jx, plan.p, cfg.num_eigvecs)))
 
 
@@ -172,20 +188,42 @@ def _spy(monkeypatch, module, names):
     return calls
 
 
+def _ktilde_seen(monkeypatch):
+    """The (live lanes, coordinate flag) of each ktilde_apply call (the
+    polish and the operator filter's K5 + K6)."""
+    seen = []
+    real = tms.ktilde_apply
+    monkeypatch.setattr(tms, "ktilde_apply",
+                        lambda ctx, s: seen.append((ctx.live, ctx.coords))
+                        or real(ctx, s))
+    return seen
+
+
 def test_fused_recipe_matches_reference(img_noisy, reference, monkeypatch):
-    """filter_image's schedule: K8, K7 + the f32 gram GEMM, LOBPCG, K9."""
+    """filter_image's schedule: K8, K7 + the f32 gram GEMM, LOBPCG, K9 on
+    the spectral recipes; on recipe C (the matvec route) the polish and the
+    filter, K5 + K6 twice, on the coordinate layout of 52 live lanes."""
     img, noisy = img_noisy
     r = reference
     calls = _spy(monkeypatch, k79, ("ext2_matvec_plain", "kb_strip_plain",
                                     "finish_colstats_plain",
                                     "colstats_v_plain"))
+    mv = _spy(monkeypatch, k56, ("matvec_plain", "rmatvec_plain"))
+    seen = _ktilde_seen(monkeypatch)
     z, vals = _filter_channel(T(noisy), interop.idx_to_device(r.plan.idx_a,
                                                               "cpu"),
                               r.cfg, x0=r.x0)
-    assert calls == {"ext2_matvec_plain": 1, "kb_strip_plain": 1,
-                     "finish_colstats_plain": 1, "colstats_v_plain": 0}
+    if r.cfg.filter_mode == "matvec":
+        assert calls == dict.fromkeys(calls, 0)
+        assert mv == {"matvec_plain": 2, "rmatvec_plain": 2}
+        assert seen == [(r.live, True)] * 2
+    else:
+        assert calls == {"ext2_matvec_plain": 1, "kb_strip_plain": 1,
+                         "finish_colstats_plain": 1, "colstats_v_plain": 0}
+        assert mv == {"matvec_plain": 0, "rmatvec_plain": 0} and seen == []
+        np.testing.assert_allclose(vals[0].numpy(), r.fused.eigvals[0],
+                                   rtol=1e-2)
     assert_bars(img, z.numpy(), r.fused.image)
-    np.testing.assert_allclose(vals[0].numpy(), r.fused.eigvals[0], rtol=1e-2)
 
 
 @pytest.mark.parametrize("route", ["unfused", "staged"])
@@ -193,18 +231,15 @@ def test_unfused_recipe_matches_reference(img_noisy, reference, monkeypatch,
                                           route):
     """The unfused schedule (filter_image with fused_finish off, and
     filter_image_staged): the coarse loop, rmatvec2, the polish through
-    K5 + K6 with the coordinate flag, K7, LOBPCG, K10."""
+    K5 + K6 with the coordinate flag, K7, LOBPCG, K10; on recipe C the
+    polish and the operator filter, K5 + K6 twice, and no K7-K10."""
     img, noisy = img_noisy
     r = reference
     cfg = r.cfg.replace(fused_finish=False)
     mv = _spy(monkeypatch, k56, ("matvec_plain", "rmatvec_plain"))
     calls = _spy(monkeypatch, k79, ("kb_strip_plain", "colstats_v_plain",
                                     "ext2_matvec_plain"))
-    seen = []
-    real = tms.ktilde_apply
-    monkeypatch.setattr(tms, "ktilde_apply",
-                        lambda ctx, s: seen.append((ctx.live, ctx.coords))
-                        or real(ctx, s))
+    seen = _ktilde_seen(monkeypatch)
     if route == "staged":
         res = _filter_streaming_staged(noisy, cfg, r.plan, "cpu", x0=r.x0)
         got, ref = res.image, r.staged.image
@@ -214,30 +249,49 @@ def test_unfused_recipe_matches_reference(img_noisy, reference, monkeypatch,
                                                                "cpu"),
                                cfg, x0=r.x0)
         got, ref = z.numpy(), r.unfused.image
-    assert mv == {"matvec_plain": 1, "rmatvec_plain": 1}
-    assert calls == {"kb_strip_plain": 1, "colstats_v_plain": 1,
+    k56_calls = 2 if cfg.filter_mode == "matvec" else 1
+    assert mv == {"matvec_plain": k56_calls, "rmatvec_plain": k56_calls}
+    assert calls == {"kb_strip_plain": 2 - k56_calls,
+                     "colstats_v_plain": 2 - k56_calls,
                      "ext2_matvec_plain": 0}
-    assert seen == [(4, True)]
+    assert seen == [(r.live, True)] * k56_calls
     assert_bars(img, got, ref)
 
 
 # --- the f32 K7-K10 plain versions on coordinate-scale features --------------
 
-def _coord_inputs(jx, seed=7, p=300, n=1024, m=50):
-    """Features as the bilateral recipe builds them, (y/h, row/8, col/8),
-    on coordinates in [448, 512): |f|^2 up to ~1.2e4, neighbours within 64
-    px so most tile entries are live; the reference's f32 plain layout."""
+def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
+    """Features as a bilateral recipe builds them, on coordinates in [448,
+    512): |f|^2 up to ~1.2e4, neighbours within 64 px so most tile entries
+    are live; the reference's f32 plain layout. ``kind`` "gaussian": (y/h,
+    row/8, col/8), 3 lanes of 32; "nlm7": the reference's own features of
+    recipe B (graphlap_tpu.ops.affinity.extract_features, an NLM 7 x 7
+    patch at h 0.15 and row/8, col/8) on a 64 x 64 noisy image, its
+    coordinates moved to the far corner of a 512 x 512 one: 51 lanes, 52
+    live, of 64."""
     jnp, pst = jx.jnp, jx.pst
     rng = np.random.default_rng(seed)
-
-    def feats(k):
-        rc = rng.uniform(448, 512, (k, 2)) / 8.0
-        return np.concatenate([rng.uniform(0, 5, (k, 1)), rc],
-                              axis=1).astype(np.float32)
-    fa, fp = feats(p), feats(n)
+    if kind == "nlm7":
+        from graphlap_tpu.ops.affinity import extract_features
+        img = np.clip(gt.add_gaussian_noise(gt.make_test_image(64, 64), 0.1,
+                                            seed=seed), 0, 1)
+        cfg = jx.cfg(_cfg(**RECIPES["nlm7"]))
+        allf = np.asarray(extract_features(jnp.asarray(img, jnp.float32),
+                                           cfg)).copy()
+        allf[:, 49:] += 448 / 8.0
+        fa = allf[rng.choice(allf.shape[0], p, replace=False)]
+        fp = allf[rng.choice(allf.shape[0], n, replace=False)]
+    else:
+        def feats(k):
+            rc = rng.uniform(448, 512, (k, 2)) / 8.0
+            return np.concatenate([rng.uniform(0, 5, (k, 1)), rc],
+                                  axis=1).astype(np.float32)
+        fa, fp = feats(p), feats(n)
+    d = fa.shape[1]
+    dp = pst.d_pad_of(d)
     _, p_pad = pst.p_tiling(p)
-    fa_pad = jnp.zeros((p_pad, 32), jnp.float32).at[:p, :3].set(fa)
-    f_t = jnp.zeros((32, n), jnp.float32).at[:3, :].set(fp.T)
+    fa_pad = jnp.zeros((p_pad, dp), jnp.float32).at[:p, :d].set(fa)
+    f_t = jnp.zeros((dp, n), jnp.float32).at[:d, :].set(fp.T)
     bm = (rng.random(n) > 0.2).astype(np.float32)
     t2 = np.zeros((2, p_pad), np.float32)
     t2[:, :p] = rng.uniform(0.5, 1.5, (2, p))
@@ -253,7 +307,11 @@ def _coord_inputs(jx, seed=7, p=300, n=1024, m=50):
         fa_pad=fa_pad, f_t=f_t, bm=bm, t2=t2, t=t, na=na, nb=nb, gr=gr,
         s_pre=(rng.uniform(0.5, 1.5, n) * bm).astype(np.float32),
         y=rng.uniform(0, 1, n).astype(np.float32),
-        cols=rng.uniform(0.5, 1.5, n).astype(np.float32), p=p, tol=tol)
+        cols=rng.uniform(0.5, 1.5, n).astype(np.float32), p=p, tol=tol,
+        live=-(-d // 4) * 4)
+
+
+COORD_KINDS = pytest.mark.parametrize("kind", ["gaussian", "nlm7"])
 
 
 def _sum_bar(got, ref, terms, tol):
@@ -263,30 +321,32 @@ def _sum_bar(got, ref, terms, tol):
         float((err / (np.asarray(terms) + 1e-30)).max()), tol)
 
 
-def test_k7_f32_plain_matches_pallas_on_coordinates(jx):
-    x = _coord_inputs(jx)
+@COORD_KINDS
+def test_k7_f32_plain_matches_pallas_on_coordinates(jx, kind):
+    x = _coord_inputs(jx, kind=kind)
     ref = N(jx.pst.kb_strip_pallas(x.fa_pad, x.f_t[:, :512],
                                    jx.jnp.asarray(x.cols[:512])))
     got = k79.kb_strip_plain(T(N(x.fa_pad)), T(N(x.f_t[:, :512])),
-                             T(x.cols[:512]), False, 4)
+                             T(x.cols[:512]), False, x.live)
     assert got.dtype == torch.float32
     assert np.abs(ref[:x.p]).max() > 0.5          # live entries
     np.testing.assert_allclose(N(got), ref, rtol=0, atol=1.5 * x.tol)
     g_ref = N(jx.pst.gram_pallas(x.fa_pad, x.f_t[:, :512],
                                  jx.jnp.asarray(x.cols[:512]), 512))
     g = k79.gram_plain(T(N(x.fa_pad)), T(N(x.f_t[:, :512])), T(x.cols[:512]),
-                       False, 4)
+                       False, x.live)
     kb = np.abs(ref).astype(np.float64)
     _sum_bar(N(g), g_ref, 2 * kb @ kb.T, x.tol)
 
 
-def test_k8_f32_plain_matches_pallas_on_coordinates(jx):
+@COORD_KINDS
+def test_k8_f32_plain_matches_pallas_on_coordinates(jx, kind):
     jnp = jx.jnp
-    x = _coord_inputs(jx)
+    x = _coord_inputs(jx, kind=kind)
     u_r, s_r = jx.pst.ext2_matvec_pallas(x.fa_pad, x.f_t, jnp.asarray(x.t2),
                                          jnp.asarray(x.bm))
     u, s = k79.ext2_matvec_plain(T(N(x.fa_pad)), T(N(x.f_t)), T(x.t2),
-                                 T(x.bm), False, 4)
+                                 T(x.bm), False, x.live)
     # s = bm / sqrt(kbt_r kbt_c): each kbt sum moves by at most tol of its
     # terms' magnitudes (all positive), so s by at most ~tol relative
     np.testing.assert_allclose(N(s), N(s_r), rtol=4 * x.tol, atol=0)
@@ -296,9 +356,10 @@ def test_k8_f32_plain_matches_pallas_on_coordinates(jx):
     assert (N(s)[x.bm == 0] == 0).all()
 
 
-def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx):
+@COORD_KINDS
+def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx, kind):
     jnp = jx.jnp
-    x = _coord_inputs(jx)
+    x = _coord_inputs(jx, kind=kind)
     args_r = (x.fa_pad, x.f_t)
     gr64 = x.gr[:, :64]
     ref9 = jx.pst.finish_colstats_pallas(
@@ -307,13 +368,13 @@ def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx):
         jnp.asarray(x.nb))
     got9 = k79.finish_colstats_plain(
         T(N(x.fa_pad)), T(N(x.f_t)), T(x.t), T(x.s_pre), T(x.bm), T(gr64),
-        T(x.y), T(x.na), T(x.nb), 4)
+        T(x.y), T(x.na), T(x.nb), x.live)
     ref10 = jx.pst.colstats_v_pallas(
         *args_r, jnp.asarray(x.gr), jnp.asarray(x.y), jnp.asarray(x.cols),
         jnp.asarray(x.na), jnp.asarray(x.nb))
     got10 = k79.colstats_v_plain(
         T(N(x.fa_pad)), T(N(x.f_t)), T(x.gr), T(x.y), T(x.cols), T(x.na),
-        T(x.nb), 4)
+        T(x.nb), x.live)
     kb = np.abs(N(k79.kb_strip_plain(T(N(x.fa_pad)), T(N(x.f_t)),
                                      torch.ones(x.bm.shape[0]), False)))
     for got, ref, c, g in ((got9, ref9, N(ref9[3]), gr64),
@@ -332,56 +393,86 @@ def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx):
 
 # --- dispatch --------------------------------------------------------------------
 
-def _f32_layouts(p=300, n=1024):
+def _f32_layouts(p=300, n=1024, d=3, fd=32):
     rng = np.random.default_rng(3)
-    fa = torch.zeros((512, 32))
-    fa[:p, :3] = T(rng.uniform(0, 60, (p, 3)))
-    f_t = torch.zeros((32, n))
-    f_t[:3] = T(rng.uniform(0, 60, (3, n)))
+    fa = torch.zeros((512, fd))
+    fa[:p, :d] = T(rng.uniform(0, 60, (p, d)))
+    f_t = torch.zeros((fd, n))
+    f_t[:d] = T(rng.uniform(0, 60, (d, n)))
     return fa, f_t
 
 
-def test_f32_cuda_layouts_reach_the_library(monkeypatch):
-    """On CUDA tensors the f32 layouts go to the kernel library (here
-    missing, so its RuntimeError), never to the plain versions; K5/K6 take
-    the coordinate kernel only where asked."""
+def _f32_cases(fa, f_t, live, d):
+    n, pp = f_t.shape[1], fa.shape[0]
+    one = lambda k: torch.ones(k)  # noqa: E731
+    return [
+        (k79.kb_strip_cuda, (fa, f_t, one(n), False, live)),
+        (k79.ext2_matvec_cuda, (fa, f_t, torch.ones((2, pp)), one(n), False,
+                                live)),
+        (k79.finish_colstats_cuda, (fa, f_t, one(pp), one(n), one(n),
+                                    torch.ones((pp, 64)), one(n), one(pp),
+                                    one(n), live)),
+        (k79.colstats_v_cuda, (fa, f_t, torch.ones((pp, 64)), one(n), one(n),
+                               one(pp), one(n), live)),
+        (k56.matvec_cuda, (fa, f_t, one(n), False, live, True)),
+        (k56.rmatvec_cuda, (fa, f_t, one(pp), False, live, True)),
+        (k1.affinity_strip_cuda, (fa[:300, :d], f_t[:d].T.contiguous(),
+                                  torch.float32, None, True)),
+    ]
+
+
+@pytest.mark.parametrize("d,fd", [(3, 32), (51, 64)])
+def test_f32_cuda_layouts_reach_the_library(monkeypatch, d, fd):
+    """On CUDA tensors the f32 layouts, with 4 live lanes of 32 (gaussian
+    and the coordinates) or 52 of 64 (an NLM 7 x 7 patch and the
+    coordinates), go to the kernel library (here missing, so its
+    RuntimeError), never to the plain versions; K5/K6 take the coordinate
+    kernel only where asked; 96 and 128 lanes raise NotImplementedError
+    naming ROADMAP Queue 2b, and live lanes past the layout's ValueError,
+    all before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
     for mod in (k79, k56, k1):
         monkeypatch.setattr(mod, "_device_kind", lambda *ts: "cuda")
     monkeypatch.setattr(_build, "lib", no_lib)
-    fa, f_t = _f32_layouts()
-    n = f_t.shape[1]
-    one = lambda k: torch.ones(k)  # noqa: E731
-    cases = [
-        (k79.kb_strip_cuda, (fa, f_t, one(n), False, 4)),
-        (k79.ext2_matvec_cuda, (fa, f_t, torch.ones((2, 512)), one(n), False,
-                                4)),
-        (k79.finish_colstats_cuda, (fa, f_t, one(512), one(n), one(n),
-                                    torch.ones((512, 64)), one(n), one(512),
-                                    one(n), 4)),
-        (k79.colstats_v_cuda, (fa, f_t, torch.ones((512, 64)), one(n), one(n),
-                               one(512), one(n), 4)),
-        (k56.matvec_cuda, (fa, f_t, one(n), False, 4, True)),
-        (k56.rmatvec_cuda, (fa, f_t, one(512), False, 4, True)),
-        (k1.affinity_strip_cuda, (fa[:300, :3], f_t[:3].T.contiguous(),
-                                  torch.float32, None, True)),
-    ]
+    fa, f_t = _f32_layouts(d=d, fd=fd)
+    live = -(-d // 4) * 4
+    cases = _f32_cases(fa, f_t, live, d)
     before = [fn.launches for fn, _ in cases]
     for fn, args in cases:
         with pytest.raises(RuntimeError, match="unavailable"):
             fn(*args)
+    for lanes in (96, 128):
+        wide, wide_t = _f32_layouts(d=d, fd=lanes)
+        for fn, args in _f32_cases(wide, wide_t, live, lanes)[:6]:
+            with pytest.raises(NotImplementedError, match="Queue 2b"):
+                fn(*args)
+    with pytest.raises(NotImplementedError, match="Queue 2b"):
+        k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)),
+                               coords=True)
     assert [fn.launches for fn, _ in cases] == before
     with pytest.raises(ValueError, match="live lanes"):
-        k79.kb_strip_cuda(fa, f_t, one(n), False, 40)
+        k79.kb_strip_cuda(fa, f_t, torch.ones(f_t.shape[1]), False, fd + 8)
+    with pytest.raises(ValueError, match="live lanes"):
+        k56.matvec_cuda(fa, f_t, torch.ones(f_t.shape[1]), False, fd + 1,
+                        True)
 
 
 def test_lane_counts():
-    assert [k79._lanes(x) for x in (None, 1, 3, 4, 5, 27, 32)] == [
+    assert [k79._lanes(x, 32) for x in (None, 1, 3, 4, 5, 27, 32)] == [
         32, 4, 4, 4, 8, 28, 32]
-    assert [k79.coord_lanes(x) for x in (None, 3, 4, 5, 28)] == [
+    assert [k79._lanes(x, 64) for x in (None, 4, 33, 51, 52, 64)] == [
+        64, 4, 36, 52, 52, 64]
+    assert [k79.coord_lanes(x, 32) for x in (None, 3, 4, 5, 28)] == [
         32, 4, 4, 32, 32]
+    assert [k79.coord_lanes(x, 64) for x in (None, 4, 51, 52, 64)] == [
+        64, 4, 64, 64, 64]
+    for fd, live in ((32, 33), (64, 65)):
+        with pytest.raises(ValueError, match="live lanes"):
+            k79._lanes(live, fd)
+        with pytest.raises(ValueError, match="live lanes"):
+            k79.coord_lanes(live, fd)
 
 
 # --- on the card ---------------------------------------------------------------
@@ -393,29 +484,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _card_layouts(dev, p, n, h_img, w_img, seed=1):
+def _card_layouts(dev, p, n, h_img, w_img, seed=1, d=3):
     """The bilateral recipe's f32 layouts for p sample pixels and n pixels
-    of an h_img x w_img image (y/0.2, row/8, col/8), as the context builds
-    them, on the card."""
+    of an h_img x w_img image, as the context builds them, on the card: d -
+    2 value lanes in [0, 5) (y/0.2 for the gaussian kernel, d = 3; an NLM
+    patch's pixels over h for d = 27 and 51, 5 x 5 and 7 x 7), then row/8,
+    col/8, in a 32- or 64-lane layout (28 and 52 live lanes past 3)."""
     rng = np.random.default_rng(seed)
 
     def feats(k):
         r = rng.integers(0, h_img, k)
         c = rng.integers(0, w_img, k)
-        return np.stack([rng.uniform(0, 5, k), r / 8.0, c / 8.0],
-                        axis=1).astype(np.float32)
+        y = rng.uniform(0, 5, (k, d - 2))
+        return np.concatenate([y, np.stack([r / 8.0, c / 8.0], axis=1)],
+                              axis=1).astype(np.float32)
     fa3 = feats(p)
-    # columns: neighbours of the sample rows (within 32 px), so tiles live
+    # columns: neighbours of the sample rows (within 32 px, the value lanes
+    # within 0.5 / sqrt(d - 2) a lane), so tiles live
     base = fa3[rng.integers(0, p, n)]
-    fp3 = base + np.stack([rng.uniform(-1, 1, n) * 0.5,
-                           rng.integers(-32, 33, n) / 8.0,
-                           rng.integers(-32, 33, n) / 8.0],
-                          axis=1).astype(np.float32)
+    jit = rng.uniform(-1, 1, (n, d - 2)) * 0.5 / np.sqrt(d - 2)
+    fp3 = base + np.concatenate(
+        [jit, np.stack([rng.integers(-32, 33, n) / 8.0,
+                        rng.integers(-32, 33, n) / 8.0], axis=1)],
+        axis=1).astype(np.float32)
     p_pad = rl.p_tiling(p)[1]
-    fa = torch.zeros((p_pad, 32), device=dev)
-    fa[:p, :3] = torch.tensor(fa3, device=dev)
-    f_t = torch.zeros((32, n), device=dev)
-    f_t[:3] = torch.tensor(fp3.T.copy(), device=dev)
+    fd = 32 if d <= 32 else 64
+    fa = torch.zeros((p_pad, fd), device=dev)
+    fa[:p, :d] = torch.tensor(fa3, device=dev)
+    f_t = torch.zeros((fd, n), device=dev)
+    f_t[:d] = torch.tensor(fp3.T.copy(), device=dev)
     return fa, f_t
 
 
@@ -467,25 +564,45 @@ def _ext2_f64(fa, f_t, t2, bm, chunk=8192):
     return u, s
 
 
-def _within_plain(k, pl):
+def _within_plain(k, pl, floor=1e-12):
     """The kernel's max and p99 |dK| against f64 at most 1.5x the plain
-    f32 version's."""
-    assert k[0] <= 1.5 * pl[0] + 1e-12 and k[1] <= 1.5 * pl[1] + 1e-12, (
+    f32 version's, plus ``floor``."""
+    assert k[0] <= 1.5 * pl[0] + floor and k[1] <= 1.5 * pl[1] + floor, (
         k, pl)
 
 
+# NLM lanes (d 27 and 51): the tile entries of a test slab are small
+# (k ~ 1e-5..1e-2: the columns lie within 32 px of one random sample), so
+# both versions' errors against f64, of the tile and of K8's sums, sit at
+# a few f32 ulps (expf's own 2 ulps, the rounding of k and of the sums)
+# and their ratio is noise: the 1.5x rule gets a floor of 4 ulps, 2^-21
+# (absolute on the tile, relative on the sums). And K8's s_j = bm_j /
+# sqrt(kbt_r kbt_c) moves with its column's norm, which the kernel sums as
+# an FMA chain and the plain version as rounded squares, by several % of
+# s_j (chip_smoke.py's ext2_matvec_f32_d64 bar): a gross bar of 0.1 of
+# max |s|
+NLM_ULP_FLOOR = 2.0 ** -21
+NLM_K8_GROSS = 0.1
+
+
+LIVE_D = [3, 27, 51]    # raw lanes: gaussian, NLM 5x5, NLM 7x7 + (row, col)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", LIVE_D)
 @pytest.mark.parametrize("p,n,img", [(1000, 33024, (512, 512)),
                                      (4000, 65536, (2048, 4096))])
-def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
+def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img, d):
     """K7-K10 f32 at splitting shapes (p_pad 1024 or 4096, column tiles that
-    do not divide among the clusters or blocks): K9's and K10's sums against
-    the plain version to 2e-4 relative (the norms are passed in, so only the
-    cross's order differs), K7's tile and K8's u and s against f64 under the
-    1.5x rule, two launches bit for bit, and the leans of u, s and V in
-    (0.25, 0.75)."""
+    do not divide among the clusters or blocks) at 4, 28 and 52 live lanes
+    (32-, 32- and 64-lane layouts): K9's and K10's sums against the plain
+    version to 2e-4 relative (the norms are passed in, so only the cross's
+    order differs), K7's tile and K8's u and s against f64 under the 1.5x
+    rule, two launches bit for bit, and the leans of u, s and V in (0.25,
+    0.75)."""
     dev = cuda_device
-    fa, f_t = _card_layouts(dev, p, n, *img)
+    fa, f_t = _card_layouts(dev, p, n, *img, d=d)
+    live = -(-d // 4) * 4
     p_pad = fa.shape[0]
     rng = np.random.default_rng(p)
     r = lambda *s: torch.tensor(rng.uniform(0.5, 1.5, s).astype(  # noqa: E731
@@ -493,7 +610,7 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
     cols = r(n)
     # K7 on the first 16384 columns
     s7 = 16384
-    args = (fa, f_t[:, :s7].contiguous(), cols[:s7], False, 4)
+    args = (fa, f_t[:, :s7].contiguous(), cols[:s7], False, live)
     kb = k79.kb_strip_cuda(*args)
     assert torch.equal(kb, k79.kb_strip_cuda(*args))
     kb_p = k79.kb_strip_plain(*args)
@@ -501,14 +618,15 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
     cc = torch.arange(0, s7, 5, device=dev)
     t64 = _f64_tile(fa, f_t, rows, cc) * cols[cc].double()
     _within_plain(_err_stats(kb[rows][:, cc], t64),
-                  _err_stats(kb_p[rows][:, cc], t64))
+                  _err_stats(kb_p[rows][:, cc], t64),
+                  1e-12 if d == 3 else NLM_ULP_FLOOR)
     del kb, kb_p, t64
     # K8
     bm = torch.ones(n, device=dev)
     bm[::7] = 0.0
     t2 = torch.zeros((2, p_pad), device=dev)
     t2[:, :p] = r(2, p)
-    args = (fa, f_t, t2, bm, False, 4)
+    args = (fa, f_t, t2, bm, False, live)
     u, s = k79.ext2_matvec_cuda(*args)
     u2, s2 = k79.ext2_matvec_cuda(*args)
     assert torch.equal(u, u2) and torch.equal(s, s2)
@@ -519,9 +637,12 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
         # squares: one ulp of |f|^2 moves a whole row's entries together,
         # so the sums are held to f64 (the 1.5x rule) and to the plain
         # version only for gross errors
-        assert float((got - ref).abs().max()) <= 1e-2 * float(ref.abs().max())
+        gross = 1e-2 if d == 3 else NLM_K8_GROSS
+        assert float((got - ref).abs().max()) <= gross * float(
+            ref.abs().max())
         _within_plain(_rel_stats(got[:keep], r64[:keep]),
-                      _rel_stats(ref[:keep], r64[:keep]))
+                      _rel_stats(ref[:keep], r64[:keep]),
+                      1e-12 if d == 3 else NLM_ULP_FLOOR)
         assert 0.25 < _share_below(got[:keep], ref[:keep]) < 0.75
     # K9 and K10
     gr = torch.zeros((p_pad, 64), device=dev)
@@ -536,14 +657,17 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
     a10 = (fa, f_t, gr, y, cols, na, nb)
     for fn, pl, a in ((k79.finish_colstats_cuda, k79.finish_colstats_plain,
                        a9), (k79.colstats_v_cuda, k79.colstats_v_plain, a10)):
-        got = fn(*a, live=4)
-        again = fn(*a, live=4)
+        got = fn(*a, live=live)
+        again = fn(*a, live=live)
         assert all(torch.equal(g, h) for g, h in zip(got, again))
         ref = pl(*a)
         v, v_r = got[0], ref[0]
         assert float((v - v_r).abs().max()) <= 2e-4 * float(v_r.abs().max())
         assert float(v[:, 50:].abs().max()) == 0.0
-        assert 0.25 < _share_below(v, v_r) < 0.75
+        assert float(v_r.abs().max()) > 0.0
+        # no lean where every entry equals the plain version's (all tied)
+        share = _share_below(v, v_r)
+        assert bool(torch.equal(v, v_r)) or 0.25 < share < 0.75
         scale_n = torch.sum(v_r * v_r, dim=0)[:50]
         scale_c = (torch.abs(y) @ torch.abs(v_r))[:50]
         for g_, r_, sc in ((got[1][:50], ref[1][:50], scale_n),
@@ -555,14 +679,17 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", LIVE_D)
 @pytest.mark.parametrize("img", [(512, 512), (2048, 4096)])
-def test_coordinate_cross_against_f64(cuda_device, img):
-    """K1 (both stores) and the f32 K5/K6 on coordinate features: the tile
-    against f64, the kernel's max and p99 |dK| at most 1.5x the plain f32
-    version's. The split-fp16 cross (the NLM route) is printed beside."""
+def test_coordinate_cross_against_f64(cuda_device, img, d):
+    """K1 (both stores) and the f32 K5/K6 on coordinate features at 4, 28
+    and 52 live lanes: the tile against f64, the kernel's max and p99 |dK|
+    at most 1.5x the plain f32 version's. The split-fp16 cross (the NLM
+    route) is printed beside."""
     dev = cuda_device
-    fa, f_t = _card_layouts(dev, 512, 1 << 18, *img)
-    a3, b3 = fa[:512, :3].contiguous(), f_t[:3].T.contiguous()
+    fa, f_t = _card_layouts(dev, 512, 1 << 18, *img, d=d)
+    live = -(-d // 4) * 4
+    a3, b3 = fa[:512, :d].contiguous(), f_t[:d].T.contiguous()
     t64 = _f64_tile(fa, f_t, torch.arange(512, device=dev),
                     torch.arange(f_t.shape[1], device=dev))
     plain = _err_stats(k1.affinity_strip_plain(a3, b3), t64)
@@ -584,7 +711,7 @@ def test_coordinate_cross_against_f64(cuda_device, img):
             (k56.rmatvec_cuda, k56.rmatvec_plain, t,
              t[:512].double() @ t64)):
         keep = ref.shape[0]
-        e_k = (fn(fa, f_t, x, False, 4, True)[:keep].double()
+        e_k = (fn(fa, f_t, x, False, live, True)[:keep].double()
                - ref).abs() / ref.abs()
         e_p = (pl(fa, f_t, x, False)[:keep].double() - ref).abs() / ref.abs()
         e_s = (fn(fa, f_t, x, False)[:keep].double() - ref).abs() / ref.abs()
@@ -592,6 +719,60 @@ def test_coordinate_cross_against_f64(cuda_device, img):
               f"{float(e_p.max()):.3e}, coordinate {float(e_k.max()):.3e}, "
               f"split {float(e_s.max()):.3e}")
         assert float(e_k.max()) <= 1.5 * float(e_p.max()) + 1e-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("patch", [5, 7])
+def test_k5_f32_does_not_lean(cuda_device, patch):
+    """The f32 K5 (the split cross, no coordinates) at 32 and 64 lanes on
+    the 8 MP matvec denoise's own layouts (tuned_config(denoise_tuned(·,
+    0.1), 2048*4096, "fast"), p 4096) over a 1024 x 2048 image: each row
+    runs some 2048 tiles a split, most far from its few live entries, whose
+    sums fell below half an ulp of the running sum and were dropped, one
+    way, until each tile joined it by a compensated add. Its rows' share
+    below their f64 sums lies in (0.35, 0.65). Its error against f64 is
+    the split cross's: its fp16 small part keeps 11 of the residual's
+    ~14 bits, and the max error sat at 1.7-1.9x the plain version's at 32
+    lanes and 1.3-1.5x at 64 before and after the repair (ROADMAP.md Queue
+    3; scripts/f32_matvec_designs.py), so it is held under 2.5x, a gross
+    bar, not under the f32 kernels' 1.5x."""
+    dev = cuda_device
+    base = PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=10, filter_name="identity",
+        streaming=True, block_cols=131072, affinity_dtype="bfloat16",
+        patch_size=patch)
+    cfg = gt.tuned_config(gt.denoise_tuned(base, 0.1), MP8, "fast")
+    img = gt.make_test_image(1024, 2048)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0,
+                    1).astype(np.float32)
+    plan = gt.make_plan(noisy, cfg)
+    ctx = tms._strip_ctx(T(noisy).to(dev), interop.idx_to_device(
+        plan.idx_a, "cuda"), cfg)
+    fa, f_t, p = ctx.fa_pad, ctx.f_t, ctx.p
+    assert fa.dtype == torch.float32 and not ctx.coords
+    assert f_t.shape[0] == (32 if patch == 5 else 64)
+    v = 0.5 + torch.rand(f_t.shape[1], device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    got = k56.matvec_cuda(fa, f_t, v, False)[:p].double()
+    ref = k56.matvec_plain(fa, f_t, v, False)[:p].double()
+    a = fa[:p].double()
+    na = (a * a).sum(1)
+    r64 = torch.zeros(p, dtype=torch.float64, device=dev)
+    for j in range(0, f_t.shape[1], 16384):
+        b = f_t[:, j:j + 16384].double()
+        k = torch.exp(-(na[:, None] + (b * b).sum(0)[None]
+                        - 2.0 * a @ b).clamp_(min=0.0))
+        r64 += k @ v[j:j + 16384].double()
+    share = float(((got - r64) < 0).double().mean())
+    share_p = float(((ref - r64) < 0).double().mean())
+    e_k = float(((got - r64).abs() / r64).max())
+    e_p = float(((ref - r64).abs() / r64).max())
+    print(f"K5 f32 at {f_t.shape[0]} lanes: share below f64 {share:.4f} "
+          f"(plain {share_p:.4f}); relative error vs f64 kernel {e_k:.3e}, "
+          f"plain {e_p:.3e}")
+    assert 0.35 < share < 0.65
+    assert e_k <= 2.5 * e_p + 1e-7
 
 
 @pytest.mark.gpu

@@ -546,10 +546,11 @@ def test_k2_raises_before_a_launch_for_p_outside_the_plan(monkeypatch, p):
 
 def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
     """The emitter's split cross takes at most 64 feature lanes (a 7 x 7
-    patch, 49 lanes, reaches the kernel library) and its coordinate cross
-    32 (a 5 x 5 patch and two coordinates); the reference's wider layouts,
-    up to 128 lanes, raise NotImplementedError naming ROADMAP Queue 2b and
-    anything past them ValueError, each before any launch."""
+    patch, 49 lanes, reaches the kernel library) and so does its coordinate
+    cross (a 7 x 7 patch and two coordinates, 51 lanes); the reference's
+    wider layouts, up to 128 lanes, raise NotImplementedError naming
+    ROADMAP Queue 2b and anything past them ValueError, each before any
+    launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -560,8 +561,11 @@ def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
         k1.affinity_strip_cuda(torch.zeros((8, 49)), torch.zeros((16, 49)))
     with pytest.raises(NotImplementedError, match="Queue 2b"):
         k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)))
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        k1.affinity_strip_cuda(torch.zeros((8, 33)), torch.zeros((16, 33)),
+    with pytest.raises(RuntimeError, match="unavailable"):
+        k1.affinity_strip_cuda(torch.zeros((8, 51)), torch.zeros((16, 51)),
+                               coords=True)
+    with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
+        k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)),
                                coords=True)
     with pytest.raises(ValueError, match="feature lanes"):
         k1.affinity_strip_cuda(torch.zeros((8, 129)), torch.zeros((16, 129)))
