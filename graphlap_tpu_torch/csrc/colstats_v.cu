@@ -205,6 +205,20 @@ constexpr size_t run_smem_bytes() {
   return (size_t)CT * NTM * THREADS * 16;
 }
 
+// the V pass's two stages of fa rows: static shared memory up to 64 lanes;
+// past it (35 KB at 128 lanes) they would take the static part past its
+// 48 KB, so they follow the running V in dynamic shared memory
+template <int FD>
+constexpr bool FA_DYN = FD > 64;
+template <int FD>
+constexpr size_t fa_stage_bytes() {
+  return sizeof(bf16) * 2 * TP * LDF_OF<FD>;
+}
+template <int NTM, int FD>
+constexpr size_t v_smem_bytes() {
+  return run_smem_bytes<NTM>() + (FA_DYN<FD> ? fa_stage_bytes<FD>() : 0);
+}
+
 // the V pass's spans: V_FLUSH stages (16 mma steps over 256 rows of p).
 // Spans of 8 ran 2% faster but left V below its plain version on 0.77 of
 // the entries of a small input (p 600, 100 V columns), outside the (0.25, 0.75)
@@ -218,21 +232,24 @@ constexpr int V_FLUSH = 4;
 // to the running V with an f32 add. The running V lives in dynamic shared
 // memory, which keeps the pass at two blocks an SM at 32 lanes. At 64 the
 // f_t fragments take 32 registers a thread, not 16, beside V's 64: the
-// pass runs one block an SM with the registers of two.
+// pass runs one block an SM with the registers of two. At 96 and 128 they
+// take 48 and 64, and the fa stages move to dynamic shared memory (FA_DYN).
 template <int NTM, int FD>   // V width / 8, feature depth
 __global__ __launch_bounds__(THREADS, FD == 32 ? 2 : 1) void colstats_v_kernel(const VArgs a) {
-  constexpr int MP = NTM * 8;
-  __shared__ __align__(16) bf16 fa_s[2][TP * LDF_OF<FD>];
+  constexpr int MP = NTM * 8, FA_STAGE = TP * LDF_OF<FD>;
+  __shared__ __align__(16) bf16 fa_st[FA_DYN<FD> ? 8 : 2 * FA_STAGE];
   __shared__ __align__(16) bf16 gr_s[2][MP_MAX * LDG];
   __shared__ __align__(16) float na_s[2][TP];
   __shared__ float wp_s[WARPS][2][MP];          // per-warp norms, coeffs
   extern __shared__ float4 run_s[];             // CT * NTM * THREADS: the running V
+  // [2][FA_STAGE] the stages' fa rows
+  bf16* const fa_s = FA_DYN<FD> ? reinterpret_cast<bf16*>(run_s + CT * NTM * THREADS) : fa_st;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int ntiles = a.N / TN, nst = a.P / TP;
 
   for (int i = tid; i < WARPS * 2 * MP; i += THREADS) (&wp_s[0][0][0])[i] = 0.f;
-  if ((int)blockIdx.x < ntiles) load_stage<FD>(fa_s[0], gr_s[0], na_s[0], nullptr, a, MP, 0);
+  if ((int)blockIdx.x < ntiles) load_stage<FD>(fa_s, gr_s[0], na_s[0], nullptr, a, MP, 0);
   int step = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int jw = tile * TN + warp * CT * 16;   // this warp's first column
@@ -251,9 +268,11 @@ __global__ __launch_bounds__(THREADS, FD == 32 ? 2 : 1) void colstats_v_kernel(c
       cp_async_wait_all();
       __syncthreads();                 // stage in; everyone done with buf ^ 1
       if (s + 1 < nst)
-        load_stage<FD>(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, (s + 1) * TP);
+        load_stage<FD>(fa_s + (buf ^ 1) * FA_STAGE, gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP,
+                       (s + 1) * TP);
       else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
-        load_stage<FD>(fa_s[buf ^ 1], gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP, 0);
+        load_stage<FD>(fa_s + (buf ^ 1) * FA_STAGE, gr_s[buf ^ 1], na_s[buf ^ 1], nullptr, a, MP,
+                       0);
       const bf16* gs = gr_s[buf];
       const bool fresh = s % V_FLUSH == 0;       // a span starts here
       if (fresh) {
@@ -267,7 +286,7 @@ __global__ __launch_bounds__(THREADS, FD == 32 ? 2 : 1) void colstats_v_kernel(c
 #pragma unroll 1
       for (int r0 = 0; r0 < TP; r0 += 16) {
         uint32_t ka[CT][4];
-        tile_step<FD, true>(ka, fa_s[buf], na_s[buf], r0, af, nbv, cbv, g, tq);
+        tile_step<FD, true>(ka, fa_s + buf * FA_STAGE, na_s[buf], r0, af, nbv, cbv, g, tq);
         // V += tile^T bf16(gr): one mma per 8 V columns and column tile
 #pragma unroll
         for (int mt = 0; mt < NTM; ++mt) {
@@ -368,9 +387,11 @@ __global__ __launch_bounds__(THREADS, FD == 32 ? 2 : 1) void colstats_v_kernel(c
 // f32 s lies on a bf16 rounding boundary,
 // bf16(s) lands on either neighbour whatever the sum order, and scales its
 // whole V row by one bf16 ulp: that, not a lean, sets V's error against
-// the plain version
+// the plain version. Past 64 lanes one block an SM: the f_t fragments take
+// 48 and 64 registers
 template <int FD>
-__global__ __launch_bounds__(THREADS, FD == 32 ? KS_BLOCKS_SM : 2) void ks_kernel(const VArgs a) {
+__global__ __launch_bounds__(THREADS, FD == 32 ? KS_BLOCKS_SM : FD == 64 ? 2 : 1) void ks_kernel(
+    const VArgs a) {
   __shared__ __align__(16) bf16 fa_s[2][TP * LDF_OF<FD>];
   __shared__ __align__(16) bf16 t_s[2][TP];
   __shared__ __align__(16) float na_s[2][TP];
@@ -441,7 +462,7 @@ __global__ __launch_bounds__(THREADS, FD == 32 ? KS_BLOCKS_SM : 2) void ks_kerne
 
 template <int NTM, int FD>
 int v_kernel_setup(size_t* smem) {
-  *smem = run_smem_bytes<NTM>();
+  *smem = v_smem_bytes<NTM, FD>();
   cudaError_t e = cudaFuncSetAttribute(colstats_v_kernel<NTM, FD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (e == cudaSuccess)
@@ -489,9 +510,11 @@ int launch_v_fd(int MP, int blocks, cudaStream_t s, const VArgs& a) {
 // the V pass for width MP and fd lanes, then the fixed-order reduction of
 // its partials
 int launch_v(int MP, int fd, int blocks, cudaStream_t s, const VArgs& a, void* norms_coeffs) {
-  const int rc = fd == 32   ? launch_v_fd<32>(MP, blocks, s, a)
-                 : fd == 64 ? launch_v_fd<64>(MP, blocks, s, a)
-                            : static_cast<int>(cudaErrorInvalidValue);
+  const int rc = fd == 32    ? launch_v_fd<32>(MP, blocks, s, a)
+                 : fd == 64  ? launch_v_fd<64>(MP, blocks, s, a)
+                 : fd == 96  ? launch_v_fd<96>(MP, blocks, s, a)
+                 : fd == 128 ? launch_v_fd<128>(MP, blocks, s, a)
+                             : static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * MP, s);
 }
@@ -914,14 +937,17 @@ int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, cons
 // cudaError, 0 an unsupported MP or fd
 int glt_colstats_v_blocks(int MP, int fd) {
   int n = 0;
-  const int rc = fd == 32 ? resident_blocks_fd<32>(MP, &n)
-                 : fd == 64 ? resident_blocks_fd<64>(MP, &n)
-                            : 0;
+  const int rc = fd == 32    ? resident_blocks_fd<32>(MP, &n)
+                 : fd == 64  ? resident_blocks_fd<64>(MP, &n)
+                 : fd == 96  ? resident_blocks_fd<96>(MP, &n)
+                 : fd == 128 ? resident_blocks_fd<128>(MP, &n)
+                             : 0;
   return rc != 0 ? -rc : n;
 }
 
-// K10. P % 64 == 0, N % 256 == 0, MP in {16, 32, 48, 64}, fd 32 or 64 (the
-// wrapper checks); part holds (blocks, 2, MP) floats, norms_coeffs (2, MP).
+// K10. P % 64 == 0, N % 256 == 0, MP in {16, 32, 48, 64}, fd 32, 64, 96 or
+// 128 (the wrapper checks); part holds (blocks, 2, MP) floats, norms_coeffs
+// (2, MP).
 int glt_colstats_v(const void* fa, const void* ft, const void* grt, const void* cb,
                    const void* y, const void* na, const void* nb, void* v_out, void* part,
                    void* norms_coeffs, int P, int N, int MP, int fd, int blocks,
@@ -949,7 +975,8 @@ int glt_finish_colstats(const void* fa, const void* ft, const void* grt, const v
                         void* norms_coeffs, int P, int N, int MP, int fd, int blocks,
                         void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (fd != 32 && fd != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (fd != 32 && fd != 64 && fd != 96 && fd != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   VArgs a = {};
   a.fa = static_cast<const bf16*>(fa);
   a.ft = static_cast<const bf16*>(ft);
@@ -967,7 +994,10 @@ int glt_finish_colstats(const void* fa, const void* ft, const void* grt, const v
   a.part = static_cast<float*>(part);
   a.P = P;
   a.N = N;
-  const int rc = fd == 32 ? launch_ks<32>(s, a) : launch_ks<64>(s, a);
+  const int rc = fd == 32   ? launch_ks<32>(s, a)
+                 : fd == 64 ? launch_ks<64>(s, a)
+                 : fd == 96 ? launch_ks<96>(s, a)
+                            : launch_ks<128>(s, a);
   if (rc != 0) return rc;
   return launch_v(MP, fd, blocks, s, a, norms_coeffs);
 }

@@ -121,6 +121,24 @@ __device__ __forceinline__ float2 split2(float x, float sinv) {
   return make_float2(b, xs - b);
 }
 
+// x' = x 2^-E (|x'| < 1) of a feature vector as big + mid + lo, each
+// exact in fp16 and in its normal range: big = x' rounded to the grid
+// 2^-10 (as split2); mid = x' - big rounded to the grid 2^-21 (|mid| <=
+// 2^-11), returned times 2^11; lo = x' - big - mid (|lo| <= 2^-22, exact in
+// f32), returned times 2^22. Products of two scaled parts are then
+// multiples of 2^-20 of magnitude at most 1, so a k16 step of big.big is
+// exact, and x'a.x'b = big.big + 2^-11 (big.mid + mid.big) + 2^-22
+// (mid.mid + big.lo + lo.big) drops only terms below 2^-33 (the f32 K5/K6:
+// the fp16 small part of split2 keeps 11 of the residual's bits, an error
+// of up to 2^-23 a lane, 4x an f32 rounding). Returns (big, mid', lo')
+__device__ __forceinline__ float3 split3(float x, float sinv) {
+  const float xs = x * sinv;
+  const float b = rintf(xs * 1024.f) * (1.f / 1024.f);
+  const float r = xs - b;
+  const float m = rintf(r * 2097152.f) * (1.f / 2097152.f);
+  return make_float3(b, m * 2048.f, (r - m) * 4194304.f);
+}
+
 __device__ __forceinline__ uint32_t h2(float lo, float hi) {
   __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);

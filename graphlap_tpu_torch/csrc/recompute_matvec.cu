@@ -15,11 +15,10 @@
 //              reference's "highest" asks for (the GEMM trick cancels): on the
 //              TPU a multi-pass bf16 product on the matrix unit, here its card
 //              counterpart, a split-precision tensor-core product (fp16
-//              big and small parts of scaled features, small.small dropped,
-//              as "3xTF32" does); on features that carry coordinates, an
-//              IEEE f32 FFMA cross over the live lanes (coord_sum_kernel,
-//              below), whose error the split's fp16 small part would
-//              quadruple at their norms.
+//              big, mid and lo parts of scaled features, the six products
+//              above 2^-33 of the cross kept); on features that carry
+//              coordinates, an IEEE f32 FFMA cross over the live lanes
+//              (coord_sum_kernel, below).
 //
 // Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (FD, L)
 // feature matrices, FD 32 or 64 lanes (an NLM 5 x 5 or 7 x 7 patch; the
@@ -35,16 +34,16 @@
 // (32 lanes a clock an SM) or 8 f32 operations an entry give 0.51 ms at 132
 // SMs, the bound. An IEEE expf an entry (the first port) cost ~10 FP32-pipe
 // instructions and one MUFU: 3.1 ms a launch (NVIDIA H100 80GB HBM3,
-// 700.00 W). 8 MP (f32, p_pad 4096, n 8388608): 3.4e10 entries; the cross is 2.2 TFLOP, three fp16 passes of it 6.7 ms at the
-// card's 989 TFLOP/s (13.4 ms as tf32 at 494.7; as an IEEE-f32 SIMT product
-// 37 ms at 67); each entry's epilogue (two adds, the scale, d2, max, expf,
-// the FMA into its sum) is ~15 FP32-pipe instructions, ~15 ms of issue, and
-// one MUFU ex2 (8.2 ms, the bound). Memory is small beside either
-// (features 64-128 B a column, read once from device memory; the fixed
-// side's tile re-reads come from L2). At 64 lanes the d2 product doubles:
-// aug 0.56 TFLOP at config 3 (0.56 ms, now the bound beside 0.51 of
-// table loads), f32 three fp16 passes of 4.4 TFLOP at 8 MP (13.4 ms, the
-// bound beside the exps' 8.2).
+// 700.00 W). 8 MP (f32, p_pad 4096, n 8388608): 3.4e10 entries; the cross
+// is 2.2 TFLOP, six fp16 passes of it 13.4 ms at the card's 989 TFLOP/s
+// (as an IEEE-f32 SIMT product 37 ms at 67), the bound; each entry's
+// epilogue (two adds, the scale, d2, max, expf, the FMA into its sum) is
+// ~15 FP32-pipe instructions, ~15 ms of issue, and one MUFU ex2 (8.2 ms).
+// Memory is small beside either (features 64-128 B a column, read once
+// from device memory; the fixed side's tile re-reads come from L2). At 64
+// lanes the d2 product doubles: aug 0.56 TFLOP at config 3 (0.56 ms, now
+// the bound beside 0.51 of table loads), f32 six fp16 passes of 4.4 TFLOP
+// at 8 MP (26.7 ms).
 //
 // Design, aug (tensor cores, an entry table): persistent blocks, one an SM,
 // walk work items (a 1024-entry slice of the fixed side by a split of the
@@ -75,20 +74,35 @@
 // as long.
 // Design, f32 (tensor cores, split fp16): each feature vector is scaled
 // by 2^-E (exact), E the exponent of its largest entry, and each scaled
-// feature is big + small, big on the grid 2^-10 (split2: the sums of big
-// products are then exact whatever the accumulation truncates), small the
-// rest rounded to fp16; cross = 2^(Ea + Eb) (big.big + big.small +
-// small.big), the small.small term (~2^-20 of |f|^2) dropped. fp16 has
-// tf32's 11 significant bits at twice its tensor-core rate (an m16n8k16
-// fp16 mma does four times the multiply-adds of an m16n8k8 tf32 one), and
-// the scaling keeps it in range. A 128-thread block owns 128 fixed entries, each warp 32 of them as
-// big and small A fragments in registers for the whole run; 128-entry
-// streamed tiles arrive by cp.async double buffering, and the block splits
-// each once into shared memory as B fragments (16 bytes a lane). Per 16 x 8
-// sub-tile a warp runs 3 FD / 16 m16n8k16 mma (big.big a k16 step each
-// from zero, added in pairs in f32, the corrections in one more chain),
-// then the epilogue on the accumulator
-// registers: d2 = max((nf + ns) - 2 cross, 0), expf (IEEE class: no bf16
+// feature is big + mid + lo (split3, mma_common.cuh), each exact in fp16:
+// big on the grid 2^-10, mid the rest on the grid 2^-21, lo what remains
+// (mid and lo scaled up by 2^11 and 2^22 into fp16's normal range); cross =
+// 2^(Ea + Eb) (big.big + 2^-11 (big.mid + mid.big) + 2^-22 (mid.mid +
+// big.lo + lo.big)), the terms below 2^-33 dropped: six m16n8k16 fp16
+// passes, fp16 having tf32's 11 significant bits at twice its tensor-core
+// rate. The norms are f64 sums rounded once to f32: a norm's rounding
+// moves every entry of its row (column) together, and a sequential f32
+// FMA chain rounds more than the plain version's pairwise sum of squares.
+// Measured on the 8 MP matvec denoise (scripts/f32_matvec_designs.py,
+// PERF.md): with FMA-chain norms the first split design (two parts, big +
+// fp16(rest), three passes) left K5's and K6's sums at 1.3-2.4x the plain
+// version's error from their f64 values, where every other f32 kernel
+// stays within 1.5x, and the three-part split and the IEEE-f32 FFMA cross
+// (coord_sum_kernel at the layout's depth, 1.3x slower) at 1.7-2.2x; with
+// f64-sum norms (+2-6% time) the two-part split still reached 2.4x (its
+// fp16 small part keeps 11 of the rest's ~14 bits, an error of up to
+// 2^-23 a lane, four f32 roundings), the three-part split 0.2-0.6x. A
+// 128-thread block
+// owns 128 fixed entries, each warp 32 of them as big, mid and lo A
+// fragments in registers for the whole run; 128-entry streamed tiles
+// arrive by cp.async into one raw stage, which the block splits once into
+// shared memory as B fragments (24 bytes a lane) before the next tile
+// streams in behind the products. Per 16 x 8 sub-tile a warp runs 6 FD / 16
+// m16n8k16 mma (big.big a k16 step each from zero, added in pairs in f32,
+// the 2^-11 terms in one more chain and the 2^-22 terms in a third), then
+// the epilogue on the accumulator
+// registers: d2 = max((nf + ns) - 2 cross, 0) with the f32 norms nf and ns
+// as above, expf (IEEE class: no bf16
 // rounding here to hide a cheaper exp), an f32 FMA with w into the tile's
 // sum of each fixed entry, which joins its running sum by one
 // compensated f32 add a tile (the bits each add drops are carried into the
@@ -103,10 +117,9 @@
 // and scales, and each warp splits 16 (n8 tile, k16 step) fragments of a
 // tile in place of 8: 256 threads would halve the fixed entries a warp
 // holds or leave half the threads idle in the norms, for a split that is
-// a small part of a tile's work (16 fragment stores a warp against its
-// 384 mma, 12 a 16 x 8 sub-tile). Its shared memory (101 KB: the
-// split fragments and two raw stages double) and the fragments' 64
-// registers allow two blocks an SM, not four.
+// a small part of a tile's work. Its shared memory (85 KB: the split
+// fragments and one raw stage) and the fragments' 96 registers allow two
+// blocks an SM, not four.
 // Both: the streamed axis splits (the f32 kernel's grid.y, the aug kernel's
 // work items) only where the fixed side alone does not fill the card (K5),
 // as many splits as fill one wave of the kernel's resident blocks
@@ -159,7 +172,7 @@ static_assert(A_STAGE_BYTES_OF<32> % 16 == 0 && A_STAGE_BYTES_OF<64> % 16 == 0, 
 static_assert(A_ST_OF<32> % A_SPAN == 0 && A_ST_OF<64> % A_SPAN == 0 && A_SPAN % 16 == 0,
               "aug spans");
 constexpr int T_THREADS = 128;          // f32: 4 warps
-// f32: blocks an SM (registers; shared memory, 52 KB at 32 lanes, 101 KB
+// f32: blocks an SM (registers; shared memory, 44 KB at 32 lanes, 85 KB
 // at 64)
 template <int FD>
 constexpr int T_BLOCKS_SM_OF = FD == 32 ? 4 : 2;
@@ -168,12 +181,15 @@ constexpr int T_FT = 4 * T_RT * 16;     // f32: fixed entries a block (128)
 constexpr int T_ST = 128;               // f32: streamed entries a tile, one a thread
 constexpr int T_LDS = T_ST + 4;         // padded raw row: conflict-free split loads
 template <int FD>
-constexpr int T_BFRAGS_OF = (T_ST / 8) * (FD / 16) * 32;  // 16-byte B fragments a tile
+constexpr int T_BFRAGS_OF = (T_ST / 8) * (FD / 16) * 32;  // B fragments a tile, a lane each
+// the split B fragments (24 bytes a lane: big and mid a uint4, lo a
+// uint2), one raw stage, w twice, the streamed norms and scales
 template <int FD>
 constexpr size_t T_SMEM_OF =
-    sizeof(float) * (4 * (size_t)T_BFRAGS_OF<FD> + 2 * FD * T_LDS + 2 * T_ST + 3 * T_ST);
-static_assert(T_SMEM_OF<32> == 52736 && T_SMEM_OF<64> == 102912, "f32 shared memory");
-static_assert(2 * (T_SMEM_OF<64> + 1024) <= 233472, "two 64-lane f32 blocks an SM");
+    24 * (size_t)T_BFRAGS_OF<FD> + sizeof(float) * ((size_t)FD * T_LDS + 2 * T_ST + 3 * T_ST);
+static_assert(T_SMEM_OF<32> == 44032 && T_SMEM_OF<64> == 85504, "f32 shared memory");
+static_assert(4 * (T_SMEM_OF<32> + 1024) <= 233472 && 2 * (T_SMEM_OF<64> + 1024) <= 233472,
+              "the f32 blocks an SM fit its shared memory");
 static_assert(T_THREADS == T_ST, "f32: one streamed column a thread");
 
 // columns [c0, c0 + tile) of a k-major (FD, ld) matrix -> dst[k][0, tile)
@@ -394,7 +410,7 @@ __global__ __launch_bounds__(1024) void aug_entries_kernel(unsigned short* out, 
 
 // ---------------------------------------------------------------------------
 // plain f32: out_part[split][f] = sum_s w_s exp(-max(nf + ns - 2 cross, 0)),
-// the cross a split-precision (big + small, fp16) tensor-core product
+// the cross a split-precision (big + mid + lo, fp16) tensor-core product
 // ---------------------------------------------------------------------------
 
 template <int FD>
@@ -407,11 +423,12 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
   constexpr int KS = FD / 16, T_BFRAGS = T_BFRAGS_OF<FD>;
   extern __shared__ __align__(16) float fsm[];
   // the tile's B fragments, split: [n8 tile][k16 step][lane] = fp16 pairs
-  // (big rows 2tq, 2tq + 1 | big rows 2tq + 8, 2tq + 9 | the same smalls),
-  // column g; a warp reads 512 contiguous bytes
+  // (big rows 2tq, 2tq + 1 | big rows 2tq + 8, 2tq + 9 | the same mids)
+  // and (the same los), column g; a warp reads 512 + 256 contiguous bytes
   uint4* bs = reinterpret_cast<uint4*>(fsm);
-  float* raw = fsm + 4 * T_BFRAGS;      // [2][FD][T_LDS] streamed tiles as loaded
-  float* w_s = raw + 2 * FD * T_LDS;    // [2][T_ST]
+  uint2* bl = reinterpret_cast<uint2*>(bs + T_BFRAGS);
+  float* raw = reinterpret_cast<float*>(bl + T_BFRAGS);   // [FD][T_LDS] the tile as loaded
+  float* w_s = raw + FD * T_LDS;        // [2][T_ST]
   float* ns_s = w_s + 2 * T_ST;         // [T_ST] streamed norms of the tile
   float* sinv_s = ns_s + T_ST;          // [T_ST] their scales 2^-E
   float* sc_s = sinv_s + T_ST;          // [T_ST] and 2^E
@@ -426,9 +443,9 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
     load_tile<FD, T_THREADS>(raw, T_LDS, w_s, strm_t, w, (size_t)Ls, (size_t)t0 * T_ST, T_ST);
 
   // the fixed side, once: A fragments (16 fixed x 16 k) of rows g and g + 8,
-  // k = 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of each k16 step, split on each row's
-  // scale; the rows' norms as sequential f32 sums over k, and -2 2^E
-  uint32_t ab[T_RT][KS][4], as[T_RT][KS][4];
+  // k = 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of each k16 step, split in three on
+  // each row's scale; the rows' norms (f64 sums, rounded once), and -2 2^E
+  uint32_t ab[T_RT][KS][4], am[T_RT][KS][4], al[T_RT][KS][4];
   float nf[T_RT][2], m2s[T_RT][2];
 #pragma unroll
   for (int r = 0; r < T_RT; ++r) {
@@ -456,20 +473,22 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
       const float sinv = pow2(-e);
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const float2 p0 = split2(x[ks][h][0], sinv), p1 = split2(x[ks][h][1], sinv);
-        const float2 p8 = split2(x[ks][h][2], sinv), p9 = split2(x[ks][h][3], sinv);
+        const float3 p0 = split3(x[ks][h][0], sinv), p1 = split3(x[ks][h][1], sinv);
+        const float3 p8 = split3(x[ks][h][2], sinv), p9 = split3(x[ks][h][3], sinv);
         ab[r][ks][h] = h2(p0.x, p1.x);          // a0 / a1: k 2tq, 2tq + 1
-        as[r][ks][h] = h2(p0.y, p1.y);
+        am[r][ks][h] = h2(p0.y, p1.y);
+        al[r][ks][h] = h2(p0.z, p1.z);
         ab[r][ks][2 + h] = h2(p8.x, p9.x);      // a2 / a3: k 2tq + 8, 2tq + 9
-        as[r][ks][2 + h] = h2(p8.y, p9.y);
+        am[r][ks][2 + h] = h2(p8.y, p9.y);
+        al[r][ks][2 + h] = h2(p8.z, p9.z);
       }
-      float s = 0.f;
+      double s = 0.0;                   // the norm, rounded once (f64 sum)
 #pragma unroll 8
       for (int k = 0; k < FD; ++k) {
-        const float v = col[(size_t)k * Lf + 8 * h];
-        s = fmaf(v, v, s);
+        const double v = col[(size_t)k * Lf + 8 * h];
+        s = fma(v, v, s);
       }
-      nf[r][h] = s;
+      nf[r][h] = (float)s;
     }
   }
   float acc[T_RT][2], cmp[T_RT][2];   // the running sums, their dropped bits
@@ -479,21 +498,18 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
   for (int tile = t0; tile < t1; ++tile) {
     const int buf = (tile - t0) & 1;
     cp_async_wait_all();
-    __syncthreads();                    // tile in; everyone done with bs and buf ^ 1
-    if (tile + 1 < t1)
-      load_tile<FD, T_THREADS>(raw + (buf ^ 1) * FD * T_LDS, T_LDS, w_s + (buf ^ 1) * T_ST, strm_t,
-                           w, (size_t)Ls, (size_t)(tile + 1) * T_ST, T_ST);
-    const float* S = raw + buf * FD * T_LDS;
-    {   // each streamed column's norm (sequential over k) and scale
-      float m = 0.f, s = 0.f;
+    __syncthreads();                    // tile in; everyone done with the last tile
+    {   // each streamed column's norm (an f64 sum, rounded once) and scale
+      float m = 0.f;
+      double s = 0.0;
 #pragma unroll 8
       for (int k = 0; k < FD; ++k) {
-        const float x = S[k * T_LDS + tid];
+        const float x = raw[k * T_LDS + tid];
         m = fmaxf(m, fabsf(x));
-        s = fmaf(x, x, s);
+        s = fma((double)x, (double)x, s);
       }
       const int e = vec_exp(m);
-      ns_s[tid] = s;
+      ns_s[tid] = (float)s;
       sinv_s[tid] = pow2(-e);
       sc_s[tid] = pow2(e);
     }
@@ -507,13 +523,21 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
       const int nt = q / KS, ks = q % KS;
       const int c = nt * 8 + g, k = ks * 16 + 2 * tq;
       const float sinv = sinv_s[c];
-      const float2 p0 = split2(S[k * T_LDS + c], sinv), p1 = split2(S[(k + 1) * T_LDS + c], sinv);
-      const float2 p8 = split2(S[(k + 8) * T_LDS + c], sinv);
-      const float2 p9 = split2(S[(k + 9) * T_LDS + c], sinv);
+      const float3 p0 = split3(raw[k * T_LDS + c], sinv);
+      const float3 p1 = split3(raw[(k + 1) * T_LDS + c], sinv);
+      const float3 p8 = split3(raw[(k + 8) * T_LDS + c], sinv);
+      const float3 p9 = split3(raw[(k + 9) * T_LDS + c], sinv);
       bs[(nt * KS + ks) * 32 + lane] =
           make_uint4(h2(p0.x, p1.x), h2(p8.x, p9.x), h2(p0.y, p1.y), h2(p8.y, p9.y));
+      bl[(nt * KS + ks) * 32 + lane] = make_uint2(h2(p0.z, p1.z), h2(p8.z, p9.z));
     }
-    __syncthreads();                    // fragments in
+    __syncthreads();                    // fragments in; the raw stage is free
+    // the next tile streams in behind this one's products: one raw stage
+    // (two, beside the split's 24-byte fragments, would pass the shared
+    // memory of two 64-lane blocks an SM)
+    if (tile + 1 < t1)
+      load_tile<FD, T_THREADS>(raw, T_LDS, w_s + (buf ^ 1) * T_ST, strm_t, w, (size_t)Ls,
+                               (size_t)(tile + 1) * T_ST, T_ST);
     const float* wt = w_s + buf * T_ST;
     // this tile's sums start from zero and join the running sums by one
     // compensated add: one f32 chain over every tile of a split (~175000
@@ -525,17 +549,22 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
 #pragma unroll 1
     for (int nt = 0; nt < T_ST / 8; ++nt) {
       uint4 b[KS];
+      uint2 bo[KS];
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) b[ks] = bs[(nt * KS + ks) * 32 + lane];
+      for (int ks = 0; ks < KS; ++ks) {
+        b[ks] = bs[(nt * KS + ks) * 32 + lane];
+        bo[ks] = bl[(nt * KS + ks) * 32 + lane];
+      }
       const float2 nsv = *reinterpret_cast<const float2*>(ns_s + nt * 8 + 2 * tq);
       const float2 scv = *reinterpret_cast<const float2*>(sc_s + nt * 8 + 2 * tq);
       const float2 wv = *reinterpret_cast<const float2*>(wt + nt * 8 + 2 * tq);
 #pragma unroll
       for (int r = 0; r < T_RT; ++r) {
-        // big.big a k16 step each, from zero (exact, see split2); big.small
-        // + small.big, ~2^-10 of it, in one chain; small.small dropped
+        // big.big a k16 step each, from zero (exact, see split3); big.mid
+        // + mid.big (2^11 times their share) in one chain; mid.mid +
+        // big.lo + lo.big (2^22 times theirs) in another
         float hb[KS][4];
-        float cr[4] = {0.f, 0.f, 0.f, 0.f};
+        float c1[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -544,8 +573,14 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
         }
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
-          mma16816h(cr, ab[r][ks], b[ks].z, b[ks].w);
-          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
+          mma16816h(c1, ab[r][ks], b[ks].z, b[ks].w);
+          mma16816h(c1, am[r][ks], b[ks].x, b[ks].y);
+        }
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          mma16816h(c2, am[r][ks], b[ks].z, b[ks].w);
+          mma16816h(c2, ab[r][ks], bo[ks].x, bo[ks].y);
+          mma16816h(c2, al[r][ks], b[ks].x, b[ks].y);
         }
         // accumulator (fixed g | g + 8, streamed 2tq | 2tq + 1); the cross
         // is 2^(Ea + Eb) times the scaled one, so d2 as the plain version
@@ -555,7 +590,7 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
         for (int e = 0; e < 4; ++e) {
           float big = hb[0][e] + hb[1][e];
           if constexpr (KS == 4) big += hb[2][e] + hb[3][e];
-          const float cross = big + cr[e];
+          const float cross = big + fmaf(c2[e], 2.384185791015625e-7f, c1[e] * 4.8828125e-4f);
           const float m2 = m2s[r][e >> 1] * ((e & 1) ? scv.y : scv.x);
           const float d2 = fmaxf(fmaf(m2, cross, nf[r][e >> 1] + ((e & 1) ? nsv.y : nsv.x)), 0.f);
           tacc[r][e >> 1] = fmaf(expf(-d2), (e & 1) ? wv.y : wv.x, tacc[r][e >> 1]);

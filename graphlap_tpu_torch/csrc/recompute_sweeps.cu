@@ -46,10 +46,12 @@
 //     the tile's f_t columns by ldmatrix.trans from a cp.async double
 //     buffer, B = fa rows by ldmatrix) and keeps the entries in registers as
 //     packed bf16 A fragments — the tile is never written to shared memory;
-//   * kbt is one more mma a 16-row block (the fragments times [t_r, t_c]
-//     as a zero-padded B operand), each from a zero accumulator and added
-//     to the warp's tile partial by an f32 add (one mma chain over the NB
-//     blocks truncated, and s leaned high); the four row groups' partials meet in
+//   * kbt is one more mma a 16-row block at 32 lanes (the fragments times
+//     [t_r, t_c] as a zero-padded B operand, each block from a zero
+//     accumulator, added in f32), past 32 lanes f32 FMA chains of each
+//     lane's entries on the FP32 pipe and a shuffle tree over the quad (the
+//     mma's truncating alignment of products that span orders of magnitude
+//     left kbt low and s high there); the four row groups' partials meet in
 //     shared memory in order, and the 8 ranks' through distributed shared
 //     memory, every rank summing them in the same fixed tree, so all 8 get
 //     the same s;
@@ -147,11 +149,16 @@ static_assert(E_WM % 16 == 0 && E_WN % 16 == 0 && E_TN % E_BOX == 0, "K7 unit sh
 template <int FD>
 constexpr int E_FT_BYTES_OF = FD * E_TN * 2;
 // alignment slack, two staging buffers, the ring, its barriers: 97 KB at
-// 32 lanes (two blocks an SM), 129 KB at 64 (one)
+// 32 lanes (two blocks an SM), 129 KB at 64 (one), 161 and 193 KB at 96 and
+// 128 (one)
 template <int FD>
 constexpr size_t e_smem() {
   return 1024 + 2 * (size_t)E_OUT_BYTES + (size_t)E_STAGES * E_FT_BYTES_OF<FD> + 8 * E_STAGES;
 }
+static_assert(e_smem<96>() == 164880 && e_smem<128>() == 197648, "K7 past 64 lanes");
+// pairs of n8 tiles whose B fragments a warp holds at once
+template <int FD>
+constexpr int E_NPB = FD <= 64 ? E_NT / 2 : 1;
 
 // the aug entries of two d2, bf16(exp(-bf16(max(d2, 0)))) packed (lo in the
 // low half): d2 rounded to bf16 (cvt.rn.bf16x2), then kexp's one FMUL and
@@ -196,7 +203,7 @@ __global__ __launch_bounds__(E_THREADS, FD == 32 ? 2 : 1) void kb_emit_kernel(
     const bf16* __restrict__ fa,                  // (P, FD) aug
     const bf16* __restrict__ cols,                // (S)
     int nrb, int nct, int S) {
-  constexpr int KS = FD / 16, E_FT_BYTES = E_FT_BYTES_OF<FD>;
+  constexpr int KS = FD / 16, E_FT_BYTES = E_FT_BYTES_OF<FD>, NPB = E_NPB<FD>;
   extern __shared__ unsigned char e_raw[];
   unsigned char* smem = e_raw + ((1024 - (smem_u32(e_raw) & 1023)) & 1023);
   unsigned char* ring = smem + 2 * E_OUT_BYTES;
@@ -259,38 +266,44 @@ __global__ __launch_bounds__(E_THREADS, FD == 32 ? 2 : 1) void kb_emit_kernel(
 
     // B fragments of the warp's 32 columns ([n8 tile][k16 step]) by
     // ldmatrix.trans from the swizzled boxes: matrix l / 8 of a load is
-    // (k rows 16 ks + 8 (l / 8 % 2) .., chunk chunk0 + 2 np + l / 16)
-    uint32_t B[E_NT][KS][2];
+    // (k rows 16 ks + 8 (l / 8 % 2) .., chunk chunk0 + 2 np + l / 16); all
+    // of them at once up to 64 lanes, past it one pair of n8 tiles at a
+    // time (E_NPB), so B takes 32 registers at 128 lanes, not 128
     const unsigned char* fb = ring + st * E_FT_BYTES + box * (E_FT_BYTES / E_BOXES);
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+    for (int np0 = 0; np0 < E_NT / 2; np0 += NPB) {
+      uint32_t B[2 * NPB][KS][2];
 #pragma unroll
-      for (int np = 0; np < E_NT / 2; ++np) {
-        const int k = 16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1);
-        const int ch = chunk0 + 2 * np + (lane >> 4);
-        uint32_t r[4];
-        ldsm_x4_trans(r, reinterpret_cast<const bf16*>(fb + k * 128 + ((ch ^ (k & 7)) << 4)));
-        B[2 * np][ks][0] = r[0];
-        B[2 * np][ks][1] = r[1];
-        B[2 * np + 1][ks][0] = r[2];
-        B[2 * np + 1][ks][1] = r[3];
-      }
+      for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int mt = 0; mt < E_MT; ++mt) {
-      const int r0 = wr * E_WM + mt * 16 + g;   // rows r0, r0 + 8; r0 & 7 == g
+        for (int j = 0; j < NPB; ++j) {
+          const int k = 16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1);
+          const int ch = chunk0 + 2 * (np0 + j) + (lane >> 4);
+          uint32_t r[4];
+          ldsm_x4_trans(r, reinterpret_cast<const bf16*>(fb + k * 128 + ((ch ^ (k & 7)) << 4)));
+          B[2 * j][ks][0] = r[0];
+          B[2 * j][ks][1] = r[1];
+          B[2 * j + 1][ks][0] = r[2];
+          B[2 * j + 1][ks][1] = r[3];
+        }
 #pragma unroll
-      for (int nt = 0; nt < E_NT; ++nt) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};   // d2: one chain over the k16 steps
+      for (int mt = 0; mt < E_MT; ++mt) {
+        const int r0 = wr * E_WM + mt * 16 + g;   // rows r0, r0 + 8; r0 & 7 == g
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) mma16816(c, A[mt][ks], B[nt][ks]);
-        // staged in the TMA box's 128-byte-swizzled layout: the 8 rows a
-        // warp writes at once land in 8 distinct 16-byte chunks
-        unsigned char* o = stage + (box + (chunk0 + nt) / 8) * (E_OUT_BYTES / E_BOXES) +
-                           ((((chunk0 + nt) % 8) ^ g) << 4) + tq * 4;
-        *reinterpret_cast<uint32_t*>(o + r0 * 128) =
-            scale_pair(kb_pair(c[0], c[1]), cs[nt][0], cs[nt][1]);
-        *reinterpret_cast<uint32_t*>(o + (r0 + 8) * 128) =
-            scale_pair(kb_pair(c[2], c[3]), cs[nt][0], cs[nt][1]);
+        for (int jn = 0; jn < 2 * NPB; ++jn) {
+          const int nt = 2 * np0 + jn;
+          float c[4] = {0.f, 0.f, 0.f, 0.f};   // d2: one chain over the k16 steps
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) mma16816(c, A[mt][ks], B[jn][ks]);
+          // staged in the TMA box's 128-byte-swizzled layout: the 8 rows a
+          // warp writes at once land in 8 distinct 16-byte chunks
+          unsigned char* o = stage + (box + (chunk0 + nt) / 8) * (E_OUT_BYTES / E_BOXES) +
+                             ((((chunk0 + nt) % 8) ^ g) << 4) + tq * 4;
+          *reinterpret_cast<uint32_t*>(o + r0 * 128) =
+              scale_pair(kb_pair(c[0], c[1]), cs[nt][0], cs[nt][1]);
+          *reinterpret_cast<uint32_t*>(o + (r0 + 8) * 128) =
+              scale_pair(kb_pair(c[2], c[3]), cs[nt][0], cs[nt][1]);
+        }
       }
     }
     fence_async_smem();
@@ -335,9 +348,8 @@ static_assert(X_CG == 4 && X_RG == 4 && X_LPP * 2 == CL,
 template <int FD>
 __device__ __forceinline__ void load_ft(bf16* dst, const bf16* __restrict__ ft, size_t ld,
                                         int j0) {
-  static_assert(FD * (X_TN / 8) <= X_THREADS, "one 16-byte copy a thread");
-  const int c = threadIdx.x;
-  if (c < FD * (X_TN / 8)) {
+  // one 16-byte copy a thread up to 64 lanes, two past it
+  for (int c = threadIdx.x; c < FD * (X_TN / 8); c += X_THREADS) {
     const int k = c / (X_TN / 8), q = c % (X_TN / 8);
     cp_async16(dst + k * X_LDT + q * 8, ft + (size_t)k * ld + j0 + q * 8);
   }
@@ -345,20 +357,27 @@ __device__ __forceinline__ void load_ft(bf16* dst, const bf16* __restrict__ ft, 
 }
 
 constexpr int KT_N = 65536;              // the entry table: every bf16 bit pattern of d2
+// the entry from the table up to 64 lanes; past it from kb_pair (K7's
+// entry: kexp on bf16(d2), equal to the table's at all 65536 patterns,
+// which chip_smoke.py requires), since at P 4096 the sample rows of 96 or
+// 128 lanes (106 or 139 KB) leave no room for the table's 128 KB
+template <int FD>
+constexpr bool X_TABLE = FD <= 64;
 
 // K8's shared row stride of the sample rows (bf16): conflict-free ldmatrix
 template <int FD>
 constexpr int X_LDF = FD + 8;
 
-// shared memory of a block holding rb = P / 8 sample rows: the table, the
-// rows, two f_t tiles (the u rows' column-group sums reuse them once the
-// walk is done), t2, s, the partials. At P 4096 and 64 lanes 231680 bytes,
-// inside the 232448 a block may take; with the u sums apart it would be
-// 239872
+// shared memory of a block holding rb = P / 8 sample rows: the table (up
+// to 64 lanes), the rows, two f_t tiles (the u rows' column-group sums
+// reuse them once the walk is done), t2, s, the partials. At P 4096 and 64
+// lanes 231680 bytes, inside the 232448 a block may take (with the u sums
+// apart it would be 239872); at 96 and 128 lanes, without the table,
+// 142592 and 184576
 template <int FD>
 size_t ext2_smem(int P) {
   const size_t rb = P / CL;
-  return sizeof(unsigned short) * KT_N +
+  return (X_TABLE<FD> ? sizeof(unsigned short) * KT_N : 0) +
          sizeof(bf16) * (rb * X_LDF<FD> + 2 * FD * X_LDT + 2 * rb + 2 * 3 * X_TN) +
          sizeof(float) * ((size_t)2 * X_RG * 2 * X_TN + 3 * 2 * X_TN);
 }
@@ -381,7 +400,7 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   constexpr int LDF = X_LDF<FD>;
   static_assert(2 * FD * X_LDT * sizeof(bf16) >= X_CG * 512 * sizeof(float),
                 "the u sums of P = 4096 fit the f_t tiles");
-  bf16* fa_s = reinterpret_cast<bf16*>(kt_s + KT_N);     // [rb][LDF]
+  bf16* fa_s = reinterpret_cast<bf16*>(kt_s + (X_TABLE<FD> ? KT_N : 0));   // [rb][LDF]
   bf16* ft_s = fa_s + rb * LDF;                          // [2][FD][X_LDT]
   bf16* t2_s = ft_s + 2 * FD * X_LDT;                    // [2][rb] bf16(t_r | t_c)
   bf16* s3_s = t2_s + 2 * rb;                            // [2 bufs][3][X_TN] s = hi + mid + lo
@@ -396,9 +415,11 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   // the tile entry bf16(exp(-bf16(max(d2, 0)))) is a function of bf16(d2)
   // alone: one table of all 65536 bit patterns (NaN patterns unused),
   // computed with the same expf, so a lookup is bit-identical to kb_aug
-  for (int i = tid; i < KT_N; i += X_THREADS) {
-    const float d = __uint_as_float((uint32_t)i << 16);
-    kt_s[i] = (unsigned short)(__float_as_uint(d != d ? 0.f : kb_aug(d)) >> 16);
+  if constexpr (X_TABLE<FD>) {
+    for (int i = tid; i < KT_N; i += X_THREADS) {
+      const float d = __uint_as_float((uint32_t)i << 16);
+      kt_s[i] = (unsigned short)(__float_as_uint(d != d ? 0.f : kb_aug(d)) >> 16);
+    }
   }
   for (int v = tid; v < rb * (FD / 8); v += X_THREADS) {
     const int r = v / (FD / 8), q = v % (FD / 8);
@@ -412,9 +433,15 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   const int ntiles = N / X_TN;
   const int mine = (ntiles - cid + ncl - 1) / ncl;   // this cluster's tiles (>= 1)
   auto col0 = [&](int i) { return (cid + i * ncl) * X_TN; };
-  // two entries from the packed bf16(d2) pair w, packed again
-  auto kent2 = [&](uint32_t w) -> uint32_t {
-    return (uint32_t)kt_s[w & 0xFFFFu] | ((uint32_t)kt_s[w >> 16] << 16);
+  // the entries of two d2 (lo, hi), packed: the table's at bf16(d2), or
+  // kb_pair's
+  auto kent2 = [&](float lo, float hi) -> uint32_t {
+    if constexpr (X_TABLE<FD>) {
+      const uint32_t w = pack2(lo, hi);
+      return (uint32_t)kt_s[w & 0xFFFFu] | ((uint32_t)kt_s[w >> 16] << 16);
+    } else {
+      return kb_pair(lo, hi);
+    }
   };
 
   // the warp's slice of tile i -> packed bf16 A fragments (16 columns x
@@ -422,8 +449,9 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
   // halfway through the blocks
   // The f_t fragments of lanes 0-31 stay in registers over the walk; at 64
   // lanes those of lanes 32-63 are read again from shared memory for each
-  // 16-row block (the registers hold two tiles' fragments and u, little
-  // else). d2 is one mma chain over the k16 steps from zero.
+  // 16-row block, past 64 those of lanes 32.. for each 8-row half of it
+  // (the registers hold two tiles' fragments and u, little else). d2 is one
+  // mma chain over the k16 steps from zero.
   auto tile = [&](uint32_t (&F)[NB][4], int i, auto&& halfway) {
     const bf16* fts = ft_s + (i & 1) * FD * X_LDT;
     uint32_t a0[4], a1[4];
@@ -450,28 +478,68 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
           ldsm_x4(bq, bp + 32);
           mma16816(c, a2, bq);
           mma16816(c, a3, bq + 2);
+        } else if constexpr (FD > 64) {
+#pragma unroll
+          for (int kk = 1; kk < FD / 32; ++kk) {
+            uint32_t ax[4], ay[4];
+            ldsm_x4_trans(ax, ap + 32 * kk * X_LDT);
+            ldsm_x4_trans(ay, ap + (32 * kk + 16) * X_LDT);
+            ldsm_x4(bq, bp + 32 * kk);
+            mma16816(c, ax, bq);
+            mma16816(c, ay, bq + 2);
+          }
         }
-        F[b][2 * h] = kent2(pack2(c[0], c[1]));
-        F[b][2 * h + 1] = kent2(pack2(c[2], c[3]));
+        F[b][2 * h] = kent2(c[0], c[1]);
+        F[b][2 * h + 1] = kent2(c[2], c[3]);
       }
     }
-    // kbt: each block's from a zero accumulator, added to the tile's
-    // partial in f32 (carried through the NB blocks' mma, the truncating
-    // accumulation put s above its plain version on ~97% of the columns);
-    // after the d2 loop, whose fragments and accumulators are dead by then
+    // kbt, after the d2 loop, whose fragments and accumulators are dead by
+    // then: (column g | g + 8) x (t_r | t_c). At 32 lanes one more mma a
+    // 16-row block (the fragments times [t_r, t_c] as a zero-padded B
+    // operand), each from a zero accumulator, added in f32. Past 32 lanes
+    // on the FP32 pipe: each lane's entries (rows 2tq, 2tq + 1, 2tq + 8,
+    // 2tq + 9 of each block) times bf16(t_r), bf16(t_c), exact products in
+    // f32 FMA chains, then the quad's four lanes by a fixed shuffle tree.
+    // There the entries of one block span more orders of magnitude, and an
+    // mma aligns its products to the largest and truncates the rest: kbt
+    // ended low and s above its f64 evaluation on 0.62 of the columns at 64
+    // lanes, 0.72 at 96 and 0.81 at 128 (synthetic features; 0.52 at 32;
+    // the plain version 0.49-0.51; scripts/k8_lean.py); it took K8 15%
+    // longer at 32 lanes (where the mma's lean is slight), 14% at 64 and
+    // 96, 7% at 128
     float kt[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (FD == 32) {
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int p0 = rw + 16 * b + 2 * tq;
-      uint32_t tb[2];
-      tb[0] = g < 2 ? ld32(t2_s + g * rb + p0) : 0u;
-      tb[1] = g < 2 ? ld32(t2_s + g * rb + p0 + 8) : 0u;
-      float kb[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16816(kb, F[b], tb);
+      for (int b = 0; b < NB; ++b) {
+        const int p0 = rw + 16 * b + 2 * tq;
+        uint32_t tb[2];
+        tb[0] = g < 2 ? ld32(t2_s + g * rb + p0) : 0u;
+        tb[1] = g < 2 ? ld32(t2_s + g * rb + p0 + 8) : 0u;
+        float kb[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816(kb, F[b], tb);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) kt[e] += kb[e];
+        for (int e = 0; e < 4; ++e) kt[e] += kb[e];
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p0 = rw + 16 * b + 8 * h + 2 * tq;
+          const float2 tr = unpack2(ld32(t2_s + p0)), tc = unpack2(ld32(t2_s + rb + p0));
+          const float2 e0 = unpack2(F[b][2 * h]), e8 = unpack2(F[b][2 * h + 1]);
+          kt[0] = fmaf(e0.y, tr.y, fmaf(e0.x, tr.x, kt[0]));
+          kt[1] = fmaf(e0.y, tc.y, fmaf(e0.x, tc.x, kt[1]));
+          kt[2] = fmaf(e8.y, tr.y, fmaf(e8.x, tr.x, kt[2]));
+          kt[3] = fmaf(e8.y, tc.y, fmaf(e8.x, tc.x, kt[3]));
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        kt[e] += __shfl_xor_sync(0xffffffffu, kt[e], 1);
+        kt[e] += __shfl_xor_sync(0xffffffffu, kt[e], 2);
+      }
     }
-    if (tq == 0) {   // kt: (column jb+g | jb+g+8) x (t_r | t_c)
+    if (tq == 0) {
       float* w = wq_s + ((i & 1) * X_RG + rg) * 2 * X_TN;
       w[jb + g] = kt[0];
       w[X_TN + jb + g] = kt[1];
@@ -957,10 +1025,15 @@ ext2_fn ext2_kernel_fd(int P) {
   }
 }
 ext2_fn ext2_kernel(int P, int fd) {
-  return fd == 32 ? ext2_kernel_fd<32>(P) : fd == 64 ? ext2_kernel_fd<64>(P) : nullptr;
+  return fd == 32    ? ext2_kernel_fd<32>(P)
+         : fd == 64  ? ext2_kernel_fd<64>(P)
+         : fd == 96  ? ext2_kernel_fd<96>(P)
+         : fd == 128 ? ext2_kernel_fd<128>(P)
+                     : nullptr;
 }
 size_t ext2_smem(int P, int fd) {
-  return fd == 32 ? ext2_smem<32>(P) : ext2_smem<64>(P);
+  return fd == 32 ? ext2_smem<32>(P) : fd == 64 ? ext2_smem<64>(P) : fd == 96 ? ext2_smem<96>(P)
+                                                                             : ext2_smem<128>(P);
 }
 
 // K7's launch at feature depth FD
@@ -994,17 +1067,20 @@ int launch_kb_strip(const void* fa, const void* ft, const void* cols, void* out,
 
 extern "C" {
 
-// K7. P % 128 == 0, S % 128 == 0, fd 32 or 64 aug lanes, fa, ft, cols
-// and out 16-byte aligned (the wrapper checks). Persistent blocks, as many
-// as fit the card at once (the occupancy API), at most one an E_TM x E_TN
-// unit.
+// K7. P % 128 == 0, S % 128 == 0, fd 32, 64, 96 or 128 aug lanes, fa, ft,
+// cols and out 16-byte aligned (the wrapper checks). Persistent blocks, as
+// many as fit the card at once (the occupancy API), at most one an E_TM x
+// E_TN unit.
 int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
                  int fd, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (P < E_TM || S < 128 || P % E_TM || S % 128 || (fd != 32 && fd != 64))
+  if (P < E_TM || S < 128 || P % E_TM || S % 128 ||
+      (fd != 32 && fd != 64 && fd != 96 && fd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  return fd == 32 ? launch_kb_strip<32>(fa, ft, cols, out, P, S, s)
-                  : launch_kb_strip<64>(fa, ft, cols, out, P, S, s);
+  return fd == 32   ? launch_kb_strip<32>(fa, ft, cols, out, P, S, s)
+         : fd == 64 ? launch_kb_strip<64>(fa, ft, cols, out, P, S, s)
+         : fd == 96 ? launch_kb_strip<96>(fa, ft, cols, out, P, S, s)
+                    : launch_kb_strip<128>(fa, ft, cols, out, P, S, s);
 }
 
 // K7, f32 layout of fd lanes (32 or 64). P % 32 == 0, S % 128 == 0, live
@@ -1092,8 +1168,8 @@ int glt_ext2_clusters(int P, int fd) {
 }
 
 // K8. P % 512 == 0, P <= 4096, N % 64 == 0, 1 <= clusters <= N / 64, fd
-// 32 or 64 aug lanes (the wrapper checks); u_part holds (clusters, P)
-// floats.
+// 32, 64, 96 or 128 aug lanes (the wrapper checks); u_part holds
+// (clusters, P) floats.
 int glt_ext2_matvec(const void* fa, const void* ft, const void* t2, const void* bm,
                     void* s_out, void* u_part, void* u, int P, int N, int clusters, int fd,
                     void* stream) {

@@ -10,15 +10,16 @@ IEEE expf; each 128 x 128 tile staged in shared memory and written by TMA).
 The inputs round to ``dtype`` first and the norms come from those rounded
 values, as in the Pallas body; ``store_dtype`` narrows only the stored
 strip (the bfloat16_store policy). The split cross takes up to
-``MAX_FEATURES`` feature lanes, in two instantiations of the kernel: 32
-lanes (NLM patches up to 5 x 5) and 64 (a 7 x 7 patch, 49 lanes). Features
-that carry coordinates (``coords``: the config's ``spatial_h > 0``) take
-the kernel's IEEE f32 cross instead (an FFMA chain over the live lanes),
-up to ``COORD_FEATURES`` lanes, also in two instantiations (32, and 64: an
-NLM 7 x 7 patch and the coordinates, 51 lanes): (row, col) / spatial_h
+``MAX_FEATURES`` feature lanes, the reference's widest layout, in four
+instantiations of the kernel: 32 lanes (NLM patches up to 5 x 5), 64 (a 7
+x 7 patch, 49 lanes), 96 (9 x 9, 81) and 128 (11 x 11, 121), both stores.
+Features that carry coordinates (``coords``: the config's ``spatial_h >
+0``) take the kernel's IEEE f32 cross instead (an FFMA chain over the live
+lanes), up to ``COORD_FEATURES`` lanes, in two instantiations (32, and 64:
+an NLM 7 x 7 patch and the coordinates, 51 lanes): (row, col) / spatial_h
 reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16 small part loses about
-four times the f32 product's error. Wider layouts (d_pad 96 and 128)
-raise ``NotImplementedError`` naming ROADMAP.md Queue 2b.
+four times the f32 product's error. Wider coordinate features (d_pad 96
+and 128) raise ``NotImplementedError`` naming ROADMAP.md Queue 2b.
 
 Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
 arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
@@ -31,7 +32,7 @@ import torch
 
 from . import _build
 
-MAX_FEATURES = 64        # feature lanes of the split cross (csrc FD 32 or 64)
+MAX_FEATURES = 128       # feature lanes of the split cross (csrc FD 32, 64, 96, 128)
 COORD_FEATURES = 64      # lanes of the coordinate cross (csrc C1FD 32 or 64)
 D_PAD = 128              # the reference's widest feature layout
 # row pitch of the kernel's output where N is ragged

@@ -31,14 +31,15 @@ bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
 ``csrc/colstats_v.cu`` (K10's V pass; K9 is a ks pass over all of p, then
 the same V pass with c = s) on the two layouts the presets build: bf16
-(aug for K7/K8, plain for K9/K10) with 32 or 64 feature lanes (NLM 5 x 5 or
-7 x 7: each kernel is a template on its depth), and f32 plain (the
+(aug for K7/K8, plain for K9/K10) with 32, 64, 96 or 128 feature lanes (NLM
+5 x 5, 7 x 7, 9 x 9 or 11 x 11: each kernel is a template on its depth),
+and f32 plain (the
 bilateral recipes, ``spatial_h > 0``) with 32 or 64 lanes (gaussian or an
 NLM 5 x 5 patch with the coordinates, or an NLM 7 x 7 patch with them: 52
 live lanes), whose kernels form each entry with an IEEE f32 FFMA cross
 over the ``live`` lanes (the caller's feature width rounded up to 4; None
-reads all of them) and expf. The layouts not ported (96 or 128 lanes)
-raise ``NotImplementedError`` naming ROADMAP.md Queue 2b; so do the plain-bf16
+reads all of them) and expf. The f32 layouts not ported (96 or 128
+lanes) raise ``NotImplementedError`` naming ROADMAP.md Queue 2b; so do the plain-bf16
 K7/K8 layout and an f32 aug layout (no preset builds either). There is no
 fallback from a kernel to its plain version.
 """
@@ -55,7 +56,8 @@ from .streaming import _chunks
 
 PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
-FDS = (32, 64)            # feature depths of the kernels (csrc FD, LV)
+FDS = (32, 64, 96, 128)   # feature depths of the bf16 kernels (csrc FD)
+F32_FDS = (32, 64)        # and of the f32 ones (csrc FD, LV)
 D_PAD = 128               # the reference's widest feature layout
 X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
 XF_TN = 32                # the f32 K8's column tile (csrc)
@@ -192,10 +194,11 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> tuple[bool, int]:
         raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
                          f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
-    if fd not in FDS:
+    ported = F32_FDS if f32 else FDS
+    if fd not in ported:
         raise NotImplementedError(
             f"{what}: {fd} feature lanes: the CUDA kernels of the "
-            f"{'f32' if f32 else 'bf16'} layout take {FDS} "
+            f"{'f32' if f32 else 'bf16'} layout take {ported} "
             f"(ROADMAP.md Queue 2b)")
     if not (fa.is_contiguous() and f_t.is_contiguous()):
         raise ValueError(f"{what}: fa and f_t must be contiguous")
@@ -254,7 +257,8 @@ def _clusters(p: int, fd: int, tiles: int) -> int:
 
 def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
     """((p_pad, fd), (fd, S), (S,)) -> (p_pad, S) column-scaled tile, bf16
-    (aug layout) or f32 (f32 layout, ``live`` lanes read), fd 32 or 64."""
+    (aug layout, fd 32, 64, 96 or 128) or f32 (f32 layout, ``live`` lanes
+    read, fd 32 or 64)."""
     if _device_kind(fa, f_t, cols) == "cpu":
         return kb_strip_plain(fa, f_t, cols, aug)
     f32, fd = _check_layout(fa, f_t, "kb_strip", aug)
@@ -323,8 +327,8 @@ def gram_cuda(fa, f_t, cols, aug: bool = False, live=None):
 
 def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
     """((p_pad, fd), (fd, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,)); fd
-    32 or 64 on the bf16 aug layout and on the f32 one (``live`` lanes
-    read)."""
+    32, 64, 96 or 128 on the bf16 aug layout, 32 or 64 on the f32 one
+    (``live`` lanes read)."""
     if _device_kind(fa, f_t, t2, bm) == "cpu":
         return ext2_matvec_plain(fa, f_t, t2, bm, aug)
     f32, fd = _check_layout(fa, f_t, "ext2_matvec", aug)
@@ -381,8 +385,9 @@ def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
     launch per MP_MAX columns, each recomputing the tile: the first sweeps
     p for ks and s, the others take bf16(s) from it, so s is computed
     once. Any p_pad that is a multiple of P_QUANTUM: no column needs the
-    whole p in one block. fd is 32 or 64; on the f32 layout (f32 fa and
-    f_t, ``live`` lanes read) every operand stays f32."""
+    whole p in one block. fd is 32, 64, 96 or 128 (bf16), 32 or 64 on the
+    f32 layout (f32 fa and f_t, ``live`` lanes read), where every operand
+    stays f32."""
     if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
         return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
     f32, fd = _check_layout(fa, f_t, "finish_colstats", None)
@@ -424,8 +429,8 @@ def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb, live=None):
     (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,), coeffs
     (m_pad,)), all f32. ``cols`` must be 0 on padding columns. A gr wider
     than MP_MAX runs one launch per MP_MAX columns (each recomputes the
-    tile). fd is 32 or 64; on the f32 layout every operand stays f32
-    (``live`` lanes read)."""
+    tile). fd is 32, 64, 96 or 128 (bf16), 32 or 64 on the f32 layout,
+    where every operand stays f32 (``live`` lanes read)."""
     if _device_kind(fa, f_t, gr, y, cols, na, nb) == "cpu":
         return colstats_v_plain(fa, f_t, gr, y, cols, na, nb)
     f32, fd = _check_layout(fa, f_t, "colstats_v", None)

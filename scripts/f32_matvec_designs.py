@@ -1,17 +1,26 @@
 """The f32 K5/K6 (csrc/recompute_matvec.cu f32_sum_kernel, the split-fp16
-cross) as shipped and in earlier designs, at the 8 MP matvec denoise's
+cross) as shipped and in other designs, at the 8 MP matvec denoise's
 shapes with NLM 5 x 5 and 7 x 7 patches (32 and 64 feature lanes), on one
 CUDA card, with a probe of the entry of a pixel with itself.
 
     python3 scripts/f32_matvec_designs.py [--reps N] [--out FILE] [--dry]
+                                          [--parent DIR]
 
-The shipped kernel adds each tile's sums into its running sums by a
-compensated (Kahan) add. The variants:
+The shipped kernel splits each scaled feature in three fp16 parts (big,
+mid, lo: split3), forms each norm as an f64 sum rounded once to f32, and
+adds each tile's sums into its running sums by a compensated (Kahan) add.
+The variants:
 
-* ``plain add`` — the design before it: a plain f32 add a tile;
-* ``plain add, small small`` — that design with the split cross's
-  small.small product kept (one more mma a k16 step);
-* ``small small`` — the shipped sums with small.small kept.
+* ``plain add`` — the shipped kernel with a plain f32 add a tile;
+* ``chain norms`` — the shipped split with each norm a sequential f32 FMA
+  chain, as before;
+* ``ffma cross`` — the IEEE f32 FFMA cross of the coordinate kernel
+  (coord_sum_kernel at the layout's depth, its norms FMA chains; the
+  shipped library called with ``coords``);
+* ``two-part split`` and ``two-part split, f64 norms`` (with ``--parent
+  DIR``, a checkout unpacked there whose kernel splits in two, big + fp16
+  small, with FMA-chain norms) — that checkout's recompute_matvec.cu, as
+  it is and with the shipped norms.
 
 K5 fixes the sample rows and streams every pixel, so each row holds its
 own sample pixel's column, whose entry is the largest of the row (d2 =
@@ -57,19 +66,62 @@ _KAHAN = ("""      for (int h = 0; h < 2; ++h) {   // compensated (Kahan) add
       }""", """      for (int h = 0; h < 2; ++h) acc[r][h] += tacc[r][h];""")
 _FOLD = ("""      acc[r][h] -= cmp[r][h];
 """, "")
-_SS = ("""          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
-""", """          mma16816h(cr, as[r][ks], b[ks].x, b[ks].y);
-          mma16816h(cr, as[r][ks], b[ks].z, b[ks].w);
-""")
+# the norms: f64 sums rounded once (shipped) -> sequential f32 FMA chains
+_NF = ("""      double s = 0.0;                   // the norm, rounded once (f64 sum)
+#pragma unroll 8
+      for (int k = 0; k < FD; ++k) {
+        const double v = col[(size_t)k * Lf + 8 * h];
+        s = fma(v, v, s);
+      }
+      nf[r][h] = (float)s;""", """      float s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < FD; ++k) {
+        const float v = col[(size_t)k * Lf + 8 * h];
+        s = fmaf(v, v, s);
+      }
+      nf[r][h] = s;""")
+_NS = ("""      float m = 0.f;
+      double s = 0.0;
+#pragma unroll 8
+      for (int k = 0; k < FD; ++k) {
+        const float x = raw[k * T_LDS + tid];
+        m = fmaxf(m, fabsf(x));
+        s = fma((double)x, (double)x, s);
+      }
+      const int e = vec_exp(m);
+      ns_s[tid] = (float)s;""", """      float m = 0.f, s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < FD; ++k) {
+        const float x = raw[k * T_LDS + tid];
+        m = fmaxf(m, fabsf(x));
+        s = fmaf(x, x, s);
+      }
+      const int e = vec_exp(m);
+      ns_s[tid] = s;""")
+# the same, the other way, on the two-part checkout (its raw stage S)
+_PNF = (_NF[1], _NF[0])
+_PNS = (_NS[1].replace("raw[k * T_LDS", "S[k * T_LDS"),
+        _NS[0].replace("raw[k * T_LDS", "S[k * T_LDS"))
 # {variant: ([(old, new)], what)}
 VARIANTS = {
-    "shipped": ([], "as shipped: each tile's sums join the running sums by a "
-                    "compensated add"),
-    "plain add": ([_KAHAN, _FOLD], "the design before: a plain f32 add a tile"),
-    "plain add, small small": ([_KAHAN, _FOLD, _SS],
-                               "a plain add a tile, small.small kept in the cross"),
-    "small small": ([_SS], "the shipped sums, small.small kept in the cross"),
+    "shipped": ([], "as shipped: the three-part split, each tile's sums join "
+                    "the running sums by a compensated add"),
+    "plain add": ([_KAHAN, _FOLD], "the three-part split, a plain f32 add a "
+                                   "tile"),
+    "chain norms": ([_NF, _NS], "the three-part split, each norm a "
+                                "sequential f32 FMA chain"),
 }
+FFMA = "ffma cross"        # the shipped library's coordinate kernel
+# --parent's recompute_matvec.cu, as it is and with the shipped norms
+PARENTS = {"two-part split": [],
+           "two-part split, f64 norms": [_PNF, _PNS]}
+DESIGNS = {FFMA: "the IEEE f32 FFMA cross (coord_sum_kernel at the "
+                 "layout's depth), FMA-chain norms, plain tile adds",
+           "two-part split": "the two-part split (big + fp16 small), "
+                             "FMA-chain norms, the design before the "
+                             "three-part split",
+           "two-part split, f64 norms": "the two-part split with the "
+                                        "shipped f64-sum norms"}
 
 
 def _load(name: str, path: Path):
@@ -109,20 +161,24 @@ def cs_signed(got, ref) -> float:
 _CS = None
 
 
-def variant_sources(out: Path) -> dict:
-    """{variant: its recompute_matvec.cu} under ``out``; exits naming the
-    first edit that does not match once."""
+def variant_sources(out: Path, parent: str = "") -> dict:
+    """{variant: its recompute_matvec.cu} under ``out`` (and the parent's,
+    from ``parent``'s csrc); exits naming the first edit that does not
+    match once."""
     files = {}
-    text0 = (CSRC / "recompute_matvec.cu").read_text()
-    for name, (edits, _) in VARIANTS.items():
-        text = text0
+    sets = {name: (CSRC, edits) for name, (edits, _) in VARIANTS.items()}
+    if parent:
+        src = Path(parent) / "graphlap_tpu_torch" / "csrc"
+        sets.update({name: (src, edits) for name, edits in PARENTS.items()})
+    for name, (csrc, edits) in sets.items():
+        text = (csrc / "recompute_matvec.cu").read_text()
         for old, new in edits:
             if text.count(old) != 1:
                 sys.exit(f"f32_matvec_designs: {name}: an edit matches {text.count(old)} times")
             text = text.replace(old, new)
-        d = out / name.replace(" ", "_")
+        d = out / name.replace(" ", "_").replace(",", "")
         d.mkdir(parents=True, exist_ok=True)
-        for h in CSRC.glob("*.cuh"):
+        for h in csrc.glob("*.cuh"):
             (d / h.name).write_text(h.read_text())
         (d / "recompute_matvec.cu").write_text(text)
         files[name] = d / "recompute_matvec.cu"
@@ -134,8 +190,9 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", default="")
     ap.add_argument("--dry", action="store_true")
+    ap.add_argument("--parent", default="")
     args = ap.parse_args()
-    files = variant_sources(ROOT / "build" / "f32_matvec_designs")
+    files = variant_sources(ROOT / "build" / "f32_matvec_designs", args.parent)
     if args.dry:
         print(f"f32_matvec_designs: every edit applies: {list(files)}")
         return
@@ -158,6 +215,7 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     libs = fr.build_all(files, _build)
+    libs[FFMA] = libs["shipped"]
     saved = _build._LIB
     rows = {}
     try:
@@ -186,9 +244,12 @@ def main() -> None:
             for rep in range(args.reps):
                 for vname, lib in libs.items():
                     _build._LIB = lib
+                    coords = vname == FFMA
                     row = rows.setdefault(f"{vname}, patch {patch}", dict(
-                        design=VARIANTS[vname][1], lanes=int(ctx.f_t.shape[0]), ms={}))
-                    for name, (kern, _, a, _) in cases.items():
+                        design=VARIANTS[vname][1] if vname in VARIANTS else DESIGNS[vname],
+                        lanes=int(ctx.f_t.shape[0]), ms={}))
+                    for name, (kern0, _, a, _) in cases.items():
+                        kern = (lambda *x, k=kern0: k(*x, None, True)) if coords else kern0
                         row["ms"].setdefault(name, []).append(cs.cuda_ms(lambda: kern(*a), 3))
                         if rep == 0:
                             got = kern(*a)[:keep[name]]
@@ -201,7 +262,7 @@ def main() -> None:
                                 f64_rel=rel_stats(got, r64), plain_f64_rel=rel_stats(ref, r64))
                     if rep == 0:
                         for pname, (pv, ref, r64) in probes.items():
-                            got = k56.matvec_cuda(fa, f_t, pv, False)[:ctx.p]
+                            got = k56.matvec_cuda(fa, f_t, pv, False, None, coords)[:ctx.p]
                             row[f"matvec {pname}"] = probe_stats(got, ref, r64)
                     print(f"{vname}, patch {patch}: {row}", flush=True)
             del ctx, cases, refs, probes, v_self, v_zero

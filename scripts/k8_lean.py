@@ -1,10 +1,11 @@
 """The lean of K8's outputs (csrc/recompute_sweeps.cu ext2_matvec_kernel) on
-synthetic features, at 32 and 64 feature lanes, on one CUDA card.
+synthetic features, at 32, 64, 96 and 128 feature lanes, on one CUDA card.
 
     python3 scripts/k8_lean.py
 
-For normal(0, 0.3) features of 25 and 49 lanes (the 32- and 64-lane
-kernels) at p_pad 1024 and 4096 against 33024 and 77056 columns, it runs
+For normal(0, 0.3) features of 25, 49, 81 and 121 lanes (the 32-, 64-,
+96- and 128-lane kernels; past 64 the entries come from kb_pair, not the
+table) at p_pad 1024 and 4096 against 33024 and 77056 columns, it runs
 K8 and its plain version on the same aug layouts and prints, as the share
 of outputs below their reference (ties left out, chip_smoke.signed_stats'
 sense): the kernel's u against the plain u; the kernel's s against the
@@ -35,7 +36,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 CASES = [(25, 1000, 33024), (25, 4000, 77056), (25, 1000, 77056),
-         (49, 1000, 33024), (49, 4000, 77056), (49, 1000, 77056)]
+         (49, 1000, 33024), (49, 4000, 77056), (49, 1000, 77056),
+         (81, 4000, 77056), (81, 1000, 77056),
+         (121, 4000, 77056), (121, 1000, 77056)]
 CHUNK = 16384
 
 

@@ -2,9 +2,10 @@
 card.
 
     python3 scripts/profile_torch_slice.py
-        [--path config2|config2f32|config2p7|config4|config4p7|config3|
-                config3p7|config4q|config4qp7|turbo|dense|bilateral|
-                bilateralA|bilateralB|bilateralC|both|all]
+        [--path config2|config2f32|config2p7|config2p9|config2p11|config4|
+                config4p7|config4p9|config4p11|config3|config3p7|config4q|
+                config4qp7|turbo|turbop11|dense|bilateral|bilateralA|
+                bilateralB|bilateralC|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
@@ -14,6 +15,9 @@ chip_smoke.make_workload_p7, config 2 with an NLM 7x7 patch (K1's 64-lane
 cross); config 4: chip_smoke.make_workload_8mp, the 8 MP
 recompute-streaming fused-finish recipe; config 4 p7:
 chip_smoke.make_workload_8mp_p7, the same at 7x7 (the 64-lane K7-K9);
+config 2 p9, p11 and config 4 p9, p11: the same two at NLM 9x9 and 11x11
+(chip_smoke.make_workload and make_workload_8mp with patch 9 or 11: K1
+and K7-K9 at 96 and 128 lanes); turbo p11: the turbo recipe at 11x11;
 config 3: chip_smoke.make_workload_cfg3, the 1024x1024
 RGB matvec sharpen; config 4q: chip_smoke.make_workload_8mp_matvec, the
 8 MP f32 matvec denoise; config 3 p7 and config 4q p7: the two at 7x7
@@ -210,6 +214,8 @@ def device_profile(tag, gt, cfg, noisy, plan, dev, out: Path) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("config2", "config2f32", "config2p7",
+                                       "config2p9", "config2p11", "config4p9",
+                                       "config4p11", "turbop11",
                                        "config4", "config4p7", "config3",
                                        "config3p7", "config4q", "config4qp7",
                                        "turbo", "dense", "bilateral",
@@ -235,6 +241,11 @@ def main() -> None:
              "config2p7": chip_smoke.make_workload_p7,
              "config4": chip_smoke.make_workload_8mp,
              "config4p7": chip_smoke.make_workload_8mp_p7,
+             "config2p9": lambda g: chip_smoke.make_workload(g, 9),
+             "config2p11": lambda g: chip_smoke.make_workload(g, 11),
+             "config4p9": lambda g: chip_smoke.make_workload_8mp(g, patch=9),
+             "config4p11": lambda g: chip_smoke.make_workload_8mp(g, patch=11),
+             "turbop11": lambda g: chip_smoke.make_workload_8mp_turbo(g, 11),
              "config3": chip_smoke.make_workload_cfg3,
              "config3p7": lambda g: chip_smoke.make_workload_cfg3(g, 7),
              "config4q": chip_smoke.make_workload_8mp_matvec,

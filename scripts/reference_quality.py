@@ -1,7 +1,9 @@
-"""The JAX reference's denoise quality on the NLM 7 x 7 bilateral recipes,
-on the CPU, at sizes the CPU reaches.
+"""The JAX reference's denoise quality on the NLM 7 x 7 bilateral recipes
+and on configs 2 and 4 at NLM 9 x 9 and 11 x 11, on the CPU, at sizes the
+CPU reaches.
 
     JAX_PLATFORMS=cpu python scripts/reference_quality.py [--recipes A B C]
+    JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes 2p9 2p11 4p9 4p11 4tp9 4tp11
 
 Each recipe is resolved by ``tuned_config`` at its full size, as
 ``chip_smoke.py`` builds it, and run by ``graphlap_tpu.filter_image`` on a
@@ -13,7 +15,13 @@ smaller test image (sigma 0.1, seed 1):
 * B — the 8 MP spectral bilateral recipe (f32 tiles, h 0.15, coarse 1/64 x
   6 + 1 polish, gram 1/64, fused finish, LOBPCG), run at 256 x 512;
 * C — B through ``denoise_tuned(0.1)``: the 8 MP matvec recipe, run at 256
-  x 512.
+  x 512;
+* 2p9, 2p11 — config 2's strip_cache recipe (``chip_smoke.make_workload``)
+  with an NLM 9 x 9 or 11 x 11 patch (the CLI's ``-patch``), run at 256^2;
+* 4p9, 4p11 — config 4's fused 8 MP recipe (``chip_smoke.make_workload_8mp``)
+  with the same patches, run at 256 x 512;
+* 4tp9, 4tp11 — the 8 MP turbo recipe (``chip_smoke.make_workload_8mp_turbo``)
+  with the same patches, run at 256 x 512.
 
 Prints one JSON line a recipe: its size, p, PSNR in and out and the top
 eigenvalues, so that a recipe that degenerates in the reference (as the
@@ -24,6 +32,7 @@ port fault.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -37,6 +46,15 @@ import graphlap_tpu_torch as gt  # noqa: E402
 from graphlap_tpu.config import PipelineConfig as JaxConfig  # noqa: E402
 
 MP8 = 2048 * 4096
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_recipes",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def recipes() -> dict:
@@ -46,8 +64,16 @@ def recipes() -> dict:
                         "fast")
     c = gt.tuned_config(gt.denoise_tuned(
         base.replace(streaming=True, sample_cap=4096), 0.1), MP8, "fast")
-    return {"A": (gt.tuned_config(base, 512 * 512, "fast"), (256, 256)),
-            "B": (b, (256, 512)), "C": (c, (256, 512))}
+    out = {"A": (gt.tuned_config(base, 512 * 512, "fast"), (256, 256)),
+           "B": (b, (256, 512)), "C": (c, (256, 512))}
+    cs = _chip_smoke()
+    for patch in (9, 11):
+        out[f"2p{patch}"] = (cs.make_workload(gt, patch)[0], (256, 256))
+        out[f"4p{patch}"] = (cs.make_workload_8mp(gt, 256, 512, patch)[0],
+                             (256, 512))
+        out[f"4tp{patch}"] = (cs.make_workload_8mp_turbo(gt, patch)[0],
+                              (256, 512))
+    return out
 
 
 def main() -> None:

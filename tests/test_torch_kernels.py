@@ -545,22 +545,21 @@ def test_k2_raises_before_a_launch_for_p_outside_the_plan(monkeypatch, p):
 
 
 def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
-    """The emitter's split cross takes at most 64 feature lanes (a 7 x 7
-    patch, 49 lanes, reaches the kernel library) and so does its coordinate
-    cross (a 7 x 7 patch and two coordinates, 51 lanes); the reference's
-    wider layouts, up to 128 lanes, raise NotImplementedError naming
-    ROADMAP Queue 2b and anything past them ValueError, each before any
-    launch."""
+    """The emitter's split cross takes up to 128 feature lanes, the
+    reference's widest layout (7 x 7, 9 x 9 and 11 x 11 patches, 49, 81 and
+    121 lanes, reach the kernel library), and its coordinate cross up to 64
+    (a 7 x 7 patch and two coordinates, 51 lanes); the coordinate cross
+    past 64 raises NotImplementedError naming ROADMAP Queue 2b and anything
+    past 128 lanes ValueError, each before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
     monkeypatch.setattr(k1, "_device_kind", lambda *ts: "cuda")
     monkeypatch.setattr(_build, "lib", no_lib)
     before = _counts()
-    with pytest.raises(RuntimeError, match="unavailable"):
-        k1.affinity_strip_cuda(torch.zeros((8, 49)), torch.zeros((16, 49)))
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)))
+    for d in (49, 65, 81, 121):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            k1.affinity_strip_cuda(torch.zeros((8, d)), torch.zeros((16, d)))
     with pytest.raises(RuntimeError, match="unavailable"):
         k1.affinity_strip_cuda(torch.zeros((8, 51)), torch.zeros((16, 51)),
                                coords=True)

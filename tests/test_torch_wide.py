@@ -379,12 +379,13 @@ def _recompute_call(which, lanes, dtype, live=None):
 @pytest.mark.parametrize("which", ["kb_strip", "ext2_matvec",
                                    "finish_colstats", "colstats_v"])
 def test_k7_k10_take_64_lanes_and_raise_past_them(monkeypatch, which):
-    """On a CUDA tensor K7-K10 take 32 or 64 feature lanes on both layouts:
-    64 (bf16, and f32 with 52 live lanes, an NLM 7 x 7 patch and the
-    coordinates) reaches the kernel library (here missing); 96 and 128
-    (patches 9 and 11) raise NotImplementedError naming ROADMAP Queue 2b;
-    widths that are no layout, and live lanes past the layout's 64, raise
-    ValueError; none launches."""
+    """On a CUDA tensor K7-K10 take 32 or 64 feature lanes on both layouts,
+    and 96 and 128 (patches 9 and 11) on the bf16 one: 64 (bf16, and f32
+    with 52 live lanes, an NLM 7 x 7 patch and the coordinates) and the
+    bf16 96 and 128 reach the kernel library (here missing); the f32 96 and
+    128 raise NotImplementedError naming ROADMAP Queue 2b; widths that are
+    no layout, and live lanes past the layout's 64, raise ValueError; none
+    launches."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -396,9 +397,11 @@ def test_k7_k10_take_64_lanes_and_raise_past_them(monkeypatch, which):
         _recompute_call(which, 64, bf)
     with pytest.raises(RuntimeError, match="unavailable"):
         _recompute_call(which, 64, f32, live=52)
-    for lanes, dtype in ((96, bf), (128, bf), (96, f32), (128, f32)):
+    for lanes in (96, 128):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            _recompute_call(which, lanes, bf)
         with pytest.raises(NotImplementedError, match="Queue 2b"):
-            _recompute_call(which, lanes, dtype)
+            _recompute_call(which, lanes, f32)
     with pytest.raises(ValueError, match="feature lanes"):
         _recompute_call(which, 160, bf)
     with pytest.raises(ValueError, match="live lanes"):
@@ -599,14 +602,18 @@ def _k8_synthetic(dev, d, p, n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,p,n", [(25, 4000, 77056), (49, 4000, 77056),
-                                   (49, 1000, 33024)],
-                         ids=["32-p4096", "64-p4096", "64-p1024"])
+                                   (49, 1000, 33024), (81, 4000, 77056),
+                                   (121, 4000, 77056)],
+                         ids=["32-p4096", "64-p4096", "64-p1024", "96-p4096",
+                              "128-p4096"])
 def test_k8_s_does_not_lean(cuda_device, d, p, n):
     """K8's s against the f64 evaluation of its function on the same bf16
     tile entries (bf16 t2, kbt and s in f64), on scripts/k8_lean.py's
-    synthetic features at 32 and 64 lanes: the share of columns below lies
-    in (0.25, 0.75), ties left out. One truncating mma chain over a warp's
-    16-row blocks put it above on ~97% of the columns at p_pad 4096."""
+    synthetic features at 32 to 128 lanes: the share of columns below lies
+    in (0.4, 0.6), ties left out. One truncating mma chain over a warp's
+    16-row blocks put it above on ~97% of the columns at p_pad 4096; one
+    mma a 16-row block, whose products span orders of magnitude, still on
+    0.52 to 0.81 from 32 to 128 lanes, until kbt moved to the FP32 pipe."""
     fa_aug, f_t, t2, bm = _k8_synthetic(cuda_device, d, p, n)
     _, s = k79.ext2_matvec_cuda(fa_aug, f_t, t2, bm, True)
     t2r = t2.to(torch.bfloat16).double()
@@ -618,7 +625,7 @@ def test_k8_s_does_not_lean(cuda_device, d, p, n):
     d_s = (s.double() - s64)[bm > 0]
     d_s = d_s[d_s != 0]
     below = float((d_s < 0).double().mean())
-    assert 0.25 < below < 0.75, below
+    assert 0.4 < below < 0.6, below
 
 
 @pytest.mark.gpu
