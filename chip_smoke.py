@@ -10,10 +10,9 @@ non-zero before the last line is printed):
 2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
               process a source, all started together; the K3/K4 kernels'
               SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma, and
-              the K1 and K7 emitters', K8's, K9's ks pass's and the V
-              pass's HMMA at 32, 64, 96 and 128 lanes, and the aug and f32
-              K5/K6 kernels' at 32 and 64 (their products on the tensor
-              cores).
+              the K1 and K7 emitters', K8's, K9's ks pass's, the V
+              pass's and the aug and f32 K5/K6 kernels' HMMA at 32, 64, 96
+              and 128 lanes (their products on the tensor cores).
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
@@ -130,12 +129,15 @@ non-zero before the last line is printed):
             (gradient-energy ratio, SSIM, PSNR);
    plain    the same three channels through the plain versions on the card;
    small    a 48x48x3 image, card kernels against CPU plain versions.
-5b. config 3 at 7x7 — make_workload_cfg3 with an NLM 7x7 patch (the CLI's
-              -patch 7), bf16 aug tiles of 55 lanes padded to 64: phase 5 on
-              the 64-lane aug K5/K6 (rows *_d64: against plain, twice bit
-              for bit, leans required, timed beside their bound), the path
-              end to end (6 / 6 launches a call, the three sharpen bars,
-              0.05 dB / 2e-2 from the plain path, 48x48x3 vs the CPU).
+5b. config 3 at 7x7, 9x9 and 11x11 — make_workload_cfg3 with an NLM 7x7,
+              9x9 or 11x11 patch (the CLI's -patch), bf16 aug tiles of 55, 87
+              or 127 lanes padded to 64, 96 or 128: phase 5 on the 64-, 96-
+              or 128-lane aug K5/K6 (rows *_d64, *_d96, *_d128: against
+              plain, twice bit for bit, leans required, timed beside their
+              bound), the path end to end (6 / 6 launches a call, the three
+              sharpen bars, which the reference meets at each patch,
+              scripts/reference_quality.py --recipes 3p9 3p11; 0.05 dB /
+              2e-2 from the plain path, 48x48x3 vs the CPU).
 6. config 4q — the 8 MP matvec denoise, f32 plain layout (benchmarks/run.py's
               cfg4_8mp_quality_matvec: denoise_tuned(h 0.1) + "fast": identity
               W y, f32 features and tiles, coarse Sinkhorn 1/64 + one polish):
@@ -149,9 +151,12 @@ non-zero before the last line is printed):
             (0.02 dB, 2e-3);
    small    the recipe at 96x96, card kernels against CPU plain versions
             (0.02 dB, 2e-3).
-6b. config 4q at 7x7 — make_workload_8mp_matvec with an NLM 7x7 patch, f32
-              tiles of 49 lanes padded to 64: phase 6 on the 64-lane f32
-              K5/K6 (rows *_d64).
+6b. config 4q at 7x7, 9x9 and 11x11 — make_workload_8mp_matvec with an
+              NLM 7x7, 9x9 or 11x11 patch, f32 tiles of 49, 81 or 121 lanes
+              padded to 64, 96 or 128: phase 6 on the 64-, 96- or 128-lane
+              f32 K5/K6 (rows *_d64, *_d96, *_d128; the 5 dB gain, which
+              the reference shows at each patch, scripts/reference_quality.py
+              --recipes 4qp9 4qp11).
 7. config 4t — the 8 MP turbo recipe on the unfused spectral schedule
               (benchmarks/run.py's cfg4_8mp_turbo_sc64_gc64: config 4's image
               and sample, coarse Sinkhorn and gram 1/64, no polish, so no
@@ -166,12 +171,13 @@ non-zero before the last line is printed):
    small    96x96 on the turbo recipe's shape, card against CPU plain.
 8. staged   — filter_image_staged (the unfused schedule, a wall per stage) on
               config 4's cfg4_8mp_compliant_turbo_p1 (K5/K6 polish, K7, K10),
-              on the same recipe at 7x7 (make_workload_8mp_p7: the 64-lane
-              aug K5/K6 polish, K7 and K10) and on config 2 (K1 once a
-              stage), each held to filter_image on the same config within
-              the bf16 bars; at 7x7, where the reference's fused and unfused
-              schedules part too, to the same stages through the plain
-              versions on the card (its gap to filter_image printed).
+              on the same recipe at 7x7 and 11x11 (make_workload_8mp: the
+              64- and 128-lane aug K5/K6 polish, K7 and K10) and on config
+              2 (K1 once a stage), each held to filter_image on the same
+              config within the bf16 bars; at 7x7 and 11x11, where the
+              reference's fused and unfused schedules part too, to the same
+              stages through the plain versions on the card (its gap to
+              filter_image printed).
 9. dense    — the dense (non-streaming) path on bench.py's f32 twin of the
               headline, CONFIG2.replace(use_pallas=True) at 512x512 (noise
               sigma 0.1 seed 1; p=5243, the (p, N-p) K_AB strip stored f32,
@@ -237,7 +243,7 @@ non-zero before the last line is printed):
               twice a call through filter_image, PSNR printed (the recipe
               degenerates in the reference too), the plain path (0.02 dB,
               2e-3), 96x96 vs the CPU.
-11. result  — one JSON line listing every kernel and layout (52 rows:
+11. result  — one JSON line listing every kernel and layout (60 rows:
               name, route, source, replaces, launches, max_abs_err, ms,
               plain_ms, bound_ms, bound_by, library_ms) after the line with
               the run's total seconds, the card line, then the contract line
@@ -418,6 +424,22 @@ TOL = {
     "finish_colstats_d128": 2.0 ** -7,
     "colstats_v_d96": 2.0 ** -7,
     "colstats_v_d128": 2.0 ** -7,
+    # K5/K6 at 96 and 128 lanes (config 3's sharpen and the 8 MP matvec
+    # denoise at 9 x 9 and 11 x 11): the same rounding points as at 64
+    # lanes, with d2 chains over six or eight k16 steps (aug; the entry from
+    # the same table at 96 lanes, from kb_pair at 128, equal at every
+    # bf16(d2) pattern; the w product exact on the FP32 pipe) and the split
+    # cross over more lanes (f32; its bar, L 2^-19 of 2^(Ea + Eb),
+    # re-derived from the lane count in tests/test_torch_matvec.py), so they
+    # keep the 64-lane bars
+    "matvec_d96": 1e-3,
+    "rmatvec_d96": 1e-3,
+    "matvec_d128": 1e-3,
+    "rmatvec_d128": 1e-3,
+    "matvec_f32_d96": 1e-4,
+    "rmatvec_f32_d96": 1e-4,
+    "matvec_f32_d128": 1e-4,
+    "rmatvec_f32_d128": 1e-4,
     # the same kernels at 28 live lanes (NLM 5 x 5 and the coordinates: the
     # LV = 32 instantiations, recipe B's twin) keep the 64-lane rows' bars;
     # rows kept in the phase's record, not in the kernels line
@@ -514,7 +536,8 @@ SOURCE = {
 }
 WIDE = tuple(f"{k}_d{fd}" for fd in (96, 128) for k in (
     "affinity_strip", "affinity_strip_f32", "kb_strip", "ext2_matvec",
-    "finish_colstats", "colstats_v"))      # the rows past 64 lanes
+    "finish_colstats", "colstats_v", "matvec", "rmatvec", "matvec_f32",
+    "rmatvec_f32"))                        # the rows past 64 lanes
 for _name in WIDE:
     _base = _name.rsplit("_d", 1)[0]
     REPLACES[_name], SOURCE[_name] = REPLACES[_base], SOURCE[_base]
@@ -555,6 +578,11 @@ UNTIED = ("ext2_matvec_f32", "finish_colstats_f32", "colstats_v_f32",
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
+
+
+# the feature lanes of an NLM patch's layouts: the plain layout's d and the
+# aug layout's d + 6 pad to the same depth at every patch the CLI takes
+PATCH_LANES = {5: 32, 7: 64, 9: 96, 11: 128}
 
 
 def lanes_sfx(lanes: int) -> str:
@@ -931,9 +959,21 @@ def matvec_cases(ctx, dev, names, rows):
     # f32 layout's also against its sums in f64, required too since K5's
     # tile sums join its running sums by a compensated add (a plain add
     # dropped the tiles far from a row's live entries, and 0.63 / 0.73 of
-    # its rows lay below f64 at 32 / 64 lanes)
+    # its rows lay below f64 at 32 / 64 lanes); the aug layout's against
+    # the f64 sums of the same bf16 entries, printed up to 64 lanes, where
+    # its w product sums in the tensor core, and required past them, where
+    # it sums on the FP32 pipe
     signed = {mv: (0, ctx.p, True, True), rmv: (0, ctx.n, True, True)}
-    if not aug:
+    if aug:
+        wide = fd > 64                    # required where the FP32 pipe sums
+        signed = {
+            mv: [signed[mv], (0, ctx.p, True, wide,
+                              lambda a, b, x, _: aug_f64_sums(a, b, "matvec",
+                                                              x))],
+            rmv: [signed[rmv], (0, ctx.n, True, wide,
+                                lambda a, b, x, _: aug_f64_sums(
+                                    a, b, "rmatvec", x))]}
+    else:
         signed = {
             mv: [signed[mv], (0, ctx.p, True, True,
                               lambda a, b, x, _: f64_sums(a, b, "matvec", x))],
@@ -1779,23 +1819,27 @@ def entry_table(dev, info) -> None:
 def config3(gt, dev, rows, launches, info, patch=5):
     """Config 3's per-channel sharpen (make_workload_cfg3) with an NLM
     ``patch`` x ``patch`` patch: the aug K5/K6 at channel 0's shapes, the
-    path end to end with the reference's three sharpen bars, the plain path,
-    and 48x48x3 against the CPU. At 7 x 7 (the 64-lane kernel) the rows are
-    named ``*_d64``; the entry table is checked once, at 5 x 5."""
+    path end to end with the reference's three sharpen bars (which the
+    reference meets at every patch: at 9 x 9 and 11 x 11 PSNR 30.49 ->
+    28.97 / 28.95 dB, gradient-energy ratio 1.237 -> 1.615 / 1.616, SSIM
+    0.874 at 256^2, scripts/reference_quality.py --recipes 3p9 3p11), the
+    plain path, and 48x48x3 against the CPU. At 7 x 7, 9 x 9 and 11 x 11
+    (the 64-, 96- and 128-lane kernels) the rows are named ``*_d64``,
+    ``*_d96``, ``*_d128``; the entry table is checked once, at 5 x 5."""
     from graphlap_tpu_torch.metrics import ssim
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_matvec as k56
 
     t0 = time.perf_counter()
-    sfx = "_d64" if patch == 7 else ""
+    sfx = lanes_sfx(PATCH_LANES[patch])
     names = ("matvec" + sfx, "rmatvec" + sfx)
     cfg, img, noisy, plan = make_workload_cfg3(gt, patch)
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
     ctx = ms._strip_ctx(img_d[..., 0].contiguous(), idx_d, cfg)
     require(ctx.fa_aug is not None, "config 3 did not reach the aug layout")
-    require(ctx.f_t.shape[0] == (64 if patch == 7 else 32),
+    require(ctx.f_t.shape[0] == PATCH_LANES[patch],
             "config 3's aug layout has another feature depth")
     phase("config3", f"workload and channel-0 layouts at {H3}x{W3}x3 (patch "
           f"{patch}, {ctx.f_t.shape[0]} feature lanes, p="
@@ -1869,22 +1913,25 @@ def config3(gt, dev, rows, launches, info, patch=5):
 def config4q(gt, dev, rows, launches, info, patch=5):
     """The 8 MP matvec denoise (make_workload_8mp_matvec) with an NLM
     ``patch`` x ``patch`` patch: the f32 K5/K6 at the path's shapes, the
-    path end to end (gain > 5 dB), the plain path, and the recipe at 96x96
-    against the CPU. At 7 x 7 (the 64-lane kernel) the rows are named
-    ``*_d64``."""
+    path end to end (gain > 5 dB, which the reference shows at every patch:
+    +6.84 / +6.59 dB at 9 x 9 / 11 x 11 on 256 x 512,
+    scripts/reference_quality.py --recipes 4qp9 4qp11), the plain path,
+    and the recipe at 96x96 against the CPU. At 7 x 7, 9 x 9 and 11 x 11
+    (the 64-, 96- and 128-lane kernels) the rows are named ``*_d64``,
+    ``*_d96``, ``*_d128``."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_matvec as k56
 
     t0 = time.perf_counter()
-    sfx = "_d64" if patch == 7 else ""
+    sfx = lanes_sfx(PATCH_LANES[patch])
     names = ("matvec_f32" + sfx, "rmatvec_f32" + sfx)
     cfg, img, noisy, plan = make_workload_8mp_matvec(gt, patch)
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
     require(ctx.fa_aug is None and ctx.f_t.dtype == torch.float32
-            and ctx.f_t.shape[0] == (64 if patch == 7 else 32),
+            and ctx.f_t.shape[0] == PATCH_LANES[patch],
             "the 8 MP matvec denoise did not reach the f32 layout")
     phase("config4q", f"workload and layouts at {H8}x{W8} (patch {patch}, "
           f"{ctx.f_t.shape[0]} feature lanes, p={ctx.p}, p_pad="
@@ -2167,6 +2214,17 @@ def staged(gt, dev, info):
          "colstats_v_d64": k79.colstats_v_cuda}, against_plain=True)
     phase("staged", "config 4 at 7x7 done", t0)
     torch.cuda.empty_cache()
+    # at 11 x 11: the polish on the 128-lane aug K5/K6, the 128-lane K7 and
+    # K10, held to its own plain path as at 7 x 7
+    t0 = time.perf_counter()
+    cfg, img, noisy, plan = make_workload_8mp(gt, patch=11)
+    info["staged_config4_d128"] = staged_one(
+        gt, "config 4 at 11x11 (8 MP)", cfg, img, noisy, plan, dev,
+        {"matvec_d128": k56.matvec_cuda, "rmatvec_d128": k56.rmatvec_cuda,
+         "kb_strip_d128": k79.kb_strip_cuda,
+         "colstats_v_d128": k79.colstats_v_cuda}, against_plain=True)
+    phase("staged", "config 4 at 11x11 done", t0)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg, img, noisy, plan = make_workload(gt)
     info["staged_config2"] = staged_one(
@@ -2428,6 +2486,26 @@ def f64_sums(fa, f_t, what, *vecs, chunk=16384):
                 torch.clamp(kbt[0] * kbt[1], min=1e-30))
             out += k @ s[sl]
     return out if s is None else (out, s)
+
+
+def aug_f64_sums(fa, f_t, what, x, chunk=16384):
+    """The aug K5 (``what`` "matvec") or K6 ("rmatvec") on the plain
+    version's bf16 tile entries and the vector rounded to bf16, as the
+    wrapper rounds it, every product and sum in f64, over column chunks."""
+    from graphlap_tpu_torch.ops.cuda_recompute import _tile_plain
+
+    xr = x.to(torch.bfloat16).double()
+    n = f_t.shape[1]
+    out = torch.zeros(fa.shape[0] if what == "matvec" else n,
+                      dtype=torch.float64, device=fa.device)
+    for j in range(0, n, chunk):
+        sl = slice(j, j + chunk)
+        k = _tile_plain(fa, f_t[:, sl], True).double()
+        if what == "matvec":
+            out += k @ xr[sl]
+        else:
+            out[sl] = xr @ k
+    return out
 
 
 def sums_f64_check(label, got, plain, ref64):
@@ -3029,17 +3107,17 @@ def main() -> None:
     require(hmma and all(hmma.values()),
             "the K7 emitter does not run d2 on the tensor cores")
     hmma = sass_uses(_build, "aug_sum_kernel", "HMMA")
-    phase("build", f"aug K5/K6 kernels (32 and 64 lanes) holding HMMA (d2 "
-          f"and the w product on the tensor cores), from cuobjdump -sass: "
-          f"{hmma}")
-    require(len(hmma) == 2 and all(hmma.values()),
+    phase("build", f"aug K5/K6 kernels (32, 64, 96 and 128 lanes) holding "
+          f"HMMA (d2 on the tensor cores, and up to 64 lanes the w product), "
+          f"from cuobjdump -sass: {hmma}")
+    require(len(hmma) == 4 and all(hmma.values()),
             "the aug K5/K6 kernels do not run their products on the tensor "
             "cores")
     hmma = sass_uses(_build, "f32_sum_kernel", "HMMA")
-    phase("build", f"f32 K5/K6 kernels (32 and 64 lanes) holding HMMA (the "
-          f"split-fp16 cross on the tensor cores), from cuobjdump -sass: "
-          f"{hmma}")
-    require(len(hmma) == 2 and all(hmma.values()),
+    phase("build", f"f32 K5/K6 kernels (32, 64, 96 and 128 lanes) holding "
+          f"HMMA (the split-fp16 cross on the tensor cores), from cuobjdump "
+          f"-sass: {hmma}")
+    require(len(hmma) == 4 and all(hmma.values()),
             "the f32 K5/K6 kernels do not run their cross on the tensor "
             "cores")
     # K8, K9's ks pass and the V pass of K9/K10, every instantiation (32,
@@ -3072,14 +3150,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         config4t(gt, dev, rows, launches, info, patch=patch)
         torch.cuda.empty_cache()
-    config3(gt, dev, rows, launches, info)
-    torch.cuda.empty_cache()
-    config3(gt, dev, rows, launches, info, patch=7)
-    torch.cuda.empty_cache()
-    config4q(gt, dev, rows, launches, info)
-    torch.cuda.empty_cache()
-    config4q(gt, dev, rows, launches, info, patch=7)
-    torch.cuda.empty_cache()
+    for patch in (5, 7, 9, 11):
+        config3(gt, dev, rows, launches, info, patch=patch)
+        torch.cuda.empty_cache()
+    for patch in (5, 7, 9, 11):
+        config4q(gt, dev, rows, launches, info, patch=patch)
+        torch.cuda.empty_cache()
     config4t(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     staged(gt, dev, info)

@@ -98,6 +98,18 @@ __device__ __forceinline__ float d2f32(float nab, float cross) {
 // the f32 entry exp(-d2)
 __device__ __forceinline__ float kf32(float nab, float cross) { return expf(-d2f32(nab, cross)); }
 
+// the aug entries of two d2 (K7, K8 past 64 lanes, the aug K5/K6 at 128),
+// bf16(exp(-bf16(max(d2, 0)))) packed (lo in the low half): d2 rounded to
+// bf16 (cvt.rn.bf16x2), then kexp's one FMUL and one MUFU ex2 on each,
+// rounded again. Equal to kb_aug at every one of the
+// 65536 bf16(d2) patterns (glt_kb_entries evaluates this function there;
+// chip_smoke.py requires it); kexp's fmaxf maps the negative and NaN
+// patterns to the entry 1.0, as kb_aug's does
+__device__ __forceinline__ uint32_t kb_pair(float lo, float hi) {
+  const uint32_t w = pack2(lo, hi);
+  return pack2(kexp(__uint_as_float(w << 16)), kexp(__uint_as_float(w & 0xFFFF0000u)));
+}
+
 // --- the split-fp16 cross of f32 features (K1, the f32 K5/K6) --------------
 
 __device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }

@@ -21,10 +21,11 @@
 //              (coord_sum_kernel, below).
 //
 // Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (FD, L)
-// feature matrices, FD 32 or 64 lanes (an NLM 5 x 5 or 7 x 7 patch; the
-// coordinate kernel takes 32): K5 fixes the sample rows (fa^T, which the wrapper
-// transposes) and streams the pixel columns (f_t) against w = v; K6 fixes the
-// columns and streams the rows against w = t. d2 is symmetric in the roles, so
+// feature matrices, FD 32, 64, 96 or 128 lanes (an NLM 5 x 5, 7 x 7, 9 x 9
+// or 11 x 11 patch; the coordinate kernel takes 32 or 64): K5 fixes the
+// sample rows (fa^T, which the wrapper transposes) and streams the pixel
+// columns (f_t) against w = v; K6 fixes the columns and streams the rows
+// against w = t. d2 is symmetric in the roles, so
 // one kernel per layout serves both.
 //
 // What bounds them on an H100. Config 3 (aug, p_pad 4096, n 1048576): 4.3e9
@@ -43,7 +44,8 @@
 // from device memory; the fixed side's tile re-reads come from L2). At 64
 // lanes the d2 product doubles: aug 0.56 TFLOP at config 3 (0.56 ms, now
 // the bound beside 0.51 of table loads), f32 six fp16 passes of 4.4 TFLOP
-// at 8 MP (26.7 ms).
+// at 8 MP (26.7 ms); at 96 and 128 lanes aug 0.83 / 1.11 ms and f32 40.0 /
+// 53.4 ms, the d2 product the bound of both.
 //
 // Design, aug (tensor cores, an entry table): persistent blocks, one an SM,
 // walk work items (a 1024-entry slice of the fixed side by a split of the
@@ -61,12 +63,26 @@
 // a 16-row tile, so 64 entries would take 64 registers of the 120 a
 // thread of 544 may have), a work item 512, and the ring 2 stages of 256
 // (34 KB each beside the 128 KB table; 4 of 128 fit too, and ran no
-// faster: scripts/matvec_designs.py --patch 7). A warp's d2 is FD / 16
+// faster: scripts/matvec_designs.py --patch 7). Past 64 lanes a stage of
+// 256 entries beside the table passes the block's shared memory (233,504
+// bytes at 96 lanes, two stages): at 96 lanes the ring takes 2 stages of
+// 128 (a span each) beside the table; at 128 the entries come from kb_pair
+// (K7's: kexp on bf16(d2), equal to the table at every pattern) with no
+// table, beside 3 stages of 256, and a warp holds 16 fixed entries (32
+// A-fragment registers), a work item 256. Each route measured faster at
+// its width (scripts/matvec_designs.py --patch 9 / 11, PERF.md: the table
+// at 128 lanes, 2 stages of 128, ran 25% slower; kb_pair at 96, 12%).
+// Past 64 lanes the w product runs on the FP32 pipe: at 81 and 121 lanes
+// the entries of a span spread over more octaves, and the tensor core's
+// truncating accumulation put K6's sums below its plain version's on 98%
+// of the columns (a synthetic test, PERF.md). A warp's d2 is FD / 16
 // m16n8k16 mma per 16 x 8 sub-tile (one chain from zero), the entries
 // replace the accumulator in place (the accumulator layout is the
 // A-fragment layout), and the packed bf16 tile times [bf16(w), 0, ...] is
-// one more mma. Each 128-entry span's sums start from a zero accumulator
-// and join the running sums by an f32 add: the tensor core's f32
+// one more mma (up to 64 lanes; past them 8 f32 FMAs a lane, each product
+// exact, the quad's four partial sums joined by shuffles at the end). Each
+// 128-entry span's sums start from a zero accumulator and join the running
+// sums by an f32 add: the tensor core's f32
 // accumulation truncates, so a running sum carried through ~2000 mma steps
 // would lean low. Measured (scripts/matvec_designs.py, PERF.md): the entry
 // path (rounding, address, two loads, the pack) holds it; a wgmma design
@@ -119,7 +135,11 @@
 // holds or leave half the threads idle in the norms, for a split that is
 // a small part of a tile's work. Its shared memory (85 KB: the split
 // fragments and one raw stage) and the fragments' 96 registers allow two
-// blocks an SM, not four.
+// blocks an SM, not four. At 96 and 128 lanes the shared memory (124 and
+// 165 KB) allows one block an SM, and two fixed 16-tiles a warp would take
+// 144 and 192 registers of A fragments: the block runs 8 warps of one
+// 16-tile each (the same 128 fixed entries, so each split B tile serves as
+// many products as at 64 lanes), the first 128 threads alone in the norms.
 // Both: the streamed axis splits (the f32 kernel's grid.y, the aug kernel's
 // work items) only where the fixed side alone does not fill the card (K5),
 // as many splits as fill one wave of the kernel's resident blocks
@@ -134,23 +154,27 @@
 namespace {
 
 // Both layouts' kernels take the feature depth FD as a template parameter:
-// 32 (NLM 5 x 5: the aug layout of d 25, the plain of d 25) or 64 (NLM 7 x
-// 7: the aug layout's 55 lanes, the plain layout's 49). At 32 they run the
-// same chains in the same order as before the 64-lane instantiations.
+// 32 (NLM 5 x 5: the aug layout of d 25, the plain of d 25), 64 (NLM 7 x
+// 7: the aug layout's 55 lanes, the plain layout's 49), 96 (9 x 9: 87 and
+// 81) or 128 (11 x 11: 127 and 121). At 32 and 64 they run the same chains
+// in the same order as before the wider instantiations.
 constexpr int A_WARPS = 16;             // aug: consumer warps a block
 constexpr int A_THREADS = 32 * (A_WARPS + 1);   // aug: + one producer warp
 // aug: fixed 16-tiles a warp. At 64 lanes a warp's fixed A fragments are 16
 // registers a 16-tile, and 4 tiles (64 registers) beside the streamed B
 // fragments, the span sums and the entry path pass the 120 registers a
-// thread of 544 threads on one SM: 2 tiles, 512 fixed entries a work item
+// thread of 544 threads on one SM: 2 tiles, 512 fixed entries a work item;
+// at 96 lanes 2 tiles too (48 registers), at 128 one (32)
 template <int FD>
-constexpr int A_RT_OF = FD == 32 ? 4 : 2;
+constexpr int A_RT_OF = FD == 32 ? 4 : FD == 128 ? 1 : 2;
 template <int FD>
-constexpr int A_FT_OF = A_WARPS * A_RT_OF<FD> * 16;   // fixed entries a work item (1024 | 512)
+constexpr int A_FT_OF = A_WARPS * A_RT_OF<FD> * 16;   // fixed entries a work item (1024 | 512 | 256)
 template <int FD>
-constexpr int A_ST_OF = 256;            // aug: streamed entries a ring stage
+constexpr bool A_TABLE_OF = FD <= 96;   // aug: the entry from the table, else kb_pair
 template <int FD>
-constexpr int A_STAGES_OF = FD == 32 ? 4 : 2;   // aug: ring depth
+constexpr int A_ST_OF = FD == 96 ? 128 : 256;   // aug: streamed entries a ring stage
+template <int FD>
+constexpr int A_STAGES_OF = FD == 32 ? 4 : FD == 128 ? 3 : 2;   // aug: ring depth
 constexpr int A_SPAN = 128;             // aug: streamed entries a tile sum runs from zero
 template <int FD>
 constexpr int A_LDS_OF = A_ST_OF<FD> + 8;   // padded stage row (528 B at 256): ldmatrix conflict-free
@@ -162,23 +186,34 @@ constexpr size_t TAB_BYTES = 65536 * 2;
 // the table, the ring, 2 barriers a stage. At 64 lanes a 256-entry stage
 // is 34,304 bytes: 4 stages (268,352 in all) or 3 (233,984) pass the
 // 232,448 a block may take; 2 take 199,712, as 4 stages of 128 entries
-// (201,792) would
+// (201,792) would. At 96 lanes 2 stages of 256 would take 233,504; 2 of 128
+// take 183,840. At 128, with no table, 3 stages of 256 take 204,336
 template <int FD>
-constexpr size_t A_SMEM_OF =
-    TAB_BYTES + (size_t)A_STAGES_OF<FD> * A_STAGE_BYTES_OF<FD> + 16 * A_STAGES_OF<FD>;
-static_assert(A_SMEM_OF<32> == 200768 && A_SMEM_OF<64> == 199712, "aug ring sizes");
-static_assert(A_SMEM_OF<64> <= 232448, "the 64-lane aug block fits an SM");
-static_assert(A_STAGE_BYTES_OF<32> % 16 == 0 && A_STAGE_BYTES_OF<64> % 16 == 0, "alignment");
-static_assert(A_ST_OF<32> % A_SPAN == 0 && A_ST_OF<64> % A_SPAN == 0 && A_SPAN % 16 == 0,
+constexpr size_t A_SMEM_OF = (A_TABLE_OF<FD> ? TAB_BYTES : 0) +
+                             (size_t)A_STAGES_OF<FD> * A_STAGE_BYTES_OF<FD> + 16 * A_STAGES_OF<FD>;
+static_assert(A_SMEM_OF<32> == 200768 && A_SMEM_OF<64> == 199712 && A_SMEM_OF<96> == 183840 &&
+                  A_SMEM_OF<128> == 204336,
+              "aug ring sizes");
+static_assert(A_SMEM_OF<64> <= 232448 && A_SMEM_OF<96> <= 232448 && A_SMEM_OF<128> <= 232448,
+              "an aug block fits an SM");
+static_assert(A_STAGE_BYTES_OF<32> % 16 == 0 && A_STAGE_BYTES_OF<64> % 16 == 0 &&
+                  A_STAGE_BYTES_OF<96> % 16 == 0 && A_STAGE_BYTES_OF<128> % 16 == 0,
+              "alignment");
+static_assert(A_ST_OF<32> % A_SPAN == 0 && A_ST_OF<96> % A_SPAN == 0 && A_SPAN % 16 == 0,
               "aug spans");
-constexpr int T_THREADS = 128;          // f32: 4 warps
-// f32: blocks an SM (registers; shared memory, 44 KB at 32 lanes, 85 KB
-// at 64)
+// f32: warps a block, 4 up to 64 lanes, 8 past them
 template <int FD>
-constexpr int T_BLOCKS_SM_OF = FD == 32 ? 4 : 2;
-constexpr int T_RT = 2;                 // f32: fixed 16-tiles a warp
-constexpr int T_FT = 4 * T_RT * 16;     // f32: fixed entries a block (128)
-constexpr int T_ST = 128;               // f32: streamed entries a tile, one a thread
+constexpr int T_WARPS_OF = FD <= 64 ? 4 : 8;
+template <int FD>
+constexpr int T_THREADS_OF = 32 * T_WARPS_OF<FD>;
+// f32: blocks an SM (registers; shared memory, 44 KB at 32 lanes, 85 KB
+// at 64, 124 and 165 KB at 96 and 128)
+template <int FD>
+constexpr int T_BLOCKS_SM_OF = FD == 32 ? 4 : FD == 64 ? 2 : 1;
+template <int FD>
+constexpr int T_RT_OF = FD <= 64 ? 2 : 1;   // f32: fixed 16-tiles a warp
+constexpr int T_FT = 128;               // f32: fixed entries a block
+constexpr int T_ST = 128;               // f32: streamed entries a tile, one a norm thread
 constexpr int T_LDS = T_ST + 4;         // padded raw row: conflict-free split loads
 template <int FD>
 constexpr int T_BFRAGS_OF = (T_ST / 8) * (FD / 16) * 32;  // B fragments a tile, a lane each
@@ -187,10 +222,17 @@ constexpr int T_BFRAGS_OF = (T_ST / 8) * (FD / 16) * 32;  // B fragments a tile,
 template <int FD>
 constexpr size_t T_SMEM_OF =
     24 * (size_t)T_BFRAGS_OF<FD> + sizeof(float) * ((size_t)FD * T_LDS + 2 * T_ST + 3 * T_ST);
-static_assert(T_SMEM_OF<32> == 44032 && T_SMEM_OF<64> == 85504, "f32 shared memory");
-static_assert(4 * (T_SMEM_OF<32> + 1024) <= 233472 && 2 * (T_SMEM_OF<64> + 1024) <= 233472,
+static_assert(T_SMEM_OF<32> == 44032 && T_SMEM_OF<64> == 85504 && T_SMEM_OF<96> == 126976 &&
+                  T_SMEM_OF<128> == 168448,
+              "f32 shared memory");
+static_assert(4 * (T_SMEM_OF<32> + 1024) <= 233472 && 2 * (T_SMEM_OF<64> + 1024) <= 233472 &&
+                  T_SMEM_OF<128> <= 232448,
               "the f32 blocks an SM fit its shared memory");
-static_assert(T_THREADS == T_ST, "f32: one streamed column a thread");
+static_assert(T_WARPS_OF<32> * T_RT_OF<32> * 16 == T_FT &&
+                  T_WARPS_OF<128> * T_RT_OF<128> * 16 == T_FT,
+              "f32: 128 fixed entries a block");
+static_assert(T_THREADS_OF<32> == T_ST && T_THREADS_OF<128> >= T_ST,
+              "f32: one streamed column a norm thread");
 
 // columns [c0, c0 + tile) of a k-major (FD, ld) matrix -> dst[k][0, tile)
 // (row stride lds elements), and w[c0, c0 + tile) -> wdst, by cp.async in
@@ -260,15 +302,16 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
     int Lf, int Ls, int splits, int tiles_per_split) {
   constexpr int RT = A_RT_OF<FD>, FT = A_FT_OF<FD>, ST = A_ST_OF<FD>, STAGES = A_STAGES_OF<FD>;
   constexpr int LDS = A_LDS_OF<FD>, STAGE_BYTES = A_STAGE_BYTES_OF<FD>, KS = FD / 16;
+  constexpr bool TABLE = A_TABLE_OF<FD>;
   extern __shared__ __align__(16) unsigned char a_smem[];
   unsigned char* tab = a_smem;
-  unsigned char* ring = a_smem + TAB_BYTES;
+  unsigned char* ring = a_smem + (TABLE ? TAB_BYTES : 0);
   const uint32_t full0 = smem_u32(ring + STAGES * STAGE_BYTES), empty0 = full0 + 8 * STAGES;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int items = (Lf + FT - 1) / FT * splits;
   const int ntiles = Ls / ST;
 
-  build_table(tab, tid, A_THREADS);
+  if constexpr (TABLE) build_table(tab, tid, A_THREADS);
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -348,9 +391,11 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
               ldsm_x4_trans(b0[q], S + (32 * q + lane) * LDS + c);
               ldsm_x4_trans(b1[q], S + (32 * q + lane) * LDS + c + 8);
             }
+            // the w product's operand: B column 0 (mma), or this lane's four
+            // streamed entries' w as f32 (FP32 pipe)
             uint32_t wb[2];
-            wb[0] = g == 0 ? ld32(ws + c + 2 * tq) : 0u;
-            wb[1] = g == 0 ? ld32(ws + c + 8 + 2 * tq) : 0u;
+            wb[0] = g == 0 || FD > 64 ? ld32(ws + c + 2 * tq) : 0u;
+            wb[1] = g == 0 || FD > 64 ? ld32(ws + c + 8 + 2 * tq) : 0u;
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
               // d2: one chain over the k16 steps from zero
@@ -363,15 +408,34 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
               // the accumulator layout is the A-fragment layout: fixed g |
               // g + 8 by streamed 2tq.. | 8 + 2tq..
               uint32_t kb[4];
-              kb[0] = entry2(d0[0], d0[1], tl);
-              kb[1] = entry2(d0[2], d0[3], tl);
-              kb[2] = entry2(d1[0], d1[1], tl);
-              kb[3] = entry2(d1[2], d1[3], tl);
-              mma16816(tacc[r], kb, wb);
+              if constexpr (TABLE) {
+                kb[0] = entry2(d0[0], d0[1], tl);
+                kb[1] = entry2(d0[2], d0[3], tl);
+                kb[2] = entry2(d1[0], d1[1], tl);
+                kb[3] = entry2(d1[2], d1[3], tl);
+              } else {
+                kb[0] = kb_pair(d0[0], d0[1]);
+                kb[1] = kb_pair(d0[2], d0[3]);
+                kb[2] = kb_pair(d1[0], d1[1]);
+                kb[3] = kb_pair(d1[2], d1[3]);
+              }
+              if constexpr (FD <= 64) {
+                mma16816(tacc[r], kb, wb);
+              } else {   // rows g (tacc[r][0]), g + 8 ([2]); streamed 2tq.., 8 + 2tq..
+                const float2 w0 = unpack2(wb[0]), w8 = unpack2(wb[1]);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const float2 e0 = unpack2(kb[h]), e8 = unpack2(kb[2 + h]);
+                  float y = fmaf(e0.x, w0.x, tacc[r][2 * h]);
+                  y = fmaf(e0.y, w0.y, y);
+                  y = fmaf(e8.x, w8.x, y);
+                  tacc[r][2 * h] = fmaf(e8.y, w8.y, y);
+                }
+              }
             }
           }
 #pragma unroll
-          for (int r = 0; r < RT; ++r) {   // column 0 of the B operand: elements 0 and 2
+          for (int r = 0; r < RT; ++r) {   // rows g and g + 8: elements 0 and 2
             acc[r][0] += tacc[r][0];
             acc[r][1] += tacc[r][2];
           }
@@ -379,6 +443,17 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
+    if constexpr (FD > 64) {   // the quad's partial sums over its streamed columns
+      if (live) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 1);
+            acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 2);
+          }
+      }
     }
     if (live && tq == 0) {   // acc[r][0], acc[r][1]: fixed fw + 16r + g, + g + 8
       float* o = part + (size_t)split * Lf + fw;
@@ -413,14 +488,28 @@ __global__ __launch_bounds__(1024) void aug_entries_kernel(unsigned short* out, 
 // the cross a split-precision (big + mid + lo, fp16) tensor-core product
 // ---------------------------------------------------------------------------
 
+// the big.big k16 steps of a sub-tile entry, joined in f32: pairs, then
+// pairs of pairs, then those in order: (h0 + h1) at 32 lanes, (h0 + h1) +
+// (h2 + h3) at 64, that + (h4 + h5) at 96, that + ((h4 + h5) + (h6 + h7))
+// at 128
+template <int KS>
+__device__ __forceinline__ float join_steps(const float (&hb)[KS][4], int e) {
+  float big = hb[0][e] + hb[1][e];
+  if constexpr (KS >= 4) big += hb[2][e] + hb[3][e];
+  if constexpr (KS == 6) big += hb[4][e] + hb[5][e];
+  if constexpr (KS == 8) big += (hb[4][e] + hb[5][e]) + (hb[6][e] + hb[7][e]);
+  return big;
+}
+
 template <int FD>
-__global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
+__global__ __launch_bounds__(T_THREADS_OF<FD>, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
     const float* __restrict__ fixed_t,  // (FD, Lf) k-major
     const float* __restrict__ strm_t,   // (FD, Ls) k-major
     const float* __restrict__ w,        // (Ls)
     float* __restrict__ part,           // (splits, Lf)
     int Lf, int Ls, int tiles_per_split) {
-  constexpr int KS = FD / 16, T_BFRAGS = T_BFRAGS_OF<FD>;
+  constexpr int KS = FD / 16, T_BFRAGS = T_BFRAGS_OF<FD>, T_RT = T_RT_OF<FD>;
+  constexpr int T_THREADS = T_THREADS_OF<FD>, T_WARPS = T_WARPS_OF<FD>;
   extern __shared__ __align__(16) float fsm[];
   // the tile's B fragments, split: [n8 tile][k16 step][lane] = fp16 pairs
   // (big rows 2tq, 2tq + 1 | big rows 2tq + 8, 2tq + 9 | the same mids)
@@ -499,7 +588,7 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
     const int buf = (tile - t0) & 1;
     cp_async_wait_all();
     __syncthreads();                    // tile in; everyone done with the last tile
-    {   // each streamed column's norm (an f64 sum, rounded once) and scale
+    if (tid < T_ST) {   // each streamed column's norm (an f64 sum, rounded once) and scale
       float m = 0.f;
       double s = 0.0;
 #pragma unroll 8
@@ -515,11 +604,11 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
     }
     __syncthreads();                    // scales in
     // the split B fragments: warp w writes the (n8 tile, k16 step) pairs q
-    // = w, w + 4, ... (n8 tile q / KS, step q % KS): at 32 lanes step w & 1
-    // of every other n8 tile, at 64 step w of every n8 tile; the padded rows
-    // make the loads conflict-free
+    // = w, w + T_WARPS, ... (n8 tile q / KS, step q % KS): at 32 lanes step
+    // w & 1 of every other n8 tile, at 64 step w of every n8 tile; the
+    // padded rows make the loads conflict-free
 #pragma unroll 2
-    for (int q = warp; q < (T_ST / 8) * KS; q += T_THREADS / 32) {
+    for (int q = warp; q < (T_ST / 8) * KS; q += T_WARPS) {
       const int nt = q / KS, ks = q % KS;
       const int c = nt * 8 + g, k = ks * 16 + 2 * tq;
       const float sinv = sinv_s[c];
@@ -585,11 +674,10 @@ __global__ __launch_bounds__(T_THREADS, T_BLOCKS_SM_OF<FD>) void f32_sum_kernel(
         // accumulator (fixed g | g + 8, streamed 2tq | 2tq + 1); the cross
         // is 2^(Ea + Eb) times the scaled one, so d2 as the plain version
         // forms it, (nf + ns) - 2 cross, rounds once. The big.big steps
-        // join pairwise: (h0 + h1) at 32 lanes, (h0 + h1) + (h2 + h3) at 64
+        // join pairwise (join_steps)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float big = hb[0][e] + hb[1][e];
-          if constexpr (KS == 4) big += hb[2][e] + hb[3][e];
+          const float big = join_steps<KS>(hb, e);
           const float cross = big + fmaf(c2[e], 2.384185791015625e-7f, c1[e] * 4.8828125e-4f);
           const float m2 = m2s[r][e >> 1] * ((e & 1) ? scv.y : scv.x);
           const float d2 = fmaxf(fmaf(m2, cross, nf[r][e >> 1] + ((e & 1) ? nsv.y : nsv.x)), 0.f);
@@ -750,7 +838,7 @@ int slots_of(K kernel, int threads, size_t smem, int* out) {
 template <int FD>
 int recompute_slots(int aug, int* n) {
   return aug ? slots_of(aug_sum_kernel<FD>, A_THREADS, A_SMEM_OF<FD>, n)
-             : slots_of(f32_sum_kernel<FD>, T_THREADS, T_SMEM_OF<FD>, n);
+             : slots_of(f32_sum_kernel<FD>, T_THREADS_OF<FD>, T_SMEM_OF<FD>, n);
 }
 
 template <int FD>
@@ -771,7 +859,7 @@ int recompute_launch(int aug, const void* fixed_t, const void* strm_t, const voi
                              (int)T_SMEM_OF<FD>);
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 grid(Lf / T_FT, splits);
-    f32_sum_kernel<FD><<<grid, T_THREADS, T_SMEM_OF<FD>, s>>>(
+    f32_sum_kernel<FD><<<grid, T_THREADS_OF<FD>, T_SMEM_OF<FD>, s>>>(
         static_cast<const float*>(fixed_t), static_cast<const float*>(strm_t),
         static_cast<const float*>(w), static_cast<float*>(part), Lf, Ls, per);
   }
@@ -783,35 +871,49 @@ int recompute_launch(int aug, const void* fixed_t, const void* strm_t, const voi
 extern "C" {
 
 // how many blocks of the layout's kernel (aug != 0: bf16 aug, else f32) at
-// fd feature lanes (32 or 64) fit the card at once: the wrapper splits the
-// streamed axis to fill whole waves of them (and launches at most that many
-// persistent aug blocks); a negative value is a cudaError, 0 an unsupported
-// fd
+// fd feature lanes (32, 64, 96 or 128) fit the card at once: the wrapper
+// splits the streamed axis to fill whole waves of them (and launches at
+// most that many persistent aug blocks); a negative value is a cudaError, 0
+// an unsupported fd
 int glt_recompute_slots(int aug, int fd) {
   int n = 0;
-  const int rc = fd == 32   ? recompute_slots<32>(aug, &n)
-                 : fd == 64 ? recompute_slots<64>(aug, &n)
-                            : -1;
+  const int rc = fd == 32    ? recompute_slots<32>(aug, &n)
+                 : fd == 64  ? recompute_slots<64>(aug, &n)
+                 : fd == 96  ? recompute_slots<96>(aug, &n)
+                 : fd == 128 ? recompute_slots<128>(aug, &n)
+                             : -1;
   return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
 // out[f] = sum_s w_s k(f, s) over k-major (fd, Lf) fixed and (fd, Ls)
-// streamed features, fd 32 or 64. aug: bf16 layouts and w, Lf % 256 == 0,
-// Ls % 256 == 0, `blocks` persistent blocks over ceil(Lf / (1024 at 32
-// lanes, 512 at 64)) x splits work items; else f32 layouts and w, Lf % 128
-// == 0, Ls % 128 == 0, a grid of (Lf / 128, splits) (`blocks` unused); the
-// wrapper checks the shapes. splits > 1: part holds (splits, Lf) floats and
-// a fixed-order reduction writes out; splits == 1: the kernel writes part,
-// which may be out.
+// streamed features, fd 32, 64, 96 or 128. aug: bf16 layouts and w, Lf %
+// 256 == 0, Ls % 256 == 0, `blocks` persistent blocks over ceil(Lf / (1024
+// at 32 lanes, 512 at 64 and 96, 256 at 128)) x splits work items; else
+// f32 layouts and w, Lf % 128 == 0, Ls % 128 == 0, a grid of (Lf / 128,
+// splits) (`blocks` unused); the wrapper checks the shapes. splits > 1:
+// part holds (splits, Lf) floats and a fixed-order reduction writes out;
+// splits == 1: the kernel writes part, which may be out.
 int glt_recompute_sum(int aug, int fd, const void* fixed_t, const void* strm_t, const void* w,
                       void* part, void* out, int Lf, int Ls, int splits, int blocks,
                       void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (splits < 1 || (fd != 32 && fd != 64)) return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = fd == 32 ? recompute_launch<32>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits,
-                                                 blocks, s)
-                          : recompute_launch<64>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits,
-                                                 blocks, s);
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int rc;
+  switch (fd) {
+    case 32:
+      rc = recompute_launch<32>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits, blocks, s);
+      break;
+    case 64:
+      rc = recompute_launch<64>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits, blocks, s);
+      break;
+    case 96:
+      rc = recompute_launch<96>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits, blocks, s);
+      break;
+    case 128:
+      rc = recompute_launch<128>(aug, fixed_t, strm_t, w, part, Lf, Ls, splits, blocks, s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (rc != 0 || splits == 1) return rc;
   return launch_reduce(static_cast<const float*>(part), static_cast<float*>(out), splits,
                        (size_t)Lf, s);

@@ -160,17 +160,6 @@ static_assert(e_smem<96>() == 164880 && e_smem<128>() == 197648, "K7 past 64 lan
 template <int FD>
 constexpr int E_NPB = FD <= 64 ? E_NT / 2 : 1;
 
-// the aug entries of two d2, bf16(exp(-bf16(max(d2, 0)))) packed (lo in the
-// low half): d2 rounded to bf16 (cvt.rn.bf16x2), then kexp's one FMUL and
-// one MUFU ex2 on each, rounded again. Equal to kb_aug at every one of the
-// 65536 bf16(d2) patterns (glt_kb_entries evaluates this function there;
-// chip_smoke.py requires it); kexp's fmaxf maps the negative and NaN
-// patterns to the entry 1.0, as kb_aug's does
-__device__ __forceinline__ uint32_t kb_pair(float lo, float hi) {
-  const uint32_t w = pack2(lo, hi);
-  return pack2(kexp(__uint_as_float(w << 16)), kexp(__uint_as_float(w & 0xFFFF0000u)));
-}
-
 // an L2 policy that evicts first what it tags: the emitted tile streams
 // through L2 once (1.07 GB at 8 MP, 21 times L2), so its lines should not
 // push out the f_t tiles and sample rows every block reads again

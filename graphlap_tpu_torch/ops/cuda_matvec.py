@@ -5,7 +5,7 @@
 
 Both recompute every kernel tile from the padded feature layouts
 (ops/recompute_layout: fa (p_pad, dp) rows, f_t (dp, n) transposed
-features, dp 32 or 64 lanes), never storing it:
+features, dp 32, 64, 96 or 128 lanes), never storing it:
 
 * ``matvec_cuda`` (K5): K v -> (p_pad,) f32. v rounds to the layout dtype
   first (the reference's wrapper, :442), then an f32 multiply and row sum.
@@ -26,20 +26,21 @@ four times the f32 product's error.
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
-the two layouts the presets reach: bf16 aug and f32 plain, at 32 or 64
-feature lanes (an NLM 5 x 5 or 7 x 7 patch: each kernel is a template on
-its depth), the coordinate kernel too (its live lanes 4, 32 or 64). Wider
-layouts (patches 9 and 11: 96 and 128 lanes) raise
+the two layouts the presets reach: bf16 aug and f32 plain, at 32, 64, 96
+or 128 feature lanes (an NLM 5 x 5, 7 x 7, 9 x 9 or 11 x 11 patch: each
+kernel is a template on its depth). The coordinate kernel takes 32 or 64
+lanes (its live lanes 4, 32 or 64); at 96 and 128 it raises
 ``NotImplementedError`` naming ROADMAP.md Queue 2b. The plain bf16 layout
 (the reference's ``GLT_AUG_DISABLE`` lever) and an f32 aug layout raise it
 too: no preset builds them, and no ROADMAP.md queue ports them. There is
 no fallback from a kernel to its plain version. Unlike K8/K9, the kernels
 take any p_pad on the 512 quantum and any n on the 256 one: they hold no
 whole-p tile. The aug kernel runs persistent blocks over work items (1024
-fixed entries at 32 lanes, 512 at 64, by a split of the streamed axis,
-``_plan``) and reads its tile entries from a table of every bf16(d2)
-pattern, built on the card with the same entry function (``aug_entries``
-checks every pattern).
+fixed entries at 32 lanes, 512 at 64 and 96, 256 at 128, by a split of the
+streamed axis, ``_plan``) and reads its tile entries from a table of every
+bf16(d2) pattern, built on the card with the same entry function
+(``aug_entries`` checks every pattern), or at 128 lanes evaluates them as
+K7 does (kb_pair, which ``kb_entries`` checks at every pattern).
 """
 
 from __future__ import annotations
@@ -57,10 +58,15 @@ N_QUANTUM = 256           # n: the f32 _tile_n (the bf16 one, 1024, is a multipl
 # block (f32) or work item (aug); the keys are the kernels' instantiations
 # (csrc template FD)
 STREAM_TILE = {(torch.bfloat16, 32): 256, (torch.bfloat16, 64): 256,
-               (torch.float32, 32): 128, (torch.float32, 64): 128}
+               (torch.bfloat16, 96): 128, (torch.bfloat16, 128): 256,
+               (torch.float32, 32): 128, (torch.float32, 64): 128,
+               (torch.float32, 96): 128, (torch.float32, 128): 128}
 FIXED_TILE = {(torch.bfloat16, 32): 1024, (torch.bfloat16, 64): 512,
-              (torch.float32, 32): 128, (torch.float32, 64): 128}
-FDS = (32, 64)            # feature depths of both layouts' kernels
+              (torch.bfloat16, 96): 512, (torch.bfloat16, 128): 256,
+              (torch.float32, 32): 128, (torch.float32, 64): 128,
+              (torch.float32, 96): 128, (torch.float32, 128): 128}
+COORD_FDS = (32, 64)      # feature depths of the coordinate kernel (the
+                          # layouts' kernels take every depth D_PAD allows)
 D_PAD = 128               # the reference's widest feature layout
 COORD_FIXED = 256         # fixed entries a block of the coordinate kernel
 _F32 = torch.float32
@@ -108,12 +114,10 @@ def _check(fa, f_t, aug: bool, what: str, coords: bool = False) -> None:
         raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
                          f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
-    if fd not in FDS:
-        kind = ("coordinate" if coords and not aug else "bf16 aug" if aug
-                else "f32")
+    if coords and not aug and fd not in COORD_FDS:
         raise NotImplementedError(
-            f"{what}: {fd} feature lanes: the CUDA kernels of the {kind} "
-            f"layout take {FDS} (ROADMAP.md Queue 2b)")
+            f"{what}: {fd} feature lanes: the CUDA kernel of the coordinate "
+            f"layout takes {COORD_FDS} (ROADMAP.md Queue 2b)")
     if p % P_QUANTUM or n % N_QUANTUM:
         raise ValueError(f"{what}: p_pad {p} must be a multiple of "
                          f"{P_QUANTUM} and n {n} of {N_QUANTUM}")
@@ -200,9 +204,9 @@ def _coord_lv(fa, coords, live):
 
 def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):
     """K v: ((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32
-    (``matvec_pallas``), dp 32 or 64. ``coords``: the f32 layout's features
-    carry coordinates, ``live`` of their dp lanes are nonzero (None: all
-    dp)."""
+    (``matvec_pallas``), dp 32, 64, 96 or 128 (the coordinate kernel 32 or
+    64). ``coords``: the f32 layout's features carry coordinates, ``live``
+    of their dp lanes are nonzero (None: all dp)."""
     if _device_kind(fa, f_t, v) == "cpu":
         return matvec_plain(fa, f_t, v, aug)
     _check(fa, f_t, aug, "matvec", coords)

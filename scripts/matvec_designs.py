@@ -50,8 +50,14 @@ Shapes: config 3's channel 0 (chip_smoke.make_workload_cfg3: p_pad 4096, N
 staged schedule's polish), the vectors as chip_smoke.matvec_cases makes
 them; with ``--patch 7`` both at an NLM 7 x 7 patch, the 64-lane kernel
 (variant ``d64 4x128``: 4 ring stages of 128 streamed entries, in place of
-the shipped 2 of 256). Times are CUDA-event means (chip_smoke.cuda_ms); each variant runs
---reps times in turn (default 2). The error is the largest |kernel - plain|
+the shipped 2 of 256); with ``--patch 9`` or ``11`` at 9 x 9 or 11 x 11,
+the 96- or 128-lane kernel (variants ``wide table``: the entry table at
+128 lanes too, beside 2 stages of 128 streamed entries; ``wide no
+table``: kb_pair's entries at 96 lanes too, no table, 4 stages of 256;
+``d96 3x128``: 3 stages of 128 beside the table at 96 lanes; ``wide mma
+w``: the w product by mma past 64 lanes, as up to 64). Times are
+CUDA-event means (chip_smoke.cuda_ms); each variant runs --reps times in
+turn (default 2). The error is the largest |kernel - plain|
 over max |plain| at config 3 (meaningless for the timing-only variants).
 --dry writes the variant sources here and checks the edits without a card.
 Prints the card line and one JSON line; --out writes the JSON.
@@ -296,11 +302,41 @@ TAB_STAGES2 = [("constexpr int A_STAGES = 4;             // aug: ring depth",
 # at 64 lanes, 4 stages of 128 streamed entries in place of 2 of 256: the
 # other fit of the ring beside the table
 D64_STAGES4 = [
-    ("constexpr int A_ST_OF = 256;            // aug: streamed entries a ring stage",
-     "constexpr int A_ST_OF = FD == 32 ? 256 : 128;"),
-    ("constexpr int A_STAGES_OF = FD == 32 ? 4 : 2;   // aug: ring depth",
-     "constexpr int A_STAGES_OF = 4;"),
+    ("constexpr int A_ST_OF = FD == 96 ? 128 : 256;",
+     "constexpr int A_ST_OF = FD == 32 || FD == 128 ? 256 : 128;"),
+    ("constexpr int A_STAGES_OF = FD == 32 ? 4 : FD == 128 ? 3 : 2;",
+     "constexpr int A_STAGES_OF = FD <= 64 ? 4 : FD == 128 ? 3 : 2;"),
     ("A_SMEM_OF<64> == 199712", "A_SMEM_OF<64> == 201792")]
+
+# past 64 lanes, the shipped routes swapped or widened: the entry table at
+# 128 lanes too (2 stages of 128 beside it, 201,248 bytes); kb_pair's
+# entries (K7's and K8's: kexp on bf16(d2), one FMUL and one MUFU ex2 an
+# entry) with no table at 96 lanes too (4 stages of 256, 204,864 bytes);
+# the table at 96 lanes beside 3 stages of 128 (210,224 bytes); and the w
+# product by mma as up to 64 lanes (its sums lean low)
+_ROUTE = "constexpr bool A_TABLE_OF = FD <= 96;   // aug: the entry from the table, else kb_pair"
+_ST = "constexpr int A_ST_OF = FD == 96 ? 128 : 256;   // aug: streamed entries a ring stage"
+_STAGES = "constexpr int A_STAGES_OF = FD == 32 ? 4 : FD == 128 ? 3 : 2;   // aug: ring depth"
+WIDE_TABLE = [
+    (_ROUTE, _ROUTE.replace("FD <= 96", "FD <= 128")),
+    (_ST, _ST.replace("FD == 96 ? 128 : 256", "FD <= 64 ? 256 : 128")),
+    (_STAGES, _STAGES.replace("FD == 128 ? 3 : 2", "2")),
+    ("A_SMEM_OF<128> == 204336", "A_SMEM_OF<128> == 201248")]
+WIDE_NO_TABLE = [
+    (_ROUTE, _ROUTE.replace("FD <= 96", "FD <= 64")),
+    (_ST, _ST.replace("FD == 96 ? 128 : 256", "256")),
+    (_STAGES, _STAGES.replace("FD == 128 ? 3 : 2", "FD == 64 ? 2 : FD == 96 ? 4 : 3")),
+    ("A_SMEM_OF<96> == 183840", "A_SMEM_OF<96> == 204864")]
+D96_STAGES3 = [
+    (_STAGES, _STAGES.replace("FD == 128 ? 3 : 2", "FD >= 96 ? 3 : 2")),
+    ("A_SMEM_OF<96> == 183840", "A_SMEM_OF<96> == 210224")]
+WIDE_MMA_W = [
+    ("wb[0] = g == 0 || FD > 64 ?", "wb[0] = g == 0 ?"),
+    ("wb[1] = g == 0 || FD > 64 ?", "wb[1] = g == 0 ?"),
+    ("              if constexpr (FD <= 64) {\n                mma16816(tacc[r], kb, wb);",
+     "              if constexpr (true) {\n                mma16816(tacc[r], kb, wb);"),
+    ("    if constexpr (FD > 64) {   // the quad's partial sums",
+     "    if constexpr (false) {   // the quad's partial sums")]
 
 # --- the wgmma design (dropped) ----------------------------------------------
 # three consumer warpgroups (160 registers each after setmaxnreg), one m64
@@ -577,6 +613,13 @@ VARIANTS = {
     "2 stages": (TAB_STAGES2, "a 2-stage ring", False),
     "d64 4x128": (D64_STAGES4, "at 64 lanes a 4-stage ring of 128-entry stages", False,
                   {64: (512, 128)}),
+    "wide table": (WIDE_TABLE, "the entry table at 128 lanes too, 2 stages of 128", False,
+                   {128: (256, 128)}),
+    "wide no table": (WIDE_NO_TABLE, "kb_pair's entries at 96 lanes too, no table, 4 stages "
+                      "of 256", False, {96: (512, 256)}),
+    "d96 3x128": (D96_STAGES3, "at 96 lanes 3 stages of 128 beside the table", False),
+    "wide mma w": (WIDE_MMA_W, "past 64 lanes the w product by mma (its sums lean low)",
+                   False),
     "unpacked": (TAB_UNPACKED, "entries unpacked, two w-product mma a block", False),
     "signed": (TAB_SIGNED, "the pair rounded without relu, the high address masked", False),
     "unroll 1": (TAB_UNROLL1, "the 16-entry column loop not unrolled", False),
@@ -653,8 +696,9 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", default="")
     ap.add_argument("--dry", action="store_true")
-    ap.add_argument("--patch", type=int, default=5, choices=(5, 7),
-                    help="the NLM patch of the shapes: 7 times the 64-lane kernel")
+    ap.add_argument("--patch", type=int, default=5, choices=(5, 7, 9, 11),
+                    help="the NLM patch of the shapes: 7, 9 and 11 time the 64-, "
+                    "96- and 128-lane kernels")
     args = ap.parse_args()
     repo = Path(args.repo).resolve()
     out = ROOT / "build" / "matvec_designs" / (repo.name or "repo")

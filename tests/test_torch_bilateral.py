@@ -742,7 +742,7 @@ def _f32_sums_vs_f64(dev, patch, which):
         plan.idx_a, "cuda"), cfg)
     fa, f_t, p = ctx.fa_pad, ctx.f_t, ctx.p
     assert fa.dtype == torch.float32 and not ctx.coords
-    assert f_t.shape[0] == (32 if patch == 5 else 64)
+    assert f_t.shape[0] == {5: 32, 7: 64, 9: 96, 11: 128}[patch]
     gen = torch.Generator(device=dev).manual_seed(1)
     a = fa[:p].double()
     na = (a * a).sum(1)
@@ -780,9 +780,10 @@ def _f32_sums_vs_f64(dev, patch, which):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("patch", [5, 7])
+@pytest.mark.parametrize("patch", [5, 7, 9, 11])
 def test_k5_f32_does_not_lean(cuda_device, patch):
-    """The f32 K5 at 32 and 64 lanes (_f32_sums_vs_f64): each row runs some
+    """The f32 K5 at 32, 64, 96 and 128 lanes (_f32_sums_vs_f64): each row
+    runs some
     2048 tiles a split, most far from its few live entries, whose sums fell
     below half an ulp of the running sum and were dropped, one way, until
     each tile joined it by a compensated add; its rows' share below their
@@ -798,7 +799,7 @@ def test_k5_f32_does_not_lean(cuda_device, patch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("patch", [5, 7])
+@pytest.mark.parametrize("patch", [5, 7, 9, 11])
 def test_k6_f32_does_not_lean(cuda_device, patch):
     """The f32 K6 beside K5 (test_k5_f32_does_not_lean): its columns' share
     below their f64 sums in (0.35, 0.65), its max and p99 error against

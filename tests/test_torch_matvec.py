@@ -100,6 +100,11 @@ def assert_rel(got, ref, rel):
 def _counts():
     return [w.launches for w in ALL_WRAPPERS]
 
+# the padded feature lanes of each case's d: an NLM 5 x 5, 7 x 7, 9 x 9 and
+# 11 x 11 patch (the aug layout adds lanes: 25 -> 31, 49 -> 55, 81 -> 87,
+# 121 -> 127, padded alike)
+LANES = {25: 32, 49: 64, 81: 96, 121: 128}
+
 
 # --- K5 / K6 plain versions against the Pallas kernels -----------------------
 
@@ -130,15 +135,18 @@ def _layouts(jx, dtype, p, n, seed=5, d=25):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("p,n,d", [(277, 2000, 25), (4100, 1000, 25),
-                                   (277, 2000, 49), (4100, 1000, 49)],
+                                   (277, 2000, 49), (4100, 1000, 49),
+                                   (277, 1000, 81), (277, 1000, 121)],
                          ids=["277-2000", "4100-1000", "277-2000-7x7",
-                              "4100-1000-7x7"])
+                              "4100-1000-7x7", "277-1000-9x9",
+                              "277-1000-11x11"])
 def test_k5_k6_plain_match_pallas(jx, dtype, p, n, d):
     """p = 4100 pads to 5120: two reference p tiles of 2560 (_tile_p_of).
-    d 49 (a 7 x 7 patch): 64 lanes, the aug layout's 55 padded to 64."""
+    d 49 (a 7 x 7 patch): 64 lanes, the aug layout's 55 padded to 64; d 81
+    and 121 (9 x 9, 11 x 11): 96 and 128 lanes (aug 87 and 127)."""
     jnp, pst = jx.jnp, jx.pst
     x = _layouts(jx, dtype, p, n, d=d)
-    assert x.tfa.shape[1] == (64 if d == 49 else 32)
+    assert x.tfa.shape[1] == LANES[d]
     if p > rl.MAX_TILE_P:
         assert rl._tile_p_of(x.fa.shape[0]) < x.fa.shape[0]
     mv_r = pst.matvec_pallas(x.fa, x.f_t, jnp.asarray(x.v), aug=x.aug)
@@ -164,22 +172,33 @@ def _split2(x):
     return np.ldexp(np.float64(1), e), big, small
 
 
+def _join_steps(steps):
+    """The f32 kernel's join of its k16 big.big steps (join_steps in
+    csrc/recompute_matvec.cu), in f32: (h0 + h1) at 32 lanes, + (h2 + h3)
+    at 64, + (h4 + h5) at 96, + ((h4 + h5) + (h6 + h7)) at 128."""
+    big = steps[0] + steps[1]
+    if len(steps) >= 4:
+        big = big + (steps[2] + steps[3])
+    if len(steps) == 6:
+        big = big + (steps[4] + steps[5])
+    if len(steps) == 8:
+        big = big + ((steps[4] + steps[5]) + (steps[6] + steps[7]))
+    return big
+
+
 def _tc_cross(a, b):
-    """The f32 kernel's cross of feature rows a (P, L) and b (C, L), L 32 or
-    64 lanes, at its rounding points: each k16 step's big.big sum exact
-    (asserted), the steps added in f32 in pairs, (h0 + h1) + (h2 + h3) at 64
-    lanes, then big.small + small.big (f32) added, small.small dropped,
-    then scaled back by 2^(Ea + Eb)."""
+    """The f32 kernel's cross of feature rows a (P, L) and b (C, L), L 32,
+    64, 96 or 128 lanes, at its rounding points: each k16 step's big.big sum
+    exact (asserted), the steps joined in f32 (``_join_steps``), then
+    big.small + small.big (f32) added, small.small dropped, then scaled back
+    by 2^(Ea + Eb)."""
     (sa, ab, as_), (sb, bb, bs) = _split2(a), _split2(b)
     f64, f32 = np.float64, np.float32
     steps = [ab[:, k:k + 16].astype(f64) @ bb[:, k:k + 16].astype(f64).T
              for k in range(0, a.shape[1], 16)]
     for hh in steps:                   # a sum of 16 big products is exact
         assert np.array_equal(hh.astype(f32).astype(f64), hh)
-    steps = [hh.astype(f32) for hh in steps]
-    big = steps[0] + steps[1]
-    if len(steps) == 4:
-        big = big + (steps[2] + steps[3])
+    big = _join_steps([hh.astype(f32) for hh in steps])
     corr = (ab.astype(f64) @ bs.astype(f64).T
             + as_.astype(f64) @ bb.astype(f64).T).astype(f32)
     cross = big + corr
@@ -203,14 +222,16 @@ def _tc_tile(a, b):
 
 
 @pytest.mark.parametrize("p,n,d", [(277, 2000, 25), (4100, 1000, 25),
-                                   (277, 2000, 49), (4100, 1000, 49)],
+                                   (277, 2000, 49), (4100, 1000, 49),
+                                   (277, 1000, 81), (277, 1000, 121)],
                          ids=["277-2000", "4100-1000", "277-2000-7x7",
-                              "4100-1000-7x7"])
+                              "4100-1000-7x7", "277-1000-9x9",
+                              "277-1000-11x11"])
 def test_k5_k6_split_fp16_scheme_matches_pallas(jx, p, n, d):
     """The f32 kernel's split fp16 cross, emulated in numpy at its rounding
     points, holds the reference's f32 matvec_pallas / rmatvec_pallas
     (interpret mode) to REL["float32"]: the split scheme is inside the bar
-    before any card runs it, over 32 lanes and over 64."""
+    before any card runs it, over 32, 64, 96 and 128 lanes."""
     jnp, pst = jx.jnp, jx.pst
     x = _layouts(jx, "float32", p, n, d=d)
     tile = _tc_tile(N(x.fa), N(x.f_t).T)
@@ -403,19 +424,24 @@ def _plan_lib(monkeypatch, slots):
 
 def test_aug_launch_plan_serves_every_wrapper_shape(monkeypatch):
     """The aug kernel's plan takes every shape the wrappers pass (p_pad on
-    512, n on 256; K5 fixes p_pad and streams n, K6 the reverse), at 32
-    lanes and at 64: whole 256-entry streamed stages, no empty split,
-    ceil(lf / 1024) fixed slices at 32 lanes and ceil(lf / 512) at 64 (a
-    last one part full: lf is a multiple of 256, a warp's 64 or 32 rows all
-    in or all out), and at most one persistent block a resident slot and a
+    512, n on 256; K5 fixes p_pad and streams n, K6 the reverse), at 32,
+    64, 96 and 128 lanes: whole streamed stages (256 entries, 128 at 96
+    lanes), no empty split, ceil(lf / 1024) fixed slices at
+    32 lanes, ceil(lf / 512) at 64 and 96 and lf / 256 at 128 (a last one
+    part full: lf is a multiple of 256, a warp's 64, 32 or 16 rows all in
+    or all out), and at most one persistent block a resident slot and a
     work item. Config 3: K5 4 slices by 33 splits on all 132 blocks; K6
-    1024 slices, unsplit, on all 132; at 7 x 7 K5 8 slices by 16 splits."""
+    1024 slices, unsplit, on all 132; at 7 x 7 K5 8 slices by 16 splits, at
+    11 x 11 16 slices by 8."""
     _plan_lib(monkeypatch, {(1, 32): 132, (0, 32): 528, (1, 64): 132,
-                            (0, 64): 264})
+                            (0, 64): 264, (1, 96): 132, (0, 96): 132,
+                            (1, 128): 132, (0, 128): 132})
     bf = torch.bfloat16
-    for fd in (32, 64):
+    for fd, fixed_tile, stream_tile in ((32, 1024, 256), (64, 512, 256),
+                                        (96, 512, 128), (128, 256, 256)):
         key = (bf, fd)
-        assert k56.FIXED_TILE[key] == (1024 if fd == 32 else 512)
+        assert k56.FIXED_TILE[key] == fixed_tile
+        assert k56.STREAM_TILE[key] == stream_tile
         for pp in (512, 1024, 4096, 5120, 8192):
             for n in (256, 768, 1024, 2560, 1 << 20, 8388608):
                 for lf, ls in ((pp, n), (n, pp)):
@@ -429,6 +455,8 @@ def test_aug_launch_plan_serves_every_wrapper_shape(monkeypatch):
     assert k56._plan(True, 4096, 1 << 20, 32) == (33, 132)
     assert k56._plan(True, 1 << 20, 4096, 32) == (1, 132)
     assert k56._plan(True, 4096, 1 << 20, 64) == (16, 128)
+    assert k56._plan(True, 4096, 1 << 20, 128) == (8, 128)
+    assert k56._plan(False, 4096, 8388608, 128)[0] == 4  # 132 // 32
     assert k56._plan(False, 4096, 8388608, 32)[0] == 16  # f32: 528 // 32
     assert k56._plan(False, 4096, 8388608, 64)[0] == 8   # 264 // 32
 
@@ -877,20 +905,22 @@ def _card_layouts(dev, p, n, d, aug, seed):
         fa_l[:p, :d] = fa
         f_t = torch.zeros((dp, n), device=dev)
         f_t[:d] = fp.T
-    assert fa_l.shape[1] == f_t.shape[0] == (64 if d == 49 else 32)
+    assert fa_l.shape[1] == f_t.shape[0] == LANES[d]
     return fa_l, f_t, rng
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("p,n,d", [(277, 10240, 25), (4100, 16384, 25),
-                                   (277, 10240, 49), (4100, 16384, 49)],
+                                   (277, 10240, 49), (4100, 16384, 49),
+                                   (4100, 16384, 81), (4100, 16384, 121)],
                          ids=["277-10240", "4100-16384", "277-10240-7x7",
-                              "4100-16384-7x7"])
+                              "4100-16384-7x7", "4100-16384-9x9",
+                              "4100-16384-11x11"])
 def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n, d):
     """Card kernels against their plain versions on the card, at 32 lanes
-    and at 64 (d 49: a 7 x 7 patch); p = 4100 pads to 5120 (two reference p
-    tiles)."""
+    and at 64, 96 and 128 (d 49, 81, 121: a 7 x 7, 9 x 9, 11 x 11 patch);
+    p = 4100 pads to 5120 (two reference p tiles)."""
     dev = cuda_device
     aug = dtype == "bfloat16"
     fa_l, f_t, rng = _card_layouts(dev, p, n, d, aug, seed=p)
@@ -920,15 +950,18 @@ def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 25), ("float32", 25),
-                                     ("bfloat16", 49), ("float32", 49)],
+                                     ("bfloat16", 49), ("float32", 49),
+                                     ("bfloat16", 81), ("float32", 81),
+                                     ("bfloat16", 121), ("float32", 121)],
                          ids=["bfloat16", "float32", "bfloat16-7x7",
-                              "float32-7x7"])
+                              "float32-7x7", "bfloat16-9x9", "float32-9x9",
+                              "bfloat16-11x11", "float32-11x11"])
 def test_k5_k6_repeat_bit_for_bit(cuda_device, dtype, d):
     """Two launches of each wrapper on the same inputs agree bit for bit at
     a shape whose streamed axis splits (K5: 8 fixed slices of 4096 samples,
     262144 columns) and whose fixed side needs many items (K6): the
     per-split partials go through the fixed-order reduction, no float
-    atomics; at 32 lanes and at 64."""
+    atomics; at 32, 64, 96 and 128 lanes."""
     dev = cuda_device
     p, n = 4096, 262144
     aug = dtype == "bfloat16"

@@ -40,6 +40,7 @@ from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
 from graphlap_tpu_torch.ops import recompute_layout as rl
 from graphlap_tpu_torch.ops import streaming as tst
 from graphlap_tpu_torch.utils import interop
+from tests.test_torch_wide import torch_threads
 
 REL_F32 = 2e-5
 WRAPPERS = (k79.kb_strip_cuda, k79.ext2_matvec_cuda, k79.finish_colstats_cuda)
@@ -484,18 +485,23 @@ def test_recompute_outside_the_slice_raises(img_noisy, kw, item):
 def test_past_the_fused_finish_gate_raises():
     """p_pad > MAX_TILE_P: the fused finish's gate refuses the shapes, and
     the factor takes the unfused schedule instead, as the reference's
-    does."""
-    cfg = _cfg(sample_rho=1.0, sample_cap=8192, num_eigvecs=8,
-               block_cols=4608, sinkhorn_coarse=8, gram_coarse=8)
+    does. p stays past 4096 (4608, every pixel of 64 x 72); the rank, the
+    coarse factors and the column blocks are cut to the least the schedule
+    takes, and its p x p Cholesky solves run on two threads
+    (``torch_threads``: on torch's default count beside busy neighbours
+    one took seconds)."""
+    cfg = _cfg(sample_rho=1.0, sample_cap=8192, num_eigvecs=2,
+               block_cols=9216, sinkhorn_coarse=16, gram_coarse=16)
     img = gt.make_test_image(64, 72)
     plan = gt.make_plan(img, cfg)
     assert plan.p > rl.MAX_TILE_P
     idx = interop.idx_to_device(plan.idx_a, "cpu")
-    ctx = tms._strip_ctx(T(img), idx, cfg)
-    assert not tms._fused_finish_ok(ctx, cfg)
-    fac = tms._factor_streaming(T(img), idx, cfg)
+    with torch_threads(2):
+        ctx = tms._strip_ctx(T(img), idx, cfg)
+        assert not tms._fused_finish_ok(ctx, cfg)
+        fac = tms._factor_streaming(T(img), idx, cfg)
     assert np.isfinite(fac.vals.numpy()).all()
-    assert np.isfinite(fac.v_b.numpy()).all() and fac.v_b.shape[1] == 8
+    assert np.isfinite(fac.v_b.numpy()).all() and fac.v_b.shape[1] == 2
 
 
 def _small_layouts():

@@ -25,6 +25,7 @@ On the card (as the 32-lane gpu tests): K1 one bf16 ulp / 5e-5, K7 1.5 x
 (0.25, 0.75).
 """
 
+from contextlib import contextmanager
 from types import SimpleNamespace
 
 import numpy as np
@@ -64,6 +65,23 @@ def jx():
     from graphlap_tpu.ops import pallas_streaming as pst
     return SimpleNamespace(jax=jax, jnp=jnp, gl=gl, pa=pa, pst=pst,
                            cfg=lambda c: JaxConfig(**c.to_dict()))
+
+
+@contextmanager
+def torch_threads(n):
+    """torch's CPU ops on ``n`` threads for the block. Beside busy
+    neighbours (the test workers share the box's cores) torch's default
+    thread count, one a core, makes its LAPACK calls wait on one another:
+    a 150 x 150 eigh took 1.2 s on 8 threads and 2 ms on 2, a Cholesky
+    solve at p 4608 2.5 s and 0.05 s (five workers of matrix products
+    beside them). Alone on the box, 2 threads cost the staged test's two
+    port runs 22 s in place of 9 s on 8."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def T(x, dtype=None):
@@ -320,7 +338,11 @@ def test_config4_staged_at_7x7_matches_reference(jx):
     bf16 slice bars). At 7 x 7 the unfused schedule parts from the fused
     one in the reference as in the port (both gaps printed, ~0.27 dB here,
     ~0.01 at 5 x 5), so chip_smoke.py holds the staged run on the card to
-    its own plain path, not to filter_image."""
+    its own plain path, not to filter_image. The frame stays: on every
+    smaller frame tried (128 x 256 to 256 x 448 and 240 x 480) the
+    reference's 7 x 7 gap is at most 7.6x its 5 x 5 one (0.026-0.12 dB at
+    5 x 5), where this frame parts them by 27x. The port's runs take two
+    threads (``torch_threads``)."""
     from graphlap_tpu_torch.models.pipeline import _filter_streaming_staged
 
     img = gt.make_test_image(256, 512)
@@ -336,12 +358,14 @@ def test_config4_staged_at_7x7_matches_reference(jx):
     x0 = np.asarray(jx.jax.random.normal(
         jx.jax.random.PRNGKey(0), (plan.p, cfg.num_eigvecs), jx.jnp.float32))
     ref = jx.gl.filter_image_staged(noisy, jx.cfg(cfg), plan=plan)
-    res = _filter_streaming_staged(noisy, cfg, plan, "cpu",
-                                   x0=interop.block_to_device(x0, "cpu"))
+    with torch_threads(2):
+        res = _filter_streaming_staged(noisy, cfg, plan, "cpu",
+                                       x0=interop.block_to_device(x0, "cpu"))
+        fused = _filter_channel(torch.tensor(noisy),
+                                interop.idx_to_device(plan.idx_a, "cpu"), cfg,
+                                x0=interop.block_to_device(x0, "cpu"))[0]
     _assert_slice(img, res.image, res.eigvals, ref)
-    fused = _filter_channel(torch.tensor(noisy),
-                            interop.idx_to_device(plan.idx_a, "cpu"), cfg,
-                            x0=interop.block_to_device(x0, "cpu"))[0].numpy()
+    fused = fused.numpy()
     ref_fused = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan).image
     gaps = [abs(gt.psnr(img, a) - gt.psnr(img, b))
             for a, b in ((res.image, fused), (ref.image, ref_fused))]
@@ -409,14 +433,14 @@ def test_k7_k10_take_64_lanes_and_raise_past_them(monkeypatch, which):
     assert [w.launches for w in WRAPPERS] == before
 
 
-def test_k5_k6_raise_at_64_lanes(monkeypatch):
-    """Past 64 lanes only: on a CUDA tensor K5/K6 take the 64-lane layouts
-    of a 7 x 7 patch (the aug layout's 55 lanes, the f32 one's 49, each
-    padded to 64, and with the coordinates 52 live lanes on the coordinate
-    kernel), which reach the kernel library (here missing); 96 and 128
-    lanes (patches 9 and 11) raise NotImplementedError naming ROADMAP
-    Queue 2b, on the coordinate kernel too; live lanes past the layout's
-    64 raise ValueError; none launches."""
+def test_k5_k6_take_128_lanes_and_coordinates_raise_past_64(monkeypatch):
+    """On a CUDA tensor K5/K6 take the bf16 aug and f32 layouts at 64, 96
+    and 128 lanes (NLM 7 x 7, 9 x 9, 11 x 11: the aug layout's 55, 87 and
+    127 lanes, the f32 one's 49, 81 and 121, each padded), which reach the
+    kernel library (here missing); the coordinate kernel takes 64 lanes
+    (52 live: a 7 x 7 patch and the coordinates) and raises
+    NotImplementedError naming ROADMAP Queue 2b at 96 and 128; live lanes
+    past the layout's 64 raise ValueError; none launches."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -424,23 +448,19 @@ def test_k5_k6_raise_at_64_lanes(monkeypatch):
     monkeypatch.setattr(_build, "lib", no_lib)
     before = [w.launches for w in WRAPPERS]
     for aug, dtype in ((True, torch.bfloat16), (False, torch.float32)):
-        if aug:
-            fa, f_t = rl.aug_pads(torch.zeros((100, D)),
-                                  torch.zeros((1000, D)), 1024)
-        else:
-            fa, f_t = torch.zeros((512, 64)), torch.zeros((64, 1024))
-        assert fa.shape[1] == f_t.shape[0] == 64 and fa.dtype == dtype
-        with pytest.raises(RuntimeError, match="unavailable"):
-            k56.matvec_cuda(fa, f_t, torch.ones(1024), aug)
-        with pytest.raises(RuntimeError, match="unavailable"):
-            k56.rmatvec_cuda(fa, f_t, torch.ones(512), aug)
-        for lanes in (96, 128):
-            wide = torch.zeros((512, lanes), dtype=dtype)
-            wide_t = torch.zeros((lanes, 1024), dtype=dtype)
-            with pytest.raises(NotImplementedError, match="Queue 2b"):
-                k56.matvec_cuda(wide, wide_t, torch.ones(1024), aug)
-            with pytest.raises(NotImplementedError, match="Queue 2b"):
-                k56.rmatvec_cuda(wide, wide_t, torch.ones(512), aug)
+        for d, lanes in ((D, 64), (81, 96), (121, 128)):
+            if aug:
+                fa, f_t = rl.aug_pads(torch.zeros((100, d)),
+                                      torch.zeros((1000, d)), 1024)
+            else:
+                fa = torch.zeros((512, rl.d_pad_of(d)))
+                f_t = torch.zeros((rl.d_pad_of(d), 1024))
+            assert fa.shape[1] == f_t.shape[0] == lanes and fa.dtype == dtype
+            with pytest.raises(RuntimeError, match="unavailable"):
+                k56.matvec_cuda(fa, f_t, torch.ones(1024), aug)
+            with pytest.raises(RuntimeError, match="unavailable"):
+                k56.rmatvec_cuda(fa, f_t, torch.ones(512), aug)
+    fa, f_t = torch.zeros((512, 64)), torch.zeros((64, 1024))
     with pytest.raises(RuntimeError, match="unavailable"):
         k56.matvec_cuda(fa, f_t, torch.ones(1024), False, live=51,
                         coords=True)
@@ -456,6 +476,14 @@ def test_k5_k6_raise_at_64_lanes(monkeypatch):
         with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
             k56.matvec_cuda(wide, wide_t, torch.ones(1024), False, live=51,
                             coords=True)
+        with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
+            k56.rmatvec_cuda(wide, wide_t, torch.ones(512), False, live=51,
+                             coords=True)
+        # the plain bf16 and the f32 aug layouts: no queue ports them
+        for dtype, aug in ((torch.bfloat16, False), (torch.float32, True)):
+            with pytest.raises(NotImplementedError, match="no ROADMAP.md"):
+                k56.matvec_cuda(wide.to(dtype), wide_t.to(dtype),
+                                torch.ones(1024), aug)
     assert [w.launches for w in WRAPPERS] == before
 
 

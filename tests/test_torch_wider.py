@@ -1,14 +1,17 @@
 """The 96- and 128-lane feature layouts of graphlap_tpu_torch: NLM 9 x 9
 (81 lanes, d_pad 96; the aug layout's 87 lanes padded to 96) and 11 x 11
-(121 lanes, d_pad 128; aug 127 padded to 128) through K1 and K7-K10, the
-bf16 half of the layouts (the f32 and coordinate ones, and K5/K6, still
-raise on the card). Each plain version against its Pallas kernel
-(interpret mode on the CPU, the reference's own CPU route), config 2's
-strip_cache recipe at 9 x 9 and 11 x 11 and config 4's fused recipe at 11
-x 11 on a 96x96 frame against graphlap_tpu.filter_image with the
-reference's random draws injected, and, on a CUDA card only (marker
-``gpu``), each kernel at 96 and 128 lanes against its plain version,
-launched twice bit for bit.
+(121 lanes, d_pad 128; aug 127 padded to 128) through K1 and K7-K10 (their
+bf16 layouts; the f32 and coordinate ones still raise on the card) and
+K5/K6 (bf16 aug and f32; the coordinate kernel still raises). Each plain
+version against its Pallas kernel (interpret mode on the CPU, the
+reference's own CPU route; K5/K6's in tests/test_torch_matvec.py), config
+2's strip_cache recipe at 9 x 9 and 11 x 11 and config 4's fused recipe at
+11 x 11 on a 96x96 frame against graphlap_tpu.filter_image with the
+reference's random draws injected, config 3's sharpen at 9 x 9 (48x48x3)
+and the 8 MP matvec denoise at 11 x 11 (96x96) against it too (exact
+matvecs: no random draw), and, on a CUDA card only (marker ``gpu``), each
+kernel at 96 and 128 lanes against its plain version, launched twice bit
+for bit.
 
 The bars are those of the 64-lane tests (tests/test_torch_wide.py):
 * K1: 5e-5 absolute on the f32 store, one bf16 ulp (2^-8) on the bf16
@@ -17,7 +20,9 @@ The bars are those of the 64-lane tests (tests/test_torch_wide.py):
   2e-2 of its max.
 * K8: u and s to 2e-2 of their max; K9 and K10: every output to 5e-3 of
   its max.
-* The slices: 0.05 dB, atol 2e-2, the top eigenvalue to rtol 1e-2.
+* The slices: 0.05 dB, atol 2e-2, the top eigenvalue to rtol 1e-2; the
+  f32 matvec denoise 0.02 dB, atol 2e-3 (the f32 slices' bars,
+  tests/test_torch_matvec.py).
 On the card: K1 one bf16 ulp / 5e-5, K7 1.5 x 2^-7, K8 2e-2 with u's and
 s's leans in (0.25, 0.75) against f64 sums of the same bf16 entries, K9
 5e-3 of max, K10 V 2^-7 of max |V| with its lean in (0.25, 0.75).
@@ -35,11 +40,12 @@ from graphlap_tpu_torch.models import streaming as tms
 from graphlap_tpu_torch.models.pipeline import _filter_channel
 from graphlap_tpu_torch.ops import affinity as taff
 from graphlap_tpu_torch.ops import cuda_affinity as k1
+from graphlap_tpu_torch.ops import cuda_matvec as k56
 from graphlap_tpu_torch.ops import cuda_recompute as k79
 from graphlap_tpu_torch.ops import recompute_layout as rl
 from graphlap_tpu_torch.utils import interop
 from tests.test_torch_wide import (  # noqa: F401 (jx, cuda_device: fixtures)
-    N, T, _bf, _rel_err, _twice, assert_rel, cuda_device, jx)
+    N, T, _bf, _rel_err, _twice, assert_rel, cuda_device, jx, torch_threads)
 
 PATCHES = (9, 11)
 LANES = {9: 96, 11: 128}          # d_pad_of and aug_d_pad_of of each patch
@@ -269,6 +275,63 @@ def test_config4_slice_at_11x11_matches_reference(jx, img_noisy):
                               interop.idx_to_device(plan.idx_a, "cpu"), cfg,
                               x0=interop.block_to_device(x0, "cpu"))
     _assert_slice(img, z.numpy(), vals.numpy(), ref)
+
+
+def matvec_recipe(which, patch):
+    """(config, clean image, noisy image) of a matvec recipe at ``patch`` x
+    ``patch``, resolved at full size and cut as chip_smoke.py's small runs
+    cut it: config 3's per-channel sharpen (tuned_config(CONFIG3) at 1024^2
+    RGB: bf16 aug tiles) at 48x48x3, noise 0.03 seed 3; the 8 MP matvec
+    denoise (tuned_config(denoise_tuned(., 0.1)) at 2048x4096: f32 tiles)
+    at 96x96, noise 0.1 seed 1."""
+    if which == "sharpen":
+        full = gt.tuned_config(gt.CONFIG3.replace(
+            streaming=True, block_cols=131072, patch_size=patch),
+            1024 * 1024, "fast")
+        img = gt.make_test_image(48, 48, channels=3)
+        noisy = np.clip(gt.add_gaussian_noise(img, 0.03, seed=3), 0, 1)
+        return (full.replace(sample_rho=0.05, block_cols=1152,
+                             sinkhorn_coarse=4), img,
+                noisy.astype(np.float32))
+    base = PipelineConfig(
+        kernel="nlm", h=0.25, sample_rho=0.01, sample_cap=4096,
+        num_eigvecs=50, sinkhorn_iters=10, filter_name="identity",
+        streaming=True, block_cols=131072, affinity_dtype="bfloat16",
+        patch_size=patch)
+    full = gt.tuned_config(gt.denoise_tuned(base, 0.1), 2048 * 4096, "fast")
+    img = gt.make_test_image(96, 96)
+    noisy = np.clip(gt.add_gaussian_noise(img, 0.1, seed=1), 0, 1)
+    return (full.replace(sample_rho=0.05, block_cols=2048, sinkhorn_coarse=4),
+            img, noisy.astype(np.float32))
+
+
+@pytest.mark.parametrize("which,patch", [("sharpen", 9), ("denoise", 11)],
+                         ids=["config3-9x9", "matvec-denoise-11x11"])
+def test_matvec_slice_at_9x9_and_11x11_matches_reference(jx, which, patch):
+    """The exact-matvec slices past 64 lanes: config 3's sharpen at 9 x 9
+    (the 96-lane aug K5/K6, six each a call) and the 8 MP matvec denoise at
+    11 x 11 (the 128-lane f32 K5/K6, two each) against
+    graphlap_tpu.filter_image, on the CPU with no launch; the port on two
+    threads (``torch_threads``)."""
+    cfg, img, noisy = matvec_recipe(which, patch)
+    aug = cfg.affinity_dtype == "bfloat16"
+    assert cfg.filter_mode == "matvec" and aug == (which == "sharpen")
+    plan = gt.make_plan(noisy, cfg)
+    chan = noisy[..., 0] if noisy.ndim == 3 else noisy
+    before = [k56.matvec_cuda.launches, k56.rmatvec_cuda.launches]
+    with torch_threads(2):
+        ctx = tms._strip_ctx(torch.tensor(chan),
+                             interop.idx_to_device(plan.idx_a, "cpu"), cfg)
+        res = gt.filter_image(noisy, cfg, plan=plan, device="cpu")
+    assert ctx.f_t.shape[0] == LANES[patch] and (ctx.fa_aug is not None) == aug
+    assert [k56.matvec_cuda.launches, k56.rmatvec_cuda.launches] == before
+    ref = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
+    db, atol = SLICE_BARS if aug else (0.02, 2e-3)
+    assert res.image.shape == ref.image.shape == noisy.shape
+    assert np.isfinite(res.image).all()
+    np.testing.assert_allclose(res.image, ref.image, atol=atol)
+    d = abs(gt.psnr(img, res.image) - gt.psnr(img, ref.image))
+    assert d <= db, f"port vs reference PSNR delta {d:.5f} dB"
 
 
 # --- on the card: the 96- and 128-lane kernels against their plain versions --
