@@ -123,7 +123,9 @@ non-zero before the last line is printed):
             (launched once more on the same inputs: the two runs must agree
             bit for bit, as for the f32 K5/K6 of config 4q), and each
             output's lean, (kernel - plain) / plain: mean, median and share
-            below zero, required in (0.25, 0.75);
+            below zero, and against the f64 sums of the same bf16 entries
+            (the w product on the FP32 pipe at every depth), both required
+            in (0.25, 0.75);
    e2e      filter_image: warm-up and three timed runs, walls, peak memory,
             launches per call (6 / 6), the reference's config-3 quality bars
             (gradient-energy ratio, SSIM, PSNR);
@@ -237,13 +239,19 @@ non-zero before the last line is printed):
               phase 10 with an NLM 7x7 patch (h 0.15, 52 live lanes of 64,
               rows *_d64), and first its kernel rows alone at NLM 5x5 (28
               live lanes of 32, the kernels' LV = 32 instantiations: the
-              same checks, kept in the phase's record).
+              same checks, kept in the phase's record); then recipe C
+              (10d) at 7x7; then both again at 9x9 and 11x11 (84 and 124
+              live lanes of 96 and 128, rows *_d96 and *_d128; K1's
+              coordinate cross, not ported past 64 lanes, left out of the
+              slabs; the staged schedule held to its own plain path; the
+              96x96 run of recipe B at 11x11 only).
 10d. bilateral NLM 8 MP matvec — recipe C, make_workload_8mp_nlm_bilateral_
-              matvec (denoise_tuned(0.1)): the coordinate K5/K6 at 64 lanes
-              twice a call through filter_image, PSNR printed (the recipe
-              degenerates in the reference too), the plain path (0.02 dB,
-              2e-3), 96x96 vs the CPU.
-11. result  — one JSON line listing every kernel and layout (60 rows:
+              matvec (denoise_tuned(0.1)): the coordinate K5/K6 at the
+              patch's depth twice a call through filter_image, PSNR printed
+              (the recipe degenerates in the reference too), the plain path
+              (0.02 dB, 2e-3, or 1.5x the plain path's own f32 floor),
+              96x96 vs the CPU.
+11. result  — one JSON line listing every kernel and layout (72 rows:
               name, route, source, replaces, launches, max_abs_err, ms,
               plain_ms, bound_ms, bound_by, library_ms) after the line with
               the run's total seconds, the card line, then the contract line
@@ -440,6 +448,24 @@ TOL = {
     "rmatvec_f32_d96": 1e-4,
     "matvec_f32_d128": 1e-4,
     "rmatvec_f32_d128": 1e-4,
+    # the f32 K7-K10 and the coordinate K5/K6 at 96 and 128 lanes (an NLM 9
+    # x 9 or 11 x 11 patch and the coordinates, 84 or 124 live; recipes B
+    # and C): the same rounding points as at 64 lanes, the cross a longer
+    # FFMA chain over the same coordinates' |f|^2 (the patch lanes add under
+    # 130), so they keep the 64-lane rows' bars; their bar against the f64
+    # slabs and sums is again 1.5x the plain version's error
+    "kb_strip_f32_d96": 0.25,
+    "kb_strip_f32_d128": 0.25,
+    "ext2_matvec_f32_d96": 0.1,
+    "ext2_matvec_f32_d128": 0.1,
+    "finish_colstats_f32_d96": 2e-4,
+    "finish_colstats_f32_d128": 2e-4,
+    "colstats_v_f32_d96": 2e-4,
+    "colstats_v_f32_d128": 2e-4,
+    "matvec_coord_d96": 0.1,
+    "matvec_coord_d128": 0.1,
+    "rmatvec_coord_d96": 0.1,
+    "rmatvec_coord_d128": 0.1,
     # the same kernels at 28 live lanes (NLM 5 x 5 and the coordinates: the
     # LV = 32 instantiations, recipe B's twin) keep the 64-lane rows' bars;
     # rows kept in the phase's record, not in the kernels line
@@ -534,10 +560,13 @@ SOURCE = {
     "rmatvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "affinity_strip_coord_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
 }
+# the f32 kernels on coordinate features (recipes B and C)
+COORD_ROWS = ("kb_strip_f32", "ext2_matvec_f32", "finish_colstats_f32",
+              "colstats_v_f32", "matvec_coord", "rmatvec_coord")
 WIDE = tuple(f"{k}_d{fd}" for fd in (96, 128) for k in (
     "affinity_strip", "affinity_strip_f32", "kb_strip", "ext2_matvec",
     "finish_colstats", "colstats_v", "matvec", "rmatvec", "matvec_f32",
-    "rmatvec_f32"))                        # the rows past 64 lanes
+    "rmatvec_f32") + COORD_ROWS)           # the rows past 64 lanes
 for _name in WIDE:
     _base = _name.rsplit("_d", 1)[0]
     REPLACES[_name], SOURCE[_name] = REPLACES[_base], SOURCE[_base]
@@ -569,12 +598,8 @@ ABSOLUTE = ("affinity_strip", "affinity_strip_f32", "kb_strip",
                 n for n in WIDE if n.startswith(("affinity", "kb_strip")))
 # the f32 kernels on coordinate features, whose sums often tie their plain
 # version's bit for bit: their leans leave the ties out (signed_stats)
-UNTIED = ("ext2_matvec_f32", "finish_colstats_f32", "colstats_v_f32",
-          "matvec_coord", "rmatvec_coord", "ext2_matvec_f32_d64",
-          "finish_colstats_f32_d64", "colstats_v_f32_d64", "matvec_coord_d64",
-          "rmatvec_coord_d64", "ext2_matvec_f32_l28",
-          "finish_colstats_f32_l28", "colstats_v_f32_l28", "matvec_coord_l28",
-          "rmatvec_coord_l28")
+UNTIED = tuple(f"{k}{sfx}" for sfx in ("", "_d64", "_d96", "_d128", "_l28")
+               for k in COORD_ROWS[1:])
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
 OUT = Path("build") / "chip_smoke"
@@ -960,17 +985,17 @@ def matvec_cases(ctx, dev, names, rows):
     # tile sums join its running sums by a compensated add (a plain add
     # dropped the tiles far from a row's live entries, and 0.63 / 0.73 of
     # its rows lay below f64 at 32 / 64 lanes); the aug layout's against
-    # the f64 sums of the same bf16 entries, printed up to 64 lanes, where
-    # its w product sums in the tensor core, and required past them, where
-    # it sums on the FP32 pipe
+    # the f64 sums of the same bf16 entries, required at every depth since
+    # its w product sums on the FP32 pipe (by mma, whose accumulation
+    # truncates, K6 sat below on 0.879 / 0.877 of config 3's columns at 32
+    # / 64 lanes)
     signed = {mv: (0, ctx.p, True, True), rmv: (0, ctx.n, True, True)}
     if aug:
-        wide = fd > 64                    # required where the FP32 pipe sums
         signed = {
-            mv: [signed[mv], (0, ctx.p, True, wide,
+            mv: [signed[mv], (0, ctx.p, True, True,
                               lambda a, b, x, _: aug_f64_sums(a, b, "matvec",
                                                               x))],
-            rmv: [signed[rmv], (0, ctx.n, True, wide,
+            rmv: [signed[rmv], (0, ctx.n, True, True,
                                 lambda a, b, x, _: aug_f64_sums(
                                     a, b, "rmatvec", x))]}
     else:
@@ -2389,8 +2414,9 @@ def make_workload_8mp_nlm_bilateral(gt, patch=7):
     tuned_config(CONFIG2.replace(streaming=True, sample_cap=4096,
     patch_size=patch, spatial_h=8.0), 2048*4096, "fast"): f32 tiles, h
     0.15, coarse Sinkhorn and gram 1/64, one polish, the fused finish,
-    LOBPCG; 52 live lanes of 64 at 7 x 7, 28 of 32 at 5 x 5: (cfg, clean
-    image, noisy f32 image, plan)."""
+    LOBPCG; 28 live lanes of 32 at 5 x 5, 52 of 64 at 7 x 7, 84 of 96 at 9
+    x 9, 124 of 128 at 11 x 11: (cfg, clean image, noisy f32 image,
+    plan)."""
     img, noisy = noisy_image(gt, H8, W8)
     cfg = gt.tuned_config(gt.CONFIG2.replace(
         streaming=True, sample_cap=4096, patch_size=patch, spatial_h=8.0),
@@ -2556,7 +2582,8 @@ def bilateral_slabs(ctx, ft_g, dev):
     term; K9 the same scaled by its s; K8 with one-hot t2 rows gives s_j =
     1 / sqrt(k_qj^2), so k = 1 / s; K6 with a one-hot t gives k(q, j); K1
     on 64 sample rows by 2^20 pixels (its split-fp16 cross printed
-    beside). Returns the record."""
+    beside; up to 64 lanes: past them K1's coordinate cross raises, not
+    ported). Returns the record."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_matvec as k56
@@ -2617,6 +2644,10 @@ def bilateral_slabs(ctx, ft_g, dev):
         "the coordinate cross repairs)", split, pl, ref[-1:], required=False)
     del ref, got, pl, split
     torch.cuda.empty_cache()
+    if f_t.shape[0] > k1.COORD_FEATURES:
+        phase("slab", f"affinity_strip, coordinate cross: not run at "
+              f"{f_t.shape[0]} lanes (ported up to {k1.COORD_FEATURES})")
+        return out
     # K1 on the path's features: 64 sample rows by 2^20 pixels, f32 store
     fa3 = ctx.feats_a[rows.clamp(max=p - 1)].contiguous()
     fb3 = ctx.feats_pad[:1 << 20].contiguous()
@@ -2652,7 +2683,8 @@ def bilateral_slabs(ctx, ft_g, dev):
 def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
     """The f32 K7-K10 and the coordinate K5/K6 at a bilateral streaming
     recipe's 8 MP shapes on its own layouts (``live_req`` live lanes; the
-    rows named with ``sfx``, "_d64" on a 64-lane layout): against their
+    rows named with ``sfx``, "_d64", "_d96" or "_d128" past 32 lanes):
+    against their
     plain versions with their leans required, twice bit for bit, timed; K7
     beside its cuBLAS composition and the f32 gram GEMM after it; K8's
     and K5/K6's sums against f64, and every tile and K1's coordinate cross
@@ -2668,7 +2700,7 @@ def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
     require(ctx.fa_aug is None and ctx.f_t.dtype == torch.float32
             and ctx.coords and ctx.live == live_req
-            and ctx.f_t.shape[0] == (32 if live_req <= 32 else 64),
+            and ctx.f_t.shape[0] == -(-live_req // 32) * 32,
             f"{tag} did not reach the f32 coordinate layout of {live_req} "
             f"live lanes")
     p, n, live = ctx.p, ctx.n_pad, ctx.live
@@ -2770,28 +2802,42 @@ def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
     return rec
 
 
+# live lanes of recipes B and C at each NLM patch (the patch and the
+# coordinates, rounded up to 4)
+NLM_COORD_LIVE = {5: 28, 7: 52, 9: 84, 11: 124}
+
+
+def nlm_key(base: str, patch: int, sep: str = "_") -> str:
+    """A recipe's record key or tag at an NLM patch: the 7 x 7 one as it
+    was, the others with the patch."""
+    return base if patch == 7 else f"{base}{sep}p{patch}"
+
+
 def bilateral(gt, dev, rows, launches, info, patch=None):
     """The bilateral 8 MP denoise (make_workload_bilateral, gaussian, 4
-    live lanes), or with ``patch`` 7 its NLM 7 x 7 twin
-    (make_workload_8mp_nlm_bilateral: 52 live lanes of 64, rows named
-    ``*_d64``, and the 28-lane rows of the 5 x 5 twin kept in the phase's
-    record): the f32 K7-K10 and the coordinate K5/K6 (bilateral_rows), the
-    fused finish and the staged schedule end to end, and the recipe at
-    96x96 against the CPU."""
+    live lanes), or with ``patch`` 7, 9 or 11 its NLM twin, recipe B
+    (make_workload_8mp_nlm_bilateral: 52, 84 or 124 live lanes of 64, 96 or
+    128, rows named by lanes_sfx; at 7 x 7 the 28-lane rows of the 5 x 5
+    twin kept in the phase's record): the f32 K7-K10 and the coordinate
+    K5/K6 (bilateral_rows), the fused finish and the staged schedule end to
+    end (past 7 x 7 the staged one held to its own plain path), and the
+    recipe at 96x96 against the CPU (not at 9 x 9)."""
     from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_matvec as k56
     from graphlap_tpu_torch.ops import cuda_recompute as k79
     from graphlap_tpu_torch.ops.nystrom import lobpcg_x0
 
-    sfx = "" if patch is None else "_d64"
-    key = "bilateral" if patch is None else "bilateral_nlm_8mp"
-    tag = "bilateral" if patch is None else "bilateral-nlm-8mp"
+    sfx = "" if patch is None else lanes_sfx(PATCH_LANES[patch])
+    key = "bilateral" if patch is None else nlm_key("bilateral_nlm_8mp",
+                                                    patch)
+    tag = "bilateral" if patch is None else nlm_key("bilateral-nlm-8mp",
+                                                    patch, "-")
     if patch is None:
         cfg, img, noisy, plan = make_workload_bilateral(gt)
         rec = bilateral_rows(gt, dev, rows, cfg, noisy, plan, 4, tag)
         info["bilateral_sums"], info["bilateral_slabs"] = (rec["sums"],
                                                            rec["slabs"])
-    else:
+    elif patch == 7:
         # the 28-lane rows (NLM 5 x 5 and the coordinates: the kernels' LV
         # = 32 instantiations), each checked as the 64-lane rows are; no
         # frame at 5 x 5
@@ -2805,6 +2851,11 @@ def bilateral(gt, dev, rows, launches, info, patch=None):
         rec = bilateral_rows(gt, dev, rows, cfg, noisy, plan, 52, tag, sfx)
         info[key + "_kernels"] = dict(rows_28=at28, f64_28=rec28,
                                       f64_52=rec)
+    else:
+        live = NLM_COORD_LIVE[patch]
+        cfg, img, noisy, plan = make_workload_8mp_nlm_bilateral(gt, patch)
+        info[key + "_kernels"] = {f"f64_{live}": bilateral_rows(
+            gt, dev, rows, cfg, noisy, plan, live, tag, sfx)}
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
 
@@ -2833,10 +2884,11 @@ def bilateral(gt, dev, rows, launches, info, patch=None):
     # the recipe's quality is the reference's: at these decimations (coarse
     # Sinkhorn and gram 1/64, p = 4096) its output degenerates in
     # graphlap_tpu too (the gaussian recipe at 256x512 on the CPU: PSNR
-    # 20.22 -> 5.25 dB, eigenvalues ~3e30; the NLM 7 x 7 one 20.22 -> 6.54
-    # dB, scripts/reference_quality.py; ROADMAP.md Queue 3), so the phase
-    # prints the PSNR and holds the kernels to their plain path, the 8 MP
-    # slabs and the 96x96 runs, not to a denoise gain
+    # 20.22 -> 5.25 dB, eigenvalues ~3e30; the NLM 7 x 7, 9 x 9 and 11 x 11
+    # ones 20.22 -> 6.54, 6.62 and 6.63 dB, scripts/reference_quality.py;
+    # ROADMAP.md Queue 3), so the phase prints the PSNR and holds the
+    # kernels to their plain path, the 8 MP slabs and the 96x96 runs, not
+    # to a denoise gain
     phase("e2e-bilateral", f"{tag}: denoise gain {psnr_out - psnr_in:.3f} "
           f"dB (not required: the recipe degenerates in the reference too); "
           f"top eigenvalues {np.asarray(res.eigvals)[:3].tolist()}")
@@ -2857,14 +2909,15 @@ def bilateral(gt, dev, rows, launches, info, patch=None):
     # filter_image_staged: the unfused schedule (polish K5 + K6 with the
     # coordinate cross, K7, LOBPCG, K10), held to filter_image within the
     # fused-vs-unfused bars of config 4's staged run (another schedule of
-    # the estimator: post-polish scales at the gram columns)
+    # the estimator: post-polish scales at the gram columns), past 7 x 7 to
+    # its own plain path within them, as config 4's past 5 x 5
     t0 = time.perf_counter()
     st_counters = {"matvec_coord" + sfx: k56.matvec_cuda,
                    "rmatvec_coord" + sfx: k56.rmatvec_cuda,
                    "kb_strip_f32" + sfx: k79.kb_strip_cuda,
                    "colstats_v_f32" + sfx: k79.colstats_v_cuda}
     rec = staged_one(gt, f"{tag} (8 MP)", cfg, img, noisy, plan, dev,
-                     st_counters)
+                     st_counters, against_plain=patch in (9, 11))
     pc = rec["launches_per_call"]
     require(pc["kb_strip_f32" + sfx] == 1 and pc["colstats_v_f32" + sfx] == 1,
             f"the staged {tag} schedule should launch K7 and K10 once a call")
@@ -2875,7 +2928,14 @@ def bilateral(gt, dev, rows, launches, info, patch=None):
     torch.cuda.empty_cache()
 
     # 96x96: the recipe written out (fused finish on and off), card kernels
-    # against the plain versions on the CPU, the same LOBPCG start
+    # against the plain versions on the CPU, the same LOBPCG start; not at
+    # 9 x 9, to keep the script's time
+    info[key] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
+                     psnr_out=psnr_out, launches_per_call=per_call,
+                     plain_path_db=d_db, plain_path_max=d_max,
+                     plain_floor=floor)
+    if patch == 9:
+        return
     t0 = time.perf_counter()
     im_s, nz_s = noisy_image(gt, 96, 96)
     small = {}
@@ -2905,10 +2965,7 @@ def bilateral(gt, dev, rows, launches, info, patch=None):
                 "96x96 bilateral card run != CPU plain run")
         small[f"fused_{fused}"] = dict(db=s_db, max=s_max)
     phase("small", "done", t0)
-    info[key] = dict(walls_s=walls, peak_bytes=peak, psnr_in=psnr_in,
-                     psnr_out=psnr_out, launches_per_call=per_call,
-                     plain_path_db=d_db, plain_path_max=d_max,
-                     plain_floor=floor, small=small)
+    info[key]["small"] = small
 
 
 def f32_floor(gt, cfg, img, img_d, idx_d, z_plain, tag):
@@ -2951,26 +3008,32 @@ def plain_bars(gt, cfg, img, img_d, idx_d, z_plain, tag, floor):
     return max(0.02, 1.5 * f[0]), max(2e-3, 1.5 * f[1]), f
 
 
-def bilateral_nlm_mv(gt, dev, rows, launches, info):
+def bilateral_nlm_mv(gt, dev, rows, launches, info, patch=7):
     """Recipe C (make_workload_8mp_nlm_bilateral_matvec): the 8 MP matvec
-    denoise with an NLM 7 x 7 patch and a spatial term, f32 tiles, 52 live
-    lanes of 64: the coordinate K5/K6 twice a call through filter_image
-    (their rows are bilateral-nlm-8mp's), the kernel path against the plain
-    path on the card, the quality rule (the reference degenerates too:
-    ROADMAP.md Queue 3), and the recipe at 96x96 against the CPU."""
+    denoise with an NLM ``patch`` x ``patch`` patch (7, 9 or 11) and a
+    spatial term, f32 tiles, 52, 84 or 124 live lanes of 64, 96 or 128:
+    the coordinate K5/K6 twice a call through filter_image (their rows are
+    recipe B's at the same patch), the kernel path against the plain path
+    on the card, the quality rule (the reference loses PSNR too, 20.22 ->
+    16.56, 16.54 and 16.52 dB at 7 x 7, 9 x 9 and 11 x 11 on 256 x 512,
+    scripts/reference_quality.py --recipes C Cp9 Cp11; ROADMAP.md Queue 3:
+    the PSNR is printed), and the recipe at 96x96 against the CPU."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.models.pipeline import _filter_channel
     from graphlap_tpu_torch.ops import cuda_matvec as k56
 
     t0 = time.perf_counter()
-    cfg, img, noisy, plan = make_workload_8mp_nlm_bilateral_matvec(gt)
+    lanes, live = PATCH_LANES[patch], NLM_COORD_LIVE[patch]
+    what = f"recipe C at {patch}x{patch}"
+    cfg, img, noisy, plan = make_workload_8mp_nlm_bilateral_matvec(gt, patch)
     img_d = torch.as_tensor(noisy, device=dev)
     idx_d = torch.as_tensor(plan.idx_a.astype(np.int64), device=dev)
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
-    require(ctx.fa_aug is None and ctx.coords and ctx.live == 52
-            and ctx.f_t.shape[0] == 64 and cfg.filter_mode == "matvec",
-            "recipe C did not reach the 64-lane f32 coordinate layout")
-    phase("bilateral-nlm-8mp-mv", f"workload and layouts at {H8}x{W8} (p="
+    require(ctx.fa_aug is None and ctx.coords and ctx.live == live
+            and ctx.f_t.shape[0] == lanes and cfg.filter_mode == "matvec",
+            f"{what} did not reach the {lanes}-lane f32 coordinate layout")
+    phase(nlm_key("bilateral-nlm-8mp-mv", patch, "-"),
+          f"workload and layouts at {H8}x{W8} (p="
           f"{ctx.p}, {ctx.live} live lanes of {ctx.f_t.shape[0]}, h {cfg.h}, "
           f"{cfg.filter_name} {cfg.filter_mode}, sinkhorn_coarse "
           f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
@@ -2978,33 +3041,35 @@ def bilateral_nlm_mv(gt, dev, rows, launches, info):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    names = ("matvec_coord_d64", "rmatvec_coord_d64")
+    sfx = lanes_sfx(lanes)
+    names = ("matvec_coord" + sfx, "rmatvec_coord" + sfx)
     counters = {names[0]: k56.matvec_cuda, names[1]: k56.rmatvec_cuda}
     res, walls, peak, counts = drive(gt, noisy, cfg, plan, dev, counters,
-                                     "bilateral-nlm-8mp-mv")
+                                     nlm_key("bilateral-nlm-8mp-mv", patch,
+                                             "-"))
     launches.update(counts)
     per_call = {k: v / RUNS for k, v in counts.items()}
     psnr_in, psnr_out = gt.psnr(img, noisy), gt.psnr(img, res.image)
-    phase("e2e-8mp-mv", f"recipe C: walls {[round(w, 6) for w in walls]} s "
+    phase("e2e-8mp-mv", f"{what}: walls {[round(w, 6) for w in walls]} s "
           f"(min {min(walls):.6f}); peak memory {peak / 2**30:.3f} GiB; PSNR "
           f"{psnr_in:.3f} -> {psnr_out:.3f} dB (gain "
           f"{psnr_out - psnr_in:.3f}, not required: the recipe degenerates "
           f"in the reference too); launches per call {per_call}", t0)
     require(res.image.shape == (H8, W8) and np.isfinite(res.image).all(),
-            "recipe C output is not a finite (2048, 4096) image")
+            f"{what} output is not a finite (2048, 4096) image")
     require(per_call == {names[0]: 2, names[1]: 2},
-            "recipe C should launch K5 and K6 twice a call")
+            f"{what} should launch K5 and K6 twice a call")
 
     t0 = time.perf_counter()
     z_plain = _filter_channel(img_d, idx_d, cfg, plain=True)[0].cpu().numpy()
     d_db = abs(psnr_out - gt.psnr(img, z_plain))
     d_max = float(np.abs(res.image - z_plain).max())
     b_db, b_max, floor = plain_bars(gt, cfg, img, img_d, idx_d, z_plain,
-                                    "recipe C", True)
-    phase("plain", f"recipe C kernel path vs plain path on the card: "
+                                    what, True)
+    phase("plain", f"{what} kernel path vs plain path on the card: "
           f"{d_db:.6f} dB, max |diff| {d_max:.3e} (bar {b_db:.4f} dB, "
           f"{b_max:.3e})", t0)
-    require(d_db <= b_db and d_max <= b_max, "recipe C kernel path != plain")
+    require(d_db <= b_db and d_max <= b_max, f"{what} kernel path != plain")
     del img_d, idx_d, z_plain
     torch.cuda.empty_cache()
 
@@ -3017,11 +3082,11 @@ def bilateral_nlm_mv(gt, dev, rows, launches, info):
     z_gpu = gt.filter_image(nz_s, small, plan=pl_s, device=dev).image
     s_db = abs(gt.psnr(im_s, z_cpu) - gt.psnr(im_s, z_gpu))
     s_max = float(np.abs(z_cpu - z_gpu).max())
-    phase("small", f"96x96 recipe C: card kernels vs CPU plain: {s_db:.6f} "
+    phase("small", f"96x96 {what}: card kernels vs CPU plain: {s_db:.6f} "
           f"dB, max |diff| {s_max:.3e} (bar 0.02 dB, 2e-3)", t0)
     require(np.isfinite(z_gpu).all() and s_db <= 0.02 and s_max <= 2e-3,
-            "96x96 recipe C card run != CPU plain run")
-    info["bilateral_nlm_8mp_mv"] = dict(
+            f"96x96 {what} card run != CPU plain run")
+    info[nlm_key("bilateral_nlm_8mp_mv", patch)] = dict(
         walls_s=walls, peak_bytes=peak, psnr_in=psnr_in, psnr_out=psnr_out,
         launches_per_call=per_call, plain_path_db=d_db, plain_path_max=d_max,
         plain_floor=floor, small_db=s_db, small_max=s_max)
@@ -3108,8 +3173,7 @@ def main() -> None:
             "the K7 emitter does not run d2 on the tensor cores")
     hmma = sass_uses(_build, "aug_sum_kernel", "HMMA")
     phase("build", f"aug K5/K6 kernels (32, 64, 96 and 128 lanes) holding "
-          f"HMMA (d2 on the tensor cores, and up to 64 lanes the w product), "
-          f"from cuobjdump -sass: {hmma}")
+          f"HMMA (d2 on the tensor cores), from cuobjdump -sass: {hmma}")
     require(len(hmma) == 4 and all(hmma.values()),
             "the aug K5/K6 kernels do not run their products on the tensor "
             "cores")
@@ -3166,9 +3230,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     config1_fast(gt, dev, rows, launches, info, patch=7)
     torch.cuda.empty_cache()
-    bilateral(gt, dev, rows, launches, info, patch=7)
-    torch.cuda.empty_cache()
-    bilateral_nlm_mv(gt, dev, rows, launches, info)
+    for patch in (7, 9, 11):
+        bilateral(gt, dev, rows, launches, info, patch=patch)
+        torch.cuda.empty_cache()
+        bilateral_nlm_mv(gt, dev, rows, launches, info, patch=patch)
+        torch.cuda.empty_cache()
 
     kernels = [dict(name=name, route="cuda", source=SOURCE[name],
                     replaces=REPLACES[name], launches=launches[name],

@@ -580,15 +580,18 @@ int launch_ks(cudaStream_t s, const VArgs& a) {
 //     to the running V in shared memory with one f32 add;
 //   * the V width is 64 a launch (the wrapper pads gr with zero columns);
 //     the live lanes LV are 4, or the layout's depth for wider features:
-//     32 (a 5 x 5 patch and the coordinates) or 64 (a 7 x 7 patch and the
-//     coordinates, 52 live); the pad lanes are zero, so the extra lanes add
-//     exact zeros. The layout's depth is 32 for LV 4 and 32, 64 for LV 64
-//     (FD_OF). A column's LV lanes stay in registers (float b[LV]): at 64
+//     32 (a 5 x 5 patch and the coordinates), 64 (a 7 x 7 patch and the
+//     coordinates, 52 live), 96 or 128 (9 x 9 or 11 x 11, 84 or 124 live);
+//     the pad lanes are zero, so the extra lanes add exact zeros. The
+//     layout's depth is 32 for LV 4 and 32, else LV (FD_OF). Up to 64
+//     lanes a column's LV lanes stay in registers (float b[LV]): at 64
 //     they sit beside the V pass's 64 accumulators under its 255-register
 //     cap, and the ks pass, ~80 registers at 32 lanes and three blocks an
 //     SM, takes two blocks an SM at 64 (128 registers a thread), so
 //     neither spills (-Xptxas -v); an f_t tile in shared memory would read
-//     the lanes again for each of a stage's rows;
+//     the lanes again for each of a stage's rows. Past 64 lanes the ks
+//     pass keeps them in registers, one block an SM, and the V pass takes
+//     the wide design below (colstats_f32_wide_kernel);
 //   * V is written once; norms and coeffs go through a shuffle tree, the
 //     warps' slots, per-block partials and the fixed-order reduction; K9's
 //     ks pass (a column a thread) sums a stage from zero, then adds it to
@@ -598,7 +601,7 @@ constexpr int VF_THREADS = 256;           // ks pass: one column a thread
 constexpr int VF_MP = 64;                 // V width a launch
 constexpr int VF_TP = 32;                 // ks pass: sample rows a stage
 template <int LV>
-constexpr int FD_OF = LV <= 32 ? 32 : 64;    // the layout's depth for LV live lanes
+constexpr int FD_OF = LV <= 32 ? 32 : LV;    // the layout's depth for LV live lanes
 template <int LV>
 constexpr int VF_LDA_OF = FD_OF<LV> + 4;     // fa_s row stride (floats)
 constexpr int VB_TN = 256;                // V pass: columns a block tile
@@ -609,7 +612,7 @@ constexpr int VB_CT = 4, VB_MT = 16;      // a thread's columns, V entries
 constexpr size_t VF_RUN_BYTES = (size_t)VF_MP * VF_THREADS * 4;   // the running V
 
 struct VF32Args {
-  const float* fa;     // (P, FD) FD 32 or 64
+  const float* fa;     // (P, FD) FD 32, 64, 96 or 128
   const float* ft;     // (FD, N)
   const float* gr;     // (P, 64) row-major
   const float* c;      // (N) column scale (K10), or K9's s
@@ -780,10 +783,171 @@ __global__ __launch_bounds__(VF_THREADS, LV == 4 ? 2 : 1) void colstats_f32_kern
   }
 }
 
+// The V pass past 64 lanes (an NLM 9 x 9 or 11 x 11 patch and the
+// coordinates, 84 or 124 live lanes of 96 or 128). A column's lanes in
+// registers beside the 64 accumulators would pass the 255-register cap,
+// and a 256-column tile's lanes in shared memory (96 or 128 KB) beside the
+// 64 KB running V pass a block's 227 KB. So the block tile is 128 columns,
+// whose lanes sit in shared memory for the tile (bt_s[lane][column], 48 or
+// 64 KB, loaded once a tile), and two threads a column form a stage's
+// entries, 8 rows each, taking the column's lanes 32 at a time into
+// registers: each entry's cross is still one FFMA chain over the lanes in
+// order, entry_f32's. The GEMM: a thread owns 4 columns x 8 V entries (32
+// accumulators), V entries 32 q + 4 mg + i (q < 2, i < 4), so a warp's 8 m
+// groups read 128 contiguous bytes of a gr row; V sums in the same spans,
+// into a running V of 32 KB. Per stage row a thread loads one float4 of
+// entries and two of gr for 32 FFMA; the entries take one broadcast float4
+// of fa and, a chunk of 32 lanes, 32 column lanes per 8 x 32 FFMA.
+constexpr int VW_TN = 128;                // columns a block tile
+constexpr int VW_LDE = VW_TN + 4;         // e_s row stride (floats)
+constexpr int VW_LC = 32;                 // a column's lanes in registers at a time
+constexpr int VW_MT = 8;                  // a thread's V entries
+constexpr int VW_RH = VB_TP / 2;          // stage rows of a thread's entries
+static_assert(VF_THREADS == 2 * VW_TN && VW_TN / VB_CT * VF_MP / VW_MT == VF_THREADS,
+              "two threads a column; 4 columns x 8 V entries a thread");
+template <int LV>
+constexpr size_t VW_DYN_OF = sizeof(float) * ((size_t)VB_CT * VW_MT * VF_THREADS + (size_t)LV * VW_TN);
+
+template <int LV>
+__global__ __launch_bounds__(VF_THREADS, 1) void colstats_f32_wide_kernel(const VF32Args a) {
+  constexpr int LDA = VF_LDA_OF<LV>;
+  __shared__ __align__(16) float fa_s[2][VB_TP * LDA];
+  __shared__ __align__(16) float gr_s[2][VB_TP * VF_MP];
+  __shared__ __align__(16) float na_s[2][VB_TP];
+  __shared__ __align__(16) float e_s[VB_TP * VW_LDE];   // the stage's entries k c_j
+  __shared__ float wp_s[VF_THREADS / 32][2][VF_MP];     // per-warp norms, coeffs
+  extern __shared__ __align__(16) float vw_smem[];
+  float* vrun_s = vw_smem;                              // [VB_CT * VW_MT][VF_THREADS] running V
+  float* bt_s = vw_smem + VB_CT * VW_MT * VF_THREADS;   // [LV][VW_TN] the tile's column lanes
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int jc = tid % VW_TN, rh = (tid / VW_TN) * VW_RH;   // entries: column, first row
+  const int cg = tid / 8, mg = tid % 8;                     // GEMM: columns 4 cg .. 4 cg + 3
+  const int ntiles = a.N / VW_TN, nst = a.P / VB_TP;
+
+  for (int i = tid; i < (VF_THREADS / 32) * 2 * VF_MP; i += VF_THREADS)
+    (&wp_s[0][0][0])[i] = 0.f;
+  if ((int)blockIdx.x < ntiles)
+    load_stage_f32<LV, VB_TP>(fa_s[0], na_s[0], gr_s[0], a, true, 0);
+  int step = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // the tile's column lanes: every thread is past the last tile's entries
+#pragma unroll 1
+    for (int c = tid; c < LV * (VW_TN / 4); c += VF_THREADS) {
+      const int k = c / (VW_TN / 4), q = c % (VW_TN / 4);
+      cp_async16(bt_s + k * VW_TN + 4 * q, a.ft + (size_t)k * a.N + (size_t)tile * VW_TN + 4 * q);
+    }
+    cp_async_commit();
+    const int j = tile * VW_TN + jc;    // the column whose entries this thread forms
+    const float nbv = a.nb[j], cv = a.c[j];
+    float acc[VB_CT][VW_MT];
+    for (int s = 0; s < nst; ++s, ++step) {
+      const int buf = step & 1;
+      cp_async_wait_all();
+      __syncthreads();                 // stage (and lanes) in; everyone done with buf ^ 1, e_s
+      if (s + 1 < nst)
+        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true,
+                                  (s + 1) * VB_TP);
+      else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
+        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true, 0);
+      float cr[VW_RH];
+#pragma unroll
+      for (int r = 0; r < VW_RH; ++r) cr[r] = 0.f;
+#pragma unroll 1
+      for (int k0 = 0; k0 < LV; k0 += VW_LC) {
+        float b[VW_LC];
+#pragma unroll
+        for (int k = 0; k < VW_LC; ++k) b[k] = bt_s[(k0 + k) * VW_TN + jc];
+#pragma unroll
+        for (int r = 0; r < VW_RH; ++r)
+#pragma unroll
+          for (int k = 0; k < VW_LC; k += 4)
+            cr[r] = dot4(*reinterpret_cast<const float4*>(fa_s[buf] + (rh + r) * LDA + k0 + k),
+                         make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]), cr[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < VW_RH; ++r)
+        e_s[(rh + r) * VW_LDE + jc] = kf32(na_s[buf][rh + r] + nbv, cr[r]) * cv;
+      __syncthreads();                 // the stage's entries in
+      if (s % VB_SPAN == 0) {
+#pragma unroll
+        for (int c = 0; c < VB_CT; ++c)
+#pragma unroll
+          for (int m = 0; m < VW_MT; ++m) acc[c][m] = 0.f;
+      }
+#pragma unroll 4
+      for (int r = 0; r < VB_TP; ++r) {
+        const float4 ev = *reinterpret_cast<const float4*>(e_s + r * VW_LDE + 4 * cg);
+        const float e[VB_CT] = {ev.x, ev.y, ev.z, ev.w};
+        const float4* g = reinterpret_cast<const float4*>(gr_s[buf] + r * VF_MP + 4 * mg);
+#pragma unroll
+        for (int q = 0; q < VW_MT / 4; ++q) {
+          const float4 gv = g[8 * q];
+#pragma unroll
+          for (int c = 0; c < VB_CT; ++c) {
+            acc[c][4 * q] = fmaf(e[c], gv.x, acc[c][4 * q]);
+            acc[c][4 * q + 1] = fmaf(e[c], gv.y, acc[c][4 * q + 1]);
+            acc[c][4 * q + 2] = fmaf(e[c], gv.z, acc[c][4 * q + 2]);
+            acc[c][4 * q + 3] = fmaf(e[c], gv.w, acc[c][4 * q + 3]);
+          }
+        }
+      }
+      if ((s + 1) % VB_SPAN == 0 || s + 1 == nst) {   // the span into the running V
+        const bool first = s < VB_SPAN;
+#pragma unroll
+        for (int c = 0; c < VB_CT; ++c)
+#pragma unroll
+          for (int m = 0; m < VW_MT; ++m) {
+            float* q = vrun_s + (c * VW_MT + m) * VF_THREADS + tid;
+            *q = first ? acc[c][m] : *q + acc[c][m];
+          }
+      }
+    }
+    // V out; this tile's norms and coeffs into the warp's slots
+    float yv[VB_CT];
+#pragma unroll
+    for (int c = 0; c < VB_CT; ++c) {
+      const int jg = tile * VW_TN + 4 * cg + c;
+      yv[c] = a.y[jg];
+#pragma unroll
+      for (int m = 0; m < VW_MT; ++m) acc[c][m] = vrun_s[(c * VW_MT + m) * VF_THREADS + tid];
+      float4* vo = reinterpret_cast<float4*>(a.v_out + (size_t)jg * VF_MP + 4 * mg);
+#pragma unroll
+      for (int q = 0; q < VW_MT / 4; ++q)
+        vo[8 * q] = make_float4(acc[c][4 * q], acc[c][4 * q + 1], acc[c][4 * q + 2],
+                                acc[c][4 * q + 3]);
+    }
+#pragma unroll
+    for (int m = 0; m < VW_MT; ++m) {
+      float nn = 0.f, cc = 0.f;
+#pragma unroll
+      for (int c = 0; c < VB_CT; ++c) {
+        nn = fmaf(acc[c][m], acc[c][m], nn);
+        cc = fmaf(yv[c], acc[c][m], cc);
+      }
+#pragma unroll
+      for (int off = 8; off < 32; off <<= 1) {   // over the warp's 4 column groups
+        nn += __shfl_xor_sync(0xffffffffu, nn, off);
+        cc += __shfl_xor_sync(0xffffffffu, cc, off);
+      }
+      if (lane < 8) {   // V entry 32 (m / 4) + 4 mg + m % 4
+        wp_s[warp][0][32 * (m / 4) + 4 * mg + m % 4] += nn;
+        wp_s[warp][1][32 * (m / 4) + 4 * mg + m % 4] += cc;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * VF_MP) {              // warps in order
+    float s = 0.f;
+    for (int w = 0; w < VF_THREADS / 32; ++w) s += wp_s[w][tid / VF_MP][tid % VF_MP];
+    a.part[(size_t)blockIdx.x * 2 * VF_MP + tid] = s;
+  }
+}
+
 // K9's ks pass, f32: ks_j = k_j^T t over all of p (a stage's sum from zero,
 // then added to the total), then s_j
 template <int LV>
-__global__ __launch_bounds__(VF_THREADS, LV == 64 ? 2 : 3) void ks_f32_kernel(const VF32Args a) {
+__global__ __launch_bounds__(VF_THREADS, LV <= 32 ? 3 : LV == 64 ? 2 : 1) void ks_f32_kernel(
+    const VF32Args a) {
   __shared__ __align__(16) float fa_s[2][VF_TP * VF_LDA_OF<LV>];
   __shared__ __align__(16) float t_s[2][VF_TP];
   __shared__ __align__(16) float na_s[2][VF_TP];
@@ -817,21 +981,34 @@ __global__ __launch_bounds__(VF_THREADS, LV == 64 ? 2 : 3) void ks_f32_kernel(co
   }
 }
 
+// the f32 V pass at LV lanes: its kernel and dynamic shared memory (the
+// running V; past 64 lanes the wide design's, with the tile's lanes)
+typedef void (*v_f32_fn)(const VF32Args);
+template <int LV>
+v_f32_fn v_f32_kernel() {
+  if constexpr (LV <= 64)
+    return colstats_f32_kernel<LV>;
+  else
+    return colstats_f32_wide_kernel<LV>;
+}
+template <int LV>
+constexpr size_t VF_DYN_OF = LV <= 64 ? VF_RUN_BYTES : VW_DYN_OF<LV>;
+
 template <int LV>
 int v_f32_setup(int* blocks_out) {
-  cudaError_t e = cudaFuncSetAttribute(colstats_f32_kernel<LV>,
+  cudaError_t e = cudaFuncSetAttribute(v_f32_kernel<LV>(),
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)VF_RUN_BYTES);
+                                       (int)VF_DYN_OF<LV>);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(colstats_f32_kernel<LV>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    e = cudaFuncSetAttribute(v_f32_kernel<LV>(), cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
   if (e != cudaSuccess || blocks_out == nullptr) return static_cast<int>(e);
   int dev = 0, sms = 0, occ = 0;
   e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_f32_kernel<LV>, VF_THREADS,
-                                                      VF_RUN_BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, v_f32_kernel<LV>(), VF_THREADS,
+                                                      VF_DYN_OF<LV>);
   *blocks_out = occ * sms;
   return static_cast<int>(e);
 }
@@ -841,7 +1018,8 @@ template <int LV>
 int launch_v_f32(int blocks, cudaStream_t s, const VF32Args& a, void* norms_coeffs) {
   int rc = v_f32_setup<LV>(nullptr);
   if (rc != 0) return rc;
-  colstats_f32_kernel<LV><<<blocks, VF_THREADS, VF_RUN_BYTES, s>>>(a);
+  const v_f32_fn kernel = v_f32_kernel<LV>();
+  kernel<<<blocks, VF_THREADS, VF_DYN_OF<LV>, s>>>(a);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * VF_MP, s);
@@ -880,21 +1058,23 @@ VF32Args vf32_args(const void* fa, const void* ft, const void* gr, const void* y
 
 extern "C" {
 
-// how many f32 V-pass blocks (lv = 4, 32 or 64 live lanes) fit the card at
-// once; a negative value is a cudaError, 0 an unsupported lv
+// how many f32 V-pass blocks (lv = 4, 32, 64, 96 or 128 live lanes) fit
+// the card at once; a negative value is a cudaError, 0 an unsupported lv
 int glt_colstats_f32_blocks(int lv) {
   int n = 0;
-  const int rc = lv == 4    ? v_f32_setup<4>(&n)
-                 : lv == 32 ? v_f32_setup<32>(&n)
-                 : lv == 64 ? v_f32_setup<64>(&n)
-                            : -1;
+  const int rc = lv == 4     ? v_f32_setup<4>(&n)
+                 : lv == 32  ? v_f32_setup<32>(&n)
+                 : lv == 64  ? v_f32_setup<64>(&n)
+                 : lv == 96  ? v_f32_setup<96>(&n)
+                 : lv == 128 ? v_f32_setup<128>(&n)
+                             : -1;
   return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
 // K10, f32 layouts. P % 32 == 0, N % 256 == 0, gr (P, 64) row-major f32, lv
-// 4 or 32 (a 32-lane layout) or 64 (a 64-lane one), 16-byte aligned
-// operands (the wrapper checks); part holds (blocks, 2, 64) floats,
-// norms_coeffs (2, 64).
+// 4 or 32 (a 32-lane layout), or the layout's depth 64, 96 or 128,
+// 16-byte aligned operands (the wrapper checks); part holds (blocks, 2, 64)
+// floats, norms_coeffs (2, 64).
 int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const void* c,
                        const void* y, const void* na, const void* nb, void* v_out, void* part,
                        void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
@@ -902,10 +1082,12 @@ int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const voi
   if (P % VF_TP || N % VB_TN || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
   a.c = static_cast<const float*>(c);
-  return lv == 4    ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
-         : lv == 32 ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
-         : lv == 64 ? launch_v_f32<64>(blocks, s, a, norms_coeffs)
-                    : static_cast<int>(cudaErrorInvalidValue);
+  return lv == 4     ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
+         : lv == 32  ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
+         : lv == 64  ? launch_v_f32<64>(blocks, s, a, norms_coeffs)
+         : lv == 96  ? launch_v_f32<96>(blocks, s, a, norms_coeffs)
+         : lv == 128 ? launch_v_f32<128>(blocks, s, a, norms_coeffs)
+                     : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K9, f32 layouts: the ks pass (s into s_out), then K10's V pass with c = s.
@@ -915,7 +1097,8 @@ int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, cons
                             const void* nb, void* v_out, void* s_out, void* part,
                             void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (P % VF_TP || N % VB_TN || blocks < 1 || (lv != 4 && lv != 32 && lv != 64))
+  if (P % VF_TP || N % VB_TN || blocks < 1 ||
+      (lv != 4 && lv != 32 && lv != 64 && lv != 96 && lv != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
   a.t = static_cast<const float*>(t);
@@ -925,11 +1108,15 @@ int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, cons
   a.c = static_cast<const float*>(s_out);
   const int rc = lv == 4    ? launch_ks_f32<4>(s, a)
                  : lv == 32 ? launch_ks_f32<32>(s, a)
-                            : launch_ks_f32<64>(s, a);
+                 : lv == 64 ? launch_ks_f32<64>(s, a)
+                 : lv == 96 ? launch_ks_f32<96>(s, a)
+                            : launch_ks_f32<128>(s, a);
   if (rc != 0) return rc;
   return lv == 4    ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
          : lv == 32 ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
-                    : launch_v_f32<64>(blocks, s, a, norms_coeffs);
+         : lv == 64 ? launch_v_f32<64>(blocks, s, a, norms_coeffs)
+         : lv == 96 ? launch_v_f32<96>(blocks, s, a, norms_coeffs)
+                    : launch_v_f32<128>(blocks, s, a, norms_coeffs);
 }
 
 // how many V-pass blocks for width MP and fd lanes fit the card at once

@@ -22,7 +22,8 @@
 //
 // Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (FD, L)
 // feature matrices, FD 32, 64, 96 or 128 lanes (an NLM 5 x 5, 7 x 7, 9 x 9
-// or 11 x 11 patch; the coordinate kernel takes 32 or 64): K5 fixes the
+// or 11 x 11 patch, and on coordinate features each of them with the
+// coordinates, or a gaussian's 3 lanes): K5 fixes the
 // sample rows (fa^T, which the wrapper transposes) and streams the pixel
 // columns (f_t) against w = v; K6 fixes the columns and streams the rows
 // against w = t. d2 is symmetric in the roles, so
@@ -72,20 +73,21 @@
 // A-fragment registers), a work item 256. Each route measured faster at
 // its width (scripts/matvec_designs.py --patch 9 / 11, PERF.md: the table
 // at 128 lanes, 2 stages of 128, ran 25% slower; kb_pair at 96, 12%).
-// Past 64 lanes the w product runs on the FP32 pipe: at 81 and 121 lanes
-// the entries of a span spread over more octaves, and the tensor core's
-// truncating accumulation put K6's sums below its plain version's on 98%
-// of the columns (a synthetic test, PERF.md). A warp's d2 is FD / 16
-// m16n8k16 mma per 16 x 8 sub-tile (one chain from zero), the entries
-// replace the accumulator in place (the accumulator layout is the
-// A-fragment layout), and the packed bf16 tile times [bf16(w), 0, ...] is
-// one more mma (up to 64 lanes; past them 8 f32 FMAs a lane, each product
-// exact, the quad's four partial sums joined by shuffles at the end). Each
-// 128-entry span's sums start from a zero accumulator and join the running
-// sums by an f32 add: the tensor core's f32
-// accumulation truncates, so a running sum carried through ~2000 mma steps
-// would lean low. Measured (scripts/matvec_designs.py, PERF.md): the entry
-// path (rounding, address, two loads, the pack) holds it; a wgmma design
+// The w product runs on the FP32 pipe at every depth: by mma, whose
+// accumulation truncates the products it aligns below its largest, K6's
+// sums sat below the f64 sums of the same bf16 entries on 0.88 of config
+// 3's columns at 32 and 64 lanes, and below its plain version's on 98% of
+// a synthetic test's columns at 81 and 121 lanes, where a span's entries
+// spread over more octaves (PERF.md; scripts/matvec_designs.py variant
+// ``mma w`` keeps the mma). A warp's d2 is FD / 16 m16n8k16 mma per 16 x 8
+// sub-tile (one chain from zero), the entries replace the accumulator in
+// place (the accumulator layout is the A-fragment layout), and the packed
+// bf16 tile times bf16(w) is 8 f32 FMAs a lane, each product exact, the
+// quad's four partial sums joined by shuffles at the end. Each 128-entry
+// span's sums start from zero and join the running sums by an f32 add, so
+// no f32 chain runs over more than a span's terms. Measured
+// (scripts/matvec_designs.py, PERF.md): the entry path (rounding, address,
+// two loads, the pack) holds it; a wgmma design
 // (three warpgroups, d2 from a TMA ring) ran slower, its entry path alone
 // as long.
 // Design, f32 (tensor cores, split fp16): each feature vector is scaled
@@ -374,8 +376,7 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
 #pragma unroll 1
         for (int sp = 0; sp < ST; sp += A_SPAN) {
           // this span's sums start from zero and join the running sums by
-          // an f32 add: the tensor core's accumulation truncates, and a
-          // running sum carried through every span's mma would end low
+          // an f32 add: no chain runs over more than a span's terms
           float tacc[RT][4];
 #pragma unroll
           for (int r = 0; r < RT; ++r)
@@ -391,11 +392,10 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
               ldsm_x4_trans(b0[q], S + (32 * q + lane) * LDS + c);
               ldsm_x4_trans(b1[q], S + (32 * q + lane) * LDS + c + 8);
             }
-            // the w product's operand: B column 0 (mma), or this lane's four
-            // streamed entries' w as f32 (FP32 pipe)
+            // the w product's operand: this lane's four streamed entries' w
             uint32_t wb[2];
-            wb[0] = g == 0 || FD > 64 ? ld32(ws + c + 2 * tq) : 0u;
-            wb[1] = g == 0 || FD > 64 ? ld32(ws + c + 8 + 2 * tq) : 0u;
+            wb[0] = ld32(ws + c + 2 * tq);
+            wb[1] = ld32(ws + c + 8 + 2 * tq);
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
               // d2: one chain over the k16 steps from zero
@@ -419,18 +419,16 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
                 kb[2] = kb_pair(d1[0], d1[1]);
                 kb[3] = kb_pair(d1[2], d1[3]);
               }
-              if constexpr (FD <= 64) {
-                mma16816(tacc[r], kb, wb);
-              } else {   // rows g (tacc[r][0]), g + 8 ([2]); streamed 2tq.., 8 + 2tq..
-                const float2 w0 = unpack2(wb[0]), w8 = unpack2(wb[1]);
+              // the w product on the FP32 pipe, each product exact: rows g
+              // (tacc[r][0]) and g + 8 ([2]); streamed 2tq.., 8 + 2tq..
+              const float2 w0 = unpack2(wb[0]), w8 = unpack2(wb[1]);
 #pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  const float2 e0 = unpack2(kb[h]), e8 = unpack2(kb[2 + h]);
-                  float y = fmaf(e0.x, w0.x, tacc[r][2 * h]);
-                  y = fmaf(e0.y, w0.y, y);
-                  y = fmaf(e8.x, w8.x, y);
-                  tacc[r][2 * h] = fmaf(e8.y, w8.y, y);
-                }
+              for (int h = 0; h < 2; ++h) {
+                const float2 e0 = unpack2(kb[h]), e8 = unpack2(kb[2 + h]);
+                float y = fmaf(e0.x, w0.x, tacc[r][2 * h]);
+                y = fmaf(e0.y, w0.y, y);
+                y = fmaf(e8.x, w8.x, y);
+                tacc[r][2 * h] = fmaf(e8.y, w8.y, y);
               }
             }
           }
@@ -444,16 +442,14 @@ __global__ __launch_bounds__(A_THREADS, 1) void aug_sum_kernel(
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * st);
     }
-    if constexpr (FD > 64) {   // the quad's partial sums over its streamed columns
-      if (live) {
+    if (live) {   // the quad's partial sums over its streamed columns
 #pragma unroll
-        for (int r = 0; r < RT; ++r)
+      for (int r = 0; r < RT; ++r)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 1);
-            acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 2);
-          }
-      }
+        for (int h = 0; h < 2; ++h) {
+          acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 1);
+          acc[r][h] += __shfl_xor_sync(0xffffffffu, acc[r][h], 2);
+        }
     }
     if (live && tq == 0) {   // acc[r][0], acc[r][1]: fixed fw + 16r + g, + g + 8
       float* o = part + (size_t)split * Lf + fw;
@@ -722,43 +718,55 @@ __global__ __launch_bounds__(T_THREADS_OF<FD>, T_BLOCKS_SM_OF<FD>) void f32_sum_
 // where the split cross's fp16 small part loses about four times the IEEE
 // f32 product's error; for those the sum takes the reference's f32 class
 // (kf32, mma_common.cuh): the cross an f32 FFMA chain over the live lanes
-// (LV: 4, or the layout's depth for wider features, 32 or 64; the
+// (LV: 4, or the layout's depth for wider features, 32, 64, 96 or 128; the
 // layouts' pad lanes are zero, so the extra lanes add exact zeros). A
-// 128-thread block owns 256 fixed entries, two a thread with their lanes
-// in registers; 128-entry streamed tiles arrive in shared memory
+// 128-thread block owns C_FX fixed entries a thread with their lanes in
+// registers; 128-entry streamed tiles arrive in dynamic shared memory
 // (entry-major, so every lane reads the same entry: broadcast float4
 // loads) with their norms, and each tile's sums start from zero and join
 // the running sums by one f32 add, as in f32_sum_kernel. A norm is the
 // same sequential FMA chain over the lanes as the cross, so a pixel's d2
-// with itself is exactly 0. At 64 lanes (a 7 x 7 patch and the
-// coordinates, 52 live) the fixed entries' lanes take 128 registers, so a
-// streamed column's lanes go to shared memory one by one after the
-// barrier (no staging registers; four lanes a 16-byte store), in the same
-// FMA order: at 8 MP its cross is 2 LV flop an entry, 4.4e12 flop, 65.6 ms
-// at the f32 peak, the bound. A __global__ of its own name, beside the
-// tensor-core kernels that chip_smoke.py's HMMA check reads.
+// with itself is exactly 0. Up to 64 lanes a thread holds two fixed
+// entries (128 registers of lanes at 64, a 7 x 7 patch and the
+// coordinates, 52 live), past them one (96 or 128 registers: an NLM 9 x 9
+// or 11 x 11 patch and the coordinates, 84 or 124 live), so a block owns
+// 256 or 128 fixed entries and each streamed float4 feeds 8 or 4 FFMA.
+// Past 32 lanes a streamed column's lanes go to shared memory one by one
+// after the barrier (no staging registers; four lanes a 16-byte store), in
+// the same FMA order; the tile takes 48 and 64 KB at 96 and 128 lanes. At
+// 8 MP the cross is 2 LV flop an entry: 4.4e12 flop at 64 lanes, 65.6 ms
+// at the f32 peak, the bound; 6.6e12 and 8.8e12 at 96 and 128. Every entry
+// and every sum runs in the same order at any C_FX: one fixed entry's
+// chain does not depend on its neighbour's. A __global__ of its own name,
+// beside the tensor-core kernels that chip_smoke.py's HMMA check reads.
 constexpr int C_THREADS = 128;
-constexpr int C_FT = 2 * C_THREADS;     // fixed entries a block
+template <int LV>
+constexpr int C_FX_OF = LV <= 64 ? 2 : 1;   // fixed entries a thread
+template <int LV>
+constexpr int C_FT_OF = C_FX_OF<LV> * C_THREADS;   // fixed entries a block
 constexpr int C_ST = 128;               // streamed entries a tile
+template <int LV>
+constexpr size_t C_SMEM_OF = sizeof(float) * (size_t)C_ST * LV;   // the streamed tile
 
 template <int LV>
 __global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
-    const float* __restrict__ fixed_t,  // (FD, Lf) k-major, FD 32 (LV 4, 32) or 64
+    const float* __restrict__ fixed_t,  // (FD, Lf) k-major, FD 32 (LV 4, 32) or LV
     const float* __restrict__ strm_t,   // (FD, Ls) k-major
     const float* __restrict__ w,        // (Ls)
     float* __restrict__ part,           // (splits, Lf)
     int Lf, int Ls, int tiles_per_split) {
-  __shared__ __align__(16) float st_s[C_ST * LV];   // [entry][lane]
+  constexpr int FX = C_FX_OF<LV>;
+  extern __shared__ __align__(16) float st_s[];   // [C_ST entries][LV lanes]
   __shared__ float ns_s[C_ST], w_s[C_ST];
   const int tid = threadIdx.x;
   const int ntiles = Ls / C_ST;
   const int t0 = blockIdx.y * tiles_per_split;
   const int t1 = min(ntiles, t0 + tiles_per_split);
-  const int f0 = blockIdx.x * C_FT + tid;   // fixed entries f0, f0 + C_THREADS
+  const int f0 = blockIdx.x * C_FT_OF<LV> + tid;   // fixed entries f0 + h C_THREADS
 
-  float fx[2][LV], nf[2];
+  float fx[FX][LV], nf[FX];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < FX; ++h) {
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < LV; ++k) {
@@ -767,7 +775,9 @@ __global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
     }
     nf[h] = s;
   }
-  float acc[2] = {0.f, 0.f};
+  float acc[FX];
+#pragma unroll
+  for (int h = 0; h < FX; ++h) acc[h] = 0.f;
   for (int tile = t0; tile < t1; ++tile) {
     const size_t c = (size_t)tile * C_ST + tid;
     float s = 0.f;
@@ -798,26 +808,30 @@ __global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
     ns_s[tid] = s;
     w_s[tid] = wv;
     __syncthreads();                    // this tile in
-    float tacc[2] = {0.f, 0.f};
+    float tacc[FX];
+#pragma unroll
+    for (int h = 0; h < FX; ++h) tacc[h] = 0.f;
 #pragma unroll 2
     for (int e = 0; e < C_ST; ++e) {
-      float cr[2] = {0.f, 0.f};
+      float cr[FX];
+#pragma unroll
+      for (int h = 0; h < FX; ++h) cr[h] = 0.f;
 #pragma unroll
       for (int k = 0; k < LV; k += 4) {
         const float4 b = *reinterpret_cast<const float4*>(st_s + e * LV + k);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < FX; ++h)
           cr[h] = dot4(make_float4(fx[h][k], fx[h][k + 1], fx[h][k + 2], fx[h][k + 3]), b, cr[h]);
       }
       const float nsv = ns_s[e], wv2 = w_s[e];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) tacc[h] = fmaf(kf32(nf[h] + nsv, cr[h]), wv2, tacc[h]);
+      for (int h = 0; h < FX; ++h) tacc[h] = fmaf(kf32(nf[h] + nsv, cr[h]), wv2, tacc[h]);
     }
-    acc[0] += tacc[0];
-    acc[1] += tacc[1];
+#pragma unroll
+    for (int h = 0; h < FX; ++h) acc[h] += tacc[h];
   }
-  part[(size_t)blockIdx.y * Lf + f0] = acc[0];
-  part[(size_t)blockIdx.y * Lf + f0 + C_THREADS] = acc[1];
+#pragma unroll
+  for (int h = 0; h < FX; ++h) part[(size_t)blockIdx.y * Lf + f0 + h * C_THREADS] = acc[h];
 }
 
 template <typename K>
@@ -863,6 +877,30 @@ int recompute_launch(int aug, const void* fixed_t, const void* strm_t, const voi
         static_cast<const float*>(fixed_t), static_cast<const float*>(strm_t),
         static_cast<const float*>(w), static_cast<float*>(part), Lf, Ls, per);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the coordinate kernel at LV lanes: its slots on the card, and one
+// launch over a grid of (Lf / its fixed entries a block, splits). Its
+// dynamic shared memory is opted in at every depth: the 48 KB tile at 96
+// lanes beside the static norms and w passes the default 48 KB in all
+template <int LV>
+int coord_slots(int* n) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      coord_sum_kernel<LV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM_OF<LV>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return slots_of(coord_sum_kernel<LV>, C_THREADS, C_SMEM_OF<LV>, n);
+}
+
+template <int LV>
+int coord_launch(const float* fx, const float* st, const float* w, float* part, int Lf, int Ls,
+                 int splits, int per, cudaStream_t s) {
+  if (Lf % C_FT_OF<LV>) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaFuncSetAttribute(
+      coord_sum_kernel<LV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM_OF<LV>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(Lf / C_FT_OF<LV>, splits);
+  coord_sum_kernel<LV><<<grid, C_THREADS, C_SMEM_OF<LV>, s>>>(fx, st, w, part, Lf, Ls, per);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -919,42 +957,42 @@ int glt_recompute_sum(int aug, int fd, const void* fixed_t, const void* strm_t, 
                        (size_t)Lf, s);
 }
 
-// how many blocks of the coordinate kernel (lv = 4, 32 or 64 live lanes)
-// fit the card at once (the wrapper's splits, as glt_recompute_slots); a
-// negative value is a cudaError, 0 an unsupported lv
+// how many blocks of the coordinate kernel (lv = 4, 32, 64, 96 or 128
+// live lanes) fit the card at once (the wrapper's splits, as
+// glt_recompute_slots); a negative value is a cudaError, 0 an unsupported lv
 int glt_coord_slots(int lv) {
   int n = 0;
-  const int rc = lv == 4    ? slots_of(coord_sum_kernel<4>, C_THREADS, 0, &n)
-                 : lv == 32 ? slots_of(coord_sum_kernel<32>, C_THREADS, 0, &n)
-                 : lv == 64 ? slots_of(coord_sum_kernel<64>, C_THREADS, 0, &n)
-                            : -1;
+  const int rc = lv == 4     ? coord_slots<4>(&n)
+                 : lv == 32  ? coord_slots<32>(&n)
+                 : lv == 64  ? coord_slots<64>(&n)
+                 : lv == 96  ? coord_slots<96>(&n)
+                 : lv == 128 ? coord_slots<128>(&n)
+                             : -1;
   return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
 // out[f] = sum_s w_s k(f, s) on coordinate features (the IEEE f32 cross)
 // over k-major (32, Lf) fixed and (32, Ls) streamed f32 layouts, the first
-// lv lanes read (4 or 32; the others zero), or (64, Lf) and (64, Ls) ones
-// with lv 64: Lf % 256 == 0, Ls % 128 == 0, a grid of (Lf / 256, splits);
-// part and out as glt_recompute_sum's.
+// lv lanes read (4 or 32; the others zero), or (lv, Lf) and (lv, Ls) ones
+// with lv 64, 96 or 128: Lf a multiple of the block's fixed entries (256
+// up to 64 lanes, 128 past them), Ls % 128 == 0, a grid of (Lf / those,
+// splits); part and out as glt_recompute_sum's.
 int glt_coord_sum(const void* fixed_t, const void* strm_t, const void* w, void* part, void* out,
                   int Lf, int Ls, int splits, int lv, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (Lf % C_FT || Ls % C_ST || splits < 1 || (lv != 4 && lv != 32 && lv != 64))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (Ls % C_ST || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = Ls / C_ST, per = (ntiles + splits - 1) / splits;
-  const dim3 grid(Lf / C_FT, splits);
   const float* fx = static_cast<const float*>(fixed_t);
   const float* st = static_cast<const float*>(strm_t);
   const float* wv = static_cast<const float*>(w);
   float* pp = static_cast<float*>(part);
-  if (lv == 4)
-    coord_sum_kernel<4><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
-  else if (lv == 32)
-    coord_sum_kernel<32><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
-  else
-    coord_sum_kernel<64><<<grid, C_THREADS, 0, s>>>(fx, st, wv, pp, Lf, Ls, per);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const int rc = lv == 4     ? coord_launch<4>(fx, st, wv, pp, Lf, Ls, splits, per, s)
+                 : lv == 32  ? coord_launch<32>(fx, st, wv, pp, Lf, Ls, splits, per, s)
+                 : lv == 64  ? coord_launch<64>(fx, st, wv, pp, Lf, Ls, splits, per, s)
+                 : lv == 96  ? coord_launch<96>(fx, st, wv, pp, Lf, Ls, splits, per, s)
+                 : lv == 128 ? coord_launch<128>(fx, st, wv, pp, Lf, Ls, splits, per, s)
+                             : static_cast<int>(cudaErrorInvalidValue);
+  if (rc != 0 || splits == 1) return rc;
   return launch_reduce(pp, static_cast<float*>(out), splits, (size_t)Lf, s);
 }
 

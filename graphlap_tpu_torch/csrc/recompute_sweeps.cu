@@ -10,10 +10,11 @@
 //         u    += k_j s_j                          (k_j: bf16, s_j: f32)
 // with the Pallas rounding points. d2 comes from the augmented bf16 x bf16
 // product with f32 accumulation (mma.sync m16n8k16); the feature depth is 32
-// (aug_d_pad_of of NLM d=25) or 64 (of NLM d=49, a 7 x 7 patch), a template
-// parameter of each kernel. K9 (finish_colstats) shares K10's kernel in
-// colstats_v.cu. The f32 layouts (the bilateral recipes, spatial_h > 0)
-// take kernels of their own, kb_f32_kernel and ext2_f32_kernel below: the
+// (aug_d_pad_of of NLM d=25), 64, 96 or 128 (of NLM d=49, 81 or 121: a 7 x
+// 7, 9 x 9 or 11 x 11 patch), a template parameter of each kernel. K9
+// (finish_colstats) shares K10's kernel in colstats_v.cu. The f32 layouts
+// (the bilateral recipes, spatial_h > 0) take kernels of their own,
+// kb_f32_kernel and ext2_f32_kernel below, at the same four depths: the
 // reference's f32 _kb_tile class, an IEEE f32 FFMA cross over the live
 // lanes, f32 norms and expf, no bf16 rounding point.
 //
@@ -667,9 +668,13 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
 // shared memory; a thread computes 8 rows by 4 adjacent columns and writes
 // each row's four as one streamed (evict-first) 16-byte store, so a warp
 // writes 512 contiguous bytes a row. The kernel is a template on the
-// layout's depth FD (32 or 64): at 64 the f_t columns take 66.5 KB, past
-// the 48 KB of static shared memory, so both depths keep their rows and
-// columns in dynamic shared memory (kb_f32_smem).
+// layout's depth FD (32, 64, 96 or 128): at 64 the f_t columns take 66.5
+// KB, past the 48 KB of static shared memory, so every depth keeps its
+// rows and columns in dynamic shared memory (kb_f32_smem: 112,640 and
+// 150,016 bytes at 96 and 128, one block an SM); at 84 and 124 live lanes
+// (an NLM 9 x 9 or 11 x 11 patch and the coordinates) the cross is 2 live
+// flop an entry, 9.1e10 and 1.3e11 flop at the gram shape, 1.35 and 1.99
+// ms at the f32 peak, the bound beside the store's 0.64.
 constexpr int EF_THREADS = 256;
 constexpr int EF_TM = 32, EF_TN = 256;
 template <int FD>
@@ -764,17 +769,28 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
 // the live-lane cross (4 lanes) ~4 ms of FFMA; at 52 live lanes (a 7 x 7
 // patch and the coordinates) the cross and the six FMAs of kbt and u, 110
 // flop an entry, take 56 ms at the f32 peak, the bound. The kernel is a
-// template on the layout's depth FD (32 or 64: the sample rows' stride in
-// shared memory, 158 KB of it at p_pad 4096 and 64 lanes, still one block
-// an SM); its loops run over the live lanes. As the bf16 kernel, a column
-// needs kbt over the whole p before its s and s before its u term, so a
-// cluster of 8 blocks shares each 32-column tile, rank r owning sample rows
-// [r P/8, (r+1) P/8) in shared memory; the tile never leaves registers:
-//   * 256 threads a block, each P/512 rows (rg + 64 i) by 8 columns (a lane
-//     is 8 row groups x 4 column groups), so a thread holds P/64 entries;
+// template on the layout's depth FD (32, 64, 96 or 128: the sample rows'
+// stride in shared memory, 158 KB of it at p_pad 4096 and 64 lanes, 232,064
+// bytes at 96, one block an SM); its loops run over the live lanes. As the
+// bf16 kernel, a column needs kbt over the whole p before its s and s
+// before its u term, so a cluster of XCL blocks shares each 32-column tile,
+// rank r owning sample rows [r P/XCL, (r+1) P/XCL) in shared memory; the
+// tile never leaves registers. XCL is 8 up to 96 lanes; at 128, 8 ranks'
+// rows (512 x 132 floats at p_pad 4096, 270 KB) pass a block's 227 KB,
+// and a row stride of the live lanes alone would not save it (262 KB), so
+// the cluster takes 16 blocks (a size the H100 allows as non-portable;
+// 170,624 bytes a block), its partials still summed in rank order. A
+// 16-rank slice of P rows need not be a multiple of the 64 row groups
+// (p_pad 512, 1536, ...): a thread's rows past the slice are masked to
+// zero entries. Sample rows streamed through a block in parts would need
+// the tile's entries of every part at once (kbt before s before u), or a
+// second recompute of the tile:
+//   * 256 threads a block, each NR = P / (64 XCL) rows (rg + 64 i; rounded
+//     up) by 8 columns (a lane is 8 row groups x 4 column groups), so a
+//     thread holds 8 NR entries;
 //     the tile's f_t columns arrive by cp.async double buffering;
 //   * kbt: each thread's row sums, a shuffle tree over the warp's row
-//     groups, the 8 warps in order in shared memory, then the 8 ranks'
+//     groups, the 8 warps in order in shared memory, then the XCL ranks'
 //     partials in rank order through distributed shared memory after one
 //     cluster barrier a tile (partials double-buffered), so every rank
 //     computes the same s;
@@ -791,12 +807,16 @@ template <int FD>
 constexpr int XF_LDA_OF = FD + 4;   // fa_s row stride (floats)
 constexpr int XF_SPAN = 64;       // tiles a span of u
 
+// blocks a cluster at depth fd: 8, or 16 at 128 lanes (see above)
+__host__ __device__ constexpr int ext2_f32_cl(int fd) { return fd == 128 ? 2 * CL : CL; }
+
 size_t ext2_f32_smem(int P, int fd) {
-  return sizeof(float) * ((size_t)(P / CL) * (fd + 4) + 2 * (size_t)fd * XF_TN + 8 * 2 * XF_TN +
-                          2 * 2 * XF_TN + XF_TN);
+  return sizeof(float) * ((size_t)(P / ext2_f32_cl(fd)) * (fd + 4) + 2 * (size_t)fd * XF_TN +
+                          8 * 2 * XF_TN + 2 * 2 * XF_TN + XF_TN);
 }
 
-template <int NR, int FD>   // rows a thread: P = 512 NR; the layout's depth
+// rows a thread: NR = ceil(P / (XCL 64)); the layout's depth
+template <int NR, int FD>
 __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
     const float* __restrict__ fa,   // (P, FD)
     const float* __restrict__ ft,   // (FD, N)
@@ -805,10 +825,12 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
     float* __restrict__ s_out,      // (N)
     float* __restrict__ u_part,     // (clusters, P)
     int P, int N, int live) {
+  constexpr int XCL = ext2_f32_cl(FD);
+  constexpr bool RAGGED = XCL != CL;     // rb may end inside a thread's last row
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
-  const int rb = P / CL, r0 = rank * rb;   // rb == 64 NR
+  const int cid = blockIdx.x / XCL, ncl = gridDim.x / XCL;
+  const int rb = P / XCL, r0 = rank * rb;   // rb == 64 NR, or in (64 (NR - 1), 64 NR]
   constexpr int XF_LDA = XF_LDA_OF<FD>;
   extern __shared__ __align__(16) float xf_smem[];
   float* fa_s = xf_smem;                     // [rb][XF_LDA]
@@ -838,14 +860,17 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
   cp_async_wait_all();
   __syncthreads();
   float na[NR], tr[NR], tc[NR], U[NR], span[NR];
+  bool ok[NR];   // the row lies in this rank's slice
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int r = rg + 64 * i;
+    ok[i] = !RAGGED || r < rb;
     float s = 0.f;
-    for (int k = 0; k < live; ++k) s = fmaf(fa_s[r * XF_LDA + k], fa_s[r * XF_LDA + k], s);
+    if (ok[i])
+      for (int k = 0; k < live; ++k) s = fmaf(fa_s[r * XF_LDA + k], fa_s[r * XF_LDA + k], s);
     na[i] = s;
-    tr[i] = t2[r0 + r];
-    tc[i] = t2[P + r0 + r];
+    tr[i] = ok[i] ? t2[r0 + r] : 0.f;
+    tc[i] = ok[i] ? t2[P + r0 + r] : 0.f;
     U[i] = span[i] = 0.f;
   }
 
@@ -895,7 +920,9 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
     for (int r = 0; r < NR; ++r)
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        e[r][c] = kf32(na[r] + nb[c], e[r][c]);
+        // a masked row read past the slice, still inside the block's
+        // shared memory: its entries are zero
+        e[r][c] = ok[r] ? kf32(na[r] + nb[c], e[r][c]) : 0.f;
         pr[c] = fmaf(tr[r], e[r][c], pr[c]);
         pc[c] = fmaf(tc[r], e[r][c], pc[c]);
       }
@@ -925,7 +952,7 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
       float kr = 0.f, kc = 0.f;
       float* pk = part_s + buf * 2 * XF_TN + tid;
 #pragma unroll
-      for (int q = 0; q < CL; ++q) {
+      for (int q = 0; q < XCL; ++q) {
         kr += *cluster.map_shared_rank(pk, q);
         kc += *cluster.map_shared_rank(pk + XF_TN, q);
       }
@@ -957,7 +984,8 @@ __global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
   }
   if (cgi == 0) {
 #pragma unroll
-    for (int r = 0; r < NR; ++r) u_part[(size_t)cid * P + r0 + rg + 64 * r] = U[r];
+    for (int r = 0; r < NR; ++r)
+      if (ok[r]) u_part[(size_t)cid * P + r0 + rg + 64 * r] = U[r];
   }
   cluster.sync();            // no block leaves while read remotely
 }
@@ -966,21 +994,48 @@ typedef void (*ext2_f32_fn)(const float*, const float*, const float*, const floa
                             float*, int, int, int);
 template <int FD>
 ext2_f32_fn ext2_f32_kernel_fd(int P) {
-  switch (P / (CL * 64)) {
-    case 1: return ext2_f32_kernel<1, FD>;
-    case 2: return ext2_f32_kernel<2, FD>;
-    case 3: return ext2_f32_kernel<3, FD>;
-    case 4: return ext2_f32_kernel<4, FD>;
-    case 5: return ext2_f32_kernel<5, FD>;
-    case 6: return ext2_f32_kernel<6, FD>;
-    case 7: return ext2_f32_kernel<7, FD>;
-    case 8: return ext2_f32_kernel<8, FD>;
-    default: return nullptr;
+  constexpr int rows = ext2_f32_cl(FD) * 64;   // a cluster's rows of one row a thread
+  const int nr = (P + rows - 1) / rows;
+  if constexpr (ext2_f32_cl(FD) > CL) {        // P <= 4096: at most 4 rows a thread
+    switch (nr) {
+      case 1: return ext2_f32_kernel<1, FD>;
+      case 2: return ext2_f32_kernel<2, FD>;
+      case 3: return ext2_f32_kernel<3, FD>;
+      case 4: return ext2_f32_kernel<4, FD>;
+      default: return nullptr;
+    }
+  } else {
+    switch (nr) {
+      case 1: return ext2_f32_kernel<1, FD>;
+      case 2: return ext2_f32_kernel<2, FD>;
+      case 3: return ext2_f32_kernel<3, FD>;
+      case 4: return ext2_f32_kernel<4, FD>;
+      case 5: return ext2_f32_kernel<5, FD>;
+      case 6: return ext2_f32_kernel<6, FD>;
+      case 7: return ext2_f32_kernel<7, FD>;
+      case 8: return ext2_f32_kernel<8, FD>;
+      default: return nullptr;
+    }
   }
 }
-// K8 f32's kernel for P sample rows of an fd-lane layout (32 or 64), or null
+// K8 f32's kernel for P sample rows of an fd-lane layout (32, 64, 96 or
+// 128), or null
 ext2_f32_fn ext2_f32_kernel_for(int P, int fd) {
-  return fd == 32 ? ext2_f32_kernel_fd<32>(P) : fd == 64 ? ext2_f32_kernel_fd<64>(P) : nullptr;
+  return fd == 32    ? ext2_f32_kernel_fd<32>(P)
+         : fd == 64  ? ext2_f32_kernel_fd<64>(P)
+         : fd == 96  ? ext2_f32_kernel_fd<96>(P)
+         : fd == 128 ? ext2_f32_kernel_fd<128>(P)
+                     : nullptr;
+}
+
+// K8 f32's kernel attributes: its shared memory, and clusters of 16
+// (non-portable) at 128 lanes
+cudaError_t ext2_f32_attrs(ext2_f32_fn kernel, int P, int fd) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)ext2_f32_smem(P, fd));
+  if (e == cudaSuccess && ext2_f32_cl(fd) > CL)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
 }
 
 // K7 f32's launch at depth FD: a grid of 32 x 256 units
@@ -1072,42 +1127,44 @@ int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, in
                     : launch_kb_strip<128>(fa, ft, cols, out, P, S, s);
 }
 
-// K7, f32 layout of fd lanes (32 or 64). P % 32 == 0, S % 128 == 0, live
-// % 4 == 0 in [4, fd], fa, ft, cols and out 16-byte aligned (the wrapper
-// checks); a grid of 32 x 256 units.
+// K7, f32 layout of fd lanes (32, 64, 96 or 128). P % 32 == 0, S % 128 ==
+// 0, live % 4 == 0 in [4, fd], fa, ft, cols and out 16-byte aligned (the
+// wrapper checks); a grid of 32 x 256 units.
 int glt_kb_strip_f32(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
                      int live, int fd, void* stream) {
-  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 || (fd != 32 && fd != 64) || live < 4 ||
-      live > fd || live % 4)
+  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 ||
+      (fd != 32 && fd != 64 && fd != 96 && fd != 128) || live < 4 || live > fd || live % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(fa);
   const float* b = static_cast<const float*>(ft);
   const float* c = static_cast<const float*>(cols);
   float* o = static_cast<float*>(out);
-  return fd == 32 ? launch_kb_f32<32>(a, b, c, o, P, S, live, s)
-                  : launch_kb_f32<64>(a, b, c, o, P, S, live, s);
+  return fd == 32   ? launch_kb_f32<32>(a, b, c, o, P, S, live, s)
+         : fd == 64 ? launch_kb_f32<64>(a, b, c, o, P, S, live, s)
+         : fd == 96 ? launch_kb_f32<96>(a, b, c, o, P, S, live, s)
+                    : launch_kb_f32<128>(a, b, c, o, P, S, live, s);
 }
 
-// how many 8-block f32 K8 clusters for P sample rows of fd lanes (32 or
-// 64) fit the card at once; a negative value is a cudaError
+// how many f32 K8 clusters (8 blocks, 16 at 128 lanes) for P sample rows
+// of fd lanes (32, 64, 96 or 128) fit the card at once; a negative value
+// is a cudaError
 int glt_ext2_f32_clusters(int P, int fd) {
   const ext2_f32_fn kernel = ext2_f32_kernel_for(P, fd);
   if (kernel == nullptr || P % (CL * 64)) return -static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ext2_f32_smem(P, fd);
-  cudaError_t e = cudaFuncSetAttribute(kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = ext2_f32_attrs(kernel, P, fd);
   if (e != cudaSuccess) return -static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(CL, 1, XF_THREADS, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_cfg(ext2_f32_cl(fd), 1, XF_THREADS, smem, nullptr, attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
   return e != cudaSuccess ? -static_cast<int>(e) : n;
 }
 
-// K8, f32 layout of fd lanes (32 or 64). P % 512 == 0, P <= 4096, N % 64
-// == 0, live % 4 == 0 in [4, fd], 1 <= clusters <= N / 32 (the wrapper
-// checks); u_part holds (clusters, P) floats.
+// K8, f32 layout of fd lanes (32, 64, 96 or 128). P % 512 == 0, P <= 4096,
+// N % 64 == 0, live % 4 == 0 in [4, fd], 1 <= clusters <= N / 32 (the
+// wrapper checks); u_part holds (clusters, P) floats.
 int glt_ext2_matvec_f32(const void* fa, const void* ft, const void* t2, const void* bm,
                         void* s_out, void* u_part, void* u, int P, int N, int clusters, int live,
                         int fd, void* stream) {
@@ -1116,11 +1173,10 @@ int glt_ext2_matvec_f32(const void* fa, const void* ft, const void* t2, const vo
   if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > fd || live % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ext2_f32_smem(P, fd);
-  cudaError_t e = cudaFuncSetAttribute(kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = ext2_f32_attrs(kernel, P, fd);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(CL, clusters, XF_THREADS, smem, s, attr);
+  const cudaLaunchConfig_t cfg = cluster_cfg(ext2_f32_cl(fd), clusters, XF_THREADS, smem, s, attr);
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(fa),
                          static_cast<const float*>(ft), static_cast<const float*>(t2),
                          static_cast<const float*>(bm), static_cast<float*>(s_out),

@@ -28,12 +28,13 @@ bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
 the two layouts the presets reach: bf16 aug and f32 plain, at 32, 64, 96
 or 128 feature lanes (an NLM 5 x 5, 7 x 7, 9 x 9 or 11 x 11 patch: each
-kernel is a template on its depth). The coordinate kernel takes 32 or 64
-lanes (its live lanes 4, 32 or 64); at 96 and 128 it raises
-``NotImplementedError`` naming ROADMAP.md Queue 2b. The plain bf16 layout
-(the reference's ``GLT_AUG_DISABLE`` lever) and an f32 aug layout raise it
-too: no preset builds them, and no ROADMAP.md queue ports them. There is
-no fallback from a kernel to its plain version. Unlike K8/K9, the kernels
+kernel is a template on its depth). The coordinate kernel takes the same
+depths (its live lanes read: 4 or 32 of a 32-lane layout, else the
+layout's depth; 256 fixed entries a block up to 64 lanes, 128 past them).
+The plain bf16 layout (the reference's ``GLT_AUG_DISABLE`` lever) and an
+f32 aug layout raise ``NotImplementedError``: no preset builds them, and
+no ROADMAP.md queue ports them. There is no fallback from a kernel to its
+plain version. Unlike K8/K9, the kernels
 take any p_pad on the 512 quantum and any n on the 256 one: they hold no
 whole-p tile. The aug kernel runs persistent blocks over work items (1024
 fixed entries at 32 lanes, 512 at 64 and 96, 256 at 128, by a split of the
@@ -65,10 +66,7 @@ FIXED_TILE = {(torch.bfloat16, 32): 1024, (torch.bfloat16, 64): 512,
               (torch.bfloat16, 96): 512, (torch.bfloat16, 128): 256,
               (torch.float32, 32): 128, (torch.float32, 64): 128,
               (torch.float32, 96): 128, (torch.float32, 128): 128}
-COORD_FDS = (32, 64)      # feature depths of the coordinate kernel (the
-                          # layouts' kernels take every depth D_PAD allows)
 D_PAD = 128               # the reference's widest feature layout
-COORD_FIXED = 256         # fixed entries a block of the coordinate kernel
 _F32 = torch.float32
 
 
@@ -96,7 +94,7 @@ def rmatvec_plain(fa, f_t, t, aug: bool = False, live=None, coords=False):
 
 # --- kernel wrappers --------------------------------------------------------
 
-def _check(fa, f_t, aug: bool, what: str, coords: bool = False) -> None:
+def _check(fa, f_t, aug: bool, what: str) -> None:
     """Raise unless a kernel takes the layout."""
     dtype = fa.dtype
     if f_t.dtype != dtype or dtype not in (torch.bfloat16, _F32):
@@ -114,10 +112,6 @@ def _check(fa, f_t, aug: bool, what: str, coords: bool = False) -> None:
         raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
                          f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
-    if coords and not aug and fd not in COORD_FDS:
-        raise NotImplementedError(
-            f"{what}: {fd} feature lanes: the CUDA kernel of the coordinate "
-            f"layout takes {COORD_FDS} (ROADMAP.md Queue 2b)")
     if p % P_QUANTUM or n % N_QUANTUM:
         raise ValueError(f"{what}: p_pad {p} must be a multiple of "
                          f"{P_QUANTUM} and n {n} of {N_QUANTUM}")
@@ -167,15 +161,16 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
     if coord_lv is None:
         splits, blocks = _plan(aug, lf, ls, fd)
     else:
-        if lf % COORD_FIXED:
+        fixed = coord_fixed(coord_lv)
+        if lf % fixed:
             raise ValueError(f"recompute_sum: the coordinate kernel takes "
-                             f"{COORD_FIXED}-entry fixed tiles, got {lf}")
+                             f"{fixed}-entry fixed tiles, got {lf}")
         slots = lib.glt_coord_slots(coord_lv)
         if slots <= 0:
             _build.check(-slots if slots < 0 else 1, "coord_sum: no block "
                          "fits the card")
         tiles = ls // STREAM_TILE[(_F32, fd)]
-        splits = max(1, min(tiles, slots // (lf // COORD_FIXED)))
+        splits = max(1, min(tiles, slots // (lf // fixed)))
         splits = -(-tiles // -(-tiles // splits))   # no empty split
     out = torch.empty(lf, dtype=_F32, device=dev)
     part = out if splits == 1 else torch.empty((splits, lf), dtype=_F32,
@@ -194,6 +189,12 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
     return out
 
 
+def coord_fixed(lv: int) -> int:
+    """Fixed entries a block of the coordinate kernel reading ``lv`` lanes:
+    two a thread of 128 up to 64 lanes, one past them (csrc C_FT_OF)."""
+    return 256 if lv <= 64 else 128
+
+
 def _coord_lv(fa, coords, live):
     """The coordinate kernel's lanes where the f32 layout carries
     coordinates, else None (the layout's own kernel)."""
@@ -204,12 +205,12 @@ def _coord_lv(fa, coords, live):
 
 def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):
     """K v: ((p_pad, dp), (dp, n), (n,)) -> (p_pad,) f32
-    (``matvec_pallas``), dp 32, 64, 96 or 128 (the coordinate kernel 32 or
-    64). ``coords``: the f32 layout's features carry coordinates, ``live``
-    of their dp lanes are nonzero (None: all dp)."""
+    (``matvec_pallas``), dp 32, 64, 96 or 128. ``coords``: the f32 layout's
+    features carry coordinates, ``live`` of their dp lanes are nonzero
+    (None: all dp)."""
     if _device_kind(fa, f_t, v) == "cpu":
         return matvec_plain(fa, f_t, v, aug)
-    _check(fa, f_t, aug, "matvec", coords)
+    _check(fa, f_t, aug, "matvec")
     if tuple(v.shape) != (f_t.shape[1],):
         raise ValueError(f"matvec: v shape {tuple(v.shape)} != "
                          f"({f_t.shape[1]},)")
@@ -225,7 +226,7 @@ def rmatvec_cuda(fa, f_t, t, aug: bool = False, live=None, coords=False):
     (``rmatvec_pallas``); ``live`` and ``coords`` as ``matvec_cuda``."""
     if _device_kind(fa, f_t, t) == "cpu":
         return rmatvec_plain(fa, f_t, t, aug)
-    _check(fa, f_t, aug, "rmatvec", coords)
+    _check(fa, f_t, aug, "rmatvec")
     if tuple(t.shape) != (fa.shape[0],):
         raise ValueError(f"rmatvec: t shape {tuple(t.shape)} != "
                          f"({fa.shape[0]},)")

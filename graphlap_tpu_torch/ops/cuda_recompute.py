@@ -30,18 +30,17 @@ CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
 ``csrc/colstats_v.cu`` (K10's V pass; K9 is a ks pass over all of p, then
-the same V pass with c = s) on the two layouts the presets build: bf16
-(aug for K7/K8, plain for K9/K10) with 32, 64, 96 or 128 feature lanes (NLM
-5 x 5, 7 x 7, 9 x 9 or 11 x 11: each kernel is a template on its depth),
-and f32 plain (the
-bilateral recipes, ``spatial_h > 0``) with 32 or 64 lanes (gaussian or an
-NLM 5 x 5 patch with the coordinates, or an NLM 7 x 7 patch with them: 52
-live lanes), whose kernels form each entry with an IEEE f32 FFMA cross
-over the ``live`` lanes (the caller's feature width rounded up to 4; None
-reads all of them) and expf. The f32 layouts not ported (96 or 128
-lanes) raise ``NotImplementedError`` naming ROADMAP.md Queue 2b; so do the plain-bf16
-K7/K8 layout and an f32 aug layout (no preset builds either). There is no
-fallback from a kernel to its plain version.
+the same V pass with c = s) on the two layouts the presets build, each
+with 32, 64, 96 or 128 feature lanes (each kernel is a template on its
+depth): bf16 (aug for K7/K8, plain for K9/K10; an NLM 5 x 5, 7 x 7, 9 x 9
+or 11 x 11 patch), and f32 plain (the bilateral recipes, ``spatial_h >
+0``: gaussian or an NLM 5 x 5 patch with the coordinates, 4 or 28 live
+lanes of 32, or an NLM 7 x 7, 9 x 9 or 11 x 11 patch with them, 52, 84 or
+124 live lanes of 64, 96 or 128), whose kernels form each entry with an
+IEEE f32 FFMA cross over the ``live`` lanes (the caller's feature width
+rounded up to 4; None reads all of them) and expf. The plain-bf16 K7/K8
+layout and an f32 aug layout raise ``NotImplementedError`` (no preset
+builds either). There is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -56,9 +55,8 @@ from .streaming import _chunks
 
 PLAIN_CHUNK = 16384       # columns a step of the plain versions
 P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x 16
-FDS = (32, 64, 96, 128)   # feature depths of the bf16 kernels (csrc FD)
-F32_FDS = (32, 64)        # and of the f32 ones (csrc FD, LV)
-D_PAD = 128               # the reference's widest feature layout
+D_PAD = 128               # the reference's widest feature layout: the
+                          # kernels take every multiple of 32 up to it
 X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
 XF_TN = 32                # the f32 K8's column tile (csrc)
 E_TN = 128                # K7 width quantum (its 256-column units clip the last)
@@ -194,12 +192,6 @@ def _check_layout(fa, f_t, what: str, aug: bool | None) -> tuple[bool, int]:
         raise ValueError(f"{what}: the layouts take a multiple of 32 feature "
                          f"lanes up to {D_PAD}, alike in fa and f_t, got "
                          f"{fa.shape[1]} and {f_t.shape[0]}")
-    ported = F32_FDS if f32 else FDS
-    if fd not in ported:
-        raise NotImplementedError(
-            f"{what}: {fd} feature lanes: the CUDA kernels of the "
-            f"{'f32' if f32 else 'bf16'} layout take {ported} "
-            f"(ROADMAP.md Queue 2b)")
     if not (fa.is_contiguous() and f_t.is_contiguous()):
         raise ValueError(f"{what}: fa and f_t must be contiguous")
     if fa.shape[0] % P_QUANTUM:
@@ -220,9 +212,11 @@ def _lanes(live, fd: int) -> int:
 
 def coord_lanes(live, fd: int) -> int:
     """The lanes the K9 / K10 f32 kernels and the coordinate K5/K6 read for
-    ``live`` feature lanes of an ``fd``-lane layout: 4, or all fd (the
-    layouts' pad lanes are zero, so the extra lanes add exact zeros)."""
-    return 4 if _lanes(live, fd) <= 4 else fd
+    ``live`` feature lanes of an ``fd``-lane layout: 4 of a 32-lane layout,
+    else all fd (the layouts' pad lanes are zero, so the extra lanes add
+    exact zeros). The 4-lane V pass takes fa rows at a 32-lane stride, so a
+    wider layout is read whole."""
+    return 4 if _lanes(live, fd) <= 4 and fd == 32 else fd
 
 
 def _aligned(*ts):
@@ -257,8 +251,8 @@ def _clusters(p: int, fd: int, tiles: int) -> int:
 
 def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
     """((p_pad, fd), (fd, S), (S,)) -> (p_pad, S) column-scaled tile, bf16
-    (aug layout, fd 32, 64, 96 or 128) or f32 (f32 layout, ``live`` lanes
-    read, fd 32 or 64)."""
+    (aug layout) or f32 (f32 layout, ``live`` lanes read); fd 32, 64, 96 or
+    128."""
     if _device_kind(fa, f_t, cols) == "cpu":
         return kb_strip_plain(fa, f_t, cols, aug)
     f32, fd = _check_layout(fa, f_t, "kb_strip", aug)
@@ -327,8 +321,8 @@ def gram_cuda(fa, f_t, cols, aug: bool = False, live=None):
 
 def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
     """((p_pad, fd), (fd, n), (2, p_pad), (n,)) -> (u (p_pad,), s (n,)); fd
-    32, 64, 96 or 128 on the bf16 aug layout, 32 or 64 on the f32 one
-    (``live`` lanes read)."""
+    32, 64, 96 or 128 on the bf16 aug layout and on the f32 one (``live``
+    lanes read)."""
     if _device_kind(fa, f_t, t2, bm) == "cpu":
         return ext2_matvec_plain(fa, f_t, t2, bm, aug)
     f32, fd = _check_layout(fa, f_t, "ext2_matvec", aug)
@@ -355,7 +349,8 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
 
 
 def _ext2_matvec_f32(fa, f_t, t2, bm, live):
-    """K8 on the f32 layout: clusters of 8 over 32-column tiles."""
+    """K8 on the f32 layout: clusters of 8 (16 at 128 lanes) over
+    32-column tiles."""
     (p, fd), n = fa.shape, f_t.shape[1]
     dev = fa.device
     lib = _build.lib()
@@ -385,9 +380,9 @@ def finish_colstats_cuda(fa, f_t, t, s_pre, bm, gr, y, na, nb, live=None):
     launch per MP_MAX columns, each recomputing the tile: the first sweeps
     p for ks and s, the others take bf16(s) from it, so s is computed
     once. Any p_pad that is a multiple of P_QUANTUM: no column needs the
-    whole p in one block. fd is 32, 64, 96 or 128 (bf16), 32 or 64 on the
-    f32 layout (f32 fa and f_t, ``live`` lanes read), where every operand
-    stays f32."""
+    whole p in one block. fd is 32, 64, 96 or 128, on the bf16 layout or
+    on the f32 one (f32 fa and f_t, ``live`` lanes read), where every
+    operand stays f32."""
     if _device_kind(fa, f_t, t, s_pre, bm, gr, y, na, nb) == "cpu":
         return finish_colstats_plain(fa, f_t, t, s_pre, bm, gr, y, na, nb)
     f32, fd = _check_layout(fa, f_t, "finish_colstats", None)
@@ -429,7 +424,7 @@ def colstats_v_cuda(fa, f_t, gr, y, cols, na, nb, live=None):
     (n,), (p_pad,), (n,)) -> (V (n, m_pad), norms (m_pad,), coeffs
     (m_pad,)), all f32. ``cols`` must be 0 on padding columns. A gr wider
     than MP_MAX runs one launch per MP_MAX columns (each recomputes the
-    tile). fd is 32, 64, 96 or 128 (bf16), 32 or 64 on the f32 layout,
+    tile). fd is 32, 64, 96 or 128, on the bf16 layout or on the f32 one,
     where every operand stays f32 (``live`` lanes read)."""
     if _device_kind(fa, f_t, gr, y, cols, na, nb) == "cpu":
         return colstats_v_plain(fa, f_t, gr, y, cols, na, nb)

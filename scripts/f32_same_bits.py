@@ -1,6 +1,6 @@
 """Whether the f32-layout and coordinate kernels of this checkout give the
-same bits as another checkout's at 4 and 28 live lanes (32-lane layouts),
-on one CUDA card.
+same bits as another checkout's at 4, 28 and 52 live lanes (32- and
+64-lane layouts), on one CUDA card.
 
     python3 scripts/f32_same_bits.py --parent DIR
 
@@ -13,8 +13,9 @@ coordinate cross (``affinity_strip_cuda`` with ``coords``, both stores),
 each through its checkout's own wrapper and library, on the same inputs:
 features as the bilateral recipes build them (d - 2 value lanes, then
 row / 8 and col / 8 of a 2048 x 4096 image, sample rows 4000, 65536
-columns, seeded), d = 3 (the gaussian bilateral recipe, 4 live lanes) and
-d = 27 (NLM 5 x 5 with the coordinates, 28). The other checkout runs in a
+columns, seeded), d = 3 (the gaussian bilateral recipe, 4 live lanes), d
+= 27 (NLM 5 x 5 with the coordinates, 28) and d = 51 (NLM 7 x 7 with
+them, 52 of 64). The other checkout runs in a
 child process (it builds its own library under its own build/), which
 writes its outputs to build/f32_same_bits/; this process compares them
 with its own. Prints the card line and one JSON line: for each kernel and
@@ -34,12 +35,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "f32_same_bits"
-DEPTHS = (3, 27)
+DEPTHS = (3, 27, 51)
 
 
 def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
-    """The bilateral layouts of d raw lanes (a 32-lane layout) and the
-    kernels' vectors, from a seeded generator."""
+    """The bilateral layouts of d raw lanes (a 32- or 64-lane layout) and
+    the kernels' vectors, from a seeded generator."""
     rng = np.random.default_rng(seed + d)
 
     def feats(k):
@@ -54,9 +55,10 @@ def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
     fp3 = (base + jit).astype(np.float32)
     p_pad = -(-p // 512) * 512
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
-    fa = torch.zeros((p_pad, 32), device=dev)
+    fd = 32 if d <= 32 else 64
+    fa = torch.zeros((p_pad, fd), device=dev)
     fa[:p, :d] = t(fa3)
-    f_t = torch.zeros((32, n), device=dev)
+    f_t = torch.zeros((fd, n), device=dev)
     f_t[:d] = t(fp3.T.copy())
     pos = lambda *s: t(rng.uniform(0.5, 1.5, s))  # noqa: E731
     t2 = torch.zeros((2, p_pad), device=dev)

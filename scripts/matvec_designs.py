@@ -54,8 +54,9 @@ the shipped 2 of 256); with ``--patch 9`` or ``11`` at 9 x 9 or 11 x 11,
 the 96- or 128-lane kernel (variants ``wide table``: the entry table at
 128 lanes too, beside 2 stages of 128 streamed entries; ``wide no
 table``: kb_pair's entries at 96 lanes too, no table, 4 stages of 256;
-``d96 3x128``: 3 stages of 128 beside the table at 96 lanes; ``wide mma
-w``: the w product by mma past 64 lanes, as up to 64). Times are
+``d96 3x128``: 3 stages of 128 beside the table at 96 lanes). At every
+patch ``mma w``: the w product by mma (B column 0 = bf16(w)) in place of
+the FP32 pipe, the earlier design up to 64 lanes. Times are
 CUDA-event means (chip_smoke.cuda_ms); each variant runs --reps times in
 turn (default 2). The error is the largest |kernel - plain|
 over max |plain| at config 3 (meaningless for the timing-only variants).
@@ -121,9 +122,23 @@ FIRST_K8TABLE = [
      f"    aug_sum_kernel<<<grid, THREADS, {_K8_TAB}, s>>>("),
 ]
 
+# the w product on the FP32 pipe (8 FMAs a lane), up to the loop over the
+# fixed tiles' span sums, which the edits below keep
+_WPROD = ("              // the w product on the FP32 pipe, each product exact",
+          "          for (int r = 0; r < RT; ++r) {   // rows g and g + 8")
+_WPROD_TAIL = "            }\n          }\n#pragma unroll\n"
 # the entries folded by XOR in place of the w product (timing only)
-NO_W = [("mma16816(tacc[r], kb, wb);",
-         "tacc[r][0] += __uint_as_float((kb[0] ^ kb[1] ^ kb[2] ^ kb[3]) & 0x00FF00FFu);")]
+NO_W = [(_WPROD, "              tacc[r][0] += __uint_as_float((kb[0] ^ kb[1] ^ kb[2] ^ kb[3]) "
+                 "& 0x00FF00FFu);\n" + _WPROD_TAIL)]
+# the w product by mma at every depth (B column 0 = bf16(w), the quad's
+# shuffles dropped), the earlier design up to 64 lanes: its sums lean low
+MMA_W = [
+    ("            wb[0] = ld32(ws + c + 2 * tq);",
+     "            wb[0] = g == 0 ? ld32(ws + c + 2 * tq) : 0u;"),
+    ("            wb[1] = ld32(ws + c + 8 + 2 * tq);",
+     "            wb[1] = g == 0 ? ld32(ws + c + 8 + 2 * tq) : 0u;"),
+    (_WPROD, "              mma16816(tacc[r], kb, wb);\n" + _WPROD_TAIL),
+    ("    if (live) {   // the quad's partial sums", "    if (false) {   // the quad's partial sums")]
 
 # --- edits of the table kernel (PR 9) ----------------------------------------
 _ENTRY2 = "__device__ __forceinline__ uint32_t entry2(float lo, float hi, uint32_t tl) {\n"
@@ -330,13 +345,6 @@ WIDE_NO_TABLE = [
 D96_STAGES3 = [
     (_STAGES, _STAGES.replace("FD == 128 ? 3 : 2", "FD >= 96 ? 3 : 2")),
     ("A_SMEM_OF<96> == 183840", "A_SMEM_OF<96> == 210224")]
-WIDE_MMA_W = [
-    ("wb[0] = g == 0 || FD > 64 ?", "wb[0] = g == 0 ?"),
-    ("wb[1] = g == 0 || FD > 64 ?", "wb[1] = g == 0 ?"),
-    ("              if constexpr (FD <= 64) {\n                mma16816(tacc[r], kb, wb);",
-     "              if constexpr (true) {\n                mma16816(tacc[r], kb, wb);"),
-    ("    if constexpr (FD > 64) {   // the quad's partial sums",
-     "    if constexpr (false) {   // the quad's partial sums")]
 
 # --- the wgmma design (dropped) ----------------------------------------------
 # three consumer warpgroups (160 registers each after setmaxnreg), one m64
@@ -618,8 +626,7 @@ VARIANTS = {
     "wide no table": (WIDE_NO_TABLE, "kb_pair's entries at 96 lanes too, no table, 4 stages "
                       "of 256", False, {96: (512, 256)}),
     "d96 3x128": (D96_STAGES3, "at 96 lanes 3 stages of 128 beside the table", False),
-    "wide mma w": (WIDE_MMA_W, "past 64 lanes the w product by mma (its sums lean low)",
-                   False),
+    "mma w": (MMA_W, "the w product by mma (its sums lean low)", False),
     "unpacked": (TAB_UNPACKED, "entries unpacked, two w-product mma a block", False),
     "signed": (TAB_SIGNED, "the pair rounded without relu, the high address masked", False),
     "unroll 1": (TAB_UNROLL1, "the 16-entry column loop not unrolled", False),

@@ -1,8 +1,10 @@
-"""The JAX reference's denoise and sharpen quality on the NLM 7 x 7
-bilateral recipes and on configs 2, 3 and 4 and the 8 MP matvec denoise at
-NLM 9 x 9 and 11 x 11, on the CPU, at sizes the CPU reaches.
+"""The JAX reference's denoise and sharpen quality on the NLM bilateral
+recipes (7 x 7, and B and C at 9 x 9 and 11 x 11) and on configs 2, 3 and
+4 and the 8 MP matvec denoise at NLM 9 x 9 and 11 x 11, on the CPU, at
+sizes the CPU reaches.
 
     JAX_PLATFORMS=cpu python scripts/reference_quality.py [--recipes A B C]
+    JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes Bp9 Bp11 Cp9 Cp11
     JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes 2p9 2p11 4p9 4p11 4tp9 4tp11
     JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes 3p9 3p11 4qp9 4qp11
 
@@ -17,6 +19,10 @@ smaller test image (sigma 0.1, seed 1):
   6 + 1 polish, gram 1/64, fused finish, LOBPCG), run at 256 x 512;
 * C — B through ``denoise_tuned(0.1)``: the 8 MP matvec recipe, run at 256
   x 512;
+* Bp9, Bp11, Cp9, Cp11 — B and C with an NLM 9 x 9 or 11 x 11 patch
+  (``chip_smoke.make_workload_8mp_nlm_bilateral`` and
+  ``make_workload_8mp_nlm_bilateral_matvec`` at those patches: 84 and 124
+  live lanes), run at 256 x 512;
 * 2p9, 2p11 — config 2's strip_cache recipe (``chip_smoke.make_workload``)
   with an NLM 9 x 9 or 11 x 11 patch (the CLI's ``-patch``), run at 256^2;
 * 4p9, 4p11 — config 4's fused 8 MP recipe (``chip_smoke.make_workload_8mp``)
@@ -78,6 +84,10 @@ def recipes() -> dict:
            "B": (b, (256, 512)), "C": (c, (256, 512))}
     cs = _chip_smoke()
     for patch in (9, 11):
+        bp = base.replace(patch_size=patch, streaming=True, sample_cap=4096)
+        out[f"Bp{patch}"] = (gt.tuned_config(bp, MP8, "fast"), (256, 512))
+        out[f"Cp{patch}"] = (gt.tuned_config(gt.denoise_tuned(bp, 0.1), MP8,
+                                             "fast"), (256, 512))
         out[f"2p{patch}"] = (cs.make_workload(gt, patch)[0], (256, 256))
         out[f"4p{patch}"] = (cs.make_workload_8mp(gt, 256, 512, patch)[0],
                              (256, 512))

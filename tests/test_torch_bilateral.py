@@ -46,6 +46,7 @@ from graphlap_tpu_torch.ops import cuda_matvec as k56
 from graphlap_tpu_torch.ops import cuda_recompute as k79
 from graphlap_tpu_torch.ops import recompute_layout as rl
 from graphlap_tpu_torch.utils import interop
+from tests.test_torch_wide import torch_threads
 
 BARS = (0.02, 2e-3)
 EPS32 = 2.0 ** -23
@@ -202,7 +203,8 @@ def _ktilde_seen(monkeypatch):
 def test_fused_recipe_matches_reference(img_noisy, reference, monkeypatch):
     """filter_image's schedule: K8, K7 + the f32 gram GEMM, LOBPCG, K9 on
     the spectral recipes; on recipe C (the matvec route) the polish and the
-    filter, K5 + K6 twice, on the coordinate layout of 52 live lanes."""
+    filter, K5 + K6 twice, on the coordinate layout of 52 live lanes. The
+    port's run takes two threads (``torch_threads``), as below."""
     img, noisy = img_noisy
     r = reference
     calls = _spy(monkeypatch, k79, ("ext2_matvec_plain", "kb_strip_plain",
@@ -210,9 +212,9 @@ def test_fused_recipe_matches_reference(img_noisy, reference, monkeypatch):
                                     "colstats_v_plain"))
     mv = _spy(monkeypatch, k56, ("matvec_plain", "rmatvec_plain"))
     seen = _ktilde_seen(monkeypatch)
-    z, vals = _filter_channel(T(noisy), interop.idx_to_device(r.plan.idx_a,
-                                                              "cpu"),
-                              r.cfg, x0=r.x0)
+    with torch_threads(2):
+        z, vals = _filter_channel(T(noisy), interop.idx_to_device(
+            r.plan.idx_a, "cpu"), r.cfg, x0=r.x0)
     if r.cfg.filter_mode == "matvec":
         assert calls == dict.fromkeys(calls, 0)
         assert mv == {"matvec_plain": 2, "rmatvec_plain": 2}
@@ -240,15 +242,16 @@ def test_unfused_recipe_matches_reference(img_noisy, reference, monkeypatch,
     calls = _spy(monkeypatch, k79, ("kb_strip_plain", "colstats_v_plain",
                                     "ext2_matvec_plain"))
     seen = _ktilde_seen(monkeypatch)
-    if route == "staged":
-        res = _filter_streaming_staged(noisy, cfg, r.plan, "cpu", x0=r.x0)
-        got, ref = res.image, r.staged.image
-        assert set(res.timings) == {"normalize", "eigensolve", "filter"}
-    else:
-        z, _ = _filter_channel(T(noisy), interop.idx_to_device(r.plan.idx_a,
-                                                               "cpu"),
-                               cfg, x0=r.x0)
-        got, ref = z.numpy(), r.unfused.image
+    with torch_threads(2):
+        if route == "staged":
+            res = _filter_streaming_staged(noisy, cfg, r.plan, "cpu",
+                                           x0=r.x0)
+            got, ref = res.image, r.staged.image
+            assert set(res.timings) == {"normalize", "eigensolve", "filter"}
+        else:
+            z, _ = _filter_channel(T(noisy), interop.idx_to_device(
+                r.plan.idx_a, "cpu"), cfg, x0=r.x0)
+            got, ref = z.numpy(), r.unfused.image
     k56_calls = 2 if cfg.filter_mode == "matvec" else 1
     assert mv == {"matvec_plain": k56_calls, "rmatvec_plain": k56_calls}
     assert calls == {"kb_strip_plain": 2 - k56_calls,
@@ -256,6 +259,48 @@ def test_unfused_recipe_matches_reference(img_noisy, reference, monkeypatch,
                      "ext2_matvec_plain": 0}
     assert seen == [(r.live, True)] * k56_calls
     assert_bars(img, got, ref)
+
+
+# recipes B (fused) and C past 64 lanes at 96x96: an NLM 11 x 11 patch with
+# the spatial term (124 live lanes of 128) and its 9 x 9 matvec twin (84 of
+# 96), chip_smoke.make_workload_8mp_nlm_bilateral(gt, 11) and
+# make_workload_8mp_nlm_bilateral_matvec(gt, 9) written out as above
+WIDE_RECIPES = {
+    "nlm11": (dict(kernel="nlm", h=0.15, patch_size=11), 124),
+    "nlm9_matvec": (dict(kernel="nlm", h=0.1, patch_size=9,
+                         filter_mode="matvec", fused_finish=False), 84),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE_RECIPES))
+def test_wide_recipe_matches_reference(jx, img_noisy, monkeypatch, name):
+    """filter_image on the 96- and 128-lane f32 coordinate layouts against
+    graphlap_tpu.filter_image at the f32 bars: recipe B at 11 x 11 (K8, K7,
+    LOBPCG, K9 once each), recipe C at 9 x 9 (the polish and the filter,
+    K5 + K6 twice, with the coordinate cross); the reference's LOBPCG start
+    block injected, the port's run on two threads (``torch_threads``)."""
+    img, noisy = img_noisy
+    kw, live = WIDE_RECIPES[name]
+    cfg = _cfg(**kw)
+    plan = gt.make_plan(noisy, cfg)
+    ref = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
+    calls = _spy(monkeypatch, k79, ("ext2_matvec_plain", "kb_strip_plain",
+                                    "finish_colstats_plain",
+                                    "colstats_v_plain"))
+    mv = _spy(monkeypatch, k56, ("matvec_plain", "rmatvec_plain"))
+    seen = _ktilde_seen(monkeypatch)
+    with torch_threads(2):
+        z, _ = _filter_channel(T(noisy), interop.idx_to_device(
+            plan.idx_a, "cpu"), cfg, x0=T(_x0(jx, plan.p, cfg.num_eigvecs)))
+    if cfg.filter_mode == "matvec":
+        assert calls == dict.fromkeys(calls, 0)
+        assert mv == {"matvec_plain": 2, "rmatvec_plain": 2}
+        assert seen == [(live, True)] * 2
+    else:
+        assert calls == {"ext2_matvec_plain": 1, "kb_strip_plain": 1,
+                         "finish_colstats_plain": 1, "colstats_v_plain": 0}
+        assert mv == {"matvec_plain": 0, "rmatvec_plain": 0} and seen == []
+    assert_bars(img, z.numpy(), ref.image)
 
 
 # --- the f32 K7-K10 plain versions on coordinate-scale features --------------
@@ -268,17 +313,19 @@ def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
     recipe B (graphlap_tpu.ops.affinity.extract_features, an NLM 7 x 7
     patch at h 0.15 and row/8, col/8) on a 64 x 64 noisy image, its
     coordinates moved to the far corner of a 512 x 512 one: 51 lanes, 52
-    live, of 64."""
+    live, of 64; "nlm11": the same with an NLM 11 x 11 patch, 123 lanes,
+    124 live, of 128."""
     jnp, pst = jx.jnp, jx.pst
     rng = np.random.default_rng(seed)
-    if kind == "nlm7":
+    if kind.startswith("nlm"):
         from graphlap_tpu.ops.affinity import extract_features
+        patch = int(kind[3:])
         img = np.clip(gt.add_gaussian_noise(gt.make_test_image(64, 64), 0.1,
                                             seed=seed), 0, 1)
-        cfg = jx.cfg(_cfg(**RECIPES["nlm7"]))
+        cfg = jx.cfg(_cfg(**dict(RECIPES["nlm7"], patch_size=patch)))
         allf = np.asarray(extract_features(jnp.asarray(img, jnp.float32),
                                            cfg)).copy()
-        allf[:, 49:] += 448 / 8.0
+        allf[:, patch * patch:] += 448 / 8.0
         fa = allf[rng.choice(allf.shape[0], p, replace=False)]
         fp = allf[rng.choice(allf.shape[0], n, replace=False)]
     else:
@@ -311,7 +358,7 @@ def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
         live=-(-d // 4) * 4)
 
 
-COORD_KINDS = pytest.mark.parametrize("kind", ["gaussian", "nlm7"])
+COORD_KINDS = pytest.mark.parametrize("kind", ["gaussian", "nlm7", "nlm11"])
 
 
 def _sum_bar(got, ref, terms, tol):
@@ -421,15 +468,17 @@ def _f32_cases(fa, f_t, live, d):
     ]
 
 
-@pytest.mark.parametrize("d,fd", [(3, 32), (51, 64)])
+@pytest.mark.parametrize("d,fd", [(3, 32), (51, 64), (83, 96), (123, 128)])
 def test_f32_cuda_layouts_reach_the_library(monkeypatch, d, fd):
     """On CUDA tensors the f32 layouts, with 4 live lanes of 32 (gaussian
-    and the coordinates) or 52 of 64 (an NLM 7 x 7 patch and the
-    coordinates), go to the kernel library (here missing, so its
-    RuntimeError), never to the plain versions; K5/K6 take the coordinate
-    kernel only where asked; 96 and 128 lanes raise NotImplementedError
-    naming ROADMAP Queue 2b, and live lanes past the layout's ValueError,
-    all before any launch."""
+    and the coordinates), or 52 of 64, 84 of 96 or 124 of 128 (an NLM 7 x
+    7, 9 x 9 or 11 x 11 patch and the coordinates), go to the kernel
+    library (here missing, so its RuntimeError), never to the plain
+    versions: the f32 K7-K10 and the coordinate K5/K6 at every depth, K1's
+    coordinate cross up to 64 lanes; K5/K6 take the coordinate kernel only
+    where asked. K1's coordinate cross past 64 lanes raises
+    NotImplementedError naming ROADMAP Queue 2b, and live lanes past the
+    layout's ValueError, all before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -440,14 +489,13 @@ def test_f32_cuda_layouts_reach_the_library(monkeypatch, d, fd):
     live = -(-d // 4) * 4
     cases = _f32_cases(fa, f_t, live, d)
     before = [fn.launches for fn, _ in cases]
-    for fn, args in cases:
+    for fn, args in cases[:6] if fd > 64 else cases:
         with pytest.raises(RuntimeError, match="unavailable"):
             fn(*args)
-    for lanes in (96, 128):
-        wide, wide_t = _f32_layouts(d=d, fd=lanes)
-        for fn, args in _f32_cases(wide, wide_t, live, lanes)[:6]:
-            with pytest.raises(NotImplementedError, match="Queue 2b"):
-                fn(*args)
+    if fd > 64:
+        fn, args = cases[6]
+        with pytest.raises(NotImplementedError, match="Queue 2b"):
+            fn(*args)
     with pytest.raises(NotImplementedError, match="Queue 2b"):
         k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)),
                                coords=True)
@@ -464,11 +512,23 @@ def test_lane_counts():
         32, 4, 4, 4, 8, 28, 32]
     assert [k79._lanes(x, 64) for x in (None, 4, 33, 51, 52, 64)] == [
         64, 4, 36, 52, 52, 64]
+    assert [k79._lanes(x, 96) for x in (None, 4, 65, 83, 84, 96)] == [
+        96, 4, 68, 84, 84, 96]
+    assert [k79._lanes(x, 128) for x in (None, 4, 97, 123, 124, 128)] == [
+        128, 4, 100, 124, 124, 128]
     assert [k79.coord_lanes(x, 32) for x in (None, 3, 4, 5, 28)] == [
         32, 4, 4, 32, 32]
+    # past 32 lanes the whole layout: the 4-lane V pass reads fa rows at a
+    # 32-lane stride
     assert [k79.coord_lanes(x, 64) for x in (None, 4, 51, 52, 64)] == [
-        64, 4, 64, 64, 64]
-    for fd, live in ((32, 33), (64, 65)):
+        64, 64, 64, 64, 64]
+    assert [k79.coord_lanes(x, 96) for x in (None, 4, 83, 84, 96)] == [
+        96, 96, 96, 96, 96]
+    assert [k79.coord_lanes(x, 128) for x in (None, 4, 123, 124, 128)] == [
+        128, 128, 128, 128, 128]
+    assert [k56.coord_fixed(x) for x in (4, 32, 64, 96, 128)] == [
+        256, 256, 256, 128, 128]
+    for fd, live in ((32, 33), (64, 65), (96, 97), (128, 129)):
         with pytest.raises(ValueError, match="live lanes"):
             k79._lanes(live, fd)
         with pytest.raises(ValueError, match="live lanes"):
@@ -489,7 +549,8 @@ def _card_layouts(dev, p, n, h_img, w_img, seed=1, d=3):
     of an h_img x w_img image, as the context builds them, on the card: d -
     2 value lanes in [0, 5) (y/0.2 for the gaussian kernel, d = 3; an NLM
     patch's pixels over h for d = 27 and 51, 5 x 5 and 7 x 7), then row/8,
-    col/8, in a 32- or 64-lane layout (28 and 52 live lanes past 3)."""
+    col/8, in a 32-, 64-, 96- or 128-lane layout (28, 52, 84 and 124 live
+    lanes past 3: d 27, 51, 83, 123)."""
     rng = np.random.default_rng(seed)
 
     def feats(k):
@@ -508,7 +569,7 @@ def _card_layouts(dev, p, n, h_img, w_img, seed=1, d=3):
                         rng.integers(-32, 33, n) / 8.0], axis=1)],
         axis=1).astype(np.float32)
     p_pad = rl.p_tiling(p)[1]
-    fd = 32 if d <= 32 else 64
+    fd = rl.d_pad_of(d)
     fa = torch.zeros((p_pad, fd), device=dev)
     fa[:p, :d] = torch.tensor(fa3, device=dev)
     f_t = torch.zeros((fd, n), device=dev)
@@ -586,16 +647,17 @@ NLM_K8_GROSS = 0.1
 
 
 LIVE_D = [3, 27, 51]    # raw lanes: gaussian, NLM 5x5, NLM 7x7 + (row, col)
+WIDE_D = [83, 123]      # NLM 9x9 and 11x11 + (row, col): past K1's coordinate cross
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", LIVE_D)
+@pytest.mark.parametrize("d", LIVE_D + WIDE_D)
 @pytest.mark.parametrize("p,n,img", [(1000, 33024, (512, 512)),
                                      (4000, 65536, (2048, 4096))])
 def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img, d):
     """K7-K10 f32 at splitting shapes (p_pad 1024 or 4096, column tiles that
-    do not divide among the clusters or blocks) at 4, 28 and 52 live lanes
-    (32-, 32- and 64-lane layouts): K9's and K10's sums against the plain
+    do not divide among the clusters or blocks) at 4, 28, 52, 84 and 124
+    live lanes (32-, 32-, 64-, 96- and 128-lane layouts): K9's and K10's sums against the plain
     version to 2e-4 relative (the norms are passed in, so only the cross's
     order differs), K7's tile and K8's u and s against f64 under the 1.5x
     rule, two launches bit for bit, and the leans of u, s and V in (0.25,
@@ -701,8 +763,15 @@ def test_coordinate_cross_against_f64(cuda_device, img, d):
     bf = k1.affinity_strip_cuda(a3, b3, torch.float32, torch.bfloat16,
                                 coords=True)
     assert float((bf.double() - t64).abs().max()) <= plain[0] + 2.0 ** -8
-    # K5/K6: the tile enters only through the sums; hold each output against
-    # its f64 evaluation, the kernel's error at most 1.5x the plain f32's
+    _coord_k56_against_f64(fa, f_t, t64, live)
+
+
+def _coord_k56_against_f64(fa, f_t, t64, live):
+    """K5/K6 with the coordinate cross on 512 sample rows: the tile enters
+    only through the sums, so each output is held against its f64
+    evaluation (``t64``, the f64 tile), the kernel's error at most 1.5x the
+    plain f32 version's; the split-fp16 cross printed beside."""
+    dev = fa.device
     v = torch.rand(f_t.shape[1], device=dev) + 0.5
     t = torch.zeros(fa.shape[0], device=dev)
     t[:512] = torch.rand(512, device=dev) + 0.5
@@ -719,6 +788,26 @@ def test_coordinate_cross_against_f64(cuda_device, img, d):
               f"{float(e_p.max()):.3e}, coordinate {float(e_k.max()):.3e}, "
               f"split {float(e_s.max()):.3e}")
         assert float(e_k.max()) <= 1.5 * float(e_p.max()) + 1e-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("img", [(512, 512), (2048, 4096)])
+def test_coordinate_k5_k6_past_64_lanes_against_f64(cuda_device, img, d):
+    """The coordinate K5/K6 at 84 and 124 live lanes (96- and 128-lane
+    layouts, one fixed entry a thread): each output against its f64
+    evaluation within 1.5x the plain f32 version's error, as at 4 to 52
+    live lanes (test_coordinate_cross_against_f64), and two launches bit
+    for bit."""
+    dev = cuda_device
+    fa, f_t = _card_layouts(dev, 512, 1 << 18, *img, d=d)
+    live = -(-d // 4) * 4
+    t64 = _f64_tile(fa, f_t, torch.arange(512, device=dev),
+                    torch.arange(f_t.shape[1], device=dev))
+    _coord_k56_against_f64(fa, f_t, t64, live)
+    x = torch.rand(f_t.shape[1], device=dev) + 0.5
+    got = k56.matvec_cuda(fa, f_t, x, False, live, True)
+    assert torch.equal(got, k56.matvec_cuda(fa, f_t, x, False, live, True))
 
 
 def _f32_sums_vs_f64(dev, patch, which):

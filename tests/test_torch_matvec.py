@@ -920,7 +920,10 @@ def _card_layouts(dev, p, n, d, aug, seed):
 def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n, d):
     """Card kernels against their plain versions on the card, at 32 lanes
     and at 64, 96 and 128 (d 49, 81, 121: a 7 x 7, 9 x 9, 11 x 11 patch);
-    p = 4100 pads to 5120 (two reference p tiles)."""
+    p = 4100 pads to 5120 (two reference p tiles). There the aug layout's
+    outputs are also held against the f64 sums of the same bf16 entries
+    and bf16 vector: their share below in (0.25, 0.75) (the w product's
+    mma put K6's columns below on 0.88 of config 3's at 32 and 64 lanes)."""
     dev = cuda_device
     aug = dtype == "bfloat16"
     fa_l, f_t, rng = _card_layouts(dev, p, n, d, aug, seed=p)
@@ -943,6 +946,13 @@ def test_k5_k6_kernels_match_plain(cuda_device, dtype, p, n, d):
         for got, ref in ((mv[:p], mv_p[:p]), (rmv, rmv_p)):
             below = float((got < ref).float().mean())
             assert 0.05 < below < 0.95, below
+        if aug:
+            k = k79._tile_plain(fa_l, f_t, True).double()
+            for got, ref in ((mv[:p], (k @ v.bfloat16().double())[:p]),
+                             (rmv, t.bfloat16().double() @ k)):
+                below = float((got.double() < ref).float().mean())
+                assert 0.25 < below < 0.75, below
+            del k
     # deterministic: no float atomics
     assert torch.equal(mv, k56.matvec_cuda(fa_l, f_t, v, aug))
     assert torch.equal(rmv, k56.rmatvec_cuda(fa_l, f_t, t, aug))

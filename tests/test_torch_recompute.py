@@ -343,11 +343,12 @@ def reference(jx, img_noisy):
 
 @pytest.mark.parametrize("dtype", sorted(BARS))
 def test_slice_matches_reference(img_noisy, reference, dtype):
+    """The port's run on two threads (``torch_threads``)."""
     img, noisy = img_noisy
     cfg, plan, ref, _, x0 = reference[dtype]
-    z, vals = _filter_channel(T(noisy), interop.idx_to_device(plan.idx_a,
-                                                              "cpu"),
-                              cfg, x0=interop.block_to_device(x0, "cpu"))
+    with torch_threads(2):
+        z, vals = _filter_channel(T(noisy), interop.idx_to_device(
+            plan.idx_a, "cpu"), cfg, x0=interop.block_to_device(x0, "cpu"))
     z = z.numpy()
     db, atol = BARS[dtype]
     assert z.shape == ref.image.shape and np.isfinite(z).all()

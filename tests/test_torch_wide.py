@@ -402,14 +402,13 @@ def _recompute_call(which, lanes, dtype, live=None):
 
 @pytest.mark.parametrize("which", ["kb_strip", "ext2_matvec",
                                    "finish_colstats", "colstats_v"])
-def test_k7_k10_take_64_lanes_and_raise_past_them(monkeypatch, which):
-    """On a CUDA tensor K7-K10 take 32 or 64 feature lanes on both layouts,
-    and 96 and 128 (patches 9 and 11) on the bf16 one: 64 (bf16, and f32
-    with 52 live lanes, an NLM 7 x 7 patch and the coordinates) and the
-    bf16 96 and 128 reach the kernel library (here missing); the f32 96 and
-    128 raise NotImplementedError naming ROADMAP Queue 2b; widths that are
-    no layout, and live lanes past the layout's 64, raise ValueError; none
-    launches."""
+def test_k7_k10_take_every_depth_on_both_layouts(monkeypatch, which):
+    """On a CUDA tensor K7-K10 take 32, 64, 96 and 128 feature lanes (NLM
+    5 x 5 to 11 x 11) on the bf16 layout and on the f32 one (with 52, 84
+    and 124 live lanes: an NLM 7 x 7, 9 x 9 or 11 x 11 patch and the
+    coordinates), which reach the kernel library (here missing); widths
+    that are no layout, and live lanes past the layout's, raise ValueError;
+    none launches."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -417,30 +416,30 @@ def test_k7_k10_take_64_lanes_and_raise_past_them(monkeypatch, which):
     monkeypatch.setattr(_build, "lib", no_lib)
     before = [w.launches for w in WRAPPERS]
     bf, f32 = torch.bfloat16, torch.float32
-    with pytest.raises(RuntimeError, match="unavailable"):
-        _recompute_call(which, 64, bf)
-    with pytest.raises(RuntimeError, match="unavailable"):
-        _recompute_call(which, 64, f32, live=52)
-    for lanes in (96, 128):
+    for lanes, live in ((64, 52), (96, 84), (128, 124)):
         with pytest.raises(RuntimeError, match="unavailable"):
             _recompute_call(which, lanes, bf)
-        with pytest.raises(NotImplementedError, match="Queue 2b"):
-            _recompute_call(which, lanes, f32)
+        with pytest.raises(RuntimeError, match="unavailable"):
+            _recompute_call(which, lanes, f32, live=live)
     with pytest.raises(ValueError, match="feature lanes"):
         _recompute_call(which, 160, bf)
-    with pytest.raises(ValueError, match="live lanes"):
-        _recompute_call(which, 64, f32, live=65)
+    with pytest.raises(ValueError, match="feature lanes"):
+        _recompute_call(which, 160, f32)
+    for lanes in (64, 128):
+        with pytest.raises(ValueError, match="live lanes"):
+            _recompute_call(which, lanes, f32, live=lanes + 1)
     assert [w.launches for w in WRAPPERS] == before
 
 
-def test_k5_k6_take_128_lanes_and_coordinates_raise_past_64(monkeypatch):
+def test_k5_k6_take_128_lanes_on_every_layout(monkeypatch):
     """On a CUDA tensor K5/K6 take the bf16 aug and f32 layouts at 64, 96
     and 128 lanes (NLM 7 x 7, 9 x 9, 11 x 11: the aug layout's 55, 87 and
-    127 lanes, the f32 one's 49, 81 and 121, each padded), which reach the
-    kernel library (here missing); the coordinate kernel takes 64 lanes
-    (52 live: a 7 x 7 patch and the coordinates) and raises
-    NotImplementedError naming ROADMAP Queue 2b at 96 and 128; live lanes
-    past the layout's 64 raise ValueError; none launches."""
+    127 lanes, the f32 one's 49, 81 and 121, each padded), and the
+    coordinate kernel on the f32 layouts at 64, 96 and 128 lanes (52, 84
+    and 124 live: a 7 x 7, 9 x 9 or 11 x 11 patch and the coordinates),
+    which reach the kernel library (here missing); live lanes past the
+    layout's raise ValueError, the plain-bf16 and f32-aug layouts
+    NotImplementedError saying no queue ports them; none launches."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -460,29 +459,21 @@ def test_k5_k6_take_128_lanes_and_coordinates_raise_past_64(monkeypatch):
                 k56.matvec_cuda(fa, f_t, torch.ones(1024), aug)
             with pytest.raises(RuntimeError, match="unavailable"):
                 k56.rmatvec_cuda(fa, f_t, torch.ones(512), aug)
-    fa, f_t = torch.zeros((512, 64)), torch.zeros((64, 1024))
-    with pytest.raises(RuntimeError, match="unavailable"):
-        k56.matvec_cuda(fa, f_t, torch.ones(1024), False, live=51,
-                        coords=True)
-    with pytest.raises(RuntimeError, match="unavailable"):
-        k56.rmatvec_cuda(fa, f_t, torch.ones(512), False, live=52,
-                         coords=True)
-    with pytest.raises(ValueError, match="live lanes"):
-        k56.matvec_cuda(fa, f_t, torch.ones(1024), False, live=65,
-                        coords=True)
-    for lanes in (96, 128):
-        wide = torch.zeros((512, lanes))
-        wide_t = torch.zeros((lanes, 1024))
-        with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
-            k56.matvec_cuda(wide, wide_t, torch.ones(1024), False, live=51,
+    for lanes, live in ((64, 51), (96, 83), (128, 123)):
+        fa, f_t = torch.zeros((512, lanes)), torch.zeros((lanes, 1024))
+        with pytest.raises(RuntimeError, match="unavailable"):
+            k56.matvec_cuda(fa, f_t, torch.ones(1024), False, live=live,
                             coords=True)
-        with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
-            k56.rmatvec_cuda(wide, wide_t, torch.ones(512), False, live=51,
+        with pytest.raises(RuntimeError, match="unavailable"):
+            k56.rmatvec_cuda(fa, f_t, torch.ones(512), False, live=live + 1,
                              coords=True)
+        with pytest.raises(ValueError, match="live lanes"):
+            k56.matvec_cuda(fa, f_t, torch.ones(1024), False,
+                            live=lanes + 1, coords=True)
         # the plain bf16 and the f32 aug layouts: no queue ports them
         for dtype, aug in ((torch.bfloat16, False), (torch.float32, True)):
             with pytest.raises(NotImplementedError, match="no ROADMAP.md"):
-                k56.matvec_cuda(wide.to(dtype), wide_t.to(dtype),
+                k56.matvec_cuda(fa.to(dtype), f_t.to(dtype),
                                 torch.ones(1024), aug)
     assert [w.launches for w in WRAPPERS] == before
 
