@@ -225,33 +225,53 @@ non-zero before the last line is printed):
             and K10 once a call;
    small    the recipe written out at 96x96, fused finish on and off, card
             kernels against CPU plain versions (0.02 dB, 2e-3).
-10b. config 2 bilateral at 7x7 — recipe A, make_workload_cfg2_bilateral:
-              tuned_config(CONFIG2.replace(patch_size=7, spatial_h=8.0),
-              512*512, "fast"), an NLM 7x7 patch and (row, col) / 8, 51
-              lanes, 52 live of 64; as phase 3c: K1's 64-lane coordinate
-              cross (affinity_strip_coord_d64) on the path's features into
-              its strip (against plain, timed beside its composition, twice
-              bit for bit), the bf16 K2-K4 on its strip kept in the
-              record, filter_image (K1, K2, K3, K4 once a call), the plain
-              path and the eigenvalues (0.05 dB, 2e-2), PSNR printed (the
-              recipe loses PSNR in the reference too), 96x96 vs the CPU.
+10b. config 2 bilateral at 7x7, 9x9 and 11x11 — recipe A,
+              make_workload_cfg2_bilateral(gt, patch): tuned_config(
+              CONFIG2.replace(patch_size=patch, spatial_h=8.0), 512*512,
+              "fast"), an NLM patch and (row, col) / 8: 51, 83 or 123
+              lanes, 52, 84 or 124 live of 64, 96 or 128; as phase 3c: K1's
+              coordinate cross (affinity_strip_coord_d64, _d96, _d128) on
+              the path's features into its strip (against plain, timed
+              beside its composition, twice bit for bit; past 7x7 also
+              against f64 on 512 sample rows by every pixel, max and p99
+              |dK| within 1.5x the plain version's, and its blocks an SM
+              from the occupancy query), the bf16 K2-K4 on its strip kept
+              in the record at 7x7, filter_image (K1, K2, K3, K4 once a
+              call), the plain path and the eigenvalues (0.05 dB, 2e-2),
+              PSNR printed (the recipe loses PSNR in the reference too),
+              at 11x11 filter_image_staged held to filter_image (0.05 dB,
+              2e-2), 96x96 vs the CPU.
+10e. cli — graphlap_tpu_torch.cli.main as a user runs it, on the clean
+              512x512 test image saved as a PNG: (i) recipe A at 11x11
+              (-kernel nlm -patch 11 -spatial_h 8 -sample 0.02 -preset
+              fast -noise 0.1 -seed 1 -log_view -json_log -o): the record's
+              config_hash that of make_workload_cfg2_bilateral(gt, 11), K1
+              once in each of the two stages that build the strip, the
+              output PNG within 2e-2 + 1/255 of filter_image on the same
+              noised image and its PSNR within 0.05 dB; (ii) the dense
+              route (-pallas) at 9x9 and 11x11: K1's coordinate cross with
+              the f32 store at the K_AB shape (5243 x 256901; rows
+              affinity_strip_coord_f32_d96, _d128) against plain, twice bit
+              for bit, timed beside its composition, against f64 on 512
+              sample rows, then the CLI run: rc 0, one K1 launch, the wall
+              and the PSNR printed.
 10c. bilateral NLM 8 MP — recipe B, make_workload_8mp_nlm_bilateral:
               phase 10 with an NLM 7x7 patch (h 0.15, 52 live lanes of 64,
               rows *_d64), and first its kernel rows alone at NLM 5x5 (28
               live lanes of 32, the kernels' LV = 32 instantiations: the
               same checks, kept in the phase's record); then recipe C
               (10d) at 7x7; then both again at 9x9 and 11x11 (84 and 124
-              live lanes of 96 and 128, rows *_d96 and *_d128; K1's
-              coordinate cross, not ported past 64 lanes, left out of the
-              slabs; the staged schedule held to its own plain path; the
-              96x96 run of recipe B at 11x11 only).
+              live lanes of 96 and 128, rows *_d96 and *_d128, K1's
+              coordinate cross among the slabs; the staged schedule held
+              to its own plain path; the 96x96 run of recipe B at 11x11
+              only).
 10d. bilateral NLM 8 MP matvec — recipe C, make_workload_8mp_nlm_bilateral_
               matvec (denoise_tuned(0.1)): the coordinate K5/K6 at the
               patch's depth twice a call through filter_image, PSNR printed
               (the recipe degenerates in the reference too), the plain path
               (0.02 dB, 2e-3, or 1.5x the plain path's own f32 floor),
               96x96 vs the CPU.
-11. result  — one JSON line listing every kernel and layout (72 rows:
+11. result  — one JSON line listing every kernel and layout (76 rows:
               name, route, source, replaces, launches, max_abs_err, ms,
               plain_ms, bound_ms, bound_by, library_ms) after the line with
               the run's total seconds, the card line, then the contract line
@@ -406,6 +426,18 @@ TOL = {
     "matvec_coord_d64": 0.1,
     "rmatvec_coord_d64": 0.1,
     "affinity_strip_coord_d64": 2.0 ** -7,
+    # K1's coordinate cross at 96 and 128 lanes (recipe A at 9 x 9 and 11 x
+    # 11 and the CLI's dense -pallas route: an NLM patch and the
+    # coordinates, 84 or 124 live): the same rounding points as at 64
+    # lanes, a longer FFMA chain over the same 512^2 coordinates (|f|^2 ~
+    # 1.6e4; the patch lanes add under 130), so the bf16 store keeps the
+    # 64-lane row's two bf16 ulps; the f32 store (the dense K_AB) moves by
+    # the same d2 rounding through an IEEE expf, held to that bar as a gross
+    # check: its bar is the f64 slab (within 1.5x the plain version's error)
+    "affinity_strip_coord_d96": 2.0 ** -7,
+    "affinity_strip_coord_d128": 2.0 ** -7,
+    "affinity_strip_coord_f32_d96": 2.0 ** -7,
+    "affinity_strip_coord_f32_d128": 2.0 ** -7,
     # K8 f32 on the NLM bilateral recipe: its s_j = bm_j / sqrt(kbt_r
     # kbt_c), and one column's norm rounded apart moves all its entries by
     # e^(d2 error) together (0.03 a norm ulp at |f|^2 ~ 3.3e5), so s_j by
@@ -517,6 +549,7 @@ REPLACES = {
     "matvec_coord_d64": "graphlap_tpu/ops/pallas_streaming.py:397",
     "rmatvec_coord_d64": "graphlap_tpu/ops/pallas_streaming.py:447",
     "affinity_strip_coord_d64": "graphlap_tpu/ops/pallas_affinity.py:76",
+    "affinity_strip_coord_f32": "graphlap_tpu/ops/pallas_affinity.py:76",
 }
 SOURCE = {
     "affinity_strip": "graphlap_tpu_torch/csrc/affinity_strip.cu",
@@ -559,6 +592,7 @@ SOURCE = {
     "matvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "affinity_strip_coord_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "affinity_strip_coord_f32": "graphlap_tpu_torch/csrc/affinity_strip.cu",
 }
 # the f32 kernels on coordinate features (recipes B and C)
 COORD_ROWS = ("kb_strip_f32", "ext2_matvec_f32", "finish_colstats_f32",
@@ -566,7 +600,8 @@ COORD_ROWS = ("kb_strip_f32", "ext2_matvec_f32", "finish_colstats_f32",
 WIDE = tuple(f"{k}_d{fd}" for fd in (96, 128) for k in (
     "affinity_strip", "affinity_strip_f32", "kb_strip", "ext2_matvec",
     "finish_colstats", "colstats_v", "matvec", "rmatvec", "matvec_f32",
-    "rmatvec_f32") + COORD_ROWS)           # the rows past 64 lanes
+    "rmatvec_f32", "affinity_strip_coord", "affinity_strip_coord_f32")
+    + COORD_ROWS)                          # the rows past 64 lanes
 for _name in WIDE:
     _base = _name.rsplit("_d", 1)[0]
     REPLACES[_name], SOURCE[_name] = REPLACES[_base], SOURCE[_base]
@@ -1150,10 +1185,11 @@ def strip_library(dtype=torch.bfloat16) -> dict:
         "affinity_strip": (affinity, cross + "the clamp, exp and the bf16 "
                            "cast"),
         "affinity_strip_f32": (affinity, cross + "the clamp and exp"),
-        "affinity_strip_coord": (affinity, cross + "the clamp, exp and the "
-                                 "bf16 cast"),
-        "affinity_strip_coord_d64": (affinity, cross + "the clamp, exp and "
-                                     "the bf16 cast"),
+        **{f"affinity_strip_coord{w}": (affinity, cross + "the clamp, exp "
+                                        "and the bf16 cast")
+           for w in ("", "_d64", "_d96", "_d128")},
+        **{f"affinity_strip_coord_f32{w}": (affinity, cross + "the clamp "
+                                            "and exp") for w in ("_d96", "_d128")},
         **{f"affinity_strip{w}": (affinity, cross + "the clamp, exp and the "
                                   "bf16 cast") for w in ("_d64", "_d96", "_d128")},
         **{f"affinity_strip_f32{w}": (affinity, cross + "the clamp and exp")
@@ -1536,22 +1572,28 @@ def config2_f32(gt, dev, rows, launches, info):
 
 def config1_fast(gt, dev, rows, launches, info, patch=None):
     """Config 1's fast preset (make_workload_config1_fast), or with
-    ``patch`` 7 recipe A, config 2 with an NLM 7 x 7 patch and a spatial
-    term (make_workload_cfg2_bilateral: 52 live lanes of 64, K1's row named
-    ``affinity_strip_coord_d64``): K1's coordinate cross with the bf16
-    store on the strip_cache strip, then the bf16 K2-K4. Neither recipe
-    denoises in the reference (ROADMAP Queue 3, known defects; recipe A at
-    256^2, scripts/reference_quality.py): the PSNR is printed, no gain
-    required; the kernel path is held to the plain path on the image and
-    the filter's eigenvalues, and at 96x96 to the CPU."""
+    ``patch`` 7, 9 or 11 recipe A, config 2 with an NLM patch and a spatial
+    term (make_workload_cfg2_bilateral: 52, 84 or 124 live lanes of 64, 96
+    or 128, K1's row named ``affinity_strip_coord`` and lanes_sfx): K1's
+    coordinate cross with the bf16 store on the strip_cache strip, then the
+    bf16 K2-K4 (their rows at the path's strip kept in the record, not at 9
+    x 9 and 11 x 11, where the strip has config 2's shape). Past 7 x 7
+    (whose row phase 10c's slabs hold to f64) K1's cross is held to f64 on
+    512 sample rows by every pixel (k1_coord_slab), and at 11 x 11
+    filter_image_staged to filter_image. Neither recipe denoises in the
+    reference (ROADMAP Queue 3, known defects; recipe A at 256^2,
+    scripts/reference_quality.py): the PSNR is printed, no gain required;
+    the kernel path is held to the plain path on the image and the
+    filter's eigenvalues, and at 96x96 to the CPU."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
     bf16_bars = (0.05, 2e-2)
-    tag = "config 1 fast" if patch is None else "config 2 bilateral at 7x7"
-    k1_name = ("affinity_strip_coord" if patch is None
-               else "affinity_strip_coord_d64")
+    tag = ("config 1 fast" if patch is None
+           else f"config 2 bilateral at {patch}x{patch}")
+    k1_name = "affinity_strip_coord" + (
+        "" if patch is None else lanes_sfx(PATCH_LANES[patch]))
     t0 = time.perf_counter()
     cfg, img, noisy, plan = (make_workload_config1_fast(gt) if patch is None
                              else make_workload_cfg2_bilateral(gt, patch))
@@ -1560,10 +1602,11 @@ def config1_fast(gt, dev, rows, launches, info, patch=None):
     ctx = ms._strip_ctx(img_d, idx_d, cfg)
     require(ctx.coords and ctx.strip_pad.dtype == torch.bfloat16,
             f"{tag} did not reach the coordinate cross, bf16 store")
-    require(patch is None or (ctx.live == 52 and ctx.feats_a.shape[1] == 51),
-            f"{tag} did not reach 52 live lanes (K1's 64-lane cross)")
+    require(patch is None or (ctx.live == NLM_COORD_LIVE[patch]
+                              and ctx.feats_a.shape[1] == patch * patch + 2),
+            f"{tag} did not reach {NLM_COORD_LIVE.get(patch)} live lanes")
     pp, n = ctx.strip_pad.shape
-    phase("config1-fast" if patch is None else "config2-bilateral-p7",
+    phase("config1-fast" if patch is None else f"config2-bilateral-p{patch}",
           f"workload and strip at {H}x{W} (p={ctx.p}, "
           f"p_pad={pp}, N={n}, {ctx.feats_a.shape[1]} feature lanes, "
           f"{ctx.live} live)", t0)
@@ -1574,8 +1617,17 @@ def config1_fast(gt, dev, rows, launches, info, patch=None):
     # record
     k1_case = {k1_name: cases.pop(k1_name)}
     run_cases(k1_case, rows, library=library)
+    rows[k1_name]["blocks_an_sm"] = k1.coord_blocks(ctx.feats_a.shape[1])
+    phase("kernel", f"{k1_name}: {rows[k1_name]['blocks_an_sm']} blocks an "
+          f"SM (the occupancy query)")
     at_path = {}
-    run_cases(cases, at_path, signed, library)
+    if patch in (None, 7):
+        run_cases(cases, at_path, signed, library)
+    else:
+        rows[k1_name]["f64"] = k1_coord_slab(
+            ctx.feats_a[:ctx.p][torch.linspace(0, ctx.p - 1, 512,
+                                               device=dev).long()],
+            ctx.feats_pad[:ctx.n], f"{k1_name} (512 sample rows)")
     del ctx, cases, k1_case, img_d, idx_d
     torch.cuda.empty_cache()
 
@@ -1590,9 +1642,16 @@ def config1_fast(gt, dev, rows, launches, info, patch=None):
           f"the recipe degenerates in the reference too)")
     launches[k1_name] = round(rec["launches_per_call"][k1_name] * RUNS)
     torch.cuda.empty_cache()
+    if patch == 11:
+        t0 = time.perf_counter()
+        rec["staged"] = staged_one(gt, tag, cfg, img, noisy, plan, dev,
+                                   {k1_name: k1.affinity_strip_cuda})
+        phase("staged", f"{tag} done", t0)
+        torch.cuda.empty_cache()
     rec.update(small_strip(gt, cfg, dev, bf16_bars, tag))
     rec["k2_k4_at_path"] = at_path
-    info["config1_fast" if patch is None else "config2_bilateral_p7"] = rec
+    info["config1_fast" if patch is None
+         else f"config2_bilateral_p{patch}"] = rec
 
 
 def fused_inputs(cfg, plan, img_d, dev):
@@ -2397,6 +2456,137 @@ def dense(gt, dev, rows, launches, info):
         info[f"small_{tag.replace(' ', '_')}"] = dict(db=s_db, max=s_max)
 
 
+def k1_dense_coord_case(cfg, image, plan, dev):
+    """(name, case) of K1's coordinate cross with the f32 store as the
+    dense path calls it with ``use_pallas`` and a spatial term: ``cfg``'s
+    features of ``image`` in permuted [A; B] order, K_AA's rows against
+    K_AB's N - p columns (``affinity_strip_coord_f32`` and lanes_sfx). Its
+    bound: the f32 store and the features read once; the IEEE f32 cross
+    over the live lanes (2 flop a lane an entry), one exp an entry."""
+    from graphlap_tpu_torch.ops import affinity as taff
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+
+    perm = torch.as_tensor(plan.perm.astype(np.int64), device=dev)
+    img_d = torch.as_tensor(np.asarray(image, np.float32), device=dev)
+    fp = taff.extract_features(img_d, cfg)[perm]
+    fa, fb = fp[:plan.p].contiguous(), fp[plan.p:].contiguous()
+    p, n, d = fa.shape[0], fb.shape[0], fa.shape[1]
+    e, live = p * n, -(-d // 4) * 4
+    name = "affinity_strip_coord_f32" + lanes_sfx(-(-d // 32) * 32)
+    return name, (k1.affinity_strip_cuda, k1.affinity_strip_plain,
+                  (fa, fb, torch.float32, None, True),
+                  bound(4 * e + 4 * d * (p + n), 0, 2 * live * e, e))
+
+
+def cli_phase(gt, dev, rows, launches, info):
+    """The port's CLI (graphlap_tpu_torch.cli.main) as a user runs it, on
+    the clean 512^2 test image saved as a PNG (an empty -opts_file, so no
+    rc file of the home directory is read): (i) recipe A at 11 x 11
+    (-preset fast with -patch 11 -spatial_h 8 -sample 0.02): its record's
+    config_hash that of make_workload_cfg2_bilateral(gt, 11), K1's
+    coordinate cross once a stage that builds the strip (normalize and
+    eigensolve: two a channel, as staged config 2), and the output PNG
+    within 2e-2 + 1/255 of filter_image on the same config and noised
+    image, its PSNR within 0.05 dB; (ii) the dense route with -pallas at 9 x
+    9 and 11 x 11: first K1's coordinate cross with the f32 store at its
+    K_AB shape (5243 x 256901) against its plain version (run_cases: twice
+    bit for bit, timed beside its composition) and against f64 on 512
+    sample rows (k1_coord_slab), then the CLI run: rc 0, one K1 launch a
+    channel, the wall and the PSNR printed."""
+    import tempfile
+
+    from graphlap_tpu_torch import cli
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        src, opts, log = tmp / "clean.png", tmp / "opts", tmp / "runs.jsonl"
+        gt.save_image(str(src), gt.make_test_image(H, W))
+        opts.write_text("")
+        clean = gt.load_image(str(src))
+        image = np.clip(gt.add_gaussian_noise(clean, 0.1, 1), 0, 1)
+        common = ["-f", str(src), "-kernel", "nlm", "-spatial_h", "8",
+                  "-sample", "0.02", "-noise", "0.1", "-seed", "1",
+                  "-log_view", "-json_log", str(log), "-opts_file", str(opts)]
+
+        def run(tag, argv):
+            k1.affinity_strip_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(common + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_k1 = k1.affinity_strip_cuda.launches
+            rec = json.loads(log.read_text().splitlines()[-1])
+            phase("cli", f"{tag}: rc {rc}, wall {wall:.3f} s (the process's "
+                  f"first call of the config), stage walls "
+                  f"{rec['timings_s']}, K1 launches {n_k1}; PSNR "
+                  f"{rec['psnr_noisy_db']:.3f} -> "
+                  f"{rec['psnr_filtered_db']:.3f} dB", t0)
+            require(rc == 0, f"{tag}: the CLI returned {rc}")
+            return rec, n_k1, wall
+
+        # (i) recipe A at 11 x 11
+        png = tmp / "recipe_a.png"
+        rec, n_k1, wall = run("recipe A at 11x11", [
+            "-patch", "11", "-preset", "fast", "-o", str(png)])
+        cfg = make_workload_cfg2_bilateral(gt, 11)[0]
+        require(rec["config_hash"] == cfg.config_hash(),
+                "the CLI's 11x11 run did not resolve to recipe A")
+        require(n_k1 == 2, "the CLI's recipe A run did not launch K1's "
+                "coordinate cross once in each of its two strip stages")
+        ref = gt.filter_image(image, cfg, plan=gt.make_plan(image, cfg),
+                              device=dev).image
+        got = gt.load_image(str(png))
+        d_max = float(np.abs(got - ref).max())
+        d_db = abs(rec["psnr_filtered_db"] - gt.psnr(clean, ref))
+        phase("cli", f"recipe A at 11x11: the output PNG against "
+              f"filter_image on the same image: max |diff| {d_max:.3e} (bar "
+              f"{2e-2 + 1 / 255:.3e}), PSNR {d_db:.5f} dB apart (bar 0.05)")
+        require(got.shape == ref.shape and d_max <= 2e-2 + 1 / 255
+                and d_db <= 0.05, "the CLI's recipe A output != filter_image")
+        out["recipe_a_p11"] = dict(wall_s=wall, k1_launches=n_k1,
+                                   timings_s=rec["timings_s"],
+                                   psnr=rec["psnr_filtered_db"],
+                                   vs_filter_image_max=d_max,
+                                   vs_filter_image_db=d_db)
+        # (ii) the dense route at 9 x 9 and 11 x 11
+        for patch in (9, 11):
+            t0 = time.perf_counter()
+            cfg = gt.PipelineConfig(kernel="nlm", patch_size=patch,
+                                    spatial_h=8.0, sample_rho=0.02,
+                                    use_pallas=True)
+            plan = gt.make_plan(image, cfg)
+            name, case = k1_dense_coord_case(cfg, image, plan, dev)
+            fa, fb = case[2][:2]
+            phase("cli", f"dense route at {patch}x{patch}: K_AB "
+                  f"{fa.shape[0]} x {fb.shape[0]}, {fa.shape[1]} lanes", t0)
+            run_cases({name: case}, rows, library=strip_library())
+            rows[name]["f64"] = k1_coord_slab(
+                fa[torch.linspace(0, fa.shape[0] - 1, 512,
+                                  device=dev).long()], fb,
+                f"{name} (512 sample rows)")
+            rows[name]["blocks_an_sm"] = k1.coord_blocks(fa.shape[1], False)
+            phase("kernel", f"{name}: {rows[name]['blocks_an_sm']} blocks an "
+                  f"SM (the occupancy query)")
+            del fa, fb, case
+            torch.cuda.empty_cache()
+            rec, n_k1, wall = run(f"dense route at {patch}x{patch}",
+                                  ["-patch", str(patch), "-pallas"])
+            require(rec["config_hash"] == cfg.config_hash(),
+                    f"the CLI's dense {patch}x{patch} run resolved to "
+                    f"another config")
+            require(n_k1 == 1 and set(rec["timings_s"]) == {
+                "affinity", "normalize", "eigensolve", "filter"},
+                f"the CLI's dense {patch}x{patch} run: not one K1 launch on "
+                f"the dense path")
+            launches[name] = n_k1
+            out[f"dense_p{patch}"] = dict(wall_s=wall, k1_launches=n_k1,
+                                          timings_s=rec["timings_s"],
+                                          psnr=rec["psnr_filtered_db"])
+    info["cli"] = out
+
+
 def make_workload_bilateral(gt, h=H8, w=W8):
     """The bilateral 8 MP denoise: tuned_config(CONFIG1.replace(streaming=
     True, sample_cap=4096), 2048*4096, "fast") (f32 tiles, the route
@@ -2485,6 +2675,29 @@ def slab_check(label, kern, plain, ref64, required=True):
                 f"version's error")
     return dict(kernel_max=k[0], kernel_p99=k[1], plain_max=pl[0],
                 plain_p99=pl[1], live=int(live.sum()))
+
+
+def k1_coord_slab(fa, fb, label):
+    """K1's coordinate cross (f32 store) on (p, d) x (n, d) features against
+    their f64 evaluation, within 1.5x the plain version's error
+    (slab_check); the split-fp16 cross (not on these paths) printed beside.
+    Returns the record."""
+    from graphlap_tpu_torch.ops import cuda_affinity as k1
+
+    a64, b64 = fa.double(), fb.double()
+    ref = torch.exp(-((a64 * a64).sum(1)[:, None] + (b64 * b64).sum(1)[None]
+                      - 2.0 * a64 @ b64.T).clamp_(min=0.0))
+    del a64, b64
+    pl = k1.affinity_strip_plain(fa, fb)
+    out = {"coord": slab_check(f"{label}, coordinate cross",
+                               k1.affinity_strip_cuda(fa, fb, coords=True),
+                               pl, ref),
+           "split": slab_check(f"{label}, split-fp16 cross (not on this "
+                               f"path)", k1.affinity_strip_cuda(fa, fb), pl,
+                               ref, required=False)}
+    del ref, pl
+    torch.cuda.empty_cache()
+    return out
 
 
 def f64_sums(fa, f_t, what, *vecs, chunk=16384):
@@ -2581,9 +2794,8 @@ def bilateral_slabs(ctx, ft_g, dev):
     K10 with a one-hot gr and c = 1 writes V_jm = k(row_m, j), a sum of one
     term; K9 the same scaled by its s; K8 with one-hot t2 rows gives s_j =
     1 / sqrt(k_qj^2), so k = 1 / s; K6 with a one-hot t gives k(q, j); K1
-    on 64 sample rows by 2^20 pixels (its split-fp16 cross printed
-    beside; up to 64 lanes: past them K1's coordinate cross raises, not
-    ported). Returns the record."""
+    on 64 sample rows by 2^20 pixels (k1_coord_slab). Returns the
+    record."""
     from graphlap_tpu_torch.models import streaming as ms
     from graphlap_tpu_torch.ops import cuda_affinity as k1
     from graphlap_tpu_torch.ops import cuda_matvec as k56
@@ -2644,28 +2856,16 @@ def bilateral_slabs(ctx, ft_g, dev):
         "the coordinate cross repairs)", split, pl, ref[-1:], required=False)
     del ref, got, pl, split
     torch.cuda.empty_cache()
-    if f_t.shape[0] > k1.COORD_FEATURES:
-        phase("slab", f"affinity_strip, coordinate cross: not run at "
-              f"{f_t.shape[0]} lanes (ported up to {k1.COORD_FEATURES})")
-        return out
     # K1 on the path's features: 64 sample rows by 2^20 pixels, f32 store
     fa3 = ctx.feats_a[rows.clamp(max=p - 1)].contiguous()
     fb3 = ctx.feats_pad[:1 << 20].contiguous()
-    a64, b64 = fa3.double(), fb3.double()
-    ref = torch.exp(-((a64 * a64).sum(1)[:, None] + (b64 * b64).sum(1)[None]
-                      - 2.0 * a64 @ b64.T).clamp_(min=0.0))
-    pl = k1.affinity_strip_plain(fa3, fb3)
-    out["affinity_coord"] = slab_check(
-        "affinity_strip, coordinate cross",
-        k1.affinity_strip_cuda(fa3, fb3, coords=True), pl, ref)
-    out["affinity_split"] = slab_check(
-        "affinity_strip, split-fp16 cross (not on this path)",
-        k1.affinity_strip_cuda(fa3, fb3), pl, ref, required=False)
-    del ref, pl, a64, b64
-    torch.cuda.empty_cache()
-    # K1's two crosses timed on 512 sample rows by 2^20 pixels (f32 store:
-    # 2.15 GB, 0.64 ms at 3.35 TB/s); no path of this script runs K1 on
-    # coordinates (the dense bilateral twin would)
+    k1_slab = k1_coord_slab(fa3, fb3, "affinity_strip")
+    out["affinity_coord"], out["affinity_split"] = (k1_slab["coord"],
+                                                    k1_slab["split"])
+    # K1's two crosses timed on 512 sample rows by 2^20 pixels of the 8 MP
+    # coordinates (f32 store: 2.15 GB, 0.64 ms at 3.35 TB/s); the paths
+    # that run K1 on coordinates are 512^2 ones (recipe A, the CLI's dense
+    # route)
     fa5 = ctx.feats_a[torch.linspace(0, p - 1, 512, device=dev).long()]
     fa5 = fa5.contiguous()
     t_k1 = {name: cuda_ms(lambda c=c: k1.affinity_strip_cuda(fa5, fb3,
@@ -3092,19 +3292,32 @@ def bilateral_nlm_mv(gt, dev, rows, launches, info, patch=7):
         plain_floor=floor, small_db=s_db, small_max=s_max)
 
 
-def spill_lines(log: str) -> list:
-    """nvcc's -Xptxas -v report: "kernel: spill line" for every kernel that
-    spills, the kernel named by the part of its mangled name after the
-    anonymous namespace (its name and template arguments)."""
-    out, name = [], "?"
+def ptxas_lines(log: str):
+    """nvcc's -Xptxas -v report as (kernel, line) pairs, the kernel named
+    by the part of its mangled name after the anonymous namespace (its name
+    and template arguments)."""
+    name = "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+)", name)
             name = (m.group(1) if m else name)[:48]
-        elif "spill" in ln and not ln.strip().startswith("0 bytes"):
-            out.append(f"{name}: {ln.strip()}")
-    return out
+        else:
+            yield name, ln
+
+
+def spill_lines(log: str) -> list:
+    """"kernel: spill line" for every kernel that spills."""
+    return [f"{name}: {ln.strip()}" for name, ln in ptxas_lines(log)
+            if "spill" in ln and not ln.strip().startswith("0 bytes")]
+
+
+def register_lines(log: str, kernel: str) -> dict:
+    """{name: its "Used N registers, ..." line} for every kernel whose name
+    holds ``kernel``."""
+    return {name: ln.split(":", 1)[-1].strip()
+            for name, ln in ptxas_lines(log)
+            if kernel in name and "Used" in ln}
 
 
 def sass_uses(build, kernel: str, opcode: str) -> dict:
@@ -3156,6 +3369,9 @@ def main() -> None:
     (OUT / "ptxas.txt").write_text(_build.PTXAS_LOG)
     phase("build", f"{build_s:.1f} s; ptxas spill lines: "
           f"{spill_lines(_build.PTXAS_LOG)}")
+    phase("build", f"K1 coordinate kernels (C1FD 32, 64, 96, 128; bf16 and "
+          f"f32 stores), from -Xptxas -v: "
+          f"{register_lines(_build.PTXAS_LOG, 'affinity_coord_kernel')}")
     hgmma = sass_uses(_build, "sandwich_kernel", "HGMMA")
     phase("build", f"K3/K4 kernels holding HGMMA (wgmma), from cuobjdump "
           f"-sass: {hgmma}")
@@ -3228,7 +3444,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     bilateral(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
-    config1_fast(gt, dev, rows, launches, info, patch=7)
+    for patch in (7, 9, 11):
+        config1_fast(gt, dev, rows, launches, info, patch=patch)
+        torch.cuda.empty_cache()
+    cli_phase(gt, dev, rows, launches, info)
     torch.cuda.empty_cache()
     for patch in (7, 9, 11):
         bilateral(gt, dev, rows, launches, info, patch=patch)

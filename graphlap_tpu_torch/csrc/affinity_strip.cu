@@ -418,13 +418,20 @@ int launch_split_affinity_fd(const float* a, const float* b, unsigned char* aspl
 // GB at 5248 x 262144 and 51 lanes, and ran at 7x the cross's bound
 // (PERF.md), 2.2 GB so. The bf16 entry keeps kexp, as the
 // split kernel's bf16 store does. The kernel is a template on its depth
-// C1FD: 32 (a 5 x 5 patch and two coordinates) or 64 (a 7 x 7 patch and two
-// coordinates, 51 lanes, 52 read); its loops run over the d live lanes, so
-// a feature set of 32 lanes or fewer takes the same chains in either. At
-// 64 the unit's pixels take 66.5 KB, past the 48 KB of static shared
-// memory, so both depths keep the unit in dynamic shared memory
-// (c1_smem). At 5243 x 262144 and 52 lanes the cross is 1.4e11 flop (2.1
-// ms at the f32 peak), the bound beside the bf16 store's 0.82 ms.
+// C1FD: 32 (a 5 x 5 patch and two coordinates), 64 (7 x 7, 51 lanes, 52
+// read), 96 (9 x 9, 83 lanes, 84 read) or 128 (11 x 11, 123, 124 read); its
+// loops run over the d live lanes, so a feature set of 32 lanes or fewer
+// takes the same chains in each. At 64 the unit's pixels take 66.5 KB,
+// past the 48 KB of static shared memory, so every depth keeps the unit in
+// dynamic shared memory (c1_smem): 75 KB at 64 (three blocks an SM),
+// 112,640 B at 96 (two), 150,016 B at 128 (one), beside 1,152 B of static
+// norms. -Xptxas -v gives the bf16 store 80 registers at every depth, the
+// f32 store 64 with 16 bytes spilled to a 16-byte stack frame
+// (chip_smoke.py's build phase). At 5243 x
+// 262144 and 52 lanes the cross is 1.4e11 flop (2.1 ms at the f32 peak),
+// the bound beside the bf16 store's 0.82 ms; at 84 and 124 live lanes
+// 3.45 and 5.09 ms, where one block an SM (8 warps) leaves the FFMA chains
+// from shared memory short of warps at 128 lanes (PERF.md).
 constexpr int C1_THREADS = 256;
 constexpr int C1_TM = 32, C1_TN = 256;
 static_assert(C1_TN == C1_THREADS, "a thread a pixel of the unit");
@@ -555,6 +562,18 @@ int launch_affinity_coord(const float* a, const float* b, void* out, int p, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int C1FD>
+int coord_blocks(int out_bf16) {
+  constexpr size_t smem = c1_smem<C1FD>();
+  auto kernel = out_bf16 ? affinity_coord_kernel<C1FD, true> : affinity_coord_kernel<C1FD, false>;
+  int occ = 0;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, C1_THREADS, smem);
+  return e == cudaSuccess ? occ : -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -591,19 +610,30 @@ int glt_affinity_strip(const void* a, const void* b, void* scratch, void* out, i
                    : launch_split_affinity_fd<128>(af, bf, asplit, map, p, n, d, out_bf16, s);
 }
 
-// K1 on coordinate features (the IEEE f32 cross), d <= 64 (the 32-lane
-// kernel up to 32, the 64-lane one past it). As glt_affinity_strip without
-// the scratch; ld a multiple of 4 (the wrapper pads rows to 256 bytes), so
-// the last vector of a row stays inside it.
+// K1 on coordinate features (the IEEE f32 cross), d <= 128 (the kernel of
+// the least depth of 32, 64, 96 and 128 that holds d). As
+// glt_affinity_strip without the scratch; ld a multiple of 4 (the wrapper
+// pads rows to 256 bytes), so the last vector of a row stays inside it.
 int glt_affinity_coord(const void* a, const void* b, void* out, int p, int n, int d, int ld,
                        int out_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (p < 1 || n < 1 || d < 1 || d > 64 || ld < n || ld % 4)
+  if (p < 1 || n < 1 || d < 1 || d > 128 || ld < n || ld % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
-  return d <= 32 ? launch_affinity_coord<32>(af, bf, out, p, n, d, ld, out_bf16, s)
-                 : launch_affinity_coord<64>(af, bf, out, p, n, d, ld, out_bf16, s);
+  return d <= 32   ? launch_affinity_coord<32>(af, bf, out, p, n, d, ld, out_bf16, s)
+         : d <= 64 ? launch_affinity_coord<64>(af, bf, out, p, n, d, ld, out_bf16, s)
+         : d <= 96 ? launch_affinity_coord<96>(af, bf, out, p, n, d, ld, out_bf16, s)
+                   : launch_affinity_coord<128>(af, bf, out, p, n, d, ld, out_bf16, s);
+}
+
+// blocks of the coordinate kernel for d feature lanes that an SM holds at
+// once (its registers and shared memory), or -1 on a CUDA error
+int glt_affinity_coord_blocks(int d, int out_bf16) {
+  return d <= 32   ? coord_blocks<32>(out_bf16)
+         : d <= 64 ? coord_blocks<64>(out_bf16)
+         : d <= 96 ? coord_blocks<96>(out_bf16)
+                   : coord_blocks<128>(out_bf16);
 }
 
 }  // extern "C"

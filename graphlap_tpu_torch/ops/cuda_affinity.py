@@ -9,17 +9,17 @@ as the f32 K5/K6 form it; the bf16 entry's exp one MUFU ex2, the f32 one
 IEEE expf; each 128 x 128 tile staged in shared memory and written by TMA).
 The inputs round to ``dtype`` first and the norms come from those rounded
 values, as in the Pallas body; ``store_dtype`` narrows only the stored
-strip (the bfloat16_store policy). The split cross takes up to
-``MAX_FEATURES`` feature lanes, the reference's widest layout, in four
-instantiations of the kernel: 32 lanes (NLM patches up to 5 x 5), 64 (a 7
-x 7 patch, 49 lanes), 96 (9 x 9, 81) and 128 (11 x 11, 121), both stores.
-Features that carry coordinates (``coords``: the config's ``spatial_h >
-0``) take the kernel's IEEE f32 cross instead (an FFMA chain over the live
-lanes), up to ``COORD_FEATURES`` lanes, in two instantiations (32, and 64:
-an NLM 7 x 7 patch and the coordinates, 51 lanes): (row, col) / spatial_h
-reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16 small part loses about
-four times the f32 product's error. Wider coordinate features (d_pad 96
-and 128) raise ``NotImplementedError`` naming ROADMAP.md Queue 2b.
+strip (the bfloat16_store policy). The split cross takes up to ``D_PAD``
+feature lanes, the reference's widest layout, in four instantiations of
+the kernel: 32 lanes (NLM patches up to 5 x 5), 64 (a 7 x 7 patch, 49
+lanes), 96 (9 x 9, 81) and 128 (11 x 11, 121), both stores. Features that
+carry coordinates (``coords``: the config's ``spatial_h > 0``) take the
+kernel's IEEE f32 cross instead (an FFMA chain over the live lanes), in
+four instantiations too: 32 (a gaussian or an NLM 5 x 5 patch and the
+coordinates), 64 (7 x 7, 51 lanes), 96 (9 x 9, 83) and 128 (11 x 11,
+123), both stores: (row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP,
+where the split's fp16 small part loses about four times the f32
+product's error.
 
 Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
 arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
@@ -32,9 +32,8 @@ import torch
 
 from . import _build
 
-MAX_FEATURES = 128       # feature lanes of the split cross (csrc FD 32, 64, 96, 128)
-COORD_FEATURES = 64      # lanes of the coordinate cross (csrc C1FD 32 or 64)
-D_PAD = 128              # the reference's widest feature layout
+D_PAD = 128              # the reference's widest feature layout (csrc FD and
+                         # C1FD 32, 64, 96, 128)
 # row pitch of the kernel's output where N is ragged
 ROW_BYTES = 256
 # column chunk of the plain version: its f64 exp of a whole dense-path
@@ -109,12 +108,6 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
         raise ValueError(f"affinity_strip: the kernel takes 1..{D_PAD} "
                          f"feature lanes and non-empty operands, got ({p}, "
                          f"{d}) x ({n}, {d2})")
-    cross, lanes = (("coordinate", COORD_FEATURES) if coords
-                    else ("split", MAX_FEATURES))
-    if d > lanes:
-        raise NotImplementedError(
-            f"affinity_strip: {d} feature lanes: the CUDA kernel's {cross} "
-            f"cross takes up to {lanes} (ROADMAP.md Queue 2b)")
     a = feats_a.to(dtype).to(torch.float32).contiguous()
     b = feats_all.to(dtype).to(torch.float32).contiguous()
     lib = _build.lib()
@@ -145,3 +138,13 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
 
 
 affinity_strip_cuda.launches = 0
+
+
+def coord_blocks(d: int, bf16_out: bool = True) -> int:
+    """Blocks of the coordinate kernel for ``d`` feature lanes that one SM
+    holds at once (its registers and shared memory; the CUDA occupancy
+    query)."""
+    blocks = _build.lib().glt_affinity_coord_blocks(d, int(bf16_out))
+    if blocks < 0:
+        raise RuntimeError("affinity_strip: the occupancy query failed")
+    return blocks

@@ -1,10 +1,11 @@
 """The JAX reference's denoise and sharpen quality on the NLM bilateral
-recipes (7 x 7, and B and C at 9 x 9 and 11 x 11) and on configs 2, 3 and
+recipes (7 x 7, and A, B and C at 9 x 9 and 11 x 11) and on configs 2, 3 and
 4 and the 8 MP matvec denoise at NLM 9 x 9 and 11 x 11, on the CPU, at
 sizes the CPU reaches.
 
     JAX_PLATFORMS=cpu python scripts/reference_quality.py [--recipes A B C]
     JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes Bp9 Bp11 Cp9 Cp11
+    JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes Ap9 Ap11
     JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes 2p9 2p11 4p9 4p11 4tp9 4tp11
     JAX_PLATFORMS=cpu python scripts/reference_quality.py --recipes 3p9 3p11 4qp9 4qp11
 
@@ -19,6 +20,10 @@ smaller test image (sigma 0.1, seed 1):
   6 + 1 polish, gram 1/64, fused finish, LOBPCG), run at 256 x 512;
 * C — B through ``denoise_tuned(0.1)``: the 8 MP matvec recipe, run at 256
   x 512;
+* Ap9, Ap11 — A with an NLM 9 x 9 or 11 x 11 patch
+  (``chip_smoke.make_workload_cfg2_bilateral`` at those patches: 84 and 124
+  live lanes, the CLI's ``-patch`` with ``-spatial_h 8 -preset fast``), run
+  at 256^2;
 * Bp9, Bp11, Cp9, Cp11 — B and C with an NLM 9 x 9 or 11 x 11 patch
   (``chip_smoke.make_workload_8mp_nlm_bilateral`` and
   ``make_workload_8mp_nlm_bilateral_matvec`` at those patches: 84 and 124
@@ -85,6 +90,8 @@ def recipes() -> dict:
     cs = _chip_smoke()
     for patch in (9, 11):
         bp = base.replace(patch_size=patch, streaming=True, sample_cap=4096)
+        out[f"Ap{patch}"] = (cs.make_workload_cfg2_bilateral(gt, patch)[0],
+                             (256, 256))
         out[f"Bp{patch}"] = (gt.tuned_config(bp, MP8, "fast"), (256, 512))
         out[f"Cp{patch}"] = (gt.tuned_config(gt.denoise_tuned(bp, 0.1), MP8,
                                              "fast"), (256, 512))

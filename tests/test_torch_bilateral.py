@@ -314,7 +314,7 @@ def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
     patch at h 0.15 and row/8, col/8) on a 64 x 64 noisy image, its
     coordinates moved to the far corner of a 512 x 512 one: 51 lanes, 52
     live, of 64; "nlm11": the same with an NLM 11 x 11 patch, 123 lanes,
-    124 live, of 128."""
+    124 live, of 128 ("nlm9": 9 x 9, 83 lanes, 84 live, of 96)."""
     jnp, pst = jx.jnp, jx.pst
     rng = np.random.default_rng(seed)
     if kind.startswith("nlm"):
@@ -438,6 +438,56 @@ def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx, kind):
     np.testing.assert_allclose(N(got9[3]), N(ref9[3]), rtol=4 * x.tol, atol=0)
 
 
+def _f64_strip(fa, fb):
+    a, b = fa.astype(np.float64), fb.astype(np.float64)
+    d2 = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * a @ b.T
+    return np.exp(-np.maximum(d2, 0.0))
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["nlm9", "nlm11"])
+def test_k1_plain_matches_pallas_on_coordinates_past_64_lanes(jx, kind,
+                                                               store):
+    """K1 on recipe A's features at 9 x 9 and 11 x 11 (83 and 123 lanes, the
+    coordinates at |f|^2 ~ 1.2e4): the bf16 store to one bf16 ulp of the
+    Pallas kernel's; the f32 store to the file's f32 tile bar (16 ulps of
+    max |f|^2), and against an f64 evaluation of the same f32 features the
+    plain version's max and p99 |dK| over the live entries within 1.5x the
+    Pallas kernel's plus one f32 ulp of max |f|^2 (two correct f32
+    evaluations differ by the cancellation error itself, whose quantum is
+    that ulp: the largest errors measured 2 ulps against 1)."""
+    from graphlap_tpu.ops import pallas_affinity as pa
+
+    jnp = jx.jnp
+    x = _coord_inputs(jx, kind=kind)
+    d = 83 if kind == "nlm9" else 123
+    fa = N(x.fa_pad)[:x.p, :d]
+    fb = np.ascontiguousarray(N(x.f_t)[:d].T)
+    bf16 = store == "bfloat16"
+    ref = np.asarray(pa.affinity_strip_pallas(
+        jnp.asarray(fa), jnp.asarray(fb), dtype=jnp.float32,
+        store_dtype=jnp.bfloat16 if bf16 else None).astype(jnp.float32))
+    got = k1.affinity_strip_plain(T(fa), T(fb), torch.float32,
+                                  torch.bfloat16 if bf16 else None, True)
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    r64 = _f64_strip(fa, fb)
+    live = r64 > 1e-6
+    assert live.mean() > 0.1
+    if bf16:
+        np.testing.assert_allclose(N(got), ref, atol=2.0 ** -8, rtol=0)
+        return
+
+    np.testing.assert_allclose(N(got), ref, atol=x.tol, rtol=0)
+
+    def stats(k):
+        e = np.abs(k.astype(np.float64) - r64)[live]
+        return e.max(), np.quantile(e, 0.99)
+    plain, pallas = stats(N(got)), stats(ref)
+    ulp = EPS32 * float(max(x.na.max(), x.nb.max()))
+    assert (plain[0] <= 1.5 * pallas[0] + ulp
+            and plain[1] <= 1.5 * pallas[1] + ulp), (plain, pallas, ulp)
+
+
 # --- dispatch --------------------------------------------------------------------
 
 def _f32_layouts(p=300, n=1024, d=3, fd=32):
@@ -474,11 +524,10 @@ def test_f32_cuda_layouts_reach_the_library(monkeypatch, d, fd):
     and the coordinates), or 52 of 64, 84 of 96 or 124 of 128 (an NLM 7 x
     7, 9 x 9 or 11 x 11 patch and the coordinates), go to the kernel
     library (here missing, so its RuntimeError), never to the plain
-    versions: the f32 K7-K10 and the coordinate K5/K6 at every depth, K1's
-    coordinate cross up to 64 lanes; K5/K6 take the coordinate kernel only
-    where asked. K1's coordinate cross past 64 lanes raises
-    NotImplementedError naming ROADMAP Queue 2b, and live lanes past the
-    layout's ValueError, all before any launch."""
+    versions: the f32 K7-K10, the coordinate K5/K6 and K1's coordinate
+    cross at every depth; K5/K6 take the coordinate kernel only where
+    asked. Coordinate features past 128 lanes raise ValueError in K1, and
+    live lanes past the layout's in K7 and K5, all before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -489,15 +538,11 @@ def test_f32_cuda_layouts_reach_the_library(monkeypatch, d, fd):
     live = -(-d // 4) * 4
     cases = _f32_cases(fa, f_t, live, d)
     before = [fn.launches for fn, _ in cases]
-    for fn, args in cases[:6] if fd > 64 else cases:
+    for fn, args in cases:
         with pytest.raises(RuntimeError, match="unavailable"):
             fn(*args)
-    if fd > 64:
-        fn, args = cases[6]
-        with pytest.raises(NotImplementedError, match="Queue 2b"):
-            fn(*args)
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)),
+    with pytest.raises(ValueError, match="feature lanes"):
+        k1.affinity_strip_cuda(torch.zeros((8, 129)), torch.zeros((16, 129)),
                                coords=True)
     assert [fn.launches for fn, _ in cases] == before
     with pytest.raises(ValueError, match="live lanes"):
@@ -647,7 +692,7 @@ NLM_K8_GROSS = 0.1
 
 
 LIVE_D = [3, 27, 51]    # raw lanes: gaussian, NLM 5x5, NLM 7x7 + (row, col)
-WIDE_D = [83, 123]      # NLM 9x9 and 11x11 + (row, col): past K1's coordinate cross
+WIDE_D = [83, 123]      # NLM 9x9 and 11x11 + (row, col)
 
 
 @pytest.mark.gpu
@@ -741,11 +786,11 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", LIVE_D)
+@pytest.mark.parametrize("d", LIVE_D + WIDE_D)
 @pytest.mark.parametrize("img", [(512, 512), (2048, 4096)])
 def test_coordinate_cross_against_f64(cuda_device, img, d):
-    """K1 (both stores) and the f32 K5/K6 on coordinate features at 4, 28
-    and 52 live lanes: the tile against f64, the kernel's max and p99 |dK|
+    """K1 (both stores) and the f32 K5/K6 on coordinate features at 4, 28,
+    52, 84 and 124 live lanes: the tile against f64, the kernel's max and p99 |dK|
     at most 1.5x the plain f32 version's. The split-fp16 cross (the NLM
     route) is printed beside."""
     dev = cuda_device
@@ -760,9 +805,12 @@ def test_coordinate_cross_against_f64(cuda_device, img, d):
     print(f"K1 f32 store vs f64 (max, p99): plain {plain}, coordinate "
           f"cross {coord}, split cross {split}")
     _within_plain(coord, plain)
+    # the bf16 store rounds the same kernel's d2 entries: at most one bf16
+    # ulp past its own f32 store's error (held to the plain version's
+    # above; at 124 live lanes and 8 MP coordinates 1.05x of it)
     bf = k1.affinity_strip_cuda(a3, b3, torch.float32, torch.bfloat16,
                                 coords=True)
-    assert float((bf.double() - t64).abs().max()) <= plain[0] + 2.0 ** -8
+    assert float((bf.double() - t64).abs().max()) <= coord[0] + 2.0 ** -8
     _coord_k56_against_f64(fa, f_t, t64, live)
 
 

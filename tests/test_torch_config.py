@@ -154,6 +154,8 @@ def test_port_imports_neither_jax_nor_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert len(mods) >= 15
+    assert {"graphlap_tpu_torch.cli", "graphlap_tpu_torch.utils.timing"} <= set(
+        mods)
 
 
 def test_port_sources_name_no_jax_import():

@@ -545,12 +545,11 @@ def test_k2_raises_before_a_launch_for_p_outside_the_plan(monkeypatch, p):
 
 
 def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
-    """The emitter's split cross takes up to 128 feature lanes, the
-    reference's widest layout (7 x 7, 9 x 9 and 11 x 11 patches, 49, 81 and
-    121 lanes, reach the kernel library), and its coordinate cross up to 64
-    (a 7 x 7 patch and two coordinates, 51 lanes); the coordinate cross
-    past 64 raises NotImplementedError naming ROADMAP Queue 2b and anything
-    past 128 lanes ValueError, each before any launch."""
+    """The emitter's split cross and its coordinate cross each take up to
+    128 feature lanes, the reference's widest layout: 7 x 7, 9 x 9 and 11 x
+    11 patches (49, 81 and 121 lanes; with two coordinates 51, 83 and 123)
+    reach the kernel library; anything past 128 lanes raises ValueError,
+    each before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
@@ -560,14 +559,14 @@ def test_k1_raises_before_a_launch_past_its_feature_lanes(monkeypatch):
     for d in (49, 65, 81, 121):
         with pytest.raises(RuntimeError, match="unavailable"):
             k1.affinity_strip_cuda(torch.zeros((8, d)), torch.zeros((16, d)))
-    with pytest.raises(RuntimeError, match="unavailable"):
-        k1.affinity_strip_cuda(torch.zeros((8, 51)), torch.zeros((16, 51)),
-                               coords=True)
-    with pytest.raises(NotImplementedError, match="coordinate.*Queue 2b"):
-        k1.affinity_strip_cuda(torch.zeros((8, 65)), torch.zeros((16, 65)),
-                               coords=True)
-    with pytest.raises(ValueError, match="feature lanes"):
-        k1.affinity_strip_cuda(torch.zeros((8, 129)), torch.zeros((16, 129)))
+    for d in (51, 65, 83, 123):
+        with pytest.raises(RuntimeError, match="unavailable"):
+            k1.affinity_strip_cuda(torch.zeros((8, d)), torch.zeros((16, d)),
+                                   coords=True)
+    for coords in (False, True):
+        with pytest.raises(ValueError, match="feature lanes"):
+            k1.affinity_strip_cuda(torch.zeros((8, 129)),
+                                   torch.zeros((16, 129)), coords=coords)
     assert _counts() == before
 
 

@@ -1,11 +1,12 @@
 """The 96- and 128-lane feature layouts of graphlap_tpu_torch: NLM 9 x 9
 (81 lanes, d_pad 96; the aug layout's 87 lanes padded to 96) and 11 x 11
 (121 lanes, d_pad 128; aug 127 padded to 128) through K1 and K7-K10 (their
-bf16 layouts; the f32 and coordinate ones still raise on the card) and
-K5/K6 (bf16 aug and f32; the coordinate kernel still raises). Each plain
+bf16 layouts; the f32 and coordinate ones are in
+tests/test_torch_bilateral.py) and K5/K6 (bf16 aug and f32). Each plain
 version against its Pallas kernel (interpret mode on the CPU, the
 reference's own CPU route; K5/K6's in tests/test_torch_matvec.py), config
-2's strip_cache recipe at 9 x 9 and 11 x 11 and config 4's fused recipe at
+2's strip_cache recipe at 9 x 9 and 11 x 11 (also with the spatial term:
+recipe A, K1's coordinate cross) and config 4's fused recipe at
 11 x 11 on a 96x96 frame against graphlap_tpu.filter_image with the
 reference's random draws injected, config 3's sharpen at 9 x 9 (48x48x3)
 and the 8 MP matvec denoise at 11 x 11 (96x96) against it too (exact
@@ -239,22 +240,26 @@ def _assert_slice(img, z, vals, ref):
     np.testing.assert_allclose(vals[0], ref.eigvals[0], rtol=1e-2)
 
 
+@pytest.mark.parametrize("spatial_h", [0.0, 8.0])
 @pytest.mark.parametrize("patch", PATCHES)
 def test_config2_slice_at_9x9_and_11x11_matches_reference(jx, img_noisy,
-                                                          patch):
+                                                          patch, spatial_h):
     """The strip_cache slice at 81 and 121 lanes, the reference's Omega
     injected: its strip is K1's 96- or 128-lane split cross, then K2-K4 (no
-    feature axis)."""
+    feature axis). With spatial_h 8 it is recipe A at the patch
+    (chip_smoke.make_workload_cfg2_bilateral(gt, patch)): 83 or 123 lanes,
+    84 or 124 live, K1's 96- or 128-lane coordinate cross."""
     img, noisy = img_noisy
-    cfg = config2_wide(patch)
+    cfg = config2_wide(patch).replace(spatial_h=spatial_h)
     plan = gt.make_plan(noisy, cfg)
     ref = jx.gl.filter_image(noisy, jx.cfg(cfg), plan=plan)
     k = min(cfg.num_eigvecs + cfg.sketch_oversample, plan.p)
     om = np.asarray(jx.jax.random.normal(jx.jax.random.PRNGKey(0),
                                          (plan.p, k), jx.jnp.float32))
-    z, vals = _filter_channel(torch.tensor(noisy),
-                              interop.idx_to_device(plan.idx_a, "cpu"), cfg,
-                              interop.block_to_device(om, "cpu"))
+    with torch_threads(2):
+        z, vals = _filter_channel(torch.tensor(noisy),
+                                  interop.idx_to_device(plan.idx_a, "cpu"),
+                                  cfg, interop.block_to_device(om, "cpu"))
     _assert_slice(img, z.numpy(), vals.numpy(), ref)
 
 
@@ -355,6 +360,46 @@ def test_k1_at_81_and_121_lanes_matches_plain(cuda_device, patch, n):
         assert k1.affinity_strip_cuda.launches == before + 2
         ref = k1.affinity_strip_plain(fa, fall, torch.float32, store)
         assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+        assert bool((got[-8:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 4100])      # 4100: the ragged rows
+@pytest.mark.parametrize("patch", PATCHES)
+def test_k1_coordinate_cross_at_83_and_123_lanes_matches_plain(cuda_device,
+                                                               patch, n):
+    """K1's 96- and 128-lane coordinate kernel (recipe A at 9 x 9 and 11 x
+    11: the patch and (row, col) / 8, 84 and 124 live lanes) on p 200 rows
+    (two 128-row blocks, the second ragged) and n pixels whose span of
+    n x d floats is split among the loader's threads by its float quotient:
+    both stores against the plain version, twice bit for bit, poison rows
+    exact zeros. Bars: two bf16 ulps (2^-7) on the bf16 store (chip_smoke's
+    affinity_strip_coord), 16 f32 ulps of max |f|^2 on the f32 store (the
+    f32 tile bar of tests/test_torch_bilateral.py): the FFMA chain and the
+    plain f32 product round the cancellation apart."""
+    d = patch * patch + 2
+    rng = np.random.default_rng(n + d)
+    dev = cuda_device
+
+    def feats(k):
+        # patch lanes close together (d2 under ~0.05 from them), pixels of
+        # the grid's far corner, so entries near each sample row live
+        f = np.empty((k, d), np.float32)
+        f[:, :-2] = rng.random((k, d - 2)) * 0.05
+        f[:, -2:] = rng.integers(448, 512, (k, 2)) / 8.0
+        return torch.tensor(f, device=dev)
+    fa, fall = feats(200), feats(n)
+    fa[-8:] = 1e3
+    f32_bar = 16 * 2.0 ** -23 * float((fall * fall).sum(1).max())
+    for store, tol in ((torch.bfloat16, 2.0 ** -7), (None, f32_bar)):
+        before = k1.affinity_strip_cuda.launches
+        got = _twice(k1.affinity_strip_cuda, fa, fall, torch.float32, store,
+                     True)
+        assert k1.affinity_strip_cuda.launches == before + 2
+        ref = k1.affinity_strip_plain(fa, fall, torch.float32, store, True)
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert float(ref.float().max()) > 0.5          # live entries
         assert float((got.float() - ref.float()).abs().max()) <= tol
         assert bool((got[-8:] == 0).all())
 
