@@ -234,8 +234,8 @@ non-zero before the last line is printed):
               the path's features into its strip (against plain, timed
               beside its composition, twice bit for bit; past 7x7 also
               against f64 on 512 sample rows by every pixel, max and p99
-              |dK| within 1.5x the plain version's, and its blocks an SM
-              from the occupancy query), the bf16 K2-K4 on its strip kept
+              |dK| within 1.5x the plain version's), the bf16 K2-K4 on its
+              strip kept
               in the record at 7x7, filter_image (K1, K2, K3, K4 once a
               call), the plain path and the eigenvalues (0.05 dB, 2e-2),
               PSNR printed (the recipe loses PSNR in the reference too),
@@ -1617,9 +1617,6 @@ def config1_fast(gt, dev, rows, launches, info, patch=None):
     # record
     k1_case = {k1_name: cases.pop(k1_name)}
     run_cases(k1_case, rows, library=library)
-    rows[k1_name]["blocks_an_sm"] = k1.coord_blocks(ctx.feats_a.shape[1])
-    phase("kernel", f"{k1_name}: {rows[k1_name]['blocks_an_sm']} blocks an "
-          f"SM (the occupancy query)")
     at_path = {}
     if patch in (None, 7):
         run_cases(cases, at_path, signed, library)
@@ -2566,9 +2563,6 @@ def cli_phase(gt, dev, rows, launches, info):
                 fa[torch.linspace(0, fa.shape[0] - 1, 512,
                                   device=dev).long()], fb,
                 f"{name} (512 sample rows)")
-            rows[name]["blocks_an_sm"] = k1.coord_blocks(fa.shape[1], False)
-            phase("kernel", f"{name}: {rows[name]['blocks_an_sm']} blocks an "
-                  f"SM (the occupancy query)")
             del fa, fb, case
             torch.cuda.empty_cache()
             rec, n_k1, wall = run(f"dense route at {patch}x{patch}",

@@ -404,12 +404,19 @@ int launch_split_affinity_fd(const float* a, const float* b, unsigned char* aspl
 // Features that carry (row, col) / spatial_h reach |f|^2 ~ 3e5 at 2048 x
 // 4096, where the split-fp16 cross's small part (an fp16 rounding, about
 // 2^-22 of |a||b|) loses about four times the IEEE f32 product's error.
-// For those the strip takes the reference's f32 class (kf32,
-// mma_common.cuh): the cross an f32 FFMA chain over the d live lanes. A
+// For those the strip takes the cross of the reference's f32 class
+// (mma_common.cuh): an f32 FFMA chain over the d live lanes. A
 // 256-thread block owns a 32 x 256 unit: its rows and pixels in shared
 // memory (lanes d..d4 zero), each thread 8 rows by 4 adjacent pixels, so a
 // warp writes 512 (f32) or 256 (bf16) contiguous bytes a row by direct
-// vector stores, streamed (evict-first). With up to 4 live lanes (the
+// vector stores, streamed (evict-first). The entry takes d2 as
+// (|a|^2 - a.b) + (|b|^2 - a.b), not d2f32's (|a|^2 + |b|^2) - 2 a.b: where
+// the entry lives each difference is exact (its terms lie within a factor
+// of two), so d2 loses the rounding of |a|^2 + |b|^2, about one f32 ulp of
+// |f|^2, which at 124 live lanes on 2048 x 4096 coordinates took the
+// kernel's max |dK| against f64 past the plain version's on an H100
+// (0.0762 against 0.0723; 0.0454 in this form,
+// tests/test_torch_bilateral.py). With up to 4 live lanes (the
 // gaussian recipes) the store bounds it: a block owns one unit, a thread
 // loads a pixel's lanes. With more (an NLM patch and the coordinates) a
 // block keeps its 256 pixels for 128 rows, 32 at a time (c1_rows), loaded
@@ -534,7 +541,7 @@ __global__ __launch_bounds__(C1_THREADS) void affinity_coord_kernel(
       const float nbv[4] = {nb.x, nb.y, nb.z, nb.w};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const float d2 = d2f32(na + nbv[c], acc[i][c]);
+        const float d2 = fmaxf((na - acc[i][c]) + (nbv[c] - acc[i][c]), 0.f);
         v[c] = BF16_OUT ? kexp(d2) : expf(-d2);
       }
       const size_t o = (size_t)r * ld + c0 + jl;
@@ -560,18 +567,6 @@ int launch_affinity_coord(const float* a, const float* b, void* out, int p, int 
   const dim3 grid((n + C1_TN - 1) / C1_TN, (p + c1_rows(d) - 1) / c1_rows(d));
   kernel<<<grid, C1_THREADS, smem, s>>>(a, b, out, p, n, d, ld);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int C1FD>
-int coord_blocks(int out_bf16) {
-  constexpr size_t smem = c1_smem<C1FD>();
-  auto kernel = out_bf16 ? affinity_coord_kernel<C1FD, true> : affinity_coord_kernel<C1FD, false>;
-  int occ = 0;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, C1_THREADS, smem);
-  return e == cudaSuccess ? occ : -1;
 }
 
 }  // namespace
@@ -625,15 +620,6 @@ int glt_affinity_coord(const void* a, const void* b, void* out, int p, int n, in
          : d <= 64 ? launch_affinity_coord<64>(af, bf, out, p, n, d, ld, out_bf16, s)
          : d <= 96 ? launch_affinity_coord<96>(af, bf, out, p, n, d, ld, out_bf16, s)
                    : launch_affinity_coord<128>(af, bf, out, p, n, d, ld, out_bf16, s);
-}
-
-// blocks of the coordinate kernel for d feature lanes that an SM holds at
-// once (its registers and shared memory), or -1 on a CUDA error
-int glt_affinity_coord_blocks(int d, int out_bf16) {
-  return d <= 32   ? coord_blocks<32>(out_bf16)
-         : d <= 64 ? coord_blocks<64>(out_bf16)
-         : d <= 96 ? coord_blocks<96>(out_bf16)
-                   : coord_blocks<128>(out_bf16);
 }
 
 }  // extern "C"

@@ -52,7 +52,6 @@ _SIGNATURES = {
     "glt_kexp_bf16": ([_P, _P, _Z, _P], _I),
     # the IEEE f32 cross: K1 and K5/K6 on coordinates, K7-K10 f32 layouts
     "glt_affinity_coord": ([_P] * 3 + [_I] * 5 + [_P], _I),
-    "glt_affinity_coord_blocks": ([_I, _I], _I),
     "glt_coord_slots": ([_I], _I),
     "glt_coord_sum": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "glt_kb_strip_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),

@@ -138,13 +138,3 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
 
 
 affinity_strip_cuda.launches = 0
-
-
-def coord_blocks(d: int, bf16_out: bool = True) -> int:
-    """Blocks of the coordinate kernel for ``d`` feature lanes that one SM
-    holds at once (its registers and shared memory; the CUDA occupancy
-    query)."""
-    blocks = _build.lib().glt_affinity_coord_blocks(d, int(bf16_out))
-    if blocks < 0:
-        raise RuntimeError("affinity_strip: the occupancy query failed")
-    return blocks
