@@ -9,7 +9,8 @@ non-zero before the last line is printed):
 1. device   — CUDA must be available; prints the card's name and power limit.
 2. build    — compiles graphlap_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
               process a source, all started together; the K3/K4 kernels'
-              SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma, and
+              SASS (cuobjdump -sass) must hold HGMMA, Hopper's wgmma, on
+              both strip types (the f32 ones with no FFMA tile left), and
               the K1 and K7 emitters', K8's, K9's ks pass's, the V
               pass's and the aug and f32 K5/K6 kernels' HMMA at 32, 64, 96
               and 128 lanes (their products on the tensor cores).
@@ -38,8 +39,15 @@ non-zero before the last line is printed):
             own features and strip (5248 x 262144, 5.5 GB), as config 2's:
             against their plain versions, timed beside f32 cuBLAS
             compositions, launched twice bit for bit, K2-K4's leans against
-            their sums in f64 required; K1's row is kept in the phase's
-            record (its kernels-line row is the dense phase's);
+            their sums in f64 required; K3/K4's u against their f64 sums
+            over the f64 sum of its terms' magnitudes, max and p99 within
+            1.5x the plain version's, lean required, on the case's ta, on
+            it with its columns scaled by 2^+-16 and its rows by 2^+-3,
+            and on the path's own operands (recorded from one filter_image
+            call, their octaves printed); K3/K4's bound counts six bf16
+            tensor passes (three bf16 parts an operand), the f32 FFMA bound
+            printed beside; K1's row is kept in the phase's record (its
+            kernels-line row is the dense phase's);
    e2e      filter_image: K1 (f32 store), K2, K3, K4 once a call, gain
             > 5 dB, kernel vs plain path on the image and the eigenvalues
             (0.02 dB, 2e-3); staged on the same recipe held to filter_image
@@ -285,6 +293,7 @@ build/chip_smoke/chip_smoke.json and build/chip_smoke/ptxas.txt.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -381,7 +390,10 @@ TOL = {
     "rmatvec_coord": 0.1,
     # K2-K4 on config 2's f32 strip (the "highest" class): the same f32
     # operands, sums over P=5248 rows / N=262144 columns in another order,
-    # and no rounding point that could flip (ws stays f32)
+    # and no rounding point that could flip (ws stays f32; K3/K4's products
+    # of three bf16 parts are f32-exact); K3/K4's bar of the sums is their
+    # f64 evaluation, within 1.5x the plain version's error
+    # (sandwich_f64_checks)
     "strip_ext2_f32": 1e-4,
     "strip_sandwich_spost_f32": 1e-4,
     "strip_sandwich_f32": 1e-4,
@@ -637,6 +649,9 @@ UNTIED = tuple(f"{k}{sfx}" for sfx in ("", "_d64", "_d96", "_d128", "_l28")
                for k in COORD_ROWS[1:])
 # the band a required signed line's share below zero must lie in
 SIGNED_BAND = (0.25, 0.75)
+# the f32 K3/K4 run each product as six bf16 tensor passes (each operand in
+# three bf16 parts, six of the nine part products kept)
+F32_SANDWICH_PASSES = 6
 OUT = Path("build") / "chip_smoke"
 
 
@@ -1258,6 +1273,127 @@ def spost_f64(strip, ta, t, s_pre, bm):
     return sandwich_f64(strip, ta, sp * sp), sp.float()
 
 
+def ffma_bound(strip, kp2=256, spost=False):
+    """The f32 K3/K4's bound as the FFMA tile they replaced counted it: the
+    strip and the operands read once, 4 P N kp f32 flop (K3: and its ks, 2
+    P N) at the f32 FFMA peak. (bound_ms, bound_by)."""
+    pp, n = strip.shape
+    e = pp * n
+    return bound(4 * e + 4 * pp * kp2 * 2 + 4 * n * 3 + 4 * pp * 3,
+                 f32_flops=4 * e * kp2 + (2 * e if spost else 0))
+
+
+def sandwich_f64_check(label, kern, plain, args, p):
+    """K3's (5 arguments) or K4's u on an f32 strip, on the p sample rows,
+    against its sums in f64 (sums_f64_check over the f64 sum of the
+    magnitudes of u's terms, K ((K^T |ta|) s2): u's terms cancel), with the
+    share of (u - u64) sign(u64) below zero in SIGNED_BAND; also held to
+    the plain version column by column (TOL, over each column's max
+    |plain|) and launched twice bit for bit. Returns the record."""
+    strip, ta = args[0], args[1]
+    kb = strip.double()
+    if len(args) == 5:
+        t, s_pre, bm = args[2:]
+        s2 = (s_pre.double() / torch.clamp(t.double() @ kb, min=1e-30)
+              * bm.double())
+    else:
+        s2 = args[2].double()
+    u64 = (kb @ ((kb.T @ ta.double()) * s2[:, None]))[:p]
+    scale = (kb @ ((kb.T @ ta.double().abs()) * s2[:, None]))[:p]
+    del kb
+    torch.cuda.empty_cache()
+    first = lambda x: x[0] if isinstance(x, tuple) else x  # noqa: E731
+    got, ref = first(kern(*args))[:p], first(plain(*args))[:p]
+    again = first(kern(*args))[:p]
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    require(torch.equal(got, again), f"{label}: two launches differ")
+    col = float(((got - ref).abs().amax(0)
+                 / ref.abs().amax(0).clamp_min(1e-30)).max())
+    rec = sums_f64_check(label + " u", got, ref, u64, scale)
+    st = signed_stats(got, u64, False)
+    phase("sums", f"{label}: share below f64 {st['share_below']:.4f} "
+          f"(required in {SIGNED_BAND}); against plain, column by column "
+          f"{col:.3e} (tol 1e-4)")
+    require(col <= 1e-4, f"{label} disagrees with its plain version")
+    require(SIGNED_BAND[0] < st["share_below"] < SIGNED_BAND[1],
+            f"{label}: biased to one side of its f64 sums")
+    return dict(rec, share_below_f64=st["share_below"], column_rel_err=col)
+
+
+def sandwich_f64_checks(cases, p, dev):
+    """The f32 K3 and K4 (their run_cases inputs, and the same with ta's
+    columns scaled by 2^e, e drawn from [-16, 16], and its rows by A-scales
+    2^x, x drawn from [-3, 3]: the octaves of the path's ta and ws) against
+    their f64 sums (sandwich_f64_check). Returns the record."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for name in ("strip_sandwich_spost_f32", "strip_sandwich_f32"):
+        kern, plain, args = cases[name][:3]
+        out[name] = sandwich_f64_check(name, kern, plain, args, p)
+        ta = args[1]
+        cols = torch.randint(-16, 17, (ta.shape[1],), generator=gen,
+                             device=dev).float()
+        rows = 6.0 * torch.rand(ta.shape[0], generator=gen, device=dev) - 3.0
+        scaled = ta * torch.exp2(rows)[:, None] * torch.exp2(cols)[None, :]
+        out[name + "_scaled"] = sandwich_f64_check(
+            name + " (ta's columns 2^+-16, rows 2^+-3)", kern, plain,
+            (args[0], scaled, *args[2:]), p)
+        del scaled
+    return out
+
+
+def path_sandwich_operands(gt, cfg, noisy, plan, dev):
+    """One filter_image call with K3's and K4's arguments recorded (the
+    strip model's kernel table wrapped for the call; its launches are
+    outside every counted run): {"K3": args, "K4": args}."""
+    from graphlap_tpu_torch.models import streaming as ms
+
+    seen = {}
+    kernels = ms._kernels
+
+    def recording(plain):
+        k1_fn, k2_fn, k3_fn, k4_fn = kernels(plain)
+
+        def k3(*args):
+            seen["K3"] = args
+            return k3_fn(*args)
+
+        def k4(*args):
+            seen["K4"] = args
+            return k4_fn(*args)
+        return k1_fn, k2_fn, k3, k4
+    ms._kernels = recording
+    try:
+        gt.filter_image(noisy, cfg, plan=plan, device=dev)
+    finally:
+        ms._kernels = kernels
+    return seen
+
+
+def octaves(x) -> dict:
+    """The range of a tensor's nonzero magnitudes: min, max and their span
+    in octaves (log2 max / min)."""
+    a = x.abs()
+    a = a[a > 0]
+    lo, hi = float(a.min()), float(a.max())
+    return dict(min=lo, max=hi, octaves=math.log2(hi / lo))
+
+
+def path_sandwich_ranges(seen, p) -> dict:
+    """The real path's K3/K4 operands: ta's column maxima and row maxima
+    (the sketch columns' and the A-scaled sample rows' magnitudes) for K3
+    (t1) and K4 (tq), and K4's s2 = s_post^2 over the live columns."""
+    out = {}
+    for key, args in seen.items():
+        ta = args[1][:p]
+        out[key] = dict(ta_columns=octaves(ta.abs().amax(0)),
+                        ta_rows=octaves(ta.abs().amax(1)),
+                        ta=octaves(ta))
+    out["K4"]["s2"] = octaves(seen["K4"][2])
+    return out
+
+
 def strip_cases(ctx, cfg, dev):
     """K1-K4 at a strip_cache path's shapes on its strip context, operands
     from a seeded generator: (cases, signed, library) for run_cases. K1 in
@@ -1268,7 +1404,9 @@ def strip_cases(ctx, cfg, dev):
     the sample rows, s on the columns) and K3/K4's (u = K ws on the sample
     rows, both signs) are required, against ``ext2_f64``, ``spost_f64`` /
     ``sandwich_f64``. On an f32 strip K2-K4 are named ``*_f32`` and their
-    sandwich products counted as f32 FFMA; each beside ``strip_library``'s
+    sandwich products counted as six bf16 tensor passes (the kernel's three
+    parts an operand, ``F32_SANDWICH_PASSES``; ``ffma_bound`` gives the f32
+    FFMA bound of the design it replaced); each beside ``strip_library``'s
     composition for the strip's dtype."""
     from graphlap_tpu_torch.ops import cuda_strip as k24
 
@@ -1292,10 +1430,11 @@ def strip_cases(ctx, cfg, dev):
     sfx = "_f32" if f32 else ""
 
     def products(beside=0.0):
-        """The sandwich's two (P x N) x (N x kp) products: bf16 on the
-        tensor cores, or f32 FFMA; ``beside``: f32 work next to them."""
-        return (dict(f32_flops=4 * e * kp2 + beside) if f32 else
-                dict(bf16_flops=4 * e * kp2, f32_flops=beside))
+        """The sandwich's two (P x N) x (N x kp) products on the tensor
+        cores: bf16, or on an f32 strip F32_SANDWICH_PASSES bf16 passes;
+        ``beside``: f32 work next to them."""
+        passes = F32_SANDWICH_PASSES if f32 else 1
+        return dict(bf16_flops=passes * 4 * e * kp2, f32_flops=beside)
 
     cases = dict([k1_case(ctx, f32, dev)])
     cases.update({
@@ -1541,6 +1680,14 @@ def config2_f32(gt, dev, rows, launches, info):
     # the phase's record
     k1_case = {"affinity_strip_f32": cases.pop("affinity_strip_f32")}
     run_cases(cases, rows, signed, library)
+    for name, spost in (("strip_sandwich_spost_f32", True),
+                        ("strip_sandwich_f32", False)):
+        b_ms, _ = ffma_bound(ctx.strip_pad, spost=spost)
+        rows[name]["ffma_bound_ms"] = b_ms
+        phase("kernel", f"{name}: the f32 FFMA bound of the same products "
+              f"{b_ms:.3f} ms (the bound above counts "
+              f"{F32_SANDWICH_PASSES} bf16 tensor passes)")
+    f64_sums = sandwich_f64_checks(cases, ctx.p, dev)
     at_path = {}
     run_cases(k1_case, at_path, library=library)
     del ctx, cases, k1_case
@@ -1558,6 +1705,25 @@ def config2_f32(gt, dev, rows, launches, info):
                  "strip_sandwich_f32"):
         launches[name] = round(rec["launches_per_call"][name] * RUNS)
     del res
+    torch.cuda.empty_cache()
+    # the real path's K3/K4 operands: their octaves, and the kernels held to
+    # their f64 sums on them
+    t0 = time.perf_counter()
+    seen = path_sandwich_operands(gt, cfg, noisy, plan, dev)
+    p_live = plan.p
+    rec["sandwich_ranges"] = path_sandwich_ranges(seen, p_live)
+    phase("config2-f32", f"the path's K3/K4 operands: {rec['sandwich_ranges']}",
+          t0)
+    for key, name in (("K3", "strip_sandwich_spost_f32"),
+                      ("K4", "strip_sandwich_f32")):
+        kern = {"K3": k24.strip_sandwich_spost_cuda,
+                "K4": k24.strip_sandwich_cuda}[key]
+        plain = {"K3": k24.strip_sandwich_spost_plain,
+                 "K4": k24.strip_sandwich_plain}[key]
+        f64_sums[name + "_path"] = sandwich_f64_check(
+            f"{name} on the path's operands", kern, plain, seen[key], p_live)
+    rec["sandwich_f64"] = f64_sums
+    del seen
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rec["staged"] = staged_one(
@@ -2741,20 +2907,25 @@ def aug_f64_sums(fa, f_t, what, x, chunk=16384):
     return out
 
 
-def sums_f64_check(label, got, plain, ref64):
+def sums_f64_check(label, got, plain, ref64, scale=None):
     """A kernel's sums against their f64 evaluation: its max and p99
-    relative error (over the entries where the f64 value is not 0) at most
-    1.5x the plain f32 version's. Returns the record."""
-    keep = ref64 != 0
+    relative error at most 1.5x the plain f32 version's, relative to |f64|
+    (over the entries where it is not 0) or, for sums whose terms cancel,
+    to ``scale``, the f64 sum of the terms' magnitudes. Returns the
+    record."""
+    den = ref64.abs() if scale is None else scale
+    keep = den != 0
 
     def stats(x):
-        d = ((x.double() - ref64).abs() / ref64.abs())[keep]
+        d = ((x.double() - ref64).abs() / den)[keep]
         return float(d.max()), float(torch.quantile(
             d[::max(1, d.numel() >> 22)], 0.99))
     k, pl = stats(got), stats(plain)
-    phase("sums", f"{label}: relative error against f64 over {int(keep.sum())}"
-          f" outputs: kernel max {k[0]:.3e}, p99 {k[1]:.3e}; plain f32 max "
-          f"{pl[0]:.3e}, p99 {pl[1]:.3e} (kernel required <= 1.5x plain)")
+    over = "" if scale is None else " (over the sum of its terms' magnitudes)"
+    phase("sums", f"{label}: relative error against f64{over} over "
+          f"{int(keep.sum())} outputs: kernel max {k[0]:.3e}, p99 {k[1]:.3e};"
+          f" plain f32 max {pl[0]:.3e}, p99 {pl[1]:.3e} (kernel required <= "
+          f"1.5x plain)")
     require(k[0] <= 1.5 * pl[0] + 1e-7 and k[1] <= 1.5 * pl[1] + 1e-7,
             f"{label}: the sums against f64 are past 1.5x their plain "
             f"version's error")
@@ -3371,6 +3542,13 @@ def main() -> None:
           f"-sass: {hgmma}")
     require(hgmma and all(hgmma.values()),
             "the K3/K4 sandwich kernels do not run on wgmma")
+    hgmma = sass_uses(_build, "sandwich_split_kernel", "HGMMA")
+    ffma_tile = sass_uses(_build, "sandwich_f32_kernel", "FFMA")
+    phase("build", f"f32 K3/K4 kernels (three bf16 parts) holding HGMMA, "
+          f"from cuobjdump -sass: {hgmma}; the FFMA tile's functions: "
+          f"{ffma_tile}")
+    require(len(hgmma) == 3 and all(hgmma.values()) and not ffma_tile,
+            "the f32 K3/K4 do not run both phases on wgmma")
     hmma = sass_uses(_build, "affinity_kernel", "HMMA")
     phase("build", f"K1 emitter kernels holding HMMA (its split-fp16 cross "
           f"on the tensor cores), from cuobjdump -sass: {hmma}")

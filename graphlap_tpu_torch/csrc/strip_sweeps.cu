@@ -90,27 +90,72 @@
 //     sum of positive terms drops the tails of those far below it and
 //     leans low. 2.21 ms at config 2's shapes (bound 1.64) on an H100 80GB
 //     HBM3 (700 W), 0.95 ms for the bf16 strip from the same template.
-//   * K3/K4 are bound by operations: 4 P N kp = 1.41e12 f32 flop a launch,
-//     21.0 ms at the 67 TFLOP/s FFMA peak against 3.3 ms for the two strip
-//     reads. No TF32 ("highest"), and no split tensor-core product: the
-//     mma's truncating accumulation leaned a split-tf32 V (K9/K10 f32). So
-//     sandwich_f32_kernel is an FFMA tile, two launches as the bf16 pair:
-//     a 256-thread block owns 128 x 128 outputs (8 x 8 a thread), 16-deep
-//     stages arrive by cp.async (zeros past N) in two buffers, two blocks
-//     an SM. Phase 1 reads the strip as stored (K^T is m-major: two 16-byte
-//     A loads a depth), phase 2 k-major rows (8-byte loads of two depths);
-//     K3's ks sums beside phase 1 on the same staged tile. Every output sums
-//     spans of 256 depths from zero, each added to its running sum in
-//     shared memory with one f32 add, so no chain is longer than 256 terms
-//     (phase 2 runs ~16384 deep a slice). 35.8 / 35.3 ms (phase 1 ~16.5,
-//     phase 2 ~19.0) at config 2's shapes on the same card, against 29.5 /
-//     27.7 ms for cuBLAS's f32 products of the same function.
+//   * K3/K4 do 4 P N kp = 1.41e12 flop a launch, every product f32-exact
+//     ("highest", never plain TF32): 21.0 ms at the 67 TFLOP/s f32 FFMA
+//     peak. So each f32 operand runs on the tensor cores as three bf16
+//     parts (split3_grid: b0 = x on the grid 2^(E-8), b1 = bf16(x - b0),
+//     b2 = bf16(x - b0 - b1)), and six of the nine part products are kept:
+//     a0 b0, a0 b1, a1 b0, a1 b1, a0 b2, a2 b0 (the three dropped are
+//     below 2^-25 of the stage's largest product). Six bf16 passes are
+//     8.46e12 flop, 8.6 ms at 989 TFLOP/s, against 3.3 ms for the two strip
+//     reads: the bound.
+//   * No lean: the tensor core's f32 accumulation truncates, so a0 b0 must
+//     sum exactly. E is a stage's (32 depths): the largest |x| of the row
+//     of A, or of the column of B, in the stage is < 2^E. Then a0 b0 are
+//     multiples of 2^(Ea + Eb - 16) of magnitude at most 2^(Ea + Eb), and
+//     their stage sum needs 22 bits: exact. The corrections (2^-9 and less
+//     of it) sum from zero in a chain of their own, where the truncation is
+//     relative to their size: each stage and 128-column half runs the
+//     corrections' chain, then a0 b0's, each from zero and added to the
+//     half's running f32 sum (128 running registers a consumer thread, 64
+//     for the chain). bf16 keeps the f32 exponent and b1, b2 keep 16 more
+//     bits of every remainder, so ta's and ws's columns, which span many
+//     octaves, need no scales beyond their stage's E.
+//   * sandwich_split_kernel, two launches as the bf16 pair (phase 1 W =
+//     K^T ta with the ws epilogue, phase 2 U = K ws split over N into S
+//     slices of fixed-order partials), a 128 x 256 tile and one 212 KB
+//     block an SM. The strip is split inside the kernel, never copied, once
+//     a tile: a converter warpgroup (its thread 0 issues every TMA load)
+//     takes each 32-deep f32 strip tile from a ring of 4 (16 KB each),
+//     finds each output row's E by warp shuffles and writes the three parts
+//     into a ring of 2 stages (72 KB each) in the layout wgmma reads (phase
+//     1's K^T MN-major with the 128-byte swizzle, as stored; phase 2's K
+//     K-major with the 64-byte swizzle). B's three parts arrive there by
+//     TMA, split by split_parts_kernel (each 32 rows' E) from ta and from
+//     the f32 ws that phase 1 writes (0.27 GB written and read, 0.40 GB of
+//     parts written and read). Two consumer warpgroups each run m64n128k16
+//     wgmma on 64 output rows. K3's ks = K^T t (2.75e9 flop) is an f32 FFMA
+//     sum in the converter on the f32 tile it splits: spans of SS_KSPAN
+//     stages from zero added to a running sum, a column's 4 lanes added in
+//     a fixed tree.
+//   * Cross-block sums meet in the fixed-order reduction as on the bf16
+//     strip: a launch repeats bit for bit.
+//   * Designs measured at config 2's f32 shapes on an H100 80GB HBM3 (700
+//     W), scripts/f32_sandwich_designs.py, K3 / K4 ms (cuBLAS's f32
+//     products of the same function 29.5 / 27.8 in the same call): this
+//     one 14.5-14.7 / 14.3-14.6, u's share below the f64 sums 0.495 / 0.503;
+//     a0 b0 on top of the corrections in one chain a half, 14.0 / 13.8-14.1
+//     but leaning, 0.70 / 0.71 below f64 (the truncation of the sum of the
+//     corrections and a0 b0); timing only, no split 11.1-13.2, no wgmma
+//     9.1-10.0; two f32 tiles in flight 14.3-14.6; the first design, an
+//     FFMA tile (sandwich_f32_kernel: 128 x 128 outputs a 256-thread
+//     block, 16-deep cp.async stages, spans of 256 depths from zero, two
+//     blocks an SM), 35.3-35.6 / 35.1. In other calls: b0 = bf16(x) on no
+//     grid, every product of a stage in one chain (the corrections first),
+//     11.8 / 12.5, leaning 0.72 below f64 (0.81 on a 768-row strip); a 128 x
+//     128 tile with a0 b0 and the corrections in two accumulators (192
+//     registers; each strip tile split twice, for two blocks), 18.7-20.1 /
+//     18.2-19.5 with a converter warpgroup, 16.6-17.4 / 16.6-16.8 with each
+//     consumer warpgroup splitting its rows of the next stage beside its
+//     wgmma (no wgmma: 8.5-8.9, the split alone bounding it).
 //
 // Plain C interface, bound with ctypes (graphlap_tpu_torch/ops/_build.py).
 // Every entry point returns cudaGetLastError() after its launches (or the
 // first error).
 
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "mma_common.cuh"
 
@@ -695,182 +740,303 @@ __global__ __launch_bounds__(SW_THREADS, 1) void sandwich_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K3/K4 on an f32 strip: the sandwich as an f32 FFMA tile
+// K3/K4 on an f32 strip: the sandwich on wgmma, each operand in three bf16
+// parts
 // ---------------------------------------------------------------------------
 
-constexpr int SF_THREADS = 256;
-constexpr int SF_BM = 128;                    // output rows a block
-constexpr int SF_BN = 128;                    // sketch columns a block
-constexpr int SF_BK = 16;                     // depth a stage
-constexpr int SF_SPAN = 16;                   // stages a span: 256 deep, summed from zero
-constexpr int SF_LDK = SF_BK + 4;             // phase 2's A rows, k-major (floats)
-constexpr int SF_A = SF_BM * SF_LDK;          // >= SF_BK * SF_BM, phase 1's m-major A
-constexpr int SF_B = SF_BK * SF_BN;
-constexpr int SF_STAGE = SF_A + SF_B + SF_BK; // + K3's t of the stage
-// two stages, the running sums (64 a thread), the s2 of the tile's rows
-constexpr size_t SF_SMEM = sizeof(float) * (2 * (size_t)SF_STAGE + 64 * SF_THREADS + SF_BM);
+constexpr int SS_CONV = 128;                    // the converter warpgroup
+constexpr int SS_CONSUMERS = 256;               // two consumer warpgroups
+constexpr int SS_THREADS = SS_CONV + SS_CONSUMERS;
+constexpr int SS_CONV_REGS = 56;                // setmaxnreg: 128 x 56 + 256 x 224 =
+constexpr int SS_CONSUMER_REGS = 224;           //   64512, the block's 384 x 168 at launch
+constexpr int SS_BM = 128;                      // output rows a block
+constexpr int SS_BN = 256;                      // sketch columns a block
+constexpr int SS_BK = 32;                       // depth a stage
+constexpr int SS_FST = 4;                       // f32 strip tiles in flight
+constexpr int SS_PST = 2;                       // stages of bf16 parts
+constexpr int SS_KSPAN = 8;                     // K3's ks: stages a span from zero
+constexpr int SS_F_BYTES = SS_BM * SS_BK * 4;   // a strip tile in f32 (16 KB)
+constexpr int SS_APART = SS_BM * SS_BK * 2;     // one part of A (8 KB)
+constexpr int SS_BBOX = 64 * SS_BK * 2;         // a TMA box of B: 64 columns x 32 deep
+constexpr int SS_BPART = SS_BN / 64 * SS_BBOX;  // one part of B (16 KB)
+constexpr int SS_PSTAGE = 3 * SS_APART + 3 * SS_BPART;
+constexpr int SS_EMAX = 100;                    // |a grid's exponent| (2^E and the grids normal)
+// 1024 B of alignment slack, the f32 ring, the parts ring, K3's t of each
+// f32 tile, a barrier an f32 tile and three a parts stage, ks, s2
+constexpr size_t SS_SMEM = 1024 + (size_t)SS_FST * SS_F_BYTES + (size_t)SS_PST * SS_PSTAGE +
+                           4 * SS_BK * SS_FST + 8 * (SS_FST + 3 * SS_PST) + 4 * SS_BM +
+                           4 * SS_BM;
 
-struct SfArgs {
-  const float* strip;  // (P, ld)
-  const float* ta;     // (P, kp)                 phase 1
-  const float* t;      // (P)                     phase 1, K3
-  const float* s_pre;  // (N)                     phase 1, K3
-  const float* bm;     // (N)                     phase 1, K3
-  const float* s2_in;  // (N)                     phase 1, K4
-  float* s_post;       // (N) out                 phase 1, K3
-  float* ws;           // (N, kp) out / in        phase 1 / phase 2
-  float* part;         // (splits, P, kp) out     phase 2
-  int P, N, ld, kp, chunk;
+struct SsArgs {
+  const float* t;      // (P)              phase 1, K3
+  const float* s_pre;  // (N)              phase 1, K3
+  const float* bm;     // (N)              phase 1, K3
+  const float* s2_in;  // (N)              phase 1, K4
+  float* s_post;       // (N) out          phase 1, K3
+  float* ws;           // (N, kp) out      phase 1 (then split into its parts)
+  float* part;         // (splits, P, kp) out      phase 2
+  int P, N, kp, chunk;
 };
 
-// 16 bytes into shared memory, or 16 zero bytes where `valid` is false
-__device__ __forceinline__ void cp_async16z(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
+// x0, x1 (each |x| <= 2^E, its qi = 2^(E-8), q = 1 / qi) as three bf16 parts,
+// packed in pairs (x0 in the low half): b0 = x rounded to the grid qi (at
+// most 2^8 steps, so exact in bf16), b1 = bf16(x - b0), b2 = bf16(x - b0 -
+// b1). Both remainders are exact in f32, and b0 + b1 + b2 holds x to 2^-17
+// of |x - b0| <= qi / 2. E is the stage's: the largest |x| of the row of A,
+// or of the column of B, over the 32 depths of the stage is < 2^E. Products
+// of two b0 are then multiples of 2^(Ea + Eb - 16) of magnitude at most
+// 2^(Ea + Eb): the stage's sum of 32 needs 22 bits, so the tensor core's
+// accumulation, which truncates, drops nothing
+__device__ __forceinline__ void split3_grid(float x0, float x1, float q0, float qi0, float q1,
+                                            float qi1, uint32_t (&out)[3]) {
+  const float b0 = rintf(x0 * q0) * qi0, b1 = rintf(x1 * q1) * qi1;
+  out[0] = pack2(b0, b1);
+  const float r0 = x0 - b0, r1 = x1 - b1;
+  out[1] = pack2(r0, r1);
+  const float2 c = unpack2(out[1]);
+  out[2] = pack2(r0 - c.x, r1 - c.y);
 }
 
-// the stage of depth [kd, kd + 16) into `st`: A (phase 1 m-major
-// [k][m] from strip rows kd + k; phase 2 k-major [m][k] from strip columns
-// kd + k), B [k][n] (ta or ws rows kd + k), K3's t; zeros past N and past
-// the slice's end k_end (a multiple of 16, or N). One commit group
+// the grid's E of values whose largest |x| is m: m < 2^E, clamped so that
+// 2^E and the grid 2^(E - 8) stay normal (all zero: the least E)
+__device__ __forceinline__ int grid_exp(float m) {
+  const int e = (int)((__float_as_uint(m) >> 23) & 0xff) - 126;
+  return min(max(e, -SS_EMAX), SS_EMAX);
+}
+
+// shared-memory matrix descriptor, 64-byte swizzle, K-major: 8-row groups
+// of 64-byte rows `sbo` bytes apart (the 512-byte atoms aligned)
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// a box at element coordinates (c0, c1, c2) of a 3-D tensor map into shared
+// memory, completing on the barrier
+__device__ __forceinline__ void tma_box3(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// depth row j of a phase 1 converter thread whose row group is rs: rows
+// {0, 4, 2, 6}[rs] + {0, 1} + 8 {0 .. 3}, so a warp's 16-lane stores (row
+// groups 0, 1 or 2, 3) fall in rows 4 apart, whose swizzles differ
+__device__ __forceinline__ int ss_row(int rs, int j) {
+  return ((rs & 1) << 2) + ((rs >> 1) << 1) + (j & 1) + 8 * (j >> 1);
+}
+
+// The converter's part of a stage: the f32 strip tile `f` (as TMA stored
+// it, 128-byte swizzle) into the three bf16 parts of A at `ap`
+// (split3_grid, each output row's grid from its largest entry of the
+// stage), in the layout each phase's wgmma reads.
+// PHASE 1 (A = K^T, MN-major): the tile is four 32-column boxes of 32 depth
+//   rows; thread (warp b, lane (rs, c4)) = (box, (lane / 8, lane % 8))
+//   holds strip columns 32 b + 4 c4 .. + 3 of depth rows ss_row(rs, 0 ..
+//   7), so a column's 32 depths lie in 4 lanes of a warp (its largest entry
+//   by two shuffles); two passes over the tile (the largest entries and
+//   K3's ks = sum t_d K[d][col], then the split) hold no more than a row's
+//   4 entries. Each part's 4 bf16 go into the 64-column 128-byte-swizzled
+//   atoms (atom b / 2 of 32 rows, 4 KB).
+// PHASE 2 (A = K, K-major): the tile is one box, 128 strip rows of 32
+//   depths; thread (r0, q) = (tid / 8, tid % 8) splits depths 4 q .. 4 q +
+//   3 of rows r0 + 16 i (a row's 32 depths in 8 lanes: its largest entry by
+//   three shuffles) into 64-byte rows with the 64-byte swizzle (the 16-byte
+//   chunk c of row r at c ^ ((r / 2) & 3)).
+// Reads (8 lanes a phase, one 128-byte row) and writes (16 lanes a phase,
+// 128 bytes in distinct banks) meet no bank conflict.
 template <int PHASE, bool SPOST>
-__device__ __forceinline__ void sf_load(float* st, const SfArgs& a, int m0, int n0, int kd,
-                                        int k_end) {
+__device__ __forceinline__ void ss_convert(const unsigned char* f, unsigned char* ap,
+                                           const float* ts, float (&ks)[4]) {
   const int tid = threadIdx.x;
+  if (PHASE == 1) {
+    const int b = tid >> 5, rs = (tid >> 3) & 3, c4 = tid & 7;
+    f += b * 4096;
+    float m[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = tid + h * SF_THREADS;   // 512 chunks of 16 B each
-    if (PHASE == 1) {
-      const int k = c >> 5, col = m0 + 4 * (c & 31);
-      const bool v = col < a.N;
-      cp_async16z(st + k * SF_BM + 4 * (c & 31),
-                  v ? a.strip + (size_t)(kd + k) * a.ld + col : a.strip, v);
-    } else {
-      const int r = c >> 2, col = kd + 4 * (c & 3);
-      const bool v = col < k_end;
-      cp_async16z(st + r * SF_LDK + 4 * (c & 3),
-                  v ? a.strip + (size_t)(m0 + r) * a.ld + col : a.strip, v);
+    for (int j = 0; j < SS_BK / 4; ++j) {
+      const int d = ss_row(rs, j);
+      const float4 x = *reinterpret_cast<const float4*>(f + d * 128 + ((c4 ^ (d & 7)) << 4));
+      m[0] = fmaxf(m[0], fabsf(x.x));
+      m[1] = fmaxf(m[1], fabsf(x.y));
+      m[2] = fmaxf(m[2], fabsf(x.z));
+      m[3] = fmaxf(m[3], fabsf(x.w));
+      if (SPOST) {
+        const float tv = ts[d];
+        ks[0] = fmaf(x.x, tv, ks[0]);
+        ks[1] = fmaf(x.y, tv, ks[1]);
+        ks[2] = fmaf(x.z, tv, ks[2]);
+        ks[3] = fmaf(x.w, tv, ks[3]);
+      }
     }
-    const int k = c >> 5;
-    const bool v = kd + k < k_end;
-    const float* b = PHASE == 1 ? a.ta : a.ws;
-    cp_async16z(st + SF_A + k * SF_BN + 4 * (c & 31),
-                v ? b + (size_t)(kd + k) * a.kp + n0 + 4 * (c & 31) : b, v);
+    int e[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      m[c] = fmaxf(m[c], __shfl_xor_sync(0xffffffffu, m[c], 8));
+      m[c] = fmaxf(m[c], __shfl_xor_sync(0xffffffffu, m[c], 16));
+      e[c] = grid_exp(m[c]);
+    }
+    const int chunk = 4 * (b & 1) + (c4 >> 1);
+    ap += (b >> 1) * 4096;
+#pragma unroll
+    for (int j = 0; j < SS_BK / 4; ++j) {
+      const int d = ss_row(rs, j);
+      const float4 x = *reinterpret_cast<const float4*>(f + d * 128 + ((c4 ^ (d & 7)) << 4));
+      uint32_t lo[3], hi[3];
+      split3_grid(x.x, x.y, pow2(8 - e[0]), pow2(e[0] - 8), pow2(8 - e[1]), pow2(e[1] - 8), lo);
+      split3_grid(x.z, x.w, pow2(8 - e[2]), pow2(e[2] - 8), pow2(8 - e[3]), pow2(e[3] - 8), hi);
+      const int off = d * 128 + ((chunk ^ (d & 7)) << 4) + 8 * (c4 & 1);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(ap + p * SS_APART + off) = make_uint2(lo[p], hi[p]);
+    }
+  } else {
+    const int q4 = tid & 7, r0 = tid >> 3;
+#pragma unroll
+    for (int i = 0; i < SS_BM / 16; ++i) {
+      const int r = r0 + 16 * i;
+      const float4 x = *reinterpret_cast<const float4*>(f + r * 128 + ((q4 ^ (r & 7)) << 4));
+      float m = fmaxf(fmaxf(fabsf(x.x), fabsf(x.y)), fmaxf(fabsf(x.z), fabsf(x.w)));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+      const int e = grid_exp(m);
+      const float q = pow2(8 - e), qi = pow2(e - 8);
+      uint32_t lo[3], hi[3];
+      split3_grid(x.x, x.y, q, qi, q, qi, lo);
+      split3_grid(x.z, x.w, q, qi, q, qi, hi);
+      const int off = r * 64 + (((q4 >> 1) ^ ((r >> 1) & 3)) << 4) + 8 * (q4 & 1);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(ap + p * SS_APART + off) = make_uint2(lo[p], hi[p]);
+    }
   }
-  if (SPOST && tid < SF_BK / 4) cp_async16z(st + SF_A + SF_B + 4 * tid, a.t + kd + 4 * tid, true);
-  cp_async_commit();
 }
 
-// acc[i][j] += av[i] b[j]: the thread's 8 rows by its 8 columns
-__device__ __forceinline__ void sf_fma(float (&acc)[8][8], const float (&av)[8], float4 b0,
-                                       float4 b1) {
-  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
-}
-
-// PHASE 1: W = K^T ta over all of P for output rows = strip columns [m0,
-//          m0 + 128), sketch columns [n0, n0 + 128); epilogue ws = W s2 in
-//          f32 (K3: s2 = s_post^2, s_post from ks = K^T t summed beside).
-// PHASE 2: part[z] = K ws for output rows = strip rows [m0, m0 + 128) over
-//          the strip columns of slice z.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4 ty + {0..3}, 64 + 4 ty
-// + {0..3} and columns 4 tx + {0..3}, 64 + 4 tx + {0..3}: a B row is two
-// 16-byte loads (a warp reads 256 contiguous bytes), A two (phase 1, two
-// addresses a warp) or, k-major, one 8-byte load a row for two depths.
-// Each output sums a span of 256 depths from zero in registers, then adds
-// it to its running sum in shared memory with one f32 add.
+// stage k's f32 strip tile (and K3's t) into its slot of the f32 ring (base
+// `fring`, barriers from `ffull0`): phase 1 four 32 x 32 boxes (strip
+// columns m0 + 32 b, depth rows kd), phase 2 one 32 x 128 box (depths kd,
+// strip rows m0)
 template <int PHASE, bool SPOST>
-__global__ __launch_bounds__(SF_THREADS, 2) void sandwich_f32_kernel(const SfArgs a) {
-  extern __shared__ __align__(16) float sf_smem[];
-  float* run_s = sf_smem + 2 * SF_STAGE;     // [64][SF_THREADS]
-  float* s2_s = run_s + 64 * SF_THREADS;     // [SF_BM]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * SF_BN, m0 = blockIdx.y * SF_BM;
+__device__ __forceinline__ void ss_load_f(const CUtensorMap* map, uint32_t fring,
+                                          uint32_t ffull0, float* t_s, const float* t, int m0,
+                                          int k_beg, int k) {
+  const int st = k % SS_FST, kd = k_beg + k * SS_BK;
+  const uint32_t bar = ffull0 + 8 * st, dst = fring + st * SS_F_BYTES;
+  mbar_expect_tx(bar, SS_F_BYTES + (SPOST ? SS_BK * 4 : 0));
+  if (PHASE == 1) {
+    for (int b = 0; b < 4; ++b) tma_box(dst + b * 4096, map, m0 + 32 * b, kd, bar);
+  } else {
+    tma_box(dst, map, kd, m0, bar);
+  }
+  if (SPOST) bulk_copy(smem_u32(t_s + st * SS_BK), t + kd, SS_BK * 4, bar);
+}
+
+// PHASE 1: W = K^T ta, output rows = strip columns [m0, m0 + 128), depth P;
+//          epilogue ws = W s2 in f32 (K3: s2 = s_post^2, s_post from ks =
+//          K^T t, which the converter sums on the FP32 pipe).
+// PHASE 2: part[z] = K ws, output rows = strip rows [m0, m0 + 128), depth
+//          the strip columns of slice z.
+// Sketch columns [n0, n0 + 256). f_map: the f32 strip (N inner, P outer)
+// in 32 x 32 boxes (phase 1: four make a stage) or 32 x 128 (phase 2:
+// one); b_map: the three parts of ta (P rows) or of ws (N rows), (3, rows,
+// kp) bf16, in 64 x 32 boxes.
+// Warpgroup 0 converts (its thread 0 also issues every load); warpgroups 1
+// and 2 each run the wgmma of 64 output rows by the 256 sketch columns, one
+// 128-column half at a time: per 32-deep stage and half, from zero, the
+// five correction products a1 b0, a0 b1, a1 b1, a2 b0, a0 b2 of both k16
+// steps, added to the half's running f32 sum, then a0 b0 of both (exact:
+// split3_grid), added too.
+template <int PHASE, bool SPOST>
+__global__ __launch_bounds__(SS_THREADS, 1) void sandwich_split_kernel(
+    const __grid_constant__ CUtensorMap f_map, const __grid_constant__ CUtensorMap b_map,
+    const SsArgs a) {
+  extern __shared__ unsigned char ss_raw[];
+  unsigned char* smem = ss_raw + ((1024 - (smem_u32(ss_raw) & 1023)) & 1023);
+  const uint32_t fring = smem_u32(smem);
+  const uint32_t pring = fring + SS_FST * SS_F_BYTES;
+  unsigned char* pring_p = smem + SS_FST * SS_F_BYTES;
+  float* t_s = reinterpret_cast<float*>(pring_p + SS_PST * SS_PSTAGE);   // [SS_FST][SS_BK]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(t_s + SS_FST * SS_BK);
+  float* ks_s = reinterpret_cast<float*>(bars + SS_FST + 3 * SS_PST);    // [SS_BM]
+  float* s2_s = ks_s + SS_BM;                                             // [SS_BM]
+  const uint32_t ffull0 = smem_u32(bars), bfull0 = ffull0 + 8 * SS_FST;
+  const uint32_t afull0 = bfull0 + 8 * SS_PST, empty0 = afull0 + 8 * SS_PST;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
+  const int n0 = blockIdx.x * SS_BN;   // first sketch column
+  const int m0 = blockIdx.y * SS_BM;   // first output row
   const int k_beg = PHASE == 1 ? 0 : blockIdx.z * a.chunk;
   const int k_end = PHASE == 1 ? a.P : min(a.N, k_beg + a.chunk);
-  const int nst = k_end > k_beg ? (k_end - k_beg + SF_BK - 1) / SF_BK : 0;
+  const int nk = k_end > k_beg ? (k_end - k_beg + SS_BK - 1) / SS_BK : 0;
 
-  float acc[8][8];
+  if (tid == 0) {
+    for (int s = 0; s < SS_FST; ++s) mbar_init(ffull0 + 8 * s, 1);
+    for (int s = 0; s < SS_PST; ++s) {
+      mbar_init(bfull0 + 8 * s, 1);
+      mbar_init(afull0 + 8 * s, SS_CONV);
+      mbar_init(empty0 + 8 * s, SS_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < SS_CONV) {
+    // the converter warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(SS_CONV_REGS));
+    if (tid == 0)
+      for (int k = 0; k < min(SS_FST, nk); ++k)
+        ss_load_f<PHASE, SPOST>(&f_map, fring, ffull0, t_s, a.t, m0, k_beg, k);
+    float ks_span[4] = {0.f, 0.f, 0.f, 0.f}, ks_run[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < nk; ++k) {
+      const int fs = k % SS_FST, ps = k % SS_PST;
+      if (k >= SS_PST) mbar_wait(empty0 + 8 * ps, ((k / SS_PST) - 1) & 1);
+      if (tid == 0) {   // B's three parts of the stage: 3 x 4 boxes
+        const uint32_t bar = bfull0 + 8 * ps, pbase = pring + ps * SS_PSTAGE;
+        const int kd = k_beg + k * SS_BK;
+        mbar_expect_tx(bar, 3 * SS_BPART);
+        for (int p = 0; p < 3; ++p)
+          for (int c = 0; c < SS_BN / 64; ++c)
+            tma_box3(pbase + 3 * SS_APART + p * SS_BPART + c * SS_BBOX, &b_map, n0 + 64 * c, kd,
+                     p, bar);
+      }
+      mbar_wait(ffull0 + 8 * fs, (k / SS_FST) & 1);
+      ss_convert<PHASE, SPOST>(smem + fs * SS_F_BYTES, pring_p + ps * SS_PSTAGE,
+                               t_s + fs * SS_BK, ks_span);
+      if (SPOST && ((k + 1) % SS_KSPAN == 0 || k + 1 == nk)) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float ks_acc = 0.f, ks_run = 0.f;   // K3: ks of strip column m0 + tid (tid < 128)
-  if (nst > 0) sf_load<PHASE, SPOST>(sf_smem, a, m0, n0, k_beg, k_end);
-  for (int s = 0; s < nst; ++s) {
-    const float* as = sf_smem + (s & 1) * SF_STAGE;
-    const float* bs = as + SF_A;
-    cp_async_wait_all();
-    __syncthreads();   // stage s in; every thread is done with stage s - 1's buffer
-    if (s + 1 < nst)
-      sf_load<PHASE, SPOST>(sf_smem + ((s + 1) & 1) * SF_STAGE, a, m0, n0,
-                            k_beg + (s + 1) * SF_BK, k_end);
-    if (s % SF_SPAN == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      ks_acc = 0.f;
+        for (int c = 0; c < 4; ++c) {
+          ks_run[c] += ks_span[c];
+          ks_span[c] = 0.f;
+        }
+      }
+      fence_async_smem();   // the parts seen by wgmma
+      mbar_arrive(afull0 + 8 * ps);
+      // every converter thread is done with f32 slot fs: refill it
+      asm volatile("bar.sync 2, %0;\n" ::"n"(SS_CONV) : "memory");
+      if (tid == 0 && k + SS_FST < nk)
+        ss_load_f<PHASE, SPOST>(&f_map, fring, ffull0, t_s, a.t, m0, k_beg, k + SS_FST);
     }
     if (PHASE == 1) {
+      // the column scales of this tile (K3: a column's 4 lanes' ks, in a
+      // fixed tree)
+      if (SPOST) {
 #pragma unroll
-      for (int k = 0; k < SF_BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(as + k * SF_BM + 4 * ty);
-        const float4 a1 = *reinterpret_cast<const float4*>(as + k * SF_BM + 64 + 4 * ty);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        sf_fma(acc, av, *reinterpret_cast<const float4*>(bs + k * SF_BN + 4 * tx),
-               *reinterpret_cast<const float4*>(bs + k * SF_BN + 64 + 4 * tx));
-      }
-      if (SPOST && tid < SF_BM) {
-        const float* ts = bs + SF_B;
-#pragma unroll
-        for (int k = 0; k < SF_BK; ++k) ks_acc = fmaf(ts[k], as[k * SF_BM + tid], ks_acc);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < SF_BK; k += 2) {
-        float2 ar[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          ar[i] = *reinterpret_cast<const float2*>(as + ((i & 4) * 16 + 4 * ty + (i & 3)) * SF_LDK + k);
-        const float av0[8] = {ar[0].x, ar[1].x, ar[2].x, ar[3].x,
-                              ar[4].x, ar[5].x, ar[6].x, ar[7].x};
-        sf_fma(acc, av0, *reinterpret_cast<const float4*>(bs + k * SF_BN + 4 * tx),
-               *reinterpret_cast<const float4*>(bs + k * SF_BN + 64 + 4 * tx));
-        const float av1[8] = {ar[0].y, ar[1].y, ar[2].y, ar[3].y,
-                              ar[4].y, ar[5].y, ar[6].y, ar[7].y};
-        sf_fma(acc, av1, *reinterpret_cast<const float4*>(bs + (k + 1) * SF_BN + 4 * tx),
-               *reinterpret_cast<const float4*>(bs + (k + 1) * SF_BN + 64 + 4 * tx));
-      }
-    }
-    if ((s + 1) % SF_SPAN == 0 || s + 1 == nst) {   // the span into the running sums
-      const bool first = s < SF_SPAN, last = s + 1 == nst;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float* q = run_s + (i * 8 + j) * SF_THREADS + tid;
-          const float v = first ? acc[i][j] : *q + acc[i][j];
-          if (last)
-            acc[i][j] = v;
-          else
-            *q = v;
+        for (int c = 0; c < 4; ++c) {
+          ks_run[c] += __shfl_xor_sync(0xffffffffu, ks_run[c], 8);
+          ks_run[c] += __shfl_xor_sync(0xffffffffu, ks_run[c], 16);
+          if (lane < 8) ks_s[32 * warp + 4 * lane + c] = ks_run[c];
         }
-      ks_run = first ? ks_acc : ks_run + ks_acc;
-    }
-  }
-
-  if (PHASE == 1) {
-    // the column scales of this tile, then ws = W s2
-    if (tid < SF_BM) {
+        asm volatile("bar.sync 2, %0;\n" ::"n"(SS_CONV) : "memory");
+      }
       const int j = m0 + tid;
       float s2 = 0.f;
       if (j < a.N) {
         if (SPOST) {
-          const float sp = sqrtf(a.s_pre[j] / fmaxf(ks_run, EPS)) * a.bm[j];
+          const float sp = sqrtf(a.s_pre[j] / fmaxf(ks_s[tid], EPS)) * a.bm[j];
           if (blockIdx.x == 0) a.s_post[j] = sp;
           s2 = sp * sp;
         } else {
@@ -878,35 +1044,163 @@ __global__ __launch_bounds__(SF_THREADS, 2) void sandwich_f32_kernel(const SfArg
         }
       }
       s2_s[tid] = s2;
+      asm volatile("bar.sync 1, %0;\n" ::"n"(SS_THREADS) : "memory");
     }
-    __syncthreads();
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows [m0 + 64 wg, m0 + 64 wg + 64)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SS_CONSUMER_REGS));
+  constexpr int TA = PHASE == 1 ? 1 : 0;   // A MN-major (phase 1) or K-major
+  const int wg = (tid - SS_CONV) / 128, g = lane >> 2, tq = lane & 3;
+  const int rw = 16 * (warp & 3) + g;   // this thread's rows rw, rw + 8 of the 64
+  float run[2][64];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = (i & 4) * 16 + 4 * ty + (i & 3), j = m0 + r;
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) run[h][i] = 0.f;
+  float acc[64];
+
+  for (int k = 0; k < nk; ++k) {
+    const int ps = k % SS_PST;
+    const uint32_t par = (k / SS_PST) & 1;
+    mbar_wait(bfull0 + 8 * ps, par);
+    mbar_wait(afull0 + 8 * ps, par);
+    const uint32_t abase = pring + ps * SS_PSTAGE + wg * 4096;
+    const uint32_t bbase = pring + ps * SS_PSTAGE + 3 * SS_APART;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // A: phase 1 MN-major (64 columns in one swizzle atom; k16 = 16 rows
+      // of 128 B), phase 2 K-major (k16 = 32 B along the 64-byte row).
+      // B: MN-major, 128 columns = two 64-column boxes (4 KB apart)
+      auto da = [&](int p, int kk) {
+        return PHASE == 1 ? sw128_desc(abase + p * SS_APART + kk * 2048, 1024, 1024)
+                          : sw64_desc(abase + p * SS_APART + kk * 32, 512);
+      };
+      auto db = [&](int p, int kk) {
+        return sw128_desc(bbase + p * SS_BPART + 2 * h * SS_BBOX + kk * 2048, SS_BBOX, 1024);
+      };
+      // the corrections, then a0 b0, each chain from zero into the
+      // half's running sum
+#pragma unroll
+      for (int chain = 0; chain < 2; ++chain) {
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < SS_BK / 16; ++kk) {
+          if (chain == 0) {
+            wgmma_n128<TA>(acc, da(1, kk), db(0, kk), kk);   // from zero at kk 0
+            wgmma_n128<TA>(acc, da(0, kk), db(1, kk), 1);
+            wgmma_n128<TA>(acc, da(1, kk), db(1, kk), 1);
+            wgmma_n128<TA>(acc, da(2, kk), db(0, kk), 1);
+            wgmma_n128<TA>(acc, da(0, kk), db(2, kk), 1);
+          } else {
+            wgmma_n128<TA>(acc, da(0, kk), db(0, kk), kk);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) run[h][i] += acc[i];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ps);
+  }
+
+  if (PHASE == 1) {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(SS_THREADS) : "memory");   // s2_s is set
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = wg * 64 + rw + 8 * e, j = m0 + r;
       if (j >= a.N) continue;
       const float s2 = s2_s[r];
-      float4* o = reinterpret_cast<float4*>(a.ws + (size_t)j * a.kp + n0 + 4 * tx);
-      o[0] = make_float4(acc[i][0] * s2, acc[i][1] * s2, acc[i][2] * s2, acc[i][3] * s2);
-      o[16] = make_float4(acc[i][4] * s2, acc[i][5] * s2, acc[i][6] * s2, acc[i][7] * s2);
+      float* out = a.ws + (size_t)j * a.kp + n0 + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          *reinterpret_cast<float2*>(out + 128 * h + 8 * i) =
+              make_float2(run[h][4 * i + 2 * e] * s2, run[h][4 * i + 2 * e + 1] * s2);
     }
   } else {
     float* out = a.part + (size_t)blockIdx.z * a.P * a.kp;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = m0 + (i & 4) * 16 + 4 * ty + (i & 3);
-      float4* o = reinterpret_cast<float4*>(out + (size_t)r * a.kp + n0 + 4 * tx);
-      o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      o[16] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    for (int e = 0; e < 2; ++e) {
+      const int i_row = m0 + wg * 64 + rw + 8 * e;
+      float* o = out + (size_t)i_row * a.kp + n0 + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          *reinterpret_cast<float2*>(o + 128 * h + 8 * i) =
+              make_float2(run[h][4 * i + 2 * e], run[h][4 * i + 2 * e + 1]);
     }
   }
 }
 
+// out[p][r][c] = part p of x[r][c] (split3_grid), p = 0, 1, 2, for a
+// (rows, kp) matrix (kp even): thread (block rb of 32 rows, column pair)
+// finds each column's largest |x| over the block's rows (a stage of B: the
+// kernel's stages start at multiples of 32), then splits them on its grid
+__global__ void split_parts_kernel(const float* __restrict__ x, bf16* __restrict__ out, int rows,
+                                   int kp) {
+  const int pairs = kp / 2;
+  const size_t n = (size_t)rows * kp;
+  const size_t nt = (size_t)((rows + SS_BK - 1) / SS_BK) * pairs;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < nt;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int c = 2 * (int)(i % pairs), r0 = SS_BK * (int)(i / pairs);
+    const int r1 = min(rows, r0 + SS_BK);
+    float m0 = 0.f, m1 = 0.f;
+    for (int r = r0; r < r1; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(x + (size_t)r * kp + c);
+      m0 = fmaxf(m0, fabsf(v.x));
+      m1 = fmaxf(m1, fabsf(v.y));
+    }
+    const int e0 = grid_exp(m0), e1 = grid_exp(m1);
+    const float q0 = pow2(8 - e0), qi0 = pow2(e0 - 8), q1 = pow2(8 - e1), qi1 = pow2(e1 - 8);
+    for (int r = r0; r < r1; ++r) {
+      const size_t o = (size_t)r * kp + c;
+      const float2 v = *reinterpret_cast<const float2*>(x + o);
+      uint32_t q[3];
+      split3_grid(v.x, v.y, q0, qi0, q1, qi1, q);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) *reinterpret_cast<uint32_t*>(out + p * n + o) = q[p];
+    }
+  }
+}
+
+// the (rows, kp) f32 matrix x as its three bf16 parts (3, rows, kp)
+int launch_split_parts(const float* x, bf16* out, int rows, int kp, cudaStream_t s) {
+  const size_t nt = (size_t)((rows + SS_BK - 1) / SS_BK) * (kp / 2);
+  split_parts_kernel<<<(unsigned)std::min<size_t>(8192, (nt + 255) / 256), 256, 0, s>>>(
+      x, out, rows, kp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the three bf16 parts of a (rows, kp) matrix, stored (3, rows, kp), in
+// (64 x 32 x 1) boxes with the 128-byte swizzle; rows past the edge read as
+// zero
+bool parts_map(CUtensorMap* m, const void* base, int kp, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)kp, (cuuint64_t)rows, 3};
+  const cuuint64_t strides[2] = {(cuuint64_t)kp * 2, (cuuint64_t)kp * 2 * rows};
+  const cuuint32_t box[3] = {64, SS_BK, 1}, unit[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int PHASE, bool SPOST>
-int launch_sandwich_f32(dim3 grid, const SfArgs& a, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(sandwich_f32_kernel<PHASE, SPOST>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SF_SMEM);
+int launch_sandwich_split(dim3 grid, const CUtensorMap& fm, const CUtensorMap& bmap,
+                          const SsArgs& a, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(sandwich_split_kernel<PHASE, SPOST>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SS_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  sandwich_f32_kernel<PHASE, SPOST><<<grid, SF_THREADS, SF_SMEM, s>>>(a);
+  sandwich_split_kernel<PHASE, SPOST><<<grid, SS_THREADS, SS_SMEM, s>>>(fm, bmap, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1052,22 +1346,30 @@ int glt_strip_sandwich(const void* strip, const void* ta, const void* t,
 
 // K3 / K4 on an f32 strip (t != null: K3), every operand f32: P % 128 ==
 // 0, strip rows ld >= N apart with ld % 4 == 0, kp % 128 == 0, 16-byte
-// aligned strip, ta, t and ws; ta (P, kp), ws (N, kp), part (splits, P,
-// kp), u (P, kp). Phase 2's slices are `splits` column ranges of
-// ceil(N / splits) rounded up to 16.
+// aligned strip, ta, t and the parts; ta (P, kp) f32, ws (N, kp) f32
+// scratch, ta_parts (3, P, kp) and ws_parts (3, N, kp) bf16 scratch, part
+// (splits, P, kp), u (P, kp). Phase 2's slices are `splits` column ranges
+// of ceil(N / splits) rounded up to 32.
 int glt_strip_sandwich_f32(const void* strip, const void* ta, const void* t,
                            const void* s_pre, const void* bm, const void* s2,
-                           void* s_post, void* ws, void* part, void* u,
-                           int P, int N, int ld, int kp, int splits, void* stream) {
+                           void* s_post, void* ws, void* ta_parts, void* ws_parts, void* part,
+                           void* u, int P, int N, int ld, int kp, int splits, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uintptr_t align = reinterpret_cast<uintptr_t>(strip) | reinterpret_cast<uintptr_t>(ta) |
-                          reinterpret_cast<uintptr_t>(t) | reinterpret_cast<uintptr_t>(ws);
-  if (P <= 0 || P % SF_BM || N <= 0 || ld < N || ld % 4 || kp <= 0 || kp % SF_BN ||
-      splits < 1 || splits > 65535 || (N + SF_BM - 1) / SF_BM > 65535 || align % 16)
+                          reinterpret_cast<uintptr_t>(t) | reinterpret_cast<uintptr_t>(ws) |
+                          reinterpret_cast<uintptr_t>(ta_parts) |
+                          reinterpret_cast<uintptr_t>(ws_parts);
+  CUtensorMap f1_map, f2_map, ta_map, ws_map;
+  if (P <= 0 || P % SS_BM || N <= 0 || ld < N || ld % 4 || kp <= 0 || kp % SS_BN ||
+      splits < 1 || splits > 65535 || (N + SS_BM - 1) / SS_BM > 65535 || align % 16 ||
+      !tile_map(&f1_map, strip, true, N, P, ld, 32, 32) ||
+      !tile_map(&f2_map, strip, true, N, P, ld, 32, SS_BM) ||
+      !parts_map(&ta_map, ta_parts, kp, P) || !parts_map(&ws_map, ws_parts, kp, N))
     return static_cast<int>(cudaErrorInvalidValue);
-  SfArgs a = {};
-  a.strip = static_cast<const float*>(strip);
-  a.ta = static_cast<const float*>(ta);
+  int rc = launch_split_parts(static_cast<const float*>(ta), static_cast<bf16*>(ta_parts), P, kp,
+                              s);
+  if (rc != 0) return rc;
+  SsArgs a = {};
   a.t = static_cast<const float*>(t);
   a.s_pre = static_cast<const float*>(s_pre);
   a.bm = static_cast<const float*>(bm);
@@ -1077,16 +1379,17 @@ int glt_strip_sandwich_f32(const void* strip, const void* ta, const void* t,
   a.part = static_cast<float*>(part);
   a.P = P;
   a.N = N;
-  a.ld = ld;
   a.kp = kp;
   const int chunk = (N + splits - 1) / splits;
-  a.chunk = (chunk + SF_BK - 1) / SF_BK * SF_BK;
+  a.chunk = (chunk + SS_BK - 1) / SS_BK * SS_BK;
 
-  const dim3 g1(kp / SF_BN, (N + SF_BM - 1) / SF_BM);
-  int rc = t != nullptr ? launch_sandwich_f32<1, true>(g1, a, s)
-                        : launch_sandwich_f32<1, false>(g1, a, s);
+  const dim3 g1(kp / SS_BN, (N + SS_BM - 1) / SS_BM);
+  rc = t != nullptr ? launch_sandwich_split<1, true>(g1, f1_map, ta_map, a, s)
+                    : launch_sandwich_split<1, false>(g1, f1_map, ta_map, a, s);
   if (rc != 0) return rc;
-  rc = launch_sandwich_f32<2, false>(dim3(kp / SF_BN, P / SF_BM, splits), a, s);
+  rc = launch_split_parts(a.ws, static_cast<bf16*>(ws_parts), N, kp, s);
+  if (rc != 0) return rc;
+  rc = launch_sandwich_split<2, false>(dim3(kp / SS_BN, P / SS_BM, splits), f2_map, ws_map, a, s);
   if (rc != 0) return rc;
   return launch_reduce(static_cast<const float*>(part), static_cast<float*>(u), splits,
                        (size_t)P * kp, s);

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "glt_strip_ext2_f32_smem_bytes": ([_I, _I, _I], _Z),
     "glt_strip_ext2_f32_clusters": ([_I, _I, _I], _I),
     "glt_strip_ext2_f32": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "glt_strip_sandwich_f32": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "glt_strip_sandwich_f32": ([_P] * 12 + [_I] * 5 + [_P], _I),
     "glt_kb_strip": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "glt_kb_entries": ([_P, _P], _I),
     "glt_ext2_clusters": ([_I, _I], _I),

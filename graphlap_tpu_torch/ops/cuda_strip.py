@@ -20,7 +20,8 @@ round to the strip dtype before the products, products accumulate in f32,
 and the sandwich's ws rounds to the strip dtype (r above) before the second
 product. A bf16 strip (bfloat16_store) takes bf16 operands; an f32 strip
 (affinity_dtype float32) is the reference's "highest" class: every operand
-and ws stay f32 and every product is IEEE f32 (no TF32). CPU tensors take
+and ws stay f32 and every product is f32-accurate (never plain TF32; the
+kernel runs it as six products of bf16 parts). CPU tensors take
 the ``*_plain`` versions (PyTorch ops with those rounding points); CUDA
 tensors launch ``csrc/strip_sweeps.cu`` on a bf16 or an f32 strip, whose
 row count must be a multiple of ``P_QUANTUM``; any other strip dtype
@@ -32,10 +33,12 @@ rows (64 bf16 or 32 f32 columns, ``ext2_plan``): each block holds its slice
 of the slab's rows in shared memory, the blocks push their column-sum
 partials into each other's shared memory, and the row sums K s are formed
 from the same staged rows. K3/K4 are two launches of one kernel a strip
-dtype (bf16: a wgmma kernel with a TMA ring, a producer warpgroup and two
-consumer warpgroups; f32: an FFMA tile, 128 x 128 outputs a block, spans
-of 256 depths summed from zero): W = K^T ta with the ws epilogue, then U =
-K ws split over N into fixed-order partials (``sandwich_splits``).
+dtype, both on wgmma with a TMA ring and two consumer warpgroups (bf16: a
+producer warpgroup; f32: a converter warpgroup that splits each f32 strip
+tile into three bf16 parts in shared memory, ta and ws split by small
+passes, the six part products that keep the product f32-exact, 32-deep
+stages summed from zero): W = K^T ta with the ws epilogue, then U = K ws
+split over N into fixed-order partials (``sandwich_splits``).
 """
 
 from __future__ import annotations
@@ -49,10 +52,12 @@ from . import _build
 from .cuda_affinity import _device_kind
 
 EPS = 1e-30
-P_QUANTUM = 128          # strip rows per sandwich tile (csrc SW_BM, SF_BM)
+P_QUANTUM = 128          # strip rows per sandwich tile (csrc SW_BM, SS_BM)
 KP_QUANTUM = 256         # sketch columns per bf16 sandwich tile (csrc SW_BN)
-KP_QUANTUM_F32 = 128     # sketch columns per f32 sandwich tile (csrc SF_BN)
-F32_BLOCKS_PER_SM = 2    # f32 sandwich blocks an SM (csrc __launch_bounds__)
+KP_QUANTUM_F32 = 256     # sketch columns per f32 sandwich tile (csrc SS_BN)
+F32_BLOCKS_PER_SM = 1    # f32 sandwich blocks an SM (csrc SS_SMEM, 212 KB)
+F32_STAGE_DEPTH = 32     # strip columns per f32 phase-2 stage (csrc SS_BK)
+F32_PARTS = 3            # bf16 parts of each f32 sandwich operand (split3_grid)
 EXT2_ROW = 128           # bytes of a K2 slab row (csrc X2_ROW)
 EXT2_SLAB = 64           # K2's columns a bf16 slab (32 on an f32 strip)
 EXT2_MAX_P = 8192        # the largest P the path gives (config sample_cap)
@@ -220,8 +225,8 @@ def sandwich_splits(p: int, n: int, kp: int, sms: int,
     whole number of ``depth``-column stages) whose (P / 128) x (kp /
     ``tile_n``) x S blocks, ``per_sm`` an SM, fill their last wave best;
     ties take the fewer. The defaults are the bf16 kernel's (one 128 x 256
-    tile an SM, 64-deep stages); the f32 kernel runs two 128 x 128 tiles an
-    SM in 16-deep stages."""
+    tile an SM, 64-deep stages); the f32 kernel runs one 128 x 256 tile an
+    SM in 32-deep stages."""
     tiles = (p // P_QUANTUM) * (kp // tile_n)
     slots = sms * per_sm
     top = min(4 * math.ceil(slots / tiles), math.ceil(n / depth))
@@ -267,9 +272,14 @@ def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
         tab = torch.zeros((p, kp2), dtype=dt, device=dev)
         tab[:, :kp] = ta.to(dt)
     splits = (sandwich_splits(p, n, kp2, _sms(strip), KP_QUANTUM_F32,
-                              F32_BLOCKS_PER_SM, 16) if f32 else
+                              F32_BLOCKS_PER_SM, F32_STAGE_DEPTH) if f32 else
               sandwich_splits(p, n, kp2, _sms(strip)))
     ws = torch.empty((n, kp2), dtype=dt, device=dev)
+    # on an f32 strip ta and ws run as their three bf16 parts
+    scratch = ([torch.empty((F32_PARTS, p, kp2), dtype=torch.bfloat16,
+                            device=dev),
+                torch.empty((F32_PARTS, n, kp2), dtype=torch.bfloat16,
+                            device=dev)] if f32 else [])
     part = torch.empty((splits, p, kp2), dtype=torch.float32, device=dev)
     u = torch.empty((p, kp2), dtype=torch.float32, device=dev)
     s_post = torch.empty(n, dtype=torch.float32, device=dev)
@@ -280,8 +290,9 @@ def _sandwich_launch(strip, ta, t, s_pre, b_mask, s2, what):
     lib = _build.lib()
     launch = lib.glt_strip_sandwich_f32 if f32 else lib.glt_strip_sandwich
     rc = launch(strip.data_ptr(), tab.data_ptr(), *ptrs, s_post.data_ptr(),
-                ws.data_ptr(), part.data_ptr(), u.data_ptr(), p, n, ld, kp2,
-                splits, _build.stream_ptr(strip))
+                ws.data_ptr(), *(x.data_ptr() for x in scratch),
+                part.data_ptr(), u.data_ptr(), p, n, ld, kp2, splits,
+                _build.stream_ptr(strip))
     _build.check(rc, what)
     return u[:, :kp], s_post
 

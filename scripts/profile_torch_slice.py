@@ -72,7 +72,7 @@ sys.path.insert(0, str(ROOT))
 # device kernel name -> group, first match wins
 GROUPS = (
     ("port kernels", r"affinity_kernel|affinity_split_kernel|ext2_kernel|"
-                     r"sandwich_kernel|sandwich_f32_kernel|"
+                     r"sandwich_kernel|sandwich_split_kernel|split_parts_kernel|"
                      r"kb_emit_kernel|ext2_matvec_kernel|"
                      r"aug_sum_kernel|f32_sum_kernel|"
                      r"colstats_v_kernel|ks_kernel|reduce_partials|"

@@ -279,10 +279,11 @@ def test_sandwich_shape_guards_raise_before_a_launch(monkeypatch, case):
 
 
 # the sandwich's tile plan by strip dtype: (sketch columns a tile, blocks an
-# SM, columns a stage): one 128 x 256 wgmma tile an SM in 64-column stages
-# on a bf16 strip, two 128 x 128 FFMA tiles an SM in 16-column ones on f32
+# SM, columns a stage): one 128 x 256 wgmma tile an SM, in 64-column stages
+# on a bf16 strip and in 32-column ones on f32 (its three bf16 parts)
 SANDWICH_PLAN = {"bf16": (k24.KP_QUANTUM, 1, 64),
-                 "f32": (k24.KP_QUANTUM_F32, k24.F32_BLOCKS_PER_SM, 16)}
+                 "f32": (k24.KP_QUANTUM_F32, k24.F32_BLOCKS_PER_SM,
+                         k24.F32_STAGE_DEPTH)}
 
 
 def _by_dtype(cases):
@@ -296,14 +297,14 @@ def _by_dtype(cases):
     ("bf16", 5248, 262144, 256, 132, 16),   # the main path: 41 x 16 blocks
     ("bf16", 128, 4100, 256, 132, 65),      # one tile: a slice a stage
     ("bf16", 256, 4096, 512, 132, 33),      # 4 tiles: one full wave of 132
-    ("f32", 5248, 262144, 256, 132, 16),    # 82 tiles x 16 = 1312
-    ("f32", 128, 4100, 256, 132, 132),      # two tiles: a slot a block
-    ("f32", 256, 4096, 512, 132, 33),       # 8 x 33: one full wave of 264
+    ("f32", 5248, 262144, 256, 132, 16),    # 41 x 16 blocks, as on bf16
+    ("f32", 128, 4100, 256, 132, 129),      # one tile: a slice a stage
+    ("f32", 256, 4096, 512, 132, 33),       # 4 x 33: one full wave of 132
 ]))
 def test_sandwich_splits_fill_the_last_wave(dtype, p, n, kp, sms, want):
-    """Phase 2's split over N: whole stages a slice, and the count whose
-    blocks (one an SM on a bf16 strip, two on an f32 one) waste the least
-    of their last wave."""
+    """Phase 2's split over N: whole stages a slice (64 columns on a bf16
+    strip, 32 on an f32 one), and the count whose blocks (one an SM) waste
+    the least of their last wave."""
     tile_n, per_sm, depth = SANDWICH_PLAN[dtype]
     s = k24.sandwich_splits(p, n, kp, sms, tile_n, per_sm, depth)
     assert s == want
@@ -364,8 +365,9 @@ def test_f32_strip_reaches_its_kernels_with_their_plans(monkeypatch):
     """On the CUDA branch an f32 strip launches the f32 entry points (never
     the bf16 ones, never the plain versions): K2 with its f32 plan (clusters
     of 8, two 32-column slabs in flight at P 5248) and t2 unrounded; K3/K4
-    with kp zero-padded to the f32 tile's 128 columns and the f32 split. A
-    failed launch raises and counts nothing."""
+    with kp zero-padded to the f32 tile's 256 columns, the f32 split, and
+    scratch for ws and for ta's and ws's three bf16 parts. A failed launch
+    raises and counts nothing."""
     lib = _FakeLib()
     monkeypatch.setattr(k24, "_device_kind", lambda *ts: "cuda")
     monkeypatch.setattr(_build, "lib", lambda: lib)
@@ -381,7 +383,7 @@ def test_f32_strip_reaches_its_kernels_with_their_plans(monkeypatch):
     assert occ == "glt_strip_ext2_f32_clusters" and occ_args == (8, 656, 2)
     assert launch == "glt_strip_ext2_f32"
     assert args[6:12] == (p, n, 264, 8, 2, 9)   # ld 264; ceil(262 / 32)
-    for kp, kp2 in ((200, 256), (384, 384)):
+    for kp, kp2 in ((200, 256), (384, 512)):
         lib.calls.clear()
         ta = torch.zeros((p, kp))
         with pytest.raises(RuntimeError, match="cudaError 1"):
@@ -391,8 +393,10 @@ def test_f32_strip_reaches_its_kernels_with_their_plans(monkeypatch):
             k24.strip_sandwich_cuda(s, ta, torch.ones(n))
         assert [c[0] for c in lib.calls] == ["glt_strip_sandwich_f32"] * 2
         for _, args in lib.calls:
-            splits = k24.sandwich_splits(p, n, kp2, 132, 128, 2, 16)
-            assert args[10:15] == (p, n, 264, kp2, splits)
+            splits = k24.sandwich_splits(p, n, kp2, 132, 256, 1, 32)
+            assert args[12:17] == (p, n, 264, kp2, splits)
+            # ws and ta's and ws's parts: scratch apart from ta
+            assert len({args[1], *args[7:10]}) == 4
     assert lib.calls[1][1][2] is None            # K4 passes no t
     assert _counts() == before
 
@@ -480,6 +484,167 @@ def test_k1_split_fp16_cross_holds_the_f32_cross(patch, h, w, cols):
     # poison rows and columns: exactly zero
     assert bool((strip[p:] == 0).all())
     assert bool((strip[:, n:] == 0).all())
+
+
+def _grid_exp(m):
+    """csrc grid_exp: the E with m < 2^E, in [-100, 100] (-100 for 0)."""
+    return torch.where(m > 0, torch.frexp(m).exponent,
+                       torch.full_like(m, -100, dtype=torch.int32)
+                       ).clamp(-100, 100)
+
+
+def _parts3_bf16(x, e):
+    """The kernel's split of an f32 operand (csrc split3_grid): b0 = x
+    rounded to the grid 2^(e - 8), b1 = bf16(x - b0), b2 = bf16(x - b0 -
+    b1), carried in f32."""
+    q = torch.exp2(8.0 - e.float())
+    b0 = torch.round(x * q) / q                      # rintf: half to even
+    r = x - b0
+    b1 = r.to(torch.bfloat16).float()
+    return b0, b1, (r - b1).to(torch.bfloat16).float()
+
+
+def _split_sum(a, b, lo, hi, depth=k24.F32_STAGE_DEPTH):
+    """sum over k in [lo, hi) of a[:, k] b[k, :] (a the strip or its
+    transpose, b ta or ws) as sandwich_split_kernel sums it: each
+    ``depth``-deep stage splits a's rows and b's columns on their own grids
+    (from their largest entries of the stage), sums the five correction
+    products a1 b0, a0 b1, a1 b1, a2 b0, a0 b2 from zero (exact products,
+    their sum rounded once to f32: the tensor core's truncation within them
+    is not modelled) and adds them to the running f32 sum, then a0 b0
+    (exact on the grids) from zero, added too."""
+    run = torch.zeros((a.shape[0], b.shape[1]))
+    for k in range(lo, hi, depth):
+        s = slice(k, min(k + depth, hi))
+        sa, sb = a[:, s], b[s]
+        a0, a1, a2 = _parts3_bf16(sa, _grid_exp(sa.abs().amax(1))[:, None])
+        b0, b1, b2 = _parts3_bf16(sb, _grid_exp(sb.abs().amax(0))[None, :])
+
+        def mm(x, y):
+            return x.double() @ y.double()
+        big = mm(a0, b0).float()
+        corr = (mm(a1, b0) + mm(a0, b1) + mm(a1, b1) + mm(a2, b0)
+                + mm(a0, b2)).float()
+        run = (run + corr) + big
+    return run
+
+
+def _ks_converter(strip, t):
+    """K3's ks = K^T t as the kernel's converter warpgroup sums it on the
+    FP32 pipe while it splits the strip: row group g holds the rows d with
+    d mod 8 in {0, 1}, {4, 5}, {2, 3}, {6, 7} (g = 0 .. 3), FMA chains over
+    spans of 8 32-row stages (256 rows) from zero added to its running
+    sum, the 4 groups' sums as (g0 + g1) + (g2 + g3)."""
+    p = strip.shape[0]
+    groups = ((0, 1), (4, 5), (2, 3), (6, 7))
+    run = torch.zeros((4, strip.shape[1]))
+    for s0 in range(0, p, 256):
+        for g, mods in enumerate(groups):
+            span = torch.zeros(strip.shape[1], dtype=torch.float64)
+            for d in range(s0, min(s0 + 256, p)):
+                if d % 8 in mods:                      # one FMA a row
+                    span = span + strip[d].double() * float(t[d])
+                    span = span.float().double()
+            run[g] = run[g] + span.float()
+    return (run[0] + run[1]) + (run[2] + run[3])
+
+
+def _sandwich_split(strip, ta, s2, sms=132):
+    """K4's u by the kernel's scheme: phase 1 over all of P, ws = W s2 in
+    f32, phase 2 over the slices of the f32 plan, the slice partials added
+    in order (csrc reduce_partials)."""
+    p, n = strip.shape
+    ws = _split_sum(strip.T, ta, 0, p) * s2[:, None]
+    kp2 = -(-ta.shape[1] // k24.KP_QUANTUM_F32) * k24.KP_QUANTUM_F32
+    splits = k24.sandwich_splits(p, n, kp2, sms, k24.KP_QUANTUM_F32,
+                                 k24.F32_BLOCKS_PER_SM, k24.F32_STAGE_DEPTH)
+    chunk = -(-n // splits)
+    chunk = -(-chunk // k24.F32_STAGE_DEPTH) * k24.F32_STAGE_DEPTH
+    u = torch.zeros((p, ta.shape[1]))
+    for z in range(splits):
+        u = u + _split_sum(strip, ws, min(n, z * chunk), min(n, (z + 1) * chunk))
+    return u
+
+
+def _path_sandwich_operands(monkeypatch):
+    """K3's and K4's operands on the real path: config 2's recipe with its
+    f32 strip at 64x64 (p 245 of 256 rows, N 4096, kp 128 — sample_rho 0.06,
+    sketch_oversample 80), recorded from the plain strip_cache factor: ta
+    from the ridge Cholesky solve with the A scales folded in, t, s_pre,
+    b_mask, s_post^2."""
+    from graphlap_tpu_torch.config import PipelineConfig
+    from graphlap_tpu_torch.models.pipeline import _filter_channel
+
+    cfg = PipelineConfig(
+        kernel="nlm", h=0.15, sample_rho=0.06, num_eigvecs=24,
+        sinkhorn_iters=6, filter_name="identity", streaming=True,
+        strip_cache=True, solver="sketch", sketch_oversample=80,
+        sketch_power=0, sinkhorn_coarse=4, sinkhorn_polish=1,
+        affinity_dtype="float32", use_pallas=True)
+    img = np.clip(gt.add_gaussian_noise(gt.make_test_image(64, 64), 0.1,
+                                        seed=1), 0, 1).astype(np.float32)
+    plan = gt.make_plan(img, cfg)
+    seen = {}
+
+    def spost(strip, ta, t, s_pre, bm):
+        seen["k3"] = (strip, ta, t, s_pre, bm)
+        return k24.strip_sandwich_spost_plain(strip, ta, t, s_pre, bm)
+
+    def sandwich(strip, ta, s2):
+        seen["k4"] = (strip, ta, s2)
+        return k24.strip_sandwich_plain(strip, ta, s2)
+    monkeypatch.setattr(k24, "strip_sandwich_spost_cuda", spost)
+    monkeypatch.setattr(k24, "strip_sandwich_cuda", sandwich)
+    _filter_channel(torch.tensor(img),
+                    torch.tensor(plan.idx_a.astype(np.int64)), cfg)
+    return seen
+
+
+@pytest.mark.parametrize("which", ["k3", "k4"])
+def test_f32_sandwich_split_scheme_holds_the_f32_products(jx, monkeypatch,
+                                                          which):
+    """The f32 K3/K4's scheme (csrc sandwich_split_kernel), emulated in
+    torch on the real path's operands (``_path_sandwich_operands``: ta's
+    columns and rows span the path's octaves): every operand in three bf16
+    parts, the first on a grid a row of A and a column of B each stage, the
+    six kept part products, 32-deep stage sums from zero (the corrections,
+    then a0 b0 exact) added in f32, phase 2's slices added in order; K3's
+    ks as the converter sums it. Its u against the sums in f64, relative to the f64 sum of the
+    magnitudes of u's terms (K ((K^T |ta|) s2): u's terms cancel, so |u|
+    would measure the cancellation, not the sums): max and p99 within 1.5x
+    the plain f32 version's. And against graphlap_tpu's Pallas kernel at
+    f32 (interpret mode) within the f32 sweeps' 1e-4 bar."""
+    jnp = jx.jnp
+    ops = _path_sandwich_operands(monkeypatch)[which]
+    strip, ta = ops[0], ops[1]
+    p, n = strip.shape
+    assert (p, n, ta.shape[1]) == (256, 4096, 128)
+    if which == "k3":
+        t, s_pre, bm = ops[2:]
+        ks = _ks_converter(strip, t)
+        s_post = torch.sqrt(s_pre / torch.clamp(ks, min=1e-30)) * bm
+        s2 = s_post * s_post
+        plain = k24.strip_sandwich_spost_plain(*ops)[0]
+        ref = jx.spost(*(jnp.asarray(x.numpy()) for x in ops))[0]
+        ks64 = t.double() @ strip.double()
+        s2_64 = s_pre.double() / torch.clamp(ks64, min=1e-30) * bm.double()
+    else:
+        s2 = ops[2]
+        plain = k24.strip_sandwich_plain(*ops)
+        ref = jx.sandwich(*(jnp.asarray(x.numpy()) for x in ops))
+        s2_64 = s2.double()
+    got = _sandwich_split(strip, ta, s2)
+    kb = strip.double()
+    u64 = kb @ ((kb.T @ ta.double()) * s2_64[:, None])
+    scale = kb @ ((kb.T @ ta.double().abs()) * s2_64[:, None])
+
+    def err(x):
+        e = ((x.double() - u64).abs() / scale.clamp_min(1e-300)).flatten()
+        return float(e.max()), float(torch.quantile(e, 0.99))
+    (g_max, g_p99), (p_max, p_p99) = err(got), err(plain)
+    assert g_max <= 1.5 * p_max and g_p99 <= 1.5 * p_p99, (
+        g_max, g_p99, p_max, p_p99)
+    assert_rel(got.numpy(), np.asarray(ref), REL_F32_SWEEP)
 
 
 @pytest.mark.parametrize("dtype,p,cluster,stages", _by_dtype([
@@ -813,7 +978,11 @@ def test_f32_sweeps_do_not_lean(cuda_device):
     side of the same sums in f64: the share of (kernel - f64) sign(f64)
     below zero lies in (0.25, 0.75). K2's u sums positive terms, where a
     running f32 sum too long for its terms drops their tails and leans
-    low."""
+    low. K3/K4's u (each operand in three bf16 parts on the tensor cores)
+    is also held to the f64 sums: max and p99 of |u - u64| over the f64
+    sum of its terms' magnitudes within 1.5x the plain f32 version's, on
+    ta and on ta with its columns scaled by 2^e (e in [-16, 16]) and its
+    rows by 2^x (x in [-3, 3]), the octaves of the path's operands."""
     img = np.clip(gt.add_gaussian_noise(gt.make_test_image(256, 256), 0.1,
                                         seed=1), 0, 1).astype(np.float32)
     f = taff.extract_features(torch.tensor(img, device=cuda_device),
@@ -852,6 +1021,28 @@ def test_f32_sweeps_do_not_lean(cuda_device):
         lean = ((got.double() - ref) * torch.sign(ref))[keep]
         below = float((lean < 0).double().mean())
         assert 0.25 < below < 0.75, below
+
+    def f64_err(x, ref, scale):
+        e = ((x.double() - ref).abs() / scale).flatten()
+        return float(e.max()), float(torch.quantile(e, 0.99))
+    cols = torch.tensor(rng.integers(-16, 17, 256).astype(np.float32),
+                        device=cuda_device)
+    rows = torch.tensor((6 * rng.random(p) - 3).astype(np.float32),
+                        device=cuda_device)
+    for tx in (ta, ta * torch.exp2(rows)[:, None] * torch.exp2(cols)[None]):
+        for s2, args in ((sp2, (strip, tx, t, s_pre, bm)),
+                         (s_pre.double(), (strip, tx, s_pre))):
+            kern, plain = ((k24.strip_sandwich_spost_cuda,
+                            k24.strip_sandwich_spost_plain) if len(args) == 5
+                           else (k24.strip_sandwich_cuda,
+                                 k24.strip_sandwich_plain))
+            got, ref = kern(*args), plain(*args)
+            got, ref = ((got[0], ref[0]) if isinstance(got, tuple)
+                        else (got, ref))
+            u64 = kb @ ((kb.T @ tx.double()) * s2[:, None])
+            scale = kb @ ((kb.T @ tx.double().abs()) * s2[:, None])
+            k, pl = f64_err(got, u64, scale), f64_err(ref, u64, scale)
+            assert k[0] <= 1.5 * pl[0] and k[1] <= 1.5 * pl[1], (k, pl)
 
 
 def _config2_features(dev, p=300, seed=4):
