@@ -13,7 +13,9 @@ non-zero before the last line is printed):
               both strip types (the f32 ones with no FFMA tile left), and
               the K1 and K7 emitters', K8's, K9's ks pass's, the V
               pass's and the aug and f32 K5/K6 kernels' HMMA at 32, 64, 96
-              and 128 lanes (their products on the tensor cores).
+              and 128 lanes (their products on the tensor cores), and the
+              f32 K9/K10 kernel's at all ten instantiations, with no FFMA
+              V or ks pass left.
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
@@ -223,8 +225,12 @@ non-zero before the last line is printed):
    slab     each f32 kernel's tile (and K1's and K6's coordinate cross)
             against f64 on slabs of the path's features, the kernel's max
             and p99 |dK| at most 1.5x the plain f32 version's; the split
-            cross printed beside; K8's u and s and K5/K6's outputs against
-            their f64 sums under the same rule;
+            cross printed beside; K8's u and s, K5/K6's outputs, and K9's
+            V and s and K10's V (on 2^20 of the columns, V over its terms'
+            magnitudes) against their f64 sums under the same rule, K9's
+            and K10's shares below f64 required in (0.25, 0.75); the f32
+            K9/K10's bounds count V and ks as six bf16 tensor passes beside
+            the FFMA cross, the all-FFMA bound printed beside;
    e2e      filter_image: warm-up and three timed runs, walls, peak memory,
             K8, K7, K9 once a call and K10 never, PSNR (printed: the
             recipe's spectrum degenerates in the reference too), the
@@ -652,6 +658,9 @@ SIGNED_BAND = (0.25, 0.75)
 # the f32 K3/K4 run each product as six bf16 tensor passes (each operand in
 # three bf16 parts, six of the nine part products kept)
 F32_SANDWICH_PASSES = 6
+# so do the f32 K9 / K10's V and ks (the tile entries and B = [gr | t] in
+# three bf16 parts each)
+F32_V_PASSES = 6
 OUT = Path("build") / "chip_smoke"
 
 
@@ -2861,15 +2870,23 @@ def k1_coord_slab(fa, fb, label):
 
 
 def f64_sums(fa, f_t, what, *vecs, chunk=16384):
-    """K5 (``what`` "matvec", vecs (v,)), K6 ("rmatvec", (t,)) or K8
-    ("ext2", (t2, bm)) with the tile and every sum in f64, from the same f32
-    features, over column chunks: the output, or (u, s) for K8."""
+    """K5 (``what`` "matvec", vecs (v,)), K6 ("rmatvec", (t,)), K8
+    ("ext2", (t2, bm)), K10 ("colstats", (gr, c)) or K9 ("finish", (gr, t,
+    s_pre, bm)) with the tile and every sum in f64, from the same f32
+    features, over column chunks: the output, (u, s) for K8, (V, the sums
+    of V's terms' magnitudes) for K10 and (V, its terms, s) for K9 (the
+    column vectors c, s_pre and bm of f_t's columns)."""
     a = fa.double()
     na = (a * a).sum(1)
     n = f_t.shape[1]
     f64 = dict(dtype=torch.float64, device=fa.device)
-    out = torch.zeros(fa.shape[0] if what != "rmatvec" else n, **f64)
-    s = torch.empty(n, **f64) if what == "ext2" else None
+    if what in ("colstats", "finish"):
+        gr = vecs[0].double()
+        out = torch.empty((n, gr.shape[1]), **f64)
+        terms = torch.empty((n, gr.shape[1]), **f64)
+    else:
+        out = torch.zeros(fa.shape[0] if what != "rmatvec" else n, **f64)
+    s = torch.empty(n, **f64) if what in ("ext2", "finish") else None
     for j in range(0, n, chunk):
         sl = slice(j, j + chunk)
         b = f_t[:, sl].double()
@@ -2879,11 +2896,26 @@ def f64_sums(fa, f_t, what, *vecs, chunk=16384):
             out += k @ vecs[0][sl].double()
         elif what == "rmatvec":
             out[sl] = vecs[0].double() @ k
+        elif what in ("colstats", "finish"):
+            if what == "finish":
+                ks = vecs[1].double() @ k
+                s[sl] = torch.sqrt(vecs[2][sl].double() / torch.clamp(
+                    ks, min=1e-30)) * vecs[3][sl].double()
+                c = s[sl]
+            else:
+                c = vecs[1][sl].double()
+            k *= c[None]
+            out[sl] = k.T @ gr
+            terms[sl] = k.abs_().T @ gr.abs()
         else:
             kbt = vecs[0].double() @ k
             s[sl] = vecs[1][sl].double() / torch.sqrt(
                 torch.clamp(kbt[0] * kbt[1], min=1e-30))
             out += k @ s[sl]
+    if what == "colstats":
+        return out, terms
+    if what == "finish":
+        return out, terms, s
     return out if s is None else (out, s)
 
 
@@ -2950,6 +2982,54 @@ def bilateral_sums(cases, p, n, sfx=""):
         ref = f64_sums(args[0], args[1], name.split("_")[0], args[2])
         out[name] = sums_f64_check(name, kern(*args)[:keep],
                                    plain(*args)[:keep], ref[:keep])
+    out.update(colstats_f64_checks(cases, n, sfx))
+    return out
+
+
+def colstats_f64_checks(cases, n, sfx=""):
+    """The f32 K9's V and s and K10's V (the run_cases inputs, names ending
+    in ``sfx``) against their f64 evaluation on an even subset of 2^20 of
+    the n columns (f64_sums): V over the sums of its terms' magnitudes, s
+    over |s|, each within 1.5x the plain version's max and p99 error, and
+    each one's share below f64 in SIGNED_BAND (the plain version's printed
+    beside it). Returns the record."""
+    out = {}
+    for name, kind in (("finish_colstats_f32" + sfx, "finish"),
+                       ("colstats_v_f32" + sfx, "colstats")):
+        kern, plain, args = cases[name][:3]
+        got, ref = kern(*args), plain(*args)
+        fa, f_t = args[:2]
+        cols = torch.arange(0, n, max(1, n >> 20), device=fa.device)
+        ft_c = f_t[:, cols].contiguous()
+        if kind == "finish":
+            t, s_pre, bm, gr = args[2:6]
+            v64, terms, s64 = f64_sums(fa, ft_c, kind, gr, t, s_pre[cols],
+                                       bm[cols])
+        else:
+            gr, c = args[2], args[4]
+            v64, terms = f64_sums(fa, ft_c, kind, gr, c[cols])
+            s64 = None
+        del ft_c
+        live = gr.abs().sum(0) > 0           # V's columns past m are zero
+        checks = [("V", got[0][cols][:, live], ref[0][cols][:, live],
+                   v64[:, live], terms[:, live])]
+        if s64 is not None:
+            checks.append(("s", got[3][cols], ref[3][cols], s64, None))
+        for what, g, r, r64, sc in checks:
+            label = f"{name} {what} on {cols.numel()} columns"
+            rec = sums_f64_check(label, g, r, r64, sc)
+            st, st_p = signed_stats(g, r64, False), signed_stats(r, r64, False)
+            phase("signed", f"{label}: (kernel - f64) sign(f64) / max |f64|: "
+                  f"mean {st['mean']:.3e}, median {st['median']:.3e}, share "
+                  f"below {st['share_below']:.4f} (required in "
+                  f"{SIGNED_BAND}); the plain version's share below f64 "
+                  f"{st_p['share_below']:.4f}")
+            require(SIGNED_BAND[0] < st["share_below"] < SIGNED_BAND[1],
+                    f"{label}: biased to one side of its f64 sums")
+            out[f"{name}_{what}"] = dict(rec, share_below=st["share_below"],
+                                         plain_share_below=st_p["share_below"])
+        del got, ref, v64, terms, s64, checks
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3111,14 +3191,14 @@ def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
         "finish_colstats_f32" + sfx: (
             lambda *a: k79.finish_colstats_cuda(*a, live=live),
             k79.finish_colstats_plain, (fa, f_t, tv, s_pre, bm, gr, y, na, nb),
-            bound(feat + 4 * nk * (5 + mk) + 4 * pp * (mk + 2), 0,
-                  (2 * mk + 2 * live + 2) * e, e),
+            bound(feat + 4 * nk * (5 + mk) + 4 * pp * (mk + 2),
+                  F32_V_PASSES * 2 * (mk + 8) * e, 2 * live * e, e),
             colstats_scales(y)),
         "colstats_v_f32" + sfx: (
             lambda *a: k79.colstats_v_cuda(*a, live=live),
             k79.colstats_v_plain, (fa, f_t, gr, y, cols, na, nb),
-            bound(feat + 4 * nk * (4 + mk) + 4 * pp * (mk + 1), 0,
-                  (2 * mk + 2 * live) * e, e),
+            bound(feat + 4 * nk * (4 + mk) + 4 * pp * (mk + 1),
+                  F32_V_PASSES * 2 * mk * e, 2 * live * e, e),
             colstats_scales(y)),
         "matvec_coord" + sfx: (k56.matvec_cuda, k56.matvec_plain,
                                (fa, f_t, v, False, live, True),
@@ -3156,6 +3236,16 @@ def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
           f"GEMM {ms_gram:.3f} ms ((p_pad, {sg}) x ({sg}, p_pad) at "
           f"\"highest\", {2 * pp * pp * sg / ms_gram / 1e9:.2f} TFLOP/s)", t0)
     rows[k7]["gram_gemm_ms"] = ms_gram
+    # the f32 K9 / K10's bounds count V and ks as F32_V_PASSES bf16 tensor
+    # passes beside the FFMA cross; the design they replaced ran all of it
+    # on the FP32 pipe
+    for name, extra in (("finish_colstats_f32" + sfx, 2),
+                        ("colstats_v_f32" + sfx, 0)):
+        b_ms, _ = bound(0, 0, (2 * mk + 2 * live + extra) * e, e)
+        rows[name]["ffma_bound_ms"] = b_ms
+        phase("kernel", f"{name}: the f32 FFMA bound of the same work "
+              f"{b_ms:.3f} ms (the bound above counts V and ks as "
+              f"{F32_V_PASSES} bf16 tensor passes, the cross as f32 FFMA)")
     t0 = time.perf_counter()
     phase("slab", f"{tag}: sums and slabs against f64 ({live} live lanes)")
     rec = dict(sums=bilateral_sums(cases, p, n, sfx),
@@ -3584,6 +3674,17 @@ def main() -> None:
                               16 if kernel == "colstats_v_kernel" else 4)
                 and all(hmma.values()),
                 f"{what}: an instantiation does not run on the tensor cores")
+
+    hmma = sass_uses(_build, "colstats_tc_kernel", "HMMA")
+    ffma_v = {**sass_uses(_build, "colstats_f32_kernel", "FFMA"),
+              **sass_uses(_build, "ks_f32_kernel", "FFMA")}
+    phase("build", f"f32 K9/K10: {sum(hmma.values())} of {len(hmma)} "
+          f"instantiations (4, 32, 64, 96, 128 lanes; K9 and K10) hold HMMA "
+          f"(V and ks on the tensor cores), from cuobjdump -sass; the FFMA "
+          f"V and ks passes' functions: {ffma_v}")
+    require(len(hmma) == 10 and all(hmma.values()) and not ffma_v,
+            "the f32 K9/K10 do not run V and ks on the tensor cores in one "
+            "launch")
 
     rows, launches, info = {}, {}, {}
     config2(gt, dev, rows, launches, info)

@@ -13,8 +13,10 @@
 // products with f32 accumulation (mma.sync m16n8k16) of the plain fa (zero
 // lanes beyond d) against the aug-superset f_t, the feature depth is 32, and
 // the f32 norms arrive precomputed. The f32 layouts (the bilateral recipes)
-// take kernels of their own at the end of the file (colstats_f32_kernel,
-// ks_f32_kernel): every value f32, V in f32 FFMA.
+// take a kernel of its own at the end of the file (colstats_tc_kernel):
+// every value f32, each tile entry formed once a launch by an FFMA cross, V
+// and K9's ks as f32-exact products of three bf16 parts on the tensor
+// cores.
 //
 // What bounds them on an H100, at the 8 MP shape (p_pad 4096, N 8388608, V
 // width 64): 3.4e10 tile entries, one exp each — one MUFU ex2 an entry at 16
@@ -551,495 +553,505 @@ int launch_ks(cudaStream_t s, const VArgs& a) {
 // ---------------------------------------------------------------------------
 //
 // K10: V_j = (c_j k_j)^T gr, norms, coeffs; K9: ks_j = k_j^T t, s_j =
-// sqrt(s_pre_j / max(ks_j, 1e-30)) bm_j, then K10's pass with c = s. The
-// entry is the f32 class (kf32: an f32 FFMA cross over the live lanes, the
-// f32 norms passed in, expf), every product f32 and rounded to nearest, no
-// bf16 rounding point. What bounds them at 8 MP (p_pad 4096, N 8388608, V
-// width 64): V is 4.4e12 flop a launch, 65.7 ms of FFMA at the 67 TFLOP/s
-// f32 peak, against the exps' 8.2 ms. V runs as f32 FFMA: on the tensor
-// cores (split tf32, three passes, 26.7 ms at 494.7 TFLOP/s) the mma's
-// accumulation truncates the products it aligns below its largest, and V
-// leaned low on 0.89 of its entries whatever the span; split fp16 (13.3
-// ms) flushed the tiny entries that a huge Sinkhorn scale c_j weighs
-// (PERF.md section 6). Design of the V pass, an SGEMM on entries staged in
-// shared memory:
-//   * a 256-thread block owns a tile of 256 pixel columns and walks p in
-//     stages of VB_TP rows (fa rows, na, gr rows by cp.async double
-//     buffering);
-//   * a stage first forms its entries, a thread a column (the cross from
-//     the column's lanes in registers against the row's, broadcast from
-//     shared memory), VB_TP independent chains a thread, into shared
-//     memory as e_s[row][column] = k c_j;
-//   * then V += e_s^T gr: a thread owns 4 columns x 16 V entries (64
-//     accumulators); a row is one 16-byte load of its 4 entries, four of
-//     its 16 gr values (conflict-free or broadcast) and 64 FFMA: 47% of
-//     the f32 peak at 8 MP. The first design, a thread a column with its
-//     entry formed in the FFMA loop, ran at 37% (16 loads a 64 FFMA, or 8
-//     with two columns a thread, the same);
-//   * V sums over spans of VB_SPAN stages (256 rows) from zero, each added
-//     to the running V in shared memory with one f32 add;
-//   * the V width is 64 a launch (the wrapper pads gr with zero columns);
-//     the live lanes LV are 4, or the layout's depth for wider features:
-//     32 (a 5 x 5 patch and the coordinates), 64 (a 7 x 7 patch and the
-//     coordinates, 52 live), 96 or 128 (9 x 9 or 11 x 11, 84 or 124 live);
-//     the pad lanes are zero, so the extra lanes add exact zeros. The
-//     layout's depth is 32 for LV 4 and 32, else LV (FD_OF). Up to 64
-//     lanes a column's LV lanes stay in registers (float b[LV]): at 64
-//     they sit beside the V pass's 64 accumulators under its 255-register
-//     cap, and the ks pass, ~80 registers at 32 lanes and three blocks an
-//     SM, takes two blocks an SM at 64 (128 registers a thread), so
-//     neither spills (-Xptxas -v); an f_t tile in shared memory would read
-//     the lanes again for each of a stage's rows. Past 64 lanes the ks
-//     pass keeps them in registers, one block an SM, and the V pass takes
-//     the wide design below (colstats_f32_wide_kernel);
-//   * V is written once; norms and coeffs go through a shuffle tree, the
-//     warps' slots, per-block partials and the fixed-order reduction; K9's
-//     ks pass (a column a thread) sums a stage from zero, then adds it to
-//     the column's total. Blocks are persistent and walk the column tiles
+// sqrt(s_pre_j / max(ks_j, 1e-30)) bm_j, V_j = (s_j k_j)^T gr. The entry is
+// the f32 class: d2 = max(na + nb - 2 cross, 0) with the f32 norms passed
+// in, k = expf(-d2), every product f32-exact and rounded to nearest, no
+// bf16 rounding point (pp _finish_colstats_kernel and _colstats_kernel
+// run the cross, ks and V as dots at "highest": six bf16 passes on the
+// TPU). What bounds them at 8 MP (p_pad 4096, N 8388608, E = 3.44e10 tile
+// entries, V width 64): the cross as f32 FFMA over the live lanes (2 live
+// flop an entry: 127.4 / 86.3 / 53.4 ms at 124 / 84 / 52 live lanes, 67
+// TFLOP/s), against V with ks as one more n8 tile on the tensor cores as
+// six bf16 passes (72 columns; 30.0 ms, K10's 64 26.7, at 989 TFLOP/s)
+// and one expf an entry (8.2 ms on MUFU).
+//
+// Design (colstats_tc_kernel), flash attention's shape: the cross, the exp
+// and the product with gr in one walk over p, each tile entry formed once.
+//   * A 256-thread block owns a tile of VT_TN = 256 columns, a warp two
+//     16-column tiles of them, and walks p in stages of VT_TP = 32 sample
+//     rows (one block an SM at every width): the stage's f32
+//     fa rows, na and B's parts arrive by cp.async double buffering. B = [gr
+//     | t] (K9: t in column 64 of a ninth n8 tile) or gr (K10), split once a
+//     launch by split_cols_kernel into three bf16 planes on the grid of each
+//     column a stage (split3_grid).
+//   * The cross on the FP32 pipe, each entry's an FFMA chain over the lanes
+//     in lane order (the plain version's cuBLAS order, so its tile entries
+//     agree with the plain version's bit for bit on most entries), formed
+//     straight into the mma accumulator layout: a thread's 32 entries (4
+//     columns x 8 rows a stage) take its columns' lanes (in registers at 4
+//     lanes; past that from the tile's f32 lanes, in shared memory for the
+//     tile's whole walk) and the rows' lanes broadcast from shared memory,
+//     a float4 of each a 4-lane step. On the tensor cores (fa and f_t in
+//     three bf16 parts each, six part products) the cross lay 1.3e-2 to
+//     5.2e-2 of max |V| from the plain version at 28 to 124 live lanes (the
+//     kernels' bar is 2e-4): a tile entry moves with every rounding of its
+//     cross, by the f32 cancellation error itself, at |f|^2 up to 3.3e5
+//     (scripts/f32_colstats_designs.py; PERF.md).
+//   * The exp epilogue (kf32) runs on those registers, whose layout is the
+//     mma A-fragment layout. Each column's entries in the stage are scaled
+//     by 2^-E (E: the column's largest entry in the stage < 2^E, a power of
+//     two, so exact) and split into three bf16 parts on the grid 2^-8; the
+//     scale factors out of the column's sums, so a column of tiny entries
+//     (a huge Sinkhorn scale's) keeps f32's relative precision, where split
+//     fp16 flushed them.
+//   * V's and ks's products on the tensor cores (mma.sync m16n8k16): six
+//     part products a stage and n8 tile of B, the corrections a1 b0, a0 b1,
+//     a1 b1, a2 b0, a0 b2 in one chain and a0 b0 in another (exact: 32 rows
+//     of products on the grid 2^(E_B - 16)), each from zero; their sum joins
+//     the running f32 sum (registers, 36 a thread), which a column keeps on
+//     the largest E of its stages so far (both scaled by powers of two), so
+//     W leaves the subnormal range only where V does. The tensor core's f32
+//     accumulation truncates, so no chain runs past one stage.
+//   * At the tile's end, K9's ks_j is column 64 of the running sum: s_j from
+//     it, V_j = s_j W_j (K10: c_j W_j). The f32 class rounds each product to
+//     nearest and has no rounding point between k and its scale, so the
+//     scale after the sum is the same function (the bf16 K9 keeps its
+//     bf16(k bf16(s)) point). V is written once; norms and coeffs go through
+//     a shuffle tree, the warps' slots, per-block partials and the
+//     fixed-order reduction. Blocks are persistent and walk the column tiles
 //     in a fixed stride order: runs repeat bit for bit.
-constexpr int VF_THREADS = 256;           // ks pass: one column a thread
-constexpr int VF_MP = 64;                 // V width a launch
-constexpr int VF_TP = 32;                 // ks pass: sample rows a stage
+//   * Designs measured at the bilateral recipes' 8 MP shapes on an NVIDIA
+//     H100 80GB HBM3 (700 W), scripts/f32_colstats_designs.py, K9 / K10 ms
+//     at 124 / 84 / 52 / 28 / 4 live lanes: this one 315.3 / 309.9, 258.0
+//     / 262.1, 201.8 / 194.4, 149.2 / 142.5, 103.4 / 94.5; the design it
+//     replaced (PR 13-20: a ks pass, then the V pass as an FFMA SGEMM on
+//     entries staged in shared memory, each entry formed twice in K9)
+//     846.4 / 531.5, 641.7 / 400.7, 489.9 / 329.8, 330.9 / 243.8, 166.3 /
+//     140.8; a stage's products beside the next stage's cross (one basic
+//     block, B's parts in a ring of 3; it spills at 255 registers) 323.8 /
+//     319.3, 268.9 / 262.3, 215.6 / 210.2, 158.5 / 145.0, 108.2 / 102.5;
+//     one 16-column tile a warp, its 16 entries 10 float4 loads a 4-lane
+//     step (2.5 B of shared memory an FFMA, the cross bound by them), 464.5
+//     / 457.1 at 124 lanes; the split cross (six part products) 249.6 /
+//     237.2 at 124 lanes, eight 268.6 / 253.3, both 2.0e-2 to 6.5e-2 of max
+//     |V| from the plain version. V, ks, the exp and the split alone (no
+//     cross, timing only) take 93-101 ms at every width.
+constexpr int VF_MP = 64;                   // V width a launch (gr padded to it)
+constexpr int VT_THREADS = 256;
+constexpr int VT_WARPS = VT_THREADS / 32;
+constexpr int VT_CT = 2;                    // 16-column tiles a warp
+constexpr int VT_TN = VT_WARPS * VT_CT * 16;  // columns a block tile
+constexpr int VT_TP = 32;                   // sample rows a stage
+constexpr int VT_LDG = VT_TP + 8;           // B parts row stride (bf16): conflict-free ldmatrix
 template <int LV>
-constexpr int FD_OF = LV <= 32 ? 32 : LV;    // the layout's depth for LV live lanes
+constexpr int FD_OF = LV <= 32 ? 32 : LV;   // the layout's depth for LV live lanes
 template <int LV>
-constexpr int VF_LDA_OF = FD_OF<LV> + 4;     // fa_s row stride (floats)
-constexpr int VB_TN = 256;                // V pass: columns a block tile
-constexpr int VB_TP = 16;                 // V pass: sample rows a stage
-constexpr int VB_SPAN = 16;               // V pass: stages a span (256 rows)
-constexpr int VB_LDE = VB_TN + 4;         // e_s row stride (floats)
-constexpr int VB_CT = 4, VB_MT = 16;      // a thread's columns, V entries
-constexpr size_t VF_RUN_BYTES = (size_t)VF_MP * VF_THREADS * 4;   // the running V
+constexpr bool COLS_REG = LV == 4;          // a thread's columns' lanes in registers
+template <int LV>
+constexpr int VT_LDA = COLS_REG<LV> ? 4 : FD_OF<LV> + 4;   // fa / f_t row stride (floats)
+template <bool KS>
+constexpr int VT_NB = KS ? 9 : 8;           // n8 tiles of B: gr, and K9's t
 
 struct VF32Args {
   const float* fa;     // (P, FD) FD 32, 64, 96 or 128
   const float* ft;     // (FD, N)
   const float* gr;     // (P, 64) row-major
-  const float* c;      // (N) column scale (K10), or K9's s
-  const float* t;      // (P)                                  K9
-  const float* s_pre;  // (N)                                  K9
-  const float* bm;     // (N)                                  K9
+  const float* c;      // (N) column scale                      K10
+  const float* t;      // (P)                                   K9
+  const float* s_pre;  // (N)                                   K9
+  const float* bm;     // (N)                                   K9
   const float* y;      // (N)
   const float* na;     // (P)
   const float* nb;     // (N)
+  bf16* b_parts;       // (3, 8 NB, P) B's parts, column-major (scratch)
   float* v_out;        // (N, 64)
-  float* s_out;        // (N)                                  K9
+  float* s_out;        // (N)                                   K9
   float* part;         // (gridDim.x, 2, 64) norms, coeffs
   int P, N;
 };
 
-// the stage of rows [p0, p0 + TPR): fa rows (LV lanes), na, and gr rows
-// (the V pass) or t (the ks pass); one cp.async commit group
-template <int LV, int TPR>
-__device__ __forceinline__ void load_stage_f32(float* fa_d, float* na_d, float* x_d,
-                                               const VF32Args& a, bool v, int p0) {
-#pragma unroll 1
-  for (int c = threadIdx.x; c < TPR * (LV / 4); c += VF_THREADS) {
-    const int r = c / (LV / 4), q = c % (LV / 4);
-    cp_async16(fa_d + r * VF_LDA_OF<LV> + 4 * q, a.fa + (size_t)(p0 + r) * FD_OF<LV> + 4 * q);
+// the shared-memory layout of colstats_tc_kernel<LV, KS> (byte offsets)
+template <int LV, bool KS>
+struct VtSmem {
+  static constexpr int FD = FD_OF<LV>, LDA = VT_LDA<LV>, NB = VT_NB<KS>;
+  // the tile's columns' f32 lanes [VT_TN][LDA] (past 4 lanes)
+  static constexpr size_t FT = COLS_REG<LV> ? 0 : (size_t)VT_TN * LDA * 4;
+  static constexpr size_t FA_STAGE = (size_t)VT_TP * LDA * 4;          // [VT_TP][LDA] f32
+  static constexpr size_t B_STAGE = (size_t)3 * NB * 8 * VT_LDG * 2;   // [3][8 NB][VT_LDG]
+  static constexpr size_t OFF_FA = FT;                                // [2] stages
+  static constexpr size_t OFF_B = OFF_FA + 2 * FA_STAGE;              // [2] stages
+  static constexpr size_t OFF_NA = OFF_B + 2 * B_STAGE;               // [2][VT_TP]
+  static constexpr size_t OFF_WP = OFF_NA + 2 * VT_TP * 4;            // [warps][2][64]
+  static constexpr size_t BYTES = OFF_WP + (size_t)VT_WARPS * 2 * VF_MP * 4;
+};
+
+// c += a . b, bf16 m16n8k16 with f32 accumulation; not volatile, so the
+// compiler interleaves independent chains
+__device__ __forceinline__ void mma_tc(float c[4], const uint32_t a[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B = [gr | t | 0] (K9, t != null, nb8 = 72) or gr (K10, nb8 = 64) as its
+// three bf16 parts, column-major (3, nb8, P): thread (column m, stage s)
+// splits rows [32 s, 32 s + 32) of column m on the grid of their largest
+template <int NB8>
+__global__ void split_cols_kernel(const float* __restrict__ gr, const float* __restrict__ t,
+                                  bf16* __restrict__ out, int P) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NB8 * (P / VT_TP)) return;
+  const int m = i % NB8, r0 = (i / NB8) * VT_TP;
+  auto val = [&](int r) {
+    return m < VF_MP ? gr[(size_t)r * VF_MP + m] : (m == VF_MP && t != nullptr) ? t[r] : 0.f;
+  };
+  float mx = 0.f;
+#pragma unroll 8
+  for (int r = r0; r < r0 + VT_TP; ++r) mx = fmaxf(mx, fabsf(val(r)));
+  const int e = grid_exp(mx);
+  const float q = pow2(8 - e), qi = pow2(e - 8);
+#pragma unroll 4
+  for (int r = r0; r < r0 + VT_TP; r += 2) {
+    uint32_t o[3];
+    split3_grid(val(r), val(r + 1), q, qi, q, qi, o);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)p * NB8 + m) * P + r) = o[p];
   }
-  if (threadIdx.x < TPR / 4) cp_async16(na_d + 4 * threadIdx.x, a.na + p0 + 4 * threadIdx.x);
-  if (v) {
+}
+
+// the stage of rows [p0, p0 + VT_TP) into buffer buf: fa's f32 rows (4
+// lanes at LV 4, of rows FD apart), na and B's parts; one cp.async commit
+// group
+template <int LV, bool KS>
+__device__ __forceinline__ void vt_load_stage(unsigned char* smem, const VF32Args& a, int buf,
+                                              int p0) {
+  using S = VtSmem<LV, KS>;
+  constexpr int CH = COLS_REG<LV> ? 1 : S::FD / 4;   // 16-byte chunks a row
+  const int tid = threadIdx.x;
+  float* d = reinterpret_cast<float*>(smem + S::OFF_FA + buf * S::FA_STAGE);
 #pragma unroll 1
-    for (int c = threadIdx.x; c < TPR * (VF_MP / 4); c += VF_THREADS)
-      cp_async16(x_d + 4 * c, a.gr + (size_t)p0 * VF_MP + 4 * c);
-  } else if (threadIdx.x < TPR / 4) {
-    cp_async16(x_d + 4 * threadIdx.x, a.t + p0 + 4 * threadIdx.x);
+  for (int c = tid; c < VT_TP * CH; c += VT_THREADS) {
+    const int q = c % CH, r = c / CH;
+    cp_async16(d + r * S::LDA + 4 * q, a.fa + (size_t)(p0 + r) * S::FD + 4 * q);
+  }
+  bf16* bd = reinterpret_cast<bf16*>(smem + S::OFF_B + buf * S::B_STAGE);
+  constexpr int GCH = VT_TP / 8;
+#pragma unroll 1
+  for (int c = tid; c < 3 * S::NB * 8 * GCH; c += VT_THREADS) {
+    const int q = c % GCH, pm = c / GCH;   // pm = part * 8 NB + column
+    cp_async16(bd + pm * VT_LDG + 8 * q, a.b_parts + (size_t)pm * a.P + p0 + 8 * q);
+  }
+  if (tid < VT_TP / 4) {
+    float* nd = reinterpret_cast<float*>(smem + S::OFF_NA) + buf * VT_TP;
+    cp_async16(nd + 4 * tid, a.na + p0 + 4 * tid);
   }
   cp_async_commit();
 }
 
-// the thread's column j: its LV lanes
-template <int LV>
-__device__ __forceinline__ void col_lanes(float (&b)[LV], const VF32Args& a, int j) {
-#pragma unroll
-  for (int k = 0; k < LV; ++k) b[k] = a.ft[(size_t)k * a.N + j];
+// the tile's columns [j0, j0 + VT_TN) of f_t into ft_s [VT_TN][LDA],
+// transposed, each load coalesced over the columns
+template <int FD, int LDA>
+__device__ __forceinline__ void load_tile(float* ft_s, const VF32Args& a, int j0) {
+#pragma unroll 8
+  for (int i = threadIdx.x; i < VT_TN * FD; i += VT_THREADS) {
+    const int c = i % VT_TN, k = i / VT_TN;
+    ft_s[c * LDA + k] = a.ft[(size_t)k * a.N + j0 + c];
+  }
 }
 
-// the entry of stage row r for the thread's column
+// the cross of the warp's 32 columns x a stage's 32 rows, an FFMA chain an
+// entry over the lanes in order: cr[ct][i] holds rows 8 i + 2 tq, + 1 of
+// column tile ct's columns c0 + 16 ct (0, 1) and c0 + 16 ct + 8 (2, 3);
+// the columns' lanes from fcol (LV 4) or the tile's lanes in ft_s (c0 the
+// thread's first column there), the rows' from the stage's fs. A thread's
+// 32 entries take 12 float4 loads of shared memory a 4-lane step
 template <int LV>
-__device__ __forceinline__ float entry_f32(const float* fa_s, const float* na_s, int r,
-                                           const float (&b)[LV], float nbv) {
-  float cr = 0.f;
+__device__ __forceinline__ void vt_cross(float (&cr)[VT_CT][4][4], const float* fs,
+                                         const float* ft_s, const float (&fcol)[VT_CT][2][4],
+                                         int c0, int tq) {
+  constexpr int LDA = VT_LDA<LV>;
 #pragma unroll
-  for (int k = 0; k < LV; k += 4)
-    cr = dot4(*reinterpret_cast<const float4*>(fa_s + r * VF_LDA_OF<LV> + k),
-              make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]), cr);
-  return kf32(na_s[r] + nbv, cr);
+  for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cr[ct][i][e] = 0.f;
+#pragma unroll
+  for (int k = 0; k < (COLS_REG<LV> ? 4 : FD_OF<LV>); k += 4) {
+    float4 b[VT_CT][2];
+#pragma unroll
+    for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        b[ct][h] = COLS_REG<LV>
+                       ? make_float4(fcol[ct][h][0], fcol[ct][h][1], fcol[ct][h][2], fcol[ct][h][3])
+                       : *reinterpret_cast<const float4*>(ft_s + (c0 + 16 * ct + 8 * h) * LDA + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 x = *reinterpret_cast<const float4*>(fs + (8 * i + 2 * tq + e) * LDA + k);
+#pragma unroll
+        for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            cr[ct][i][2 * h + e] = dot4(x, b[ct][h], cr[ct][i][2 * h + e]);
+      }
+  }
 }
 
-template <int LV>
-__global__ __launch_bounds__(VF_THREADS, LV == 4 ? 2 : 1) void colstats_f32_kernel(
-    const VF32Args a) {
-  __shared__ __align__(16) float fa_s[2][VB_TP * VF_LDA_OF<LV>];
-  __shared__ __align__(16) float gr_s[2][VB_TP * VF_MP];
-  __shared__ __align__(16) float na_s[2][VB_TP];
-  __shared__ __align__(16) float e_s[VB_TP * VB_LDE];   // the stage's entries k c_j
-  __shared__ float wp_s[VF_THREADS / 32][2][VF_MP];     // per-warp norms, coeffs
-  extern __shared__ float vrun_s[];                     // [VB_CT * VB_MT][VF_THREADS] running V
+// a column tile's entries from their cross (ns: the stage's na), each
+// column's largest in the stage (over the quad's rows) < 2^E, and the
+// entries times 2^-E as three bf16 parts on the grid 2^-8: the A fragments
+// of the two k16 steps, kp[part][step][reg] (reg 0 / 1 the first n8 tile's
+// rows of its columns 0 / 8, 2 / 3 the second's), and each column's E
+__device__ __forceinline__ void vt_entries(uint32_t (&kp)[3][2][4], int (&es)[2],
+                                           float (&cr)[4][4], const float* ns,
+                                           const float (&nbv)[2], int tq) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cr[i][e] = kf32(ns[8 * i + 2 * tq + (e & 1)] + nbv[e >> 1], cr[i][e]);
+      mx[e >> 1] = fmaxf(mx[e >> 1], cr[i][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // mx < 2^E: E = its exponent + 1, at least -126 (2^-E and 2^E normal)
+    const int ex = (int)((__float_as_uint(mx[h]) >> 23) & 0xff) - 126;
+    const float inv = pow2(-ex);
+    es[h] = ex;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cr[i][2 * h] *= inv;
+      cr[i][2 * h + 1] *= inv;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t o[3];
+      split3_grid(cr[i][2 * h], cr[i][2 * h + 1], 256.f, 1.f / 256.f, 256.f, 1.f / 256.f, o);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) kp[p][i >> 1][2 * (i & 1) + h] = o[p];
+    }
+}
+
+// W += a stage's k^T B (bs: this lane's ldmatrix row of the stage's B
+// parts), for the warp's column tiles: per n8 tile of B (its parts loaded
+// once for both tiles) and column tile, the corrections' chain and a0 b0's,
+// each from zero over the stage's two k16 steps. The running sum of a column
+// is W 2^-er: it and the stage's sum (its entries' scale es) join on the
+// larger exponent, each times a power of two (exact; a factor below 2^-126
+// is 0, the term below 2^-127 of the other), so a column of tiny entries
+// never sums in the subnormal range
+template <int NB>
+__device__ __forceinline__ void vt_products(float (&run)[VT_CT][NB][4], int (&er)[VT_CT][2],
+                                            const uint32_t (&kp)[VT_CT][3][2][4],
+                                            const int (&es)[VT_CT][2], const bf16* bs) {
+  float f_run[VT_CT][2], f_st[VT_CT][2];
+#pragma unroll
+  for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int en = max(er[ct][h], es[ct][h]);
+      f_run[ct][h] = pow2(max(er[ct][h] - en, -127));
+      f_st[ct][h] = pow2(max(es[ct][h] - en, -127));
+      er[ct][h] = en;
+    }
+#pragma unroll
+  for (int t = 0; t < NB; ++t) {
+    uint32_t b[3][4];   // part p: step 0's two registers, then step 1's
+#pragma unroll
+    for (int p = 0; p < 3; ++p) ldsm_x4(b[p], bs + (p * NB * 8 + t * 8) * VT_LDG);
+#pragma unroll
+    for (int ct = 0; ct < VT_CT; ++ct) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f}, z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const uint32_t(&a)[3][2][4] = kp[ct];
+        mma_tc(c, a[1][k], b[0][2 * k], b[0][2 * k + 1]);
+        mma_tc(c, a[0][k], b[1][2 * k], b[1][2 * k + 1]);
+        mma_tc(c, a[1][k], b[1][2 * k], b[1][2 * k + 1]);
+        mma_tc(c, a[2][k], b[0][2 * k], b[0][2 * k + 1]);
+        mma_tc(c, a[0][k], b[2][2 * k], b[2][2 * k + 1]);
+        mma_tc(z, a[0][k], b[0][2 * k], b[0][2 * k + 1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        run[ct][t][e] = fmaf(run[ct][t][e], f_run[ct][e >> 1], (z[e] + c[e]) * f_st[ct][e >> 1]);
+    }
+  }
+}
+
+// The f32 K9 (KS) / K10 at LV lanes: see the section's note.
+template <int LV, bool KS>
+__global__ __launch_bounds__(VT_THREADS, 1) void colstats_tc_kernel(const VF32Args a) {
+  using S = VtSmem<LV, KS>;
+  constexpr int FD = S::FD, NB = S::NB;
+  extern __shared__ __align__(16) unsigned char vt_smem[];
+  float* const ft_s = reinterpret_cast<float*>(vt_smem);
+  float* const na_s = reinterpret_cast<float*>(vt_smem + S::OFF_NA);
+  float* const wp_s = reinterpret_cast<float*>(vt_smem + S::OFF_WP);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // the GEMM's owner: columns 4 cg .. 4 cg + 3 and V entries 16 q + 4 mg
-  // + i (q, i < 4), so a warp's four m groups read 64 contiguous bytes of
-  // a gr row at once
-  const int cg = warp * 8 + (lane >> 2), mg = lane & 3;
-  const int ntiles = a.N / VB_TN, nst = a.P / VB_TP;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ntiles = a.N / VT_TN, nst = a.P / VT_TP;
+  const int c0 = warp * VT_CT * 16 + g;   // the thread's first column in the tile
+  const bf16* const b_lane = reinterpret_cast<const bf16*>(vt_smem + S::OFF_B) +
+                             (lane & 7) * VT_LDG + (lane >> 3) * 8;
 
-  for (int i = tid; i < (VF_THREADS / 32) * 2 * VF_MP; i += VF_THREADS)
-    (&wp_s[0][0][0])[i] = 0.f;
-  if ((int)blockIdx.x < ntiles)
-    load_stage_f32<LV, VB_TP>(fa_s[0], na_s[0], gr_s[0], a, true, 0);
+  for (int i = tid; i < VT_WARPS * 2 * VF_MP; i += VT_THREADS) wp_s[i] = 0.f;
+  if ((int)blockIdx.x < ntiles) vt_load_stage<LV, KS>(vt_smem, a, 0, 0);
   int step = 0;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int j = tile * VB_TN + tid;   // the column whose entries this thread forms
-    float b[LV];
-    col_lanes<LV>(b, a, j);
-    const float nbv = a.nb[j], cv = a.c[j];
-    float acc[VB_CT][VB_MT];
+    const int j0 = tile * VT_TN;
+    float fcol[VT_CT][2][4];   // LV 4: the thread's columns' lanes
+    if constexpr (!COLS_REG<LV>) {
+      __syncthreads();   // every warp is past the last tile's cross
+      load_tile<FD, S::LDA>(ft_s, a, j0);
+    } else {
+#pragma unroll
+      for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            fcol[ct][h][k] = a.ft[(size_t)k * a.N + j0 + c0 + 16 * ct + 8 * h];
+    }
+    float nbv[VT_CT][2];
+#pragma unroll
+    for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) nbv[ct][h] = a.nb[j0 + c0 + 16 * ct + 8 * h];
+    float run[VT_CT][NB][4];
+#pragma unroll
+    for (int ct = 0; ct < VT_CT; ++ct)
+#pragma unroll
+      for (int t = 0; t < NB; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[ct][t][e] = 0.f;
+    int er[VT_CT][2];   // the running sums' exponents
+#pragma unroll
+    for (int ct = 0; ct < VT_CT; ++ct) er[ct][0] = er[ct][1] = -126;
+
     for (int s = 0; s < nst; ++s, ++step) {
       const int buf = step & 1;
       cp_async_wait_all();
-      __syncthreads();                 // stage in; everyone done with buf ^ 1 and e_s
+      __syncthreads();   // stage s (and the tile's lanes) in; everyone done with buf ^ 1
       if (s + 1 < nst)
-        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true,
-                                  (s + 1) * VB_TP);
+        vt_load_stage<LV, KS>(vt_smem, a, buf ^ 1, (s + 1) * VT_TP);
       else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
-        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true, 0);
+        vt_load_stage<LV, KS>(vt_smem, a, buf ^ 1, 0);
+      float cr[VT_CT][4][4];
+      vt_cross<LV>(cr, reinterpret_cast<const float*>(vt_smem + S::OFF_FA + buf * S::FA_STAGE),
+                   ft_s, fcol, c0, tq);
+      uint32_t kp[VT_CT][3][2][4];
+      int es[VT_CT][2];
 #pragma unroll
-      for (int r = 0; r < VB_TP; ++r)
-        e_s[r * VB_LDE + tid] = entry_f32<LV>(fa_s[buf], na_s[buf], r, b, nbv) * cv;
-      __syncthreads();                 // the stage's entries in
-      if (s % VB_SPAN == 0) {
+      for (int ct = 0; ct < VT_CT; ++ct)
+        vt_entries(kp[ct], es[ct], cr[ct], na_s + buf * VT_TP, nbv[ct], tq);
+      vt_products<NB>(run, er, kp, es, b_lane + buf * (S::B_STAGE / 2));
+    }
+
 #pragma unroll
-        for (int c = 0; c < VB_CT; ++c)
+    for (int ct = 0; ct < VT_CT; ++ct) {
+      const int jg = j0 + c0 + 16 * ct;   // the thread's columns jg, jg + 8
+      // the column scales times 2^er: K9's s from ks (column 64, B's ninth
+      // n8 tile, held by the quad's tq 0 lane), K10's c
+      float cs[2];
 #pragma unroll
-          for (int m = 0; m < VB_MT; ++m) acc[c][m] = 0.f;
-      }
-#pragma unroll 4
-      for (int r = 0; r < VB_TP; ++r) {
-        const float4 ev = *reinterpret_cast<const float4*>(e_s + r * VB_LDE + 4 * cg);
-        const float e[VB_CT] = {ev.x, ev.y, ev.z, ev.w};
-        const float4* g = reinterpret_cast<const float4*>(gr_s[buf] + r * VF_MP + 4 * mg);
-#pragma unroll
-        for (int q = 0; q < VB_MT / 4; ++q) {
-          const float4 gv = g[4 * q];
-#pragma unroll
-          for (int c = 0; c < VB_CT; ++c) {
-            acc[c][4 * q] = fmaf(e[c], gv.x, acc[c][4 * q]);
-            acc[c][4 * q + 1] = fmaf(e[c], gv.y, acc[c][4 * q + 1]);
-            acc[c][4 * q + 2] = fmaf(e[c], gv.z, acc[c][4 * q + 2]);
-            acc[c][4 * q + 3] = fmaf(e[c], gv.w, acc[c][4 * q + 3]);
-          }
+      for (int h = 0; h < 2; ++h) {
+        const int j = jg + 8 * h;
+        const float w = pow2(er[ct][h]);
+        if constexpr (KS) {
+          const float ks = __shfl_sync(0xffffffffu, run[ct][NB - 1][2 * h], lane & ~3) * w;
+          const float sj = sqrtf(a.s_pre[j] / fmaxf(ks, EPS)) * a.bm[j];
+          if (tq == 0) a.s_out[j] = sj;
+          cs[h] = sj * w;
+        } else {
+          cs[h] = a.c[j] * w;
         }
       }
-      if ((s + 1) % VB_SPAN == 0 || s + 1 == nst) {   // the span into the running V
-        const bool first = s < VB_SPAN;
+      // V out; this column tile's norms and coeffs into the warp's slots
+      const float yv[2] = {a.y[jg], a.y[jg + 8]};
 #pragma unroll
-        for (int c = 0; c < VB_CT; ++c)
+      for (int t = 0; t < VF_MP / 8; ++t) {
+        const float v0 = run[ct][t][0] * cs[0], v1 = run[ct][t][1] * cs[0];
+        const float v2 = run[ct][t][2] * cs[1], v3 = run[ct][t][3] * cs[1];
+        *reinterpret_cast<float2*>(a.v_out + (size_t)jg * VF_MP + 8 * t + 2 * tq) =
+            make_float2(v0, v1);
+        *reinterpret_cast<float2*>(a.v_out + (size_t)(jg + 8) * VF_MP + 8 * t + 2 * tq) =
+            make_float2(v2, v3);
+        const float va[2][2] = {{v0, v2}, {v1, v3}};   // [entry][column jg, jg + 8]
 #pragma unroll
-          for (int m = 0; m < VB_MT; ++m) {
-            float* q = vrun_s + (c * VB_MT + m) * VF_THREADS + tid;
-            *q = first ? acc[c][m] : *q + acc[c][m];
+        for (int e = 0; e < 2; ++e) {
+          float nn = fmaf(va[e][1], va[e][1], va[e][0] * va[e][0]);
+          float cc = fmaf(yv[1], va[e][1], yv[0] * va[e][0]);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {   // over g: a fixed tree
+            nn += __shfl_xor_sync(0xffffffffu, nn, off);
+            cc += __shfl_xor_sync(0xffffffffu, cc, off);
           }
-      }
-    }
-    // V out; this tile's norms and coeffs into the warp's slots
-    float yv[VB_CT];
-#pragma unroll
-    for (int c = 0; c < VB_CT; ++c) {
-      const int jc = tile * VB_TN + 4 * cg + c;
-      yv[c] = a.y[jc];
-#pragma unroll
-      for (int m = 0; m < VB_MT; ++m) acc[c][m] = vrun_s[(c * VB_MT + m) * VF_THREADS + tid];
-      float4* vo = reinterpret_cast<float4*>(a.v_out + (size_t)jc * VF_MP + 4 * mg);
-#pragma unroll
-      for (int q = 0; q < VB_MT / 4; ++q)
-        vo[4 * q] = make_float4(acc[c][4 * q], acc[c][4 * q + 1], acc[c][4 * q + 2],
-                                acc[c][4 * q + 3]);
-    }
-#pragma unroll
-    for (int m = 0; m < VB_MT; ++m) {
-      float nn = 0.f, cc = 0.f;
-#pragma unroll
-      for (int c = 0; c < VB_CT; ++c) {
-        nn = fmaf(acc[c][m], acc[c][m], nn);
-        cc = fmaf(yv[c], acc[c][m], cc);
-      }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {   // over the warp's 8 column groups
-        nn += __shfl_xor_sync(0xffffffffu, nn, off);
-        cc += __shfl_xor_sync(0xffffffffu, cc, off);
-      }
-      if (lane < 4) {   // V entry 16 (m / 4) + 4 mg + m % 4
-        wp_s[warp][0][16 * (m / 4) + 4 * mg + m % 4] += nn;
-        wp_s[warp][1][16 * (m / 4) + 4 * mg + m % 4] += cc;
+          if (g == 0) {
+            wp_s[(warp * 2 + 0) * VF_MP + 8 * t + 2 * tq + e] += nn;
+            wp_s[(warp * 2 + 1) * VF_MP + 8 * t + 2 * tq + e] += cc;
+          }
+        }
       }
     }
   }
   __syncthreads();
-  if (tid < 2 * VF_MP) {              // warps in order
+  if (tid < 2 * VF_MP) {   // warps in order
     float s = 0.f;
-    for (int w = 0; w < VF_THREADS / 32; ++w) s += wp_s[w][tid / VF_MP][tid % VF_MP];
+    for (int w = 0; w < VT_WARPS; ++w) s += wp_s[(w * 2 + tid / VF_MP) * VF_MP + tid % VF_MP];
     a.part[(size_t)blockIdx.x * 2 * VF_MP + tid] = s;
   }
 }
 
-// The V pass past 64 lanes (an NLM 9 x 9 or 11 x 11 patch and the
-// coordinates, 84 or 124 live lanes of 96 or 128). A column's lanes in
-// registers beside the 64 accumulators would pass the 255-register cap,
-// and a 256-column tile's lanes in shared memory (96 or 128 KB) beside the
-// 64 KB running V pass a block's 227 KB. So the block tile is 128 columns,
-// whose lanes sit in shared memory for the tile (bt_s[lane][column], 48 or
-// 64 KB, loaded once a tile), and two threads a column form a stage's
-// entries, 8 rows each, taking the column's lanes 32 at a time into
-// registers: each entry's cross is still one FFMA chain over the lanes in
-// order, entry_f32's. The GEMM: a thread owns 4 columns x 8 V entries (32
-// accumulators), V entries 32 q + 4 mg + i (q < 2, i < 4), so a warp's 8 m
-// groups read 128 contiguous bytes of a gr row; V sums in the same spans,
-// into a running V of 32 KB. Per stage row a thread loads one float4 of
-// entries and two of gr for 32 FFMA; the entries take one broadcast float4
-// of fa and, a chunk of 32 lanes, 32 column lanes per 8 x 32 FFMA.
-constexpr int VW_TN = 128;                // columns a block tile
-constexpr int VW_LDE = VW_TN + 4;         // e_s row stride (floats)
-constexpr int VW_LC = 32;                 // a column's lanes in registers at a time
-constexpr int VW_MT = 8;                  // a thread's V entries
-constexpr int VW_RH = VB_TP / 2;          // stage rows of a thread's entries
-static_assert(VF_THREADS == 2 * VW_TN && VW_TN / VB_CT * VF_MP / VW_MT == VF_THREADS,
-              "two threads a column; 4 columns x 8 V entries a thread");
-template <int LV>
-constexpr size_t VW_DYN_OF = sizeof(float) * ((size_t)VB_CT * VW_MT * VF_THREADS + (size_t)LV * VW_TN);
-
-template <int LV>
-__global__ __launch_bounds__(VF_THREADS, 1) void colstats_f32_wide_kernel(const VF32Args a) {
-  constexpr int LDA = VF_LDA_OF<LV>;
-  __shared__ __align__(16) float fa_s[2][VB_TP * LDA];
-  __shared__ __align__(16) float gr_s[2][VB_TP * VF_MP];
-  __shared__ __align__(16) float na_s[2][VB_TP];
-  __shared__ __align__(16) float e_s[VB_TP * VW_LDE];   // the stage's entries k c_j
-  __shared__ float wp_s[VF_THREADS / 32][2][VF_MP];     // per-warp norms, coeffs
-  extern __shared__ __align__(16) float vw_smem[];
-  float* vrun_s = vw_smem;                              // [VB_CT * VW_MT][VF_THREADS] running V
-  float* bt_s = vw_smem + VB_CT * VW_MT * VF_THREADS;   // [LV][VW_TN] the tile's column lanes
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int jc = tid % VW_TN, rh = (tid / VW_TN) * VW_RH;   // entries: column, first row
-  const int cg = tid / 8, mg = tid % 8;                     // GEMM: columns 4 cg .. 4 cg + 3
-  const int ntiles = a.N / VW_TN, nst = a.P / VB_TP;
-
-  for (int i = tid; i < (VF_THREADS / 32) * 2 * VF_MP; i += VF_THREADS)
-    (&wp_s[0][0][0])[i] = 0.f;
-  if ((int)blockIdx.x < ntiles)
-    load_stage_f32<LV, VB_TP>(fa_s[0], na_s[0], gr_s[0], a, true, 0);
-  int step = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    // the tile's column lanes: every thread is past the last tile's entries
-#pragma unroll 1
-    for (int c = tid; c < LV * (VW_TN / 4); c += VF_THREADS) {
-      const int k = c / (VW_TN / 4), q = c % (VW_TN / 4);
-      cp_async16(bt_s + k * VW_TN + 4 * q, a.ft + (size_t)k * a.N + (size_t)tile * VW_TN + 4 * q);
-    }
-    cp_async_commit();
-    const int j = tile * VW_TN + jc;    // the column whose entries this thread forms
-    const float nbv = a.nb[j], cv = a.c[j];
-    float acc[VB_CT][VW_MT];
-    for (int s = 0; s < nst; ++s, ++step) {
-      const int buf = step & 1;
-      cp_async_wait_all();
-      __syncthreads();                 // stage (and lanes) in; everyone done with buf ^ 1, e_s
-      if (s + 1 < nst)
-        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true,
-                                  (s + 1) * VB_TP);
-      else if (tile + (int)gridDim.x < ntiles)   // the next tile's first stage
-        load_stage_f32<LV, VB_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], gr_s[buf ^ 1], a, true, 0);
-      float cr[VW_RH];
-#pragma unroll
-      for (int r = 0; r < VW_RH; ++r) cr[r] = 0.f;
-#pragma unroll 1
-      for (int k0 = 0; k0 < LV; k0 += VW_LC) {
-        float b[VW_LC];
-#pragma unroll
-        for (int k = 0; k < VW_LC; ++k) b[k] = bt_s[(k0 + k) * VW_TN + jc];
-#pragma unroll
-        for (int r = 0; r < VW_RH; ++r)
-#pragma unroll
-          for (int k = 0; k < VW_LC; k += 4)
-            cr[r] = dot4(*reinterpret_cast<const float4*>(fa_s[buf] + (rh + r) * LDA + k0 + k),
-                         make_float4(b[k], b[k + 1], b[k + 2], b[k + 3]), cr[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < VW_RH; ++r)
-        e_s[(rh + r) * VW_LDE + jc] = kf32(na_s[buf][rh + r] + nbv, cr[r]) * cv;
-      __syncthreads();                 // the stage's entries in
-      if (s % VB_SPAN == 0) {
-#pragma unroll
-        for (int c = 0; c < VB_CT; ++c)
-#pragma unroll
-          for (int m = 0; m < VW_MT; ++m) acc[c][m] = 0.f;
-      }
-#pragma unroll 4
-      for (int r = 0; r < VB_TP; ++r) {
-        const float4 ev = *reinterpret_cast<const float4*>(e_s + r * VW_LDE + 4 * cg);
-        const float e[VB_CT] = {ev.x, ev.y, ev.z, ev.w};
-        const float4* g = reinterpret_cast<const float4*>(gr_s[buf] + r * VF_MP + 4 * mg);
-#pragma unroll
-        for (int q = 0; q < VW_MT / 4; ++q) {
-          const float4 gv = g[8 * q];
-#pragma unroll
-          for (int c = 0; c < VB_CT; ++c) {
-            acc[c][4 * q] = fmaf(e[c], gv.x, acc[c][4 * q]);
-            acc[c][4 * q + 1] = fmaf(e[c], gv.y, acc[c][4 * q + 1]);
-            acc[c][4 * q + 2] = fmaf(e[c], gv.z, acc[c][4 * q + 2]);
-            acc[c][4 * q + 3] = fmaf(e[c], gv.w, acc[c][4 * q + 3]);
-          }
-        }
-      }
-      if ((s + 1) % VB_SPAN == 0 || s + 1 == nst) {   // the span into the running V
-        const bool first = s < VB_SPAN;
-#pragma unroll
-        for (int c = 0; c < VB_CT; ++c)
-#pragma unroll
-          for (int m = 0; m < VW_MT; ++m) {
-            float* q = vrun_s + (c * VW_MT + m) * VF_THREADS + tid;
-            *q = first ? acc[c][m] : *q + acc[c][m];
-          }
-      }
-    }
-    // V out; this tile's norms and coeffs into the warp's slots
-    float yv[VB_CT];
-#pragma unroll
-    for (int c = 0; c < VB_CT; ++c) {
-      const int jg = tile * VW_TN + 4 * cg + c;
-      yv[c] = a.y[jg];
-#pragma unroll
-      for (int m = 0; m < VW_MT; ++m) acc[c][m] = vrun_s[(c * VW_MT + m) * VF_THREADS + tid];
-      float4* vo = reinterpret_cast<float4*>(a.v_out + (size_t)jg * VF_MP + 4 * mg);
-#pragma unroll
-      for (int q = 0; q < VW_MT / 4; ++q)
-        vo[8 * q] = make_float4(acc[c][4 * q], acc[c][4 * q + 1], acc[c][4 * q + 2],
-                                acc[c][4 * q + 3]);
-    }
-#pragma unroll
-    for (int m = 0; m < VW_MT; ++m) {
-      float nn = 0.f, cc = 0.f;
-#pragma unroll
-      for (int c = 0; c < VB_CT; ++c) {
-        nn = fmaf(acc[c][m], acc[c][m], nn);
-        cc = fmaf(yv[c], acc[c][m], cc);
-      }
-#pragma unroll
-      for (int off = 8; off < 32; off <<= 1) {   // over the warp's 4 column groups
-        nn += __shfl_xor_sync(0xffffffffu, nn, off);
-        cc += __shfl_xor_sync(0xffffffffu, cc, off);
-      }
-      if (lane < 8) {   // V entry 32 (m / 4) + 4 mg + m % 4
-        wp_s[warp][0][32 * (m / 4) + 4 * mg + m % 4] += nn;
-        wp_s[warp][1][32 * (m / 4) + 4 * mg + m % 4] += cc;
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < 2 * VF_MP) {              // warps in order
-    float s = 0.f;
-    for (int w = 0; w < VF_THREADS / 32; ++w) s += wp_s[w][tid / VF_MP][tid % VF_MP];
-    a.part[(size_t)blockIdx.x * 2 * VF_MP + tid] = s;
-  }
-}
-
-// K9's ks pass, f32: ks_j = k_j^T t over all of p (a stage's sum from zero,
-// then added to the total), then s_j
-template <int LV>
-__global__ __launch_bounds__(VF_THREADS, LV <= 32 ? 3 : LV == 64 ? 2 : 1) void ks_f32_kernel(
-    const VF32Args a) {
-  __shared__ __align__(16) float fa_s[2][VF_TP * VF_LDA_OF<LV>];
-  __shared__ __align__(16) float t_s[2][VF_TP];
-  __shared__ __align__(16) float na_s[2][VF_TP];
-  const int tid = threadIdx.x;
-  const int ntiles = a.N / VF_THREADS, nst = a.P / VF_TP;
-
-  if ((int)blockIdx.x < ntiles) load_stage_f32<LV, VF_TP>(fa_s[0], na_s[0], t_s[0], a, false, 0);
-  int step = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int j = tile * VF_THREADS + tid;
-    float b[LV];
-    col_lanes<LV>(b, a, j);
-    const float nbv = a.nb[j];
-    float ks = 0.f;
-    for (int s = 0; s < nst; ++s, ++step) {
-      const int buf = step & 1;
-      cp_async_wait_all();
-      __syncthreads();
-      if (s + 1 < nst)
-        load_stage_f32<LV, VF_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], t_s[buf ^ 1], a, false,
-                                  (s + 1) * VF_TP);
-      else if (tile + (int)gridDim.x < ntiles)
-        load_stage_f32<LV, VF_TP>(fa_s[buf ^ 1], na_s[buf ^ 1], t_s[buf ^ 1], a, false, 0);
-      float kst = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < VF_TP; ++r)
-        kst = fmaf(t_s[buf][r], entry_f32<LV>(fa_s[buf], na_s[buf], r, b, nbv), kst);
-      ks += kst;
-    }
-    a.s_out[j] = sqrtf(a.s_pre[j] / fmaxf(ks, EPS)) * a.bm[j];
-  }
-}
-
-// the f32 V pass at LV lanes: its kernel and dynamic shared memory (the
-// running V; past 64 lanes the wide design's, with the tile's lanes)
-typedef void (*v_f32_fn)(const VF32Args);
-template <int LV>
-v_f32_fn v_f32_kernel() {
-  if constexpr (LV <= 64)
-    return colstats_f32_kernel<LV>;
-  else
-    return colstats_f32_wide_kernel<LV>;
-}
-template <int LV>
-constexpr size_t VF_DYN_OF = LV <= 64 ? VF_RUN_BYTES : VW_DYN_OF<LV>;
-
-template <int LV>
-int v_f32_setup(int* blocks_out) {
-  cudaError_t e = cudaFuncSetAttribute(v_f32_kernel<LV>(),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)VF_DYN_OF<LV>);
+template <int LV, bool KS>
+int vt_setup(int* blocks_out) {
+  using S = VtSmem<LV, KS>;
+  cudaError_t e = cudaFuncSetAttribute(colstats_tc_kernel<LV, KS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::BYTES);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(v_f32_kernel<LV>(), cudaFuncAttributePreferredSharedMemoryCarveout,
-                             100);
+    e = cudaFuncSetAttribute(colstats_tc_kernel<LV, KS>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess || blocks_out == nullptr) return static_cast<int>(e);
   int dev = 0, sms = 0, occ = 0;
   e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, v_f32_kernel<LV>(), VF_THREADS,
-                                                      VF_DYN_OF<LV>);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, colstats_tc_kernel<LV, KS>,
+                                                      VT_THREADS, S::BYTES);
   *blocks_out = occ * sms;
   return static_cast<int>(e);
 }
 
-// the f32 V pass (K10, or K9's second pass), then the fixed-order reduction
-template <int LV>
-int launch_v_f32(int blocks, cudaStream_t s, const VF32Args& a, void* norms_coeffs) {
-  int rc = v_f32_setup<LV>(nullptr);
+// B's parts (split_cols_kernel), the kernel, then the
+// fixed-order reduction of its partials
+template <int LV, bool KS>
+int launch_vt(int blocks, cudaStream_t s, const VF32Args& a, void* norms_coeffs) {
+  using S = VtSmem<LV, KS>;
+  int rc = vt_setup<LV, KS>(nullptr);
   if (rc != 0) return rc;
-  const v_f32_fn kernel = v_f32_kernel<LV>();
-  kernel<<<blocks, VF_THREADS, VF_DYN_OF<LV>, s>>>(a);
+  constexpr int NB8 = 8 * S::NB;
+  split_cols_kernel<NB8><<<(NB8 * (a.P / VT_TP) + 255) / 256, 256, 0, s>>>(
+      a.gr, KS ? a.t : nullptr, a.b_parts, a.P);
+  colstats_tc_kernel<LV, KS><<<blocks, VT_THREADS, S::BYTES, s>>>(a);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   return launch_reduce(a.part, static_cast<float*>(norms_coeffs), blocks, (size_t)2 * VF_MP, s);
 }
 
-template <int LV>
-int launch_ks_f32(cudaStream_t s, const VF32Args& a) {
-  int dev = 0, sms = 0, occ = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, ks_f32_kernel<LV>, VF_THREADS, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = a.N / VF_THREADS;
-  ks_f32_kernel<LV><<<occ * sms < tiles ? occ * sms : tiles, VF_THREADS, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+template <bool KS>
+int launch_vt_lv(int lv, int blocks, cudaStream_t s, const VF32Args& a, void* norms_coeffs) {
+  return lv == 4     ? launch_vt<4, KS>(blocks, s, a, norms_coeffs)
+         : lv == 32  ? launch_vt<32, KS>(blocks, s, a, norms_coeffs)
+         : lv == 64  ? launch_vt<64, KS>(blocks, s, a, norms_coeffs)
+         : lv == 96  ? launch_vt<96, KS>(blocks, s, a, norms_coeffs)
+         : lv == 128 ? launch_vt<128, KS>(blocks, s, a, norms_coeffs)
+                     : static_cast<int>(cudaErrorInvalidValue);
 }
 
 VF32Args vf32_args(const void* fa, const void* ft, const void* gr, const void* y, const void* na,
-                   const void* nb, void* v_out, void* part, int P, int N) {
+                   const void* nb, void* v_out, void* part, void* scratch, int P, int N) {
   VF32Args a = {};
   a.fa = static_cast<const float*>(fa);
   a.ft = static_cast<const float*>(ft);
@@ -1049,6 +1061,7 @@ VF32Args vf32_args(const void* fa, const void* ft, const void* gr, const void* y
   a.nb = static_cast<const float*>(nb);
   a.v_out = static_cast<float*>(v_out);
   a.part = static_cast<float*>(part);
+  a.b_parts = static_cast<bf16*>(scratch);
   a.P = P;
   a.N = N;
   return a;
@@ -1058,65 +1071,67 @@ VF32Args vf32_args(const void* fa, const void* ft, const void* gr, const void* y
 
 extern "C" {
 
-// how many f32 V-pass blocks (lv = 4, 32, 64, 96 or 128 live lanes) fit
-// the card at once; a negative value is a cudaError, 0 an unsupported lv
-int glt_colstats_f32_blocks(int lv) {
+// how many f32 K9 (ks != 0) or K10 blocks (lv = 4, 32, 64, 96 or 128 live
+// lanes) fit the card at once; a negative value is a cudaError, 0 an
+// unsupported lv
+int glt_colstats_f32_blocks(int lv, int ks) {
   int n = 0;
-  const int rc = lv == 4     ? v_f32_setup<4>(&n)
-                 : lv == 32  ? v_f32_setup<32>(&n)
-                 : lv == 64  ? v_f32_setup<64>(&n)
-                 : lv == 96  ? v_f32_setup<96>(&n)
-                 : lv == 128 ? v_f32_setup<128>(&n)
-                             : -1;
+  int rc = -1;
+  if (ks)
+    rc = lv == 4     ? vt_setup<4, true>(&n)
+         : lv == 32  ? vt_setup<32, true>(&n)
+         : lv == 64  ? vt_setup<64, true>(&n)
+         : lv == 96  ? vt_setup<96, true>(&n)
+         : lv == 128 ? vt_setup<128, true>(&n)
+                     : -1;
+  else
+    rc = lv == 4     ? vt_setup<4, false>(&n)
+         : lv == 32  ? vt_setup<32, false>(&n)
+         : lv == 64  ? vt_setup<64, false>(&n)
+         : lv == 96  ? vt_setup<96, false>(&n)
+         : lv == 128 ? vt_setup<128, false>(&n)
+                     : -1;
   return rc < 0 ? 0 : rc != 0 ? -rc : n;
 }
 
-// K10, f32 layouts. P % 32 == 0, N % 256 == 0, gr (P, 64) row-major f32, lv
-// 4 or 32 (a 32-lane layout), or the layout's depth 64, 96 or 128,
-// 16-byte aligned operands (the wrapper checks); part holds (blocks, 2, 64)
-// floats, norms_coeffs (2, 64).
-int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const void* c,
-                       const void* y, const void* na, const void* nb, void* v_out, void* part,
-                       void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (P % VF_TP || N % VB_TN || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
-  a.c = static_cast<const float*>(c);
-  return lv == 4     ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
-         : lv == 32  ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
-         : lv == 64  ? launch_v_f32<64>(blocks, s, a, norms_coeffs)
-         : lv == 96  ? launch_v_f32<96>(blocks, s, a, norms_coeffs)
-         : lv == 128 ? launch_v_f32<128>(blocks, s, a, norms_coeffs)
-                     : static_cast<int>(cudaErrorInvalidValue);
+// the scratch bytes of an f32 K9 (ks != 0) or K10 launch at P sample rows
+// and fd lanes: B's three bf16 parts
+size_t glt_colstats_f32_scratch_bytes(int P, int fd, int ks) {
+  (void)fd;
+  return (size_t)3 * 8 * (ks ? VT_NB<true> : VT_NB<false>) * P * sizeof(bf16);
 }
 
-// K9, f32 layouts: the ks pass (s into s_out), then K10's V pass with c = s.
-// Shapes as glt_colstats_v_f32; t (P), s_pre and bm (N) f32.
+// K10, f32 layouts. P % 32 == 0, N % 256 == 0, gr (P, 64) row-major f32,
+// lv 4 or 32 (a 32-lane layout), or the layout's depth 64, 96 or 128,
+// 16-byte aligned operands (the wrapper checks); scratch holds
+// glt_colstats_f32_scratch_bytes, part (blocks, 2, 64) floats,
+// norms_coeffs (2, 64).
+int glt_colstats_v_f32(const void* fa, const void* ft, const void* gr, const void* c,
+                       const void* y, const void* na, const void* nb, void* v_out, void* part,
+                       void* norms_coeffs, void* scratch, int P, int N, int lv, int blocks,
+                       void* stream) {
+  if (P % VT_TP || N % VT_TN || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, scratch, P, N);
+  a.c = static_cast<const float*>(c);
+  return launch_vt_lv<false>(lv, blocks, reinterpret_cast<cudaStream_t>(stream), a,
+                             norms_coeffs);
+}
+
+// K9, f32 layouts: one launch, s into s_out. Shapes as glt_colstats_v_f32;
+// t (P), s_pre and bm (N) f32.
 int glt_finish_colstats_f32(const void* fa, const void* ft, const void* gr, const void* t,
                             const void* s_pre, const void* bm, const void* y, const void* na,
                             const void* nb, void* v_out, void* s_out, void* part,
-                            void* norms_coeffs, int P, int N, int lv, int blocks, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (P % VF_TP || N % VB_TN || blocks < 1 ||
-      (lv != 4 && lv != 32 && lv != 64 && lv != 96 && lv != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, P, N);
+                            void* norms_coeffs, void* scratch, int P, int N, int lv, int blocks,
+                            void* stream) {
+  if (P % VT_TP || N % VT_TN || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  VF32Args a = vf32_args(fa, ft, gr, y, na, nb, v_out, part, scratch, P, N);
   a.t = static_cast<const float*>(t);
   a.s_pre = static_cast<const float*>(s_pre);
   a.bm = static_cast<const float*>(bm);
   a.s_out = static_cast<float*>(s_out);
-  a.c = static_cast<const float*>(s_out);
-  const int rc = lv == 4    ? launch_ks_f32<4>(s, a)
-                 : lv == 32 ? launch_ks_f32<32>(s, a)
-                 : lv == 64 ? launch_ks_f32<64>(s, a)
-                 : lv == 96 ? launch_ks_f32<96>(s, a)
-                            : launch_ks_f32<128>(s, a);
-  if (rc != 0) return rc;
-  return lv == 4    ? launch_v_f32<4>(blocks, s, a, norms_coeffs)
-         : lv == 32 ? launch_v_f32<32>(blocks, s, a, norms_coeffs)
-         : lv == 64 ? launch_v_f32<64>(blocks, s, a, norms_coeffs)
-         : lv == 96 ? launch_v_f32<96>(blocks, s, a, norms_coeffs)
-                    : launch_v_f32<128>(blocks, s, a, norms_coeffs);
+  return launch_vt_lv<true>(lv, blocks, reinterpret_cast<cudaStream_t>(stream), a,
+                            norms_coeffs);
 }
 
 // how many V-pass blocks for width MP and fd lanes fit the card at once

@@ -3,6 +3,7 @@
 // K5/K6; colstats_v.cu, K9/K10): the bf16 and fp16 tensor-core instructions,
 // bf16 packing and rounding, the aug-layout tile entry and the bf16 entry's
 // fast exp, the IEEE f32 tile entry, the split-fp16 cross of f32 features,
+// f32 operands as three bf16 parts on a grid (split3_grid),
 // ldmatrix and movmatrix,
 // cp.async staging, the A fragment of a k-major feature matrix, mbarriers,
 // TMA and bulk copies with their tensor maps, the cluster launch, and the
@@ -149,6 +150,36 @@ __device__ __forceinline__ float3 split3(float x, float sinv) {
   const float r = xs - b;
   const float m = rintf(r * 2097152.f) * (1.f / 2097152.f);
   return make_float3(b, m * 2048.f, (r - m) * 4194304.f);
+}
+
+// --- f32 operands as three bf16 parts (the f32 K3/K4, K9/K10) -------------
+
+constexpr int GRID_EMAX = 100;   // |a grid's exponent| (2^E and the grids normal)
+
+// x0, x1 (each |x| <= 2^E, its qi = 2^(E-8), q = 1 / qi) as three bf16 parts,
+// packed in pairs (x0 in the low half): b0 = x rounded to the grid qi (at
+// most 2^8 steps, so exact in bf16), b1 = bf16(x - b0), b2 = bf16(x - b0 -
+// b1). Both remainders are exact in f32, and b0 + b1 + b2 holds x to 2^-17
+// of |x - b0| <= qi / 2. E is the stage's: the largest |x| of the row of A,
+// or of the column of B, over the 32 depths of the stage is < 2^E. Products
+// of two b0 are then multiples of 2^(Ea + Eb - 16) of magnitude at most
+// 2^(Ea + Eb): the stage's sum of 32 needs 22 bits, so the tensor core's
+// accumulation, which truncates, drops nothing
+__device__ __forceinline__ void split3_grid(float x0, float x1, float q0, float qi0, float q1,
+                                            float qi1, uint32_t (&out)[3]) {
+  const float b0 = rintf(x0 * q0) * qi0, b1 = rintf(x1 * q1) * qi1;
+  out[0] = pack2(b0, b1);
+  const float r0 = x0 - b0, r1 = x1 - b1;
+  out[1] = pack2(r0, r1);
+  const float2 c = unpack2(out[1]);
+  out[2] = pack2(r0 - c.x, r1 - c.y);
+}
+
+// the grid's E of values whose largest |x| is m: m < 2^E, clamped so that
+// 2^E and the grid 2^(E - 8) stay normal (all zero: the least E)
+__device__ __forceinline__ int grid_exp(float m) {
+  const int e = (int)((__float_as_uint(m) >> 23) & 0xff) - 126;
+  return min(max(e, -GRID_EMAX), GRID_EMAX);
 }
 
 __device__ __forceinline__ uint32_t h2(float lo, float hi) {

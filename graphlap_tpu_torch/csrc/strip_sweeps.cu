@@ -760,7 +760,6 @@ constexpr int SS_APART = SS_BM * SS_BK * 2;     // one part of A (8 KB)
 constexpr int SS_BBOX = 64 * SS_BK * 2;         // a TMA box of B: 64 columns x 32 deep
 constexpr int SS_BPART = SS_BN / 64 * SS_BBOX;  // one part of B (16 KB)
 constexpr int SS_PSTAGE = 3 * SS_APART + 3 * SS_BPART;
-constexpr int SS_EMAX = 100;                    // |a grid's exponent| (2^E and the grids normal)
 // 1024 B of alignment slack, the f32 ring, the parts ring, K3's t of each
 // f32 tile, a barrier an f32 tile and three a parts stage, ks, s2
 constexpr size_t SS_SMEM = 1024 + (size_t)SS_FST * SS_F_BYTES + (size_t)SS_PST * SS_PSTAGE +
@@ -777,32 +776,6 @@ struct SsArgs {
   float* part;         // (splits, P, kp) out      phase 2
   int P, N, kp, chunk;
 };
-
-// x0, x1 (each |x| <= 2^E, its qi = 2^(E-8), q = 1 / qi) as three bf16 parts,
-// packed in pairs (x0 in the low half): b0 = x rounded to the grid qi (at
-// most 2^8 steps, so exact in bf16), b1 = bf16(x - b0), b2 = bf16(x - b0 -
-// b1). Both remainders are exact in f32, and b0 + b1 + b2 holds x to 2^-17
-// of |x - b0| <= qi / 2. E is the stage's: the largest |x| of the row of A,
-// or of the column of B, over the 32 depths of the stage is < 2^E. Products
-// of two b0 are then multiples of 2^(Ea + Eb - 16) of magnitude at most
-// 2^(Ea + Eb): the stage's sum of 32 needs 22 bits, so the tensor core's
-// accumulation, which truncates, drops nothing
-__device__ __forceinline__ void split3_grid(float x0, float x1, float q0, float qi0, float q1,
-                                            float qi1, uint32_t (&out)[3]) {
-  const float b0 = rintf(x0 * q0) * qi0, b1 = rintf(x1 * q1) * qi1;
-  out[0] = pack2(b0, b1);
-  const float r0 = x0 - b0, r1 = x1 - b1;
-  out[1] = pack2(r0, r1);
-  const float2 c = unpack2(out[1]);
-  out[2] = pack2(r0 - c.x, r1 - c.y);
-}
-
-// the grid's E of values whose largest |x| is m: m < 2^E, clamped so that
-// 2^E and the grid 2^(E - 8) stay normal (all zero: the least E)
-__device__ __forceinline__ int grid_exp(float m) {
-  const int e = (int)((__float_as_uint(m) >> 23) & 0xff) - 126;
-  return min(max(e, -SS_EMAX), SS_EMAX);
-}
 
 // shared-memory matrix descriptor, 64-byte swizzle, K-major: 8-row groups
 // of 64-byte rows `sbo` bytes apart (the 512-byte atoms aligned)

@@ -57,9 +57,10 @@ _SIGNATURES = {
     "glt_kb_strip_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "glt_ext2_f32_clusters": ([_I, _I], _I),
     "glt_ext2_matvec_f32": ([_P] * 7 + [_I] * 5 + [_P], _I),
-    "glt_colstats_f32_blocks": ([_I], _I),
-    "glt_colstats_v_f32": ([_P] * 10 + [_I] * 4 + [_P], _I),
-    "glt_finish_colstats_f32": ([_P] * 13 + [_I] * 4 + [_P], _I),
+    "glt_colstats_f32_blocks": ([_I, _I], _I),
+    "glt_colstats_f32_scratch_bytes": ([_I, _I, _I], _Z),
+    "glt_colstats_v_f32": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "glt_finish_colstats_f32": ([_P] * 14 + [_I] * 4 + [_P], _I),
 }
 
 _LIB = None

@@ -29,8 +29,9 @@ no bf16 rounding point, f32 products).
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
 on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
-``csrc/colstats_v.cu`` (K10's V pass; K9 is a ks pass over all of p, then
-the same V pass with c = s) on the two layouts the presets build, each
+``csrc/colstats_v.cu`` (K10's V pass; the bf16 K9 is a ks pass over all of
+p, then the same V pass with c = s; the f32 K9 forms each entry once, with
+ks from the same sums as V) on the two layouts the presets build, each
 with 32, 64, 96 or 128 feature lanes (each kernel is a template on its
 depth): bf16 (aug for K7/K8, plain for K9/K10; an NLM 5 x 5, 7 x 7, 9 x 9
 or 11 x 11 patch), and f32 plain (the bilateral recipes, ``spatial_h >
@@ -38,7 +39,9 @@ or 11 x 11 patch), and f32 plain (the bilateral recipes, ``spatial_h >
 lanes of 32, or an NLM 7 x 7, 9 x 9 or 11 x 11 patch with them, 52, 84 or
 124 live lanes of 64, 96 or 128), whose kernels form each entry with an
 IEEE f32 FFMA cross over the ``live`` lanes (the caller's feature width
-rounded up to 4; None reads all of them) and expf. The plain-bf16 K7/K8
+rounded up to 4; None reads all of them) and expf (the f32 K9 / K10 then
+run V and ks on the tensor cores, each f32 operand in three bf16 parts:
+f32-exact products, rounded to nearest). The plain-bf16 K7/K8
 layout and an f32 aug layout raise ``NotImplementedError`` (no preset
 builds either). There is no fallback from a kernel to its plain version.
 """
@@ -61,7 +64,7 @@ X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
 XF_TN = 32                # the f32 K8's column tile (csrc)
 E_TN = 128                # K7 width quantum (its 256-column units clip the last)
 MP_MAX = 64               # widest V a K9 / K10 launch holds
-C_TN = 256                # K9 / K10 column tile (csrc)
+C_TN = 256                # K9 / K10 column tile (csrc), both layouts
 # K7 columns a launch: the kb buffer of one superblock is (p_pad, GRAM_SUPER)
 # bf16, 1.07 GB at p_pad 4096, so the gc64 gram at 8 MP (131072 sampled
 # columns) stays one launch and gram_coarse = 1 (8.4M columns) does not
@@ -491,45 +494,49 @@ def _colstats_f32(fa, f_t, gr, y, na, nb, lv, cols=None, finish=None):
     """K10 (column scale ``cols``) or K9 (``finish`` = (t, s_pre, bm)) on the
     f32 layout, reading ``lv`` lanes (``coord_lanes``): one launch per
     MP_MAX columns of gr, each padded with zero columns to MP_MAX (the f32
-    V pass is that wide); K9's first launch computes s, the others are
-    K10's pass with c = s. -> (V, norms, coeffs, s), s None for K10."""
-    p, n = fa.shape[0], f_t.shape[1]
+    kernel is that wide). K9's first launch forms each tile entry once for
+    ks (t as one more column of gr), s and V; the other launches are K10's
+    with c = s. Each launch first splits its gr block (and K9's t) into
+    three bf16 parts, into scratch made here. -> (V, norms, coeffs, s), s
+    None for K10."""
+    p, (fd, n) = fa.shape[0], f_t.shape
     mp = gr.shape[1]
     dev = fa.device
     lib = _build.lib()
-    blocks = lib.glt_colstats_f32_blocks(lv)
-    if blocks <= 0:
-        _build.check(-blocks if blocks < 0 else 1,
-                     "colstats_v: no block fits the card")
-    blocks = min(blocks, n // C_TN)
     fa, f_t = _aligned(fa.contiguous(), f_t.contiguous())
-    part = torch.empty((blocks, 2, MP_MAX), dtype=_F32, device=dev)
+    scratch = torch.empty(lib.glt_colstats_f32_scratch_bytes(p, fd, 1),
+                          dtype=torch.uint8, device=dev)
     s = None
     outs = []
     for m0 in range(0, mp, MP_MAX):
         w = min(MP_MAX, mp - m0)
+        ks = finish is not None and s is None
+        what = "finish_colstats" if finish is not None else "colstats_v"
+        blocks = lib.glt_colstats_f32_blocks(lv, int(ks))
+        if blocks <= 0:
+            _build.check(-blocks if blocks < 0 else 1,
+                         f"{what}: no block fits the card")
+        blocks = min(blocks, n // C_TN)
         g = torch.zeros((p, MP_MAX), dtype=_F32, device=dev)
         g[:, :w] = gr[:, m0:m0 + w]
         v = torch.empty((n, MP_MAX), dtype=_F32, device=dev)
+        part = torch.empty((blocks, 2, MP_MAX), dtype=_F32, device=dev)
         nc = torch.empty((2, MP_MAX), dtype=_F32, device=dev)
         head = (fa.data_ptr(), f_t.data_ptr(), g.data_ptr())
         vecs = (y.data_ptr(), na.data_ptr(), nb.data_ptr(), v.data_ptr())
-        tail = (part.data_ptr(), nc.data_ptr(), p, n, lv, blocks,
-                _build.stream_ptr(fa))
-        if finish is not None and s is None:
+        tail = (part.data_ptr(), nc.data_ptr(), scratch.data_ptr(), p, n,
+                lv, blocks, _build.stream_ptr(fa))
+        if ks:
             s = torch.empty(n, dtype=_F32, device=dev)
             rc = lib.glt_finish_colstats_f32(
                 *head, *(x.data_ptr() for x in finish), *vecs, s.data_ptr(),
                 *tail)
-            counter, what = finish_colstats_cuda, "finish_colstats"
         else:
             c = cols if s is None else s
             rc = lib.glt_colstats_v_f32(*head, c.data_ptr(), *vecs, *tail)
-            counter = (colstats_v_cuda if finish is None
-                       else finish_colstats_cuda)
-            what = "colstats_v" if finish is None else "finish_colstats"
         _build.check(rc, what)
-        counter.launches += 1
+        (colstats_v_cuda if finish is None
+         else finish_colstats_cuda).launches += 1
         outs.append((v[:, :w], nc[0, :w], nc[1, :w]))
     if len(outs) == 1:
         v, norms, coeffs = outs[0]

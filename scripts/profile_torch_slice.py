@@ -5,7 +5,7 @@ card.
         [--path config2|config2f32|config2p7|config2p9|config2p11|config4|
                 config4p7|config4p9|config4p11|config3|config3p7|config4q|
                 config4qp7|turbo|turbop11|dense|bilateral|bilateralA|
-                bilateralB|bilateralC|both|all]
+                bilateralB|bilateralBp11|bilateralC|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
@@ -30,7 +30,9 @@ bilateralB, bilateralC: the NLM 7x7 recipes with a spatial term
 (chip_smoke.make_workload_cfg2_bilateral: config 2's strip_cache, K1's
 64-lane coordinate cross; make_workload_8mp_nlm_bilateral: the 8 MP fused
 finish, the 64-lane f32 K8, K7, K9; make_workload_8mp_nlm_bilateral_matvec:
-the 8 MP matvec denoise, the 64-lane coordinate K5/K6); "both" is
+the 8 MP matvec denoise, the 64-lane coordinate K5/K6); bilateralBp11:
+recipe B at NLM 11x11 (make_workload_8mp_nlm_bilateral with patch 11: the
+128-lane f32 K8, K7, K9); "both" is
 config 2 and config 4, "all" every path) it runs
 filter_image once to warm up, then:
 
@@ -77,7 +79,8 @@ GROUPS = (
                      r"aug_sum_kernel|f32_sum_kernel|"
                      r"colstats_v_kernel|ks_kernel|reduce_partials|"
                      r"affinity_coord_kernel|coord_sum_kernel|kb_f32_kernel|"
-                     r"ext2_f32_kernel|colstats_f32_kernel|ks_f32_kernel"),
+                     r"ext2_f32_kernel|colstats_tc_kernel|split_cols_kernel|"
+                     r"colstats_f32_kernel|colstats_f32_wide_kernel|ks_f32_kernel"),
     ("cuSOLVER / small dense algebra",
      r"syevd|syevj|jacobi|potrf|potrs|trsm|trsv|geqrf|orgqr|orgbr|ormqr|"
      r"gesvd|gebrd|bdsqr|lansy|sytrd|stedc|steqr|larf|laswp|cusolver|"
@@ -220,7 +223,8 @@ def main() -> None:
                                        "config3p7", "config4q", "config4qp7",
                                        "turbo", "dense", "bilateral",
                                        "bilateralA", "bilateralB",
-                                       "bilateralC", "both", "all"),
+                                       "bilateralBp11", "bilateralC", "both",
+                                       "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -255,6 +259,8 @@ def main() -> None:
              "bilateral": chip_smoke.make_workload_bilateral,
              "bilateralA": chip_smoke.make_workload_cfg2_bilateral,
              "bilateralB": chip_smoke.make_workload_8mp_nlm_bilateral,
+             "bilateralBp11": lambda g: (
+                 chip_smoke.make_workload_8mp_nlm_bilateral(g, 11)),
              "bilateralC": chip_smoke.make_workload_8mp_nlm_bilateral_matvec}
     chosen = {"both": ("config2", "config4"), "all": tuple(paths)}.get(
         args.path, (args.path,))

@@ -305,7 +305,8 @@ def test_wide_recipe_matches_reference(jx, img_noisy, monkeypatch, name):
 
 # --- the f32 K7-K10 plain versions on coordinate-scale features --------------
 
-def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
+def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian",
+                  corner=(448, 448)):
     """Features as a bilateral recipe builds them, on coordinates in [448,
     512): |f|^2 up to ~1.2e4, neighbours within 64 px so most tile entries
     are live; the reference's f32 plain layout. ``kind`` "gaussian": (y/h,
@@ -314,7 +315,9 @@ def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
     patch at h 0.15 and row/8, col/8) on a 64 x 64 noisy image, its
     coordinates moved to the far corner of a 512 x 512 one: 51 lanes, 52
     live, of 64; "nlm11": the same with an NLM 11 x 11 patch, 123 lanes,
-    124 live, of 128 ("nlm9": 9 x 9, 83 lanes, 84 live, of 96)."""
+    124 live, of 128 ("nlm9": 9 x 9, 83 lanes, 84 live, of 96). ``corner``:
+    where the NLM kinds' 64 x 64 image sits (its top-left pixel's row and
+    column)."""
     jnp, pst = jx.jnp, jx.pst
     rng = np.random.default_rng(seed)
     if kind.startswith("nlm"):
@@ -325,7 +328,7 @@ def _coord_inputs(jx, seed=7, p=300, n=1024, m=50, kind="gaussian"):
         cfg = jx.cfg(_cfg(**dict(RECIPES["nlm7"], patch_size=patch)))
         allf = np.asarray(extract_features(jnp.asarray(img, jnp.float32),
                                            cfg)).copy()
-        allf[:, patch * patch:] += 448 / 8.0
+        allf[:, patch * patch:] += np.asarray(corner, np.float32) / 8.0
         fa = allf[rng.choice(allf.shape[0], p, replace=False)]
         fp = allf[rng.choice(allf.shape[0], n, replace=False)]
     else:
@@ -436,6 +439,164 @@ def test_k9_k10_f32_plain_match_pallas_on_coordinates(jx, kind):
                  4 * x.tol)
         assert float(np.abs(N(got[0])[:, 50:]).max()) == 0.0
     np.testing.assert_allclose(N(got9[3]), N(ref9[3]), rtol=4 * x.tol, atol=0)
+
+
+def _split3(x, e):
+    """x (f32) as its three bf16 parts on the grid 2^(e - 8), e broadcast
+    (csrc split3_grid): b0 = x on the grid, b1 = bf16(x - b0), b2 =
+    bf16(x - b0 - b1), as f32."""
+    q, qi = torch.pow(2.0, 8.0 - e), torch.pow(2.0, e - 8.0)
+    b0 = torch.round(x * q) * qi
+    b1 = (x - b0).to(torch.bfloat16).float()
+    return b0, b1, (x - b0 - b1).to(torch.bfloat16).float()
+
+
+def _exp_of(m, lo=-100, hi=100):
+    """The E of values whose largest |x| is m (m < 2^E), clamped (csrc
+    grid_exp; the entries' scale takes lo -126, hi 1)."""
+    e = torch.where(m > 0, torch.frexp(m)[1].float(), torch.tensor(-126.0))
+    return e.clamp(lo, hi)
+
+
+def _split_products(a, b):
+    """sum_k a_k b_k of (., K) x (K, .) operands as the f32 K9 / K10 run it
+    on the tensor cores, each row of a and each column of b in three bf16
+    parts on its grid: the corrections a1 b0, a0 b1, a1 b1, a2 b0, a0 b2 in
+    one chain (summed in f64 and rounded once: the truncation of their
+    chain is 2^-8 of theirs), plus a0 b0 (exact), added in f32."""
+    a0, a1, a2 = _split3(a, _exp_of(a.abs().amax(1, keepdim=True)))
+    b0, b1, b2 = _split3(b, _exp_of(b.abs().amax(0, keepdim=True)))
+    d = lambda x, y: x.double() @ y.double()  # noqa: E731
+    corr = (d(a1, b0) + d(a0, b1) + d(a1, b1) + d(a2, b0) + d(a0, b2)).float()
+    return d(a0, b0).float() + corr
+
+
+def _tc_colstats(fa, f_t, gr, y, na, nb, lv, cols=None, finish=None):
+    """The f32 K9 (``finish`` = (t, s_pre, bm)) / K10 of csrc
+    colstats_tc_kernel, emulated in torch: each entry's cross an FFMA
+    chain over the ``lv`` lanes in order, d2 and expf in f32; per 32-row
+    stage each column's entries times 2^-E (E: its largest's exponent) in
+    three bf16 parts on the grid 2^-8, B = [gr | t] in three parts on the
+    grid of each column a stage, the stage's six part products summed from
+    zero and joined to the running f32 sum on the larger of their
+    exponents; s from ks (B's column 64), then V = s W (K10: c W). gr of
+    64 columns. -> (V, norms, coeffs, s)."""
+    cross = torch.zeros((fa.shape[0], f_t.shape[1]))
+    for k in range(lv):    # fmaf in lane order
+        cross = (fa[:, k:k + 1].double() * f_t[k:k + 1].double()
+                 + cross.double()).float()
+    d2 = torch.clamp((na[:, None] + nb[None, :]) - 2.0 * cross, min=0.0)
+    k = torch.exp(-d2)                                    # (P, N)
+    b = torch.zeros((fa.shape[0], 72))
+    b[:, :64] = gr
+    if finish is not None:
+        b[:, 64] = finish[0]
+    w = torch.zeros((f_t.shape[1], 72))            # W 2^-er
+    er = torch.full((f_t.shape[1], 1), -126.0)
+    for r0 in range(0, fa.shape[0], 32):
+        ex = _exp_of(k[r0:r0 + 32].amax(0), -126, 1)[:, None]
+        st = _split_products(k[r0:r0 + 32].T * torch.pow(2.0, -ex),
+                             b[r0:r0 + 32])
+        en = torch.maximum(er, ex)
+        w = (w.double() * torch.pow(2.0, er - en).double()
+             + st.double() * torch.pow(2.0, ex - en).double()).float()
+        er = en
+    ws = torch.pow(2.0, er)[:, 0]
+    if finish is not None:
+        t, s_pre, bm = finish
+        c = torch.sqrt(s_pre / torch.clamp(w[:, 64] * ws, min=1e-30)) * bm
+    else:
+        c = cols
+    v = w[:, :64] * (c * ws)[:, None]
+    return v, torch.sum(v * v, dim=0), y @ v, c
+
+
+@pytest.mark.parametrize("kind,corner", [
+    ("gaussian", (448, 448)), ("nlm7", (448, 448)), ("nlm11", (448, 448)),
+    ("nlm11", (1984, 4032))])    # 8 MP's far corner: |f|^2 to 3.3e5
+def test_f32_colstats_split_scheme_holds_the_f32_sums(jx, kind, corner):
+    """The f32 K9 / K10's scheme (csrc colstats_tc_kernel, emulated by
+    ``_tc_colstats``: V and ks as six bf16 part products a 32-row stage) on
+    recipe B's features: V, s, norms and coeffs
+    against their f64 evaluation from the same f32 inputs, relative to the
+    f64 sum of each output's terms' magnitudes, max and p99 within 1.5x the
+    plain f32 version's (the f32 cancellation error of d2 is the scale:
+    the scheme must not add to it); and against graphlap_tpu's Pallas
+    kernels at f32 (interpret mode) within the bars the plain versions meet
+    (test_k9_k10_f32_plain_match_pallas_on_coordinates)."""
+    jnp = jx.jnp
+    x = _coord_inputs(jx, kind=kind, corner=corner)
+    fa, f_t = T(N(x.fa_pad)), T(N(x.f_t))
+    na, nb = T(x.na), T(x.nb)
+    lv = k79.coord_lanes(x.live, fa.shape[1])
+    assert lv == (4 if kind == "gaussian" else fa.shape[1])
+    nf = float(max(x.na.max(), x.nb.max()))
+    assert nf > (3e5 if corner[0] > 448 else 8e3)
+    gr64 = T(x.gr[:, :64])
+    fin = (T(x.t), T(x.s_pre), T(x.bm))
+    got9 = _tc_colstats(fa, f_t, gr64, T(x.y), na, nb, lv, finish=fin)
+    got10 = [_tc_colstats(fa, f_t, T(x.gr[:, m0:m0 + 64]), T(x.y), na, nb,
+                          lv, cols=T(x.cols))[:3] for m0 in (0, 64)]
+    got10 = tuple(torch.cat(z, dim=z[0].dim() - 1) for z in zip(*got10))
+    pl9 = k79.finish_colstats_plain(fa, f_t, *fin, gr64, T(x.y), na, nb)
+    pl10 = k79.colstats_v_plain(fa, f_t, T(x.gr), T(x.y), T(x.cols), na, nb)
+
+    # f64 from the same f32 inputs
+    a, bb = fa.double(), f_t.double()
+    k64 = torch.exp(-torch.clamp(na.double()[:, None] + nb.double()[None]
+                                 - 2.0 * a @ bb, min=0.0))
+    ks64 = fin[0].double() @ k64
+    s64 = torch.sqrt(fin[1].double() / ks64.clamp(min=1e-30)) * fin[2].double()
+
+    def err(got, ref, terms):
+        keep = terms > 0
+        e = ((got.double() - ref).abs() / terms)[keep]
+        return float(e.max()), float(torch.quantile(e, 0.99))
+
+    for got, pl, c, g in ((got9, pl9, s64, gr64), (got10, pl10,
+                                                   T(x.cols).double(),
+                                                   T(x.gr))):
+        kc = k64 * c[None]
+        v64 = kc.T @ g.double()
+        vt = kc.abs().T @ g.double().abs()
+        yv = T(x.y).double()
+        live = g.abs().sum(0) > 0
+        outs = ((got[0][:, live], pl[0][:, live], v64[:, live], vt[:, live]),
+                (got[1][live], pl[1][live], (v64 * v64).sum(0)[live],
+                 (v64 * v64).sum(0)[live]),
+                (got[2][live], pl[2][live], (yv @ v64)[live],
+                 (yv.abs() @ v64.abs())[live]))
+        if len(got) == 4:
+            outs += ((got[3], pl[3], s64, s64.abs()),)
+        for o, (gv, pv, r64, terms) in enumerate(outs):
+            (g_max, g_p99), (p_max, p_p99) = err(gv, r64, terms), err(
+                pv, r64, terms)
+            assert g_max <= 1.5 * p_max and g_p99 <= 1.5 * p_p99, (
+                len(got), o, g_max, g_p99, p_max, p_p99)
+
+    # against the Pallas kernels, within the plain versions' bars
+    args_r = (x.fa_pad, x.f_t)
+    ref9 = jx.pst.finish_colstats_pallas(
+        *args_r, jnp.asarray(x.t), jnp.asarray(x.s_pre), jnp.asarray(x.bm),
+        jnp.asarray(x.gr[:, :64]), jnp.asarray(x.y), jnp.asarray(x.na),
+        jnp.asarray(x.nb))
+    ref10 = jx.pst.colstats_v_pallas(
+        *args_r, jnp.asarray(x.gr), jnp.asarray(x.y), jnp.asarray(x.cols),
+        jnp.asarray(x.na), jnp.asarray(x.nb))
+    kb = np.abs(N(k79.kb_strip_plain(fa, f_t, torch.ones(x.bm.shape[0]),
+                                     False)))
+    tol = 16 * EPS32 * nf
+    for got, ref, c, g in ((got9, ref9, N(ref9[3]), x.gr[:, :64]),
+                           (got10, ref10, x.cols, x.gr)):
+        terms = (np.abs(c)[:, None] * kb.T) @ np.abs(g)
+        _sum_bar(N(got[0]), N(ref[0]), 3 * terms, 4 * tol)
+        v = np.abs(N(ref[0])).astype(np.float64)
+        _sum_bar(N(got[1]), N(ref[1]), 2 * (v * (v + terms)).sum(0) + 1e-12,
+                 4 * tol)
+        _sum_bar(N(got[2]), N(ref[2]), np.abs(x.y) @ (v + terms) + 1e-12,
+                 4 * tol)
+        assert float(np.abs(N(got[0])[:, 50:]).max()) == 0.0
+    np.testing.assert_allclose(N(got9[3]), N(ref9[3]), rtol=4 * tol, atol=0)
 
 
 def _f64_strip(fa, fb):
@@ -670,6 +831,44 @@ def _ext2_f64(fa, f_t, t2, bm, chunk=8192):
     return u, s
 
 
+def _colstats_f64(fa, f_t, gr, c=None, finish=None, chunk=8192):
+    """K10's (column scale ``c``) or K9's (``finish`` = (t, s_pre, bm))
+    function with the tile and the sums in f64, from the same f32
+    features: (V, the sums of V's terms' magnitudes, s or None)."""
+    a = fa.double()
+    na = (a * a).sum(1)
+    g = gr.double()
+    n = f_t.shape[1]
+    v = torch.empty((n, g.shape[1]), dtype=torch.float64, device=fa.device)
+    terms = torch.empty_like(v)
+    s = None if finish is None else torch.empty(n, dtype=torch.float64,
+                                                device=fa.device)
+    for j in range(0, n, chunk):
+        b = f_t[:, j:j + chunk].double()
+        k = torch.exp(-torch.clamp(na[:, None] + (b * b).sum(0)[None]
+                                   - 2.0 * a @ b, min=0.0))
+        if finish is None:
+            cj = c[j:j + chunk].double()
+        else:
+            t, s_pre, bm = finish
+            cj = torch.sqrt(s_pre[j:j + chunk].double() / torch.clamp(
+                t.double() @ k, min=1e-30)) * bm[j:j + chunk].double()
+            s[j:j + chunk] = cj
+        k *= cj[None]
+        v[j:j + chunk] = k.T @ g
+        terms[j:j + chunk] = k.abs().T @ g.abs()
+    return v, terms, s
+
+
+def _sum_stats(got, ref64, scale):
+    """(max, p99) of |got - ref64| / scale over the entries where scale >
+    0."""
+    keep = scale > 0
+    d = ((got.double() - ref64).abs() / scale)[keep]
+    return float(d.max()), float(torch.quantile(d[::max(1, d.numel() >> 22)],
+                                                0.99))
+
+
 def _within_plain(k, pl, floor=1e-12):
     """The kernel's max and p99 |dK| against f64 at most 1.5x the plain
     f32 version's, plus ``floor``."""
@@ -704,7 +903,8 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img, d):
     do not divide among the clusters or blocks) at 4, 28, 52, 84 and 124
     live lanes (32-, 32-, 64-, 96- and 128-lane layouts): K9's and K10's sums against the plain
     version to 2e-4 relative (the norms are passed in, so only the cross's
-    order differs), K7's tile and K8's u and s against f64 under the 1.5x
+    order differs), K7's tile, K8's u and s and K9's and K10's V (over the
+    sums of its terms' magnitudes) and K9's s against f64 under the 1.5x
     rule, two launches bit for bit, and the leans of u, s and V in (0.25,
     0.75)."""
     dev = cuda_device
@@ -783,6 +983,23 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img, d):
         if len(got) == 4:
             assert float((got[3] - ref[3]).abs().max()) <= 2e-4 * float(
                 ref[3].abs().max())
+        # against f64 on every 4th column: V over its terms' magnitudes,
+        # K9's s over |s|
+        cc = torch.arange(0, n, 4, device=dev)
+        ft_c = f_t[:, cc].contiguous()
+        if len(got) == 4:
+            v64, terms, s64 = _colstats_f64(fa, ft_c, gr, finish=(
+                tv, a9[3][cc], bm[cc]))
+            _within_plain(_sum_stats(got[3][cc], s64, s64.abs()),
+                          _sum_stats(ref[3][cc], s64, s64.abs()),
+                          1e-12 if d == 3 else NLM_ULP_FLOOR)
+        else:
+            v64, terms, _ = _colstats_f64(fa, ft_c, gr, c=cols[cc])
+        _within_plain(_sum_stats(v[cc][:, :50], v64[:, :50], terms[:, :50]),
+                      _sum_stats(v_r[cc][:, :50], v64[:, :50],
+                                 terms[:, :50]),
+                      1e-12 if d == 3 else NLM_ULP_FLOOR)
+        del v64, terms, ft_c
 
 
 @pytest.mark.gpu
