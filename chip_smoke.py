@@ -15,7 +15,9 @@ non-zero before the last line is printed):
               pass's and the aug and f32 K5/K6 kernels' HMMA at 32, 64, 96
               and 128 lanes (their products on the tensor cores), and the
               f32 K9/K10 kernel's at all ten instantiations, with no FFMA
-              V or ks pass left.
+              V or ks pass left; the coordinate K5/K6 kernel
+              (coord_tile_kernel, one for every lane count) must be built
+              and spill nothing (its registers printed from -Xptxas -v).
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
@@ -154,7 +156,11 @@ non-zero before the last line is printed):
               cfg4_8mp_quality_matvec: denoise_tuned(h 0.1) + "fast": identity
               W y, f32 features and tiles, coarse Sinkhorn 1/64 + one polish):
    kernels  K5/K6 (f32) at the 8 MP shapes against their plain versions,
-            with their lean as in config 3 and against their f64 sums
+            timed beside a cuBLAS composition of the same function (f32
+            GEMM at "highest" over column chunks, the norms, the clamp,
+            exp, the product with v or t; also the coordinate K5/K6's
+            yardstick), with their lean as in config 3 and against their
+            f64 sums
             (both required); their max and p99 relative error against the
             f64 sums within 1.5x the plain version's, and their share below
             them in (0.35, 0.65) (the three-part split cross);
@@ -215,11 +221,11 @@ non-zero before the last line is printed):
               gram 1/64, one polish, fused finish, LOBPCG) on config 4's
               image:
    kernels  K7-K10 f32 and the coordinate K5/K6 at the path's 8 MP shapes
-            on its own layouts, each against its plain version (K7's
-            entries to a gross 0.25, K9/K10's sums to 2e-4, K8's and
-            K5/K6's to gross 1e-2 / 0.1: their norms round apart), timed,
-            K7 beside
-            its cuBLAS composition and the f32 gram GEMM after it, two
+            on its own layouts (the lanes K5/K6 read printed), each against
+            its plain version (K7's entries to a gross 0.25, K9/K10's sums
+            to 2e-4, K8's and K5/K6's to gross 1e-2 / 0.1: their norms
+            round apart), timed, K7 and K5/K6 beside their cuBLAS
+            compositions, K7's f32 gram GEMM after it, two
             launches bit for bit, the leans of K8's u and s, K9's and K10's
             V and K5/K6's outputs (ties left out) required in (0.25, 0.75);
    slab     each f32 kernel's tile (and K1's and K6's coordinate cross)
@@ -313,6 +319,7 @@ H = W = 512
 H3 = W3 = 1024
 H8, W8 = 2048, 4096
 RUNS = 3
+LIBRARY_REPS = 1   # timed calls of the f32 K5/K6's cuBLAS compositions
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its least bytes over the memory rate and its
 # operations over the peak of their type
@@ -783,8 +790,9 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
     unless its share below lies in SIGNED_BAND. The lean is taken against
     the plain version, or against ``reference`` (the same arguments) where
     given, whose own lean against the plain version is printed beside it.
-    ``library``: {name: (fn, what)}, one cuBLAS composition computing the
-    kernel's function on the same arguments, timed as its yardstick."""
+    ``library``: {name: (fn, what[, reps])}, one cuBLAS composition
+    computing the kernel's function on the same arguments, timed as its
+    yardstick (over ``reps`` calls, 5 unless given)."""
     for name, (kern, plain, args, bnd, *scale_fn) in cases.items():
         t0 = time.perf_counter()
         got, ref = kern(*args), plain(*args)
@@ -838,8 +846,8 @@ def run_cases(cases: dict, rows: dict, signed: dict | None = None,
         ms_p = cuda_ms(lambda: plain(*args), 2)
         ms_l, lib_what = None, None
         if library and name in library:
-            lib_fn, lib_what = library[name]
-            ms_l = cuda_ms(lambda: lib_fn(*args), 5)
+            lib_fn, lib_what, *lib_reps = library[name]
+            ms_l = cuda_ms(lambda: lib_fn(*args), (lib_reps or [5])[0])
         b_ms, b_by = bnd
         lib_txt = "" if ms_l is None else f", library {ms_l:.3f} ms"
         phase("kernel", f"{name}: max_abs_err {err:.3e} (checked {rel:.3e}"
@@ -2195,7 +2203,7 @@ def config4q(gt, dev, rows, launches, info, patch=5):
           f"{cfg.filter_name} {cfg.filter_mode}, f32 tiles, sinkhorn_coarse "
           f"{cfg.sinkhorn_coarse}, polish {cfg.sinkhorn_polish})", t0)
     cases, _, signed = matvec_cases(ctx, dev, names, rows)
-    run_cases(cases, rows, signed)
+    run_cases(cases, rows, signed, k56_f32_library(names))
     # the f32 K5/K6's three-part split cross: each output against its sum in
     # f64, the kernel's max and p99 relative error within 1.5x the plain
     # version's, and its share below f64 in (0.35, 0.65)
@@ -2806,6 +2814,43 @@ def kb_f32_library(fa, f_t, cols, aug, live):
     return torch.exp_(d2.neg_()).mul_(cols[None, :])
 
 
+def k56_f32_composition(fa, f_t, x, rows_side, chunk=1 << 18):
+    """The f32 K5 (``rows_side`` False: x = v of f_t's columns, K v) or K6
+    (True: x = t of fa's rows, K^T t) as a cuBLAS composition over column
+    chunks: torch.addmm in f32 at "highest" (no TF32) with the column norms,
+    the row norms, the clamp, exp, then the product with v or t. The f32
+    and coordinate K5/K6's yardstick; the port never calls it."""
+    na = (fa * fa).sum(1)
+    nb = (f_t * f_t).sum(0)
+    n = f_t.shape[1]
+    out = torch.zeros(n if rows_side else fa.shape[0], dtype=torch.float32,
+                      device=fa.device)
+    for j in range(0, n, chunk):
+        sl = slice(j, j + chunk)
+        k = torch.addmm(nb[None, sl], fa, f_t[:, sl], alpha=-2.0)
+        k.add_(na[:, None]).clamp_(min=0.0).neg_().exp_()
+        if rows_side:
+            out[sl] = x @ k
+        else:
+            out.addmv_(k, x[sl])
+        del k
+    return out
+
+
+def k56_f32_library(names) -> dict:
+    """run_cases' library entry of an f32 K5/K6 pair (names: K5's, K6's):
+    k56_f32_composition on the kernels' arguments, timed over LIBRARY_REPS
+    calls (each ~0.1-1 s at 8 MP)."""
+    what = ("a cuBLAS composition, not one call: torch.addmm(nb, fa, f_t, "
+            "alpha=-2) in f32 at \"highest\" (no TF32) over 2^18-column "
+            "chunks, + na, the clamp, exp, then the product with v (K5) or t "
+            "(K6)")
+    return {names[0]: (lambda fa, f_t, v, *_: k56_f32_composition(
+                fa, f_t, v, False), what, LIBRARY_REPS),
+            names[1]: (lambda fa, f_t, t, *_: k56_f32_composition(
+                fa, f_t, t, True), what, LIBRARY_REPS)}
+
+
 def f64_tile(fa, f_t, rows, cols=None, chunk=1 << 20):
     """The f32-class tile at sample rows ``rows`` x columns ``cols`` (all by
     default) of the padded layouts, evaluated in f64 from the same f32
@@ -3222,10 +3267,14 @@ def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
               "matvec_coord" + sfx: (0, p, True, True),
               "rmatvec_coord" + sfx: (0, ctx.n, True, True)}
     k7 = "kb_strip_f32" + sfx
+    phase(tag, f"the coordinate K5/K6 read {k56._coord_lv(fa, True, live)} "
+          f"lanes of {fa.shape[1]} (their live lanes rounded up to 4)")
     run_cases(cases, rows, signed,
               {k7: (kb_f32_library, "a cuBLAS composition, not one call: "
                     "torch.mm(fa, f_t) in f32 at \"highest\" (no TF32), the "
-                    "norms, the clamp, exp and the column scale")})
+                    "norms, the clamp, exp and the column scale"),
+               **k56_f32_library(("matvec_coord" + sfx,
+                                  "rmatvec_coord" + sfx))})
     # the rest of the f32 K7 cross: the f32 gram GEMM after the emitter
     t0 = time.perf_counter()
     kb = k79.kb_strip_cuda(*cases[k7][2])
@@ -3627,6 +3676,14 @@ def main() -> None:
     phase("build", f"K1 coordinate kernels (C1FD 32, 64, 96, 128; bf16 and "
           f"f32 stores), from -Xptxas -v: "
           f"{register_lines(_build.PTXAS_LOG, 'affinity_coord_kernel')}")
+    coord = [ln.strip() for name, ln in ptxas_lines(_build.PTXAS_LOG)
+             if "coord_tile_kernel" in name and ("Used" in ln or "spill" in ln)]
+    phase("build", f"coordinate K5/K6 (coord_tile_kernel, one kernel at every "
+          f"lane count), from -Xptxas -v: {coord}")
+    require(any("Used" in ln for ln in coord)
+            and not any("spill" in ln and not ln.startswith("0 bytes")
+                        for ln in coord),
+            "the coordinate K5/K6 kernel is missing or spills")
     hgmma = sass_uses(_build, "sandwich_kernel", "HGMMA")
     phase("build", f"K3/K4 kernels holding HGMMA (wgmma), from cuobjdump "
           f"-sass: {hgmma}")

@@ -18,7 +18,7 @@
 //              big, mid and lo parts of scaled features, the six products
 //              above 2^-33 of the cross kept); on features that carry
 //              coordinates, an IEEE f32 FFMA cross over the live lanes
-//              (coord_sum_kernel, below).
+//              (coord_tile_kernel, below).
 //
 // Both are one sum, out[f] = sum_s w_s k(f, s), over two k-major (FD, L)
 // feature matrices, FD 32, 64, 96 or 128 lanes (an NLM 5 x 5, 7 x 7, 9 x 9
@@ -106,8 +106,8 @@
 // fp16(rest), three passes) left K5's and K6's sums at 1.3-2.4x the plain
 // version's error from their f64 values, where every other f32 kernel
 // stays within 1.5x, and the three-part split and the IEEE-f32 FFMA cross
-// (coord_sum_kernel at the layout's depth, 1.3x slower) at 1.7-2.2x; with
-// f64-sum norms (+2-6% time) the two-part split still reached 2.4x (its
+// (the coordinate kernel then, one fixed entry a thread over the layout's
+// depth, 1.3x slower) at 1.7-2.2x; with f64-sum norms (+2-6% time) the two-part split still reached 2.4x (its
 // fp16 small part keeps 11 of the rest's ~14 bits, an error of up to
 // 2^-23 a lane, four f32 roundings), the three-part split 0.2-0.6x. A
 // 128-thread block
@@ -711,127 +711,295 @@ __global__ __launch_bounds__(T_THREADS_OF<FD>, T_BLOCKS_SM_OF<FD>) void f32_sum_
 }
 
 // ---------------------------------------------------------------------------
-// plain f32 on coordinate features: the IEEE f32 cross
+// plain f32 on coordinate features: the IEEE f32 cross, a register tile
 // ---------------------------------------------------------------------------
 //
 // Features that carry (row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP,
 // where the split cross's fp16 small part loses about four times the IEEE
 // f32 product's error; for those the sum takes the reference's f32 class
-// (kf32, mma_common.cuh): the cross an f32 FFMA chain over the live lanes
-// (LV: 4, or the layout's depth for wider features, 32, 64, 96 or 128; the
-// layouts' pad lanes are zero, so the extra lanes add exact zeros). A
-// 128-thread block owns C_FX fixed entries a thread with their lanes in
-// registers; 128-entry streamed tiles arrive in dynamic shared memory
-// (entry-major, so every lane reads the same entry: broadcast float4
-// loads) with their norms, and each tile's sums start from zero and join
-// the running sums by one f32 add, as in f32_sum_kernel. A norm is the
-// same sequential FMA chain over the lanes as the cross, so a pixel's d2
-// with itself is exactly 0. Up to 64 lanes a thread holds two fixed
-// entries (128 registers of lanes at 64, a 7 x 7 patch and the
-// coordinates, 52 live), past them one (96 or 128 registers: an NLM 9 x 9
-// or 11 x 11 patch and the coordinates, 84 or 124 live), so a block owns
-// 256 or 128 fixed entries and each streamed float4 feeds 8 or 4 FFMA.
-// Past 32 lanes a streamed column's lanes go to shared memory one by one
-// after the barrier (no staging registers; four lanes a 16-byte store), in
-// the same FMA order; the tile takes 48 and 64 KB at 96 and 128 lanes. At
-// 8 MP the cross is 2 LV flop an entry: 4.4e12 flop at 64 lanes, 65.6 ms
-// at the f32 peak, the bound; 6.6e12 and 8.8e12 at 96 and 128. Every entry
-// and every sum runs in the same order at any C_FX: one fixed entry's
-// chain does not depend on its neighbour's. A __global__ of its own name,
+// (kf32, mma_common.cuh): each entry's cross an f32 FFMA chain over the
+// lanes in lane order from zero, its norms the same chain over its own
+// lanes, so a pixel's d2 with itself is exactly 0. The kernel reads the
+// L = _lanes(live, fd) live lanes (4, 28, 52, 84 or 124 on the recipes'
+// layouts; any L up to 128): the pad lanes are zero, so a chain over them
+// would add exact zeros, and every tile entry is the same bits as over the
+// layout's whole depth.
+//
+// What bounds it at 8 MP (p_pad 4096, N 2^23, 3.44e10 entries): the cross,
+// 2 L flop an entry, 8.5e12 flop at 124 lanes, 128.2 ms at the f32 peak
+// (87.2 at 84, 54.4 at 52); each entry's epilogue (the norms' add, d2, the
+// clamp, expf, the FMA with w) is ~12 FP32-pipe instructions beside it, so
+// ~140 ms at 124 lanes; at 4 lanes the epilogue and one MUFU ex2 an entry
+// (8.2 ms) are all of it. Memory is small: the features are read once from
+// device memory (the fixed side's re-reads of the streamed tiles come from
+// L2).
+//
+// Design (coord_tile_kernel): an SGEMM's register tile. A block of
+// CT_THREADS threads owns CT_FT fixed entries (K5: sample rows; K6: pixel
+// columns) and walks CT_ST-entry streamed tiles of its split. A thread
+// holds CT_R fixed x CT_C streamed entries' crosses in registers (two groups
+// of four consecutive entries on each side, 4 TY and 4 TX apart) and, a lane
+// at a time, reads both sides' values as float4 loads of shared memory:
+// (CT_R + CT_C) / 4 loads for CT_R CT_C FFMA (4 for 64 at 8 x 8; the design
+// it replaced, one fixed entry a thread: one per 4). Both sides sit k-major
+// in shared memory (a lane's row of entries), as the layouts lie in device
+// memory, so cp.async copies them straight: a warp's 4 x 8 threads read 4
+// fixed and 8 streamed float4 of one row, conflict-free. The fixed tile is
+// staged once for the walk; the streamed tiles arrive by cp.async double
+// buffering in chunks of at most 32 lanes (L split evenly: 4 chunks of 31
+// lanes at 124, 3 of 28 at 84, 2 of 26 at 52; up to 32 lanes, up to
+// CT_TPS whole tiles a stage, 4 at 4 lanes), each tile's w and streamed
+// norms with its last chunk, so the stages stay small beside the fixed
+// tile (104 KB a block at 124 lanes) and two blocks share an SM: 16 warps,
+// at most 128 registers a thread (127, no spills). The norms come from a
+// pre-pass (coord_norms_kernel: one thread an entry, the same chain; 1.3
+// ms of device-memory reads at 124 lanes, 0.05 at 4), which spares the
+// walk their chains and a barrier a tile. After a tile's last chunk each
+// entry's epilogue runs on its cross register: a tile's sums of a
+// thread's fixed entries start from zero (the first term's product) and
+// join its running sums by one f32 add; at the end the CT_TX threads that
+// share a fixed entry join by a fixed shuffle tree and then warp by warp
+// in order, and the splits through part and launch_reduce: two launches
+// give the same bits. The K5 grid fills whole waves (ops/cuda_matvec.py
+// _coord_plan: 32 fixed blocks by 33 splits on 264 slots, four waves; 8
+// splits left 8 slots idle, 4-6% slower). A __global__ of its own name,
 // beside the tensor-core kernels that chip_smoke.py's HMMA check reads.
-constexpr int C_THREADS = 128;
-template <int LV>
-constexpr int C_FX_OF = LV <= 64 ? 2 : 1;   // fixed entries a thread
-template <int LV>
-constexpr int C_FT_OF = C_FX_OF<LV> * C_THREADS;   // fixed entries a block
-constexpr int C_ST = 128;               // streamed entries a tile
-template <int LV>
-constexpr size_t C_SMEM_OF = sizeof(float) * (size_t)C_ST * LV;   // the streamed tile
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W) at the 8 MP bilateral
+// shapes, scripts/coord_matvec_designs.py (PERF.md), K5 / K6 ms at 124 /
+// 84 / 52 / 28 / 4 live lanes: this design 216.2 / 215.0, 151.5 / 150.5,
+// 100.2 / 99.6, 60.1 / 59.9, 22.3 / 22.3 (the SM clock at its 1980 MHz
+// throughout, 0.47-0.55 kW); the design it replaced 351.6 / 342.7, 259.6 /
+// 251.1, 126.7 / 118.4, 70.2 / 64.2, 23.1 / 22.1; the norms in the walk
+// (tid < CT_ST chaining each streamed entry's over the chunks, a barrier
+// before each epilogue) 4-6% slower past 4 lanes; 8 x 4 entries a thread
+// 15-23%, 128 threads (three blocks an SM) 4-14%, 4 x 4 (four blocks)
+// 26-40%, one block an SM 14-18% slower; one tile a stage at 4 lanes 11%
+// slower; a fixed entry's sum at a time in the epilogue 1-4% slower; 16 x
+// 8 entries, 128 threads (6 float4 loads for 128 FFMA), 1-4% faster past
+// 4 lanes and 4% slower at 4 (not taken: one kernel at every width). A
+// cuBLAS composition of the same function (f32 GEMM, the norms, the
+// clamp, exp, the product) takes 645-755 ms.
+constexpr int CT_R = 8;                 // fixed entries a thread
+constexpr int CT_C = 8;                 // streamed entries a thread
+constexpr int CT_TY = 16;               // threads along the fixed side
+constexpr int CT_TX = 16;               // threads along the streamed side
+constexpr int CT_THREADS = CT_TY * CT_TX;
+constexpr int CT_BLOCKS_SM = 2;         // blocks an SM (launch bounds: registers)
+constexpr int CT_FT = CT_TY * CT_R;     // fixed entries a block
+constexpr int CT_ST = CT_TX * CT_C;     // streamed entries a tile
+constexpr int CT_KC = 32;               // lanes a streamed stage holds at most
+constexpr int CT_TPS = 4;               // streamed tiles a stage holds at most
+constexpr int CT_STAGES = 2;
+constexpr int CT_LMAX = 128;            // lanes read at most (the widest layout)
+constexpr int CT_STAGE = (CT_KC + 2 * CT_TPS) * CT_ST;   // floats a stage: its lanes, w, norms
+static_assert(CT_R % 4 == 0 && CT_C % 4 == 0 && CT_TY % 4 == 0 && CT_TX % 8 == 0,
+              "coord tile: float4 groups, warps of 4 x 8 threads");
+static_assert(256 % CT_FT == 0 && 256 % CT_ST == 0, "coord tile: tiles divide 256");
 
-template <int LV>
-__global__ __launch_bounds__(C_THREADS) void coord_sum_kernel(
-    const float* __restrict__ fixed_t,  // (FD, Lf) k-major, FD 32 (LV 4, 32) or LV
-    const float* __restrict__ strm_t,   // (FD, Ls) k-major
-    const float* __restrict__ w,        // (Ls)
-    float* __restrict__ part,           // (splits, Lf)
-    int Lf, int Ls, int tiles_per_split) {
-  constexpr int FX = C_FX_OF<LV>;
-  extern __shared__ __align__(16) float st_s[];   // [C_ST entries][LV lanes]
-  __shared__ float ns_s[C_ST], w_s[C_ST];
-  const int tid = threadIdx.x;
-  const int ntiles = Ls / C_ST;
-  const int t0 = blockIdx.y * tiles_per_split;
-  const int t1 = min(ntiles, t0 + tiles_per_split);
-  const int f0 = blockIdx.x * C_FT_OF<LV> + tid;   // fixed entries f0 + h C_THREADS
+// dynamic shared memory at L lanes (bytes): the fixed tile, the stages, the
+// fixed norms, the warps' partial sums
+__host__ __device__ constexpr size_t ct_smem_bytes(int L) {
+  return sizeof(float) * ((size_t)L * CT_FT + (size_t)CT_STAGES * CT_STAGE + CT_FT +
+                          (size_t)(CT_TX / 8) * CT_FT);
+}
+static_assert(ct_smem_bytes(CT_LMAX) + 1024 <= 233472 / CT_BLOCKS_SM,
+              "coord tile: the blocks an SM fit its shared memory");
 
-  float fx[FX][LV], nf[FX];
-#pragma unroll
-  for (int h = 0; h < FX; ++h) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < LV; ++k) {
-      fx[h][k] = fixed_t[(size_t)k * Lf + f0 + h * C_THREADS];
-      s = fmaf(fx[h][k], fx[h][k], s);
-    }
-    nf[h] = s;
+template <int N>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a block's walk over its split's streamed tiles: steps of tps tiles by nch
+// lane chunks of at most kc lanes. Up to 32 lanes a step holds as many
+// whole tiles as 32 lanes' room does (at most CT_TPS: 4 at 4 lanes, 1 at
+// 28), past them one tile in chunks of L / nch lanes (L = 124: 4 of 31)
+struct CtWalk {
+  int L, nch, kc, tps, t0, ntile, steps;
+  __device__ CtWalk(int lanes, int Ls, int tiles_per_split) : L(lanes) {
+    nch = (L + CT_KC - 1) / CT_KC;
+    kc = (L + nch - 1) / nch;
+    tps = nch > 1 ? 1 : min(CT_TPS, CT_KC / L);
+    t0 = blockIdx.y * tiles_per_split;
+    ntile = max(0, min(Ls / CT_ST, t0 + tiles_per_split) - t0);
+    steps = (ntile + tps - 1) / tps * nch;
   }
-  float acc[FX];
-#pragma unroll
-  for (int h = 0; h < FX; ++h) acc[h] = 0.f;
-  for (int tile = t0; tile < t1; ++tile) {
-    const size_t c = (size_t)tile * C_ST + tid;
-    float s = 0.f;
-    const float wv = w[c];
-    if constexpr (LV <= 32) {
-      float x[LV];
-#pragma unroll
-      for (int k = 0; k < LV; ++k) {
-        x[k] = strm_t[(size_t)k * Ls + c];
-        s = fmaf(x[k], x[k], s);
+  __device__ int tile0(int i) const { return t0 + i / nch * tps; }          // step i's first tile
+  __device__ int tiles(int i) const { return min(tps, ntile - i / nch * tps); }   // and its tiles
+};
+
+// step i of the walk into stage i % CT_STAGES: the chunk's rows of the
+// step's streamed entries (row stride tps CT_ST), and with the last chunk
+// their w and norms; one cp.async commit group (empty past the walk)
+__device__ __forceinline__ void ct_load_stage(float* stg, const float* __restrict__ strm_t,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ ns, size_t Ls,
+                                              const CtWalk& wk, int i) {
+  if (i < wk.steps) {
+    const int ch = i % wk.nch, k0 = ch * wk.kc, nk = min(wk.kc, wk.L - k0);
+    const int rs = wk.tps * CT_ST, q4 = wk.tiles(i) * (CT_ST / 4);   // 16-byte chunks a row
+    float* d = stg + (i % CT_STAGES) * CT_STAGE;
+    const size_t c0 = (size_t)wk.tile0(i) * CT_ST;
+    for (int c = threadIdx.x; c < nk * q4; c += CT_THREADS) {
+      const int k = c / q4, q = c % q4;
+      cp_async16(d + k * rs + 4 * q, strm_t + (size_t)(k0 + k) * Ls + c0 + 4 * q);
+    }
+    if (ch == wk.nch - 1)
+      for (int q = threadIdx.x; q < q4; q += CT_THREADS) {
+        cp_async16(d + CT_KC * CT_ST + 4 * q, w + c0 + 4 * q);
+        cp_async16(d + (CT_KC + CT_TPS) * CT_ST + 4 * q, ns + c0 + 4 * q);
       }
-      __syncthreads();                  // everyone done with the last tile
+  }
+  cp_async_commit();
+}
+
+// one lane's products into a thread's crosses: its CT_R fixed values (two
+// float4 of a row of the fixed tile at fa) by its CT_C streamed ones (fb);
+// START: a chain's first lane, its products alone (an FMA onto zero but for
+// the sign of a zero cross, which moves no entry)
+template <bool START>
+__device__ __forceinline__ void ct_lane(float (&cr)[CT_R][CT_C], const float* fa,
+                                        const float* fb) {
+  float4 a[CT_R / 4], b[CT_C / 4];
 #pragma unroll
-      for (int k = 0; k < LV; ++k) st_s[tid * LV + k] = x[k];
-    } else {
-      __syncthreads();                  // everyone done with the last tile
+  for (int g = 0; g < CT_R / 4; ++g) a[g] = *reinterpret_cast<const float4*>(fa + 4 * CT_TY * g);
+#pragma unroll
+  for (int g = 0; g < CT_C / 4; ++g) b[g] = *reinterpret_cast<const float4*>(fb + 4 * CT_TX * g);
+#pragma unroll
+  for (int r = 0; r < CT_R; ++r) {
+    const float4 ar = a[r / 4];
+    const float x = (r & 3) == 0 ? ar.x : (r & 3) == 1 ? ar.y : (r & 3) == 2 ? ar.z : ar.w;
+#pragma unroll
+    for (int c = 0; c < CT_C; ++c) {
+      const float4 bc = b[c / 4];
+      const float y = (c & 3) == 0 ? bc.x : (c & 3) == 1 ? bc.y : (c & 3) == 2 ? bc.z : bc.w;
+      cr[r][c] = START ? x * y : fmaf(x, y, cr[r][c]);
+    }
+  }
+}
+
+// each entry's norm, the FMA chain over its first L lanes in order (the
+// chain of the tile entries' crosses, so a pixel's d2 with itself is 0):
+// entries [0, La) of k-major a (row stride La) into na, then those of b
+__global__ void coord_norms_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                   float* __restrict__ na, float* __restrict__ nb, int La,
+                                   int Lb, int L) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < La + Lb; i += gridDim.x * blockDim.x) {
+    const bool in_a = i < La;
+    const float* x = in_a ? a + i : b + (i - La);
+    const size_t ld = in_a ? La : Lb;
+    float s = 0.f;
 #pragma unroll 4
-      for (int k = 0; k < LV; k += 4) {
-        float4 q;
-        q.x = strm_t[(size_t)k * Ls + c];
-        q.y = strm_t[(size_t)(k + 1) * Ls + c];
-        q.z = strm_t[(size_t)(k + 2) * Ls + c];
-        q.w = strm_t[(size_t)(k + 3) * Ls + c];
-        s = fmaf(q.w, q.w, fmaf(q.z, q.z, fmaf(q.y, q.y, fmaf(q.x, q.x, s))));
-        *reinterpret_cast<float4*>(st_s + tid * LV + k) = q;
-      }
-    }
-    ns_s[tid] = s;
-    w_s[tid] = wv;
-    __syncthreads();                    // this tile in
-    float tacc[FX];
-#pragma unroll
-    for (int h = 0; h < FX; ++h) tacc[h] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < C_ST; ++e) {
-      float cr[FX];
-#pragma unroll
-      for (int h = 0; h < FX; ++h) cr[h] = 0.f;
-#pragma unroll
-      for (int k = 0; k < LV; k += 4) {
-        const float4 b = *reinterpret_cast<const float4*>(st_s + e * LV + k);
-#pragma unroll
-        for (int h = 0; h < FX; ++h)
-          cr[h] = dot4(make_float4(fx[h][k], fx[h][k + 1], fx[h][k + 2], fx[h][k + 3]), b, cr[h]);
-      }
-      const float nsv = ns_s[e], wv2 = w_s[e];
-#pragma unroll
-      for (int h = 0; h < FX; ++h) tacc[h] = fmaf(kf32(nf[h] + nsv, cr[h]), wv2, tacc[h]);
-    }
-#pragma unroll
-    for (int h = 0; h < FX; ++h) acc[h] += tacc[h];
+    for (int k = 0; k < L; ++k) s = fmaf(x[k * ld], x[k * ld], s);
+    (in_a ? na[i] : nb[i - La]) = s;
   }
+}
+
+__global__ __launch_bounds__(CT_THREADS, CT_BLOCKS_SM) void coord_tile_kernel(
+    const float* __restrict__ fixed_t,  // (>= L, Lf) k-major
+    const float* __restrict__ strm_t,   // (>= L, Ls) k-major
+    const float* __restrict__ w,        // (Ls)
+    const float* __restrict__ nf,       // (Lf) the fixed entries' norms (coord_norms_kernel)
+    const float* __restrict__ ns,       // (Ls) and the streamed ones'
+    float* __restrict__ part,           // (splits, Lf)
+    int Lf, int Ls, int L, int tiles_per_split) {
+  extern __shared__ __align__(16) float ct_smem[];
+  float* fx_s = ct_smem;                             // [L][CT_FT]
+  float* stg = fx_s + (size_t)L * CT_FT;             // [CT_STAGES][CT_STAGE]
+  float* nf_s = stg + CT_STAGES * CT_STAGE;          // [CT_FT]
+  float* red_s = nf_s + CT_FT;                       // [CT_TX / 8][CT_FT]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // a warp is 4 x 8 threads: ty along the fixed side, tx the streamed
+  const int ty = (warp / (CT_TX / 8)) * 4 + lane / 8;
+  const int tx = (warp % (CT_TX / 8)) * 8 + lane % 8;
+  const int f0 = blockIdx.x * CT_FT;
+  const CtWalk wk(L, Ls, tiles_per_split);
+
+  // the fixed tile and its norms, once for the walk; the first streamed
+  // stages behind them
+  for (int c = tid; c < L * (CT_FT / 4); c += CT_THREADS) {
+    const int k = c / (CT_FT / 4), q = c % (CT_FT / 4);
+    cp_async16(fx_s + k * CT_FT + 4 * q, fixed_t + (size_t)k * Lf + f0 + 4 * q);
+  }
+  if (tid < CT_FT / 4) cp_async16(nf_s + 4 * tid, nf + f0 + 4 * tid);
+  cp_async_commit();
 #pragma unroll
-  for (int h = 0; h < FX; ++h) part[(size_t)blockIdx.y * Lf + f0 + h * C_THREADS] = acc[h];
+  for (int i = 0; i < CT_STAGES - 1; ++i) ct_load_stage(stg, strm_t, w, ns, (size_t)Ls, wk, i);
+
+  float acc[CT_R];                      // this thread's running sums of its fixed entries
+#pragma unroll
+  for (int r = 0; r < CT_R; ++r) acc[r] = 0.f;
+  float cr[CT_R][CT_C];                 // a tile's crosses, over the chunks so far
+  for (int i = 0; i < wk.steps; ++i) {
+    const int ch = i % wk.nch, nt = wk.tiles(i);
+    cp_async_wait_pending<CT_STAGES - 2>();
+    __syncthreads();                    // step i in (the fixed tile too); everyone done with i - 1
+    ct_load_stage(stg, strm_t, w, ns, (size_t)Ls, wk, i + CT_STAGES - 1);
+    const float* d = stg + (i % CT_STAGES) * CT_STAGE;
+    const int rs = wk.tps * CT_ST, k0 = ch * wk.kc, nk = min(wk.kc, L - k0);
+    const bool last = ch == wk.nch - 1;
+#pragma unroll 1
+    for (int j = 0; j < nt; ++j) {
+      // the cross: each entry one FFMA chain over the lanes in order
+      const float* fa = fx_s + (size_t)k0 * CT_FT + 4 * ty;
+      const float* fb = d + j * CT_ST + 4 * tx;
+      if (ch == 0) ct_lane<true>(cr, fa, fb);
+#pragma unroll 2
+      for (int k = ch == 0 ? 1 : 0; k < nk; ++k) ct_lane<false>(cr, fa + k * CT_FT, fb + k * rs);
+      if (last) {                       // tile j's entries and their sums
+        const float* wt = d + CT_KC * CT_ST + j * CT_ST;
+        const float* nt_s = wt + CT_TPS * CT_ST;
+        float nsv[CT_C], wv[CT_C];
+#pragma unroll
+        for (int g = 0; g < CT_C / 4; ++g) {
+          const float4 n4 = *reinterpret_cast<const float4*>(nt_s + 4 * tx + 4 * CT_TX * g);
+          const float4 w4 = *reinterpret_cast<const float4*>(wt + 4 * tx + 4 * CT_TX * g);
+          nsv[4 * g] = n4.x, nsv[4 * g + 1] = n4.y, nsv[4 * g + 2] = n4.z, nsv[4 * g + 3] = n4.w;
+          wv[4 * g] = w4.x, wv[4 * g + 1] = w4.y, wv[4 * g + 2] = w4.z, wv[4 * g + 3] = w4.w;
+        }
+        float nfv[CT_R];
+#pragma unroll
+        for (int g = 0; g < CT_R / 4; ++g) {
+          const float4 n4 = *reinterpret_cast<const float4*>(nf_s + 4 * ty + 4 * CT_TY * g);
+          nfv[4 * g] = n4.x, nfv[4 * g + 1] = n4.y, nfv[4 * g + 2] = n4.z, nfv[4 * g + 3] = n4.w;
+        }
+        // each tile's sums start from zero (the first term's product) and
+        // join the running sums by one add; the CT_R sums advance together
+        float tacc[CT_R];
+#pragma unroll
+        for (int r = 0; r < CT_R; ++r) tacc[r] = kf32(nfv[r] + nsv[0], cr[r][0]) * wv[0];
+#pragma unroll
+        for (int c = 1; c < CT_C; ++c)
+#pragma unroll
+          for (int r = 0; r < CT_R; ++r)
+            tacc[r] = fmaf(kf32(nfv[r] + nsv[c], cr[r][c]), wv[c], tacc[r]);
+#pragma unroll
+        for (int r = 0; r < CT_R; ++r) acc[r] += tacc[r];
+      }
+    }
+  }
+  cp_async_wait_all();                  // (an empty split's walk waited for nothing)
+  // the CT_TX threads that share a fixed entry: a shuffle tree over the
+  // warp's 8, then the warps' sums in order
+#pragma unroll
+  for (int r = 0; r < CT_R; ++r) {
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 1);
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 2);
+    acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], 4);
+  }
+  if (lane % 8 == 0) {
+#pragma unroll
+    for (int r = 0; r < CT_R; ++r)
+      red_s[(tx / 8) * CT_FT + 4 * ty + 4 * CT_TY * (r / 4) + (r & 3)] = acc[r];
+  }
+  __syncthreads();
+  if (tid < CT_FT) {
+    float s = red_s[tid];
+#pragma unroll
+    for (int q = 1; q < CT_TX / 8; ++q) s += red_s[q * CT_FT + tid];
+    part[(size_t)blockIdx.y * Lf + f0 + tid] = s;
+  }
 }
 
 template <typename K>
@@ -880,28 +1048,11 @@ int recompute_launch(int aug, const void* fixed_t, const void* strm_t, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// the coordinate kernel at LV lanes: its slots on the card, and one
-// launch over a grid of (Lf / its fixed entries a block, splits). Its
-// dynamic shared memory is opted in at every depth: the 48 KB tile at 96
-// lanes beside the static norms and w passes the default 48 KB in all
-template <int LV>
-int coord_slots(int* n) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      coord_sum_kernel<LV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM_OF<LV>);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return slots_of(coord_sum_kernel<LV>, C_THREADS, C_SMEM_OF<LV>, n);
-}
-
-template <int LV>
-int coord_launch(const float* fx, const float* st, const float* w, float* part, int Lf, int Ls,
-                 int splits, int per, cudaStream_t s) {
-  if (Lf % C_FT_OF<LV>) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaFuncSetAttribute(
-      coord_sum_kernel<LV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C_SMEM_OF<LV>);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(Lf / C_FT_OF<LV>, splits);
-  coord_sum_kernel<LV><<<grid, C_THREADS, C_SMEM_OF<LV>, s>>>(fx, st, w, part, Lf, Ls, per);
-  return static_cast<int>(cudaGetLastError());
+// the coordinate kernel's dynamic shared memory opted in for the widest L
+// (past 48 KB it takes no other way), before its slots and each launch
+int coord_opt_in() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      coord_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ct_smem_bytes(CT_LMAX)));
 }
 
 }  // namespace
@@ -957,42 +1108,43 @@ int glt_recompute_sum(int aug, int fd, const void* fixed_t, const void* strm_t, 
                        (size_t)Lf, s);
 }
 
-// how many blocks of the coordinate kernel (lv = 4, 32, 64, 96 or 128
-// live lanes) fit the card at once (the wrapper's splits, as
-// glt_recompute_slots); a negative value is a cudaError, 0 an unsupported lv
-int glt_coord_slots(int lv) {
+// how many blocks of the coordinate kernel reading L lanes (1 to 128) fit
+// the card at once (the wrapper's splits, as glt_recompute_slots); a
+// negative value is a cudaError, 0 an unsupported L
+int glt_coord_slots(int L) {
+  if (L < 1 || L > CT_LMAX) return 0;
+  const int rc = coord_opt_in();
+  if (rc != 0) return -rc;
   int n = 0;
-  const int rc = lv == 4     ? coord_slots<4>(&n)
-                 : lv == 32  ? coord_slots<32>(&n)
-                 : lv == 64  ? coord_slots<64>(&n)
-                 : lv == 96  ? coord_slots<96>(&n)
-                 : lv == 128 ? coord_slots<128>(&n)
-                             : -1;
-  return rc < 0 ? 0 : rc != 0 ? -rc : n;
+  const int e = slots_of(coord_tile_kernel, CT_THREADS, ct_smem_bytes(L), &n);
+  return e != 0 ? -e : n;
 }
 
 // out[f] = sum_s w_s k(f, s) on coordinate features (the IEEE f32 cross)
-// over k-major (32, Lf) fixed and (32, Ls) streamed f32 layouts, the first
-// lv lanes read (4 or 32; the others zero), or (lv, Lf) and (lv, Ls) ones
-// with lv 64, 96 or 128: Lf a multiple of the block's fixed entries (256
-// up to 64 lanes, 128 past them), Ls % 128 == 0, a grid of (Lf / those,
-// splits); part and out as glt_recompute_sum's.
-int glt_coord_sum(const void* fixed_t, const void* strm_t, const void* w, void* part, void* out,
-                  int Lf, int Ls, int splits, int lv, void* stream) {
+// over the first L lanes (1 to 128; the layout's others zero) of k-major
+// f32 layouts, fixed (>= L, Lf) and streamed (>= L, Ls) with row strides
+// Lf and Ls: Lf % 128 == 0, Ls % 128 == 0, 16-byte aligned bases; first
+// every entry's norm into norms (Lf + Ls floats of scratch), then a grid
+// of (Lf / 128, splits); part and out as glt_recompute_sum's.
+int glt_coord_sum(const void* fixed_t, const void* strm_t, const void* w, void* norms,
+                  void* part, void* out, int Lf, int Ls, int splits, int L, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (Ls % C_ST || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int ntiles = Ls / C_ST, per = (ntiles + splits - 1) / splits;
+  if (Lf % CT_FT || Ls % CT_ST || splits < 1 || L < 1 || L > CT_LMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = coord_opt_in();
+  if (rc != 0) return rc;
+  const int ntiles = Ls / CT_ST, per = (ntiles + splits - 1) / splits;
   const float* fx = static_cast<const float*>(fixed_t);
   const float* st = static_cast<const float*>(strm_t);
-  const float* wv = static_cast<const float*>(w);
+  float* nf = static_cast<float*>(norms);
   float* pp = static_cast<float*>(part);
-  const int rc = lv == 4     ? coord_launch<4>(fx, st, wv, pp, Lf, Ls, splits, per, s)
-                 : lv == 32  ? coord_launch<32>(fx, st, wv, pp, Lf, Ls, splits, per, s)
-                 : lv == 64  ? coord_launch<64>(fx, st, wv, pp, Lf, Ls, splits, per, s)
-                 : lv == 96  ? coord_launch<96>(fx, st, wv, pp, Lf, Ls, splits, per, s)
-                 : lv == 128 ? coord_launch<128>(fx, st, wv, pp, Lf, Ls, splits, per, s)
-                             : static_cast<int>(cudaErrorInvalidValue);
-  if (rc != 0 || splits == 1) return rc;
+  coord_norms_kernel<<<(Lf + Ls + 255) / 256, 256, 0, s>>>(fx, st, nf, nf + Lf, Lf, Ls, L);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  coord_tile_kernel<<<dim3(Lf / CT_FT, splits), CT_THREADS, ct_smem_bytes(L), s>>>(
+      fx, st, static_cast<const float*>(w), nf, nf + Lf, pp, Lf, Ls, L, per);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0 || splits == 1) return e;
   return launch_reduce(pp, static_cast<float*>(out), splits, (size_t)Lf, s);
 }
 

@@ -53,7 +53,7 @@ _SIGNATURES = {
     # the IEEE f32 cross: K1 and K5/K6 on coordinates, K7-K10 f32 layouts
     "glt_affinity_coord": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "glt_coord_slots": ([_I], _I),
-    "glt_coord_sum": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "glt_coord_sum": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "glt_kb_strip_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "glt_ext2_f32_clusters": ([_I, _I], _I),
     "glt_ext2_matvec_f32": ([_P] * 7 + [_I] * 5 + [_P], _I),

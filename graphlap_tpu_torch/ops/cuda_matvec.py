@@ -19,9 +19,9 @@ plain bf16 layout has the reference's bf16 rounding of the plain d2. On
 the f32 layout the kernel forms the "highest" cross as a split-fp16
 tensor-core product, or, for features that carry coordinates
 (``coords``: the config's ``spatial_h > 0``), as an IEEE f32 FFMA chain
-over the ``live`` lanes (``coord_sum_kernel``): (row, col) / spatial_h
-reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16 small part loses about
-four times the f32 product's error.
+over the ``live`` lanes (``coord_tile_kernel``, an SGEMM-like register
+tile): (row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP, where the split's
+fp16 small part loses about four times the f32 product's error.
 
 CPU tensors take the ``*_plain`` versions (PyTorch ops with the Pallas
 bodies' rounding points, over column chunks so that they also run at 8 MP
@@ -29,8 +29,10 @@ on the card); CUDA tensors launch ``csrc/recompute_matvec.cu``, which takes
 the two layouts the presets reach: bf16 aug and f32 plain, at 32, 64, 96
 or 128 feature lanes (an NLM 5 x 5, 7 x 7, 9 x 9 or 11 x 11 patch: each
 kernel is a template on its depth). The coordinate kernel takes the same
-depths (its live lanes read: 4 or 32 of a 32-lane layout, else the
-layout's depth; 256 fixed entries a block up to 64 lanes, 128 past them).
+layouts and reads only their first ``_lanes(live, fd)`` lanes (4, 28, 52,
+84 or 124 on the recipes' layouts; the pad lanes are zero), 128 fixed
+entries a block by 128-entry streamed tiles, each entry's norm from a
+pre-pass into a scratch vector (``coord_norms_kernel``).
 The plain bf16 layout (the reference's ``GLT_AUG_DISABLE`` lever) and an
 f32 aug layout raise ``NotImplementedError``: no preset builds them, and
 no ROADMAP.md queue ports them. There is no fallback from a kernel to its
@@ -46,11 +48,13 @@ K7 does (kb_pair, which ``kb_entries`` checks at every pattern).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _build
 from .cuda_affinity import _device_kind
-from .cuda_recompute import PLAIN_CHUNK, _r, _tile_plain, coord_lanes
+from .cuda_recompute import PLAIN_CHUNK, _aligned, _lanes, _r, _tile_plain
 from .streaming import _chunks
 
 P_QUANTUM = 512           # p_pad: the reference's p_tiling quantum
@@ -67,6 +71,9 @@ FIXED_TILE = {(torch.bfloat16, 32): 1024, (torch.bfloat16, 64): 512,
               (torch.float32, 32): 128, (torch.float32, 64): 128,
               (torch.float32, 96): 128, (torch.float32, 128): 128}
 D_PAD = 128               # the reference's widest feature layout
+COORD_FIXED = 128         # the coordinate kernel's fixed entries a block (csrc CT_FT)
+COORD_STREAM = 128        # and streamed entries a tile (CT_ST)
+COORD_WAVES = 4           # its splits fill at most this many waves exactly
 _F32 = torch.float32
 
 
@@ -150,10 +157,34 @@ def _plan(aug: bool, lf: int, ls: int, fd: int) -> tuple[int, int]:
     return splits, min(fixed * splits, _slots(True, fd))
 
 
+def _coord_plan(lf: int, ls: int, lv: int) -> int:
+    """Streamed-axis splits of a coordinate-kernel launch over (lv, lf)
+    fixed and (lv, ls) streamed layouts, where the fixed side's blocks
+    alone leave the card's resident slots at lv lanes (``glt_coord_slots``)
+    short: as many as fill whole waves of them exactly, in at most
+    COORD_WAVES waves (the 8 MP K5: 32 fixed blocks on 264 slots, 33
+    splits in 4 waves, where 8 would leave 8 slots idle), else as many as
+    fill one wave; none empty."""
+    if lf % COORD_FIXED or ls % COORD_STREAM:
+        raise ValueError(f"recompute_sum: the coordinate kernel takes "
+                         f"{COORD_FIXED}-entry fixed and {COORD_STREAM}-entry "
+                         f"streamed tiles, got {lf} and {ls}")
+    slots = _build.lib().glt_coord_slots(lv)
+    if slots <= 0:
+        _build.check(-slots if slots < 0 else 1, "coord_sum: no block fits "
+                     "the card")
+    tiles, fixed = ls // COORD_STREAM, lf // COORD_FIXED
+    waves = fixed // math.gcd(fixed, slots)
+    splits = (slots * waves // fixed if fixed < slots and waves <= COORD_WAVES
+              else slots // fixed)
+    splits = max(1, min(tiles, splits))
+    return -(-tiles // -(-tiles // splits))       # no empty split
+
+
 def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
     """out[f] = sum_s w_s k(f, s) over k-major (fd, Lf) / (fd, Ls) layouts,
     launched as ``_plan`` says; ``coord_lv``: the coordinate kernel on f32
-    layouts, reading that many lanes."""
+    layouts, reading their first that many lanes (``_coord_plan``)."""
     aug = fixed_t.dtype == torch.bfloat16
     fd, lf, ls = fixed_t.shape[0], fixed_t.shape[1], strm_t.shape[1]
     dev = fixed_t.device
@@ -161,17 +192,8 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
     if coord_lv is None:
         splits, blocks = _plan(aug, lf, ls, fd)
     else:
-        fixed = coord_fixed(coord_lv)
-        if lf % fixed:
-            raise ValueError(f"recompute_sum: the coordinate kernel takes "
-                             f"{fixed}-entry fixed tiles, got {lf}")
-        slots = lib.glt_coord_slots(coord_lv)
-        if slots <= 0:
-            _build.check(-slots if slots < 0 else 1, "coord_sum: no block "
-                         "fits the card")
-        tiles = ls // STREAM_TILE[(_F32, fd)]
-        splits = max(1, min(tiles, slots // (lf // fixed)))
-        splits = -(-tiles // -(-tiles // splits))   # no empty split
+        splits = _coord_plan(lf, ls, coord_lv)
+        fixed_t, strm_t, w = _aligned(fixed_t, strm_t, w)
     out = torch.empty(lf, dtype=_F32, device=dev)
     part = out if splits == 1 else torch.empty((splits, lf), dtype=_F32,
                                                device=dev)
@@ -181,26 +203,22 @@ def _recompute_sum(fixed_t, strm_t, w, coord_lv=None):
             part.data_ptr(), out.data_ptr(), lf, ls, splits, blocks,
             _build.stream_ptr(fixed_t))
     else:
+        norms = torch.empty(lf + ls, dtype=_F32, device=dev)
         rc = lib.glt_coord_sum(
             fixed_t.data_ptr(), strm_t.data_ptr(), w.data_ptr(),
-            part.data_ptr(), out.data_ptr(), lf, ls, splits, coord_lv,
-            _build.stream_ptr(fixed_t))
+            norms.data_ptr(), part.data_ptr(), out.data_ptr(), lf, ls, splits,
+            coord_lv, _build.stream_ptr(fixed_t))
     _build.check(rc, "recompute_sum")
     return out
 
 
-def coord_fixed(lv: int) -> int:
-    """Fixed entries a block of the coordinate kernel reading ``lv`` lanes:
-    two a thread of 128 up to 64 lanes, one past them (csrc C_FT_OF)."""
-    return 256 if lv <= 64 else 128
-
-
 def _coord_lv(fa, coords, live):
     """The coordinate kernel's lanes where the f32 layout carries
-    coordinates, else None (the layout's own kernel)."""
+    coordinates (its live lanes rounded up to 4), else None (the layout's
+    own kernel)."""
     if not (coords and fa.dtype == _F32):
         return None
-    return coord_lanes(live, fa.shape[1])
+    return _lanes(live, fa.shape[1])
 
 
 def matvec_cuda(fa, f_t, v, aug: bool = False, live=None, coords=False):

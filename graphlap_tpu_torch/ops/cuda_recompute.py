@@ -214,10 +214,10 @@ def _lanes(live, fd: int) -> int:
 
 
 def coord_lanes(live, fd: int) -> int:
-    """The lanes the K9 / K10 f32 kernels and the coordinate K5/K6 read for
-    ``live`` feature lanes of an ``fd``-lane layout: 4 of a 32-lane layout,
-    else all fd (the layouts' pad lanes are zero, so the extra lanes add
-    exact zeros). The 4-lane V pass takes fa rows at a 32-lane stride, so a
+    """The lanes the K9 / K10 f32 kernels read for ``live`` feature lanes
+    of an ``fd``-lane layout (the coordinate K5/K6 read ``_lanes``): 4 of a
+    32-lane layout, else all fd (the layouts' pad lanes are zero, so the
+    extra lanes add exact zeros). The 4-lane V pass takes fa rows at a 32-lane stride, so a
     wider layout is read whole."""
     return 4 if _lanes(live, fd) <= 4 and fd == 32 else fd
 

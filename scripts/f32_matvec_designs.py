@@ -15,7 +15,7 @@ The variants:
 * ``chain norms`` — the shipped split with each norm a sequential f32 FMA
   chain, as before;
 * ``ffma cross`` — the IEEE f32 FFMA cross of the coordinate kernel
-  (coord_sum_kernel at the layout's depth, its norms FMA chains; the
+  (coord_tile_kernel over the layout's depth, its norms FMA chains; the
   shipped library called with ``coords``);
 * ``two-part split`` and ``two-part split, f64 norms`` (with ``--parent
   DIR``, a checkout unpacked there whose kernel splits in two, big + fp16
@@ -115,7 +115,7 @@ FFMA = "ffma cross"        # the shipped library's coordinate kernel
 # --parent's recompute_matvec.cu, as it is and with the shipped norms
 PARENTS = {"two-part split": [],
            "two-part split, f64 norms": [_PNF, _PNS]}
-DESIGNS = {FFMA: "the IEEE f32 FFMA cross (coord_sum_kernel at the "
+DESIGNS = {FFMA: "the IEEE f32 FFMA cross (coord_tile_kernel over the "
                  "layout's depth), FMA-chain norms, plain tile adds",
            "two-part split": "the two-part split (big + fp16 small), "
                              "FMA-chain norms, the design before the "

@@ -1,6 +1,6 @@
 """Whether the f32-layout and coordinate kernels of this checkout give the
-same bits as another checkout's at 4, 28 and 52 live lanes (32- and
-64-lane layouts), on one CUDA card.
+same bits as another checkout's at 4, 28, 52, 84 and 124 live lanes (32-
+to 128-lane layouts), on one CUDA card.
 
     python3 scripts/f32_same_bits.py --parent DIR
 
@@ -8,14 +8,18 @@ DIR is another checkout (for example the parent commit unpacked with
 ``git archive`` into a git-ignored directory). The kernels: K7 f32
 (``kb_strip_cuda``), K8 f32 (``ext2_matvec_cuda``), K9 f32
 (``finish_colstats_cuda``), K10 f32 (``colstats_v_cuda``), the coordinate
-K5/K6 (``matvec_cuda`` / ``rmatvec_cuda`` with ``coords``) and K1's
-coordinate cross (``affinity_strip_cuda`` with ``coords``, both stores),
-each through its checkout's own wrapper and library, on the same inputs:
+K5/K6's tile entries (``matvec_cuda`` / ``rmatvec_cuda`` with ``coords``
+and a one-hot vector, which write a tile column or row exactly: each entry
+plus exact zeros; their sums of many entries run in another order by
+design since the register-tiled kernel) and K1's coordinate cross
+(``affinity_strip_cuda`` with ``coords``, both stores), each through its
+checkout's own wrapper and library, on the same inputs:
 features as the bilateral recipes build them (d - 2 value lanes, then
 row / 8 and col / 8 of a 2048 x 4096 image, sample rows 4000, 65536
 columns, seeded), d = 3 (the gaussian bilateral recipe, 4 live lanes), d
-= 27 (NLM 5 x 5 with the coordinates, 28) and d = 51 (NLM 7 x 7 with
-them, 52 of 64). The other checkout runs in a
+= 27 (NLM 5 x 5 with the coordinates, 28), d = 51, 83 and 123 (NLM 7 x
+7, 9 x 9 and 11 x 11 with them, 52 of 64, 84 of 96, 124 of 128). The
+other checkout runs in a
 child process (it builds its own library under its own build/), which
 writes its outputs to build/f32_same_bits/; this process compares them
 with its own. Prints the card line and one JSON line: for each kernel and
@@ -35,11 +39,15 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "f32_same_bits"
-DEPTHS = (3, 27, 51)
+DEPTHS = (3, 27, 51, 83, 123)
+# the coordinate K5's tile columns and K6's tile rows compared (a one-hot v
+# or t each): spread over the pixels and over the live sample rows
+COLS = (0, 777, 12345, 40000, 65535)
+ROWS = (0, 5, 1234, 2500, 3999)
 
 
 def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
-    """The bilateral layouts of d raw lanes (a 32- or 64-lane layout) and
+    """The bilateral layouts of d raw lanes (a 32- to 128-lane layout) and
     the kernels' vectors, from a seeded generator."""
     rng = np.random.default_rng(seed + d)
 
@@ -55,7 +63,7 @@ def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
     fp3 = (base + jit).astype(np.float32)
     p_pad = -(-p // 512) * 512
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
-    fd = 32 if d <= 32 else 64
+    fd = -(-d // 32) * 32
     fa = torch.zeros((p_pad, fd), device=dev)
     fa[:p, :d] = t(fa3)
     f_t = torch.zeros((fd, n), device=dev)
@@ -73,6 +81,16 @@ def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
                 na=torch.sum(fa * fa, dim=1), nb=torch.sum(f_t * f_t, dim=0),
                 a3=fa[:512, :d].contiguous(), b3=f_t[:d, :1 << 16].T.contiguous(),
                 live=-(-d // 4) * 4)
+
+
+def one_hot(n: int, at, dev) -> list:
+    """The unit vectors of length n at the positions ``at``."""
+    out = []
+    for i in at:
+        e = torch.zeros(n, device=dev)
+        e[i] = 1.0
+        out.append(e)
+    return out
 
 
 def run(dev) -> dict:
@@ -96,10 +114,12 @@ def run(dev) -> dict:
             "colstats_v_f32": lambda: k79.colstats_v_cuda(
                 fa, f_t, x["gr"], x["y"], x["cols"], x["na"], x["nb"],
                 live=lv),
-            "matvec_coord": lambda: k56.matvec_cuda(fa, f_t, x["v"], False,
-                                                    lv, True),
-            "rmatvec_coord": lambda: k56.rmatvec_cuda(fa, f_t, x["tv"], False,
-                                                      lv, True),
+            "matvec_coord tile columns": lambda: tuple(
+                k56.matvec_cuda(fa, f_t, e, False, lv, True)
+                for e in one_hot(f_t.shape[1], COLS, dev)),
+            "rmatvec_coord tile rows": lambda: tuple(
+                k56.rmatvec_cuda(fa, f_t, e, False, lv, True)
+                for e in one_hot(fa.shape[0], ROWS, dev)),
             "affinity_strip_coord_f32": lambda: k1.affinity_strip_cuda(
                 x["a3"], x["b3"], coords=True),
             "affinity_strip_coord_bf16": lambda: k1.affinity_strip_cuda(

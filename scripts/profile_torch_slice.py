@@ -5,7 +5,7 @@ card.
         [--path config2|config2f32|config2p7|config2p9|config2p11|config4|
                 config4p7|config4p9|config4p11|config3|config3p7|config4q|
                 config4qp7|turbo|turbop11|dense|bilateral|bilateralA|
-                bilateralB|bilateralBp11|bilateralC|both|all]
+                bilateralB|bilateralBp11|bilateralC|bilateralCp11|both|all]
         [--out DIR]
 
 For each path (config 2: chip_smoke.make_workload, the 512x512 strip_cache
@@ -32,7 +32,9 @@ bilateralB, bilateralC: the NLM 7x7 recipes with a spatial term
 finish, the 64-lane f32 K8, K7, K9; make_workload_8mp_nlm_bilateral_matvec:
 the 8 MP matvec denoise, the 64-lane coordinate K5/K6); bilateralBp11:
 recipe B at NLM 11x11 (make_workload_8mp_nlm_bilateral with patch 11: the
-128-lane f32 K8, K7, K9); "both" is
+128-lane f32 K8, K7, K9); bilateralCp11: recipe C at NLM 11x11
+(make_workload_8mp_nlm_bilateral_matvec with patch 11: the coordinate
+K5/K6 at 124 live lanes of 128); "both" is
 config 2 and config 4, "all" every path) it runs
 filter_image once to warm up, then:
 
@@ -71,14 +73,17 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# device kernel name -> group, first match wins
+# device kernel name -> group, first match wins (the port's kernels as
+# named now and in older checkouts, which this script also profiles)
 GROUPS = (
     ("port kernels", r"affinity_kernel|affinity_split_kernel|ext2_kernel|"
                      r"sandwich_kernel|sandwich_split_kernel|split_parts_kernel|"
                      r"kb_emit_kernel|ext2_matvec_kernel|"
                      r"aug_sum_kernel|f32_sum_kernel|"
                      r"colstats_v_kernel|ks_kernel|reduce_partials|"
-                     r"affinity_coord_kernel|coord_sum_kernel|kb_f32_kernel|"
+                     r"affinity_coord_kernel|coord_tile_kernel|coord_norms_kernel|"
+                     r"coord_sum_kernel|"
+                     r"kb_f32_kernel|"
                      r"ext2_f32_kernel|colstats_tc_kernel|split_cols_kernel|"
                      r"colstats_f32_kernel|colstats_f32_wide_kernel|ks_f32_kernel"),
     ("cuSOLVER / small dense algebra",
@@ -223,8 +228,8 @@ def main() -> None:
                                        "config3p7", "config4q", "config4qp7",
                                        "turbo", "dense", "bilateral",
                                        "bilateralA", "bilateralB",
-                                       "bilateralBp11", "bilateralC", "both",
-                                       "all"),
+                                       "bilateralBp11", "bilateralC",
+                                       "bilateralCp11", "both", "all"),
                     default="both")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -261,7 +266,9 @@ def main() -> None:
              "bilateralB": chip_smoke.make_workload_8mp_nlm_bilateral,
              "bilateralBp11": lambda g: (
                  chip_smoke.make_workload_8mp_nlm_bilateral(g, 11)),
-             "bilateralC": chip_smoke.make_workload_8mp_nlm_bilateral_matvec}
+             "bilateralC": chip_smoke.make_workload_8mp_nlm_bilateral_matvec,
+             "bilateralCp11": lambda g: (
+                 chip_smoke.make_workload_8mp_nlm_bilateral_matvec(g, 11))}
     chosen = {"both": ("config2", "config4"), "all": tuple(paths)}.get(
         args.path, (args.path,))
     for tag, workload in paths.items():

@@ -732,13 +732,88 @@ def test_lane_counts():
         96, 96, 96, 96, 96]
     assert [k79.coord_lanes(x, 128) for x in (None, 4, 123, 124, 128)] == [
         128, 128, 128, 128, 128]
-    assert [k56.coord_fixed(x) for x in (4, 32, 64, 96, 128)] == [
-        256, 256, 256, 128, 128]
+    # the coordinate K5/K6 read the live lanes rounded up to 4, in 128 x
+    # 128 tiles at every width
+    assert (k56.COORD_FIXED, k56.COORD_STREAM) == (128, 128)
+    assert [k56._coord_lv(torch.zeros(1, fd), True, live)
+            for fd, live in ((32, 3), (32, 27), (64, 51), (96, 83),
+                             (128, 123), (128, None))] == [
+        4, 28, 52, 84, 124, 128]
     for fd, live in ((32, 33), (64, 65), (96, 97), (128, 129)):
         with pytest.raises(ValueError, match="live lanes"):
             k79._lanes(live, fd)
         with pytest.raises(ValueError, match="live lanes"):
             k79.coord_lanes(live, fd)
+
+
+def test_coord_launch_plan_serves_every_wrapper_shape(monkeypatch):
+    """The coordinate kernel's plan (``_coord_plan``) takes every shape the
+    recipes pass (K5 fixes p_pad, on 512, and streams n, on 256; K6 the
+    reverse) at the lanes they read, ``_lanes(live, fd)`` (4, 28, 52, 84,
+    124): 128-entry fixed and streamed tiles, as many splits as fill whole
+    waves of the kernel's resident blocks at those lanes, in at most
+    COORD_WAVES waves, none empty; the wrappers pass those lanes and that
+    plan to ``glt_coord_sum``. At 8 MP (recipes B and C) K5 runs 32 fixed
+    blocks by 33 splits on 264 slots, four whole waves (8 splits would
+    leave 8 slots idle), K6 65536 blocks unsplit."""
+    calls = []
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(
+        glt_coord_slots=lambda lv: 264,
+        glt_coord_sum=lambda *a: calls.append(a[6:10]) or 0))
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(k56, "_device_kind", lambda *ts: "cuda")
+    for fd, d in ((32, 3), (32, 27), (64, 51), (96, 83), (128, 123)):
+        live = -(-d // 4) * 4
+        lv = k56._coord_lv(torch.zeros(1, fd), True, live)
+        assert lv == k79._lanes(live, fd) == live
+        for pp in (512, 1024, 4096, 5120):
+            for n in (256, 768, 2560, 1 << 20, MP8):
+                for lf, ls in ((pp, n), (n, pp)):
+                    splits = k56._coord_plan(lf, ls, lv)
+                    tiles = ls // k56.COORD_STREAM
+                    per = -(-tiles // splits)
+                    blocks = lf // k56.COORD_FIXED
+                    assert 1 <= splits <= tiles and per * (splits - 1) < tiles
+                    assert blocks * splits <= max(blocks,
+                                                  k56.COORD_WAVES * 264)
+        fa, f_t = torch.zeros((512, fd)), torch.zeros((fd, 1024))
+        k56.matvec_cuda(fa, f_t, torch.ones(1024), False, live, True)
+        k56.rmatvec_cuda(fa, f_t, torch.ones(512), False, live, True)
+        assert calls[-2:] == [(512, 1024, 8, lv), (1024, 512, 4, lv)]
+    assert k56._coord_plan(4096, MP8, 124) == 33
+    assert k56._coord_plan(MP8, 4096, 124) == 1
+    with pytest.raises(ValueError, match="128-entry"):
+        k56._coord_plan(4096 + 64, MP8, 124)
+
+
+@pytest.mark.parametrize("kind", ["nlm9", "nlm11"])
+def test_coord_k5_k6_plain_over_the_live_lanes(jx, kind):
+    """The coordinate K5/K6 read only ``_lanes(live, fd)`` lanes (84 of 96,
+    124 of 128) of recipe B's and C's features: the pad lanes are zero, so
+    the plain versions over those lanes agree with the full-depth plain
+    versions, and with graphlap_tpu's matvec_pallas / rmatvec_pallas
+    (interpret mode), within the f32 bar of the coordinate tiles (16 ulps
+    of max |f|^2 relative to the sum of the terms' magnitudes, as the K8
+    test above holds its u); CPU matmuls of another depth sum in another
+    order, so not bit for bit."""
+    jnp = jx.jnp
+    x = _coord_inputs(jx, kind=kind)
+    fa, f_t = T(N(x.fa_pad)), T(N(x.f_t))
+    lv = k56._coord_lv(fa, True, x.live)
+    assert lv == x.live == {"nlm9": 84, "nlm11": 124}[kind] < fa.shape[1]
+    assert not fa[:, lv:].any() and not f_t[lv:].any()
+    fa_l, ft_l = fa[:, :lv].contiguous(), f_t[:lv].contiguous()
+    v = T(np.random.default_rng(3).uniform(0.5, 1.5, f_t.shape[1]))
+    t = T(x.t)
+    kb = np.abs(N(k79.kb_strip_plain(fa, f_t, torch.ones(f_t.shape[1]),
+                                     False))).astype(np.float64)
+    for fn, ref_fn, vec, terms in (
+            (k56.matvec_plain, jx.pst.matvec_pallas, v, kb @ N(v)),
+            (k56.rmatvec_plain, jx.pst.rmatvec_pallas, t, N(t) @ kb)):
+        full = fn(fa, f_t, vec)
+        _sum_bar(N(fn(fa_l, ft_l, vec)), N(full), terms, x.tol)
+        ref = ref_fn(x.fa_pad, x.f_t, jnp.asarray(N(vec)), aug=False)
+        _sum_bar(N(full), N(ref), terms, x.tol)
 
 
 # --- on the card ---------------------------------------------------------------
@@ -1058,10 +1133,10 @@ def _coord_k56_against_f64(fa, f_t, t64, live):
 @pytest.mark.parametrize("img", [(512, 512), (2048, 4096)])
 def test_coordinate_k5_k6_past_64_lanes_against_f64(cuda_device, img, d):
     """The coordinate K5/K6 at 84 and 124 live lanes (96- and 128-lane
-    layouts, one fixed entry a thread): each output against its f64
-    evaluation within 1.5x the plain f32 version's error, as at 4 to 52
-    live lanes (test_coordinate_cross_against_f64), and two launches bit
-    for bit."""
+    layouts; the register-tiled kernel reads those lanes alone): each
+    output against its f64 evaluation within 1.5x the plain f32 version's
+    error, as at 4 to 52 live lanes (test_coordinate_cross_against_f64),
+    and K5's and K6's two launches each bit for bit."""
     dev = cuda_device
     fa, f_t = _card_layouts(dev, 512, 1 << 18, *img, d=d)
     live = -(-d // 4) * 4
@@ -1071,6 +1146,10 @@ def test_coordinate_k5_k6_past_64_lanes_against_f64(cuda_device, img, d):
     x = torch.rand(f_t.shape[1], device=dev) + 0.5
     got = k56.matvec_cuda(fa, f_t, x, False, live, True)
     assert torch.equal(got, k56.matvec_cuda(fa, f_t, x, False, live, True))
+    t = torch.zeros(fa.shape[0], device=dev)
+    t[:512] = torch.rand(512, device=dev) + 0.5
+    got = k56.rmatvec_cuda(fa, f_t, t, False, live, True)
+    assert torch.equal(got, k56.rmatvec_cuda(fa, f_t, t, False, live, True))
 
 
 def _f32_sums_vs_f64(dev, patch, which):
