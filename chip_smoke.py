@@ -17,7 +17,11 @@ non-zero before the last line is printed):
               f32 K9/K10 kernel's at all ten instantiations, with no FFMA
               V or ks pass left; the coordinate K5/K6 kernel
               (coord_tile_kernel, one for every lane count) must be built
-              and spill nothing (its registers printed from -Xptxas -v).
+              and spill nothing (its registers printed from -Xptxas -v);
+              the f32 K8 (ext2_f32_tile_kernel, two instantiations) must be
+              built and at least one of its clusters fit the card (its
+              registers, spills and resident clusters x blocks at p_pad
+              4096 printed).
 3. config 2 — the strip_cache path (bench.make_workload's recipe: 512x512
               test image, noise sigma 0.1 seed 1, CONFIG2 + strip_cache,
               kernels, sketch o206 p0):
@@ -221,11 +225,11 @@ non-zero before the last line is printed):
               gram 1/64, one polish, fused finish, LOBPCG) on config 4's
               image:
    kernels  K7-K10 f32 and the coordinate K5/K6 at the path's 8 MP shapes
-            on its own layouts (the lanes K5/K6 read printed), each against
-            its plain version (K7's entries to a gross 0.25, K9/K10's sums
-            to 2e-4, K8's and K5/K6's to gross 1e-2 / 0.1: their norms
-            round apart), timed, K7 and K5/K6 beside their cuBLAS
-            compositions, K7's f32 gram GEMM after it, two
+            on its own layouts (the lanes K5/K6 and K8 read printed), each
+            against its plain version (K7's entries to a gross 0.25,
+            K9/K10's sums to 2e-4, K8's and K5/K6's to gross 1e-2 / 0.1:
+            their norms round apart), timed, K7, K8 and K5/K6 beside their
+            cuBLAS compositions, K7's f32 gram GEMM after it, two
             launches bit for bit, the leans of K8's u and s, K9's and K10's
             V and K5/K6's outputs (ties left out) required in (0.25, 0.75);
    slab     each f32 kernel's tile (and K1's and K6's coordinate cross)
@@ -319,7 +323,7 @@ H = W = 512
 H3 = W3 = 1024
 H8, W8 = 2048, 4096
 RUNS = 3
-LIBRARY_REPS = 1   # timed calls of the f32 K5/K6's cuBLAS compositions
+LIBRARY_REPS = 1   # timed calls of the f32 K5/K6's and K8's cuBLAS compositions
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its least bytes over the memory rate and its
 # operations over the peak of their type
@@ -2851,6 +2855,33 @@ def k56_f32_library(names) -> dict:
                 fa, f_t, t, True), what, LIBRARY_REPS)}
 
 
+def k8_f32_composition(fa, f_t, t2, bm, chunk=1 << 18):
+    """The f32 K8 as a cuBLAS composition over column chunks: torch.addmm
+    in f32 at "highest" (no TF32) with the column norms, the row norms, the
+    clamp, exp, kbt = t2 @ k, s = bm / sqrt(max(kbt_r kbt_c, eps)), then u
+    += k @ s. K8 f32's yardstick; the port never calls it. -> (u, s)."""
+    na = (fa * fa).sum(1)
+    nb = (f_t * f_t).sum(0)
+    n = f_t.shape[1]
+    u = torch.zeros(fa.shape[0], dtype=torch.float32, device=fa.device)
+    s = torch.empty(n, dtype=torch.float32, device=fa.device)
+    for j in range(0, n, chunk):
+        sl = slice(j, j + chunk)
+        k = torch.addmm(nb[None, sl], fa, f_t[:, sl], alpha=-2.0)
+        k.add_(na[:, None]).clamp_(min=0.0).neg_().exp_()
+        kbt = t2 @ k
+        s[sl] = bm[sl] / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+        u.addmv_(k, s[sl])
+        del k
+    return u, s
+
+
+K8_F32_LIBRARY = ("a cuBLAS composition, not one call: torch.addmm(nb, fa, "
+                  "f_t, alpha=-2) in f32 at \"highest\" (no TF32) over "
+                  "2^18-column chunks, + na, the clamp, exp, kbt = t2 @ k, s, "
+                  "then u += k @ s")
+
+
 def f64_tile(fa, f_t, rows, cols=None, chunk=1 << 20):
     """The f32-class tile at sample rows ``rows`` x columns ``cols`` (all by
     default) of the padded layouts, evaluated in f64 from the same f32
@@ -3268,11 +3299,15 @@ def bilateral_rows(gt, dev, rows, cfg, noisy, plan, live_req, tag, sfx=""):
               "rmatvec_coord" + sfx: (0, ctx.n, True, True)}
     k7 = "kb_strip_f32" + sfx
     phase(tag, f"the coordinate K5/K6 read {k56._coord_lv(fa, True, live)} "
-          f"lanes of {fa.shape[1]} (their live lanes rounded up to 4)")
+          f"lanes of {fa.shape[1]}, the f32 K8 {k79._lanes(live, fa.shape[1])} "
+          f"(their live lanes rounded up to 4)")
     run_cases(cases, rows, signed,
               {k7: (kb_f32_library, "a cuBLAS composition, not one call: "
                     "torch.mm(fa, f_t) in f32 at \"highest\" (no TF32), the "
                     "norms, the clamp, exp and the column scale"),
+               "ext2_matvec_f32" + sfx: (
+                   lambda fa, f_t, t2, bm, *_: k8_f32_composition(
+                       fa, f_t, t2, bm), K8_F32_LIBRARY, LIBRARY_REPS),
                **k56_f32_library(("matvec_coord" + sfx,
                                   "rmatvec_coord" + sfx))})
     # the rest of the f32 K7 cross: the f32 gram GEMM after the emitter
@@ -3684,6 +3719,17 @@ def main() -> None:
             and not any("spill" in ln and not ln.startswith("0 bytes")
                         for ln in coord),
             "the coordinate K5/K6 kernel is missing or spills")
+    k8f = [ln.strip() for name, ln in ptxas_lines(_build.PTXAS_LOG)
+           if "ext2_f32_tile_kernel" in name and ("Used" in ln or "spill" in ln)]
+    resident = {fd: (_build.lib().glt_ext2_f32_clusters(4096, fd, 1 << 30),
+                     4096 // (256 if fd == 128 else 512))
+                for fd in (32, 64, 96, 128)}
+    phase("build", f"f32 K8 (ext2_f32_tile_kernel<512> up to 96 lanes, <256> "
+          f"at 128), from -Xptxas -v: {k8f}; resident clusters x blocks at "
+          f"p_pad 4096 by depth: {resident}")
+    require(len([ln for ln in k8f if "Used" in ln]) == 2
+            and all(n > 0 for n, _ in resident.values()),
+            "the f32 K8 kernel is missing or no cluster of it fits the card")
     hgmma = sass_uses(_build, "sandwich_kernel", "HGMMA")
     phase("build", f"K3/K4 kernels holding HGMMA (wgmma), from cuobjdump "
           f"-sass: {hgmma}")

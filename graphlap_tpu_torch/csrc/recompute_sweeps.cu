@@ -14,8 +14,8 @@
 // 7, 9 x 9 or 11 x 11 patch), a template parameter of each kernel. K9
 // (finish_colstats) shares K10's kernel in colstats_v.cu. The f32 layouts
 // (the bilateral recipes, spatial_h > 0) take kernels of their own,
-// kb_f32_kernel and ext2_f32_kernel below, at the same four depths: the
-// reference's f32 _kb_tile class, an IEEE f32 FFMA cross over the live
+// kb_f32_kernel and ext2_f32_tile_kernel below, at the same four depths:
+// the reference's f32 _kb_tile class, an IEEE f32 FFMA cross over the live
 // lanes, f32 norms and expf, no bf16 rounding point.
 //
 // What bounds them on an H100. K8 at the 8 MP shape (p_pad 4096, N 8388608)
@@ -759,283 +759,382 @@ __global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K8, f32 layout: clusters of 8, the tile in registers
+// K8, f32 layout: a register tile over the live lanes, clusters of 8 or 16
 // ---------------------------------------------------------------------------
 //
 // kbt_j = k_j^T [t_r, t_c], s_j = bm_j / sqrt(max(kbt_r kbt_c, 1e-30)), u +=
 // k_j s_j with the f32 entry (kf32) and f32 FMAs throughout, the
-// reference's "highest" class. At 8 MP (p_pad 4096, N 8388608) it forms
-// 3.4e10 entries, one exp each: 8.2 ms of MUFU ex2 at 132 SMs, the bound;
-// the live-lane cross (4 lanes) ~4 ms of FFMA; at 52 live lanes (a 7 x 7
-// patch and the coordinates) the cross and the six FMAs of kbt and u, 110
-// flop an entry, take 56 ms at the f32 peak, the bound. The kernel is a
-// template on the layout's depth FD (32, 64, 96 or 128: the sample rows'
-// stride in shared memory, 158 KB of it at p_pad 4096 and 64 lanes, 232,064
-// bytes at 96, one block an SM); its loops run over the live lanes. As the
-// bf16 kernel, a column needs kbt over the whole p before its s and s
-// before its u term, so a cluster of XCL blocks shares each 32-column tile,
-// rank r owning sample rows [r P/XCL, (r+1) P/XCL) in shared memory; the
-// tile never leaves registers. XCL is 8 up to 96 lanes; at 128, 8 ranks'
-// rows (512 x 132 floats at p_pad 4096, 270 KB) pass a block's 227 KB,
-// and a row stride of the live lanes alone would not save it (262 KB), so
-// the cluster takes 16 blocks (a size the H100 allows as non-portable;
-// 170,624 bytes a block), its partials still summed in rank order. A
-// 16-rank slice of P rows need not be a multiple of the 64 row groups
-// (p_pad 512, 1536, ...): a thread's rows past the slice are masked to
-// zero entries. Sample rows streamed through a block in parts would need
-// the tile's entries of every part at once (kbt before s before u), or a
-// second recompute of the tile:
-//   * 256 threads a block, each NR = P / (64 XCL) rows (rg + 64 i; rounded
-//     up) by 8 columns (a lane is 8 row groups x 4 column groups), so a
-//     thread holds 8 NR entries;
-//     the tile's f_t columns arrive by cp.async double buffering;
-//   * kbt: each thread's row sums, a shuffle tree over the warp's row
-//     groups, the 8 warps in order in shared memory, then the XCL ranks'
-//     partials in rank order through distributed shared memory after one
-//     cluster barrier a tile (partials double-buffered), so every rank
-//     computes the same s;
-//   * u: a tile's row sums from zero (8 columns a thread, then a shuffle
-//     over the 4 column groups), added to a span's sum from zero, which
-//     joins the running u by one f32 add every XF_SPAN tiles: no f32 chain
-//     runs over more than a few hundred terms;
+// reference's "highest" class. The kernel reads the L = _lanes(live, fd)
+// live lanes (4, 28, 52, 84 or 124 on the recipes' 32- to 128-lane layouts;
+// any multiple of 4 up to the layout's depth): each entry's cross an f32
+// FFMA chain over them in lane order, its norms the same chain over its
+// own lanes, so every tile entry is the bits of the design it replaced (the
+// pad lanes are zero: a chain over them would add exact zeros).
+//
+// What bounds it at 8 MP (p_pad 4096, N 2^23, 3.44e10 entries): the cross,
+// 2 L flop an entry, and the kbt and u FMAs, 6 more: 130.3 ms at 124 lanes
+// at the f32 peak (89.2 at 84, 56.4 at 52); beside them each entry's
+// epilogue (the norms' add, d2, the clamp, expf) is ~10 FP32-pipe
+// instructions, and at 4 lanes the epilogue and one MUFU ex2 an entry (8.2
+// ms) are all of it. The features are read once from device memory (the
+// ranks' and clusters' re-reads of the column tiles come from L2).
+//
+// Design (ext2_f32_tile_kernel). A column needs kbt over the whole p before
+// its s, and s before its u term, so a cluster of P / RB blocks shares each
+// column tile, rank r holding sample rows [r RB, (r+1) RB) in shared memory
+// for the whole run, k-major over the live lanes: RB = 512 up to 96 lanes
+// (clusters of 8 at p_pad 4096, 15 resident: 120 SMs), 256 at 128 lanes,
+// where 512 rows of 124 lanes would take 254 KB (clusters of 16, a size the
+// H100 allows as non-portable; 7 resident, 112 SMs):
+//   * an SGEMM's register tile: 256 threads, each XF_R = 8 rows by XF_C =
+//     16 columns (float4 groups of four consecutive, 4 TY and 4 TX apart),
+//     so a tile is TN = 16 TX columns (64, or 128 at 128 lanes) and a lane
+//     of the cross is 6 float4 loads of shared memory for 128 FFMA (the
+//     design it replaced: 12 for 128 FFMA and 32 FFMA of column norms at
+//     128 lanes, 16 for 256 and 32 below);
+//   * the column tiles arrive by cp.async double buffering in chunks of at
+//     most XF_KC = 32 lanes (L split evenly in multiples of 4: 4 chunks at
+//     124 lanes, 3 at 84, 2 at 52), the tile's column norms and bm with its
+//     last chunk, so the stages stay small beside the rows (227 KB a block,
+//     all a block may take, at 96 lanes with all of them live; 203 KB at
+//     84);
+//   * the norms come from a pre-pass (ext2_norms_kernel: one thread an
+//     entry, the same chain), each formed once and not in every row group;
+//   * a tile's exchange: each thread's row sums of its columns' kbt (chains
+//     over its 8 rows from the first term), a shuffle tree over the warp's
+//     row threads, the 8 warps in order in shared memory; each rank pushes
+//     its partials into every rank's shared memory (distributed shared
+//     memory stores, which the cluster barrier's release and acquire order)
+//     and after one cluster barrier sums the ranks' partials in rank order
+//     from its own shared memory, so every rank computes the same s with
+//     no remote load on the critical path. The pushes are double-buffered:
+//     a rank rewrites a slot two tiles later, after the barrier that shows
+//     every rank has read it. The tile's fixed costs (three block barriers,
+//     the cluster barrier, the s step) are paid once every 64 or 128
+//     columns, not every 32;
+//   * u: a tile's row sums of a thread's columns (chains from the first
+//     term), added to a span's sum from zero, which joins the thread's
+//     running sum by one f32 add every XF_SPAN tiles; at the end the TX
+//     threads of a row join by a fixed shuffle tree;
+//   * a last tile past N (N % TN == 64 at 128 lanes) reads zero columns
+//     and bm = 0, so its s is 0 there and adds exact zeros to u;
 //   * clusters walk the tiles in a fixed stride order and the cross-cluster
 //     u goes through per-cluster partials and the fixed-order reduction:
 //     runs repeat bit for bit.
+// Measured: PERF.md (scripts/ext2_f32_designs.py, the designs and the one
+// it replaced, timed in turns on one card).
 constexpr int XF_THREADS = 256;
-constexpr int XF_TN = 32;         // columns a tile
-template <int FD>
-constexpr int XF_LDA_OF = FD + 4;   // fa_s row stride (floats)
-constexpr int XF_SPAN = 64;       // tiles a span of u
+constexpr int XF_WARPS = XF_THREADS / 32;
+constexpr int XF_R = 8;              // rows a thread
+constexpr int XF_C = 16;             // columns a thread
+constexpr int XF_KC = 32;            // lanes a column stage holds at most
+constexpr int XF_SPAN = 64;          // tiles a span of u
+static_assert(XF_R % 4 == 0 && XF_C % 4 == 0, "ext2 f32: float4 groups of rows and columns");
 
-// blocks a cluster at depth fd: 8, or 16 at 128 lanes (see above)
-__host__ __device__ constexpr int ext2_f32_cl(int fd) { return fd == 128 ? 2 * CL : CL; }
+// sample rows a block at depth fd: 512, or 256 at 128 lanes
+__host__ __device__ constexpr int xf_rb(int fd) { return fd == 128 ? 256 : 512; }
 
-size_t ext2_f32_smem(int P, int fd) {
-  return sizeof(float) * ((size_t)(P / ext2_f32_cl(fd)) * (fd + 4) + 2 * (size_t)fd * XF_TN +
-                          8 * 2 * XF_TN + 2 * 2 * XF_TN + XF_TN);
+// columns a tile of a block of rb rows
+__host__ __device__ constexpr int xf_tn(int rb) { return XF_THREADS / (rb / XF_R) * XF_C; }
+
+// the thread grid of a block of RB rows: TY threads along the rows, TX
+// along the columns (a warp holds all TX of its rows), TN columns a tile
+template <int RB>
+struct XfGrid {
+  static constexpr int TY = RB / XF_R;
+  static constexpr int TX = XF_THREADS / TY;
+  static constexpr int TN = xf_tn(RB);
+  static constexpr int XCL_MAX = 4096 / RB;   // ranks at p_pad 4096
+  static_assert(TX <= 32 && 32 % TX == 0 && TY * TX == XF_THREADS, "ext2 f32: the grid");
+};
+
+// floats a column stage of TN columns: XF_KC lanes, then the tile's column
+// norms and bm (s after the exchange)
+__host__ __device__ constexpr int xf_stage(int tn) { return (XF_KC + 2) * tn; }
+
+// dynamic shared memory at L lanes (bytes): the rank's rows, their norms and
+// t2, two column stages, the warps' kbt partials, every rank's partials
+// (double-buffered)
+__host__ __device__ constexpr size_t xf_smem(int L, int rb) {
+  return sizeof(float) * ((size_t)L * rb + 3 * (size_t)rb + 2 * (size_t)xf_stage(xf_tn(rb)) +
+                          (size_t)XF_WARPS * 2 * xf_tn(rb) +
+                          2 * (size_t)(4096 / rb) * 2 * xf_tn(rb));
+}
+static_assert(xf_smem(96, xf_rb(96)) <= 232448 && xf_smem(128, xf_rb(128)) <= 232448,
+              "ext2 f32: a block fits the SM's shared memory at every depth");
+
+// each sample row's and each column's norm, the FMA chain over the first L
+// lanes in lane order (the tile entries' chain, so a pixel's d2 with itself
+// is 0): rows of the row-major fa (P, fd) into nrm[0, P), columns of the
+// k-major ft (fd, N) into nrm[P, P + N)
+__global__ void ext2_norms_kernel(const float* __restrict__ fa, const float* __restrict__ ft,
+                                  float* __restrict__ nrm, int P, int N, int fd, int L) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)P + N;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const bool row = i < (size_t)P;
+    const float* x = row ? fa + i * fd : ft + (i - P);
+    const size_t ld = row ? 1 : (size_t)N;
+    float s = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < L; ++k) s = fmaf(x[k * ld], x[k * ld], s);
+    nrm[i] = s;
+  }
 }
 
-// rows a thread: NR = ceil(P / (XCL 64)); the layout's depth
-template <int NR, int FD>
-__global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_kernel(
-    const float* __restrict__ fa,   // (P, FD)
-    const float* __restrict__ ft,   // (FD, N)
-    const float* __restrict__ t2,   // (2, P)
-    const float* __restrict__ bm,   // (N)
-    float* __restrict__ s_out,      // (N)
-    float* __restrict__ u_part,     // (clusters, P)
-    int P, int N, int live) {
-  constexpr int XCL = ext2_f32_cl(FD);
-  constexpr bool RAGGED = XCL != CL;     // rb may end inside a thread's last row
+__device__ __forceinline__ float f4at(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// one lane's products into a thread's crosses: its XF_R rows (float4
+// groups of a k-major row of the rank's rows at fa) by its XF_C columns
+// (fb); START: a chain's first lane, its products alone (an FMA onto zero
+// but for the sign of a zero cross, which moves no entry)
+template <int TY, int TX, bool START>
+__device__ __forceinline__ void xf_lane(float (&cr)[XF_R][XF_C], const float* fa,
+                                        const float* fb) {
+  float4 a[XF_R / 4], b[XF_C / 4];
+#pragma unroll
+  for (int g = 0; g < XF_R / 4; ++g) a[g] = *reinterpret_cast<const float4*>(fa + 4 * TY * g);
+#pragma unroll
+  for (int g = 0; g < XF_C / 4; ++g) b[g] = *reinterpret_cast<const float4*>(fb + 4 * TX * g);
+#pragma unroll
+  for (int r = 0; r < XF_R; ++r) {
+    const float x = f4at(a[r / 4], r & 3);
+#pragma unroll
+    for (int c = 0; c < XF_C; ++c) {
+      const float y = f4at(b[c / 4], c & 3);
+      cr[r][c] = START ? x * y : fmaf(x, y, cr[r][c]);
+    }
+  }
+}
+
+// XF_C values of a thread's columns (float4 groups 4 TX apart) at v
+template <int TX>
+__device__ __forceinline__ void xf_cols(float (&out)[XF_C], const float* v) {
+#pragma unroll
+  for (int g = 0; g < XF_C / 4; ++g) {
+    const float4 q = *reinterpret_cast<const float4*>(v + 4 * TX * g);
+    out[4 * g] = q.x, out[4 * g + 1] = q.y, out[4 * g + 2] = q.z, out[4 * g + 3] = q.w;
+  }
+}
+
+template <int RB>
+__global__ __launch_bounds__(XF_THREADS, 1) void ext2_f32_tile_kernel(
+    const float* __restrict__ fa,    // (P, fd) row-major
+    const float* __restrict__ ft,    // (fd, N) k-major
+    const float* __restrict__ t2,    // (2, P)
+    const float* __restrict__ bm,    // (N)
+    const float* __restrict__ nrm,   // (P + N) the norms (ext2_norms_kernel)
+    float* __restrict__ s_out,       // (N)
+    float* __restrict__ u_part,      // (clusters, P)
+    int P, int N, int fd, int L) {
+  using G = XfGrid<RB>;
+  constexpr int TY = G::TY, TX = G::TX, TN = G::TN, STAGE = xf_stage(TN);
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int cid = blockIdx.x / XCL, ncl = gridDim.x / XCL;
-  const int rb = P / XCL, r0 = rank * rb;   // rb == 64 NR, or in (64 (NR - 1), 64 NR]
-  constexpr int XF_LDA = XF_LDA_OF<FD>;
-  extern __shared__ __align__(16) float xf_smem[];
-  float* fa_s = xf_smem;                     // [rb][XF_LDA]
-  float* ft_s = fa_s + rb * XF_LDA;          // [2][FD][XF_TN]
-  float* wq_s = ft_s + 2 * FD * XF_TN;       // [8 warps][2][XF_TN]
-  float* part_s = wq_s + 8 * 2 * XF_TN;      // [2][2][XF_TN] this rank's kbt partials
-  float* s_s = part_s + 2 * 2 * XF_TN;       // [XF_TN]
+  const int rank = (int)cluster.block_rank(), xcl = (int)cluster.num_blocks();
+  const int cid = blockIdx.x / xcl, ncl = gridDim.x / xcl;
+  const int r0 = rank * RB;
+  extern __shared__ __align__(16) float xf_smem_f[];
+  float* fa_s = xf_smem_f;                      // [L][RB] the rank's rows, k-major
+  float* rv_s = fa_s + (size_t)L * RB;          // [3][RB] their norms, t_r, t_c
+  float* stg = rv_s + 3 * RB;                   // [2][STAGE] lanes of a tile; its norms, bm
+  float* wq_s = stg + 2 * STAGE;                // [XF_WARPS][2][TN] the warps' kbt partials
+  float* part_s = wq_s + XF_WARPS * 2 * TN;     // [2][XCL_MAX][2][TN] every rank's partials
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = warp * 8 + (lane >> 2), cgi = lane & 3;   // row group, column group
-  const int l4 = live / 4;
-  const int ntiles = N / XF_TN;
+  const int tx = lane % TX, ty = warp * (32 / TX) + lane / TX;
+  const int ntiles = (N + TN - 1) / TN;
   const int mine = (ntiles - cid + ncl - 1) / ncl;   // >= 1: clusters <= tiles
-  auto col0 = [&](int i) { return (cid + i * ncl) * XF_TN; };
-  auto load_ft = [&](int i, int buf) {
-    for (int c = tid; c < live * (XF_TN / 4); c += XF_THREADS) {
-      const int k = c / (XF_TN / 4), q = c % (XF_TN / 4);
-      cp_async16(ft_s + (buf * FD + k) * XF_TN + 4 * q, ft + (size_t)k * N + col0(i) + 4 * q);
+  // a tile's lanes in nch chunks of kc (a multiple of 4, at most XF_KC)
+  const int nch = (L + XF_KC - 1) / XF_KC;
+  const int kc = ((L + nch - 1) / nch + 3) / 4 * 4;
+  const int steps = mine * nch;
+  auto col0 = [&](int i) { return (cid + i * ncl) * TN; };
+  // step st (tile st / nch, chunk st % nch) into stage st % 2, with the
+  // tile's norms and bm on its last chunk; columns past N read as zero.
+  // One cp.async group (empty past the walk)
+  auto load_step = [&](int st) {
+    if (st < steps) {
+      const int i = st / nch, ch = st % nch, k0 = ch * kc, nk = min(kc, L - k0);
+      float* d = stg + (st & 1) * STAGE;
+      const int c0 = col0(i);
+      for (int c = tid; c < nk * (TN / 4); c += XF_THREADS) {
+        const int k = c / (TN / 4), q = c % (TN / 4);
+        if (c0 + 4 * q < N)
+          cp_async16(d + k * TN + 4 * q, ft + (size_t)(k0 + k) * N + c0 + 4 * q);
+        else
+          *reinterpret_cast<float4*>(d + k * TN + 4 * q) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (ch == nch - 1 && tid < TN / 4) {
+        if (c0 + 4 * tid < N) {
+          cp_async16(d + XF_KC * TN + 4 * tid, nrm + P + c0 + 4 * tid);
+          cp_async16(d + (XF_KC + 1) * TN + 4 * tid, bm + c0 + 4 * tid);
+        } else {
+          *reinterpret_cast<float4*>(d + XF_KC * TN + 4 * tid) = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(d + (XF_KC + 1) * TN + 4 * tid) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
     }
     cp_async_commit();
   };
 
-  for (int c = tid; c < rb * l4; c += XF_THREADS) {
-    const int r = c / l4, q = c % l4;
-    cp_async16(fa_s + r * XF_LDA + 4 * q, fa + (size_t)(r0 + r) * FD + 4 * q);
+  load_step(0);
+  // the rank's rows, k-major over the live lanes, their norms and t2
+  for (int c = tid; c < RB * (L / 4); c += XF_THREADS) {
+    const int r = c % RB, q = c / RB;
+    const float4 v = *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * fd + 4 * q);
+    float* d = fa_s + (size_t)(4 * q) * RB + r;
+    d[0] = v.x, d[RB] = v.y, d[2 * RB] = v.z, d[3 * RB] = v.w;
   }
-  load_ft(0, 0);
-  cp_async_wait_all();
-  __syncthreads();
-  float na[NR], tr[NR], tc[NR], U[NR], span[NR];
-  bool ok[NR];   // the row lies in this rank's slice
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = rg + 64 * i;
-    ok[i] = !RAGGED || r < rb;
-    float s = 0.f;
-    if (ok[i])
-      for (int k = 0; k < live; ++k) s = fmaf(fa_s[r * XF_LDA + k], fa_s[r * XF_LDA + k], s);
-    na[i] = s;
-    tr[i] = ok[i] ? t2[r0 + r] : 0.f;
-    tc[i] = ok[i] ? t2[P + r0 + r] : 0.f;
-    U[i] = span[i] = 0.f;
+  for (int r = tid; r < RB; r += XF_THREADS) {
+    rv_s[r] = nrm[r0 + r];
+    rv_s[RB + r] = t2[r0 + r];
+    rv_s[2 * RB + r] = t2[P + r0 + r];
   }
+  cluster_arrive();              // every rank runs before the first push
+  cluster_wait();
 
-  for (int i = 0; i < mine; ++i) {
-    const int buf = i & 1;
-    if (i > 0) {
-      cp_async_wait_all();
-      __syncthreads();     // tile i in; everyone done with tile i - 1's s_s and wq_s
+  float U[XF_R], span[XF_R];     // a thread's running sums of its rows' u, and a span's
+#pragma unroll
+  for (int r = 0; r < XF_R; ++r) U[r] = span[r] = 0.f;
+  float e[XF_R][XF_C];           // a tile's crosses over the chunks so far, then its entries
+  for (int st = 0; st < steps; ++st) {
+    const int i = st / nch, ch = st % nch, k0 = ch * kc, nk = min(kc, L - k0);
+    cp_async_wait_all();
+    __syncthreads();             // step st in (the rows too); everyone done with st - 1's stage
+    load_step(st + 1);
+    float* d = stg + (st & 1) * STAGE;
+    // the cross: each entry one FFMA chain over the lanes in order
+    const float* fa_t = fa_s + (size_t)k0 * RB + 4 * ty;
+    const float* fb_t = d + 4 * tx;
+    if (ch == 0) xf_lane<TY, TX, true>(e, fa_t, fb_t);
+#pragma unroll 2
+    for (int k = ch == 0 ? 1 : 0; k < nk; ++k)
+      xf_lane<TY, TX, false>(e, fa_t + k * RB, fb_t + k * TN);
+    if (ch < nch - 1) continue;
+
+    // tile i's entries, and this thread's kbt partials of its columns
+    // (chains over its rows from the first term)
+    float* sb = d + (XF_KC + 1) * TN;           // the tile's bm, then its s
+    float pr[XF_C], pc[XF_C];
+    {
+      float nb[XF_C];
+      xf_cols<TX>(nb, d + XF_KC * TN + 4 * tx);
+#pragma unroll
+      for (int g = 0; g < XF_R / 4; ++g) {
+        const float4 na4 = *reinterpret_cast<const float4*>(rv_s + 4 * ty + 4 * TY * g);
+        const float4 tr4 = *reinterpret_cast<const float4*>(rv_s + RB + 4 * ty + 4 * TY * g);
+        const float4 tc4 = *reinterpret_cast<const float4*>(rv_s + 2 * RB + 4 * ty + 4 * TY * g);
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int r = 4 * g + h;
+          const float na = f4at(na4, h), tr = f4at(tr4, h), tc = f4at(tc4, h);
+#pragma unroll
+          for (int c = 0; c < XF_C; ++c) {
+            e[r][c] = kf32(na + nb[c], e[r][c]);
+            pr[c] = r == 0 ? tr * e[r][c] : fmaf(tr, e[r][c], pr[c]);
+            pc[c] = r == 0 ? tc * e[r][c] : fmaf(tc, e[r][c], pc[c]);
+          }
+        }
+      }
     }
-    if (i + 1 < mine) load_ft(i + 1, buf ^ 1);
-    const float* fb = ft_s + buf * FD * XF_TN + cgi * 8;
-    float nb[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) nb[c] = 0.f;
-    float e[NR][8];
+    for (int c = 0; c < XF_C; ++c)   // over the warp's row threads: a fixed tree
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) e[r][c] = 0.f;
-    for (int k = 0; k < live; k += 4) {
-      float bq[4][8];   // lanes k..k+3 of the thread's 8 columns
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 lo = *reinterpret_cast<const float4*>(fb + (k + q) * XF_TN);
-        const float4 hi = *reinterpret_cast<const float4*>(fb + (k + q) * XF_TN + 4);
-        bq[q][0] = lo.x, bq[q][1] = lo.y, bq[q][2] = lo.z, bq[q][3] = lo.w;
-        bq[q][4] = hi.x, bq[q][5] = hi.y, bq[q][6] = hi.z, bq[q][7] = hi.w;
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float4 b = make_float4(bq[0][c], bq[1][c], bq[2][c], bq[3][c]);
-        nb[c] = dot4(b, b, nb[c]);
-      }
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const float4 av = *reinterpret_cast<const float4*>(fa_s + (rg + 64 * r) * XF_LDA + k);
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          e[r][c] = dot4(av, make_float4(bq[0][c], bq[1][c], bq[2][c], bq[3][c]), e[r][c]);
-      }
-    }
-    // the entries, and this thread's kbt partials of its 8 columns
-    float pr[8], pc[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) pr[c] = pc[c] = 0.f;
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        // a masked row read past the slice, still inside the block's
-        // shared memory: its entries are zero
-        e[r][c] = ok[r] ? kf32(na[r] + nb[c], e[r][c]) : 0.f;
-        pr[c] = fmaf(tr[r], e[r][c], pr[c]);
-        pc[c] = fmaf(tc[r], e[r][c], pc[c]);
-      }
-#pragma unroll
-    for (int c = 0; c < 8; ++c)   // over the warp's 8 row groups: a fixed tree
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
+      for (int off = TX; off < 32; off <<= 1) {
         pr[c] += __shfl_xor_sync(0xffffffffu, pr[c], off);
         pc[c] += __shfl_xor_sync(0xffffffffu, pc[c], off);
       }
-    if (lane < 4) {
+    if (lane < TX) {
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        wq_s[(warp * 2) * XF_TN + cgi * 8 + c] = pr[c];
-        wq_s[(warp * 2 + 1) * XF_TN + cgi * 8 + c] = pc[c];
+      for (int c = 0; c < XF_C; ++c) {
+        const int j = 4 * tx + (c & 3) + 4 * TX * (c >> 2);
+        wq_s[warp * 2 * TN + j] = pr[c];
+        wq_s[warp * 2 * TN + TN + j] = pc[c];
       }
     }
-    __syncthreads();
-    if (tid < 2 * XF_TN) {   // the warps in order
+    __syncthreads();             // the warps' partials in
+    if (tid < 2 * TN) {
+      // the warps in order, pushed into every rank's slot (i % 2, this
+      // rank), which every rank read before the last cluster barrier
       float v = 0.f;
 #pragma unroll
-      for (int w = 0; w < 8; ++w) v += wq_s[w * 2 * XF_TN + tid];
-      part_s[buf * 2 * XF_TN + tid] = v;
-    }
-    cluster.sync();          // every rank's partials of tile i are in
-    if (tid < XF_TN) {       // the ranks in order, the same on every rank
-      float kr = 0.f, kc = 0.f;
-      float* pk = part_s + buf * 2 * XF_TN + tid;
+      for (int w = 0; w < XF_WARPS; ++w) v += wq_s[w * 2 * TN + tid];
+      float* dst = part_s + ((i & 1) * G::XCL_MAX + rank) * 2 * TN + tid;
 #pragma unroll
-      for (int q = 0; q < XCL; ++q) {
-        kr += *cluster.map_shared_rank(pk, q);
-        kc += *cluster.map_shared_rank(pk + XF_TN, q);
-      }
+      for (int q = 0; q < G::XCL_MAX; ++q)
+        if (q < xcl) *cluster.map_shared_rank(dst, q) = v;
+    }
+    cluster_arrive();            // every rank's partials of tile i in
+    cluster_wait();
+    if (tid < TN) {              // the ranks in order, the same on every rank
+      const float* pk = part_s + (i & 1) * G::XCL_MAX * 2 * TN + tid;
+      float kbr = 0.f, kbc = 0.f;
+#pragma unroll
+      for (int q = 0; q < G::XCL_MAX; ++q)
+        if (q < xcl) {
+          kbr += pk[q * 2 * TN];
+          kbc += pk[q * 2 * TN + TN];
+        }
       const int j = col0(i) + tid;
-      const float s = bm[j] / sqrtf(fmaxf(kr * kc, EPS));
-      s_s[tid] = s;
-      if (rank == 0) s_out[j] = s;
+      const float s = sb[tid] / sqrtf(fmaxf(kbr * kbc, EPS));
+      sb[tid] = s;
+      if (rank == 0 && j < N) s_out[j] = s;
     }
-    __syncthreads();         // s_s in
-    float sv[8];
+    __syncthreads();             // s in
+    // tile i's u terms
+    float sv[XF_C];
+    xf_cols<TX>(sv, sb + 4 * tx);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) sv[c] = s_s[cgi * 8 + c];
+    for (int r = 0; r < XF_R; ++r) {
+      float tu = e[r][0] * sv[0];
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      float tu = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) tu = fmaf(e[r][c], sv[c], tu);
-      tu += __shfl_xor_sync(0xffffffffu, tu, 1);   // the 4 column groups
-      tu += __shfl_xor_sync(0xffffffffu, tu, 2);
+      for (int c = 1; c < XF_C; ++c) tu = fmaf(e[r][c], sv[c], tu);
       span[r] += tu;
     }
     if ((i + 1) % XF_SPAN == 0 || i + 1 == mine) {
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
+      for (int r = 0; r < XF_R; ++r) {
         U[r] += span[r];
         span[r] = 0.f;
       }
     }
   }
-  if (cgi == 0) {
+  // no remote access is left: every push into this block's shared memory
+  // came before the last cluster barrier
+  // the TX threads of a row: a fixed tree
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
-      if (ok[r]) u_part[(size_t)cid * P + r0 + rg + 64 * r] = U[r];
-  }
-  cluster.sync();            // no block leaves while read remotely
-}
-
-typedef void (*ext2_f32_fn)(const float*, const float*, const float*, const float*, float*,
-                            float*, int, int, int);
-template <int FD>
-ext2_f32_fn ext2_f32_kernel_fd(int P) {
-  constexpr int rows = ext2_f32_cl(FD) * 64;   // a cluster's rows of one row a thread
-  const int nr = (P + rows - 1) / rows;
-  if constexpr (ext2_f32_cl(FD) > CL) {        // P <= 4096: at most 4 rows a thread
-    switch (nr) {
-      case 1: return ext2_f32_kernel<1, FD>;
-      case 2: return ext2_f32_kernel<2, FD>;
-      case 3: return ext2_f32_kernel<3, FD>;
-      case 4: return ext2_f32_kernel<4, FD>;
-      default: return nullptr;
-    }
-  } else {
-    switch (nr) {
-      case 1: return ext2_f32_kernel<1, FD>;
-      case 2: return ext2_f32_kernel<2, FD>;
-      case 3: return ext2_f32_kernel<3, FD>;
-      case 4: return ext2_f32_kernel<4, FD>;
-      case 5: return ext2_f32_kernel<5, FD>;
-      case 6: return ext2_f32_kernel<6, FD>;
-      case 7: return ext2_f32_kernel<7, FD>;
-      case 8: return ext2_f32_kernel<8, FD>;
-      default: return nullptr;
-    }
+  for (int r = 0; r < XF_R; ++r)
+#pragma unroll
+    for (int off = 1; off < TX; off <<= 1) U[r] += __shfl_xor_sync(0xffffffffu, U[r], off);
+  if (tx == 0) {
+#pragma unroll
+    for (int r = 0; r < XF_R; ++r)
+      u_part[(size_t)cid * P + r0 + 4 * ty + (r & 3) + 4 * TY * (r >> 2)] = U[r];
   }
 }
-// K8 f32's kernel for P sample rows of an fd-lane layout (32, 64, 96 or
-// 128), or null
-ext2_f32_fn ext2_f32_kernel_for(int P, int fd) {
-  return fd == 32    ? ext2_f32_kernel_fd<32>(P)
-         : fd == 64  ? ext2_f32_kernel_fd<64>(P)
-         : fd == 96  ? ext2_f32_kernel_fd<96>(P)
-         : fd == 128 ? ext2_f32_kernel_fd<128>(P)
-                     : nullptr;
-}
 
-// K8 f32's kernel attributes: its shared memory, and clusters of 16
-// (non-portable) at 128 lanes
-cudaError_t ext2_f32_attrs(ext2_f32_fn kernel, int P, int fd) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)ext2_f32_smem(P, fd));
-  if (e == cudaSuccess && ext2_f32_cl(fd) > CL)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+typedef void (*ext2_f32_fn)(const float*, const float*, const float*, const float*,
+                            const float*, float*, float*, int, int, int, int);
+
+// K8 f32's kernel for an fd-lane layout (32, 64, 96 or 128), with its
+// shared memory opted in at the layout's widest L and, for clusters of 16,
+// the non-portable cluster size allowed
+cudaError_t ext2_f32_tile_of(int fd, ext2_f32_fn* kernel) {
+  const int rb = xf_rb(fd);
+  *kernel = rb == 256 ? ext2_f32_tile_kernel<256> : ext2_f32_tile_kernel<512>;
+  cudaError_t e = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)xf_smem(fd, rb));
+  if (e == cudaSuccess && 4096 / rb > CL)
+    e = cudaFuncSetAttribute(*kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
+}
+
+// the shapes K8 f32 takes: P % 512 == 0 in [512, 4096], fd 32, 64, 96 or
+// 128, N % 64 == 0 (a last column tile may pass N)
+bool ext2_f32_shape_ok(int P, int N, int fd) {
+  return (fd == 32 || fd == 64 || fd == 96 || fd == 128) && P >= 512 && P <= 4096 &&
+         P % 512 == 0 && N > 0 && N % 64 == 0;
 }
 
 // K7 f32's launch at depth FD: a grid of 32 x 256 units
@@ -1146,41 +1245,54 @@ int glt_kb_strip_f32(const void* fa, const void* ft, const void* cols, void* out
                     : launch_kb_f32<128>(a, b, c, o, P, S, live, s);
 }
 
-// how many f32 K8 clusters (8 blocks, 16 at 128 lanes) for P sample rows
-// of fd lanes (32, 64, 96 or 128) fit the card at once; a negative value
-// is a cudaError
-int glt_ext2_f32_clusters(int P, int fd) {
-  const ext2_f32_fn kernel = ext2_f32_kernel_for(P, fd);
-  if (kernel == nullptr || P % (CL * 64)) return -static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ext2_f32_smem(P, fd);
-  cudaError_t e = ext2_f32_attrs(kernel, P, fd);
+// how many f32 K8 clusters to launch for P sample rows of fd lanes (32, 64,
+// 96 or 128) and N columns: as many as fit the card at once (P / 512 blocks
+// each, P / 256 at 128 lanes), at most one a column tile (64 columns, 128
+// at 128 lanes); a negative value is a cudaError
+int glt_ext2_f32_clusters(int P, int fd, int N) {
+  if (!ext2_f32_shape_ok(P, N, fd)) return -static_cast<int>(cudaErrorInvalidValue);
+  ext2_f32_fn kernel;
+  cudaError_t e = ext2_f32_tile_of(fd, &kernel);
   if (e != cudaSuccess) return -static_cast<int>(e);
+  const int rb = xf_rb(fd);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(ext2_f32_cl(fd), 1, XF_THREADS, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_cfg(P / rb, 1, XF_THREADS, xf_smem(fd, rb), nullptr, attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
-  return e != cudaSuccess ? -static_cast<int>(e) : n;
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  const int tiles = (N + xf_tn(rb) - 1) / xf_tn(rb);
+  return n < tiles ? n : tiles;
 }
 
-// K8, f32 layout of fd lanes (32, 64, 96 or 128). P % 512 == 0, P <= 4096,
-// N % 64 == 0, live % 4 == 0 in [4, fd], 1 <= clusters <= N / 32 (the
-// wrapper checks); u_part holds (clusters, P) floats.
+// K8, f32 layout of fd lanes (32, 64, 96 or 128). P % 512 == 0 in [512,
+// 4096], N % 64 == 0, live % 4 == 0 in [4, fd], 1 <= clusters <= the
+// column tiles (64 columns, 128 at 128 lanes; glt_ext2_f32_clusters), fa, ft,
+// t2, bm and nrm 16-byte aligned (the wrapper checks); nrm holds P + N
+// floats of scratch, u_part (clusters, P). The norms' pre-pass, the
+// kernel, then the fixed-order reduction of u_part into u.
 int glt_ext2_matvec_f32(const void* fa, const void* ft, const void* t2, const void* bm,
-                        void* s_out, void* u_part, void* u, int P, int N, int clusters, int live,
-                        int fd, void* stream) {
+                        void* s_out, void* u_part, void* u, void* nrm, int P, int N,
+                        int clusters, int live, int fd, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const ext2_f32_fn kernel = ext2_f32_kernel_for(P, fd);
-  if (kernel == nullptr || P % (CL * 64) || N % XF_TN || live < 4 || live > fd || live % 4)
+  const int rb = xf_rb(fd);
+  if (!ext2_f32_shape_ok(P, N, fd) || live < 4 || live > fd || live % 4 || clusters < 1 ||
+      clusters > (N + xf_tn(rb) - 1) / xf_tn(rb))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = ext2_f32_smem(P, fd);
-  cudaError_t e = ext2_f32_attrs(kernel, P, fd);
+  ext2_f32_fn kernel;
+  cudaError_t e = ext2_f32_tile_of(fd, &kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* a = static_cast<const float*>(fa);
+  const float* b = static_cast<const float*>(ft);
+  float* nm = static_cast<float*>(nrm);
+  ext2_norms_kernel<<<(P + N + 255) / 256, 256, 0, s>>>(a, b, nm, P, N, fd, live);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_cfg(ext2_f32_cl(fd), clusters, XF_THREADS, smem, s, attr);
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(fa),
-                         static_cast<const float*>(ft), static_cast<const float*>(t2),
-                         static_cast<const float*>(bm), static_cast<float*>(s_out),
-                         static_cast<float*>(u_part), P, N, live);
+  const cudaLaunchConfig_t cfg = cluster_cfg(P / rb, clusters, XF_THREADS, xf_smem(live, rb), s,
+                                             attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, a, b, static_cast<const float*>(t2),
+                         static_cast<const float*>(bm), static_cast<const float*>(nm),
+                         static_cast<float*>(s_out), static_cast<float*>(u_part), P, N, fd, live);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -55,8 +55,8 @@ _SIGNATURES = {
     "glt_coord_slots": ([_I], _I),
     "glt_coord_sum": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "glt_kb_strip_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "glt_ext2_f32_clusters": ([_I, _I], _I),
-    "glt_ext2_matvec_f32": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "glt_ext2_f32_clusters": ([_I, _I, _I], _I),
+    "glt_ext2_matvec_f32": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "glt_colstats_f32_blocks": ([_I, _I], _I),
     "glt_colstats_f32_scratch_bytes": ([_I, _I, _I], _Z),
     "glt_colstats_v_f32": ([_P] * 11 + [_I] * 4 + [_P], _I),

@@ -61,7 +61,6 @@ P_QUANTUM = 512           # fa rows: K8's 8 cluster slices x 4 warp row groups x
 D_PAD = 128               # the reference's widest feature layout: the
                           # kernels take every multiple of 32 up to it
 X_TN = 64                 # K8 column tile (csrc); K8 holds p_pad <= 4096
-XF_TN = 32                # the f32 K8's column tile (csrc)
 E_TN = 128                # K7 width quantum (its 256-column units clip the last)
 MP_MAX = 64               # widest V a K9 / K10 launch holds
 C_TN = 256                # K9 / K10 column tile (csrc), both layouts
@@ -352,25 +351,26 @@ def ext2_matvec_cuda(fa, f_t, t2, bm, aug: bool = False, live=None):
 
 
 def _ext2_matvec_f32(fa, f_t, t2, bm, live):
-    """K8 on the f32 layout: clusters of 8 (16 at 128 lanes) over
-    32-column tiles."""
+    """K8 on the f32 layout: the norms' pre-pass, then clusters of p_pad /
+    512 blocks (p_pad / 256 at 128 lanes) over 64-column tiles (128 at 128
+    lanes, the last one masked where n % 128 == 64)."""
     (p, fd), n = fa.shape, f_t.shape[1]
     dev = fa.device
     lib = _build.lib()
-    clusters = lib.glt_ext2_f32_clusters(p, fd)
+    clusters = lib.glt_ext2_f32_clusters(p, fd, n)
     if clusters <= 0:
         _build.check(-clusters if clusters < 0 else 1,
                      "ext2_matvec: no cluster fits the card")
-    clusters = min(clusters, n // XF_TN)
     fa, f_t, t2f, bmf = _aligned(fa.contiguous(), f_t.contiguous(),
                                  _f32(t2), _f32(bm))
     s = torch.empty(n, dtype=_F32, device=dev)
     u_part = torch.empty((clusters, p), dtype=_F32, device=dev)
     u = torch.empty(p, dtype=_F32, device=dev)
+    norms = torch.empty(p + n, dtype=_F32, device=dev)
     rc = lib.glt_ext2_matvec_f32(
         fa.data_ptr(), f_t.data_ptr(), t2f.data_ptr(), bmf.data_ptr(),
-        s.data_ptr(), u_part.data_ptr(), u.data_ptr(), p, n, clusters, live,
-        fd, _build.stream_ptr(fa))
+        s.data_ptr(), u_part.data_ptr(), u.data_ptr(), norms.data_ptr(), p, n,
+        clusters, live, fd, _build.stream_ptr(fa))
     _build.check(rc, "ext2_matvec")
     ext2_matvec_cuda.launches += 1
     return u, s

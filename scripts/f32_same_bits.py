@@ -6,7 +6,11 @@ to 128-lane layouts), on one CUDA card.
 
 DIR is another checkout (for example the parent commit unpacked with
 ``git archive`` into a git-ignored directory). The kernels: K7 f32
-(``kb_strip_cuda``), K8 f32 (``ext2_matvec_cuda``), K9 f32
+(``kb_strip_cuda``), K8 f32's tile entries (``ext2_matvec_cuda`` with t2
+one-hot on a sample row i and bm = 1: kbt_r = kbt_c = k_ij plus exact
+zeros, so s_j = 1 / sqrt(max(k_ij^2, 1e-30)) is the row's entries, exact
+down to k 1e-15; its u and its sums of many entries run in another order
+by design since the register-tiled kernel), K9 f32
 (``finish_colstats_cuda``), K10 f32 (``colstats_v_cuda``), the coordinate
 K5/K6's tile entries (``matvec_cuda`` / ``rmatvec_cuda`` with ``coords``
 and a one-hot vector, which write a tile column or row exactly: each entry
@@ -40,8 +44,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "f32_same_bits"
 DEPTHS = (3, 27, 51, 83, 123)
-# the coordinate K5's tile columns and K6's tile rows compared (a one-hot v
-# or t each): spread over the pixels and over the live sample rows
+# the coordinate K5's tile columns and K6's and K8's tile rows compared (a
+# one-hot v, t or t2 each): spread over the pixels and over the live
+# sample rows
 COLS = (0, 777, 12345, 40000, 65535)
 ROWS = (0, 5, 1234, 2500, 3999)
 
@@ -106,8 +111,11 @@ def run(dev) -> dict:
         cases = {
             "kb_strip_f32": lambda: k79.kb_strip_cuda(
                 fa, f_t[:, :16384].contiguous(), x["cols"][:16384], False, lv),
-            "ext2_matvec_f32": lambda: k79.ext2_matvec_cuda(
-                fa, f_t, x["t2"], x["bm"], False, lv),
+            "ext2_matvec_f32 tile rows (s)": lambda: tuple(
+                k79.ext2_matvec_cuda(fa, f_t, torch.stack([e, e]),
+                                     torch.ones(f_t.shape[1], device=dev),
+                                     False, lv)[1]
+                for e in one_hot(fa.shape[0], ROWS, dev)),
             "finish_colstats_f32": lambda: k79.finish_colstats_cuda(
                 fa, f_t, x["tv"], x["s_pre"], x["bm"], x["gr"], x["y"],
                 x["na"], x["nb"], live=lv),

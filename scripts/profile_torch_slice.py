@@ -84,7 +84,8 @@ GROUPS = (
                      r"affinity_coord_kernel|coord_tile_kernel|coord_norms_kernel|"
                      r"coord_sum_kernel|"
                      r"kb_f32_kernel|"
-                     r"ext2_f32_kernel|colstats_tc_kernel|split_cols_kernel|"
+                     r"ext2_f32_kernel|ext2_f32_tile_kernel|ext2_norms_kernel|"
+                     r"colstats_tc_kernel|split_cols_kernel|"
                      r"colstats_f32_kernel|colstats_f32_wide_kernel|ks_f32_kernel"),
     ("cuSOLVER / small dense algebra",
      r"syevd|syevj|jacobi|potrf|potrs|trsm|trsv|geqrf|orgqr|orgbr|ormqr|"

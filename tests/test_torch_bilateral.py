@@ -389,7 +389,7 @@ def test_k7_f32_plain_matches_pallas_on_coordinates(jx, kind):
     _sum_bar(N(g), g_ref, 2 * kb @ kb.T, x.tol)
 
 
-@COORD_KINDS
+@pytest.mark.parametrize("kind", ["gaussian", "nlm7", "nlm9", "nlm11"])
 def test_k8_f32_plain_matches_pallas_on_coordinates(jx, kind):
     jnp = jx.jnp
     x = _coord_inputs(jx, kind=kind)
@@ -597,6 +597,146 @@ def test_f32_colstats_split_scheme_holds_the_f32_sums(jx, kind, corner):
                  4 * tol)
         assert float(np.abs(N(got[0])[:, 50:]).max()) == 0.0
     np.testing.assert_allclose(N(got9[3]), N(ref9[3]), rtol=4 * tol, atol=0)
+
+
+def _pair_tree(x, dim):
+    """A butterfly's sum over ``dim`` (a power of two), as the kernels'
+    __shfl_xor_sync trees give it: pairs (2m, 2m + 1) first, then pairs of
+    pairs, each an f32 add."""
+    while x.shape[dim] > 1:
+        x = x.unflatten(dim, (-1, 2))
+        x = x.select(dim + 1, 0) + x.select(dim + 1, 1)
+    return x.squeeze(dim)
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) in f32: the product exact in f64, one rounding of the
+    sum (a second one from f64 only at a rounding tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ffma_cross(fa, f_t, lv, rows=256):
+    """(P, N) f32: each entry's cross an f32 FMA chain over the ``lv``
+    lanes in lane order (in f64, rounded to f32 after every lane; blocks of
+    ``rows`` rows stay in cache)."""
+    a, b = fa.double(), f_t.double()
+    out = torch.empty((fa.shape[0], f_t.shape[1]))
+    for i in range(0, fa.shape[0], rows):
+        c = torch.zeros((min(rows, fa.shape[0] - i), f_t.shape[1]),
+                        dtype=torch.float64)
+        c32 = torch.empty(c.shape)
+        for k in range(lv):
+            c.addcmul_(a[i:i + rows, k:k + 1], b[k:k + 1])
+            c32.copy_(c)
+            c.copy_(c32)
+        out[i:i + rows] = c32
+    return out
+
+
+def _k8_tile_scheme(fa, f_t, t2, bm, lv, resident):
+    """The f32 K8 of csrc ext2_f32_tile_kernel, emulated in torch: each
+    entry's cross and norms FMA chains over the ``lv`` lanes in lane order,
+    d2 one FMA, exp; ranks of RB rows (512, 256 at 128 lanes), threads of 8
+    rows (4 TY apart in groups of 4) by 16 columns (4 TX apart) on tiles of
+    TN = 16 TX columns, ``resident`` clusters walking the tiles in stride
+    order. kbt: a thread's chain over its 8 rows from the first product, a
+    butterfly over the warp's row threads, the 8 warps in order, the ranks
+    in order; s = bm / sqrt(max(kbt_r kbt_c, 1e-30)); u: a thread's chain
+    over its 16 columns a tile, a span sum joining its running sum every 64
+    tiles of its cluster, a butterfly over the TX threads of a row, the
+    clusters in order. -> (u, s)."""
+    p, fd = fa.shape
+    n = f_t.shape[1]
+    rb = 256 if fd == 128 else 512
+    ty_n, xcl = rb // 8, p // rb
+    tx_n = 256 // ty_n
+    tn = 16 * tx_n
+    na = fa[:, 0] * fa[:, 0]
+    nb = f_t[0] * f_t[0]
+    for k in range(1, lv):
+        na = _fma(fa[:, k], fa[:, k], na)
+        nb = _fma(f_t[k], f_t[k], nb)
+    cross = _ffma_cross(fa, f_t, lv)
+    nab = na[:, None] + nb[None, :]
+    d2 = torch.clamp(_fma(torch.tensor(-2.0), cross, nab), min=0.0)
+    e = torch.exp(-d2.double()).float()                  # (P, N)
+    del cross, nab, d2
+    # kbt: rows of rank q as (g, ty, h): row = q rb + 4 ty_n g + 4 ty + h
+    ev = e.view(xcl, 2, ty_n, 4, n)
+    kbt = []
+    for t in t2:
+        tv = t.view(xcl, 2, ty_n, 4, 1)
+        acc = tv[:, 0, :, 0] * ev[:, 0, :, 0]
+        for g in range(2):
+            for h in range(4):
+                if g or h:
+                    acc = _fma(tv[:, g, :, h], ev[:, g, :, h], acc)
+        x = _pair_tree(acc.view(xcl, 8, ty_n // 8, n), 2)   # (xcl, 8, n)
+        v = torch.zeros((xcl, n))
+        for w in range(8):
+            v = v + x[:, w]
+        k = torch.zeros(n)
+        for q in range(xcl):
+            k = k + v[q]
+        kbt.append(k)
+    s = bm / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+    # u: a tile's columns as (g, tx, h): col = t tn + 4 tx_n g + 4 tx + h
+    tiles = n // tn
+    es = e.view(p, tiles, 4, tx_n, 4)
+    sv = s.view(1, tiles, 4, tx_n, 4)
+    tu = es[:, :, 0, :, 0] * sv[:, :, 0, :, 0]
+    for g in range(4):
+        for h in range(4):
+            if g or h:
+                tu = _fma(es[:, :, g, :, h], sv[:, :, g, :, h], tu)
+    ncl = min(resident, tiles)
+    u = torch.zeros(p)
+    for cid in range(ncl):
+        mine = list(range(cid, tiles, ncl))
+        run, span = torch.zeros((p, tx_n)), torch.zeros((p, tx_n))
+        for i, t in enumerate(mine):
+            span = span + tu[:, t]
+            if (i + 1) % 64 == 0 or i + 1 == len(mine):
+                run, span = run + span, torch.zeros((p, tx_n))
+        u = u + _pair_tree(run, 1)
+    return u, s
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "nlm7", "nlm9", "nlm11"])
+def test_k8_f32_tile_scheme_holds_the_f32_sums(jx, kind):
+    """The f32 K8's sum order (csrc ext2_f32_tile_kernel, emulated by
+    ``_k8_tile_scheme``) on recipe B's features at 4, 52, 84 and 124 live
+    lanes, p_pad 4096 and 2048 columns, with the clusters the H100 holds
+    (15 of 8 blocks, 7 of 16 at 128 lanes): u and s against their f64
+    evaluation from the same f32 inputs, max and p99 relative error within
+    1.5x the plain f32 version's, and each one's share below f64 in (0.25,
+    0.75)."""
+    x = _coord_inputs(jx, kind=kind, p=4000, n=2048)
+    fa, f_t = T(N(x.fa_pad)), T(N(x.f_t))
+    t2, bm = T(x.t2), T(x.bm)
+    assert fa.shape[0] == 4096
+    lv = k79._lanes(x.live, fa.shape[1])
+    got = _k8_tile_scheme(fa, f_t, t2, bm, lv, 7 if fa.shape[1] == 128 else 15)
+    pl = k79.ext2_matvec_plain(fa, f_t, t2, bm)
+    a, b = fa.double(), f_t.double()
+    k64 = torch.exp(-torch.clamp((a * a).sum(1)[:, None] + (b * b).sum(0)[None]
+                                 - 2.0 * a @ b, min=0.0))
+    kbt = t2.double() @ k64
+    s64 = bm.double() / torch.sqrt(torch.clamp(kbt[0] * kbt[1], min=1e-30))
+    u64 = k64 @ s64
+
+    def err(y, r):
+        e = ((y.double() - r).abs() / r.abs())[r != 0]
+        return float(e.max()), float(torch.quantile(e, 0.99))
+
+    for g, pv, r64 in ((got[0][:x.p], pl[0][:x.p], u64[:x.p]),
+                       (got[1], pl[1], s64)):
+        (g_max, g_p99), (p_max, p_p99) = err(g, r64), err(pv, r64)
+        assert g_max <= 1.5 * p_max and g_p99 <= 1.5 * p_p99, (
+            g_max, g_p99, p_max, p_p99)
+        d = ((g.double() - r64) * torch.sign(r64))[(r64 != 0)
+                                                   & (g.double() != r64)]
+        assert 0.25 < float((d < 0).double().mean()) < 0.75
 
 
 def _f64_strip(fa, fb):
@@ -1075,6 +1215,40 @@ def test_f32_kernels_match_plain_and_f64(cuda_device, p, n, img, d):
                                  terms[:, :50]),
                       1e-12 if d == 3 else NLM_ULP_FLOOR)
         del v64, terms, ft_c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 64 * 1031, 192])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_k8_f32_past_64_lanes_repeats_and_takes_every_n(cuda_device, d, n):
+    """K8 f32 at 84 and 124 live lanes (96- and 128-lane layouts) at p_pad
+    4096: two launches bit for bit, on n = 2^16, on an n that is a multiple
+    of 64 but not of the 128-column tile of the 128-lane layout (64 x
+    1031: its last tile is masked), and on fewer column tiles than the card
+    holds clusters (192): u and s against the plain version (the gross bar)
+    and against f64 (the 1.5x rule with the 4-ulp floor), s zero where bm
+    is."""
+    dev = cuda_device
+    fa, f_t = _card_layouts(dev, 4000, n, 2048, 4096, d=d)
+    live = -(-d // 4) * 4
+    rng = np.random.default_rng(n)
+    bm = torch.ones(n, device=dev)
+    bm[::7] = 0.0
+    t2 = torch.zeros((2, fa.shape[0]), device=dev)
+    t2[:, :4000] = torch.tensor(rng.uniform(0.5, 1.5, (2, 4000)).astype(
+        np.float32), device=dev)
+    args = (fa, f_t, t2, bm, False, live)
+    u, s = k79.ext2_matvec_cuda(*args)
+    u2, s2 = k79.ext2_matvec_cuda(*args)
+    assert torch.equal(u, u2) and torch.equal(s, s2)
+    u_p, s_p = k79.ext2_matvec_plain(*args)
+    u64, s64 = _ext2_f64(fa, f_t, t2, bm)
+    for got, ref, r64, keep in ((u, u_p, u64, 4000), (s, s_p, s64, n)):
+        assert float((got - ref).abs().max()) <= NLM_K8_GROSS * float(
+            ref.abs().max())
+        _within_plain(_rel_stats(got[:keep], r64[:keep]),
+                      _rel_stats(ref[:keep], r64[:keep]), NLM_ULP_FLOOR)
+    assert float(s[bm == 0].abs().max()) == 0.0
 
 
 @pytest.mark.gpu
