@@ -594,7 +594,7 @@ SOURCE = {
     "matvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_f32": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "colstats_v": "graphlap_tpu_torch/csrc/colstats_v.cu",
-    "kb_strip_f32": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "kb_strip_f32": "graphlap_tpu_torch/csrc/coord_store.cu",
     "ext2_matvec_f32": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
     "finish_colstats_f32": "graphlap_tpu_torch/csrc/colstats_v.cu",
     "colstats_v_f32": "graphlap_tpu_torch/csrc/colstats_v.cu",
@@ -603,7 +603,7 @@ SOURCE = {
     "strip_ext2_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich_spost_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
     "strip_sandwich_f32": "graphlap_tpu_torch/csrc/strip_sweeps.cu",
-    "affinity_strip_coord": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "affinity_strip_coord": "graphlap_tpu_torch/csrc/coord_store.cu",
     "affinity_strip_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
     "affinity_strip_f32_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
     "kb_strip_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
@@ -614,14 +614,14 @@ SOURCE = {
     "rmatvec_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "matvec_f32_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_f32_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
-    "kb_strip_f32_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
+    "kb_strip_f32_d64": "graphlap_tpu_torch/csrc/coord_store.cu",
     "ext2_matvec_f32_d64": "graphlap_tpu_torch/csrc/recompute_sweeps.cu",
     "finish_colstats_f32_d64": "graphlap_tpu_torch/csrc/colstats_v.cu",
     "colstats_v_f32_d64": "graphlap_tpu_torch/csrc/colstats_v.cu",
     "matvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
     "rmatvec_coord_d64": "graphlap_tpu_torch/csrc/recompute_matvec.cu",
-    "affinity_strip_coord_d64": "graphlap_tpu_torch/csrc/affinity_strip.cu",
-    "affinity_strip_coord_f32": "graphlap_tpu_torch/csrc/affinity_strip.cu",
+    "affinity_strip_coord_d64": "graphlap_tpu_torch/csrc/coord_store.cu",
+    "affinity_strip_coord_f32": "graphlap_tpu_torch/csrc/coord_store.cu",
 }
 # the f32 kernels on coordinate features (recipes B and C)
 COORD_ROWS = ("kb_strip_f32", "ext2_matvec_f32", "finish_colstats_f32",
@@ -3651,14 +3651,6 @@ def spill_lines(log: str) -> list:
             if "spill" in ln and not ln.strip().startswith("0 bytes")]
 
 
-def register_lines(log: str, kernel: str) -> dict:
-    """{name: its "Used N registers, ..." line} for every kernel whose name
-    holds ``kernel``."""
-    return {name: ln.split(":", 1)[-1].strip()
-            for name, ln in ptxas_lines(log)
-            if kernel in name and "Used" in ln}
-
-
 def sass_uses(build, kernel: str, opcode: str) -> dict:
     """{function name: whether its SASS holds ``opcode``} for every function
     of the built kernel library whose name holds ``kernel``
@@ -3708,9 +3700,15 @@ def main() -> None:
     (OUT / "ptxas.txt").write_text(_build.PTXAS_LOG)
     phase("build", f"{build_s:.1f} s; ptxas spill lines: "
           f"{spill_lines(_build.PTXAS_LOG)}")
-    phase("build", f"K1 coordinate kernels (C1FD 32, 64, 96, 128; bf16 and "
-          f"f32 stores), from -Xptxas -v: "
-          f"{register_lines(_build.PTXAS_LOG, 'affinity_coord_kernel')}")
+    store = [ln.strip() for name, ln in ptxas_lines(_build.PTXAS_LOG)
+             if "coord_store_kernel" in name and ("Used" in ln or "spill" in ln)]
+    phase("build", f"K1's coordinate cross and the f32 K7 (coord_store_kernel, "
+          f"one kernel at every lane count; K1's bf16 and f32 stores, K7's "
+          f"scaled f32 entry), from -Xptxas -v: {store}")
+    require(len([ln for ln in store if "Used" in ln]) == 3
+            and not any("spill" in ln and not ln.startswith("0 bytes")
+                        for ln in store),
+            "the coordinate store kernel is missing an epilogue or spills")
     coord = [ln.strip() for name, ln in ptxas_lines(_build.PTXAS_LOG)
              if "coord_tile_kernel" in name and ("Used" in ln or "spill" in ln)]
     phase("build", f"coordinate K5/K6 (coord_tile_kernel, one kernel at every "

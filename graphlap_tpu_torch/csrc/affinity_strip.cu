@@ -18,8 +18,8 @@
 // |f|^2) dropped; three fp16 passes are 0.27 ms at 989 TFLOP/s (0.53 ms
 // over 64 lanes). The bf16 entry's exp is one FMUL and one MUFU ex2
 // (kexp), 1.4e9 of them 0.33 ms; the f32 store keeps IEEE expf. Features
-// that carry coordinates take an IEEE f32 cross instead (affinity_coord_
-// kernel, at the end of the file).
+// that carry coordinates take an IEEE f32 cross instead (glt_affinity_coord,
+// coord_store.cu: one store tile with the f32 K7).
 //
 // Design: a prep kernel splits the sample rows once into m16n8k16 A
 // fragments (big and small fp16 per lane, per 16-row tile and k16 step),
@@ -397,178 +397,6 @@ int launch_split_affinity_fd(const float* a, const float* b, unsigned char* aspl
                   : launch_split_affinity<FD, false>(a, b, asplit, map, p, n, d, s);
 }
 
-// ---------------------------------------------------------------------------
-// coordinate features: the IEEE f32 cross
-// ---------------------------------------------------------------------------
-//
-// Features that carry (row, col) / spatial_h reach |f|^2 ~ 3e5 at 2048 x
-// 4096, where the split-fp16 cross's small part (an fp16 rounding, about
-// 2^-22 of |a||b|) loses about four times the IEEE f32 product's error.
-// For those the strip takes the cross of the reference's f32 class
-// (mma_common.cuh): an f32 FFMA chain over the d live lanes. A
-// 256-thread block owns a 32 x 256 unit: its rows and pixels in shared
-// memory (lanes d..d4 zero), each thread 8 rows by 4 adjacent pixels, so a
-// warp writes 512 (f32) or 256 (bf16) contiguous bytes a row by direct
-// vector stores, streamed (evict-first). The entry takes d2 as
-// (|a|^2 - a.b) + (|b|^2 - a.b), not d2f32's (|a|^2 + |b|^2) - 2 a.b: where
-// the entry lives each difference is exact (its terms lie within a factor
-// of two), so d2 loses the rounding of |a|^2 + |b|^2, about one f32 ulp of
-// |f|^2, which at 124 live lanes on 2048 x 4096 coordinates took the
-// kernel's max |dK| against f64 past the plain version's on an H100
-// (0.0762 against 0.0723; 0.0454 in this form,
-// tests/test_torch_bilateral.py). With up to 4 live lanes (the
-// gaussian recipes) the store bounds it: a block owns one unit, a thread
-// loads a pixel's lanes. With more (an NLM patch and the coordinates) a
-// block keeps its 256 pixels for 128 rows, 32 at a time (c1_rows), loaded
-// once by coalesced loads of their contiguous rows: one unit a block with
-// a thread a pixel read every pixel's lanes again for each 32 rows, 8.8
-// GB at 5248 x 262144 and 51 lanes, and ran at 7x the cross's bound
-// (PERF.md), 2.2 GB so. The bf16 entry keeps kexp, as the
-// split kernel's bf16 store does. The kernel is a template on its depth
-// C1FD: 32 (a 5 x 5 patch and two coordinates), 64 (7 x 7, 51 lanes, 52
-// read), 96 (9 x 9, 83 lanes, 84 read) or 128 (11 x 11, 123, 124 read); its
-// loops run over the d live lanes, so a feature set of 32 lanes or fewer
-// takes the same chains in each. At 64 the unit's pixels take 66.5 KB,
-// past the 48 KB of static shared memory, so every depth keeps the unit in
-// dynamic shared memory (c1_smem): 75 KB at 64 (three blocks an SM),
-// 112,640 B at 96 (two), 150,016 B at 128 (one), beside 1,152 B of static
-// norms. -Xptxas -v gives the bf16 store 80 registers at every depth, the
-// f32 store 64 with 16 bytes spilled to a 16-byte stack frame
-// (chip_smoke.py's build phase). At 5243 x
-// 262144 and 52 lanes the cross is 1.4e11 flop (2.1 ms at the f32 peak),
-// the bound beside the bf16 store's 0.82 ms; at 84 and 124 live lanes
-// 3.45 and 5.09 ms, where one block an SM (8 warps) leaves the FFMA chains
-// from shared memory short of warps at 128 lanes (PERF.md).
-constexpr int C1_THREADS = 256;
-constexpr int C1_TM = 32, C1_TN = 256;
-static_assert(C1_TN == C1_THREADS, "a thread a pixel of the unit");
-// rows a block walks on its pixels, for d feature lanes
-__host__ __device__ constexpr int c1_rows(int d) { return d <= 4 ? C1_TM : 4 * C1_TM; }
-constexpr int C1_LDB = C1_TN + 4;      // b_s row stride: lane-major pixels
-template <int C1FD>
-constexpr int C1_LDA_OF = C1FD + 4;    // a_s row stride (floats)
-template <int C1FD>
-constexpr size_t c1_smem() {
-  return sizeof(float) * ((size_t)C1_TM * C1_LDA_OF<C1FD> + (size_t)C1FD * C1_LDB);
-}
-
-template <int C1FD, bool BF16_OUT>
-__global__ __launch_bounds__(C1_THREADS) void affinity_coord_kernel(
-    const float* __restrict__ a, const float* __restrict__ b, void* __restrict__ out, int p,
-    int n, int d, int ld) {
-  constexpr int C1_LDA = C1_LDA_OF<C1FD>;
-  extern __shared__ __align__(16) float c1_sm[];
-  float* a_s = c1_sm;                        // [C1_TM][C1_LDA]
-  float* b_s = c1_sm + C1_TM * C1_LDA;       // [C1FD][C1_LDB]
-  __shared__ float na_s[C1_TM], nb_s[C1_TN];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int c0 = blockIdx.x * C1_TN;
-  const int d4 = (d + 3) & ~3;
-  // the unit's pixels (lanes d..d4 zero) and pixel tid's norm, in lane
-  // order as K1's split
-  if (d <= 4) {   // a thread a pixel (the gaussian recipes' 3 lanes)
-    const int j = c0 + tid;
-    float nrm = 0.f;
-    for (int k = 0; k < d4; ++k) {
-      const float x = (j < n && k < d) ? b[(size_t)j * d + k] : 0.f;
-      b_s[k * C1_LDB + tid] = x;
-      nrm = fmaf(x, x, nrm);
-    }
-    nb_s[tid] = nrm;
-  } else {   // the span of their rows, contiguous in b, one float a thread in
-             // turn (element i is pixel i / d, lane i % d: the float quotient
-             // is exact, as (i + 0.5) / d lies at least 0.5 / d from an integer)
-    const float inv_d = 1.f / (float)d;
-    const int span = min(C1_TN, n - c0) * d;
-    for (int i = tid; i < span; i += C1_THREADS) {
-      const int px = __float2int_rz(((float)i + 0.5f) * inv_d);
-      b_s[(i - px * d) * C1_LDB + px] = b[(size_t)c0 * d + i];
-    }
-    // pixel tid's pad lanes, and all its lanes past the last pixel
-    for (int k = c0 + tid < n ? d : 0; k < d4; ++k) b_s[k * C1_LDB + tid] = 0.f;
-    __syncthreads();
-    float nrm = 0.f;
-    for (int k = 0; k < d4; ++k) nrm = fmaf(b_s[k * C1_LDB + tid], b_s[k * C1_LDB + tid], nrm);
-    nb_s[tid] = nrm;
-  }
-  const int rw = (warp >> 1) * 8, jl = (warp & 1) * 128 + 4 * lane;   // 8 rows, 4 pixels
-  const bool active = c0 + jl < ld;
-  const int r_end = min(p, (int)(blockIdx.y + 1) * c1_rows(d));
-  for (int r0 = blockIdx.y * c1_rows(d); r0 < r_end; r0 += C1_TM) {
-    __syncthreads();                     // nb_s in; everyone done with a_s
-    for (int i = tid; i < C1_TM * d4; i += C1_THREADS) {
-      const int r = i / d4, k = i % d4;
-      a_s[r * C1_LDA + k] = (r0 + r < p && k < d) ? a[(size_t)(r0 + r) * d + k] : 0.f;
-    }
-    __syncthreads();
-    if (tid < C1_TM) {
-      float nrm = 0.f;
-      for (int k = 0; k < d4; ++k) nrm = fmaf(a_s[tid * C1_LDA + k], a_s[tid * C1_LDA + k], nrm);
-      na_s[tid] = nrm;
-    }
-    __syncthreads();
-    if (!active) continue;
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-    for (int k = 0; k < d4; k += 4) {
-      float4 bq[4];   // lanes k..k+3 of the 4 pixels
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        bq[q] = *reinterpret_cast<const float4*>(b_s + (k + q) * C1_LDB + jl);
-      const float4 b0 = make_float4(bq[0].x, bq[1].x, bq[2].x, bq[3].x);
-      const float4 b1 = make_float4(bq[0].y, bq[1].y, bq[2].y, bq[3].y);
-      const float4 b2 = make_float4(bq[0].z, bq[1].z, bq[2].z, bq[3].z);
-      const float4 b3 = make_float4(bq[0].w, bq[1].w, bq[2].w, bq[3].w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 av = *reinterpret_cast<const float4*>(a_s + (rw + i) * C1_LDA + k);
-        acc[i][0] = dot4(av, b0, acc[i][0]);
-        acc[i][1] = dot4(av, b1, acc[i][1]);
-        acc[i][2] = dot4(av, b2, acc[i][2]);
-        acc[i][3] = dot4(av, b3, acc[i][3]);
-      }
-    }
-    const float4 nb = *reinterpret_cast<const float4*>(nb_s + jl);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + rw + i;
-      if (r >= p) break;
-      const float na = na_s[rw + i];
-      float v[4];
-      const float nbv[4] = {nb.x, nb.y, nb.z, nb.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float d2 = fmaxf((na - acc[i][c]) + (nbv[c] - acc[i][c]), 0.f);
-        v[c] = BF16_OUT ? kexp(d2) : expf(-d2);
-      }
-      const size_t o = (size_t)r * ld + c0 + jl;
-      if (BF16_OUT)
-        __stcs(reinterpret_cast<uint2*>(static_cast<bf16*>(out) + o),
-               make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3])));
-      else
-        __stcs(reinterpret_cast<float4*>(static_cast<float*>(out) + o),
-               make_float4(v[0], v[1], v[2], v[3]));
-    }
-  }
-}
-
-// the coordinate kernel at depth C1FD
-template <int C1FD>
-int launch_affinity_coord(const float* a, const float* b, void* out, int p, int n, int d, int ld,
-                          int out_bf16, cudaStream_t s) {
-  constexpr size_t smem = c1_smem<C1FD>();
-  auto kernel = out_bf16 ? affinity_coord_kernel<C1FD, true> : affinity_coord_kernel<C1FD, false>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n + C1_TN - 1) / C1_TN, (p + c1_rows(d) - 1) / c1_rows(d));
-  kernel<<<grid, C1_THREADS, smem, s>>>(a, b, out, p, n, d, ld);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -603,23 +431,6 @@ int glt_affinity_strip(const void* a, const void* b, void* scratch, void* out, i
          : d <= 64 ? launch_split_affinity_fd<64>(af, bf, asplit, map, p, n, d, out_bf16, s)
          : d <= 96 ? launch_split_affinity_fd<96>(af, bf, asplit, map, p, n, d, out_bf16, s)
                    : launch_split_affinity_fd<128>(af, bf, asplit, map, p, n, d, out_bf16, s);
-}
-
-// K1 on coordinate features (the IEEE f32 cross), d <= 128 (the kernel of
-// the least depth of 32, 64, 96 and 128 that holds d). As
-// glt_affinity_strip without the scratch; ld a multiple of 4 (the wrapper
-// pads rows to 256 bytes), so the last vector of a row stays inside it.
-int glt_affinity_coord(const void* a, const void* b, void* out, int p, int n, int d, int ld,
-                       int out_bf16, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (p < 1 || n < 1 || d < 1 || d > 128 || ld < n || ld % 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  return d <= 32   ? launch_affinity_coord<32>(af, bf, out, p, n, d, ld, out_bf16, s)
-         : d <= 64 ? launch_affinity_coord<64>(af, bf, out, p, n, d, ld, out_bf16, s)
-         : d <= 96 ? launch_affinity_coord<96>(af, bf, out, p, n, d, ld, out_bf16, s)
-                   : launch_affinity_coord<128>(af, bf, out, p, n, d, ld, out_bf16, s);
 }
 
 }  // extern "C"

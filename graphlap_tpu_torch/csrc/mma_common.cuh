@@ -1,8 +1,10 @@
 // Helpers shared by the port's kernels (affinity_strip.cu, K1;
 // strip_sweeps.cu, K2-K4; recompute_sweeps.cu, K7/K8; recompute_matvec.cu,
-// K5/K6; colstats_v.cu, K9/K10): the bf16 and fp16 tensor-core instructions,
+// K5/K6; colstats_v.cu, K9/K10; coord_store.cu, K1 on coordinates and the
+// f32 K7): the bf16 and fp16 tensor-core instructions,
 // bf16 packing and rounding, the aug-layout tile entry and the bf16 entry's
-// fast exp, the IEEE f32 tile entry, the split-fp16 cross of f32 features,
+// fast exp, the IEEE f32 tile entry and the f32 layouts' norms pre-pass,
+// the split-fp16 cross of f32 features,
 // f32 operands as three bf16 parts on a grid (split3_grid),
 // ldmatrix and movmatrix,
 // cp.async staging, the A fragment of a k-major feature matrix, mbarriers,
@@ -98,6 +100,25 @@ __device__ __forceinline__ float d2f32(float nab, float cross) {
 
 // the f32 entry exp(-d2)
 __device__ __forceinline__ float kf32(float nab, float cross) { return expf(-d2f32(nab, cross)); }
+
+// each sample row's and each column's norm, the FMA chain over the first L
+// lanes in lane order (the tile entries' chain, so a pixel's d2 with itself
+// is 0): rows of the row-major fa (P, fd) into nrm[0, P), columns of the
+// k-major ft (fd, N) into nrm[P, P + N) (the f32 K7 and K8, K1 on
+// coordinates)
+__global__ void ext2_norms_kernel(const float* __restrict__ fa, const float* __restrict__ ft,
+                                  float* __restrict__ nrm, int P, int N, int fd, int L) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)P + N;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const bool row = i < (size_t)P;
+    const float* x = row ? fa + i * fd : ft + (i - P);
+    const size_t ld = row ? 1 : (size_t)N;
+    float s = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < L; ++k) s = fmaf(x[k * ld], x[k * ld], s);
+    nrm[i] = s;
+  }
+}
 
 // the aug entries of two d2 (K7, K8 past 64 lanes, the aug K5/K6 at 128),
 // bf16(exp(-bf16(max(d2, 0)))) packed (lo in the low half): d2 rounded to
@@ -233,6 +254,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// until at most N of the thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A fragment (16 fixed x 16 k) of a k-major (32, ld) bf16 matrix: A[m][k] =

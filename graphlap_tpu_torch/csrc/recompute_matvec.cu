@@ -806,11 +806,6 @@ __host__ __device__ constexpr size_t ct_smem_bytes(int L) {
 static_assert(ct_smem_bytes(CT_LMAX) + 1024 <= 233472 / CT_BLOCKS_SM,
               "coord tile: the blocks an SM fit its shared memory");
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // a block's walk over its split's streamed tiles: steps of tps tiles by nch
 // lane chunks of at most kc lanes. Up to 32 lanes a step holds as many
 // whole tiles as 32 lanes' room does (at most CT_TPS: 4 at 4 lanes, 1 at

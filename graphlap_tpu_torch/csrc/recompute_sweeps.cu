@@ -13,8 +13,9 @@
 // (aug_d_pad_of of NLM d=25), 64, 96 or 128 (of NLM d=49, 81 or 121: a 7 x
 // 7, 9 x 9 or 11 x 11 patch), a template parameter of each kernel. K9
 // (finish_colstats) shares K10's kernel in colstats_v.cu. The f32 layouts
-// (the bilateral recipes, spatial_h > 0) take kernels of their own,
-// kb_f32_kernel and ext2_f32_tile_kernel below, at the same four depths:
+// (the bilateral recipes, spatial_h > 0) take kernels of their own, K7's
+// store tile (glt_kb_strip_f32, coord_store.cu, with K1's coordinate cross)
+// and ext2_f32_tile_kernel below, at the same four depths:
 // the reference's f32 _kb_tile class, an IEEE f32 FFMA cross over the live
 // lanes, f32 norms and expf, no bf16 rounding point.
 //
@@ -126,11 +127,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 // The bf16 aug kernels (K7, K8) take the feature depth FD as a template
-// parameter: 32 (aug_d_pad_of of NLM d 25) or 64 (of NLM d 49, a 7 x 7
-// patch). So do the f32 kernels (K7 f32, K8 f32): 32 (a 5 x 5 patch and
-// the coordinates, or gaussian + coordinates) or 64 (a 7 x 7 patch and the
-// coordinates, 52 live lanes); their arithmetic runs over the live lanes,
-// so a 32-lane layout takes the same chains in either instantiation.
+// parameter: 32 (aug_d_pad_of of NLM d 25), 64, 96 or 128 (of NLM d 49, 81
+// or 121: a 7 x 7, 9 x 9 or 11 x 11 patch). The f32 K8 reads the live lanes
+// at run time (the f32 K7 too, in coord_store.cu), so every layout takes the
+// same chains.
 
 // ---------------------------------------------------------------------------
 // K7: the column-scaled tile emitter (aug layout), persistent blocks
@@ -654,111 +654,6 @@ __global__ __launch_bounds__(X_THREADS, 1) void ext2_matvec_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K7, f32 layout: the column-scaled f32 tile
-// ---------------------------------------------------------------------------
-//
-// out[p, j] = exp(-max((na_p + nb_j) - 2 cross, 0)) * cols_j in f32, the
-// reference's f32 class (kf32): the cross an f32 FFMA chain over the live
-// lanes, the norms f32 FFMA chains over the same lanes, no bf16 rounding
-// point. At the 8 MP gram shape (p_pad 4096, 131072 columns) it stores 2.15
-// GB of f32 (0.64 ms at 3.35 TB/s) for 5.4e8 entries (their exps 0.13 ms):
-// bound by the store; at 52 live lanes the cross, 2 live flop an entry,
-// is 5.6e10 flop (0.84 ms at the 67 TFLOP/s f32 peak), the bound. A
-// 256-thread block owns a 32 x 256 unit, its rows and f_t columns in
-// shared memory; a thread computes 8 rows by 4 adjacent columns and writes
-// each row's four as one streamed (evict-first) 16-byte store, so a warp
-// writes 512 contiguous bytes a row. The kernel is a template on the
-// layout's depth FD (32, 64, 96 or 128): at 64 the f_t columns take 66.5
-// KB, past the 48 KB of static shared memory, so every depth keeps its
-// rows and columns in dynamic shared memory (kb_f32_smem: 112,640 and
-// 150,016 bytes at 96 and 128, one block an SM); at 84 and 124 live lanes
-// (an NLM 9 x 9 or 11 x 11 patch and the coordinates) the cross is 2 live
-// flop an entry, 9.1e10 and 1.3e11 flop at the gram shape, 1.35 and 1.99
-// ms at the f32 peak, the bound beside the store's 0.64.
-constexpr int EF_THREADS = 256;
-constexpr int EF_TM = 32, EF_TN = 256;
-template <int FD>
-constexpr int EF_LDA_OF = FD + 4;   // fa_s row stride (floats)
-constexpr int EF_LDB = EF_TN + 4;   // ft_s row stride (floats)
-template <int FD>
-constexpr size_t kb_f32_smem() {
-  return sizeof(float) * ((size_t)EF_TM * EF_LDA_OF<FD> + (size_t)FD * EF_LDB);
-}
-
-template <int FD>
-__global__ __launch_bounds__(EF_THREADS) void kb_f32_kernel(
-    const float* __restrict__ fa,    // (P, FD)
-    const float* __restrict__ ft,    // (FD, S)
-    const float* __restrict__ cols,  // (S)
-    float* __restrict__ out,         // (P, S)
-    int S, int live) {
-  constexpr int EF_LDA = EF_LDA_OF<FD>;
-  extern __shared__ __align__(16) float ef_smem[];
-  float* fa_s = ef_smem;                      // [EF_TM][EF_LDA]
-  float* ft_s = ef_smem + EF_TM * EF_LDA;     // [FD][EF_LDB]
-  __shared__ __align__(16) float na_s[EF_TM], nb_s[EF_TN];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.y * EF_TM, c0 = blockIdx.x * EF_TN;
-  const int wcols = min(EF_TN, S - c0);   // S % 128 == 0: 128 or 256
-  const int l4 = live / 4;
-  for (int i = tid; i < EF_TM * l4; i += EF_THREADS) {
-    const int r = i / l4, q = i % l4;
-    *reinterpret_cast<float4*>(fa_s + r * EF_LDA + 4 * q) =
-        *reinterpret_cast<const float4*>(fa + (size_t)(r0 + r) * FD + 4 * q);
-  }
-  for (int i = tid; i < live * (wcols / 4); i += EF_THREADS) {
-    const int k = i / (wcols / 4), q = i % (wcols / 4);
-    *reinterpret_cast<float4*>(ft_s + k * EF_LDB + 4 * q) =
-        *reinterpret_cast<const float4*>(ft + (size_t)k * S + c0 + 4 * q);
-  }
-  __syncthreads();
-  if (tid < wcols) {
-    float s = 0.f;
-    for (int k = 0; k < live; ++k) s = fmaf(ft_s[k * EF_LDB + tid], ft_s[k * EF_LDB + tid], s);
-    nb_s[tid] = s;
-  }
-  if (tid < EF_TM) {
-    float s = 0.f;
-    for (int k = 0; k < live; ++k) s = fmaf(fa_s[tid * EF_LDA + k], fa_s[tid * EF_LDA + k], s);
-    na_s[tid] = s;
-  }
-  __syncthreads();
-  const int rw = (warp >> 1) * 8, jl = (warp & 1) * 128 + 4 * lane;   // 8 rows, 4 columns
-  if (jl >= wcols) return;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  for (int k = 0; k < live; k += 4) {
-    float4 bq[4];   // lanes k..k+3 of the 4 columns
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bq[q] = *reinterpret_cast<const float4*>(ft_s + (k + q) * EF_LDB + jl);
-    const float4 b0 = make_float4(bq[0].x, bq[1].x, bq[2].x, bq[3].x);
-    const float4 b1 = make_float4(bq[0].y, bq[1].y, bq[2].y, bq[3].y);
-    const float4 b2 = make_float4(bq[0].z, bq[1].z, bq[2].z, bq[3].z);
-    const float4 b3 = make_float4(bq[0].w, bq[1].w, bq[2].w, bq[3].w);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 av = *reinterpret_cast<const float4*>(fa_s + (rw + i) * EF_LDA + k);
-      acc[i][0] = dot4(av, b0, acc[i][0]);
-      acc[i][1] = dot4(av, b1, acc[i][1]);
-      acc[i][2] = dot4(av, b2, acc[i][2]);
-      acc[i][3] = dot4(av, b3, acc[i][3]);
-    }
-  }
-  const float4 nb = *reinterpret_cast<const float4*>(nb_s + jl);
-  const float4 cs = *reinterpret_cast<const float4*>(cols + c0 + jl);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float na = na_s[rw + i];
-    __stcs(reinterpret_cast<float4*>(out + (size_t)(r0 + rw + i) * S + c0 + jl),
-           make_float4(kf32(na + nb.x, acc[i][0]) * cs.x, kf32(na + nb.y, acc[i][1]) * cs.y,
-                       kf32(na + nb.z, acc[i][2]) * cs.z, kf32(na + nb.w, acc[i][3]) * cs.w));
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K8, f32 layout: a register tile over the live lanes, clusters of 8 or 16
 // ---------------------------------------------------------------------------
 //
@@ -862,24 +757,6 @@ __host__ __device__ constexpr size_t xf_smem(int L, int rb) {
 }
 static_assert(xf_smem(96, xf_rb(96)) <= 232448 && xf_smem(128, xf_rb(128)) <= 232448,
               "ext2 f32: a block fits the SM's shared memory at every depth");
-
-// each sample row's and each column's norm, the FMA chain over the first L
-// lanes in lane order (the tile entries' chain, so a pixel's d2 with itself
-// is 0): rows of the row-major fa (P, fd) into nrm[0, P), columns of the
-// k-major ft (fd, N) into nrm[P, P + N)
-__global__ void ext2_norms_kernel(const float* __restrict__ fa, const float* __restrict__ ft,
-                                  float* __restrict__ nrm, int P, int N, int fd, int L) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)P + N;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const bool row = i < (size_t)P;
-    const float* x = row ? fa + i * fd : ft + (i - P);
-    const size_t ld = row ? 1 : (size_t)N;
-    float s = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < L; ++k) s = fmaf(x[k * ld], x[k * ld], s);
-    nrm[i] = s;
-  }
-}
 
 __device__ __forceinline__ float f4at(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -1137,19 +1014,6 @@ bool ext2_f32_shape_ok(int P, int N, int fd) {
          P % 512 == 0 && N > 0 && N % 64 == 0;
 }
 
-// K7 f32's launch at depth FD: a grid of 32 x 256 units
-template <int FD>
-int launch_kb_f32(const float* fa, const float* ft, const float* cols, float* out, int P, int S,
-                  int live, cudaStream_t s) {
-  constexpr size_t smem = kb_f32_smem<FD>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      kb_f32_kernel<FD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + EF_TN - 1) / EF_TN, P / EF_TM);
-  kb_f32_kernel<FD><<<grid, EF_THREADS, smem, s>>>(fa, ft, cols, out, S, live);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K8's kernel for P sample rows (P = 512 NB, NB in 1..8) of FD lanes, or null
 typedef void (*ext2_fn)(const bf16*, const bf16*, const bf16*, const float*, float*, float*,
                         int, int);
@@ -1224,25 +1088,6 @@ int glt_kb_strip(const void* fa, const void* ft, const void* cols, void* out, in
          : fd == 64 ? launch_kb_strip<64>(fa, ft, cols, out, P, S, s)
          : fd == 96 ? launch_kb_strip<96>(fa, ft, cols, out, P, S, s)
                     : launch_kb_strip<128>(fa, ft, cols, out, P, S, s);
-}
-
-// K7, f32 layout of fd lanes (32, 64, 96 or 128). P % 32 == 0, S % 128 ==
-// 0, live % 4 == 0 in [4, fd], fa, ft, cols and out 16-byte aligned (the
-// wrapper checks); a grid of 32 x 256 units.
-int glt_kb_strip_f32(const void* fa, const void* ft, const void* cols, void* out, int P, int S,
-                     int live, int fd, void* stream) {
-  if (P < EF_TM || S < 128 || P % EF_TM || S % 128 ||
-      (fd != 32 && fd != 64 && fd != 96 && fd != 128) || live < 4 || live > fd || live % 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(fa);
-  const float* b = static_cast<const float*>(ft);
-  const float* c = static_cast<const float*>(cols);
-  float* o = static_cast<float*>(out);
-  return fd == 32   ? launch_kb_f32<32>(a, b, c, o, P, S, live, s)
-         : fd == 64 ? launch_kb_f32<64>(a, b, c, o, P, S, live, s)
-         : fd == 96 ? launch_kb_f32<96>(a, b, c, o, P, S, live, s)
-                    : launch_kb_f32<128>(a, b, c, o, P, S, live, s);
 }
 
 // how many f32 K8 clusters to launch for P sample rows of fd lanes (32, 64,

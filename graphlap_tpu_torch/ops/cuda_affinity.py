@@ -13,13 +13,14 @@ strip (the bfloat16_store policy). The split cross takes up to ``D_PAD``
 feature lanes, the reference's widest layout, in four instantiations of
 the kernel: 32 lanes (NLM patches up to 5 x 5), 64 (a 7 x 7 patch, 49
 lanes), 96 (9 x 9, 81) and 128 (11 x 11, 121), both stores. Features that
-carry coordinates (``coords``: the config's ``spatial_h > 0``) take the
-kernel's IEEE f32 cross instead (an FFMA chain over the live lanes), in
-four instantiations too: 32 (a gaussian or an NLM 5 x 5 patch and the
-coordinates), 64 (7 x 7, 51 lanes), 96 (9 x 9, 83) and 128 (11 x 11,
-123), both stores: (row, col) / spatial_h reach |f|^2 ~ 3e5 at 8 MP,
-where the split's fp16 small part loses about four times the f32
-product's error.
+carry coordinates (``coords``: the config's ``spatial_h > 0``) take an
+IEEE f32 cross instead (an FFMA chain over d rounded up to 4 lanes, read at
+run time: 4 for a gaussian, 28, 52, 84 or 124 for an NLM 5 x 5 to 11 x 11
+patch and the coordinates), both stores, in the register-tiled store
+kernel it shares with the f32 K7 (``csrc/coord_store.cu``, after a
+pre-pass that lays the features out as K7's layouts lie): (row, col) /
+spatial_h reach |f|^2 ~ 3e5 at 8 MP, where the split's fp16 small part
+loses about four times the f32 product's error.
 
 Dispatch: tensors on the CPU take ``affinity_strip_plain`` (the same
 arithmetic in PyTorch ops); CUDA tensors launch the kernel; anything else
@@ -28,14 +29,22 @@ raises. There is no fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
-D_PAD = 128              # the reference's widest feature layout (csrc FD and
-                         # C1FD 32, 64, 96, 128)
+D_PAD = 128              # the reference's widest feature layout (csrc FD 32,
+                         # 64, 96, 128)
 # row pitch of the kernel's output where N is ragged
 ROW_BYTES = 256
+STORE_ROWS = 128         # the coordinate store kernel's rows a block (csrc CS_FT)
+STORE_COLS = 128         # and columns a tile (CS_ST)
+STORE_KC = 32            # lanes a column stage holds at most (CS_KC)
+STORE_TPS = 4            # and column tiles (CS_TPS)
+# its epilogues (csrc CS_BF16, CS_F32, CS_SCALED): K1's two stores, the f32 K7
+EPI_BF16, EPI_F32, EPI_SCALED = 0, 1, 2
 # column chunk of the plain version: its f64 exp of a whole dense-path
 # strip (5243 x 256901) would hold some 38 GB of transients
 PLAIN_CHUNK = 65536
@@ -58,6 +67,54 @@ def _out_dtype(store_dtype) -> torch.dtype:
         raise ValueError(f"store_dtype must be None, float32 or bfloat16, "
                          f"got {store_dtype}")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _waves_plan(blocks: int, groups: int, slots: int) -> int:
+    """The column splits (none empty) that finish ``blocks`` row blocks of
+    ``groups`` column groups soonest on ``slots`` resident blocks, counting
+    whole waves of blocks of equal walks, each walk its groups plus one for
+    staging its rows."""
+    best = None
+    for want in range(1, groups + 1):
+        per = -(-groups // want)
+        splits = -(-groups // per)
+        cost = -(-blocks * splits // slots) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
+def store_groups(cols: int, lanes: int) -> int:
+    """The column groups of the coordinate store kernel's walk: its tiles
+    of ``STORE_COLS`` columns, as many a group as one stage holds (up to
+    ``STORE_TPS`` at ``STORE_KC`` lanes or fewer, else one)."""
+    tiles = -(-cols // STORE_COLS)
+    tps = min(STORE_TPS, STORE_KC // lanes) if lanes <= STORE_KC else 1
+    return -(-tiles // tps)
+
+
+def store_plan(rows: int, cols: int, lanes: int, epi: int) -> int:
+    """Column splits of a coordinate store launch (``csrc/coord_store.cu``)
+    over ``rows`` sample rows and ``cols`` columns at ``lanes`` lanes with
+    epilogue ``epi``: whole waves of the kernel's resident blocks
+    (``glt_coord_store_slots``) where they fit, else the fewest waves."""
+    slots = _build.lib().glt_coord_store_slots(epi, lanes)
+    if slots <= 0:
+        _build.check(-slots if slots < 0 else 1,
+                     "coord store: no block fits the card")
+    return _waves_plan(-(-rows // STORE_ROWS), store_groups(cols, lanes),
+                       slots)
+
+
+def coord_scratch_floats(p: int, n: int, d: int) -> int:
+    """Floats of K1's coordinate scratch: the pre-pass's rows (p_pad, L)
+    and pixels (L, n_pad), then their norms, L = d rounded up to 4, p_pad
+    and n_pad p and n rounded up to the store kernel's 128."""
+    lanes = -(-d // 4) * 4
+    p_pad = -(-p // STORE_ROWS) * STORE_ROWS
+    n_pad = -(-n // STORE_COLS) * STORE_COLS
+    return (p_pad + n_pad) * (lanes + 1)
 
 
 def affinity_strip_plain(feats_a: torch.Tensor, feats_all: torch.Tensor,
@@ -123,8 +180,13 @@ def affinity_strip_cuda(feats_a: torch.Tensor, feats_all: torch.Tensor,
     out = torch.empty((p, ld), dtype=out_dtype, device=feats_a.device)
     bf16_out = int(out_dtype == torch.bfloat16)
     if coords:
-        rc = lib.glt_affinity_coord(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                    p, n, d, ld, bf16_out,
+        scratch = torch.empty(coord_scratch_floats(p, n, d),
+                              dtype=torch.float32, device=feats_a.device)
+        splits = store_plan(p, n, -(-d // 4) * 4,
+                            EPI_BF16 if bf16_out else EPI_F32)
+        rc = lib.glt_affinity_coord(a.data_ptr(), b.data_ptr(),
+                                    scratch.data_ptr(), out.data_ptr(), p, n,
+                                    d, ld, bf16_out, splits,
                                     _build.stream_ptr(a))
     else:
         scratch = torch.empty(lib.glt_affinity_scratch_bytes(p, d),

@@ -32,14 +32,16 @@ on the card); CUDA tensors launch ``csrc/recompute_sweeps.cu`` (K7, K8) or
 ``csrc/colstats_v.cu`` (K10's V pass; the bf16 K9 is a ks pass over all of
 p, then the same V pass with c = s; the f32 K9 forms each entry once, with
 ks from the same sums as V) on the two layouts the presets build, each
-with 32, 64, 96 or 128 feature lanes (each kernel is a template on its
-depth): bf16 (aug for K7/K8, plain for K9/K10; an NLM 5 x 5, 7 x 7, 9 x 9
+with 32, 64, 96 or 128 feature lanes (the bf16 kernels are templates on
+their depth): bf16 (aug for K7/K8, plain for K9/K10; an NLM 5 x 5, 7 x 7, 9 x 9
 or 11 x 11 patch), and f32 plain (the bilateral recipes, ``spatial_h >
 0``: gaussian or an NLM 5 x 5 patch with the coordinates, 4 or 28 live
 lanes of 32, or an NLM 7 x 7, 9 x 9 or 11 x 11 patch with them, 52, 84 or
 124 live lanes of 64, 96 or 128), whose kernels form each entry with an
 IEEE f32 FFMA cross over the ``live`` lanes (the caller's feature width
-rounded up to 4; None reads all of them) and expf (the f32 K9 / K10 then
+rounded up to 4; None reads all of them) and expf (the f32 K7 in the
+register-tiled store kernel it shares with K1's coordinate cross,
+``csrc/coord_store.cu``; the f32 K9 / K10 then
 run V and ks on the tensor cores, each f32 operand in three bf16 parts:
 f32-exact products, rounded to nearest). The plain-bf16 K7/K8
 layout and an f32 aug layout raise ``NotImplementedError`` (no preset
@@ -51,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .cuda_affinity import _device_kind
+from .cuda_affinity import EPI_SCALED, _device_kind, store_plan
 from .linalg import mm_f32
 from .recompute_layout import FINISH_EPS, _require_whole_p
 from .streaming import _chunks
@@ -270,9 +272,13 @@ def kb_strip_cuda(fa, f_t, cols, aug: bool = False, live=None):
     fa, f_t, cb = _aligned(fa, f_t, _f32(cols) if f32 else _bf16(cols))
     lib = _build.lib()
     if f32:
+        # the norms' pre-pass, then the coordinate store kernel
+        # (csrc/coord_store.cu) over (p / 128 row blocks, splits)
+        norms = torch.empty(p + s, dtype=_F32, device=fa.device)
+        splits = store_plan(p, s, lanes, EPI_SCALED)
         rc = lib.glt_kb_strip_f32(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
-                                  out.data_ptr(), p, s, lanes, fd,
-                                  _build.stream_ptr(fa))
+                                  norms.data_ptr(), out.data_ptr(), p, s,
+                                  lanes, fd, splits, _build.stream_ptr(fa))
     else:
         rc = lib.glt_kb_strip(fa.data_ptr(), f_t.data_ptr(), cb.data_ptr(),
                               out.data_ptr(), p, s, fd, _build.stream_ptr(fa))

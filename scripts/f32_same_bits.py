@@ -17,7 +17,8 @@ and a one-hot vector, which write a tile column or row exactly: each entry
 plus exact zeros; their sums of many entries run in another order by
 design since the register-tiled kernel) and K1's coordinate cross
 (``affinity_strip_cuda`` with ``coords``, both stores), each through its
-checkout's own wrapper and library, on the same inputs:
+checkout's own wrapper and library, on the same inputs (K7 also at 131
+column tiles, and K1 also at 300 x 65499, rows and pixels ragged):
 features as the bilateral recipes build them (d - 2 value lanes, then
 row / 8 and col / 8 of a 2048 x 4096 image, sample rows 4000, 65536
 columns, seeded), d = 3 (the gaussian bilateral recipe, 4 live lanes), d
@@ -49,6 +50,10 @@ DEPTHS = (3, 27, 51, 83, 123)
 # sample rows
 COLS = (0, 777, 12345, 40000, 65535)
 ROWS = (0, 5, 1234, 2500, 3999)
+# K1's ragged shape (sample rows not a multiple of the store kernel's 128,
+# pixels not of its 128-column tile) and K7's 131 column tiles
+RAGGED = (300, 65499)
+K7_TILES = 131
 
 
 def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
@@ -85,7 +90,8 @@ def inputs(d: int, dev, p: int = 4000, n: int = 65536, seed: int = 1) -> dict:
                 s_pre=pos(n) * bm, y=pos(n), v=pos(n),
                 na=torch.sum(fa * fa, dim=1), nb=torch.sum(f_t * f_t, dim=0),
                 a3=fa[:512, :d].contiguous(), b3=f_t[:d, :1 << 16].T.contiguous(),
-                live=-(-d // 4) * 4)
+                a3r=fa[:RAGGED[0], :d].contiguous(),
+                b3r=f_t[:d, :RAGGED[1]].T.contiguous(), live=-(-d // 4) * 4)
 
 
 def one_hot(n: int, at, dev) -> list:
@@ -132,6 +138,13 @@ def run(dev) -> dict:
                 x["a3"], x["b3"], coords=True),
             "affinity_strip_coord_bf16": lambda: k1.affinity_strip_cuda(
                 x["a3"], x["b3"], torch.float32, torch.bfloat16, coords=True),
+            "kb_strip_f32 131 tiles": lambda: k79.kb_strip_cuda(
+                fa, f_t[:, :128 * K7_TILES].contiguous(),
+                x["cols"][:128 * K7_TILES], False, lv),
+            "affinity_strip_coord_f32 300 x 65499": lambda: k1.affinity_strip_cuda(
+                x["a3r"], x["b3r"], coords=True),
+            "affinity_strip_coord_bf16 300 x 65499": lambda: k1.affinity_strip_cuda(
+                x["a3r"], x["b3r"], torch.float32, torch.bfloat16, coords=True),
         }
         for name, fn in cases.items():
             got = fn()

@@ -83,7 +83,7 @@ GROUPS = (
                      r"colstats_v_kernel|ks_kernel|reduce_partials|"
                      r"affinity_coord_kernel|coord_tile_kernel|coord_norms_kernel|"
                      r"coord_sum_kernel|"
-                     r"kb_f32_kernel|"
+                     r"kb_f32_kernel|coord_store_kernel|coord_pack_kernel|"
                      r"ext2_f32_kernel|ext2_f32_tile_kernel|ext2_norms_kernel|"
                      r"colstats_tc_kernel|split_cols_kernel|"
                      r"colstats_f32_kernel|colstats_f32_wide_kernel|ks_f32_kernel"),

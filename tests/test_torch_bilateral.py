@@ -827,13 +827,20 @@ def test_f32_cuda_layouts_reach_the_library(monkeypatch, d, fd):
     library (here missing, so its RuntimeError), never to the plain
     versions: the f32 K7-K10, the coordinate K5/K6 and K1's coordinate
     cross at every depth; K5/K6 take the coordinate kernel only where
-    asked. Coordinate features past 128 lanes raise ValueError in K1, and
-    live lanes past the layout's in K7 and K5, all before any launch."""
+    asked. No plain version runs (each raises here if called). Coordinate
+    features past 128 lanes raise ValueError in K1, and live lanes past the
+    layout's in K7 and K5, all before any launch."""
     def no_lib():
         raise RuntimeError("kernel library unavailable")
 
+    def no_plain(*args, **kw):
+        raise AssertionError("a CUDA wrapper took its plain version")
+
     for mod in (k79, k56, k1):
         monkeypatch.setattr(mod, "_device_kind", lambda *ts: "cuda")
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(mod, name, no_plain)
     monkeypatch.setattr(_build, "lib", no_lib)
     fa, f_t = _f32_layouts(d=d, fd=fd)
     live = -(-d // 4) * 4
@@ -924,6 +931,86 @@ def test_coord_launch_plan_serves_every_wrapper_shape(monkeypatch):
     assert k56._coord_plan(MP8, 4096, 124) == 1
     with pytest.raises(ValueError, match="128-entry"):
         k56._coord_plan(4096 + 64, MP8, 124)
+
+
+def test_coord_store_plan_serves_every_wrapper_shape(monkeypatch):
+    """K1's coordinate cross and the f32 K7 reach their entry points
+    (``glt_affinity_coord``, ``glt_kb_strip_f32``: the coordinate store
+    kernel) at every shape the paths pass, with the lanes they read (d
+    rounded up to 4; ``_lanes(live, fd)``), the column splits of
+    ``store_plan`` (whole waves of 264 resident blocks where they fit,
+    none empty) and scratch of the size the kernel lays out: K1 at config 1
+    fast's 2688 x 2^18, recipe A's 5248 x 2^18 and the dense route's K_AB
+    5243 x 256901 (rows of 256901 padded to 256 bytes), both stores, at d =
+    3, 27, 51, 83, 123; K7 at the gram shape 4096 x 131072 and at one
+    128-column tile. Meta tensors: no memory, no card."""
+    calls, slots_asked, empties = [], [], []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        empties.append(t.shape)
+        return t
+
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(
+        glt_coord_store_slots=lambda epi, lv: slots_asked.append(
+            (epi, lv)) or 264,
+        glt_affinity_coord=lambda *a: calls.append(("k1",) + a[4:10]) or 0,
+        glt_kb_strip_f32=lambda *a: calls.append(("k7",) + a[5:10]) or 0))
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    monkeypatch.setattr(torch, "empty", empty)
+    for mod in (k1, k79):
+        monkeypatch.setattr(mod, "_device_kind", lambda *ts: "cuda")
+    meta = torch.device("meta")
+    for p, n in ((2688, 1 << 18), (5248, 1 << 18), (5243, 256901)):
+        for d in (3, 27, 51, 83, 123):
+            lv = -(-d // 4) * 4
+            p_pad, n_pad = -(-p // 128) * 128, -(-n // 128) * 128
+            for store, epi, per in ((torch.float32, k1.EPI_F32, 64),
+                                    (torch.bfloat16, k1.EPI_BF16, 128)):
+                del empties[:]
+                out = k1.affinity_strip_cuda(
+                    torch.zeros((p, d), device=meta),
+                    torch.zeros((n, d), device=meta), torch.float32, store,
+                    coords=True)
+                ld = -(-n // per) * per
+                assert out.shape == (p, n) and out.dtype == store
+                assert out.stride(0) == ld and (ld * store.itemsize) % 256 == 0
+                assert (p_pad + n_pad) * (lv + 1) in [e.numel()
+                                                      for e in empties]
+                assert slots_asked[-1] == (epi, lv)
+                tag, gp, gn, gd, gld, gbf, splits = calls[-1]
+                assert (tag, gp, gn, gd, gld, gbf) == (
+                    "k1", p, n, d, ld, int(store == torch.bfloat16))
+                groups = -(-(n_pad // 128) // (4 if lv == 4 else 1))
+                per_split = -(-groups // splits)
+                assert k1.store_groups(n, lv) == groups
+                assert 1 <= splits <= groups
+                assert per_split * (splits - 1) < groups    # none empty
+                assert splits == k1._waves_plan(p_pad // 128, groups, 264)
+    for fd, d, s in ((32, 3, 1 << 17), (32, 27, 1 << 17), (64, 51, 1 << 17),
+                     (96, 83, 1 << 17), (128, 123, 1 << 17), (128, 123, 128)):
+        live = -(-d // 4) * 4
+        del empties[:]
+        out = k79.kb_strip_cuda(torch.zeros((4096, fd), device=meta),
+                                torch.zeros((fd, s), device=meta),
+                                torch.ones(s, device=meta), False, live)
+        assert out.shape == (4096, s) and out.dtype == torch.float32
+        assert torch.Size([4096 + s]) in empties
+        assert slots_asked[-1] == (k1.EPI_SCALED, k79._lanes(live, fd))
+        tag, gp, gs, glive, gfd, splits = calls[-1]
+        assert (tag, gp, gs, glive, gfd) == ("k7", 4096, s, live, fd)
+        groups = -(-(s // 128) // (4 if live == 4 else 1))
+        assert k1.store_groups(s, live) == groups
+        assert 1 <= splits <= groups
+        assert splits == k1._waves_plan(32, groups, 264)
+    # the gram sweep fills one wave (32 row blocks x 8 splits on 264
+    # slots); recipe A's K1 five (41 x 32), config 1 fast's (4 lanes: 4
+    # tiles a group) one (21 x 12)
+    assert k1._waves_plan(32, 1024, 264) == 8
+    assert k1._waves_plan(41, 2048, 264) == 32
+    assert k1._waves_plan(21, 512, 264) == 12
+    assert k1._waves_plan(32, 1, 264) == 1
 
 
 @pytest.mark.parametrize("kind", ["nlm9", "nlm11"])
@@ -1276,6 +1363,46 @@ def test_coordinate_cross_against_f64(cuda_device, img, d):
                                 coords=True)
     assert float((bf.double() - t64).abs().max()) <= plain[0] + 2.0 ** -8
     _coord_k56_against_f64(fa, f_t, t64, live)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", LIVE_D + WIDE_D)
+def test_coord_store_ragged_repeats_and_matches_the_padded_launch(
+        cuda_device, d):
+    """The coordinate store kernel at 4, 28, 52, 84 and 124 lanes on ragged
+    shapes: K1 (both stores) at p = 300 sample rows (not a multiple of the
+    block's 128) and n = 65499 pixels (its last tile part masked, rows
+    padded to 256 bytes), K7 f32 at p_pad 512 and S = 128 x 131 columns
+    (tiles that do not divide among the splits). Two launches agree bit for
+    bit, and each entry equals the same entry of a launch on whole blocks
+    and tiles (p 512, n 65536; S 2^17), whose rows, columns and splits
+    differ: an entry depends on its row and column alone. That these
+    shapes give the bits of the kernels the store kernel replaced is
+    scripts/f32_same_bits.py's check (its ragged rows)."""
+    dev = cuda_device
+    fa, f_t = _card_layouts(dev, 512, 1 << 17, 2048, 4096, d=d)
+    live = -(-d // 4) * 4
+    p, n = 300, 65499
+    for store in (None, torch.bfloat16):
+        args = (torch.float32, store, True)
+        got = k1.affinity_strip_cuda(fa[:p, :d].contiguous(),
+                                     f_t[:d, :n].T.contiguous(), *args)
+        again = k1.affinity_strip_cuda(fa[:p, :d].contiguous(),
+                                       f_t[:d, :n].T.contiguous(), *args)
+        whole = k1.affinity_strip_cuda(fa[:, :d].contiguous(),
+                                       f_t[:d, :65536].T.contiguous(), *args)
+        assert got.shape == (p, n)
+        assert torch.equal(got, again)
+        assert torch.equal(got, whole[:p, :n])
+    cols = torch.rand(f_t.shape[1], device=dev) + 0.5
+    s = 128 * 131
+    got = k79.kb_strip_cuda(fa, f_t[:, :s].contiguous(), cols[:s], False,
+                            live)
+    again = k79.kb_strip_cuda(fa, f_t[:, :s].contiguous(), cols[:s], False,
+                              live)
+    whole = k79.kb_strip_cuda(fa, f_t, cols, False, live)
+    assert torch.equal(got, again)
+    assert torch.equal(got, whole[:, :s])
 
 
 def _coord_k56_against_f64(fa, f_t, t64, live):

@@ -239,6 +239,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert _build.lib_path().name.startswith("libglt_kernels_")
     assert {p.name for p in _build.sources()} == {"affinity_strip.cu",
                                                    "colstats_v.cu",
+                                                   "coord_store.cu",
                                                    "recompute_matvec.cu",
                                                    "recompute_sweeps.cu",
                                                    "strip_sweeps.cu"}

@@ -682,7 +682,7 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     out = _build.build()
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.sources()) == 5
+    assert len(compiles) == len(_build.sources()) == 6
     assert all("sm_90a" in c for c in compiles)
     assert len(calls) == len(compiles) + 1 and "-shared" in calls[-1]
     assert out == _build.lib_path() and out.exists()
